@@ -3,14 +3,20 @@ hand-written CUDA kernels for the NVIDIA H100 (sm_90a).
 
 Layout mirrors ``aha_tpu`` so each module has a named counterpart:
 
-  bridge            - JAX param tree -> dict of tensors
-  ops               - RoPE, letterbox, pooling, int8 weights, ring-buffer
-                      KV cache, cached attention
+  config            - model shapes, presets, InferConfig
+  tokenization      - stream chat template and tokenizer backends
+  bridge            - JAX param tree (numpy leaves) -> dict of tensors
+  ops               - RoPE, letterbox, pooling, int8 / packed-int4 weights,
+                      ring-buffer KV cache, cached and speculative
+                      attention, speculative-decode planning
   ops/kernels       - the CUDA kernels' wrappers, their plain versions,
                       and the nvcc build (sources in ``csrc/``)
   models            - SigLIP tower, Qwen2 decoder, Aha heads
-  streaming         - engine and StreamSession (single stream, widths 1)
+  streaming         - engine and StreamSession (single stream; fused frame
+                      scoring and speculative generation)
 
-The port imports torch and never jax; from ``aha_tpu`` it uses only
-``aha_tpu.config`` and ``aha_tpu.tokenization``, which are framework-free.
+The port imports torch and never jax, and nothing of ``aha_tpu``: what it
+needs of that package's framework-free modules it keeps as its own copy
+(``config``, ``tokenization``). Its entry points run on the card unless the
+caller passes ``device="cpu"``.
 """

@@ -5,8 +5,7 @@ The JAX tree (``models/aha.py::init_aha_params``, optionally through
 with numpy leaves (``jax.tree.map(np.asarray, params)`` on the JAX side, or
 any leaf ``np.asarray`` accepts). Every leaf keeps its layout and dtype:
 layer-stacked [L, ...] leaves, int8 ``{qvalue, scale}``, merged or split
-projections, packed int4 ``{q4value, scale4}`` (uint8 / bf16; no int4
-compute yet). Two leaves need care:
+projections, packed int4 ``{q4value, scale4}`` (uint8 / bf16). Two leaves need care:
 
   * bf16: numpy holds it as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
     rejects; the bits cross as uint16 and are viewed as ``torch.bfloat16``;
@@ -30,9 +29,9 @@ def tensor_from_numpy(arr) -> torch.Tensor:
     return torch.from_numpy(arr.copy())
 
 
-def params_from_jax(tree: dict, device="cpu") -> dict:
+def params_from_jax(tree: dict, device="cuda") -> dict:
     """JAX param tree (numpy leaves) -> nested dict of torch tensors on
-    ``device``."""
+    ``device`` (the card unless the caller asks for ``"cpu"``)."""
 
     def visit(node, path):
         if isinstance(node, dict):

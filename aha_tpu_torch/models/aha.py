@@ -14,8 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from aha_tpu.config import AhaConfig
-
+from ..config import AhaConfig
 from ..ops.pooling import pool_patch_tokens
 from ..ops.preprocess import device_letterbox
 from ..ops.quant import linear
@@ -28,12 +27,13 @@ def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
-def project_features(params: dict, feats: torch.Tensor) -> torch.Tensor:
+def project_features(params: dict, feats: torch.Tensor,
+                     backend: str = "fused") -> torch.Tensor:
     """llava mlp2x_gelu projector: Linear -> exact GELU (f32) -> Linear."""
     p = params["projector"]
-    x = linear(feats, p["fc1"])
+    x = linear(feats, p["fc1"], backend)
     x = F.gelu(x.float()).to(feats.dtype)
-    return linear(x, p["fc2"])
+    return linear(x, p["fc2"], backend)
 
 
 def encode_vision_tokens(params: dict, cfg: AhaConfig, frames: torch.Tensor,
@@ -51,12 +51,13 @@ def encode_vision_tokens(params: dict, cfg: AhaConfig, frames: torch.Tensor,
                              cfg.pooling_mode)
 
 
-def visual_embed(params: dict, cfg: AhaConfig, frames: torch.Tensor) -> torch.Tensor:
+def visual_embed(params: dict, cfg: AhaConfig, frames: torch.Tensor,
+                 backend: str = "fused") -> torch.Tensor:
     """frames [N, H, W, 3] (uint8 or float pixels) -> [N, F, H_llm]."""
     k = params["projector"]["fc1"]["kernel"]
     dtype = torch_dtype(cfg.dtype) if isinstance(k, dict) else k.dtype
     feats = encode_vision_tokens(params, cfg, frames, dtype)
-    return project_features(params, feats)
+    return project_features(params, feats, backend)
 
 
 def scores_from_hidden(params: dict, hidden_last: torch.Tensor) -> torch.Tensor:
@@ -71,15 +72,28 @@ def scores_from_hidden(params: dict, hidden_last: torch.Tensor) -> torch.Tensor:
                         torch.sigmoid(rel[..., 0]), torch.exp(unc[..., 0])], dim=-1)
 
 
-def random_params(cfg: AhaConfig, *, device="cpu", seed: int = 0) -> dict:
-    """Synthetic params of the int8 deployment config, built leaf by leaf on
-    ``device`` in their final dtype, with the recipe of
-    ``loader.materialize_random_params(cfg, "int8")``: int8 values uniform
-    in [-127, 127] with scales 0.02/127, dense kernels normal(0, 0.02),
-    norms one, biases zero. Every decoder projection (merged qkv / gate_up,
-    the layout the TPU engine serves), the projector, the embedding table
-    and the lm_head are int8; the vision tower and the heads stay dense.
-    Deterministic for a seed, not bit-equal to JAX's PRNG."""
+def random_params(cfg: AhaConfig, *, mode: str = "int8", device="cuda", seed: int = 0) -> dict:
+    """Synthetic params of a quantized deployment config, built leaf by leaf
+    on ``device`` in their final dtype, with the recipe of
+    ``loader.materialize_random_params(cfg, mode)``: dense kernels
+    normal(0, 0.02), norms one, biases zero, and
+
+      * ``mode="int8"``: int8 values uniform in [-127, 127], scales 0.02/127;
+      * ``mode="int4"``: packed nibble bytes uniform in 0..255, bf16 group
+        scales 0.02/7, group 128 (the whole of K where 128 does not divide
+        it).
+
+    Every decoder projection (merged qkv / gate_up, the layout the engine
+    serves), the projector and the lm_head are quantized in ``mode``; the
+    embedding table is int8 with per-row scales in both; the vision tower
+    and the heads stay dense. Deterministic for a seed, not bit-equal to
+    JAX's PRNG. Runs on the card unless ``device`` says otherwise."""
+    if mode not in ("int8", "int4"):
+        raise ValueError(f"random_params: mode must be 'int8' or 'int4', got {mode!r}")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("random_params: device cuda requested but no GPU is available "
+                           "(pass device='cpu' to build on the host)")
     gen = torch.Generator(device=device).manual_seed(seed)
     dt = torch_dtype(cfg.dtype)
 
@@ -92,14 +106,25 @@ def random_params(cfg: AhaConfig, *, device="cpu", seed: int = 0) -> dict:
     def zeros(*shape):
         return torch.zeros(shape, dtype=dt, device=device)
 
-    def kernel(*shape, per_row=False):
-        """[.., K, N] kernel; int8 with per-column scales [.., 1, N] (or,
-        for an embedding table, per-row scales [V, 1])."""
+    def kernel8(*shape, per_row=False):
+        """[.., K, N] int8 with per-column scales [.., 1, N] (or, for an
+        embedding table, per-row scales [V, 1])."""
         q = torch.randint(-127, 128, shape, generator=gen, device=device,
                           dtype=torch.int8)
         sshape = (*shape[:-1], 1) if per_row else (*shape[:-2], 1, shape[-1])
         return {"qvalue": q, "scale": torch.full(sshape, 0.02 / 127.0,
                                                  dtype=torch.float32, device=device)}
+
+    def kernel4(*shape):
+        """[.., K, N] as packed nibbles [.., K/2, N] + bf16 group scales."""
+        *lead, K, N = shape
+        G = 128 if K % 128 == 0 else K
+        q = torch.randint(0, 256, (*lead, K // 2, N), generator=gen, device=device,
+                          dtype=torch.uint8)
+        return {"q4value": q, "scale4": torch.full((*lead, K // G, N), 0.02 / 7.0,
+                                                   dtype=torch.bfloat16, device=device)}
+
+    kernel = kernel8 if mode == "int8" else kernel4
 
     v, q = cfg.vision, cfg.llm
     L, H, I = q.num_layers, q.hidden_size, q.intermediate_size
@@ -119,7 +144,7 @@ def random_params(cfg: AhaConfig, *, device="cpu", seed: int = 0) -> dict:
         "post_ln": {"scale": ones(Hv), "bias": zeros(Hv)},
     }
     llm = {
-        "embed": {"weight": kernel(q.vocab_size, H, per_row=True)},
+        "embed": {"weight": kernel8(q.vocab_size, H, per_row=True)},
         "layers": {
             "input_norm": {"scale": ones(L, H)},
             "qkv_proj": {"kernel": kernel(L, H, QD + 2 * KD), "bias": zeros(L, QD + 2 * KD)},

@@ -15,8 +15,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from aha_tpu.config import SiglipConfig
-
+from ..config import SiglipConfig
 from ..ops.quant import linear
 from . import layer_view
 

@@ -17,10 +17,15 @@ exact at every fill state:
 
 The per-chunk tables (q rotation, delta rotation, mask operands) do not
 depend on the layer: ``chunk_tables`` builds them once per chunk.
+
+``speculative_attention`` is the read-only verify pass's attention
+(``aha_tpu/ops/attention.py::speculative_attention``): plain PyTorch, as the
+JAX function is plain jnp outside any Pallas kernel.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -28,6 +33,9 @@ import torch
 from .kernels.decode_attention import decode_attention
 from .kv_cache import CachePolicy, UpdatePlan, reference_mask_operands
 from .rope import apply_rope, rope_cos_sin
+
+
+NEG_INF = -1e30   # finite: a row that sees nothing gets a uniform softmax, not NaN
 
 
 @dataclass
@@ -68,3 +76,122 @@ def cached_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     q_rot = apply_rope(q.float(), tables.w_cos, tables.w_sin).to(q.dtype)
     return decode_attention(q_rot.contiguous(), k_cache, v_cache, tables.d_cos,
                             tables.d_sin, tables.mask_order, tables.mask_g, kv_scales)
+
+
+@dataclass
+class SpecTables:
+    """What the verify pass's attention needs that does not depend on the
+    layer; built once per pass by ``spec_tables``."""
+
+    w_cos: torch.Tensor    # [B, N, Dh] at plans.write_pos (in-flight keys; fast-branch q)
+    w_sin: torch.Tensor
+    q_cos: torch.Tensor    # [B, N, Dh] ring / in-flight queries: at qx (exact) or write_pos
+    q_sin: torch.Tensor
+    e_cos: torch.Tensor | None   # [B, N, Dh] sink-column queries at q_pos (sink policy)
+    e_sin: torch.Tensor | None
+    c_cos: torch.Tensor | None   # [B, W+1, Dh] cache rotation by dpos (exact branch)
+    c_sin: torch.Tensor | None
+    i_cos: torch.Tensor | None   # [B, N, Dh] in-flight re-rotation by qx - write_pos (exact)
+    i_sin: torch.Tensor | None
+    bias: torch.Tensor     # [B, 1, 1, N, W+1+N] f32: 0 where visible, NEG_INF elsewhere
+    exact: bool
+
+
+def spec_tables(plans, sink_policy: bool, head_dim: int, rope_theta: float,
+                exact: bool) -> SpecTables:
+    """Rotation tables and the additive mask over [cache columns, in-flight
+    columns] for one verify pass. ``exact`` picks the rotate-at-read branch
+    (meaningful under the sink policy only)."""
+    exact = bool(exact and sink_policy)
+    w_cos, w_sin = rope_cos_sin(plans.write_pos, head_dim, rope_theta)
+    e_cos = e_sin = c_cos = c_sin = i_cos = i_sin = None
+    q_cos, q_sin = w_cos, w_sin
+    if sink_policy:
+        e_cos, e_sin = rope_cos_sin(plans.q_pos, head_dim, rope_theta)
+    if exact:
+        q_cos, q_sin = rope_cos_sin(plans.qx, head_dim, rope_theta)
+        c_cos, c_sin = rope_cos_sin(plans.dpos, head_dim, rope_theta)
+        i_cos, i_sin = rope_cos_sin(plans.qx - plans.write_pos, head_dim, rope_theta)
+    visible = torch.cat([plans.cache_mask, plans.infl_mask], dim=-1)[:, None, None]
+    bias = torch.where(visible, 0.0, NEG_INF)
+    return SpecTables(w_cos, w_sin, q_cos, q_sin, e_cos, e_sin, c_cos, c_sin, i_cos, i_sin,
+                      bias, exact)
+
+
+def speculative_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                          k_infl: torch.Tensor, v_infl: torch.Tensor, tables: SpecTables, *,
+                          sink_slots: int = 0,
+                          kv_scales: tuple | None = None) -> torch.Tensor:
+    """One pass that scores the chunk's N tokens exactly as the composed
+    sequential steps would, WITHOUT writing the cache.
+
+    q [B, N, NH, Dh] unrotated; k_cache / v_cache [B, W+1, KVH, Dh], keys
+    pre-rotated, read-only; k_infl / v_infl [B, N, KVH, Dh], in-flight keys
+    pre-rotated at ``plans.write_pos`` (the values a commit would store);
+    ``tables``: ``spec_tables`` of the pass's ``spec_decode.SpecPlans``,
+    the same for all layers. Query p sees the cache through
+    ``plans.cache_mask`` (without the slots steps 0..p would have
+    overwritten) and the in-flight block through ``plans.infl_mask``.
+    ``sink_slots``: the sink policy's sink columns (0 under any other
+    policy), scored against q at the sequential q_pos.
+
+    ``tables.exact`` False: the pre-rotation algebra (ring and in-flight
+    columns: q at write_pos against keys at write_pos; sink columns: q at the
+    sequential q_pos). Valid while no composed step deviates
+    (``plans.exact``).
+
+    ``tables.exact`` True: rotate-at-read, composed so ONE cache rotation
+    serves all steps: cache keys rotate to their key_pos after step 1
+    (``plans.dpos``), ring and in-flight queries use ``plans.qx``, sink
+    columns score against q at q_pos. Covers the sink fill transient and the
+    post-fill chunk / decode position lag.
+
+    The same function as the JAX one, arranged for fewer launches: the JAX
+    code takes a softmax per part (sink, ring, in-flight columns) and merges
+    the parts by their maxima; here the parts' scores sit side by side in
+    one [.., N, W+1+N] tensor under one softmax, which is the same number
+    up to f32 rounding. Products run on the storage dtype's values widened
+    to f32 (exact), softmax in f32, probabilities rounded to the value dtype
+    before the second product. In-flight V stays in the compute dtype;
+    int8-KV scales apply to the cache columns only, folded into score and
+    probability columns (the exact branch folds the K scales before
+    rotating)."""
+    B, S, NH, Dh = q.shape
+    KVH, W1 = k_cache.shape[2], k_cache.shape[1]
+    n_rep = NH // KVH
+    t = tables
+    ks = vs = None
+    if kv_scales is not None:
+        ks = kv_scales[0].transpose(1, 2)[:, :, None, None, :]     # [B,KVH,1,1,W+1]
+        vs = kv_scales[1].transpose(1, 2)[:, :, None, None, :]
+
+    qf = q.float()
+    if t.exact:
+        kc = k_cache.float()
+        if kv_scales is not None:
+            kc = kc * kv_scales[0][..., None]
+            ks = None                                   # K scales already folded
+        kc = apply_rope(kc, t.c_cos, t.c_sin).to(q.dtype)
+        # in-flight keys are stored commit-canonical at write_pos: re-rotate
+        # the small block to qx
+        k_if = apply_rope(k_infl.float(), t.i_cos, t.i_sin).to(q.dtype)
+    else:
+        kc, k_if = k_cache.to(q.dtype), k_infl
+    keys = torch.cat([kc, k_if], dim=1).float()                    # [B, W+1+N, KVH, Dh]
+
+    def grouped(cos, sin):
+        return apply_rope(qf, cos, sin).to(q.dtype).reshape(B, S, KVH, n_rep, Dh).float()
+
+    s = torch.einsum("bsgrd,bwgd->bgrsw", grouped(t.q_cos, t.q_sin), keys)
+    if sink_slots:
+        s[..., :sink_slots] = torch.einsum("bsgrd,bwgd->bgrsw", grouped(t.e_cos, t.e_sin),
+                                           keys[:, :sink_slots])
+    if ks is not None:
+        s[..., :W1] *= ks
+    p = torch.softmax(torch.add(t.bias, s, alpha=1.0 / math.sqrt(Dh)), dim=-1)
+    if vs is not None:
+        p[..., :W1] *= vs
+    vdt = q.dtype if v_cache.dtype == torch.int8 else v_cache.dtype
+    vals = torch.cat([v_cache.to(vdt), v_infl.to(vdt)], dim=1).float()
+    out = torch.einsum("bgrsw,bwgd->bsgrd", p.to(vdt).float(), vals)
+    return out.reshape(B, S, NH, Dh).to(q.dtype)

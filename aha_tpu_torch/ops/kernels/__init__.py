@@ -1,2 +1,17 @@
 """Hand-written CUDA kernels: each wrapper launches its kernel on CUDA
-tensors and runs its plain PyTorch version on CPU tensors."""
+tensors and runs its plain PyTorch version on CPU tensors.
+
+``LAUNCHES`` counts kernel launches by wrapper name (``int8_matmul``,
+``int8_matmul_a8``, ``quant_matmul``, ``int4_matmul``, ``int4_matmul_a8``,
+``quantize_rows``, ``decode_attention``): a wrapper adds one where it
+launches its kernel and nowhere else, so a run can show which kernels its
+path went through. The plain versions do not count.
+"""
+
+import collections
+
+LAUNCHES: collections.Counter = collections.Counter()
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()

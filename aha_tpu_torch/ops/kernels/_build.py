@@ -1,10 +1,11 @@
 """Build and load the CUDA kernels of ``aha_tpu_torch/csrc``.
 
-The sources have a plain C interface and are compiled with ``nvcc`` straight
-into one shared library, which is loaded with ``ctypes`` (no PyTorch headers,
-so a build takes seconds). The library lands in ``build/aha_tpu_torch/``
-beside the package, named by a hash of the sources and flags: a changed
-source builds a new library at first use, an unchanged one is reused.
+The sources have a plain C interface and are compiled with ``nvcc`` (one
+process per source, all started together, then one link) into one shared
+library, which is loaded with ``ctypes`` (no PyTorch headers, so a build
+takes seconds). The library lands in ``build/aha_tpu_torch/`` beside the
+package, named by a hash of the sources and flags: a changed source builds a
+new library at first use, an unchanged one is reused.
 
 Nothing here runs at import time; ``library()`` builds on its first call.
 A missing ``nvcc`` or a failed build raises.
@@ -25,7 +26,7 @@ _PKG = pathlib.Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "aha_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-Xcompiler", "-fPIC", "-lineinfo"]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -68,12 +69,26 @@ def library() -> ctypes.CDLL:
             nvcc = _nvcc()
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
             t0 = time.perf_counter()
+            objs = [BUILD_DIR / f"{out.stem}.{os.getpid()}.{s.stem}.o" for s in srcs]
+            procs = [(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                                       stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                       text=True), s)
+                     for s, o in zip(srcs, objs)]
+            failed = []
+            for proc, s in procs:
+                so, se = proc.communicate()
+                if proc.returncode != 0:
+                    failed.append(f"== {s.name}\n{so}{se}")
+            if failed:
+                raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+            cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
             res = subprocess.run(cmd, capture_output=True, text=True)
             if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
                                    f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+            for o in objs:
+                o.unlink()
             os.replace(tmp, out)
             build_seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(str(out))
@@ -86,6 +101,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.aha_int8_matmul.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P]
     lib.aha_int8_matmul.restype = I
+    lib.aha_int8_matmul_a8.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, P]
+    lib.aha_int8_matmul_a8.restype = I
+    lib.aha_int4_matmul.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P]
+    lib.aha_int4_matmul.restype = I
+    lib.aha_quantize_rows.argtypes = [P, P, P, I, I, I, P]
+    lib.aha_quantize_rows.restype = I
     lib.aha_decode_attention.argtypes = [P, P, P, P, P, P, P, P, P, P,
                                          I, I, I, I, I, I, I, I, F, P]
     lib.aha_decode_attention.restype = I

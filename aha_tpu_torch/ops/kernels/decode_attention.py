@@ -20,9 +20,7 @@ import math
 import torch
 
 from ..rope import rotate_half
-from . import _build
-
-launches = 0   # kernel launches so far (the plain version does not count)
+from . import LAUNCHES, _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 HEAD_DIMS = (16, 32, 64, 128)
@@ -116,6 +114,5 @@ def decode_attention(q_rot, k_cache, v_cache, cos, sin, order, g, kv_scales=None
         1.0 / math.sqrt(Dh),
         ctypes.c_void_p(torch.cuda.current_stream(q_rot.device).cuda_stream))
     _build.check(lib, err, "decode_attention")
-    global launches
-    launches += 1
+    LAUNCHES["decode_attention"] += 1
     return out

@@ -82,8 +82,9 @@ class KVCache:
 
 def init_cache(policy: CachePolicy, *, num_layers: int, batch: int,
                num_kv_heads: int, head_dim: int, dtype=torch.bfloat16,
-               device="cpu") -> KVCache:
-    """dtype=torch.int8 stores K/V per (slot, head) quantized, with f32
+               device="cuda") -> KVCache:
+    """An empty cache on ``device`` (the card unless the caller asks for
+    ``"cpu"``). dtype=torch.int8 stores K/V per (slot, head) quantized, with f32
     scales (the JAX package's int8 KV option)."""
     W1 = policy.num_slots
     shape = (num_layers, batch, W1, num_kv_heads, head_dim)

@@ -17,8 +17,8 @@ import torch
 
 def letterbox_params(h: int, w: int, output_size: int) -> tuple[int, int, int, int]:
     """(new_h, new_w, top, left): the placement of
-    ``aha_tpu.data.media.letterbox_params`` (that module is outside what
-    the port may import)."""
+    ``aha_tpu/data/media.py::letterbox_params`` (the port imports nothing of
+    that package and keeps its own copy)."""
     if w > h:
         new_w, new_h = output_size, int((h / w) * output_size)
     else:

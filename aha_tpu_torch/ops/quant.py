@@ -1,43 +1,80 @@
-"""Weight-only int8 kernels at the model's matmul sites.
+"""Quantized weights at the model's matmul sites: int8 per channel and
+packed int4 per group.
 
-Counterpart of the int8 half of ``aha_tpu/ops/quant.py``: a quantized kernel
-is a dict ``{"qvalue": int8 [K, N], "scale": f32 [1, N]}`` (per output
-channel); an embedding table is ``{"qvalue": int8 [V, H], "scale": f32
-[V, 1]}`` (per row). ``qlinear`` goes through ``kernels.int8_matmul``, which
-launches the CUDA kernel for CUDA tensors and runs its plain version on the
-CPU. Packed int4 (``{"q4value", "scale4"}``) is carried by the bridge but
-has no compute path yet.
+Counterpart of ``aha_tpu/ops/quant.py``. A quantized kernel is a dict:
+
+  * ``{"qvalue": int8 [K, N], "scale": f32 [1, N]}``: per output channel;
+  * ``{"q4value": uint8 [K/2, N], "scale4": bf16 [K/G, N]}``: packed int4,
+    row 2j in the low nibble and row 2j + 1 in the high nibble of byte j,
+    values offset by 8, one scale per group of G = K // scale4.shape[-2]
+    rows and output column (G is K itself where 128 does not divide K).
+
+An embedding table is ``{"qvalue": int8 [V, H], "scale": f32 [V, 1]}`` (per
+row) under either mode.
+
+``qlinear`` takes the matmul backend as a plain argument, handed down from
+``build_session`` / ``StreamEngine`` (no environment variable, no module
+global):
+
+  * ``"fused"`` (default): the weight-only kernels ``int8_matmul`` /
+    ``int4_matmul``;
+  * ``"fused_a8"``: the same kernels with per-token int8 activations (the
+    W8A8 / W4A8 recipe);
+  * ``"pallas"``: ``quant_matmul``, the named entry for the TPU package's
+    first int8 kernel; int8 weights only.
+
+Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
+version on the CPU.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .kernels.int8_matmul import int8_matmul
+from .kernels.int4_matmul import int4_matmul, unpack_int4
+from .kernels.int8_matmul import int8_matmul, quant_matmul
 
-_INT4_TODO = ("packed-int4 weights have no compute path in aha_tpu_torch yet "
-              "(ROADMAP.md, Queue 2: the int4 kernels)")
+BACKENDS = ("fused", "fused_a8", "pallas")
+
+
+def dequantize_int4(p: dict, dtype=torch.bfloat16) -> torch.Tensor:
+    """{q4value [..., K/2, N], scale4 [..., K/G, N]} -> dense [..., K, N]."""
+    q = unpack_int4(p["q4value"]).float()
+    *lead, K, N = q.shape
+    scale = p["scale4"].float()
+    n_groups = scale.shape[-2]
+    q = q.reshape(*lead, n_groups, K // n_groups, N) * scale[..., :, None, :]
+    return q.reshape(*lead, K, N).to(dtype)
 
 
 def dequantize(p: dict, dtype=torch.bfloat16) -> torch.Tensor:
     if "q4value" in p:
-        raise NotImplementedError(_INT4_TODO)
+        return dequantize_int4(p, dtype)
     return (p["qvalue"].float() * p["scale"]).to(dtype)
 
 
-def qlinear(x: torch.Tensor, qkernel: dict) -> torch.Tensor:
-    """x [..., K] @ an int8 kernel -> [..., N] in x's dtype. A stacked
-    kernel's layer l is passed as {k: v[l]}: a view, no copy."""
+def qlinear(x: torch.Tensor, qkernel: dict, backend: str = "fused") -> torch.Tensor:
+    """x [..., K] @ a quantized kernel -> [..., N] in x's dtype. A stacked
+    kernel's layer l is passed as {k: v[l]}: views, no copy."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown matmul backend {backend!r}; one of {BACKENDS}")
+    x = x.contiguous()
     if "q4value" in qkernel:
-        raise NotImplementedError(_INT4_TODO)
-    return int8_matmul(x.contiguous(), qkernel["qvalue"], qkernel["scale"])
+        if backend == "pallas":
+            raise ValueError("the 'pallas' backend (quant_matmul) takes int8 weights only")
+        return int4_matmul(x, qkernel["q4value"], qkernel["scale4"],
+                           a8=backend == "fused_a8")
+    if backend == "pallas":
+        return quant_matmul(x, qkernel["qvalue"], qkernel["scale"])
+    return int8_matmul(x, qkernel["qvalue"], qkernel["scale"], a8=backend == "fused_a8")
 
 
-def linear(x: torch.Tensor, p: dict) -> torch.Tensor:
-    """x @ p["kernel"] (dense [K, N] or int8 dict) + p["bias"] if present:
-    the matmul site shared by the tower, the projector and the decoder."""
+def linear(x: torch.Tensor, p: dict, backend: str = "fused") -> torch.Tensor:
+    """x @ p["kernel"] (dense [K, N] or a quantized dict) + p["bias"] if
+    present: the matmul site shared by the tower, the projector and the
+    decoder."""
     k = p["kernel"]
-    y = qlinear(x, k) if isinstance(k, dict) else torch.matmul(x, k)
+    y = qlinear(x, k, backend) if isinstance(k, dict) else torch.matmul(x, k)
     if "bias" in p:
         y = y + p["bias"]
     return y
@@ -47,8 +84,6 @@ def embed_rows(table, ids: torch.Tensor, dtype) -> torch.Tensor:
     """Gather embedding rows; an int8 table dequantizes the gathered rows
     with their per-row scales (``qwen2.embed_tokens``)."""
     if isinstance(table, dict):
-        if "q4value" in table:
-            raise NotImplementedError(_INT4_TODO)
         ids = ids.long()
         return (table["qvalue"][ids].float() * table["scale"][ids]).to(dtype)
     return table[ids.long()]

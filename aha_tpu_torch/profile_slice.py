@@ -1,11 +1,13 @@
-"""Where the time goes in the 7B-int8 streaming slice on one CUDA card.
+"""Where the time goes in the 7B streaming slices on one CUDA card.
 
-    python3 -m aha_tpu_torch.profile_slice [--seed 0] [--frames 8]
+    python3 -m aha_tpu_torch.profile_slice [--seed 0] [--frames 8] [--paths int8,int4]
 
-Builds seeded synthetic 7B-int8 params on the card (``random_params``), a
-sink cache (window 2048, 32 sinks, bf16) and drives the engine the way
-``StreamSession.inference`` does, then traces three sections with
-``torch.profiler``:
+For each path it builds seeded synthetic 7B params on the card
+(``random_params``), a sink cache (window 2048, 32 sinks, bf16) and drives
+the engine the way ``StreamSession`` does, then traces sections with
+``torch.profiler``.
+
+int8 (the --int8 config at widths 1):
 
   vision      one ``encode_frames`` call of 32 frames (the tower's batch);
   frame       ``--frames`` frame chunks (49 tokens each) after the window
@@ -13,6 +15,16 @@ sink cache (window 2048, 32 sinks, bf16) and drives the engine the way
   token       greedy generation: a ``generate`` with a budget of 33 tokens
               minus one with a budget of 1, each on a copy of the same
               cache, so that only the 32 S = 1 passes remain.
+
+int4 (the --int4 config at the product widths), after the window has filled:
+
+  frame       as above, one frame per pass (what ``inference()`` runs);
+  fused pass  ``--frames`` fused passes of 4 frames (196 rows) through the
+              read-only verify pass and its commit (``score_video``);
+  verify S    8 verify passes of S = 4 and of S = 8 candidate tokens
+              (plans, embedding, decoder, lm_head, no commit), the pass
+              ``generate_spec`` runs;
+  token       the S = 1 passes of the sequential loop, as for int8.
 
 Each section runs twice: once untimed by the profiler, for the wall time
 (host clock, card synchronised), then traced, for the device's work (the
@@ -118,57 +130,33 @@ def report(label: str, units: int, unit: str, wall_ms: float, traced_wall_ms: fl
     print(f"profile {label}:   aten ops per {unit}: {ops}", flush=True)
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--frames", type=int, default=8, help="frame chunks traced after the fill")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("profile_slice: no CUDA device", file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    from aha_tpu.config import InferConfig, aha_7b
-    from aha_tpu.tokenization import build_stream_tokenizer
-
+def _setup(mode: str, seed: int, n_frames: int, **widths):
+    from .config import InferConfig, aha_7b
     from .models.aha import random_params
     from .streaming.session import build_session
+    from .tokenization import build_stream_tokenizer
 
-    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True,
-                         timeout=60).stdout.strip().splitlines()[0]
-    print(f"profile device: {gpu}; torch {torch.__version__} cuda {torch.version.cuda}",
-          flush=True)
     cfg = aha_7b()
     tok = build_stream_tokenizer(None, frame_num_tokens=cfg.frame_num_tokens,
                                  vocab_size=cfg.llm.vocab_size)
     cfg = cfg.replace(v_placeholder_id=tok.v_placeholder_id, eos_token_id=tok.eos_token_id)
-    params = random_params(cfg, device="cuda", seed=args.seed)
+    params = random_params(cfg, mode=mode, seed=seed)
     icfg = InferConfig(grounding_mode=True, frame_fps=2.0, kv_cache_policy="sink",
-                       kv_window=2048, num_sink_tokens=32, fused_score_frames=1,
-                       spec_decode_tokens=1)
-    engine = build_session(params, cfg, tok, icfg, device="cuda").engine
-    policy = engine.policy
-    fill = policy.window + policy.num_sink
-    n_frames = fill // cfg.frame_num_tokens + 2 + 2 * args.frames
-    gen = torch.Generator(device="cuda").manual_seed(args.seed + 1)
+                       kv_window=2048, num_sink_tokens=32, **widths)
+    engine = build_session(params, cfg, tok, icfg).engine
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     frames = torch.randint(0, 256, (n_frames, cfg.frame_resolution, cfg.frame_resolution, 3),
                            generator=gen, device="cuda", dtype=torch.uint8)
+    return cfg, tok, icfg, engine, frames
 
-    # vision: one tower batch, after a warm-up batch
-    engine.encode_frames(frames[:VISION_FRAMES])
-    tr = Trace()
-    tr.run(lambda: engine.encode_frames(frames[:VISION_FRAMES]))
-    report("vision", VISION_FRAMES, "frame", tr.wall_ms, tr.traced_wall_ms, tr.busy_ms(),
-           tr.kernels(), tr.aten_ops())
-    embeds = engine.encode_frames(frames)
 
-    # frame chunks: query, system + first frame, then frames until the
-    # window has filled; the traced frames come after the fill
+def _fill(engine, tok, icfg, embeds):
+    """Query, system + first frame, then frames until the window has filled.
+    Returns (cache, index of the next frame)."""
     query = tok.apply_chat_template([{"role": "user", "content": "What is happening?"}],
                                     add_stream_query_prompt=False, add_stream_prompt=True)
     start = tok.apply_chat_template([{"role": "system", "content": icfg.system_prompt}])
+    fill = engine.policy.window + engine.policy.num_sink
     cache = engine.new_cache()
     engine.append_ids(cache, [query])
     engine.append_text_frames(cache, [start], embeds[:1])
@@ -176,21 +164,26 @@ def main() -> int:
     while int(cache.seen[0]) <= fill:
         engine.append_frames(cache, embeds[t:t + 1]).cpu()
         t += 1
+    return cache, t
 
-    nxt = iter(range(t, n_frames))
 
+def _trace_frames(label, engine, cache, embeds, first, n):
     def frame_chunks():
-        for _ in range(args.frames):
+        for _ in range(n):
             i = next(nxt)
             engine.append_frames(cache, embeds[i:i + 1]).cpu()   # the session reads scores
 
+    # two runs (plain, traced) consume 2 n frames
+    nxt = iter(range(first, first + 2 * n))
     tr = Trace()
     tr.run(frame_chunks)
-    report(f"frame (stream at {int(cache.seen[0])} tokens)", args.frames, "frame",
+    report(f"{label} frame (stream at {int(cache.seen[0])} tokens)", n, "frame",
            tr.wall_ms, tr.traced_wall_ms, tr.busy_ms(), tr.kernels(), tr.aten_ops())
 
-    # tokens: budget 1 + GEN_TOKENS minus budget 1, each from the same cache
-    # state (the clone is in both, and cancels)
+
+def _trace_tokens(label, engine, tok, cache):
+    """Budget 1 + GEN_TOKENS minus budget 1, each from the same cache state
+    (the clone is in both, and cancels)."""
     prompt = tok.apply_chat_template([{}], add_stream_generation_prompt=True)
     traces = []
     for budget in (1, 1 + GEN_TOKENS):
@@ -204,9 +197,95 @@ def main() -> int:
     ka, kb = a.kernels(), b.kernels()
     diff = {n: [kb[n][0] - ka.get(n, [0, 0.0])[0], kb[n][1] - ka.get(n, [0, 0.0])[1]]
             for n in kb}
-    report("token (S = 1 passes only)", GEN_TOKENS, "token", b.wall_ms - a.wall_ms,
+    report(f"{label} token (S = 1 passes only)", GEN_TOKENS, "token", b.wall_ms - a.wall_ms,
            b.traced_wall_ms - a.traced_wall_ms, b.busy_ms() - a.busy_ms(),
            {n: v for n, v in diff.items() if v[0] > 0}, b.aten_ops() - a.aten_ops())
+
+
+def profile_int8(seed: int, n: int) -> None:
+    fill_frames = (2048 + 32) // 49 + 2
+    cfg, tok, icfg, engine, frames = _setup("int8", seed, fill_frames + 2 * n,
+                                            fused_score_frames=1, spec_decode_tokens=1)
+    # vision: one tower batch, after a warm-up batch
+    engine.encode_frames(frames[:VISION_FRAMES])
+    tr = Trace()
+    tr.run(lambda: engine.encode_frames(frames[:VISION_FRAMES]))
+    report("int8 vision", VISION_FRAMES, "frame", tr.wall_ms, tr.traced_wall_ms, tr.busy_ms(),
+           tr.kernels(), tr.aten_ops())
+    embeds = engine.encode_frames(frames)
+    cache, t = _fill(engine, tok, icfg, embeds)
+    _trace_frames("int8", engine, cache, embeds, t, n)
+    _trace_tokens("int8", engine, tok, cache)
+
+
+def profile_int4(seed: int, n: int) -> None:
+    from .models import qwen2
+    from .ops import spec_decode
+
+    K = 4                                            # fused_score_frames of the product
+    fill_frames = (2048 + 32) // 49 + 2
+    cfg, tok, icfg, engine, frames = _setup(
+        "int4", seed, fill_frames + 2 * n + 2 * n * K, fused_score_frames=K,
+        spec_decode_tokens=1)
+    embeds = engine.encode_frames(frames)
+    cache, t = _fill(engine, tok, icfg, embeds)
+    _trace_frames("int4", engine, cache, embeds, t, n)
+    t += 2 * n
+
+    nxt = iter(range(t, t + 2 * n * K, K))
+
+    def fused_passes():
+        for _ in range(n):
+            i = next(nxt)
+            engine.append_frames_fused(cache, embeds[None, i:i + K]).cpu()
+
+    tr = Trace()
+    tr.run(fused_passes)
+    report(f"int4 fused pass ({K} frames, 196 rows; stream at {int(cache.seen[0])} tokens)",
+           n, "pass", tr.wall_ms, tr.traced_wall_ms, tr.busy_ms(), tr.kernels(), tr.aten_ops())
+
+    llm = engine.params["llm"]
+    for S in (4, 8):
+        ids = torch.randint(0, 1000, (1, S), device="cuda")
+
+        def verify_passes():
+            for _ in range(8):
+                plans = spec_decode.plan_compose(
+                    cache, engine.policy, torch.full((1,), S, dtype=torch.int32, device="cuda"),
+                    S)
+                hidden, _, _ = qwen2.decode_chunk_spec(
+                    llm, cfg.llm, engine.policy, cache,
+                    qwen2.embed_tokens(llm, ids, engine.dtype), plans, backend=engine.backend)
+                qwen2.lm_logits(llm, cfg.llm, hidden, engine.backend).float().argmax(-1).cpu()
+
+        tr = Trace()
+        tr.run(verify_passes)
+        report(f"int4 verify S={S}", 8, "pass", tr.wall_ms, tr.traced_wall_ms, tr.busy_ms(),
+               tr.kernels(), tr.aten_ops())
+    _trace_tokens("int4", engine, tok, cache)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--frames", type=int, default=8,
+                    help="frame chunks / fused passes traced after the fill")
+    ap.add_argument("--paths", default="int8,int4")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_slice: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout.strip().splitlines()[0]
+    print(f"profile device: {gpu}; torch {torch.__version__} cuda {torch.version.cuda}",
+          flush=True)
+    for path in args.paths.split(","):
+        {"int8": profile_int8, "int4": profile_int4}[path](args.seed, args.frames)
+        torch.cuda.empty_cache()
     return 0
 
 

@@ -1,12 +1,17 @@
 """StreamEngine: the compute primitives behind single-stream inference.
 
-Counterpart of the widths-1 subset of ``aha_tpu/streaming/engine.py``,
+Counterpart of the single-stream subset of ``aha_tpu/streaming/engine.py``,
 ``engine_core.py`` and ``engine_generate.py``: cache creation and reset,
-frame pre-encoding, text / frame / text+frame chunk appends, the per-frame
-scoring loop and greedy generation with repetition penalty.
+frame pre-encoding, text / frame / text+frame chunk appends, per-frame and
+fused frame scoring (``fused_frames`` frames per weight stream through the
+read-only verify pass), greedy generation with repetition penalty, and its
+speculative form (``spec_tokens`` candidates per weight stream, widening to
+``spec_max`` while drafts are being accepted), which writes the same tokens.
 
-The cache is updated IN PLACE by every append (the JAX engine donates it
-instead); each method returns what the caller reads (scores, logits, ids).
+The cache is updated IN PLACE by every append, by ``append_frames_fused``
+and by both generation loops (the JAX engine donates it instead); the verify
+pass itself only reads it. Each method returns what the caller reads
+(scores, logits, ids).
 Id chunks are not padded to buckets: JAX pads only for static shapes, and a
 padded token goes to the junk slot, so padding carries no meaning.
 """
@@ -16,10 +21,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from aha_tpu.config import AhaConfig
-
+from ..config import AhaConfig
 from ..models import aha, qwen2
+from ..ops import spec_decode
 from ..ops.kv_cache import CachePolicy, KVCache, init_cache, reset_cache
+from ..ops.quant import BACKENDS
 
 
 def _apply_repetition_penalty(logits: torch.Tensor, counts: torch.Tensor,
@@ -42,18 +48,49 @@ def _leaves(tree):
 
 VISION_BATCH = 32   # frames per tower call (the reference's batch)
 
+# Acceptance-adaptive speculation: a verify pass at width S commits 1..S
+# tokens per decoding row; the committed fraction (of the pass's ACHIEVABLE
+# tokens) feeds an EMA, and while the EMA exceeds SPEC_EMA_HI the next pass
+# widens to spec_max; the width drops back as soon as acceptance fades.
+# Speed-only state: outputs do not depend on the width.
+SPEC_EMA_ALPHA = 0.35
+SPEC_EMA_HI = 0.7
+
 
 class StreamEngine:
     """Params and compute primitives for one (config, cache policy) pair on
     one device, for one stream (batch 1 cache)."""
 
     def __init__(self, params: dict, cfg: AhaConfig, policy: CachePolicy, *,
-                 device="cpu", max_new_tokens: int = 200,
+                 device="cuda", max_new_tokens: int = 200,
                  repetition_penalty: float | None = None,
-                 kv_dtype: torch.dtype | None = None):
+                 kv_dtype: torch.dtype | None = None, backend: str = "fused",
+                 spec_tokens: int = 1, spec_tokens_max: int | None = None,
+                 fused_score_frames: int = 1):
+        """Runs on the card unless ``device`` says otherwise, and raises when
+        there is none. ``backend``: the quantized-matmul kernels
+        (``ops.quant.BACKENDS``). ``spec_tokens``: candidates verified per
+        generation pass (1 = the sequential loop); ``spec_tokens_max``: the
+        adaptive ceiling (None or <= spec_tokens = fixed width).
+        ``fused_score_frames``: frames per pass in ``score_stream``."""
         self.device = torch.device(device)
-        if self.device.type == "cuda" and self.device.index is None:
-            self.device = torch.device("cuda", torch.cuda.current_device())
+        if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError("StreamEngine: device cuda requested but no GPU is "
+                                   "available (pass device='cpu' to run on the host)")
+            if self.device.index is None:
+                self.device = torch.device("cuda", torch.cuda.current_device())
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown matmul backend {backend!r}; one of {BACKENDS}")
+        self.backend = backend
+        self.spec_tokens = max(int(spec_tokens), 1)
+        self.spec_max = max(int(spec_tokens_max or 0), self.spec_tokens)
+        if self.spec_tokens <= 1:
+            self.spec_max = 1            # speculation off: no widening
+        self.fused_frames = max(int(fused_score_frames), 1)
+        self._spec_ema = np.float32(0.0)   # acceptance EMA, kept across responses
+        self.last_spec_info = None         # (passes, committed, EMA) of the last call
+        self.spec_totals = [0, 0]        # run-level [verify passes, committed tokens]
         for t in _leaves(params):
             if t.device != self.device:
                 raise ValueError(f"param on {t.device}, engine on {self.device}")
@@ -94,7 +131,10 @@ class StreamEngine:
 
     def _decode(self, cache: KVCache, embeds: torch.Tensor, valid_len: torch.Tensor):
         return qwen2.decode_chunk(self.params["llm"], self.cfg.llm, self.policy, cache,
-                                  embeds, valid_len)
+                                  embeds, valid_len, backend=self.backend)
+
+    def _logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        return qwen2.lm_logits(self.params["llm"], self.cfg.llm, hidden, self.backend).float()
 
     @staticmethod
     def _last_valid(x: torch.Tensor, valid_len: torch.Tensor) -> torch.Tensor:
@@ -107,8 +147,7 @@ class StreamEngine:
         ids, lens = self.pad_ids(ids_list)
         embeds = qwen2.embed_tokens(self.params["llm"], ids, self.dtype)
         hidden = self._decode(cache, embeds, lens)
-        last = self._last_valid(hidden, lens)
-        return qwen2.lm_logits(self.params["llm"], self.cfg.llm, last).float()
+        return self._logits(self._last_valid(hidden, lens))
 
     def append_frames(self, cache: KVCache, frame_embeds: torch.Tensor) -> torch.Tensor:
         """frame_embeds [B, F, H]; returns scores [B, 3] at the last token."""
@@ -136,18 +175,59 @@ class StreamEngine:
         hidden = self._decode(cache, emb, valid)
         return aha.scores_from_hidden(self.params, self._last_valid(hidden, valid))
 
+    def append_frames_fused(self, cache: KVCache, frame_embeds: torch.Tensor,
+                            n_active: torch.Tensor | None = None) -> torch.Tensor:
+        """k frame appends verified in ONE weight stream: frame_embeds
+        [B, k, F, H] -> scores [B, k, 3]; the cache ends where k sequential
+        ``append_frames`` calls would leave it.
+
+        The read-only verify pass over plans composed with ``step=F``
+        reproduces k sequential ``decode_chunk(F)`` steps exactly, for every
+        policy and fill state, while streaming the weights once. Nothing can
+        be rejected (the inputs are known in advance), so the commit is the
+        whole valid prefix. ``n_active`` [B]: frames of each row that are
+        real, a per-row prefix (the padded tail of a stream); their scores
+        are garbage and they leave the cache alone. MUTATES ``cache``."""
+        B, k, F, H = frame_embeds.shape
+        if n_active is None:
+            n_active = torch.full((B,), k, dtype=torch.int32, device=self.device)
+        valid_len = n_active * F
+        plans = spec_decode.plan_compose(cache, self.policy, valid_len, k, step=F)
+        hidden, infl_k, infl_v = qwen2.decode_chunk_spec(
+            self.params["llm"], self.cfg.llm, self.policy, cache,
+            frame_embeds.reshape(B, k * F, H), plans, backend=self.backend)
+        spec_decode.commit_slots(cache, plans, infl_k, infl_v, valid_len, self.policy.junk)
+        spec_decode.select_meta(cache, plans, n_active)
+        return aha.scores_from_hidden(self.params, hidden[:, F - 1::F])
+
     def score_stream(self, cache: KVCache, frames: torch.Tensor) -> torch.Tensor:
-        """frames [B, T, F, H] -> scores [B, T, 3], one frame chunk at a
-        time, with no host sync inside the loop."""
-        scores = [self.append_frames(cache, frames[:, t]) for t in range(frames.shape[1])]
-        if not scores:
-            return torch.zeros((frames.shape[0], 0, 3), device=self.device)
-        return torch.stack(scores, dim=1)
+        """frames [B, T, F, H] -> scores [B, T, 3]: one frame chunk at a
+        time, or, with ``fused_frames`` > 1, groups of that many frames per
+        weight stream (the tail padded with inactive frames). The fused form
+        reads one scalar per pass (the verify pass's gate); the per-frame
+        form has no host sync inside the loop."""
+        B, T = frames.shape[:2]
+        if T == 0:
+            return torch.zeros((B, 0, 3), device=self.device)
+        k = self.fused_frames
+        if k == 1:
+            return torch.stack([self.append_frames(cache, frames[:, t]) for t in range(T)],
+                               dim=1)
+        scores = []
+        for t in range(0, T, k):
+            chunk = frames[:, t:t + k]
+            n = chunk.shape[1]
+            if n < k:
+                chunk = torch.cat([chunk, chunk.new_zeros((B, k - n, *chunk.shape[2:]))], dim=1)
+            active = torch.full((B,), n, dtype=torch.int32, device=self.device)
+            scores.append(self.append_frames_fused(cache, chunk, active)[:, :n])
+        return torch.cat(scores, dim=1)
 
     def encode_frames(self, frames) -> torch.Tensor:
         """[N, H, W, 3] pixels -> [N, F, H_llm], VISION_BATCH frames at a time."""
         frames = torch.as_tensor(frames, device=self.device)
-        outs = [aha.visual_embed(self.params, self.cfg, frames[i:i + VISION_BATCH])
+        outs = [aha.visual_embed(self.params, self.cfg, frames[i:i + VISION_BATCH],
+                                 self.backend)
                 for i in range(0, frames.shape[0], VISION_BATCH)]
         if not outs:
             return torch.zeros((0, self.cfg.frame_num_tokens, self.cfg.llm.hidden_size),
@@ -156,14 +236,20 @@ class StreamEngine:
 
     # -- generation -----------------------------------------------------------
 
-    def generate(self, cache: KVCache, ids_list: list[list[int]], counts: torch.Tensor):
+    def generate(self, cache: KVCache, ids_list: list[list[int]], counts: torch.Tensor,
+                 ctx=None):
         """Greedy decode after the prompt chunk. Returns (out_ids [B, N],
-        out_len [B], counts, last_tok [B]); ``counts`` is updated in place.
+        out_len [B], counts, last_tok [B]); ``counts`` and ``cache`` are
+        updated in place. With ``spec_tokens`` > 1 this is ``generate_spec``
+        (same tokens, fewer passes); ``ctx`` = (ctx_ids [B, C], ctx_len [B])
+        is its draft context and is ignored by the sequential loop.
 
         Every produced token is written, an eos included; eos is never
         penalised; the final written token is never fed back through the
         decoder (it leads the next chunk instead), and a pass in which no
         row has a token to feed is skipped."""
+        if self.spec_tokens > 1:
+            return self.generate_spec(cache, ids_list, counts, ctx)
         eos = self.cfg.eos_token_id
         N = self.max_new_tokens
         pen = self.repetition_penalty
@@ -186,7 +272,126 @@ class StreamEngine:
                 break
             embeds = qwen2.embed_tokens(self.params["llm"], tok, self.dtype)[:, None, :]
             hidden = self._decode(cache, embeds, step.to(torch.int32))
-            logits = qwen2.lm_logits(self.params["llm"], self.cfg.llm, hidden[:, 0]).float()
+            logits = self._logits(hidden[:, 0])
             tok = torch.argmax(_apply_repetition_penalty(logits, counts, pen), dim=-1)
         last_tok = out_ids[rows, torch.clamp(out_len.long() - 1, min=0)]
         return out_ids, out_len, counts, last_tok
+
+    def generate_spec(self, cache: KVCache, ids_list: list[list[int]], counts: torch.Tensor,
+                      ctx=None):
+        """Speculative greedy decode: the tokens of ``generate`` (the strictly
+        sequential loop), but each weight stream verifies S candidates: the
+        carried token plus S-1 n-gram-lookup drafts
+        (``spec_decode.ngram_draft``) through the read-only verify pass,
+        committing only the prefix that matches sequential greedy argmax.
+
+        Position p's hidden state equals the p-th sequential 1-token pass
+        for every cache policy and fill state; acceptance replays the
+        sequential loop's bookkeeping per position, in its order: write, eos,
+        budget, repetition-penalty counts, then the next argmax. A rejected
+        draft costs nothing but the pass and a perfect drafter changes no
+        output.
+
+        ``ctx`` = (ctx_ids [B, C] int, ctx_len [B]): recent conversation text
+        prepended to the lookup history; a draft source only, never fed to
+        the model. The width is ``spec_tokens``, or ``spec_max`` while the
+        acceptance EMA (kept across calls) is above ``SPEC_EMA_HI``. One host
+        read per pass (rows still decoding, tokens committed), plus the
+        verify pass's gate. MUTATES ``cache`` and ``counts``. Returns what
+        ``generate`` returns; ``self.last_spec_info`` = (passes, committed
+        tokens, EMA) of this call."""
+        eos = self.cfg.eos_token_id
+        N = self.max_new_tokens
+        pen = self.repetition_penalty
+        dev = self.device
+        ids, lens = self.pad_ids(ids_list)
+        B, P = ids.shape
+        ctx_ids, ctx_len = ctx if ctx is not None else (None, None)
+        if ctx_ids is not None:
+            ctx_ids = torch.as_tensor(ctx_ids, device=dev)
+            ctx_len = torch.as_tensor(ctx_len, device=dev)
+        M = (0 if ctx_ids is None else ctx_ids.shape[1]) + P + N + 1
+        logits = self.append_ids(cache, ids_list)
+        tok = torch.argmax(_apply_repetition_penalty(logits, counts, pen), dim=-1).to(torch.int32)
+
+        bidx = torch.arange(B, device=dev)
+        # one spare column each takes the writes of rows that do not write
+        out_buf = torch.zeros((B, N + 1), dtype=torch.int32, device=dev)
+        out_len = torch.zeros((B,), dtype=torch.int32, device=dev)
+        done = torch.zeros((B,), dtype=torch.bool, device=dev)
+        hist, hist_len = spec_decode.build_draft_hist(ctx_ids, ctx_len, ids, lens, N + 1)
+        hist = torch.cat([hist, hist.new_full((B, 1), -1)], dim=1)
+        # the EMA in f32, as the JAX engine carries it
+        ema, passes, committed_total = np.float32(self._spec_ema), 0, 0
+
+        rows = ~done & (out_len < N)
+        more = N > 0                          # no row is done before the first pass
+        while more:
+            S = self.spec_max if ema > SPEC_EMA_HI else self.spec_tokens
+            out_len0 = out_len
+            drafts = spec_decode.ngram_draft(hist[:, :M], hist_len, tok, S - 1)
+            chunk = torch.cat([tok[:, None], drafts], dim=1)                   # [B, S]
+            plan_valid = torch.where(rows, S, 0).to(torch.int32)
+            plans = spec_decode.plan_compose(cache, self.policy, plan_valid, S)
+            embeds = qwen2.embed_tokens(self.params["llm"], chunk, self.dtype)
+            hidden, infl_k, infl_v = qwen2.decode_chunk_spec(
+                self.params["llm"], self.cfg.llm, self.policy, cache, embeds, plans,
+                backend=self.backend)
+            logits = self._logits(hidden)                                      # [B, S, V]
+
+            reach = rows                      # position p reached and writable
+            m_cache = torch.zeros((B,), dtype=torch.int32, device=dev)
+            carry = tok
+            for p in range(S):
+                tok_p = chunk[:, p]
+                write = reach
+                out_buf[bidx, torch.where(write, out_len, N).long()] = tok_p
+                hist[bidx, torch.where(write, hist_len, M).long()] = tok_p
+                out_len = out_len + write.to(torch.int32)
+                hist_len = hist_len + write.to(torch.int32)
+                is_eos = tok_p == eos
+                counts[bidx, tok_p.long()] += (write & ~is_eos).to(torch.int32)
+                done = done | (write & is_eos)
+                # the decoder step for tok_p ran speculatively; it COUNTS iff
+                # the sequential loop would have run it
+                processed = write & ~is_eos & (out_len < N)
+                m_cache = m_cache + processed.to(torch.int32)
+                t_next = torch.argmax(_apply_repetition_penalty(logits[:, p], counts, pen),
+                                      dim=-1).to(torch.int32)
+                carry = torch.where(processed, t_next, carry)
+                if p + 1 < S:
+                    # draft p+1 is accepted iff it IS the sequential token
+                    reach = processed & (chunk[:, p + 1] == t_next)
+
+            spec_decode.commit_slots(cache, plans, infl_k, infl_v, m_cache, self.policy.junk)
+            spec_decode.select_meta(cache, plans, m_cache)
+            tok = carry
+            # normalise by ACHIEVABLE tokens: a row whose budget ends
+            # mid-chunk cannot commit the full width, and that is no rejection
+            achievable = torch.where(rows, torch.clamp(N - out_len0, max=S), 0).sum()
+            rows = ~done & (out_len < N)
+            committed, achievable, more = (int(v) for v in torch.stack(
+                [(out_len - out_len0).sum(), achievable, rows.any().to(torch.int32)]).tolist())
+            frac = np.float32(committed) / np.float32(max(achievable, 1))
+            ema = np.float32(1.0 - SPEC_EMA_ALPHA) * ema + np.float32(SPEC_EMA_ALPHA) * frac
+            passes += 1
+            committed_total += committed
+
+        self._spec_ema = ema
+        self.last_spec_info = (passes, committed_total, float(ema))
+        self.spec_totals[0] += passes
+        self.spec_totals[1] += committed_total
+        out_ids = out_buf[:, :N]
+        last_tok = out_ids[bidx, torch.clamp(out_len.long() - 1, min=0)]
+        return out_ids, out_len, counts, last_tok
+
+    def spec_acceptance(self) -> dict:
+        """Run-level speculation counters: verify passes, committed tokens,
+        tokens per pass, and the current acceptance EMA."""
+        passes, committed = self.spec_totals
+        return {"passes": passes, "committed": committed,
+                "tokens_per_pass": round(committed / max(passes, 1), 3),
+                "ema": round(float(self._spec_ema), 4)}
+
+    def reset_spec_totals(self):
+        self.spec_totals = [0, 0]

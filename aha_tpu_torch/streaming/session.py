@@ -1,12 +1,16 @@
 """StreamSession: the single-stream streaming-inference session.
 
-Counterpart of ``aha_tpu/streaming/session.py`` at widths 1 (one frame per
-decoder pass, one token per generation pass): the benchmark loop
+Counterpart of ``aha_tpu/streaming/session.py``: the benchmark loop
 ``inference()`` (the stepwise loop; the JAX chunked loop gives the same
 outputs, tests/test_streaming.py::test_chunked_inference_matches_stepwise),
-the prob / sum / z trigger rules, and ``score_video``. The session only
-sequences chunks and applies the trigger policy; tensor work is in
-:class:`~aha_tpu_torch.streaming.engine.StreamEngine`.
+the prob / sum / z trigger rules, and ``score_video``. ``score_video`` scores
+``fused_score_frames`` frames per decoder pass and a response is generated
+``spec_decode_tokens`` candidates per pass (both through the engine's
+read-only verify pass); inside ``inference()`` frames are scored one per
+pass, because a trigger may fire after any of them (the chunked on-device
+trigger loops of the JAX session are not ported: ROADMAP.md, Queue 1). The
+session only sequences chunks and applies the trigger policy; tensor work is
+in :class:`~aha_tpu_torch.streaming.engine.StreamEngine`.
 """
 
 from __future__ import annotations
@@ -16,10 +20,9 @@ import collections
 import numpy as np
 import torch
 
-from aha_tpu.config import AhaConfig, InferConfig
-from aha_tpu.tokenization import StreamTokenizer
-
+from ..config import AhaConfig, InferConfig
 from ..ops.kv_cache import CachePolicy
+from ..tokenization import StreamTokenizer
 from .engine import StreamEngine
 
 
@@ -60,6 +63,11 @@ class StreamSession:
         self.last_response_frame: int | None = None
         self.debug_data_list: list[dict] = []
         self._pending_last_ids: list[int] = []
+        # draft context for speculative decoding: recent conversation text
+        # (query ids, earlier response ids), most recent last, capped at
+        # _DRAFT_CTX_TOKENS. An n-gram draft source only, never fed to the
+        # model.
+        self._draft_ctx: list[int] = []
         # reuse the allocated ring buffer across videos (metadata-only reset)
         if self.cache is not None:
             self.engine.reset_cache(self.cache)
@@ -115,20 +123,37 @@ class StreamSession:
             add_stream_prompt=True,
         )
         self.engine.append_ids(self.cache, [query_ids])
+        self._push_draft_ctx(query_ids)
         self.last_role = "user"
+
+    _DRAFT_CTX_TOKENS = 128
+
+    def _push_draft_ctx(self, ids):
+        self._draft_ctx.extend(int(t) for t in ids)
+        self._draft_ctx = self._draft_ctx[-self._DRAFT_CTX_TOKENS:]
+
+    def _draft_ctx_arrays(self):
+        """(ctx_ids [1, 128], ctx_len [1]) for ``engine.generate``: the
+        speculative drafter's lookup context, at a fixed width."""
+        ids = np.zeros((1, self._DRAFT_CTX_TOKENS), np.int32)
+        n = len(self._draft_ctx)
+        ids[0, :n] = self._draft_ctx
+        return ids, np.asarray([n], np.int32)
 
     def _generate_response(self) -> str:
         # generation writes the cache in place: keep a copy to roll back to
         pre_cache = self.cache.clone() if self.remove_assistant_turns else None
         out_ids, out_len, self.rep_counts, last_tok = self.engine.generate(
-            self.cache, [self._added_stream_generation_ids], self.rep_counts)
+            self.cache, [self._added_stream_generation_ids], self.rep_counts,
+            ctx=self._draft_ctx_arrays())
         if self.remove_assistant_turns:
             self.cache = pre_cache
         else:
             self._pending_last_ids = [int(last_tok[0])]
         n = int(out_len[0])
-        response = self.tokenizer.decode(out_ids[0, :n].cpu().numpy(),
-                                         skip_special_tokens=True)
+        ids = out_ids[0, :n].cpu().numpy()
+        response = self.tokenizer.decode(ids, skip_special_tokens=True)
+        self._push_draft_ctx(ids)   # earlier answers seed later drafts
         self.last_role = "assistant"
         return response
 
@@ -230,25 +255,25 @@ class StreamSession:
 
 
 def build_session(params: dict, cfg: AhaConfig, tokenizer: StreamTokenizer,
-                  infer_cfg: InferConfig, *, device="cpu") -> StreamSession:
+                  infer_cfg: InferConfig, *, device="cuda",
+                  backend: str = "fused") -> StreamSession:
     """InferConfig -> CachePolicy -> engine -> session, on ``device`` (where
-    ``params`` must already live).
-
-    Only widths 1 are ported: fused frame scoring and speculative decoding
-    (``fused_score_frames`` / ``spec_decode_tokens`` > 1, the InferConfig
-    defaults) raise rather than being narrowed silently."""
-    if infer_cfg.fused_score_frames > 1 or infer_cfg.spec_decode_tokens > 1:
-        raise NotImplementedError(
-            "aha_tpu_torch runs widths 1 only: set fused_score_frames=1 and "
-            "spec_decode_tokens=1 (fused scoring and speculative decoding are "
-            "ROADMAP.md, Queue 1 items 6-7)")
+    ``params`` must already live): the card unless the caller asks for the
+    CPU; raises when there is no card. ``backend`` picks the quantized-matmul
+    kernels (``ops.quant.BACKENDS``). The widths of ``infer_cfg``
+    (``fused_score_frames``, ``spec_decode_tokens``,
+    ``spec_decode_tokens_max``) go to the engine as they are."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("build_session: device cuda requested but no GPU is available")
+        raise RuntimeError("build_session: device cuda requested but no GPU is available "
+                           "(pass device='cpu' to run on the host)")
     policy = CachePolicy(kind=infer_cfg.kv_cache_policy, window=infer_cfg.kv_window,
                          num_sink=infer_cfg.num_sink_tokens, mask_mode=infer_cfg.kv_mask_mode)
     engine = StreamEngine(
         params, cfg, policy, device=device, max_new_tokens=infer_cfg.max_new_tokens,
         repetition_penalty=infer_cfg.repetition_penalty,
-        kv_dtype=torch.int8 if infer_cfg.kv_cache_dtype == "int8" else None)
+        kv_dtype=torch.int8 if infer_cfg.kv_cache_dtype == "int8" else None,
+        backend=backend, spec_tokens=infer_cfg.spec_decode_tokens,
+        spec_tokens_max=infer_cfg.spec_decode_tokens_max,
+        fused_score_frames=infer_cfg.fused_score_frames)
     return StreamSession(engine, tokenizer, infer_cfg)

@@ -6,27 +6,58 @@
 
 Phases, one or more lines each:
   1. device: nvidia-smi name and power limit, torch / CUDA / nvcc versions,
-     the kernels' build time (built from aha_tpu_torch/csrc at first use);
-  2. each CUDA kernel against its plain PyTorch version on the card, at the
-     streaming path's 7B shapes (bf16: max|y - y_ref| <= 1e-2 * max|y_ref|)
-     and at small ragged shapes (f32: 1e-4 * max|y_ref|), with kernel and
-     plain times (CUDA events; weights cycled through > L2 worth of copies);
+     the kernels' build time (built from aha_tpu_torch/csrc at first use, one
+     nvcc per source in parallel);
+  2. each CUDA kernel against its plain PyTorch version on the card, at
+     every shape the 7B paths of phase 4 hand it (all five matmul entries at
+     the four layer products for each row count of PATH_M, lm_head at 1, 4
+     and 8 rows, the projector at 392 and 1568; phase 4 records the shapes
+     and fails on one that was not checked here)
+     (bf16: max|y - y_ref| <= 1e-2 * max|y_ref|;
+     with int8 activations 2e-2, because the kernel's quantiser and the plain
+     one may round an exact tie apart by one int8 step of one activation) and
+     at small ragged shapes (f32: 1e-4 * max|y_ref|), with kernel and plain
+     times (CUDA events; weights cycled through > L2 worth of copies), the
+     bound (the larger of bytes moved / 3.35 TB/s and operations / the
+     published dense peak of their type: 989 TFLOP/s bf16, 1979 TOP/s int8,
+     67 TFLOP/s f32) and, where one PyTorch call computes the same product
+     (torch._int_mm for int8 x int8), that call's time;
   3. the tiny preset's whole slice on the card (kernels) and on the CPU
-     (plain versions) from the same seeded int8 weights: scores must agree
-     to atol 1e-3; whether the generated texts match is printed;
-  4. the 7B-int8 slice with seeded synthetic weights: score_video over 64
-     frames, then inference() over 96 frames at 2 fps with a query at t=0,
-     past the 2048-token window fill. Launch counters are zeroed just before
-     and read just after; every kernel must have run layers x chunks times.
+     (plain versions) from the same seeded weights: int8 at widths 1, int4 at
+     the product widths (fused scoring of 4 frames, speculative generation
+     4 -> 8; on the card also against width 1: texts must be identical),
+     int8 with the "fused_a8" and with the "pallas" backend. Scores must agree
+     to atol 1e-3 (1e-2 with int8 activations: a tie in the quantiser moves a
+     hidden state by up to 1/127 of its row's maximum); whether the generated
+     texts match the CPU's is printed;
+  4. at the 7B's full width and depth, seeded synthetic weights, sink cache
+     2048 + 32, launch counters zeroed just before each path and read just
+     after:
+       a. 7B-int4 at the product widths: score_video over 64 frames (16 fused
+          passes of 196 rows), inference() over 96 frames at 2 fps with a
+          query at t=0, past the window fill, speculative generation 4 -> 8,
+          then the same inference() at width 1 (texts compared) and one
+          verify pass of 8 tokens against 8 sequential passes on the filled
+          cache (hidden states to 5e-2 of their maximum: bf16 through 28 layers
+          on two kernel paths);
+       b. 7B-int8 at widths 1: score_video over 64 frames, inference() over
+          96 frames;
+       c. short score_video runs (8 frames) that drive the remaining
+          kernels: 7B-int8 with "fused_a8", 7B-int8 with "pallas", 7B-int4
+          with "fused_a8".
+     Last, every shape that a path handed a kernel's wrapper must be one that
+     phase 2 held against the plain version.
 
 Prints the kernels' JSON line and, last, {"ok": true, "device": ...}.
 Exits nonzero, with no result line, when there is no CUDA device, when the
-package is missing, or when any phase fails. Imports nothing of JAX.
+package is missing, or when any phase fails. Imports nothing of JAX and
+nothing of aha_tpu.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import pathlib
@@ -35,10 +66,23 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
-INT8_SRC = "aha_tpu_torch/csrc/int8_matmul.cu"
-ATTN_SRC = "aha_tpu_torch/csrc/decode_attention.cu"
-INT8_TPU = "aha_tpu/ops/pallas/fused_matmul.py:177"
-ATTN_TPU = "aha_tpu/ops/pallas/decode_attention.py:131"
+CSRC = "aha_tpu_torch/csrc/"
+FUSED_TPU = "aha_tpu/ops/pallas/fused_matmul.py"
+# name -> (source, the TPU kernel it replaces)
+KERNELS = {
+    "int8_matmul": (CSRC + "int8_matmul.cu", FUSED_TPU + ":177"),
+    "int8_matmul_a8": (CSRC + "int8_matmul.cu", FUSED_TPU + ":177"),
+    "quant_matmul": (CSRC + "int8_matmul.cu", "aha_tpu/ops/pallas/quant_matmul.py:103"),
+    "int4_matmul": (CSRC + "int4_matmul.cu", FUSED_TPU + ":238"),
+    "int4_matmul_a8": (CSRC + "int4_matmul.cu", FUSED_TPU + ":238"),
+    "quantize_rows": (CSRC + "quantize_rows.cu", FUSED_TPU + ":160"),
+    "decode_attention": (CSRC + "decode_attention.cu",
+                         "aha_tpu/ops/pallas/decode_attention.py:131"),
+}
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+QUERY = "What is happening in this video?"
+SCORE_KEYS = ("informative_score", "relevance_score", "uncertainty_score")
 
 
 def gpu_line() -> str:
@@ -75,51 +119,185 @@ def rel_check(name: str, y, ref, tol: float) -> float:
     return err
 
 
+def bound_ms(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
+    """The least time the card could take: each input read once and each
+    output written once at the memory rate, or the operations at the
+    published peak of their type, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+class Stats:
+    """Per kernel: worst error over all checks; times, bound and library
+    time summed over the kernel's representative shapes; launches summed
+    over the main paths."""
+
+    def __init__(self):
+        self.k = {n: dict(err=0.0, ms=None, plain_ms=None, bound_ms=None, bound_by=None,
+                          library_ms=None, launches=0, shape=None) for n in KERNELS}
+        self.checked = set()     # (kernel, M, K, N) or (kernel, S) held against the plain version
+
+    def err(self, name, e):
+        self.k[name]["err"] = max(self.k[name]["err"], e)
+
+    def add(self, name, ms, plain_ms, bound, by, library_ms, shape):
+        k = self.k[name]
+        k["ms"] = (k["ms"] or 0.0) + ms
+        k["plain_ms"] = (k["plain_ms"] or 0.0) + plain_ms
+        k["bound_ms"] = (k["bound_ms"] or 0.0) + bound
+        k["bound_by"] = by
+        if library_ms is not None:
+            k["library_ms"] = (k["library_ms"] or 0.0) + library_ms
+        k["shape"] = shape
+
+    def launches(self, counts):
+        for n, c in counts.items():
+            self.k[n]["launches"] += c
+
+
 # -- phase 2 -------------------------------------------------------------------
 
+# the decoder layer's four products; the representative set of the JSON line
+LAYER = [("qkv", 3584, 4608), ("o_proj", 3584, 3584), ("gate_up", 3584, 37888),
+         ("down", 18944, 3584)]
+# rows per decoder pass on the 7B paths: a token (1), a verify pass (4, 8), the
+# generation prompt (13), a frame or the query (49), a response's last token +
+# stream prompt + frame (59), the system prompt (171), a fused pass of 4 frames
+# (196), system prompt + first frame (220)
+PATH_M = (1, 4, 8, 13, 49, 59, 171, 196, 220)
 
-def check_int8(gen, stats: dict):
+
+def _dt(dt) -> str:
+    return str(dt)[6:]
+
+
+def check_matmuls(gen, stats: Stats):
     import torch
 
+    from aha_tpu_torch.ops.kernels import int4_matmul as k4
     from aha_tpu_torch.ops.kernels import int8_matmul as k8
 
     dev = "cuda"
-    # (label, M, K, N, dtype): the 7B-int8 path's products. M = 1 (a
-    # generated token), 13 (generation prompt), 49 (a frame), 220 (system
-    # prompt + first frame), 1568 (projector over 32 frames x 49 tokens)
-    shapes = [("qkv", 1, 3584, 4608), ("qkv", 49, 3584, 4608), ("qkv", 220, 3584, 4608),
-              ("o_proj", 1, 3584, 3584), ("o_proj", 49, 3584, 3584),
-              ("gate_up", 1, 3584, 37888), ("gate_up", 49, 3584, 37888),
-              ("down", 1, 18944, 3584), ("down", 49, 18944, 3584), ("down", 13, 18944, 3584),
-              ("lm_head", 1, 3584, 152064),
-              ("projector_fc1", 1568, 1024, 3584), ("projector_fc2", 1568, 3584, 3584)]
-    cases = [(*s, torch.bfloat16, 1e-2) for s in shapes]
-    cases += [("ragged", 7, 100, 77, torch.float32, 1e-4),
-              ("ragged", 1, 64, 33, torch.float32, 1e-4),
-              ("ragged", 13, 300, 130, torch.float32, 1e-4),
-              ("ragged", 5, 96, 48, torch.float32, 1e-4)]
-    frame_ms = frame_plain_ms = 0.0
-    for label, M, K, N, dt, tol in cases:
-        # enough weight copies that a timing loop cannot live in the 50 MB L2
-        copies = max(1, math.ceil(160e6 / (K * N)))
-        ws = [torch.randint(-127, 128, (K, N), generator=gen, device=dev, dtype=torch.int8)
-              for _ in range(copies)]
-        sc = (torch.rand((1, N), generator=gen, device=dev) + 0.5) * (0.02 / 127)
-        x = torch.randn((M, K), generator=gen, device=dev).to(dt)
-        y = k8.int8_matmul(x, ws[0], sc)
-        ref = k8.int8_matmul_plain(x, ws[0], sc)
+    bf, f32 = torch.bfloat16, torch.float32
+    layer = {name: (K, N) for name, K, N in LAYER}
+
+    # every shape the paths of phase 4 hand a product (phase 4 records them and
+    # fails on one that is not here), for each of the five entries alike
+    cards = [(n, M, *layer[n]) for n in layer for M in PATH_M]
+    cards += [(n, M, *layer[n]) for n in ("qkv", "down") for M in (5, 9)]
+    cards += [("lm_head", M, 3584, 152064) for M in (1, 4, 8)]
+    cards += [(n, M, K, N) for M in (392, 1568)
+              for n, K, N in (("projector_fc1", 1024, 3584), ("projector_fc2", 3584, 3584))]
+    ragged8 = [("ragged", 7, 100, 77), ("ragged", 1, 64, 33), ("ragged", 13, 300, 130),
+               ("ragged", 5, 96, 48)]
+    # bf16 with ragged tile edges on the tensor-core path (M, N not multiples
+    # of the 64 x 128 tile, K split over blocks)
+    edge = ("ragged-tc", 70, 320, 136)
+    # int4 ragged: odd N, one group (G = K), M not a multiple of 4, G not a
+    # multiple of 32 (the CUDA-core path at M > 1)
+    ragged4 = [("ragged", 7, 128, 77, 128), ("ragged", 1, 64, 33, 64), ("ragged", 13, 384, 130, 64),
+               ("ragged", 5, 96, 48, 6), ("ragged", 3, 256, 40, 128)]
+
+    # (kernel name, weight bits, a8, cases, M of the representative set)
+    families = [
+        ("int8_matmul", 8, False,
+         [(*c, None, bf, 1e-2) for c in cards]
+         + [(*r, None, f32, 1e-4) for r in ragged8] + [(*edge, None, bf, 1e-2)], 49),
+        ("int8_matmul_a8", 8, True,
+         [(*c, None, bf, 2e-2) for c in cards]
+         + [(*r, None, f32, 1e-4) for r in ragged8] + [(*edge, None, bf, 2e-2)], 49),
+        ("quant_matmul", 8, False,
+         [(*c, None, bf, 1e-2) for c in cards] + [(*ragged8[0], None, f32, 1e-4)], 49),
+        ("int4_matmul", 4, False,
+         [(*c, 128, bf, 1e-2) for c in cards]
+         + [(*r, f32, 1e-4) for r in ragged4] + [(*edge, 64, bf, 1e-2)], 196),
+        ("int4_matmul_a8", 4, True,
+         [(*c, 128, bf, 2e-2) for c in cards]
+         + [(*r, f32, 1e-4) for r in ragged4] + [(*edge, 64, bf, 2e-2)], 196),
+    ]
+    for name, bits, a8, cases, rep_m in families:
+        for label, M, K, N, G, dt, tol in cases:
+            wbytes = K * N * bits // 8
+            # enough weight copies that a timing loop cannot live in the 50 MB L2
+            copies = max(1, math.ceil(160e6 / wbytes))
+            if bits == 8:
+                ws = [torch.randint(-127, 128, (K, N), generator=gen, device=dev,
+                                    dtype=torch.int8) for _ in range(copies)]
+                sc = (torch.rand((1, N), generator=gen, device=dev) + 0.5) * (0.02 / 127)
+                sbytes = 4 * N
+                if name == "quant_matmul":
+                    run = lambda x, w: k8.quant_matmul(x, w, sc)
+                else:
+                    run = lambda x, w: k8.int8_matmul(x, w, sc, a8=a8)
+                plain = lambda x, w: k8.int8_matmul_plain(x, w, sc, a8)
+            else:
+                ws = [torch.randint(0, 256, (K // 2, N), generator=gen, device=dev,
+                                    dtype=torch.uint8) for _ in range(copies)]
+                sc = ((torch.rand((K // G, N), generator=gen, device=dev) + 0.5)
+                      * (0.02 / 7)).to(bf)
+                sbytes = 2 * (K // G) * N
+                run = lambda x, w: k4.int4_matmul(x, w, sc, a8=a8)
+                plain = lambda x, w: k4.int4_matmul_plain(x, w, sc, a8)
+            x = torch.randn((M, K), generator=gen, device=dev).to(dt)
+            y, ref = run(x, ws[0]), plain(x, ws[0])
+            torch.cuda.synchronize()
+            what = f"{name} {label} M={M} K={K} N={N}" + (f" G={G}" if G else "")
+            err = rel_check(what, y, ref, tol)
+            stats.err(name, err)
+            stats.checked.add((name, M, K, N))
+            ms = cuda_ms(lambda i: run(x, ws[i % copies]))
+            pms = cuda_ms(lambda i: plain(x, ws[i % copies]), iters=3, warmup=1)
+            esize = x.element_size()
+            bms, by = bound_ms(M * K * esize + wbytes + sbytes + M * N * esize, 2.0 * M * K * N,
+                               "int8" if a8 else ("bf16" if dt == bf else "f32"))
+            lib = None
+            if name == "int8_matmul_a8" and M > 16 and K % 8 == 0 and N % 8 == 0:
+                # the int8 x int8 product alone, on activations quantised beforehand
+                xq = torch.randint(-127, 128, (M, K), generator=gen, device=dev,
+                                   dtype=torch.int8)
+                lib = cuda_ms(lambda i: torch._int_mm(xq, ws[i % copies]))
+            if M == rep_m and label in layer and dt == bf:
+                stats.add(name, ms, pms, bms, by, lib,
+                          f"decoder layer (qkv, o_proj, gate_up, down) at M={M}, bf16")
+            print(f"phase2 {what} {_dt(dt)} max_abs_err={err:.3e} kernel_ms={ms:.4f} "
+                  f"plain_ms={pms:.4f} bound_ms={bms:.4f} ({by}) library_ms="
+                  f"{'none' if lib is None else f'{lib:.4f}'}", flush=True)
+            del ws
+
+
+def check_quantize_rows(gen, stats: Stats):
+    import torch
+
+    from aha_tpu_torch.ops.kernels import quantize_rows as qr
+
+    bf, f32 = torch.bfloat16, torch.float32
+    # the rows and widths the int8-activation products of the paths quantise
+    cases = [(M, K, bf) for M in PATH_M + (5, 9) for K in (3584, 18944)]
+    cases += [(M, K, bf) for M in (392, 1568) for K in (1024, 3584)]
+    cases += [(7, 100, f32), (3, 33, f32)]
+    for M, K, dt in cases:
+        x = torch.randn((M, K), generator=gen, device="cuda").to(dt)
+        xq, sx = qr.quantize_rows(x)
+        rq, rs = qr.quantize_rows_plain(x)
         torch.cuda.synchronize()
-        err = rel_check(f"int8_matmul {label} M={M} K={K} N={N}", y, ref, tol)
-        stats["int8_err"] = max(stats["int8_err"], err)
-        ms = cuda_ms(lambda i: k8.int8_matmul(x, ws[i % copies], sc))
-        pms = cuda_ms(lambda i: k8.int8_matmul_plain(x, ws[i % copies], sc), iters=5)
-        if M == 49 and label in ("qkv", "o_proj", "gate_up", "down"):
-            frame_ms += ms
-            frame_plain_ms += pms
-        print(f"phase2 int8_matmul {label} M={M} K={K} N={N} {str(dt)[6:]} "
-              f"max_abs_err={err:.3e} kernel_ms={ms:.4f} plain_ms={pms:.4f}", flush=True)
-        del ws
-    stats["int8_ms"], stats["int8_plain_ms"] = frame_ms, frame_plain_ms
+        # the same IEEE division and round-half-even on both sides: bit-equal
+        step = (xq.int() - rq.int()).abs().max().item()
+        off = int((xq != rq).sum())
+        if xq.shape != rq.shape or off or not torch.equal(sx, rs):
+            raise AssertionError(f"quantize_rows M={M} K={K}: {off} values differ (max step "
+                                 f"{step}), scales equal {torch.equal(sx, rs)}")
+        stats.err("quantize_rows", float(step))
+        stats.checked.add(("quantize_rows", M, K))
+        ms = cuda_ms(lambda i: qr.quantize_rows(x))
+        pms = cuda_ms(lambda i: qr.quantize_rows_plain(x), iters=5)
+        bms, by = bound_ms(M * K * (x.element_size() + 1) + 4 * M, 3.0 * M * K, "f32")
+        if (M, K) in ((196, 3584), (196, 18944)):
+            stats.add("quantize_rows", ms, pms, bms, by, None,
+                      "a decoder layer's two widths (K 3584, 18944) at M=196, bf16")
+        print(f"phase2 quantize_rows M={M} K={K} {_dt(dt)} values_off={off} max_step={step} "
+              f"kernel_ms={ms:.4f} plain_ms={pms:.4f} bound_ms={bms:.4f} ({by}) "
+              f"library_ms=none", flush=True)
 
 
 def attention_inputs(gen, B, S, NH, KVH, Dh, Wp, qdt, kvdt):
@@ -147,98 +325,50 @@ def attention_inputs(gen, B, S, NH, KVH, Dh, Wp, qdt, kvdt):
             g.contiguous(), scales)
 
 
-def check_attention(gen, stats: dict):
+def check_attention(gen, stats: Stats):
     import torch
 
     from aha_tpu_torch.ops.kernels import decode_attention as da
 
     bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
     # (label, B, S, NH, KVH, Dh, Wp, q dtype, kv dtype, tol): 7B shapes on
-    # the 2049-slot sink cache (S = 1 generation, 13 generation prompt,
-    # 49 frame, 220 system + first frame), int8 KV, then small ragged f32
-    cases = [("7b", 1, 1, 28, 4, 128, 2049, bf, bf, 1e-2),
-             ("7b", 1, 13, 28, 4, 128, 2049, bf, bf, 1e-2),
-             ("7b", 1, 49, 28, 4, 128, 2049, bf, bf, 1e-2),
-             ("7b", 1, 220, 28, 4, 128, 2049, bf, bf, 1e-2),
-             ("7b-int8kv", 1, 49, 28, 4, 128, 2049, bf, i8, 1e-2),
-             ("ragged", 2, 5, 4, 2, 16, 77, f32, f32, 1e-4),
-             ("ragged", 2, 3, 6, 2, 64, 129, f32, f32, 1e-4),
-             ("ragged", 1, 9, 8, 2, 32, 45, f32, f32, 1e-4),
-             ("ragged-int8kv", 2, 7, 4, 2, 128, 100, f32, i8, 1e-4)]
+    # the 2049-slot sink cache (every S of PATH_M that a writing pass takes:
+    # all but the verify pass's 4, 8 and 196), int8 KV, then small ragged f32
+    cases = [("7b", 1, S, 28, 4, 128, 2049, bf, bf, 1e-2) for S in (1, 13, 49, 59, 171, 220)]
+    cases += [("7b-int8kv", 1, 49, 28, 4, 128, 2049, bf, i8, 1e-2),
+              ("ragged", 2, 5, 4, 2, 16, 77, f32, f32, 1e-4),
+              ("ragged", 2, 3, 6, 2, 64, 129, f32, f32, 1e-4),
+              ("ragged", 1, 9, 8, 2, 32, 45, f32, f32, 1e-4),
+              ("ragged-int8kv", 2, 7, 4, 2, 128, 100, f32, i8, 1e-4)]
     for label, B, S, NH, KVH, Dh, Wp, qdt, kvdt, tol in cases:
         args = attention_inputs(gen, B, S, NH, KVH, Dh, Wp, qdt, kvdt)
         y = da.decode_attention(*args)
         ref = da.decode_attention_plain(*args)
         torch.cuda.synchronize()
         err = rel_check(f"decode_attention {label} B={B} S={S} Dh={Dh} Wp={Wp}", y, ref, tol)
-        stats["attn_err"] = max(stats["attn_err"], err)
+        stats.err("decode_attention", err)
+        stats.checked.add(("decode_attention", S, Wp))
         ms = cuda_ms(lambda i: da.decode_attention(*args))
         pms = cuda_ms(lambda i: da.decode_attention_plain(*args), iters=5)
+        # q in, out, K and V (+ scales), the two rotation tables, order and g;
+        # scores and weighted values over the slots a query's mask admits
+        nbytes = sum(t.numel() * t.element_size() for t in args[:7])
+        nbytes += y.numel() * y.element_size()
+        if args[7] is not None:
+            nbytes += sum(t.numel() * t.element_size() for t in args[7])
+        order, g = args[5], args[6]
+        visible = ((order[:, None, :] >= 0) & (order[:, None, :] <= g[:, :, None])).sum().item()
+        bms, by = bound_ms(nbytes, 4.0 * visible * NH * Dh, "bf16" if qdt == bf else "f32")
         if label == "7b" and S == 49:
-            stats["attn_ms"], stats["attn_plain_ms"] = ms, pms
+            stats.add("decode_attention", ms, pms, bms, by, None,
+                      "one frame chunk: S=49, 28 heads over 2049 slots, bf16")
         print(f"phase2 decode_attention {label} B={B} S={S} NH={NH} KVH={KVH} Dh={Dh} "
-              f"Wp={Wp} q={str(qdt)[6:]} kv={str(kvdt)[6:]} max_abs_err={err:.3e} "
-              f"kernel_ms={ms:.4f} plain_ms={pms:.4f}", flush=True)
+              f"Wp={Wp} q={_dt(qdt)} kv={_dt(kvdt)} max_abs_err={err:.3e} "
+              f"kernel_ms={ms:.4f} plain_ms={pms:.4f} bound_ms={bms:.4f} ({by}) "
+              f"library_ms=none", flush=True)
 
 
 # -- phases 3 and 4 --------------------------------------------------------------
-
-
-def tiny_slice(device: str, params, cfg, tok, frames):
-    from aha_tpu.config import InferConfig
-
-    from aha_tpu_torch.streaming.session import build_session
-
-    common = dict(frame_fps=2.0, kv_cache_policy="sink", kv_window=256, num_sink_tokens=16,
-                  fused_score_frames=1, spec_decode_tokens=1)
-    s = build_session(params, cfg, tok, InferConfig(
-        stream_end_score_sum_threshold=2.5, max_new_tokens=16, **common), device=device)
-    s.input_video_stream(frames)
-    s.input_query_stream([{"role": "user", "content": "What is happening?", "time": 0}])
-    turns = s.inference()
-    sv = build_session(params, cfg, tok, InferConfig(grounding_mode=True, **common),
-                       device=device).score_video(frames, query="What is happening?")
-    keys = ("informative_score", "relevance_score", "uncertainty_score")
-    return ([[r[k] for k in keys] for r in s.debug_data_list + sv],
-            [t["content"] for t in turns if t["role"] == "assistant"])
-
-
-def phase3(gen_seed: int):
-    import numpy as np
-    import torch
-
-    from aha_tpu.config import aha_tiny
-    from aha_tpu.tokenization import build_stream_tokenizer
-
-    from aha_tpu_torch.models.aha import random_params
-
-    cfg = aha_tiny()
-    tok = build_stream_tokenizer(None, frame_num_tokens=cfg.frame_num_tokens,
-                                 vocab_size=cfg.llm.vocab_size)
-    cfg = cfg.replace(v_placeholder_id=tok.v_placeholder_id, eos_token_id=tok.eos_token_id)
-    cpu = random_params(cfg, device="cpu", seed=gen_seed)
-    gpu = _to(cpu, "cuda")
-    frames = np.random.default_rng(gen_seed).integers(0, 255, (24, 40, 48, 3), dtype=np.uint8)
-    s_gpu, t_gpu = tiny_slice("cuda", gpu, cfg, tok, frames)
-    s_cpu, t_cpu = tiny_slice("cpu", cpu, cfg, tok, frames)
-    a, b = np.asarray(s_gpu), np.asarray(s_cpu)
-    if a.shape != b.shape or not np.isfinite(a).all():
-        raise AssertionError(f"tiny slice: scores {a.shape} vs {b.shape} or non-finite")
-    err = float(np.abs(a - b).max())
-    if not err <= 1e-3:
-        raise AssertionError(f"tiny slice: card vs CPU scores differ by {err:.3e} > 1e-3")
-    same = t_gpu == t_cpu
-    first = ""
-    if not same:
-        for i, (x, y) in enumerate(zip(t_gpu, t_cpu)):
-            if x != y:
-                j = next((k for k, (p, q) in enumerate(zip(x, y)) if p != q), min(len(x), len(y)))
-                first = f" first divergence: response {i} char {j}"
-                break
-    print(f"phase3 tiny slice card-vs-cpu: {len(a)} frame scores max_abs_err={err:.3e} "
-          f"responses={len(t_gpu)}/{len(t_cpu)} texts_match={same}{first}", flush=True)
-    del gpu
-    torch.cuda.empty_cache()
 
 
 def _to(tree, device):
@@ -247,118 +377,413 @@ def _to(tree, device):
     return tree.to(device)
 
 
-def phase4(gpu: str, seed: int, stats: dict):
-    import torch
+def _model(preset: str):
+    from aha_tpu_torch.config import aha_7b, aha_tiny
+    from aha_tpu_torch.tokenization import build_stream_tokenizer
 
-    from aha_tpu.config import InferConfig, aha_7b
-    from aha_tpu.tokenization import build_stream_tokenizer
-
-    from aha_tpu_torch.models import qwen2
-    from aha_tpu_torch.models.aha import random_params
-    from aha_tpu_torch.ops.kernels import decode_attention as da
-    from aha_tpu_torch.ops.kernels import int8_matmul as k8
-    from aha_tpu_torch.streaming.session import build_session
-
-    cfg = aha_7b()
+    cfg = {"tiny": aha_tiny, "7b": aha_7b}[preset]()
     tok = build_stream_tokenizer(None, frame_num_tokens=cfg.frame_num_tokens,
                                  vocab_size=cfg.llm.vocab_size)
-    cfg = cfg.replace(v_placeholder_id=tok.v_placeholder_id, eos_token_id=tok.eos_token_id)
+    return cfg.replace(v_placeholder_id=tok.v_placeholder_id, eos_token_id=tok.eos_token_id), tok
+
+
+def tiny_slice(device: str, params, cfg, tok, frames, backend: str, widths: dict):
+    from aha_tpu_torch.config import InferConfig
+    from aha_tpu_torch.streaming.session import build_session
+
+    common = dict(frame_fps=2.0, kv_cache_policy="sink", kv_window=256, num_sink_tokens=16,
+                  **widths)
+    s = build_session(params, cfg, tok, InferConfig(
+        stream_end_score_sum_threshold=2.5, max_new_tokens=16, **common),
+        device=device, backend=backend)
+    s.input_video_stream(frames)
+    s.input_query_stream([{"role": "user", "content": "What is happening?", "time": 0}])
+    turns = s.inference()
+    sv = build_session(params, cfg, tok, InferConfig(grounding_mode=True, **common),
+                       device=device, backend=backend
+                       ).score_video(frames, query="What is happening?")
+    return ([[r[k] for k in SCORE_KEYS] for r in s.debug_data_list + sv],
+            [t["content"] for t in turns if t["role"] == "assistant"])
+
+
+def _first_divergence(a: list[str], b: list[str]) -> str:
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            j = next((k for k, (p, q) in enumerate(zip(x, y)) if p != q), min(len(x), len(y)))
+            return f" first divergence: response {i} char {j}"
+    return "" if len(a) == len(b) else f" first divergence: response {min(len(a), len(b))}"
+
+
+def phase3(seed: int):
+    import numpy as np
+    import torch
+
+    from aha_tpu_torch.models.aha import random_params
+
+    cfg, tok = _model("tiny")
+    frames = np.random.default_rng(seed).integers(0, 255, (24, 40, 48, 3), dtype=np.uint8)
+    w1 = dict(fused_score_frames=1, spec_decode_tokens=1)
+    product = dict(fused_score_frames=4, spec_decode_tokens=4, spec_decode_tokens_max=8)
+    cases = [("int8", "fused", w1, 1e-3), ("int4", "fused", product, 1e-3),
+             ("int8", "fused_a8", w1, 1e-2), ("int8", "pallas", w1, 1e-3)]
+    for mode, backend, widths, atol in cases:
+        cpu = random_params(cfg, mode=mode, device="cpu", seed=seed)
+        gpu = _to(cpu, "cuda")
+        s_gpu, t_gpu = tiny_slice("cuda", gpu, cfg, tok, frames, backend, widths)
+        s_cpu, t_cpu = tiny_slice("cpu", cpu, cfg, tok, frames, backend, widths)
+        a, b = np.asarray(s_gpu), np.asarray(s_cpu)
+        if a.shape != b.shape or not np.isfinite(a).all():
+            raise AssertionError(f"tiny {mode}/{backend}: scores {a.shape} vs {b.shape} "
+                                 f"or non-finite")
+        err = float(np.abs(a - b).max())
+        if not err <= atol:
+            raise AssertionError(f"tiny {mode}/{backend}: card vs CPU scores differ by "
+                                 f"{err:.3e} > {atol}")
+        note = ""
+        if widths is product:
+            # the exactness contract on the card, in f32: speculative 4 -> 8
+            # and fused-4 against width 1, same kernels, same weights
+            s_one, t_one = tiny_slice("cuda", gpu, cfg, tok, frames, backend, w1)
+            d = float(np.abs(a - np.asarray(s_one)).max())
+            if t_gpu != t_one or not d <= 1e-4:
+                raise AssertionError(
+                    f"tiny {mode}: widths 4 / 4->8 vs widths 1 on the card: scores differ by "
+                    f"{d:.3e}, texts equal {t_gpu == t_one}{_first_divergence(t_gpu, t_one)}")
+            note = f" vs-width-1-on-card: scores max_abs_diff={d:.3e} texts identical"
+        print(f"phase3 tiny {mode} backend={backend} widths={widths['fused_score_frames']}/"
+              f"{widths['spec_decode_tokens']}->{widths.get('spec_decode_tokens_max', 1)} "
+              f"card-vs-cpu: {len(a)} frame scores max_abs_err={err:.3e} (atol {atol}) "
+              f"responses={len(t_gpu)}/{len(t_cpu)} texts_match={t_gpu == t_cpu}"
+              f"{_first_divergence(t_gpu, t_cpu)}{note}", flush=True)
+        del gpu
+    torch.cuda.empty_cache()
+
+
+class PassCounter:
+    """Counts decoder passes (write passes and read-only verify passes) by
+    wrapping the two functions the engine calls."""
+
+    def __init__(self):
+        from aha_tpu_torch.models import qwen2
+
+        self.qwen2 = qwen2
+        self.saved = (qwen2.decode_chunk, qwen2.decode_chunk_spec)
+        self.chunks = self.verifies = 0
+
+    def __enter__(self):
+        write, verify = self.saved
+
+        def counted_write(*a, **k):
+            self.chunks += 1
+            return write(*a, **k)
+
+        def counted_verify(*a, **k):
+            self.verifies += 1
+            return verify(*a, **k)
+
+        self.qwen2.decode_chunk, self.qwen2.decode_chunk_spec = counted_write, counted_verify
+        return self
+
+    def __exit__(self, *exc):
+        self.qwen2.decode_chunk, self.qwen2.decode_chunk_spec = self.saved
+
+
+class ShapeRecorder:
+    """Records the shapes the model hands each kernel's wrapper (matmuls and
+    the activation quantiser behind them: rows, K, N; attention: query rows,
+    slots) by wrapping the names the model calls them by."""
+
+    def __init__(self):
+        from aha_tpu_torch.ops import attention, quant
+
+        self.seen = set()
+        self.sites = [(quant, "int4_matmul"), (quant, "int8_matmul"), (quant, "quant_matmul"),
+                      (attention, "decode_attention")]
+        self.saved = [getattr(mod, name) for mod, name in self.sites]
+
+    def _matmul(self, fn, name):
+        def recorded(x, w, scale, a8=False):
+            K, N = x.shape[-1], w.shape[-1]
+            M = x.numel() // K
+            if a8:
+                self.seen.add((name + "_a8", M, K, N))
+                self.seen.add(("quantize_rows", M, K))
+            else:
+                self.seen.add((name, M, K, N))
+            return fn(x, w, scale, a8=a8) if name != "quant_matmul" else fn(x, w, scale)
+        return recorded
+
+    def __enter__(self):
+        for (mod, name), fn in zip(self.sites[:3], self.saved):
+            setattr(mod, name, self._matmul(fn, name))
+        mod, name = self.sites[3]
+        attend = self.saved[3]
+
+        def recorded_attention(q, k, *a, **kw):
+            self.seen.add((name, q.shape[1], k.shape[1]))
+            return attend(q, k, *a, **kw)
+
+        setattr(mod, name, recorded_attention)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in zip(self.sites, self.saved):
+            setattr(mod, name, fn)
+
+
+def run_inference(params, cfg, tok, frames, threshold, widths, backend="fused"):
+    """inference() over ``frames`` with a query at t=0. Returns (session,
+    responses, seconds in all, seconds inside generate(), seconds and tokens
+    of the decode passes alone: a response's first token comes from the
+    prompt chunk's logits)."""
+    import torch
+
+    from aha_tpu_torch.config import InferConfig
+    from aha_tpu_torch.streaming.session import build_session
+
+    sess = build_session(params, cfg, tok, InferConfig(
+        stream_end_prob_threshold=threshold, frame_fps=2.0, kv_cache_policy="sink",
+        kv_window=2048, num_sink_tokens=32, max_new_tokens=32, **widths), backend=backend)
+    generate, append_ids = sess.engine.generate, sess.engine.append_ids
+    gen_s, dec_s, dec_tokens, prompt_end = [0.0], [0.0], [0], [0.0]
+
+    def timed_append_ids(*a, **k):
+        out = append_ids(*a, **k)
+        torch.cuda.synchronize()
+        prompt_end[0] = time.perf_counter()
+        return out
+
+    def timed_generate(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = generate(*a, **k)           # its first call is append_ids (the prompt)
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+        gen_s[0] += end - t
+        dec_s[0] += end - prompt_end[0]
+        dec_tokens[0] += int(out[1].sum()) - 1
+        return out
+
+    sess.engine.generate, sess.engine.append_ids = timed_generate, timed_append_ids
     t0 = time.perf_counter()
-    params = random_params(cfg, device="cuda", seed=seed)
+    sess.input_video_stream(frames)
+    sess.input_query_stream([{"role": "user", "content": QUERY, "time": 0}])
+    turns = sess.inference()
     torch.cuda.synchronize()
-    t_params = time.perf_counter() - t0
+    t_all = time.perf_counter() - t0
+    responses = [t["content"] for t in turns if t["role"] == "assistant"]
+    return sess, responses, t_all, gen_s[0], dec_s[0], dec_tokens[0]
+
+
+def check_7b_run(name, rows, sess, responses, n_frames):
+    scores = [[r[k] for k in SCORE_KEYS] for r in rows + sess.debug_data_list]
+    if len(rows) != 64 or len(sess.debug_data_list) != n_frames:
+        raise AssertionError(f"{name}: {len(rows)} / {len(sess.debug_data_list)} frame scores")
+    if not all(math.isfinite(x) for row in scores for x in row):
+        raise AssertionError(f"{name}: non-finite score")
+    if not responses:
+        raise AssertionError(f"{name}: no response fired")
+    seen = int(sess.cache.seen[0])
+    if seen <= 2048 + 32:
+        raise AssertionError(f"{name}: stream of {seen} tokens never filled the window")
+    return seen
+
+
+def score_64(params, cfg, tok, frames, widths, backend="fused"):
+    import torch
+
+    from aha_tpu_torch.config import InferConfig
+    from aha_tpu_torch.streaming.session import build_session
+
+    t0 = time.perf_counter()
+    sess = build_session(params, cfg, tok, InferConfig(
+        grounding_mode=True, frame_fps=2.0, kv_cache_policy="sink", kv_window=2048,
+        num_sink_tokens=32, **widths), backend=backend)
+    rows = sess.score_video(frames, query=QUERY)
+    torch.cuda.synchronize()
+    return rows, time.perf_counter() - t0
+
+
+def verify_vs_sequential(sess, cfg, S: int = 8):
+    """One read-only verify pass of S tokens against S sequential 1-token
+    passes from the same (filled) cache: hidden states, on the card."""
+    import torch
+
+    from aha_tpu_torch.models import qwen2
+    from aha_tpu_torch.ops import spec_decode
+
+    eng = sess.engine
+    llm = eng.params["llm"]
+    ids = torch.arange(100, 100 + S, device="cuda")[None]
+    embeds = qwen2.embed_tokens(llm, ids, eng.dtype)
+    plans = spec_decode.plan_compose(sess.cache, eng.policy,
+                                     torch.full((1,), S, dtype=torch.int32, device="cuda"), S)
+    h_spec, _, _ = qwen2.decode_chunk_spec(llm, cfg.llm, eng.policy, sess.cache, embeds, plans,
+                                           backend=eng.backend)
+    cache = sess.cache.clone()
+    one = torch.ones((1,), dtype=torch.int32, device="cuda")
+    h_seq = torch.cat([qwen2.decode_chunk(llm, cfg.llm, eng.policy, cache, embeds[:, j:j + 1],
+                                          one, backend=eng.backend) for j in range(S)], dim=1)
+    err = rel_check(f"verify pass S={S} vs sequential", h_spec, h_seq, 5e-2)
+    same = (qwen2.lm_logits(llm, cfg.llm, h_spec, eng.backend).argmax(-1)
+            == qwen2.lm_logits(llm, cfg.llm, h_seq, eng.backend).argmax(-1)).sum().item()
+    return err, same
+
+
+def phase4(gpu: str, seed: int, stats: Stats, phase2_ran: bool):
+    """The 7B paths, then: every shape they gave a kernel was held against the
+    plain version in phase 2."""
+    with ShapeRecorder() as rec:
+        drive_7b_paths(gpu, seed, stats)
+    missing = sorted(rec.seen - stats.checked)
+    print(f"phase4 shapes handed to the kernels: {len(rec.seen)} distinct, "
+          f"{len(missing)} not checked in phase 2"
+          + ("" if phase2_ran else " (phase 2 did not run)"), flush=True)
+    if phase2_ran and missing:
+        raise AssertionError(f"phase 2 checks none of these shapes of the 7B paths: {missing}")
+
+
+def drive_7b_paths(gpu: str, seed: int, stats: Stats):
+    import torch
+
+    from aha_tpu_torch.models.aha import random_params
+    from aha_tpu_torch.ops import kernels
+
+    cfg, tok = _model("7b")
+    L = cfg.llm.num_layers
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     frames = torch.randint(0, 256, (96, 384, 384, 3), generator=gen, device="cuda",
                            dtype=torch.uint8)
-    query = "What is happening in this video?"
-    common = dict(frame_fps=2.0, kv_cache_policy="sink", kv_window=2048, num_sink_tokens=32,
-                  fused_score_frames=1, spec_decode_tokens=1, max_new_tokens=32)
+    product = dict(fused_score_frames=4, spec_decode_tokens=4, spec_decode_tokens_max=8)
+    w1 = dict(fused_score_frames=1, spec_decode_tokens=1)
 
-    chunks = [0]
-    decode_chunk = qwen2.decode_chunk
-
-    def counted(*a, **k):
-        chunks[0] += 1
-        return decode_chunk(*a, **k)
-
-    qwen2.decode_chunk = counted
-    # gen_s: whole generate() calls; dec_*: only their S = 1 passes (the
-    # first token of a response comes from the prompt chunk's logits)
-    gen_s, dec_tokens, dec_s = [0.0], [0], [0.0]
-    try:
-        torch.cuda.reset_peak_memory_stats()
-        k8.launches = da.launches = 0            # the main path starts here
+    def build(mode):
         t0 = time.perf_counter()
-        sv_sess = build_session(params, cfg, tok, InferConfig(grounding_mode=True, **common),
-                                device="cuda")
-        rows = sv_sess.score_video(frames[:64], query=query)
+        params = random_params(cfg, mode=mode, seed=seed)
         torch.cuda.synchronize()
-        t_sv = time.perf_counter() - t0
-        del sv_sess
-        # threshold: the eighth-highest score of the same frames, so that the
-        # first responses fire within the first 64 frames
-        ends = sorted((r["informative_score"] + r["relevance_score"] for r in rows), reverse=True)
-        sess = build_session(params, cfg, tok, InferConfig(
-            stream_end_prob_threshold=ends[7], **common), device="cuda")
-        generate, append_ids = sess.engine.generate, sess.engine.append_ids
-        prompt_end = [0.0]
+        return params, time.perf_counter() - t0
 
-        def timed_append_ids(*a, **k):
-            out = append_ids(*a, **k)
-            torch.cuda.synchronize()
-            prompt_end[0] = time.perf_counter()
-            return out
+    def threshold(rows):
+        # the eighth-highest score of the same frames, so that the first
+        # responses fire within the first 64 frames
+        return sorted((r["informative_score"] + r["relevance_score"] for r in rows),
+                      reverse=True)[7]
 
-        def timed_generate(*a, **k):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = generate(*a, **k)           # its first call is append_ids (the prompt)
-            torch.cuda.synchronize()
-            end = time.perf_counter()
-            gen_s[0] += end - t
-            dec_s[0] += end - prompt_end[0]
-            dec_tokens[0] += int(out[1].sum()) - 1
-            return out
-
-        sess.engine.generate, sess.engine.append_ids = timed_generate, timed_append_ids
-        t0 = time.perf_counter()
-        sess.input_video_stream(frames)
-        sess.input_query_stream([{"role": "user", "content": query, "time": 0}])
-        turns = sess.inference()
-        torch.cuda.synchronize()
-        t_inf = time.perf_counter() - t0
-        n8, na = k8.launches, da.launches          # the main path ends here
-    finally:
-        qwen2.decode_chunk = decode_chunk
+    # -- a. 7B-int4 at the product widths -------------------------------------------
+    params4, t_params = build("int4")
+    torch.cuda.reset_peak_memory_stats()
+    with PassCounter() as pc:
+        kernels.reset_launches()                       # the new main path starts here
+        rows, t_sv = score_64(params4, cfg, tok, frames[:64], product)
+        sv_verifies = pc.verifies
+        sess, responses, t_inf, gen_s, dec_s, dec_tokens = run_inference(
+            params4, cfg, tok, frames, threshold(rows), product)
+        counts = dict(kernels.LAUNCHES)                # ... and ends here
+        chunks, verifies = pc.chunks, pc.verifies
     peak = torch.cuda.max_memory_allocated()
+    seen = check_7b_run("7b-int4", rows, sess, responses, 96)
+    if sv_verifies != 16:
+        raise AssertionError(f"7b-int4: score_video took {sv_verifies} fused passes, not 16")
+    passes = chunks + verifies
+    n4, na = counts.get("int4_matmul", 0), counts.get("decode_attention", 0)
+    if n4 < L * passes * 4 or na < L * chunks:
+        raise AssertionError(f"7b-int4: launches int4_matmul={n4} decode_attention={na} < "
+                             f"{L} layers x ({chunks} chunks + {verifies} verify passes)")
+    if counts.get("int8_matmul", 0) or counts.get("int4_matmul_a8", 0):
+        raise AssertionError(f"7b-int4: a kernel of another path ran: {counts}")
+    stats.launches(counts)
+    acc = sess.engine.spec_acceptance()
+    print(f"phase4a 7b-int4 widths 4 / 4->8 [{gpu}] params {t_params:.2f}s; score_video 64 "
+          f"frames in 16 fused passes {t_sv:.3f}s = {64 / t_sv:.2f} frames/s (vision included); "
+          f"inference 96 frames {t_inf:.3f}s, {len(responses)} responses in {gen_s:.3f}s; "
+          f"decode {dec_tokens} tokens in {dec_s:.3f}s = {dec_tokens / max(dec_s, 1e-9):.2f} "
+          f"decode tokens/s, {acc['tokens_per_pass']} tokens per verify pass "
+          f"({acc['passes']} passes, acceptance EMA {acc['ema']}); per-frame scoring "
+          f"{96 / (t_inf - gen_s):.2f} frames/s; stream {seen} tokens; {chunks} chunks + "
+          f"{verifies} verify passes; launches int4_matmul={n4} decode_attention={na}; "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB", flush=True)
+    print(f"phase4a first response: {responses[0][:60]!r}", flush=True)
 
-    scores = [[r[k] for k in ("informative_score", "relevance_score", "uncertainty_score")]
-              for r in rows + sess.debug_data_list]
-    if len(rows) != 64 or len(sess.debug_data_list) != 96:
-        raise AssertionError(f"7b: {len(rows)} / {len(sess.debug_data_list)} frame scores")
-    if not all(math.isfinite(x) for row in scores for x in row):
-        raise AssertionError("7b: non-finite score")
-    responses = [t for t in turns if t["role"] == "assistant"]
-    if not responses:
-        raise AssertionError("7b: no response fired")
-    L = cfg.llm.num_layers
-    if na < L * chunks[0] or n8 < L * chunks[0]:
-        raise AssertionError(f"7b: launches int8={n8} attention={na} < {L} layers x "
-                             f"{chunks[0]} chunks")
-    seen = int(sess.cache.seen[0])
-    if seen <= 2048 + 32:
-        raise AssertionError(f"7b: stream of {seen} tokens never filled the window")
-    stats["int8_launches"], stats["attn_launches"] = n8, na
-    inf_frames_s = 96 / (t_inf - gen_s[0])
-    print(f"phase4 7b-int8 [{gpu}] params {t_params:.2f}s; score_video 64 frames "
+    # the same stream at width 1: the speculative texts against the sequential ones
+    sess1, responses1, t_inf1, gen_s1, dec_s1, dec_tokens1 = run_inference(
+        params4, cfg, tok, frames, threshold(rows), dict(product, spec_decode_tokens=1))
+    if responses1 != responses:
+        raise AssertionError("7b-int4: speculative texts differ from the width-1 texts:"
+                             + _first_divergence(responses, responses1))
+    err, same = verify_vs_sequential(sess, cfg)
+    print(f"phase4a width 1 [{gpu}]: decode {dec_tokens1} tokens in {dec_s1:.3f}s = "
+          f"{dec_tokens1 / max(dec_s1, 1e-9):.2f} decode tokens/s; texts identical to the "
+          f"speculative run's ({len(responses1)} responses); verify pass "
+          f"S=8 vs 8 sequential passes on the filled cache: hidden max_abs_err={err:.3e} "
+          f"(<= 5e-2 of max, bf16), argmax equal at {same}/8 positions", flush=True)
+    del sess, sess1
+    gc.collect()      # a session and its timing wrappers form a cycle that holds the params
+
+    # -- c (int4 part). the int8-activation variant, 8 frames ---------------------------
+    with PassCounter() as pc:
+        kernels.reset_launches()
+        rows_a8, t_a8 = score_64(params4, cfg, tok, frames[:8], product, backend="fused_a8")
+        counts = dict(kernels.LAUNCHES)
+        passes = pc.chunks + pc.verifies
+    if len(rows_a8) != 8 or not all(math.isfinite(r[k]) for r in rows_a8 for k in SCORE_KEYS):
+        raise AssertionError("7b-int4 fused_a8: bad scores")
+    n = counts.get("int4_matmul_a8", 0)
+    if n < L * passes * 4 or counts.get("quantize_rows", 0) < n or counts.get("int4_matmul", 0):
+        raise AssertionError(f"7b-int4 fused_a8: launches {counts} over {passes} passes")
+    stats.launches(counts)
+    d = max(abs(a[k] - b[k]) for a, b in zip(rows_a8, rows[:8]) for k in SCORE_KEYS)
+    print(f"phase4c 7b-int4 backend=fused_a8 [{gpu}] score_video 8 frames {t_a8:.3f}s; "
+          f"launches int4_matmul_a8={n} quantize_rows={counts['quantize_rows']}; scores vs "
+          f"weight-only max_abs_diff={d:.3e}", flush=True)
+    del params4
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- b. 7B-int8 at widths 1 (the first slice's path) -----------------------------------
+    params8, t_params = build("int8")
+    torch.cuda.reset_peak_memory_stats()
+    with PassCounter() as pc:
+        kernels.reset_launches()
+        rows, t_sv = score_64(params8, cfg, tok, frames[:64], w1)
+        sess, responses, t_inf, gen_s, dec_s, dec_tokens = run_inference(
+            params8, cfg, tok, frames, threshold(rows), w1)
+        counts = dict(kernels.LAUNCHES)
+        chunks = pc.chunks
+    peak = torch.cuda.max_memory_allocated()
+    seen = check_7b_run("7b-int8", rows, sess, responses, 96)
+    n8, na = counts.get("int8_matmul", 0), counts.get("decode_attention", 0)
+    if na < L * chunks or n8 < L * chunks * 4 or pc.verifies:
+        raise AssertionError(f"7b-int8: launches int8={n8} attention={na} < {L} layers x "
+                             f"{chunks} chunks, or a verify pass ran ({pc.verifies})")
+    stats.launches(counts)
+    print(f"phase4b 7b-int8 widths 1 [{gpu}] params {t_params:.2f}s; score_video 64 frames "
           f"{t_sv:.3f}s = {64 / t_sv:.2f} frames/s (vision included); inference 96 frames "
-          f"{t_inf:.3f}s, {len(responses)} responses in {gen_s[0]:.3f}s; S=1 passes "
-          f"{dec_tokens[0]} tokens in {dec_s[0]:.3f}s = "
-          f"{dec_tokens[0] / max(dec_s[0], 1e-9):.2f} decode tokens/s, "
-          f"scoring {inf_frames_s:.2f} frames/s; stream {seen} tokens; {chunks[0]} chunks; "
+          f"{t_inf:.3f}s, {len(responses)} responses in {gen_s:.3f}s; S=1 passes "
+          f"{dec_tokens} tokens in {dec_s:.3f}s = "
+          f"{dec_tokens / max(dec_s, 1e-9):.2f} decode tokens/s, "
+          f"scoring {96 / (t_inf - gen_s):.2f} frames/s; stream {seen} tokens; {chunks} chunks; "
           f"launches int8_matmul={n8} decode_attention={na}; "
           f"max_memory_allocated {peak / 2**30:.2f} GiB", flush=True)
-    print(f"phase4 first response: {responses[0]['content'][:60]!r}", flush=True)
+    print(f"phase4b first response: {responses[0][:60]!r}", flush=True)
+    del sess
+
+    # -- c (int8 part). "fused_a8" and "pallas", 8 frames each ----------------------------
+    for backend, kernel in (("fused_a8", "int8_matmul_a8"), ("pallas", "quant_matmul")):
+        with PassCounter() as pc:
+            kernels.reset_launches()
+            rows_b, t_b = score_64(params8, cfg, tok, frames[:8], w1, backend=backend)
+            counts = dict(kernels.LAUNCHES)
+            chunks = pc.chunks
+        if len(rows_b) != 8 or not all(math.isfinite(r[k]) for r in rows_b for k in SCORE_KEYS):
+            raise AssertionError(f"7b-int8 {backend}: bad scores")
+        n = counts.get(kernel, 0)
+        if n < L * chunks * 4 or counts.get("int8_matmul", 0):
+            raise AssertionError(f"7b-int8 {backend}: launches {counts} over {chunks} chunks")
+        stats.launches(counts)
+        d = max(abs(a[k] - b[k]) for a, b in zip(rows_b, rows[:8]) for k in SCORE_KEYS)
+        print(f"phase4c 7b-int8 backend={backend} [{gpu}] score_video 8 frames {t_b:.3f}s; "
+              f"launches {kernel}={n}; scores vs backend=fused max_abs_diff={d:.3e}",
+              flush=True)
 
 
 def main() -> int:
@@ -383,6 +808,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_start = time.perf_counter()
     gpu = gpu_line()
     print(gpu, flush=True)
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True, text=True,
@@ -394,26 +820,32 @@ def main() -> int:
           f"{_build.build_seconds if _build.build_seconds is not None else 0.0:.2f}s "
           f"(load {time.perf_counter() - t0:.2f}s)", flush=True)
 
-    stats = dict(int8_err=0.0, attn_err=0.0, int8_ms=None, int8_plain_ms=None, attn_ms=None,
-                 attn_plain_ms=None, int8_launches=None, attn_launches=None)
+    stats = Stats()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     if 2 in phases:
-        check_int8(gen, stats)
+        check_matmuls(gen, stats)
+        check_quantize_rows(gen, stats)
         check_attention(gen, stats)
+        torch.cuda.empty_cache()
     if 3 in phases:
         phase3(args.seed)
     if 4 in phases:
-        phase4(gpu, args.seed, stats)
+        phase4(gpu, args.seed, stats, 2 in phases)
 
+    print(f"{gpu}; chip_smoke took {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": [
-        {"name": "int8_matmul", "route": "cuda", "source": INT8_SRC, "replaces": INT8_TPU,
-         "launches": stats["int8_launches"], "max_abs_err": stats["int8_err"],
-         "ms": stats["int8_ms"], "plain_ms": stats["int8_plain_ms"]},
-        {"name": "decode_attention", "route": "cuda", "source": ATTN_SRC, "replaces": ATTN_TPU,
-         "launches": stats["attn_launches"], "max_abs_err": stats["attn_err"],
-         "ms": stats["attn_ms"], "plain_ms": stats["attn_plain_ms"]}]}), flush=True)
+        {"name": n, "route": "cuda", "source": src, "replaces": tpu,
+         "launches": stats.k[n]["launches"], "max_abs_err": stats.k[n]["err"],
+         "ms": stats.k[n]["ms"], "plain_ms": stats.k[n]["plain_ms"],
+         "bound_ms": stats.k[n]["bound_ms"], "bound_by": stats.k[n]["bound_by"],
+         "library_ms": stats.k[n]["library_ms"], "shape": stats.k[n]["shape"]}
+        for n, (src, tpu) in KERNELS.items()]}), flush=True)
     if phases != {1, 2, 3, 4}:
         print(f"chip_smoke: ran phases {sorted(phases)} only", file=sys.stderr)
+        return 1
+    missing = [n for n in KERNELS if stats.k[n]["launches"] <= 0]
+    if missing:
+        print(f"chip_smoke: kernels never launched on a main path: {missing}", file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -64,8 +64,8 @@ def _run(jpolicy, tpolicy, schedule, B, KVH, NH, Dh, seed, tol_jnp, tol_kernel):
     rng = np.random.default_rng(seed)
     jc = jkv.init_cache(jpolicy, num_layers=1, batch=B, num_kv_heads=KVH, head_dim=Dh,
                         dtype=jnp.float32)
-    tc = tkv.init_cache(tpolicy, num_layers=1, batch=B, num_kv_heads=KVH, head_dim=Dh,
-                        dtype=torch.float32)
+    tc = tkv.init_cache(tpolicy, device="cpu", num_layers=1, batch=B, num_kv_heads=KVH,
+                        head_dim=Dh, dtype=torch.float32)
     sink_slots = jpolicy.num_sink if jpolicy.kind == "sink" else 0
     for S, vl in schedule:
         k_new, v_new, q = (rng.standard_normal(s).astype(np.float32)
@@ -124,7 +124,8 @@ def test_cached_attention_int8_kv():
     B, KVH, NH, Dh, S = 2, 2, 4, 128, 96
     jc = jkv.init_cache(jpolicy, num_layers=1, batch=B, num_kv_heads=KVH, head_dim=Dh,
                         dtype=jnp.int8)
-    tc = tkv.init_cache(tpolicy, num_layers=1, batch=B, num_kv_heads=KVH, head_dim=Dh,
+    tc = tkv.init_cache(tpolicy, device="cpu", num_layers=1, batch=B, num_kv_heads=KVH,
+                        head_dim=Dh,
                         dtype=torch.int8)
     for vl in [(96, 80), (64, 96)]:
         k_new, v_new = (rng.standard_normal((B, S, KVH, Dh)).astype(np.float32)

@@ -1,7 +1,10 @@
 """The param bridge: a JAX param tree of the tiny preset crosses to torch with
 every leaf's values, layout and dtype intact (the patch-embedding conv
 kernel moves HWIO -> OIHW): dense f32 and bf16, int8 with split and merged
-projections, and packed int4."""
+projections, and packed int4 (whose carried nibbles and bf16 group scales
+dequantize on the port's side to what JAX dequantizes them to)."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -13,7 +16,9 @@ from aha_tpu.config import aha_tiny
 from aha_tpu.models import aha
 from aha_tpu.ops import quant
 
-from aha_tpu_torch.bridge import PATCH_KERNEL, params_from_jax
+from aha_tpu_torch import bridge
+from aha_tpu_torch.bridge import PATCH_KERNEL
+from aha_tpu_torch.ops.quant import dequantize_int4
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -26,6 +31,8 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+# the bridge puts a tree on the card unless told otherwise; these tests run on the host
+params_from_jax = functools.partial(bridge.params_from_jax, device="cpu")
 _DT = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8,
        "uint8": torch.uint8}
 
@@ -75,3 +82,28 @@ def test_params_round_trip(base, name):
                                           arr.view(np.int16), err_msg=str(path))
         else:
             np.testing.assert_array_equal(t.numpy(), arr, err_msg=str(path))
+
+
+def _q4_kernels(tree, path=()):
+    if isinstance(tree, dict):
+        if "q4value" in tree:
+            yield path, tree
+        else:
+            for k, v in tree.items():
+                yield from _q4_kernels(v, path + (k,))
+
+
+def test_int4_tree_dequantizes_as_in_jax(base):
+    """quantize_params(bits=4) + merge_decoder_projections crosses exactly
+    (covered leaf by leaf above), and every packed kernel of the carried
+    tree (stacked decoder projections, projector, lm_head) dequantizes to
+    JAX's values exactly: same nibble order, offset and group size."""
+    jq = _variant(base, "int4_merged")
+    ttree = params_from_jax(jax.tree.map(np.asarray, jq))
+    jk, tk = dict(_q4_kernels(jq)), dict(_q4_kernels(ttree))
+    assert jk.keys() == tk.keys() and len(tk) >= 7
+    assert ("llm", "layers", "qkv_proj", "kernel") in tk and ("llm", "lm_head", "kernel") in tk
+    for path, q in jk.items():
+        np.testing.assert_array_equal(dequantize_int4(tk[path], torch.float32).numpy(),
+                                      np.asarray(quant.dequantize_int4(q, jnp.float32)),
+                                      err_msg=str(path))

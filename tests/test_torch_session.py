@@ -1,7 +1,11 @@
 """The port's slice as a whole: StreamSession on the CPU (plain versions of
-the kernels) against the committed golden fixture and against the JAX
-session, and a run with jax blocked from importing."""
+the kernels) against the committed golden fixture (all four arrays) and
+against the JAX session, fused scoring against per-frame scoring,
+speculative generation against the sequential loop, and a run with jax and
+aha_tpu blocked from importing."""
 
+import dataclasses
+import functools
 import pathlib
 import subprocess
 import sys
@@ -12,13 +16,19 @@ import numpy as np
 import pytest
 import torch
 
-from aha_tpu.config import InferConfig, aha_tiny
+from aha_tpu.config import InferConfig as JInferConfig
+from aha_tpu.config import aha_tiny
 from aha_tpu.models import aha as jaha
 from aha_tpu.ops import quant
 from aha_tpu.streaming.session import StreamSession as JStreamSession
 
-from aha_tpu_torch.bridge import params_from_jax
+from aha_tpu_torch import config as tconfig
+from aha_tpu_torch import bridge
+from aha_tpu_torch.config import InferConfig
+from aha_tpu_torch.ops.kv_cache import CachePolicy
+from aha_tpu_torch.streaming.engine import StreamEngine
 from aha_tpu_torch.streaming.session import build_session
+from aha_tpu_torch.tokenization import build_stream_tokenizer
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -31,42 +41,65 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+# the bridge puts a tree on the card unless told otherwise; these tests run on the host
+params_from_jax = functools.partial(bridge.params_from_jax, device="cpu")
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FIXTURE = ROOT / "tests" / "fixtures" / "golden_tiny_cpu.npz"
 QUERY = "What is happening in this video?"
 KEYS = ("informative_score", "relevance_score", "uncertainty_score")
 WIDTHS_1 = dict(fused_score_frames=1, spec_decode_tokens=1)
+CPU = dict(device="cpu")
 
 
 def _scores(rows):
     return np.asarray([[r[k] for k in KEYS] for r in rows], np.float32)
 
 
+def port_cfg(cfg):
+    """The port's own AhaConfig from the JAX package's, field by field."""
+    d = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    d["llm"] = tconfig.QwenConfig(**dataclasses.asdict(cfg.llm))
+    d["vision"] = tconfig.SiglipConfig(**dataclasses.asdict(cfg.vision))
+    return tconfig.AhaConfig(**d)
+
+
 @pytest.fixture(scope="module")
 def tiny():
+    """JAX params / config / tokenizer of the tiny preset, and the port's own
+    config and tokenizer for it."""
     params, cfg, tok = jaha.build_model_and_tokenizer(aha_tiny(), seed=0)
-    return params, cfg, tok
+    ttok = build_stream_tokenizer(None, frame_num_tokens=cfg.frame_num_tokens,
+                                  vocab_size=cfg.llm.vocab_size)
+    assert (ttok.v_placeholder_id, ttok.eos_token_id) == (cfg.v_placeholder_id, cfg.eos_token_id)
+    return params, cfg, tok, port_cfg(cfg), ttok
 
 
 def test_golden_tiny_fixture_replay(tiny):
     """The port replays tests/fixtures/golden_tiny_cpu.npz (recorded by the
     JAX package, scripts/make_golden_fixture.py --mode tiny) from the
-    bridged seed-0 params: scores at the fixture test's tolerance, texts
-    exactly."""
-    params, cfg, tok = tiny
+    bridged seed-0 params, all four arrays: per-frame and fused-4 scores at
+    the fixture test's tolerance (atol 1e-4, rtol 1e-3), sequential and
+    speculative (4 -> 8) texts exactly."""
+    params, _, _, cfg, tok = tiny
     rec = np.load(FIXTURE, allow_pickle=False)
     tp = params_from_jax(jax.tree.map(np.asarray, params))
-    common = dict(frame_fps=1.0, kv_cache_policy="sink", kv_window=2048,
-                  num_sink_tokens=32, **WIDTHS_1)
-    rows = build_session(tp, cfg, tok, InferConfig(grounding_mode=True, **common)
-                         ).score_video(rec["frames"], query=QUERY)
-    np.testing.assert_allclose(_scores(rows), rec["scores"], atol=1e-4, rtol=1e-3)
-    sess = build_session(tp, cfg, tok, InferConfig(
-        stream_end_prob_threshold=-1e9, max_new_tokens=48, **common))
-    sess.input_video_stream(rec["frames"])
-    sess.input_query_stream([{"role": "user", "content": QUERY, "time": 0}])
-    texts = [t["content"] for t in sess.inference() if t["role"] == "assistant"]
-    assert texts == list(rec["gen_texts_seq"])
+    common = dict(frame_fps=1.0, kv_cache_policy="sink", kv_window=2048, num_sink_tokens=32)
+    for width, key in ((1, "scores"), (4, "scores_fused4")):
+        rows = build_session(tp, cfg, tok, InferConfig(
+            grounding_mode=True, fused_score_frames=width, spec_decode_tokens=1, **common),
+            **CPU).score_video(rec["frames"], query=QUERY)
+        np.testing.assert_allclose(_scores(rows), rec[key], atol=1e-4, rtol=1e-3, err_msg=key)
+    for (S, S_max), key in (((1, 1), "gen_texts_seq"), ((4, 8), "gen_texts_spec")):
+        sess = build_session(tp, cfg, tok, InferConfig(
+            stream_end_prob_threshold=-1e9, max_new_tokens=48, spec_decode_tokens=S,
+            spec_decode_tokens_max=S_max, **common), **CPU)
+        sess.input_video_stream(rec["frames"])
+        sess.input_query_stream([{"role": "user", "content": QUERY, "time": 0}])
+        texts = [t["content"] for t in sess.inference() if t["role"] == "assistant"]
+        assert texts == list(rec[key]), key
+        if S > 1:
+            acc = sess.engine.spec_acceptance()
+            assert acc["passes"] > 0 and acc["committed"] >= acc["passes"]
 
 
 @pytest.fixture(scope="module")
@@ -76,7 +109,7 @@ def int8_engines(tiny):
     from aha_tpu.ops.kv_cache import CachePolicy
     from aha_tpu.streaming.engine import StreamEngine
 
-    params, cfg, _ = tiny
+    params, cfg = tiny[:2]
     qparams = quant.quantize_params(params)
     engine = StreamEngine(qparams, cfg, CachePolicy("sink", window=256, num_sink=8),
                           max_new_tokens=12, repetition_penalty=1.3, spec_tokens=1,
@@ -97,11 +130,11 @@ def test_int8_session_matches_jax(tiny, int8_engines, rule):
     stepwise inference() and score_video against
     the JAX session's stepwise loop at widths 1 (which its own tests hold
     equal to the chunked loop), in scores and texts."""
-    _, cfg, tok = tiny
+    _, _, tok, tcfg, ttok = tiny
     jengine, tparams = int8_engines
-    icfg = InferConfig(frame_fps=2.0, kv_cache_policy="sink", kv_window=256,
-                       num_sink_tokens=8, max_new_tokens=12, repetition_penalty=1.3,
-                       **WIDTHS_1, **rule)
+    kw = dict(frame_fps=2.0, kv_cache_policy="sink", kv_window=256, num_sink_tokens=8,
+              max_new_tokens=12, repetition_penalty=1.3, **WIDTHS_1, **rule)
+    icfg = JInferConfig(**kw)
     frames = np.random.default_rng(5).integers(0, 256, (10, 40, 48, 3), dtype=np.uint8)
     conv = [{"role": "user", "content": QUERY, "time": 0},
             {"role": "user", "content": "And now?", "time": 2.5}]
@@ -110,7 +143,7 @@ def test_int8_session_matches_jax(tiny, int8_engines, rule):
     js.input_video_stream(frames)
     js.input_query_stream(conv)
     jturns = js.inference(chunked=False)
-    ts = build_session(tparams, cfg, tok, icfg)
+    ts = build_session(tparams, tcfg, ttok, InferConfig(**kw), **CPU)
     ts.input_video_stream(frames)
     ts.input_query_stream(conv)
     tturns = ts.inference()
@@ -127,34 +160,227 @@ def test_int8_session_matches_jax(tiny, int8_engines, rule):
                                atol=1e-4, rtol=1e-3)
 
 
+def test_int4_session_matches_jax_at_product_widths(tiny):
+    """Packed-int4 tiny params (merged projections, int4 projector and
+    lm_head, int8 embedding), small sink window, repetition penalty, at the
+    product widths: fused scoring of 4 frames per pass in score_video and
+    speculative generation (4 candidates per pass) in inference(), against
+    the JAX session at the same widths on the same tree, in scores (atol
+    1e-4, rtol 1e-3) and texts."""
+    from aha_tpu.ops.kv_cache import CachePolicy as JCachePolicy
+    from aha_tpu.streaming.engine import StreamEngine as JStreamEngine
+
+    params, cfg, tok, tcfg, ttok = tiny
+    qparams = quant.quantize_params(params, bits=4)
+    qparams = {**qparams, "llm": quant.merge_decoder_projections(qparams["llm"])}
+    tparams = params_from_jax(jax.tree.map(np.asarray, qparams))
+    assert "q4value" in tparams["llm"]["lm_head"]["kernel"]
+    kw = dict(frame_fps=2.0, kv_cache_policy="sink", kv_window=256, num_sink_tokens=8,
+              max_new_tokens=12, repetition_penalty=1.3, fused_score_frames=4,
+              spec_decode_tokens=4, spec_decode_tokens_max=4,
+              stream_end_score_sum_threshold=2.2)
+    jengine = JStreamEngine(qparams, cfg, JCachePolicy("sink", window=256, num_sink=8),
+                            max_new_tokens=12, repetition_penalty=1.3, spec_tokens=4,
+                            fused_score_frames=4)
+    frames = np.random.default_rng(6).integers(0, 256, (10, 40, 48, 3), dtype=np.uint8)
+    conv = [{"role": "user", "content": QUERY, "time": 0}]
+    js = JStreamSession(jengine, tok, JInferConfig(**kw))
+    js.input_video_stream(frames)
+    js.input_query_stream(conv)
+    jturns = js.inference(chunked=False)
+    ts = build_session(tparams, tcfg, ttok, InferConfig(**kw), **CPU)
+    assert ts.engine.spec_tokens == 4 and ts.engine.fused_frames == 4
+    ts.input_video_stream(frames)
+    ts.input_query_stream(conv)
+    tturns = ts.inference()
+    np.testing.assert_allclose(_scores(ts.debug_data_list), _scores(js.debug_data_list),
+                               atol=1e-4, rtol=1e-3)
+    assert [(t["role"], t["time"], t["content"]) for t in tturns] == \
+        [(t["role"], t["time"], t["content"]) for t in jturns]
+    assert any(t["role"] == "assistant" for t in tturns)
+    ts.reset()
+    js.reset()
+    np.testing.assert_allclose(_scores(ts.score_video(frames, query=QUERY)),
+                               _scores(js.score_video(frames, query=QUERY)),
+                               atol=1e-4, rtol=1e-3)
+
+
+@pytest.fixture(scope="module")
+def int8_port(tiny):
+    params, _, _, tcfg, _ = tiny
+    return params_from_jax(jax.tree.map(np.asarray, quant.quantize_params(params))), tcfg
+
+
+@pytest.mark.parametrize("kind,mask_mode", [("sink", "hf"), ("sink", "strict"),
+                                            ("sliding", "hf"), ("none", "hf")])
+def test_fused_scoring_matches_per_frame(int8_port, kind, mask_mode):
+    """score_stream with fused_score_frames=4 equals the per-frame loop for
+    T = 13 (not a multiple of 4: the tail is padded with inactive frames),
+    through the window fill of the evicting policies: scores to 1e-5 and the
+    cache (metadata exactly, occupied K/V to 2e-5)."""
+    tparams, tcfg = int8_port
+    policy = CachePolicy(kind, window=20 if kind != "none" else 256, num_sink=4,
+                         mask_mode=mask_mode)
+    frames = torch.from_numpy((np.random.default_rng(7).standard_normal(
+        (1, 13, 3, tcfg.llm.hidden_size)) * 0.1).astype(np.float32))
+    out = []
+    for k in (1, 4):
+        eng = StreamEngine(tparams, tcfg, policy, fused_score_frames=k, **CPU)
+        cache = eng.new_cache()
+        eng.append_ids(cache, [[5, 9, 17, 3]])
+        out.append((eng.score_stream(cache, frames), cache))
+    (s1, c1), (s4, c4) = out
+    assert s4.shape == (1, 13, 3)
+    np.testing.assert_allclose(s4.numpy(), s1.numpy(), rtol=1e-5, atol=1e-6)
+    keep = torch.arange(policy.num_slots) != policy.junk
+    for f in ("order", "key_pos"):
+        assert torch.equal(getattr(c4, f)[:, keep], getattr(c1, f)[:, keep]), f
+    assert torch.equal(c4.seen, c1.seen) and torch.equal(c4.length, c1.length)
+    occ = ((c1.order >= 0) & keep)[None, :, :, None, None]
+    for f in ("k", "v"):
+        np.testing.assert_allclose(torch.where(occ, getattr(c4, f), 0.0).numpy(),
+                                   torch.where(occ, getattr(c1, f), 0.0).numpy(),
+                                   rtol=2e-4, atol=2e-5)
+
+
+PROMPT = [5, 9, 17, 3]
+PREFILL = list(range(20, 44))
+
+
+def _generate(tparams, tcfg, *, S, S_max=None, N=18, penalty=None, eos=None, kind="sink"):
+    cfg = tcfg if eos is None else tcfg.replace(eos_token_id=eos)
+    policy = CachePolicy(kind, window=24 if kind != "none" else 256, num_sink=4)
+    eng = StreamEngine(tparams, cfg, policy, max_new_tokens=N, repetition_penalty=penalty,
+                       spec_tokens=S, spec_tokens_max=S_max, **CPU)
+    cache = eng.new_cache()
+    eng.append_ids(cache, [PREFILL])
+    out_ids, out_len, counts, last = eng.generate(cache, [PROMPT], eng.new_rep_counts())
+    return out_ids, out_len, counts, last, cache, eng
+
+
+def _assert_same_generation(a, b):
+    """Tokens, lengths, repetition counts, last token and the cache after
+    generation (metadata exactly, occupied K/V to 2e-5)."""
+    for x, y in zip(a[:4], b[:4]):
+        assert torch.equal(x, y)
+    ca, cb = a[4], b[4]
+    keep = torch.arange(ca.order.shape[1]) != ca.order.shape[1] - 1
+    for f in ("order", "key_pos"):
+        assert torch.equal(getattr(ca, f)[:, keep], getattr(cb, f)[:, keep]), f
+    assert torch.equal(ca.seen, cb.seen) and torch.equal(ca.length, cb.length)
+    occ = ((ca.order >= 0) & keep)[None, :, :, None, None]
+    for f in ("k", "v"):
+        np.testing.assert_allclose(torch.where(occ, getattr(ca, f), 0.0).numpy(),
+                                   torch.where(occ, getattr(cb, f), 0.0).numpy(),
+                                   rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("case", ["width4", "width4to8", "penalty", "eos_mid_chunk",
+                                  "budget_cut_mid_chunk", "sliding", "none"])
+def test_generate_spec_matches_generate(int8_port, case):
+    """generate_spec writes the tokens of generate, token for token, and
+    leaves the same cache, across the window fill of a 24-slot cache: fixed
+    width 4, adaptive 4 -> 8, with repetition penalty, with an eos that the
+    model emits mid-chunk, with a token budget that ends mid-chunk (N = 6),
+    and for the sliding and unbounded policies (the cases of
+    tests/test_spec_generate.py)."""
+    tparams, tcfg = int8_port
+    kw = dict(S=4)
+    if case == "width4to8":
+        kw["S_max"] = 8
+    elif case == "penalty":
+        kw["penalty"] = 1.3
+    elif case == "eos_mid_chunk":
+        base = _generate(tparams, tcfg, S=1)
+        kw["eos"] = int(base[0][0, 5])          # the sixth token ends the response
+    elif case == "budget_cut_mid_chunk":
+        kw["N"] = 6
+    elif case in ("sliding", "none"):
+        kw["kind"] = case
+    spec = _generate(tparams, tcfg, **kw)
+    seq = _generate(tparams, tcfg, **dict(kw, S=1, S_max=None))
+    _assert_same_generation(spec, seq)
+    assert int(seq[1][0]) == (6 if case in ("eos_mid_chunk", "budget_cut_mid_chunk") else 18)
+    passes, committed, _ = spec[5].last_spec_info
+    assert committed == int(spec[1][0]) and 1 <= passes <= committed
+
+
+def test_generate_spec_full_acceptance_widens(int8_port):
+    """A constant-argmax model (zeroed lm_head): after the first pass the
+    drafter proposes the repeated token and every pass commits at full
+    width; with spec_tokens_max=8 the acceptance EMA widens the passes, seen
+    as fewer passes than fixed width 4. Outputs stay those of the
+    sequential loop."""
+    tparams, tcfg = int8_port
+    head = tparams["llm"]["lm_head"]["kernel"]
+    z = {**tparams, "llm": {**tparams["llm"], "lm_head": {"kernel": {
+        "qvalue": torch.zeros_like(head["qvalue"]), "scale": head["scale"]}}}}
+    seq = _generate(z, tcfg, S=1, N=40)
+    fixed = _generate(z, tcfg, S=4, N=40)
+    wide = _generate(z, tcfg, S=4, S_max=8, N=40)
+    _assert_same_generation(fixed, seq)
+    _assert_same_generation(wide, seq)
+    assert int(seq[1][0]) == 40 and bool((seq[0] == seq[0][:, :1]).all())
+    assert wide[5].last_spec_info[0] < fixed[5].last_spec_info[0] <= 11
+    acc = wide[5].spec_acceptance()
+    assert acc["committed"] == 40 and acc["tokens_per_pass"] > 4
+    wide[5].reset_spec_totals()
+    assert wide[5].spec_acceptance()["passes"] == 0
+
+
 def test_build_session_refuses_what_is_not_ported(tiny):
-    params, cfg, tok = tiny
+    """Entry points run on the card by default and raise without one (no
+    code path picks the CPU by itself); an unknown matmul backend, the
+    int8-only 'pallas' backend on int4 weights, and the CLS-probe tower
+    raise."""
+    params, _, _, cfg, tok = tiny
     tp = params_from_jax(jax.tree.map(np.asarray, params))
-    for widths in (dict(fused_score_frames=4, spec_decode_tokens=1),
-                   dict(fused_score_frames=1, spec_decode_tokens=4)):
-        with pytest.raises(NotImplementedError, match="widths 1"):
-            build_session(tp, cfg, tok, InferConfig(grounding_mode=True, **widths))
+    icfg = InferConfig(grounding_mode=True)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no GPU"):
-            build_session(tp, cfg, tok, InferConfig(grounding_mode=True, **WIDTHS_1),
-                          device="cuda")
+            build_session(tp, cfg, tok, icfg)
+        with pytest.raises(RuntimeError, match="no GPU"):
+            StreamEngine(tp, cfg, CachePolicy())
+    with pytest.raises(ValueError, match="unknown matmul backend"):
+        build_session(tp, cfg, tok, icfg, backend="auto", **CPU)
+    q4 = params_from_jax(jax.tree.map(np.asarray, quant.quantize_params(params, bits=4)))
+    sess = build_session(q4, cfg, tok, icfg, backend="pallas", **CPU)
+    with pytest.raises(ValueError, match="int8 weights only"):
+        sess.score_video(np.zeros((2, 32, 32, 3), np.uint8))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_session(tp, cfg.replace(frame_token_cls=True), tok, icfg, **CPU).score_video(
+            np.zeros((2, 32, 32, 3), np.uint8))
 
 
 def test_port_runs_without_jax():
-    """A fresh interpreter where `import jax` fails imports every module of
-    the port and runs a tiny session on the CPU from seeded synthetic
+    """A fresh interpreter where importing jax, aha_tpu or any aha_tpu.*
+    module raises imports every module of the port and runs a tiny int4
+    session at the product widths on the CPU from seeded synthetic
     params."""
     code = textwrap.dedent(f"""
-        import sys
-        sys.modules["jax"] = None
+        import importlib.abc, sys
+
+        class Block(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib", "aha_tpu"):
+                    raise ImportError("blocked for this test: " + name)
+                return None
+
+        sys.meta_path.insert(0, Block())
         sys.path.insert(0, {str(ROOT)!r})
         import importlib, pkgutil
         import aha_tpu_torch
         for m in pkgutil.walk_packages(aha_tpu_torch.__path__, "aha_tpu_torch."):
             importlib.import_module(m.name)
+        try:
+            import aha_tpu.config
+        except ImportError:
+            pass
+        else:
+            raise AssertionError("aha_tpu was importable")
         import numpy as np
-        from aha_tpu.config import InferConfig, aha_tiny
-        from aha_tpu.tokenization import build_stream_tokenizer
+        from aha_tpu_torch.config import InferConfig, aha_tiny
+        from aha_tpu_torch.tokenization import build_stream_tokenizer
         from aha_tpu_torch.models.aha import random_params
         from aha_tpu_torch.streaming.session import build_session
         cfg = aha_tiny()
@@ -162,15 +388,19 @@ def test_port_runs_without_jax():
                                      vocab_size=cfg.llm.vocab_size)
         cfg = cfg.replace(v_placeholder_id=tok.v_placeholder_id,
                           eos_token_id=tok.eos_token_id)
-        s = build_session(random_params(cfg, seed=0), cfg, tok, InferConfig(
-            stream_end_prob_threshold=-1e9, max_new_tokens=4, fused_score_frames=1,
-            spec_decode_tokens=1))
+        params = random_params(cfg, mode="int4", device="cpu", seed=0)
+        s = build_session(params, cfg, tok, InferConfig(
+            stream_end_prob_threshold=-1e9, max_new_tokens=4), device="cpu")
+        assert (s.engine.fused_frames, s.engine.spec_tokens, s.engine.spec_max) == (4, 4, 8)
         s.input_video_stream(np.zeros((3, 32, 32, 3), np.uint8))
         s.input_query_stream([{{"role": "user", "content": "hi", "time": 0}}])
         turns = s.inference()
         assert sum(t["role"] == "assistant" for t in turns) == 3, turns
-        assert not [m for m in sys.modules if m == "jax" or m.startswith("jax.")
-                    if sys.modules[m] is not None]
+        rows = build_session(params, cfg, tok, InferConfig(grounding_mode=True),
+                             device="cpu").score_video(np.zeros((6, 32, 32, 3), np.uint8))
+        assert len(rows) == 6
+        bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "aha_tpu")]
+        assert not bad, bad
         print("ok")
     """)
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
