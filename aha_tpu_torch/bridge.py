@@ -12,6 +12,11 @@ projections, packed int4 ``{q4value, scale4}`` (uint8 / bf16). Two leaves need c
   * the SigLIP patch embedding is a JAX conv kernel in HWIO
     [P, P, 3, H]; torch's ``conv2d`` wants OIHW [H, 3, P, P], so it is
     permuted here (the only leaf whose layout changes).
+
+A LoRA tree (``train/lora.py::init_lora``: ``{proj: {"a", "b"}}``, layer-stacked)
+crosses through ``params_from_jax`` as it is. ``load_trained_leaves`` carries the
+trained leaves of a JAX train state's tree into a port state, so that both
+sides start a step from the same numbers.
 """
 
 from __future__ import annotations
@@ -42,3 +47,21 @@ def params_from_jax(tree: dict, device="cuda") -> dict:
         return t.to(device)
 
     return visit(tree, ())
+
+
+def load_trained_leaves(tree: dict, jax_tree: dict, labels: dict) -> None:
+    """Overwrite IN PLACE every 'train'-labelled leaf of the port's
+    ``tree`` ({"model": params, "lora": adapters}) with the leaf at the same
+    path of ``jax_tree`` (a JAX ``TrainState.tree`` with numpy leaves);
+    ``labels`` is ``train/lora.py::trainable_labels``' partition. Frozen
+    leaves are left alone."""
+
+    def visit(node, src, lab):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                visit(v, src[k], lab[k])
+            elif lab[k] == "train":
+                with torch.no_grad():
+                    v.copy_(tensor_from_numpy(src[k]).to(device=v.device, dtype=v.dtype))
+
+    visit(tree, jax_tree, labels)

@@ -4,9 +4,11 @@ streaming-inference flags.
 The port's own copy of what it reads from ``aha_tpu/config.py`` (names,
 fields and defaults kept, so a config of one package converts to the other
 field by field): ``QwenConfig``, ``SiglipConfig``, ``AhaConfig`` with the
-``aha_7b`` / ``aha_tiny`` presets, and ``InferConfig``. Training flags,
-the CLIP presets and the JSON helpers are not read by the inference path
-and are not carried.
+``aha_7b`` / ``aha_tiny`` presets, ``InferConfig``, and the training flags
+``LossWeights``, ``LoraConfig`` and ``TrainConfig`` (without the mesh, ring
+and pipeline fields: the port trains on one card). The CLIP presets and the
+JSON helpers are not carried, nor are the fields of ``TrainConfig`` that
+only the data pipeline and the command line read.
 """
 
 from __future__ import annotations
@@ -81,7 +83,8 @@ class AhaConfig:
     v_placeholder_id: int = -1  # filled in by tokenizer build
     eos_token_id: int = -1      # filled in by tokenizer build
     pooling_mode: str = "average"  # average | max | bilinear
-    video_head_stop_grad: bool = False   # training ablation; inert here
+    # training ablation: the score heads see detached hidden states
+    video_head_stop_grad: bool = False
 
     # dtype of the compute path ("bfloat16" on the card; tests use float32)
     dtype: str = "bfloat16"
@@ -144,6 +147,65 @@ def aha_tiny(vocab_size: int = 512) -> AhaConfig:
         frame_token_pooled=(1, 1),
         dtype="float32",
     )
+
+
+# Training flags -------------------------------------------------------------
+
+
+@dataclass
+class LossWeights:
+    """Loss mixing weights."""
+
+    lm: float = 0.2
+    video: float = 1.0
+    info: float = 0.5
+    relevance: float = 8.0
+    uncertainty: float = 0.1
+    tv: float = 0.05
+
+
+@dataclass
+class LoraConfig:
+    """LoRA adapter shape."""
+
+    r: int = 16
+    alpha: int = 32
+    dropout: float = 0.05
+    # regex over flattened param paths, applied to decoder projections
+    target_patterns: str = r"layers_\d+/(q_proj|k_proj|v_proj|o_proj|gate_proj|up_proj|down_proj)/kernel"
+    # modules trained densely (not via adapters)
+    finetune_modules: tuple[str, ...] = (
+        "mm_projector",
+        "lm_head",
+        "informative_head",
+        "relevance_head",
+        "uncertainty_head",
+    )
+
+
+@dataclass
+class TrainConfig:
+    output_dir: str = "outputs/debug"
+
+    learning_rate: float = 2e-5
+    warmup_ratio: float = 0.05
+    weight_decay: float = 0.0
+    max_grad_norm: float = 1.0
+    grad_accum_steps: int = 2
+    seed: int = 42
+    save_steps: int = 25
+    save_total_limit: int = 5
+    logging_steps: int = 1
+    resume_from_checkpoint: str | None = None
+
+    lora: LoraConfig = field(default_factory=LoraConfig)
+    loss_weights: LossWeights = field(default_factory=LossWeights)
+
+    # activation rematerialization of the decoder trunk
+    # (models/qwen2.forward_hidden): "full" recomputes every layer's forward
+    # in the backward (least memory), "half" every other layer's, "none"
+    # saves everything
+    remat_policy: str = "full"   # none | full | half
 
 
 # Inference flags -------------------------------------------------------------

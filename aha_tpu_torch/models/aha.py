@@ -1,8 +1,9 @@
-"""The Aha model's vision path, projector and score heads, plus seeded
-synthetic params built on the device.
+"""The Aha model's vision path, projector and score heads, the full-sequence
+training forward, plus seeded synthetic params built on the device.
 
 Counterpart of ``aha_tpu/models/aha.py`` (``encode_vision_tokens``,
-``project_features``, ``visual_embed``), of the heads in
+``project_features``, ``visual_embed``, ``joint_embed``, ``apply_heads``,
+``forward_train``), of the heads in
 ``aha_tpu/streaming/engine_core.py::_scores_from_hidden``, and of
 ``aha_tpu/models/loader.py::materialize_random_params`` (``random_params``).
 Only the SigLIP tower without the CLS probe (``frame_token_cls=False``) is
@@ -11,6 +12,8 @@ on the streaming path and ported.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 import torch.nn.functional as F
 
@@ -18,7 +21,7 @@ from ..config import AhaConfig
 from ..ops.pooling import pool_patch_tokens
 from ..ops.preprocess import device_letterbox
 from ..ops.quant import linear
-from . import siglip
+from . import qwen2, siglip
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -72,7 +75,85 @@ def scores_from_hidden(params: dict, hidden_last: torch.Tensor) -> torch.Tensor:
                         torch.sigmoid(rel[..., 0]), torch.exp(unc[..., 0])], dim=-1)
 
 
-def random_params(cfg: AhaConfig, *, mode: str = "int8", device="cuda", seed: int = 0) -> dict:
+@dataclass
+class AhaOutputs:
+    """Per-token outputs of the full-sequence forward."""
+
+    logits: torch.Tensor              # [B, T, V] f32
+    informative_logits: torch.Tensor  # [B, T, 2] f32
+    relevance: torch.Tensor           # [B, T] f32, sigmoid applied
+    log_variance: torch.Tensor        # [B, T] f32
+    hidden: torch.Tensor              # [B, T, H]
+
+
+def joint_embed(params: dict, cfg: AhaConfig, input_ids: torch.Tensor,
+                frame_embeds: torch.Tensor | None) -> torch.Tensor:
+    """Token embeddings [B, T, H] with the projected frame tokens
+    ``frame_embeds`` [N, H] at the ``<image>`` placeholder positions: the k-th
+    placeholder (row-major over the batch) takes frame token k."""
+    embeds = qwen2.embed_tokens(params["llm"], input_ids.clamp(0, cfg.llm.vocab_size - 1),
+                                torch_dtype(cfg.dtype))
+    if frame_embeds is None:
+        return embeds
+    B, T = input_ids.shape
+    mask = input_ids.reshape(-1) == cfg.v_placeholder_id
+    visual_idx = (torch.cumsum(mask, dim=0) - 1).clamp(0, frame_embeds.shape[0] - 1)
+    gathered = frame_embeds[visual_idx].to(embeds.dtype)
+    return torch.where(mask[:, None], gathered, embeds.reshape(B * T, -1)).reshape(B, T, -1)
+
+
+def apply_heads(params: dict, cfg: AhaConfig, hidden: torch.Tensor,
+                backend: str = "fused") -> AhaOutputs:
+    hf = hidden.float()
+    if cfg.video_head_stop_grad:
+        # ablation: the video losses train the head kernels only, never the trunk
+        hf = hf.detach()
+    heads = params["heads"]
+    rel = hf @ heads["relevance"]["kernel"].float()
+    unc = hf @ heads["uncertainty"]["kernel"].float()
+    return AhaOutputs(
+        logits=qwen2.lm_logits(params["llm"], cfg.llm, hidden, backend).float(),
+        informative_logits=hf @ heads["informative"]["kernel"].float(),
+        relevance=torch.sigmoid(rel[..., 0]),
+        log_variance=unc[..., 0],
+        hidden=hidden)
+
+
+def forward_train(params: dict, cfg: AhaConfig, input_ids: torch.Tensor,
+                  frames: torch.Tensor | None, *, attn_mask: torch.Tensor | None = None,
+                  frame_embeds: torch.Tensor | None = None, lora: dict | None = None,
+                  lora_scale: float = 0.0, remat: bool | str = True,
+                  lora_dropout: float = 0.0, dropout_seed: int | None = None,
+                  backend: str = "fused") -> AhaOutputs:
+    """The full-sequence forward of training and offline evaluation.
+    ``frames`` [N, H, W, 3] are encoded here (the frozen tower without a
+    graph, the projector with one); ``frame_embeds`` [N, F, H] or [N * F, H]
+    are projected features extracted beforehand. Pass one or neither. In a
+    left-padded batch (``attn_mask`` [B, T] bool) positions start at 0 on a
+    row's first real token."""
+    if frames is not None:
+        if frame_embeds is not None:
+            raise ValueError("pass frames or frame_embeds, not both")
+        k = params["projector"]["fc1"]["kernel"]
+        dtype = torch_dtype(cfg.dtype) if isinstance(k, dict) else k.dtype
+        with torch.no_grad():
+            feats = encode_vision_tokens(params, cfg, frames, dtype)
+        frame_embeds = project_features(params, feats, backend)
+    if frame_embeds is not None:
+        frame_embeds = frame_embeds.reshape(-1, frame_embeds.shape[-1])
+    embeds = joint_embed(params, cfg, input_ids, frame_embeds)
+    positions = None
+    if attn_mask is not None:
+        positions = (torch.cumsum(attn_mask.int(), dim=1) - 1).clamp(min=0)
+    hidden = qwen2.forward_hidden(
+        params["llm"], cfg.llm, embeds, attn_mask=attn_mask, positions=positions, lora=lora,
+        lora_scale=lora_scale, remat=remat, lora_dropout=lora_dropout,
+        dropout_seed=dropout_seed, backend=backend)
+    return apply_heads(params, cfg, hidden, backend)
+
+
+def random_params(cfg: AhaConfig, *, mode: str = "int8", keep_dense: tuple[str, ...] = (),
+                  device="cuda", seed: int = 0) -> dict:
     """Synthetic params of a quantized deployment config, built leaf by leaf
     on ``device`` in their final dtype, with the recipe of
     ``loader.materialize_random_params(cfg, mode)``: dense kernels
@@ -86,10 +167,17 @@ def random_params(cfg: AhaConfig, *, mode: str = "int8", device="cuda", seed: in
     Every decoder projection (merged qkv / gate_up, the layout the engine
     serves), the projector and the lm_head are quantized in ``mode``; the
     embedding table is int8 with per-row scales in both; the vision tower
-    and the heads stay dense. Deterministic for a seed, not bit-equal to
-    JAX's PRNG. Runs on the card unless ``device`` says otherwise."""
+    and the heads stay dense. ``keep_dense`` names the modules of
+    ``("projector", "lm_head")`` to leave dense instead: QLoRA trains both
+    densely over the frozen quantized trunk
+    (``quantize_params(keep_dense=("projector", "lm_head"))``).
+    Deterministic for a seed, not bit-equal to JAX's PRNG. Runs on the card
+    unless ``device`` says otherwise."""
     if mode not in ("int8", "int4"):
         raise ValueError(f"random_params: mode must be 'int8' or 'int4', got {mode!r}")
+    if not set(keep_dense) <= {"projector", "lm_head"}:
+        raise ValueError(f"random_params: keep_dense takes 'projector' and 'lm_head', got "
+                         f"{keep_dense!r}")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("random_params: device cuda requested but no GPU is available "
@@ -125,6 +213,8 @@ def random_params(cfg: AhaConfig, *, mode: str = "int8", device="cuda", seed: in
                                                    dtype=torch.bfloat16, device=device)}
 
     kernel = kernel8 if mode == "int8" else kernel4
+    head_kernel = normal if "lm_head" in keep_dense else kernel
+    proj_kernel = normal if "projector" in keep_dense else kernel
 
     v, q = cfg.vision, cfg.llm
     L, H, I = q.num_layers, q.hidden_size, q.intermediate_size
@@ -156,11 +246,11 @@ def random_params(cfg: AhaConfig, *, mode: str = "int8", device="cuda", seed: in
         "final_norm": {"scale": ones(H)},
     }
     if not q.tie_word_embeddings:
-        llm["lm_head"] = {"kernel": kernel(H, q.vocab_size)}
+        llm["lm_head"] = {"kernel": head_kernel(H, q.vocab_size)}
     return {
         "vision": vision,
-        "projector": {"fc1": {"kernel": kernel(Hv, H), "bias": zeros(H)},
-                      "fc2": {"kernel": kernel(H, H), "bias": zeros(H)}},
+        "projector": {"fc1": {"kernel": proj_kernel(Hv, H), "bias": zeros(H)},
+                      "fc2": {"kernel": proj_kernel(H, H), "bias": zeros(H)}},
         "llm": llm,
         "heads": {"informative": {"kernel": normal(H, 2)},
                   "relevance": {"kernel": normal(H, 1)},

@@ -1,8 +1,9 @@
-"""Qwen2 decoder over the ring-buffer cache, one streaming chunk at a time.
+"""Qwen2 decoder: one streaming chunk at a time over the ring-buffer cache,
+and the full-sequence forward that training differentiates.
 
 Counterpart of ``aha_tpu/models/qwen2.py`` (``rms_norm``, ``linear``,
-``_qkv``, ``_mlp``, ``embed_tokens``, ``decode_chunk``, ``decode_chunk_spec``,
-``lm_logits``).
+``_ab_delta``, ``_qkv``, ``_mlp``, ``embed_tokens``, ``forward_hidden``,
+``decode_chunk``, ``decode_chunk_spec``, ``lm_logits``).
 Weights stay layer-stacked [L, ...] as the bridge delivers them; the layer
 loop is a Python loop over per-layer views. The JAX cast points are kept:
 RMSNorm in f32 returning the input dtype, SiLU in f32, attention math in
@@ -11,20 +12,23 @@ f32, matmul outputs in the activation dtype. Merged ``qkv_proj`` /
 the quantized-matmul kernels (``ops/quant.py``).
 
 ``decode_chunk`` WRITES the cache in place; ``decode_chunk_spec`` only reads
-it.
+it. ``forward_hidden`` has no cache: full causal attention through the flash
+kernel, LoRA deltas at the matmul sites, activation rematerialisation on
+``torch.utils.checkpoint``.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..config import QwenConfig
-from ..ops.attention import (cached_attention, chunk_tables, spec_tables,
+from ..ops.attention import (cached_attention, causal_attention, chunk_tables, spec_tables,
                              speculative_attention)
 from ..ops.kv_cache import CachePolicy, KVCache, advance, plan_update, write_layer
 from ..ops.quant import embed_rows, linear
-from ..ops.rope import apply_rope
+from ..ops.rope import apply_rope, rope_cos_sin
 from . import layer_view
 
 
@@ -34,32 +38,149 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
-def _qkv(x: torch.Tensor, lp: dict, cfg: QwenConfig, backend: str = "fused"):
+def site_seed(*parts: int) -> int:
+    """One 63-bit seed from (seed, step, projection index, layer): FNV-1a over
+    the integers, so that neighbouring sites get unrelated streams."""
+    h = 0xCBF29CE484222325
+    for v in parts:
+        h = ((h ^ (v & 0xFFFFFFFFFFFFFFFF)) * 0x100000001B3) & 0xFFFFFFFFFFFFFFFF
+    return h >> 1
+
+
+class LayerAdapters:
+    """One layer's LoRA pairs at the matmul sites: ``delta(name, x)`` is
+    ``scale * (x @ A) @ B`` at low rank (W + BA is never materialised), in
+    f32 against the f32 master adapters and cast back to x's dtype.
+
+    With ``dropout > 0`` the ADAPTER INPUT gets inverted dropout (peft's
+    ``lora_dropout``; the frozen base path never sees it), one independent
+    mask per projection, layer and step. The mask comes from a generator
+    seeded from (seed, projection index, layer) AT EACH CALL, never from one
+    that is advanced: ``torch.utils.checkpoint`` replays a layer's forward in
+    the backward, and only a generator rebuilt from the same seed gives the
+    replay the same mask. The masks match the TPU package's in distribution,
+    not bit for bit."""
+
+    def __init__(self, lora: dict, layer: int, scale: float, dropout: float = 0.0,
+                 seed: int | None = None):
+        self.pairs = layer_view(lora, layer)
+        self.order = {name: i for i, name in enumerate(sorted(lora))}
+        self.layer, self.scale = layer, scale
+        self.dropout = dropout if seed is not None else 0.0
+        self.seed = seed
+
+    def delta(self, name: str, x: torch.Tensor):
+        ab = self.pairs.get(name)
+        if ab is None:
+            return 0.0
+        if self.dropout > 0.0:
+            keep = 1.0 - self.dropout
+            gen = torch.Generator(device=x.device)
+            gen.manual_seed(site_seed(self.seed, self.order[name], self.layer))
+            mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+            x = torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+        return (self.scale * ((x.float() @ ab["a"].float()) @ ab["b"].float())).to(x.dtype)
+
+
+def _qkv(x: torch.Tensor, lp: dict, cfg: QwenConfig, backend: str = "fused",
+         adapters: LayerAdapters | None = None):
     B, S, _ = x.shape
     if "qkv_proj" in lp:
+        # merged layout: one product for q, k and v; a projection's adapter is
+        # added on its slice of the output
         y = linear(x, lp["qkv_proj"], backend)
         QD, KD = cfg.q_dim, cfg.kv_dim
         q, k, v = y[..., :QD], y[..., QD:QD + KD], y[..., QD + KD:]
     else:
         q, k, v = (linear(x, lp[n], backend) for n in ("q_proj", "k_proj", "v_proj"))
+    if adapters is not None:
+        q, k, v = (t + adapters.delta(n, x)
+                   for n, t in (("q_proj", q), ("k_proj", k), ("v_proj", v)))
     return (q.reshape(B, S, cfg.num_heads, cfg.head_dim),
             k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim),
             v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim))
 
 
-def _mlp(x: torch.Tensor, lp: dict, backend: str = "fused") -> torch.Tensor:
+def _mlp(x: torch.Tensor, lp: dict, backend: str = "fused",
+         adapters: LayerAdapters | None = None) -> torch.Tensor:
     if "gate_up_proj" in lp:
         y = linear(x, lp["gate_up_proj"], backend)
         I = y.shape[-1] // 2
         gate, up = y[..., :I], y[..., I:]
     else:
         gate, up = linear(x, lp["gate_proj"], backend), linear(x, lp["up_proj"], backend)
+    if adapters is not None:
+        gate, up = gate + adapters.delta("gate_proj", x), up + adapters.delta("up_proj", x)
     act = F.silu(gate.float()).to(x.dtype) * up
-    return linear(act, lp["down_proj"], backend)
+    down = linear(act, lp["down_proj"], backend)
+    return down if adapters is None else down + adapters.delta("down_proj", act)
 
 
 def embed_tokens(params: dict, ids: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
     return embed_rows(params["embed"]["weight"], ids, dtype)
+
+
+def forward_hidden(params: dict, cfg: QwenConfig, inputs_embeds: torch.Tensor, *,
+                   attn_mask: torch.Tensor | None = None,
+                   positions: torch.Tensor | None = None,
+                   lora: dict | None = None, lora_scale: float = 0.0,
+                   remat: bool | str = "none", lora_dropout: float = 0.0,
+                   dropout_seed: int | None = None, backend: str = "fused") -> torch.Tensor:
+    """Final-normed hidden states [B, T, H] of a whole sequence (training,
+    prefill without a cache). ``attn_mask`` [B, T] bool marks the real tokens
+    of a padded batch; ``positions`` [B, T] default to 0..T-1.
+
+    ``remat``: ``"none"`` (or False) saves every activation, ``"full"`` (or
+    True) saves each layer's input only and replays the layer in the backward,
+    ``"half"`` does so for the first layer of every pair. The TPU package's
+    ``"dots"`` and ``"dots_no_batch"`` (save the matmul outputs, replay the
+    elementwise ops) are not ported and raise.
+
+    ``lora_dropout`` with a ``dropout_seed`` (which the trainer derives from
+    its seed and the step) drops adapter inputs; see ``LayerAdapters``."""
+    if remat in (True, "full"):
+        replay = lambda i: True
+    elif remat == "half":
+        if cfg.num_layers % 2:
+            raise ValueError(f"remat='half' needs an even layer count (got {cfg.num_layers})")
+        replay = lambda i: i % 2 == 0
+    elif remat in (False, None, "none"):
+        replay = lambda i: False
+    elif remat in ("dots", "dots_no_batch"):
+        raise NotImplementedError(
+            f"remat={remat!r} is not ported (ROADMAP.md, What remains: 'dots' remat); "
+            "use 'none', 'half' or 'full'")
+    else:
+        raise ValueError(f"unknown remat policy: {remat!r}")
+
+    B, T = inputs_embeds.shape[:2]
+    pos = positions if positions is not None else torch.arange(
+        T, device=inputs_embeds.device)[None].expand(B, T)
+    rope_tables = rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta)   # the same for every layer
+    lyr = params["layers"]
+
+    def layer_fn(x: torch.Tensor, i: int) -> torch.Tensor:
+        lp = layer_view(lyr, i)
+        ad = None if lora is None else LayerAdapters(lora, i, lora_scale, lora_dropout,
+                                                     dropout_seed)
+        h = rms_norm(x, lp["input_norm"]["scale"], cfg.rms_norm_eps)
+        q, k, v = _qkv(h, lp, cfg, backend, ad)
+        attn = causal_attention(q, k, v, rope_theta=cfg.rope_theta, attn_mask=attn_mask,
+                                rope_tables=rope_tables).reshape(B, T, cfg.q_dim)
+        o = linear(attn, lp["o_proj"], backend)
+        x = x + (o if ad is None else o + ad.delta("o_proj", attn))
+        h = rms_norm(x, lp["post_norm"]["scale"], cfg.rms_norm_eps)
+        return x + _mlp(h, lp, backend, ad)
+
+    x = inputs_embeds
+    for i in range(cfg.num_layers):
+        if replay(i):
+            # the dropout masks come from their own seeded generators, so the
+            # global RNG state need not be stashed and restored
+            x = checkpoint(layer_fn, x, i, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = layer_fn(x, i)
+    return rms_norm(x, params["final_norm"]["scale"], cfg.rms_norm_eps)
 
 
 def decode_chunk(params: dict, cfg: QwenConfig, policy: CachePolicy, cache: KVCache,

@@ -21,6 +21,10 @@ depend on the layer: ``chunk_tables`` builds them once per chunk.
 ``speculative_attention`` is the read-only verify pass's attention
 (``aha_tpu/ops/attention.py::speculative_attention``): plain PyTorch, as the
 JAX function is plain jnp outside any Pallas kernel.
+
+``causal_attention`` is the full-sequence attention of training and prefill
+(``aha_tpu/ops/attention.py::causal_attention``): rotate in f32, then the
+flash kernel at every T (no dense and no blockwise branch).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from dataclasses import dataclass
 import torch
 
 from .kernels.decode_attention import decode_attention
+from .kernels.flash_attention import flash_causal_attention
 from .kv_cache import CachePolicy, UpdatePlan, reference_mask_operands
 from .rope import apply_rope, rope_cos_sin
 
@@ -195,3 +200,26 @@ def speculative_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch
     vals = torch.cat([v_cache.to(vdt), v_infl.to(vdt)], dim=1).float()
     out = torch.einsum("bgrsw,bwgd->bsgrd", p.to(vdt).float(), vals)
     return out.reshape(B, S, NH, Dh).to(q.dtype)
+
+
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, rope_theta: float,
+                     positions: torch.Tensor | None = None,
+                     attn_mask: torch.Tensor | None = None,
+                     rope_tables: tuple | None = None) -> torch.Tensor:
+    """Full-sequence causal attention: unrotated q [B, T, NH, Dh], k / v
+    [B, T, KVH, Dh] -> [B, T, NH, Dh]. ``rope_tables`` (cos, sin) [B, T, Dh]
+    are layer-invariant and passed by the decoder; else they come from
+    ``positions`` [B, T] (default: 0..T-1). ``attn_mask`` [B, T] bool marks the
+    real tokens of a padded batch: padded keys are seen by no query, and a
+    query that sees no key (a padded position of a left-padded row) gives 0."""
+    B, T, _, Dh = q.shape
+    if rope_tables is not None:
+        cos, sin = rope_tables
+    else:
+        if positions is None:
+            positions = torch.arange(T, device=q.device)[None].expand(B, T)
+        cos, sin = rope_cos_sin(positions, Dh, rope_theta)
+    q = apply_rope(q.float(), cos, sin).to(q.dtype)
+    k = apply_rope(k.float(), cos, sin).to(k.dtype)
+    key_valid = None if attn_mask is None else attn_mask.bool().contiguous()
+    return flash_causal_attention(q.contiguous(), k.contiguous(), v.contiguous(), key_valid)

@@ -3,8 +3,9 @@ tensors and runs its plain PyTorch version on CPU tensors.
 
 ``LAUNCHES`` counts kernel launches by wrapper name (``int8_matmul``,
 ``int8_matmul_a8``, ``quant_matmul``, ``int4_matmul``, ``int4_matmul_a8``,
-``quantize_rows``, ``decode_attention``): a wrapper adds one where it
-launches its kernel and nowhere else, so a run can show which kernels its
+``int4_matmul_t``, ``quantize_rows``, ``decode_attention``,
+``flash_attention_fwd``, ``flash_attention_bwd``): a wrapper adds one where
+it launches its kernel and nowhere else, so a run can show which kernels its
 path went through. The plain versions do not count.
 """
 

@@ -105,6 +105,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.aha_int8_matmul_a8.restype = I
     lib.aha_int4_matmul.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P]
     lib.aha_int4_matmul.restype = I
+    lib.aha_int4_matmul_t.argtypes = [P, P, P, P, I, I, I, I, I, I, P]
+    lib.aha_int4_matmul_t.restype = I
+    lib.aha_flash_attention_fwd.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, F, P]
+    lib.aha_flash_attention_fwd.restype = I
+    lib.aha_flash_attention_bwd.argtypes = [P, P, P, P, P, P, P, P, P, P, P,
+                                            I, I, I, I, I, I, F, P]
+    lib.aha_flash_attention_bwd.restype = I
     lib.aha_quantize_rows.argtypes = [P, P, P, I, I, I, P]
     lib.aha_quantize_rows.restype = I
     lib.aha_decode_attention.argtypes = [P, P, P, P, P, P, P, P, P, P,

@@ -8,8 +8,10 @@ activations (``a8=True``). ``q4value`` [K/2, N] uint8 packs row 2j in the low
 nibble and row 2j + 1 in the high nibble of byte j, values offset by 8;
 ``scale4`` [K/G, N] bf16 holds one scale per group of G rows and output
 column (G = K // scale4.shape[0]). A stacked weight's layer is passed as the
-views ``q4value[l]``, ``scale4[l]``. Inference only: the gradient (the TPU
-package's ``int4_matmul_t`` / ``int4_qlinear``) is not part of this module.
+views ``q4value[l]``, ``scale4[l]``. ``int4_qlinear`` is the same product
+with a gradient for ``x`` (``aha_tpu/ops/pallas/fused_matmul.py::
+int4_qlinear``): forward this kernel, backward ``int4_matmul_t``, nothing for
+the frozen weight and scales.
 
 On a CPU tensor the plain version runs; on a CUDA tensor the kernel
 launches, or the call raises.
@@ -127,3 +129,25 @@ def int4_matmul(x: torch.Tensor, q4value: torch.Tensor, scale4: torch.Tensor, *,
     _build.check(lib, err, "int4_matmul")
     LAUNCHES["int4_matmul_a8" if a8 else "int4_matmul"] += 1
     return y.reshape(*lead, N)
+
+
+class _Int4QLinear(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, q4value, scale4):
+        ctx.save_for_backward(q4value, scale4)
+        return int4_matmul(x, q4value, scale4)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from .int4_matmul_t import int4_matmul_t   # it imports unpack_int4 from here
+
+        q4value, scale4 = ctx.saved_tensors
+        return int4_matmul_t(grad.contiguous(), q4value, scale4), None, None
+
+
+def int4_qlinear(x: torch.Tensor, q4value: torch.Tensor, scale4: torch.Tensor) -> torch.Tensor:
+    """``int4_matmul(x, q4value, scale4)`` (weight-only) that autograd can
+    differentiate with respect to ``x``: the backward launches
+    ``int4_matmul_t`` on the incoming gradient. The packed weight and its
+    scales are frozen and get no gradient."""
+    return _Int4QLinear.apply(x, q4value, scale4)

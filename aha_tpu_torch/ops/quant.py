@@ -25,13 +25,21 @@ global):
 
 Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
 version on the CPU.
+
+Under autograd (``x`` requires a gradient, as every activation behind a
+trained adapter or projector does) packed int4 under ``"fused"`` goes through
+``int4_qlinear``, whose backward is the ``int4_matmul_t`` kernel: that is what
+makes a frozen int4 trunk trainable. Without a gradient to carry the plain
+wrapper is called, so the serving path pays for no autograd node. The
+int8-activation recipe is not differentiable (nor is it in the TPU package),
+and int8 weights under a gradient are not ported yet: both raise.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .kernels.int4_matmul import int4_matmul, unpack_int4
+from .kernels.int4_matmul import int4_matmul, int4_qlinear, unpack_int4
 from .kernels.int8_matmul import int8_matmul, quant_matmul
 
 BACKENDS = ("fused", "fused_a8", "pallas")
@@ -59,9 +67,19 @@ def qlinear(x: torch.Tensor, qkernel: dict, backend: str = "fused") -> torch.Ten
     if backend not in BACKENDS:
         raise ValueError(f"unknown matmul backend {backend!r}; one of {BACKENDS}")
     x = x.contiguous()
+    under_grad = torch.is_grad_enabled() and x.requires_grad
+    if under_grad and backend == "fused_a8":
+        raise ValueError("the 'fused_a8' backend quantises the activations and has no "
+                         "gradient; train with backend='fused'")
+    if under_grad and "q4value" not in qkernel:
+        raise NotImplementedError(
+            "training through int8 weights is not ported yet (ROADMAP.md, What remains: "
+            "int8-trunk training); quantise the trunk to packed int4")
     if "q4value" in qkernel:
         if backend == "pallas":
             raise ValueError("the 'pallas' backend (quant_matmul) takes int8 weights only")
+        if under_grad:
+            return int4_qlinear(x, qkernel["q4value"], qkernel["scale4"])
         return int4_matmul(x, qkernel["q4value"], qkernel["scale4"],
                            a8=backend == "fused_a8")
     if backend == "pallas":

@@ -1,6 +1,8 @@
-"""Where the time goes in the 7B streaming slices on one CUDA card.
+"""Where the time goes in the 7B streaming slices and in a 7B int4 QLoRA
+train step on one CUDA card.
 
-    python3 -m aha_tpu_torch.profile_slice [--seed 0] [--frames 8] [--paths int8,int4]
+    python3 -m aha_tpu_torch.profile_slice [--seed 0] [--frames 8] [--paths int8,int4,train]
+                                           [--remat full]
 
 For each path it builds seeded synthetic 7B params on the card
 (``random_params``), a sink cache (window 2048, 32 sinks, bf16) and drives
@@ -25,6 +27,13 @@ int4 (the --int4 config at the product widths), after the window has filled:
               (plans, embedding, decoder, lm_head, no commit), the pass
               ``generate_spec`` runs;
   token       the S = 1 passes of the sequential loop, as for int8.
+
+train (int4 QLoRA: int4 trunk, dense bf16 projector and lm_head, LoRA r 16,
+B 1, 16 frames in a conversation of 926 tokens, lora_dropout 0.05, remat
+``--remat``), after two steps to warm:
+
+  step        one ``train_step``: vision tower, forward, backward with its
+              replay, AdamW; and the same step's forward + loss alone.
 
 Each section runs twice: once untimed by the profiler, for the wall time
 (host clock, card synchronised), then traced, for the device's work (the
@@ -265,12 +274,63 @@ def profile_int4(seed: int, n: int) -> None:
     _trace_tokens("int4", engine, tok, cache)
 
 
+def profile_train(seed: int, remat: str) -> None:
+    import numpy as np
+
+    from .config import TrainConfig, aha_7b
+    from .models.aha import random_params
+    from .tokenization import build_stream_tokenizer
+    from .train import trainer
+
+    cfg = aha_7b()
+    tok = build_stream_tokenizer(None, frame_num_tokens=cfg.frame_num_tokens,
+                                 vocab_size=cfg.llm.vocab_size)
+    cfg = cfg.replace(v_placeholder_id=tok.v_placeholder_id, eos_token_id=tok.eos_token_id)
+    params = random_params(cfg, mode="int4", keep_dense=("projector", "lm_head"), seed=seed)
+    tc = TrainConfig(learning_rate=1e-4, warmup_ratio=0.0, grad_accum_steps=1,
+                     remat_policy=remat)
+    state, tx, labels, scale = trainer.init_train_state(cfg, tc, params, total_steps=100,
+                                                        seed=seed)
+    step = trainer.make_train_step(cfg, tc, tx, labels, scale)
+    batch, T = trainer.synthetic_batch(cfg, tok, np.random.default_rng(seed), n_frames=16)
+    for _ in range(2):
+        step(state, batch)
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trace()
+    _, parts = tr.run(lambda: step(state, batch))
+    report(f"train step (int4 QLoRA, B=1 T={T}, remat={remat}, loss {float(parts.total):.4f}, "
+           f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)", 1, "step",
+           tr.wall_ms, tr.traced_wall_ms, tr.busy_ms(), tr.kernels(), tr.aten_ops(), top=14)
+
+    from .models import aha
+    from .train.losses import aha_loss
+
+    dev = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+
+    def forward_only():
+        with torch.no_grad():
+            outs = aha.forward_train(state.tree["model"], cfg, dev["input_ids"].long(),
+                                     dev["frames"], attn_mask=dev["attention_mask"],
+                                     lora=state.tree["lora"], lora_scale=scale, remat="none")
+            return aha_loss(outs.logits, outs.informative_logits, outs.relevance,
+                            outs.log_variance, input_ids=dev["input_ids"], labels=dev["labels"],
+                            informative_labels=dev["informative_labels"],
+                            relevance_labels=dev["relevance_labels"], weights=tc.loss_weights)
+
+    forward_only()
+    tr = Trace()
+    tr.run(forward_only)
+    report(f"train forward + loss alone (no graph, no dropout, B=1 T={T})", 1, "pass",
+           tr.wall_ms, tr.traced_wall_ms, tr.busy_ms(), tr.kernels(), tr.aten_ops(), top=8)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--frames", type=int, default=8,
                     help="frame chunks / fused passes traced after the fill")
-    ap.add_argument("--paths", default="int8,int4")
+    ap.add_argument("--paths", default="int8,int4,train")
+    ap.add_argument("--remat", default="full", help="remat policy of the train path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_slice: no CUDA device", file=sys.stderr)
@@ -284,7 +344,10 @@ def main() -> int:
     print(f"profile device: {gpu}; torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
     for path in args.paths.split(","):
-        {"int8": profile_int8, "int4": profile_int4}[path](args.seed, args.frames)
+        if path == "train":
+            profile_train(args.seed, args.remat)
+        else:
+            {"int8": profile_int8, "int4": profile_int4}[path](args.seed, args.frames)
         torch.cuda.empty_cache()
     return 0
 

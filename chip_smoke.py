@@ -9,10 +9,14 @@ Phases, one or more lines each:
      the kernels' build time (built from aha_tpu_torch/csrc at first use, one
      nvcc per source in parallel);
   2. each CUDA kernel against its plain PyTorch version on the card, at
-     every shape the 7B paths of phase 4 hand it (all five matmul entries at
-     the four layer products for each row count of PATH_M, lm_head at 1, 4
-     and 8 rows, the projector at 392 and 1568; phase 4 records the shapes
-     and fails on one that was not checked here)
+     every shape the 7B paths of phases 4 and 5 hand it (all five matmul
+     entries at the four layer products for each row count of PATH_M, lm_head
+     at 1, 4 and 8 rows, the projector at 392 and 1568; int4_matmul and its
+     transpose int4_matmul_t at the training sequence's 926 rows; the flash
+     attention's forward and backward at T = 926, at ragged lengths and with
+     a padding mask, beside scaled_dot_product_attention, which is timed and
+     used nowhere; phases 4 and 5 record the shapes and fail on one that was
+     not checked here)
      (bf16: max|y - y_ref| <= 1e-2 * max|y_ref|;
      with int8 activations 2e-2, because the kernel's quantiser and the plain
      one may round an exact tie apart by one int8 step of one activation) and
@@ -29,7 +33,10 @@ Phases, one or more lines each:
      int8 with the "fused_a8" and with the "pallas" backend. Scores must agree
      to atol 1e-3 (1e-2 with int8 activations: a tie in the quantiser moves a
      hidden state by up to 1/127 of its row's maximum); whether the generated
-     texts match the CPU's is printed;
+     texts match the CPU's is printed. Then three int4 QLoRA train steps on
+     the card (kernels) and on the CPU (plain versions) from the same seeded
+     weights and batch at lora_dropout 0: the loss parts within 1e-3, every
+     trained leaf within 1e-3 of its largest magnitude;
   4. at the 7B's full width and depth, seeded synthetic weights, sink cache
      2048 + 32, launch counters zeroed just before each path and read just
      after:
@@ -46,7 +53,16 @@ Phases, one or more lines each:
           kernels: 7B-int8 with "fused_a8", 7B-int8 with "pallas", 7B-int4
           with "fused_a8".
      Last, every shape that a path handed a kernel's wrapper must be one that
-     phase 2 held against the plain version.
+     phase 2 held against the plain version;
+  5. 7B int4 QLoRA training at full width and depth: int4 trunk, int8
+     embedding table, dense bf16 projector and lm_head, LoRA r 16 on the seven
+     decoder projections, B 1, 16 synthetic 384 x 384 frames in a conversation
+     of 926 tokens, lr 1e-4, lora_dropout 0.05: one step to warm and five
+     timed at remat 'full' (step ms, tokens/s, peak memory, the six losses,
+     launches per step: 2 x 4 x 28 int4_matmul, 4 x 28 int4_matmul_t, 2 x 28
+     flash forward, 28 flash backward), the frozen leaves' checksums, then
+     one step each at remat 'half' and 'none' from the same state (same loss
+     to 1e-2). The shape check of phase 4 covers this path too.
 
 Prints the kernels' JSON line and, last, {"ok": true, "device": ...}.
 Exits nonzero, with no result line, when there is no CUDA device, when the
@@ -57,6 +73,7 @@ nothing of aha_tpu.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import math
@@ -68,6 +85,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 CSRC = "aha_tpu_torch/csrc/"
 FUSED_TPU = "aha_tpu/ops/pallas/fused_matmul.py"
+FLASH_TPU = "aha_tpu/ops/pallas/flash_attention.py:75"
 # name -> (source, the TPU kernel it replaces)
 KERNELS = {
     "int8_matmul": (CSRC + "int8_matmul.cu", FUSED_TPU + ":177"),
@@ -75,9 +93,12 @@ KERNELS = {
     "quant_matmul": (CSRC + "int8_matmul.cu", "aha_tpu/ops/pallas/quant_matmul.py:103"),
     "int4_matmul": (CSRC + "int4_matmul.cu", FUSED_TPU + ":238"),
     "int4_matmul_a8": (CSRC + "int4_matmul.cu", FUSED_TPU + ":238"),
+    "int4_matmul_t": (CSRC + "int4_matmul_t.cu", FUSED_TPU + ":313"),
     "quantize_rows": (CSRC + "quantize_rows.cu", FUSED_TPU + ":160"),
     "decode_attention": (CSRC + "decode_attention.cu",
                          "aha_tpu/ops/pallas/decode_attention.py:131"),
+    "flash_attention_fwd": (CSRC + "flash_attention.cu", FLASH_TPU),
+    "flash_attention_bwd": (CSRC + "flash_attention.cu", FLASH_TPU),
 }
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
@@ -137,6 +158,7 @@ class Stats:
         self.k = {n: dict(err=0.0, ms=None, plain_ms=None, bound_ms=None, bound_by=None,
                           library_ms=None, launches=0, shape=None) for n in KERNELS}
         self.checked = set()     # (kernel, M, K, N) or (kernel, S) held against the plain version
+        self.train_fwd_ms = 0.0  # int4_matmul, a layer's four products at the training rows
 
     def err(self, name, e):
         self.k[name]["err"] = max(self.k[name]["err"], e)
@@ -166,6 +188,8 @@ LAYER = [("qkv", 3584, 4608), ("o_proj", 3584, 3584), ("gate_up", 3584, 37888),
 # stream prompt + frame (59), the system prompt (171), a fused pass of 4 frames
 # (196), system prompt + first frame (220)
 PATH_M = (1, 4, 8, 13, 49, 59, 171, 196, 220)
+# rows of the training sequence of phase 5 (16 frames in one conversation)
+TRAIN_T = 926
 
 
 def _dt(dt) -> str:
@@ -211,6 +235,7 @@ def check_matmuls(gen, stats: Stats):
          [(*c, None, bf, 1e-2) for c in cards] + [(*ragged8[0], None, f32, 1e-4)], 49),
         ("int4_matmul", 4, False,
          [(*c, 128, bf, 1e-2) for c in cards]
+         + [(n, TRAIN_T, *layer[n], 128, bf, 1e-2) for n in layer]   # the training sequence
          + [(*r, f32, 1e-4) for r in ragged4] + [(*edge, 64, bf, 1e-2)], 196),
         ("int4_matmul_a8", 4, True,
          [(*c, 128, bf, 2e-2) for c in cards]
@@ -260,6 +285,8 @@ def check_matmuls(gen, stats: Stats):
             if M == rep_m and label in layer and dt == bf:
                 stats.add(name, ms, pms, bms, by, lib,
                           f"decoder layer (qkv, o_proj, gate_up, down) at M={M}, bf16")
+            if M == TRAIN_T:
+                stats.train_fwd_ms += ms
             print(f"phase2 {what} {_dt(dt)} max_abs_err={err:.3e} kernel_ms={ms:.4f} "
                   f"plain_ms={pms:.4f} bound_ms={bms:.4f} ({by}) library_ms="
                   f"{'none' if lib is None else f'{lib:.4f}'}", flush=True)
@@ -368,6 +395,135 @@ def check_attention(gen, stats: Stats):
               f"library_ms=none", flush=True)
 
 
+
+def check_int4_matmul_t(gen, stats: Stats):
+    """``int4_matmul_t`` (g @ W^T, the backward of ``int4_qlinear``) against
+    its plain version: the four layer products transposed at the training
+    sequence's rows, and small ragged shapes on both of its paths."""
+    import torch
+
+    from aha_tpu_torch.ops.kernels import int4_matmul_t as kt
+
+    dev = "cuda"
+    bf, f32 = torch.bfloat16, torch.float32
+    # (label, M, K, N, G, dtype, tol)
+    cases = [(n, TRAIN_T, K, N, 128, bf, 1e-2) for n, K, N in LAYER]
+    cases += [("ragged", 7, 128, 77, 128, f32, 1e-4), ("ragged", 1, 64, 33, 64, f32, 1e-4),
+              ("ragged", 13, 384, 130, 64, f32, 1e-4), ("ragged", 5, 96, 48, 6, f32, 1e-4),
+              ("ragged", 9, 64, 50, 64, bf, 1e-2), ("ragged-tc", 70, 136, 320, 68, bf, 1e-2)]
+    for label, M, K, N, G, dt, tol in cases:
+        wbytes = K * N // 2
+        copies = max(1, math.ceil(160e6 / wbytes))
+        ws = [torch.randint(0, 256, (K // 2, N), generator=gen, device=dev, dtype=torch.uint8)
+              for _ in range(copies)]
+        sc = ((torch.rand((K // G, N), generator=gen, device=dev) + 0.5) * (0.02 / 7)).to(bf)
+        g = torch.randn((M, N), generator=gen, device=dev).to(dt)
+        y, ref = kt.int4_matmul_t(g, ws[0], sc), kt.int4_matmul_t_plain(g, ws[0], sc)
+        torch.cuda.synchronize()
+        what = f"int4_matmul_t {label} M={M} K={K} N={N} G={G}"
+        err = rel_check(what, y, ref, tol)
+        stats.err("int4_matmul_t", err)
+        stats.checked.add(("int4_matmul_t", M, K, N))
+        ms = cuda_ms(lambda i: kt.int4_matmul_t(g, ws[i % copies], sc))
+        pms = cuda_ms(lambda i: kt.int4_matmul_t_plain(g, ws[i % copies], sc), iters=3, warmup=1)
+        esize = g.element_size()
+        bms, by = bound_ms(M * N * esize + wbytes + 2 * (K // G) * N + M * K * esize,
+                           2.0 * M * K * N, "bf16" if dt == bf else "f32")
+        if M == TRAIN_T:
+            stats.add("int4_matmul_t", ms, pms, bms, by, None,
+                      f"decoder layer (qkv, o_proj, gate_up, down) transposed at M={M}, bf16")
+        print(f"phase2 {what} {_dt(dt)} max_abs_err={err:.3e} kernel_ms={ms:.4f} "
+              f"plain_ms={pms:.4f} bound_ms={bms:.4f} ({by}) library_ms=none", flush=True)
+        del ws
+
+
+def check_flash_attention(gen, stats: Stats):
+    """The forward and the backward kernel of ``flash_causal_attention``
+    against their plain versions, with and without a left-padding mask, and
+    beside ``scaled_dot_product_attention`` (timed only). The backward kernel
+    and its plain version get the same o, lse and dout."""
+    import torch
+    import torch.nn.functional as F
+
+    from aha_tpu_torch.ops.kernels import flash_attention as fa
+
+    dev = "cuda"
+    bf, f32 = torch.bfloat16, torch.float32
+    # (label, B, T, NH, KVH, Dh, dtype, left padding per batch row or None, tol fwd, tol bwd)
+    cases = [("7b", 1, TRAIN_T, 28, 4, 128, bf, None, 1e-2, 2e-2),
+             ("7b-padded", 1, TRAIN_T, 28, 4, 128, bf, (37,), 1e-2, 2e-2),
+             ("7b-ragged", 2, 77, 28, 4, 128, bf, (0, 9), 1e-2, 2e-2),
+             ("tiny", 2, 45, 4, 2, 16, f32, None, 1e-4, 1e-4),
+             ("tiny-padded", 3, 70, 4, 2, 16, f32, (0, 33, 69), 1e-4, 1e-4),
+             ("ragged", 1, 70, 14, 2, 128, f32, (5,), 1e-4, 1e-4),
+             ("tiny-bf16", 2, 33, 6, 2, 16, bf, (0, 4), 1e-2, 2e-2)]
+    for label, B, T, NH, KVH, Dh, dt, pad, tol_f, tol_b in cases:
+        q, k, v, dout = (torch.randn((B, T, h, Dh), generator=gen, device=dev).to(dt)
+                         for h in (NH, KVH, KVH, NH))
+        valid = None
+        if pad is not None:
+            valid = torch.arange(T, device=dev)[None] >= torch.tensor(pad, device=dev)[:, None]
+        o, lse = fa.flash_attention_fwd(q, k, v, valid)
+        o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, valid)
+        grads = fa.flash_attention_bwd(q, k, v, o_ref, dout, lse_ref, valid)
+        grads_ref = fa.flash_causal_attention_bwd_plain(q, k, v, o_ref, dout, lse_ref, valid)
+        torch.cuda.synchronize()
+        what = f"B={B} T={T} NH={NH} KVH={KVH} Dh={Dh} {_dt(dt)} key_valid={pad}"
+        err_f = rel_check(f"flash_attention_fwd {label} {what} o", o, o_ref, tol_f)
+        empty = torch.isinf(lse_ref)
+        if not torch.equal(torch.isinf(lse), empty):
+            raise AssertionError(f"flash_attention_fwd {label} {what}: rows that see no key differ")
+        if pad is not None and any(pad) and not bool(empty.any()):
+            raise AssertionError(f"flash_attention_fwd {label} {what}: no padded row in the case")
+        rel_check(f"flash_attention_fwd {label} {what} lse", lse.masked_fill(empty, 0.0),
+                  lse_ref.masked_fill(empty, 0.0), tol_f)
+        err_b = max(rel_check(f"flash_attention_bwd {label} {what} {n}", a, b, tol_b)
+                    for n, a, b in zip(("dq", "dk", "dv"), grads, grads_ref))
+        stats.err("flash_attention_fwd", err_f)
+        stats.err("flash_attention_bwd", err_b)
+        stats.checked.add(("flash_attention", B, T, NH, KVH, Dh))
+
+        ms_f = cuda_ms(lambda i: fa.flash_attention_fwd(q, k, v, valid))
+        ms_b = cuda_ms(lambda i: fa.flash_attention_bwd(q, k, v, o_ref, dout, lse_ref, valid))
+        pms_f = cuda_ms(lambda i: fa.flash_attention_fwd_plain(q, k, v, valid), iters=3, warmup=1)
+        pms_b = cuda_ms(lambda i: fa.flash_causal_attention_bwd_plain(
+            q, k, v, o_ref, dout, lse_ref, valid), iters=3, warmup=1)
+        lib_f = lib_b = None
+        if pad is None:
+            # one PyTorch call for the same function (no padding mask): timed, never used
+            qt, kt_, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+            dot = dout.transpose(1, 2)
+            sdpa = lambda: F.scaled_dot_product_attention(qt, kt_, vt, is_causal=True,
+                                                          enable_gqa=True)
+            with torch.no_grad():
+                lib_f = cuda_ms(lambda i: sdpa())
+            out = sdpa()
+            lib_b = cuda_ms(lambda i: torch.autograd.grad(out, (qt, kt_, vt), dot,
+                                                          retain_graph=True))
+        # the (query, key) pairs this mask admits; 4 Dh operations a pair and head forward
+        # (scores and weighted sum), 2.5 times that backward
+        qpos = torch.arange(T, device=dev)
+        admitted = torch.ones((B, T), dtype=torch.bool, device=dev) if valid is None else valid
+        pairs = int(((qpos[None, :, None] >= qpos[None, None, :]) & admitted[:, None, :]).sum())
+        ops = 4.0 * pairs * NH * Dh
+        es = q.element_size()
+        io = (2 * q.numel() + 2 * k.numel()) * es + lse.numel() * 4
+        kind = "bf16" if dt == bf else "f32"
+        b_f, by_f = bound_ms(io, ops, kind)
+        b_b, by_b = bound_ms(io + (3 * q.numel() + 2 * k.numel()) * es, 2.5 * ops, kind)
+        if label == "7b":
+            shape = f"one layer: B={B} T={T}, {NH} / {KVH} heads, Dh {Dh}, bf16, causal"
+            stats.add("flash_attention_fwd", ms_f, pms_f, b_f, by_f, lib_f, shape)
+            stats.add("flash_attention_bwd", ms_b, pms_b, b_b, by_b, lib_b, shape)
+        lib = lambda x: "none" if x is None else f"{x:.4f}"
+        print(f"phase2 flash_attention_fwd {label} {what} max_abs_err={err_f:.3e} "
+              f"kernel_ms={ms_f:.4f} plain_ms={pms_f:.4f} bound_ms={b_f:.4f} ({by_f}) "
+              f"library_ms={lib(lib_f)}", flush=True)
+        print(f"phase2 flash_attention_bwd {label} {what} max_abs_err={err_b:.3e} "
+              f"kernel_ms={ms_b:.4f} plain_ms={pms_b:.4f} bound_ms={b_b:.4f} ({by_b}) "
+              f"library_ms={lib(lib_b)}", flush=True)
+
+
 # -- phases 3 and 4 --------------------------------------------------------------
 
 
@@ -459,6 +615,179 @@ def phase3(seed: int):
     torch.cuda.empty_cache()
 
 
+# -- training: phase 3 (tiny, card against CPU) and phase 5 (7B int4 QLoRA) ------------
+
+LOSS_PARTS = ("total", "lm", "video", "info", "relevance", "tv", "uncertainty")
+QLORA_DENSE = ("projector", "lm_head")
+
+
+def phase3_train(seed: int):
+    import numpy as np
+    import torch
+
+    from aha_tpu_torch.config import LoraConfig, TrainConfig
+    from aha_tpu_torch.models.aha import random_params
+    from aha_tpu_torch.ops import kernels
+    from aha_tpu_torch.train import trainer
+    from aha_tpu_torch.train.lora import init_lora
+
+    cfg, tok = _model("tiny")
+    batch, T = trainer.synthetic_batch(cfg, tok, np.random.default_rng(seed), n_frames=6, B=2)
+    tc = TrainConfig(learning_rate=1e-3, warmup_ratio=0.0, grad_accum_steps=1,
+                     remat_policy="full", lora=LoraConfig(dropout=0.0))
+    runs = {}
+    kernels.reset_launches()
+    for device in ("cuda", "cpu"):
+        # weights and adapters from the CPU's generator for both: a card's draws differ
+        params = random_params(cfg, mode="int4", keep_dense=QLORA_DENSE, device="cpu", seed=seed)
+        adapters = init_lora(cfg.llm, tc.lora, seed=seed, device="cpu")
+        state, tx, labels, scale = trainer.init_train_state(
+            cfg, tc, _to(params, device), total_steps=10, lora_init=_to(adapters, device),
+            device=device)
+        step = trainer.make_train_step(cfg, tc, tx, labels, scale, device=device)
+        parts = []
+        for _ in range(3):
+            state, p = step(state, batch)
+            parts.append([float(getattr(p, n)) for n in LOSS_PARTS])
+        runs[device] = (np.asarray(parts), {n: t.detach().float().cpu().numpy() for n, t in
+                                            trainer.trained_leaves(state.tree, labels).items()})
+    counts = dict(kernels.LAUNCHES)
+    L = cfg.llm.num_layers
+    # merged qkv and gate_up: four int4 products a layer, each run again in the replay
+    want = {"int4_matmul": 3 * 2 * 4 * L, "int4_matmul_t": 3 * 4 * L,
+            "flash_attention_fwd": 3 * 2 * L, "flash_attention_bwd": 3 * L}
+    if counts != want:
+        raise AssertionError(f"tiny train: launches {counts}, expected {want}")
+    (pg, lg), (pc, lc) = runs["cuda"], runs["cpu"]
+    err = float(np.abs(pg - pc).max())
+    if not np.isfinite(pg).all() or not err <= 1e-3:
+        raise AssertionError(f"tiny train: loss parts card vs CPU differ by {err:.3e} > 1e-3")
+    worst = 0.0
+    for name, a in lg.items():
+        rel = float(np.abs(a - lc[name]).max() / max(np.abs(lc[name]).max(), 1e-30))
+        worst = max(worst, rel)
+        if not rel <= 1e-3:
+            raise AssertionError(f"tiny train: trained leaf {name} card vs CPU differs by "
+                                 f"{rel:.3e} of its maximum > 1e-3")
+    if not np.abs(lg["lora/q_proj/b"]).max() > 0:
+        raise AssertionError("tiny train: the adapters did not move")
+    print(f"phase3 tiny int4 QLoRA train, 3 steps at B=2 T={T} remat=full card-vs-cpu: loss "
+          f"parts max_abs_err={err:.3e} (atol 1e-3), {len(lg)} trained leaves max_rel_err="
+          f"{worst:.3e} (1e-3 of each leaf's max); losses {[round(float(x), 4) for x in pg[:, 0]]}; "
+          f"launches {counts}", flush=True)
+
+
+def _checksum(t) -> int:
+    import torch
+
+    return int(t.view(torch.uint8).to(torch.int64).sum())
+
+
+def phase5(gpu: str, seed: int, stats: Stats):
+    import numpy as np
+    import torch
+
+    from aha_tpu_torch.config import TrainConfig
+    from aha_tpu_torch.models.aha import random_params
+    from aha_tpu_torch.ops import kernels
+    from aha_tpu_torch.train import trainer
+
+    cfg, tok = _model("7b")
+    L = cfg.llm.num_layers
+    batch, T = trainer.synthetic_batch(cfg, tok, np.random.default_rng(seed), n_frames=16)
+    if T != TRAIN_T:
+        raise AssertionError(f"7b train: the conversation has {T} tokens, phase 2 checked "
+                             f"{TRAIN_T}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = random_params(cfg, mode="int4", keep_dense=QLORA_DENSE, seed=seed)
+    tc = TrainConfig(learning_rate=1e-4, warmup_ratio=0.0, grad_accum_steps=1,
+                     remat_policy="full")
+    state, tx, labels, scale = trainer.init_train_state(cfg, tc, params, total_steps=100,
+                                                        seed=seed)
+    step = trainer.make_train_step(cfg, tc, tx, labels, scale)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    layers = params["llm"]["layers"]
+    frozen = {"qkv_proj q4value": layers["qkv_proj"]["kernel"]["q4value"],
+              "qkv_proj scale4": layers["qkv_proj"]["kernel"]["scale4"],
+              "embedding table": params["llm"]["embed"]["weight"]["qvalue"]}
+    sums = {n: _checksum(t) for n, t in frozen.items()}
+    n_trained = sum(t.numel() for t in trainer.trained_leaves(state.tree, labels).values())
+    want = {"int4_matmul": 2 * 4 * L, "int4_matmul_t": 4 * L, "flash_attention_fwd": 2 * L,
+            "flash_attention_bwd": L}
+
+    def timed_step():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, parts = step(state, batch)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3, float(parts.total), parts
+
+    losses, times = [], []
+    warm_ms, loss, _ = timed_step()                       # the kernels were built in phase 1
+    losses.append(loss)
+    peak_first = torch.cuda.max_memory_allocated()        # building the params, first step
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()                              # the training path starts here
+    for _ in range(5):
+        ms, loss, parts = timed_step()
+        times.append(ms)
+        losses.append(loss)
+    counts = dict(kernels.LAUNCHES)                       # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {n: c / 5 for n, c in counts.items()}
+    if per_step != want:
+        raise AssertionError(f"7b train: launches per step {per_step}, expected {want}")
+    stats.launches(counts)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"7b train: non-finite loss in {losses}")
+    if not losses[5] < losses[0]:
+        raise AssertionError(f"7b train: the loss did not fall on one batch: {losses}")
+    changed = [n for n, t in frozen.items() if _checksum(t) != sums[n]]
+    if changed:
+        raise AssertionError(f"7b train: frozen leaves changed: {changed}")
+    if not float(state.tree["lora"]["q_proj"]["b"].detach().abs().max()) > 0:
+        raise AssertionError("7b train: lora q_proj b is still zero")
+    med = float(np.median(times))
+    print(f"phase5 7b int4 QLoRA train [{gpu}] B=1 T={T} (16 frames) remat=full lora r=16 "
+          f"dropout=0.05 lr=1e-4: params + state {t_build:.2f}s, {n_trained / 1e6:.1f}M trained "
+          f"values; first step {warm_ms:.1f} ms; 5 steps median {med:.1f} ms (min "
+          f"{min(times):.1f}, max {max(times):.1f}) = {T / med * 1e3:.1f} tokens/s; "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB over the 5 steps ({peak_first / 2**30:.2f} "
+          f"GiB while building the params and in the first step); losses "
+          f"{[round(x, 4) for x in losses]}; last parts "
+          f"{ {n: round(float(getattr(parts, n)), 4) for n in LOSS_PARTS} }; launches per step "
+          f"{ {n: int(c) for n, c in per_step.items()} }; frozen checksums unchanged "
+          f"({', '.join(frozen)})", flush=True)
+
+    # the remat policies from the state as it stands, at learning rate 0 (the
+    # whole step runs, AdamW's arithmetic included, and leaves the trained values
+    # where they are) and at one step number, so that every policy draws the same
+    # masks: the losses agree to bf16 rounding. One step lets the allocator meet
+    # the policy's sizes, the second is timed.
+    still = trainer.AdamW(dataclasses.replace(tc, learning_rate=0.0), 100)
+    at_step = state.step
+    policy_loss = {}
+    for policy in ("full", "half", "none"):
+        step = trainer.make_train_step(cfg, dataclasses.replace(tc, remat_policy=policy), still,
+                                       labels, scale)
+        timed_step()
+        state.step = at_step
+        torch.cuda.reset_peak_memory_stats()
+        ms, policy_loss[policy], _ = timed_step()
+        state.step = at_step
+        print(f"phase5 remat={policy} [{gpu}] one step {ms:.1f} ms, max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, loss "
+              f"{policy_loss[policy]:.4f}", flush=True)
+    spread = max(policy_loss.values()) - min(policy_loss.values())
+    if not spread <= 1e-2:
+        raise AssertionError(f"7b train: remat policies disagree in loss: {policy_loss}")
+    del state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 class PassCounter:
     """Counts decoder passes (write passes and read-only verify passes) by
     wrapping the two functions the engine calls."""
@@ -496,9 +825,15 @@ class ShapeRecorder:
     def __init__(self):
         from aha_tpu_torch.ops import attention, quant
 
+        from aha_tpu_torch.ops.kernels import flash_attention, int4_matmul, int4_matmul_t
+
         self.seen = set()
         self.sites = [(quant, "int4_matmul"), (quant, "int8_matmul"), (quant, "quant_matmul"),
-                      (attention, "decode_attention")]
+                      (attention, "decode_attention"),
+                      # training: int4_qlinear's forward and backward, the flash Function's
+                      (int4_matmul, "int4_matmul"), (int4_matmul_t, "int4_matmul_t"),
+                      (flash_attention, "flash_attention_fwd"),
+                      (flash_attention, "flash_attention_bwd")]
         self.saved = [getattr(mod, name) for mod, name in self.sites]
 
     def _matmul(self, fn, name):
@@ -513,6 +848,12 @@ class ShapeRecorder:
             return fn(x, w, scale, a8=a8) if name != "quant_matmul" else fn(x, w, scale)
         return recorded
 
+    def _flash(self, fn):
+        def recorded(q, k, *a, **kw):
+            self.seen.add(("flash_attention", *q.shape[:3], k.shape[2], q.shape[3]))
+            return fn(q, k, *a, **kw)
+        return recorded
+
     def __enter__(self):
         for (mod, name), fn in zip(self.sites[:3], self.saved):
             setattr(mod, name, self._matmul(fn, name))
@@ -524,6 +865,16 @@ class ShapeRecorder:
             return attend(q, k, *a, **kw)
 
         setattr(mod, name, recorded_attention)
+        setattr(*self.sites[4], self._matmul(self.saved[4], "int4_matmul"))
+        transposed = self.saved[5]
+
+        def recorded_transposed(g, w, scale):
+            self.seen.add(("int4_matmul_t", g.numel() // g.shape[-1], 2 * w.shape[0], w.shape[1]))
+            return transposed(g, w, scale)
+
+        setattr(*self.sites[5], recorded_transposed)
+        for site, fn in zip(self.sites[6:], self.saved[6:]):
+            setattr(*site, self._flash(fn))
         return self
 
     def __exit__(self, *exc):
@@ -630,13 +981,17 @@ def verify_vs_sequential(sess, cfg, S: int = 8):
     return err, same
 
 
-def phase4(gpu: str, seed: int, stats: Stats, phase2_ran: bool):
+def phases_4_and_5(gpu: str, seed: int, stats: Stats, phases: set):
     """The 7B paths, then: every shape they gave a kernel was held against the
     plain version in phase 2."""
+    phase2_ran = 2 in phases
     with ShapeRecorder() as rec:
-        drive_7b_paths(gpu, seed, stats)
+        if 4 in phases:
+            drive_7b_paths(gpu, seed, stats)
+        if 5 in phases:
+            phase5(gpu, seed, stats)
     missing = sorted(rec.seen - stats.checked)
-    print(f"phase4 shapes handed to the kernels: {len(rec.seen)} distinct, "
+    print(f"phases 4-5 shapes handed to the kernels: {len(rec.seen)} distinct, "
           f"{len(missing)} not checked in phase 2"
           + ("" if phase2_ran else " (phase 2 did not run)"), flush=True)
     if phase2_ran and missing:
@@ -788,7 +1143,7 @@ def drive_7b_paths(gpu: str, seed: int, stats: Stats):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4")
+    ap.add_argument("--phases", default="1,2,3,4,5")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -826,11 +1181,24 @@ def main() -> int:
         check_matmuls(gen, stats)
         check_quantize_rows(gen, stats)
         check_attention(gen, stats)
+        check_int4_matmul_t(gen, stats)
+        check_flash_attention(gen, stats)
+        k = stats.k
+        L = 28
+        print(f"phase2 one decoder layer of a train step at T={TRAIN_T}, kernels alone: "
+              f"int4_matmul {stats.train_fwd_ms:.4f} ms, int4_matmul_t "
+              f"{k['int4_matmul_t']['ms']:.4f} ms, flash forward "
+              f"{k['flash_attention_fwd']['ms']:.4f} ms, flash backward "
+              f"{k['flash_attention_bwd']['ms']:.4f} ms; times the launches of a step at remat "
+              f"'full' over {L} layers (2, 1, 2, 1): "
+              f"{L * (2 * stats.train_fwd_ms + k['int4_matmul_t']['ms'] + 2 * k['flash_attention_fwd']['ms'] + k['flash_attention_bwd']['ms']):.1f} ms",
+              flush=True)
         torch.cuda.empty_cache()
     if 3 in phases:
         phase3(args.seed)
-    if 4 in phases:
-        phase4(gpu, args.seed, stats, 2 in phases)
+        phase3_train(args.seed)
+    if phases & {4, 5}:
+        phases_4_and_5(gpu, args.seed, stats, phases)
 
     print(f"{gpu}; chip_smoke took {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": [
@@ -840,7 +1208,7 @@ def main() -> int:
          "bound_ms": stats.k[n]["bound_ms"], "bound_by": stats.k[n]["bound_by"],
          "library_ms": stats.k[n]["library_ms"], "shape": stats.k[n]["shape"]}
         for n, (src, tpu) in KERNELS.items()]}), flush=True)
-    if phases != {1, 2, 3, 4}:
+    if phases != {1, 2, 3, 4, 5}:
         print(f"chip_smoke: ran phases {sorted(phases)} only", file=sys.stderr)
         return 1
     missing = [n for n in KERNELS if stats.k[n]["launches"] <= 0]

@@ -354,9 +354,9 @@ def test_build_session_refuses_what_is_not_ported(tiny):
 
 def test_port_runs_without_jax():
     """A fresh interpreter where importing jax, aha_tpu or any aha_tpu.*
-    module raises imports every module of the port and runs a tiny int4
-    session at the product widths on the CPU from seeded synthetic
-    params."""
+    module raises imports every module of the port (the training modules
+    with the rest) and runs a tiny int4 session at the product widths and one
+    int4 QLoRA train step on the CPU from seeded synthetic params."""
     code = textwrap.dedent(f"""
         import importlib.abc, sys
 
@@ -399,6 +399,22 @@ def test_port_runs_without_jax():
         rows = build_session(params, cfg, tok, InferConfig(grounding_mode=True),
                              device="cpu").score_video(np.zeros((6, 32, 32, 3), np.uint8))
         assert len(rows) == 6
+        assert "aha_tpu_torch.train.trainer" in sys.modules
+        assert "aha_tpu_torch.ops.kernels.flash_attention" in sys.modules
+        from aha_tpu_torch.config import TrainConfig
+        from aha_tpu_torch.train.trainer import init_train_state, make_train_step
+        qparams = random_params(cfg, mode="int4", keep_dense=("projector", "lm_head"),
+                                device="cpu", seed=0)
+        tc = TrainConfig(grad_accum_steps=1)
+        state, tx, labels, scale = init_train_state(cfg, tc, qparams, total_steps=4,
+                                                    device="cpu")
+        ids = np.array([tok.apply_chat_template([
+            {{"role": "stream", "num_frames": 2, "learn": True}},
+            {{"role": "assistant", "content": "ok", "learn": True}}])])
+        state, parts = make_train_step(cfg, tc, tx, labels, scale, device="cpu")(state, {{
+            "input_ids": ids, "labels": np.roll(ids, -1, 1).astype(np.int64),
+            "frames": np.zeros((2, 32, 32, 3), np.uint8)}})
+        assert state.step == 1 and np.isfinite(float(parts.total))
         bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "aha_tpu")]
         assert not bad, bad
         print("ok")
