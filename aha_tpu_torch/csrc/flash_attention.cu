@@ -17,37 +17,55 @@
 // one step of a sequential key grid to the next. Blocks of a GPU grid run in
 // no order and share nothing, so here a block owns 64 (position, head) rows of
 // one (batch, kv head), the rep query heads of a position side by side so that
-// they share each staged K / V tile, and loops over the 32-key tiles up to its
+// they share each staged K / V tile, and loops over the key tiles up to its
 // last position itself; the ragged last tile and the padding mask are masked
 // in the kernel, nothing is padded.
 //
-// Inside a block a warp owns 8 rows. Scores: a lane owns one key of the tile
-// and walks Dh in float4 steps, the 8 query rows broadcast from shared memory
-// (row stride Dh + 4 floats keeps the 16-byte loads of 8 lanes on 32 distinct
-// banks). Weighted sum: a lane owns the columns lane, lane + 32, .. of the
-// output and reads the probabilities back from shared memory, four keys per
-// 16-byte broadcast. All arithmetic is f32 on the CUDA cores, whatever the
-// storage type: the running maximum and sum per row live in registers, the
-// output is cast once.
-//
-// The backward is two kernels after the small delta pass, so that no sum
-// crosses blocks and no atomic is needed (the result is the same from run to
-// run): one shaped like the forward that owns query rows and produces dq, and
-// one that owns a tile of 32 keys, loops over the row tiles from its first
-// visible position on, and produces dk and dv (a warp owns 4 keys of the
-// tile, a lane the columns lane, lane + 32, ..). The price is that the scores
-// and do.v are computed twice: 7 tile products instead of the 5 a fused
-// backward with atomics on dq would need.
-//
 // What bounds it on an H100: operations. At T = 926, 28 heads, Dh 128 the
 // forward is 4 * NH * T^2 * Dh / 2 = 6.1 GFLOP over 15 MB, far right of the
-// roofline's ridge; on the CUDA cores it cannot pass 67 TFLOP/s, and the tensor
-// cores (mma.sync, then wgmma) are the next step.
+// roofline's ridge (295 operations a byte in bf16), so the products belong on
+// the tensor cores, and what is left beside them (one exponential per score,
+// the copies' address arithmetic) decides the time.
+//
+// bf16 with Dh 128, the 7B's shape, runs on wgmma (section "the tensor-core
+// path" below): bf16 tiles as stored, copied by cp.async into a two-stage ring
+// of 128-byte-swizzled tiles of 64 keys, both products of each kernel as
+// m64n64k16 warpgroup products with f32 accumulators, the first from two tiles
+// in shared memory, the second with the rounded accumulator of the first as
+// its register operand and the other tile read transposed through its
+// descriptor. Softmax state lives in registers, reductions are shuffles within
+// a quad, exponentials are ex2.approx with scale * log2(e) folded into one FMA,
+// only the diagonal tile and tiles with padded keys are masked, the blocks that
+// see the most keys start first. A first version on mma.sync m16n8k16 with
+// ldmatrix (16 rows a warp) was built and measured before this one; wgmma with
+// the copies' offsets hoisted out of the loop took the forward at T = 926 from
+// 0.056 to 0.031 ms and the backward from 0.163 to 0.107 ms (NVIDIA H100 80GB
+// HBM3, 700 W), so the mma.sync kernels were dropped. Not done: TMA with a
+// producer warp, two warpgroups that alternate on the tensor cores, 128-row
+// blocks (with 64 rows at T = 4096 the copies from L2 are near its rate).
+//
+// The backward is the small delta pass, a dq kernel shaped like the forward,
+// and a dk / dv kernel that owns a key tile; no sum crosses blocks out of order
+// and no atomic is used, so the result is the same from run to run. The price
+// is that the scores and do v^T are computed twice: 7 tile products instead of
+// the 5 a fused backward with atomics on dq would need. The dk / dv work of a
+// key tile is split over the query heads of its kv head (f32 partials in
+// scratch, then a fixed-order sum), which makes 420 blocks of even length
+// where 60 would leave half the card idle.
+//
+// f32 storage (the tiny preset trains in f32 and is held at 1e-4; tensor cores
+// would make it TF32) and bf16 with Dh 16 keep f32 arithmetic on the CUDA cores
+// (first section): a block of 8 warps owns 64 rows, a warp 8 of them, a lane one
+// key of a 32-key tile for the scores and the columns lane, lane + 32, .. for
+// the weighted sums; tiles are staged as f32, the probabilities pass through
+// shared memory. The entry points choose by dtype and head size.
 #include <math.h>
 
 #include "common.cuh"
 
 namespace {
+
+// ---- f32 storage, and bf16 with Dh 16: f32 arithmetic on the CUDA cores ----------------------
 
 constexpr int kRows = 64;      // (position, head) rows per block
 constexpr int kKeys = 32;      // keys per tile: one per lane
@@ -245,7 +263,16 @@ flash_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   const T* a = o + row * DH;
   const T* c = dout + row * DH;
   float s = 0.f;
-  for (int d = lane; d < DH; d += 32) s += to_f32(a[d]) * to_f32(c[d]);
+  if (DH % 128 == 0) {
+    for (int d = lane * 4; d < DH; d += 128) {
+      float x[4], y[4];
+      load4(a + d, x);
+      load4(c + d, y);
+      s += x[0] * y[0] + x[1] * y[1] + x[2] * y[2] + x[3] * y[3];
+    }
+  } else {
+    for (int d = lane; d < DH; d += 32) s += to_f32(a[d]) * to_f32(c[d]);
+  }
   s = warp_sum(s);
   if (lane == 0) {
     const int head = static_cast<int>(row % NH);
@@ -523,15 +550,778 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
+// ---- bf16, Dh 128: the tensor-core path (wgmma) -----------------------------------------
+//
+// A block is one warpgroup (4 warps) that owns 64 rows of a product; warp w
+// holds rows 16 w .. 16 w + 15 of every accumulator, a thread rows gid and
+// gid + 8 (gid = lane / 4) and, of each group of 8 columns, columns 2 tig and
+// 2 tig + 1 (tig = lane % 4): accumulator element 4 j + e is row gid + 8 (e / 2),
+// column 8 j + 2 tig + e % 2. An accumulator rounded to bf16 is, register for
+// register, the A operand of the next product.
+//
+// A tile is 64 rows of 128 bf16 as stored, kept as two halves of 64 columns
+// (8 KB each): rows of 128 bytes in groups of 8 (1024 bytes), the 16-byte chunk
+// c of row r at chunk c ^ (r & 7) of its row. That is the 128-byte swizzle a
+// wgmma matrix descriptor names, so the tensor cores read a tile either with
+// its columns as the contraction (q k^T, do v^T) or, transposed, with its rows
+// as the contraction (p v, ds k, p^T do, ds^T q), without bank conflicts and
+// without a transposed copy. Tiles arrive by cp.async, 16 bytes a thread,
+// zero-filled past the end of the sequence; tile bases are 1024-byte aligned.
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+typedef unsigned long long u64;
+
+constexpr int kDh = 128;                   // head size of this path
+constexpr int kTile = 64;                  // rows, keys or positions per tile
+constexpr int kWgThreads = 128;              // one warpgroup
+constexpr int kHalfBytes = kTile * 128;    // 64 columns of a tile
+constexpr int kTileBytes = 2 * kHalfBytes;
+constexpr int kAlignSlack = 1024;          // room to align the dynamic shared memory
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr u64 kAllKeys = ~0ull;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ unsigned char* align_tiles(unsigned char* smem) {
+  return smem + ((kAlignSlack - (smem_addr(smem) & (kAlignSlack - 1))) & (kAlignSlack - 1));
+}
+// byte offset of the 16-byte chunk c (0 .. 15) of row r in a tile
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return static_cast<uint32_t>((c >> 3) * kHalfBytes + r * 128 + (((c & 7) ^ (r & 7)) << 4));
+}
+// 16 (or 4) bytes global -> shared, asynchronously; zeros where !ok (src stays a valid address)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  const int n = ok ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n));
+}
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool ok) {
+  const int n = ok ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// this thread's copies have landed; after the barrier that follows, everyone's,
+// and the tensor cores' proxy sees them
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A tile whose rows are any rows of device memory: row_ptr(r, ok) gives row r's
+// address and whether it exists. For what a block loads once.
+template <typename F>
+__device__ __forceinline__ void load_tile_async(unsigned char* dst, F row_ptr) {
+  const uint32_t base = smem_addr(dst);
+#pragma unroll
+  for (int i = 0; i < kTile * 16 / kWgThreads; ++i) {
+    const int idx = threadIdx.x + i * kWgThreads, r = idx >> 4, c = idx & 15;
+    bool ok;
+    const bf16* src = row_ptr(r, ok);
+    cp_async16(base + swz(r, c), src + c * 8, ok);
+  }
+}
+// rows R0 .. R0 + 63 of group g (row R: position R / rep, head g * rep + R % rep)
+__device__ __forceinline__ void load_group_rows(unsigned char* dst, const bf16* __restrict__ src,
+                                                int b, int g, int R0, int nrows, int rep, int Tn,
+                                                int NH) {
+  load_tile_async(dst, [&](int r, bool& ok) {
+    const int R = R0 + r;
+    ok = R < nrows;
+    const int Rc = ok ? R : 0;
+    return src + (static_cast<size_t>(b * Tn + Rc / rep) * NH + g * rep + Rc % rep) * kDh;
+  });
+}
+
+// One thread's share of the copy of a tile whose 64 rows lie `stride` elements
+// apart in device memory: chunk tid % 16 of rows tid / 16 + 8 i. The offsets
+// are computed once a kernel; a tile in the loop then costs a cp.async and an
+// add a row, with predicates only where the tile crosses the end.
+struct TileCopy {
+  static constexpr int kStep = kWgThreads / 16;   // 8: r & 7 is the same in every pass
+  size_t src_off, src_step;
+  uint32_t dst_off;
+  int r0;
+  __device__ __forceinline__ explicit TileCopy(size_t stride) {
+    const int c = threadIdx.x & 15;
+    r0 = threadIdx.x >> 4;
+    src_off = r0 * stride + c * 8;
+    src_step = kStep * stride;
+    dst_off = swz(r0, c);
+  }
+  // src: row 0 of the tile; rows: how many of its 64 rows exist
+  __device__ __forceinline__ void operator()(unsigned char* tile, const bf16* src, int rows) const {
+    const bf16* p = src + src_off;
+    const uint32_t dst = smem_addr(tile) + dst_off;
+    if (rows >= kTile) {
+#pragma unroll
+      for (int i = 0; i < kTile / kStep; ++i) cp_async16(dst + i * kStep * 128, p + i * src_step);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kTile / kStep; ++i) {
+        const bool ok = r0 + i * kStep < rows;
+        cp_async16(dst + i * kStep * 128, ok ? p + i * src_step : src, ok);
+      }
+    }
+  }
+};
+
+// bit i: key k0 + i exists and is no padding (one warp, all lanes)
+__device__ __forceinline__ u64 key_mask(const uint8_t* __restrict__ key_valid, int b, int k0,
+                                        int Tn, int lane) {
+  if (key_valid == nullptr && k0 + kTile <= Tn) return kAllKeys;
+  const int ka = k0 + lane, kb = ka + 32;
+  const bool va = ka < Tn && (key_valid == nullptr || key_valid[static_cast<size_t>(b) * Tn + ka]);
+  const bool vb = kb < Tn && (key_valid == nullptr || key_valid[static_cast<size_t>(b) * Tn + kb]);
+  const unsigned lo = __ballot_sync(0xffffffffu, va), hi = __ballot_sync(0xffffffffu, vb);
+  return (static_cast<u64>(hi) << 32) | lo;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+// 2^x as one ex2.approx (2 ulp; -inf gives 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// ---- wgmma ---------------------------------------------------------------------------
+
+// descriptor of a tile (or of a part that starts `addr` into it): 128-byte
+// swizzle, groups of 8 rows 1024 bytes apart
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) | (static_cast<uint64_t>(1024 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// pins an accumulator between the asynchronous products and the code around them
+__device__ __forceinline__ void keep(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// d [64 x 64] (+)= A [64 x 16] B [16 x 64], both from shared memory with the
+// contraction contiguous (A: 64 rows, B: 64 rows of the n index)
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+// d [64 x 64] += A [64 x 16] (registers) B [16 x 64], B from shared memory with
+// the n index contiguous (16 rows of the contraction index)
+__device__ __forceinline__ void wgmma_rs_t(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+// s [64 x 64] = A B^T over the 128 columns of two tiles (rows of A: the output's
+// rows; rows of B: its columns); started, not waited for
+__device__ __forceinline__ void wg_products_nt(float (&s)[32], const unsigned char* a,
+                                               const unsigned char* b) {
+  const uint32_t at = smem_addr(a), bt = smem_addr(b);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const uint32_t off = (kk >> 2) * kHalfBytes + (kk & 3) * 32;
+    wgmma_ss(s, wg_desc(at + off), wg_desc(bt + off), kk != 0);
+  }
+}
+// acc [64 x 128] (lo: columns 0 .. 63, hi: 64 .. 127) += P B with P [64 x 64] in
+// A fragments and B a tile whose 64 rows are the contraction; started, not waited for
+__device__ __forceinline__ void wg_products_pn(float (&lo)[32], float (&hi)[32],
+                                               const uint32_t (&pa)[4][4], const unsigned char* b) {
+  const uint32_t bt = smem_addr(b);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wgmma_rs_t(lo, pa[kk], wg_desc(bt + kk * 16 * 128));
+    wgmma_rs_t(hi, pa[kk], wg_desc(bt + kHalfBytes + kk * 16 * 128));
+  }
+}
+// an accumulator [64 x 64] rounded to bf16 as the A fragments of the next product
+__device__ __forceinline__ void wg_round(uint32_t (&pa)[4][4], const float (&s)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) pa[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+}
+
+// s, where the mask hides a key from a row, becomes `hidden`. Rows: this
+// thread's, at positions pos_a and pos_b; columns: keys k0 .. k0 + 63, km their
+// validity bits.
+__device__ __forceinline__ void mask_scores(float (&s)[32], u64 km, int k0, int pos_a, int pos_b,
+                                            int tig, float hidden) {
+  const u64 mine = km >> (2 * tig);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = k0 + 8 * j + 2 * tig + (e & 1);
+      const bool vis = ((mine >> (8 * j + (e & 1))) & 1ull) && key <= (e < 2 ? pos_a : pos_b);
+      s[4 * j + e] = vis ? s[4 * j + e] : hidden;
+    }
+}
+
+// A warp's 16 finished rows (lo: columns 0 .. 63, hi: 64 .. 127; rows gid and
+// gid + 8 times f0 and f1): through its own rows of the consumed query tile and
+// out to dst [B, T, NH, 128] in 16-byte stores
+__device__ __forceinline__ void store_group_rows(unsigned char* qs, const float (&lo)[32],
+                                                 const float (&hi)[32], float f0, float f1,
+                                                 bf16* __restrict__ dst, int b, int g, int R0,
+                                                 int nrows, int rep, int Tn, int NH) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3, row0 = warp * 16;
+  __syncthreads();   // every warp's products have read the query tile
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    unsigned char* a = qs + swz(row0 + gid, j) + tig * 4;
+    unsigned char* c = qs + swz(row0 + gid + 8, j) + tig * 4;
+    *reinterpret_cast<uint32_t*>(a) = pack_bf16(lo[4 * j] * f0, lo[4 * j + 1] * f0);
+    *reinterpret_cast<uint32_t*>(c) = pack_bf16(lo[4 * j + 2] * f1, lo[4 * j + 3] * f1);
+    *reinterpret_cast<uint32_t*>(a + kHalfBytes) = pack_bf16(hi[4 * j] * f0, hi[4 * j + 1] * f0);
+    *reinterpret_cast<uint32_t*>(c + kHalfBytes) = pack_bf16(hi[4 * j + 2] * f1, hi[4 * j + 3] * f1);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int idx = lane + 32 * i, r = row0 + (idx >> 4), c = idx & 15, R = R0 + r;
+    if (R < nrows)
+      *reinterpret_cast<uint4*>(
+          dst + (static_cast<size_t>(b * Tn + R / rep) * NH + g * rep + R % rep) * kDh + c * 8) =
+          *reinterpret_cast<const uint4*>(qs + swz(r, c));
+  }
+}
+
+// ---- forward -------------------------------------------------------------------------
+//
+// A block owns 64 (position, head) rows of one (batch, kv head) and walks the
+// 64-key tiles up to its last position: s = q k(t)^T, online softmax in
+// registers, o += p v(t). K runs one tile ahead of V in the two-stage ring, so
+// that q k(t)^T and p(t - 1) v(t - 1) are in the tensor cores together and the
+// exponentials of tile t are taken beside the second.
+
+constexpr int fwd_smem_bytes() { return 5 * kTileBytes + 16 + kAlignSlack; }
+
+__global__ void __launch_bounds__(kWgThreads)
+flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const uint8_t* __restrict__ key_valid,
+                       bf16* __restrict__ o, float* __restrict__ lse, int Tn, int NH, int KVH,
+                       float scale) {
+  extern __shared__ __align__(128) unsigned char smem_tc[];
+  unsigned char* qs = align_tiles(smem_tc);
+  unsigned char* ks = qs + kTileBytes;       // two stages
+  unsigned char* vs = ks + 2 * kTileBytes;   // two stages
+  u64* kmask = reinterpret_cast<u64*>(vs + 2 * kTileBytes);   // [2]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+  const int rep = NH / KVH, g = blockIdx.y, b = blockIdx.z, nrows = Tn * rep;
+  // the last rows see the most keys: their blocks start first
+  const int R0 = (gridDim.x - 1 - blockIdx.x) * kTile, row0 = warp * 16;
+  const int ntiles = min(Tn - 1, (R0 + kTile - 1) / rep) / kTile + 1;
+  const float sl2 = scale * kLog2e;
+
+  const TileCopy copy(static_cast<size_t>(KVH) * kDh);
+  const size_t kv0 = (static_cast<size_t>(b) * Tn * KVH + g) * kDh;   // key 0 of this kv head
+  auto load_keys = [&](const bf16* src, unsigned char* stages, int t) {
+    copy(stages + (t & 1) * kTileBytes, src + kv0 + static_cast<size_t>(t) * kTile * KVH * kDh,
+         Tn - t * kTile);
+  };
+  auto load_k = [&](int t) {
+    load_keys(k, ks, t);
+    if (warp == 0) {
+      const u64 m = key_mask(key_valid, b, t * kTile, Tn, lane);
+      if (lane == 0) kmask[t & 1] = m;
+    }
+  };
+  load_group_rows(qs, q, b, g, R0, nrows, rep, Tn, NH);
+  load_k(0);
+  cp_async_commit();
+
+  // this thread's two rows; a row past the end takes the last position and is never written
+  const int Ra = R0 + row0 + gid, Rb = Ra + 8;
+  const int pos_a = min(Ra, nrows - 1) / rep, pos_b = min(Rb, nrows - 1) / rep;
+  const int warp_first = min(R0 + row0, nrows - 1) / rep;
+
+  float o_lo[32], o_hi[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o_lo[i] = o_hi[i] = 0.f;
+  // running maxima (of the unscaled scores) and this thread's share of the row sums
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+  uint32_t pa[4][4];
+
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait_all();
+    __syncthreads();   // k(t) and v(t - 1) have arrived; k(t - 1) and v(t - 2) are consumed
+    if (t + 1 < ntiles) load_k(t + 1);
+    load_keys(v, vs, t);
+    cp_async_commit();
+
+    float s[32];
+    wg_fence();
+    wg_products_nt(s, qs, ks + (t & 1) * kTileBytes);
+    wg_commit();
+    if (t > 0) {
+      wg_products_pn(o_lo, o_hi, pa, vs + ((t - 1) & 1) * kTileBytes);
+      wg_commit();
+      wg_wait<1>();
+    } else {
+      wg_wait<0>();
+    }
+    keep(s);
+
+    // masked only on the diagonal and where keys are padding or past the end
+    const int k0 = t * kTile;
+    const u64 km = kmask[t & 1];
+    if (km != kAllKeys || k0 + kTile - 1 > warp_first)
+      mask_scores(s, km, k0, pos_a, pos_b, tig, -INFINITY);
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      mx_a = fmaxf(mx_a, fmaxf(s[4 * j], s[4 * j + 1]));
+      mx_b = fmaxf(mx_b, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+    const float mn_a = fmaxf(m_a, quad_max(mx_a)), mn_b = fmaxf(m_b, quad_max(mx_b));
+    // p = 2^(s sl2 - m sl2); while a row has seen no key its maximum stays -inf: subtract 0
+    const float mu_a = mn_a == -INFINITY ? 0.f : mn_a * sl2;
+    const float mu_b = mn_b == -INFINITY ? 0.f : mn_b * sl2;
+    const float al_a = fast_exp2(m_a * sl2 - mu_a), al_b = fast_exp2(m_b * sl2 - mu_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s[4 * j] = fast_exp2(fmaf(s[4 * j], sl2, -mu_a));
+      s[4 * j + 1] = fast_exp2(fmaf(s[4 * j + 1], sl2, -mu_a));
+      s[4 * j + 2] = fast_exp2(fmaf(s[4 * j + 2], sl2, -mu_b));
+      s[4 * j + 3] = fast_exp2(fmaf(s[4 * j + 3], sl2, -mu_b));
+      sum_a += s[4 * j] + s[4 * j + 1];
+      sum_b += s[4 * j + 2] + s[4 * j + 3];
+    }
+    l_a = l_a * al_a + sum_a;
+    l_b = l_b * al_b + sum_b;
+
+    wg_wait<0>();      // p(t - 1) v(t - 1) is in o
+    keep(o_lo);
+    keep(o_hi);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      o_lo[4 * j] *= al_a; o_lo[4 * j + 1] *= al_a; o_lo[4 * j + 2] *= al_b; o_lo[4 * j + 3] *= al_b;
+      o_hi[4 * j] *= al_a; o_hi[4 * j + 1] *= al_a; o_hi[4 * j + 2] *= al_b; o_hi[4 * j + 3] *= al_b;
+    }
+    wg_round(pa, s);   // p, rounded to bf16, is the A operand of p v
+  }
+  cp_async_wait_all();
+  __syncthreads();     // the last v has arrived
+  keep(o_lo);
+  keep(o_hi);
+  wg_fence();
+  wg_products_pn(o_lo, o_hi, pa, vs + ((ntiles - 1) & 1) * kTileBytes);
+  wg_commit();
+  wg_wait<0>();
+  keep(o_lo);
+  keep(o_hi);
+
+  l_a = quad_sum(l_a);
+  l_b = quad_sum(l_b);
+  if (tig == 0) {
+    if (Ra < nrows)
+      lse[(static_cast<size_t>(b) * NH + g * rep + Ra % rep) * Tn + pos_a] =
+          l_a > 0.f ? m_a * scale + logf(l_a) : -INFINITY;
+    if (Rb < nrows)
+      lse[(static_cast<size_t>(b) * NH + g * rep + Rb % rep) * Tn + pos_b] =
+          l_b > 0.f ? m_b * scale + logf(l_b) : -INFINITY;
+  }
+  store_group_rows(qs, o_lo, o_hi, l_a > 0.f ? 1.f / l_a : 0.f, l_b > 0.f ? 1.f / l_b : 0.f, o, b,
+                   g, R0, nrows, rep, Tn, NH);
+}
+
+// ---- backward: dq ----------------------------------------------------------------------
+//
+// The forward's shape: a block owns 64 rows with their q and do, and per key
+// tile computes s = q k^T and dp = do v^T, p = 2^((s scale - lse) log2 e),
+// ds = p (dp - delta) in registers, and dq += ds k with K read transposed.
+
+constexpr int dq_smem_bytes() { return 6 * kTileBytes + 16 + kAlignSlack; }
+
+__global__ void __launch_bounds__(kWgThreads)
+flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const uint8_t* __restrict__ key_valid,
+                          const bf16* __restrict__ dout, const float* __restrict__ lse,
+                          const float* __restrict__ delta, bf16* __restrict__ dq, int Tn, int NH,
+                          int KVH, float scale) {
+  extern __shared__ __align__(128) unsigned char smem_tc[];
+  unsigned char* qs = align_tiles(smem_tc);
+  unsigned char* dos = qs + kTileBytes;
+  unsigned char* ks = dos + kTileBytes;      // two stages
+  unsigned char* vs = ks + 2 * kTileBytes;   // two stages
+  u64* kmask = reinterpret_cast<u64*>(vs + 2 * kTileBytes);   // [2]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+  const int rep = NH / KVH, g = blockIdx.y, b = blockIdx.z, nrows = Tn * rep;
+  const int R0 = (gridDim.x - 1 - blockIdx.x) * kTile, row0 = warp * 16;
+  const int ntiles = min(Tn - 1, (R0 + kTile - 1) / rep) / kTile + 1;
+  const float sl2 = scale * kLog2e;
+
+  const TileCopy copy(static_cast<size_t>(KVH) * kDh);
+  const size_t kv0 = (static_cast<size_t>(b) * Tn * KVH + g) * kDh;
+  auto load_kv = [&](int t) {
+    const size_t at = kv0 + static_cast<size_t>(t) * kTile * KVH * kDh;
+    copy(ks + (t & 1) * kTileBytes, k + at, Tn - t * kTile);
+    copy(vs + (t & 1) * kTileBytes, v + at, Tn - t * kTile);
+    if (warp == 0) {
+      const u64 m = key_mask(key_valid, b, t * kTile, Tn, lane);
+      if (lane == 0) kmask[t & 1] = m;
+    }
+    cp_async_commit();
+  };
+  load_group_rows(qs, q, b, g, R0, nrows, rep, Tn, NH);
+  load_group_rows(dos, dout, b, g, R0, nrows, rep, Tn, NH);
+  load_kv(0);
+
+  const int Ra = R0 + row0 + gid, Rb = Ra + 8;
+  const int pos_a = min(Ra, nrows - 1) / rep, pos_b = min(Rb, nrows - 1) / rep;
+  const int warp_first = min(R0 + row0, nrows - 1) / rep;
+  // lse in units of log 2, and delta; a row past the end gets 0 and 0
+  float lse_a = 0.f, lse_b = 0.f, dl_a = 0.f, dl_b = 0.f;
+  if (Ra < nrows) {
+    const size_t at = (static_cast<size_t>(b) * NH + g * rep + Ra % rep) * Tn + pos_a;
+    lse_a = lse[at] * kLog2e;
+    dl_a = delta[at];
+  }
+  if (Rb < nrows) {
+    const size_t at = (static_cast<size_t>(b) * NH + g * rep + Rb % rep) * Tn + pos_b;
+    lse_b = lse[at] * kLog2e;
+    dl_b = delta[at];
+  }
+
+  float dq_lo[32], dq_hi[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq_lo[i] = dq_hi[i] = 0.f;
+
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait_all();
+    wg_wait<0>();      // ds(t - 1) k(t - 1) has read its stage
+    __syncthreads();
+    if (t + 1 < ntiles) load_kv(t + 1);
+    const unsigned char* kt = ks + (t & 1) * kTileBytes;
+
+    float s[32], dp[32];
+    keep(dq_lo);
+    keep(dq_hi);
+    wg_fence();
+    wg_products_nt(s, qs, kt);                              // s = q k^T
+    wg_products_nt(dp, dos, vs + (t & 1) * kTileBytes);     // dp = do v^T
+    wg_commit();
+    wg_wait<0>();
+    keep(s);
+    keep(dp);
+
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s[4 * j] = fast_exp2(fmaf(s[4 * j], sl2, -lse_a));
+      s[4 * j + 1] = fast_exp2(fmaf(s[4 * j + 1], sl2, -lse_a));
+      s[4 * j + 2] = fast_exp2(fmaf(s[4 * j + 2], sl2, -lse_b));
+      s[4 * j + 3] = fast_exp2(fmaf(s[4 * j + 3], sl2, -lse_b));
+    }
+    const int k0 = t * kTile;
+    const u64 km = kmask[t & 1];
+    if (km != kAllKeys || k0 + kTile - 1 > warp_first)
+      mask_scores(s, km, k0, pos_a, pos_b, tig, 0.f);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s[4 * j] *= dp[4 * j] - dl_a;
+      s[4 * j + 1] *= dp[4 * j + 1] - dl_a;
+      s[4 * j + 2] *= dp[4 * j + 2] - dl_b;
+      s[4 * j + 3] *= dp[4 * j + 3] - dl_b;
+    }
+    uint32_t da[4][4];
+    wg_round(da, s);   // ds, rounded to bf16, is the A operand of ds k
+    wg_fence();
+    wg_products_pn(dq_lo, dq_hi, da, kt);
+    wg_commit();
+  }
+  wg_wait<0>();
+  keep(dq_lo);
+  keep(dq_hi);
+  store_group_rows(qs, dq_lo, dq_hi, scale, scale, dq, b, g, R0, nrows, rep, Tn, NH);
+}
+
+// ---- backward: dk and dv -------------------------------------------------------------------
+//
+// A block owns 64 keys of one kv head and ONE of the rep query heads that read
+// them (grid: key tiles x NH x B; the first key tile, which every position
+// sees, starts first), a warp 16 of the keys. It walks the tiles of 64
+// positions from the diagonal on, q and do of its head arriving through the
+// two-stage ring, computes the transposed s^T = k q^T and dp^T = v do^T, and
+// dv += p^T do, dk += ds^T q with the position tiles read transposed. Its f32
+// partial dk and dv go to scratch [2, B, T, NH, 128]; flash_bwd_sum_heads adds
+// the rep partials of a kv head in a fixed order. 420 even blocks at T = 926
+// where a block per (key tile, kv head) would be 60.
+
+constexpr int dkv_smem_bytes() { return 6 * kTileBytes + 4 * kTile * 4 + 16 + kAlignSlack; }
+
+__global__ void __launch_bounds__(kWgThreads)
+flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, const uint8_t* __restrict__ key_valid,
+                           const bf16* __restrict__ dout, const float* __restrict__ lse,
+                           const float* __restrict__ delta, float* __restrict__ part_dk,
+                           float* __restrict__ part_dv, int Tn, int NH, int KVH, float scale) {
+  extern __shared__ __align__(128) unsigned char smem_tc[];
+  unsigned char* ks = align_tiles(smem_tc);
+  unsigned char* vs = ks + kTileBytes;
+  unsigned char* qs = vs + kTileBytes;             // two stages
+  unsigned char* dos = qs + 2 * kTileBytes;        // two stages
+  float* lse_s = reinterpret_cast<float*>(dos + 2 * kTileBytes);   // [2][64]
+  float* delta_s = lse_s + 2 * kTile;                              // [2][64]
+  u64* kmask = reinterpret_cast<u64*>(delta_s + 2 * kTile);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+  const int rep = NH / KVH, h = blockIdx.y, g = h / rep, b = blockIdx.z;
+  const int tile0 = blockIdx.x, k0 = tile0 * kTile, key0 = warp * 16;
+  const int ntiles = (Tn + kTile - 1) / kTile;
+  const float sl2 = scale * kLog2e;
+
+  const TileCopy copy_rows(static_cast<size_t>(NH) * kDh);
+  const size_t head0 = (static_cast<size_t>(b) * Tn * NH + h) * kDh;   // position 0 of head h
+  auto load_rows = [&](int t) {
+    const int st = t & 1, p0 = t * kTile;
+    const size_t at = head0 + static_cast<size_t>(p0) * NH * kDh;
+    copy_rows(qs + st * kTileBytes, q + at, Tn - p0);
+    copy_rows(dos + st * kTileBytes, dout + at, Tn - p0);
+    // lse and delta of the tile's positions; zeros past the end
+    const int r = threadIdx.x & (kTile - 1);
+    const bool ok = p0 + r < Tn;
+    const size_t ld = (static_cast<size_t>(b) * NH + h) * Tn + (ok ? p0 + r : 0);
+    if (threadIdx.x < kTile) cp_async4(smem_addr(lse_s + st * kTile + r), lse + ld, ok);
+    else cp_async4(smem_addr(delta_s + st * kTile + r), delta + ld, ok);
+    cp_async_commit();
+  };
+  {
+    const TileCopy copy_keys(static_cast<size_t>(KVH) * kDh);
+    const size_t at = (static_cast<size_t>(b * Tn + k0) * KVH + g) * kDh;
+    copy_keys(ks, k + at, Tn - k0);
+    copy_keys(vs, v + at, Tn - k0);
+  }
+  if (warp == 0) {
+    const u64 m = key_mask(key_valid, b, k0, Tn, lane);
+    if (lane == 0) kmask[0] = m;
+  }
+  load_rows(tile0);
+
+  float dk_lo[32], dk_hi[32], dv_lo[32], dv_hi[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk_lo[i] = dk_hi[i] = dv_lo[i] = dv_hi[i] = 0.f;
+
+  for (int t = tile0; t < ntiles; ++t) {
+    cp_async_wait_all();
+    wg_wait<0>();      // the products of tile t - 1 have read their stage
+    __syncthreads();
+    if (t + 1 < ntiles) load_rows(t + 1);
+    const int st = t & 1, p0 = t * kTile;
+    const unsigned char* qt = qs + st * kTileBytes;
+    const unsigned char* dot = dos + st * kTileBytes;
+    const float* lse_t = lse_s + st * kTile;
+    const float* delta_t = delta_s + st * kTile;
+
+    // transposed: rows are this block's keys, columns the tile's positions
+    float s[32], dp[32];
+    keep(dk_lo);
+    keep(dk_hi);
+    keep(dv_lo);
+    keep(dv_hi);
+    wg_fence();
+    wg_products_nt(s, ks, qt);      // s^T = k q^T
+    wg_products_nt(dp, vs, dot);    // dp^T = v do^T
+    wg_commit();
+    wg_wait<0>();
+    keep(s);
+    keep(dp);
+
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_t + 8 * j + 2 * tig);
+      const float lx = l2.x * kLog2e, ly = l2.y * kLog2e;
+      s[4 * j] = fast_exp2(fmaf(s[4 * j], sl2, -lx));
+      s[4 * j + 1] = fast_exp2(fmaf(s[4 * j + 1], sl2, -ly));
+      s[4 * j + 2] = fast_exp2(fmaf(s[4 * j + 2], sl2, -lx));
+      s[4 * j + 3] = fast_exp2(fmaf(s[4 * j + 3], sl2, -ly));
+    }
+    // masked only on the diagonal and where this block's keys are padding or past the end
+    const u64 km = kmask[0];
+    if (km != kAllKeys || t == tile0) {
+      const bool vis_a = (km >> (key0 + gid)) & 1ull, vis_b = (km >> (key0 + gid + 8)) & 1ull;
+      const int key_a = k0 + key0 + gid;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int pos = p0 + 8 * j + 2 * tig + (e & 1);
+          const bool vis = e < 2 ? vis_a && key_a <= pos : vis_b && key_a + 8 <= pos;
+          s[4 * j + e] = vis ? s[4 * j + e] : 0.f;
+        }
+    }
+    uint32_t pa[4][4], da[4][4];
+    wg_round(pa, s);   // p^T, rounded to bf16
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 d2 = *reinterpret_cast<const float2*>(delta_t + 8 * j + 2 * tig);
+      s[4 * j] *= dp[4 * j] - d2.x;
+      s[4 * j + 1] *= dp[4 * j + 1] - d2.y;
+      s[4 * j + 2] *= dp[4 * j + 2] - d2.x;
+      s[4 * j + 3] *= dp[4 * j + 3] - d2.y;
+    }
+    wg_round(da, s);   // ds^T, rounded to bf16
+    wg_fence();
+    wg_products_pn(dv_lo, dv_hi, pa, dot);   // dv += p^T do
+    wg_products_pn(dk_lo, dk_hi, da, qt);    // dk += ds^T q
+    wg_commit();
+  }
+  wg_wait<0>();
+  keep(dk_lo);
+  keep(dk_hi);
+  keep(dv_lo);
+  keep(dv_hi);
+
+  // f32 partials of this head: a quad writes 32 contiguous bytes
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = k0 + key0 + gid + 8 * half;
+    if (key >= Tn) continue;
+    const size_t at = (static_cast<size_t>(b * Tn + key) * NH + h) * kDh + 2 * tig;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int e = 4 * j + 2 * half;
+      *reinterpret_cast<float2*>(part_dk + at + 8 * j) = make_float2(dk_lo[e], dk_lo[e + 1]);
+      *reinterpret_cast<float2*>(part_dk + at + 64 + 8 * j) = make_float2(dk_hi[e], dk_hi[e + 1]);
+      *reinterpret_cast<float2*>(part_dv + at + 8 * j) = make_float2(dv_lo[e], dv_lo[e + 1]);
+      *reinterpret_cast<float2*>(part_dv + at + 64 + 8 * j) = make_float2(dv_hi[e], dv_hi[e + 1]);
+    }
+  }
+}
+
+// dk[b, t, g] = scale * sum over the rep heads of g, in order, of part_dk[b, t, g * rep + r];
+// dv likewise without the scale. One thread per four columns.
+__global__ void flash_bwd_sum_heads(const float* __restrict__ part_dk,
+                                    const float* __restrict__ part_dv, bf16* __restrict__ dk,
+                                    bf16* __restrict__ dv, size_t quads, int rep, float scale) {
+  constexpr int Q4 = kDh / 4;
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < quads;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const size_t row = i / Q4, c = (i % Q4) * 4;   // row = (b * T + t) * KVH + g
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), d = a;
+    for (int r = 0; r < rep; ++r) {
+      const size_t at = (row * rep + r) * kDh + c;
+      const float4 x = *reinterpret_cast<const float4*>(part_dk + at);
+      const float4 y = *reinterpret_cast<const float4*>(part_dv + at);
+      a.x += x.x; a.y += x.y; a.z += x.z; a.w += x.w;
+      d.x += y.x; d.y += y.y; d.z += y.z; d.w += y.w;
+    }
+    *reinterpret_cast<uint2*>(dk + row * kDh + c) =
+        make_uint2(pack_bf16(a.x * scale, a.y * scale), pack_bf16(a.z * scale, a.w * scale));
+    *reinterpret_cast<uint2*>(dv + row * kDh + c) =
+        make_uint2(pack_bf16(d.x, d.y), pack_bf16(d.z, d.w));
+  }
+}
+
+}  // namespace tc
+
+// ---- launchers of the tensor-core path ---------------------------------------------------
+
+cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v, const void* key_valid,
+                          void* o, void* lse, int B, int Tn, int NH, int KVH, float scale,
+                          cudaStream_t st) {
+  using tc::bf16;
+  cudaError_t err = allow_smem(tc::flash_fwd_wgmma_kernel, tc::fwd_smem_bytes());
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Tn * (NH / KVH) + tc::kTile - 1) / tc::kTile, KVH, B);
+  tc::flash_fwd_wgmma_kernel<<<grid, tc::kWgThreads, tc::fwd_smem_bytes(), st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const uint8_t*>(key_valid), static_cast<bf16*>(o), static_cast<float*>(lse), Tn,
+      NH, KVH, scale);
+  return cudaGetLastError();
+}
+
+// f32 partial dk and dv, [2, B, T, NH, 128]
+size_t bwd_tc_scratch_bytes(int B, int Tn, int NH) {
+  return 2 * static_cast<size_t>(B) * Tn * NH * tc::kDh * sizeof(float);
+}
+
+cudaError_t launch_bwd_tc(const void* q, const void* k, const void* v, const void* key_valid,
+                          const void* o, const void* dout, const void* lse, void* delta,
+                          void* scratch, void* dq, void* dk, void* dv, int B, int Tn, int NH,
+                          int KVH, float scale, cudaStream_t st) {
+  using tc::bf16;
+  if (scratch == nullptr) return cudaErrorInvalidValue;
+  const bf16* qp = static_cast<const bf16*>(q);
+  const bf16* kp = static_cast<const bf16*>(k);
+  const bf16* vp = static_cast<const bf16*>(v);
+  const bf16* dop = static_cast<const bf16*>(dout);
+  const uint8_t* valid = static_cast<const uint8_t*>(key_valid);
+  const float* lsep = static_cast<const float*>(lse);
+  float* deltap = static_cast<float*>(delta);
+  float* part_dk = static_cast<float*>(scratch);
+  float* part_dv = part_dk + static_cast<size_t>(B) * Tn * NH * tc::kDh;
+
+  const long long rows = static_cast<long long>(B) * Tn * NH;
+  const int warps = kThreads / 32;
+  flash_delta_kernel<bf16><<<static_cast<unsigned>((rows + warps - 1) / warps), kThreads, 0, st>>>(
+      static_cast<const bf16*>(o), dop, deltap, B, Tn, NH, tc::kDh);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  err = allow_smem(tc::flash_bwd_dq_wgmma_kernel, tc::dq_smem_bytes());
+  if (err != cudaSuccess) return err;
+  const dim3 qgrid((Tn * (NH / KVH) + tc::kTile - 1) / tc::kTile, KVH, B);
+  tc::flash_bwd_dq_wgmma_kernel<<<qgrid, tc::kWgThreads, tc::dq_smem_bytes(), st>>>(
+      qp, kp, vp, valid, dop, lsep, deltap, static_cast<bf16*>(dq), Tn, NH, KVH, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  err = allow_smem(tc::flash_bwd_dkv_wgmma_kernel, tc::dkv_smem_bytes());
+  if (err != cudaSuccess) return err;
+  const dim3 kgrid((Tn + tc::kTile - 1) / tc::kTile, NH, B);
+  tc::flash_bwd_dkv_wgmma_kernel<<<kgrid, tc::kWgThreads, tc::dkv_smem_bytes(), st>>>(
+      qp, kp, vp, valid, dop, lsep, deltap, part_dk, part_dv, Tn, NH, KVH, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const size_t quads = static_cast<size_t>(B) * Tn * KVH * (tc::kDh / 4);
+  const size_t want = (quads + 255) / 256;
+  tc::flash_bwd_sum_heads<<<static_cast<unsigned>(want < 65535 ? want : 65535), 256, 0, st>>>(
+      part_dk, part_dv, static_cast<bf16*>(dk), static_cast<bf16*>(dv), quads, NH / KVH, scale);
+  return cudaGetLastError();
+}
+
 bool shape_ok(int B, int Tn, int NH, int KVH) {
-  return B > 0 && Tn > 0 && NH > 0 && KVH > 0 && NH % KVH == 0 && B <= 65535 && KVH <= 65535;
+  return B > 0 && Tn > 0 && NH > 0 && KVH > 0 && NH % KVH == 0 && B <= 65535 && NH <= 65535;
 }
 
 }  // namespace
 
 // q, o: [B, T, NH, DH]; k, v: [B, T, KVH, DH], contiguous, of dtype (AHA_F32 or
 // AHA_BF16), 16-byte aligned; key_valid: [B, T] bytes (nonzero = a real key) or
-// null; lse: [B, NH, T] f32. DH 16 or 128.
+// null; lse: [B, NH, T] f32. DH 16 or 128. bf16 with DH 128 runs on the tensor
+// cores, everything else in f32 on the CUDA cores.
 extern "C" int aha_flash_attention_fwd(const void* q, const void* k, const void* v,
                                        const void* key_valid, void* o, void* lse, int B, int T,
                                        int NH, int KVH, int DH, int dtype, float scale,
@@ -546,18 +1336,27 @@ extern "C" int aha_flash_attention_fwd(const void* q, const void* k, const void*
   else if (dtype == AHA_BF16 && DH == 16)
     err = launch_fwd<__nv_bfloat16, 16>(q, k, v, key_valid, o, lse, B, T, NH, KVH, scale, st);
   else if (dtype == AHA_BF16 && DH == 128)
-    err = launch_fwd<__nv_bfloat16, 128>(q, k, v, key_valid, o, lse, B, T, NH, KVH, scale, st);
+    err = launch_fwd_tc(q, k, v, key_valid, o, lse, B, T, NH, KVH, scale, st);
   return static_cast<int>(err);
 }
 
-// As above, plus o and dout [B, T, NH, DH], delta [B, NH, T] f32 scratch, and
-// the outputs dq [B, T, NH, DH], dk, dv [B, T, KVH, DH] of dtype. Three
-// launches: delta, dq, then dk and dv.
+// Bytes of scratch the backward needs for these shapes (0: none).
+extern "C" long long aha_flash_attention_bwd_scratch_bytes(int B, int T, int NH, int DH,
+                                                           int dtype) {
+  if (dtype == AHA_BF16 && DH == 128) return static_cast<long long>(bwd_tc_scratch_bytes(B, T, NH));
+  return 0;
+}
+
+// As above, plus o and dout [B, T, NH, DH], delta [B, NH, T] f32 scratch,
+// scratch of aha_flash_attention_bwd_scratch_bytes bytes (may be null where
+// that is 0), and the outputs dq [B, T, NH, DH], dk, dv [B, T, KVH, DH] of
+// dtype. Launches: delta, dq, then dk and dv (on the tensor-core path: per
+// query head into scratch, then the sum over a kv head's query heads).
 extern "C" int aha_flash_attention_bwd(const void* q, const void* k, const void* v,
                                        const void* key_valid, const void* o, const void* dout,
-                                       const void* lse, void* delta, void* dq, void* dk, void* dv,
-                                       int B, int T, int NH, int KVH, int DH, int dtype,
-                                       float scale, void* stream) {
+                                       const void* lse, void* delta, void* scratch, void* dq,
+                                       void* dk, void* dv, int B, int T, int NH, int KVH, int DH,
+                                       int dtype, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!shape_ok(B, T, NH, KVH)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaErrorInvalidValue;
@@ -571,7 +1370,7 @@ extern "C" int aha_flash_attention_bwd(const void* q, const void* k, const void*
     err = launch_bwd<__nv_bfloat16, 16>(q, k, v, key_valid, o, dout, lse, delta, dq, dk, dv, B, T,
                                         NH, KVH, scale, st);
   else if (dtype == AHA_BF16 && DH == 128)
-    err = launch_bwd<__nv_bfloat16, 128>(q, k, v, key_valid, o, dout, lse, delta, dq, dk, dv, B,
-                                         T, NH, KVH, scale, st);
+    err = launch_bwd_tc(q, k, v, key_valid, o, dout, lse, delta, scratch, dq, dk, dv, B, T, NH,
+                        KVH, scale, st);
   return static_cast<int>(err);
 }

@@ -109,9 +109,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.aha_int4_matmul_t.restype = I
     lib.aha_flash_attention_fwd.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, F, P]
     lib.aha_flash_attention_fwd.restype = I
-    lib.aha_flash_attention_bwd.argtypes = [P, P, P, P, P, P, P, P, P, P, P,
+    lib.aha_flash_attention_bwd.argtypes = [P, P, P, P, P, P, P, P, P, P, P, P,
                                             I, I, I, I, I, I, F, P]
     lib.aha_flash_attention_bwd.restype = I
+    lib.aha_flash_attention_bwd_scratch_bytes.argtypes = [I, I, I, I, I]
+    lib.aha_flash_attention_bwd_scratch_bytes.restype = ctypes.c_longlong
     lib.aha_quantize_rows.argtypes = [P, P, P, I, I, I, P]
     lib.aha_quantize_rows.restype = I
     lib.aha_decode_attention.argtypes = [P, P, P, P, P, P, P, P, P, P,

@@ -13,10 +13,14 @@ row the mean of all values instead; only padded rows are affected).
 ``flash_causal_attention`` is a ``torch.autograd.Function``: the forward
 kernel also writes the rows' log-sum-exp (f32 [B, NH, T], -inf for a row that
 sees nothing), the backward recomputes the probabilities from it. No sum
-crosses blocks and no atomic is used, so a result is the same from run to run.
-All arithmetic is f32 whatever the storage type; outputs are cast once. The
-plain versions do the same in PyTorch with the [T, T] scores written out, and
-are what the Function runs on CPU tensors.
+crosses blocks out of order and no atomic is used, so a result is the same
+from run to run. bf16 with Dh 128 (the 7B) runs on the tensor cores: bf16
+operands, f32 sums, the probabilities p and ds = p * (dp - delta) rounded to
+bf16 before the second products, and the backward gathers dk / dv per query
+head in f32 scratch that this module allocates. f32 storage, and bf16 with Dh
+16, run in f32 on the CUDA cores; outputs are cast once. The plain versions
+compute in f32 in PyTorch with the [T, T] scores written out, and are what
+the Function runs on CPU tensors.
 """
 
 from __future__ import annotations
@@ -79,8 +83,7 @@ def flash_causal_attention_bwd_plain(q, k, v, o, dout, lse, key_valid=None):
 
 
 def _check(name, q, k, v, key_valid, more=()):
-    if q.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {q.device}")
+    """Raise on what the kernels do not take; -> (B, T, NH, KVH, Dh)."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"{name}: q [B, T, NH, Dh] and k, v [B, T, KVH, Dh] expected, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -105,6 +108,8 @@ def _check(name, q, k, v, key_valid, more=()):
                                   or not key_valid.is_contiguous()):
         raise ValueError(f"{name}: key_valid must be a contiguous bool [B={B}, T={T}] on "
                          f"{q.device}")
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
     return B, T, NH, KVH, Dh
 
 
@@ -130,7 +135,8 @@ def flash_attention_fwd(q, k, v, key_valid=None):
 
 def flash_attention_bwd(q, k, v, o, dout, lse, key_valid=None):
     """-> (dq, dk, dv). Counted as ``flash_attention_bwd`` (one count for its
-    three launches: delta, dq, then dk and dv)."""
+    launches: delta, dq, dk and dv, and on the tensor-core path the sum of the
+    query heads' partial dk / dv)."""
     if q.device.type == "cpu":
         return flash_causal_attention_bwd_plain(q, k, v, o, dout, lse, key_valid)
     B, T, NH, KVH, Dh = _check("flash_attention_bwd", q, k, v, key_valid,
@@ -147,10 +153,14 @@ def flash_attention_bwd(q, k, v, o, dout, lse, key_valid=None):
         return dq, dk, dv
     delta = torch.empty_like(lse)
     lib = _build.library()
+    # the tensor-core path's f32 partial dk / dv per query head; nothing for the f32 path
+    nbytes = lib.aha_flash_attention_bwd_scratch_bytes(B, T, NH, Dh, _DTYPES[q.dtype])
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=q.device) if nbytes else None
     err = lib.aha_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if key_valid is None else key_valid.data_ptr(), o.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         B, T, NH, KVH, Dh, _DTYPES[q.dtype], 1.0 / math.sqrt(Dh),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
     _build.check(lib, err, "flash_attention_bwd")

@@ -123,7 +123,9 @@ class Trace:
 
 
 def report(label: str, units: int, unit: str, wall_ms: float, traced_wall_ms: float,
-           busy_ms: float, kernels: dict, aten: collections.Counter, top: int = 6) -> None:
+           busy_ms: float, kernels: dict, aten: collections.Counter, top: int = 6,
+           also: tuple = ()) -> None:
+    """``also``: kernels whose name holds one of these are listed below the top ones too."""
     n_kernels = sum(c for c, _ in kernels.values())
     print(f"profile {label}: per {unit} wall {wall_ms / units:.3f} ms (traced "
           f"{traced_wall_ms / units:.3f} ms), device busy {busy_ms / units:.3f} ms, "
@@ -131,7 +133,9 @@ def report(label: str, units: int, unit: str, wall_ms: float, traced_wall_ms: fl
           f"{n_kernels / units:.1f} device ops and {sum(aten.values()) / units:.1f} aten ops "
           f"per {unit} ({units} {unit}s traced)", flush=True)
     total_us = sum(t for _, t in kernels.values())
-    for name, (calls, t) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:top]:
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1][1])
+    listed = ranked[:top] + [kv for kv in ranked[top:] if any(a in kv[0] for a in also)]
+    for name, (calls, t) in listed:
         print(f"profile {label}:   {name} {100 * t / total_us:.1f}% of device time, "
               f"{calls / units:.2f} calls per {unit}, {t / max(calls, 1):.1f} us per call",
               flush=True)
@@ -300,7 +304,8 @@ def profile_train(seed: int, remat: str) -> None:
     _, parts = tr.run(lambda: step(state, batch))
     report(f"train step (int4 QLoRA, B=1 T={T}, remat={remat}, loss {float(parts.total):.4f}, "
            f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)", 1, "step",
-           tr.wall_ms, tr.traced_wall_ms, tr.busy_ms(), tr.kernels(), tr.aten_ops(), top=14)
+           tr.wall_ms, tr.traced_wall_ms, tr.busy_ms(), tr.kernels(), tr.aten_ops(), top=14,
+           also=("flash_",))
 
     from .models import aha
     from .train.losses import aha_loss
@@ -321,7 +326,8 @@ def profile_train(seed: int, remat: str) -> None:
     tr = Trace()
     tr.run(forward_only)
     report(f"train forward + loss alone (no graph, no dropout, B=1 T={T})", 1, "pass",
-           tr.wall_ms, tr.traced_wall_ms, tr.busy_ms(), tr.kernels(), tr.aten_ops(), top=8)
+           tr.wall_ms, tr.traced_wall_ms, tr.busy_ms(), tr.kernels(), tr.aten_ops(), top=8,
+           also=("flash_",))
 
 
 def main() -> int:

@@ -13,10 +13,13 @@ Phases, one or more lines each:
      entries at the four layer products for each row count of PATH_M, lm_head
      at 1, 4 and 8 rows, the projector at 392 and 1568; int4_matmul and its
      transpose int4_matmul_t at the training sequence's 926 rows; the flash
-     attention's forward and backward at T = 926, at ragged lengths and with
-     a padding mask, beside scaled_dot_product_attention, which is timed and
-     used nowhere; phases 4 and 5 record the shapes and fail on one that was
-     not checked here)
+     attention's forward and backward at T = 926, at ragged lengths, at
+     T = 63, 64, 65 and 129 across its tile edges, at T = 4096, and with a
+     padding mask, each launched twice for equal bits, beside
+     scaled_dot_product_attention, which is timed and used nowhere (these
+     two as device time from a replayed CUDA graph: the kernels are shorter
+     than the host's work to launch them); phases 4
+     and 5 record the shapes and fail on one that was not checked here)
      (bf16: max|y - y_ref| <= 1e-2 * max|y_ref|;
      with int8 activations 2e-2, because the kernel's quantiser and the plain
      one may round an exact tie apart by one int8 step of one activation) and
@@ -126,6 +129,37 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def graph_ms(fn, iters: int = 20, replays: int = 3) -> float:
+    """Device time per call of ``fn``: ``iters`` calls captured in one CUDA
+    graph, the graph replayed between two events. For calls whose kernels are
+    shorter than the host's work to launch them, where events around a loop of
+    plain calls time the host. No tracer is attached to the process, whose later
+    phases are timed too."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(3):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(replays):
+        graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    del graph           # its memory pool goes back to the allocator
+    return a.elapsed_time(b) / (iters * replays)
 
 
 def rel_check(name: str, y, ref, tol: float) -> float:
@@ -449,10 +483,19 @@ def check_flash_attention(gen, stats: Stats):
 
     dev = "cuda"
     bf, f32 = torch.bfloat16, torch.float32
-    # (label, B, T, NH, KVH, Dh, dtype, left padding per batch row or None, tol fwd, tol bwd)
+    # (label, B, T, NH, KVH, Dh, dtype, left padding per batch row or None, tol fwd, tol bwd).
+    # bf16 with Dh 128 runs on the tensor cores with p and ds rounded to bf16 (about 5e-3 of
+    # the maximum seen forward, up to 8e-3 backward); everything else in f32 on the CUDA cores.
+    # T = 63 .. 129 cross the edges of the 64-key tiles and of the 64-row blocks;
+    # T = 4096 shows the kernels where the launch cost does not hide them.
     cases = [("7b", 1, TRAIN_T, 28, 4, 128, bf, None, 1e-2, 2e-2),
              ("7b-padded", 1, TRAIN_T, 28, 4, 128, bf, (37,), 1e-2, 2e-2),
              ("7b-ragged", 2, 77, 28, 4, 128, bf, (0, 9), 1e-2, 2e-2),
+             *[("7b-edge", 1, T, 28, 4, 128, bf, None, 1e-2, 2e-2) for T in (63, 64, 65, 129)],
+             ("7b-edge-padded", 2, 129, 28, 4, 128, bf, (0, 70), 1e-2, 2e-2),
+             ("7b-long", 1, 4096, 28, 4, 128, bf, None, 1e-2, 2e-2),
+             ("gqa3-bf16", 3, 70, 6, 2, 128, bf, (0, 33, 69), 1e-2, 2e-2),
+             ("mha-bf16", 1, 100, 2, 2, 128, bf, None, 1e-2, 2e-2),
              ("tiny", 2, 45, 4, 2, 16, f32, None, 1e-4, 1e-4),
              ("tiny-padded", 3, 70, 4, 2, 16, f32, (0, 33, 69), 1e-4, 1e-4),
              ("ragged", 1, 70, 14, 2, 128, f32, (5,), 1e-4, 1e-4),
@@ -465,6 +508,7 @@ def check_flash_attention(gen, stats: Stats):
             valid = torch.arange(T, device=dev)[None] >= torch.tensor(pad, device=dev)[:, None]
         o, lse = fa.flash_attention_fwd(q, k, v, valid)
         o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, valid)
+        o_ref = o_ref.contiguous()      # a strided view where a kv head has one query head
         grads = fa.flash_attention_bwd(q, k, v, o_ref, dout, lse_ref, valid)
         grads_ref = fa.flash_causal_attention_bwd_plain(q, k, v, o_ref, dout, lse_ref, valid)
         torch.cuda.synchronize()
@@ -479,12 +523,24 @@ def check_flash_attention(gen, stats: Stats):
                   lse_ref.masked_fill(empty, 0.0), tol_f)
         err_b = max(rel_check(f"flash_attention_bwd {label} {what} {n}", a, b, tol_b)
                     for n, a, b in zip(("dq", "dk", "dv"), grads, grads_ref))
+        # no sum crosses blocks out of order and no atomic is used: the same bits twice
+        again = (*fa.flash_attention_fwd(q, k, v, valid),
+                 *fa.flash_attention_bwd(q, k, v, o_ref, dout, lse_ref, valid))
+        for n, a, b in zip(("o", "lse", "dq", "dk", "dv"), (o, lse, *grads), again):
+            if not torch.equal(a, b):
+                raise AssertionError(f"flash_attention {label} {what}: {n} differs between two "
+                                     f"launches on the same inputs")
+        del again
         stats.err("flash_attention_fwd", err_f)
         stats.err("flash_attention_bwd", err_b)
         stats.checked.add(("flash_attention", B, T, NH, KVH, Dh))
 
-        ms_f = cuda_ms(lambda i: fa.flash_attention_fwd(q, k, v, valid))
-        ms_b = cuda_ms(lambda i: fa.flash_attention_bwd(q, k, v, o_ref, dout, lse_ref, valid))
+        # the kernels at T = 926 are shorter than their wrappers' Python: device time from
+        # a replayed CUDA graph for them and the library call, plain loops beside it (loop_ms)
+        ms_f = graph_ms(lambda i: fa.flash_attention_fwd(q, k, v, valid))
+        ms_b = graph_ms(lambda i: fa.flash_attention_bwd(q, k, v, o_ref, dout, lse_ref, valid))
+        loop_f = cuda_ms(lambda i: fa.flash_attention_fwd(q, k, v, valid))
+        loop_b = cuda_ms(lambda i: fa.flash_attention_bwd(q, k, v, o_ref, dout, lse_ref, valid))
         pms_f = cuda_ms(lambda i: fa.flash_attention_fwd_plain(q, k, v, valid), iters=3, warmup=1)
         pms_b = cuda_ms(lambda i: fa.flash_causal_attention_bwd_plain(
             q, k, v, o_ref, dout, lse_ref, valid), iters=3, warmup=1)
@@ -496,10 +552,9 @@ def check_flash_attention(gen, stats: Stats):
             sdpa = lambda: F.scaled_dot_product_attention(qt, kt_, vt, is_causal=True,
                                                           enable_gqa=True)
             with torch.no_grad():
-                lib_f = cuda_ms(lambda i: sdpa())
-            out = sdpa()
-            lib_b = cuda_ms(lambda i: torch.autograd.grad(out, (qt, kt_, vt), dot,
-                                                          retain_graph=True))
+                lib_f = graph_ms(lambda i: sdpa())
+            # a graph holds a backward only with its forward: the difference of the two
+            lib_b = graph_ms(lambda i: torch.autograd.grad(sdpa(), (qt, kt_, vt), dot)) - lib_f
         # the (query, key) pairs this mask admits; 4 Dh operations a pair and head forward
         # (scores and weighted sum), 2.5 times that backward
         qpos = torch.arange(T, device=dev)
@@ -516,11 +571,13 @@ def check_flash_attention(gen, stats: Stats):
             stats.add("flash_attention_fwd", ms_f, pms_f, b_f, by_f, lib_f, shape)
             stats.add("flash_attention_bwd", ms_b, pms_b, b_b, by_b, lib_b, shape)
         lib = lambda x: "none" if x is None else f"{x:.4f}"
-        print(f"phase2 flash_attention_fwd {label} {what} max_abs_err={err_f:.3e} "
-              f"kernel_ms={ms_f:.4f} plain_ms={pms_f:.4f} bound_ms={b_f:.4f} ({by_f}) "
+        print(f"phase2 flash_attention_fwd {label} {what} max_abs_err={err_f:.3e} equal_twice "
+              f"kernel_ms={ms_f:.4f} loop_ms={loop_f:.4f} plain_ms={pms_f:.4f} "
+              f"bound_ms={b_f:.4f} ({by_f}) "
               f"library_ms={lib(lib_f)}", flush=True)
-        print(f"phase2 flash_attention_bwd {label} {what} max_abs_err={err_b:.3e} "
-              f"kernel_ms={ms_b:.4f} plain_ms={pms_b:.4f} bound_ms={b_b:.4f} ({by_b}) "
+        print(f"phase2 flash_attention_bwd {label} {what} max_abs_err={err_b:.3e} equal_twice "
+              f"kernel_ms={ms_b:.4f} loop_ms={loop_b:.4f} plain_ms={pms_b:.4f} "
+              f"bound_ms={b_b:.4f} ({by_b}) "
               f"library_ms={lib(lib_b)}", flush=True)
 
 
@@ -1193,6 +1250,7 @@ def main() -> int:
               f"'full' over {L} layers (2, 1, 2, 1): "
               f"{L * (2 * stats.train_fwd_ms + k['int4_matmul_t']['ms'] + 2 * k['flash_attention_fwd']['ms'] + k['flash_attention_bwd']['ms']):.1f} ms",
               flush=True)
+        gc.collect()
         torch.cuda.empty_cache()
     if 3 in phases:
         phase3(args.seed)

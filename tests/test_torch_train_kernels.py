@@ -4,8 +4,9 @@ and ``int4_qlinear`` (against the Pallas kernels in interpret mode and the
 dequantise-then-einsum reference), the flash attention's forward (against the
 Pallas kernel in interpret mode and JAX's dense ``causal_attention``) and its
 closed-form backward (against ``jax.grad`` of the dense attention and against
-autograd through the plain forward), the padding mask, and
-``ops/attention.causal_attention`` with its rotation. The CUDA kernels are held
+autograd through the plain forward), the padding mask, the numerics the bf16
+tensor-core kernels are allowed (p and ds rounded to bf16, emulated here), what
+the wrappers refuse, and ``ops/attention.causal_attention`` with its rotation. The CUDA kernels are held
 against these plain versions on the card by ``chip_smoke.py``."""
 
 import jax
@@ -215,6 +216,111 @@ def test_flash_key_valid_rows():
     # nothing flows into a padded key or value, or out of a padded query
     assert grads[0].numpy()[~valid].max() == 0.0 and grads[1].numpy()[~valid].max() == 0.0
     assert grads[2].numpy()[~valid].max() == 0.0
+
+
+def _bf16(x):
+    """f32 values that bf16 holds exactly (round to nearest even, as the card stores them)."""
+    return _t(x).to(torch.bfloat16).float()
+
+
+def _tensor_core_emulation(q, k, v, dout, valid):
+    """What the bf16 kernels compute, in plain PyTorch: products of bf16 values
+    summed in f32, the forward over tiles of 64 keys with a running maximum in
+    units of log 2 and p rounded to bf16 before p @ v (the row sum keeps the
+    unrounded p), the backward with p and ds rounded to bf16 before dv = p^T do,
+    dq = ds k and dk = ds^T q. -> (o, lse, dq, dk, dv), o and the gradients
+    rounded to bf16 as they are stored."""
+    B, T, NH, Dh = q.shape
+    KVH = k.shape[2]
+    rnd = lambda x: x.to(torch.bfloat16).float()
+    grouped = lambda x: x.reshape(B, T, KVH, NH // KVH, Dh)
+    scale = 1.0 / np.sqrt(Dh)
+    s = torch.einsum("bsgrd,btgd->bgrst", grouped(q), k)
+    mask = torch.tril(torch.ones((T, T), dtype=torch.bool))[None, None, None]
+    if valid is not None:
+        mask = mask & valid[:, None, None, None, :]
+    s2 = (s * (scale * np.log2(np.e))).masked_fill(~mask, float("-inf"))
+    m = torch.full(s2.shape[:-1], float("-inf"))
+    l = torch.zeros(s2.shape[:-1])
+    acc = torch.zeros((B, KVH, NH // KVH, T, Dh))
+    for k0 in range(0, T, 64):
+        tile = s2[..., k0:k0 + 64]
+        m_new = torch.maximum(m, tile.max(-1).values)
+        m_use = torch.nan_to_num(m_new, neginf=0.0)
+        alpha = torch.exp2(m - m_use)
+        p = torch.exp2(tile - m_use[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bgrst,btgd->bgrsd", rnd(p), v[:, k0:k0 + 64])
+        m = m_new
+    o = torch.where(l[..., None] > 0, acc / l[..., None], 0.0)
+    o = rnd(o.permute(0, 3, 1, 2, 4).reshape(B, T, NH, Dh))
+    lse = torch.where(l > 0, m * np.log(2.0) + torch.log(l), float("-inf")).reshape(B, NH, T)
+
+    p = torch.where(mask, torch.exp2(s2 - (torch.nan_to_num(lse, neginf=0.0) * np.log2(np.e))
+                                     .reshape(B, KVH, NH // KVH, T, 1)), 0.0)
+    dog = grouped(dout)
+    delta = (dog * grouped(o)).sum(-1).permute(0, 2, 3, 1)
+    ds = p * (torch.einsum("bsgrd,btgd->bgrst", dog, v) - delta[..., None])
+    dq = torch.einsum("bgrst,btgd->bsgrd", rnd(ds), k).reshape(B, T, NH, Dh) * scale
+    dk = torch.einsum("bgrst,bsgrd->btgd", rnd(ds), grouped(q)) * scale
+    dv = torch.einsum("bgrst,bsgrd->btgd", rnd(p), dog)
+    return o, lse, rnd(dq), rnd(dk), rnd(dv)
+
+
+@pytest.mark.parametrize("pad", [None, (0, 21)], ids=["dense", "key_valid"])
+def test_flash_bf16_tensor_core_numerics(pad):
+    """The rounding the bf16 kernels are allowed (p and ds in bf16, f32 sums)
+    stays inside the tolerance the kernels are held to on the card: 1e-2 of
+    the largest |o| forward, 2e-2 of the largest |gradient| backward, against
+    JAX's dense attention and jax.grad of it in f32 on the same bf16 values.
+    GQA 7:1, Dh 128, T = 150 (two full tiles of 64 keys and a ragged third);
+    a padded query is compared nowhere (JAX gives it the mean of all values)."""
+    B, T, NH, KVH, Dh = 2, 150, 14, 2, 128
+    q, k, v = (_bf16(a) for a in _qkv(11, B, T, NH, KVH, Dh))
+    valid = None if pad is None else np.arange(T)[None] >= np.array(pad)[:, None]
+    real = np.ones((B, T), bool) if valid is None else valid
+    dout = _bf16(np.random.default_rng(12).standard_normal(q.shape).astype(np.float32)
+                 * real[:, :, None, None])
+    dense = lambda *a: _jax_dense(*a, attn_mask=None if valid is None else jnp.asarray(valid))
+    jq, jk, jv = (jnp.asarray(a.numpy()) for a in (q, k, v))
+    ref = np.asarray(dense(jq, jk, jv))
+    ref_grads = jax.grad(lambda *a: jnp.sum(dense(*a) * dout.numpy()), argnums=(0, 1, 2))(
+        jq, jk, jv)
+    o, lse, *grads = _tensor_core_emulation(q, k, v, dout, None if valid is None else _t(valid))
+    assert np.abs(o.numpy() - ref)[real].max() <= 1e-2 * np.abs(ref[real]).max()
+    for name, g, r in zip("qkv", grads, ref_grads):
+        r = np.asarray(r)
+        assert np.abs(g.numpy() - r).max() <= 2e-2 * np.abs(r).max(), f"d{name}"
+    # the emulation's lse is the plain version's: the backward recomputes p from either
+    _, lse_plain = fa.flash_attention_fwd_plain(q, k, v, None if valid is None else _t(valid))
+    assert torch.equal(torch.isinf(lse), torch.isinf(lse_plain))
+    np.testing.assert_allclose(torch.nan_to_num(lse, neginf=0.0).numpy(),
+                               torch.nan_to_num(lse_plain, neginf=0.0).numpy(), atol=1e-4)
+    if valid is not None:
+        assert o.numpy()[~valid].max() == 0.0 == o.numpy()[~valid].min()
+        assert np.isneginf(lse.numpy().transpose(0, 2, 1)[~valid]).all()
+
+
+@pytest.mark.parametrize("what,match", [
+    ("head_dim", "head_dim 64 not supported"),
+    ("strided", "q must be contiguous"),
+    ("key_valid", "key_valid must be a contiguous bool"),
+    ("device", "unsupported device cpu"),
+])
+def test_flash_wrapper_refuses(what, match):
+    """What the kernels do not take raises in the wrapper's check, whatever
+    the device; a well-formed CPU input is refused only for its device (the
+    wrappers send a CPU tensor to the plain version before the check)."""
+    B, T, NH, KVH = 2, 9, 4, 2
+    Dh = 64 if what == "head_dim" else 16
+    q, k, v = (_t(a) for a in _qkv(13, B, T, NH, KVH, Dh))
+    valid = torch.ones((B, T), dtype=torch.bool)
+    if what == "strided":
+        q = torch.cat([q, q], dim=-1)[..., :Dh]
+    if what == "key_valid":
+        valid = valid[:, :-1]
+    with pytest.raises(ValueError, match=match):
+        fa._check("flash_attention_fwd", q, k, v, valid)
 
 
 @pytest.mark.parametrize("T", [33, 70])
