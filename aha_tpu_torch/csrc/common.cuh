@@ -86,6 +86,12 @@ inline cudaError_t launch_splitk_reduce(const float* ws, const float* col_scale,
 
 // ---- tensor-core tiles (mma.sync) shared by the quantized matmuls -----------------
 //
+// The first tensor-core scheme of the port, kept for the int8 products, for
+// int8 activations on int4 weights, and for the bf16 int4 shapes that the wgmma
+// kernels of int4_matmul.cu / int4_matmul_t.cu (primitives: wgmma.cuh) do not
+// take. Nothing here overlaps: a K step loads, stores to shared memory,
+// synchronises, multiplies, synchronises.
+//
 // A block of 4 warps owns a 64 x 128 output tile and walks K in steps of 32.
 // Both operands are staged in shared memory with K contiguous: x rows as they
 // are, the weight tile transposed to [n][k], so that a thread's mma fragment

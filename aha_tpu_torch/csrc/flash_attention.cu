@@ -61,7 +61,7 @@
 // shared memory. The entry points choose by dtype and head size.
 #include <math.h>
 
-#include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -492,16 +492,11 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
 template <typename T, int DH>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* key_valid, void* o,
                        void* lse, int B, int Tn, int NH, int KVH, float scale, cudaStream_t st) {
   constexpr int bytes = fwd_smem_floats<DH>() * 4;
-  cudaError_t err = allow_smem(flash_fwd_kernel<T, DH>, bytes);
+  cudaError_t err = wg::allow_smem(flash_fwd_kernel<T, DH>, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((Tn * (NH / KVH) + kRows - 1) / kRows, KVH, B);
   flash_fwd_kernel<T, DH><<<grid, kThreads, bytes, st>>>(
@@ -532,7 +527,7 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
   if (err != cudaSuccess) return err;
 
   constexpr int dq_bytes = dq_smem_floats<DH>() * 4;
-  err = allow_smem(flash_bwd_dq_kernel<T, DH>, dq_bytes);
+  err = wg::allow_smem(flash_bwd_dq_kernel<T, DH>, dq_bytes);
   if (err != cudaSuccess) return err;
   const dim3 qgrid((Tn * (NH / KVH) + kRows - 1) / kRows, KVH, B);
   flash_bwd_dq_kernel<T, DH><<<qgrid, kThreads, dq_bytes, st>>>(
@@ -541,7 +536,7 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
   if (err != cudaSuccess) return err;
 
   constexpr int dkv_bytes = dkv_smem_floats<DH>() * 4;
-  err = allow_smem(flash_bwd_dkv_kernel<T, DH>, dkv_bytes);
+  err = wg::allow_smem(flash_bwd_dkv_kernel<T, DH>, dkv_bytes);
   if (err != cudaSuccess) return err;
   const dim3 kgrid((Tn + kKeys - 1) / kKeys, KVH, B);
   flash_bwd_dkv_kernel<T, DH><<<kgrid, kThreads, dkv_bytes, st>>>(
@@ -552,78 +547,24 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
 
 // ---- bf16, Dh 128: the tensor-core path (wgmma) -----------------------------------------
 //
-// A block is one warpgroup (4 warps) that owns 64 rows of a product; warp w
-// holds rows 16 w .. 16 w + 15 of every accumulator, a thread rows gid and
-// gid + 8 (gid = lane / 4) and, of each group of 8 columns, columns 2 tig and
-// 2 tig + 1 (tig = lane % 4): accumulator element 4 j + e is row gid + 8 (e / 2),
-// column 8 j + 2 tig + e % 2. An accumulator rounded to bf16 is, register for
-// register, the A operand of the next product.
-//
-// A tile is 64 rows of 128 bf16 as stored, kept as two halves of 64 columns
-// (8 KB each): rows of 128 bytes in groups of 8 (1024 bytes), the 16-byte chunk
-// c of row r at chunk c ^ (r & 7) of its row. That is the 128-byte swizzle a
-// wgmma matrix descriptor names, so the tensor cores read a tile either with
-// its columns as the contraction (q k^T, do v^T) or, transposed, with its rows
-// as the contraction (p v, ds k, p^T do, ds^T q), without bank conflicts and
-// without a transposed copy. Tiles arrive by cp.async, 16 bytes a thread,
-// zero-filled past the end of the sequence; tile bases are 1024-byte aligned.
+// A block is one warpgroup that owns 64 rows of a product; wgmma.cuh has the
+// primitives, the layout of an accumulator and of a register operand over the
+// threads, and the swizzled tile. Here a tile is 64 rows of 128 bf16 as stored,
+// kept as two halves of 64 columns (8 KB each), so the tensor cores read it
+// either with its columns as the contraction (q k^T, do v^T) or, transposed,
+// with its rows as the contraction (p v, ds k, p^T do, ds^T q), without bank
+// conflicts and without a transposed copy. Tiles arrive by cp.async, 16 bytes a
+// thread, zero-filled past the end of the sequence.
 namespace tc {
 
-using bf16 = __nv_bfloat16;
+using namespace wg;   // tiles, copies and warpgroup products: wgmma.cuh
 typedef unsigned long long u64;
 
-constexpr int kDh = 128;                   // head size of this path
-constexpr int kTile = 64;                  // rows, keys or positions per tile
-constexpr int kWgThreads = 128;              // one warpgroup
-constexpr int kHalfBytes = kTile * 128;    // 64 columns of a tile
-constexpr int kTileBytes = 2 * kHalfBytes;
-constexpr int kAlignSlack = 1024;          // room to align the dynamic shared memory
+constexpr int kDh = 128;                   // head size of this path: a tile (kTile = 64 rows, keys
+                                           // or positions) is two halves of 64 columns
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr u64 kAllKeys = ~0ull;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ unsigned char* align_tiles(unsigned char* smem) {
-  return smem + ((kAlignSlack - (smem_addr(smem) & (kAlignSlack - 1))) & (kAlignSlack - 1));
-}
-// byte offset of the 16-byte chunk c (0 .. 15) of row r in a tile
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return static_cast<uint32_t>((c >> 3) * kHalfBytes + r * 128 + (((c & 7) ^ (r & 7)) << 4));
-}
-// 16 (or 4) bytes global -> shared, asynchronously; zeros where !ok (src stays a valid address)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
-  const int n = ok ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
-}
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool ok) {
-  const int n = ok ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-// this thread's copies have landed; after the barrier that follows, everyone's,
-// and the tensor cores' proxy sees them
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// A tile whose rows are any rows of device memory: row_ptr(r, ok) gives row r's
-// address and whether it exists. For what a block loads once.
-template <typename F>
-__device__ __forceinline__ void load_tile_async(unsigned char* dst, F row_ptr) {
-  const uint32_t base = smem_addr(dst);
-#pragma unroll
-  for (int i = 0; i < kTile * 16 / kWgThreads; ++i) {
-    const int idx = threadIdx.x + i * kWgThreads, r = idx >> 4, c = idx & 15;
-    bool ok;
-    const bf16* src = row_ptr(r, ok);
-    cp_async16(base + swz(r, c), src + c * 8, ok);
-  }
-}
 // rows R0 .. R0 + 63 of group g (row R: position R / rep, head g * rep + R % rep)
 __device__ __forceinline__ void load_group_rows(unsigned char* dst, const bf16* __restrict__ src,
                                                 int b, int g, int R0, int nrows, int rep, int Tn,
@@ -635,39 +576,6 @@ __device__ __forceinline__ void load_group_rows(unsigned char* dst, const bf16* 
     return src + (static_cast<size_t>(b * Tn + Rc / rep) * NH + g * rep + Rc % rep) * kDh;
   });
 }
-
-// One thread's share of the copy of a tile whose 64 rows lie `stride` elements
-// apart in device memory: chunk tid % 16 of rows tid / 16 + 8 i. The offsets
-// are computed once a kernel; a tile in the loop then costs a cp.async and an
-// add a row, with predicates only where the tile crosses the end.
-struct TileCopy {
-  static constexpr int kStep = kWgThreads / 16;   // 8: r & 7 is the same in every pass
-  size_t src_off, src_step;
-  uint32_t dst_off;
-  int r0;
-  __device__ __forceinline__ explicit TileCopy(size_t stride) {
-    const int c = threadIdx.x & 15;
-    r0 = threadIdx.x >> 4;
-    src_off = r0 * stride + c * 8;
-    src_step = kStep * stride;
-    dst_off = swz(r0, c);
-  }
-  // src: row 0 of the tile; rows: how many of its 64 rows exist
-  __device__ __forceinline__ void operator()(unsigned char* tile, const bf16* src, int rows) const {
-    const bf16* p = src + src_off;
-    const uint32_t dst = smem_addr(tile) + dst_off;
-    if (rows >= kTile) {
-#pragma unroll
-      for (int i = 0; i < kTile / kStep; ++i) cp_async16(dst + i * kStep * 128, p + i * src_step);
-    } else {
-#pragma unroll
-      for (int i = 0; i < kTile / kStep; ++i) {
-        const bool ok = r0 + i * kStep < rows;
-        cp_async16(dst + i * kStep * 128, ok ? p + i * src_step : src, ok);
-      }
-    }
-  }
-};
 
 // bit i: key k0 + i exists and is no padding (one warp, all lanes)
 __device__ __forceinline__ u64 key_mask(const uint8_t* __restrict__ key_valid, int b, int k0,
@@ -699,45 +607,7 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// ---- wgmma ---------------------------------------------------------------------------
-
-// descriptor of a tile (or of a part that starts `addr` into it): 128-byte
-// swizzle, groups of 8 rows 1024 bytes apart
-__device__ __forceinline__ uint64_t wg_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) | (static_cast<uint64_t>(1024 >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// pins an accumulator between the asynchronous products and the code around them
-__device__ __forceinline__ void keep(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-// d [64 x 64] (+)= A [64 x 16] B [16 x 64], both from shared memory with the
-// contraction contiguous (A: 64 rows, B: 64 rows of the n index)
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-// d [64 x 64] += A [64 x 16] (registers) B [16 x 64], B from shared memory with
-// the n index contiguous (16 rows of the contraction index)
-__device__ __forceinline__ void wgmma_rs_t(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
-}
+// ---- products of tiles ---------------------------------------------------------------
 
 // s [64 x 64] = A B^T over the 128 columns of two tiles (rows of A: the output's
 // rows; rows of B: its columns); started, not waited for
@@ -1251,7 +1121,7 @@ cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v, const voi
                           void* o, void* lse, int B, int Tn, int NH, int KVH, float scale,
                           cudaStream_t st) {
   using tc::bf16;
-  cudaError_t err = allow_smem(tc::flash_fwd_wgmma_kernel, tc::fwd_smem_bytes());
+  cudaError_t err = wg::allow_smem(tc::flash_fwd_wgmma_kernel, tc::fwd_smem_bytes());
   if (err != cudaSuccess) return err;
   const dim3 grid((Tn * (NH / KVH) + tc::kTile - 1) / tc::kTile, KVH, B);
   tc::flash_fwd_wgmma_kernel<<<grid, tc::kWgThreads, tc::fwd_smem_bytes(), st>>>(
@@ -1289,7 +1159,7 @@ cudaError_t launch_bwd_tc(const void* q, const void* k, const void* v, const voi
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  err = allow_smem(tc::flash_bwd_dq_wgmma_kernel, tc::dq_smem_bytes());
+  err = wg::allow_smem(tc::flash_bwd_dq_wgmma_kernel, tc::dq_smem_bytes());
   if (err != cudaSuccess) return err;
   const dim3 qgrid((Tn * (NH / KVH) + tc::kTile - 1) / tc::kTile, KVH, B);
   tc::flash_bwd_dq_wgmma_kernel<<<qgrid, tc::kWgThreads, tc::dq_smem_bytes(), st>>>(
@@ -1297,7 +1167,7 @@ cudaError_t launch_bwd_tc(const void* q, const void* k, const void* v, const voi
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  err = allow_smem(tc::flash_bwd_dkv_wgmma_kernel, tc::dkv_smem_bytes());
+  err = wg::allow_smem(tc::flash_bwd_dkv_wgmma_kernel, tc::dkv_smem_bytes());
   if (err != cudaSuccess) return err;
   const dim3 kgrid((Tn + tc::kTile - 1) / tc::kTile, NH, B);
   tc::flash_bwd_dkv_wgmma_kernel<<<kgrid, tc::kWgThreads, tc::dkv_smem_bytes(), st>>>(

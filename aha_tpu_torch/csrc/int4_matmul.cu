@@ -16,14 +16,26 @@
 // there; here a thread reads x[2j], x[2j + 1] next to byte j and the split is
 // never materialised.
 //
-// What bounds it on an H100: at the streaming path's M (1 for a generated
-// token, 4..8 for a verify pass, 49..220 for frame and text chunks, 196 for a
-// fused pass of four frames, 1568 for the projector) the K*N/2 weight bytes
-// (+ 2*(K/G)*N of scales) dominate the traffic, so each packed byte is read
-// from device memory once and its two nibbles are unpacked in registers. Two
-// paths, chosen by the wrapper from the operands:
-//   * tensor cores (M > 1, G % 32 == 0, N % 8 == 0; bf16 x, or int8 x
-//     whatever the output type): the 64 x 128 tile scheme of common.cuh. A
+// What bounds it on an H100: bytes for a generated token (M = 1) and a verify
+// pass (4 .. 13 rows): the K*N/2 weight bytes (+ 2*(K/G)*N of scales) are the
+// traffic, each packed byte is read from device memory once and its two
+// nibbles are unpacked in registers. From a frame chunk's 49 rows on, and
+// clearly at a fused pass's 196 and a training sequence's 926, operations: 2*M*K*N
+// against the tensor cores' 989 TFLOP/s, so the products belong on wgmma and
+// what is left beside them (unpacking a [128 x 64] piece of W per 64 rows of K,
+// the copies, the group scales) decides the time. Three paths, chosen by the
+// wrapper's plan() from the operands:
+//   * wgmma (bf16 x, weight-only, M >= 14, G % 64 == 0, N % 16 == 0, 16-byte
+//     aligned operands): section "tensor-core path, wgmma" below. The product
+//     is turned round (y^T = W^T x^T), the unpacked weight is the register
+//     operand of the warpgroup products and never touches shared memory, raw
+//     bytes, x tiles and scales arrive by cp.async through a six-slot ring,
+//     two accumulator sets (a group's sum, the total) of f32. At M = 926 a
+//     decoder layer's four products take 1.23 ms where the mma.sync kernel
+//     below took 4.34 (NVIDIA H100 80GB HBM3, 700 W; bound 0.44 ms).
+//   * mma.sync (M > 1, G % 32 == 0, N % 8 == 0; int8 x whatever the output
+//     type, and bf16 x where the wgmma path does not apply): the 64 x 128 tile
+//     scheme of common.cuh, one buffer a tile, no copy overlaps a product. A
 //     packed byte is exactly the (k, k + 1) pair of one column, i.e. one
 //     32-bit bf16x2 word of the transposed weight tile (int8 activations:
 //     two bytes make one word of four int8). Values -8..7 are exact in
@@ -36,12 +48,12 @@
 //     group slots x 8 row lanes: a thread walks whole groups, so that it
 //     applies each group's scale once to its own partial sum.
 // When the grid would leave SMs idle, K is split over grid z (whole groups on
-// the CUDA-core path, 32-row steps on the tensor-core path; a group cut by a
-// split boundary is scaled on both sides, which is the same sum): each split
-// writes an f32 partial and splitk_reduce adds them in a fixed order.
+// the CUDA-core and wgmma paths, 32-row steps on the mma.sync path; a group cut
+// by a split boundary is scaled on both sides, which is the same sum): each
+// split writes an f32 partial and splitk_reduce adds them in a fixed order.
 #include <type_traits>
 
-#include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -75,6 +87,13 @@ __device__ __forceinline__ __nv_bfloat162 nibbles_bf162(uint32_t b) {
   const uint32_t offset = 0x43084308u;
   return __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&biased),
                  *reinterpret_cast<const __nv_bfloat162*>(&offset));
+}
+
+__device__ __forceinline__ __nv_bfloat162 as_bf162(uint32_t u) {
+  return *reinterpret_cast<const __nv_bfloat162*>(&u);
+}
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 template <typename X, typename Y, int BM>
@@ -173,7 +192,7 @@ int4_mm_kernel(const X* __restrict__ x, const float* __restrict__ sx,
   }
 }
 
-// ---- tensor-core path ---------------------------------------------------------------
+// ---- tensor-core path, mma.sync ------------------------------------------------------
 
 // A8 = false: x bf16, group sums in f32. A8 = true: x int8 (+ sx), group sums
 // in int32.
@@ -275,7 +294,269 @@ int4_mm_tc_kernel(const void* __restrict__ x, const float* __restrict__ sx,
   store_tile<Y>(tot, y, ws, nullptr, sx, M, N, m0, n0, wm, wn, gid, tig, splits, blockIdx.z);
 }
 
-enum Path { kScalar = 0, kVec16 = 1, kTensorCore = 2 };
+// ---- tensor-core path, wgmma (bf16 x, weight-only, G % 64 == 0, N % 16 == 0) ------------------
+//
+// The product turned round: y^T = W^T x^T. The 64-row side of a warpgroup
+// product runs over weight columns, its register operand is a [64 columns x
+// 16 rows] piece of W^T, and its width is the token tile. A packed byte is the
+// (2 j, 2 j + 1) bf16 pair of its column, i.e. one register of that operand, so
+// the dequantised weight never exists in memory of any kind: the raw bytes
+// travel device memory -> ring -> registers. The group scale belongs to an
+// accumulator ROW here, two scales a thread and slab.
+//
+// A block is one warpgroup that owns 128 weight columns (two slabs of 64) and a
+// token tile of TM <= 80 rows, and walks K in stages of 64 through a ring of
+// kStages slots filled by cp.async, four stages ahead. A stage holds the x
+// tile (TM rows of 128 bytes, swizzled, the B operand as it lies), the packed
+// bytes (32 packed rows of 128 columns, 160 bytes apart so that the four rows a
+// warp reads at once fall in distinct banks) and the group's 128 scales, all in
+// 16-byte copies (4-byte copies of a thread's own words cost a quarter of the
+// kernel's time). The thread whose accumulator rows are gid and gid + 8 of warp
+// w owns the four neighbouring columns 4 (8 w + gid) .. + 3 (rows gid and gid + 8
+// of slab 0, then of slab 1: the accumulator rows are relabelled, no data is
+// shuffled): a 32-bit word of a packed row is its share of that row, the packed
+// rows tig + 4 q are what its operand registers need, and y leaves as 8-byte
+// stores of those four columns.
+//
+// The two slabs alternate: while the tensor cores run one slab's four products
+// of a stage, the threads unpack the other's operand. After a group's last
+// stage the block waits for its products and adds both slabs' group sums (f32)
+// times their scales into the totals (f32); a group's first product starts its
+// sum anew (scale-d). Two blocks share an SM and fill each other's gaps. A K
+// split covers whole groups and writes its f32 totals as a partial.
+//
+// What bounds it (NVIDIA H100 80GB HBM3, 700 W, M = 926, 300-375 TFLOP/s): not
+// the tensor cores (about a third of their rate). Builds with parts switched
+// off: no unpacking 3%, no wait at a group's end 5%, half the x tile's bytes 5%,
+// no weight and scale copies 24% while those were 4-byte copies (16-byte ones
+// took 10% off). What is left is the chain of a stage on one warpgroup, some
+// 300 instructions, many on the half-rate integer pipe. Tried and dropped: a
+// scale pass per slab beside the other slab's products (the assembler then makes
+// every product wait for the one before it, see stage()); three blocks an SM at
+// 56 rows (slower by a third).
+namespace w4 {
+
+using namespace wg;
+
+constexpr int kSlabs = 2;             // 64-column slabs of the weight per block
+constexpr int kBN = 64 * kSlabs;      // weight columns per block
+constexpr int kKS = 64;               // contraction depth of a stage
+constexpr int kStages = 6;            // ring slots; kStages - 2 stages are in flight
+constexpr int kWRow = 160;            // bytes from one packed row of a stage to the next
+constexpr int kWBytes = (kKS / 2) * kWRow;
+constexpr int kSBytes = kBN * 2;      // the group's scales of the block's columns
+
+// tiles start on 1024 bytes
+__host__ __device__ constexpr int stage_bytes(int TM) {
+  return TM * 128 + (kWBytes + kSBytes + 1023) / 1024 * 1024;
+}
+__host__ __device__ constexpr int smem_bytes(int TM) { return kStages * stage_bytes(TM) + kAlignSlack; }
+
+// the [64 x 16] operands of a stage's four products for slab SLAB, from this
+// thread's eight words (word q: packed row tig + 4 q of its four columns, the
+// slab's two in bytes 2 SLAB and 2 SLAB + 1). 0x4300 | n is the bf16 128 + n
+// (its ulp is 1 there), and subtracting 136 is exact: byte permutes put the low
+// and the high nibbles of the two columns beside 0x43, one subtraction makes
+// each a pair of values, two more permutes sort them by column.
+template <int SLAB>
+__device__ __forceinline__ void unpack(uint32_t (&a)[4][4], const uint32_t (&wq)[8],
+                                       uint32_t bias) {
+  const __nv_bfloat162 offset = as_bf162(0x43084308u);   // the bf16 pair (136, 136)
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const uint32_t lo = wq[q] & 0x0F0F0F0Fu, hi = (wq[q] >> 4) & 0x0F0F0F0Fu;
+    constexpr uint32_t two_columns = SLAB == 0 ? 0x4140u : 0x4342u;
+    // rows 2 j (low nibbles) and 2 j + 1 (high nibbles) of the slab's two columns
+    const uint32_t even = as_u32(__hsub2(as_bf162(__byte_perm(lo, bias, two_columns)), offset));
+    const uint32_t odd = as_u32(__hsub2(as_bf162(__byte_perm(hi, bias, two_columns)), offset));
+    a[q >> 1][2 * (q & 1)] = __byte_perm(even, odd, 0x5410u);       // column 0: rows 2 j, 2 j + 1
+    a[q >> 1][2 * (q & 1) + 1] = __byte_perm(even, odd, 0x7632u);   // column 1
+  }
+}
+// tot += grp * (the row's scale): rows gid (elements 4 j, 4 j + 1) and gid + 8
+template <int NA>
+__device__ __forceinline__ void add_scaled(float (&tot)[NA], const float (&grp)[NA], float s_a,
+                                           float s_b) {
+#pragma unroll
+  for (int e = 0; e < NA; ++e) tot[e] = fmaf(grp[e], (e & 2) ? s_b : s_a, tot[e]);
+}
+
+template <int TM>
+__global__ void __launch_bounds__(kWgThreads, 2)
+int4_mm_wgmma_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ w,
+                     const bf16* __restrict__ scale4, bf16* __restrict__ y,
+                     float* __restrict__ ws, int M, int K, int N, int G, int k_per_split,
+                     int splits) {
+  constexpr int kStage = stage_bytes(TM), NA = TM / 2;
+  extern __shared__ __align__(128) unsigned char smem_w4[];
+  unsigned char* ring = align_tiles(smem_w4);
+  const uint32_t ring_a = smem_addr(ring);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gid = lane >> 2, tig = lane & 3;
+  const int m0 = blockIdx.x * TM, n0 = blockIdx.y * kBN;
+  const int kbeg = blockIdx.z * k_per_split;
+  const int nst = max(0, min(K, kbeg + k_per_split) - kbeg) / kKS;   // whole groups a split
+  const int gs = G / kKS;                                            // stages per group
+
+  // this thread's four weight columns (N % 16 == 0: all four exist, or none)
+  const int n4 = n0 + 4 * (8 * warp + gid);
+  const bool n_ok = n4 < N;
+  // its share of a stage's copies: rows of the x tile, two 16-byte chunks of the
+  // packed bytes (row idx / 8, columns 16 (idx % 8) ..), and for 16 threads 8 scales
+  const RowsCopy<TM> copy_x(static_cast<size_t>(K));
+  const bf16* xsrc = x + static_cast<size_t>(m0) * K + kbeg;
+  constexpr int kWOff = TM * 128, kSOff = kWOff + kWBytes;
+  const uint8_t* wsrc[2];
+  uint32_t wdst[2];
+  bool wok[2];
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int idx = tid + c * kWgThreads, row = idx >> 3, col = n0 + (idx & 7) * 16;
+    wok[c] = col < N;
+    wsrc[c] = w + static_cast<size_t>(kbeg / 2 + row) * N + (wok[c] ? col : 0);
+    wdst[c] = kWOff + row * kWRow + (idx & 7) * 16;
+  }
+  const bool sok = tid < 16 && n0 + tid * 8 < N;
+  const bf16* ssrc = scale4 + (sok ? n0 + tid * 8 : 0);
+  auto load = [&](int i) {   // stage i of this split into its slot
+    const uint32_t st = ring_a + (i % kStages) * kStage;
+    copy_x(st, xsrc + i * kKS, M - m0);
+    const size_t rows = static_cast<size_t>(i) * (kKS / 2) * N;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) cp_async16(st + wdst[c], wsrc[c] + rows, wok[c]);
+    if (tid < 16)
+      cp_async16(st + kSOff + tid * 16, ssrc + static_cast<size_t>((kbeg + i * kKS) / G) * N, sok);
+  };
+  // the packed rows tig + 4 q of its four columns, and their scales
+  const int w_off = kWOff + tig * kWRow + (8 * warp + gid) * 4;
+  const int s_off = kSOff + (8 * warp + gid) * 8;
+
+  float tot[kSlabs][NA], grp[kSlabs][NA];
+#pragma unroll
+  for (int s = 0; s < kSlabs; ++s)
+#pragma unroll
+    for (int e = 0; e < NA; ++e) tot[s][e] = grp[s][e] = 0.f;
+  uint32_t a0[4][4], a1[4][4];
+#pragma unroll
+  for (int p = 0; p < 4; ++p)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a0[p][e] = a1[p][e] = 0u;
+  const uint32_t bias = bias_bytes();
+
+#pragma unroll
+  for (int i = 0; i < kStages - 2; ++i) {
+    if (i < nst) load(i);
+    cp_async_commit();
+  }
+  // One stage; first: it opens a group, whose sums start anew (known when
+  // compiled). The assembler follows which products are in flight only so far:
+  // whatever defines an input of a product (operand registers, descriptors) is
+  // pinned before the first product of its four, and no accumulator is read
+  // while a product of an earlier stage may be in flight. Otherwise it makes
+  // every product wait for the one before it.
+  auto stage = [&](int i, auto first) {
+    constexpr int kAccumulate = decltype(first)::value ? 0 : 1;
+    cp_async_wait<kStages - 3>();   // stage i has landed
+    wg_wait<1>();                   // slab 0 of stage i - 1 is done: a0 is free
+    __syncthreads();                // ... and every warp is past stage i - 2
+    if (i + kStages - 2 < nst) load(i + kStages - 2);
+    cp_async_commit();
+
+    const int slot = i % kStages;
+    const unsigned char* st = ring + slot * kStage;
+    uint32_t wq[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      wq[q] = *reinterpret_cast<const uint32_t*>(st + w_off + q * 4 * kWRow);
+    uint64_t xd[4];
+    wg_desc_pieces(xd, ring_a + slot * kStage);
+    keep(a0);
+    unpack<0>(a0, wq, bias);
+    keep(a0);
+    wg_fence();
+    wgmma_rs<TM>(grp[0], a0[0], xd[0], kAccumulate);
+#pragma unroll
+    for (int p = 1; p < 4; ++p) wgmma_rs<TM>(grp[0], a0[p], xd[p], 1);
+    wg_commit();
+
+    wg_wait<1>();                   // slab 1 of stage i - 1 is done: a1 is free
+    keep(a1);
+    unpack<1>(a1, wq, bias);
+    keep(a1);
+    wg_fence();
+    wgmma_rs<TM>(grp[1], a1[0], xd[0], kAccumulate);
+#pragma unroll
+    for (int p = 1; p < 4; ++p) wgmma_rs<TM>(grp[1], a1[p], xd[p], 1);
+    wg_commit();
+  };
+  for (int i = 0; i < nst; i += gs) {
+    stage(i, std::true_type{});
+    for (int j = 1; j < gs; ++j) stage(i + j, std::false_type{});
+    // the group's four scales of this thread's columns (every stage of the group
+    // brought them), bf16 -> f32, and its sums into the totals; the block that
+    // shares the SM has the tensor cores meanwhile
+    const uint2 sc =
+        *reinterpret_cast<const uint2*>(ring + ((i + gs - 1) % kStages) * kStage + s_off);
+    wg_wait<0>();
+    keep(a0);
+    keep(a1);
+    keep(grp[0]);
+    keep(grp[1]);
+    add_scaled(tot[0], grp[0], __uint_as_float(sc.x << 16), __uint_as_float(sc.x & 0xffff0000u));
+    add_scaled(tot[1], grp[1], __uint_as_float(sc.y << 16), __uint_as_float(sc.y & 0xffff0000u));
+  }
+
+  // token 8 j + 2 tig + b: this thread's four columns side by side
+  if (!n_ok) return;
+#pragma unroll
+  for (int j = 0; j < TM / 8; ++j)
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      const int m = m0 + 8 * j + 2 * tig + b;
+      if (m >= M) continue;
+      const float v0 = tot[0][4 * j + b], v1 = tot[0][4 * j + 2 + b];
+      const float v2 = tot[1][4 * j + b], v3 = tot[1][4 * j + 2 + b];
+      if (splits == 1) {
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(v0, v1), hi = __floats2bfloat162_rn(v2, v3);
+        *reinterpret_cast<uint2*>(y + static_cast<size_t>(m) * N + n4) =
+            make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                       *reinterpret_cast<const uint32_t*>(&hi));
+      } else {
+        *reinterpret_cast<float4*>(ws + (static_cast<size_t>(blockIdx.z) * M + m) * N + n4) =
+            make_float4(v0, v1, v2, v3);
+      }
+    }
+}
+
+template <int TM>
+cudaError_t launch_tile(const void* x, const uint8_t* w, const bf16* scale4, void* y, float* ws,
+                        int M, int K, int N, int G, int splits, cudaStream_t st) {
+  cudaError_t err = allow_smem(int4_mm_wgmma_kernel<TM>, smem_bytes(TM));
+  if (err != cudaSuccess) return err;
+  // whole groups a split; a split past K writes zeros
+  const int kps = ((K / G + splits - 1) / splits) * G;
+  // token tiles run fastest: the blocks in flight share a few column blocks of W
+  const dim3 grid((M + TM - 1) / TM, (N + kBN - 1) / kBN, splits);
+  int4_mm_wgmma_kernel<TM><<<grid, kWgThreads, smem_bytes(TM), st>>>(
+      static_cast<const bf16*>(x), w, scale4, static_cast<bf16*>(y), ws, M, K, N, G, kps, splits);
+  return cudaGetLastError();
+}
+
+cudaError_t launch(const void* x, const uint8_t* w, const bf16* scale4, void* y, float* ws, int M,
+                   int K, int N, int G, int splits, int tile, cudaStream_t st) {
+  if (G % kKS != 0 || N % 16 != 0 || (N + kBN - 1) / kBN > 65535) return cudaErrorInvalidValue;
+  switch (tile) {   // 14 rows and more: 16 .. 80
+#define AHA_TILE(TM) \
+  case TM: return launch_tile<TM>(x, w, scale4, y, ws, M, K, N, G, splits, st);
+    AHA_TILE(16) AHA_TILE(24) AHA_TILE(32) AHA_TILE(40) AHA_TILE(48) AHA_TILE(56) AHA_TILE(64)
+    AHA_TILE(72) AHA_TILE(80)
+#undef AHA_TILE
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace w4
+
+enum Path { kScalar = 0, kVec16 = 1, kTensorCore = 2, kWgmma = 3 };
 
 template <typename X, typename Y>
 cudaError_t launch(const void* x, const float* sx, const void* w, const void* scale4, void* y,
@@ -325,18 +606,31 @@ cudaError_t launch(const void* x, const float* sx, const void* w, const void* sc
 // x: [M, K] of x_dtype (AHA_F32, AHA_BF16, or AHA_I8 with the per-row scales
 // sx [M]); y: [M, N] of y_dtype (x's own type unless x is int8). K % G == 0,
 // G even. path: 0 scalar CUDA-core loads, 1 16-byte CUDA-core loads
-// (N % 16 == 0, 16-byte aligned weight), 2 tensor cores (M > 1, G % 32 == 0,
-// N % 8 == 0, x 16-byte and weight 8-byte aligned; bf16 x -> bf16 y, or int8
-// x); the wrapper checks.
+// (N % 16 == 0, 16-byte aligned weight), 2 tensor cores through mma.sync (M > 1,
+// G % 32 == 0, N % 8 == 0, x 16-byte and weight 8-byte aligned; bf16 x -> bf16 y,
+// or int8 x), 3 tensor cores through wgmma (bf16 x -> bf16 y, G % 64 == 0,
+// N % 16 == 0, x, weight and scales 16-byte aligned, tile: the token tile, a
+// multiple of 8 from 16 to 80; whole groups a split); the wrapper checks.
 extern "C" int aha_int4_matmul(const void* x, const void* sx, const void* w, const void* scale4,
                                void* y, void* workspace, int M, int K, int N, int G,
-                               int x_dtype, int y_dtype, int splits, int path, void* stream) {
+                               int x_dtype, int y_dtype, int splits, int path, int tile,
+                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M <= 0 || N <= 0 || K <= 0 || G <= 0 || G % 2 != 0 || K % G != 0 || splits < 1 ||
       (splits > 1 && workspace == nullptr) || (x_dtype == AHA_I8) != (sx != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const float* sxf = static_cast<const float*>(sx);
   cudaError_t err = cudaErrorInvalidValue;
+  if (path == kWgmma) {
+    if (x_dtype != AHA_BF16 || y_dtype != AHA_BF16) return static_cast<int>(err);
+    float* wsf = static_cast<float*>(workspace);
+    err = w4::launch(x, static_cast<const uint8_t*>(w), static_cast<const __nv_bfloat16*>(scale4),
+                     y, wsf, M, K, N, G, splits, tile, st);
+    if (err == cudaSuccess && splits > 1)
+      err = launch_splitk_reduce<__nv_bfloat16>(wsf, nullptr, nullptr,
+                                                static_cast<__nv_bfloat16*>(y), M, N, splits, st);
+    return static_cast<int>(err);
+  }
   if (x_dtype == AHA_F32 && y_dtype == AHA_F32 && path != kTensorCore)
     err = launch<float, float>(x, sxf, w, scale4, y, workspace, M, K, N, G, splits, path, st);
   else if (x_dtype == AHA_BF16 && y_dtype == AHA_BF16)

@@ -20,11 +20,13 @@ launches, or the call raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
 from . import LAUNCHES, _build
-from .int8_matmul import SCALAR, TENSOR_CORE, VEC16, splits_for
+from .int8_matmul import SCALAR, TENSOR_CORE, VEC16, num_sms, splits_on
 from .quantize_rows import quantize_rows, quantize_rows_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -63,26 +65,90 @@ def int4_matmul_plain(x: torch.Tensor, q4value: torch.Tensor, scale4: torch.Tens
     return y.to(x.dtype).reshape(*lead, N)
 
 
-def _path(x2: torch.Tensor, q4value: torch.Tensor, G: int, a8: bool) -> int:
-    M = x2.shape[0]
-    N = q4value.shape[1]
-    if ((a8 or x2.dtype == torch.bfloat16) and M > 1 and G % 32 == 0 and N % 8 == 0
-            and x2.data_ptr() % 16 == 0 and q4value.data_ptr() % 8 == 0):
-        return TENSOR_CORE
-    return VEC16 if N % 16 == 0 and q4value.data_ptr() % 16 == 0 else SCALAR
+WGMMA = 3                # the wgmma path of csrc/int4_matmul.cu (and of int4_matmul_t.cu)
+WGMMA_MIN_M = 14         # rows from which the bf16 product takes it; fewer keep mma.sync
+WGMMA_TILE_CAP = 80      # rows of its token tile at most (two accumulator sets of 2 x 40 registers)
 
 
-def int4_matmul(x: torch.Tensor, q4value: torch.Tensor, scale4: torch.Tensor, *,
-                a8: bool = False) -> torch.Tensor:
-    """x [..., K] (f32 or bf16) @ packed q4value [K/2, N] uint8 with group
-    scales scale4 [K/G, N] bf16 -> [..., N] in x's dtype. Any M, any N, K
-    even, K % G == 0 and G even. Counted as ``int4_matmul`` or
-    ``int4_matmul_a8``."""
-    if x.device.type == "cpu":
-        return int4_matmul_plain(x, q4value, scale4, a8)
-    if x.device.type != "cuda":
-        raise ValueError(f"int4_matmul: unsupported device {x.device}")
-    *lead, K = x.shape
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How a product is launched: the kernel's path, and on the wgmma path the
+    token tile (the width of its warpgroup products), the number of tiles, the
+    ring's slots and its shared memory (the kernel asks for it and a refusal
+    comes back as the launch's error); K splits everywhere."""
+    path: int
+    splits: int
+    tile: int = 0
+    tiles: int = 0
+    stages: int = 0
+    smem_bytes: int = 0
+
+
+def token_tile(M: int, cap: int) -> tuple[int, int]:
+    """M rows in as few tiles of at most ``cap`` rows as cover them, evened out
+    and rounded up to the 8 rows a warpgroup product's width moves in:
+    (rows per tile, tiles). 926 rows under a cap of 80 are 12 tiles of 80, under
+    128 8 tiles of 120; 196 rows under 80 are 3 tiles of 72."""
+    tiles = -(-M // cap)
+    rows = -(-M // tiles)
+    tile = 8 * -(-rows // 8)
+    return tile, -(-M // tile)
+
+
+def fwd_row_to_column(row: int) -> int:
+    """Which of a block's 128 weight columns accumulator row ``row`` (0 .. 63:
+    slab 0, 64 .. 127: slab 1) of the wgmma kernel is: the thread that holds
+    rows gid and gid + 8 of warp w in both slabs owns the four neighbouring
+    columns 4 (8 w + gid) .. + 3."""
+    slab, r = divmod(row, 64)
+    w, q = divmod(r, 16)
+    return 4 * (8 * w + q % 8) + 2 * slab + q // 8
+
+
+def wgmma_splits(sms: int, blocks: int, groups: int, stages: int) -> int:
+    """K splits of the wgmma kernel, whole groups each. A grid that leaves SMs
+    idle (two blocks share an SM) is split as everywhere, four groups a split at
+    least. A larger grid is split in 2 to 4 where K is long (64 stages of 64 a
+    split at least) and its last round of blocks would run nearly empty: 336
+    blocks of 296 stages on 264 places are two rounds for 1.27 rounds of work,
+    in three splits four rounds of a third the length."""
+    places = 2 * sms
+    if blocks < places:
+        return splits_on(sms, blocks, groups // 4)
+    best, cost = 1, float(-(-blocks // places))
+    for s in (2, 3, 4):
+        if stages // s < 64 or groups < s:
+            break
+        c = -(-blocks * s // places) / s
+        if c < cost - 0.1:
+            best, cost = s, c
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def plan(M: int, K: int, N: int, G: int, *, bf16: bool, a8: bool = False,
+         align: tuple[int, int, int] = (16, 16, 16), sms: int = 132) -> Plan:
+    """The launch of ``int4_matmul`` on a card of ``sms`` SMs for x [M, K]
+    (bf16 or f32; ``a8``: quantised to int8 first), q4value [K/2, N], scale4
+    [K/G, N] whose addresses are multiples of ``align`` bytes. Pure (no card
+    is asked) and remembered: a path's shapes recur with every pass."""
+    ax, aw, asc = align
+    if (bf16 and not a8 and M >= WGMMA_MIN_M and G % 64 == 0 and N % 16 == 0
+            and ax % 16 == 0 and aw % 16 == 0 and asc % 16 == 0):
+        tile, tiles = token_tile(M, WGMMA_TILE_CAP)
+        stages = 6
+        splits = wgmma_splits(sms, tiles * -(-N // 128), K // G, K // 64)
+        return Plan(WGMMA, splits, tile, tiles, stages, stages * (tile * 128 + 6144) + 1024)
+    if (a8 or bf16) and M > 1 and G % 32 == 0 and N % 8 == 0 and ax % 16 == 0 and aw % 8 == 0:
+        return Plan(TENSOR_CORE, splits_on(sms, -(-M // 64) * -(-N // 128), K // 256))
+    path = VEC16 if N % 16 == 0 and aw % 16 == 0 else SCALAR
+    # whole groups per split, four groups in flight per block
+    return Plan(path, splits_on(sms, -(-N // 128) * -(-M // 2), (K // G) // 4))
+
+
+def _check(x: torch.Tensor, q4value: torch.Tensor, scale4: torch.Tensor) -> tuple[int, int]:
+    """Raise on what no path of the kernel takes; (N, G) otherwise."""
+    K = x.shape[-1]
     if (q4value.dtype != torch.uint8 or q4value.dim() != 2 or K % 2
             or q4value.shape[0] * 2 != K):
         raise ValueError(f"int4_matmul: weight must be uint8 [K/2={K // 2}, N], got "
@@ -102,6 +168,25 @@ def int4_matmul(x: torch.Tensor, q4value: torch.Tensor, scale4: torch.Tensor, *,
             raise ValueError(f"int4_matmul: {what} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"int4_matmul: {what} must be contiguous")
+    return N, G
+
+
+def _align(t: torch.Tensor) -> int:
+    return 16 if t.data_ptr() % 16 == 0 else (8 if t.data_ptr() % 8 == 0 else 1)
+
+
+def int4_matmul(x: torch.Tensor, q4value: torch.Tensor, scale4: torch.Tensor, *,
+                a8: bool = False) -> torch.Tensor:
+    """x [..., K] (f32 or bf16) @ packed q4value [K/2, N] uint8 with group
+    scales scale4 [K/G, N] bf16 -> [..., N] in x's dtype. Any M, any N, K
+    even, K % G == 0 and G even. Counted as ``int4_matmul`` or
+    ``int4_matmul_a8``."""
+    if x.device.type == "cpu":
+        return int4_matmul_plain(x, q4value, scale4, a8)
+    if x.device.type != "cuda":
+        raise ValueError(f"int4_matmul: unsupported device {x.device}")
+    *lead, K = x.shape
+    N, G = _check(x, q4value, scale4)
     x2 = x.reshape(-1, K)
     M = x2.shape[0]
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
@@ -112,19 +197,16 @@ def int4_matmul(x: torch.Tensor, q4value: torch.Tensor, scale4: torch.Tensor, *,
     sx = None
     if a8:
         x2, sx = quantize_rows(x2)
-    path = _path(x2, q4value, G, a8)
-    if path == TENSOR_CORE:
-        splits = splits_for(-(-M // 64) * -(-N // 128), K // 256, x.device)
-    else:
-        # whole groups per split, four groups in flight per block
-        splits = splits_for(-(-N // 128) * -(-M // 2), (K // G) // 4, x.device)
-    ws = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
-          if splits > 1 else None)
+    pl = plan(M, K, N, G, bf16=x.dtype == torch.bfloat16, a8=a8,
+              align=(_align(x2), _align(q4value), _align(scale4)),
+              sms=num_sms(x.device.index or 0))
+    ws = (torch.empty((pl.splits, M, N), dtype=torch.float32, device=x.device)
+          if pl.splits > 1 else None)
     lib = _build.library()
     err = lib.aha_int4_matmul(
         x2.data_ptr(), None if sx is None else sx.data_ptr(), q4value.data_ptr(),
         scale4.data_ptr(), y.data_ptr(), None if ws is None else ws.data_ptr(),
-        M, K, N, G, _DTYPES[x2.dtype], _DTYPES[x.dtype], splits, path,
+        M, K, N, G, _DTYPES[x2.dtype], _DTYPES[x.dtype], pl.splits, pl.path, pl.tile,
         ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
     _build.check(lib, err, "int4_matmul")
     LAUNCHES["int4_matmul_a8" if a8 else "int4_matmul"] += 1

@@ -65,12 +65,17 @@ def _path(x2: torch.Tensor, qvalue: torch.Tensor, a8: bool) -> int:
     return VEC16 if N % 16 == 0 and qvalue.data_ptr() % 16 == 0 else SCALAR
 
 
-def splits_for(blocks: int, units: int, device: torch.device) -> int:
+def splits_on(sms: int, blocks: int, units: int) -> int:
     """Split K over blocks when the output-tile grid (``blocks``) would leave
-    the SMs idle; ``units`` bounds the number of splits (each keeps at least
-    one unit of K)."""
-    want = -(-2 * num_sms(device.index or 0) // blocks)
+    a card of ``sms`` SMs idle; ``units`` bounds the number of splits (each
+    keeps at least one unit of K)."""
+    want = -(-2 * sms // blocks)
     return max(1, min(want, units, 64))
+
+
+def splits_for(blocks: int, units: int, device: torch.device) -> int:
+    """``splits_on`` for the card ``device``."""
+    return splits_on(num_sms(device.index or 0), blocks, units)
 
 
 def _launch(name: str, x: torch.Tensor, qvalue: torch.Tensor, scale: torch.Tensor,

@@ -12,7 +12,12 @@ Phases, one or more lines each:
      every shape the 7B paths of phases 4 and 5 hand it (all five matmul
      entries at the four layer products for each row count of PATH_M, lm_head
      at 1, 4 and 8 rows, the projector at 392 and 1568; int4_matmul and its
-     transpose int4_matmul_t at the training sequence's 926 rows; the flash
+     transpose int4_matmul_t at the training sequence's 926 rows, at row counts
+     that straddle the token tiles of their wgmma kernels, at G = 64 and 256 and
+     at shapes only their earlier paths take, with the path the wrapper chose
+     checked, each launched twice for equal bits, and beside torch.matmul on a
+     weight dequantised beforehand (the product alone, timed and used nowhere;
+     a launch under 100 us is timed from a replayed CUDA graph); the flash
      attention's forward and backward at T = 926, at ragged lengths, at
      T = 63, 64, 65 and 129 across its tile edges, at T = 4096, and with a
      padding mask, each launched twice for equal bits, beside
@@ -230,6 +235,30 @@ def _dt(dt) -> str:
     return str(dt)[6:]
 
 
+def dequantized(q4value, scale4):
+    """The packed int4 weight as the bf16 matrix [K, N] a library product would
+    be handed: scale * (nibble - 8), rounded once."""
+    import torch
+
+    from aha_tpu_torch.ops.kernels.int4_matmul import unpack_int4
+
+    K, N = 2 * q4value.shape[0], q4value.shape[1]
+    w = unpack_int4(q4value).reshape(scale4.shape[0], -1, N).to(torch.bfloat16)
+    return (w * scale4[:, None, :]).reshape(K, N)
+
+
+def product_only_ms(a, w, short: bool, transposed: bool = False) -> float:
+    """``torch.matmul`` of bf16 ``a`` with the dequantised weight ``w`` [K, N]
+    (``transposed``: with its transpose): the yardstick of the int4 products,
+    timed and used nowhere. It reads four times the weight bytes and unpacks
+    nothing. ``short``: timed as the kernel beside it was, from a graph."""
+    import torch
+
+    wt = w.t() if transposed else w
+    timer = graph_ms if short else cuda_ms
+    return timer(lambda i: torch.matmul(a, wt))
+
+
 def check_matmuls(gen, stats: Stats):
     import torch
 
@@ -256,6 +285,17 @@ def check_matmuls(gen, stats: Stats):
     # multiple of 32 (the CUDA-core path at M > 1)
     ragged4 = [("ragged", 7, 128, 77, 128), ("ragged", 1, 64, 33, 64), ("ragged", 13, 384, 130, 64),
                ("ragged", 5, 96, 48, 6), ("ragged", 3, 256, 40, 128)]
+    # int4, bf16, weight-only on the wgmma path: row counts that straddle its token
+    # tiles (80 rows at most) and the training tile of the transposed kernel, the
+    # projector's rows at a layer shape, a long K in three splits, G = 64 and 256
+    wgmma4 = [("tile-edge", M, 3584, 4608, 128) for M in (14, 79, 80, 81, 161, 231, 232, 233, 257)]
+    wgmma4 += [("tile-edge", 1568, 3584, 4608, 128), ("tile-edge", 1568, 18944, 3584, 128),
+               ("g64", 100, 1024, 1024, 64), ("g256", 100, 1024, 1024, 256),
+               ("g256", 926, 3584, 3584, 256)]
+    # bf16 shapes that the wgmma kernel does not take and the earlier paths must: N
+    # not a multiple of 8 (CUDA cores), G a multiple of 32 but not of 64 (mma.sync);
+    # so is the edge case above (N = 136 is no multiple of 16: mma.sync)
+    old4 = [("old-path-ragged-n", 70, 320, 132, 64), ("old-path-g32", 70, 320, 136, 32)]
 
     # (kernel name, weight bits, a8, cases, M of the representative set)
     families = [
@@ -270,7 +310,8 @@ def check_matmuls(gen, stats: Stats):
         ("int4_matmul", 4, False,
          [(*c, 128, bf, 1e-2) for c in cards]
          + [(n, TRAIN_T, *layer[n], 128, bf, 1e-2) for n in layer]   # the training sequence
-         + [(*r, f32, 1e-4) for r in ragged4] + [(*edge, 64, bf, 1e-2)], 196),
+         + [(*r, f32, 1e-4) for r in ragged4] + [(*edge, 64, bf, 1e-2)]
+         + [(*c, bf, 1e-2) for c in wgmma4 + old4], 196),
         ("int4_matmul_a8", 4, True,
          [(*c, 128, bf, 2e-2) for c in cards]
          + [(*r, f32, 1e-4) for r in ragged4] + [(*edge, 64, bf, 2e-2)], 196),
@@ -305,7 +346,24 @@ def check_matmuls(gen, stats: Stats):
             err = rel_check(what, y, ref, tol)
             stats.err(name, err)
             stats.checked.add((name, M, K, N))
+            note = ""
+            if name == "int4_matmul":
+                # which kernel the wrapper chose, and the same bits from a second launch
+                # (K splits are added in a fixed order, no atomics)
+                pl = k4.plan(M, K, N, G, bf16=dt == bf, sms=k8.num_sms(0))
+                want_new = (dt == bf and M >= k4.WGMMA_MIN_M and not label.startswith("old-path")
+                            and label not in ("ragged", "ragged-tc"))
+                if (pl.path == k4.WGMMA) != want_new:
+                    raise AssertionError(f"{what}: path {pl.path}, wgmma expected: {want_new}")
+                if not torch.equal(y, run(x, ws[0])):
+                    raise AssertionError(f"{what}: two launches on the same inputs differ")
+                note = (f" path={pl.path} tile={pl.tile}x{pl.tiles} splits={pl.splits} "
+                        f"smem={pl.smem_bytes} equal_twice")
             ms = cuda_ms(lambda i: run(x, ws[i % copies]))
+            if name == "int4_matmul" and ms < 0.1:
+                # shorter than the host's work to launch it: device time from a graph
+                note += f" loop_ms={ms:.4f}"
+                ms = graph_ms(lambda i: run(x, ws[i % copies]))
             pms = cuda_ms(lambda i: plain(x, ws[i % copies]), iters=3, warmup=1)
             esize = x.element_size()
             bms, by = bound_ms(M * K * esize + wbytes + sbytes + M * N * esize, 2.0 * M * K * N,
@@ -316,12 +374,15 @@ def check_matmuls(gen, stats: Stats):
                 xq = torch.randint(-127, 128, (M, K), generator=gen, device=dev,
                                    dtype=torch.int8)
                 lib = cuda_ms(lambda i: torch._int_mm(xq, ws[i % copies]))
+            if name == "int4_matmul" and M in (rep_m, TRAIN_T) and label in layer:
+                # the bf16 product alone, on a weight dequantised beforehand
+                lib = product_only_ms(x, dequantized(ws[0], sc), ms < 0.1)
             if M == rep_m and label in layer and dt == bf:
                 stats.add(name, ms, pms, bms, by, lib,
                           f"decoder layer (qkv, o_proj, gate_up, down) at M={M}, bf16")
-            if M == TRAIN_T:
+            if M == TRAIN_T and label in layer:
                 stats.train_fwd_ms += ms
-            print(f"phase2 {what} {_dt(dt)} max_abs_err={err:.3e} kernel_ms={ms:.4f} "
+            print(f"phase2 {what} {_dt(dt)} max_abs_err={err:.3e}{note} kernel_ms={ms:.4f} "
                   f"plain_ms={pms:.4f} bound_ms={bms:.4f} ({by}) library_ms="
                   f"{'none' if lib is None else f'{lib:.4f}'}", flush=True)
             del ws
@@ -441,10 +502,20 @@ def check_int4_matmul_t(gen, stats: Stats):
     dev = "cuda"
     bf, f32 = torch.bfloat16, torch.float32
     # (label, M, K, N, G, dtype, tol)
-    cases = [(n, TRAIN_T, K, N, 128, bf, 1e-2) for n, K, N in LAYER]
+    cases = [(n, M, K, N, 128, bf, 1e-2) for M in (TRAIN_T, 196) for n, K, N in LAYER]
+    # row counts that straddle the wgmma kernel's token tiles (128 rows at most),
+    # the projector's rows, G = 64 and 256
+    cases += [("tile-edge", M, 3584, 3584, 128, bf, 1e-2)
+              for M in (1, 127, 128, 129, 231, 232, 233, 257, 1568)]
+    cases += [("g64", 100, 1024, 1024, 64, bf, 1e-2), ("g256", 100, 1024, 1024, 256, bf, 1e-2),
+              ("g256", 926, 3584, 3584, 256, bf, 1e-2)]
+    # shapes the wgmma kernel does not take: f32, N not a multiple of 64 (mma.sync
+    # from a multiple of 32, else CUDA cores), G not a multiple of 64
     cases += [("ragged", 7, 128, 77, 128, f32, 1e-4), ("ragged", 1, 64, 33, 64, f32, 1e-4),
               ("ragged", 13, 384, 130, 64, f32, 1e-4), ("ragged", 5, 96, 48, 6, f32, 1e-4),
-              ("ragged", 9, 64, 50, 64, bf, 1e-2), ("ragged-tc", 70, 136, 320, 68, bf, 1e-2)]
+              ("ragged", 9, 64, 50, 64, bf, 1e-2), ("old-path-g68", 70, 136, 320, 68, bf, 1e-2),
+              ("old-path-n96", 70, 256, 96, 64, bf, 1e-2)]
+    layer_names = {n for n, _, _ in LAYER}
     for label, M, K, N, G, dt, tol in cases:
         wbytes = K * N // 2
         copies = max(1, math.ceil(160e6 / wbytes))
@@ -458,16 +529,34 @@ def check_int4_matmul_t(gen, stats: Stats):
         err = rel_check(what, y, ref, tol)
         stats.err("int4_matmul_t", err)
         stats.checked.add(("int4_matmul_t", M, K, N))
+        pl = kt.plan(M, K, N, G, bf16=dt == bf)
+        want_new = dt == bf and label in layer_names | {"tile-edge", "g64", "g256"}
+        if (pl.path == kt.WGMMA) != want_new:
+            raise AssertionError(f"{what}: path {pl.path}, wgmma expected: {want_new}")
+        # no sum crosses blocks: the same bits from a second launch
+        if not torch.equal(y, kt.int4_matmul_t(g, ws[0], sc)):
+            raise AssertionError(f"{what}: two launches on the same inputs differ")
+        note = f" path={pl.path} tile={pl.tile}x{pl.tiles} smem={pl.smem_bytes} equal_twice"
         ms = cuda_ms(lambda i: kt.int4_matmul_t(g, ws[i % copies], sc))
+        short = ms < 0.1
+        if short:
+            # shorter than the host's work to launch it: device time from a graph
+            note += f" loop_ms={ms:.4f}"
+            ms = graph_ms(lambda i: kt.int4_matmul_t(g, ws[i % copies], sc))
         pms = cuda_ms(lambda i: kt.int4_matmul_t_plain(g, ws[i % copies], sc), iters=3, warmup=1)
         esize = g.element_size()
         bms, by = bound_ms(M * N * esize + wbytes + 2 * (K // G) * N + M * K * esize,
                            2.0 * M * K * N, "bf16" if dt == bf else "f32")
-        if M == TRAIN_T:
-            stats.add("int4_matmul_t", ms, pms, bms, by, None,
+        lib = None
+        if label in layer_names:
+            # the bf16 product alone, on a weight dequantised beforehand
+            lib = product_only_ms(g, dequantized(ws[0], sc), short, transposed=True)
+        if M == TRAIN_T and lib is not None:
+            stats.add("int4_matmul_t", ms, pms, bms, by, lib,
                       f"decoder layer (qkv, o_proj, gate_up, down) transposed at M={M}, bf16")
-        print(f"phase2 {what} {_dt(dt)} max_abs_err={err:.3e} kernel_ms={ms:.4f} "
-              f"plain_ms={pms:.4f} bound_ms={bms:.4f} ({by}) library_ms=none", flush=True)
+        print(f"phase2 {what} {_dt(dt)} max_abs_err={err:.3e}{note} kernel_ms={ms:.4f} "
+              f"plain_ms={pms:.4f} bound_ms={bms:.4f} ({by}) library_ms="
+              f"{'none' if lib is None else f'{lib:.4f}'}", flush=True)
         del ws
 
 
