@@ -6,29 +6,167 @@
 // (rep, s); cached keys get a per-slot residual RoPE rotation (rotate-half,
 // cos/sin tables per slot); a slot is visible to a row iff
 // order[slot] >= 0 && order[slot] <= g[row]; softmax is online; the output
-// is P.V normalised by the row sum. In int8 KV mode the per-(slot, head)
-// K scales multiply the score columns and the V scales the probability
-// columns, so the cache is read as int8.
+// is P.V normalised by the row sum, and a row that sees no slot gives zeros.
+// In int8 KV mode the per-(slot, head) K scales multiply the score columns
+// and the V scales the probability columns.
 //
-// Design (simple and exact first): one block of 4 warps per (tile of 16
-// query rows, kv head, batch row). The block walks all Wp slots in tiles of
-// 32: it stages the tile's K (rotated, in f32) and V in shared memory with
-// 4-element vector loads, then each warp scores its 4 rows side by side
-// against the 32 slots (one slot per lane), updates the running max / sum
-// with warp shuffles and accumulates P.V with each lane owning Dh/32 output
-// dims. The ragged tail of the 2049-slot cache is masked here; the cache
-// needs no padding to a tile multiple.
+// What bounds it on an H100: bytes. One layer's cache is 2049 slots x 4 kv
+// heads x 128 x 2 (K, V) x 2 bytes = 4.2 MB in bf16 for the 7B, read in about
+// 1.3 us at 3.35 TB/s; the products are 4 x rows x visible slots x 128
+// operations, 1.4 GFLOP at 49 rows (1.5 us on the tensor cores, 21 us in f32 on
+// the CUDA cores). The TPU kernel walks the slots as the sequential axis of its
+// grid and carries the softmax state in scratch from one step to the next; on
+// this card that leaves one block per (row tile, kv head, batch row): 4 blocks
+// on 132 SMs for a token. So here the window is split over blocks
+// (flash-decoding) and every block of a (row tile, kv head, batch row) owns one
+// contiguous slot range:
 //
-// What bounds it on an H100: the K/V bytes of one layer (2049 x 4 x 128 x 2
-// x 2 bytes = 4 MB in bf16 for the 7B) are read once per row tile; at S = 1
-// only B x KVH blocks run, so a single-token step uses 4 SMs of 132. The
-// split-W (flash-decoding) form that spreads the slots over more blocks and
-// a tensor-core (wgmma) inner product are left for later changes.
+//   1. each block walks its range in slot tiles and keeps its rows' running
+//      maximum m, sum l and f32 accumulator; with one split it normalises and
+//      writes the output itself, else it writes (m, l, acc) to scratch;
+//   2. a merge kernel combines the splits of each row in split order:
+//      M = max m_i, l = sum l_i e^(m_i - M), o = sum acc_i e^(m_i - M) / max(l, 1e-30);
+//      a split in which a row saw nothing has m = -inf and adds nothing, a
+//      row that saw nothing anywhere gives zeros. No atomics: two launches on
+//      the same inputs give the same bits.
+//
+// The wrapper (ops/kernels/decode_attention.py::plan) picks the path, the
+// slots per split and the number of splits (as many as one round of resident
+// blocks holds, 4 a SM on the CUDA cores and 2 on the tensor cores, with at
+// least 3 slot tiles a split there; one split, and no merge, where the row
+// tiles fill the round; a token: 65 splits of 32 slots, 260 blocks) and
+// allocates the scratch, whose size comes from
+// aha_decode_attention_scratch_bytes. One C call launches what a path needs;
+// splits start on slot-tile boundaries, and the ragged end of the 2049-slot
+// cache is masked in the kernels, not padded.
+//
+// Two paths:
+//
+// * Tensor cores (wgmma), bf16 q at head size 128 with a bf16 or int8 cache,
+//   from 16 rows per kv head on (S = 13 .. 220 on the 7B: 91 .. 1540 rows). A
+//   first kernel rotates every cached key once, in f32 from the f32 tables,
+//   and rounds it to bf16 into scratch (an int8 V is widened to bf16 there,
+//   exactly); then a block is one warpgroup that owns 64 rows, as the flash
+//   forward (flash_attention.cu) is: the rotated K and the V tiles of 64 slots
+//   arrive by cp.async in a two-stage ring of 128-byte-swizzled tiles,
+//   s = q k^T is a warpgroup product of two tiles in shared memory, the
+//   online softmax runs in registers (order / g mask and int8 K scales on the
+//   score columns), and o += p v takes p, times the int8 V scales and rounded
+//   to bf16, as its register operand and V through its descriptor. The
+//   rotated K and p are rounded to bf16 where the TPU kernel rounds them
+//   (k_rot.astype(cdt), pv.astype(cdt)). Rotating in the attention blocks
+//   themselves would make every row tile and every kv head read the f32
+//   tables again: 64 of every 96 KB a slot tile brings, three times the
+//   traffic of the rotated bf16 key.
+// * CUDA cores, f32 arithmetic, everything else: fewer than 16 rows (S = 1
+//   and 2 on the 7B: a token, 7 rows), f32, head sizes 16 / 32 / 64. A block
+//   of 4 warps owns 16 rows and walks its slot range in tiles of 32: the
+//   tile's K (rotated in f32 from its own cos / sin) and V are staged in
+//   shared memory with 4-element vector loads, each warp scores its 4 rows
+//   against the 32 slots (one slot per lane), updates the running max / sum
+//   with warp shuffles and accumulates P.V with each lane owning Dh/32 output
+//   dims. Only the order of the f32 sums differs from the plain version.
 #include <math.h>
 
-#include "common.cuh"
+#include "attention.cuh"
 
 namespace {
+
+enum Path { kCudaCores = 0, kWgmma = 1 };
+
+// ---- merge: the splits of each row, in split order ----------------------------------
+//
+// part_o [B * KVH][splits][M][Dh] f32, part_ml [B * KVH][splits][M][2] (m, l);
+// m is the running maximum of the scaled scores, in log2 units when log2dom
+// (the tensor-core kernel's), natural ones otherwise. One warp a row, a lane V
+// neighbouring dims: the lanes read the splits' maxima and weights side by
+// side, then the sums run over the splits in split order, the weights handed
+// out by shuffles, so that the loads of many splits' partials are in flight
+// together.
+template <int V> struct Vec;
+template <> struct Vec<1> {
+  static __device__ __forceinline__ void load(const float* p, float (&o)[1]) { o[0] = *p; }
+};
+template <> struct Vec<2> {
+  static __device__ __forceinline__ void load(const float* p, float (&o)[2]) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    o[0] = v.x; o[1] = v.y;
+  }
+};
+template <> struct Vec<4> {
+  static __device__ __forceinline__ void load(const float* p, float (&o)[4]) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
+  }
+};
+
+template <typename QT, int DH>
+__global__ void __launch_bounds__(128)
+decode_merge_kernel(const float* __restrict__ part_o, const float* __restrict__ part_ml,
+                    QT* __restrict__ out, int rows, int M, int S, int NH, int KVH, int splits,
+                    int log2dom) {
+  constexpr int V = DH >= 128 ? 4 : (DH >= 64 ? 2 : 1);   // dims a lane owns
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r = blockIdx.x * 4 + warp;
+  if (r >= rows) return;
+  const bool owner = lane * V < DH;
+  const int bk = r / M, R = r % M, b = bk / KVH, kvh = bk % KVH;
+  const size_t base = static_cast<size_t>(bk) * splits * M + R;   // split i: base + i * M
+  float mx = -INFINITY;
+#pragma unroll 4
+  for (int i = lane; i < splits; i += 32) mx = fmaxf(mx, part_ml[2 * (base + static_cast<size_t>(i) * M)]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  float l = 0.f, acc[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) acc[e] = 0.f;
+  if (mx != -INFINITY) {   // else the row saw no slot: zeros
+    for (int c0 = 0; c0 < splits; c0 += 32) {
+      float w = 0.f, li = 0.f;   // split c0 + lane's weight (0 where it saw nothing) and sum
+      if (c0 + lane < splits) {
+        const size_t p = base + static_cast<size_t>(c0 + lane) * M;
+        const float mi = part_ml[2 * p];
+        w = log2dom ? exp2f(mi - mx) : expf(mi - mx);
+        li = part_ml[2 * p + 1];
+      }
+      const int n = min(32, splits - c0);
+#pragma unroll 16
+      for (int j = 0; j < n; ++j) {
+        const float wj = __shfl_sync(0xffffffffu, w, j), lj = __shfl_sync(0xffffffffu, li, j);
+        l = fmaf(lj, wj, l);
+        if (owner) {
+          float x[V];
+          Vec<V>::load(part_o + (base + static_cast<size_t>(c0 + j) * M) * DH + lane * V, x);
+#pragma unroll
+          for (int e = 0; e < V; ++e) acc[e] = fmaf(x[e], wj, acc[e]);
+        }
+      }
+    }
+  }
+  if (!owner) return;
+  const float inv = 1.f / fmaxf(l, 1e-30f);
+  const int n_rep = NH / KVH, rep = R / S, s = R % S;
+  QT* o = out + ((static_cast<size_t>(b) * S + s) * NH + kvh * n_rep + rep) * DH + lane * V;
+#pragma unroll
+  for (int e = 0; e < V; ++e) o[e] = from_f32<QT>(acc[e] * inv);
+}
+
+template <typename QT>
+cudaError_t launch_merge(const float* part_o, const float* part_ml, QT* out, int B, int S, int NH,
+                         int KVH, int Dh, int splits, bool log2dom, cudaStream_t st) {
+  const int M = (NH / KVH) * S, rows = B * KVH * M;
+  const int blocks = (rows + 3) / 4;
+  switch (Dh) {
+    case 16: decode_merge_kernel<QT, 16><<<blocks, 128, 0, st>>>(part_o, part_ml, out, rows, M, S, NH, KVH, splits, log2dom); break;
+    case 32: decode_merge_kernel<QT, 32><<<blocks, 128, 0, st>>>(part_o, part_ml, out, rows, M, S, NH, KVH, splits, log2dom); break;
+    case 64: decode_merge_kernel<QT, 64><<<blocks, 128, 0, st>>>(part_o, part_ml, out, rows, M, S, NH, KVH, splits, log2dom); break;
+    case 128: decode_merge_kernel<QT, 128><<<blocks, 128, 0, st>>>(part_o, part_ml, out, rows, M, S, NH, KVH, splits, log2dom); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+// ---- CUDA cores: f32 arithmetic ------------------------------------------------------
 
 constexpr int kWarps = 4;
 constexpr int kRowsPerWarp = 4;
@@ -36,19 +174,23 @@ constexpr int kRows = kWarps * kRowsPerWarp;  // query rows per block
 constexpr int kBW = 32;                        // cache slots per tile
 constexpr int kThreads = kWarps * 32;
 
+// grid (splits, row tiles, B * KVH); the split owns slots [split * span, min(Wp, + span))
 template <typename QT, typename KT, int DH>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ kc,
                         const KT* __restrict__ vc, const float* __restrict__ cosb,
                         const float* __restrict__ sinb, const int* __restrict__ order,
                         const int* __restrict__ g, const float* __restrict__ ksc,
-                        const float* __restrict__ vsc, QT* __restrict__ out, int S, int NH,
-                        int KVH, int Wp, float scale) {
+                        const float* __restrict__ vsc, QT* __restrict__ out,
+                        float* __restrict__ part_o, float* __restrict__ part_ml, int S, int NH,
+                        int KVH, int Wp, int span, float scale) {
   constexpr int DPL = (DH + 31) / 32;  // output dims per lane
   constexpr int HALF = DH / 2;
-  const int tile = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x, tile = blockIdx.y, bk = blockIdx.z;
+  const int b = bk / KVH, kvh = bk % KVH;
   const int n_rep = NH / KVH;
   const int M = n_rep * S;
+  const int w_begin = split * span, w_end = min(Wp, w_begin + span);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   __shared__ __align__(16) float q_s[kRows][DH];
@@ -60,14 +202,20 @@ decode_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ kc,
   __shared__ int ord_s[kBW];
   __shared__ float ks_s[kBW], vs_s[kBW];
 
-  for (int i = threadIdx.x; i < kRows * DH; i += blockDim.x) {
-    const int r = i / DH, d = i % DH, R = tile * kRows + r;
-    float val = 0.f;
-    if (R < M) {
-      const int rep = R / S, s = R % S;
-      val = to_f32(q[((static_cast<size_t>(b) * S + s) * NH + kvh * n_rep + rep) * DH + d]);
+  // the query rows, 4 dims a thread (no barrier between these loads and the
+  // first tile's: both are in flight together)
+#pragma unroll
+  for (int it = 0; it < (kRows * DH / 4 + kThreads - 1) / kThreads; ++it) {
+    const int i = threadIdx.x + it * kThreads;
+    if (i < kRows * DH / 4) {
+      const int r = i / (DH / 4), d = (i % (DH / 4)) * 4, R = tile * kRows + r;
+      float val[4] = {0.f, 0.f, 0.f, 0.f};
+      if (R < M) {
+        const int rep = R / S, s = R % S;
+        load4(q + ((static_cast<size_t>(b) * S + s) * NH + kvh * n_rep + rep) * DH + d, val);
+      }
+      *reinterpret_cast<float4*>(&q_s[r][d]) = make_float4(val[0], val[1], val[2], val[3]);
     }
-    q_s[r][d] = val;
   }
   if (threadIdx.x < kRows) {
     const int R = tile * kRows + threadIdx.x;
@@ -86,8 +234,8 @@ decode_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ kc,
 
   const bool scaled = ksc != nullptr;
   const int row0 = warp * kRowsPerWarp;
-  for (int w0 = 0; w0 < Wp; w0 += kBW) {
-    __syncthreads();  // the previous tile is consumed
+  for (int w0 = w_begin; w0 < w_end; w0 += kBW) {
+    if (w0 != w_begin) __syncthreads();  // the previous tile is consumed
     // stage the tile: each thread takes 4 consecutive dims of a slot (vector
     // loads of K, its rotate-half partner, cos, sin and V), DH / 16 items
 #pragma unroll
@@ -95,7 +243,7 @@ decode_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ kc,
       const int i = threadIdx.x + it * kThreads;
       const int j = i / (DH / 4), d = (i % (DH / 4)) * 4, slot = w0 + j;
       float kr[4] = {0.f, 0.f, 0.f, 0.f}, vv[4] = {0.f, 0.f, 0.f, 0.f};
-      if (slot < Wp) {
+      if (slot < w_end) {
         const size_t base = ((static_cast<size_t>(b) * Wp + slot) * KVH + kvh) * DH;
         const size_t tb = (static_cast<size_t>(b) * Wp + slot) * DH;
         float x[4], xp[4], cs[4], sn[4];
@@ -114,7 +262,7 @@ decode_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ kc,
     }
     if (threadIdx.x < kBW) {
       const int slot = w0 + threadIdx.x;
-      const bool in = slot < Wp;
+      const bool in = slot < w_end;
       ord_s[threadIdx.x] = in ? order[static_cast<size_t>(b) * Wp + slot] : -1;
       const size_t si = (static_cast<size_t>(b) * Wp + slot) * KVH + kvh;
       ks_s[threadIdx.x] = (in && scaled) ? ksc[si] : 1.f;
@@ -181,6 +329,19 @@ decode_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ kc,
   for (int rr = 0; rr < kRowsPerWarp; ++rr) {
     const int R = tile * kRows + row0 + rr;
     if (R >= M) continue;
+    if (part_o != nullptr) {   // one split of several: the partial state, unnormalised
+      const size_t p = (static_cast<size_t>(bk) * gridDim.x + split) * M + R;
+#pragma unroll
+      for (int dd = 0; dd < DPL; ++dd) {
+        const int d = lane + 32 * dd;
+        if (d < DH) part_o[p * DH + d] = acc[rr][dd];
+      }
+      if (lane == 0) {
+        part_ml[2 * p] = m_i[rr];
+        part_ml[2 * p + 1] = l_i[rr];
+      }
+      continue;
+    }
     const int rep = R / S, s = R % S;
     const float inv = 1.f / fmaxf(l_i[rr], 1e-30f);
     QT* o = out + ((static_cast<size_t>(b) * S + s) * NH + kvh * n_rep + rep) * DH;
@@ -193,53 +354,404 @@ decode_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ kc,
 }
 
 template <typename QT, typename KT, int DH>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* cs,
-                   const void* sn, const void* order, const void* g, const void* ks,
-                   const void* vs, void* out, int B, int S, int NH, int KVH, int Wp,
-                   float scale, cudaStream_t st) {
+cudaError_t launch_cuda_cores(const void* q, const void* k, const void* v, const void* cs,
+                              const void* sn, const void* order, const void* g, const void* ks,
+                              const void* vs, void* out, float* part_o, float* part_ml, int B,
+                              int S, int NH, int KVH, int Wp, int span, int splits, float scale,
+                              cudaStream_t st) {
   const int M = (NH / KVH) * S;
-  const dim3 grid((M + kRows - 1) / kRows, KVH, B);
+  const dim3 grid(splits, (M + kRows - 1) / kRows, B * KVH);
   decode_attention_kernel<QT, KT, DH><<<grid, kThreads, 0, st>>>(
       static_cast<const QT*>(q), static_cast<const KT*>(k), static_cast<const KT*>(v),
       static_cast<const float*>(cs), static_cast<const float*>(sn),
       static_cast<const int*>(order), static_cast<const int*>(g),
-      static_cast<const float*>(ks), static_cast<const float*>(vs), static_cast<QT*>(out), S,
-      NH, KVH, Wp, scale);
+      static_cast<const float*>(ks), static_cast<const float*>(vs), static_cast<QT*>(out),
+      part_o, part_ml, S, NH, KVH, Wp, span, scale);
   return cudaGetLastError();
 }
 
 template <typename QT, typename KT>
 cudaError_t by_dim(int Dh, const void* q, const void* k, const void* v, const void* cs,
                    const void* sn, const void* order, const void* g, const void* ks,
-                   const void* vs, void* out, int B, int S, int NH, int KVH, int Wp,
-                   float scale, cudaStream_t st) {
+                   const void* vs, void* out, float* po, float* pml, int B, int S, int NH,
+                   int KVH, int Wp, int span, int splits, float scale, cudaStream_t st) {
   switch (Dh) {
-    case 16: return launch<QT, KT, 16>(q, k, v, cs, sn, order, g, ks, vs, out, B, S, NH, KVH, Wp, scale, st);
-    case 32: return launch<QT, KT, 32>(q, k, v, cs, sn, order, g, ks, vs, out, B, S, NH, KVH, Wp, scale, st);
-    case 64: return launch<QT, KT, 64>(q, k, v, cs, sn, order, g, ks, vs, out, B, S, NH, KVH, Wp, scale, st);
-    case 128: return launch<QT, KT, 128>(q, k, v, cs, sn, order, g, ks, vs, out, B, S, NH, KVH, Wp, scale, st);
+    case 16: return launch_cuda_cores<QT, KT, 16>(q, k, v, cs, sn, order, g, ks, vs, out, po, pml, B, S, NH, KVH, Wp, span, splits, scale, st);
+    case 32: return launch_cuda_cores<QT, KT, 32>(q, k, v, cs, sn, order, g, ks, vs, out, po, pml, B, S, NH, KVH, Wp, span, splits, scale, st);
+    case 64: return launch_cuda_cores<QT, KT, 64>(q, k, v, cs, sn, order, g, ks, vs, out, po, pml, B, S, NH, KVH, Wp, span, splits, scale, st);
+    case 128: return launch_cuda_cores<QT, KT, 128>(q, k, v, cs, sn, order, g, ks, vs, out, po, pml, B, S, NH, KVH, Wp, span, splits, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// ---- tensor cores: bf16 q at head size 128 -------------------------------------------
+
+namespace tc {
+
+using namespace attn;   // tiles, copies, products, stores: wgmma.cuh, attention.cuh
+
+// eight consecutive values of a cached row as f32 (16 bytes of bf16, 8 of int8)
+__device__ __forceinline__ void load8(const bf16* p, float (&o)[8]) {
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
+    o[2 * i] = __low2float(h);
+    o[2 * i + 1] = __high2float(h);
+  }
+}
+__device__ __forceinline__ void load8(const int8_t* p, float (&o)[8]) {
+  const int2 u = __ldg(reinterpret_cast<const int2*>(p));
+  const char4 a = *reinterpret_cast<const char4*>(&u.x), c = *reinterpret_cast<const char4*>(&u.y);
+  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+  o[4] = c.x; o[5] = c.y; o[6] = c.z; o[7] = c.w;
+}
+__device__ __forceinline__ void load8(const float* p, float (&o)[8]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 c = __ldg(reinterpret_cast<const float4*>(p + 4));
+  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+  o[4] = c.x; o[5] = c.y; o[6] = c.z; o[7] = c.w;
+}
+__device__ __forceinline__ void store8(bf16* p, const float (&x)[8]) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]),
+                                            pack_bf16(x[4], x[5]), pack_bf16(x[6], x[7]));
+}
+
+// Every cached key rotated by its slot's cos / sin in f32 and rounded to bf16:
+// krot [B, Wp, KVH, 128]; with an int8 cache also V widened to bf16 (exact). A
+// thread takes dims 8c .. 8c + 7 and their rotate-half partners 64 + 8c .. of
+// one (slot, head).
+template <typename KT>
+__global__ void __launch_bounds__(256)
+decode_rotate_keys_kernel(const KT* __restrict__ kc, const KT* __restrict__ vc,
+                          const float* __restrict__ cosb, const float* __restrict__ sinb,
+                          bf16* __restrict__ krot, bf16* __restrict__ vwide, int n, int KVH) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int c = i & 7, row = i >> 3, bs = row / KVH;   // row: (b, slot, head); bs: (b, slot)
+  const size_t at = static_cast<size_t>(row) * kDh + 8 * c, tb = static_cast<size_t>(bs) * kDh + 8 * c;
+  float x1[8], x2[8], c1[8], c2[8], s1[8], s2[8], r1[8], r2[8];
+  load8(kc + at, x1);
+  load8(kc + at + 64, x2);
+  load8(cosb + tb, c1);
+  load8(cosb + tb + 64, c2);
+  load8(sinb + tb, s1);
+  load8(sinb + tb + 64, s2);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    r1[e] = x1[e] * c1[e] - x2[e] * s1[e];   // rotate_half: (-x2, x1)
+    r2[e] = x2[e] * c2[e] + x1[e] * s2[e];
+  }
+  store8(krot + at, r1);
+  store8(krot + at + 64, r2);
+  if (vwide != nullptr) {
+    load8(vc + at, x1);
+    load8(vc + at + 64, x2);
+    store8(vwide + at, x1);
+    store8(vwide + at + 64, x2);
+  }
+}
+
+// A block is one warpgroup that owns 64 rows (rows R: rep R / S, position R % S)
+// of one (batch row, kv head) and walks the 64-slot tiles of its split: s = q k^T,
+// mask and K scales, online softmax in registers, o += p v. K runs one tile ahead
+// of V in the two-stage ring (as in the flash forward), so that q k(t)^T and
+// p(t - 1) v(t - 1) are in the tensor cores together; each stage also holds its
+// tile's order (and the int8 scales), copied beside its keys. Grid (splits, row
+// tiles, B * KVH).
+constexpr int kMeta = 3 * 2 * kTile * 4;   // order, K scales, V scales of two stages
+constexpr int smem_bytes() { return 5 * kTileBytes + kMeta + kAlignSlack; }
+
+template <bool SCALED>
+__global__ void __launch_bounds__(kWgThreads)
+decode_attention_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ krot,
+                              const bf16* __restrict__ vb, const int* __restrict__ order,
+                              const int* __restrict__ g, const float* __restrict__ ksc,
+                              const float* __restrict__ vsc, bf16* __restrict__ out,
+                              float* __restrict__ part_o, float* __restrict__ part_ml, int S,
+                              int NH, int KVH, int Wp, int span, float scale) {
+  extern __shared__ __align__(128) unsigned char smem_tc[];
+  unsigned char* qs = align_tiles(smem_tc);
+  unsigned char* ks = qs + kTileBytes;       // two stages
+  unsigned char* vs = ks + 2 * kTileBytes;   // two stages
+  int* ord_s = reinterpret_cast<int*>(vs + 2 * kTileBytes);            // [2][64]
+  float* ksc_s = reinterpret_cast<float*>(ord_s + 2 * kTile);          // [2][64]
+  float* vsc_s = ksc_s + 2 * kTile;                                    // [2][64]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+  const int split = blockIdx.x, bk = blockIdx.z, b = bk / KVH, kvh = bk % KVH;
+  const int n_rep = NH / KVH, M = n_rep * S, R0 = blockIdx.y * kTile, row0 = warp * 16;
+  const int w_begin = split * span, w_end = min(Wp, w_begin + span);
+  const int ntiles = (w_end - w_begin + kTile - 1) / kTile;
+  const float sl2 = scale * kLog2e;
+
+  const TileCopy copy(static_cast<size_t>(KVH) * kDh);   // a slot's rows lie KVH * 128 apart
+  const size_t kv0 = (static_cast<size_t>(b) * Wp * KVH + kvh) * kDh;   // slot 0 of this head
+  auto load_slots = [&](const bf16* src, unsigned char* stages, int t) {
+    const int s0 = w_begin + t * kTile;
+    copy(stages + (t & 1) * kTileBytes, src + kv0 + static_cast<size_t>(s0) * KVH * kDh, w_end - s0);
+  };
+  auto load_k = [&](int t) {
+    load_slots(krot, ks, t);
+    const int s0 = w_begin + t * kTile, stage = (t & 1) * kTile;
+    // slots past the split's end are empty (order -1)
+    for (int i = threadIdx.x; i < (SCALED ? 3 : 1) * kTile; i += kWgThreads) {
+      const int which = i / kTile, j = i % kTile, slot = s0 + j;
+      const size_t bsl = static_cast<size_t>(b) * Wp + slot;
+      if (which == 0) {
+        if (slot < w_end) cp_async4(smem_addr(ord_s + stage + j), order + bsl, true);
+        else ord_s[stage + j] = -1;
+      } else {
+        float* dst = (which == 1 ? ksc_s : vsc_s) + stage + j;
+        const float* src = (which == 1 ? ksc : vsc) + bsl * KVH + kvh;
+        if (slot < w_end) cp_async4(smem_addr(dst), src, true);
+        else *dst = 0.f;
+      }
+    }
+  };
+  load_tile_async(qs, [&](int r, bool& ok) {
+    const int R = R0 + r;
+    ok = R < M;
+    const int Rc = ok ? R : 0;
+    return q + ((static_cast<size_t>(b) * S + Rc % S) * NH + kvh * n_rep + Rc / S) * kDh;
+  });
+  load_k(0);
+  cp_async_commit();
+
+  // this thread's two rows; a row past M sees nothing (order <= -2 never holds) and is not written
+  const int Ra = R0 + row0 + gid, Rb = Ra + 8;
+  const int g_a = Ra < M ? g[b * S + Ra % S] : -2, g_b = Rb < M ? g[b * S + Rb % S] : -2;
+
+  float o_lo[32], o_hi[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o_lo[i] = o_hi[i] = 0.f;
+  // running maxima (of the scores before scale * log2 e) and this thread's share of the row sums
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+  uint32_t pa[4][4];
+
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait_all();
+    __syncthreads();   // k(t) and v(t - 1) have arrived; k(t - 1) and v(t - 2) are consumed
+    if (t + 1 < ntiles) load_k(t + 1);
+    load_slots(vb, vs, t);
+    cp_async_commit();
+
+    float s[32];
+    wg_fence();
+    wg_products_nt(s, qs, ks + (t & 1) * kTileBytes);
+    wg_commit();
+    if (t > 0) {
+      wg_products_pn(o_lo, o_hi, pa, vs + ((t - 1) & 1) * kTileBytes);
+      wg_commit();
+      wg_wait<1>();
+    } else {
+      wg_wait<0>();
+    }
+    keep(s);
+
+    // the order mask of each (row, slot); int8 K scales on the score columns
+    const int* ord = ord_s + (t & 1) * kTile;
+    const float* ksct = ksc_s + (t & 1) * kTile;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * tig + (e & 1), o = ord[col];
+        const bool vis = o >= 0 && o <= (e < 2 ? g_a : g_b);
+        const float x = SCALED ? s[4 * j + e] * ksct[col] : s[4 * j + e];
+        s[4 * j + e] = vis ? x : -INFINITY;
+      }
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      mx_a = fmaxf(mx_a, fmaxf(s[4 * j], s[4 * j + 1]));
+      mx_b = fmaxf(mx_b, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+    const float mn_a = fmaxf(m_a, quad_max(mx_a)), mn_b = fmaxf(m_b, quad_max(mx_b));
+    // p = 2^(s sl2 - m sl2); while a row has seen no slot its maximum stays -inf: subtract 0
+    const float mu_a = mn_a == -INFINITY ? 0.f : mn_a * sl2;
+    const float mu_b = mn_b == -INFINITY ? 0.f : mn_b * sl2;
+    const float al_a = fast_exp2(m_a * sl2 - mu_a), al_b = fast_exp2(m_b * sl2 - mu_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s[4 * j] = fast_exp2(fmaf(s[4 * j], sl2, -mu_a));
+      s[4 * j + 1] = fast_exp2(fmaf(s[4 * j + 1], sl2, -mu_a));
+      s[4 * j + 2] = fast_exp2(fmaf(s[4 * j + 2], sl2, -mu_b));
+      s[4 * j + 3] = fast_exp2(fmaf(s[4 * j + 3], sl2, -mu_b));
+      sum_a += s[4 * j] + s[4 * j + 1];
+      sum_b += s[4 * j + 2] + s[4 * j + 3];
+    }
+    l_a = l_a * al_a + sum_a;
+    l_b = l_b * al_b + sum_b;
+    if (SCALED) {   // int8 V scales on the probability columns, after the row sums
+      const float* vsct = vsc_s + (t & 1) * kTile;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[4 * j + e] *= vsct[8 * j + 2 * tig + (e & 1)];
+    }
+
+    wg_wait<0>();      // p(t - 1) v(t - 1) is in o
+    keep(o_lo);
+    keep(o_hi);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      o_lo[4 * j] *= al_a; o_lo[4 * j + 1] *= al_a; o_lo[4 * j + 2] *= al_b; o_lo[4 * j + 3] *= al_b;
+      o_hi[4 * j] *= al_a; o_hi[4 * j + 1] *= al_a; o_hi[4 * j + 2] *= al_b; o_hi[4 * j + 3] *= al_b;
+    }
+    wg_round(pa, s);   // p, rounded to bf16, is the A operand of p v
+  }
+  cp_async_wait_all();
+  __syncthreads();     // the last v has arrived
+  keep(o_lo);
+  keep(o_hi);
+  wg_fence();
+  wg_products_pn(o_lo, o_hi, pa, vs + ((ntiles - 1) & 1) * kTileBytes);
+  wg_commit();
+  wg_wait<0>();
+  keep(o_lo);
+  keep(o_hi);
+
+  l_a = quad_sum(l_a);
+  l_b = quad_sum(l_b);
+  if (part_o == nullptr) {   // the only split: normalise and write the rows
+    store_rows(qs, o_lo, o_hi, l_a > 0.f ? 1.f / l_a : 0.f, l_b > 0.f ? 1.f / l_b : 0.f,
+               [&](int r) -> bf16* {
+                 const int R = R0 + r;
+                 return R < M ? out + ((static_cast<size_t>(b) * S + R % S) * NH + kvh * n_rep +
+                                       R / S) * kDh
+                              : nullptr;
+               });
+    return;
+  }
+  // one split of several: (m in log2 units, l, acc) of each row, for the merge
+  const size_t pbase = (static_cast<size_t>(bk) * gridDim.x + split) * M;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int R = h ? Rb : Ra;
+    if (R >= M) continue;
+    float* po = part_o + (pbase + R) * kDh + 2 * tig;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      *reinterpret_cast<float2*>(po + 8 * j) = make_float2(o_lo[4 * j + 2 * h], o_lo[4 * j + 2 * h + 1]);
+      *reinterpret_cast<float2*>(po + 64 + 8 * j) =
+          make_float2(o_hi[4 * j + 2 * h], o_hi[4 * j + 2 * h + 1]);
+    }
+    if (tig == 0) {
+      part_ml[2 * (pbase + R)] = (h ? m_b : m_a) * sl2;
+      part_ml[2 * (pbase + R) + 1] = h ? l_b : l_a;
+    }
+  }
+}
+
+}  // namespace tc
+
+size_t align256(size_t n) { return (n + 255) & ~static_cast<size_t>(255); }
+
+// bytes of the rotated keys (and of the widened int8 V) on the tensor-core path
+size_t rotated_bytes(int B, int Wp, int KVH, int kv_dtype, int path) {
+  if (path != kWgmma) return 0;
+  const size_t one = align256(static_cast<size_t>(B) * Wp * KVH * attn::kDh * 2);
+  return kv_dtype == AHA_I8 ? 2 * one : one;
+}
+
 }  // namespace
+
+extern "C" long long aha_decode_attention_scratch_bytes(int B, int S, int NH, int KVH, int Dh,
+                                                        int Wp, int kv_dtype, int path,
+                                                        int splits) {
+  if (B <= 0 || S <= 0 || KVH <= 0 || NH % KVH != 0 || Wp <= 0 || splits <= 0) return -1;
+  size_t n = rotated_bytes(B, Wp, KVH, kv_dtype, path);
+  if (splits > 1) {
+    const size_t rows = static_cast<size_t>(B) * KVH * splits * (NH / KVH) * S;
+    n += align256(rows * Dh * 4) + rows * 2 * 4;
+  }
+  return static_cast<long long>(n);
+}
 
 extern "C" int aha_decode_attention(const void* q, const void* k, const void* v,
                                     const void* cs, const void* sn, const void* order,
                                     const void* g, const void* ks, const void* vs, void* out,
-                                    int B, int S, int NH, int KVH, int Dh, int Wp, int q_dtype,
-                                    int kv_dtype, float scale, void* stream) {
+                                    void* scratch, int B, int S, int NH, int KVH, int Dh, int Wp,
+                                    int q_dtype, int kv_dtype, float scale, int path, int span,
+                                    int splits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || S <= 0 || KVH <= 0 || NH % KVH != 0 || Wp <= 0 || (kv_dtype == AHA_I8) != (ks != nullptr))
+  const int tile = path == kWgmma ? wg::kTile : kBW;
+  if (B <= 0 || S <= 0 || KVH <= 0 || NH % KVH != 0 || Wp <= 0 ||
+      (kv_dtype == AHA_I8) != (ks != nullptr) || splits <= 0 || span <= 0 || span % tile != 0 ||
+      static_cast<long long>(splits - 1) * span >= Wp || static_cast<long long>(splits) * span < Wp ||
+      (path != kCudaCores && path != kWgmma) || B * KVH > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int M = (NH / KVH) * S;
+  unsigned char* sc = static_cast<unsigned char*>(scratch);
+  const size_t rot = rotated_bytes(B, Wp, KVH, kv_dtype, path);
+  float* part_o = nullptr;
+  float* part_ml = nullptr;
+  if (splits > 1 || rot > 0) {
+    if (sc == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (splits > 1) {
+    const size_t rows = static_cast<size_t>(B) * KVH * splits * M;
+    part_o = reinterpret_cast<float*>(sc + rot);
+    part_ml = reinterpret_cast<float*>(sc + rot + align256(rows * Dh * 4));
+  }
   cudaError_t err = cudaErrorInvalidValue;
-  if (q_dtype == AHA_F32 && kv_dtype == AHA_F32)
-    err = by_dim<float, float>(Dh, q, k, v, cs, sn, order, g, ks, vs, out, B, S, NH, KVH, Wp, scale, st);
-  else if (q_dtype == AHA_F32 && kv_dtype == AHA_I8)
-    err = by_dim<float, int8_t>(Dh, q, k, v, cs, sn, order, g, ks, vs, out, B, S, NH, KVH, Wp, scale, st);
-  else if (q_dtype == AHA_BF16 && kv_dtype == AHA_BF16)
-    err = by_dim<__nv_bfloat16, __nv_bfloat16>(Dh, q, k, v, cs, sn, order, g, ks, vs, out, B, S, NH, KVH, Wp, scale, st);
-  else if (q_dtype == AHA_BF16 && kv_dtype == AHA_I8)
-    err = by_dim<__nv_bfloat16, int8_t>(Dh, q, k, v, cs, sn, order, g, ks, vs, out, B, S, NH, KVH, Wp, scale, st);
+  if (path == kWgmma) {
+    using tc::bf16;
+    if (q_dtype != AHA_BF16 || Dh != attn::kDh || (kv_dtype != AHA_BF16 && kv_dtype != AHA_I8))
+      return static_cast<int>(cudaErrorInvalidValue);
+    bf16* krot = reinterpret_cast<bf16*>(sc);
+    bf16* vwide = kv_dtype == AHA_I8 ? reinterpret_cast<bf16*>(sc + rot / 2) : nullptr;
+    const int n = B * Wp * KVH * 8;
+    const float* cosp = static_cast<const float*>(cs);
+    const float* sinp = static_cast<const float*>(sn);
+    if (kv_dtype == AHA_I8)
+      tc::decode_rotate_keys_kernel<int8_t><<<(n + 255) / 256, 256, 0, st>>>(
+          static_cast<const int8_t*>(k), static_cast<const int8_t*>(v), cosp, sinp, krot, vwide,
+          n, KVH);
+    else
+      tc::decode_rotate_keys_kernel<bf16><<<(n + 255) / 256, 256, 0, st>>>(
+          static_cast<const bf16*>(k), static_cast<const bf16*>(v), cosp, sinp, krot, nullptr, n,
+          KVH);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const bf16* vsrc = vwide != nullptr ? vwide : static_cast<const bf16*>(v);
+    const dim3 grid(splits, (M + wg::kTile - 1) / wg::kTile, B * KVH);
+    const int smem = tc::smem_bytes();
+    if (ks != nullptr) {
+      err = wg::allow_smem(tc::decode_attention_wgmma_kernel<true>, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      tc::decode_attention_wgmma_kernel<true><<<grid, wg::kWgThreads, smem, st>>>(
+          static_cast<const bf16*>(q), krot, vsrc, static_cast<const int*>(order),
+          static_cast<const int*>(g), static_cast<const float*>(ks), static_cast<const float*>(vs),
+          static_cast<bf16*>(out), part_o, part_ml, S, NH, KVH, Wp, span, scale);
+    } else {
+      err = wg::allow_smem(tc::decode_attention_wgmma_kernel<false>, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      tc::decode_attention_wgmma_kernel<false><<<grid, wg::kWgThreads, smem, st>>>(
+          static_cast<const bf16*>(q), krot, vsrc, static_cast<const int*>(order),
+          static_cast<const int*>(g), nullptr, nullptr, static_cast<bf16*>(out), part_o, part_ml,
+          S, NH, KVH, Wp, span, scale);
+    }
+    err = cudaGetLastError();
+  } else if (q_dtype == AHA_F32 && kv_dtype == AHA_F32) {
+    err = by_dim<float, float>(Dh, q, k, v, cs, sn, order, g, ks, vs, out, part_o, part_ml, B, S, NH, KVH, Wp, span, splits, scale, st);
+  } else if (q_dtype == AHA_F32 && kv_dtype == AHA_I8) {
+    err = by_dim<float, int8_t>(Dh, q, k, v, cs, sn, order, g, ks, vs, out, part_o, part_ml, B, S, NH, KVH, Wp, span, splits, scale, st);
+  } else if (q_dtype == AHA_BF16 && kv_dtype == AHA_BF16) {
+    err = by_dim<__nv_bfloat16, __nv_bfloat16>(Dh, q, k, v, cs, sn, order, g, ks, vs, out, part_o, part_ml, B, S, NH, KVH, Wp, span, splits, scale, st);
+  } else if (q_dtype == AHA_BF16 && kv_dtype == AHA_I8) {
+    err = by_dim<__nv_bfloat16, int8_t>(Dh, q, k, v, cs, sn, order, g, ks, vs, out, part_o, part_ml, B, S, NH, KVH, Wp, span, splits, scale, st);
+  }
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  if (q_dtype == AHA_F32)
+    err = launch_merge<float>(part_o, part_ml, static_cast<float*>(out), B, S, NH, KVH, Dh, splits,
+                              path == kWgmma, st);
+  else
+    err = launch_merge<__nv_bfloat16>(part_o, part_ml, static_cast<__nv_bfloat16*>(out), B, S, NH,
+                                      KVH, Dh, splits, path == kWgmma, st);
   return static_cast<int>(err);
 }

@@ -61,7 +61,7 @@
 // shared memory. The entry points choose by dtype and head size.
 #include <math.h>
 
-#include "wgmma.cuh"
+#include "attention.cuh"
 
 namespace {
 
@@ -557,12 +557,10 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
 // thread, zero-filled past the end of the sequence.
 namespace tc {
 
-using namespace wg;   // tiles, copies and warpgroup products: wgmma.cuh
+using namespace attn;   // tiles, copies, warpgroup products: wgmma.cuh; the tile products,
+                        // reductions and stores the attention kernels share: attention.cuh
 typedef unsigned long long u64;
 
-constexpr int kDh = 128;                   // head size of this path: a tile (kTile = 64 rows, keys
-                                           // or positions) is two halves of 64 columns
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr u64 kAllKeys = ~0ull;
 
 // rows R0 .. R0 + 63 of group g (row R: position R / rep, head g * rep + R % rep)
@@ -588,57 +586,6 @@ __device__ __forceinline__ u64 key_mask(const uint8_t* __restrict__ key_valid, i
   return (static_cast<u64>(hi) << 32) | lo;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-// 2^x as one ex2.approx (2 ulp; -inf gives 0)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// ---- products of tiles ---------------------------------------------------------------
-
-// s [64 x 64] = A B^T over the 128 columns of two tiles (rows of A: the output's
-// rows; rows of B: its columns); started, not waited for
-__device__ __forceinline__ void wg_products_nt(float (&s)[32], const unsigned char* a,
-                                               const unsigned char* b) {
-  const uint32_t at = smem_addr(a), bt = smem_addr(b);
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    const uint32_t off = (kk >> 2) * kHalfBytes + (kk & 3) * 32;
-    wgmma_ss(s, wg_desc(at + off), wg_desc(bt + off), kk != 0);
-  }
-}
-// acc [64 x 128] (lo: columns 0 .. 63, hi: 64 .. 127) += P B with P [64 x 64] in
-// A fragments and B a tile whose 64 rows are the contraction; started, not waited for
-__device__ __forceinline__ void wg_products_pn(float (&lo)[32], float (&hi)[32],
-                                               const uint32_t (&pa)[4][4], const unsigned char* b) {
-  const uint32_t bt = smem_addr(b);
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    wgmma_rs_t(lo, pa[kk], wg_desc(bt + kk * 16 * 128));
-    wgmma_rs_t(hi, pa[kk], wg_desc(bt + kHalfBytes + kk * 16 * 128));
-  }
-}
-// an accumulator [64 x 64] rounded to bf16 as the A fragments of the next product
-__device__ __forceinline__ void wg_round(uint32_t (&pa)[4][4], const float (&s)[32]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) pa[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
-}
-
 // s, where the mask hides a key from a row, becomes `hidden`. Rows: this
 // thread's, at positions pos_a and pos_b; columns: keys k0 .. k0 + 63, km their
 // validity bits.
@@ -655,34 +602,17 @@ __device__ __forceinline__ void mask_scores(float (&s)[32], u64 km, int k0, int 
     }
 }
 
-// A warp's 16 finished rows (lo: columns 0 .. 63, hi: 64 .. 127; rows gid and
-// gid + 8 times f0 and f1): through its own rows of the consumed query tile and
-// out to dst [B, T, NH, 128] in 16-byte stores
+// A warp's 16 finished rows, rows gid and gid + 8 times f0 and f1, out to dst
+// [B, T, NH, 128] (store_rows, attention.cuh)
 __device__ __forceinline__ void store_group_rows(unsigned char* qs, const float (&lo)[32],
                                                  const float (&hi)[32], float f0, float f1,
                                                  bf16* __restrict__ dst, int b, int g, int R0,
                                                  int nrows, int rep, int Tn, int NH) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3, row0 = warp * 16;
-  __syncthreads();   // every warp's products have read the query tile
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    unsigned char* a = qs + swz(row0 + gid, j) + tig * 4;
-    unsigned char* c = qs + swz(row0 + gid + 8, j) + tig * 4;
-    *reinterpret_cast<uint32_t*>(a) = pack_bf16(lo[4 * j] * f0, lo[4 * j + 1] * f0);
-    *reinterpret_cast<uint32_t*>(c) = pack_bf16(lo[4 * j + 2] * f1, lo[4 * j + 3] * f1);
-    *reinterpret_cast<uint32_t*>(a + kHalfBytes) = pack_bf16(hi[4 * j] * f0, hi[4 * j + 1] * f0);
-    *reinterpret_cast<uint32_t*>(c + kHalfBytes) = pack_bf16(hi[4 * j + 2] * f1, hi[4 * j + 3] * f1);
-  }
-  __syncwarp();
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int idx = lane + 32 * i, r = row0 + (idx >> 4), c = idx & 15, R = R0 + r;
-    if (R < nrows)
-      *reinterpret_cast<uint4*>(
-          dst + (static_cast<size_t>(b * Tn + R / rep) * NH + g * rep + R % rep) * kDh + c * 8) =
-          *reinterpret_cast<const uint4*>(qs + swz(r, c));
-  }
+  store_rows(qs, lo, hi, f0, f1, [&](int r) -> bf16* {
+    const int R = R0 + r;
+    return R < nrows ? dst + (static_cast<size_t>(b * Tn + R / rep) * NH + g * rep + R % rep) * kDh
+                     : nullptr;
+  });
 }
 
 // ---- forward -------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 // Hopper primitives shared by the tensor-core kernels (flash_attention.cu,
-// int4_matmul.cu, int4_matmul_t.cu): asynchronous copies into 128-byte-swizzled
+// decode_attention.cu, int4_matmul.cu, int4_matmul_t.cu; the two attention
+// sources share more in attention.cuh): asynchronous copies into 128-byte-swizzled
 // tiles of shared memory, and warpgroup products (wgmma) on them. sm_90a only.
 //
 // A block is one warpgroup (4 warps) that owns 64 rows of a product; warp w

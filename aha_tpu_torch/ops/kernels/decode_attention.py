@@ -1,5 +1,5 @@
-"""Cached GQA attention over the ring-buffer cache: the CUDA kernel
-``csrc/decode_attention.cu`` and its plain PyTorch version.
+"""Cached GQA attention over the ring-buffer cache: the CUDA kernels of
+``csrc/decode_attention.cu`` and their plain PyTorch versions.
 
 Counterpart of ``aha_tpu/ops/pallas/decode_attention.py::
 cached_decode_attention``, with the same contract: ``q_rot`` is already
@@ -8,6 +8,10 @@ per-slot rotation by (cos, sin); a slot is visible to query s iff
 ``order >= 0 & order <= g[s]``; in int8 KV mode the per-(slot, head) scales
 fold into the score and probability columns.
 
+The kernels split the window over blocks and merge the splits' softmax
+states in a fixed order (``plan`` chooses path and splits;
+``decode_attention_split_plain`` is the same arithmetic in PyTorch).
+
 On a CPU tensor the plain version runs; on a CUDA tensor the kernel
 launches, or the call raises.
 """
@@ -15,15 +19,27 @@ launches, or the call raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 
 import torch
 
 from ..rope import rotate_half
 from . import LAUNCHES, _build
+from .int8_matmul import num_sms
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 HEAD_DIMS = (16, 32, 64, 128)
+
+CUDA_CORES = 0           # f32 arithmetic, 16 rows and 32-slot tiles a block
+WGMMA = 1                # bf16 tensor cores, 64 rows and 64-slot tiles a block
+WGMMA_MIN_ROWS = 16      # rows per kv head (n_rep * S) from which bf16 at Dh 128 takes it
+# blocks of a path that one SM holds at once (the CUDA-core kernel: 128 threads of
+# 128 registers; the tensor-core kernel: 84 KB of shared memory), and the least
+# slot tiles a split of several walks (a tensor-core block loads 64 query rows first)
+RESIDENT = {CUDA_CORES: 4, WGMMA: 2}
+MIN_TILES = {CUDA_CORES: 1, WGMMA: 3}
 
 
 def decode_attention_plain(q_rot, k_cache, v_cache, cos, sin, order, g, kv_scales=None):
@@ -53,6 +69,108 @@ def decode_attention_plain(q_rot, k_cache, v_cache, cos, sin, order, g, kv_scale
     return o.reshape(B, S, NH, Dh).to(q_rot.dtype)
 
 
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How a call is launched: the path; its rows and slots per tile; the
+    slots of each split (whole slot tiles; the last split ends at Wp) and
+    the number of splits, none of them empty; the blocks of the attention
+    kernel, (batch row, kv head, row tile, split). With one split the blocks
+    write the output and no merge runs."""
+    path: int
+    row_tile: int
+    row_tiles: int
+    slot_tile: int
+    span: int
+    splits: int
+    blocks: int
+
+    def bounds(self, Wp: int) -> list[tuple[int, int]]:
+        """Each split's slots [lo, hi), in split order."""
+        return [(i * self.span, min(Wp, (i + 1) * self.span)) for i in range(self.splits)]
+
+
+@functools.lru_cache(maxsize=None)
+def plan(B: int, S: int, NH: int, KVH: int, Dh: int, Wp: int, q_dtype: torch.dtype,
+         kv_dtype: torch.dtype, *, sms: int = 132) -> Plan:
+    """The launch of ``decode_attention`` on a card of ``sms`` SMs. Tensor
+    cores for bf16 q at head size 128 (bf16 or int8 cache) from
+    ``WGMMA_MIN_ROWS`` rows per kv head; CUDA cores otherwise. The window is
+    split into as many parts as one round of resident blocks holds
+    (``RESIDENT`` a SM), each of at least ``MIN_TILES`` slot tiles, then
+    evened out over the slot tiles: a 7B token is 4 kv heads x 65 splits of 32
+    slots (260 blocks), a 49-row frame chunk 24 row tiles x 11 splits of 192.
+    Where the row tiles alone fill the round, one split. Pure (no card is
+    asked) and remembered: a path's shapes recur with every pass."""
+    M = (NH // KVH) * S
+    if (q_dtype == torch.bfloat16 and Dh == 128 and kv_dtype in (torch.bfloat16, torch.int8)
+            and M >= WGMMA_MIN_ROWS):
+        path, row_tile, slot_tile = WGMMA, 64, 64
+    else:
+        path, row_tile, slot_tile = CUDA_CORES, 16, 32
+    row_tiles = -(-M // row_tile)
+    base = B * KVH * row_tiles
+    n_tiles = -(-Wp // slot_tile)
+    want = max(1, min(RESIDENT[path] * sms // base, n_tiles // MIN_TILES[path]))
+    per = -(-n_tiles // want)          # slot tiles per split
+    splits = -(-n_tiles // per)
+    return Plan(path, row_tile, row_tiles, slot_tile, per * slot_tile, splits, base * splits)
+
+
+def decode_attention_split_plain(q_rot, k_cache, v_cache, cos, sin, order, g, kv_scales=None, *,
+                                 pl: Plan, bf16_products: bool = False):
+    """The kernels' arithmetic in PyTorch: each split of ``pl`` walks its
+    slots in ``pl.slot_tile`` tiles with a running maximum, sum and
+    accumulator, and the splits merge in split order (M = max m_i, weights
+    e^(m_i - M), a row that saw nothing anywhere gives zeros).
+    ``bf16_products``: the tensor-core path's roundings, the rotated key and
+    p (times the V scale) to bf16 before their products, an int8 V widened to
+    bf16 (exact). Same contract as ``decode_attention_plain``."""
+    B, S, NH, Dh = q_rot.shape
+    Wp, KVH = k_cache.shape[1], k_cache.shape[2]
+    kf = k_cache.float()
+    k_rot = kf * cos[:, :, None, :] + rotate_half(kf) * sin[:, :, None, :]
+    vf = v_cache.float()
+    if bf16_products:
+        k_rot = k_rot.to(torch.bfloat16).float()
+    qg = q_rot.float().reshape(B, S, KVH, NH // KVH, Dh).permute(0, 2, 3, 1, 4)   # [B,KVH,rep,S,Dh]
+    visible = ((order[:, None, :] >= 0) & (order[:, None, :] <= g[:, :, None]))[:, None, None]
+    ks = vs = None
+    if kv_scales is not None:
+        ks, vs = (t.float().transpose(1, 2)[:, :, None, None, :] for t in kv_scales)
+    scale = 1.0 / math.sqrt(Dh)
+    neg = torch.full(qg.shape[:-1], float("-inf"), device=qg.device)
+    parts = []
+    for lo, hi in pl.bounds(Wp):
+        m, l, acc = neg.clone(), torch.zeros_like(neg), torch.zeros_like(qg)
+        for t0 in range(lo, hi, pl.slot_tile):
+            t1 = min(hi, t0 + pl.slot_tile)
+            s = torch.einsum("bgrsd,bwgd->bgrsw", qg, k_rot[:, t0:t1]) * scale
+            if ks is not None:
+                s = s * ks[..., t0:t1]
+            s = s.masked_fill(~visible[..., t0:t1], float("-inf"))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            seen = m_new > float("-inf")
+            alpha = torch.where(seen, torch.exp(m - m_new), torch.ones_like(m))
+            p = torch.where(seen[..., None], torch.exp(s - m_new[..., None]), torch.zeros_like(s))
+            l = l * alpha + p.sum(dim=-1)
+            if vs is not None:
+                p = p * vs[..., t0:t1]
+            if bf16_products:
+                p = p.to(torch.bfloat16).float()
+            acc = acc * alpha[..., None] + torch.einsum("bgrsw,bwgd->bgrsd", p, vf[:, t0:t1])
+            m = m_new
+        parts.append((m, l, acc))
+    top = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    seen = top > float("-inf")
+    l, acc = torch.zeros_like(top), torch.zeros_like(qg)
+    for m_i, l_i, acc_i in parts:
+        w = torch.where(seen, torch.exp(m_i - top), torch.zeros_like(top))
+        l = l + l_i * w
+        acc = acc + acc_i * w[..., None]
+    o = acc / torch.clamp(l, min=1e-30)[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(B, S, NH, Dh).to(q_rot.dtype)
+
+
 def _check(q_rot, k_cache, v_cache, cos, sin, order, g, kv_scales):
     if q_rot.dim() != 4 or k_cache.dim() != 4:
         raise ValueError("decode_attention: q_rot and the cache must be 4-D")
@@ -69,6 +187,8 @@ def _check(q_rot, k_cache, v_cache, cos, sin, order, g, kv_scales):
         raise ValueError("decode_attention: kv_scales go with an int8 cache, and only there")
     if NH % KVH:
         raise ValueError(f"decode_attention: {NH} heads over {KVH} kv heads")
+    if B * KVH > 65535:
+        raise ValueError(f"decode_attention: B * KVH = {B * KVH} exceeds the kernel's grid")
     want = {
         "k_cache": (k_cache, (B, Wp, KVH, Dh), None),
         "v_cache": (v_cache, (B, Wp, KVH, Dh), None),
@@ -81,6 +201,8 @@ def _check(q_rot, k_cache, v_cache, cos, sin, order, g, kv_scales):
     if kv_scales is not None:
         want["k_scale"] = (kv_scales[0], (B, Wp, KVH), torch.float32)
         want["v_scale"] = (kv_scales[1], (B, Wp, KVH), torch.float32)
+    # 16-byte vector loads and copies where the tensor-core path reads whole rows
+    vector = ("q_rot", "k_cache", "v_cache", "cos", "sin")
     for name, (t, shape, dtype) in want.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"decode_attention: {name} shape {tuple(t.shape)} != {shape}")
@@ -90,8 +212,18 @@ def _check(q_rot, k_cache, v_cache, cos, sin, order, g, kv_scales):
             raise ValueError(f"decode_attention: {name} on {t.device}, q on {q_rot.device}")
         if not t.is_contiguous():
             raise ValueError(f"decode_attention: {name} must be contiguous")
-        if t.data_ptr() % (4 * t.element_size()):
-            raise ValueError(f"decode_attention: {name} must start 4-element aligned")
+        if t.data_ptr() % (4 * t.element_size()) or (name in vector and t.data_ptr() % 16):
+            raise ValueError(f"decode_attention: {name} must start 16-byte and 4-element aligned")
+
+
+@functools.lru_cache(maxsize=None)
+def _scratch_bytes(B, S, NH, KVH, Dh, Wp, kv_dtype, path, splits) -> int:
+    lib = _build.library()
+    n = lib.aha_decode_attention_scratch_bytes(B, S, NH, KVH, Dh, Wp, _DTYPES[kv_dtype], path,
+                                               splits)
+    if n < 0:
+        raise ValueError(f"decode_attention: no scratch size for {(B, S, NH, KVH, Dh, Wp)}")
+    return n
 
 
 def decode_attention(q_rot, k_cache, v_cache, cos, sin, order, g, kv_scales=None):
@@ -103,15 +235,20 @@ def decode_attention(q_rot, k_cache, v_cache, cos, sin, order, g, kv_scales=None
     _check(q_rot, k_cache, v_cache, cos, sin, order, g, kv_scales)
     B, S, NH, Dh = q_rot.shape
     Wp, KVH = k_cache.shape[1], k_cache.shape[2]
+    pl = plan(B, S, NH, KVH, Dh, Wp, q_rot.dtype, k_cache.dtype,
+              sms=num_sms(q_rot.device.index or 0))
     out = torch.empty_like(q_rot)
+    nbytes = _scratch_bytes(B, S, NH, KVH, Dh, Wp, k_cache.dtype, pl.path, pl.splits)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=q_rot.device) if nbytes else None
     ks, vs = (None, None) if kv_scales is None else (kv_scales[0].data_ptr(),
                                                      kv_scales[1].data_ptr())
     lib = _build.library()
     err = lib.aha_decode_attention(
         q_rot.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), cos.data_ptr(),
         sin.data_ptr(), order.data_ptr(), g.data_ptr(), ks, vs, out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
         B, S, NH, KVH, Dh, Wp, _DTYPES[q_rot.dtype], _DTYPES[k_cache.dtype],
-        1.0 / math.sqrt(Dh),
+        1.0 / math.sqrt(Dh), pl.path, pl.span, pl.splits,
         ctypes.c_void_p(torch.cuda.current_stream(q_rot.device).cuda_stream))
     _build.check(lib, err, "decode_attention")
     LAUNCHES["decode_attention"] += 1

@@ -61,6 +61,10 @@ from torch.profiler import ProfilerActivity, profile
 
 VISION_FRAMES = 32
 GEN_TOKENS = 32
+# the cached attention's kernels (csrc/decode_attention.cu), listed in the write
+# passes' tables with their calls per unit, launched or not
+DECODE_KERNELS = ("decode_attention_kernel", "decode_attention_wgmma_kernel",
+                  "decode_rotate_keys_kernel", "decode_merge_kernel")
 
 
 def _short(name: str) -> str:
@@ -124,8 +128,10 @@ class Trace:
 
 def report(label: str, units: int, unit: str, wall_ms: float, traced_wall_ms: float,
            busy_ms: float, kernels: dict, aten: collections.Counter, top: int = 6,
-           also: tuple = ()) -> None:
-    """``also``: kernels whose name holds one of these are listed below the top ones too."""
+           also: tuple = (), named: tuple = ()) -> None:
+    """``also``: kernels whose name holds one of these are listed below the top
+    ones too; ``named``: kernels listed by these exact names, with 0 calls
+    where the unit launched none."""
     n_kernels = sum(c for c, _ in kernels.values())
     print(f"profile {label}: per {unit} wall {wall_ms / units:.3f} ms (traced "
           f"{traced_wall_ms / units:.3f} ms), device busy {busy_ms / units:.3f} ms, "
@@ -134,11 +140,16 @@ def report(label: str, units: int, unit: str, wall_ms: float, traced_wall_ms: fl
           f"per {unit} ({units} {unit}s traced)", flush=True)
     total_us = sum(t for _, t in kernels.values())
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1][1])
-    listed = ranked[:top] + [kv for kv in ranked[top:] if any(a in kv[0] for a in also)]
+    listed = ranked[:top] + [kv for kv in ranked[top:]
+                             if any(a in kv[0] for a in also) or kv[0] in named]
     for name, (calls, t) in listed:
         print(f"profile {label}:   {name} {100 * t / total_us:.1f}% of device time, "
               f"{calls / units:.2f} calls per {unit}, {t / max(calls, 1):.1f} us per call",
               flush=True)
+    for name in named:
+        if name not in kernels:
+            print(f"profile {label}:   {name} 0.0% of device time, 0.00 calls per {unit}",
+                  flush=True)
     ops = ", ".join(f"{n} {c / units:.1f}" for n, c in aten.most_common(top))
     print(f"profile {label}:   aten ops per {unit}: {ops}", flush=True)
 
@@ -191,7 +202,8 @@ def _trace_frames(label, engine, cache, embeds, first, n):
     tr = Trace()
     tr.run(frame_chunks)
     report(f"{label} frame (stream at {int(cache.seen[0])} tokens)", n, "frame",
-           tr.wall_ms, tr.traced_wall_ms, tr.busy_ms(), tr.kernels(), tr.aten_ops())
+           tr.wall_ms, tr.traced_wall_ms, tr.busy_ms(), tr.kernels(), tr.aten_ops(),
+           named=DECODE_KERNELS)
 
 
 def _trace_tokens(label, engine, tok, cache):
@@ -212,7 +224,8 @@ def _trace_tokens(label, engine, tok, cache):
             for n in kb}
     report(f"{label} token (S = 1 passes only)", GEN_TOKENS, "token", b.wall_ms - a.wall_ms,
            b.traced_wall_ms - a.traced_wall_ms, b.busy_ms() - a.busy_ms(),
-           {n: v for n, v in diff.items() if v[0] > 0}, b.aten_ops() - a.aten_ops())
+           {n: v for n, v in diff.items() if v[0] > 0}, b.aten_ops() - a.aten_ops(),
+           named=DECODE_KERNELS)
 
 
 def profile_int8(seed: int, n: int) -> None:
@@ -255,7 +268,8 @@ def profile_int4(seed: int, n: int) -> None:
     tr = Trace()
     tr.run(fused_passes)
     report(f"int4 fused pass ({K} frames, 196 rows; stream at {int(cache.seen[0])} tokens)",
-           n, "pass", tr.wall_ms, tr.traced_wall_ms, tr.busy_ms(), tr.kernels(), tr.aten_ops())
+           n, "pass", tr.wall_ms, tr.traced_wall_ms, tr.busy_ms(), tr.kernels(), tr.aten_ops(),
+           named=DECODE_KERNELS)
 
     llm = engine.params["llm"]
     for S in (4, 8):

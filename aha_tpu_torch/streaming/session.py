@@ -8,7 +8,8 @@ the prob / sum / z trigger rules, and ``score_video``. ``score_video`` scores
 ``spec_decode_tokens`` candidates per pass (both through the engine's
 read-only verify pass); inside ``inference()`` frames are scored one per
 pass, because a trigger may fire after any of them (the chunked on-device
-trigger loops of the JAX session are not ported: ROADMAP.md, Queue 1). The
+trigger loops of the JAX session are not ported: ROADMAP.md, Queue 1;
+``inference(chunked=True)`` runs the stepwise loop too). The
 session only sequences chunks and applies the trigger policy; tensor work is
 in :class:`~aha_tpu_torch.streaming.engine.StreamEngine`.
 """
@@ -32,7 +33,6 @@ class StreamSession:
         infer_cfg.validate()
         self.engine = engine
         self.tokenizer = tokenizer
-        self.frame_fps = infer_cfg.frame_fps
         self.score_heads = list(infer_cfg.score_heads)
         self.stream_end_prob_threshold = infer_cfg.stream_end_prob_threshold
         self.stream_end_score_sum_threshold = infer_cfg.stream_end_score_sum_threshold
@@ -49,7 +49,24 @@ class StreamSession:
         self._added_stream_generation_ids = tokenizer.apply_chat_template(
             [{}], add_stream_generation_prompt=True)
         self.cache = None
+        # unset unless positive; set_fps() may set it later (the demo path)
+        self.frame_fps: float | None = None
+        self.frame_interval: float | None = None
+        if infer_cfg.frame_fps and infer_cfg.frame_fps > 0:
+            self.set_fps(infer_cfg.frame_fps)
         self.reset()
+
+    def set_fps(self, fps: float | None = None, frame_interval: float | None = None):
+        """The stream's frame rate, given as frames per second or as seconds
+        between frames (exactly one of the two)."""
+        if (fps is None) == (frame_interval is None):
+            raise ValueError("set_fps: give fps or frame_interval, not both and not neither")
+        if fps is not None:
+            self.frame_fps = fps
+            self.frame_interval = 1.0 / fps
+        else:
+            self.frame_interval = frame_interval
+            self.frame_fps = 1.0 / frame_interval
 
     def reset(self):
         self.query_queue: collections.deque = collections.deque()
@@ -207,9 +224,14 @@ class StreamSession:
 
     # -- main loops -----------------------------------------------------------
 
-    def inference(self) -> list[dict]:
+    def inference(self, verbose: bool = False, chunked: bool = True) -> list[dict]:
         """The benchmark loop: returns the conversation with the generated
-        assistant turns; per-frame scores land in ``self.debug_data_list``."""
+        assistant turns; per-frame scores land in ``self.debug_data_list``.
+        Takes the JAX session's arguments: ``chunked`` picks its on-device
+        trigger loop or its stepwise loop, whose outputs are equal
+        (tests/test_streaming.py::test_chunked_inference_matches_stepwise);
+        here both run the stepwise loop, since the chunked loops are not
+        ported yet. ``verbose`` is accepted and changes nothing, as there."""
         model_response_list = [
             {"time": q[0], "content": q[1], "role": "user"} for q in self.query_queue]
         while self.frame_embeds_queue:

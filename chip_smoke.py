@@ -23,7 +23,12 @@ Phases, one or more lines each:
      padding mask, each launched twice for equal bits, beside
      scaled_dot_product_attention, which is timed and used nowhere (these
      two as device time from a replayed CUDA graph: the kernels are shorter
-     than the host's work to launch them); phases 4
+     than the host's work to launch them); the cached attention at every S of
+     a write pass on the 7B's 2049-slot cache, either side of the tensor
+     cores' 16 rows, across its slot tiles' and splits' edges, with keys in
+     one split only and with a query that sees nothing (zeros), each with the
+     path its plan chose, launched twice for equal bits and timed with the
+     cache cycled through more copies than L2 holds; phases 4
      and 5 record the shapes and fail on one that was not checked here)
      (bf16: max|y - y_ref| <= 1e-2 * max|y_ref|;
      with int8 activations 2e-2, because the kernel's quantiser and the plain
@@ -422,9 +427,10 @@ def check_quantize_rows(gen, stats: Stats):
               f"library_ms=none", flush=True)
 
 
-def attention_inputs(gen, B, S, NH, KVH, Dh, Wp, qdt, kvdt):
+def attention_inputs(gen, B, S, NH, KVH, Dh, Wp, qdt, kvdt, occupied=None, blind=False):
     """Random operands with a mixed mask: some empty slots, orders spread
-    so that each query sees part of the cache."""
+    so that each query sees part of the cache. ``occupied`` (lo, hi): only
+    those slots hold keys; ``blind``: query 0 sees no slot."""
     import torch
 
     dev = "cuda"
@@ -442,53 +448,103 @@ def attention_inputs(gen, B, S, NH, KVH, Dh, Wp, qdt, kvdt):
     ang = torch.cat([ang, ang], dim=-1)
     order = torch.randperm(Wp, generator=gen, device=dev).repeat(B, 1).to(torch.int32)
     order[:, -3:] = -1                                   # empty slots
+    if occupied is not None:
+        order[:, :occupied[0]] = -1
+        order[:, occupied[1]:] = -1
     g = (Wp - S + torch.arange(S, device=dev)).repeat(B, 1).to(torch.int32)
+    if blind:
+        g[:, 0] = -1
     return (q, k, v, ang.cos().contiguous(), ang.sin().contiguous(), order.contiguous(),
             g.contiguous(), scales)
 
 
 def check_attention(gen, stats: Stats):
+    """``decode_attention`` against its plain version: the path and split the
+    wrapper's plan chose, equal bits from two launches (the splits merge in a
+    fixed order, no atomics), zeros for a query that sees no slot; kernel
+    times with the K / V cache (and int8 scales) cycled through more copies
+    than L2 holds, from a replayed CUDA graph where a launch is under 100 us."""
     import torch
 
     from aha_tpu_torch.ops.kernels import decode_attention as da
+    from aha_tpu_torch.ops.kernels.int8_matmul import num_sms
 
     bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
-    # (label, B, S, NH, KVH, Dh, Wp, q dtype, kv dtype, tol): 7B shapes on
-    # the 2049-slot sink cache (every S of PATH_M that a writing pass takes:
-    # all but the verify pass's 4, 8 and 196), int8 KV, then small ragged f32
-    cases = [("7b", 1, S, 28, 4, 128, 2049, bf, bf, 1e-2) for S in (1, 13, 49, 59, 171, 220)]
-    cases += [("7b-int8kv", 1, 49, 28, 4, 128, 2049, bf, i8, 1e-2),
-              ("ragged", 2, 5, 4, 2, 16, 77, f32, f32, 1e-4),
-              ("ragged", 2, 3, 6, 2, 64, 129, f32, f32, 1e-4),
-              ("ragged", 1, 9, 8, 2, 32, 45, f32, f32, 1e-4),
-              ("ragged-int8kv", 2, 7, 4, 2, 128, 100, f32, i8, 1e-4)]
-    for label, B, S, NH, KVH, Dh, Wp, qdt, kvdt, tol in cases:
-        args = attention_inputs(gen, B, S, NH, KVH, Dh, Wp, qdt, kvdt)
+    # (label, B, S, NH, KVH, Dh, Wp, q dtype, kv dtype, tol, extra): 7B shapes on
+    # the 2049-slot sink cache (every S of PATH_M that a writing pass takes: all
+    # but the verify pass's 4, 8 and 196), S = 2 and 3 (14 and 21 rows, either side
+    # of the tensor cores' 16), int8 KV, two batch rows, Wp across the slot tiles'
+    # and the splits' edges, keys in one split only, a query that sees nothing;
+    # then small ragged f32 shapes
+    seven = dict(NH=28, KVH=4, Dh=128, q=bf, kv=bf, tol=1e-2)
+    cases = [dict(seven, label="7b", B=1, S=S, Wp=2049) for S in (1, 2, 3, 13, 49, 59, 171, 220)]
+    cases += [dict(seven, label="7b-int8kv", B=1, S=S, Wp=2049, kv=i8) for S in (1, 49)]
+    cases += [dict(seven, label="7b-b2", B=2, S=S, Wp=2049) for S in (1, 13)]
+    cases += [dict(seven, label="7b-edge", B=1, S=S, Wp=Wp) for Wp in (64, 65, 129) for S in (1, 3)]
+    cases += [dict(seven, label="7b-one-split", B=1, S=S, Wp=2049, occupied=(640, 670))
+              for S in (1, 3)]
+    cases += [dict(seven, label="7b-blind-row", B=1, S=S, Wp=2049, blind=True) for S in (2, 49)]
+    cases += [dict(label="ragged", B=2, S=5, NH=4, KVH=2, Dh=16, Wp=77, q=f32, kv=f32, tol=1e-4),
+              dict(label="ragged", B=2, S=3, NH=6, KVH=2, Dh=64, Wp=129, q=f32, kv=f32, tol=1e-4),
+              dict(label="ragged", B=1, S=9, NH=8, KVH=2, Dh=32, Wp=45, q=f32, kv=f32, tol=1e-4),
+              dict(label="ragged-int8kv", B=2, S=7, NH=4, KVH=2, Dh=128, Wp=100, q=f32, kv=i8,
+                   tol=1e-4)]
+    sms = num_sms(0)
+    for c in cases:
+        label, B, S, NH, KVH, Dh, Wp, qdt, kvdt, tol = (c[n] for n in (
+            "label", "B", "S", "NH", "KVH", "Dh", "Wp", "q", "kv", "tol"))
+        args = attention_inputs(gen, B, S, NH, KVH, Dh, Wp, qdt, kvdt, c.get("occupied"),
+                                c.get("blind", False))
+        what = f"decode_attention {label} B={B} S={S} Dh={Dh} Wp={Wp}"
+        pl = da.plan(B, S, NH, KVH, Dh, Wp, qdt, kvdt, sms=sms)
+        wgmma = qdt == bf and Dh == 128 and (NH // KVH) * S >= da.WGMMA_MIN_ROWS
+        if (pl.path == da.WGMMA) != wgmma:
+            raise AssertionError(f"{what}: path {pl.path}, tensor cores expected: {wgmma}")
+        if label == "7b" and S == 1 and not pl.blocks > 100:
+            raise AssertionError(f"{what}: {pl.blocks} blocks for a token")
         y = da.decode_attention(*args)
         ref = da.decode_attention_plain(*args)
         torch.cuda.synchronize()
-        err = rel_check(f"decode_attention {label} B={B} S={S} Dh={Dh} Wp={Wp}", y, ref, tol)
+        err = rel_check(what, y, ref, tol)
+        if not torch.equal(y, da.decode_attention(*args)):
+            raise AssertionError(f"{what}: two launches on the same inputs differ")
+        if c.get("blind") and torch.count_nonzero(y[:, 0]):
+            raise AssertionError(f"{what}: a query that sees no slot is not zero")
         stats.err("decode_attention", err)
         stats.checked.add(("decode_attention", S, Wp))
-        ms = cuda_ms(lambda i: da.decode_attention(*args))
+        # the cache (and its scales) cycled through more copies than L2 holds: a pass
+        # of 28 layers reads 28 of them; the rotation tables are the same in every
+        # layer of a pass and stay as they are
+        q, k, v, cos, sin, order, g, scales = args
+        kv_bytes = 2 * k.numel() * k.element_size()
+        copies = max(12, min(64, math.ceil(100e6 / kv_bytes)))
+        kvs = [(k.clone(), v.clone(), None if scales is None else tuple(t.clone() for t in scales))
+               for _ in range(copies)]
+        run = lambda i: da.decode_attention(q, kvs[i % copies][0], kvs[i % copies][1], cos, sin,
+                                            order, g, kvs[i % copies][2])
+        ms = loop = cuda_ms(run)
+        if loop < 0.1:
+            # shorter than the host's work to launch it: device time from a graph
+            ms = graph_ms(run)
         pms = cuda_ms(lambda i: da.decode_attention_plain(*args), iters=5)
+        del kvs
         # q in, out, K and V (+ scales), the two rotation tables, order and g;
         # scores and weighted values over the slots a query's mask admits
         nbytes = sum(t.numel() * t.element_size() for t in args[:7])
         nbytes += y.numel() * y.element_size()
         if args[7] is not None:
             nbytes += sum(t.numel() * t.element_size() for t in args[7])
-        order, g = args[5], args[6]
         visible = ((order[:, None, :] >= 0) & (order[:, None, :] <= g[:, :, None])).sum().item()
         bms, by = bound_ms(nbytes, 4.0 * visible * NH * Dh, "bf16" if qdt == bf else "f32")
         if label == "7b" and S == 49:
             stats.add("decode_attention", ms, pms, bms, by, None,
                       "one frame chunk: S=49, 28 heads over 2049 slots, bf16")
-        print(f"phase2 decode_attention {label} B={B} S={S} NH={NH} KVH={KVH} Dh={Dh} "
-              f"Wp={Wp} q={_dt(qdt)} kv={_dt(kvdt)} max_abs_err={err:.3e} "
-              f"kernel_ms={ms:.4f} plain_ms={pms:.4f} bound_ms={bms:.4f} ({by}) "
-              f"library_ms=none", flush=True)
-
+        print(f"phase2 {what} NH={NH} KVH={KVH} q={_dt(qdt)} kv={_dt(kvdt)} "
+              f"max_abs_err={err:.3e} (of max|y_ref| {ref.float().abs().max().item():.3e}) "
+              f"path={'wgmma' if pl.path == da.WGMMA else 'cuda-cores'} "
+              f"splits={pl.splits}x{pl.span} blocks={pl.blocks} equal_twice kernel_ms={ms:.4f} "
+              f"loop_ms={loop:.4f} kv_copies={copies} plain_ms={pms:.4f} bound_ms={bms:.4f} "
+              f"({by}) library_ms=none", flush=True)
 
 
 def check_int4_matmul_t(gen, stats: Stats):

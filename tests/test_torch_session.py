@@ -160,6 +160,68 @@ def test_int8_session_matches_jax(tiny, int8_engines, rule):
                                atol=1e-4, rtol=1e-3)
 
 
+@pytest.mark.parametrize("chunked", [True, False])
+def test_inference_takes_the_jax_arguments(tiny, int8_engines, chunked):
+    """inference(verbose=, chunked=) as the JAX session's: either value of
+    chunked runs the stepwise loop and gives the JAX stepwise loop's turns
+    and scores (the JAX tests hold its chunked loop equal to that one)."""
+    _, _, tok, tcfg, ttok = tiny
+    jengine, tparams = int8_engines
+    kw = dict(frame_fps=2.0, kv_cache_policy="sink", kv_window=256, num_sink_tokens=8,
+              max_new_tokens=12, repetition_penalty=1.3, stream_end_prob_threshold=0.975,
+              **WIDTHS_1)
+    frames = np.random.default_rng(8).integers(0, 256, (6, 40, 48, 3), dtype=np.uint8)
+    conv = [{"role": "user", "content": QUERY, "time": 0}]
+    js = JStreamSession(jengine, tok, JInferConfig(**kw))
+    js.input_video_stream(frames)
+    js.input_query_stream(conv)
+    jturns = js.inference(verbose=False, chunked=False)
+    ts = build_session(tparams, tcfg, ttok, InferConfig(**kw), **CPU)
+    ts.input_video_stream(frames)
+    ts.input_query_stream(conv)
+    tturns = ts.inference(verbose=False, chunked=chunked)
+    np.testing.assert_allclose(_scores(ts.debug_data_list), _scores(js.debug_data_list),
+                               atol=1e-4, rtol=1e-3)
+    assert [(t["role"], t["time"], t["content"]) for t in tturns] == \
+        [(t["role"], t["time"], t["content"]) for t in jturns]
+
+
+@pytest.mark.parametrize("how", ["config", "fps", "frame_interval"])
+def test_set_fps_matches_jax(tiny, int8_engines, how):
+    """frame_fps from the config, or unset (frame_fps=0) and given later by
+    set_fps(fps=) or set_fps(frame_interval=), as the JAX session takes it:
+    the same rate, interval and frame times in score_video."""
+    _, _, tok, tcfg, ttok = tiny
+    jengine, tparams = int8_engines
+    kw = dict(grounding_mode=True, frame_fps=4.0 if how == "config" else 0.0,
+              kv_cache_policy="sink", kv_window=256, num_sink_tokens=8, **WIDTHS_1)
+    js = JStreamSession(jengine, tok, JInferConfig(**kw))
+    ts = build_session(tparams, tcfg, ttok, InferConfig(**kw), **CPU)
+    if how != "config":
+        assert (ts.frame_fps, ts.frame_interval) == (js.frame_fps, js.frame_interval) == (None, None)
+        for s in (js, ts):
+            s.set_fps(**({"fps": 4.0} if how == "fps" else {"frame_interval": 0.25}))
+    assert (ts.frame_fps, ts.frame_interval) == (js.frame_fps, js.frame_interval)
+    frames = np.random.default_rng(9).integers(0, 256, (3, 40, 48, 3), dtype=np.uint8)
+    trows, jrows = ts.score_video(frames, query=QUERY), js.score_video(frames, query=QUERY)
+    assert [r["time"] for r in trows] == [r["time"] for r in jrows] == [0.0, 0.25, 0.5]
+    np.testing.assert_allclose(_scores(trows), _scores(jrows), atol=1e-4, rtol=1e-3)
+
+
+def test_set_fps_takes_one_of_its_two_arguments(tiny, int8_engines):
+    """Neither or both: refused, as the JAX session refuses them."""
+    _, _, tok, tcfg, ttok = tiny
+    jengine, tparams = int8_engines
+    kw = dict(grounding_mode=True, kv_cache_policy="sink", kv_window=256, num_sink_tokens=8)
+    js = JStreamSession(jengine, tok, JInferConfig(**kw))
+    ts = build_session(tparams, tcfg, ttok, InferConfig(**kw), **CPU)
+    for args in ({}, {"fps": 2.0, "frame_interval": 0.5}):
+        with pytest.raises(AssertionError):
+            js.set_fps(**args)
+        with pytest.raises(ValueError, match="set_fps"):
+            ts.set_fps(**args)
+
+
 def test_int4_session_matches_jax_at_product_widths(tiny):
     """Packed-int4 tiny params (merged projections, int4 projector and
     lm_head, int8 embedding), small sink window, repetition penalty, at the
