@@ -19,6 +19,14 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(x);  // round to nearest even, as torch's .to(bfloat16)
 }
 
+// a bf16 pair as the 32-bit word that holds it, and back
+__device__ __forceinline__ __nv_bfloat162 as_bf162(uint32_t u) {
+  return *reinterpret_cast<const __nv_bfloat162*>(&u);
+}
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
 // four consecutive elements as f32 (pointers 4-element aligned)
 __device__ __forceinline__ void load4(const float* p, float (&o)[4]) {
   const float4 v = __ldg(reinterpret_cast<const float4*>(p));
@@ -86,10 +94,10 @@ inline cudaError_t launch_splitk_reduce(const float* ws, const float* col_scale,
 
 // ---- tensor-core tiles (mma.sync) shared by the quantized matmuls -----------------
 //
-// The first tensor-core scheme of the port, kept for the int8 products, for
-// int8 activations on int4 weights, and for the bf16 int4 shapes that the wgmma
-// kernels of int4_matmul.cu / int4_matmul_t.cu (primitives: wgmma.cuh) do not
-// take. Nothing here overlaps: a K step loads, stores to shared memory,
+// The first tensor-core scheme of the port, kept for int8 activations (on int8
+// and int4 weights) and for the bf16 shapes that the wgmma kernels of
+// int8_matmul.cu / int4_matmul.cu / int4_matmul_t.cu (primitives: wgmma.cuh) do
+// not take. Nothing here overlaps: a K step loads, stores to shared memory,
 // synchronises, multiplies, synchronises.
 //
 // A block of 4 warps owns a 64 x 128 output tile and walks K in steps of 32.

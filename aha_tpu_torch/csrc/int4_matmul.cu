@@ -89,13 +89,6 @@ __device__ __forceinline__ __nv_bfloat162 nibbles_bf162(uint32_t b) {
                  *reinterpret_cast<const __nv_bfloat162*>(&offset));
 }
 
-__device__ __forceinline__ __nv_bfloat162 as_bf162(uint32_t u) {
-  return *reinterpret_cast<const __nv_bfloat162*>(&u);
-}
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 template <typename X, typename Y, int BM>
 __global__ void __launch_bounds__(kColGroups * kKLanes)
 int4_mm_kernel(const X* __restrict__ x, const float* __restrict__ sx,

@@ -52,13 +52,6 @@
 
 namespace {
 
-__device__ __forceinline__ __nv_bfloat162 as_bf162(uint32_t u) {
-  return *reinterpret_cast<const __nv_bfloat162*>(&u);
-}
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // ---- tensor-core path, mma.sync --------------------------------------------------
 
 __global__ void __launch_bounds__(128)

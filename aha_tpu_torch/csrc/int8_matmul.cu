@@ -8,41 +8,46 @@
 // entry serves aha_tpu/ops/pallas/quant_matmul.py::quant_matmul (the same
 // function, a8=False, unstacked).
 //
-// What bounds it on an H100: at the streaming path's M (1 for generation,
-// 13..220 for text / frame chunks, 1568 for the projector over 32 frames)
-// the K*N weight bytes dominate the traffic, so both paths below read each
-// weight byte from device memory once and convert int8 in registers; the
-// per-channel scale multiplies the finished f32 sum once (it factors out of
-// the contraction), as in the TPU kernel's epilogue. Two paths, chosen by
-// the wrapper from the operands:
-//   * tensor cores (bf16 x, M > 1, K % 32 == 0, N % 8 == 0): a block owns a
-//     64 x 128 output tile and walks K in steps of 32. It stages the x tile
-//     (bf16) and the weight tile (int8 -> bf16, transposed so a thread's
-//     fragment pair is one 32-bit shared load) in shared memory and runs
-//     mma.sync m16n8k16 bf16 with f32 accumulators (4 warps, 32 x 64 each).
-//     int8 values and bf16 activations are exact in bf16, so only the
-//     summation order differs from the plain version. Blocks of the same
-//     weight tile for different row tiles are adjacent in the grid, so a
-//     repeat of a weight tile comes from L2. No cp.async / TMA pipeline
-//     and no wgmma yet: that is work for a later change.
+// What bounds it on an H100: a decoder layer's four weights are 233 MB of
+// int8, 0.0696 ms at 3.35 TB/s. At the streaming path's M (1 for generation,
+// 2..59 for verify passes and frame chunks) the weight bytes are the traffic;
+// from about M = 150 (171 / 196 / 220 for prompts and fused passes, 392 / 1568
+// for the projector) the 2 M K N operations at 989 TFLOP/s take longer. Every
+// path reads each weight byte from device memory once and converts int8 in
+// registers; the per-channel scale multiplies the finished f32 sum once (it
+// factors out of the contraction), as in the TPU kernel's epilogue. Four paths,
+// chosen by the wrapper's plan() from the operands:
+//   * wgmma (bf16 x, weight-only, M >= 2, K % 64 == 0, N % 16 == 0, 16-byte
+//     aligned operands): section "tensor-core path, wgmma" below. The product
+//     is turned round (y^T = W^T x^T), the weight converted to bf16 in
+//     registers is the register operand of the warpgroup products, raw bytes
+//     and x tiles arrive by cp.async through a ring of up to six stages, one
+//     f32 accumulator set over all of K, the scale in the epilogue.
+//   * mma.sync (bf16 x where the wgmma path does not apply, M > 1, K % 32 == 0,
+//     N % 8 == 0): a block owns a 64 x 128 output tile and walks K in steps of
+//     32. It stages the x tile (bf16) and the weight tile (int8 -> bf16,
+//     transposed so a thread's fragment pair is one 32-bit shared load) in
+//     shared memory and runs mma.sync m16n8k16 bf16 with f32 accumulators (4
+//     warps, 32 x 64 each); the copies are synchronous.
+//   * mma.sync on int8 activations (a8, M > 1): both tiles staged as int8,
+//     m16n8k32 s8 with int32 accumulators, whatever the output type.
 //   * CUDA cores (everything else, M = 1 included, where the product is
 //     bound by weight bytes): a block covers 128 output columns; each of its
 //     256 threads owns 16 contiguous columns (one 16-byte int8 load per
 //     weight row) and one of 32 lanes along K, so a warp reads 4 rows x 128
 //     contiguous bytes; rows of x are taken BM at a time.
-// With a8 the same two paths run on int8 activations: the CUDA-core path
-// multiplies and adds in int32, the tensor-core path stages both tiles as
-// int8 and runs mma.sync m16n8k32 s8 with int32 accumulators (any M > 1,
-// whatever the output type). The int32 sum is exact; it becomes f32 once,
-// before the two scales (the TPU kernel adds its K-block partials in f32,
-// which is the same number while the sum stays below 2^24).
+// int8 values and bf16 activations are exact in bf16, so the bf16 paths differ
+// from the plain version only in the order of the f32 sums. With a8 the int32
+// sum is exact; it becomes f32 once, before the two scales (the TPU kernel adds
+// its K-block partials in f32, which is the same number while the sum stays
+// below 2^24).
 // When the grid would leave SMs idle, K is split over grid z: each split
-// writes an f32 partial and a second kernel sums the splits in a fixed
-// order (deterministic, no atomics), scales and casts.
+// writes an f32 partial and a second kernel sums the splits in a fixed order
+// (deterministic, no atomics), scales and casts.
 #include <algorithm>
 #include <type_traits>
 
-#include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -137,7 +142,7 @@ int8_mm_kernel(const X* __restrict__ x, const float* __restrict__ sx,
   }
 }
 
-// ---- tensor-core path (bf16 x) --------------------------------------------------
+// ---- tensor-core path, mma.sync (bf16 x where the wgmma path does not apply) ----
 
 constexpr int kTPad = 8;   // bf16 pad per shared row (20-word stride)
 
@@ -294,7 +299,261 @@ int8_mm_tc_a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx
   store_tile<Y>(acc, y, ws, scale, sx, M, N, m0, n0, wm, wn, gid, tig, splits, blockIdx.z);
 }
 
-enum Path { kScalar = 0, kVec16 = 1, kTensorCore = 2 };
+// ---- tensor-core path, wgmma (bf16 x, weight-only, K % 64 == 0, N % 16 == 0) ------------------
+//
+// The product turned round: y^T = W^T x^T. The 64-row side of a warpgroup
+// product runs over weight columns, its register operand is a [64 columns x 16
+// rows] piece of W^T converted from int8 in registers, and its width is the
+// token tile. The bf16 weight never exists in memory of any kind: the raw bytes
+// travel device memory -> ring -> registers.
+//
+// A block is one warpgroup that owns 128 weight columns (two slabs of 64) and a
+// token tile of TM <= 128 rows, and walks K in stages of 64 rows through a ring
+// of stages(TM) slots (up to six, as many as fit when two or three blocks share
+// an SM) filled by cp.async, all but two slots in flight (all but one, the slot
+// refilled as soon as both slabs' products of its stage are done, was no faster). A stage holds the x tile (TM
+// rows of 128 bytes, swizzled, the B operand as it lies) and the weight bytes
+// (64 rows of 128 columns, 144 bytes apart, so that the rows a warp reads at
+// once fall in distinct banks), both in 16-byte copies. The thread whose
+// accumulator rows are gid and gid + 8 of warp w owns the four neighbouring
+// columns 4 (8 w + gid) .. + 3 (rows gid and gid + 8 of slab 0, then of slab 1:
+// the accumulator rows are relabelled, no data is shuffled): a 32-bit word of a
+// weight row is its share of that row. Its operand registers of a 16-deep piece
+// need rows 2 tig, 2 tig + 1, 2 tig + 8, 2 tig + 9: a register pairs the same
+// column of two rows, so each is one byte permute of two words, two logic
+// operations and one bf16x2 addition (pair_bf16): four instructions for two
+// values, 128 a stage.
+//
+// The two slabs alternate: while the tensor cores run one slab's four products
+// of a stage, the threads convert the other's operand. Each slab keeps one f32
+// accumulator over all of the block's K: the products always accumulate (the
+// sums start at zero), the only wait is the ring's, and the scale multiplies the
+// finished sum in the epilogue. A K split covers whole stages and writes its f32
+// sums as a partial; splitk_reduce adds them in a fixed order and scales.
+namespace w8 {
+
+using namespace wg;
+
+constexpr int kSlabs = 2;             // 64-column slabs of the weight per block
+constexpr int kBN = 64 * kSlabs;      // weight columns per block
+constexpr int kKS = 64;               // contraction depth of a stage
+constexpr int kWRow = 144;            // bytes from one weight row of a stage to the next
+constexpr int kWBytes = kKS * kWRow;  // 9216: the x tile after it stays on 1024 bytes
+constexpr int kSmemPerSm = 233472;    // 228 KB, of which each block costs 1 KB more
+constexpr int kMaxStages = 6;
+
+// Blocks an SM holds: three up to 64 rows (the 296 column blocks of gate_up
+// then run in one round), else two (the accumulators of wider tiles need more
+// than a third of the registers).
+__host__ __device__ constexpr int blocks_per_sm(int TM) { return TM <= 64 ? 3 : 2; }
+__host__ __device__ constexpr int stage_bytes(int TM) { return TM * 128 + kWBytes; }
+__host__ __device__ constexpr int stages(int TM) {
+  return (kSmemPerSm / blocks_per_sm(TM) - 1024 - kAlignSlack) / stage_bytes(TM) < kMaxStages
+             ? (kSmemPerSm / blocks_per_sm(TM) - 1024 - kAlignSlack) / stage_bytes(TM)
+             : kMaxStages;
+}
+__host__ __device__ constexpr int smem_bytes(int TM) {
+  return stages(TM) * stage_bytes(TM) + kAlignSlack;
+}
+
+// The bf16 pair (byte C of a, byte C of b) as int8 values, exactly: a byte
+// permute puts the two bytes in the low byte of each half; 0x4300 | (v & 0x7f)
+// is the bf16 128 + (v & 127) (its ulp is 1 there), 0xC300 ^ (v & 0x80) is -128,
+// or -256 where v is negative, and their sum is v.
+template <int C>
+__device__ __forceinline__ uint32_t pair_bf16(uint32_t a, uint32_t b) {
+  constexpr uint32_t sel = C | (C << 4) | ((4 + C) << 8) | ((4 + C) << 12);
+  const uint32_t p = __byte_perm(a, b, sel);
+  const uint32_t low = (p & 0x007F007Fu) | 0x43004300u;
+  const uint32_t high = (p & 0x00800080u) ^ 0xC300C300u;
+  return as_u32(__hadd2(as_bf162(low), as_bf162(high)));
+}
+// the [64 x 16] operands of a stage's four products for slab SLAB, from this
+// thread's words (wq[p][r]: weight row 16 p + 2 tig + (0, 1, 8, 9)[r] of its
+// four columns, the slab's two in bytes 2 SLAB and 2 SLAB + 1)
+template <int SLAB>
+__device__ __forceinline__ void convert(uint32_t (&a)[4][4], const uint32_t (&wq)[4][4]) {
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    a[p][0] = pair_bf16<2 * SLAB>(wq[p][0], wq[p][1]);       // row gid: k 2 tig, 2 tig + 1
+    a[p][1] = pair_bf16<2 * SLAB + 1>(wq[p][0], wq[p][1]);   // row gid + 8
+    a[p][2] = pair_bf16<2 * SLAB>(wq[p][2], wq[p][3]);       // row gid: k 2 tig + 8, + 9
+    a[p][3] = pair_bf16<2 * SLAB + 1>(wq[p][2], wq[p][3]);
+  }
+}
+
+template <int TM>
+__global__ void __launch_bounds__(kWgThreads, blocks_per_sm(TM))
+int8_mm_wgmma_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
+                     const float* __restrict__ scale, bf16* __restrict__ y,
+                     float* __restrict__ ws, int M, int K, int N, int k_per_split, int splits) {
+  constexpr int kStages = stages(TM), kStage = stage_bytes(TM), NA = TM / 2;
+  static_assert(kStages >= 3, "the ring needs a slot in use, one in flight and one free");
+  extern __shared__ __align__(128) unsigned char smem_w8[];
+  unsigned char* ring = align_tiles(smem_w8);
+  const uint32_t ring_a = smem_addr(ring);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gid = lane >> 2, tig = lane & 3;
+  const int m0 = blockIdx.x * TM, n0 = blockIdx.y * kBN;
+  const int kbeg = blockIdx.z * k_per_split;
+  const int nst = max(0, min(K, kbeg + k_per_split) - kbeg) / kKS;   // whole stages a split
+
+  // this thread's four weight columns (N % 16 == 0: all four exist, or none)
+  const int n4 = n0 + 4 * (8 * warp + gid);
+  // its share of a stage's copies: rows of the x tile, four 16-byte chunks of
+  // the weight bytes (row idx / 8, columns 16 (idx % 8) ..)
+  const RowsCopy<TM> copy_x(static_cast<size_t>(K));
+  const bf16* xsrc = x + static_cast<size_t>(m0) * K + kbeg;
+  constexpr int kWOff = TM * 128;
+  const int8_t* wsrc[4];
+  uint32_t wdst[4];
+  bool wok[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int idx = tid + c * kWgThreads, row = idx >> 3, col = n0 + (idx & 7) * 16;
+    wok[c] = col < N;
+    wsrc[c] = w + static_cast<size_t>(kbeg + row) * N + (wok[c] ? col : 0);
+    wdst[c] = kWOff + row * kWRow + (idx & 7) * 16;
+  }
+  auto load = [&](int i) {   // stage i of this split into its slot
+    const uint32_t st = ring_a + (i % kStages) * kStage;
+    copy_x(st, xsrc + i * kKS, M - m0);
+    const size_t rows = static_cast<size_t>(i) * kKS * N;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) cp_async16(st + wdst[c], wsrc[c] + rows, wok[c]);
+  };
+  // weight row 2 tig of a stage, at this thread's four columns
+  const int w_off = kWOff + 2 * tig * kWRow + (8 * warp + gid) * 4;
+
+  float acc0[NA], acc1[NA];
+#pragma unroll
+  for (int e = 0; e < NA; ++e) acc0[e] = acc1[e] = 0.f;
+  uint32_t a0[4][4], a1[4][4];
+#pragma unroll
+  for (int p = 0; p < 4; ++p)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a0[p][e] = a1[p][e] = 0u;
+
+#pragma unroll
+  for (int i = 0; i < kStages - 2; ++i) {
+    if (i < nst) load(i);
+    cp_async_commit();
+  }
+  // The assembler follows which products are in flight only so far: whatever
+  // defines an input of a product (operand registers, descriptors) is pinned
+  // before the first product of its four, the products' scale-d is the constant
+  // 1, no wait is conditional, and nothing but the wait and the conversion lies
+  // between the two slabs' products (a copy placed there, with its branches, was
+  // enough). Otherwise it makes every product wait for the one before it.
+  for (int i = 0; i < nst; ++i) {
+    cp_async_wait<kStages - 3>();   // stage i has landed
+    wg_wait<1>();                   // slab 0 of stage i - 1 is done: a0 is free
+    __syncthreads();                // ... and every warp is past stage i - 2
+    if (i + kStages - 2 < nst) load(i + kStages - 2);
+    cp_async_commit();
+
+    const int slot = i % kStages;
+    const unsigned char* st = ring + slot * kStage + w_off;
+    uint32_t wq[4][4];
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      wq[p][0] = lds32(st + (16 * p) * kWRow);
+      wq[p][1] = lds32(st + (16 * p + 1) * kWRow);
+      wq[p][2] = lds32(st + (16 * p + 8) * kWRow);
+      wq[p][3] = lds32(st + (16 * p + 9) * kWRow);
+    }
+    uint64_t xd[4];
+    wg_desc_pieces(xd, ring_a + slot * kStage);
+    keep(a0);
+    convert<0>(a0, wq);
+    keep(a0);
+    wg_fence();
+#pragma unroll
+    for (int p = 0; p < 4; ++p) wgmma_rs<TM>(acc0, a0[p], xd[p], 1);
+    wg_commit();
+
+    wg_wait<1>();                   // slab 1 of stage i - 1 is done: a1 is free
+    keep(a1);
+    convert<1>(a1, wq);
+    keep(a1);
+    wg_fence();
+#pragma unroll
+    for (int p = 0; p < 4; ++p) wgmma_rs<TM>(acc1, a1[p], xd[p], 1);
+    wg_commit();
+  }
+  wg_wait<0>();
+  keep(acc0);
+  keep(acc1);
+
+  // token 8 j + 2 tig + b: this thread's four columns side by side
+  if (n4 >= N) return;
+  const float4 sc = splits == 1 ? *reinterpret_cast<const float4*>(scale + n4)
+                                : make_float4(1.f, 1.f, 1.f, 1.f);
+#pragma unroll
+  for (int j = 0; j < TM / 8; ++j)
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      const int m = m0 + 8 * j + 2 * tig + b;
+      if (m >= M) continue;
+      const float v0 = acc0[4 * j + b], v1 = acc0[4 * j + 2 + b];
+      const float v2 = acc1[4 * j + b], v3 = acc1[4 * j + 2 + b];
+      if (splits == 1) {
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(v0 * sc.x, v1 * sc.y);
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(v2 * sc.z, v3 * sc.w);
+        *reinterpret_cast<uint2*>(y + static_cast<size_t>(m) * N + n4) =
+            make_uint2(as_u32(lo), as_u32(hi));
+      } else {
+        *reinterpret_cast<float4*>(ws + (static_cast<size_t>(blockIdx.z) * M + m) * N + n4) =
+            make_float4(v0, v1, v2, v3);
+      }
+    }
+}
+
+template <int TM>
+cudaError_t launch_tile(const bf16* x, const int8_t* w, const float* scale, bf16* y, float* ws,
+                        int M, int K, int N, int splits, cudaStream_t st) {
+  cudaError_t err = allow_smem(int8_mm_wgmma_kernel<TM>, smem_bytes(TM));
+  if (err != cudaSuccess) return err;
+  // whole stages a split; a split past K writes zeros
+  const int kps = ((K / kKS + splits - 1) / splits) * kKS;
+  // token tiles run fastest: the blocks in flight share a few column blocks of W
+  const dim3 grid((M + TM - 1) / TM, (N + kBN - 1) / kBN, splits);
+  int8_mm_wgmma_kernel<TM><<<grid, kWgThreads, smem_bytes(TM), st>>>(x, w, scale, y, ws, M, K, N,
+                                                                      kps, splits);
+  return cudaGetLastError();
+}
+
+#define AHA_W8_TILES(X) \
+  X(8) X(16) X(24) X(32) X(40) X(48) X(56) X(64) X(72) X(80) X(88) X(96) X(104) X(112) X(120) X(128)
+
+cudaError_t launch(const void* x, const void* w, const void* scale, void* y, float* ws, int M,
+                   int K, int N, int splits, int tile, cudaStream_t st) {
+  if (K % kKS != 0 || N % 16 != 0 || (N + kBN - 1) / kBN > 65535) return cudaErrorInvalidValue;
+  const bf16* xp = static_cast<const bf16*>(x);
+  const int8_t* wp = static_cast<const int8_t*>(w);
+  const float* sp = static_cast<const float*>(scale);
+  bf16* yp = static_cast<bf16*>(y);
+  switch (tile) {   // a multiple of 8 from 8 to 128
+#define AHA_TILE(TM) \
+  case TM: return launch_tile<TM>(xp, wp, sp, yp, ws, M, K, N, splits, st);
+    AHA_W8_TILES(AHA_TILE)
+#undef AHA_TILE
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+int smem_of(int tile) {
+  switch (tile) {
+#define AHA_TILE(TM) \
+  case TM: return smem_bytes(TM);
+    AHA_W8_TILES(AHA_TILE)
+#undef AHA_TILE
+    default: return -1;
+  }
+}
+
+}  // namespace w8
+
+enum Path { kScalar = 0, kVec16 = 1, kTensorCore = 2, kWgmma = 3 };
 
 // X = activation type as stored (int8 with sx for a8), Y = output type
 template <typename X, typename Y>
@@ -340,14 +599,26 @@ cudaError_t launch(const void* x, const float* sx, const void* w, const void* sc
 }  // namespace
 
 // path: 0 scalar CUDA-core loads, 1 16-byte CUDA-core loads (N % 16 == 0,
-// 16-byte aligned weight), 2 tensor cores (bf16 x, M > 1, K % 32 == 0,
-// N % 8 == 0, x 16-byte and weight 8-byte aligned); the wrapper checks.
+// 16-byte aligned weight), 2 tensor cores through mma.sync (bf16 x, M > 1,
+// K % 32 == 0, N % 8 == 0, x 16-byte and weight 8-byte aligned), 3 tensor cores
+// through wgmma (bf16 x, K % 64 == 0, N % 16 == 0, x, weight and scale 16-byte
+// aligned; tile: the token tile, a multiple of 8 from 8 to 128; whole 64-row
+// stages a split); the wrapper's plan checks.
 extern "C" int aha_int8_matmul(const void* x, const void* w, const void* scale, void* y,
                                void* workspace, int M, int K, int N, int x_dtype, int splits,
-                               int path, void* stream) {
+                               int path, int tile, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M <= 0 || N <= 0 || K <= 0 || splits < 1 || (splits > 1 && workspace == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (path == kWgmma) {
+    if (x_dtype != AHA_BF16) return static_cast<int>(cudaErrorInvalidValue);
+    float* wsf = static_cast<float*>(workspace);
+    cudaError_t err = w8::launch(x, w, scale, y, wsf, M, K, N, splits, tile, st);
+    if (err == cudaSuccess && splits > 1)
+      err = launch_splitk_reduce<__nv_bfloat16>(wsf, static_cast<const float*>(scale), nullptr,
+                                                static_cast<__nv_bfloat16*>(y), M, N, splits, st);
+    return static_cast<int>(err);
+  }
   if (x_dtype == AHA_F32 && path != kTensorCore)
     return static_cast<int>(launch<float, float>(x, nullptr, w, scale, y, workspace, M, K, N,
                                                  splits, path, st));
@@ -356,6 +627,10 @@ extern "C" int aha_int8_matmul(const void* x, const void* w, const void* scale, 
         x, nullptr, w, scale, y, workspace, M, K, N, splits, path, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+// bytes of dynamic shared memory the wgmma path asks for at token tile `tile`
+// (-1: no such tile); the wrapper's plan computes the same number
+extern "C" int aha_int8_matmul_wgmma_smem(int tile) { return w8::smem_of(tile); }
 
 // int8 activations xq [M, K] with per-row scales sx [M] (csrc/quantize_rows.cu);
 // y_dtype is the output's type. path 2 here needs M > 1, K % 32 == 0,

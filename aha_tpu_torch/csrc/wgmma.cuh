@@ -1,5 +1,5 @@
 // Hopper primitives shared by the tensor-core kernels (flash_attention.cu,
-// decode_attention.cu, int4_matmul.cu, int4_matmul_t.cu; the two attention
+// decode_attention.cu, int8_matmul.cu, int4_matmul.cu, int4_matmul_t.cu; the two attention
 // sources share more in attention.cuh): asynchronous copies into 128-byte-swizzled
 // tiles of shared memory, and warpgroup products (wgmma) on them. sm_90a only.
 //

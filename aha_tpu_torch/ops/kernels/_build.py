@@ -26,11 +26,14 @@ _PKG = pathlib.Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "aha_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None   # wall time of the build this process ran
+# what ptxas said of each source in the build this process ran (registers,
+# spills, remarks such as wgmma serialisation), by source name
+ptxas_log: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -78,6 +81,7 @@ def library() -> ctypes.CDLL:
             failed = []
             for proc, s in procs:
                 so, se = proc.communicate()
+                ptxas_log[s.name] = so + se
                 if proc.returncode != 0:
                     failed.append(f"== {s.name}\n{so}{se}")
             if failed:
@@ -99,8 +103,10 @@ def library() -> ctypes.CDLL:
 
 def _declare(lib: ctypes.CDLL) -> None:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.aha_int8_matmul.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P]
+    lib.aha_int8_matmul.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, P]
     lib.aha_int8_matmul.restype = I
+    lib.aha_int8_matmul_wgmma_smem.argtypes = [I]
+    lib.aha_int8_matmul_wgmma_smem.restype = I
     lib.aha_int8_matmul_a8.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, P]
     lib.aha_int8_matmul_a8.restype = I
     lib.aha_int4_matmul.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P]

@@ -20,13 +20,14 @@ launches, or the call raises.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import functools
 
 import torch
 
 from . import LAUNCHES, _build
-from .int8_matmul import SCALAR, TENSOR_CORE, VEC16, num_sms, splits_on
+from .int8_matmul import (SCALAR, TENSOR_CORE, VEC16, WGMMA, Plan, fwd_row_to_column, num_sms,
+                          splits_on, token_tile)
+from .int8_matmul import align_of as _align
 from .quantize_rows import quantize_rows, quantize_rows_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -65,44 +66,8 @@ def int4_matmul_plain(x: torch.Tensor, q4value: torch.Tensor, scale4: torch.Tens
     return y.to(x.dtype).reshape(*lead, N)
 
 
-WGMMA = 3                # the wgmma path of csrc/int4_matmul.cu (and of int4_matmul_t.cu)
-WGMMA_MIN_M = 14         # rows from which the bf16 product takes it; fewer keep mma.sync
+WGMMA_MIN_M = 14         # rows from which the bf16 product takes WGMMA; fewer keep mma.sync
 WGMMA_TILE_CAP = 80      # rows of its token tile at most (two accumulator sets of 2 x 40 registers)
-
-
-@dataclasses.dataclass(frozen=True)
-class Plan:
-    """How a product is launched: the kernel's path, and on the wgmma path the
-    token tile (the width of its warpgroup products), the number of tiles, the
-    ring's slots and its shared memory (the kernel asks for it and a refusal
-    comes back as the launch's error); K splits everywhere."""
-    path: int
-    splits: int
-    tile: int = 0
-    tiles: int = 0
-    stages: int = 0
-    smem_bytes: int = 0
-
-
-def token_tile(M: int, cap: int) -> tuple[int, int]:
-    """M rows in as few tiles of at most ``cap`` rows as cover them, evened out
-    and rounded up to the 8 rows a warpgroup product's width moves in:
-    (rows per tile, tiles). 926 rows under a cap of 80 are 12 tiles of 80, under
-    128 8 tiles of 120; 196 rows under 80 are 3 tiles of 72."""
-    tiles = -(-M // cap)
-    rows = -(-M // tiles)
-    tile = 8 * -(-rows // 8)
-    return tile, -(-M // tile)
-
-
-def fwd_row_to_column(row: int) -> int:
-    """Which of a block's 128 weight columns accumulator row ``row`` (0 .. 63:
-    slab 0, 64 .. 127: slab 1) of the wgmma kernel is: the thread that holds
-    rows gid and gid + 8 of warp w in both slabs owns the four neighbouring
-    columns 4 (8 w + gid) .. + 3."""
-    slab, r = divmod(row, 64)
-    w, q = divmod(r, 16)
-    return 4 * (8 * w + q % 8) + 2 * slab + q // 8
 
 
 def wgmma_splits(sms: int, blocks: int, groups: int, stages: int) -> int:
@@ -169,10 +134,6 @@ def _check(x: torch.Tensor, q4value: torch.Tensor, scale4: torch.Tensor) -> tupl
         if not t.is_contiguous():
             raise ValueError(f"int4_matmul: {what} must be contiguous")
     return N, G
-
-
-def _align(t: torch.Tensor) -> int:
-    return 16 if t.data_ptr() % 16 == 0 else (8 if t.data_ptr() % 8 == 0 else 1)
 
 
 def int4_matmul(x: torch.Tensor, q4value: torch.Tensor, scale4: torch.Tensor, *,

@@ -9,7 +9,9 @@ and the channel scale). ``quant_matmul`` is the named entry for
 ``aha_tpu/ops/pallas/quant_matmul.py::quant_matmul``, which computes the same
 function as ``a8=False`` on an unstacked weight: it launches the same kernel
 and keeps a launch count of its own. A stacked weight's layer is passed as
-the view ``qvalue[l]``; no index is needed.
+the view ``qvalue[l]``; no index is needed. ``plan`` chooses the kernel's
+path (bf16 weight-only from 2 rows on: ``wgmma``), token tile, ring and K
+splits from the shapes alone, so the CPU tests hold it.
 
 On a CPU tensor the plain version runs; on a CUDA tensor the kernel
 launches, or the call raises.
@@ -18,6 +20,7 @@ launches, or the call raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -53,16 +56,38 @@ def num_sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-SCALAR, VEC16, TENSOR_CORE = 0, 1, 2   # the kernel's paths (csrc/int8_matmul.cu)
+# the kernel's paths (csrc/int8_matmul.cu; int4_matmul.cu and int4_matmul_t.cu
+# number theirs alike)
+SCALAR, VEC16, TENSOR_CORE, WGMMA = 0, 1, 2, 3
+WGMMA_MIN_M = 2          # rows from which the bf16 weight-only product takes wgmma
+WGMMA_TILE_CAP = 128     # rows of its token tile at most (two accumulator slabs of 64 registers)
+_W_STAGE = 64 * 144      # bytes of a stage's weight rows (64 of 128 columns, 144 apart)
+SMEM_PER_SM = 233472     # 228 KB; each resident block also takes 1 KB of it
 
 
-def _path(x2: torch.Tensor, qvalue: torch.Tensor, a8: bool) -> int:
-    M, K = x2.shape
-    N = qvalue.shape[1]
-    if ((a8 or x2.dtype == torch.bfloat16) and M > 1 and K % 32 == 0 and N % 8 == 0
-            and x2.data_ptr() % 16 == 0 and qvalue.data_ptr() % 8 == 0):
-        return TENSOR_CORE
-    return VEC16 if N % 16 == 0 and qvalue.data_ptr() % 16 == 0 else SCALAR
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How a product is launched: the kernel's path, and on a wgmma path the
+    token tile (the width of its warpgroup products), the number of tiles, the
+    ring's slots and its shared memory (the kernel asks for it and a refusal
+    comes back as the launch's error); K splits everywhere."""
+    path: int
+    splits: int
+    tile: int = 0
+    tiles: int = 0
+    stages: int = 0
+    smem_bytes: int = 0
+
+
+def token_tile(M: int, cap: int) -> tuple[int, int]:
+    """M rows in as few tiles of at most ``cap`` rows as cover them, evened out
+    and rounded up to the 8 rows a warpgroup product's width moves in:
+    (rows per tile, tiles). 926 rows under a cap of 80 are 12 tiles of 80, under
+    128 8 tiles of 120; 196 rows under 80 are 3 tiles of 72."""
+    tiles = -(-M // cap)
+    rows = -(-M // tiles)
+    tile = 8 * -(-rows // 8)
+    return tile, -(-M // tile)
 
 
 def splits_on(sms: int, blocks: int, units: int) -> int:
@@ -73,14 +98,71 @@ def splits_on(sms: int, blocks: int, units: int) -> int:
     return max(1, min(want, units, 64))
 
 
-def splits_for(blocks: int, units: int, device: torch.device) -> int:
-    """``splits_on`` for the card ``device``."""
-    return splits_on(num_sms(device.index or 0), blocks, units)
+def blocks_per_sm(tile: int) -> int:
+    """Blocks of the wgmma kernel an SM holds: three up to 64 rows (gate_up's
+    296 column blocks then run in one round), two for wider tiles (their
+    accumulators need more than a third of the registers)."""
+    return 3 if tile <= 64 else 2
 
 
-def _launch(name: str, x: torch.Tensor, qvalue: torch.Tensor, scale: torch.Tensor,
-            a8: bool) -> torch.Tensor:
-    *lead, K = x.shape
+def wgmma_ring(tile: int) -> tuple[int, int]:
+    """(slots, shared memory bytes) of the wgmma kernel's ring at token tile
+    ``tile``: a slot is the x tile (``tile`` rows of 128 bytes) and the weight
+    rows; six slots, fewer where the SM's blocks would not fit; 1 KB to align
+    the tiles. The kernel computes the same (``aha_int8_matmul_wgmma_smem``)."""
+    stage = tile * 128 + _W_STAGE
+    stages = min(6, (SMEM_PER_SM // blocks_per_sm(tile) - 2048) // stage)
+    return stages, stages * stage + 1024
+
+
+def wgmma_splits(places: int, blocks: int, stages: int) -> int:
+    """K splits of the wgmma kernel (whole stages of 64 rows): a grid smaller
+    than one round of resident blocks (``places``) is split as far as still
+    fits one round, 8 stages a split at least (qkv at 49 rows: 36 column blocks
+    in 7 splits). A larger grid is not split: the partials of a split cost M N 8
+    bytes of traffic, more than a last round that runs nearly empty saves (down
+    at 1568 rows on an H100: two splits were slower than one)."""
+    return max(1, min(places // blocks, stages // 8, 64))
+
+
+def fwd_row_to_column(row: int) -> int:
+    """Which of a block's 128 weight columns accumulator row ``row`` (0 .. 63:
+    slab 0, 64 .. 127: slab 1) of the wgmma kernels is (int8 here, and int4's
+    forward): the thread that holds rows gid and gid + 8 of warp w in both slabs
+    owns the four neighbouring columns 4 (8 w + gid) .. + 3."""
+    slab, r = divmod(row, 64)
+    w, q = divmod(r, 16)
+    return 4 * (8 * w + q % 8) + 2 * slab + q // 8
+
+
+@functools.lru_cache(maxsize=None)
+def plan(M: int, K: int, N: int, *, bf16: bool, a8: bool = False,
+         align: tuple[int, int, int] = (16, 16, 16), sms: int = 132) -> Plan:
+    """The launch of ``int8_matmul`` / ``quant_matmul`` on a card of ``sms``
+    SMs for x [M, K] (bf16 or f32; ``a8``: quantised to int8 first), qvalue
+    [K, N] and scale [N] whose addresses are multiples of ``align`` bytes. Pure
+    (no card is asked) and remembered: a path's shapes recur with every pass."""
+    ax, aw, asc = align
+    if (bf16 and not a8 and M >= WGMMA_MIN_M and K % 64 == 0 and N % 16 == 0
+            and ax % 16 == 0 and aw % 16 == 0 and asc % 16 == 0):
+        tile, tiles = token_tile(M, WGMMA_TILE_CAP)
+        stages, smem = wgmma_ring(tile)
+        splits = wgmma_splits(blocks_per_sm(tile) * sms, tiles * -(-N // 128), K // 64)
+        return Plan(WGMMA, splits, tile, tiles, stages, smem)
+    if (a8 or bf16) and M > 1 and K % 32 == 0 and N % 8 == 0 and ax % 16 == 0 and aw % 8 == 0:
+        return Plan(TENSOR_CORE, splits_on(sms, -(-M // 64) * -(-N // 128), K // 256))
+    path = VEC16 if N % 16 == 0 and aw % 16 == 0 else SCALAR
+    return Plan(path, splits_on(sms, -(-N // 128) * (1 if M == 1 else -(-M // 4)), K // 256))
+
+
+def align_of(t: torch.Tensor) -> int:
+    """The largest of 16, 8 and 1 that divides ``t``'s address."""
+    return 16 if t.data_ptr() % 16 == 0 else (8 if t.data_ptr() % 8 == 0 else 1)
+
+
+def _check(name: str, x: torch.Tensor, qvalue: torch.Tensor, scale: torch.Tensor) -> int:
+    """Raise on what no path of the kernel takes; N otherwise."""
+    K = x.shape[-1]
     if qvalue.dtype != torch.int8 or qvalue.dim() != 2 or qvalue.shape[0] != K:
         raise ValueError(f"{name}: weight must be int8 [K={K}, N], got "
                          f"{qvalue.dtype} {tuple(qvalue.shape)}")
@@ -95,6 +177,13 @@ def _launch(name: str, x: torch.Tensor, qvalue: torch.Tensor, scale: torch.Tenso
             raise ValueError(f"{name}: {what} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {what} must be contiguous")
+    return N
+
+
+def _launch(name: str, x: torch.Tensor, qvalue: torch.Tensor, scale: torch.Tensor,
+            a8: bool) -> torch.Tensor:
+    *lead, K = x.shape
+    N = _check(name, x, qvalue, scale)
     x2 = x.reshape(-1, K)
     M = x2.shape[0]
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
@@ -105,25 +194,22 @@ def _launch(name: str, x: torch.Tensor, qvalue: torch.Tensor, scale: torch.Tenso
     sx = None
     if a8:
         x2, sx = quantize_rows(x2)
-    path = _path(x2, qvalue, a8)
-    if path == TENSOR_CORE:
-        blocks = -(-M // 64) * -(-N // 128)
-    else:
-        blocks = -(-N // 128) * (1 if M == 1 else -(-M // 4))
-    splits = splits_for(blocks, K // 256, x.device)
-    ws = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
-          if splits > 1 else None)
+    pl = plan(M, K, N, bf16=x.dtype == torch.bfloat16, a8=a8,
+              align=(align_of(x2), align_of(qvalue), align_of(scale)),
+              sms=num_sms(x.device.index or 0))
+    ws = (torch.empty((pl.splits, M, N), dtype=torch.float32, device=x.device)
+          if pl.splits > 1 else None)
     ws_ptr = None if ws is None else ws.data_ptr()
     stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
     lib = _build.library()
     if a8:
         err = lib.aha_int8_matmul_a8(
             x2.data_ptr(), sx.data_ptr(), qvalue.data_ptr(), scale.data_ptr(), y.data_ptr(),
-            ws_ptr, M, K, N, _DTYPES[x.dtype], splits, path, stream)
+            ws_ptr, M, K, N, _DTYPES[x.dtype], pl.splits, pl.path, stream)
     else:
         err = lib.aha_int8_matmul(
             x2.data_ptr(), qvalue.data_ptr(), scale.data_ptr(), y.data_ptr(), ws_ptr,
-            M, K, N, _DTYPES[x.dtype], splits, path, stream)
+            M, K, N, _DTYPES[x.dtype], pl.splits, pl.path, pl.tile, stream)
     _build.check(lib, err, name)
     LAUNCHES[name] += 1
     return y.reshape(*lead, N)

@@ -7,17 +7,25 @@
 Phases, one or more lines each:
   1. device: nvidia-smi name and power limit, torch / CUDA / nvcc versions,
      the kernels' build time (built from aha_tpu_torch/csrc at first use, one
-     nvcc per source in parallel);
+     nvcc per source in parallel), and what ptxas said of the int8 wgmma
+     kernel (registers by token tile; a spill or a remark that its products
+     are serialised fails the phase);
   2. each CUDA kernel against its plain PyTorch version on the card, at
      every shape the 7B paths of phases 4 and 5 hand it (all five matmul
      entries at the four layer products for each row count of PATH_M, lm_head
      at 1, 4 and 8 rows, the projector at 392 and 1568; int4_matmul and its
-     transpose int4_matmul_t at the training sequence's 926 rows, at row counts
-     that straddle the token tiles of their wgmma kernels, at G = 64 and 256 and
-     at shapes only their earlier paths take, with the path the wrapper chose
-     checked, each launched twice for equal bits, and beside torch.matmul on a
-     weight dequantised beforehand (the product alone, timed and used nowhere;
-     a launch under 100 us is timed from a replayed CUDA graph); the flash
+     transpose int4_matmul_t at the training sequence's 926 rows; int8_matmul,
+     int4_matmul and int4_matmul_t at row counts that straddle the token tiles
+     of their wgmma kernels, at long K across its splits, at G = 64 and 256 and
+     at shapes only their earlier paths take (N = 136, K = 352, x 2 bytes off
+     its buffer), each matmul case with the path its wrapper's plan chose
+     checked and launched twice for equal bits, beside torch.matmul on a
+     weight dequantised beforehand (the bf16 product alone, timed and used
+     nowhere) or torch._int_mm on int8 operands made beforehand (with int8
+     activations; int4 weights unpacked to int8), each timed from a replayed
+     CUDA graph (device time: a launch under 100 us is shorter than the host's
+     work to launch it) with a loop of plain calls beside it, and the sums of a
+     decoder layer's four products and of the projector's two; the flash
      attention's forward and backward at T = 926, at ragged lengths, at
      T = 63, 64, 65 and 129 across its tile edges, at T = 4096, and with a
      padding mask, each launched twice for equal bits, beside
@@ -37,8 +45,7 @@ Phases, one or more lines each:
      times (CUDA events; weights cycled through > L2 worth of copies), the
      bound (the larger of bytes moved / 3.35 TB/s and operations / the
      published dense peak of their type: 989 TFLOP/s bf16, 1979 TOP/s int8,
-     67 TFLOP/s f32) and, where one PyTorch call computes the same product
-     (torch._int_mm for int8 x int8), that call's time;
+     67 TFLOP/s f32) and the library call's time where there is one;
   3. the tiny preset's whole slice on the card (kernels) and on the CPU
      (plain versions) from the same seeded weights: int8 at widths 1, int4 at
      the product widths (fused scoring of 4 frames, speculative generation
@@ -222,6 +229,43 @@ class Stats:
             self.k[n]["launches"] += c
 
 
+def check_ptxas(log: dict) -> str:
+    """What ptxas said of the int8 wgmma kernel, one token tile after another
+    (registers, spill bytes), in the build this process ran; raises on a spill
+    or on a remark that its warpgroup products are serialised. Such remarks on
+    other kernels are printed."""
+    import re
+
+    if not log:
+        return "ptxas: no build in this process (library reused)"
+    regs, spills, remarks = {}, {}, []
+    for src, text in sorted(log.items()):
+        entry = None
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                entry = m.group(1)
+                continue
+            if "wgmma" in line and "serialized" in line:
+                remarks.append(f"{src}: {line.strip()}")
+            if entry is None or "int8_mm_wgmma_kernel" not in entry:
+                continue
+            tile = int(re.search(r"int8_mm_wgmma_kernelILi(\d+)E", entry).group(1))
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                spills[tile] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                regs[tile] = int(m.group(1))
+    mine = [r for r in remarks if "int8_mm_wgmma_kernel" in r]
+    if not regs or any(spills.get(t, 0) for t in regs) or mine:
+        raise AssertionError(f"int8 wgmma kernel: registers {regs}, spill bytes {spills}, "
+                             f"serialisation remarks {mine}")
+    others = f"; remarks on other kernels: {remarks}" if remarks else ""
+    return (f"ptxas int8_mm_wgmma_kernel registers by token tile {dict(sorted(regs.items()))}, "
+            f"no spill, no wgmma serialisation remark{others}")
+
+
 # -- phase 2 -------------------------------------------------------------------
 
 # the decoder layer's four products; the representative set of the JSON line
@@ -252,11 +296,20 @@ def dequantized(q4value, scale4):
     return (w * scale4[:, None, :]).reshape(K, N)
 
 
+def dequantized8(qvalue, scale):
+    """The int8 weight as the bf16 matrix [K, N] a library product would be
+    handed: scale * value, rounded once."""
+    import torch
+
+    return (qvalue.float() * scale.reshape(1, -1)).to(torch.bfloat16)
+
+
 def product_only_ms(a, w, short: bool, transposed: bool = False) -> float:
     """``torch.matmul`` of bf16 ``a`` with the dequantised weight ``w`` [K, N]
-    (``transposed``: with its transpose): the yardstick of the int4 products,
-    timed and used nowhere. It reads four times the weight bytes and unpacks
-    nothing. ``short``: timed as the kernel beside it was, from a graph."""
+    (``transposed``: with its transpose): the yardstick of the int4 and int8
+    products, timed and used nowhere. It reads four (int4) or two (int8) times
+    the weight bytes and converts nothing. ``short``: timed as the kernel beside
+    it was, from a graph."""
     import torch
 
     wt = w.t() if transposed else w
@@ -267,6 +320,7 @@ def product_only_ms(a, w, short: bool, transposed: bool = False) -> float:
 def check_matmuls(gen, stats: Stats):
     import torch
 
+    from aha_tpu_torch.ops.kernels import _build
     from aha_tpu_torch.ops.kernels import int4_matmul as k4
     from aha_tpu_torch.ops.kernels import int8_matmul as k8
 
@@ -302,11 +356,26 @@ def check_matmuls(gen, stats: Stats):
     # so is the edge case above (N = 136 is no multiple of 16: mma.sync)
     old4 = [("old-path-ragged-n", 70, 320, 132, 64), ("old-path-g32", 70, 320, 136, 32)]
 
+    # int8, bf16, weight-only on the wgmma path: 2 rows and the row counts that
+    # straddle its token tiles (128 rows at most), the fused width, the projector's
+    # rows at a layer shape, down's long K across its splits (14 at 2 rows)
+    cap = k8.WGMMA_TILE_CAP
+    wgmma8 = [("tile-edge", M, 3584, 4608)
+              for M in sorted({2, k8.WGMMA_MIN_M, cap - 1, cap, cap + 1, 231, 232, 233, 1568})]
+    wgmma8 += [("long-k", M, 18944, 3584) for M in (2, 1568)]
+    # bf16 shapes the int8 wgmma kernel does not take and the earlier paths must:
+    # K not a multiple of 64 (mma.sync; so is the edge case above, N = 136), and x
+    # a view 2 bytes into its buffer (16-byte CUDA-core loads)
+    old8 = [("old-path-k", 70, 352, 256), ("misaligned", 49, 3584, 4608)]
+    old8_path = {"ragged-tc": k8.TENSOR_CORE, "old-path-k": k8.TENSOR_CORE,
+                 "misaligned": k8.VEC16}
+
     # (kernel name, weight bits, a8, cases, M of the representative set)
     families = [
         ("int8_matmul", 8, False,
          [(*c, None, bf, 1e-2) for c in cards]
-         + [(*r, None, f32, 1e-4) for r in ragged8] + [(*edge, None, bf, 1e-2)], 49),
+         + [(*r, None, f32, 1e-4) for r in ragged8] + [(*edge, None, bf, 1e-2)]
+         + [(*c, None, bf, 1e-2) for c in wgmma8 + old8], 49),
         ("int8_matmul_a8", 8, True,
          [(*c, None, bf, 2e-2) for c in cards]
          + [(*r, None, f32, 1e-4) for r in ragged8] + [(*edge, None, bf, 2e-2)], 49),
@@ -321,6 +390,10 @@ def check_matmuls(gen, stats: Stats):
          [(*c, 128, bf, 2e-2) for c in cards]
          + [(*r, f32, 1e-4) for r in ragged4] + [(*edge, 64, bf, 2e-2)], 196),
     ]
+    sms = k8.num_sms(0)
+    lib8 = _build.library()
+    # a decoder layer's four products (and the projector's two) summed by entry and M
+    sums: dict = {}
     for name, bits, a8, cases, rep_m in families:
         for label, M, K, N, G, dt, tol in cases:
             wbytes = K * N * bits // 8
@@ -345,52 +418,83 @@ def check_matmuls(gen, stats: Stats):
                 run = lambda x, w: k4.int4_matmul(x, w, sc, a8=a8)
                 plain = lambda x, w: k4.int4_matmul_plain(x, w, sc, a8)
             x = torch.randn((M, K), generator=gen, device=dev).to(dt)
+            if label == "misaligned":
+                x = torch.cat([x.reshape(-1)[:1], x.reshape(-1)])[1:].view(M, K)
             y, ref = run(x, ws[0]), plain(x, ws[0])
             torch.cuda.synchronize()
             what = f"{name} {label} M={M} K={K} N={N}" + (f" G={G}" if G else "")
             err = rel_check(what, y, ref, tol)
             stats.err(name, err)
             stats.checked.add((name, M, K, N))
-            note = ""
-            if name == "int4_matmul":
-                # which kernel the wrapper chose, and the same bits from a second launch
-                # (K splits are added in a fixed order, no atomics)
-                pl = k4.plan(M, K, N, G, bf16=dt == bf, sms=k8.num_sms(0))
-                want_new = (dt == bf and M >= k4.WGMMA_MIN_M and not label.startswith("old-path")
+            # which kernel the wrapper chose, and the same bits from a second launch
+            # (K splits are added in a fixed order, no atomics)
+            if not torch.equal(y, run(x, ws[0])):
+                raise AssertionError(f"{what}: two launches on the same inputs differ")
+            if bits == 4:
+                pl = k4.plan(M, K, N, G, bf16=dt == bf, a8=a8, sms=sms)
+                want_new = (dt == bf and not a8 and M >= k4.WGMMA_MIN_M
+                            and not label.startswith("old-path")
                             and label not in ("ragged", "ragged-tc"))
-                if (pl.path == k4.WGMMA) != want_new:
-                    raise AssertionError(f"{what}: path {pl.path}, wgmma expected: {want_new}")
-                if not torch.equal(y, run(x, ws[0])):
-                    raise AssertionError(f"{what}: two launches on the same inputs differ")
-                note = (f" path={pl.path} tile={pl.tile}x{pl.tiles} splits={pl.splits} "
-                        f"smem={pl.smem_bytes} equal_twice")
-            ms = cuda_ms(lambda i: run(x, ws[i % copies]))
-            if name == "int4_matmul" and ms < 0.1:
-                # shorter than the host's work to launch it: device time from a graph
-                note += f" loop_ms={ms:.4f}"
-                ms = graph_ms(lambda i: run(x, ws[i % copies]))
+            else:
+                pl = k8.plan(M, K, N, bf16=dt == bf, a8=a8,
+                             align=(k8.align_of(x), k8.align_of(ws[0]), k8.align_of(sc)), sms=sms)
+                want_new = (dt == bf and not a8 and M >= k8.WGMMA_MIN_M
+                            and label not in ("ragged", *old8_path))
+                if dt == bf and not a8 and label in old8_path and pl.path != old8_path[label]:
+                    raise AssertionError(f"{what}: path {pl.path}, expected {old8_path[label]}")
+                if want_new and lib8.aha_int8_matmul_wgmma_smem(pl.tile) != pl.smem_bytes:
+                    raise AssertionError(f"{what}: the plan's {pl.smem_bytes} bytes of shared "
+                                         f"memory are not the kernel's")
+            if (pl.path == k8.WGMMA) != want_new:
+                raise AssertionError(f"{what}: path {pl.path}, wgmma expected: {want_new}")
+            note = (f" path={pl.path} tile={pl.tile}x{pl.tiles} splits={pl.splits} "
+                    f"smem={pl.smem_bytes} equal_twice")
+            # device time from a replayed graph (a launch under 100 us is shorter than
+            # the host's work to launch it, and a loop of plain calls times the host)
+            loop = cuda_ms(lambda i: run(x, ws[i % copies]))
+            ms = graph_ms(lambda i: run(x, ws[i % copies]))
+            short = ms < 0.1
+            note += f" loop_ms={loop:.4f}"
             pms = cuda_ms(lambda i: plain(x, ws[i % copies]), iters=3, warmup=1)
             esize = x.element_size()
             bms, by = bound_ms(M * K * esize + wbytes + sbytes + M * N * esize, 2.0 * M * K * N,
                                "int8" if a8 else ("bf16" if dt == bf else "f32"))
             lib = None
-            if name == "int8_matmul_a8" and M > 16 and K % 8 == 0 and N % 8 == 0:
-                # the int8 x int8 product alone, on activations quantised beforehand
+            timer = graph_ms if short else cuda_ms
+            if a8 and M > 16 and K % 8 == 0 and N % 8 == 0:
+                # the int8 x int8 product alone, on activations quantised beforehand (int4:
+                # the weight unpacked to int8 beforehand)
                 xq = torch.randint(-127, 128, (M, K), generator=gen, device=dev,
                                    dtype=torch.int8)
-                lib = cuda_ms(lambda i: torch._int_mm(xq, ws[i % copies]))
-            if name == "int4_matmul" and M in (rep_m, TRAIN_T) and label in layer:
+                w8 = ws if bits == 8 else [k4.unpack_int4(w) for w in ws[:max(1, copies // 2)]]
+                lib = timer(lambda i: torch._int_mm(xq, w8[i % len(w8)]))
+                del w8
+            if not a8 and dt == bf and label in layer and (
+                    M in (rep_m, TRAIN_T) or (bits == 8 and M == 196)):
                 # the bf16 product alone, on a weight dequantised beforehand
-                lib = product_only_ms(x, dequantized(ws[0], sc), ms < 0.1)
+                wd = dequantized(ws[0], sc) if bits == 4 else dequantized8(ws[0], sc)
+                lib = product_only_ms(x, wd, short)
+                del wd
             if M == rep_m and label in layer and dt == bf:
                 stats.add(name, ms, pms, bms, by, lib,
                           f"decoder layer (qkv, o_proj, gate_up, down) at M={M}, bf16")
             if M == TRAIN_T and label in layer:
                 stats.train_fwd_ms += ms
+            if dt == bf and (label in layer or label.startswith("projector")):
+                part = "layer" if label in layer else "projector"
+                acc = sums.setdefault((name, part, M), [0.0, 0.0, 0.0, 0, 0.0])
+                acc[0] += ms
+                acc[1] += bms
+                acc[2] += lib or 0.0
+                acc[3] += lib is not None
+                acc[4] += pms
             print(f"phase2 {what} {_dt(dt)} max_abs_err={err:.3e}{note} kernel_ms={ms:.4f} "
                   f"plain_ms={pms:.4f} bound_ms={bms:.4f} ({by}) library_ms="
                   f"{'none' if lib is None else f'{lib:.4f}'}", flush=True)
             del ws
+    for (name, part, M), (ms, bms, lib, n_lib, pms) in sorted(sums.items()):
+        print(f"phase2 sum {name} {part} M={M}: kernel_ms={ms:.4f} bound_ms={bms:.4f} "
+              f"plain_ms={pms:.4f} library_ms={f'{lib:.4f}' if n_lib else 'none'}", flush=True)
 
 
 def check_quantize_rows(gen, stats: Stats):
@@ -1376,6 +1480,7 @@ def main() -> int:
           f"torch {torch.__version__} cuda {torch.version.cuda}; nvcc {nvcc}; kernel build "
           f"{_build.build_seconds if _build.build_seconds is not None else 0.0:.2f}s "
           f"(load {time.perf_counter() - t0:.2f}s)", flush=True)
+    print(f"phase1 {check_ptxas(_build.ptxas_log)}", flush=True)
 
     stats = Stats()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)

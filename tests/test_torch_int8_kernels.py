@@ -1,0 +1,274 @@
+"""The int8 product's wgmma kernel, as far as a CPU can hold it: the wrapper's
+pure choice of path, token tile, ring, splits and shared memory for every shape
+``chip_smoke.py`` drives; the relabelling of accumulator rows at its stores and
+the byte permutes and bf16 additions that build its register operand from int8
+words; its order of sums (16-deep pieces in f32, K splits added in a fixed
+order, the scale once, one cast) emulated in plain PyTorch against the Pallas
+kernel in interpret mode; and what the wrapper refuses. The kernel itself runs
+only on the card (``chip_smoke.py`` phase 2 holds it against the plain version
+there)."""
+
+import importlib.util
+import pathlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from aha_tpu.ops.pallas.fused_matmul import int8_matmul as j_int8_matmul
+from aha_tpu.ops.quant import quantize_array
+
+from aha_tpu_torch import bridge
+from aha_tpu_torch.ops.kernels import int8_matmul as k8
+from aha_tpu_torch.ops.kernels.int8_matmul import SCALAR, TENSOR_CORE, VEC16, WGMMA
+
+SMEM = 232448          # bytes of shared memory a block may use on an H100
+LM_HEAD = (3584, 152064)
+PROJECTOR = ((1024, 3584), (3584, 3584))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _smoke():
+    """``chip_smoke.py`` as a module: its shape lists are the 7B paths' shapes."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _t(x):
+    return bridge.tensor_from_numpy(np.asarray(x))
+
+
+def _shapes(M):
+    """(K, N) of every int8 product the paths run at M rows."""
+    shapes = [(K, N) for _, K, N in _smoke().LAYER]
+    if M in (1, 4, 8):
+        shapes.append(LM_HEAD)
+    if M in (392, 1568):
+        shapes = list(PROJECTOR)
+    return shapes
+
+
+@pytest.mark.parametrize("M", sorted({*_smoke().PATH_M, 5, 9, 392, 1568}))
+def test_plan_of_every_path_shape(M):
+    """bf16, weight-only, aligned: a token on the CUDA cores, every other row
+    count on the wgmma kernel, with a token tile that is a multiple of 8 and at
+    most the cap, tiles that cover M once, a ring of at least three slots that
+    fits as many blocks as an SM holds, and K splits that keep a small grid in
+    one round of resident blocks (8 stages a split at least)."""
+    for K, N in _shapes(M):
+        pl = k8.plan(M, K, N, bf16=True)
+        if M == 1:
+            assert pl.path == VEC16 and pl.tile == 0, (M, K, N)
+            continue
+        assert pl.path == WGMMA, (M, K, N)
+        assert pl.tile % 8 == 0 and 8 <= pl.tile <= k8.WGMMA_TILE_CAP <= 128
+        assert (pl.tiles - 1) * pl.tile < M <= pl.tiles * pl.tile
+        assert pl.stages >= 3
+        assert (pl.stages, pl.smem_bytes) == k8.wgmma_ring(pl.tile)
+        assert pl.smem_bytes == pl.stages * (pl.tile * 128 + 64 * 144) + 1024 <= SMEM
+        assert k8.blocks_per_sm(pl.tile) * (pl.smem_bytes + 1024) <= k8.SMEM_PER_SM
+        blocks, places = pl.tiles * -(-N // 128), k8.blocks_per_sm(pl.tile) * 132
+        assert pl.splits == 1 or pl.splits * blocks <= places
+        assert 1 <= pl.splits <= max(1, K // 512)
+
+
+def test_plan_of_the_frame_chunk():
+    """49 rows are one token tile of 56, three blocks an SM; qkv, o and down (36,
+    28 and 28 column blocks) are split over K so that they fill the card in one
+    round, gate_up (296 blocks on 396 places) is not split."""
+    got = {name: k8.plan(49, K, N, bf16=True) for name, K, N in _smoke().LAYER}
+    assert {p.tile for p in got.values()} == {56} and {p.tiles for p in got.values()} == {1}
+    assert k8.blocks_per_sm(56) == 3
+    assert got["qkv"].splits == 7 and got["o_proj"].splits == 7
+    assert got["down"].splits == 14 and got["gate_up"].splits == 1
+
+
+@pytest.mark.parametrize("M,K,N,kw,path", [
+    (1, 3584, 4608, dict(bf16=True), VEC16),                         # a token
+    (49, 3584, 4608, dict(bf16=False), VEC16),                       # f32
+    (49, 3584, 4608, dict(bf16=True, a8=True), TENSOR_CORE),         # int8 activations
+    (1, 3584, 4608, dict(bf16=True, a8=True), VEC16),
+    (70, 320, 136, dict(bf16=True), TENSOR_CORE),                    # N not a multiple of 16
+    (70, 352, 256, dict(bf16=True), TENSOR_CORE),                    # K not a multiple of 64
+    (7, 100, 77, dict(bf16=True), SCALAR),                           # ragged
+    (49, 3584, 4608, dict(bf16=True, align=(2, 16, 16)), VEC16),     # x 2 bytes off
+    (49, 3584, 4608, dict(bf16=True, align=(16, 8, 16)), TENSOR_CORE),
+    (49, 3584, 4608, dict(bf16=True, align=(16, 16, 8)), TENSOR_CORE),
+])
+def test_plan_keeps_the_earlier_paths(M, K, N, kw, path):
+    pl = k8.plan(M, K, N, **kw)
+    assert pl.path == path and pl.tile == 0 and pl.smem_bytes == 0 and pl.splits >= 1
+
+
+def test_token_tiles_under_the_int8_cap():
+    cap = k8.WGMMA_TILE_CAP
+    assert k8.token_tile(49, cap) == (56, 1)
+    assert k8.token_tile(196, cap) == (104, 2)
+    assert k8.token_tile(233, cap) == (120, 2)
+    assert k8.token_tile(1568, cap) == (128, 13)
+    assert k8.token_tile(2, cap) == (8, 1)
+    for tile in range(8, 129, 8):
+        stages, smem = k8.wgmma_ring(tile)
+        assert 3 <= stages <= 6 and k8.blocks_per_sm(tile) * (smem + 1024) <= k8.SMEM_PER_SM
+
+
+def test_rows_are_relabelled_not_moved():
+    """A thread's four accumulator rows (gid and gid + 8 in both slabs) are
+    four neighbouring weight columns: one 32-bit word of a weight row."""
+    assert sorted(k8.fwd_row_to_column(r) for r in range(128)) == list(range(128))
+    for w in range(4):
+        for gid in range(8):
+            rows = (16 * w + gid, 16 * w + gid + 8, 64 + 16 * w + gid, 64 + 16 * w + gid + 8)
+            first = 4 * (8 * w + gid)
+            assert [k8.fwd_row_to_column(r) for r in rows] == [first, first + 1, first + 2,
+                                                               first + 3]
+
+
+def _bf16_value(bits: np.ndarray) -> np.ndarray:
+    return (bits.astype(np.uint32) << 16).view(np.float32)
+
+
+def _pair_bf16(a: int, b: int, c: int) -> tuple[float, float]:
+    """``pair_bf16<C>`` of csrc/int8_matmul.cu on two 32-bit words, step by
+    step: the byte permute, the two masks, the bf16x2 addition (exact)."""
+    sel = [c, c, 4 + c, 4 + c]
+    src = a.to_bytes(4, "little") + b.to_bytes(4, "little")
+    p = int.from_bytes(bytes(src[s] for s in sel), "little")
+    low = (p & 0x007F007F) | 0x43004300
+    high = (p & 0x00800080) ^ 0xC300C300
+    halves = []
+    for shift in (0, 16):
+        s = _bf16_value(np.array([(low >> shift) & 0xFFFF]))[0] + \
+            _bf16_value(np.array([(high >> shift) & 0xFFFF]))[0]
+        assert float(torch.tensor(s).to(torch.bfloat16)) == s     # the sum is a bf16
+        halves.append(float(s))
+    return halves[0], halves[1]
+
+
+def test_int8_bytes_become_exact_bf16():
+    """Every int8 value, through the masks and the bf16 addition, is itself."""
+    for v in range(-128, 128):
+        byte = v & 0xFF
+        assert _pair_bf16(byte, byte << 8, 0) == (float(v), 0.0)
+        assert _pair_bf16(byte << 24, byte << 24, 3) == (float(v), float(v))
+
+
+def test_operand_registers_are_the_weight_piece():
+    """The four registers a thread builds for piece p of a stage hold, at the
+    positions wgmma's register operand names (rows gid and gid + 8, columns
+    2 tig, 2 tig + 1 and 2 tig + 8, 2 tig + 9), the weight values of its
+    relabelled rows: row r of slab s is weight column fwd_row_to_column(64 s + r),
+    operand column k is stage row 16 p + k."""
+    rng = np.random.default_rng(3)
+    stage = rng.integers(-128, 128, (64, 128)).astype(np.int8)
+    words = stage.view(np.uint32)                     # [64 rows, 32 words of 4 columns]
+    for warp in range(4):
+        for gid in range(8):
+            for tig in range(4):
+                col_word = 8 * warp + gid
+                for p in range(4):
+                    rows = [16 * p + 2 * tig + d for d in (0, 1, 8, 9)]
+                    wq = [int(words[r, col_word]) for r in rows]
+                    for slab in range(2):
+                        regs = [_pair_bf16(wq[0], wq[1], 2 * slab),
+                                _pair_bf16(wq[0], wq[1], 2 * slab + 1),
+                                _pair_bf16(wq[2], wq[3], 2 * slab),
+                                _pair_bf16(wq[2], wq[3], 2 * slab + 1)]
+                        for i, (row_off, k_off) in enumerate(((0, 0), (8, 0), (0, 8), (8, 8))):
+                            row = 64 * slab + 16 * warp + gid + row_off
+                            col = k8.fwd_row_to_column(row)
+                            k = 16 * p + 2 * tig + k_off
+                            assert regs[i] == (float(stage[k, col]), float(stage[k + 1, col]))
+
+
+def wgmma_emulated(x, qvalue, scale, splits):
+    """The wgmma kernel's order of sums: in each K split the 16-deep pieces'
+    products added one after the other in f32, the splits' sums added in their
+    order, times the scale once, one cast."""
+    K = x.shape[-1]
+    xf = x.reshape(-1, K).float()
+    w = qvalue.float()
+    per = -(-(K // 64) // splits) * 64
+    total = torch.zeros((xf.shape[0], w.shape[1]), dtype=torch.float32)
+    for s in range(splits):
+        part = torch.zeros_like(total)
+        for k0 in range(s * per, min(K, (s + 1) * per), 16):
+            part = part + xf[:, k0:k0 + 16] @ w[k0:k0 + 16]
+        total = total + part
+    return (total * scale.reshape(-1).float()).to(x.dtype)
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M", [1, 21, 232])
+def test_order_of_sums(M, dtype, splits):
+    """f32: 3e-5 against the Pallas kernel in interpret mode (f32 sums in another
+    order). bf16 activations: the card's tolerance, 1e-2 of the largest value;
+    against the plain version, which rounds at the same places, 3e-5 in f32 and
+    one bf16 step."""
+    rng = np.random.default_rng(11)
+    K, N = 512, 256
+    w = (rng.standard_normal((K, N)) * 0.02).astype(np.float32)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    q = quantize_array(jnp.asarray(w), 0)
+    jx = jnp.asarray(x).astype(jnp.bfloat16 if dtype == "bfloat16" else jnp.float32)
+    ref = np.asarray(j_int8_matmul(jx, q["qvalue"], q["scale"], interpret=True)
+                     .astype(jnp.float32))
+    xt = _t(x).to(getattr(torch, dtype))
+    qv, s = _t(q["qvalue"]), _t(q["scale"])
+    out = wgmma_emulated(xt, qv, s, splits)
+    plain = k8.int8_matmul_plain(xt, qv, s)
+    assert out.shape == (M, N) and out.dtype == xt.dtype
+    if dtype == "float32":
+        np.testing.assert_allclose(out.numpy(), ref, rtol=3e-5, atol=3e-5)
+        np.testing.assert_allclose(out.numpy(), plain.numpy(), rtol=3e-5, atol=3e-5)
+    else:
+        assert np.abs(out.float().numpy() - ref).max() <= 1e-2 * np.abs(ref).max()
+        step = np.abs(plain.float().numpy()).max() * 2.0 ** -8
+        assert np.abs(out.float().numpy() - plain.float().numpy()).max() <= step
+
+
+@pytest.mark.parametrize("what,match", [
+    ("strided", "must be contiguous"),
+    ("dtype", "x dtype torch.float16 not supported"),
+    ("weight", "weight must be int8"),
+    ("scale", "scale must be f32 with 32 values"),
+])
+def test_wrapper_refuses(what, match):
+    """What no path of the kernel takes raises in the wrapper's check, whatever
+    the device (a CPU tensor goes to the plain version before the check)."""
+    K, N = 64, 32
+    x = torch.zeros((5, K), dtype=torch.bfloat16)
+    q = torch.zeros((K, N), dtype=torch.int8)
+    s = torch.ones((1, N), dtype=torch.float32)
+    if what == "strided":
+        x = torch.cat([x, x], dim=-1)[:, :K]
+    if what == "dtype":
+        x = x.to(torch.float16)
+    if what == "weight":
+        q = q.to(torch.uint8)
+    if what == "scale":
+        s = s.to(torch.bfloat16)
+    with pytest.raises(ValueError, match=match):
+        k8._check("int8_matmul", x, q, s)
+
+
+def test_a_misaligned_view_keeps_the_old_path():
+    """A contiguous view that starts 2 bytes into its buffer is not refused:
+    it takes a path that needs no 16-byte rows."""
+    buf = torch.zeros(49 * 3584 + 1, dtype=torch.bfloat16)
+    x = buf[1:].view(49, 3584)
+    assert x.is_contiguous() and k8.align_of(x) < 16 and k8.align_of(buf) == 16
+    pl = k8.plan(49, 3584, 4608, bf16=True, align=(k8.align_of(x), 16, 16))
+    assert pl.path == VEC16
