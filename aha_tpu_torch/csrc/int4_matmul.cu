@@ -23,18 +23,26 @@
 // clearly at a fused pass's 196 and a training sequence's 926, operations: 2*M*K*N
 // against the tensor cores' 989 TFLOP/s, so the products belong on wgmma and
 // what is left beside them (unpacking a [128 x 64] piece of W per 64 rows of K,
-// the copies, the group scales) decides the time. Three paths, chosen by the
+// the copies, the group scales) decides the time. Four paths, chosen by the
 // wrapper's plan() from the operands:
-//   * wgmma (bf16 x, weight-only, M >= 14, G % 64 == 0, N % 16 == 0, 16-byte
-//     aligned operands): section "tensor-core path, wgmma" below. The product
-//     is turned round (y^T = W^T x^T), the unpacked weight is the register
-//     operand of the warpgroup products and never touches shared memory, raw
-//     bytes, x tiles and scales arrive by cp.async through a six-slot ring,
-//     two accumulator sets (a group's sum, the total) of f32. At M = 926 a
-//     decoder layer's four products take 1.23 ms where the mma.sync kernel
-//     below took 4.34 (NVIDIA H100 80GB HBM3, 700 W; bound 0.44 ms).
+//   * decode (bf16 x, weight-only, 1 <= M <= 16, G % 64 == 0, N % 16 == 0,
+//     16-byte aligned operands): section "decode rows" below. One kernel and
+//     one launch plan for every M up to 16, mma.sync per warp with x as the
+//     16-row A operand, the packed bytes through a cp.async ring of seven
+//     slots, 16 warps an SM. A 7B layer's four products at M = 1 .. 16 take
+//     0.07-0.08 ms where the CUDA-core kernel below took 0.17 (M = 1) and the
+//     mma.sync kernel 0.35 (M = 4 .. 13), the lm_head 0.11 ms where they took
+//     0.24 and 0.59 (NVIDIA H100 80GB HBM3, 700 W; bounds 0.036 and 0.084 ms,
+//     bytes).
+//   * wgmma (as decode, M >= 17): section "tensor-core path, wgmma" below. The
+//     product is turned round (y^T = W^T x^T), the unpacked weight is the
+//     register operand of the warpgroup products and never touches shared
+//     memory, raw bytes, x tiles and scales arrive by cp.async through a
+//     six-slot ring, two accumulator sets (a group's sum, the total) of f32. At
+//     M = 926 a decoder layer's four products take 1.23 ms where the mma.sync
+//     kernel below took 4.34 (NVIDIA H100 80GB HBM3, 700 W; bound 0.44 ms).
 //   * mma.sync (M > 1, G % 32 == 0, N % 8 == 0; int8 x whatever the output
-//     type, and bf16 x where the wgmma path does not apply): the 64 x 128 tile
+//     type, and bf16 x where neither path above applies): the 64 x 128 tile
 //     scheme of common.cuh, one buffer a tile, no copy overlaps a product. A
 //     packed byte is exactly the (k, k + 1) pair of one column, i.e. one
 //     32-bit bf16x2 word of the transposed weight tile (int8 activations:
@@ -42,13 +50,13 @@
 //     bf16. A warp keeps two accumulator sets: the running group's (f32 or
 //     int32) and the total (f32); at a group's last K step the first is
 //     scaled into the second.
-//   * CUDA cores (M = 1, f32 x, ragged shapes): a block covers 128 columns;
+//   * CUDA cores (M = 1 off the decode path, f32 x, ragged shapes): a block covers 128 columns;
 //     each of its 256 threads owns 16 contiguous columns (one 16-byte load
 //     = 16 columns x 2 rows) and one of 32 lanes along K. The lanes are 4
 //     group slots x 8 row lanes: a thread walks whole groups, so that it
 //     applies each group's scale once to its own partial sum.
-// When the grid would leave SMs idle, K is split over grid z (whole groups on
-// the CUDA-core and wgmma paths, 32-row steps on the mma.sync path; a group cut
+// When the grid would leave SMs idle, K is split over the grid (whole groups on
+// the CUDA-core, decode and wgmma paths, 32-row steps on the mma.sync path; a group cut
 // by a split boundary is scaled on both sides, which is the same sum): each
 // split writes an f32 partial and splitk_reduce adds them in a fixed order.
 #include <type_traits>
@@ -549,7 +557,289 @@ cudaError_t launch(const void* x, const uint8_t* w, const bf16* scale4, void* y,
 
 }  // namespace w4
 
-enum Path { kScalar = 0, kVec16 = 1, kTensorCore = 2, kWgmma = 3 };
+// ---- decode rows (1 .. 16), bf16 x, weight-only, G % 64 == 0, N % 16 == 0: mma.sync ------------
+//
+// A token (1 row) and a verify pass (2 .. 16 rows) move K N / 2 weight bytes for
+// at most 32 M K N operations: bytes bound them by two orders of magnitude, so
+// the design is about weight bytes in flight, with the unpacking cheap and off
+// the copies' path. One kernel, one plan and one order of sums for every M from
+// 1 to 16: x is the A operand of mma.sync m16n8k16 (16 token rows, those past M
+// zero), so a row's output is the same bits whether it goes alone or with 15
+// others.
+//
+// Route: mma.sync per warp rather than wgmma. Four warps a block, each on its
+// own 32 weight columns, and four blocks an SM: 16 warps an SM, none of which
+// waits on a warpgroup's products, and no accumulator is ever in flight (the
+// assembler's serialisation of wgmma, section above, cannot arise).
+//
+// A block owns 128 weight columns and a K split of whole groups, and walks it in
+// stages of 64 rows through a ring of kStages slots filled by cp.async, all but
+// one in flight (6 x 4 KB of weight a block, 96 KB an SM). A stage holds the x
+// tile (16 rows of 128 bytes, swizzled: ldmatrix reads it without conflicts), the
+// packed bytes (32 packed rows of the block's 128 columns, 160 bytes apart, so
+// that the four rows a warp reads at once fall in distinct banks) and the group's
+// 128 scales, all in 16-byte copies. The thread (gid, tig) of warp w reads the
+// 32-bit word of packed rows tig + 4 q at columns 32 w + 4 gid .. + 3: byte t of
+// it is the (2 j, 2 j + 1) pair of column 32 w + 4 gid + t, which is its B
+// register for column gid of n-tile t (the columns are relabelled, no data is
+// shuffled). One byte permute, one logic operation and one bf16x2 subtraction
+// make a register (nibble_pair). Its accumulator element (n-tile t, column
+// 2 tig + e) is weight column 32 w + 8 tig + 4 e + t: the eight columns
+// 32 w + 8 tig .. + 7 of tokens gid and gid + 8 leave as 16-byte stores.
+//
+// The group sums alternate between two register sets: group g sums into set
+// g % 2, and the set of group g - 1 is scaled into the totals (f32) after the
+// first stage of group g has issued its products, so no warp waits for a
+// group's last product. A K split writes its f32 totals as a partial and
+// splitk_reduce adds the splits in a fixed order.
+//
+// What bounds it (NVIDIA H100 80GB HBM3, 700 W): not the memory but each SM's
+// issue of the instructions a warp spends on a stage (one third of them the
+// unpacking). With parts switched off, the copies alone came near the memory
+// rate, the unpacking and the products alone took longer than the copies, and
+// weights that stay in L2 were no faster. Three things helped: the wait for a
+// stage carries no proxy fence (mma.sync and ldmatrix read shared memory as
+// ordinary loads; the fence compiled to a MEMBAR a stage), the unpacking's mask
+// and 0x43 bytes sit in registers (as two immediates the assembler made two
+// logic operations of one), and splits that leave every SM about the same work
+// (plan). Tried and dropped: 8 warps (256 columns) a block, 2 warps a block,
+// fewer ring slots, and the weight unpacked without the subtraction (128 + n,
+// with 136 sum x taken off each group by one more product a piece): none faster.
+namespace w4d {
+
+using namespace wg;
+
+constexpr int kThreads = 128;                 // four warps, 32 weight columns each
+constexpr int kBN = 128;                      // weight columns per block
+constexpr int kTM = 16;                       // token rows, the A operand's 16
+constexpr int kKS = 64;                       // contraction depth of a stage
+constexpr int kStages = 7;                    // ring slots; kStages - 1 stages in flight
+constexpr int kBlocksPerSm = 4;               // 16 warps an SM
+constexpr int kWRow = kBN + 32;               // bytes from one packed row of a stage to the next
+constexpr int kXBytes = kTM * 128;
+constexpr int kWBytes = (kKS / 2) * kWRow;
+constexpr int kSBytes = kBN * 2;
+constexpr int kStage = kXBytes + kWBytes + kSBytes;   // 7424: a multiple of 128
+constexpr int kSmem = kStages * kStage;
+
+// this thread's copies, all but those of the newest N groups, have landed (no
+// proxy fence: mma.sync and ldmatrix read shared memory as ordinary loads)
+template <int N> __device__ __forceinline__ void copies_landed() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// the bf16 pair (low nibble - 8, high nibble - 8) of byte T of v (v4 = v >> 4):
+// the permute puts byte T of v in byte 0 and byte T of v4 in byte 2, one logic
+// operation ((p & mask) | magic, with mask = 0x000F000F and magic = 0x43004300
+// held in registers: as two immediates it takes two) keeps their low nibbles
+// beside 0x43 (the bf16 128 + n, whose ulp is 1), and subtracting 136 is exact
+template <int T>
+__device__ __forceinline__ uint32_t nibble_pair(uint32_t v, uint32_t v4, uint32_t mask,
+                                                uint32_t magic) {
+  constexpr uint32_t sel = T | (T << 4) | ((4 + T) << 8) | ((4 + T) << 12);
+  uint32_t biased;
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n"
+      : "=r"(biased)
+      : "r"(__byte_perm(v, v4, sel)), "r"(mask), "r"(magic));
+  return as_u32(__hsub2(as_bf162(biased), as_bf162(0x43084308u)));
+}
+// a constant held in a register from here on
+__device__ __forceinline__ uint32_t pinned(uint32_t c) {
+  asm volatile("" : "+r"(c));
+  return c;
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// bf16 h (0: the low half, 1: the high half) of a word, as f32
+__device__ __forceinline__ float half_f32(uint32_t word, int h) {
+  return __uint_as_float(h ? (word & 0xffff0000u) : (word << 16));
+}
+
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+int4_mm_decode_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ w,
+                      const bf16* __restrict__ scale4, bf16* __restrict__ y,
+                      float* __restrict__ ws, int M, int K, int N, int G, int groups_per_split,
+                      int splits) {
+  extern __shared__ __align__(128) unsigned char smem_w4d[];
+  const uint32_t ring_a = smem_addr(smem_w4d);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gid = lane >> 2, tig = lane & 3;
+  const int n0 = blockIdx.x * kBN;
+  const int gs = G / kKS;                                          // stages a group
+  const int gbeg = blockIdx.y * groups_per_split;
+  const int ng = max(0, min(K / G, gbeg + groups_per_split) - gbeg);   // groups of this split
+  const int nst = ng * gs;
+  const int kbeg = gbeg * G;
+
+  // this thread's share of a stage's copies, as running sources: one chunk of
+  // the x tile (rows past M are zeros), two 16-byte chunks of the packed bytes
+  // (row idx / 8, columns 16 (idx % 8) ..), and for 16 threads 8 scales
+  const RowsCopy<kTM> copy_x(static_cast<size_t>(K));
+  const bf16* xsrc = x + kbeg;
+  const uint8_t* wsrc[2];
+  uint32_t wdst[2];
+  bool wok[2];
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int idx = tid + c * kThreads, row = idx >> 3, col = n0 + (idx & 7) * 16;
+    wok[c] = col < N;
+    wsrc[c] = w + static_cast<size_t>(kbeg / 2 + row) * N + (wok[c] ? col : 0);
+    wdst[c] = kXBytes + row * kWRow + (idx & 7) * 16;
+  }
+  const size_t wstep = static_cast<size_t>(kKS / 2) * N;
+  const bool sok = tid < 16 && n0 + tid * 8 < N;
+  const bf16* ssrc = scale4 + static_cast<size_t>(gbeg) * N + (sok ? n0 + tid * 8 : 0);
+  int lslot = 0, lstage = 0, lj = 0;   // the next load: its slot, stage and stage of its group
+  auto load = [&]() {
+    if (lstage < nst) {
+      const uint32_t st = ring_a + lslot * kStage;
+      copy_x(st, xsrc, M);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) cp_async16(st + wdst[c], wsrc[c], wok[c]);
+      if (tid < 16) cp_async16(st + kXBytes + kWBytes + tid * 16, ssrc, sok);
+      xsrc += kKS;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) wsrc[c] += wstep;
+      if (++lj == gs) {
+        lj = 0;
+        ssrc += N;
+      }
+    }
+    cp_async_commit();
+    ++lstage;
+    lslot = lslot == kStages - 1 ? 0 : lslot + 1;
+  };
+  // the packed rows tig + 4 q of its four columns; the scales of its eight output
+  // columns; the row of the x tile that this lane names to ldmatrix (matrix
+  // lane / 8: token rows 8 (lane / 8 % 2) .., k 8 (lane / 16) .. of a piece)
+  const int w_off = kXBytes + tig * kWRow + (32 * warp + 4 * gid);
+  const int s_off = kXBytes + kWBytes + (32 * warp + 8 * tig) * 2;
+  const int xr = (lane & 7) + ((lane >> 3) & 1) * 8;
+  uint32_t x_off[4];   // the piece's 16-byte chunk of that row, swizzled
+#pragma unroll
+  for (int p = 0; p < 4; ++p) x_off[p] = xr * 128 + (((2 * p + (lane >> 4)) ^ (xr & 7)) << 4);
+
+  float tot[4][4], acc[2][4][4];
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) tot[t][e] = acc[0][t][e] = acc[1][t][e] = 0.f;
+  uint4 sc = make_uint4(0u, 0u, 0u, 0u);   // the scales of the group whose sums wait in a set
+  const uint32_t mask = pinned(0x000F000Fu), magic = pinned(0x43004300u);
+
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) load();
+  int slot = 0;   // of the stage being multiplied
+  // one stage: its four 16-deep pieces, each one ldmatrix of x and four products
+  // (n-tiles 0 .. 3) into set SET; returns the stage's slot
+  auto stage = [&](auto set) {
+    constexpr int SET = decltype(set)::value;
+    copies_landed<kStages - 2>();   // this stage has landed
+    __syncthreads();                // ... for every thread, and every warp is past the last one
+    load();                         // into the slot the last stage freed
+    const unsigned char* st = smem_w4d + slot * kStage;
+    const uint32_t sa = ring_a + slot * kStage;
+    slot = slot == kStages - 1 ? 0 : slot + 1;
+    uint32_t wq[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) wq[q] = lds32(st + w_off + q * 4 * kWRow);
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      uint32_t a[4];
+      ldmatrix_x4(a, sa + x_off[p]);
+      const uint32_t v0 = wq[2 * p], v1 = wq[2 * p + 1], v04 = v0 >> 4, v14 = v1 >> 4;
+      mma_bf16(acc[SET][0], a, nibble_pair<0>(v0, v04, mask, magic),
+               nibble_pair<0>(v1, v14, mask, magic));
+      mma_bf16(acc[SET][1], a, nibble_pair<1>(v0, v04, mask, magic),
+               nibble_pair<1>(v1, v14, mask, magic));
+      mma_bf16(acc[SET][2], a, nibble_pair<2>(v0, v04, mask, magic),
+               nibble_pair<2>(v1, v14, mask, magic));
+      mma_bf16(acc[SET][3], a, nibble_pair<3>(v0, v04, mask, magic),
+               nibble_pair<3>(v1, v14, mask, magic));
+    }
+    return st;
+  };
+  // the group sums of set SET times their scales into the totals; the set starts anew
+  auto flush = [&](auto set) {
+    constexpr int SET = decltype(set)::value;
+    const uint32_t s[4] = {sc.x, sc.y, sc.z, sc.w};   // columns 8 tig + (0, 1), (2, 3), ..
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const float s0 = half_f32(s[t >> 1], t & 1), s1 = half_f32(s[2 + (t >> 1)], t & 1);
+      tot[t][0] = fmaf(acc[SET][t][0], s0, tot[t][0]);
+      tot[t][1] = fmaf(acc[SET][t][1], s1, tot[t][1]);
+      tot[t][2] = fmaf(acc[SET][t][2], s0, tot[t][2]);
+      tot[t][3] = fmaf(acc[SET][t][3], s1, tot[t][3]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[SET][t][e] = 0.f;
+    }
+  };
+  // a group into set SET: after its first stage, the set of the group before is
+  // scaled and this group's scales are taken from the slot
+  auto group = [&](bool first, auto set) {
+    constexpr int SET = decltype(set)::value;
+    const unsigned char* st = stage(set);
+    if (!first) flush(std::integral_constant<int, 1 - SET>{});
+    sc = *reinterpret_cast<const uint4*>(st + s_off);
+    for (int j = 1; j < gs; ++j) stage(set);
+  };
+  for (int g = 0; g < ng; g += 2) {
+    group(g == 0, std::integral_constant<int, 0>{});
+    if (g + 1 < ng) group(false, std::integral_constant<int, 1>{});
+  }
+  if (ng & 1) flush(std::integral_constant<int, 0>{});
+  else if (ng > 0) flush(std::integral_constant<int, 1>{});
+
+  // tokens gid and gid + 8: this thread's eight columns side by side
+  const int nc = n0 + 32 * warp + 8 * tig;
+  if (nc >= N) return;   // N % 16 == 0: all eight exist, or none
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = gid + 8 * h;
+    if (m >= M) continue;
+    float v[8];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      v[t] = tot[t][2 * h];
+      v[4 + t] = tot[t][2 * h + 1];
+    }
+    if (splits == 1) {
+      uint32_t o[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[i] = as_u32(__floats2bfloat162_rn(v[2 * i], v[2 * i + 1]));
+      *reinterpret_cast<uint4*>(y + static_cast<size_t>(m) * N + nc) =
+          make_uint4(o[0], o[1], o[2], o[3]);
+    } else {
+      float4* o =
+          reinterpret_cast<float4*>(ws + (static_cast<size_t>(blockIdx.y) * M + m) * N + nc);
+      o[0] = make_float4(v[0], v[1], v[2], v[3]);
+      o[1] = make_float4(v[4], v[5], v[6], v[7]);
+    }
+  }
+}
+
+cudaError_t launch(const void* x, const uint8_t* w, const bf16* scale4, void* y, float* ws, int M,
+                   int K, int N, int G, int splits, cudaStream_t st) {
+  if (M > kTM || G % kKS != 0 || N % 16 != 0 || splits > 65535) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(int4_mm_decode_kernel, kSmem);
+  if (err != cudaSuccess) return err;
+  // whole groups a split; a split past K writes zeros
+  const int gps = (K / G + splits - 1) / splits;
+  const dim3 grid((N + kBN - 1) / kBN, splits);
+  int4_mm_decode_kernel<<<grid, kThreads, kSmem, st>>>(static_cast<const bf16*>(x), w, scale4,
+                                                       static_cast<bf16*>(y), ws, M, K, N, G, gps,
+                                                       splits);
+  return cudaGetLastError();
+}
+
+}  // namespace w4d
+
+enum Path { kScalar = 0, kVec16 = 1, kTensorCore = 2, kWgmma = 3, kDecode = 4 };
 
 template <typename X, typename Y>
 cudaError_t launch(const void* x, const float* sx, const void* w, const void* scale4, void* y,
@@ -603,7 +893,8 @@ cudaError_t launch(const void* x, const float* sx, const void* w, const void* sc
 // G % 32 == 0, N % 8 == 0, x 16-byte and weight 8-byte aligned; bf16 x -> bf16 y,
 // or int8 x), 3 tensor cores through wgmma (bf16 x -> bf16 y, G % 64 == 0,
 // N % 16 == 0, x, weight and scales 16-byte aligned, tile: the token tile, a
-// multiple of 8 from 16 to 80; whole groups a split); the wrapper checks.
+// multiple of 8 from 16 to 80; whole groups a split), 4 the decode rows on
+// mma.sync (as 3, M <= 16, tile unused; whole groups a split); the wrapper checks.
 extern "C" int aha_int4_matmul(const void* x, const void* sx, const void* w, const void* scale4,
                                void* y, void* workspace, int M, int K, int N, int G,
                                int x_dtype, int y_dtype, int splits, int path, int tile,
@@ -614,11 +905,13 @@ extern "C" int aha_int4_matmul(const void* x, const void* sx, const void* w, con
     return static_cast<int>(cudaErrorInvalidValue);
   const float* sxf = static_cast<const float*>(sx);
   cudaError_t err = cudaErrorInvalidValue;
-  if (path == kWgmma) {
+  if (path == kWgmma || path == kDecode) {
     if (x_dtype != AHA_BF16 || y_dtype != AHA_BF16) return static_cast<int>(err);
     float* wsf = static_cast<float*>(workspace);
-    err = w4::launch(x, static_cast<const uint8_t*>(w), static_cast<const __nv_bfloat16*>(scale4),
-                     y, wsf, M, K, N, G, splits, tile, st);
+    const uint8_t* wq = static_cast<const uint8_t*>(w);
+    const __nv_bfloat16* sc = static_cast<const __nv_bfloat16*>(scale4);
+    err = path == kWgmma ? w4::launch(x, wq, sc, y, wsf, M, K, N, G, splits, tile, st)
+                         : w4d::launch(x, wq, sc, y, wsf, M, K, N, G, splits, st);
     if (err == cudaSuccess && splits > 1)
       err = launch_splitk_reduce<__nv_bfloat16>(wsf, nullptr, nullptr,
                                                 static_cast<__nv_bfloat16*>(y), M, N, splits, st);

@@ -11,7 +11,10 @@ column (G = K // scale4.shape[0]). A stacked weight's layer is passed as the
 views ``q4value[l]``, ``scale4[l]``. ``int4_qlinear`` is the same product
 with a gradient for ``x`` (``aha_tpu/ops/pallas/fused_matmul.py::
 int4_qlinear``): forward this kernel, backward ``int4_matmul_t``, nothing for
-the frozen weight and scales.
+the frozen weight and scales. ``plan`` chooses the kernel's path from the
+shapes alone, so the CPU tests hold it: bf16 weight-only at 1 to 16 rows the
+decode kernel (one launch whatever M, so a row gives the same bits at every
+width), from 17 rows the wgmma kernel, the rest the earlier paths.
 
 On a CPU tensor the plain version runs; on a CUDA tensor the kernel
 launches, or the call raises.
@@ -66,8 +69,33 @@ def int4_matmul_plain(x: torch.Tensor, q4value: torch.Tensor, scale4: torch.Tens
     return y.to(x.dtype).reshape(*lead, N)
 
 
-WGMMA_MIN_M = 14         # rows from which the bf16 product takes WGMMA; fewer keep mma.sync
+DECODE = 4               # the decode rows' path (mma.sync, csrc/int4_matmul.cu section w4d)
+DECODE_MAX_M = 16        # rows up to which the bf16 product takes DECODE: x is mma.sync's 16-row A
+WGMMA_MIN_M = DECODE_MAX_M + 1   # rows from which it takes WGMMA
 WGMMA_TILE_CAP = 80      # rows of its token tile at most (two accumulator sets of 2 x 40 registers)
+DECODE_STAGES = 7        # the decode kernel's ring slots (x tile, packed bytes, scales a slot)
+DECODE_SMEM = DECODE_STAGES * (16 * 128 + 32 * 160 + 256)
+DECODE_BLOCKS_PER_SM = 4
+
+
+def decode_splits(sms: int, N: int, groups: int) -> int:
+    """K splits of the decode kernel, whole groups each, from the shapes of W
+    alone (never from M: a row gives the same bits at any M up to 16). The
+    kernel is bound by each SM's issue, not by the memory: a grid of 128-column
+    blocks smaller than half a round of resident blocks (two an SM of the four)
+    is split as far as half a round holds, evened out over the groups (qkv's 36
+    column blocks in 7 splits of 4 groups, o's 28 in 7, down's 28 in 9 of 17: on
+    an H100 each was the fastest of 7 / 10 / 14 or 9 / 13 / 17 at 1, 8 and 16
+    rows but o at 1 and 8, where 14 was a little faster). A grid between half a
+    round and a round leaves some SMs a third more blocks than others: it is cut
+    in 4, gate_up's 296 blocks into 1,184 of 7 groups. A larger grid (the
+    lm_head's 1,188) takes one."""
+    half, blocks = DECODE_BLOCKS_PER_SM * sms // 2, -(-N // 128)
+    if blocks > half:
+        return 4 if blocks <= 2 * half and groups >= 16 else 1
+    want = max(1, min(half // blocks, groups, 64))
+    per = -(-groups // want)
+    return -(-groups // per)
 
 
 def wgmma_splits(sms: int, blocks: int, groups: int, stages: int) -> int:
@@ -90,6 +118,14 @@ def wgmma_splits(sms: int, blocks: int, groups: int, stages: int) -> int:
     return best
 
 
+def decode_column(warp: int, j: int, t: int) -> int:
+    """Which of a block's weight columns column ``j`` (0 .. 7) of n-tile ``t``
+    (0 .. 3) of warp ``warp``'s products is on the decode path: the thread
+    with gid = j reads the word of columns 32 warp + 4 j .. + 3, whose byte t
+    is its B register of n-tile t."""
+    return 32 * warp + 4 * j + t
+
+
 @functools.lru_cache(maxsize=None)
 def plan(M: int, K: int, N: int, G: int, *, bf16: bool, a8: bool = False,
          align: tuple[int, int, int] = (16, 16, 16), sms: int = 132) -> Plan:
@@ -98,8 +134,11 @@ def plan(M: int, K: int, N: int, G: int, *, bf16: bool, a8: bool = False,
     [K/G, N] whose addresses are multiples of ``align`` bytes. Pure (no card
     is asked) and remembered: a path's shapes recur with every pass."""
     ax, aw, asc = align
-    if (bf16 and not a8 and M >= WGMMA_MIN_M and G % 64 == 0 and N % 16 == 0
-            and ax % 16 == 0 and aw % 16 == 0 and asc % 16 == 0):
+    tensor_cores = (bf16 and not a8 and G % 64 == 0 and N % 16 == 0
+                and ax % 16 == 0 and aw % 16 == 0 and asc % 16 == 0)
+    if tensor_cores and M <= DECODE_MAX_M:
+        return Plan(DECODE, decode_splits(sms, N, K // G), 16, 1, DECODE_STAGES, DECODE_SMEM)
+    if tensor_cores:
         tile, tiles = token_tile(M, WGMMA_TILE_CAP)
         stages = 6
         splits = wgmma_splits(sms, tiles * -(-N // 128), K // G, K // 64)
@@ -161,17 +200,27 @@ def int4_matmul(x: torch.Tensor, q4value: torch.Tensor, scale4: torch.Tensor, *,
     pl = plan(M, K, N, G, bf16=x.dtype == torch.bfloat16, a8=a8,
               align=(_align(x2), _align(q4value), _align(scale4)),
               sms=num_sms(x.device.index or 0))
-    ws = (torch.empty((pl.splits, M, N), dtype=torch.float32, device=x.device)
+    launch_plan(x2, sx, q4value, scale4, y, pl)
+    LAUNCHES["int4_matmul_a8" if a8 else "int4_matmul"] += 1
+    return y.reshape(*lead, N)
+
+
+def launch_plan(x2: torch.Tensor, sx: torch.Tensor | None, q4value: torch.Tensor,
+                scale4: torch.Tensor, y: torch.Tensor, pl: Plan) -> None:
+    """Launch the kernel into ``y`` [M, N] along ``pl`` (x2 [M, K] bf16 / f32, or
+    int8 with its row scales ``sx``), checked by ``int4_matmul``. Not counted:
+    ``chip_smoke.py`` also times here the kernels a plan no longer picks."""
+    M, K = x2.shape
+    N = q4value.shape[1]
+    ws = (torch.empty((pl.splits, M, N), dtype=torch.float32, device=x2.device)
           if pl.splits > 1 else None)
     lib = _build.library()
     err = lib.aha_int4_matmul(
         x2.data_ptr(), None if sx is None else sx.data_ptr(), q4value.data_ptr(),
         scale4.data_ptr(), y.data_ptr(), None if ws is None else ws.data_ptr(),
-        M, K, N, G, _DTYPES[x2.dtype], _DTYPES[x.dtype], pl.splits, pl.path, pl.tile,
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+        M, K, N, K // scale4.shape[0], _DTYPES[x2.dtype], _DTYPES[y.dtype], pl.splits, pl.path,
+        pl.tile, ctypes.c_void_p(torch.cuda.current_stream(x2.device).cuda_stream))
     _build.check(lib, err, "int4_matmul")
-    LAUNCHES["int4_matmul_a8" if a8 else "int4_matmul"] += 1
-    return y.reshape(*lead, N)
 
 
 class _Int4QLinear(torch.autograd.Function):

@@ -28,6 +28,10 @@ int4 (the --int4 config at the product widths), after the window has filled:
               ``generate_spec`` runs;
   token       the S = 1 passes of the sequential loop, as for int8.
 
+The verify-pass and token tables list the int4 products' decode kernel
+(``int4_mm_decode_kernel``, 1 .. 16 rows) and the sum of its K splits by name,
+with their share of device time and calls per unit.
+
 train (int4 QLoRA: int4 trunk, dense bf16 projector and lm_head, LoRA r 16,
 B 1, 16 frames in a conversation of 926 tokens, lora_dropout 0.05, remat
 ``--remat``), after two steps to warm:
@@ -65,6 +69,9 @@ GEN_TOKENS = 32
 # passes' tables with their calls per unit, launched or not
 DECODE_KERNELS = ("decode_attention_kernel", "decode_attention_wgmma_kernel",
                   "decode_rotate_keys_kernel", "decode_merge_kernel")
+# the int4 products' kernel at 1 .. 16 rows (csrc/int4_matmul.cu) and the sum of its
+# K splits, listed in the int4 token and verify-pass tables
+INT4_DECODE_KERNELS = ("int4_mm_decode_kernel", "splitk_reduce")
 
 
 def _short(name: str) -> str:
@@ -206,7 +213,7 @@ def _trace_frames(label, engine, cache, embeds, first, n):
            named=DECODE_KERNELS)
 
 
-def _trace_tokens(label, engine, tok, cache):
+def _trace_tokens(label, engine, tok, cache, named=DECODE_KERNELS):
     """Budget 1 + GEN_TOKENS minus budget 1, each from the same cache state
     (the clone is in both, and cancels)."""
     prompt = tok.apply_chat_template([{}], add_stream_generation_prompt=True)
@@ -225,7 +232,7 @@ def _trace_tokens(label, engine, tok, cache):
     report(f"{label} token (S = 1 passes only)", GEN_TOKENS, "token", b.wall_ms - a.wall_ms,
            b.traced_wall_ms - a.traced_wall_ms, b.busy_ms() - a.busy_ms(),
            {n: v for n, v in diff.items() if v[0] > 0}, b.aten_ops() - a.aten_ops(),
-           named=DECODE_KERNELS)
+           named=named)
 
 
 def profile_int8(seed: int, n: int) -> None:
@@ -288,8 +295,8 @@ def profile_int4(seed: int, n: int) -> None:
         tr = Trace()
         tr.run(verify_passes)
         report(f"int4 verify S={S}", 8, "pass", tr.wall_ms, tr.traced_wall_ms, tr.busy_ms(),
-               tr.kernels(), tr.aten_ops())
-    _trace_tokens("int4", engine, tok, cache)
+               tr.kernels(), tr.aten_ops(), named=INT4_DECODE_KERNELS)
+    _trace_tokens("int4", engine, tok, cache, named=DECODE_KERNELS + INT4_DECODE_KERNELS)
 
 
 def profile_train(seed: int, remat: str) -> None:

@@ -8,8 +8,8 @@ Phases, one or more lines each:
   1. device: nvidia-smi name and power limit, torch / CUDA / nvcc versions,
      the kernels' build time (built from aha_tpu_torch/csrc at first use, one
      nvcc per source in parallel), and what ptxas said of the int8 wgmma
-     kernel (registers by token tile; a spill or a remark that its products
-     are serialised fails the phase);
+     kernel (registers by token tile) and of the int4 decode kernel (a spill
+     or a remark that their products are serialised fails the phase);
   2. each CUDA kernel against its plain PyTorch version on the card, at
      every shape the 7B paths of phases 4 and 5 hand it (all five matmul
      entries at the four layer products for each row count of PATH_M, lm_head
@@ -19,10 +19,15 @@ Phases, one or more lines each:
      of their wgmma kernels, at long K across its splits, at G = 64 and 256 and
      at shapes only their earlier paths take (N = 136, K = 352, x 2 bytes off
      its buffer), each matmul case with the path its wrapper's plan chose
-     checked and launched twice for equal bits, beside torch.matmul on a
-     weight dequantised beforehand (the bf16 product alone, timed and used
-     nowhere) or torch._int_mm on int8 operands made beforehand (with int8
-     activations; int4 weights unpacked to int8), each timed from a replayed
+     checked and launched twice for equal bits; int4_matmul at 1 .. 16 rows
+     (its decode kernel) also at rows 2, 3, 7, 15 and 16 of the layer, at
+     G = 64 and 256, with each row equal bit for bit to its one-row product
+     and beside the kernel its plan chose there before (replaced_ms, timed
+     and not counted); beside torch.matmul on a weight dequantised
+     beforehand (the bf16 product alone, timed and used nowhere; layer and
+     lm_head at 1, 4, 8 and 13 rows too) or torch._int_mm on int8 operands
+     made beforehand (with int8 activations; int4 weights unpacked to
+     int8), each timed from a replayed
      CUDA graph (device time: a launch under 100 us is shorter than the host's
      work to launch it) with a loop of plain calls beside it, and the sums of a
      decoder layer's four products and of the projector's two; the flash
@@ -229,11 +234,15 @@ class Stats:
             self.k[n]["launches"] += c
 
 
+# the kernels whose ptxas report phase 1 holds: no spill, no serialisation remark
+PTXAS_HELD = ("int8_mm_wgmma_kernel", "int4_mm_decode_kernel")
+
+
 def check_ptxas(log: dict) -> str:
-    """What ptxas said of the int8 wgmma kernel, one token tile after another
-    (registers, spill bytes), in the build this process ran; raises on a spill
-    or on a remark that its warpgroup products are serialised. Such remarks on
-    other kernels are printed."""
+    """What ptxas said of the int8 wgmma kernel and the int4 decode kernel,
+    one instantiation after another (registers, spill bytes), in the build this
+    process ran; raises on a spill or on a remark that their products are
+    serialised. Such remarks on other kernels are printed."""
     import re
 
     if not log:
@@ -248,22 +257,26 @@ def check_ptxas(log: dict) -> str:
                 continue
             if "wgmma" in line and "serialized" in line:
                 remarks.append(f"{src}: {line.strip()}")
-            if entry is None or "int8_mm_wgmma_kernel" not in entry:
+            held = [k for k in PTXAS_HELD if entry is not None and k in entry]
+            if not held:
                 continue
-            tile = int(re.search(r"int8_mm_wgmma_kernelILi(\d+)E", entry).group(1))
+            # the kernel and its template arguments: int8_mm_wgmma_kernel<64> -> "int8...:64"
+            args = re.findall(r"Li(\d+)E", entry.split(held[0], 1)[1])
+            key = f"{held[0]}<{','.join(args)}>"
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if m:
-                spills[tile] = int(m.group(1)) + int(m.group(2))
+                spills[key] = int(m.group(1)) + int(m.group(2))
             m = re.search(r"Used (\d+) registers", line)
             if m:
-                regs[tile] = int(m.group(1))
-    mine = [r for r in remarks if "int8_mm_wgmma_kernel" in r]
-    if not regs or any(spills.get(t, 0) for t in regs) or mine:
-        raise AssertionError(f"int8 wgmma kernel: registers {regs}, spill bytes {spills}, "
-                             f"serialisation remarks {mine}")
+                regs[key] = int(m.group(1))
+    mine = [r for r in remarks if any(k in r for k in PTXAS_HELD)]
+    missing = [k for k in PTXAS_HELD if not any(r.startswith(k) for r in regs)]
+    if missing or any(spills.get(t, 0) for t in regs) or mine:
+        raise AssertionError(f"ptxas: registers {regs}, spill bytes {spills}, serialisation "
+                             f"remarks {mine}, no report for {missing}")
     others = f"; remarks on other kernels: {remarks}" if remarks else ""
-    return (f"ptxas int8_mm_wgmma_kernel registers by token tile {dict(sorted(regs.items()))}, "
-            f"no spill, no wgmma serialisation remark{others}")
+    return (f"ptxas registers {dict(sorted(regs.items()))}, no spill, no wgmma serialisation "
+            f"remark{others}")
 
 
 # -- phase 2 -------------------------------------------------------------------
@@ -317,6 +330,25 @@ def product_only_ms(a, w, short: bool, transposed: bool = False) -> float:
     return timer(lambda i: torch.matmul(a, wt))
 
 
+# rows at which phase 2 also times the library's product on the decode paths
+DECODE_LIB_M = (1, 4, 8, 13)
+
+
+def replaced_plan(M: int, K: int, N: int, G: int, sms: int):
+    """The launch that ``int4_matmul``'s plan chose at 1 .. 16 bf16 rows before
+    the decode kernel took them: the CUDA cores at a token, mma.sync at 2 .. 13
+    rows, the wgmma kernel at 14 .. 16."""
+    from aha_tpu_torch.ops.kernels import int4_matmul as k4
+
+    if M >= 14:
+        tile, tiles = k4.token_tile(M, k4.WGMMA_TILE_CAP)
+        splits = k4.wgmma_splits(sms, tiles * -(-N // 128), K // G, K // 64)
+        return k4.Plan(k4.WGMMA, splits, tile, tiles, 6, 6 * (tile * 128 + 6144) + 1024)
+    if M > 1:
+        return k4.Plan(k4.TENSOR_CORE, k4.splits_on(sms, -(-M // 64) * -(-N // 128), K // 256))
+    return k4.Plan(k4.VEC16, k4.splits_on(sms, -(-N // 128), (K // G) // 4))
+
+
 def check_matmuls(gen, stats: Stats):
     import torch
 
@@ -355,6 +387,11 @@ def check_matmuls(gen, stats: Stats):
     # not a multiple of 8 (CUDA cores), G a multiple of 32 but not of 64 (mma.sync);
     # so is the edge case above (N = 136 is no multiple of 16: mma.sync)
     old4 = [("old-path-ragged-n", 70, 320, 132, 64), ("old-path-g32", 70, 320, 136, 32)]
+    # int4, bf16, weight-only on the decode kernel (1 .. 16 rows): the rows no path of
+    # phase 4 gives but a verify pass of another width would, at the layer's shapes
+    # (down: its long K across the splits), and G = 64 and 256
+    decode4 = [(n, M, *layer[n], 128) for n in layer for M in (2, 3, 7, 15, 16)]
+    decode4 += [("g64", 8, 1024, 1024, 64), ("g256", 8, 3584, 4608, 256)]
 
     # int8, bf16, weight-only on the wgmma path: 2 rows and the row counts that
     # straddle its token tiles (128 rows at most), the fused width, the projector's
@@ -385,7 +422,7 @@ def check_matmuls(gen, stats: Stats):
          [(*c, 128, bf, 1e-2) for c in cards]
          + [(n, TRAIN_T, *layer[n], 128, bf, 1e-2) for n in layer]   # the training sequence
          + [(*r, f32, 1e-4) for r in ragged4] + [(*edge, 64, bf, 1e-2)]
-         + [(*c, bf, 1e-2) for c in wgmma4 + old4], 196),
+         + [(*c, bf, 1e-2) for c in wgmma4 + old4 + decode4], 196),
         ("int4_matmul_a8", 4, True,
          [(*c, 128, bf, 2e-2) for c in cards]
          + [(*r, f32, 1e-4) for r in ragged4] + [(*edge, 64, bf, 2e-2)], 196),
@@ -432,9 +469,12 @@ def check_matmuls(gen, stats: Stats):
                 raise AssertionError(f"{what}: two launches on the same inputs differ")
             if bits == 4:
                 pl = k4.plan(M, K, N, G, bf16=dt == bf, a8=a8, sms=sms)
-                want_new = (dt == bf and not a8 and M >= k4.WGMMA_MIN_M
-                            and not label.startswith("old-path")
-                            and label not in ("ragged", "ragged-tc"))
+                new = (dt == bf and not a8 and not label.startswith("old-path")
+                       and label not in ("ragged", "ragged-tc"))
+                want = (k4.DECODE if M <= k4.DECODE_MAX_M else k4.WGMMA) if new else None
+                if pl.path != want and (new or pl.path in (k4.WGMMA, k4.DECODE)):
+                    raise AssertionError(f"{what}: path {pl.path}, expected "
+                                         f"{want if new else 'an earlier path'}")
             else:
                 pl = k8.plan(M, K, N, bf16=dt == bf, a8=a8,
                              align=(k8.align_of(x), k8.align_of(ws[0]), k8.align_of(sc)), sms=sms)
@@ -445,10 +485,16 @@ def check_matmuls(gen, stats: Stats):
                 if want_new and lib8.aha_int8_matmul_wgmma_smem(pl.tile) != pl.smem_bytes:
                     raise AssertionError(f"{what}: the plan's {pl.smem_bytes} bytes of shared "
                                          f"memory are not the kernel's")
-            if (pl.path == k8.WGMMA) != want_new:
-                raise AssertionError(f"{what}: path {pl.path}, wgmma expected: {want_new}")
+                if (pl.path == k8.WGMMA) != want_new:
+                    raise AssertionError(f"{what}: path {pl.path}, wgmma expected: {want_new}")
             note = (f" path={pl.path} tile={pl.tile}x{pl.tiles} splits={pl.splits} "
                     f"smem={pl.smem_bytes} equal_twice")
+            if bits == 4 and pl.path == k4.DECODE:
+                # row r of the M-row product is the one-row product of row r, bit for bit
+                rows = torch.cat([run(x[r:r + 1], ws[0]) for r in range(M)])
+                if not torch.equal(y, rows):
+                    raise AssertionError(f"{what}: a row differs from its one-row product")
+                note += " rows_equal_one_row"
             # device time from a replayed graph (a launch under 100 us is shorter than
             # the host's work to launch it, and a loop of plain calls times the host)
             loop = cuda_ms(lambda i: run(x, ws[i % copies]))
@@ -459,8 +505,19 @@ def check_matmuls(gen, stats: Stats):
             esize = x.element_size()
             bms, by = bound_ms(M * K * esize + wbytes + sbytes + M * N * esize, 2.0 * M * K * N,
                                "int8" if a8 else ("bf16" if dt == bf else "f32"))
-            lib = None
+            lib = replaced = None
             timer = graph_ms if short else cuda_ms
+            if bits == 4 and pl.path == k4.DECODE and (label in layer or label == "lm_head"):
+                # the kernel this one replaced at these rows, launched as its plan did
+                # (the mma.sync kernel at 2 .. 13 rows, the CUDA-core kernel at 1, the
+                # wgmma kernel at 14 .. 16); timed, not counted
+                old = replaced_plan(M, K, N, G, sms)
+                yo = torch.empty_like(y)
+                k4.launch_plan(x, None, ws[0], sc, yo, old)
+                rel_check(f"{what} replaced kernel", yo, ref, tol)
+                replaced = timer(lambda i: k4.launch_plan(x, None, ws[i % copies], sc, yo, old))
+                note += f" replaced_path={old.path} replaced_ms={replaced:.4f}"
+                del yo
             if a8 and M > 16 and K % 8 == 0 and N % 8 == 0:
                 # the int8 x int8 product alone, on activations quantised beforehand (int4:
                 # the weight unpacked to int8 beforehand)
@@ -469,8 +526,8 @@ def check_matmuls(gen, stats: Stats):
                 w8 = ws if bits == 8 else [k4.unpack_int4(w) for w in ws[:max(1, copies // 2)]]
                 lib = timer(lambda i: torch._int_mm(xq, w8[i % len(w8)]))
                 del w8
-            if not a8 and dt == bf and label in layer and (
-                    M in (rep_m, TRAIN_T) or (bits == 8 and M == 196)):
+            if not a8 and dt == bf and (label in layer or label == "lm_head") and (
+                    M in (rep_m, TRAIN_T) + DECODE_LIB_M or (bits == 8 and M == 196)):
                 # the bf16 product alone, on a weight dequantised beforehand
                 wd = dequantized(ws[0], sc) if bits == 4 else dequantized8(ws[0], sc)
                 lib = product_only_ms(x, wd, short)
@@ -480,21 +537,24 @@ def check_matmuls(gen, stats: Stats):
                           f"decoder layer (qkv, o_proj, gate_up, down) at M={M}, bf16")
             if M == TRAIN_T and label in layer:
                 stats.train_fwd_ms += ms
-            if dt == bf and (label in layer or label.startswith("projector")):
-                part = "layer" if label in layer else "projector"
-                acc = sums.setdefault((name, part, M), [0.0, 0.0, 0.0, 0, 0.0])
+            if dt == bf and (label in layer or label.startswith("projector")
+                             or label == "lm_head"):
+                part = "layer" if label in layer else label.split("_fc")[0]
+                acc = sums.setdefault((name, part, M), [0.0, 0.0, 0.0, 0, 0.0, 0.0])
                 acc[0] += ms
                 acc[1] += bms
                 acc[2] += lib or 0.0
                 acc[3] += lib is not None
                 acc[4] += pms
+                acc[5] += replaced or 0.0
             print(f"phase2 {what} {_dt(dt)} max_abs_err={err:.3e}{note} kernel_ms={ms:.4f} "
                   f"plain_ms={pms:.4f} bound_ms={bms:.4f} ({by}) library_ms="
                   f"{'none' if lib is None else f'{lib:.4f}'}", flush=True)
             del ws
-    for (name, part, M), (ms, bms, lib, n_lib, pms) in sorted(sums.items()):
+    for (name, part, M), (ms, bms, lib, n_lib, pms, old) in sorted(sums.items()):
         print(f"phase2 sum {name} {part} M={M}: kernel_ms={ms:.4f} bound_ms={bms:.4f} "
-              f"plain_ms={pms:.4f} library_ms={f'{lib:.4f}' if n_lib else 'none'}", flush=True)
+              f"plain_ms={pms:.4f} library_ms={f'{lib:.4f}' if n_lib else 'none'}"
+              + (f" replaced_ms={old:.4f}" if old else ""), flush=True)
 
 
 def check_quantize_rows(gen, stats: Stats):

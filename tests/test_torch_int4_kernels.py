@@ -1,10 +1,11 @@
-"""The int4 products' wgmma kernels, as far as a CPU can hold them: the
+"""The int4 products' tensor-core kernels, as far as a CPU can hold them: the
 wrappers' pure choice of path, token tile, ring, splits and shared memory for
 every shape ``chip_smoke.py`` drives; the relabelling of accumulator rows that
-both kernels apply at their stores; the forward kernel's order of sums (f32
-group sums over 16-deep pieces, the group's scale, groups added) emulated in
-plain PyTorch against the Pallas kernel in interpret mode; and what the
-wrappers refuse. The kernels themselves run only on the card
+the wgmma kernels apply at their stores and of weight columns in the decode
+kernel (1 .. 16 rows), whose unpacked registers are checked bit for bit; the
+forward kernels' orders of sums (f32 group sums over 16-deep pieces, the
+group's scale, groups and K splits added) emulated in plain PyTorch against
+the Pallas kernel in interpret mode; and what the wrappers refuse. The kernels themselves run only on the card
 (``chip_smoke.py`` phase 2 holds them against the plain versions there)."""
 
 import importlib.util
@@ -73,8 +74,9 @@ def test_forward_plan_of_every_path_shape(M):
     split, and a ring that fits a block's shared memory twice on an SM."""
     for K, N in _shapes(M):
         pl = k4.plan(M, K, N, 128, bf16=True)
-        if M < k4.WGMMA_MIN_M:
-            assert pl.path == (TENSOR_CORE if M > 1 else VEC16), (M, K, N)
+        if M <= k4.DECODE_MAX_M:
+            assert pl == k4.plan(1, K, N, 128, bf16=True), (M, K, N)
+            assert pl.path == k4.DECODE, (M, K, N)
             continue
         assert pl.path == k4.WGMMA, (M, K, N)
         assert pl.tile % 8 == 0 and 8 <= pl.tile <= k4.WGMMA_TILE_CAP <= 256
@@ -102,8 +104,14 @@ def test_forward_plan_of_every_path_shape(M):
     (926, 3584, 4608, 128, dict(bf16=True, a8=True), TENSOR_CORE),   # int8 activations
     (926, 3584, 4608, 128, dict(bf16=True, align=(8, 16, 16)), VEC16),
     (926, 3584, 4608, 128, dict(bf16=True, align=(16, 8, 16)), TENSOR_CORE),
-    (13, 3584, 4608, 128, dict(bf16=True), TENSOR_CORE),             # a verify pass keeps mma.sync
-    (1, 3584, 4608, 128, dict(bf16=True), VEC16),                    # a token keeps the CUDA cores
+    (13, 3584, 4608, 128, dict(bf16=True, a8=True), TENSOR_CORE),    # a verify pass with int8 x
+    (1, 3584, 4608, 128, dict(bf16=False), VEC16),                   # a token in f32
+    (8, 3584, 4608, 32, dict(bf16=True), TENSOR_CORE),               # decode rows at G 32
+    (8, 320, 136, 64, dict(bf16=True), TENSOR_CORE),                 # N not a multiple of 16
+    (8, 320, 132, 64, dict(bf16=True), SCALAR),                      # N not a multiple of 8
+    (8, 3584, 4608, 128, dict(bf16=True, align=(8, 16, 16)), VEC16),   # a misaligned x
+    (8, 3584, 4608, 128, dict(bf16=True, align=(16, 16, 8)), TENSOR_CORE),   # misaligned scales
+    (1, 3584, 4608, 128, dict(bf16=True, a8=True), VEC16),           # a token with int8 x
 ])
 def test_forward_plan_keeps_the_earlier_paths(M, K, N, G, kw, path):
     pl = k4.plan(M, K, N, G, **kw)
@@ -252,3 +260,153 @@ def test_a_misaligned_view_keeps_off_the_wgmma_path():
     pl = k4.plan(926, 3584, 4608, 128, bf16=True, align=(k4._align(x), 16, 16))
     assert pl.path != k4.WGMMA
     assert kt.plan(926, 3584, 4608, 128, bf16=True, aligned=False).path != kt.WGMMA
+
+
+# ---- the decode rows (1 .. 16): one kernel, one plan, one order of sums ------------------
+
+
+def _decode_shapes():
+    """(M, K, N) of every product a 7B path hands the decode path: rows 1-16 at
+    the four layer products (a token, verify passes of 4 and 8 and their 5 and 9
+    rows, the 13-row generation prompt), 1, 4 and 8 at the lm_head."""
+    smoke = _smoke()
+    out = [(M, K, N) for M in range(1, 17) for _, K, N in smoke.LAYER]
+    return out + [(M, *LM_HEAD) for M in (1, 4, 8)]
+
+
+@pytest.mark.parametrize("M,K,N", _decode_shapes())
+def test_decode_plan_of_every_7b_shape(M, K, N):
+    """bf16, G 128, aligned, 1 to 16 rows: the decode kernel, with the same
+    splits at every M (a row gives the same bits alone or with 15 others),
+    whole groups a split and none empty, a grid of one round of four blocks an
+    SM on average where a small grid is split, four splits of a grid between
+    that and a round (gate_up), and a ring that fits four times in an SM."""
+    pl = k4.plan(M, K, N, 128, bf16=True)
+    assert pl.path == k4.DECODE and pl == k4.plan(16, K, N, 128, bf16=True)
+    groups, blocks = K // 128, -(-N // 128)
+    per = -(-groups // pl.splits)
+    assert 1 <= pl.splits <= groups and per * (pl.splits - 1) < groups
+    half = k4.DECODE_BLOCKS_PER_SM * 132 // 2
+    assert pl.splits == (4 if half < blocks <= 2 * half else 1) or (
+        blocks <= half and blocks * pl.splits <= half)
+    assert pl.smem_bytes == k4.DECODE_SMEM and 4 * (pl.smem_bytes + 1024) <= 233472
+    expect = {4608: 7, 37888: 4, 152064: 1}.get(N, 9 if K == 18944 else 7)
+    assert pl.splits == expect, (M, K, N, pl.splits)
+
+
+def _byte_perm(x: int, y: int, s: int) -> int:
+    """CUDA's __byte_perm: byte i of the result is byte (nibble i of s) of the
+    eight bytes x (0 .. 3), y (4 .. 7)."""
+    b = (x | (y << 32)).to_bytes(8, "little")
+    return int.from_bytes(bytes(b[(s >> (4 * i)) & 7] for i in range(4)), "little")
+
+
+def _nibble_pair(v: int, t: int) -> tuple[float, float]:
+    """The kernel's nibble_pair<t>(v, v >> 4), its bf16 halves as numbers:
+    permute, mask beside 0x43, subtract the bf16 pair (136, 136)."""
+    sel = t | (t << 4) | ((4 + t) << 8) | ((4 + t) << 12)
+    biased = (_byte_perm(v, v >> 4, sel) & 0x000F000F) | 0x43004300
+    halves = np.array([biased & 0xFFFF, biased >> 16], dtype=np.uint32) << 16
+    return tuple(float(h) - 136.0 for h in halves.view(np.float32))
+
+
+def test_decode_registers_are_the_piece_of_w_the_product_reads():
+    """Every thread's B registers of a stage (32 packed rows of a block's 128
+    columns) against the unpacked weight: register (piece p, n-tile t, b0 / b1)
+    of thread (gid, tig) of warp w holds rows 16 p + 2 tig (+ 8) and the next of
+    column decode_column(w, gid, t). The stage holds every byte value."""
+    rng = np.random.default_rng(3)
+    stage = rng.permutation(np.resize(np.arange(256, dtype=np.uint8), 32 * 128)).reshape(32, 128)
+    assert len(np.unique(stage)) == 256
+    w = k4.unpack_int4(torch.from_numpy(stage)).numpy()          # [64, 128]
+    seen = np.zeros_like(w, dtype=bool)
+    for warp in range(4):
+        for lane in range(32):
+            gid, tig = lane // 4, lane % 4
+            col0 = 32 * warp + 4 * gid
+            wq = [int.from_bytes(stage[tig + 4 * q, col0:col0 + 4].tobytes(), "little")
+                  for q in range(8)]
+            for p in range(4):
+                for t in range(4):
+                    col = k4.decode_column(warp, gid, t)
+                    for r, k in ((0, 16 * p + 2 * tig), (1, 16 * p + 2 * tig + 8)):
+                        got = _nibble_pair(wq[2 * p + r], t)
+                        assert got == (w[k, col], w[k + 1, col]), (warp, lane, p, t, r)
+                        seen[k:k + 2, col] = True
+    assert seen.all()
+
+
+def test_decode_columns_are_relabelled_not_moved():
+    """A warp's B columns (gid, n-tile t) are its 32 weight columns once each;
+    a thread's accumulator elements (t, e) are column 2 tig + e of n-tile t,
+    i.e. the eight neighbouring columns 32 w + 8 tig .. + 7 it stores."""
+    for warp in range(4):
+        cols = sorted(k4.decode_column(warp, j, t) for j in range(8) for t in range(4))
+        assert cols == list(range(32 * warp, 32 * warp + 32))
+        for tig in range(4):
+            mine = sorted(k4.decode_column(warp, 2 * tig + e, t)
+                          for t in range(4) for e in range(2))
+            assert mine == list(range(32 * warp + 8 * tig, 32 * warp + 8 * tig + 8))
+
+
+def decode_forward_emulated(x, q4value, scale4, splits):
+    """The decode kernel's order of sums: a split's whole groups in order; per
+    group the 16-deep pieces' exact sums added one after the other into a set
+    of f32 group sums that starts at zero (the two alternating sets only change
+    when each is scaled, not what is added); the group's sum times its scale
+    added into the split's f32 total by one fused multiply-add; the splits'
+    partials added in split order from zero; one cast."""
+    K = x.shape[-1]
+    groups = scale4.shape[0]
+    G = K // groups
+    per = -(-groups // splits)
+    w = k4.unpack_int4(q4value).double()
+    xd = x.reshape(-1, K).float().double()
+    out = torch.zeros((xd.shape[0], w.shape[1]), dtype=torch.float32)
+    for s in range(splits):
+        tot = torch.zeros_like(out)
+        for g in range(s * per, min(groups, (s + 1) * per)):
+            grp = torch.zeros_like(tot)
+            for k0 in range(g * G, (g + 1) * G, 16):
+                # a piece's 16 products and their sum exact (in f64, as the tensor
+                # cores keep them), rounded once into the f32 group sum
+                grp = (grp.double() + xd[:, k0:k0 + 16] @ w[k0:k0 + 16]).float()
+            tot = (tot.double() + grp.double() * scale4[g].double()).float()   # fmaf
+        out = tot if splits == 1 else out + tot
+    return out.to(x.dtype).reshape(*x.shape[:-1], -1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M", [1, 4, 8, 13, 16])
+@pytest.mark.parametrize("group", [128, 256])
+def test_decode_order_of_sums(group, M, dtype):
+    """At the plan's splits for the shape (4 at G 128: whole groups, one each)
+    and at one split: f32 within 3e-5 of the Pallas kernel in interpret mode and
+    of the plain version; bf16 activations within 1e-2 of the largest value of
+    the Pallas kernel and one bf16 step of the plain version; and row r of the
+    M-row product equal, bit for bit, to the one-row product of row r."""
+    rng = np.random.default_rng(11 + M)
+    K, N = 512, 256
+    w = (rng.standard_normal((K, N)) * 0.02).astype(np.float32)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    q4 = quantize_array_int4(jnp.asarray(w), 0, group=group)
+    jx = jnp.asarray(x).astype(jnp.bfloat16 if dtype == "bfloat16" else jnp.float32)
+    ref = np.asarray(j_int4_matmul(jx, q4["q4value"], q4["scale4"], interpret=True)
+                     .astype(jnp.float32))
+    xt = _t(x).to(getattr(torch, dtype))
+    q, s = _t(q4["q4value"]), _t(q4["scale4"])
+    splits = k4.plan(M, K, N, group, bf16=True).splits
+    assert splits == K // group   # one group a split
+    plain = k4.int4_matmul_plain(xt, q, s)
+    for n_split in sorted({splits, 1}):
+        out = decode_forward_emulated(xt, q, s, n_split)
+        assert out.shape == (M, N) and out.dtype == xt.dtype
+        rows = torch.cat([decode_forward_emulated(xt[r:r + 1], q, s, n_split) for r in range(M)])
+        assert torch.equal(out, rows)
+        if dtype == "float32":
+            np.testing.assert_allclose(out.numpy(), ref, rtol=3e-5, atol=3e-5)
+            np.testing.assert_allclose(out.numpy(), plain.numpy(), rtol=3e-5, atol=3e-5)
+        else:
+            assert np.abs(out.float().numpy() - ref).max() <= 1e-2 * np.abs(ref).max()
+            step = np.abs(plain.float().numpy()).max() * 2.0 ** -8
+            assert np.abs(out.float().numpy() - plain.float().numpy()).max() <= step
