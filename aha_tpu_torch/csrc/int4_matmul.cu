@@ -622,12 +622,6 @@ constexpr int kSBytes = kBN * 2;
 constexpr int kStage = kXBytes + kWBytes + kSBytes;   // 7424: a multiple of 128
 constexpr int kSmem = kStages * kStage;
 
-// this thread's copies, all but those of the newest N groups, have landed (no
-// proxy fence: mma.sync and ldmatrix read shared memory as ordinary loads)
-template <int N> __device__ __forceinline__ void copies_landed() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // the bf16 pair (low nibble - 8, high nibble - 8) of byte T of v (v4 = v >> 4):
 // the permute puts byte T of v in byte 0 and byte T of v4 in byte 2, one logic
 // operation ((p & mask) | magic, with mask = 0x000F000F and magic = 0x43004300
@@ -643,19 +637,6 @@ __device__ __forceinline__ uint32_t nibble_pair(uint32_t v, uint32_t v4, uint32_
       : "r"(__byte_perm(v, v4, sel)), "r"(mask), "r"(magic));
   return as_u32(__hsub2(as_bf162(biased), as_bf162(0x43084308u)));
 }
-// a constant held in a register from here on
-__device__ __forceinline__ uint32_t pinned(uint32_t c) {
-  asm volatile("" : "+r"(c));
-  return c;
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(addr)
-               : "memory");
-}
-
 // bf16 h (0: the low half, 1: the high half) of a word, as f32
 __device__ __forceinline__ float half_f32(uint32_t word, int h) {
   return __uint_as_float(h ? (word & 0xffff0000u) : (word << 16));

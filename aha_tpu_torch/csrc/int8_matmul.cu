@@ -15,24 +15,28 @@
 // for the projector) the 2 M K N operations at 989 TFLOP/s take longer. Every
 // path reads each weight byte from device memory once and converts int8 in
 // registers; the per-channel scale multiplies the finished f32 sum once (it
-// factors out of the contraction), as in the TPU kernel's epilogue. Four paths,
+// factors out of the contraction), as in the TPU kernel's epilogue. Five paths,
 // chosen by the wrapper's plan() from the operands:
-//   * wgmma (bf16 x, weight-only, M >= 2, K % 64 == 0, N % 16 == 0, 16-byte
-//     aligned operands): section "tensor-core path, wgmma" below. The product
-//     is turned round (y^T = W^T x^T), the weight converted to bf16 in
+//   * decode (bf16 x, weight-only, 1 <= M <= 16, K % 64 == 0, N % 16 == 0,
+//     16-byte aligned operands): section "decode rows" below. mma.sync per warp
+//     with x as the 16-row A operand, the weight converted to bf16 in registers
+//     as the B operand, a cp.async ring, one plan and one order of sums for
+//     every M, so a row gives the same bits at every width.
+//   * wgmma (as decode, M >= 17): section "tensor-core path, wgmma" below. The
+//     product is turned round (y^T = W^T x^T), the weight converted to bf16 in
 //     registers is the register operand of the warpgroup products, raw bytes
 //     and x tiles arrive by cp.async through a ring of up to six stages, one
 //     f32 accumulator set over all of K, the scale in the epilogue.
-//   * mma.sync (bf16 x where the wgmma path does not apply, M > 1, K % 32 == 0,
-//     N % 8 == 0): a block owns a 64 x 128 output tile and walks K in steps of
+//   * mma.sync (bf16 x where neither applies, M > 1, K % 32 == 0, N % 8 == 0):
+//     a block owns a 64 x 128 output tile and walks K in steps of
 //     32. It stages the x tile (bf16) and the weight tile (int8 -> bf16,
 //     transposed so a thread's fragment pair is one 32-bit shared load) in
 //     shared memory and runs mma.sync m16n8k16 bf16 with f32 accumulators (4
 //     warps, 32 x 64 each); the copies are synchronous.
 //   * mma.sync on int8 activations (a8, M > 1): both tiles staged as int8,
 //     m16n8k32 s8 with int32 accumulators, whatever the output type.
-//   * CUDA cores (everything else, M = 1 included, where the product is
-//     bound by weight bytes): a block covers 128 output columns; each of its
+//   * CUDA cores (everything else: f32, a8 at one row, ragged or misaligned
+//     operands): a block covers 128 output columns; each of its
 //     256 threads owns 16 contiguous columns (one 16-byte int8 load per
 //     weight row) and one of 32 lanes along K, so a warp reads 4 rows x 128
 //     contiguous bytes; rows of x are taken BM at a time.
@@ -553,7 +557,249 @@ int smem_of(int tile) {
 
 }  // namespace w8
 
-enum Path { kScalar = 0, kVec16 = 1, kTensorCore = 2, kWgmma = 3 };
+// ---- decode rows (1 .. 16), bf16 x, weight-only, K % 64 == 0, N % 16 == 0: mma.sync ------------
+//
+// A token (1 row), a verify pass (4 or 8 candidates, 5 or 9 rows with the last
+// token) and the generation prompt (13 rows) move K N weight bytes for at most
+// 32 K N operations: the bytes bound them by two orders of magnitude, so the
+// design keeps weight bytes in flight and the conversion cheap and off the
+// copies' path. One kernel, one plan and one order of sums for every M from 1 to
+// 16: x is the A operand of mma.sync m16n8k16 (16 token rows, those past M zero),
+// so a row's output is the same bits whether it goes alone or with 15 others.
+// The model is int4_matmul.cu's decode kernel (section w4d there).
+//
+// Four warps a block, each on its own 32 weight columns. A block owns 128 weight
+// columns and a K split of whole 64-row stages, and walks it through a ring of
+// STAGES slots filled by cp.async, all but one in flight. A stage holds the x
+// tile (16 rows of 128 bytes, swizzled: ldmatrix reads it without conflicts) and
+// the weight bytes (64 rows of the block's 128 columns, 144 bytes apart, so that
+// rows 2 tig + d of a warp's read fall in distinct banks), all in 16-byte copies.
+// The thread (gid, tig) of warp w reads the 32-bit words of rows 16 p + 2 tig +
+// (0, 1, 8, 9) at columns 32 w + 4 gid .. + 3: byte t of the first two words is
+// the (k, k + 1) pair of column 32 w + 4 gid + t, its B register b0 for column
+// gid of n-tile t, the other two words give b1 (the columns are relabelled, no
+// data is shuffled). A register is pair_bf16: one byte permute, two logic
+// operations and one bf16x2 addition, exact, with its four constants held in
+// registers. Its accumulator element (n-tile t, column 2 tig + e) is weight
+// column 32 w + 8 tig + 4 e + t: the eight columns 32 w + 8 tig .. + 7 of tokens
+// gid and gid + 8 leave as 16-byte stores.
+//
+// One f32 accumulator set over the split; the wait for a stage carries no proxy
+// fence (copies_landed). With one split the epilogue multiplies by the column
+// scale and rounds once; otherwise each split writes its f32 sums and
+// splitk_reduce adds them in split order, then scales and rounds.
+//
+// What bounds it (NVIDIA H100 80GB HBM3, 700 W): the weight bytes, and how
+// evenly a grid of short blocks fills 132 SMs. With the conversion and the
+// products switched off the copies alone were only 5-10% faster; what moved the
+// time was the blocks an SM holds against the grid. Three slots (two stages in
+// flight, six blocks an SM) were the fastest for a layer's products, whose
+// grids the plan keeps within one round; a grid of more than a round of six (the
+// lm_head's 1,188 blocks: one and a half rounds) takes six slots and three
+// blocks an SM, three even rounds. Ring depths 4 and 5 (five and four blocks an
+// SM) and two blocks an SM were slower; the 256-byte L2 prefetch hint on the
+// weight copies was a little faster.
+namespace w8d {
+
+using namespace wg;
+
+constexpr int kThreads = 128;                 // four warps, 32 weight columns each
+constexpr int kBN = 128;                      // weight columns per block
+constexpr int kTM = 16;                       // token rows, the A operand's 16
+constexpr int kKS = 64;                       // contraction depth of a stage
+constexpr int kWRow = kBN + 16;               // bytes from one weight row of a stage to the next
+constexpr int kXBytes = kTM * 128;
+constexpr int kWBytes = kKS * kWRow;
+constexpr int kStage = kXBytes + kWBytes;     // 11264: a multiple of 128
+
+// a ring of STAGES slots, and the blocks an SM holds with it (each costs 1 KB more)
+__host__ __device__ constexpr int smem_bytes(int stages) { return stages * kStage; }
+__host__ __device__ constexpr int blocks_per_sm(int stages) {
+  return w8::kSmemPerSm / (smem_bytes(stages) + 1024);
+}
+
+// 16 bytes global -> shared, asynchronously, with the 256-byte L2 prefetch hint;
+// zeros where !ok (src stays a valid address)
+__device__ __forceinline__ void cp_async16_l2(uint32_t dst, const void* src, bool ok) {
+  const int n = ok ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(n));
+}
+
+// The int8 values of byte C of a (low half) and of b (high half) as a bf16 pair,
+// exactly: as w8::pair_bf16, with the masks and biases m7f = 0x007F007F,
+// m43 = 0x43004300, m80 = 0x00800080, mc3 = 0xC300C300 held in registers
+// ((p & m7f) | m43 and (p & m80) ^ mc3 are one logic operation each)
+template <int C>
+__device__ __forceinline__ uint32_t pair_bf16(uint32_t a, uint32_t b, uint32_t m7f, uint32_t m43,
+                                              uint32_t m80, uint32_t mc3) {
+  constexpr uint32_t sel = C | (C << 4) | ((4 + C) << 8) | ((4 + C) << 12);
+  const uint32_t p = __byte_perm(a, b, sel);
+  uint32_t low, high;
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n" : "=r"(low) : "r"(p), "r"(m7f), "r"(m43));
+  asm("lop3.b32 %0, %1, %2, %3, 0x6A;\n" : "=r"(high) : "r"(p), "r"(m80), "r"(mc3));
+  return as_u32(__hadd2(as_bf162(low), as_bf162(high)));
+}
+
+template <int STAGES>
+__global__ void __launch_bounds__(kThreads, blocks_per_sm(STAGES))
+int8_mm_decode_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
+                      const float* __restrict__ scale, bf16* __restrict__ y,
+                      float* __restrict__ ws, int M, int K, int N, int stages_per_split,
+                      int splits) {
+  extern __shared__ __align__(128) unsigned char smem_w8d[];
+  const uint32_t ring_a = smem_addr(smem_w8d);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gid = lane >> 2, tig = lane & 3;
+  const int n0 = blockIdx.x * kBN;
+  const int sbeg = blockIdx.y * stages_per_split;
+  const int nst = max(0, min(K / kKS, sbeg + stages_per_split) - sbeg);   // stages of this split
+  const int kbeg = sbeg * kKS;
+
+  // this thread's share of a stage's copies, as running sources: one chunk of the
+  // x tile (rows past M are zeros) and four 16-byte chunks of the weight bytes
+  // (row idx / 8, columns 16 (idx % 8) ..)
+  const RowsCopy<kTM> copy_x(static_cast<size_t>(K));
+  const bf16* xsrc = x + kbeg;
+  const int8_t* wsrc[4];
+  uint32_t wdst[4];
+  bool wok[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int idx = tid + c * kThreads, row = idx >> 3, col = n0 + (idx & 7) * 16;
+    wok[c] = col < N;
+    wsrc[c] = w + static_cast<size_t>(kbeg + row) * N + (wok[c] ? col : 0);
+    wdst[c] = kXBytes + row * kWRow + (idx & 7) * 16;
+  }
+  const size_t wstep = static_cast<size_t>(kKS) * N;
+  int lslot = 0, lstage = 0;   // the next load: its slot and stage
+  auto load = [&]() {
+    if (lstage < nst) {
+      const uint32_t st = ring_a + lslot * kStage;
+      copy_x(st, xsrc, M);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) cp_async16_l2(st + wdst[c], wsrc[c], wok[c]);
+      xsrc += kKS;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) wsrc[c] += wstep;
+    }
+    cp_async_commit();
+    ++lstage;
+    lslot = lslot == STAGES - 1 ? 0 : lslot + 1;
+  };
+  // weight row 2 tig of a stage at its four columns; the row of the x tile that
+  // this lane names to ldmatrix (matrix lane / 8: token rows 8 (lane / 8 % 2) ..,
+  // k 8 (lane / 16) .. of a piece)
+  const int w_off = kXBytes + 2 * tig * kWRow + (32 * warp + 4 * gid);
+  const int xr = (lane & 7) + ((lane >> 3) & 1) * 8;
+  uint32_t x_off[4];   // the piece's 16-byte chunk of that row, swizzled
+#pragma unroll
+  for (int p = 0; p < 4; ++p) x_off[p] = xr * 128 + (((2 * p + (lane >> 4)) ^ (xr & 7)) << 4);
+
+  float acc[4][4];
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+  const uint32_t m7f = pinned(0x007F007Fu), m43 = pinned(0x43004300u);
+  const uint32_t m80 = pinned(0x00800080u), mc3 = pinned(0xC300C300u);
+
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) load();
+  int slot = 0;   // of the stage being multiplied
+  for (int i = 0; i < nst; ++i) {
+    copies_landed<STAGES - 2>();   // this stage has landed
+    __syncthreads();                // ... for every thread, and every warp is past the last one
+    load();                         // into the slot the last stage freed
+    const unsigned char* st = smem_w8d + slot * kStage + w_off;
+    const uint32_t sa = ring_a + slot * kStage;
+    slot = slot == STAGES - 1 ? 0 : slot + 1;
+    uint32_t wq[4][4];   // piece p: rows 16 p + 2 tig + (0, 1, 8, 9)
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      wq[p][0] = lds32(st + (16 * p) * kWRow);
+      wq[p][1] = lds32(st + (16 * p + 1) * kWRow);
+      wq[p][2] = lds32(st + (16 * p + 8) * kWRow);
+      wq[p][3] = lds32(st + (16 * p + 9) * kWRow);
+    }
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      uint32_t a[4];
+      ldmatrix_x4(a, sa + x_off[p]);
+      mma_bf16(acc[0], a, pair_bf16<0>(wq[p][0], wq[p][1], m7f, m43, m80, mc3),
+               pair_bf16<0>(wq[p][2], wq[p][3], m7f, m43, m80, mc3));
+      mma_bf16(acc[1], a, pair_bf16<1>(wq[p][0], wq[p][1], m7f, m43, m80, mc3),
+               pair_bf16<1>(wq[p][2], wq[p][3], m7f, m43, m80, mc3));
+      mma_bf16(acc[2], a, pair_bf16<2>(wq[p][0], wq[p][1], m7f, m43, m80, mc3),
+               pair_bf16<2>(wq[p][2], wq[p][3], m7f, m43, m80, mc3));
+      mma_bf16(acc[3], a, pair_bf16<3>(wq[p][0], wq[p][1], m7f, m43, m80, mc3),
+               pair_bf16<3>(wq[p][2], wq[p][3], m7f, m43, m80, mc3));
+    }
+  }
+
+  // tokens gid and gid + 8: this thread's eight columns side by side
+  const int nc = n0 + 32 * warp + 8 * tig;
+  if (nc >= N) return;   // N % 16 == 0: all eight exist, or none
+  float sc[8];
+  if (splits == 1) {
+    const float4 s0 = *reinterpret_cast<const float4*>(scale + nc);
+    const float4 s1 = *reinterpret_cast<const float4*>(scale + nc + 4);
+    sc[0] = s0.x; sc[1] = s0.y; sc[2] = s0.z; sc[3] = s0.w;
+    sc[4] = s1.x; sc[5] = s1.y; sc[6] = s1.z; sc[7] = s1.w;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = gid + 8 * h;
+    if (m >= M) continue;
+    float v[8];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      v[t] = acc[t][2 * h];
+      v[4 + t] = acc[t][2 * h + 1];
+    }
+    if (splits == 1) {
+      uint32_t o[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        o[i] = as_u32(__floats2bfloat162_rn(v[2 * i] * sc[2 * i], v[2 * i + 1] * sc[2 * i + 1]));
+      *reinterpret_cast<uint4*>(y + static_cast<size_t>(m) * N + nc) =
+          make_uint4(o[0], o[1], o[2], o[3]);
+    } else {
+      float4* o =
+          reinterpret_cast<float4*>(ws + (static_cast<size_t>(blockIdx.y) * M + m) * N + nc);
+      o[0] = make_float4(v[0], v[1], v[2], v[3]);
+      o[1] = make_float4(v[4], v[5], v[6], v[7]);
+    }
+  }
+}
+
+template <int STAGES>
+cudaError_t launch_ring(const void* x, const void* w, const void* scale, void* y, float* ws, int M,
+                        int K, int N, int splits, cudaStream_t st) {
+  cudaError_t err = allow_smem(int8_mm_decode_kernel<STAGES>, smem_bytes(STAGES));
+  if (err != cudaSuccess) return err;
+  // whole stages a split; a split past K writes zeros
+  const int sps = (K / kKS + splits - 1) / splits;
+  const dim3 grid((N + kBN - 1) / kBN, splits);
+  int8_mm_decode_kernel<STAGES><<<grid, kThreads, smem_bytes(STAGES), st>>>(
+      static_cast<const bf16*>(x), static_cast<const int8_t*>(w), static_cast<const float*>(scale),
+      static_cast<bf16*>(y), ws, M, K, N, sps, splits);
+  return cudaGetLastError();
+}
+
+// stages: the ring's slots, 3 (six blocks an SM) or 6 (three)
+cudaError_t launch(const void* x, const void* w, const void* scale, void* y, float* ws, int M,
+                   int K, int N, int splits, int stages, cudaStream_t st) {
+  if (M > kTM || K % kKS != 0 || N % 16 != 0 || splits > 65535) return cudaErrorInvalidValue;
+  switch (stages) {
+    case 3: return launch_ring<3>(x, w, scale, y, ws, M, K, N, splits, st);
+    case 6: return launch_ring<6>(x, w, scale, y, ws, M, K, N, splits, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace w8d
+
+enum Path { kScalar = 0, kVec16 = 1, kTensorCore = 2, kWgmma = 3, kDecode = 4 };
 
 // X = activation type as stored (int8 with sx for a8), Y = output type
 template <typename X, typename Y>
@@ -603,17 +849,19 @@ cudaError_t launch(const void* x, const float* sx, const void* w, const void* sc
 // K % 32 == 0, N % 8 == 0, x 16-byte and weight 8-byte aligned), 3 tensor cores
 // through wgmma (bf16 x, K % 64 == 0, N % 16 == 0, x, weight and scale 16-byte
 // aligned; tile: the token tile, a multiple of 8 from 8 to 128; whole 64-row
-// stages a split); the wrapper's plan checks.
+// stages a split), 4 the decode rows on mma.sync (as 3, M <= 16, tile: the
+// ring's slots, 3 or 6; whole 64-row stages a split); the wrapper's plan checks.
 extern "C" int aha_int8_matmul(const void* x, const void* w, const void* scale, void* y,
                                void* workspace, int M, int K, int N, int x_dtype, int splits,
                                int path, int tile, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M <= 0 || N <= 0 || K <= 0 || splits < 1 || (splits > 1 && workspace == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (path == kWgmma) {
+  if (path == kWgmma || path == kDecode) {
     if (x_dtype != AHA_BF16) return static_cast<int>(cudaErrorInvalidValue);
     float* wsf = static_cast<float*>(workspace);
-    cudaError_t err = w8::launch(x, w, scale, y, wsf, M, K, N, splits, tile, st);
+    cudaError_t err = path == kWgmma ? w8::launch(x, w, scale, y, wsf, M, K, N, splits, tile, st)
+                                     : w8d::launch(x, w, scale, y, wsf, M, K, N, splits, tile, st);
     if (err == cudaSuccess && splits > 1)
       err = launch_splitk_reduce<__nv_bfloat16>(wsf, static_cast<const float*>(scale), nullptr,
                                                 static_cast<__nv_bfloat16*>(y), M, N, splits, st);
@@ -631,6 +879,12 @@ extern "C" int aha_int8_matmul(const void* x, const void* w, const void* scale, 
 // bytes of dynamic shared memory the wgmma path asks for at token tile `tile`
 // (-1: no such tile); the wrapper's plan computes the same number
 extern "C" int aha_int8_matmul_wgmma_smem(int tile) { return w8::smem_of(tile); }
+
+// bytes of dynamic shared memory the decode path asks for with a ring of `slots`
+// (-1: no such ring); the wrapper's plan computes the same number
+extern "C" int aha_int8_matmul_decode_smem(int slots) {
+  return slots == 3 || slots == 6 ? w8d::smem_bytes(slots) : -1;
+}
 
 // int8 activations xq [M, K] with per-row scales sx [M] (csrc/quantize_rows.cu);
 // y_dtype is the output's type. path 2 here needs M > 1, K % 32 == 0,

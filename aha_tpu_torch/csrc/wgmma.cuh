@@ -72,6 +72,24 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 __device__ __forceinline__ void cp_async_wait_all() { cp_async_wait<0>(); }
+// The same without the fence, for kernels whose products are mma.sync: it and
+// ldmatrix read shared memory as ordinary loads (the fence compiled to a MEMBAR)
+template <int N> __device__ __forceinline__ void copies_landed() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// a constant held in a register from here on (as an immediate, a logic operation
+// that takes two of them becomes two)
+__device__ __forceinline__ uint32_t pinned(uint32_t c) {
+  asm volatile("" : "+r"(c));
+  return c;
+}
+// four 8 x 8 bf16 matrices from shared memory, each lane naming one row of one of them
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr)
+               : "memory");
+}
 
 // A tile whose rows are any rows of device memory: row_ptr(r, ok) gives row r's
 // address and whether it exists. For what a block loads once.

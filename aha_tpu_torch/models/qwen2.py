@@ -24,8 +24,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..config import QwenConfig
-from ..ops.attention import (cached_attention, causal_attention, chunk_tables, spec_tables,
-                             speculative_attention)
+from ..ops.attention import (cached_attention, causal_attention, chunk_tables,
+                             replayed_attention, spec_tables, speculative_attention)
 from ..ops.kv_cache import CachePolicy, KVCache, advance, plan_update, write_layer
 from ..ops.quant import embed_rows, linear
 from ..ops.rope import apply_rope, rope_cos_sin
@@ -213,7 +213,8 @@ def decode_chunk(params: dict, cfg: QwenConfig, policy: CachePolicy, cache: KVCa
 
 
 def decode_chunk_spec(params: dict, cfg: QwenConfig, policy: CachePolicy, cache: KVCache,
-                      inputs_embeds: torch.Tensor, plans, *, backend: str = "fused"):
+                      inputs_embeds: torch.Tensor, plans, *, backend: str = "fused",
+                      replay: bool = False):
     """The VERIFY pass: like ``decode_chunk`` over the N = S * step tokens of
     ``plans`` (``spec_decode.plan_compose``), but equal to the S sequential
     passes the plans compose, and READ-ONLY on the cache: each layer's
@@ -227,11 +228,25 @@ def decode_chunk_spec(params: dict, cfg: QwenConfig, policy: CachePolicy, cache:
     One gate for the whole pass picks the pre-rotation scoring or (sink
     policy, ``plans.exact``) the rotate-at-read branch. ``plans.exact`` lives
     on the device, so reading it is ONE host sync per pass (never per
-    layer)."""
+    layer).
+
+    ``replay``: the attention of each layer is ``replayed_attention``, the
+    composed steps' write passes replayed through the cached-attention kernel
+    (each step's keys written into their slots and restored after the layer),
+    which gives every row the bits of its sequential pass, where the one
+    softmax over cache and in-flight columns differs from the kernel's sums
+    in the last bf16 place; ``generate_spec`` takes it on a bf16 or f32 cache
+    so that speculative texts equal sequential ones. Needs no gate and no
+    host sync."""
     sink_policy = policy.kind == "sink"
     sink_slots = policy.num_sink if sink_policy else 0
-    exact = sink_policy and bool(plans.exact)
-    tables = spec_tables(plans, sink_policy, cfg.head_dim, cfg.rope_theta, exact)
+    if replay:
+        w_cos, w_sin = rope_cos_sin(plans.write_pos, cfg.head_dim, cfg.rope_theta)
+        steps = [chunk_tables(p, policy, cfg.head_dim, cfg.rope_theta) for p in plans.steps]
+    else:
+        exact = sink_policy and bool(plans.exact)
+        tables = spec_tables(plans, sink_policy, cfg.head_dim, cfg.rope_theta, exact)
+        w_cos, w_sin = tables.w_cos, tables.w_sin
     lyr = params["layers"]
     x = inputs_embeds
     infl_k, infl_v = [], []
@@ -239,11 +254,15 @@ def decode_chunk_spec(params: dict, cfg: QwenConfig, policy: CachePolicy, cache:
         lp = layer_view(lyr, i)
         h = rms_norm(x, lp["input_norm"]["scale"], cfg.rms_norm_eps)
         q, k, v = _qkv(h, lp, cfg, backend)
-        k_rot = apply_rope(k.float(), tables.w_cos, tables.w_sin).to(k.dtype)
-        kv_scales = (cache.k_scale[i], cache.v_scale[i]) if cache.quantized else None
-        attn = speculative_attention(
-            q, cache.k[i], cache.v[i], k_rot, v, tables, sink_slots=sink_slots,
-            kv_scales=kv_scales)
+        k_rot = apply_rope(k.float(), w_cos, w_sin).to(k.dtype)
+        if replay:
+            attn = replayed_attention(q, cache.k[i], cache.v[i], k_rot, v, plans.slots, w_cos,
+                                      w_sin, steps)
+        else:
+            kv_scales = (cache.k_scale[i], cache.v_scale[i]) if cache.quantized else None
+            attn = speculative_attention(
+                q, cache.k[i], cache.v[i], k_rot, v, tables, sink_slots=sink_slots,
+                kv_scales=kv_scales)
         x = x + linear(attn.reshape(*x.shape[:2], cfg.q_dim), lp["o_proj"], backend)
         h = rms_norm(x, lp["post_norm"]["scale"], cfg.rms_norm_eps)
         x = x + _mlp(h, lp, backend)

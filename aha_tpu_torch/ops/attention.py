@@ -20,7 +20,11 @@ depend on the layer: ``chunk_tables`` builds them once per chunk.
 
 ``speculative_attention`` is the read-only verify pass's attention
 (``aha_tpu/ops/attention.py::speculative_attention``): plain PyTorch, as the
-JAX function is plain jnp outside any Pallas kernel.
+JAX function is plain jnp outside any Pallas kernel. ``replayed_attention``
+is the same function computed as the sequential passes compute it: each
+composed step's keys written into their slots, its rows attended through
+``cached_attention``'s kernel with the step's own tables, the slots restored
+afterwards; bit for bit the sequential passes' attention on any device.
 
 ``causal_attention`` is the full-sequence attention of training and prefill
 (``aha_tpu/ops/attention.py::causal_attention``): rotate in f32, then the
@@ -200,6 +204,45 @@ def speculative_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch
     vals = torch.cat([v_cache.to(vdt), v_infl.to(vdt)], dim=1).float()
     out = torch.einsum("bgrsw,bwgd->bsgrd", p.to(vdt).float(), vals)
     return out.reshape(B, S, NH, Dh).to(q.dtype)
+
+
+def replayed_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                       k_infl: torch.Tensor, v_infl: torch.Tensor, slots: torch.Tensor,
+                       w_cos: torch.Tensor, w_sin: torch.Tensor,
+                       steps: list[ChunkTables]) -> torch.Tensor:
+    """The verify pass's attention as the S sequential passes it composes
+    compute it, on a bf16 or f32 cache: for each step in order, its in-flight
+    keys and values go into their slots and its rows attend through
+    ``decode_attention`` with the step's ``chunk_tables`` (the kernel, path and
+    plan of a write pass of that many rows); the slots get their contents back
+    at the end, so the cache is as it was.
+
+    q [B, N, NH, Dh] unrotated; k_cache / v_cache [B, W+1, KVH, Dh], one
+    layer's cache, written and restored IN PLACE; k_infl / v_infl [B, N, KVH,
+    Dh], in-flight keys pre-rotated at the write positions (``w_cos``,
+    ``w_sin`` [B, N, Dh]: the rotation of q too); ``slots`` [B, N]: the
+    composed steps' destination slots (``SpecPlans.slots``); ``steps``: the
+    steps' ``chunk_tables``, N / S rows each. Rotations are elementwise, so q
+    and the keys rotated all at once are the sequential passes' bits; an int8
+    cache would need the writes quantised and is not taken."""
+    if k_cache.dtype == torch.int8:
+        raise ValueError("replayed_attention: an int8 cache is not taken")
+    B, N = slots.shape
+    step = N // len(steps)
+    bidx = torch.arange(B, device=q.device)[:, None]
+    every = (bidx, slots.long())
+    old_k, old_v = k_cache[every], v_cache[every]
+    q_rot = apply_rope(q.float(), w_cos, w_sin).to(q.dtype)
+    out = []
+    for j, t in enumerate(steps):
+        rows = slice(j * step, (j + 1) * step)
+        mine = (bidx, slots[:, rows].long())
+        k_cache[mine] = k_infl[:, rows].to(k_cache.dtype)
+        v_cache[mine] = v_infl[:, rows].to(v_cache.dtype)
+        out.append(decode_attention(q_rot[:, rows].contiguous(), k_cache, v_cache, t.d_cos,
+                                    t.d_sin, t.mask_order, t.mask_g))
+    k_cache[every], v_cache[every] = old_k, old_v
+    return torch.cat(out, dim=1)
 
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, rope_theta: float,

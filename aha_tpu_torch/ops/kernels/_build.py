@@ -107,6 +107,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.aha_int8_matmul.restype = I
     lib.aha_int8_matmul_wgmma_smem.argtypes = [I]
     lib.aha_int8_matmul_wgmma_smem.restype = I
+    lib.aha_int8_matmul_decode_smem.argtypes = [I]
+    lib.aha_int8_matmul_decode_smem.restype = I
     lib.aha_int8_matmul_a8.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, P]
     lib.aha_int8_matmul_a8.restype = I
     lib.aha_int4_matmul.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P]

@@ -28,8 +28,8 @@ import functools
 import torch
 
 from . import LAUNCHES, _build
-from .int8_matmul import (SCALAR, TENSOR_CORE, VEC16, WGMMA, Plan, fwd_row_to_column, num_sms,
-                          splits_on, token_tile)
+from .int8_matmul import (DECODE, DECODE_MAX_M, SCALAR, TENSOR_CORE, VEC16, WGMMA, WGMMA_MIN_M,
+                          Plan, decode_column, fwd_row_to_column, num_sms, splits_on, token_tile)
 from .int8_matmul import align_of as _align
 from .quantize_rows import quantize_rows, quantize_rows_plain
 
@@ -69,9 +69,6 @@ def int4_matmul_plain(x: torch.Tensor, q4value: torch.Tensor, scale4: torch.Tens
     return y.to(x.dtype).reshape(*lead, N)
 
 
-DECODE = 4               # the decode rows' path (mma.sync, csrc/int4_matmul.cu section w4d)
-DECODE_MAX_M = 16        # rows up to which the bf16 product takes DECODE: x is mma.sync's 16-row A
-WGMMA_MIN_M = DECODE_MAX_M + 1   # rows from which it takes WGMMA
 WGMMA_TILE_CAP = 80      # rows of its token tile at most (two accumulator sets of 2 x 40 registers)
 DECODE_STAGES = 7        # the decode kernel's ring slots (x tile, packed bytes, scales a slot)
 DECODE_SMEM = DECODE_STAGES * (16 * 128 + 32 * 160 + 256)
@@ -116,14 +113,6 @@ def wgmma_splits(sms: int, blocks: int, groups: int, stages: int) -> int:
         if c < cost - 0.1:
             best, cost = s, c
     return best
-
-
-def decode_column(warp: int, j: int, t: int) -> int:
-    """Which of a block's weight columns column ``j`` (0 .. 7) of n-tile ``t``
-    (0 .. 3) of warp ``warp``'s products is on the decode path: the thread
-    with gid = j reads the word of columns 32 warp + 4 j .. + 3, whose byte t
-    is its B register of n-tile t."""
-    return 32 * warp + 4 * j + t
 
 
 @functools.lru_cache(maxsize=None)

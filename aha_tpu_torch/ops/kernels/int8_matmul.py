@@ -10,8 +10,10 @@ and the channel scale). ``quant_matmul`` is the named entry for
 function as ``a8=False`` on an unstacked weight: it launches the same kernel
 and keeps a launch count of its own. A stacked weight's layer is passed as
 the view ``qvalue[l]``; no index is needed. ``plan`` chooses the kernel's
-path (bf16 weight-only from 2 rows on: ``wgmma``), token tile, ring and K
-splits from the shapes alone, so the CPU tests hold it.
+path, token tile, ring and K splits from the shapes alone, so the CPU tests
+hold it: bf16 weight-only at 1 to 16 rows the decode kernel (one launch
+whatever M, so a row gives the same bits at every width), from 17 rows the
+wgmma kernel, the rest the earlier paths.
 
 On a CPU tensor the plain version runs; on a CUDA tensor the kernel
 launches, or the call raises.
@@ -58,19 +60,22 @@ def num_sms(index: int) -> int:
 
 # the kernel's paths (csrc/int8_matmul.cu; int4_matmul.cu and int4_matmul_t.cu
 # number theirs alike)
-SCALAR, VEC16, TENSOR_CORE, WGMMA = 0, 1, 2, 3
-WGMMA_MIN_M = 2          # rows from which the bf16 weight-only product takes wgmma
+SCALAR, VEC16, TENSOR_CORE, WGMMA, DECODE = 0, 1, 2, 3, 4
+DECODE_MAX_M = 16        # rows up to which the bf16 product takes DECODE: x is mma.sync's 16-row A
+WGMMA_MIN_M = DECODE_MAX_M + 1   # rows from which it takes WGMMA
 WGMMA_TILE_CAP = 128     # rows of its token tile at most (two accumulator slabs of 64 registers)
 _W_STAGE = 64 * 144      # bytes of a stage's weight rows (64 of 128 columns, 144 apart)
 SMEM_PER_SM = 233472     # 228 KB; each resident block also takes 1 KB of it
+DECODE_SLOT = 16 * 128 + _W_STAGE   # bytes of a decode ring slot: the x tile and the weight rows
 
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """How a product is launched: the kernel's path, and on a wgmma path the
-    token tile (the width of its warpgroup products), the number of tiles, the
-    ring's slots and its shared memory (the kernel asks for it and a refusal
-    comes back as the launch's error); K splits everywhere."""
+    """How a product is launched: the kernel's path, and on a tensor-core path
+    the token tile (the width of its warpgroup products; 16, the A operand's
+    rows, on the decode path), the number of tiles, the ring's slots and its
+    shared memory (the kernel asks for it and a refusal comes back as the
+    launch's error); K splits everywhere."""
     path: int
     splits: int
     tile: int = 0
@@ -125,6 +130,45 @@ def wgmma_splits(places: int, blocks: int, stages: int) -> int:
     return max(1, min(places // blocks, stages // 8, 64))
 
 
+def decode_blocks_per_sm(slots: int) -> int:
+    """Blocks of the decode kernel an SM holds with a ring of ``slots`` (each
+    block costs 1 KB of shared memory besides): six with 3, three with 6."""
+    return SMEM_PER_SM // (slots * DECODE_SLOT + 1024)
+
+
+def decode_launch(sms: int, N: int, stages: int) -> tuple[int, int]:
+    """(ring slots, K splits) of the decode kernel for a weight of N columns and
+    ``stages`` 64-row stages, from the shape of W alone (never from M: a row
+    gives the same bits at any M up to 16). Its blocks are short and the bytes
+    bound them, so what counts is how evenly a grid fills the SMs. A grid of
+    128-column blocks smaller than two an SM is split until it holds about two an
+    SM, evened out over the stages (qkv's 36 blocks in 7 splits, o's 28 in 8,
+    down's 28 in 9); gate_up's 296 are not split. These run in one round of
+    six blocks an SM behind a ring of three slots. A grid larger than that round
+    (the lm_head's 1,188 blocks) takes six slots and three blocks an SM: three
+    even rounds. On an H100 each choice was the fastest of those tried at 1, 8
+    and 16 rows, or within 1% of it (splits 4-14 for qkv and o, 1-8 for
+    gate_up, 4-37 for down, 1-2 for the lm_head; rings of 3, 4, 5, 6 and 8
+    slots)."""
+    blocks = -(-N // 128)
+    if blocks > decode_blocks_per_sm(3) * sms:
+        return 6, 1
+    two = 2 * sms
+    if blocks >= two:
+        return 3, 1
+    want = max(1, min(two // blocks, stages, 64))
+    per = -(-stages // want)
+    return 3, -(-stages // per)
+
+
+def decode_column(warp: int, j: int, t: int) -> int:
+    """Which of a block's weight columns column ``j`` (0 .. 7) of n-tile ``t``
+    (0 .. 3) of warp ``warp``'s products is on the decode path: the thread with
+    gid = j reads the words of columns 32 warp + 4 j .. + 3, whose byte t builds
+    its B registers of n-tile t."""
+    return 32 * warp + 4 * j + t
+
+
 def fwd_row_to_column(row: int) -> int:
     """Which of a block's 128 weight columns accumulator row ``row`` (0 .. 63:
     slab 0, 64 .. 127: slab 1) of the wgmma kernels is (int8 here, and int4's
@@ -143,8 +187,12 @@ def plan(M: int, K: int, N: int, *, bf16: bool, a8: bool = False,
     [K, N] and scale [N] whose addresses are multiples of ``align`` bytes. Pure
     (no card is asked) and remembered: a path's shapes recur with every pass."""
     ax, aw, asc = align
-    if (bf16 and not a8 and M >= WGMMA_MIN_M and K % 64 == 0 and N % 16 == 0
-            and ax % 16 == 0 and aw % 16 == 0 and asc % 16 == 0):
+    tensor_cores = (bf16 and not a8 and K % 64 == 0 and N % 16 == 0
+                    and ax % 16 == 0 and aw % 16 == 0 and asc % 16 == 0)
+    if tensor_cores and M <= DECODE_MAX_M:
+        slots, splits = decode_launch(sms, N, K // 64)
+        return Plan(DECODE, splits, 16, 1, slots, slots * DECODE_SLOT)
+    if tensor_cores:
         tile, tiles = token_tile(M, WGMMA_TILE_CAP)
         stages, smem = wgmma_ring(tile)
         splits = wgmma_splits(blocks_per_sm(tile) * sms, tiles * -(-N // 128), K // 64)
@@ -197,22 +245,39 @@ def _launch(name: str, x: torch.Tensor, qvalue: torch.Tensor, scale: torch.Tenso
     pl = plan(M, K, N, bf16=x.dtype == torch.bfloat16, a8=a8,
               align=(align_of(x2), align_of(qvalue), align_of(scale)),
               sms=num_sms(x.device.index or 0))
-    ws = (torch.empty((pl.splits, M, N), dtype=torch.float32, device=x.device)
+    launch_plan(x2, sx, qvalue, scale, y, pl)
+    LAUNCHES[name] += 1
+    return y.reshape(*lead, N)
+
+
+def launch_plan(x2: torch.Tensor, sx: torch.Tensor | None, qvalue: torch.Tensor,
+                scale: torch.Tensor, y: torch.Tensor, pl: Plan) -> None:
+    """Launch the kernel into ``y`` [M, N] along ``pl`` (x2 [M, K] bf16 / f32, or
+    int8 with its row scales ``sx``), checked by the wrappers. Not counted:
+    ``chip_smoke.py`` also times here the kernels a plan no longer picks. Raises
+    on a tensor-core plan the kernel would refuse."""
+    M, K = x2.shape
+    N = qvalue.shape[1]
+    if pl.path in (WGMMA, DECODE) and (sx is not None or x2.dtype != torch.bfloat16):
+        raise ValueError(f"int8_matmul: path {pl.path} takes bf16 x, weight-only")
+    if pl.path == DECODE and M > DECODE_MAX_M:
+        raise ValueError(f"int8_matmul: the decode path takes at most {DECODE_MAX_M} rows, "
+                         f"got {M}")
+    ws = (torch.empty((pl.splits, M, N), dtype=torch.float32, device=x2.device)
           if pl.splits > 1 else None)
     ws_ptr = None if ws is None else ws.data_ptr()
-    stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(x2.device).cuda_stream)
     lib = _build.library()
-    if a8:
+    if sx is not None:
         err = lib.aha_int8_matmul_a8(
             x2.data_ptr(), sx.data_ptr(), qvalue.data_ptr(), scale.data_ptr(), y.data_ptr(),
-            ws_ptr, M, K, N, _DTYPES[x.dtype], pl.splits, pl.path, stream)
+            ws_ptr, M, K, N, _DTYPES[y.dtype], pl.splits, pl.path, stream)
     else:
         err = lib.aha_int8_matmul(
             x2.data_ptr(), qvalue.data_ptr(), scale.data_ptr(), y.data_ptr(), ws_ptr,
-            M, K, N, _DTYPES[x.dtype], pl.splits, pl.path, pl.tile, stream)
-    _build.check(lib, err, name)
-    LAUNCHES[name] += 1
-    return y.reshape(*lead, N)
+            M, K, N, _DTYPES[x2.dtype], pl.splits, pl.path,
+            pl.stages if pl.path == DECODE else pl.tile, stream)
+    _build.check(lib, err, "int8_matmul")
 
 
 def int8_matmul(x: torch.Tensor, qvalue: torch.Tensor, scale: torch.Tensor, *,

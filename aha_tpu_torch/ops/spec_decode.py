@@ -81,6 +81,8 @@ class SpecPlans:
     exact: torch.Tensor       # [] bool: some step deviates from the fast
     # pre-rotation algebra (sink fill transient or the post-fill chunk /
     # decode position lag); the verify pass then takes the exact branch.
+    steps: tuple = ()         # the S composed plan_update plans, in order
+    # (the replayed verify pass attends through each step's own tables)
 
 
 def plan_compose(cache: KVCache, policy: CachePolicy, valid_len: torch.Tensor,
@@ -113,7 +115,7 @@ def plan_compose(cache: KVCache, policy: CachePolicy, valid_len: torch.Tensor,
     W1 = cache.order.shape[1]
     meta = cache
     slots, gs, q_poss, write_poss, valids, qxs = [], [], [], [], [], []
-    cache_masks, infl_masks = [], []
+    cache_masks, infl_masks, steps = [], [], []
     metas = [(cache.key_pos, cache.order, cache.seen, cache.length)]
     written = torch.zeros((B, W1), dtype=torch.bool, device=dev)
     exact = torch.zeros((), dtype=torch.bool, device=dev)
@@ -138,6 +140,7 @@ def plan_compose(cache: KVCache, policy: CachePolicy, valid_len: torch.Tensor,
     for p in range(S):
         v_p = torch.clamp(valid_len - p * step, 0, step)
         plan = plan_update(meta, policy, v_p, step)
+        steps.append(plan)
         if policy.kind == "sink":
             exact = exact | (transient_deviation(plan, sink) & plan.valid[:, :1]).any()
         if p == 0:
@@ -210,7 +213,7 @@ def plan_compose(cache: KVCache, policy: CachePolicy, valid_len: torch.Tensor,
         meta_order=torch.stack([m[1] for m in metas]),
         meta_seen=torch.stack([m[2] for m in metas]),
         meta_length=torch.stack([m[3] for m in metas]),
-        qx=cat1(qxs), dpos=dpos, exact=exact,
+        qx=cat1(qxs), dpos=dpos, exact=exact, steps=tuple(steps),
     )
 
 

@@ -9,28 +9,27 @@ For each path it builds seeded synthetic 7B params on the card
 the engine the way ``StreamSession`` does, then traces sections with
 ``torch.profiler``.
 
-int8 (the --int8 config at widths 1):
+int8 and int4 (the --int8 and --int4 configs), both at the product widths and
+at width 1, after the window has filled:
 
-  vision      one ``encode_frames`` call of 32 frames (the tower's batch);
-  frame       ``--frames`` frame chunks (49 tokens each) after the window
-              has filled, each followed by the host read of its scores;
-  token       greedy generation: a ``generate`` with a budget of 33 tokens
-              minus one with a budget of 1, each on a copy of the same
-              cache, so that only the 32 S = 1 passes remain.
-
-int4 (the --int4 config at the product widths), after the window has filled:
-
-  frame       as above, one frame per pass (what ``inference()`` runs);
+  vision      (int8 only) one ``encode_frames`` call of 32 frames (the
+              tower's batch);
+  frame       ``--frames`` frame chunks (49 tokens each), each followed by
+              the host read of its scores: one frame per pass, what
+              ``inference()`` runs;
   fused pass  ``--frames`` fused passes of 4 frames (196 rows) through the
               read-only verify pass and its commit (``score_video``);
   verify S    8 verify passes of S = 4 and of S = 8 candidate tokens
               (plans, embedding, decoder, lm_head, no commit), the pass
-              ``generate_spec`` runs;
-  token       the S = 1 passes of the sequential loop, as for int8.
+              ``generate_spec`` runs (its attention replayed through the
+              cached-attention kernel);
+  token       greedy generation: a ``generate`` with a budget of 33 tokens
+              minus one with a budget of 1, each on a copy of the same
+              cache, so that only the 32 S = 1 passes remain.
 
-The verify-pass and token tables list the int4 products' decode kernel
-(``int4_mm_decode_kernel``, 1 .. 16 rows) and the sum of its K splits by name,
-with their share of device time and calls per unit.
+The verify-pass and token tables list the path's decode kernel for products of
+1 .. 16 rows (``int8_mm_decode_kernel``, ``int4_mm_decode_kernel``) and the sum
+of its K splits by name, with their share of device time and calls per unit.
 
 train (int4 QLoRA: int4 trunk, dense bf16 projector and lm_head, LoRA r 16,
 B 1, 16 frames in a conversation of 926 tokens, lora_dropout 0.05, remat
@@ -69,9 +68,10 @@ GEN_TOKENS = 32
 # passes' tables with their calls per unit, launched or not
 DECODE_KERNELS = ("decode_attention_kernel", "decode_attention_wgmma_kernel",
                   "decode_rotate_keys_kernel", "decode_merge_kernel")
-# the int4 products' kernel at 1 .. 16 rows (csrc/int4_matmul.cu) and the sum of its
-# K splits, listed in the int4 token and verify-pass tables
-INT4_DECODE_KERNELS = ("int4_mm_decode_kernel", "splitk_reduce")
+# the products' kernel at 1 .. 16 rows (csrc/int8_matmul.cu, csrc/int4_matmul.cu) and
+# the sum of its K splits, listed in the path's token and verify-pass tables
+MATMUL_DECODE_KERNELS = {"int8": ("int8_mm_decode_kernel", "splitk_reduce"),
+                         "int4": ("int4_mm_decode_kernel", "splitk_reduce")}
 
 
 def _short(name: str) -> str:
@@ -235,34 +235,25 @@ def _trace_tokens(label, engine, tok, cache, named=DECODE_KERNELS):
            named=named)
 
 
-def profile_int8(seed: int, n: int) -> None:
-    fill_frames = (2048 + 32) // 49 + 2
-    cfg, tok, icfg, engine, frames = _setup("int8", seed, fill_frames + 2 * n,
-                                            fused_score_frames=1, spec_decode_tokens=1)
-    # vision: one tower batch, after a warm-up batch
-    engine.encode_frames(frames[:VISION_FRAMES])
-    tr = Trace()
-    tr.run(lambda: engine.encode_frames(frames[:VISION_FRAMES]))
-    report("int8 vision", VISION_FRAMES, "frame", tr.wall_ms, tr.traced_wall_ms, tr.busy_ms(),
-           tr.kernels(), tr.aten_ops())
-    embeds = engine.encode_frames(frames)
-    cache, t = _fill(engine, tok, icfg, embeds)
-    _trace_frames("int8", engine, cache, embeds, t, n)
-    _trace_tokens("int8", engine, tok, cache)
-
-
-def profile_int4(seed: int, n: int) -> None:
+def profile_serving(mode: str, seed: int, n: int) -> None:
     from .models import qwen2
     from .ops import spec_decode
 
     K = 4                                            # fused_score_frames of the product
     fill_frames = (2048 + 32) // 49 + 2
     cfg, tok, icfg, engine, frames = _setup(
-        "int4", seed, fill_frames + 2 * n + 2 * n * K, fused_score_frames=K,
+        mode, seed, fill_frames + 2 * n + 2 * n * K, fused_score_frames=K,
         spec_decode_tokens=1)
+    if mode == "int8":
+        # vision: one tower batch, after a warm-up batch
+        engine.encode_frames(frames[:VISION_FRAMES])
+        tr = Trace()
+        tr.run(lambda: engine.encode_frames(frames[:VISION_FRAMES]))
+        report(f"{mode} vision", VISION_FRAMES, "frame", tr.wall_ms, tr.traced_wall_ms,
+               tr.busy_ms(), tr.kernels(), tr.aten_ops())
     embeds = engine.encode_frames(frames)
     cache, t = _fill(engine, tok, icfg, embeds)
-    _trace_frames("int4", engine, cache, embeds, t, n)
+    _trace_frames(mode, engine, cache, embeds, t, n)
     t += 2 * n
 
     nxt = iter(range(t, t + 2 * n * K, K))
@@ -274,7 +265,7 @@ def profile_int4(seed: int, n: int) -> None:
 
     tr = Trace()
     tr.run(fused_passes)
-    report(f"int4 fused pass ({K} frames, 196 rows; stream at {int(cache.seen[0])} tokens)",
+    report(f"{mode} fused pass ({K} frames, 196 rows; stream at {int(cache.seen[0])} tokens)",
            n, "pass", tr.wall_ms, tr.traced_wall_ms, tr.busy_ms(), tr.kernels(), tr.aten_ops(),
            named=DECODE_KERNELS)
 
@@ -289,14 +280,15 @@ def profile_int4(seed: int, n: int) -> None:
                     S)
                 hidden, _, _ = qwen2.decode_chunk_spec(
                     llm, cfg.llm, engine.policy, cache,
-                    qwen2.embed_tokens(llm, ids, engine.dtype), plans, backend=engine.backend)
+                    qwen2.embed_tokens(llm, ids, engine.dtype), plans, backend=engine.backend,
+                    replay=not cache.quantized)
                 qwen2.lm_logits(llm, cfg.llm, hidden, engine.backend).float().argmax(-1).cpu()
 
         tr = Trace()
         tr.run(verify_passes)
-        report(f"int4 verify S={S}", 8, "pass", tr.wall_ms, tr.traced_wall_ms, tr.busy_ms(),
-               tr.kernels(), tr.aten_ops(), named=INT4_DECODE_KERNELS)
-    _trace_tokens("int4", engine, tok, cache, named=DECODE_KERNELS + INT4_DECODE_KERNELS)
+        report(f"{mode} verify S={S}", 8, "pass", tr.wall_ms, tr.traced_wall_ms, tr.busy_ms(),
+               tr.kernels(), tr.aten_ops(), named=MATMUL_DECODE_KERNELS[mode])
+    _trace_tokens(mode, engine, tok, cache, named=DECODE_KERNELS + MATMUL_DECODE_KERNELS[mode])
 
 
 def profile_train(seed: int, remat: str) -> None:
@@ -374,7 +366,7 @@ def main() -> int:
         if path == "train":
             profile_train(args.seed, args.remat)
         else:
-            {"int8": profile_int8, "int4": profile_int4}[path](args.seed, args.frames)
+            profile_serving(path, args.seed, args.frames)
         torch.cuda.empty_cache()
     return 0
 

@@ -334,9 +334,11 @@ class StreamEngine:
             plan_valid = torch.where(rows, S, 0).to(torch.int32)
             plans = spec_decode.plan_compose(cache, self.policy, plan_valid, S)
             embeds = qwen2.embed_tokens(self.params["llm"], chunk, self.dtype)
+            # the sequential passes' attention replayed, so that every position's
+            # bits are its sequential pass's (an int8 cache composes, as in JAX)
             hidden, infl_k, infl_v = qwen2.decode_chunk_spec(
                 self.params["llm"], self.cfg.llm, self.policy, cache, embeds, plans,
-                backend=self.backend)
+                backend=self.backend, replay=not cache.quantized)
             logits = self._logits(hidden)                                      # [B, S, V]
 
             reach = rows                      # position p reached and writable

@@ -8,8 +8,8 @@ Phases, one or more lines each:
   1. device: nvidia-smi name and power limit, torch / CUDA / nvcc versions,
      the kernels' build time (built from aha_tpu_torch/csrc at first use, one
      nvcc per source in parallel), and what ptxas said of the int8 wgmma
-     kernel (registers by token tile) and of the int4 decode kernel (a spill
-     or a remark that their products are serialised fails the phase);
+     kernel (registers by token tile) and of the int8 and int4 decode kernels
+     (a spill or a remark that their products are serialised fails the phase);
   2. each CUDA kernel against its plain PyTorch version on the card, at
      every shape the 7B paths of phases 4 and 5 hand it (all five matmul
      entries at the four layer products for each row count of PATH_M, lm_head
@@ -19,11 +19,11 @@ Phases, one or more lines each:
      of their wgmma kernels, at long K across its splits, at G = 64 and 256 and
      at shapes only their earlier paths take (N = 136, K = 352, x 2 bytes off
      its buffer), each matmul case with the path its wrapper's plan chose
-     checked and launched twice for equal bits; int4_matmul at 1 .. 16 rows
-     (its decode kernel) also at rows 2, 3, 7, 15 and 16 of the layer, at
-     G = 64 and 256, with each row equal bit for bit to its one-row product
-     and beside the kernel its plan chose there before (replaced_ms, timed
-     and not counted); beside torch.matmul on a weight dequantised
+     checked and launched twice for equal bits; int4_matmul and int8_matmul
+     at 1 .. 16 rows (their decode kernels) also at rows 2, 3, 7, 15 and 16
+     of the layer (int4 at G = 64 and 256 too), with each row equal bit for
+     bit to its one-row product and beside the kernel its plan chose there
+     before (replaced_ms, timed and not counted); beside torch.matmul on a weight dequantised
      beforehand (the bf16 product alone, timed and used nowhere; layer and
      lm_head at 1, 4, 8 and 13 rows too) or torch._int_mm on int8 operands
      made beforehand (with int8 activations; int4 weights unpacked to
@@ -69,14 +69,16 @@ Phases, one or more lines each:
           passes of 196 rows), inference() over 96 frames at 2 fps with a
           query at t=0, past the window fill, speculative generation 4 -> 8,
           then the same inference() at width 1 (texts compared) and one
-          verify pass of 8 tokens against 8 sequential passes on the filled
-          cache (hidden states to 5e-2 of their maximum: bf16 through 28 layers
-          on two kernel paths);
-       b. 7B-int8 at widths 1: score_video over 64 frames, inference() over
-          96 frames;
+          verify pass of 8 tokens, as generation runs it (attention replayed
+          through the kernel), against 8 sequential passes on the filled
+          cache (hidden states equal bit for bit);
+       b. 7B-int8 at the product widths as in a (its products at 1 .. 16 rows on
+          the int8 decode kernel), then the same stream at width 1: score_video
+          one frame a pass, inference() with S = 1 passes (texts compared), and
+          the verify pass against sequential passes as in a;
        c. short score_video runs (8 frames) that drive the remaining
           kernels: 7B-int8 with "fused_a8", 7B-int8 with "pallas", 7B-int4
-          with "fused_a8".
+          with "fused_a8" (the int8 ones' scores against b's width-1 run).
      Last, every shape that a path handed a kernel's wrapper must be one that
      phase 2 held against the plain version;
   5. 7B int4 QLoRA training at full width and depth: int4 trunk, int8
@@ -235,11 +237,11 @@ class Stats:
 
 
 # the kernels whose ptxas report phase 1 holds: no spill, no serialisation remark
-PTXAS_HELD = ("int8_mm_wgmma_kernel", "int4_mm_decode_kernel")
+PTXAS_HELD = ("int8_mm_wgmma_kernel", "int8_mm_decode_kernel", "int4_mm_decode_kernel")
 
 
 def check_ptxas(log: dict) -> str:
-    """What ptxas said of the int8 wgmma kernel and the int4 decode kernel,
+    """What ptxas said of the int8 wgmma kernel and the two decode kernels,
     one instantiation after another (registers, spill bytes), in the build this
     process ran; raises on a spill or on a remark that their products are
     serialised. Such remarks on other kernels are printed."""
@@ -336,7 +338,7 @@ DECODE_LIB_M = (1, 4, 8, 13)
 
 def replaced_plan(M: int, K: int, N: int, G: int, sms: int):
     """The launch that ``int4_matmul``'s plan chose at 1 .. 16 bf16 rows before
-    the decode kernel took them: the CUDA cores at a token, mma.sync at 2 .. 13
+    its decode kernel took them: the CUDA cores at a token, mma.sync at 2 .. 13
     rows, the wgmma kernel at 14 .. 16."""
     from aha_tpu_torch.ops.kernels import int4_matmul as k4
 
@@ -347,6 +349,20 @@ def replaced_plan(M: int, K: int, N: int, G: int, sms: int):
     if M > 1:
         return k4.Plan(k4.TENSOR_CORE, k4.splits_on(sms, -(-M // 64) * -(-N // 128), K // 256))
     return k4.Plan(k4.VEC16, k4.splits_on(sms, -(-N // 128), (K // G) // 4))
+
+
+def replaced_plan8(M: int, K: int, N: int, sms: int):
+    """The launch that ``int8_matmul``'s plan chose at 1 .. 16 bf16 rows before
+    its decode kernel took them: the CUDA cores at a token, the wgmma kernel at
+    2 .. 16 rows."""
+    from aha_tpu_torch.ops.kernels import int8_matmul as k8
+
+    if M == 1:
+        return k8.Plan(k8.VEC16, k8.splits_on(sms, -(-N // 128), K // 256))
+    tile, tiles = k8.token_tile(M, k8.WGMMA_TILE_CAP)
+    stages, smem = k8.wgmma_ring(tile)
+    splits = k8.wgmma_splits(k8.blocks_per_sm(tile) * sms, tiles * -(-N // 128), K // 64)
+    return k8.Plan(k8.WGMMA, splits, tile, tiles, stages, smem)
 
 
 def check_matmuls(gen, stats: Stats):
@@ -387,19 +403,20 @@ def check_matmuls(gen, stats: Stats):
     # not a multiple of 8 (CUDA cores), G a multiple of 32 but not of 64 (mma.sync);
     # so is the edge case above (N = 136 is no multiple of 16: mma.sync)
     old4 = [("old-path-ragged-n", 70, 320, 132, 64), ("old-path-g32", 70, 320, 136, 32)]
-    # int4, bf16, weight-only on the decode kernel (1 .. 16 rows): the rows no path of
-    # phase 4 gives but a verify pass of another width would, at the layer's shapes
-    # (down: its long K across the splits), and G = 64 and 256
-    decode4 = [(n, M, *layer[n], 128) for n in layer for M in (2, 3, 7, 15, 16)]
+    # int4 and int8, bf16, weight-only on their decode kernels (1 .. 16 rows): the rows
+    # no path of phase 4 gives but a verify pass of another width would, at the layer's
+    # shapes (down: its long K across the splits), and for int4 G = 64 and 256
+    decode_rows = [(n, M, *layer[n]) for n in layer for M in (2, 3, 7, 15, 16)]
+    decode4 = [(*c, 128) for c in decode_rows]
     decode4 += [("g64", 8, 1024, 1024, 64), ("g256", 8, 3584, 4608, 256)]
 
-    # int8, bf16, weight-only on the wgmma path: 2 rows and the row counts that
+    # int8, bf16, weight-only on the wgmma path: its first row count and those that
     # straddle its token tiles (128 rows at most), the fused width, the projector's
-    # rows at a layer shape, down's long K across its splits (14 at 2 rows)
+    # rows at a layer shape, down's long K across its splits
     cap = k8.WGMMA_TILE_CAP
     wgmma8 = [("tile-edge", M, 3584, 4608)
-              for M in sorted({2, k8.WGMMA_MIN_M, cap - 1, cap, cap + 1, 231, 232, 233, 1568})]
-    wgmma8 += [("long-k", M, 18944, 3584) for M in (2, 1568)]
+              for M in sorted({k8.WGMMA_MIN_M, cap - 1, cap, cap + 1, 231, 232, 233, 1568})]
+    wgmma8 += [("long-k", M, 18944, 3584) for M in (k8.WGMMA_MIN_M, 1568)]
     # bf16 shapes the int8 wgmma kernel does not take and the earlier paths must:
     # K not a multiple of 64 (mma.sync; so is the edge case above, N = 136), and x
     # a view 2 bytes into its buffer (16-byte CUDA-core loads)
@@ -412,7 +429,7 @@ def check_matmuls(gen, stats: Stats):
         ("int8_matmul", 8, False,
          [(*c, None, bf, 1e-2) for c in cards]
          + [(*r, None, f32, 1e-4) for r in ragged8] + [(*edge, None, bf, 1e-2)]
-         + [(*c, None, bf, 1e-2) for c in wgmma8 + old8], 49),
+         + [(*c, None, bf, 1e-2) for c in wgmma8 + old8 + decode_rows], 49),
         ("int8_matmul_a8", 8, True,
          [(*c, None, bf, 2e-2) for c in cards]
          + [(*r, None, f32, 1e-4) for r in ragged8] + [(*edge, None, bf, 2e-2)], 49),
@@ -478,18 +495,22 @@ def check_matmuls(gen, stats: Stats):
             else:
                 pl = k8.plan(M, K, N, bf16=dt == bf, a8=a8,
                              align=(k8.align_of(x), k8.align_of(ws[0]), k8.align_of(sc)), sms=sms)
-                want_new = (dt == bf and not a8 and M >= k8.WGMMA_MIN_M
-                            and label not in ("ragged", *old8_path))
+                new = dt == bf and not a8 and label not in ("ragged", *old8_path)
+                want = (k8.DECODE if M <= k8.DECODE_MAX_M else k8.WGMMA) if new else None
                 if dt == bf and not a8 and label in old8_path and pl.path != old8_path[label]:
                     raise AssertionError(f"{what}: path {pl.path}, expected {old8_path[label]}")
-                if want_new and lib8.aha_int8_matmul_wgmma_smem(pl.tile) != pl.smem_bytes:
+                if pl.path != want and (new or pl.path in (k8.WGMMA, k8.DECODE)):
+                    raise AssertionError(f"{what}: path {pl.path}, expected "
+                                         f"{want if new else 'an earlier path'}")
+                kernel_smem = (lib8.aha_int8_matmul_wgmma_smem(pl.tile) if pl.path == k8.WGMMA
+                               else lib8.aha_int8_matmul_decode_smem(pl.stages)
+                               if pl.path == k8.DECODE else 0)
+                if kernel_smem != pl.smem_bytes:
                     raise AssertionError(f"{what}: the plan's {pl.smem_bytes} bytes of shared "
-                                         f"memory are not the kernel's")
-                if (pl.path == k8.WGMMA) != want_new:
-                    raise AssertionError(f"{what}: path {pl.path}, wgmma expected: {want_new}")
+                                         f"memory are not the kernel's {kernel_smem}")
             note = (f" path={pl.path} tile={pl.tile}x{pl.tiles} splits={pl.splits} "
-                    f"smem={pl.smem_bytes} equal_twice")
-            if bits == 4 and pl.path == k4.DECODE:
+                    f"stages={pl.stages} smem={pl.smem_bytes} equal_twice")
+            if pl.path == k8.DECODE:   # the same path number in both sources
                 # row r of the M-row product is the one-row product of row r, bit for bit
                 rows = torch.cat([run(x[r:r + 1], ws[0]) for r in range(M)])
                 if not torch.equal(y, rows):
@@ -507,15 +528,22 @@ def check_matmuls(gen, stats: Stats):
                                "int8" if a8 else ("bf16" if dt == bf else "f32"))
             lib = replaced = None
             timer = graph_ms if short else cuda_ms
-            if bits == 4 and pl.path == k4.DECODE and (label in layer or label == "lm_head"):
+            if (pl.path == k8.DECODE and name != "quant_matmul"
+                    and (label in layer or label == "lm_head")):
                 # the kernel this one replaced at these rows, launched as its plan did
-                # (the mma.sync kernel at 2 .. 13 rows, the CUDA-core kernel at 1, the
-                # wgmma kernel at 14 .. 16); timed, not counted
-                old = replaced_plan(M, K, N, G, sms)
+                # (int4: the CUDA-core kernel at 1, mma.sync at 2 .. 13, the wgmma
+                # kernel at 14 .. 16; int8: the CUDA-core kernel at 1, the wgmma kernel
+                # at 2 .. 16); timed, not counted
+                if bits == 4:
+                    old = replaced_plan(M, K, N, G, sms)
+                    launch_old = lambda i: k4.launch_plan(x, None, ws[i % copies], sc, yo, old)
+                else:
+                    old = replaced_plan8(M, K, N, sms)
+                    launch_old = lambda i: k8.launch_plan(x, None, ws[i % copies], sc, yo, old)
                 yo = torch.empty_like(y)
-                k4.launch_plan(x, None, ws[0], sc, yo, old)
+                launch_old(0)
                 rel_check(f"{what} replaced kernel", yo, ref, tol)
-                replaced = timer(lambda i: k4.launch_plan(x, None, ws[i % copies], sc, yo, old))
+                replaced = timer(launch_old)
                 note += f" replaced_path={old.path} replaced_ms={replaced:.4f}"
                 del yo
             if a8 and M > 16 and K % 8 == 0 and N % 8 == 0:
@@ -1322,8 +1350,10 @@ def score_64(params, cfg, tok, frames, widths, backend="fused"):
 
 
 def verify_vs_sequential(sess, cfg, S: int = 8):
-    """One read-only verify pass of S tokens against S sequential 1-token
-    passes from the same (filled) cache: hidden states, on the card."""
+    """One read-only verify pass of S tokens, as ``generate_spec`` runs it
+    (attention replayed through the kernel), against S sequential 1-token
+    passes from the same (filled) cache: hidden states on the card, which must
+    be the same bits."""
     import torch
 
     from aha_tpu_torch.models import qwen2
@@ -1336,12 +1366,15 @@ def verify_vs_sequential(sess, cfg, S: int = 8):
     plans = spec_decode.plan_compose(sess.cache, eng.policy,
                                      torch.full((1,), S, dtype=torch.int32, device="cuda"), S)
     h_spec, _, _ = qwen2.decode_chunk_spec(llm, cfg.llm, eng.policy, sess.cache, embeds, plans,
-                                           backend=eng.backend)
+                                           backend=eng.backend, replay=True)
     cache = sess.cache.clone()
     one = torch.ones((1,), dtype=torch.int32, device="cuda")
     h_seq = torch.cat([qwen2.decode_chunk(llm, cfg.llm, eng.policy, cache, embeds[:, j:j + 1],
                                           one, backend=eng.backend) for j in range(S)], dim=1)
     err = rel_check(f"verify pass S={S} vs sequential", h_spec, h_seq, 5e-2)
+    if not torch.equal(h_spec, h_seq):
+        raise AssertionError(f"verify pass S={S}: hidden states differ from the sequential "
+                             f"passes' by up to {err:.3e}")
     same = (qwen2.lm_logits(llm, cfg.llm, h_spec, eng.backend).argmax(-1)
             == qwen2.lm_logits(llm, cfg.llm, h_seq, eng.backend).argmax(-1)).sum().item()
     return err, same
@@ -1435,8 +1468,9 @@ def drive_7b_paths(gpu: str, seed: int, stats: Stats):
     print(f"phase4a width 1 [{gpu}]: decode {dec_tokens1} tokens in {dec_s1:.3f}s = "
           f"{dec_tokens1 / max(dec_s1, 1e-9):.2f} decode tokens/s; texts identical to the "
           f"speculative run's ({len(responses1)} responses); verify pass "
-          f"S=8 vs 8 sequential passes on the filled cache: hidden max_abs_err={err:.3e} "
-          f"(<= 5e-2 of max, bf16), argmax equal at {same}/8 positions", flush=True)
+          f"S=8 (attention replayed) vs 8 sequential passes on the filled cache: hidden "
+          f"states equal bit for bit (max_abs_err={err:.3e}), argmax equal at {same}/8 "
+          f"positions", flush=True)
     del sess, sess1
     gc.collect()      # a session and its timing wrappers form a cycle that holds the params
 
@@ -1460,33 +1494,72 @@ def drive_7b_paths(gpu: str, seed: int, stats: Stats):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- b. 7B-int8 at widths 1 (the first slice's path) -----------------------------------
+    # -- b. 7B-int8 at the product widths, then the same stream at width 1 ---------------
     params8, t_params = build("int8")
     torch.cuda.reset_peak_memory_stats()
     with PassCounter() as pc:
         kernels.reset_launches()
-        rows, t_sv = score_64(params8, cfg, tok, frames[:64], w1)
+        rows8, t_sv = score_64(params8, cfg, tok, frames[:64], product)
+        sv_verifies = pc.verifies
         sess, responses, t_inf, gen_s, dec_s, dec_tokens = run_inference(
-            params8, cfg, tok, frames, threshold(rows), w1)
+            params8, cfg, tok, frames, threshold(rows8), product)
         counts = dict(kernels.LAUNCHES)
-        chunks = pc.chunks
+        chunks, verifies = pc.chunks, pc.verifies
     peak = torch.cuda.max_memory_allocated()
-    seen = check_7b_run("7b-int8", rows, sess, responses, 96)
+    seen = check_7b_run("7b-int8", rows8, sess, responses, 96)
+    if sv_verifies != 16:
+        raise AssertionError(f"7b-int8: score_video took {sv_verifies} fused passes, not 16")
+    passes = chunks + verifies
     n8, na = counts.get("int8_matmul", 0), counts.get("decode_attention", 0)
-    if na < L * chunks or n8 < L * chunks * 4 or pc.verifies:
-        raise AssertionError(f"7b-int8: launches int8={n8} attention={na} < {L} layers x "
-                             f"{chunks} chunks, or a verify pass ran ({pc.verifies})")
+    if n8 < L * passes * 4 or na < L * chunks or not verifies > sv_verifies:
+        raise AssertionError(f"7b-int8: launches int8_matmul={n8} decode_attention={na} < "
+                             f"{L} layers x ({chunks} chunks + {verifies} verify passes), or "
+                             f"no verify pass of generation")
+    if counts.get("int4_matmul", 0) or counts.get("int8_matmul_a8", 0):
+        raise AssertionError(f"7b-int8: a kernel of another path ran: {counts}")
     stats.launches(counts)
-    print(f"phase4b 7b-int8 widths 1 [{gpu}] params {t_params:.2f}s; score_video 64 frames "
-          f"{t_sv:.3f}s = {64 / t_sv:.2f} frames/s (vision included); inference 96 frames "
-          f"{t_inf:.3f}s, {len(responses)} responses in {gen_s:.3f}s; S=1 passes "
-          f"{dec_tokens} tokens in {dec_s:.3f}s = "
-          f"{dec_tokens / max(dec_s, 1e-9):.2f} decode tokens/s, "
-          f"scoring {96 / (t_inf - gen_s):.2f} frames/s; stream {seen} tokens; {chunks} chunks; "
-          f"launches int8_matmul={n8} decode_attention={na}; "
+    acc = sess.engine.spec_acceptance()
+    print(f"phase4b 7b-int8 widths 4 / 4->8 [{gpu}] params {t_params:.2f}s; score_video 64 "
+          f"frames in 16 fused passes {t_sv:.3f}s = {64 / t_sv:.2f} frames/s (vision included); "
+          f"inference 96 frames {t_inf:.3f}s, {len(responses)} responses in {gen_s:.3f}s; "
+          f"decode {dec_tokens} tokens in {dec_s:.3f}s = {dec_tokens / max(dec_s, 1e-9):.2f} "
+          f"decode tokens/s, {acc['tokens_per_pass']} tokens per verify pass "
+          f"({acc['passes']} passes, acceptance EMA {acc['ema']}); per-frame scoring "
+          f"{96 / (t_inf - gen_s):.2f} frames/s; stream {seen} tokens; {chunks} chunks + "
+          f"{verifies} verify passes; launches int8_matmul={n8} decode_attention={na}; "
           f"max_memory_allocated {peak / 2**30:.2f} GiB", flush=True)
     print(f"phase4b first response: {responses[0][:60]!r}", flush=True)
-    del sess
+
+    # the same stream at width 1 (one frame a pass in score_video, S = 1 passes in
+    # generation, the trigger threshold of the run above): the texts must be equal
+    with PassCounter() as pc:
+        kernels.reset_launches()
+        rows, t_sv1 = score_64(params8, cfg, tok, frames[:64], w1)
+        sess1, responses1, t_inf1, gen_s1, dec_s1, dec_tokens1 = run_inference(
+            params8, cfg, tok, frames, threshold(rows8), w1)
+        counts = dict(kernels.LAUNCHES)
+        chunks1 = pc.chunks
+    check_7b_run("7b-int8 width 1", rows, sess1, responses1, 96)
+    n8 = counts.get("int8_matmul", 0)
+    if n8 < L * chunks1 * 4 or pc.verifies:
+        raise AssertionError(f"7b-int8 width 1: launches int8_matmul={n8} < {L} layers x "
+                             f"{chunks1} chunks, or a verify pass ran ({pc.verifies})")
+    stats.launches(counts)
+    if responses1 != responses:
+        raise AssertionError("7b-int8: speculative texts differ from the width-1 texts:"
+                             + _first_divergence(responses, responses1))
+    d = max(abs(a[k] - b[k]) for a, b in zip(rows8, rows) for k in SCORE_KEYS)
+    err, same = verify_vs_sequential(sess, cfg)
+    print(f"phase4b width 1 [{gpu}]: score_video 64 frames {t_sv1:.3f}s = {64 / t_sv1:.2f} "
+          f"frames/s, fused-4 scores vs width 1 max_abs_diff={d:.3e}; inference 96 frames "
+          f"{t_inf1:.3f}s; decode {dec_tokens1} tokens in {dec_s1:.3f}s = "
+          f"{dec_tokens1 / max(dec_s1, 1e-9):.2f} decode tokens/s; {chunks1} chunks; texts "
+          f"identical to the speculative run's ({len(responses1)} responses); verify pass "
+          f"S=8 (attention replayed) vs 8 sequential passes on the filled cache: hidden "
+          f"states equal bit for bit (max_abs_err={err:.3e}), argmax equal at {same}/8 "
+          f"positions", flush=True)
+    del sess, sess1
+    gc.collect()      # a session and its timing wrappers form a cycle that holds the params
 
     # -- c (int8 part). "fused_a8" and "pallas", 8 frames each ----------------------------
     for backend, kernel in (("fused_a8", "int8_matmul_a8"), ("pallas", "quant_matmul")):

@@ -1,11 +1,13 @@
-"""The int8 product's wgmma kernel, as far as a CPU can hold it: the wrapper's
-pure choice of path, token tile, ring, splits and shared memory for every shape
-``chip_smoke.py`` drives; the relabelling of accumulator rows at its stores and
-the byte permutes and bf16 additions that build its register operand from int8
-words; its order of sums (16-deep pieces in f32, K splits added in a fixed
-order, the scale once, one cast) emulated in plain PyTorch against the Pallas
-kernel in interpret mode; and what the wrapper refuses. The kernel itself runs
-only on the card (``chip_smoke.py`` phase 2 holds it against the plain version
+"""The int8 product's tensor-core kernels (wgmma from 17 rows, the decode
+kernel at 1 to 16), as far as a CPU can hold them: the wrapper's pure choice of
+path, token tile, ring, splits and shared memory for every shape
+``chip_smoke.py`` drives; the relabelling of accumulator rows and of B columns
+at their stores and the byte permutes and bf16 additions that build their
+operand registers from int8 words; their orders of sums (16-deep pieces in f32,
+K splits added in a fixed order, the scale once, one cast) emulated in plain
+PyTorch against the Pallas kernel in interpret mode, with a decode row the same
+bits at every M; and what the wrappers refuse. The kernels themselves run only
+on the card (``chip_smoke.py`` phase 2 holds them against the plain version
 there)."""
 
 import importlib.util
@@ -21,7 +23,7 @@ from aha_tpu.ops.quant import quantize_array
 
 from aha_tpu_torch import bridge
 from aha_tpu_torch.ops.kernels import int8_matmul as k8
-from aha_tpu_torch.ops.kernels.int8_matmul import SCALAR, TENSOR_CORE, VEC16, WGMMA
+from aha_tpu_torch.ops.kernels.int8_matmul import DECODE, SCALAR, TENSOR_CORE, VEC16, WGMMA
 
 SMEM = 232448          # bytes of shared memory a block may use on an H100
 LM_HEAD = (3584, 152064)
@@ -61,15 +63,16 @@ def _shapes(M):
 
 @pytest.mark.parametrize("M", sorted({*_smoke().PATH_M, 5, 9, 392, 1568}))
 def test_plan_of_every_path_shape(M):
-    """bf16, weight-only, aligned: a token on the CUDA cores, every other row
-    count on the wgmma kernel, with a token tile that is a multiple of 8 and at
-    most the cap, tiles that cover M once, a ring of at least three slots that
-    fits as many blocks as an SM holds, and K splits that keep a small grid in
-    one round of resident blocks (8 stages a split at least)."""
+    """bf16, weight-only, aligned: 1 to 16 rows (a token, a verify pass, the
+    generation prompt) on the decode kernel with the plan of 16 rows, every
+    larger row count on the wgmma kernel, with a token tile that is a multiple
+    of 8 and at most the cap, tiles that cover M once, a ring of at least three
+    slots that fits as many blocks as an SM holds, and K splits that keep a small
+    grid in one round of resident blocks (8 stages a split at least)."""
     for K, N in _shapes(M):
         pl = k8.plan(M, K, N, bf16=True)
-        if M == 1:
-            assert pl.path == VEC16 and pl.tile == 0, (M, K, N)
+        if M <= k8.DECODE_MAX_M:
+            assert pl.path == DECODE and pl == k8.plan(16, K, N, bf16=True), (M, K, N)
             continue
         assert pl.path == WGMMA, (M, K, N)
         assert pl.tile % 8 == 0 and 8 <= pl.tile <= k8.WGMMA_TILE_CAP <= 128
@@ -95,7 +98,7 @@ def test_plan_of_the_frame_chunk():
 
 
 @pytest.mark.parametrize("M,K,N,kw,path", [
-    (1, 3584, 4608, dict(bf16=True), VEC16),                         # a token
+    (1, 3584, 4608, dict(bf16=True, align=(8, 16, 16)), VEC16),      # a token, x 8 bytes off
     (49, 3584, 4608, dict(bf16=False), VEC16),                       # f32
     (49, 3584, 4608, dict(bf16=True, a8=True), TENSOR_CORE),         # int8 activations
     (1, 3584, 4608, dict(bf16=True, a8=True), VEC16),
@@ -105,8 +108,16 @@ def test_plan_of_the_frame_chunk():
     (49, 3584, 4608, dict(bf16=True, align=(2, 16, 16)), VEC16),     # x 2 bytes off
     (49, 3584, 4608, dict(bf16=True, align=(16, 8, 16)), TENSOR_CORE),
     (49, 3584, 4608, dict(bf16=True, align=(16, 16, 8)), TENSOR_CORE),
+    (5, 3584, 4608, dict(bf16=False), VEC16),                        # decode rows: f32
+    (8, 3584, 4608, dict(bf16=True, a8=True), TENSOR_CORE),          # int8 activations
+    (8, 320, 136, dict(bf16=True), TENSOR_CORE),                     # N not a multiple of 16
+    (8, 352, 256, dict(bf16=True), TENSOR_CORE),                     # K not a multiple of 64
+    (4, 3584, 4608, dict(bf16=True, align=(2, 16, 16)), VEC16),      # x 2 bytes off
+    (13, 3584, 4608, dict(bf16=True, align=(16, 16, 8)), TENSOR_CORE),  # scale 8 bytes off
 ])
 def test_plan_keeps_the_earlier_paths(M, K, N, kw, path):
+    """What neither tensor-core kernel takes keeps PR 1-2's paths, at a token,
+    at decode rows and above."""
     pl = k8.plan(M, K, N, **kw)
     assert pl.path == path and pl.tile == 0 and pl.smem_bytes == 0 and pl.splits >= 1
 
@@ -272,3 +283,162 @@ def test_a_misaligned_view_keeps_the_old_path():
     assert x.is_contiguous() and k8.align_of(x) < 16 and k8.align_of(buf) == 16
     pl = k8.plan(49, 3584, 4608, bf16=True, align=(k8.align_of(x), 16, 16))
     assert pl.path == VEC16
+
+
+# ---- the decode rows (1 .. 16): one kernel, one plan, one order of sums ------------------
+
+
+def _decode_shapes():
+    """(M, K, N) of every product a 7B path hands the decode path: rows 1-16 at
+    the four layer products (a token, verify passes of 4 and 8 and their 5 and 9
+    rows, the 13-row generation prompt), 1, 4 and 8 at the lm_head."""
+    out = [(M, K, N) for M in range(1, 17) for _, K, N in _smoke().LAYER]
+    return out + [(M, *LM_HEAD) for M in (1, 4, 8)]
+
+
+@pytest.mark.parametrize("M,K,N", _decode_shapes())
+def test_decode_plan_of_every_7b_shape(M, K, N):
+    """bf16, aligned, 1 to 16 rows: the decode kernel, with the same ring and
+    splits at every M (a row gives the same bits alone or with 15 others), whole
+    stages a split and none empty, a ring whose blocks fill the SM's shared
+    memory as far as they go; a layer's grids split until about two blocks an
+    SM and run in one round of six blocks an SM behind three slots; the
+    lm_head's 1,188 blocks behind six slots, three an SM: three even rounds."""
+    pl = k8.plan(M, K, N, bf16=True)
+    assert pl.path == DECODE and pl == k8.plan(1, K, N, bf16=True) == k8.plan(16, K, N, bf16=True)
+    assert (pl.tile, pl.tiles) == (16, 1)
+    stages, blocks = K // 64, -(-N // 128)
+    per = -(-stages // pl.splits)
+    assert 1 <= pl.splits <= stages and per * (pl.splits - 1) < stages
+    assert pl.smem_bytes == pl.stages * (16 * 128 + 64 * 144) <= SMEM
+    held = k8.decode_blocks_per_sm(pl.stages)
+    assert held * (pl.smem_bytes + 1024) <= k8.SMEM_PER_SM < (held + 1) * (pl.smem_bytes + 1024)
+    if pl.stages == 3:
+        assert held == 6 and blocks * pl.splits <= held * 132
+        assert pl.splits == 1 or blocks * pl.splits <= 2 * 132 + blocks
+    else:
+        assert (pl.stages, held) == (6, 3) and blocks > 6 * 132 and blocks % (held * 132) == 0
+    expect = {4608: 7, 37888: 1, 152064: 1}.get(N, 9 if K == 18944 else 8)
+    assert pl.splits == expect, (M, K, N, pl.splits)
+
+
+def test_decode_columns_are_relabelled_not_moved():
+    """A warp's B columns (gid, n-tile t) are its 32 weight columns once each;
+    a thread's accumulator elements (t, e) are column 2 tig + e of n-tile t,
+    i.e. the eight neighbouring columns 32 w + 8 tig .. + 7 it stores."""
+    for warp in range(4):
+        cols = sorted(k8.decode_column(warp, j, t) for j in range(8) for t in range(4))
+        assert cols == list(range(32 * warp, 32 * warp + 32))
+        for tig in range(4):
+            mine = sorted(k8.decode_column(warp, 2 * tig + e, t)
+                          for t in range(4) for e in range(2))
+            assert mine == list(range(32 * warp + 8 * tig, 32 * warp + 8 * tig + 8))
+
+
+def test_decode_registers_are_the_piece_of_w_the_product_reads():
+    """Every thread's B registers of a stage (64 rows of a block's 128 int8
+    columns, every byte value) against the weight: register b0 / b1 of n-tile t
+    in piece p of thread (gid, tig) of warp w holds rows 16 p + 2 tig (+ 8) and
+    the next of column decode_column(w, gid, t), built by pair_bf16 from the
+    words of rows 16 p + 2 tig + (0, 1, 8, 9) at columns 32 w + 4 gid .. + 3."""
+    rng = np.random.default_rng(3)
+    stage = rng.permutation(np.resize(np.arange(256, dtype=np.uint8), 64 * 128)).reshape(64, 128)
+    w = stage.view(np.int8)
+    seen = np.zeros(w.shape, dtype=bool)
+    for warp in range(4):
+        for lane in range(32):
+            gid, tig = lane // 4, lane % 4
+            col0 = 32 * warp + 4 * gid
+            for p in range(4):
+                wq = [int.from_bytes(stage[16 * p + 2 * tig + d, col0:col0 + 4].tobytes(),
+                                     "little") for d in (0, 1, 8, 9)]
+                for t in range(4):
+                    col = k8.decode_column(warp, gid, t)
+                    for (a, b), k in (((wq[0], wq[1]), 16 * p + 2 * tig),
+                                      ((wq[2], wq[3]), 16 * p + 2 * tig + 8)):
+                        assert _pair_bf16(a, b, t) == (w[k, col], w[k + 1, col]), (warp, lane, p)
+                        seen[k:k + 2, col] = True
+    assert seen.all()
+
+
+def test_decode_shared_reads_fall_in_distinct_banks():
+    """Weight rows of a stage lie 144 bytes apart: each of a warp's 16 word
+    reads of a stage (rows 16 p + 2 tig + d, words 8 w + gid) meets 32 banks."""
+    for warp in range(4):
+        for p in range(4):
+            for d in (0, 1, 8, 9):
+                banks = {((16 * p + 2 * tig + d) * 144 + 32 * warp + 4 * gid) // 4 % 32
+                         for gid in range(8) for tig in range(4)}
+                assert len(banks) == 32
+
+
+def decode_emulated(x, qvalue, scale, splits):
+    """The decode kernel's order of sums: a split's whole 64-row stages in order,
+    each 16-deep piece's exact sum (in f64, as the tensor cores keep a piece's
+    products) rounded once into the split's f32 sum, which starts at zero; the
+    splits' sums added in split order from zero (splitk_reduce; one split is its
+    own sum); times the column scale in f32; one cast."""
+    K = x.shape[-1]
+    per = -(-(K // 64) // splits) * 64
+    w = qvalue.double()
+    xd = x.reshape(-1, K).float().double()
+    total = torch.zeros((xd.shape[0], w.shape[1]), dtype=torch.float32)
+    for s in range(splits):
+        part = torch.zeros_like(total)
+        for k0 in range(s * per, min(K, (s + 1) * per), 16):
+            part = (part.double() + xd[:, k0:k0 + 16] @ w[k0:k0 + 16]).float()
+        total = total + part
+    return (total * scale.reshape(-1).float()).to(x.dtype)
+
+
+@pytest.mark.parametrize("splits", [1, 3, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M", [1, 5, 16])
+def test_decode_order_of_sums(M, dtype, splits):
+    """At one split, three and the plan's eight (one stage each): f32 within 3e-5
+    of the Pallas kernel in interpret mode and of the plain version; bf16
+    activations within 1e-2 of the largest value of the Pallas kernel and one
+    bf16 step of the plain version; and row r of the M-row product equal, bit for
+    bit, to the one-row product of row r."""
+    rng = np.random.default_rng(11 + M)
+    K, N = 512, 256
+    assert k8.plan(M, K, N, bf16=True) == k8.Plan(DECODE, 8, 16, 1, 3, 3 * k8.DECODE_SLOT)
+    w = (rng.standard_normal((K, N)) * 0.02).astype(np.float32)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    q = quantize_array(jnp.asarray(w), 0)
+    jx = jnp.asarray(x).astype(jnp.bfloat16 if dtype == "bfloat16" else jnp.float32)
+    ref = np.asarray(j_int8_matmul(jx, q["qvalue"], q["scale"], interpret=True)
+                     .astype(jnp.float32))
+    xt = _t(x).to(getattr(torch, dtype))
+    qv, s = _t(q["qvalue"]), _t(q["scale"])
+    out = decode_emulated(xt, qv, s, splits)
+    rows = torch.cat([decode_emulated(xt[r:r + 1], qv, s, splits) for r in range(M)])
+    assert out.shape == (M, N) and out.dtype == xt.dtype and torch.equal(out, rows)
+    plain = k8.int8_matmul_plain(xt, qv, s)
+    if dtype == "float32":
+        np.testing.assert_allclose(out.numpy(), ref, rtol=3e-5, atol=3e-5)
+        np.testing.assert_allclose(out.numpy(), plain.numpy(), rtol=3e-5, atol=3e-5)
+    else:
+        assert np.abs(out.float().numpy() - ref).max() <= 1e-2 * np.abs(ref).max()
+        step = np.abs(plain.float().numpy()).max() * 2.0 ** -8
+        assert np.abs(out.float().numpy() - plain.float().numpy()).max() <= step
+
+
+@pytest.mark.parametrize("what,match", [
+    ("rows", "at most 16 rows"),
+    ("f32", "takes bf16 x, weight-only"),
+    ("a8", "takes bf16 x, weight-only"),
+])
+def test_launch_plan_refuses_what_the_decode_kernel_does_not_take(what, match):
+    """A decode plan handed more than 16 rows, f32 activations or int8 ones with
+    their row scales raises before any library is built or launched."""
+    M, K, N = (17 if what == "rows" else 4), 64, 32
+    dtype = {"f32": torch.float32, "a8": torch.int8}.get(what, torch.bfloat16)
+    x = torch.zeros((M, K), dtype=dtype)
+    sx = torch.ones(M) if what == "a8" else None
+    q = torch.zeros((K, N), dtype=torch.int8)
+    s = torch.ones((1, N), dtype=torch.float32)
+    y = torch.empty((M, N), dtype=torch.bfloat16)
+    pl = k8.Plan(DECODE, 1, 16, 1, 3, 3 * k8.DECODE_SLOT)
+    with pytest.raises(ValueError, match=match):
+        k8.launch_plan(x, sx, q, s, y, pl)

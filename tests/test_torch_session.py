@@ -267,6 +267,54 @@ def test_int4_session_matches_jax_at_product_widths(tiny):
                                atol=1e-4, rtol=1e-3)
 
 
+def test_int8_session_matches_jax_at_product_widths(tiny):
+    """int8-quantized tiny params with merged projections (as JAX's StreamEngine
+    merges them), small sink window, repetition penalty, at the product widths of
+    the JAX package's main path: fused scoring of 4 frames per pass in
+    score_video and speculative generation (4 candidates per pass) in
+    inference(), against the JAX session at the same widths on the same tree, in
+    scores (atol 1e-4, rtol 1e-3) and texts."""
+    from aha_tpu.ops.kv_cache import CachePolicy as JCachePolicy
+    from aha_tpu.streaming.engine import StreamEngine as JStreamEngine
+
+    params, cfg, tok, tcfg, ttok = tiny
+    qparams = quant.quantize_params(params)
+    qparams = {**qparams, "llm": quant.merge_decoder_projections(qparams["llm"])}
+    tparams = params_from_jax(jax.tree.map(np.asarray, qparams))
+    layers = tparams["llm"]["layers"]
+    assert "qkv_proj" in layers and "gate_up_proj" in layers
+    assert layers["qkv_proj"]["kernel"]["qvalue"].dtype == torch.int8
+    kw = dict(frame_fps=2.0, kv_cache_policy="sink", kv_window=256, num_sink_tokens=8,
+              max_new_tokens=12, repetition_penalty=1.3, fused_score_frames=4,
+              spec_decode_tokens=4, spec_decode_tokens_max=4,
+              stream_end_score_sum_threshold=2.2)
+    jengine = JStreamEngine(qparams, cfg, JCachePolicy("sink", window=256, num_sink=8),
+                            max_new_tokens=12, repetition_penalty=1.3, spec_tokens=4,
+                            fused_score_frames=4)
+    frames = np.random.default_rng(7).integers(0, 256, (10, 40, 48, 3), dtype=np.uint8)
+    conv = [{"role": "user", "content": QUERY, "time": 0}]
+    js = JStreamSession(jengine, tok, JInferConfig(**kw))
+    js.input_video_stream(frames)
+    js.input_query_stream(conv)
+    jturns = js.inference(chunked=False)
+    ts = build_session(tparams, tcfg, ttok, InferConfig(**kw), **CPU)
+    assert ts.engine.spec_tokens == 4 and ts.engine.fused_frames == 4
+    ts.input_video_stream(frames)
+    ts.input_query_stream(conv)
+    tturns = ts.inference()
+    np.testing.assert_allclose(_scores(ts.debug_data_list), _scores(js.debug_data_list),
+                               atol=1e-4, rtol=1e-3)
+    assert [(t["role"], t["time"], t["content"]) for t in tturns] == \
+        [(t["role"], t["time"], t["content"]) for t in jturns]
+    assert any(t["role"] == "assistant" for t in tturns)
+    assert ts.engine.spec_acceptance()["passes"] > 0
+    ts.reset()
+    js.reset()
+    np.testing.assert_allclose(_scores(ts.score_video(frames, query=QUERY)),
+                               _scores(js.score_video(frames, query=QUERY)),
+                               atol=1e-4, rtol=1e-3)
+
+
 @pytest.fixture(scope="module")
 def int8_port(tiny):
     params, _, _, tcfg, _ = tiny
@@ -417,7 +465,8 @@ def test_build_session_refuses_what_is_not_ported(tiny):
 def test_port_runs_without_jax():
     """A fresh interpreter where importing jax, aha_tpu or any aha_tpu.*
     module raises imports every module of the port (the training modules
-    with the rest) and runs a tiny int4 session at the product widths and one
+    with the rest, and the card's scripts chip_smoke.py and
+    spec_divergence.py) and runs a tiny int4 session at the product widths and one
     int4 QLoRA train step on the CPU from seeded synthetic params."""
     code = textwrap.dedent(f"""
         import importlib.abc, sys
@@ -434,6 +483,7 @@ def test_port_runs_without_jax():
         import aha_tpu_torch
         for m in pkgutil.walk_packages(aha_tpu_torch.__path__, "aha_tpu_torch."):
             importlib.import_module(m.name)
+        import chip_smoke, spec_divergence   # the card's scripts, beside the package
         try:
             import aha_tpu.config
         except ImportError:

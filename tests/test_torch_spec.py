@@ -9,7 +9,9 @@ Two properties are held: the port equals the JAX function on the same numpy
 inputs (1e-5: f32 sums in another order), and the port's verify pass equals
 the port's own S sequential 1-token ``decode_chunk`` steps, with the
 committed cache equal to the sequentially written one (2e-5, the bound the
-JAX tests hold their own pass to)."""
+JAX tests hold their own pass to). The replayed attention of the verify pass
+``generate_spec`` runs (``replayed_attention``) is held to more: the
+sequential steps' attention bit for bit, with the cache given back as it was."""
 
 import dataclasses
 import functools
@@ -294,6 +296,89 @@ def test_speculative_attention_matches_jax(model, exact, int8):
         _t(q), tc.k[0], tc.v[0], _t(k_if), _t(v_if), tables, sink_slots=jp.num_sink,
         kv_scales=(tc.k_scale[0], tc.v_scale[0]) if int8 else None)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+
+
+def _attend_step_by_step(tp, tcfg, cache, q, k, v, valid_len, n_steps, step):
+    """What the sequential passes compute in one layer (layer 0): each step's
+    keys written by ``write_layer`` and its rows attended by
+    ``cached_attention``, on a copy of the cache."""
+    cache = cache.clone()
+    out = []
+    for j in range(n_steps):
+        rows = slice(j * step, (j + 1) * step)
+        plan = tkv.plan_update(cache, tp, torch.clamp(valid_len - j * step, 0, step), step)
+        tables = tattn.chunk_tables(plan, tp, tcfg.head_dim, tcfg.rope_theta)
+        tkv.write_layer(cache.k[0], cache.v[0], k[:, rows], v[:, rows], plan,
+                        rot=(tables.w_cos, tables.w_sin))
+        out.append(tattn.cached_attention(q[:, rows], cache.k[0], cache.v[0], tables))
+        tkv.advance(cache, plan)
+    return torch.cat(out, dim=1)
+
+
+@pytest.mark.parametrize("kind,prefill,valid,step", [
+    *[(k, p, (S, S), 1) for k, p in STATES],
+    ("sink", 80, (1, 3), 1),            # ragged rows
+    ("sink", 40, (4, 2), 2),            # two frame steps of two tokens, one row padded
+])
+def test_replayed_attention_is_the_sequential_steps(model, kind, prefill, valid, step):
+    """replayed_attention on random q / in-flight K/V: bit for bit the S
+    sequential steps' write-then-attend of layer 0, and the cache's K/V as
+    they were before."""
+    jcfg, _, tcfg, _ = model
+    _, tp, _, tc, _ = _setup(model, kind, prefill)
+    valid = torch.tensor(valid, dtype=torch.int32)
+    plans = tspec.plan_compose(tc, tp, valid, S // step, step=step)
+    rng = np.random.default_rng(5)
+    q = _t(rng.standard_normal((B, S, jcfg.num_heads, jcfg.head_dim)).astype(np.float32))
+    k, v = (_t(rng.standard_normal((B, S, jcfg.num_kv_heads, jcfg.head_dim)).astype(np.float32))
+            for _ in range(2))
+    w_cos, w_sin = tattn.rope_cos_sin(plans.write_pos, tcfg.head_dim, tcfg.rope_theta)
+    k_rot = tattn.apply_rope(k, w_cos, w_sin)
+    steps = [tattn.chunk_tables(p, tp, tcfg.head_dim, tcfg.rope_theta) for p in plans.steps]
+    before = tc.clone()
+    out = tattn.replayed_attention(q, tc.k[0], tc.v[0], k_rot, v, plans.slots, w_cos, w_sin,
+                                   steps)
+    ref = _attend_step_by_step(tp, tcfg, before, q, k, v, valid, S // step, step)
+    assert out.shape == ref.shape and torch.equal(out, ref)
+    assert torch.equal(tc.k, before.k) and torch.equal(tc.v, before.v)
+
+
+@pytest.mark.parametrize("kind,prefill", STATES)
+def test_replayed_verify_pass_matches_jax_and_sequential(model, kind, prefill):
+    """decode_chunk_spec with the replayed attention: hidden states and
+    in-flight K/V against JAX's verify pass (1e-5), hidden states against the
+    sequential passes (2e-5), layer 0's in-flight K/V (before any attention)
+    equal to the composed pass's, and the cache left as it was."""
+    jcfg, jparams, tcfg, tparams = model
+    jp, tp, jc, tc, embs = _setup(model, kind, prefill)
+    before = tc.clone()
+    full = torch.full((B,), S, dtype=torch.int32)
+    jplans = jspec.plan_compose(jc, jp, jnp.full((B,), S, jnp.int32), S)
+    tplans = tspec.plan_compose(tc, tp, full, S)
+    jh, jik, jiv = jqwen2.decode_chunk_spec(jparams, jcfg, jp, jc, jnp.asarray(embs), jplans)
+    th, tik, tiv = tqwen2.decode_chunk_spec(tparams, tcfg, tp, tc, _t(embs), tplans, replay=True)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), atol=ATOL)
+    np.testing.assert_allclose(tik.numpy(), np.asarray(jik), atol=ATOL)
+    np.testing.assert_allclose(tiv.numpy(), np.asarray(jiv), atol=ATOL)
+    for f in ("k", "v", "order", "key_pos", "seen", "length"):     # given back as it was
+        assert torch.equal(getattr(tc, f), getattr(before, f)), f
+    _, cik, civ = tqwen2.decode_chunk_spec(tparams, tcfg, tp, tc, _t(embs), tplans)
+    assert torch.equal(tik[0], cik[0]) and torch.equal(tiv[0], civ[0])
+    h_seq, _ = _sequential(model, tp, tc, embs, S)
+    np.testing.assert_allclose(th.numpy(), h_seq.numpy(), rtol=2e-5, atol=2e-5)
+
+
+def test_replayed_attention_refuses_an_int8_cache(model):
+    """An int8 cache's sequential writes are quantised: the replay does not
+    take it (``generate_spec`` composes there, as JAX does)."""
+    jcfg, _, tcfg, _ = model
+    _, tp, _, tc, _ = _setup(model, "sink", 40, int8=True)
+    plans = tspec.plan_compose(tc, tp, torch.full((B,), S, dtype=torch.int32), S)
+    q = torch.zeros((B, S, jcfg.num_heads, jcfg.head_dim))
+    kv = torch.zeros((B, S, jcfg.num_kv_heads, jcfg.head_dim))
+    w_cos, w_sin = tattn.rope_cos_sin(plans.write_pos, tcfg.head_dim, tcfg.rope_theta)
+    with pytest.raises(ValueError, match="int8 cache"):
+        tattn.replayed_attention(q, tc.k[0], tc.v[0], kv, kv, plans.slots, w_cos, w_sin, [])
 
 
 def test_draft_history_and_ngram_draft_match_jax():
