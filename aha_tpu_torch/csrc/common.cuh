@@ -27,6 +27,34 @@ __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// Programmatic dependent launch (sm_90). A kernel launched with programmatic
+// stream serialisation (launch_after_prior_grid) may start while the kernel ahead
+// of it on the stream still runs: until wait_prior_grid() it may touch only what
+// that kernel does not write. wait_prior_grid() returns once the grid ahead has
+// completed and its writes are visible (at once for a kernel launched the usual
+// way); allow_dependents() lets such a kernel behind this one start now.
+__device__ __forceinline__ void wait_prior_grid() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void allow_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+template <typename... Params, typename... Args>
+inline cudaError_t launch_after_prior_grid(void (*kernel)(Params...), dim3 grid, dim3 block,
+                                           int smem, cudaStream_t st, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+}
+
 // four consecutive elements as f32 (pointers 4-element aligned)
 __device__ __forceinline__ void load4(const float* p, float (&o)[4]) {
   const float4 v = __ldg(reinterpret_cast<const float4*>(p));

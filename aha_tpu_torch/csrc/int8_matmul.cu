@@ -12,31 +12,34 @@
 // int8, 0.0696 ms at 3.35 TB/s. At the streaming path's M (1 for generation,
 // 2..59 for verify passes and frame chunks) the weight bytes are the traffic;
 // from about M = 150 (171 / 196 / 220 for prompts and fused passes, 392 / 1568
-// for the projector) the 2 M K N operations at 989 TFLOP/s take longer. Every
-// path reads each weight byte from device memory once and converts int8 in
-// registers; the per-channel scale multiplies the finished f32 sum once (it
-// factors out of the contraction), as in the TPU kernel's epilogue. Five paths,
-// chosen by the wrapper's plan() from the operands:
-//   * decode (bf16 x, weight-only, 1 <= M <= 16, K % 64 == 0, N % 16 == 0,
-//     16-byte aligned operands): section "decode rows" below. mma.sync per warp
-//     with x as the 16-row A operand, the weight converted to bf16 in registers
-//     as the B operand, a cp.async ring, one plan and one order of sums for
-//     every M, so a row gives the same bits at every width.
+// for the projector) the 2 M K N operations at 989 TFLOP/s take longer (with
+// int8 activations at 1,979 TOP/s, from about M = 300). Every path reads each
+// weight byte from device memory once and takes it into registers as it is
+// (int8 activations) or converted to bf16; the per-channel scale multiplies the
+// finished sum once (it factors out of the contraction), as in the TPU kernel's
+// epilogue. Five paths, chosen by the wrapper's plan() from the operands:
+//   * decode (1 <= M <= 16, bf16 x weight-only or int8 x with a bf16 output,
+//     K % 64 == 0, N % 16 == 0, 16-byte aligned operands): section "decode rows"
+//     below. mma.sync per warp with x as the 16-row A operand, the weight bytes
+//     as the B operand (converted to bf16, or transposed as int8), a cp.async
+//     ring, one plan and one order of sums for every M, so a row gives the same
+//     bits at every width.
 //   * wgmma (as decode, M >= 17): section "tensor-core path, wgmma" below. The
-//     product is turned round (y^T = W^T x^T), the weight converted to bf16 in
-//     registers is the register operand of the warpgroup products, raw bytes
-//     and x tiles arrive by cp.async through a ring of up to six stages, one
-//     f32 accumulator set over all of K, the scale in the epilogue.
+//     product is turned round (y^T = W^T x^T), the weight bytes (converted to
+//     bf16, or transposed as int8) are the register operand of the warpgroup
+//     products, raw bytes and x tiles arrive by cp.async through a ring of up to
+//     six stages, one accumulator set over all of K, the scales in the epilogue.
 //   * mma.sync (bf16 x where neither applies, M > 1, K % 32 == 0, N % 8 == 0):
 //     a block owns a 64 x 128 output tile and walks K in steps of
 //     32. It stages the x tile (bf16) and the weight tile (int8 -> bf16,
 //     transposed so a thread's fragment pair is one 32-bit shared load) in
 //     shared memory and runs mma.sync m16n8k16 bf16 with f32 accumulators (4
 //     warps, 32 x 64 each); the copies are synchronous.
-//   * mma.sync on int8 activations (a8, M > 1): both tiles staged as int8,
-//     m16n8k32 s8 with int32 accumulators, whatever the output type.
-//   * CUDA cores (everything else: f32, a8 at one row, ragged or misaligned
-//     operands): a block covers 128 output columns; each of its
+//   * mma.sync on int8 activations (a8, M > 1, where neither Hopper path
+//     applies: an f32 output, ragged or misaligned operands): both tiles staged
+//     as int8, m16n8k32 s8 with int32 accumulators, whatever the output type.
+//   * CUDA cores (everything else: f32, ragged or misaligned operands at one
+//     row): a block covers 128 output columns; each of its
 //     256 threads owns 16 contiguous columns (one 16-byte int8 load per
 //     weight row) and one of 32 lanes along K, so a warp reads 4 rows x 128
 //     contiguous bytes; rows of x are taken BM at a time.
@@ -303,37 +306,53 @@ int8_mm_tc_a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx
   store_tile<Y>(acc, y, ws, scale, sx, M, N, m0, n0, wm, wn, gid, tig, splits, blockIdx.z);
 }
 
-// ---- tensor-core path, wgmma (bf16 x, weight-only, K % 64 == 0, N % 16 == 0) ------------------
+// ---- tensor-core path, wgmma (K % 64 == 0, N % 16 == 0): bf16 x weight-only, or int8 x ------
 //
 // The product turned round: y^T = W^T x^T. The 64-row side of a warpgroup
-// product runs over weight columns, its register operand is a [64 columns x 16
-// rows] piece of W^T converted from int8 in registers, and its width is the
-// token tile. The bf16 weight never exists in memory of any kind: the raw bytes
-// travel device memory -> ring -> registers.
+// product runs over weight columns, its register operand is a piece of W^T built
+// in registers from the raw weight bytes, and its width is the token tile. The
+// weight never exists in memory in any other form: the raw bytes travel device
+// memory -> ring -> registers.
 //
 // A block is one warpgroup that owns 128 weight columns (two slabs of 64) and a
 // token tile of TM <= 128 rows, and walks K in stages of 64 rows through a ring
 // of stages(TM) slots (up to six, as many as fit when two or three blocks share
 // an SM) filled by cp.async, all but two slots in flight (all but one, the slot
-// refilled as soon as both slabs' products of its stage are done, was no faster). A stage holds the x tile (TM
-// rows of 128 bytes, swizzled, the B operand as it lies) and the weight bytes
-// (64 rows of 128 columns, 144 bytes apart, so that the rows a warp reads at
-// once fall in distinct banks), both in 16-byte copies. The thread whose
+// refilled as soon as both slabs' products of its stage are done, was no faster).
+// A stage holds the x tile (TM rows, the B operand as it lies, swizzled) and the
+// weight bytes (64 rows of 128 columns), all in 16-byte copies. The thread whose
 // accumulator rows are gid and gid + 8 of warp w owns the four neighbouring
 // columns 4 (8 w + gid) .. + 3 (rows gid and gid + 8 of slab 0, then of slab 1:
 // the accumulator rows are relabelled, no data is shuffled): a 32-bit word of a
-// weight row is its share of that row. Its operand registers of a 16-deep piece
-// need rows 2 tig, 2 tig + 1, 2 tig + 8, 2 tig + 9: a register pairs the same
-// column of two rows, so each is one byte permute of two words, two logic
-// operations and one bf16x2 addition (pair_bf16): four instructions for two
-// values, 128 a stage.
+// weight row is its share of that row.
 //
-// The two slabs alternate: while the tensor cores run one slab's four products
-// of a stage, the threads convert the other's operand. Each slab keeps one f32
-// accumulator over all of the block's K: the products always accumulate (the
-// sums start at zero), the only wait is the ring's, and the scale multiplies the
-// finished sum in the epilogue. A K split covers whole stages and writes its f32
-// sums as a partial; splitk_reduce adds them in a fixed order and scales.
+// Two operand types, one kernel (A8):
+//   * bf16 x, weight-only: x rows of 128 bytes in the 128-byte swizzle, weight
+//     rows 144 bytes apart (the rows a warp reads at once fall in distinct banks),
+//     products m64nTMk16 bf16 into f32. The operand registers of a 16-deep piece
+//     need rows 2 tig, 2 tig + 1, 2 tig + 8, 2 tig + 9: a register pairs the same
+//     column of two rows, so each is one byte permute of two words, two logic
+//     operations and one bf16x2 addition (pair_bf16): four instructions for two
+//     values, 128 a stage.
+//   * int8 x (xq, sx from csrc/quantize_rows.cu): x rows of 64 bytes in the
+//     64-byte swizzle, weight rows 128 bytes apart with their chunks swizzled
+//     (a8_weight_chunk), products m64nTMk32 s8 into exact int32 sums. The operand
+//     register of a 32-deep piece is four consecutive K rows of one column: rows
+//     4 tig .. + 3 and 16 + 4 tig .. + 3, a 4 x 4 byte transpose of the four words
+//     the thread reads anyway (byte_columns): two byte permutes a register, no
+//     conversion, 32 a stage. The token tile is a width the s8 product takes
+//     (24, 32, then multiples of 16).
+//
+// The two slabs alternate: while the tensor cores run one slab's products of a
+// stage, the threads build the other's operand. Each slab keeps one accumulator
+// over all of the block's K: the products always accumulate (the sums start at
+// zero), the only wait is the ring's, and the epilogue multiplies the finished
+// sum (int32 made f32 once) by the column scale, then by the row scale sx. A K
+// split covers whole stages and writes its sums as an f32 partial; splitk_reduce
+// adds them in a fixed order, then scales. An int32 partial is exact in f32 below
+// 2^24, so the int8 path equals the plain version (an exact sum rounded to f32
+// once, times the scale, times sx) bit for bit while every split's sum and the
+// running total stay below 2^24, and always with one split.
 namespace w8 {
 
 using namespace wg;
@@ -341,23 +360,40 @@ using namespace wg;
 constexpr int kSlabs = 2;             // 64-column slabs of the weight per block
 constexpr int kBN = 64 * kSlabs;      // weight columns per block
 constexpr int kKS = 64;               // contraction depth of a stage
-constexpr int kWRow = 144;            // bytes from one weight row of a stage to the next
-constexpr int kWBytes = kKS * kWRow;  // 9216: the x tile after it stays on 1024 bytes
 constexpr int kSmemPerSm = 233472;    // 228 KB, of which each block costs 1 KB more
 constexpr int kMaxStages = 6;
+
+// what the two operand types change: the x tile's row bytes, the weight rows'
+// stride, the pieces of a stage, the accumulator
+template <bool A8> struct Operand {
+  using X = bf16;
+  using Acc = float;
+  static constexpr int kXRow = 128, kWRow = 144, kPieces = 4;
+};
+template <> struct Operand<true> {
+  using X = int8_t;
+  using Acc = int;
+  static constexpr int kXRow = 64, kWRow = 128, kPieces = 2;
+};
+// where a stage keeps the 16-byte chunk c of weight row r
+template <bool A8> __device__ __forceinline__ int weight_chunk(int r, int c) {
+  return A8 ? a8_weight_chunk(r, c) : c;
+}
 
 // Blocks an SM holds: three up to 64 rows (the 296 column blocks of gate_up
 // then run in one round), else two (the accumulators of wider tiles need more
 // than a third of the registers).
 __host__ __device__ constexpr int blocks_per_sm(int TM) { return TM <= 64 ? 3 : 2; }
-__host__ __device__ constexpr int stage_bytes(int TM) { return TM * 128 + kWBytes; }
-__host__ __device__ constexpr int stages(int TM) {
-  return (kSmemPerSm / blocks_per_sm(TM) - 1024 - kAlignSlack) / stage_bytes(TM) < kMaxStages
-             ? (kSmemPerSm / blocks_per_sm(TM) - 1024 - kAlignSlack) / stage_bytes(TM)
+template <bool A8> __host__ __device__ constexpr int stage_bytes(int TM) {
+  return TM * Operand<A8>::kXRow + kKS * Operand<A8>::kWRow;
+}
+template <bool A8> __host__ __device__ constexpr int stages(int TM) {
+  return (kSmemPerSm / blocks_per_sm(TM) - 1024 - kAlignSlack) / stage_bytes<A8>(TM) < kMaxStages
+             ? (kSmemPerSm / blocks_per_sm(TM) - 1024 - kAlignSlack) / stage_bytes<A8>(TM)
              : kMaxStages;
 }
-__host__ __device__ constexpr int smem_bytes(int TM) {
-  return stages(TM) * stage_bytes(TM) + kAlignSlack;
+template <bool A8> __host__ __device__ constexpr int smem_bytes(int TM) {
+  return stages<A8>(TM) * stage_bytes<A8>(TM) + kAlignSlack;
 }
 
 // The bf16 pair (byte C of a, byte C of b) as int8 values, exactly: a byte
@@ -372,26 +408,38 @@ __device__ __forceinline__ uint32_t pair_bf16(uint32_t a, uint32_t b) {
   const uint32_t high = (p & 0x00800080u) ^ 0xC300C300u;
   return as_u32(__hadd2(as_bf162(low), as_bf162(high)));
 }
-// the [64 x 16] operands of a stage's four products for slab SLAB, from this
-// thread's words (wq[p][r]: weight row 16 p + 2 tig + (0, 1, 8, 9)[r] of its
-// four columns, the slab's two in bytes 2 SLAB and 2 SLAB + 1)
-template <int SLAB>
-__device__ __forceinline__ void convert(uint32_t (&a)[4][4], const uint32_t (&wq)[4][4]) {
+// the operands of a stage's products for slab SLAB, from this thread's words.
+// bf16: wq[p][r] is weight row 16 p + 2 tig + (0, 1, 8, 9)[r] of its four
+// columns, the slab's two in bytes 2 SLAB and 2 SLAB + 1. int8: wq[2 p + g][d] is
+// row 32 p + 16 g + 4 tig + d.
+template <bool A8, int SLAB>
+__device__ __forceinline__ void convert(uint32_t (&a)[Operand<A8>::kPieces][4],
+                                        const uint32_t (&wq)[4][4]) {
 #pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    a[p][0] = pair_bf16<2 * SLAB>(wq[p][0], wq[p][1]);       // row gid: k 2 tig, 2 tig + 1
-    a[p][1] = pair_bf16<2 * SLAB + 1>(wq[p][0], wq[p][1]);   // row gid + 8
-    a[p][2] = pair_bf16<2 * SLAB>(wq[p][2], wq[p][3]);       // row gid: k 2 tig + 8, + 9
-    a[p][3] = pair_bf16<2 * SLAB + 1>(wq[p][2], wq[p][3]);
+  for (int p = 0; p < Operand<A8>::kPieces; ++p) {
+    if constexpr (A8) {
+      byte_columns<SLAB>(a[p][0], a[p][1], wq[2 * p][0], wq[2 * p][1], wq[2 * p][2],
+                         wq[2 * p][3]);                                  // k 4 tig ..
+      byte_columns<SLAB>(a[p][2], a[p][3], wq[2 * p + 1][0], wq[2 * p + 1][1],
+                         wq[2 * p + 1][2], wq[2 * p + 1][3]);            // k 16 + 4 tig ..
+    } else {
+      a[p][0] = pair_bf16<2 * SLAB>(wq[p][0], wq[p][1]);       // row gid: k 2 tig, 2 tig + 1
+      a[p][1] = pair_bf16<2 * SLAB + 1>(wq[p][0], wq[p][1]);   // row gid + 8
+      a[p][2] = pair_bf16<2 * SLAB>(wq[p][2], wq[p][3]);       // row gid: k 2 tig + 8, + 9
+      a[p][3] = pair_bf16<2 * SLAB + 1>(wq[p][2], wq[p][3]);
+    }
   }
 }
 
-template <int TM>
+template <bool A8, int TM>
 __global__ void __launch_bounds__(kWgThreads, blocks_per_sm(TM))
-int8_mm_wgmma_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
-                     const float* __restrict__ scale, bf16* __restrict__ y,
-                     float* __restrict__ ws, int M, int K, int N, int k_per_split, int splits) {
-  constexpr int kStages = stages(TM), kStage = stage_bytes(TM), NA = TM / 2;
+int8_mm_wgmma_kernel(const typename Operand<A8>::X* __restrict__ x, const float* __restrict__ sx,
+                     const int8_t* __restrict__ w, const float* __restrict__ scale,
+                     bf16* __restrict__ y, float* __restrict__ ws, int M, int K, int N,
+                     int k_per_split, int splits) {
+  using Op = Operand<A8>;
+  constexpr int kStages = stages<A8>(TM), kStage = stage_bytes<A8>(TM), NA = TM / 2;
+  constexpr int P = Op::kPieces, kWRow = Op::kWRow;
   static_assert(kStages >= 3, "the ring needs a slot in use, one in flight and one free");
   extern __shared__ __align__(128) unsigned char smem_w8[];
   unsigned char* ring = align_tiles(smem_w8);
@@ -405,9 +453,9 @@ int8_mm_wgmma_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
   const int n4 = n0 + 4 * (8 * warp + gid);
   // its share of a stage's copies: rows of the x tile, four 16-byte chunks of
   // the weight bytes (row idx / 8, columns 16 (idx % 8) ..)
-  const RowsCopy<TM> copy_x(static_cast<size_t>(K));
-  const bf16* xsrc = x + static_cast<size_t>(m0) * K + kbeg;
-  constexpr int kWOff = TM * 128;
+  const std::conditional_t<A8, Rows64Copy<TM>, RowsCopy<TM>> copy_x(static_cast<size_t>(K));
+  const typename Op::X* xsrc = x + static_cast<size_t>(m0) * K + kbeg;
+  constexpr int kWOff = TM * Op::kXRow;
   const int8_t* wsrc[4];
   uint32_t wdst[4];
   bool wok[4];
@@ -416,35 +464,54 @@ int8_mm_wgmma_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
     const int idx = tid + c * kWgThreads, row = idx >> 3, col = n0 + (idx & 7) * 16;
     wok[c] = col < N;
     wsrc[c] = w + static_cast<size_t>(kbeg + row) * N + (wok[c] ? col : 0);
-    wdst[c] = kWOff + row * kWRow + (idx & 7) * 16;
+    wdst[c] = kWOff + row * kWRow + weight_chunk<A8>(row, idx & 7) * 16;
   }
-  auto load = [&](int i) {   // stage i of this split into its slot
+  auto load_w = [&](int i) {   // the weight bytes of stage i of this split into its slot
     const uint32_t st = ring_a + (i % kStages) * kStage;
-    copy_x(st, xsrc + i * kKS, M - m0);
     const size_t rows = static_cast<size_t>(i) * kKS * N;
 #pragma unroll
     for (int c = 0; c < 4; ++c) cp_async16(st + wdst[c], wsrc[c] + rows, wok[c]);
   };
-  // weight row 2 tig of a stage, at this thread's four columns
-  const int w_off = kWOff + 2 * tig * kWRow + (8 * warp + gid) * 4;
+  auto load = [&](int i) {     // stage i of this split into its slot
+    copy_x(ring_a + (i % kStages) * kStage, xsrc + i * kKS, M - m0);
+    load_w(i);
+  };
+  // bf16: weight row 2 tig of a stage at this thread's four columns; int8: row
+  // 4 tig, whose chunks are swizzled by tig (a8_weight_chunk)
+  const int w_off = A8 ? kWOff + 4 * tig * kWRow + 4 * ((8 * warp + gid) ^ (8 * tig))
+                       : kWOff + 2 * tig * kWRow + (8 * warp + gid) * 4;
 
-  float acc0[NA], acc1[NA];
+  typename Op::Acc acc0[NA], acc1[NA];
 #pragma unroll
-  for (int e = 0; e < NA; ++e) acc0[e] = acc1[e] = 0.f;
-  uint32_t a0[4][4], a1[4][4];
+  for (int e = 0; e < NA; ++e) acc0[e] = acc1[e] = 0;
+  uint32_t a0[P][4], a1[P][4];
 #pragma unroll
-  for (int p = 0; p < 4; ++p)
+  for (int p = 0; p < P; ++p)
 #pragma unroll
     for (int e = 0; e < 4; ++e) a0[p][e] = a1[p][e] = 0u;
 
+  if constexpr (A8) {
+    // the weight bytes of the first stages do not depend on the quantiser ahead of
+    // this kernel: in flight before waiting for its xq and sx
 #pragma unroll
-  for (int i = 0; i < kStages - 2; ++i) {
-    if (i < nst) load(i);
-    cp_async_commit();
+    for (int i = 0; i < kStages - 2; ++i)
+      if (i < nst) load_w(i);
+    wait_prior_grid();
+#pragma unroll
+    for (int i = 0; i < kStages - 2; ++i) {
+      if (i < nst) copy_x(ring_a + i * kStage, xsrc + i * kKS, M - m0);
+      cp_async_commit();
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kStages - 2; ++i) {
+      if (i < nst) load(i);
+      cp_async_commit();
+    }
   }
   // The assembler follows which products are in flight only so far: whatever
   // defines an input of a product (operand registers, descriptors) is pinned
-  // before the first product of its four, the products' scale-d is the constant
+  // before the first product of its batch, the products' scale-d is the constant
   // 1, no wait is conditional, and nothing but the wait and the conversion lies
   // between the two slabs' products (a copy placed there, with its branches, was
   // enough). Otherwise it makes every product wait for the one before it.
@@ -459,29 +526,40 @@ int8_mm_wgmma_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
     const unsigned char* st = ring + slot * kStage + w_off;
     uint32_t wq[4][4];
 #pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      wq[p][0] = lds32(st + (16 * p) * kWRow);
-      wq[p][1] = lds32(st + (16 * p + 1) * kWRow);
-      wq[p][2] = lds32(st + (16 * p + 8) * kWRow);
-      wq[p][3] = lds32(st + (16 * p + 9) * kWRow);
-    }
-    uint64_t xd[4];
-    wg_desc_pieces(xd, ring_a + slot * kStage);
+    for (int p = 0; p < 4; ++p)
+#pragma unroll
+      for (int d = 0; d < 4; ++d)   // past w_off's row: 16 p + d (int8), 16 p + (0, 1, 8, 9)[d]
+        wq[p][d] = lds32(st + (A8 ? 16 * p + d : 16 * p + (d & 1) + 8 * (d >> 1)) * kWRow);
+    uint64_t xd[P];
+    if constexpr (A8)
+      wg_desc64_pieces(xd, ring_a + slot * kStage);
+    else
+      wg_desc_pieces(xd, ring_a + slot * kStage);
     keep(a0);
-    convert<0>(a0, wq);
+    convert<A8, 0>(a0, wq);
     keep(a0);
     wg_fence();
 #pragma unroll
-    for (int p = 0; p < 4; ++p) wgmma_rs<TM>(acc0, a0[p], xd[p], 1);
+    for (int p = 0; p < P; ++p) {
+      if constexpr (A8)
+        wgmma_rs_s8<TM>(acc0, a0[p], xd[p]);
+      else
+        wgmma_rs<TM>(acc0, a0[p], xd[p], 1);
+    }
     wg_commit();
 
     wg_wait<1>();                   // slab 1 of stage i - 1 is done: a1 is free
     keep(a1);
-    convert<1>(a1, wq);
+    convert<A8, 1>(a1, wq);
     keep(a1);
     wg_fence();
 #pragma unroll
-    for (int p = 0; p < 4; ++p) wgmma_rs<TM>(acc1, a1[p], xd[p], 1);
+    for (int p = 0; p < P; ++p) {
+      if constexpr (A8)
+        wgmma_rs_s8<TM>(acc1, a1[p], xd[p]);
+      else
+        wgmma_rs<TM>(acc1, a1[p], xd[p], 1);
+    }
     wg_commit();
   }
   wg_wait<0>();
@@ -498,11 +576,19 @@ int8_mm_wgmma_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
     for (int b = 0; b < 2; ++b) {
       const int m = m0 + 8 * j + 2 * tig + b;
       if (m >= M) continue;
-      const float v0 = acc0[4 * j + b], v1 = acc0[4 * j + 2 + b];
-      const float v2 = acc1[4 * j + b], v3 = acc1[4 * j + 2 + b];
+      const float v0 = static_cast<float>(acc0[4 * j + b]);
+      const float v1 = static_cast<float>(acc0[4 * j + 2 + b]);
+      const float v2 = static_cast<float>(acc1[4 * j + b]);
+      const float v3 = static_cast<float>(acc1[4 * j + 2 + b]);
       if (splits == 1) {
-        const __nv_bfloat162 lo = __floats2bfloat162_rn(v0 * sc.x, v1 * sc.y);
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(v2 * sc.z, v3 * sc.w);
+        float o[4] = {v0 * sc.x, v1 * sc.y, v2 * sc.z, v3 * sc.w};
+        if constexpr (A8) {
+          const float s = sx[m];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[e] *= s;
+        }
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(o[0], o[1]);
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(o[2], o[3]);
         *reinterpret_cast<uint2*>(y + static_cast<size_t>(m) * N + n4) =
             make_uint2(as_u32(lo), as_u32(hi));
       } else {
@@ -512,93 +598,124 @@ int8_mm_wgmma_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
     }
 }
 
-template <int TM>
-cudaError_t launch_tile(const bf16* x, const int8_t* w, const float* scale, bf16* y, float* ws,
-                        int M, int K, int N, int splits, cudaStream_t st) {
-  cudaError_t err = allow_smem(int8_mm_wgmma_kernel<TM>, smem_bytes(TM));
+template <bool A8, int TM>
+cudaError_t launch_tile(const void* x, const float* sx, const int8_t* w, const float* scale,
+                        bf16* y, float* ws, int M, int K, int N, int splits, cudaStream_t st) {
+  cudaError_t err = allow_smem(int8_mm_wgmma_kernel<A8, TM>, smem_bytes<A8>(TM));
   if (err != cudaSuccess) return err;
   // whole stages a split; a split past K writes zeros
   const int kps = ((K / kKS + splits - 1) / splits) * kKS;
   // token tiles run fastest: the blocks in flight share a few column blocks of W
   const dim3 grid((M + TM - 1) / TM, (N + kBN - 1) / kBN, splits);
-  int8_mm_wgmma_kernel<TM><<<grid, kWgThreads, smem_bytes(TM), st>>>(x, w, scale, y, ws, M, K, N,
-                                                                      kps, splits);
+  const auto* xp = static_cast<const typename Operand<A8>::X*>(x);
+  if constexpr (A8)   // starts while the quantiser ahead of it runs
+    return launch_after_prior_grid(int8_mm_wgmma_kernel<A8, TM>, grid, dim3(kWgThreads),
+                                   smem_bytes<A8>(TM), st, xp, sx, w, scale, y, ws, M, K, N,
+                                   kps, splits);
+  int8_mm_wgmma_kernel<A8, TM><<<grid, kWgThreads, smem_bytes<A8>(TM), st>>>(
+      xp, sx, w, scale, y, ws, M, K, N, kps, splits);
   return cudaGetLastError();
 }
 
+// the token tiles of each operand type: multiples of 8 for bf16; for int8 the
+// widths the s8 product takes from 17 rows on
 #define AHA_W8_TILES(X) \
   X(8) X(16) X(24) X(32) X(40) X(48) X(56) X(64) X(72) X(80) X(88) X(96) X(104) X(112) X(120) X(128)
+#define AHA_W8A8_TILES(X) X(24) X(32) X(48) X(64) X(80) X(96) X(112) X(128)
 
-cudaError_t launch(const void* x, const void* w, const void* scale, void* y, float* ws, int M,
-                   int K, int N, int splits, int tile, cudaStream_t st) {
+template <bool A8>
+cudaError_t launch(const void* x, const float* sx, const void* w, const void* scale, void* y,
+                   float* ws, int M, int K, int N, int splits, int tile, cudaStream_t st) {
   if (K % kKS != 0 || N % 16 != 0 || (N + kBN - 1) / kBN > 65535) return cudaErrorInvalidValue;
-  const bf16* xp = static_cast<const bf16*>(x);
   const int8_t* wp = static_cast<const int8_t*>(w);
   const float* sp = static_cast<const float*>(scale);
   bf16* yp = static_cast<bf16*>(y);
-  switch (tile) {   // a multiple of 8 from 8 to 128
 #define AHA_TILE(TM) \
-  case TM: return launch_tile<TM>(xp, wp, sp, yp, ws, M, K, N, splits, st);
-    AHA_W8_TILES(AHA_TILE)
-#undef AHA_TILE
-    default: return cudaErrorInvalidValue;
+  case TM: return launch_tile<A8, TM>(x, sx, wp, sp, yp, ws, M, K, N, splits, st);
+  if constexpr (A8) {
+    switch (tile) {
+      AHA_W8A8_TILES(AHA_TILE)
+      default: return cudaErrorInvalidValue;
+    }
+  } else {
+    switch (tile) {
+      AHA_W8_TILES(AHA_TILE)
+      default: return cudaErrorInvalidValue;
+    }
   }
+#undef AHA_TILE
 }
 
-int smem_of(int tile) {
-  switch (tile) {
+int smem_of(int tile, bool a8) {
 #define AHA_TILE(TM) \
-  case TM: return smem_bytes(TM);
+  case TM: return a8 ? smem_bytes<true>(TM) : smem_bytes<false>(TM);
+  if (a8) {
+    switch (tile) {
+      AHA_W8A8_TILES(AHA_TILE)
+      default: return -1;
+    }
+  }
+  switch (tile) {
     AHA_W8_TILES(AHA_TILE)
-#undef AHA_TILE
     default: return -1;
   }
+#undef AHA_TILE
 }
 
 }  // namespace w8
 
-// ---- decode rows (1 .. 16), bf16 x, weight-only, K % 64 == 0, N % 16 == 0: mma.sync ------------
+// ---- decode rows (1 .. 16), K % 64 == 0, N % 16 == 0: mma.sync, bf16 x or int8 x ----------
 //
 // A token (1 row), a verify pass (4 or 8 candidates, 5 or 9 rows with the last
 // token) and the generation prompt (13 rows) move K N weight bytes for at most
 // 32 K N operations: the bytes bound them by two orders of magnitude, so the
 // design keeps weight bytes in flight and the conversion cheap and off the
 // copies' path. One kernel, one plan and one order of sums for every M from 1 to
-// 16: x is the A operand of mma.sync m16n8k16 (16 token rows, those past M zero),
-// so a row's output is the same bits whether it goes alone or with 15 others.
-// The model is int4_matmul.cu's decode kernel (section w4d there).
+// 16: x is the A operand of mma.sync (16 token rows, those past M zero), so a
+// row's output is the same bits whether it goes alone or with 15 others. The
+// model is int4_matmul.cu's decode kernel (section w4d there).
 //
 // Four warps a block, each on its own 32 weight columns. A block owns 128 weight
 // columns and a K split of whole 64-row stages, and walks it through a ring of
 // STAGES slots filled by cp.async, all but one in flight. A stage holds the x
-// tile (16 rows of 128 bytes, swizzled: ldmatrix reads it without conflicts) and
-// the weight bytes (64 rows of the block's 128 columns, 144 bytes apart, so that
-// rows 2 tig + d of a warp's read fall in distinct banks), all in 16-byte copies.
-// The thread (gid, tig) of warp w reads the 32-bit words of rows 16 p + 2 tig +
-// (0, 1, 8, 9) at columns 32 w + 4 gid .. + 3: byte t of the first two words is
-// the (k, k + 1) pair of column 32 w + 4 gid + t, its B register b0 for column
-// gid of n-tile t, the other two words give b1 (the columns are relabelled, no
-// data is shuffled). A register is pair_bf16: one byte permute, two logic
-// operations and one bf16x2 addition, exact, with its four constants held in
-// registers. Its accumulator element (n-tile t, column 2 tig + e) is weight
-// column 32 w + 8 tig + 4 e + t: the eight columns 32 w + 8 tig .. + 7 of tokens
-// gid and gid + 8 leave as 16-byte stores.
+// tile (16 rows, swizzled: ldmatrix reads it without conflicts) and the weight
+// bytes (64 rows of the block's 128 columns), all in 16-byte copies. The thread
+// (gid, tig) of warp w reads 32-bit words of weight rows at columns 32 w + 4 gid
+// .. + 3; byte t of a word is column 32 w + 4 gid + t, which is column gid of its
+// n-tile t (the columns are relabelled, no data is shuffled). Its accumulator
+// element (n-tile t, column 2 tig + e) is weight column 32 w + 8 tig + 4 e + t:
+// the eight columns 32 w + 8 tig .. + 7 of tokens gid and gid + 8 leave as 16-byte
+// stores. Two operand types, one kernel (A8):
+//   * bf16 x, weight-only: m16n8k16 bf16 into f32, x rows of 128 bytes in the
+//     128-byte swizzle, weight rows 144 bytes apart (rows 2 tig + d of a warp's
+//     read fall in distinct banks). The thread reads rows 16 p + 2 tig + (0, 1, 8,
+//     9): byte t of the first two words is the (k, k + 1) pair of its n-tile t,
+//     the register b0, the other two words give b1. A register is pair_bf16: one
+//     byte permute, two logic operations and one bf16x2 addition, exact, with its
+//     four constants held in registers.
+//   * int8 x (xq, sx from csrc/quantize_rows.cu): m16n8k32 s8 into exact int32
+//     sums, x rows of 64 bytes in the 64-byte swizzle, weight rows 128 bytes apart
+//     with their chunks swizzled (a8_weight_chunk). The thread reads rows 32 p +
+//     4 tig + d and 32 p + 16 + 4 tig + d (d = 0 .. 3): byte t of the four words
+//     of each group, transposed (byte_columns), is its b0 and b1 of n-tile t, with
+//     no conversion.
 //
-// One f32 accumulator set over the split; the wait for a stage carries no proxy
-// fence (copies_landed). With one split the epilogue multiplies by the column
-// scale and rounds once; otherwise each split writes its f32 sums and
-// splitk_reduce adds them in split order, then scales and rounds.
+// One accumulator set over the split; the wait for a stage carries no proxy fence
+// (copies_landed). With one split the epilogue multiplies by the column scale (and
+// for int8 x the row scale sx, after the int32 sum is made f32 once) and rounds
+// once; otherwise each split writes its f32 sums and splitk_reduce adds them in
+// split order, then scales and rounds.
 //
 // What bounds it (NVIDIA H100 80GB HBM3, 700 W): the weight bytes, and how
-// evenly a grid of short blocks fills 132 SMs. With the conversion and the
-// products switched off the copies alone were only 5-10% faster; what moved the
-// time was the blocks an SM holds against the grid. Three slots (two stages in
-// flight, six blocks an SM) were the fastest for a layer's products, whose
-// grids the plan keeps within one round; a grid of more than a round of six (the
-// lm_head's 1,188 blocks: one and a half rounds) takes six slots and three
-// blocks an SM, three even rounds. Ring depths 4 and 5 (five and four blocks an
-// SM) and two blocks an SM were slower; the 256-byte L2 prefetch hint on the
-// weight copies was a little faster.
+// evenly a grid of short blocks fills 132 SMs. For bf16 x, with the conversion
+// and the products switched off the copies alone were only 5-10% faster; what
+// moved the time was the blocks an SM holds against the grid. Three slots (two
+// stages in flight, six blocks an SM) were the fastest for a layer's products,
+// whose grids the plan keeps within one round; a grid of more than a round (the
+// lm_head's 1,188 blocks) takes the ring that holds three blocks an SM (six slots
+// for bf16 x, eight for int8 x, whose slots are smaller), three even rounds. Ring
+// depths 4 and 5 (five and four blocks an SM) and two blocks an SM were slower;
+// the 256-byte L2 prefetch hint on the weight copies was a little faster.
 namespace w8d {
 
 using namespace wg;
@@ -607,15 +724,25 @@ constexpr int kThreads = 128;                 // four warps, 32 weight columns e
 constexpr int kBN = 128;                      // weight columns per block
 constexpr int kTM = 16;                       // token rows, the A operand's 16
 constexpr int kKS = 64;                       // contraction depth of a stage
-constexpr int kWRow = kBN + 16;               // bytes from one weight row of a stage to the next
-constexpr int kXBytes = kTM * 128;
-constexpr int kWBytes = kKS * kWRow;
-constexpr int kStage = kXBytes + kWBytes;     // 11264: a multiple of 128
 
-// a ring of STAGES slots, and the blocks an SM holds with it (each costs 1 KB more)
-__host__ __device__ constexpr int smem_bytes(int stages) { return stages * kStage; }
-__host__ __device__ constexpr int blocks_per_sm(int stages) {
-  return w8::kSmemPerSm / (smem_bytes(stages) + 1024);
+// a ring slot: the x tile and the weight rows (bf16 x: 11264 bytes, int8 x: 9216)
+template <bool A8> struct Slot {
+  static constexpr int kXRow = A8 ? 64 : 128;
+  static constexpr int kWRow = A8 ? 128 : kBN + 16;
+  static constexpr int kXBytes = kTM * kXRow;
+  static constexpr int kBytes = kXBytes + kKS * kWRow;
+};
+
+// a ring of STAGES slots, and the blocks an SM holds with it (each costs 1 KB more);
+// the kernel is compiled for at most six (its registers then fit)
+template <bool A8> __host__ __device__ constexpr int smem_bytes(int stages) {
+  return stages * Slot<A8>::kBytes;
+}
+template <bool A8> __host__ __device__ constexpr int blocks_per_sm(int stages) {
+  return w8::kSmemPerSm / (smem_bytes<A8>(stages) + 1024);
+}
+template <bool A8> __host__ __device__ constexpr int min_blocks(int stages) {
+  return blocks_per_sm<A8>(stages) < 6 ? blocks_per_sm<A8>(stages) : 6;
 }
 
 // 16 bytes global -> shared, asynchronously, with the 256-byte L2 prefetch hint;
@@ -641,12 +768,15 @@ __device__ __forceinline__ uint32_t pair_bf16(uint32_t a, uint32_t b, uint32_t m
   return as_u32(__hadd2(as_bf162(low), as_bf162(high)));
 }
 
-template <int STAGES>
-__global__ void __launch_bounds__(kThreads, blocks_per_sm(STAGES))
-int8_mm_decode_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
+template <bool A8, int STAGES>
+__global__ void __launch_bounds__(kThreads, min_blocks<A8>(STAGES))
+int8_mm_decode_kernel(const typename w8::Operand<A8>::X* __restrict__ x,
+                      const float* __restrict__ sx, const int8_t* __restrict__ w,
                       const float* __restrict__ scale, bf16* __restrict__ y,
                       float* __restrict__ ws, int M, int K, int N, int stages_per_split,
                       int splits) {
+  using S = Slot<A8>;
+  constexpr int kStage = S::kBytes, kXBytes = S::kXBytes, kWRow = S::kWRow;
   extern __shared__ __align__(128) unsigned char smem_w8d[];
   const uint32_t ring_a = smem_addr(smem_w8d);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gid = lane >> 2, tig = lane & 3;
@@ -658,8 +788,8 @@ int8_mm_decode_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
   // this thread's share of a stage's copies, as running sources: one chunk of the
   // x tile (rows past M are zeros) and four 16-byte chunks of the weight bytes
   // (row idx / 8, columns 16 (idx % 8) ..)
-  const RowsCopy<kTM> copy_x(static_cast<size_t>(K));
-  const bf16* xsrc = x + kbeg;
+  const std::conditional_t<A8, Rows64Copy<kTM>, RowsCopy<kTM>> copy_x(static_cast<size_t>(K));
+  const typename w8::Operand<A8>::X* xsrc = x + kbeg;
   const int8_t* wsrc[4];
   uint32_t wdst[4];
   bool wok[4];
@@ -668,7 +798,7 @@ int8_mm_decode_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
     const int idx = tid + c * kThreads, row = idx >> 3, col = n0 + (idx & 7) * 16;
     wok[c] = col < N;
     wsrc[c] = w + static_cast<size_t>(kbeg + row) * N + (wok[c] ? col : 0);
-    wdst[c] = kXBytes + row * kWRow + (idx & 7) * 16;
+    wdst[c] = kXBytes + row * kWRow + w8::weight_chunk<A8>(row, idx & 7) * 16;
   }
   const size_t wstep = static_cast<size_t>(kKS) * N;
   int lslot = 0, lstage = 0;   // the next load: its slot and stage
@@ -686,25 +816,56 @@ int8_mm_decode_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
     ++lstage;
     lslot = lslot == STAGES - 1 ? 0 : lslot + 1;
   };
-  // weight row 2 tig of a stage at its four columns; the row of the x tile that
-  // this lane names to ldmatrix (matrix lane / 8: token rows 8 (lane / 8 % 2) ..,
-  // k 8 (lane / 16) .. of a piece)
-  const int w_off = kXBytes + 2 * tig * kWRow + (32 * warp + 4 * gid);
+  // weight row 2 tig (int8: 4 tig, its chunks swizzled by tig) of a stage at its
+  // four columns; the row of the x tile that this lane names to ldmatrix (matrix
+  // lane / 8: token rows 8 (lane / 8 % 2) .., the second 16 bytes of a piece
+  // from lane 16)
+  const int w_off = A8 ? kXBytes + 4 * tig * kWRow + 4 * ((8 * warp + gid) ^ (8 * tig))
+                       : kXBytes + 2 * tig * kWRow + (32 * warp + 4 * gid);
   const int xr = (lane & 7) + ((lane >> 3) & 1) * 8;
-  uint32_t x_off[4];   // the piece's 16-byte chunk of that row, swizzled
+  constexpr int P = A8 ? 2 : 4;   // pieces of a stage: 32 deep (int8) or 16 (bf16)
+  uint32_t x_off[P];   // the piece's 16-byte chunk of that row, swizzled
 #pragma unroll
-  for (int p = 0; p < 4; ++p) x_off[p] = xr * 128 + (((2 * p + (lane >> 4)) ^ (xr & 7)) << 4);
+  for (int p = 0; p < P; ++p)
+    x_off[p] = A8 ? xr * 64 + (((2 * p + (lane >> 4)) ^ ((xr >> 1) & 3)) << 4)
+                  : xr * 128 + (((2 * p + (lane >> 4)) ^ (xr & 7)) << 4);
 
-  float acc[4][4];
+  typename w8::Operand<A8>::Acc acc[4][4];
 #pragma unroll
   for (int t = 0; t < 4; ++t)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
-  const uint32_t m7f = pinned(0x007F007Fu), m43 = pinned(0x43004300u);
-  const uint32_t m80 = pinned(0x00800080u), mc3 = pinned(0xC300C300u);
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0;
+  uint32_t m7f = 0, m43 = 0, m80 = 0, mc3 = 0;
+  if constexpr (!A8) {
+    m7f = pinned(0x007F007Fu), m43 = pinned(0x43004300u);
+    m80 = pinned(0x00800080u), mc3 = pinned(0xC300C300u);
+  }
 
+  if constexpr (A8) {
+    // the weight bytes of the first stages do not depend on the quantiser ahead of
+    // this kernel: in flight before waiting for its xq and sx
 #pragma unroll
-  for (int i = 0; i < STAGES - 1; ++i) load();
+    for (int i = 0; i < STAGES - 1; ++i) {
+      if (i < nst) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          cp_async16_l2(ring_a + i * kStage + wdst[c], wsrc[c] + i * wstep, wok[c]);
+      }
+    }
+    wait_prior_grid();
+#pragma unroll
+    for (int i = 0; i < STAGES - 1; ++i) {
+      if (i < nst) copy_x(ring_a + i * kStage, xsrc + i * kKS, M);
+      cp_async_commit();
+    }
+    xsrc += (STAGES - 1) * kKS;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) wsrc[c] += (STAGES - 1) * wstep;
+    lstage = lslot = STAGES - 1;
+  } else {
+#pragma unroll
+    for (int i = 0; i < STAGES - 1; ++i) load();
+  }
   int slot = 0;   // of the stage being multiplied
   for (int i = 0; i < nst; ++i) {
     copies_landed<STAGES - 2>();   // this stage has landed
@@ -713,26 +874,36 @@ int8_mm_decode_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
     const unsigned char* st = smem_w8d + slot * kStage + w_off;
     const uint32_t sa = ring_a + slot * kStage;
     slot = slot == STAGES - 1 ? 0 : slot + 1;
-    uint32_t wq[4][4];   // piece p: rows 16 p + 2 tig + (0, 1, 8, 9)
+    uint32_t wq[4][4];   // rows past w_off's: 16 p + d (int8), 16 p + (0, 1, 8, 9)[d] (bf16)
 #pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      wq[p][0] = lds32(st + (16 * p) * kWRow);
-      wq[p][1] = lds32(st + (16 * p + 1) * kWRow);
-      wq[p][2] = lds32(st + (16 * p + 8) * kWRow);
-      wq[p][3] = lds32(st + (16 * p + 9) * kWRow);
-    }
+    for (int p = 0; p < 4; ++p)
 #pragma unroll
-    for (int p = 0; p < 4; ++p) {
+      for (int d = 0; d < 4; ++d)
+        wq[p][d] = lds32(st + (A8 ? 16 * p + d : 16 * p + (d & 1) + 8 * (d >> 1)) * kWRow);
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
       uint32_t a[4];
       ldmatrix_x4(a, sa + x_off[p]);
-      mma_bf16(acc[0], a, pair_bf16<0>(wq[p][0], wq[p][1], m7f, m43, m80, mc3),
-               pair_bf16<0>(wq[p][2], wq[p][3], m7f, m43, m80, mc3));
-      mma_bf16(acc[1], a, pair_bf16<1>(wq[p][0], wq[p][1], m7f, m43, m80, mc3),
-               pair_bf16<1>(wq[p][2], wq[p][3], m7f, m43, m80, mc3));
-      mma_bf16(acc[2], a, pair_bf16<2>(wq[p][0], wq[p][1], m7f, m43, m80, mc3),
-               pair_bf16<2>(wq[p][2], wq[p][3], m7f, m43, m80, mc3));
-      mma_bf16(acc[3], a, pair_bf16<3>(wq[p][0], wq[p][1], m7f, m43, m80, mc3),
-               pair_bf16<3>(wq[p][2], wq[p][3], m7f, m43, m80, mc3));
+      if constexpr (A8) {
+        uint32_t b0[4], b1[4];   // n-tile t: k 4 tig .. + 3, and 16 + 4 tig .. + 3
+        byte_columns<0>(b0[0], b0[1], wq[2 * p][0], wq[2 * p][1], wq[2 * p][2], wq[2 * p][3]);
+        byte_columns<1>(b0[2], b0[3], wq[2 * p][0], wq[2 * p][1], wq[2 * p][2], wq[2 * p][3]);
+        byte_columns<0>(b1[0], b1[1], wq[2 * p + 1][0], wq[2 * p + 1][1], wq[2 * p + 1][2],
+                        wq[2 * p + 1][3]);
+        byte_columns<1>(b1[2], b1[3], wq[2 * p + 1][0], wq[2 * p + 1][1], wq[2 * p + 1][2],
+                        wq[2 * p + 1][3]);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) mma_s8(acc[t], a, b0[t], b1[t]);
+      } else {
+        mma_bf16(acc[0], a, pair_bf16<0>(wq[p][0], wq[p][1], m7f, m43, m80, mc3),
+                 pair_bf16<0>(wq[p][2], wq[p][3], m7f, m43, m80, mc3));
+        mma_bf16(acc[1], a, pair_bf16<1>(wq[p][0], wq[p][1], m7f, m43, m80, mc3),
+                 pair_bf16<1>(wq[p][2], wq[p][3], m7f, m43, m80, mc3));
+        mma_bf16(acc[2], a, pair_bf16<2>(wq[p][0], wq[p][1], m7f, m43, m80, mc3),
+                 pair_bf16<2>(wq[p][2], wq[p][3], m7f, m43, m80, mc3));
+        mma_bf16(acc[3], a, pair_bf16<3>(wq[p][0], wq[p][1], m7f, m43, m80, mc3),
+                 pair_bf16<3>(wq[p][2], wq[p][3], m7f, m43, m80, mc3));
+      }
     }
   }
 
@@ -753,16 +924,23 @@ int8_mm_decode_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
     float v[8];
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
-      v[t] = acc[t][2 * h];
-      v[4 + t] = acc[t][2 * h + 1];
+      v[t] = static_cast<float>(acc[t][2 * h]);
+      v[4 + t] = static_cast<float>(acc[t][2 * h + 1]);
     }
     if (splits == 1) {
-      uint32_t o[4];
+      float o[8];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        o[i] = as_u32(__floats2bfloat162_rn(v[2 * i] * sc[2 * i], v[2 * i + 1] * sc[2 * i + 1]));
+      for (int i = 0; i < 8; ++i) o[i] = v[i] * sc[i];
+      if constexpr (A8) {
+        const float s = sx[m];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) o[i] *= s;
+      }
+      uint32_t q[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) q[i] = as_u32(__floats2bfloat162_rn(o[2 * i], o[2 * i + 1]));
       *reinterpret_cast<uint4*>(y + static_cast<size_t>(m) * N + nc) =
-          make_uint4(o[0], o[1], o[2], o[3]);
+          make_uint4(q[0], q[1], q[2], q[3]);
     } else {
       float4* o =
           reinterpret_cast<float4*>(ws + (static_cast<size_t>(blockIdx.y) * M + m) * N + nc);
@@ -772,29 +950,38 @@ int8_mm_decode_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
-template <int STAGES>
-cudaError_t launch_ring(const void* x, const void* w, const void* scale, void* y, float* ws, int M,
-                        int K, int N, int splits, cudaStream_t st) {
-  cudaError_t err = allow_smem(int8_mm_decode_kernel<STAGES>, smem_bytes(STAGES));
+template <bool A8, int STAGES>
+cudaError_t launch_ring(const void* x, const float* sx, const void* w, const void* scale, void* y,
+                        float* ws, int M, int K, int N, int splits, cudaStream_t st) {
+  cudaError_t err = allow_smem(int8_mm_decode_kernel<A8, STAGES>, smem_bytes<A8>(STAGES));
   if (err != cudaSuccess) return err;
   // whole stages a split; a split past K writes zeros
   const int sps = (K / kKS + splits - 1) / splits;
   const dim3 grid((N + kBN - 1) / kBN, splits);
-  int8_mm_decode_kernel<STAGES><<<grid, kThreads, smem_bytes(STAGES), st>>>(
-      static_cast<const bf16*>(x), static_cast<const int8_t*>(w), static_cast<const float*>(scale),
-      static_cast<bf16*>(y), ws, M, K, N, sps, splits);
+  const auto* xp = static_cast<const typename w8::Operand<A8>::X*>(x);
+  const auto* wp = static_cast<const int8_t*>(w);
+  const auto* sp = static_cast<const float*>(scale);
+  if constexpr (A8)   // starts while the quantiser ahead of it runs
+    return launch_after_prior_grid(int8_mm_decode_kernel<A8, STAGES>, grid, dim3(kThreads),
+                                   smem_bytes<A8>(STAGES), st, xp, sx, wp, sp,
+                                   static_cast<bf16*>(y), ws, M, K, N, sps, splits);
+  int8_mm_decode_kernel<A8, STAGES><<<grid, kThreads, smem_bytes<A8>(STAGES), st>>>(
+      xp, sx, wp, sp, static_cast<bf16*>(y), ws, M, K, N, sps, splits);
   return cudaGetLastError();
 }
 
-// stages: the ring's slots, 3 (six blocks an SM) or 6 (three)
-cudaError_t launch(const void* x, const void* w, const void* scale, void* y, float* ws, int M,
-                   int K, int N, int splits, int stages, cudaStream_t st) {
+// the ring's slots: 3 (six blocks an SM) or, for grids of more than a round, the
+// ring that holds three blocks an SM: 6 with bf16 x, 8 with int8 x
+constexpr int big_ring(bool a8) { return a8 ? 8 : 6; }
+
+template <bool A8>
+cudaError_t launch(const void* x, const float* sx, const void* w, const void* scale, void* y,
+                   float* ws, int M, int K, int N, int splits, int stages, cudaStream_t st) {
   if (M > kTM || K % kKS != 0 || N % 16 != 0 || splits > 65535) return cudaErrorInvalidValue;
-  switch (stages) {
-    case 3: return launch_ring<3>(x, w, scale, y, ws, M, K, N, splits, st);
-    case 6: return launch_ring<6>(x, w, scale, y, ws, M, K, N, splits, st);
-    default: return cudaErrorInvalidValue;
-  }
+  if (stages == 3) return launch_ring<A8, 3>(x, sx, w, scale, y, ws, M, K, N, splits, st);
+  if (stages == big_ring(A8))
+    return launch_ring<A8, big_ring(A8)>(x, sx, w, scale, y, ws, M, K, N, splits, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace w8d
@@ -842,6 +1029,21 @@ cudaError_t launch(const void* x, const float* sx, const void* w, const void* sc
   return launch_splitk_reduce<Y>(wsf, sc, sx, yp, M, N, splits, st);
 }
 
+// the tensor-core paths of either operand type (bf16 output), then the sum of the splits
+template <bool A8>
+cudaError_t launch_hopper(const void* x, const float* sx, const void* w, const void* scale,
+                          void* y, void* workspace, int M, int K, int N, int splits, int path,
+                          int tile, cudaStream_t st) {
+  float* wsf = static_cast<float*>(workspace);
+  cudaError_t err = path == kWgmma
+                        ? w8::launch<A8>(x, sx, w, scale, y, wsf, M, K, N, splits, tile, st)
+                        : w8d::launch<A8>(x, sx, w, scale, y, wsf, M, K, N, splits, tile, st);
+  if (err == cudaSuccess && splits > 1)
+    err = launch_splitk_reduce<__nv_bfloat16>(wsf, static_cast<const float*>(scale), sx,
+                                              static_cast<__nv_bfloat16*>(y), M, N, splits, st);
+  return err;
+}
+
 }  // namespace
 
 // path: 0 scalar CUDA-core loads, 1 16-byte CUDA-core loads (N % 16 == 0,
@@ -859,13 +1061,8 @@ extern "C" int aha_int8_matmul(const void* x, const void* w, const void* scale, 
     return static_cast<int>(cudaErrorInvalidValue);
   if (path == kWgmma || path == kDecode) {
     if (x_dtype != AHA_BF16) return static_cast<int>(cudaErrorInvalidValue);
-    float* wsf = static_cast<float*>(workspace);
-    cudaError_t err = path == kWgmma ? w8::launch(x, w, scale, y, wsf, M, K, N, splits, tile, st)
-                                     : w8d::launch(x, w, scale, y, wsf, M, K, N, splits, tile, st);
-    if (err == cudaSuccess && splits > 1)
-      err = launch_splitk_reduce<__nv_bfloat16>(wsf, static_cast<const float*>(scale), nullptr,
-                                                static_cast<__nv_bfloat16*>(y), M, N, splits, st);
-    return static_cast<int>(err);
+    return static_cast<int>(launch_hopper<false>(x, nullptr, w, scale, y, workspace, M, K, N,
+                                                 splits, path, tile, st));
   }
   if (x_dtype == AHA_F32 && path != kTensorCore)
     return static_cast<int>(launch<float, float>(x, nullptr, w, scale, y, workspace, M, K, N,
@@ -877,26 +1074,39 @@ extern "C" int aha_int8_matmul(const void* x, const void* w, const void* scale, 
 }
 
 // bytes of dynamic shared memory the wgmma path asks for at token tile `tile`
-// (-1: no such tile); the wrapper's plan computes the same number
-extern "C" int aha_int8_matmul_wgmma_smem(int tile) { return w8::smem_of(tile); }
+// with bf16 x (a8 = 0) or int8 x (a8 = 1); -1: no such tile. The wrapper's plan
+// computes the same number
+extern "C" int aha_int8_matmul_wgmma_smem(int tile, int a8) { return w8::smem_of(tile, a8 != 0); }
 
 // bytes of dynamic shared memory the decode path asks for with a ring of `slots`
 // (-1: no such ring); the wrapper's plan computes the same number
-extern "C" int aha_int8_matmul_decode_smem(int slots) {
-  return slots == 3 || slots == 6 ? w8d::smem_bytes(slots) : -1;
+extern "C" int aha_int8_matmul_decode_smem(int slots, int a8) {
+  if (slots == 3) return a8 ? w8d::smem_bytes<true>(3) : w8d::smem_bytes<false>(3);
+  if (slots == w8d::big_ring(a8 != 0))
+    return a8 ? w8d::smem_bytes<true>(slots) : w8d::smem_bytes<false>(slots);
+  return -1;
 }
 
 // int8 activations xq [M, K] with per-row scales sx [M] (csrc/quantize_rows.cu);
-// y_dtype is the output's type. path 2 here needs M > 1, K % 32 == 0,
-// N % 8 == 0, xq 16-byte and weight 8-byte aligned, whatever y_dtype.
+// y_dtype is the output's type. Paths 3 (wgmma, from 17 rows; tile: the token
+// tile, 24, 32 or a multiple of 16 up to 128) and 4 (decode rows; tile: the
+// ring's slots, 3 or 8) take a bf16 output, K % 64 == 0, N % 16 == 0 and 16-byte
+// aligned operands; path 2 (mma.sync) M > 1, K % 32 == 0, N % 8 == 0, xq 16-byte
+// and weight 8-byte aligned, whatever y_dtype; 0 and 1 the CUDA cores.
 extern "C" int aha_int8_matmul_a8(const void* xq, const void* sx, const void* w,
                                   const void* scale, void* y, void* workspace, int M, int K,
-                                  int N, int y_dtype, int splits, int path, void* stream) {
+                                  int N, int y_dtype, int splits, int path, int tile,
+                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M <= 0 || N <= 0 || K <= 0 || splits < 1 || sx == nullptr ||
       (splits > 1 && workspace == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const float* sxf = static_cast<const float*>(sx);
+  if (path == kWgmma || path == kDecode) {
+    if (y_dtype != AHA_BF16) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(launch_hopper<true>(xq, sxf, w, scale, y, workspace, M, K, N,
+                                                splits, path, tile, st));
+  }
   if (y_dtype == AHA_F32)
     return static_cast<int>(launch<int8_t, float>(xq, sxf, w, scale, y, workspace, M, K, N,
                                                   splits, path, st));

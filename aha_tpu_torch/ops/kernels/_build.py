@@ -105,11 +105,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.aha_int8_matmul.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, P]
     lib.aha_int8_matmul.restype = I
-    lib.aha_int8_matmul_wgmma_smem.argtypes = [I]
+    lib.aha_int8_matmul_wgmma_smem.argtypes = [I, I]
     lib.aha_int8_matmul_wgmma_smem.restype = I
-    lib.aha_int8_matmul_decode_smem.argtypes = [I]
+    lib.aha_int8_matmul_decode_smem.argtypes = [I, I]
     lib.aha_int8_matmul_decode_smem.restype = I
-    lib.aha_int8_matmul_a8.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, P]
+    lib.aha_int8_matmul_a8.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, P]
     lib.aha_int8_matmul_a8.restype = I
     lib.aha_int4_matmul.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P]
     lib.aha_int4_matmul.restype = I

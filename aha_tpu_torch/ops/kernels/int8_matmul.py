@@ -11,9 +11,9 @@ function as ``a8=False`` on an unstacked weight: it launches the same kernel
 and keeps a launch count of its own. A stacked weight's layer is passed as
 the view ``qvalue[l]``; no index is needed. ``plan`` chooses the kernel's
 path, token tile, ring and K splits from the shapes alone, so the CPU tests
-hold it: bf16 weight-only at 1 to 16 rows the decode kernel (one launch
-whatever M, so a row gives the same bits at every width), from 17 rows the
-wgmma kernel, the rest the earlier paths.
+hold it: bf16 weight-only, and int8 activations with a bf16 output, at 1 to 16
+rows the decode kernel (one launch whatever M, so a row gives the same bits at
+every width), from 17 rows the wgmma kernel, the rest the earlier paths.
 
 On a CPU tensor the plain version runs; on a CUDA tensor the kernel
 launches, or the call raises.
@@ -61,12 +61,20 @@ def num_sms(index: int) -> int:
 # the kernel's paths (csrc/int8_matmul.cu; int4_matmul.cu and int4_matmul_t.cu
 # number theirs alike)
 SCALAR, VEC16, TENSOR_CORE, WGMMA, DECODE = 0, 1, 2, 3, 4
-DECODE_MAX_M = 16        # rows up to which the bf16 product takes DECODE: x is mma.sync's 16-row A
+DECODE_MAX_M = 16        # rows up to which the product takes DECODE: x is mma.sync's 16-row A
 WGMMA_MIN_M = DECODE_MAX_M + 1   # rows from which it takes WGMMA
 WGMMA_TILE_CAP = 128     # rows of its token tile at most (two accumulator slabs of 64 registers)
-_W_STAGE = 64 * 144      # bytes of a stage's weight rows (64 of 128 columns, 144 apart)
+# the widths the s8 warpgroup product takes from 17 rows (m64nNk32: 24, 32, then multiples of 16)
+WGMMA_A8_TILES = (24, 32, 48, 64, 80, 96, 112, 128)
+# bytes of a stage's weight rows (64 of 128 columns): 144 apart for bf16 x, 128 apart
+# (chunks swizzled) for int8 x
+_W_STAGE = {False: 64 * 144, True: 64 * 128}
+_X_ROW = {False: 128, True: 64}   # bytes of a row of 64 x values in a stage
 SMEM_PER_SM = 233472     # 228 KB; each resident block also takes 1 KB of it
-DECODE_SLOT = 16 * 128 + _W_STAGE   # bytes of a decode ring slot: the x tile and the weight rows
+# bytes of a decode ring slot: the x tile (16 rows) and the weight rows
+DECODE_SLOTS = {a8: 16 * _X_ROW[a8] + _W_STAGE[a8] for a8 in (False, True)}
+# the decode ring for grids of more than one round: the one that holds three blocks an SM
+DECODE_BIG_RING = {False: 6, True: 8}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,14 +92,18 @@ class Plan:
     smem_bytes: int = 0
 
 
-def token_tile(M: int, cap: int) -> tuple[int, int]:
+def token_tile(M: int, cap: int, widths: tuple[int, ...] | None = None) -> tuple[int, int]:
     """M rows in as few tiles of at most ``cap`` rows as cover them, evened out
-    and rounded up to the 8 rows a warpgroup product's width moves in:
-    (rows per tile, tiles). 926 rows under a cap of 80 are 12 tiles of 80, under
-    128 8 tiles of 120; 196 rows under 80 are 3 tiles of 72."""
+    and rounded up to the 8 rows a warpgroup product's width moves in, or to the
+    next of ``widths`` where the product takes only those: (rows per tile,
+    tiles). 926 rows under a cap of 80 are 12 tiles of 80, under 128 8 tiles of
+    120; 196 rows under 80 are 3 tiles of 72, under 128 in the s8 widths 2 tiles
+    of 112."""
     tiles = -(-M // cap)
     rows = -(-M // tiles)
     tile = 8 * -(-rows // 8)
+    if widths is not None:
+        tile = min(w for w in widths if w >= tile)
     return tile, -(-M // tile)
 
 
@@ -110,12 +122,13 @@ def blocks_per_sm(tile: int) -> int:
     return 3 if tile <= 64 else 2
 
 
-def wgmma_ring(tile: int) -> tuple[int, int]:
+def wgmma_ring(tile: int, a8: bool = False) -> tuple[int, int]:
     """(slots, shared memory bytes) of the wgmma kernel's ring at token tile
-    ``tile``: a slot is the x tile (``tile`` rows of 128 bytes) and the weight
-    rows; six slots, fewer where the SM's blocks would not fit; 1 KB to align
-    the tiles. The kernel computes the same (``aha_int8_matmul_wgmma_smem``)."""
-    stage = tile * 128 + _W_STAGE
+    ``tile``: a slot is the x tile (``tile`` rows of 128 bytes, 64 for int8 x)
+    and the weight rows; six slots, fewer where the SM's blocks would not fit;
+    1 KB to align the tiles. The kernel computes the same
+    (``aha_int8_matmul_wgmma_smem``)."""
+    stage = tile * _X_ROW[a8] + _W_STAGE[a8]
     stages = min(6, (SMEM_PER_SM // blocks_per_sm(tile) - 2048) // stage)
     return stages, stages * stage + 1024
 
@@ -130,13 +143,15 @@ def wgmma_splits(places: int, blocks: int, stages: int) -> int:
     return max(1, min(places // blocks, stages // 8, 64))
 
 
-def decode_blocks_per_sm(slots: int) -> int:
-    """Blocks of the decode kernel an SM holds with a ring of ``slots`` (each
-    block costs 1 KB of shared memory besides): six with 3, three with 6."""
-    return SMEM_PER_SM // (slots * DECODE_SLOT + 1024)
+def decode_blocks_per_sm(slots: int, a8: bool = False) -> int:
+    """Blocks of the decode kernel an SM is sure to hold with a ring of
+    ``slots`` (each block costs 1 KB of shared memory besides; the kernel is
+    compiled for six at most): six with 3 slots, three with the big ring (6
+    slots for bf16 x, 8 for int8 x)."""
+    return min(6, SMEM_PER_SM // (slots * DECODE_SLOTS[a8] + 1024))
 
 
-def decode_launch(sms: int, N: int, stages: int) -> tuple[int, int]:
+def decode_launch(sms: int, N: int, stages: int, a8: bool = False) -> tuple[int, int]:
     """(ring slots, K splits) of the decode kernel for a weight of N columns and
     ``stages`` 64-row stages, from the shape of W alone (never from M: a row
     gives the same bits at any M up to 16). Its blocks are short and the bytes
@@ -145,14 +160,14 @@ def decode_launch(sms: int, N: int, stages: int) -> tuple[int, int]:
     SM, evened out over the stages (qkv's 36 blocks in 7 splits, o's 28 in 8,
     down's 28 in 9); gate_up's 296 are not split. These run in one round of
     six blocks an SM behind a ring of three slots. A grid larger than that round
-    (the lm_head's 1,188 blocks) takes six slots and three blocks an SM: three
-    even rounds. On an H100 each choice was the fastest of those tried at 1, 8
-    and 16 rows, or within 1% of it (splits 4-14 for qkv and o, 1-8 for
-    gate_up, 4-37 for down, 1-2 for the lm_head; rings of 3, 4, 5, 6 and 8
-    slots)."""
+    (the lm_head's 1,188 blocks) takes the ring that holds three blocks an SM
+    (six slots, eight for int8 x): three even rounds. The same for int8 x. On an
+    H100 each choice was the fastest of those tried for bf16 x at 1, 8 and 16
+    rows, or within 1% of it (splits 4-14 for qkv and o, 1-8 for gate_up, 4-37
+    for down, 1-2 for the lm_head; rings of 3, 4, 5, 6 and 8 slots)."""
     blocks = -(-N // 128)
-    if blocks > decode_blocks_per_sm(3) * sms:
-        return 6, 1
+    if blocks > decode_blocks_per_sm(3, a8) * sms:
+        return DECODE_BIG_RING[a8], 1
     two = 2 * sms
     if blocks >= two:
         return 3, 1
@@ -183,18 +198,21 @@ def fwd_row_to_column(row: int) -> int:
 def plan(M: int, K: int, N: int, *, bf16: bool, a8: bool = False,
          align: tuple[int, int, int] = (16, 16, 16), sms: int = 132) -> Plan:
     """The launch of ``int8_matmul`` / ``quant_matmul`` on a card of ``sms``
-    SMs for x [M, K] (bf16 or f32; ``a8``: quantised to int8 first), qvalue
-    [K, N] and scale [N] whose addresses are multiples of ``align`` bytes. Pure
-    (no card is asked) and remembered: a path's shapes recur with every pass."""
+    SMs for x [M, K] (bf16 or f32, the output's type; ``a8``: quantised to int8
+    first), qvalue [K, N] and scale [N] whose addresses (x's: the quantised x's
+    with ``a8``) are multiples of ``align`` bytes. The two Hopper paths take a
+    bf16 output, K % 64 == 0, N % 16 == 0 and 16-byte aligned operands, with
+    either operand type under the same conditions. Pure (no card is asked) and
+    remembered: a path's shapes recur with every pass."""
     ax, aw, asc = align
-    tensor_cores = (bf16 and not a8 and K % 64 == 0 and N % 16 == 0
+    tensor_cores = (bf16 and K % 64 == 0 and N % 16 == 0
                     and ax % 16 == 0 and aw % 16 == 0 and asc % 16 == 0)
     if tensor_cores and M <= DECODE_MAX_M:
-        slots, splits = decode_launch(sms, N, K // 64)
-        return Plan(DECODE, splits, 16, 1, slots, slots * DECODE_SLOT)
+        slots, splits = decode_launch(sms, N, K // 64, a8)
+        return Plan(DECODE, splits, 16, 1, slots, slots * DECODE_SLOTS[a8])
     if tensor_cores:
-        tile, tiles = token_tile(M, WGMMA_TILE_CAP)
-        stages, smem = wgmma_ring(tile)
+        tile, tiles = token_tile(M, WGMMA_TILE_CAP, WGMMA_A8_TILES if a8 else None)
+        stages, smem = wgmma_ring(tile, a8)
         splits = wgmma_splits(blocks_per_sm(tile) * sms, tiles * -(-N // 128), K // 64)
         return Plan(WGMMA, splits, tile, tiles, stages, smem)
     if (a8 or bf16) and M > 1 and K % 32 == 0 and N % 8 == 0 and ax % 16 == 0 and aw % 8 == 0:
@@ -255,11 +273,18 @@ def launch_plan(x2: torch.Tensor, sx: torch.Tensor | None, qvalue: torch.Tensor,
     """Launch the kernel into ``y`` [M, N] along ``pl`` (x2 [M, K] bf16 / f32, or
     int8 with its row scales ``sx``), checked by the wrappers. Not counted:
     ``chip_smoke.py`` also times here the kernels a plan no longer picks. Raises
-    on a tensor-core plan the kernel would refuse."""
+    on a Hopper plan the kernels would refuse."""
     M, K = x2.shape
     N = qvalue.shape[1]
-    if pl.path in (WGMMA, DECODE) and (sx is not None or x2.dtype != torch.bfloat16):
-        raise ValueError(f"int8_matmul: path {pl.path} takes bf16 x, weight-only")
+    if pl.path in (WGMMA, DECODE):
+        if x2.dtype != (torch.bfloat16 if sx is None else torch.int8) or y.dtype != torch.bfloat16:
+            raise ValueError(f"int8_matmul: path {pl.path} takes bf16 x, weight-only, or int8 x "
+                             f"with its row scales, and a bf16 output; got {x2.dtype} x "
+                             f"{'without' if sx is None else 'with'} row scales and a {y.dtype} "
+                             f"output")
+        if pl.path == WGMMA and sx is not None and pl.tile not in WGMMA_A8_TILES:
+            raise ValueError(f"int8_matmul: the int8 wgmma path takes token tiles "
+                             f"{WGMMA_A8_TILES}, got {pl.tile}")
     if pl.path == DECODE and M > DECODE_MAX_M:
         raise ValueError(f"int8_matmul: the decode path takes at most {DECODE_MAX_M} rows, "
                          f"got {M}")
@@ -268,15 +293,15 @@ def launch_plan(x2: torch.Tensor, sx: torch.Tensor | None, qvalue: torch.Tensor,
     ws_ptr = None if ws is None else ws.data_ptr()
     stream = ctypes.c_void_p(torch.cuda.current_stream(x2.device).cuda_stream)
     lib = _build.library()
+    tile = pl.stages if pl.path == DECODE else pl.tile
     if sx is not None:
         err = lib.aha_int8_matmul_a8(
             x2.data_ptr(), sx.data_ptr(), qvalue.data_ptr(), scale.data_ptr(), y.data_ptr(),
-            ws_ptr, M, K, N, _DTYPES[y.dtype], pl.splits, pl.path, stream)
+            ws_ptr, M, K, N, _DTYPES[y.dtype], pl.splits, pl.path, tile, stream)
     else:
         err = lib.aha_int8_matmul(
             x2.data_ptr(), qvalue.data_ptr(), scale.data_ptr(), y.data_ptr(), ws_ptr,
-            M, K, N, _DTYPES[x2.dtype], pl.splits, pl.path,
-            pl.stages if pl.path == DECODE else pl.tile, stream)
+            M, K, N, _DTYPES[x2.dtype], pl.splits, pl.path, tile, stream)
     _build.check(lib, err, "int8_matmul")
 
 

@@ -1,8 +1,8 @@
 """Where the time goes in the 7B streaming slices and in a 7B int4 QLoRA
 train step on one CUDA card.
 
-    python3 -m aha_tpu_torch.profile_slice [--seed 0] [--frames 8] [--paths int8,int4,train]
-                                           [--remat full]
+    python3 -m aha_tpu_torch.profile_slice [--seed 0] [--frames 8]
+                                           [--paths int8,int4,int8a8,train] [--remat full]
 
 For each path it builds seeded synthetic 7B params on the card
 (``random_params``), a sink cache (window 2048, 32 sinks, bf16) and drives
@@ -10,15 +10,17 @@ the engine the way ``StreamSession`` does, then traces sections with
 ``torch.profiler``.
 
 int8 and int4 (the --int8 and --int4 configs), both at the product widths and
-at width 1, after the window has filled:
+at width 1, after the window has filled; int8a8 (the --w8a8 config: int8 weights,
+per-token int8 activations, backend ``fused_a8``, fused passes of 8 frames):
 
   vision      (int8 only) one ``encode_frames`` call of 32 frames (the
               tower's batch);
   frame       ``--frames`` frame chunks (49 tokens each), each followed by
               the host read of its scores: one frame per pass, what
               ``inference()`` runs;
-  fused pass  ``--frames`` fused passes of 4 frames (196 rows) through the
-              read-only verify pass and its commit (``score_video``);
+  fused pass  ``--frames`` fused passes of 4 frames (196 rows; 8 frames, 392
+              rows, for int8a8) through the read-only verify pass and its
+              commit (``score_video``);
   verify S    8 verify passes of S = 4 and of S = 8 candidate tokens
               (plans, embedding, decoder, lm_head, no commit), the pass
               ``generate_spec`` runs (its attention replayed through the
@@ -28,8 +30,9 @@ at width 1, after the window has filled:
               cache, so that only the 32 S = 1 passes remain.
 
 The verify-pass and token tables list the path's decode kernel for products of
-1 .. 16 rows (``int8_mm_decode_kernel``, ``int4_mm_decode_kernel``) and the sum
-of its K splits by name, with their share of device time and calls per unit.
+1 .. 16 rows (``int8_mm_decode_kernel``, ``int4_mm_decode_kernel``), the sum of
+its K splits and, for int8a8, the activation quantiser by name, with their share
+of device time and calls per unit.
 
 train (int4 QLoRA: int4 trunk, dense bf16 projector and lm_head, LoRA r 16,
 B 1, 16 frames in a conversation of 926 tokens, lora_dropout 0.05, remat
@@ -71,7 +74,12 @@ DECODE_KERNELS = ("decode_attention_kernel", "decode_attention_wgmma_kernel",
 # the products' kernel at 1 .. 16 rows (csrc/int8_matmul.cu, csrc/int4_matmul.cu) and
 # the sum of its K splits, listed in the path's token and verify-pass tables
 MATMUL_DECODE_KERNELS = {"int8": ("int8_mm_decode_kernel", "splitk_reduce"),
-                         "int4": ("int4_mm_decode_kernel", "splitk_reduce")}
+                         "int4": ("int4_mm_decode_kernel", "splitk_reduce"),
+                         "int8a8": ("int8_mm_decode_kernel", "splitk_reduce",
+                                    "quantize_rows_vec_kernel")}
+# path -> (weights, matmul backend, fused_score_frames of the product)
+SERVING = {"int8": ("int8", "fused", 4), "int4": ("int4", "fused", 4),
+           "int8a8": ("int8", "fused_a8", 8)}
 
 
 def _short(name: str) -> str:
@@ -161,7 +169,7 @@ def report(label: str, units: int, unit: str, wall_ms: float, traced_wall_ms: fl
     print(f"profile {label}:   aten ops per {unit}: {ops}", flush=True)
 
 
-def _setup(mode: str, seed: int, n_frames: int, **widths):
+def _setup(mode: str, seed: int, n_frames: int, backend: str = "fused", **widths):
     from .config import InferConfig, aha_7b
     from .models.aha import random_params
     from .streaming.session import build_session
@@ -174,7 +182,7 @@ def _setup(mode: str, seed: int, n_frames: int, **widths):
     params = random_params(cfg, mode=mode, seed=seed)
     icfg = InferConfig(grounding_mode=True, frame_fps=2.0, kv_cache_policy="sink",
                        kv_window=2048, num_sink_tokens=32, **widths)
-    engine = build_session(params, cfg, tok, icfg).engine
+    engine = build_session(params, cfg, tok, icfg, backend=backend).engine
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     frames = torch.randint(0, 256, (n_frames, cfg.frame_resolution, cfg.frame_resolution, 3),
                            generator=gen, device="cuda", dtype=torch.uint8)
@@ -235,25 +243,25 @@ def _trace_tokens(label, engine, tok, cache, named=DECODE_KERNELS):
            named=named)
 
 
-def profile_serving(mode: str, seed: int, n: int) -> None:
+def profile_serving(path: str, seed: int, n: int) -> None:
     from .models import qwen2
     from .ops import spec_decode
 
-    K = 4                                            # fused_score_frames of the product
+    mode, backend, K = SERVING[path]                  # K: fused_score_frames of the product
     fill_frames = (2048 + 32) // 49 + 2
     cfg, tok, icfg, engine, frames = _setup(
-        mode, seed, fill_frames + 2 * n + 2 * n * K, fused_score_frames=K,
+        mode, seed, fill_frames + 2 * n + 2 * n * K, backend, fused_score_frames=K,
         spec_decode_tokens=1)
-    if mode == "int8":
+    if path == "int8":
         # vision: one tower batch, after a warm-up batch
         engine.encode_frames(frames[:VISION_FRAMES])
         tr = Trace()
         tr.run(lambda: engine.encode_frames(frames[:VISION_FRAMES]))
-        report(f"{mode} vision", VISION_FRAMES, "frame", tr.wall_ms, tr.traced_wall_ms,
+        report(f"{path} vision", VISION_FRAMES, "frame", tr.wall_ms, tr.traced_wall_ms,
                tr.busy_ms(), tr.kernels(), tr.aten_ops())
     embeds = engine.encode_frames(frames)
     cache, t = _fill(engine, tok, icfg, embeds)
-    _trace_frames(mode, engine, cache, embeds, t, n)
+    _trace_frames(path, engine, cache, embeds, t, n)
     t += 2 * n
 
     nxt = iter(range(t, t + 2 * n * K, K))
@@ -265,7 +273,8 @@ def profile_serving(mode: str, seed: int, n: int) -> None:
 
     tr = Trace()
     tr.run(fused_passes)
-    report(f"{mode} fused pass ({K} frames, 196 rows; stream at {int(cache.seen[0])} tokens)",
+    report(f"{path} fused pass ({K} frames, {K * 49} rows; stream at {int(cache.seen[0])} "
+           f"tokens)",
            n, "pass", tr.wall_ms, tr.traced_wall_ms, tr.busy_ms(), tr.kernels(), tr.aten_ops(),
            named=DECODE_KERNELS)
 
@@ -286,9 +295,9 @@ def profile_serving(mode: str, seed: int, n: int) -> None:
 
         tr = Trace()
         tr.run(verify_passes)
-        report(f"{mode} verify S={S}", 8, "pass", tr.wall_ms, tr.traced_wall_ms, tr.busy_ms(),
-               tr.kernels(), tr.aten_ops(), named=MATMUL_DECODE_KERNELS[mode])
-    _trace_tokens(mode, engine, tok, cache, named=DECODE_KERNELS + MATMUL_DECODE_KERNELS[mode])
+        report(f"{path} verify S={S}", 8, "pass", tr.wall_ms, tr.traced_wall_ms, tr.busy_ms(),
+               tr.kernels(), tr.aten_ops(), named=MATMUL_DECODE_KERNELS[path])
+    _trace_tokens(path, engine, tok, cache, named=DECODE_KERNELS + MATMUL_DECODE_KERNELS[path])
 
 
 def profile_train(seed: int, remat: str) -> None:

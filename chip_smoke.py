@@ -8,8 +8,10 @@ Phases, one or more lines each:
   1. device: nvidia-smi name and power limit, torch / CUDA / nvcc versions,
      the kernels' build time (built from aha_tpu_torch/csrc at first use, one
      nvcc per source in parallel), and what ptxas said of the int8 wgmma
-     kernel (registers by token tile) and of the int8 and int4 decode kernels
-     (a spill or a remark that their products are serialised fails the phase);
+     kernel (registers by operand type and token tile), of the int8 and int4
+     decode kernels and of the vector quantiser (a spill, a remark that their
+     products are serialised or a missing int8-activation instantiation fails
+     the phase);
   2. each CUDA kernel against its plain PyTorch version on the card, at
      every shape the 7B paths of phases 4 and 5 hand it (all five matmul
      entries at the four layer products for each row count of PATH_M, lm_head
@@ -20,10 +22,15 @@ Phases, one or more lines each:
      at shapes only their earlier paths take (N = 136, K = 352, x 2 bytes off
      its buffer), each matmul case with the path its wrapper's plan chose
      checked and launched twice for equal bits; int4_matmul and int8_matmul
-     at 1 .. 16 rows (their decode kernels) also at rows 2, 3, 7, 15 and 16
-     of the layer (int4 at G = 64 and 256 too), with each row equal bit for
-     bit to its one-row product and beside the kernel its plan chose there
-     before (replaced_ms, timed and not counted); beside torch.matmul on a weight dequantised
+     (both operand types) at 1 .. 16 rows (their decode kernels) also at rows
+     2, 3, 7, 15 and 16 of the layer (int4 at G = 64 and 256 too), with each row
+     equal bit for bit to its one-row product and beside the kernel its plan
+     chose there before (replaced_ms, timed and not counted); int8_matmul with
+     int8 activations also across its s8 wgmma tiles (17, 127-129, 231-233,
+     1568), at the fused width of --w8a8 (392 rows) and down's long K, each
+     case on a Hopper path equal bit for bit to the plain version and timed
+     beside the kernel its plan chose before (replaced_ms), the weight-only kernel at the same rows
+     and the quantiser alone; beside torch.matmul on a weight dequantised
      beforehand (the bf16 product alone, timed and used nowhere; layer and
      lm_head at 1, 4, 8 and 13 rows too) or torch._int_mm on int8 operands
      made beforehand (with int8 activations; int4 weights unpacked to
@@ -76,9 +83,13 @@ Phases, one or more lines each:
           the int8 decode kernel), then the same stream at width 1: score_video
           one frame a pass, inference() with S = 1 passes (texts compared), and
           the verify pass against sequential passes as in a;
-       c. short score_video runs (8 frames) that drive the remaining
-          kernels: 7B-int8 with "fused_a8", 7B-int8 with "pallas", 7B-int4
-          with "fused_a8" (the int8 ones' scores against b's width-1 run).
+       c. 7B-int8 at the --w8a8 widths (backend "fused_a8": per-token int8
+          activations): score_video over 64 frames in 8 fused passes of 392
+          rows, inference() over b's stream with generation 4 -> 8, then the
+          same inference() at width 1 (texts compared), frames/s and decode
+          tokens/s beside b's; short score_video runs (8 frames) of 7B-int8 with
+          "pallas" and 7B-int4 with "fused_a8" (scores against b's width-1 run
+          and a's weight-only one).
      Last, every shape that a path handed a kernel's wrapper must be one that
      phase 2 held against the plain version;
   5. 7B int4 QLoRA training at full width and depth: int4 trunk, int8
@@ -236,15 +247,19 @@ class Stats:
             self.k[n]["launches"] += c
 
 
-# the kernels whose ptxas report phase 1 holds: no spill, no serialisation remark
-PTXAS_HELD = ("int8_mm_wgmma_kernel", "int8_mm_decode_kernel", "int4_mm_decode_kernel")
+# the kernels whose ptxas report phase 1 holds: no spill, no serialisation remark (the
+# two int8 kernels once per operand type: bf16 x weight-only, int8 x)
+PTXAS_HELD = ("int8_mm_wgmma_kernel", "int8_mm_decode_kernel", "int4_mm_decode_kernel",
+              "quantize_rows_vec_kernel")
+PTXAS_A8 = ("int8_mm_wgmma_kernel<true", "int8_mm_decode_kernel<true")
 
 
 def check_ptxas(log: dict) -> str:
-    """What ptxas said of the int8 wgmma kernel and the two decode kernels,
-    one instantiation after another (registers, spill bytes), in the build this
-    process ran; raises on a spill or on a remark that their products are
-    serialised. Such remarks on other kernels are printed."""
+    """What ptxas said of the int8 wgmma kernel, the two decode kernels and the
+    vector quantiser, one instantiation after another (registers, spill bytes),
+    in the build this process ran; raises on a spill, on a remark that their
+    products are serialised, or on a missing int8-activation instantiation. Such
+    remarks on other kernels are printed."""
     import re
 
     if not log:
@@ -262,8 +277,9 @@ def check_ptxas(log: dict) -> str:
             held = [k for k in PTXAS_HELD if entry is not None and k in entry]
             if not held:
                 continue
-            # the kernel and its template arguments: int8_mm_wgmma_kernel<64> -> "int8...:64"
-            args = re.findall(r"Li(\d+)E", entry.split(held[0], 1)[1])
+            # the kernel and its template arguments: int8_mm_wgmma_kernel<true, 64>
+            args = [("true" if v == "1" else "false") if k == "b" else v
+                    for k, v in re.findall(r"L([bi])(\d+)E", entry.split(held[0], 1)[1])]
             key = f"{held[0]}<{','.join(args)}>"
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if m:
@@ -272,7 +288,7 @@ def check_ptxas(log: dict) -> str:
             if m:
                 regs[key] = int(m.group(1))
     mine = [r for r in remarks if any(k in r for k in PTXAS_HELD)]
-    missing = [k for k in PTXAS_HELD if not any(r.startswith(k) for r in regs)]
+    missing = [k for k in PTXAS_HELD + PTXAS_A8 if not any(r.startswith(k) for r in regs)]
     if missing or any(spills.get(t, 0) for t in regs) or mine:
         raise AssertionError(f"ptxas: registers {regs}, spill bytes {spills}, serialisation "
                              f"remarks {mine}, no report for {missing}")
@@ -365,12 +381,24 @@ def replaced_plan8(M: int, K: int, N: int, sms: int):
     return k8.Plan(k8.WGMMA, splits, tile, tiles, stages, smem)
 
 
+def replaced_plan8_a8(M: int, K: int, N: int, sms: int):
+    """The launch that ``int8_matmul``'s plan chose for int8 activations (bf16
+    output) before the two Hopper kernels took them: mma.sync from 2 rows, the
+    CUDA cores at a token."""
+    from aha_tpu_torch.ops.kernels import int8_matmul as k8
+
+    if M > 1:
+        return k8.Plan(k8.TENSOR_CORE, k8.splits_on(sms, -(-M // 64) * -(-N // 128), K // 256))
+    return k8.Plan(k8.VEC16, k8.splits_on(sms, -(-N // 128), K // 256))
+
+
 def check_matmuls(gen, stats: Stats):
     import torch
 
     from aha_tpu_torch.ops.kernels import _build
     from aha_tpu_torch.ops.kernels import int4_matmul as k4
     from aha_tpu_torch.ops.kernels import int8_matmul as k8
+    from aha_tpu_torch.ops.kernels import quantize_rows as qr
 
     dev = "cuda"
     bf, f32 = torch.bfloat16, torch.float32
@@ -411,18 +439,26 @@ def check_matmuls(gen, stats: Stats):
     decode4 += [("g64", 8, 1024, 1024, 64), ("g256", 8, 3584, 4608, 256)]
 
     # int8, bf16, weight-only on the wgmma path: its first row count and those that
-    # straddle its token tiles (128 rows at most), the fused width, the projector's
-    # rows at a layer shape, down's long K across its splits
+    # straddle its token tiles (128 rows at most), the fused widths (196 and 392),
+    # the projector's rows at a layer shape, down's long K across its splits
     cap = k8.WGMMA_TILE_CAP
     wgmma8 = [("tile-edge", M, 3584, 4608)
               for M in sorted({k8.WGMMA_MIN_M, cap - 1, cap, cap + 1, 231, 232, 233, 1568})]
     wgmma8 += [("long-k", M, 18944, 3584) for M in (k8.WGMMA_MIN_M, 1568)]
+    wgmma8 += [(n, 392, *layer[n]) for n in layer]   # phase 4c's weight-only run at width 8
     # bf16 shapes the int8 wgmma kernel does not take and the earlier paths must:
     # K not a multiple of 64 (mma.sync; so is the edge case above, N = 136), and x
     # a view 2 bytes into its buffer (16-byte CUDA-core loads)
     old8 = [("old-path-k", 70, 352, 256), ("misaligned", 49, 3584, 4608)]
     old8_path = {"ragged-tc": k8.TENSOR_CORE, "old-path-k": k8.TENSOR_CORE,
                  "misaligned": k8.VEC16}
+    # int8 activations on the same two kernels: the s8 wgmma kernel's first row count and
+    # those that straddle its token tiles, the fused pass of 8 frames (392 rows, the
+    # --w8a8 width) at the layer's shapes, down's long K across its splits
+    wgmma8a8 = [("tile-edge", M, 3584, 4608) for M in (k8.WGMMA_MIN_M, 127, 128, 129, 231, 232,
+                                                        233, 1568)]
+    wgmma8a8 += [("long-k", M, 18944, 3584) for M in (k8.WGMMA_MIN_M, 1568)]
+    wgmma8a8 += [(n, 392, *layer[n]) for n in layer]
 
     # (kernel name, weight bits, a8, cases, M of the representative set)
     families = [
@@ -432,7 +468,8 @@ def check_matmuls(gen, stats: Stats):
          + [(*c, None, bf, 1e-2) for c in wgmma8 + old8 + decode_rows], 49),
         ("int8_matmul_a8", 8, True,
          [(*c, None, bf, 2e-2) for c in cards]
-         + [(*r, None, f32, 1e-4) for r in ragged8] + [(*edge, None, bf, 2e-2)], 49),
+         + [(*r, None, f32, 1e-4) for r in ragged8] + [(*edge, None, bf, 2e-2)]
+         + [(*c, None, bf, 2e-2) for c in wgmma8a8 + decode_rows], 49),
         ("quant_matmul", 8, False,
          [(*c, None, bf, 1e-2) for c in cards] + [(*ragged8[0], None, f32, 1e-4)], 49),
         ("int4_matmul", 4, False,
@@ -495,21 +532,28 @@ def check_matmuls(gen, stats: Stats):
             else:
                 pl = k8.plan(M, K, N, bf16=dt == bf, a8=a8,
                              align=(k8.align_of(x), k8.align_of(ws[0]), k8.align_of(sc)), sms=sms)
-                new = dt == bf and not a8 and label not in ("ragged", *old8_path)
+                new = dt == bf and label not in ("ragged", *old8_path)
                 want = (k8.DECODE if M <= k8.DECODE_MAX_M else k8.WGMMA) if new else None
                 if dt == bf and not a8 and label in old8_path and pl.path != old8_path[label]:
                     raise AssertionError(f"{what}: path {pl.path}, expected {old8_path[label]}")
                 if pl.path != want and (new or pl.path in (k8.WGMMA, k8.DECODE)):
                     raise AssertionError(f"{what}: path {pl.path}, expected "
                                          f"{want if new else 'an earlier path'}")
-                kernel_smem = (lib8.aha_int8_matmul_wgmma_smem(pl.tile) if pl.path == k8.WGMMA
-                               else lib8.aha_int8_matmul_decode_smem(pl.stages)
+                kernel_smem = (lib8.aha_int8_matmul_wgmma_smem(pl.tile, int(a8))
+                               if pl.path == k8.WGMMA
+                               else lib8.aha_int8_matmul_decode_smem(pl.stages, int(a8))
                                if pl.path == k8.DECODE else 0)
                 if kernel_smem != pl.smem_bytes:
                     raise AssertionError(f"{what}: the plan's {pl.smem_bytes} bytes of shared "
                                          f"memory are not the kernel's {kernel_smem}")
             note = (f" path={pl.path} tile={pl.tile}x{pl.tiles} splits={pl.splits} "
                     f"stages={pl.stages} smem={pl.smem_bytes} equal_twice")
+            if a8 and bits == 8 and pl.path in (k8.WGMMA, k8.DECODE):
+                # exact int32 sums made f32 once, the scales in the plain version's order
+                if not torch.equal(y, ref):
+                    raise AssertionError(f"{what}: not the plain version's bits (max_abs_err "
+                                         f"{err:.3e})")
+                note += " equal_to_plain"
             if pl.path == k8.DECODE:   # the same path number in both sources
                 # row r of the M-row product is the one-row product of row r, bit for bit
                 rows = torch.cat([run(x[r:r + 1], ws[0]) for r in range(M)])
@@ -526,9 +570,9 @@ def check_matmuls(gen, stats: Stats):
             esize = x.element_size()
             bms, by = bound_ms(M * K * esize + wbytes + sbytes + M * N * esize, 2.0 * M * K * N,
                                "int8" if a8 else ("bf16" if dt == bf else "f32"))
-            lib = replaced = None
+            lib = replaced = w8_ms = quant_ms = None
             timer = graph_ms if short else cuda_ms
-            if (pl.path == k8.DECODE and name != "quant_matmul"
+            if (pl.path == k8.DECODE and name != "quant_matmul" and not a8
                     and (label in layer or label == "lm_head")):
                 # the kernel this one replaced at these rows, launched as its plan did
                 # (int4: the CUDA-core kernel at 1, mma.sync at 2 .. 13, the wgmma
@@ -545,6 +589,22 @@ def check_matmuls(gen, stats: Stats):
                 rel_check(f"{what} replaced kernel", yo, ref, tol)
                 replaced = timer(launch_old)
                 note += f" replaced_path={old.path} replaced_ms={replaced:.4f}"
+                del yo
+            if a8 and bits == 8 and pl.path in (k8.WGMMA, k8.DECODE):
+                # the mma.sync / CUDA-core kernel chosen before, the quantiser included as in the
+                # kernel's own time; the weight-only kernel at the same rows; the
+                # quantiser alone (timed, not counted)
+                old = replaced_plan8_a8(M, K, N, sms)
+                yo = torch.empty_like(y)
+                launch_old = lambda i: k8.launch_plan(*qr.quantize_rows(x), ws[i % copies], sc,
+                                                      yo, old)
+                launch_old(0)
+                rel_check(f"{what} replaced kernel", yo, ref, tol)
+                replaced = timer(launch_old)
+                w8_ms = timer(lambda i: k8.int8_matmul(x, ws[i % copies], sc))
+                quant_ms = graph_ms(lambda i: qr.quantize_rows(x))   # short at every M
+                note += (f" replaced_path={old.path} replaced_ms={replaced:.4f} weight_only_ms="
+                         f"{w8_ms:.4f} quantize_rows_ms={quant_ms:.4f}")
                 del yo
             if a8 and M > 16 and K % 8 == 0 and N % 8 == 0:
                 # the int8 x int8 product alone, on activations quantised beforehand (int4:
@@ -568,21 +628,25 @@ def check_matmuls(gen, stats: Stats):
             if dt == bf and (label in layer or label.startswith("projector")
                              or label == "lm_head"):
                 part = "layer" if label in layer else label.split("_fc")[0]
-                acc = sums.setdefault((name, part, M), [0.0, 0.0, 0.0, 0, 0.0, 0.0])
+                acc = sums.setdefault((name, part, M), [0.0, 0.0, 0.0, 0, 0.0, 0.0, 0.0, 0.0])
                 acc[0] += ms
                 acc[1] += bms
                 acc[2] += lib or 0.0
                 acc[3] += lib is not None
                 acc[4] += pms
                 acc[5] += replaced or 0.0
+                acc[6] += w8_ms or 0.0
+                acc[7] += quant_ms or 0.0
             print(f"phase2 {what} {_dt(dt)} max_abs_err={err:.3e}{note} kernel_ms={ms:.4f} "
                   f"plain_ms={pms:.4f} bound_ms={bms:.4f} ({by}) library_ms="
                   f"{'none' if lib is None else f'{lib:.4f}'}", flush=True)
             del ws
-    for (name, part, M), (ms, bms, lib, n_lib, pms, old) in sorted(sums.items()):
+    for (name, part, M), (ms, bms, lib, n_lib, pms, old, w8, quant) in sorted(sums.items()):
         print(f"phase2 sum {name} {part} M={M}: kernel_ms={ms:.4f} bound_ms={bms:.4f} "
               f"plain_ms={pms:.4f} library_ms={f'{lib:.4f}' if n_lib else 'none'}"
-              + (f" replaced_ms={old:.4f}" if old else ""), flush=True)
+              + (f" replaced_ms={old:.4f}" if old else "")
+              + (f" weight_only_ms={w8:.4f} quantize_rows_ms={quant:.4f}" if w8 else ""),
+              flush=True)
 
 
 def check_quantize_rows(gen, stats: Stats):
@@ -593,7 +657,7 @@ def check_quantize_rows(gen, stats: Stats):
     bf, f32 = torch.bfloat16, torch.float32
     # the rows and widths the int8-activation products of the paths quantise
     cases = [(M, K, bf) for M in PATH_M + (5, 9) for K in (3584, 18944)]
-    cases += [(M, K, bf) for M in (392, 1568) for K in (1024, 3584)]
+    cases += [(M, K, bf) for M in (392, 1568) for K in (1024, 3584)] + [(392, 18944, bf)]
     cases += [(7, 100, f32), (3, 33, f32)]
     for M, K, dt in cases:
         x = torch.randn((M, K), generator=gen, device="cuda").to(dt)
@@ -608,14 +672,17 @@ def check_quantize_rows(gen, stats: Stats):
                                  f"{step}), scales equal {torch.equal(sx, rs)}")
         stats.err("quantize_rows", float(step))
         stats.checked.add(("quantize_rows", M, K))
-        ms = cuda_ms(lambda i: qr.quantize_rows(x))
+        # device time from a replayed graph (the kernel is shorter than the host's
+        # work to launch it); events around a loop of plain calls beside it
+        loop = cuda_ms(lambda i: qr.quantize_rows(x))
+        ms = graph_ms(lambda i: qr.quantize_rows(x))
         pms = cuda_ms(lambda i: qr.quantize_rows_plain(x), iters=5)
         bms, by = bound_ms(M * K * (x.element_size() + 1) + 4 * M, 3.0 * M * K, "f32")
         if (M, K) in ((196, 3584), (196, 18944)):
             stats.add("quantize_rows", ms, pms, bms, by, None,
                       "a decoder layer's two widths (K 3584, 18944) at M=196, bf16")
         print(f"phase2 quantize_rows M={M} K={K} {_dt(dt)} values_off={off} max_step={step} "
-              f"kernel_ms={ms:.4f} plain_ms={pms:.4f} bound_ms={bms:.4f} ({by}) "
+              f"loop_ms={loop:.4f} kernel_ms={ms:.4f} plain_ms={pms:.4f} bound_ms={bms:.4f} ({by}) "
               f"library_ms=none", flush=True)
 
 
@@ -1529,6 +1596,7 @@ def drive_7b_paths(gpu: str, seed: int, stats: Stats):
           f"{verifies} verify passes; launches int8_matmul={n8} decode_attention={na}; "
           f"max_memory_allocated {peak / 2**30:.2f} GiB", flush=True)
     print(f"phase4b first response: {responses[0][:60]!r}", flush=True)
+    dec_tokens8, dec_s8 = dec_tokens, dec_s
 
     # the same stream at width 1 (one frame a pass in score_video, S = 1 passes in
     # generation, the trigger threshold of the run above): the texts must be equal
@@ -1548,6 +1616,7 @@ def drive_7b_paths(gpu: str, seed: int, stats: Stats):
     if responses1 != responses:
         raise AssertionError("7b-int8: speculative texts differ from the width-1 texts:"
                              + _first_divergence(responses, responses1))
+    dec_tokens1_8, dec_s1_8 = dec_tokens1, dec_s1
     d = max(abs(a[k] - b[k]) for a, b in zip(rows8, rows) for k in SCORE_KEYS)
     err, same = verify_vs_sequential(sess, cfg)
     print(f"phase4b width 1 [{gpu}]: score_video 64 frames {t_sv1:.3f}s = {64 / t_sv1:.2f} "
@@ -1561,23 +1630,78 @@ def drive_7b_paths(gpu: str, seed: int, stats: Stats):
     del sess, sess1
     gc.collect()      # a session and its timing wrappers form a cycle that holds the params
 
-    # -- c (int8 part). "fused_a8" and "pallas", 8 frames each ----------------------------
-    for backend, kernel in (("fused_a8", "int8_matmul_a8"), ("pallas", "quant_matmul")):
-        with PassCounter() as pc:
-            kernels.reset_launches()
-            rows_b, t_b = score_64(params8, cfg, tok, frames[:8], w1, backend=backend)
-            counts = dict(kernels.LAUNCHES)
-            chunks = pc.chunks
-        if len(rows_b) != 8 or not all(math.isfinite(r[k]) for r in rows_b for k in SCORE_KEYS):
-            raise AssertionError(f"7b-int8 {backend}: bad scores")
-        n = counts.get(kernel, 0)
-        if n < L * chunks * 4 or counts.get("int8_matmul", 0):
-            raise AssertionError(f"7b-int8 {backend}: launches {counts} over {chunks} chunks")
-        stats.launches(counts)
-        d = max(abs(a[k] - b[k]) for a, b in zip(rows_b, rows[:8]) for k in SCORE_KEYS)
-        print(f"phase4c 7b-int8 backend={backend} [{gpu}] score_video 8 frames {t_b:.3f}s; "
-              f"launches {kernel}={n}; scores vs backend=fused max_abs_diff={d:.3e}",
-              flush=True)
+    # -- c (int8 part). --w8a8 at its widths: "fused_a8" with fused scoring of 8 frames
+    # (392-row passes) and generation 4 -> 8, then the same stream at width 1 (texts
+    # must be equal); then "pallas", 8 frames ---------------------------------------------
+    w8a8 = dict(fused_score_frames=8, spec_decode_tokens=4, spec_decode_tokens_max=8)
+    rows_w8, _ = score_64(params8, cfg, tok, frames[:64], w8a8)   # weight-only at the same width
+    with PassCounter() as pc:
+        kernels.reset_launches()
+        rows_a8, t_sv_a8 = score_64(params8, cfg, tok, frames[:64], w8a8, backend="fused_a8")
+        sv_verifies = pc.verifies
+        sess, responses, t_inf, gen_s, dec_s, dec_tokens = run_inference(
+            params8, cfg, tok, frames, threshold(rows_a8), w8a8, backend="fused_a8")
+        counts = dict(kernels.LAUNCHES)
+        chunks, verifies = pc.chunks, pc.verifies
+    seen = check_7b_run("7b-int8 fused_a8", rows_a8, sess, responses, 96)
+    if sv_verifies != 8:
+        raise AssertionError(f"7b-int8 fused_a8: score_video took {sv_verifies} fused passes, "
+                             f"not 8")
+    passes = chunks + verifies
+    n = counts.get("int8_matmul_a8", 0)
+    if (n < L * passes * 4 or counts.get("quantize_rows", 0) < n or counts.get("int8_matmul", 0)
+            or not verifies > sv_verifies):
+        raise AssertionError(f"7b-int8 fused_a8: launches {counts} over {chunks} chunks + "
+                             f"{verifies} verify passes, or no verify pass of generation")
+    stats.launches(counts)
+    acc = sess.engine.spec_acceptance()
+    d = max(abs(a[k] - b[k]) for a, b in zip(rows_a8, rows) for k in SCORE_KEYS)
+    d8 = max(abs(a[k] - b[k]) for a, b in zip(rows_a8, rows_w8) for k in SCORE_KEYS)
+    print(f"phase4c 7b-int8 backend=fused_a8 widths 8 / 4->8 (--w8a8) [{gpu}] score_video 64 "
+          f"frames in 8 fused passes of 392 rows {t_sv_a8:.3f}s = {64 / t_sv_a8:.2f} frames/s "
+          f"(weight-only at 4: {64 / t_sv:.2f}); scores vs weight-only at width 8 max_abs_diff="
+          f"{d8:.3e}, vs weight-only width 1 {d:.3e}; inference 96 frames {t_inf:.3f}s, "
+          f"{len(responses)} responses; decode {dec_tokens} tokens in {dec_s:.3f}s = "
+          f"{dec_tokens / max(dec_s, 1e-9):.2f} decode tokens/s (weight-only at 4->8: "
+          f"{dec_tokens8 / max(dec_s8, 1e-9):.2f}), "
+          f"{acc['tokens_per_pass']} tokens per verify pass; stream {seen} tokens; {chunks} "
+          f"chunks + {verifies} verify passes; launches int8_matmul_a8={n} quantize_rows="
+          f"{counts['quantize_rows']}", flush=True)
+    with PassCounter() as pc:
+        kernels.reset_launches()
+        sess1, responses1, t_inf1, gen_s1, dec_s1, dec_tokens1 = run_inference(
+            params8, cfg, tok, frames, threshold(rows_a8), w1, backend="fused_a8")
+        counts = dict(kernels.LAUNCHES)
+    check_7b_run("7b-int8 fused_a8 width 1", rows_a8, sess1, responses1, 96)
+    if pc.verifies or counts.get("int8_matmul_a8", 0) < L * pc.chunks * 4:
+        raise AssertionError(f"7b-int8 fused_a8 width 1: launches {counts} over {pc.chunks} "
+                             f"chunks, {pc.verifies} verify passes")
+    stats.launches(counts)
+    if responses1 != responses:
+        raise AssertionError("7b-int8 fused_a8: speculative texts differ from the width-1 "
+                             "texts:" + _first_divergence(responses, responses1))
+    print(f"phase4c 7b-int8 backend=fused_a8 width 1 [{gpu}]: decode {dec_tokens1} tokens in "
+          f"{dec_s1:.3f}s = {dec_tokens1 / max(dec_s1, 1e-9):.2f} decode tokens/s (weight-only "
+          f"at width 1: {dec_tokens1_8 / max(dec_s1_8, 1e-9):.2f}); texts identical to the "
+          f"speculative run's ({len(responses1)} responses)", flush=True)
+    del sess, sess1
+    gc.collect()
+
+    with PassCounter() as pc:
+        kernels.reset_launches()
+        rows_b, t_b = score_64(params8, cfg, tok, frames[:8], w1, backend="pallas")
+        counts = dict(kernels.LAUNCHES)
+        chunks = pc.chunks
+    if len(rows_b) != 8 or not all(math.isfinite(r[k]) for r in rows_b for k in SCORE_KEYS):
+        raise AssertionError("7b-int8 pallas: bad scores")
+    n = counts.get("quant_matmul", 0)
+    if n < L * chunks * 4 or counts.get("int8_matmul", 0):
+        raise AssertionError(f"7b-int8 pallas: launches {counts} over {chunks} chunks")
+    stats.launches(counts)
+    d = max(abs(a[k] - b[k]) for a, b in zip(rows_b, rows[:8]) for k in SCORE_KEYS)
+    print(f"phase4c 7b-int8 backend=pallas [{gpu}] score_video 8 frames {t_b:.3f}s; "
+          f"launches quant_matmul={n}; scores vs backend=fused max_abs_diff={d:.3e}",
+          flush=True)
 
 
 def main() -> int:

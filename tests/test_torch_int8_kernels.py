@@ -1,5 +1,6 @@
 """The int8 product's tensor-core kernels (wgmma from 17 rows, the decode
-kernel at 1 to 16), as far as a CPU can hold them: the wrapper's pure choice of
+kernel at 1 to 16), with bf16 x weight-only and with int8 x, as far as a CPU
+can hold them: the wrapper's pure choice of
 path, token tile, ring, splits and shared memory for every shape
 ``chip_smoke.py`` drives; the relabelling of accumulator rows and of B columns
 at their stores and the byte permutes and bf16 additions that build their
@@ -13,6 +14,7 @@ there)."""
 import importlib.util
 import pathlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -100,8 +102,8 @@ def test_plan_of_the_frame_chunk():
 @pytest.mark.parametrize("M,K,N,kw,path", [
     (1, 3584, 4608, dict(bf16=True, align=(8, 16, 16)), VEC16),      # a token, x 8 bytes off
     (49, 3584, 4608, dict(bf16=False), VEC16),                       # f32
-    (49, 3584, 4608, dict(bf16=True, a8=True), TENSOR_CORE),         # int8 activations
-    (1, 3584, 4608, dict(bf16=True, a8=True), VEC16),
+    (49, 3584, 4608, dict(bf16=False, a8=True), TENSOR_CORE),        # int8 x, f32 output
+    (1, 3584, 4608, dict(bf16=True, a8=True, align=(2, 16, 16)), VEC16),   # int8 x 2 bytes off
     (70, 320, 136, dict(bf16=True), TENSOR_CORE),                    # N not a multiple of 16
     (70, 352, 256, dict(bf16=True), TENSOR_CORE),                    # K not a multiple of 64
     (7, 100, 77, dict(bf16=True), SCALAR),                           # ragged
@@ -109,15 +111,18 @@ def test_plan_of_the_frame_chunk():
     (49, 3584, 4608, dict(bf16=True, align=(16, 8, 16)), TENSOR_CORE),
     (49, 3584, 4608, dict(bf16=True, align=(16, 16, 8)), TENSOR_CORE),
     (5, 3584, 4608, dict(bf16=False), VEC16),                        # decode rows: f32
-    (8, 3584, 4608, dict(bf16=True, a8=True), TENSOR_CORE),          # int8 activations
+    (8, 3584, 4608, dict(bf16=True, a8=True, align=(16, 16, 8)), TENSOR_CORE),  # int8 x, scale off
     (8, 320, 136, dict(bf16=True), TENSOR_CORE),                     # N not a multiple of 16
     (8, 352, 256, dict(bf16=True), TENSOR_CORE),                     # K not a multiple of 64
     (4, 3584, 4608, dict(bf16=True, align=(2, 16, 16)), VEC16),      # x 2 bytes off
     (13, 3584, 4608, dict(bf16=True, align=(16, 16, 8)), TENSOR_CORE),  # scale 8 bytes off
+    (49, 320, 136, dict(bf16=True, a8=True), TENSOR_CORE),           # int8 x, N % 16 != 0
+    (8, 320, 136, dict(bf16=True, a8=True), TENSOR_CORE),
 ])
 def test_plan_keeps_the_earlier_paths(M, K, N, kw, path):
-    """What neither tensor-core kernel takes keeps PR 1-2's paths, at a token,
-    at decode rows and above."""
+    """What neither Hopper kernel takes keeps the earlier paths, at a token, at
+    decode rows and above: for int8 activations an f32 output, N not a multiple
+    of 16, operands off 16 bytes."""
     pl = k8.plan(M, K, N, **kw)
     assert pl.path == path and pl.tile == 0 and pl.smem_bytes == 0 and pl.splits >= 1
 
@@ -402,7 +407,8 @@ def test_decode_order_of_sums(M, dtype, splits):
     bit, to the one-row product of row r."""
     rng = np.random.default_rng(11 + M)
     K, N = 512, 256
-    assert k8.plan(M, K, N, bf16=True) == k8.Plan(DECODE, 8, 16, 1, 3, 3 * k8.DECODE_SLOT)
+    slots3 = 3 * k8.DECODE_SLOTS[False]
+    assert k8.plan(M, K, N, bf16=True) == k8.Plan(DECODE, 8, 16, 1, 3, slots3)
     w = (rng.standard_normal((K, N)) * 0.02).astype(np.float32)
     x = rng.standard_normal((M, K)).astype(np.float32)
     q = quantize_array(jnp.asarray(w), 0)
@@ -430,15 +436,303 @@ def test_decode_order_of_sums(M, dtype, splits):
     ("a8", "takes bf16 x, weight-only"),
 ])
 def test_launch_plan_refuses_what_the_decode_kernel_does_not_take(what, match):
-    """A decode plan handed more than 16 rows, f32 activations or int8 ones with
-    their row scales raises before any library is built or launched."""
+    """A decode plan handed more than 16 rows, f32 activations, or int8 ones
+    with their row scales and an f32 output raises before any library is built
+    or launched."""
     M, K, N = (17 if what == "rows" else 4), 64, 32
     dtype = {"f32": torch.float32, "a8": torch.int8}.get(what, torch.bfloat16)
     x = torch.zeros((M, K), dtype=dtype)
     sx = torch.ones(M) if what == "a8" else None
     q = torch.zeros((K, N), dtype=torch.int8)
     s = torch.ones((1, N), dtype=torch.float32)
-    y = torch.empty((M, N), dtype=torch.bfloat16)
-    pl = k8.Plan(DECODE, 1, 16, 1, 3, 3 * k8.DECODE_SLOT)
+    y = torch.empty((M, N), dtype=torch.float32 if what == "a8" else torch.bfloat16)
+    pl = k8.Plan(DECODE, 1, 16, 1, 3, 3 * k8.DECODE_SLOTS[False])
+    with pytest.raises(ValueError, match=match):
+        k8.launch_plan(x, sx, q, s, y, pl)
+
+
+# ---- int8 activations (a8): the same two kernels on s8 tensor cores ---------------------
+
+A8_ROWS = (1, 4, 5, 8, 9, 13, 49, 59, 171, 196, 220, 392, 1568)
+
+
+def _a8_shapes(M):
+    """(K, N) of every product the ``fused_a8`` paths hand int8_matmul at M rows:
+    the layer's four at every row count of a pass (392: a fused pass of 8
+    frames), the lm_head at 1, 4 and 8, the projector at 392 and 1568."""
+    shapes = [(K, N) for _, K, N in _smoke().LAYER] if M != 1568 else []
+    if M in (1, 4, 8):
+        shapes.append(LM_HEAD)
+    if M in (392, 1568):
+        shapes += list(PROJECTOR)
+    return shapes
+
+
+@pytest.mark.parametrize("M", A8_ROWS)
+def test_a8_plan_of_every_path_shape(M):
+    """bf16 x quantised to int8, aligned: 1 to 16 rows on the decode kernel with
+    the weight-only plan's K splits (from W's shape alone: the plan of 1 row and
+    of 16 is the same) and a ring of 3 slots, or 8 for the lm_head's grid; from 17
+    rows on the wgmma kernel with a token tile among the widths the s8 product
+    takes, tiles that cover M once, a ring of at least three slots of 64-byte x
+    rows and 128-byte weight rows that fits the blocks an SM holds, and the
+    weight-only plan's rule for K splits."""
+    for K, N in _a8_shapes(M):
+        pl = k8.plan(M, K, N, bf16=True, a8=True)
+        w8 = k8.plan(M, K, N, bf16=True)
+        if M <= k8.DECODE_MAX_M:
+            assert pl.path == DECODE and pl == k8.plan(16, K, N, bf16=True, a8=True), (M, K, N)
+            assert pl.splits == w8.splits and (pl.tile, pl.tiles) == (16, 1)
+            assert pl.stages == (8 if N == LM_HEAD[1] else 3)
+            assert pl.smem_bytes == pl.stages * (16 * 64 + 64 * 128) <= SMEM
+            held = k8.decode_blocks_per_sm(pl.stages, a8=True)
+            assert held == (3 if pl.stages == 8 else 6)
+            assert held * (pl.smem_bytes + 1024) <= k8.SMEM_PER_SM
+            continue
+        assert pl.path == WGMMA, (M, K, N)
+        assert pl.tile in k8.WGMMA_A8_TILES and (pl.tiles - 1) * pl.tile < M <= pl.tiles * pl.tile
+        assert pl.tile >= w8.tile and pl.tiles == w8.tiles or pl.tiles < w8.tiles
+        assert (pl.stages, pl.smem_bytes) == k8.wgmma_ring(pl.tile, a8=True)
+        assert 3 <= pl.stages <= 6
+        assert pl.smem_bytes == pl.stages * (pl.tile * 64 + 64 * 128) + 1024 <= SMEM
+        assert k8.blocks_per_sm(pl.tile) * (pl.smem_bytes + 1024) <= k8.SMEM_PER_SM
+        blocks, places = pl.tiles * -(-N // 128), k8.blocks_per_sm(pl.tile) * 132
+        assert pl.splits == k8.wgmma_splits(places, blocks, K // 64)
+
+
+def test_a8_token_tiles():
+    """The s8 warpgroup product takes widths 24, 32 and multiples of 16: 49 rows
+    are one tile of 64, 196 two of 112, 392 four of 112, 1568 thirteen of 128."""
+    tiles = k8.WGMMA_A8_TILES
+    assert k8.token_tile(17, 128, tiles) == (24, 1)
+    assert k8.token_tile(49, 128, tiles) == (64, 1)
+    assert k8.token_tile(196, 128, tiles) == (112, 2)
+    assert k8.token_tile(392, 128, tiles) == (112, 4)
+    assert k8.token_tile(1568, 128, tiles) == (128, 13)
+    for M in range(17, 600):
+        tile, n = k8.token_tile(M, 128, tiles)
+        assert tile in tiles and (n - 1) * tile < M <= n * tile
+
+
+def _byte_perm(x: int, y: int, sel: int) -> int:
+    """CUDA's __byte_perm: byte i of the result is byte (sel >> 4 i) & 7 of the
+    eight bytes of x (0 .. 3) and y (4 .. 7)."""
+    src = x.to_bytes(4, "little") + y.to_bytes(4, "little")
+    return int.from_bytes(bytes(src[(sel >> (4 * i)) & 7] for i in range(4)), "little")
+
+
+def _byte_columns(h: int, r: list[int]) -> tuple[int, int]:
+    """``byte_columns<H>`` of csrc/wgmma.cuh, step by step: four byte permutes."""
+    sel = 0x7362 if h else 0x5140
+    t0, t1 = _byte_perm(r[0], r[1], sel), _byte_perm(r[2], r[3], sel)
+    return _byte_perm(t0, t1, 0x5410), _byte_perm(t0, t1, 0x7632)
+
+
+def _word_bytes(v: int) -> list[int]:
+    return list(np.frombuffer(v.to_bytes(4, "little"), dtype=np.int8))
+
+
+def _a8_stage(w: np.ndarray) -> bytes:
+    """A stage's 64 weight rows of 128 int8 columns as the copies lay them out for
+    int8 x: rows 128 bytes apart, chunk c of row r at chunk c ^ 2 ((r >> 2) & 3)."""
+    out = bytearray(64 * 128)
+    raw = w.view(np.uint8)
+    for r in range(64):
+        for c in range(8):
+            pos = c ^ (2 * ((r >> 2) & 3))
+            out[r * 128 + 16 * pos:r * 128 + 16 * pos + 16] = raw[r, 16 * c:16 * c + 16].tobytes()
+    return bytes(out)
+
+
+def _a8_words(stage: bytes, warp: int, tig: int, gid: int, p: int, g: int) -> list[int]:
+    """The four words a thread reads for piece p, group g of a stage (int8 x):
+    rows 32 p + 16 g + 4 tig + d at its byte offset 4 tig 128 + 4 ((8 w + gid) ^ 8 tig)
+    past row 0 (the kernels' w_off) plus (32 p + 16 g + d) 128."""
+    base = 4 * tig * 128 + 4 * ((8 * warp + gid) ^ (8 * tig))
+    return [int.from_bytes(stage[base + (32 * p + 16 * g + d) * 128:][:4], "little")
+            for d in range(4)]
+
+
+def _every_byte_stage(seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return rng.permutation(np.resize(np.arange(256, dtype=np.uint8), 64 * 128)).reshape(
+        64, 128).view(np.int8)
+
+
+def test_byte_columns_transpose_every_byte():
+    """Four words of four columns become each column's four rows, for every byte
+    value in every position."""
+    rng = np.random.default_rng(5)
+    for _ in range(64):
+        rows = rng.permutation(np.resize(np.arange(256, dtype=np.uint8), 16)).reshape(4, 4)
+        words = [int.from_bytes(rows[d].tobytes(), "little") for d in range(4)]
+        for h in (0, 1):
+            c0, c1 = _byte_columns(h, words)
+            assert c0.to_bytes(4, "little") == rows[:, 2 * h].tobytes()
+            assert c1.to_bytes(4, "little") == rows[:, 2 * h + 1].tobytes()
+
+
+def test_a8_wgmma_registers_are_the_piece_of_w_transposed():
+    """Every thread's A registers of a stage (int8 x: W^T is the register operand
+    of m64nNk32 s8), every byte value: register r of piece p for slab s holds four
+    consecutive K values of one weight column, the lowest in the lowest byte, at
+    the positions the s8 fragment names (row gid for registers 0 and 2, gid + 8
+    for 1 and 3; k 4 tig .. + 3 for 0 and 1, 16 + 4 tig .. + 3 for 2 and 3): row
+    r of slab s is weight column fwd_row_to_column(64 s + r), k is stage row
+    32 p + k."""
+    w = _every_byte_stage(3)
+    stage = _a8_stage(w)
+    seen = np.zeros(w.shape, dtype=int)
+    for warp in range(4):
+        for lane in range(32):
+            gid, tig = lane // 4, lane % 4
+            for p in range(2):
+                groups = [_a8_words(stage, warp, tig, gid, p, g) for g in (0, 1)]
+                for slab in range(2):
+                    a0, a1 = _byte_columns(slab, groups[0])
+                    a2, a3 = _byte_columns(slab, groups[1])
+                    for reg, (row_off, k_off) in zip((a0, a1, a2, a3),
+                                                     ((0, 0), (8, 0), (0, 16), (8, 16))):
+                        col = k8.fwd_row_to_column(64 * slab + 16 * warp + gid + row_off)
+                        k = 32 * p + 4 * tig + k_off
+                        assert _word_bytes(reg) == list(w[k:k + 4, col]), (warp, lane, p, slab)
+                        seen[k:k + 4, col] += 1
+    assert (seen == 1).all()
+
+
+def test_a8_decode_registers_are_the_piece_of_w():
+    """Every thread's B registers of a stage on the decode path with int8 x
+    (m16n8k32 s8), every byte value: b0 / b1 of n-tile t in piece p of thread
+    (gid, tig) of warp w hold rows 32 p + 4 tig .. + 3 / 32 p + 16 + 4 tig .. + 3
+    of column decode_column(w, gid, t), the lowest row in the lowest byte."""
+    w = _every_byte_stage(4)
+    stage = _a8_stage(w)
+    seen = np.zeros(w.shape, dtype=int)
+    for warp in range(4):
+        for lane in range(32):
+            gid, tig = lane // 4, lane % 4
+            for p in range(2):
+                regs = []
+                for g in (0, 1):
+                    words = _a8_words(stage, warp, tig, gid, p, g)
+                    regs.append([*_byte_columns(0, words), *_byte_columns(1, words)])
+                for t in range(4):
+                    col = k8.decode_column(warp, gid, t)
+                    for g, k in ((0, 32 * p + 4 * tig), (1, 32 * p + 16 + 4 * tig)):
+                        assert _word_bytes(regs[g][t]) == list(w[k:k + 4, col]), (warp, lane, p)
+                        seen[k:k + 4, col] += 1
+    assert (seen == 1).all()
+
+
+def test_a8_shared_reads_fall_in_distinct_banks():
+    """The weight words a warp reads at once with int8 x (rows 32 p + 16 g +
+    4 tig + d, the thread's word of its four columns) meet 32 banks; so do the
+    rows of the x tile that one ldmatrix matrix reads (8 rows of 64 bytes in the
+    64-byte swizzle, each lane the 16-byte chunk 2 p + lane / 16 of its row), and
+    the copies place chunk c of x row r at c ^ ((r >> 1) & 3)."""
+    for warp in range(4):
+        for p in range(2):
+            for g in range(2):
+                for d in range(4):
+                    banks = {(4 * tig * 128 + 4 * ((8 * warp + gid) ^ (8 * tig))
+                              + (32 * p + 16 * g + d) * 128) // 4 % 32
+                             for gid in range(8) for tig in range(4)}
+                    assert len(banks) == 32
+    for p in range(2):
+        for half in (0, 1):
+            for rows in (range(8), range(8, 16)):
+                spans = {(xr * 64 + (((2 * p + half) ^ ((xr >> 1) & 3)) << 4)) % 128 // 16
+                         for xr in rows}
+                assert len(spans) == 8
+    # every 16-byte chunk of a 16-row tile lands once, in its row
+    places = {(r, c ^ ((r >> 1) & 3)) for r in range(16) for c in range(4)}
+    assert len(places) == 64
+
+
+def a8_emulated(x, qvalue, scale, splits):
+    """The int8-activation kernels' order of sums: x quantised per row (the plain
+    quantiser, bit-equal to the kernel's); in each K split of whole 64-row stages
+    the exact int32 sum (in f64, exact), made f32 once; the splits' sums added in
+    split order from zero in f32 (one split is its own sum); times the column
+    scale, then the row scale, in f32; one cast."""
+    K = x.shape[-1]
+    xq, sx = k8.quantize_rows_plain(x.reshape(-1, K))
+    per = -(-(K // 64) // splits) * 64
+    xd, w = xq.double(), qvalue.double()
+    total = torch.zeros((xd.shape[0], w.shape[1]), dtype=torch.float32)
+    for s in range(splits):
+        total = total + (xd[:, s * per:(s + 1) * per] @ w[s * per:(s + 1) * per]).float()
+    return (total * scale.reshape(-1).float() * sx).to(x.dtype)
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("M", [1, 5, 16, 21, 232])
+def test_a8_order_of_sums_is_bit_exact(M, splits):
+    """bf16 x, int8 activations: the new paths' order of sums equals the plain
+    version bit for bit (the int32 sums are exact and stay below 2^24, so the
+    split partials add exactly in f32), at decode rows and wgmma rows, with one
+    split and three, and each row of the M-row product is its one-row product.
+    Against the Pallas kernel in interpret mode: bit-equal on every row whose
+    scale XLA's compiled quantiser makes the IEEE quotient absmax / 127 (it
+    divides by multiplying with the reciprocal of 127, one ulp off on some rows);
+    on the others within the card's tolerance, 1e-2 of the largest value."""
+    from aha_tpu.ops.pallas.fused_matmul import _quantize_rows
+
+    rng = np.random.default_rng(7 + M)
+    K, N = 576, 256
+    w = (rng.standard_normal((K, N)) * 0.02).astype(np.float32)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    q = quantize_array(jnp.asarray(w), 0)
+    jx = jnp.asarray(x).astype(jnp.bfloat16)
+    ref = np.asarray(j_int8_matmul(jx, q["qvalue"], q["scale"], a8=True, interpret=True)
+                     .astype(jnp.float32))
+    xt = _t(x).to(torch.bfloat16)
+    qv, s = _t(q["qvalue"]), _t(q["scale"])
+    out = a8_emulated(xt, qv, s, splits)
+    assert out.shape == (M, N) and out.dtype == torch.bfloat16
+    assert torch.equal(out, k8.int8_matmul_plain(xt, qv, s, a8=True))
+    rows = torch.cat([a8_emulated(xt[r:r + 1], qv, s, splits) for r in range(M)])
+    assert torch.equal(out, rows)
+    _, js = jax.jit(_quantize_rows)(jx)
+    ieee = np.asarray(js).reshape(-1) == k8.quantize_rows_plain(xt)[1].numpy().reshape(-1)
+    assert ieee.sum() >= M // 2
+    np.testing.assert_array_equal(out.float().numpy()[ieee], ref[ieee])
+    assert np.abs(out.float().numpy() - ref).max() <= 1e-2 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("K", [1024, 3584, 18944])
+def test_quantize_rows_plain_matches_jax_at_the_layer_widths(K):
+    """The quantiser in front of every int8-activation product, at the widths
+    the 7B paths quantise (projector, layer, down's input), bf16 rows: scales and
+    values bit-equal to the TPU package's _quantize_rows (the card's kernel is
+    held bit-equal to this plain version in chip_smoke.py phase 2)."""
+    from aha_tpu.ops.pallas.fused_matmul import _quantize_rows
+
+    rng = np.random.default_rng(K)
+    x = (rng.standard_normal((5, K)) * rng.uniform(0.1, 10.0, (5, 1))).astype(np.float32)
+    jq, js = _quantize_rows(jnp.asarray(x).astype(jnp.bfloat16))
+    tq, ts = k8.quantize_rows_plain(_t(x).to(torch.bfloat16))
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
+@pytest.mark.parametrize("what,match", [
+    ("a8-f32-out", "and a bf16 output; got torch.int8 x with row scales and a torch.float32"),
+    ("a8-tile", "takes token tiles"),
+    ("int8-x-without-scales", "got torch.int8 x without row scales"),
+])
+def test_launch_plan_refuses_an_a8_plan_the_kernels_do_not_take(what, match):
+    """A wgmma plan for int8 x with an f32 output, or with a token tile the s8
+    product has no width for (40), and int8 x handed without its row scales,
+    raise before any library is built or launched."""
+    M, K, N = 40, 64, 32
+    x = torch.zeros((M, K), dtype=torch.int8)
+    sx = None if what == "int8-x-without-scales" else torch.ones(M, 1)
+    q = torch.zeros((K, N), dtype=torch.int8)
+    s = torch.ones((1, N), dtype=torch.float32)
+    y = torch.empty((M, N), dtype=torch.float32 if what == "a8-f32-out" else torch.bfloat16)
+    tile = 40 if what == "a8-tile" else 48
+    stages, smem = k8.wgmma_ring(tile, a8=True)
+    pl = k8.Plan(WGMMA, 1, tile, 1, stages, smem)
     with pytest.raises(ValueError, match=match):
         k8.launch_plan(x, sx, q, s, y, pl)
