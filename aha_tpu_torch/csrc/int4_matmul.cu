@@ -23,26 +23,29 @@
 // clearly at a fused pass's 196 and a training sequence's 926, operations: 2*M*K*N
 // against the tensor cores' 989 TFLOP/s, so the products belong on wgmma and
 // what is left beside them (unpacking a [128 x 64] piece of W per 64 rows of K,
-// the copies, the group scales) decides the time. Four paths, chosen by the
-// wrapper's plan() from the operands:
-//   * decode (bf16 x, weight-only, 1 <= M <= 16, G % 64 == 0, N % 16 == 0,
-//     16-byte aligned operands): section "decode rows" below. One kernel and
-//     one launch plan for every M up to 16, mma.sync per warp with x as the
-//     16-row A operand, the packed bytes through a cp.async ring of seven
+// the copies, the group scales) decides the time (with int8 activations the
+// 1,979 TOP/s of the s8 tensor cores). Four paths, chosen by the wrapper's plan()
+// from the operands:
+//   * decode (bf16 x weight-only, or int8 x with a bf16 output; 1 <= M <= 16,
+//     G % 64 == 0, N % 16 == 0, 16-byte aligned operands): section "decode rows"
+//     below. One kernel and one launch plan for every M up to 16, mma.sync per
+//     warp with x as the 16-row A operand (m16n8k16 bf16, or m16n8k32 s8 with
+//     exact int32 group sums), the packed bytes through a cp.async ring of seven
 //     slots, 16 warps an SM. A 7B layer's four products at M = 1 .. 16 take
-//     0.07-0.08 ms where the CUDA-core kernel below took 0.17 (M = 1) and the
-//     mma.sync kernel 0.35 (M = 4 .. 13), the lm_head 0.11 ms where they took
-//     0.24 and 0.59 (NVIDIA H100 80GB HBM3, 700 W; bounds 0.036 and 0.084 ms,
-//     bytes).
+//     0.07-0.08 ms (bf16 x) where the CUDA-core kernel below took 0.17 (M = 1)
+//     and the mma.sync kernel 0.35 (M = 4 .. 13), the lm_head 0.11 ms where they
+//     took 0.24 and 0.59 (NVIDIA H100 80GB HBM3, 700 W; bounds 0.036 and
+//     0.084 ms, bytes).
 //   * wgmma (as decode, M >= 17): section "tensor-core path, wgmma" below. The
 //     product is turned round (y^T = W^T x^T), the unpacked weight is the
-//     register operand of the warpgroup products and never touches shared
-//     memory, raw bytes, x tiles and scales arrive by cp.async through a
-//     six-slot ring, two accumulator sets (a group's sum, the total) of f32. At
-//     M = 926 a decoder layer's four products take 1.23 ms where the mma.sync
-//     kernel below took 4.34 (NVIDIA H100 80GB HBM3, 700 W; bound 0.44 ms).
-//   * mma.sync (M > 1, G % 32 == 0, N % 8 == 0; int8 x whatever the output
-//     type, and bf16 x where neither path above applies): the 64 x 128 tile
+//     register operand of the warpgroup products (m64nTMk16 bf16, or m64nTMk32
+//     s8) and never touches shared memory, raw bytes, x tiles and scales arrive
+//     by cp.async through a six-slot ring, two accumulator sets (a group's sum,
+//     f32 or exact int32, and the f32 total). At M = 926 a decoder layer's four
+//     products take 1.23 ms (bf16 x) where the mma.sync kernel below took 4.34
+//     (NVIDIA H100 80GB HBM3, 700 W; bound 0.44 ms).
+//   * mma.sync (M > 1, G % 32 == 0, N % 8 == 0, where neither path above
+//     applies: an f32 output of int8 x, ragged or misaligned operands): the 64 x 128 tile
 //     scheme of common.cuh, one buffer a tile, no copy overlaps a product. A
 //     packed byte is exactly the (k, k + 1) pair of one column, i.e. one
 //     32-bit bf16x2 word of the transposed weight tile (int8 activations:
@@ -295,46 +298,66 @@ int4_mm_tc_kernel(const void* __restrict__ x, const float* __restrict__ sx,
   store_tile<Y>(tot, y, ws, nullptr, sx, M, N, m0, n0, wm, wn, gid, tig, splits, blockIdx.z);
 }
 
-// ---- tensor-core path, wgmma (bf16 x, weight-only, G % 64 == 0, N % 16 == 0) ------------------
+// ---- tensor-core path, wgmma (G % 64 == 0, N % 16 == 0): bf16 x weight-only, or int8 x -------
 //
 // The product turned round: y^T = W^T x^T. The 64-row side of a warpgroup
-// product runs over weight columns, its register operand is a [64 columns x
-// 16 rows] piece of W^T, and its width is the token tile. A packed byte is the
-// (2 j, 2 j + 1) bf16 pair of its column, i.e. one register of that operand, so
-// the dequantised weight never exists in memory of any kind: the raw bytes
-// travel device memory -> ring -> registers. The group scale belongs to an
-// accumulator ROW here, two scales a thread and slab.
+// product runs over weight columns, its register operand is a piece of W^T built
+// in registers from the packed bytes, and its width is the token tile: the
+// unpacked weight never exists in memory of any kind, the raw bytes travel device
+// memory -> ring -> registers. The group scale belongs to an accumulator ROW
+// here, two scales a thread and slab.
 //
 // A block is one warpgroup that owns 128 weight columns (two slabs of 64) and a
 // token tile of TM <= 80 rows, and walks K in stages of 64 through a ring of
-// kStages slots filled by cp.async, four stages ahead. A stage holds the x
-// tile (TM rows of 128 bytes, swizzled, the B operand as it lies), the packed
-// bytes (32 packed rows of 128 columns, 160 bytes apart so that the four rows a
-// warp reads at once fall in distinct banks) and the group's 128 scales, all in
-// 16-byte copies (4-byte copies of a thread's own words cost a quarter of the
-// kernel's time). The thread whose accumulator rows are gid and gid + 8 of warp
-// w owns the four neighbouring columns 4 (8 w + gid) .. + 3 (rows gid and gid + 8
-// of slab 0, then of slab 1: the accumulator rows are relabelled, no data is
-// shuffled): a 32-bit word of a packed row is its share of that row, the packed
-// rows tig + 4 q are what its operand registers need, and y leaves as 8-byte
-// stores of those four columns.
+// kStages slots filled by cp.async, four stages ahead. A stage holds the x tile
+// (TM rows, the B operand as it lies, swizzled), the packed bytes (32 packed rows
+// of 128 columns, rows apart by a stride at which the rows a warp reads at once
+// fall in distinct banks) and the group's 128 scales, all in 16-byte copies
+// (4-byte copies of a thread's own words cost a quarter of the kernel's time).
+// The thread whose accumulator rows are gid and gid + 8 of warp w owns the four
+// neighbouring columns 4 (8 w + gid) .. + 3 (rows gid and gid + 8 of slab 0, then
+// of slab 1: the accumulator rows are relabelled, no data is shuffled): a 32-bit
+// word of a packed row is its share of that row, and y leaves as 8-byte stores of
+// those four columns.
 //
-// The two slabs alternate: while the tensor cores run one slab's four products
-// of a stage, the threads unpack the other's operand. After a group's last
-// stage the block waits for its products and adds both slabs' group sums (f32)
-// times their scales into the totals (f32); a group's first product starts its
-// sum anew (scale-d). Two blocks share an SM and fill each other's gaps. A K
-// split covers whole groups and writes its f32 totals as a partial.
+// Two operand types, one kernel (A8):
+//   * bf16 x, weight-only: x rows of 128 bytes in the 128-byte swizzle, packed
+//     rows 160 bytes apart, products m64nTMk16 bf16 into f32 group sums. A packed
+//     byte is the (2 j, 2 j + 1) bf16 pair of its column, i.e. one register of
+//     the operand; the thread reads packed rows tig + 4 q (unpack).
+//   * int8 x (xq, sx from csrc/quantize_rows.cu): x rows of 64 bytes in the
+//     64-byte swizzle, products m64nTMk32 s8 into exact int32 group sums. A
+//     register of the operand is four consecutive K rows of one column, i.e. two
+//     bytes of two packed rows: the thread reads packed rows 2 tig + 8 m and the
+//     next (m = 0 .. 3: k 4 tig .. + 3 and 16 + 4 tig .. + 3 of the stage's two
+//     32-deep pieces), 144 bytes apart, and builds each register with
+//     nibble_columns (wgmma.cuh): the nibbles as n - 8 in s8, a byte permute, two
+//     masks, two permutes and two logic / add pairs for two registers. The token
+//     tile is a width the s8 product takes (24, 32, 48, 64, 80). A group's int32
+//     sum is exact (|sum| <= 128 * 127 * 8 < 2^24) and becomes f32 once; it is
+//     multiplied by its scale and added into the f32 total as two roundings, in
+//     group order, as the TPU kernel does (acc += part * s); the total times sx,
+//     one cast. The kernel starts while the quantiser ahead of it runs
+//     (programmatic dependent launch): the weight and scale copies of the first
+//     stages are in flight before it waits for xq and sx.
 //
-// What bounds it (NVIDIA H100 80GB HBM3, 700 W, M = 926, 300-375 TFLOP/s): not
-// the tensor cores (about a third of their rate). Builds with parts switched
-// off: no unpacking 3%, no wait at a group's end 5%, half the x tile's bytes 5%,
-// no weight and scale copies 24% while those were 4-byte copies (16-byte ones
-// took 10% off). What is left is the chain of a stage on one warpgroup, some
-// 300 instructions, many on the half-rate integer pipe. Tried and dropped: a
-// scale pass per slab beside the other slab's products (the assembler then makes
-// every product wait for the one before it, see stage()); three blocks an SM at
-// 56 rows (slower by a third).
+// The two slabs alternate: while the tensor cores run one slab's products of a
+// stage, the threads unpack the other's operand. After a group's last stage the
+// block waits for its products and adds both slabs' group sums times their
+// scales into the totals (f32); a group's first product starts its sum anew
+// (scale-d 0, a separate instruction known when compiled). Two blocks share an SM
+// and fill each other's gaps. A K split covers whole groups and writes its f32
+// totals as a partial.
+//
+// What bounds it (NVIDIA H100 80GB HBM3, 700 W, bf16 x, M = 926, 300-375
+// TFLOP/s): not the tensor cores (about a third of their rate). Builds with parts
+// switched off: no unpacking 3%, no wait at a group's end 5%, half the x tile's
+// bytes 5%, no weight and scale copies 24% while those were 4-byte copies
+// (16-byte ones took 10% off). What is left is the chain of a stage on one
+// warpgroup, some 300 instructions, many on the half-rate integer pipe. Tried and
+// dropped: a scale pass per slab beside the other slab's products (the assembler
+// then makes every product wait for the one before it, see stage()); three blocks
+// an SM at 56 rows (slower by a third).
 namespace w4 {
 
 using namespace wg;
@@ -343,25 +366,45 @@ constexpr int kSlabs = 2;             // 64-column slabs of the weight per block
 constexpr int kBN = 64 * kSlabs;      // weight columns per block
 constexpr int kKS = 64;               // contraction depth of a stage
 constexpr int kStages = 6;            // ring slots; kStages - 2 stages are in flight
-constexpr int kWRow = 160;            // bytes from one packed row of a stage to the next
-constexpr int kWBytes = (kKS / 2) * kWRow;
 constexpr int kSBytes = kBN * 2;      // the group's scales of the block's columns
 
-// tiles start on 1024 bytes
-__host__ __device__ constexpr int stage_bytes(int TM) {
-  return TM * 128 + (kWBytes + kSBytes + 1023) / 1024 * 1024;
-}
-__host__ __device__ constexpr int smem_bytes(int TM) { return kStages * stage_bytes(TM) + kAlignSlack; }
+// what the two operand types change: the x tile's row bytes, the packed rows'
+// stride, the pieces of a stage, the group sums' type
+template <bool A8> struct Operand {
+  using X = bf16;
+  using Grp = float;
+  static constexpr int kXRow = 128, kWRow = 160, kPieces = 4;
+};
+template <> struct Operand<true> {
+  using X = int8_t;
+  using Grp = int;
+  static constexpr int kXRow = 64, kWRow = 144, kPieces = 2;
+};
 
-// the [64 x 16] operands of a stage's four products for slab SLAB, from this
-// thread's eight words (word q: packed row tig + 4 q of its four columns, the
+// the x tile, then the packed bytes and the scales from a multiple of 1024 bytes
+template <bool A8> __host__ __device__ constexpr int stage_bytes(int TM) {
+  return TM * Operand<A8>::kXRow + ((kKS / 2) * Operand<A8>::kWRow + kSBytes + 1023) / 1024 * 1024;
+}
+template <bool A8> __host__ __device__ constexpr int smem_bytes(int TM) {
+  return kStages * stage_bytes<A8>(TM) + kAlignSlack;
+}
+
+// the constants the unpacking holds in registers: 0x43 in every byte (bf16 x), the
+// masks and biases of nibble_columns (int8 x)
+struct UnpackConsts {
+  uint32_t bias, m0f, m78, m80;
+};
+
+// bf16 x: the [64 x 16] operands of a stage's four products for slab SLAB, from
+// this thread's eight words (word q: packed row tig + 4 q of its four columns, the
 // slab's two in bytes 2 SLAB and 2 SLAB + 1). 0x4300 | n is the bf16 128 + n
 // (its ulp is 1 there), and subtracting 136 is exact: byte permutes put the low
 // and the high nibbles of the two columns beside 0x43, one subtraction makes
 // each a pair of values, two more permutes sort them by column.
 template <int SLAB>
 __device__ __forceinline__ void unpack(uint32_t (&a)[4][4], const uint32_t (&wq)[8],
-                                       uint32_t bias) {
+                                       const UnpackConsts& k) {
+  const uint32_t bias = k.bias;
   const __nv_bfloat162 offset = as_bf162(0x43084308u);   // the bf16 pair (136, 136)
 #pragma unroll
   for (int q = 0; q < 8; ++q) {
@@ -374,21 +417,66 @@ __device__ __forceinline__ void unpack(uint32_t (&a)[4][4], const uint32_t (&wq)
     a[q >> 1][2 * (q & 1) + 1] = __byte_perm(even, odd, 0x7632u);   // column 1
   }
 }
+// int8 x: the [64 x 32] s8 operands of a stage's two products for slab SLAB, from
+// this thread's eight words (words 2 m, 2 m + 1: packed rows 2 tig + 8 m and the
+// next, i.e. K rows 16 m + 4 tig .. + 3): piece p takes m = 2 p (registers 0, 1:
+// k 4 tig ..) and 2 p + 1 (registers 2, 3: k 16 + 4 tig ..), row gid the slab's
+// first column, row gid + 8 its second
+template <int SLAB>
+__device__ __forceinline__ void unpack(uint32_t (&a)[2][4], const uint32_t (&wq)[8],
+                                       const UnpackConsts& k) {
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    nibble_columns<SLAB>(a[p][0], a[p][1], wq[4 * p], wq[4 * p + 1], k.m0f, k.m78, k.m80);
+    nibble_columns<SLAB>(a[p][2], a[p][3], wq[4 * p + 2], wq[4 * p + 3], k.m0f, k.m78, k.m80);
+  }
+}
+// a slab's products of a stage (ACC 0: the first of a group's, whose sums start
+// anew); the descriptors of a stage's pieces (128-byte rows, or 64-byte int8 rows)
+template <int TM, int ACC>
+__device__ __forceinline__ void slab_products(float (&grp)[TM / 2], const uint32_t (&a)[4][4],
+                                              const uint64_t (&xd)[4]) {
+  wgmma_rs<TM>(grp, a[0], xd[0], ACC);
+#pragma unroll
+  for (int p = 1; p < 4; ++p) wgmma_rs<TM>(grp, a[p], xd[p], 1);
+}
+template <int TM, int ACC>
+__device__ __forceinline__ void slab_products(int (&grp)[TM / 2], const uint32_t (&a)[2][4],
+                                              const uint64_t (&xd)[2]) {
+  wgmma_rs_s8<TM>(grp, a[0], xd[0], ACC);
+  wgmma_rs_s8<TM>(grp, a[1], xd[1], 1);
+}
+__device__ __forceinline__ void desc_pieces(uint64_t (&d)[4], uint32_t tile) {
+  wg_desc_pieces(d, tile);
+}
+__device__ __forceinline__ void desc_pieces(uint64_t (&d)[2], uint32_t tile) {
+  wg_desc64_pieces(d, tile);
+}
+// tot + grp * s: f32 group sums by one fused multiply-add; int32 ones made f32 once
+// (exactly: |sum| <= 128 * 127 * 8 < 2^24), then a product and a sum rounded each,
+// as the TPU kernel's acc += part * s
+__device__ __forceinline__ float scaled_add(float tot, float grp, float s) {
+  return fmaf(grp, s, tot);
+}
+__device__ __forceinline__ float scaled_add(float tot, int grp, float s) {
+  return __fadd_rn(tot, __fmul_rn(static_cast<float>(grp), s));
+}
 // tot += grp * (the row's scale): rows gid (elements 4 j, 4 j + 1) and gid + 8
-template <int NA>
-__device__ __forceinline__ void add_scaled(float (&tot)[NA], const float (&grp)[NA], float s_a,
+template <int NA, typename Grp>
+__device__ __forceinline__ void add_scaled(float (&tot)[NA], const Grp (&grp)[NA], float s_a,
                                            float s_b) {
 #pragma unroll
-  for (int e = 0; e < NA; ++e) tot[e] = fmaf(grp[e], (e & 2) ? s_b : s_a, tot[e]);
+  for (int e = 0; e < NA; ++e) tot[e] = scaled_add(tot[e], grp[e], (e & 2) ? s_b : s_a);
 }
 
-template <int TM>
+template <bool A8, int TM>
 __global__ void __launch_bounds__(kWgThreads, 2)
-int4_mm_wgmma_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ w,
-                     const bf16* __restrict__ scale4, bf16* __restrict__ y,
-                     float* __restrict__ ws, int M, int K, int N, int G, int k_per_split,
-                     int splits) {
-  constexpr int kStage = stage_bytes(TM), NA = TM / 2;
+int4_mm_wgmma_kernel(const typename Operand<A8>::X* __restrict__ x, const float* __restrict__ sx,
+                     const uint8_t* __restrict__ w, const bf16* __restrict__ scale4,
+                     bf16* __restrict__ y, float* __restrict__ ws, int M, int K, int N, int G,
+                     int k_per_split, int splits) {
+  using Op = Operand<A8>;
+  constexpr int kStage = stage_bytes<A8>(TM), NA = TM / 2, P = Op::kPieces, kWRow = Op::kWRow;
   extern __shared__ __align__(128) unsigned char smem_w4[];
   unsigned char* ring = align_tiles(smem_w4);
   const uint32_t ring_a = smem_addr(ring);
@@ -403,9 +491,9 @@ int4_mm_wgmma_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ w,
   const bool n_ok = n4 < N;
   // its share of a stage's copies: rows of the x tile, two 16-byte chunks of the
   // packed bytes (row idx / 8, columns 16 (idx % 8) ..), and for 16 threads 8 scales
-  const RowsCopy<TM> copy_x(static_cast<size_t>(K));
-  const bf16* xsrc = x + static_cast<size_t>(m0) * K + kbeg;
-  constexpr int kWOff = TM * 128, kSOff = kWOff + kWBytes;
+  const std::conditional_t<A8, Rows64Copy<TM>, RowsCopy<TM>> copy_x(static_cast<size_t>(K));
+  const typename Op::X* xsrc = x + static_cast<size_t>(m0) * K + kbeg;
+  constexpr int kWOff = TM * Op::kXRow, kSOff = kWOff + (kKS / 2) * kWRow;
   const uint8_t* wsrc[2];
   uint32_t wdst[2];
   bool wok[2];
@@ -418,40 +506,65 @@ int4_mm_wgmma_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ w,
   }
   const bool sok = tid < 16 && n0 + tid * 8 < N;
   const bf16* ssrc = scale4 + (sok ? n0 + tid * 8 : 0);
-  auto load = [&](int i) {   // stage i of this split into its slot
+  auto load_w = [&](int i) {   // the packed bytes and scales of stage i of this split into its slot
     const uint32_t st = ring_a + (i % kStages) * kStage;
-    copy_x(st, xsrc + i * kKS, M - m0);
     const size_t rows = static_cast<size_t>(i) * (kKS / 2) * N;
 #pragma unroll
     for (int c = 0; c < 2; ++c) cp_async16(st + wdst[c], wsrc[c] + rows, wok[c]);
     if (tid < 16)
       cp_async16(st + kSOff + tid * 16, ssrc + static_cast<size_t>((kbeg + i * kKS) / G) * N, sok);
   };
-  // the packed rows tig + 4 q of its four columns, and their scales
-  const int w_off = kWOff + tig * kWRow + (8 * warp + gid) * 4;
+  auto load = [&](int i) {     // stage i of this split into its slot
+    copy_x(ring_a + (i % kStages) * kStage, xsrc + i * kKS, M - m0);
+    load_w(i);
+  };
+  // bf16: packed row tig of a stage at this thread's four columns (its words: rows
+  // tig + 4 q); int8: row 2 tig (its words: rows 2 tig + (q & 1) + 8 (q >> 1));
+  // and their scales
+  const int w_off = kWOff + (A8 ? 2 : 1) * tig * kWRow + (8 * warp + gid) * 4;
   const int s_off = kSOff + (8 * warp + gid) * 8;
 
-  float tot[kSlabs][NA], grp[kSlabs][NA];
+  float tot[kSlabs][NA];
+  typename Op::Grp grp[kSlabs][NA];
 #pragma unroll
   for (int s = 0; s < kSlabs; ++s)
 #pragma unroll
-    for (int e = 0; e < NA; ++e) tot[s][e] = grp[s][e] = 0.f;
-  uint32_t a0[4][4], a1[4][4];
+    for (int e = 0; e < NA; ++e) {
+      tot[s][e] = 0.f;
+      grp[s][e] = 0;
+    }
+  uint32_t a0[P][4], a1[P][4];
 #pragma unroll
-  for (int p = 0; p < 4; ++p)
+  for (int p = 0; p < P; ++p)
 #pragma unroll
     for (int e = 0; e < 4; ++e) a0[p][e] = a1[p][e] = 0u;
-  const uint32_t bias = bias_bytes();
+  const UnpackConsts k = A8 ? UnpackConsts{0u, pinned(0x0F0F0F0Fu), pinned(0x78787878u),
+                                            pinned(0x80808080u)}
+                            : UnpackConsts{bias_bytes(), 0u, 0u, 0u};
 
+  if constexpr (A8) {
+    // the packed bytes and scales of the first stages do not depend on the
+    // quantiser ahead of this kernel: in flight before waiting for its xq and sx
 #pragma unroll
-  for (int i = 0; i < kStages - 2; ++i) {
-    if (i < nst) load(i);
-    cp_async_commit();
+    for (int i = 0; i < kStages - 2; ++i)
+      if (i < nst) load_w(i);
+    wait_prior_grid();
+#pragma unroll
+    for (int i = 0; i < kStages - 2; ++i) {
+      if (i < nst) copy_x(ring_a + i * kStage, xsrc + i * kKS, M - m0);
+      cp_async_commit();
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kStages - 2; ++i) {
+      if (i < nst) load(i);
+      cp_async_commit();
+    }
   }
   // One stage; first: it opens a group, whose sums start anew (known when
   // compiled). The assembler follows which products are in flight only so far:
   // whatever defines an input of a product (operand registers, descriptors) is
-  // pinned before the first product of its four, and no accumulator is read
+  // pinned before the first product of its batch, and no accumulator is read
   // while a product of an earlier stage may be in flight. Otherwise it makes
   // every product wait for the one before it.
   auto stage = [&](int i, auto first) {
@@ -463,30 +576,26 @@ int4_mm_wgmma_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ w,
     cp_async_commit();
 
     const int slot = i % kStages;
-    const unsigned char* st = ring + slot * kStage;
+    const unsigned char* st = ring + slot * kStage + w_off;
     uint32_t wq[8];
 #pragma unroll
     for (int q = 0; q < 8; ++q)
-      wq[q] = *reinterpret_cast<const uint32_t*>(st + w_off + q * 4 * kWRow);
-    uint64_t xd[4];
-    wg_desc_pieces(xd, ring_a + slot * kStage);
+      wq[q] = lds32(st + (A8 ? (q & 1) + 8 * (q >> 1) : 4 * q) * kWRow);
+    uint64_t xd[P];
+    desc_pieces(xd, ring_a + slot * kStage);
     keep(a0);
-    unpack<0>(a0, wq, bias);
+    unpack<0>(a0, wq, k);
     keep(a0);
     wg_fence();
-    wgmma_rs<TM>(grp[0], a0[0], xd[0], kAccumulate);
-#pragma unroll
-    for (int p = 1; p < 4; ++p) wgmma_rs<TM>(grp[0], a0[p], xd[p], 1);
+    slab_products<TM, kAccumulate>(grp[0], a0, xd);
     wg_commit();
 
     wg_wait<1>();                   // slab 1 of stage i - 1 is done: a1 is free
     keep(a1);
-    unpack<1>(a1, wq, bias);
+    unpack<1>(a1, wq, k);
     keep(a1);
     wg_fence();
-    wgmma_rs<TM>(grp[1], a1[0], xd[0], kAccumulate);
-#pragma unroll
-    for (int p = 1; p < 4; ++p) wgmma_rs<TM>(grp[1], a1[p], xd[p], 1);
+    slab_products<TM, kAccumulate>(grp[1], a1, xd);
     wg_commit();
   };
   for (int i = 0; i < nst; i += gs) {
@@ -514,58 +623,97 @@ int4_mm_wgmma_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ w,
     for (int b = 0; b < 2; ++b) {
       const int m = m0 + 8 * j + 2 * tig + b;
       if (m >= M) continue;
-      const float v0 = tot[0][4 * j + b], v1 = tot[0][4 * j + 2 + b];
-      const float v2 = tot[1][4 * j + b], v3 = tot[1][4 * j + 2 + b];
+      float v[4] = {tot[0][4 * j + b], tot[0][4 * j + 2 + b], tot[1][4 * j + b],
+                    tot[1][4 * j + 2 + b]};
       if (splits == 1) {
-        const __nv_bfloat162 lo = __floats2bfloat162_rn(v0, v1), hi = __floats2bfloat162_rn(v2, v3);
+        if constexpr (A8) {
+          const float s = sx[m];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) v[e] *= s;
+        }
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
         *reinterpret_cast<uint2*>(y + static_cast<size_t>(m) * N + n4) =
-            make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
-                       *reinterpret_cast<const uint32_t*>(&hi));
+            make_uint2(as_u32(lo), as_u32(hi));
       } else {
         *reinterpret_cast<float4*>(ws + (static_cast<size_t>(blockIdx.z) * M + m) * N + n4) =
-            make_float4(v0, v1, v2, v3);
+            make_float4(v[0], v[1], v[2], v[3]);
       }
     }
 }
 
-template <int TM>
-cudaError_t launch_tile(const void* x, const uint8_t* w, const bf16* scale4, void* y, float* ws,
-                        int M, int K, int N, int G, int splits, cudaStream_t st) {
-  cudaError_t err = allow_smem(int4_mm_wgmma_kernel<TM>, smem_bytes(TM));
+template <bool A8, int TM>
+cudaError_t launch_tile(const void* x, const float* sx, const uint8_t* w, const bf16* scale4,
+                        void* y, float* ws, int M, int K, int N, int G, int splits,
+                        cudaStream_t st) {
+  cudaError_t err = allow_smem(int4_mm_wgmma_kernel<A8, TM>, smem_bytes<A8>(TM));
   if (err != cudaSuccess) return err;
   // whole groups a split; a split past K writes zeros
   const int kps = ((K / G + splits - 1) / splits) * G;
   // token tiles run fastest: the blocks in flight share a few column blocks of W
   const dim3 grid((M + TM - 1) / TM, (N + kBN - 1) / kBN, splits);
-  int4_mm_wgmma_kernel<TM><<<grid, kWgThreads, smem_bytes(TM), st>>>(
-      static_cast<const bf16*>(x), w, scale4, static_cast<bf16*>(y), ws, M, K, N, G, kps, splits);
+  const auto* xp = static_cast<const typename Operand<A8>::X*>(x);
+  bf16* yp = static_cast<bf16*>(y);
+  if constexpr (A8)   // starts while the quantiser ahead of it runs
+    return launch_after_prior_grid(int4_mm_wgmma_kernel<A8, TM>, grid, dim3(kWgThreads),
+                                   smem_bytes<A8>(TM), st, xp, sx, w, scale4, yp, ws, M, K, N, G,
+                                   kps, splits);
+  int4_mm_wgmma_kernel<A8, TM><<<grid, kWgThreads, smem_bytes<A8>(TM), st>>>(
+      xp, sx, w, scale4, yp, ws, M, K, N, G, kps, splits);
   return cudaGetLastError();
 }
 
-cudaError_t launch(const void* x, const uint8_t* w, const bf16* scale4, void* y, float* ws, int M,
-                   int K, int N, int G, int splits, int tile, cudaStream_t st) {
+// the token tiles of each operand type: multiples of 8 from 16 to 80 for bf16; for
+// int8 the widths the s8 product takes up to 80
+#define AHA_W4_TILES(X) X(16) X(24) X(32) X(40) X(48) X(56) X(64) X(72) X(80)
+#define AHA_W4A8_TILES(X) X(24) X(32) X(48) X(64) X(80)
+
+template <bool A8>
+cudaError_t launch(const void* x, const float* sx, const uint8_t* w, const bf16* scale4, void* y,
+                   float* ws, int M, int K, int N, int G, int splits, int tile, cudaStream_t st) {
   if (G % kKS != 0 || N % 16 != 0 || (N + kBN - 1) / kBN > 65535) return cudaErrorInvalidValue;
-  switch (tile) {   // 14 rows and more: 16 .. 80
 #define AHA_TILE(TM) \
-  case TM: return launch_tile<TM>(x, w, scale4, y, ws, M, K, N, G, splits, st);
-    AHA_TILE(16) AHA_TILE(24) AHA_TILE(32) AHA_TILE(40) AHA_TILE(48) AHA_TILE(56) AHA_TILE(64)
-    AHA_TILE(72) AHA_TILE(80)
-#undef AHA_TILE
-    default: return cudaErrorInvalidValue;
+  case TM: return launch_tile<A8, TM>(x, sx, w, scale4, y, ws, M, K, N, G, splits, st);
+  if constexpr (A8) {
+    switch (tile) {
+      AHA_W4A8_TILES(AHA_TILE)
+      default: return cudaErrorInvalidValue;
+    }
+  } else {
+    switch (tile) {
+      AHA_W4_TILES(AHA_TILE)
+      default: return cudaErrorInvalidValue;
+    }
   }
+#undef AHA_TILE
+}
+
+int smem_of(int tile, bool a8) {
+#define AHA_TILE(TM) \
+  case TM: return a8 ? smem_bytes<true>(TM) : smem_bytes<false>(TM);
+  if (a8) {
+    switch (tile) {
+      AHA_W4A8_TILES(AHA_TILE)
+      default: return -1;
+    }
+  }
+  switch (tile) {
+    AHA_W4_TILES(AHA_TILE)
+    default: return -1;
+  }
+#undef AHA_TILE
 }
 
 }  // namespace w4
 
-// ---- decode rows (1 .. 16), bf16 x, weight-only, G % 64 == 0, N % 16 == 0: mma.sync ------------
+// ---- decode rows (1 .. 16), G % 64 == 0, N % 16 == 0: mma.sync, bf16 x or int8 x ----------
 //
 // A token (1 row) and a verify pass (2 .. 16 rows) move K N / 2 weight bytes for
 // at most 32 M K N operations: bytes bound them by two orders of magnitude, so
 // the design is about weight bytes in flight, with the unpacking cheap and off
 // the copies' path. One kernel, one plan and one order of sums for every M from
-// 1 to 16: x is the A operand of mma.sync m16n8k16 (16 token rows, those past M
-// zero), so a row's output is the same bits whether it goes alone or with 15
-// others.
+// 1 to 16: x is the A operand of mma.sync (16 token rows, those past M zero), so
+// a row's output is the same bits whether it goes alone or with 15 others.
 //
 // Route: mma.sync per warp rather than wgmma. Four warps a block, each on its
 // own 32 weight columns, and four blocks an SM: 16 warps an SM, none of which
@@ -574,27 +722,44 @@ cudaError_t launch(const void* x, const uint8_t* w, const bf16* scale4, void* y,
 //
 // A block owns 128 weight columns and a K split of whole groups, and walks it in
 // stages of 64 rows through a ring of kStages slots filled by cp.async, all but
-// one in flight (6 x 4 KB of weight a block, 96 KB an SM). A stage holds the x
-// tile (16 rows of 128 bytes, swizzled: ldmatrix reads it without conflicts), the
-// packed bytes (32 packed rows of the block's 128 columns, 160 bytes apart, so
-// that the four rows a warp reads at once fall in distinct banks) and the group's
-// 128 scales, all in 16-byte copies. The thread (gid, tig) of warp w reads the
-// 32-bit word of packed rows tig + 4 q at columns 32 w + 4 gid .. + 3: byte t of
-// it is the (2 j, 2 j + 1) pair of column 32 w + 4 gid + t, which is its B
-// register for column gid of n-tile t (the columns are relabelled, no data is
-// shuffled). One byte permute, one logic operation and one bf16x2 subtraction
-// make a register (nibble_pair). Its accumulator element (n-tile t, column
-// 2 tig + e) is weight column 32 w + 8 tig + 4 e + t: the eight columns
-// 32 w + 8 tig .. + 7 of tokens gid and gid + 8 leave as 16-byte stores.
+// one in flight. A stage holds the x tile (16 rows, swizzled: ldmatrix reads it
+// without conflicts), the packed bytes (32 packed rows of the block's 128
+// columns, rows apart by a stride at which the rows a warp reads at once fall in
+// distinct banks) and the group's 128 scales, all in 16-byte copies. The thread
+// (gid, tig) of warp w reads 32-bit words of packed rows at columns 32 w + 4 gid
+// .. + 3: byte t of a word is column 32 w + 4 gid + t, its B register for column
+// gid of n-tile t (the columns are relabelled, no data is shuffled). Its
+// accumulator element (n-tile t, column 2 tig + e) is weight column
+// 32 w + 8 tig + 4 e + t: the eight columns 32 w + 8 tig .. + 7 of tokens gid and
+// gid + 8 leave as 16-byte stores. Two operand types, one kernel (A8):
+//   * bf16 x, weight-only: m16n8k16 bf16 into f32 group sums, x rows of 128
+//     bytes in the 128-byte swizzle, packed rows 160 bytes apart. The thread reads
+//     packed rows tig + 4 q: byte t of a word is the (2 j, 2 j + 1) pair of its
+//     n-tile t. One byte permute, one logic operation and one bf16x2 subtraction
+//     make a register (nibble_pair).
+//   * int8 x (xq, sx from csrc/quantize_rows.cu): m16n8k32 s8 into exact int32
+//     group sums, x rows of 64 bytes in the 64-byte swizzle, packed rows 144 bytes
+//     apart. A B register is four consecutive K rows of one column, two bytes of
+//     two packed rows: the thread reads rows 2 tig + 8 m and the next (m = 0 .. 3:
+//     k 4 tig .. + 3 and 16 + 4 tig .. + 3 of the stage's two 32-deep pieces) and
+//     builds its registers with nibble_columns (wgmma.cuh): the nibbles as
+//     n - 8 in s8, ten instructions for two registers, 80 a stage where the bf16
+//     kernel spends 96 on twice the registers. A group's int32 sum (exact,
+//     |sum| < 2^24) becomes f32 once and is multiplied by its scale and added
+//     into the total as two roundings, in group order, as the TPU kernel's
+//     acc += part * s. The kernel starts while the quantiser ahead of it runs
+//     (programmatic dependent launch): the weight and scale copies of the first
+//     stages are in flight before it waits for xq and sx.
 //
 // The group sums alternate between two register sets: group g sums into set
 // g % 2, and the set of group g - 1 is scaled into the totals (f32) after the
 // first stage of group g has issued its products, so no warp waits for a
-// group's last product. A K split writes its f32 totals as a partial and
-// splitk_reduce adds the splits in a fixed order.
+// group's last product. With one split the epilogue multiplies int8 x's totals
+// by sx; a K split writes its f32 totals as a partial and splitk_reduce adds the
+// splits in a fixed order (then sx).
 //
-// What bounds it (NVIDIA H100 80GB HBM3, 700 W): not the memory but each SM's
-// issue of the instructions a warp spends on a stage (one third of them the
+// What bounds it (NVIDIA H100 80GB HBM3, 700 W, bf16 x): not the memory but each
+// SM's issue of the instructions a warp spends on a stage (one third of them the
 // unpacking). With parts switched off, the copies alone came near the memory
 // rate, the unpacking and the products alone took longer than the copies, and
 // weights that stay in L2 were no faster. Three things helped: the wait for a
@@ -615,12 +780,18 @@ constexpr int kTM = 16;                       // token rows, the A operand's 16
 constexpr int kKS = 64;                       // contraction depth of a stage
 constexpr int kStages = 7;                    // ring slots; kStages - 1 stages in flight
 constexpr int kBlocksPerSm = 4;               // 16 warps an SM
-constexpr int kWRow = kBN + 32;               // bytes from one packed row of a stage to the next
-constexpr int kXBytes = kTM * 128;
-constexpr int kWBytes = (kKS / 2) * kWRow;
-constexpr int kSBytes = kBN * 2;
-constexpr int kStage = kXBytes + kWBytes + kSBytes;   // 7424: a multiple of 128
-constexpr int kSmem = kStages * kStage;
+
+// a ring slot: the x tile, the packed rows and the scales (bf16 x: 7424 bytes, int8
+// x: 5888; multiples of 128)
+template <bool A8> struct Slot {
+  static_assert(kBN == w4::kBN && kKS == w4::kKS, "w4::Operand's rows are for this block");
+  static constexpr int kXRow = w4::Operand<A8>::kXRow, kWRow = w4::Operand<A8>::kWRow;
+  static constexpr int kXBytes = kTM * kXRow;
+  static constexpr int kWBytes = (kKS / 2) * kWRow;
+  static constexpr int kSBytes = kBN * 2;
+  static constexpr int kBytes = kXBytes + kWBytes + kSBytes;
+  static constexpr int kSmem = kStages * kBytes;
+};
 
 // the bf16 pair (low nibble - 8, high nibble - 8) of byte T of v (v4 = v >> 4):
 // the permute puts byte T of v in byte 0 and byte T of v4 in byte 2, one logic
@@ -637,16 +808,46 @@ __device__ __forceinline__ uint32_t nibble_pair(uint32_t v, uint32_t v4, uint32_
       : "r"(__byte_perm(v, v4, sel)), "r"(mask), "r"(magic));
   return as_u32(__hsub2(as_bf162(biased), as_bf162(0x43084308u)));
 }
+// A 16-deep (bf16 x) or 32-deep (int8 x) piece p of a stage: its four products
+// (n-tiles 0 .. 3) on the x registers a and the thread's eight words wq, into acc.
+// bf16: words 2 p, 2 p + 1 (packed rows 8 p + tig, + 4), one nibble_pair a register;
+// int8: words 4 p .. 4 p + 3 (k 4 tig .. + 3 and 16 + 4 tig .. + 3), nibble_columns.
+// c0, c1, c2: the unpacking's constants (mask and magic; m0f, m78 and m80)
+__device__ __forceinline__ void piece_products(float (&acc)[4][4], const uint32_t (&a)[4],
+                                               const uint32_t (&wq)[8], int p, uint32_t c0,
+                                               uint32_t c1, uint32_t) {
+  const uint32_t v0 = wq[2 * p], v1 = wq[2 * p + 1], v04 = v0 >> 4, v14 = v1 >> 4;
+  mma_bf16(acc[0], a, nibble_pair<0>(v0, v04, c0, c1), nibble_pair<0>(v1, v14, c0, c1));
+  mma_bf16(acc[1], a, nibble_pair<1>(v0, v04, c0, c1), nibble_pair<1>(v1, v14, c0, c1));
+  mma_bf16(acc[2], a, nibble_pair<2>(v0, v04, c0, c1), nibble_pair<2>(v1, v14, c0, c1));
+  mma_bf16(acc[3], a, nibble_pair<3>(v0, v04, c0, c1), nibble_pair<3>(v1, v14, c0, c1));
+}
+__device__ __forceinline__ void piece_products(int (&acc)[4][4], const uint32_t (&a)[4],
+                                               const uint32_t (&wq)[8], int p, uint32_t c0,
+                                               uint32_t c1, uint32_t c2) {
+  uint32_t b0[4], b1[4];   // n-tile t: k 4 tig .. + 3, and 16 + 4 tig .. + 3
+  nibble_columns<0>(b0[0], b0[1], wq[4 * p], wq[4 * p + 1], c0, c1, c2);
+  nibble_columns<1>(b0[2], b0[3], wq[4 * p], wq[4 * p + 1], c0, c1, c2);
+  nibble_columns<0>(b1[0], b1[1], wq[4 * p + 2], wq[4 * p + 3], c0, c1, c2);
+  nibble_columns<1>(b1[2], b1[3], wq[4 * p + 2], wq[4 * p + 3], c0, c1, c2);
+#pragma unroll
+  for (int t = 0; t < 4; ++t) mma_s8(acc[t], a, b0[t], b1[t]);
+}
 // bf16 h (0: the low half, 1: the high half) of a word, as f32
 __device__ __forceinline__ float half_f32(uint32_t word, int h) {
   return __uint_as_float(h ? (word & 0xffff0000u) : (word << 16));
 }
 
+template <bool A8>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
-int4_mm_decode_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ w,
+int4_mm_decode_kernel(const typename w4::Operand<A8>::X* __restrict__ x,
+                      const float* __restrict__ sx, const uint8_t* __restrict__ w,
                       const bf16* __restrict__ scale4, bf16* __restrict__ y,
                       float* __restrict__ ws, int M, int K, int N, int G, int groups_per_split,
                       int splits) {
+  using S = Slot<A8>;
+  constexpr int kStage = S::kBytes, kXBytes = S::kXBytes, kWRow = S::kWRow;
+  constexpr int kSOff = kXBytes + S::kWBytes;
   extern __shared__ __align__(128) unsigned char smem_w4d[];
   const uint32_t ring_a = smem_addr(smem_w4d);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gid = lane >> 2, tig = lane & 3;
@@ -660,8 +861,8 @@ int4_mm_decode_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ w,
   // this thread's share of a stage's copies, as running sources: one chunk of
   // the x tile (rows past M are zeros), two 16-byte chunks of the packed bytes
   // (row idx / 8, columns 16 (idx % 8) ..), and for 16 threads 8 scales
-  const RowsCopy<kTM> copy_x(static_cast<size_t>(K));
-  const bf16* xsrc = x + kbeg;
+  const std::conditional_t<A8, Rows64Copy<kTM>, RowsCopy<kTM>> copy_x(static_cast<size_t>(K));
+  const typename w4::Operand<A8>::X* xsrc = x + kbeg;
   const uint8_t* wsrc[2];
   uint32_t wdst[2];
   bool wok[2];
@@ -675,49 +876,89 @@ int4_mm_decode_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ w,
   const size_t wstep = static_cast<size_t>(kKS / 2) * N;
   const bool sok = tid < 16 && n0 + tid * 8 < N;
   const bf16* ssrc = scale4 + static_cast<size_t>(gbeg) * N + (sok ? n0 + tid * 8 : 0);
-  int lslot = 0, lstage = 0, lj = 0;   // the next load: its slot, stage and stage of its group
+  int lj = 0;   // the stage of its group that the packed bytes' and scales' sources are at
+  // the next stage's packed bytes and scales, or its x tile, into ring slot i; each
+  // source then moves on a stage
+  auto load_w = [&](int i) {
+    const uint32_t st = ring_a + i * kStage;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      cp_async16(st + wdst[c], wsrc[c], wok[c]);
+      wsrc[c] += wstep;
+    }
+    if (tid < 16) cp_async16(st + kSOff + tid * 16, ssrc, sok);
+    if (++lj == gs) {
+      lj = 0;
+      ssrc += N;
+    }
+  };
+  auto load_x = [&](int i) {
+    copy_x(ring_a + i * kStage, xsrc, M);
+    xsrc += kKS;
+  };
+  int lslot = kStages - 1, lstage = kStages - 1;   // the next load after the first stages
   auto load = [&]() {
     if (lstage < nst) {
-      const uint32_t st = ring_a + lslot * kStage;
-      copy_x(st, xsrc, M);
-#pragma unroll
-      for (int c = 0; c < 2; ++c) cp_async16(st + wdst[c], wsrc[c], wok[c]);
-      if (tid < 16) cp_async16(st + kXBytes + kWBytes + tid * 16, ssrc, sok);
-      xsrc += kKS;
-#pragma unroll
-      for (int c = 0; c < 2; ++c) wsrc[c] += wstep;
-      if (++lj == gs) {
-        lj = 0;
-        ssrc += N;
-      }
+      load_x(lslot);
+      load_w(lslot);
     }
     cp_async_commit();
     ++lstage;
     lslot = lslot == kStages - 1 ? 0 : lslot + 1;
   };
-  // the packed rows tig + 4 q of its four columns; the scales of its eight output
-  // columns; the row of the x tile that this lane names to ldmatrix (matrix
-  // lane / 8: token rows 8 (lane / 8 % 2) .., k 8 (lane / 16) .. of a piece)
-  const int w_off = kXBytes + tig * kWRow + (32 * warp + 4 * gid);
-  const int s_off = kXBytes + kWBytes + (32 * warp + 8 * tig) * 2;
+  // bf16: packed row tig of a stage at its four columns (its words: rows tig + 4 q);
+  // int8: row 2 tig (its words: rows 2 tig + (q & 1) + 8 (q >> 1)); the scales of
+  // its eight output columns; the row of the x tile that this lane names to
+  // ldmatrix (matrix lane / 8: token rows 8 (lane / 8 % 2) .., the second 16 bytes
+  // of a piece (bf16: k 8 ..) from lane 16)
+  const int w_off = kXBytes + (A8 ? 2 : 1) * tig * kWRow + (32 * warp + 4 * gid);
+  const int s_off = kSOff + (32 * warp + 8 * tig) * 2;
   const int xr = (lane & 7) + ((lane >> 3) & 1) * 8;
-  uint32_t x_off[4];   // the piece's 16-byte chunk of that row, swizzled
+  constexpr int P = A8 ? 2 : 4;   // pieces of a stage: 32 deep (int8) or 16 (bf16)
+  uint32_t x_off[P];   // the piece's 16-byte chunk of that row, swizzled
 #pragma unroll
-  for (int p = 0; p < 4; ++p) x_off[p] = xr * 128 + (((2 * p + (lane >> 4)) ^ (xr & 7)) << 4);
+  for (int p = 0; p < P; ++p)
+    x_off[p] = A8 ? xr * 64 + (((2 * p + (lane >> 4)) ^ ((xr >> 1) & 3)) << 4)
+                  : xr * 128 + (((2 * p + (lane >> 4)) ^ (xr & 7)) << 4);
 
-  float tot[4][4], acc[2][4][4];
+  using Acc = typename w4::Operand<A8>::Grp;
+  float tot[4][4];
+  Acc acc[2][4][4];
 #pragma unroll
   for (int t = 0; t < 4; ++t)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) tot[t][e] = acc[0][t][e] = acc[1][t][e] = 0.f;
+    for (int e = 0; e < 4; ++e) {
+      tot[t][e] = 0.f;
+      acc[0][t][e] = acc[1][t][e] = 0;
+    }
   uint4 sc = make_uint4(0u, 0u, 0u, 0u);   // the scales of the group whose sums wait in a set
-  const uint32_t mask = pinned(0x000F000Fu), magic = pinned(0x43004300u);
+  // bf16: the mask and 0x43 bytes of nibble_pair; int8: those of nibble_columns
+  const uint32_t mask = A8 ? pinned(0x0F0F0F0Fu) : pinned(0x000F000Fu);
+  const uint32_t magic = A8 ? pinned(0x78787878u) : pinned(0x43004300u);
+  const uint32_t m80 = A8 ? pinned(0x80808080u) : 0u;
 
+  // the first stages into slots 0 .. kStages - 2; with int8 x their packed bytes
+  // and scales, which do not depend on the quantiser ahead of this kernel, are in
+  // flight before waiting for its xq and sx
 #pragma unroll
-  for (int i = 0; i < kStages - 1; ++i) load();
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < nst) {
+      if constexpr (!A8) load_x(i);
+      load_w(i);
+    }
+    if constexpr (!A8) cp_async_commit();
+  }
+  if constexpr (A8) {
+    wait_prior_grid();
+#pragma unroll
+    for (int i = 0; i < kStages - 1; ++i) {
+      if (i < nst) load_x(i);
+      cp_async_commit();
+    }
+  }
   int slot = 0;   // of the stage being multiplied
-  // one stage: its four 16-deep pieces, each one ldmatrix of x and four products
-  // (n-tiles 0 .. 3) into set SET; returns the stage's slot
+  // one stage: its 16-deep (bf16) or 32-deep (int8) pieces, each one ldmatrix of x
+  // and four products (n-tiles 0 .. 3) into set SET; returns the stage's slot
   auto stage = [&](auto set) {
     constexpr int SET = decltype(set)::value;
     copies_landed<kStages - 2>();   // this stage has landed
@@ -728,36 +969,30 @@ int4_mm_decode_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ w,
     slot = slot == kStages - 1 ? 0 : slot + 1;
     uint32_t wq[8];
 #pragma unroll
-    for (int q = 0; q < 8; ++q) wq[q] = lds32(st + w_off + q * 4 * kWRow);
+    for (int q = 0; q < 8; ++q)
+      wq[q] = lds32(st + w_off + (A8 ? (q & 1) + 8 * (q >> 1) : 4 * q) * kWRow);
 #pragma unroll
-    for (int p = 0; p < 4; ++p) {
+    for (int p = 0; p < P; ++p) {
       uint32_t a[4];
       ldmatrix_x4(a, sa + x_off[p]);
-      const uint32_t v0 = wq[2 * p], v1 = wq[2 * p + 1], v04 = v0 >> 4, v14 = v1 >> 4;
-      mma_bf16(acc[SET][0], a, nibble_pair<0>(v0, v04, mask, magic),
-               nibble_pair<0>(v1, v14, mask, magic));
-      mma_bf16(acc[SET][1], a, nibble_pair<1>(v0, v04, mask, magic),
-               nibble_pair<1>(v1, v14, mask, magic));
-      mma_bf16(acc[SET][2], a, nibble_pair<2>(v0, v04, mask, magic),
-               nibble_pair<2>(v1, v14, mask, magic));
-      mma_bf16(acc[SET][3], a, nibble_pair<3>(v0, v04, mask, magic),
-               nibble_pair<3>(v1, v14, mask, magic));
+      piece_products(acc[SET], a, wq, p, mask, magic, m80);
     }
     return st;
   };
-  // the group sums of set SET times their scales into the totals; the set starts anew
+  // the group sums of set SET times their scales into the totals (w4::scaled_add);
+  // the set starts anew
   auto flush = [&](auto set) {
     constexpr int SET = decltype(set)::value;
     const uint32_t s[4] = {sc.x, sc.y, sc.z, sc.w};   // columns 8 tig + (0, 1), (2, 3), ..
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
       const float s0 = half_f32(s[t >> 1], t & 1), s1 = half_f32(s[2 + (t >> 1)], t & 1);
-      tot[t][0] = fmaf(acc[SET][t][0], s0, tot[t][0]);
-      tot[t][1] = fmaf(acc[SET][t][1], s1, tot[t][1]);
-      tot[t][2] = fmaf(acc[SET][t][2], s0, tot[t][2]);
-      tot[t][3] = fmaf(acc[SET][t][3], s1, tot[t][3]);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[SET][t][e] = 0.f;
+      for (int e = 0; e < 4; ++e) {
+        const float se = (e & 1) ? s1 : s0;
+        tot[t][e] = w4::scaled_add(tot[t][e], acc[SET][t][e], se);
+        acc[SET][t][e] = 0;
+      }
     }
   };
   // a group into set SET: after its first stage, the set of the group before is
@@ -790,6 +1025,11 @@ int4_mm_decode_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ w,
       v[4 + t] = tot[t][2 * h + 1];
     }
     if (splits == 1) {
+      if constexpr (A8) {
+        const float s = sx[m];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) v[i] *= s;
+      }
       uint32_t o[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) o[i] = as_u32(__floats2bfloat162_rn(v[2 * i], v[2 * i + 1]));
@@ -804,17 +1044,23 @@ int4_mm_decode_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ w,
   }
 }
 
-cudaError_t launch(const void* x, const uint8_t* w, const bf16* scale4, void* y, float* ws, int M,
-                   int K, int N, int G, int splits, cudaStream_t st) {
+template <bool A8>
+cudaError_t launch(const void* x, const float* sx, const uint8_t* w, const bf16* scale4, void* y,
+                   float* ws, int M, int K, int N, int G, int splits, cudaStream_t st) {
   if (M > kTM || G % kKS != 0 || N % 16 != 0 || splits > 65535) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(int4_mm_decode_kernel, kSmem);
+  cudaError_t err = allow_smem(int4_mm_decode_kernel<A8>, Slot<A8>::kSmem);
   if (err != cudaSuccess) return err;
   // whole groups a split; a split past K writes zeros
   const int gps = (K / G + splits - 1) / splits;
   const dim3 grid((N + kBN - 1) / kBN, splits);
-  int4_mm_decode_kernel<<<grid, kThreads, kSmem, st>>>(static_cast<const bf16*>(x), w, scale4,
-                                                       static_cast<bf16*>(y), ws, M, K, N, G, gps,
-                                                       splits);
+  const auto* xp = static_cast<const typename w4::Operand<A8>::X*>(x);
+  bf16* yp = static_cast<bf16*>(y);
+  if constexpr (A8)   // starts while the quantiser ahead of it runs
+    return launch_after_prior_grid(int4_mm_decode_kernel<A8>, grid, dim3(kThreads),
+                                   Slot<A8>::kSmem, st, xp, sx, w, scale4, yp, ws, M, K, N, G,
+                                   gps, splits);
+  int4_mm_decode_kernel<A8><<<grid, kThreads, Slot<A8>::kSmem, st>>>(xp, sx, w, scale4, yp, ws,
+                                                                       M, K, N, G, gps, splits);
   return cudaGetLastError();
 }
 
@@ -872,10 +1118,11 @@ cudaError_t launch(const void* x, const float* sx, const void* w, const void* sc
 // G even. path: 0 scalar CUDA-core loads, 1 16-byte CUDA-core loads
 // (N % 16 == 0, 16-byte aligned weight), 2 tensor cores through mma.sync (M > 1,
 // G % 32 == 0, N % 8 == 0, x 16-byte and weight 8-byte aligned; bf16 x -> bf16 y,
-// or int8 x), 3 tensor cores through wgmma (bf16 x -> bf16 y, G % 64 == 0,
-// N % 16 == 0, x, weight and scales 16-byte aligned, tile: the token tile, a
-// multiple of 8 from 16 to 80; whole groups a split), 4 the decode rows on
-// mma.sync (as 3, M <= 16, tile unused; whole groups a split); the wrapper checks.
+// or int8 x), 3 tensor cores through wgmma (bf16 x, or int8 x, -> bf16 y,
+// G % 64 == 0, N % 16 == 0, x, weight and scales 16-byte aligned, tile: the token
+// tile, a multiple of 8 from 16 to 80 for bf16 x, 24, 32, 48, 64 or 80 for int8 x;
+// whole groups a split), 4 the decode rows on mma.sync (as 3, M <= 16, tile
+// unused; whole groups a split); the wrapper checks.
 extern "C" int aha_int4_matmul(const void* x, const void* sx, const void* w, const void* scale4,
                                void* y, void* workspace, int M, int K, int N, int G,
                                int x_dtype, int y_dtype, int splits, int path, int tile,
@@ -887,14 +1134,20 @@ extern "C" int aha_int4_matmul(const void* x, const void* sx, const void* w, con
   const float* sxf = static_cast<const float*>(sx);
   cudaError_t err = cudaErrorInvalidValue;
   if (path == kWgmma || path == kDecode) {
-    if (x_dtype != AHA_BF16 || y_dtype != AHA_BF16) return static_cast<int>(err);
+    if ((x_dtype != AHA_BF16 && x_dtype != AHA_I8) || y_dtype != AHA_BF16)
+      return static_cast<int>(err);
+    const bool a8 = x_dtype == AHA_I8;
     float* wsf = static_cast<float*>(workspace);
     const uint8_t* wq = static_cast<const uint8_t*>(w);
     const __nv_bfloat16* sc = static_cast<const __nv_bfloat16*>(scale4);
-    err = path == kWgmma ? w4::launch(x, wq, sc, y, wsf, M, K, N, G, splits, tile, st)
-                         : w4d::launch(x, wq, sc, y, wsf, M, K, N, G, splits, st);
+    if (path == kWgmma)
+      err = a8 ? w4::launch<true>(x, sxf, wq, sc, y, wsf, M, K, N, G, splits, tile, st)
+               : w4::launch<false>(x, nullptr, wq, sc, y, wsf, M, K, N, G, splits, tile, st);
+    else
+      err = a8 ? w4d::launch<true>(x, sxf, wq, sc, y, wsf, M, K, N, G, splits, st)
+               : w4d::launch<false>(x, nullptr, wq, sc, y, wsf, M, K, N, G, splits, st);
     if (err == cudaSuccess && splits > 1)
-      err = launch_splitk_reduce<__nv_bfloat16>(wsf, nullptr, nullptr,
+      err = launch_splitk_reduce<__nv_bfloat16>(wsf, nullptr, a8 ? sxf : nullptr,
                                                 static_cast<__nv_bfloat16*>(y), M, N, splits, st);
     return static_cast<int>(err);
   }
@@ -909,4 +1162,13 @@ extern "C" int aha_int4_matmul(const void* x, const void* sx, const void* w, con
     err = launch<int8_t, __nv_bfloat16>(x, sxf, w, scale4, y, workspace, M, K, N, G, splits,
                                         path, st);
   return static_cast<int>(err);
+}
+
+// bytes of dynamic shared memory path 3 (wgmma, at token tile `tile`) or 4 (decode)
+// asks for with bf16 x (a8 = 0) or int8 x (a8 = 1); -1: no such path or tile. The
+// wrapper's plan computes the same number
+extern "C" int aha_int4_matmul_smem(int path, int tile, int a8) {
+  if (path == kWgmma) return w4::smem_of(tile, a8 != 0);
+  if (path == kDecode) return a8 ? w4d::Slot<true>::kSmem : w4d::Slot<false>::kSmem;
+  return -1;
 }

@@ -113,6 +113,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.aha_int8_matmul_a8.restype = I
     lib.aha_int4_matmul.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P]
     lib.aha_int4_matmul.restype = I
+    lib.aha_int4_matmul_smem.argtypes = [I, I, I]
+    lib.aha_int4_matmul_smem.restype = I
     lib.aha_int4_matmul_t.argtypes = [P, P, P, P, I, I, I, I, I, I, I, P]
     lib.aha_int4_matmul_t.restype = I
     lib.aha_flash_attention_fwd.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, F, P]

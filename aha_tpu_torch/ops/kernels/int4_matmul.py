@@ -12,9 +12,10 @@ views ``q4value[l]``, ``scale4[l]``. ``int4_qlinear`` is the same product
 with a gradient for ``x`` (``aha_tpu/ops/pallas/fused_matmul.py::
 int4_qlinear``): forward this kernel, backward ``int4_matmul_t``, nothing for
 the frozen weight and scales. ``plan`` chooses the kernel's path from the
-shapes alone, so the CPU tests hold it: bf16 weight-only at 1 to 16 rows the
-decode kernel (one launch whatever M, so a row gives the same bits at every
-width), from 17 rows the wgmma kernel, the rest the earlier paths.
+shapes alone, so the CPU tests hold it: bf16 x weight-only, and int8
+activations with a bf16 output, at 1 to 16 rows the decode kernel (one launch
+whatever M, so a row gives the same bits at every width), from 17 rows the
+wgmma kernel, the rest the earlier paths.
 
 On a CPU tensor the plain version runs; on a CUDA tensor the kernel
 launches, or the call raises.
@@ -28,6 +29,7 @@ import functools
 import torch
 
 from . import LAUNCHES, _build
+from .int8_matmul import WGMMA_A8_TILES as _A8_WIDTHS
 from .int8_matmul import (DECODE, DECODE_MAX_M, SCALAR, TENSOR_CORE, VEC16, WGMMA, WGMMA_MIN_M,
                           Plan, decode_column, fwd_row_to_column, num_sms, splits_on, token_tile)
 from .int8_matmul import align_of as _align
@@ -70,12 +72,30 @@ def int4_matmul_plain(x: torch.Tensor, q4value: torch.Tensor, scale4: torch.Tens
 
 
 WGMMA_TILE_CAP = 80      # rows of its token tile at most (two accumulator sets of 2 x 40 registers)
+# the widths the s8 warpgroup product takes from 17 rows, up to the cap
+WGMMA_A8_TILES = tuple(t for t in _A8_WIDTHS if t <= WGMMA_TILE_CAP)
+WGMMA_STAGES = 6         # the wgmma kernel's ring slots
 DECODE_STAGES = 7        # the decode kernel's ring slots (x tile, packed bytes, scales a slot)
-DECODE_SMEM = DECODE_STAGES * (16 * 128 + 32 * 160 + 256)
+# bytes of a packed row of a stage's 128 columns (strides at which the rows a warp
+# reads at once fall in distinct banks: rows tig + 4 q for bf16 x, 2 tig + 8 m and
+# the next for int8 x) and of a row of 64 x values
+_W_ROW = {False: 160, True: 144}
+_X_ROW = {False: 128, True: 64}
+# bytes of a decode ring slot: the x tile (16 rows), 32 packed rows, 128 scales
+DECODE_SLOT = {a8: 16 * _X_ROW[a8] + 32 * _W_ROW[a8] + 256 for a8 in (False, True)}
+DECODE_SMEM = DECODE_STAGES * DECODE_SLOT[False]
+DECODE_SMEM_A8 = DECODE_STAGES * DECODE_SLOT[True]
 DECODE_BLOCKS_PER_SM = 4
 
 
-def decode_splits(sms: int, N: int, groups: int) -> int:
+def wgmma_stage_bytes(tile: int, a8: bool = False) -> int:
+    """Bytes of a wgmma ring slot at token tile ``tile``: the x tile, then the
+    packed rows and the scales from a multiple of 1024 bytes (the kernel's
+    ``stage_bytes``)."""
+    return tile * _X_ROW[a8] + -(-(32 * _W_ROW[a8] + 256) // 1024) * 1024
+
+
+def decode_splits(sms: int, N: int, groups: int, a8: bool = False) -> int:
     """K splits of the decode kernel, whole groups each, from the shapes of W
     alone (never from M: a row gives the same bits at any M up to 16). The
     kernel is bound by each SM's issue, not by the memory: a grid of 128-column
@@ -84,12 +104,15 @@ def decode_splits(sms: int, N: int, groups: int) -> int:
     column blocks in 7 splits of 4 groups, o's 28 in 7, down's 28 in 9 of 17: on
     an H100 each was the fastest of 7 / 10 / 14 or 9 / 13 / 17 at 1, 8 and 16
     rows but o at 1 and 8, where 14 was a little faster). A grid between half a
-    round and a round leaves some SMs a third more blocks than others: it is cut
-    in 4, gate_up's 296 blocks into 1,184 of 7 groups. A larger grid (the
-    lm_head's 1,188) takes one."""
+    round and a round leaves some SMs a third more blocks than others: with bf16
+    x it is cut in 4, gate_up's 296 blocks into 1,184 of 7 groups; with int8 x,
+    whose blocks wait for the quantiser ahead of them and issue fewer
+    instructions a stage, it is not cut (on an H100 faster from 4 rows on, a
+    little slower at one: ``chip_smoke.py`` phase 2 times it in 4 splits too). A
+    larger grid (the lm_head's 1,188) takes one."""
     half, blocks = DECODE_BLOCKS_PER_SM * sms // 2, -(-N // 128)
     if blocks > half:
-        return 4 if blocks <= 2 * half and groups >= 16 else 1
+        return 4 if blocks <= 2 * half and groups >= 16 and not a8 else 1
     want = max(1, min(half // blocks, groups, 64))
     per = -(-groups // want)
     return -(-groups // per)
@@ -119,19 +142,24 @@ def wgmma_splits(sms: int, blocks: int, groups: int, stages: int) -> int:
 def plan(M: int, K: int, N: int, G: int, *, bf16: bool, a8: bool = False,
          align: tuple[int, int, int] = (16, 16, 16), sms: int = 132) -> Plan:
     """The launch of ``int4_matmul`` on a card of ``sms`` SMs for x [M, K]
-    (bf16 or f32; ``a8``: quantised to int8 first), q4value [K/2, N], scale4
-    [K/G, N] whose addresses are multiples of ``align`` bytes. Pure (no card
-    is asked) and remembered: a path's shapes recur with every pass."""
+    (bf16 or f32, the output's type; ``a8``: quantised to int8 first), q4value
+    [K/2, N], scale4 [K/G, N] whose addresses (x's: the quantised x's with
+    ``a8``) are multiples of ``align`` bytes. The two Hopper paths take a bf16
+    output, G % 64 == 0, N % 16 == 0 and 16-byte aligned operands, with either
+    operand type under the same conditions: the decode kernel at 1 to 16 rows,
+    the wgmma kernel from 17 (int8 x: a token tile among the s8 widths). Pure (no
+    card is asked) and remembered: a path's shapes recur with every pass."""
     ax, aw, asc = align
-    tensor_cores = (bf16 and not a8 and G % 64 == 0 and N % 16 == 0
-                and ax % 16 == 0 and aw % 16 == 0 and asc % 16 == 0)
+    tensor_cores = (bf16 and G % 64 == 0 and N % 16 == 0
+                    and ax % 16 == 0 and aw % 16 == 0 and asc % 16 == 0)
     if tensor_cores and M <= DECODE_MAX_M:
-        return Plan(DECODE, decode_splits(sms, N, K // G), 16, 1, DECODE_STAGES, DECODE_SMEM)
+        return Plan(DECODE, decode_splits(sms, N, K // G, a8), 16, 1, DECODE_STAGES,
+                    DECODE_SMEM_A8 if a8 else DECODE_SMEM)
     if tensor_cores:
-        tile, tiles = token_tile(M, WGMMA_TILE_CAP)
-        stages = 6
+        tile, tiles = token_tile(M, WGMMA_TILE_CAP, WGMMA_A8_TILES if a8 else None)
         splits = wgmma_splits(sms, tiles * -(-N // 128), K // G, K // 64)
-        return Plan(WGMMA, splits, tile, tiles, stages, stages * (tile * 128 + 6144) + 1024)
+        return Plan(WGMMA, splits, tile, tiles, WGMMA_STAGES,
+                    WGMMA_STAGES * wgmma_stage_bytes(tile, a8) + 1024)
     if (a8 or bf16) and M > 1 and G % 32 == 0 and N % 8 == 0 and ax % 16 == 0 and aw % 8 == 0:
         return Plan(TENSOR_CORE, splits_on(sms, -(-M // 64) * -(-N // 128), K // 256))
     path = VEC16 if N % 16 == 0 and aw % 16 == 0 else SCALAR
@@ -198,9 +226,22 @@ def launch_plan(x2: torch.Tensor, sx: torch.Tensor | None, q4value: torch.Tensor
                 scale4: torch.Tensor, y: torch.Tensor, pl: Plan) -> None:
     """Launch the kernel into ``y`` [M, N] along ``pl`` (x2 [M, K] bf16 / f32, or
     int8 with its row scales ``sx``), checked by ``int4_matmul``. Not counted:
-    ``chip_smoke.py`` also times here the kernels a plan no longer picks."""
+    ``chip_smoke.py`` also times here the kernels a plan no longer picks. Raises
+    on a Hopper plan the kernels would refuse."""
     M, K = x2.shape
     N = q4value.shape[1]
+    if pl.path in (WGMMA, DECODE):
+        if x2.dtype != (torch.bfloat16 if sx is None else torch.int8) or y.dtype != torch.bfloat16:
+            raise ValueError(f"int4_matmul: path {pl.path} takes bf16 x, weight-only, or int8 x "
+                             f"with its row scales, and a bf16 output; got {x2.dtype} x "
+                             f"{'without' if sx is None else 'with'} row scales and a {y.dtype} "
+                             f"output")
+        if pl.path == WGMMA and sx is not None and pl.tile not in WGMMA_A8_TILES:
+            raise ValueError(f"int4_matmul: the int8 wgmma path takes token tiles "
+                             f"{WGMMA_A8_TILES}, got {pl.tile}")
+    if pl.path == DECODE and M > DECODE_MAX_M:
+        raise ValueError(f"int4_matmul: the decode path takes at most {DECODE_MAX_M} rows, "
+                         f"got {M}")
     ws = (torch.empty((pl.splits, M, N), dtype=torch.float32, device=x2.device)
           if pl.splits > 1 else None)
     lib = _build.library()

@@ -2,7 +2,8 @@
 train step on one CUDA card.
 
     python3 -m aha_tpu_torch.profile_slice [--seed 0] [--frames 8]
-                                           [--paths int8,int4,int8a8,train] [--remat full]
+                                           [--paths int8,int4,int8a8,int4a8,train]
+                                           [--remat full]
 
 For each path it builds seeded synthetic 7B params on the card
 (``random_params``), a sink cache (window 2048, 32 sinks, bf16) and drives
@@ -11,7 +12,9 @@ the engine the way ``StreamSession`` does, then traces sections with
 
 int8 and int4 (the --int8 and --int4 configs), both at the product widths and
 at width 1, after the window has filled; int8a8 (the --w8a8 config: int8 weights,
-per-token int8 activations, backend ``fused_a8``, fused passes of 8 frames):
+per-token int8 activations, backend ``fused_a8``, fused passes of 8 frames) and
+int4a8 (packed int4 weights, per-token int8 activations, backend ``fused_a8``,
+fused passes of 4 frames, as JAX runs ``--int4`` with ``AHA_QUANT_MATMUL=fused_a8``):
 
   vision      (int8 only) one ``encode_frames`` call of 32 frames (the
               tower's batch);
@@ -31,7 +34,7 @@ per-token int8 activations, backend ``fused_a8``, fused passes of 8 frames):
 
 The verify-pass and token tables list the path's decode kernel for products of
 1 .. 16 rows (``int8_mm_decode_kernel``, ``int4_mm_decode_kernel``), the sum of
-its K splits and, for int8a8, the activation quantiser by name, with their share
+its K splits and, for int8a8 and int4a8, the activation quantiser by name, with their share
 of device time and calls per unit.
 
 train (int4 QLoRA: int4 trunk, dense bf16 projector and lm_head, LoRA r 16,
@@ -76,10 +79,12 @@ DECODE_KERNELS = ("decode_attention_kernel", "decode_attention_wgmma_kernel",
 MATMUL_DECODE_KERNELS = {"int8": ("int8_mm_decode_kernel", "splitk_reduce"),
                          "int4": ("int4_mm_decode_kernel", "splitk_reduce"),
                          "int8a8": ("int8_mm_decode_kernel", "splitk_reduce",
+                                    "quantize_rows_vec_kernel"),
+                         "int4a8": ("int4_mm_decode_kernel", "splitk_reduce",
                                     "quantize_rows_vec_kernel")}
 # path -> (weights, matmul backend, fused_score_frames of the product)
 SERVING = {"int8": ("int8", "fused", 4), "int4": ("int4", "fused", 4),
-           "int8a8": ("int8", "fused_a8", 8)}
+           "int8a8": ("int8", "fused_a8", 8), "int4a8": ("int4", "fused_a8", 4)}
 
 
 def _short(name: str) -> str:

@@ -7,11 +7,10 @@
 Phases, one or more lines each:
   1. device: nvidia-smi name and power limit, torch / CUDA / nvcc versions,
      the kernels' build time (built from aha_tpu_torch/csrc at first use, one
-     nvcc per source in parallel), and what ptxas said of the int8 wgmma
-     kernel (registers by operand type and token tile), of the int8 and int4
-     decode kernels and of the vector quantiser (a spill, a remark that their
-     products are serialised or a missing int8-activation instantiation fails
-     the phase);
+     nvcc per source in parallel), and what ptxas said of the int8 and int4
+     wgmma and decode kernels (registers by operand type and token tile) and
+     of the vector quantiser (a spill, a remark that their products are
+     serialised or a missing int8-activation instantiation fails the phase);
   2. each CUDA kernel against its plain PyTorch version on the card, at
      every shape the 7B paths of phases 4 and 5 hand it (all five matmul
      entries at the four layer products for each row count of PATH_M, lm_head
@@ -28,9 +27,13 @@ Phases, one or more lines each:
      chose there before (replaced_ms, timed and not counted); int8_matmul with
      int8 activations also across its s8 wgmma tiles (17, 127-129, 231-233,
      1568), at the fused width of --w8a8 (392 rows) and down's long K, each
-     case on a Hopper path equal bit for bit to the plain version and timed
-     beside the kernel its plan chose before (replaced_ms), the weight-only kernel at the same rows
-     and the quantiser alone; beside torch.matmul on a weight dequantised
+     case on a Hopper path equal bit for bit to the plain version; int4_matmul
+     with int8 activations also at the decode rows (2, 3, 7, 15, 16, G = 64 and
+     256) and across its s8 wgmma tiles (17, 23-25, 79-81, 231-233, 1568) and
+     down's long K; both a8 entries on their Hopper paths timed beside the
+     kernel their plan chose before (replaced_ms), the weight-only kernel at
+     the same rows and the quantiser alone; every Hopper plan's shared memory
+     checked against the kernel's own number; beside torch.matmul on a weight dequantised
      beforehand (the bf16 product alone, timed and used nowhere; layer and
      lm_head at 1, 4, 8 and 13 rows too) or torch._int_mm on int8 operands
      made beforehand (with int8 activations; int4 weights unpacked to
@@ -50,9 +53,10 @@ Phases, one or more lines each:
      path its plan chose, launched twice for equal bits and timed with the
      cache cycled through more copies than L2 holds; phases 4
      and 5 record the shapes and fail on one that was not checked here)
-     (bf16: max|y - y_ref| <= 1e-2 * max|y_ref|;
-     with int8 activations 2e-2, because the kernel's quantiser and the plain
-     one may round an exact tie apart by one int8 step of one activation) and
+     (bf16: max|y - y_ref| <= 1e-2 * max|y_ref|, int4 with int8 activations
+     too, whose quantiser is bit-equal to the plain one and whose group sums
+     are exact; int8_matmul with int8 activations and int4's mma.sync path for
+     them 2e-2) and
      at small ragged shapes (f32: 1e-4 * max|y_ref|), with kernel and plain
      times (CUDA events; weights cycled through > L2 worth of copies), the
      bound (the larger of bytes moved / 3.35 TB/s and operations / the
@@ -87,9 +91,14 @@ Phases, one or more lines each:
           activations): score_video over 64 frames in 8 fused passes of 392
           rows, inference() over b's stream with generation 4 -> 8, then the
           same inference() at width 1 (texts compared), frames/s and decode
-          tokens/s beside b's; short score_video runs (8 frames) of 7B-int8 with
-          "pallas" and 7B-int4 with "fused_a8" (scores against b's width-1 run
-          and a's weight-only one).
+          tokens/s beside b's; a short score_video run (8 frames) of 7B-int8 with
+          "pallas" (scores against b's width-1 run);
+       d. 7B-int4 with per-token int8 activations (backend "fused_a8", the W4A8
+          recipe) at the product widths on a's weights and stream: score_video
+          over 64 frames in 16 fused passes of 196 rows, inference() with
+          generation 4 -> 8, then the same inference() at width 1 (texts
+          compared) and the verify pass against sequential passes as in a;
+          frames/s and decode tokens/s beside a's, scores against a's.
      Last, every shape that a path handed a kernel's wrapper must be one that
      phase 2 held against the plain version;
   5. 7B int4 QLoRA training at full width and depth: int4 trunk, int8
@@ -248,14 +257,15 @@ class Stats:
 
 
 # the kernels whose ptxas report phase 1 holds: no spill, no serialisation remark (the
-# two int8 kernels once per operand type: bf16 x weight-only, int8 x)
-PTXAS_HELD = ("int8_mm_wgmma_kernel", "int8_mm_decode_kernel", "int4_mm_decode_kernel",
-              "quantize_rows_vec_kernel")
-PTXAS_A8 = ("int8_mm_wgmma_kernel<true", "int8_mm_decode_kernel<true")
+# int8 and int4 forward kernels once per operand type: bf16 x weight-only, int8 x)
+PTXAS_HELD = ("int8_mm_wgmma_kernel", "int8_mm_decode_kernel", "int4_mm_wgmma_kernel",
+              "int4_mm_decode_kernel", "quantize_rows_vec_kernel")
+PTXAS_A8 = ("int8_mm_wgmma_kernel<true", "int8_mm_decode_kernel<true", "int4_mm_wgmma_kernel<true",
+            "int4_mm_decode_kernel<true")
 
 
 def check_ptxas(log: dict) -> str:
-    """What ptxas said of the int8 wgmma kernel, the two decode kernels and the
+    """What ptxas said of the int8 and int4 wgmma and decode kernels and the
     vector quantiser, one instantiation after another (registers, spill bytes),
     in the build this process ran; raises on a spill, on a remark that their
     products are serialised, or on a missing int8-activation instantiation. Such
@@ -381,6 +391,17 @@ def replaced_plan8(M: int, K: int, N: int, sms: int):
     return k8.Plan(k8.WGMMA, splits, tile, tiles, stages, smem)
 
 
+def replaced_plan4_a8(M: int, K: int, N: int, G: int, sms: int):
+    """The launch that ``int4_matmul``'s plan chose for int8 activations (bf16
+    output) before the two Hopper kernels took them: mma.sync from 2 rows, the
+    CUDA cores at a token."""
+    from aha_tpu_torch.ops.kernels import int4_matmul as k4
+
+    if M > 1:
+        return k4.Plan(k4.TENSOR_CORE, k4.splits_on(sms, -(-M // 64) * -(-N // 128), K // 256))
+    return k4.Plan(k4.VEC16, k4.splits_on(sms, -(-N // 128), (K // G) // 4))
+
+
 def replaced_plan8_a8(M: int, K: int, N: int, sms: int):
     """The launch that ``int8_matmul``'s plan chose for int8 activations (bf16
     output) before the two Hopper kernels took them: mma.sync from 2 rows, the
@@ -459,6 +480,12 @@ def check_matmuls(gen, stats: Stats):
                                                         233, 1568)]
     wgmma8a8 += [("long-k", M, 18944, 3584) for M in (k8.WGMMA_MIN_M, 1568)]
     wgmma8a8 += [(n, 392, *layer[n]) for n in layer]
+    # int4 with int8 activations on the int4 Hopper kernels: the decode rows as for bf16
+    # x (G = 64 and 256 too), the s8 wgmma kernel's first row count and those that
+    # straddle its token tiles (24 .. 80 rows), 1568 rows, down's long K across its splits
+    wgmma4a8 = [("tile-edge", M, 3584, 4608, 128)
+                for M in (k4.WGMMA_MIN_M, 23, 24, 25, 79, 80, 81, 231, 232, 233, 1568)]
+    wgmma4a8 += [("long-k", M, 18944, 3584, 128) for M in (k4.WGMMA_MIN_M, 1568)]
 
     # (kernel name, weight bits, a8, cases, M of the representative set)
     families = [
@@ -478,11 +505,12 @@ def check_matmuls(gen, stats: Stats):
          + [(*r, f32, 1e-4) for r in ragged4] + [(*edge, 64, bf, 1e-2)]
          + [(*c, bf, 1e-2) for c in wgmma4 + old4 + decode4], 196),
         ("int4_matmul_a8", 4, True,
-         [(*c, 128, bf, 2e-2) for c in cards]
-         + [(*r, f32, 1e-4) for r in ragged4] + [(*edge, 64, bf, 2e-2)], 196),
+         [(*c, 128, bf, 1e-2) for c in cards]
+         + [(*r, f32, 1e-4) for r in ragged4] + [(*edge, 64, bf, 2e-2)]
+         + [(*c, bf, 1e-2) for c in wgmma4a8 + decode4], 196),
     ]
     sms = k8.num_sms(0)
-    lib8 = _build.library()
+    kernels = _build.library()
     # a decoder layer's four products (and the projector's two) summed by entry and M
     sums: dict = {}
     for name, bits, a8, cases, rep_m in families:
@@ -523,12 +551,14 @@ def check_matmuls(gen, stats: Stats):
                 raise AssertionError(f"{what}: two launches on the same inputs differ")
             if bits == 4:
                 pl = k4.plan(M, K, N, G, bf16=dt == bf, a8=a8, sms=sms)
-                new = (dt == bf and not a8 and not label.startswith("old-path")
+                new = (dt == bf and not label.startswith("old-path")
                        and label not in ("ragged", "ragged-tc"))
                 want = (k4.DECODE if M <= k4.DECODE_MAX_M else k4.WGMMA) if new else None
                 if pl.path != want and (new or pl.path in (k4.WGMMA, k4.DECODE)):
                     raise AssertionError(f"{what}: path {pl.path}, expected "
                                          f"{want if new else 'an earlier path'}")
+                kernel_smem = (kernels.aha_int4_matmul_smem(pl.path, pl.tile, int(a8))
+                               if pl.path in (k4.WGMMA, k4.DECODE) else 0)
             else:
                 pl = k8.plan(M, K, N, bf16=dt == bf, a8=a8,
                              align=(k8.align_of(x), k8.align_of(ws[0]), k8.align_of(sc)), sms=sms)
@@ -539,13 +569,13 @@ def check_matmuls(gen, stats: Stats):
                 if pl.path != want and (new or pl.path in (k8.WGMMA, k8.DECODE)):
                     raise AssertionError(f"{what}: path {pl.path}, expected "
                                          f"{want if new else 'an earlier path'}")
-                kernel_smem = (lib8.aha_int8_matmul_wgmma_smem(pl.tile, int(a8))
+                kernel_smem = (kernels.aha_int8_matmul_wgmma_smem(pl.tile, int(a8))
                                if pl.path == k8.WGMMA
-                               else lib8.aha_int8_matmul_decode_smem(pl.stages, int(a8))
+                               else kernels.aha_int8_matmul_decode_smem(pl.stages, int(a8))
                                if pl.path == k8.DECODE else 0)
-                if kernel_smem != pl.smem_bytes:
-                    raise AssertionError(f"{what}: the plan's {pl.smem_bytes} bytes of shared "
-                                         f"memory are not the kernel's {kernel_smem}")
+            if kernel_smem != pl.smem_bytes:
+                raise AssertionError(f"{what}: the plan's {pl.smem_bytes} bytes of shared "
+                                     f"memory are not the kernel's {kernel_smem}")
             note = (f" path={pl.path} tile={pl.tile}x{pl.tiles} splits={pl.splits} "
                     f"stages={pl.stages} smem={pl.smem_bytes} equal_twice")
             if a8 and bits == 8 and pl.path in (k8.WGMMA, k8.DECODE):
@@ -590,21 +620,38 @@ def check_matmuls(gen, stats: Stats):
                 replaced = timer(launch_old)
                 note += f" replaced_path={old.path} replaced_ms={replaced:.4f}"
                 del yo
-            if a8 and bits == 8 and pl.path in (k8.WGMMA, k8.DECODE):
+            if a8 and pl.path in (k8.WGMMA, k8.DECODE):
                 # the mma.sync / CUDA-core kernel chosen before, the quantiser included as in the
                 # kernel's own time; the weight-only kernel at the same rows; the
                 # quantiser alone (timed, not counted)
-                old = replaced_plan8_a8(M, K, N, sms)
                 yo = torch.empty_like(y)
-                launch_old = lambda i: k8.launch_plan(*qr.quantize_rows(x), ws[i % copies], sc,
-                                                      yo, old)
+                if bits == 4:
+                    old = replaced_plan4_a8(M, K, N, G, sms)
+                    launch_old = lambda i: k4.launch_plan(*qr.quantize_rows(x), ws[i % copies],
+                                                          sc, yo, old)
+                    weight_only = lambda i: k4.int4_matmul(x, ws[i % copies], sc)
+                else:
+                    old = replaced_plan8_a8(M, K, N, sms)
+                    launch_old = lambda i: k8.launch_plan(*qr.quantize_rows(x), ws[i % copies],
+                                                          sc, yo, old)
+                    weight_only = lambda i: k8.int8_matmul(x, ws[i % copies], sc)
                 launch_old(0)
-                rel_check(f"{what} replaced kernel", yo, ref, tol)
+                rel_check(f"{what} replaced kernel", yo, ref, 2e-2)
                 replaced = timer(launch_old)
-                w8_ms = timer(lambda i: k8.int8_matmul(x, ws[i % copies], sc))
+                w8_ms = timer(weight_only)
                 quant_ms = graph_ms(lambda i: qr.quantize_rows(x))   # short at every M
                 note += (f" replaced_path={old.path} replaced_ms={replaced:.4f} weight_only_ms="
                          f"{w8_ms:.4f} quantize_rows_ms={quant_ms:.4f}")
+                if bits == 4 and pl.path == k4.DECODE:
+                    # the K splits that bf16 x gets at these shapes, where they differ
+                    alt = dataclasses.replace(pl, splits=k4.decode_splits(sms, N, K // G))
+                    if alt.splits != pl.splits:
+                        launch_alt = lambda i: k4.launch_plan(*qr.quantize_rows(x),
+                                                              ws[i % copies], sc, yo, alt)
+                        launch_alt(0)
+                        rel_check(f"{what} in {alt.splits} splits", yo, ref, tol)
+                        note += (f" bf16_splits={alt.splits} bf16_splits_ms="
+                                 f"{timer(launch_alt):.4f}")
                 del yo
             if a8 and M > 16 and K % 8 == 0 and N % 8 == 0:
                 # the int8 x int8 product alone, on activations quantised beforehand (int4:
@@ -1524,6 +1571,8 @@ def drive_7b_paths(gpu: str, seed: int, stats: Stats):
           f"{verifies} verify passes; launches int4_matmul={n4} decode_attention={na}; "
           f"max_memory_allocated {peak / 2**30:.2f} GiB", flush=True)
     print(f"phase4a first response: {responses[0][:60]!r}", flush=True)
+    rows4, t_sv4, dec_tokens4, dec_s4 = rows, t_sv, dec_tokens, dec_s
+    frames_s4 = 96 / (t_inf - gen_s)
 
     # the same stream at width 1: the speculative texts against the sequential ones
     sess1, responses1, t_inf1, gen_s1, dec_s1, dec_tokens1 = run_inference(
@@ -1531,6 +1580,7 @@ def drive_7b_paths(gpu: str, seed: int, stats: Stats):
     if responses1 != responses:
         raise AssertionError("7b-int4: speculative texts differ from the width-1 texts:"
                              + _first_divergence(responses, responses1))
+    dec_tokens1_4, dec_s1_4 = dec_tokens1, dec_s1
     err, same = verify_vs_sequential(sess, cfg)
     print(f"phase4a width 1 [{gpu}]: decode {dec_tokens1} tokens in {dec_s1:.3f}s = "
           f"{dec_tokens1 / max(dec_s1, 1e-9):.2f} decode tokens/s; texts identical to the "
@@ -1538,27 +1588,8 @@ def drive_7b_paths(gpu: str, seed: int, stats: Stats):
           f"S=8 (attention replayed) vs 8 sequential passes on the filled cache: hidden "
           f"states equal bit for bit (max_abs_err={err:.3e}), argmax equal at {same}/8 "
           f"positions", flush=True)
-    del sess, sess1
+    del sess, sess1, params4
     gc.collect()      # a session and its timing wrappers form a cycle that holds the params
-
-    # -- c (int4 part). the int8-activation variant, 8 frames ---------------------------
-    with PassCounter() as pc:
-        kernels.reset_launches()
-        rows_a8, t_a8 = score_64(params4, cfg, tok, frames[:8], product, backend="fused_a8")
-        counts = dict(kernels.LAUNCHES)
-        passes = pc.chunks + pc.verifies
-    if len(rows_a8) != 8 or not all(math.isfinite(r[k]) for r in rows_a8 for k in SCORE_KEYS):
-        raise AssertionError("7b-int4 fused_a8: bad scores")
-    n = counts.get("int4_matmul_a8", 0)
-    if n < L * passes * 4 or counts.get("quantize_rows", 0) < n or counts.get("int4_matmul", 0):
-        raise AssertionError(f"7b-int4 fused_a8: launches {counts} over {passes} passes")
-    stats.launches(counts)
-    d = max(abs(a[k] - b[k]) for a, b in zip(rows_a8, rows[:8]) for k in SCORE_KEYS)
-    print(f"phase4c 7b-int4 backend=fused_a8 [{gpu}] score_video 8 frames {t_a8:.3f}s; "
-          f"launches int4_matmul_a8={n} quantize_rows={counts['quantize_rows']}; scores vs "
-          f"weight-only max_abs_diff={d:.3e}", flush=True)
-    del params4
-    gc.collect()
     torch.cuda.empty_cache()
 
     # -- b. 7B-int8 at the product widths, then the same stream at width 1 ---------------
@@ -1702,6 +1733,70 @@ def drive_7b_paths(gpu: str, seed: int, stats: Stats):
     print(f"phase4c 7b-int8 backend=pallas [{gpu}] score_video 8 frames {t_b:.3f}s; "
           f"launches quant_matmul={n}; scores vs backend=fused max_abs_diff={d:.3e}",
           flush=True)
+    del params8
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- d. 7B-int4 with per-token int8 activations (backend "fused_a8", the W4A8
+    # recipe) at the product widths: a's seeded weights and stream, fused scoring of 4
+    # frames (196-row passes), generation 4 -> 8, then the same stream at width 1 (texts
+    # must be equal) and the verify pass against sequential passes ----------------------
+    params4, _ = build("int4")
+    with PassCounter() as pc:
+        kernels.reset_launches()
+        rows_d, t_sv_d = score_64(params4, cfg, tok, frames[:64], product, backend="fused_a8")
+        sv_verifies = pc.verifies
+        sess, responses, t_inf, gen_s, dec_s, dec_tokens = run_inference(
+            params4, cfg, tok, frames, threshold(rows_d), product, backend="fused_a8")
+        counts = dict(kernels.LAUNCHES)
+        chunks, verifies = pc.chunks, pc.verifies
+    seen = check_7b_run("7b-int4 fused_a8", rows_d, sess, responses, 96)
+    if sv_verifies != 16:
+        raise AssertionError(f"7b-int4 fused_a8: score_video took {sv_verifies} fused passes, "
+                             f"not 16")
+    passes = chunks + verifies
+    n = counts.get("int4_matmul_a8", 0)
+    if (n < L * passes * 4 or counts.get("quantize_rows", 0) < n or counts.get("int4_matmul", 0)
+            or not verifies > sv_verifies):
+        raise AssertionError(f"7b-int4 fused_a8: launches {counts} over {chunks} chunks + "
+                             f"{verifies} verify passes, or no verify pass of generation")
+    stats.launches(counts)
+    acc = sess.engine.spec_acceptance()
+    d = max(abs(a[k] - b[k]) for a, b in zip(rows_d, rows4) for k in SCORE_KEYS)
+    print(f"phase4d 7b-int4 backend=fused_a8 widths 4 / 4->8 [{gpu}] score_video 64 frames in "
+          f"16 fused passes of 196 rows {t_sv_d:.3f}s = {64 / t_sv_d:.2f} frames/s (weight-only, "
+          f"4a: {64 / t_sv4:.2f}); scores vs 4a's weight-only at width 4 max_abs_diff={d:.3e}; "
+          f"inference 96 frames {t_inf:.3f}s, {len(responses)} responses in {gen_s:.3f}s; decode "
+          f"{dec_tokens} tokens in {dec_s:.3f}s = {dec_tokens / max(dec_s, 1e-9):.2f} decode "
+          f"tokens/s (4a: {dec_tokens4 / max(dec_s4, 1e-9):.2f}), {acc['tokens_per_pass']} "
+          f"tokens per verify pass ({acc['passes']} passes); per-frame scoring "
+          f"{96 / (t_inf - gen_s):.2f} frames/s (4a: {frames_s4:.2f}); stream {seen} tokens; "
+          f"{chunks} chunks + {verifies} verify passes; launches int4_matmul_a8={n} "
+          f"quantize_rows={counts['quantize_rows']}", flush=True)
+    print(f"phase4d first response: {responses[0][:60]!r}", flush=True)
+    with PassCounter() as pc:
+        kernels.reset_launches()
+        sess1, responses1, t_inf1, gen_s1, dec_s1, dec_tokens1 = run_inference(
+            params4, cfg, tok, frames, threshold(rows_d), dict(product, spec_decode_tokens=1),
+            backend="fused_a8")
+        counts = dict(kernels.LAUNCHES)
+    check_7b_run("7b-int4 fused_a8 width 1", rows_d, sess1, responses1, 96)
+    if pc.verifies or counts.get("int4_matmul_a8", 0) < L * pc.chunks * 4:
+        raise AssertionError(f"7b-int4 fused_a8 width 1: launches {counts} over {pc.chunks} "
+                             f"chunks, {pc.verifies} verify passes")
+    stats.launches(counts)
+    if responses1 != responses:
+        raise AssertionError("7b-int4 fused_a8: speculative texts differ from the width-1 "
+                             "texts:" + _first_divergence(responses, responses1))
+    err, same = verify_vs_sequential(sess, cfg)
+    print(f"phase4d 7b-int4 backend=fused_a8 width 1 [{gpu}]: decode {dec_tokens1} tokens in "
+          f"{dec_s1:.3f}s = {dec_tokens1 / max(dec_s1, 1e-9):.2f} decode tokens/s (4a at width 1: "
+          f"{dec_tokens1_4 / max(dec_s1_4, 1e-9):.2f}); texts identical to the speculative run's "
+          f"({len(responses1)} responses); verify pass S=8 (attention replayed) vs 8 sequential "
+          f"passes on the filled cache: hidden states equal bit for bit (max_abs_err={err:.3e}), "
+          f"argmax equal at {same}/8 positions", flush=True)
+    del sess, sess1, params4
+    gc.collect()
 
 
 def main() -> int:

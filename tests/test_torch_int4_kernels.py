@@ -11,6 +11,7 @@ the Pallas kernel in interpret mode; and what the wrappers refuse. The kernels t
 import importlib.util
 import pathlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -101,17 +102,17 @@ def test_forward_plan_of_every_path_shape(M):
     (70, 320, 136, 24, dict(bf16=True), SCALAR),                     # G not a multiple of 16
     (70, 320, 144, 40, dict(bf16=True), VEC16),                      # G not a multiple of 16
     (926, 3584, 4608, 128, dict(bf16=False), VEC16),                 # f32
-    (926, 3584, 4608, 128, dict(bf16=True, a8=True), TENSOR_CORE),   # int8 activations
+    (926, 3584, 4608, 128, dict(bf16=False, a8=True), TENSOR_CORE),  # int8 x, an f32 output
     (926, 3584, 4608, 128, dict(bf16=True, align=(8, 16, 16)), VEC16),
     (926, 3584, 4608, 128, dict(bf16=True, align=(16, 8, 16)), TENSOR_CORE),
-    (13, 3584, 4608, 128, dict(bf16=True, a8=True), TENSOR_CORE),    # a verify pass with int8 x
+    (13, 3584, 4608, 128, dict(bf16=False, a8=True), TENSOR_CORE),   # the same at 13 rows
     (1, 3584, 4608, 128, dict(bf16=False), VEC16),                   # a token in f32
     (8, 3584, 4608, 32, dict(bf16=True), TENSOR_CORE),               # decode rows at G 32
     (8, 320, 136, 64, dict(bf16=True), TENSOR_CORE),                 # N not a multiple of 16
     (8, 320, 132, 64, dict(bf16=True), SCALAR),                      # N not a multiple of 8
     (8, 3584, 4608, 128, dict(bf16=True, align=(8, 16, 16)), VEC16),   # a misaligned x
     (8, 3584, 4608, 128, dict(bf16=True, align=(16, 16, 8)), TENSOR_CORE),   # misaligned scales
-    (1, 3584, 4608, 128, dict(bf16=True, a8=True), VEC16),           # a token with int8 x
+    (1, 3584, 4608, 128, dict(bf16=False, a8=True), VEC16),          # the same at a token
 ])
 def test_forward_plan_keeps_the_earlier_paths(M, K, N, G, kw, path):
     pl = k4.plan(M, K, N, G, **kw)
@@ -410,3 +411,293 @@ def test_decode_order_of_sums(group, M, dtype):
             assert np.abs(out.float().numpy() - ref).max() <= 1e-2 * np.abs(ref).max()
             step = np.abs(plain.float().numpy()).max() * 2.0 ** -8
             assert np.abs(out.float().numpy() - plain.float().numpy()).max() <= step
+
+
+# ---- int8 activations (a8): the same two kernels on s8 tensor cores ---------------------
+
+A8_ROWS = (1, 2, 3, 4, 5, 7, 8, 9, 13, 15, 16, 17, 23, 24, 25, 49, 59, 79, 80, 81, 171, 196,
+           220, 231, 232, 233, 392, 1568)
+
+
+def _a8_shapes(M):
+    """(K, N) of every product the int4 ``fused_a8`` path hands int4_matmul at M
+    rows (and the rows phase 2 adds around them): the layer's four, the lm_head at
+    1, 4 and 8, the projector at 392 and 1568."""
+    shapes = [(K, N) for _, K, N in _smoke().LAYER] if M != 1568 else []
+    if M in (1, 4, 8):
+        shapes.append(LM_HEAD)
+    if M in (392, 1568):
+        shapes += list(PROJECTOR)
+    return shapes
+
+
+@pytest.mark.parametrize("M", A8_ROWS)
+def test_a8_plan_of_every_7b_shape(M):
+    """bf16 x quantised to int8, G 128, aligned: 1 to 16 rows on the decode kernel
+    with the weight-only plan's K splits but gate_up unsplit (from W's shape alone:
+    the plan of one row and of 16 is the same) and a ring of seven 5,888-byte slots that fits four
+    blocks an SM; from 17 rows on the wgmma kernel with a token tile among the s8
+    widths up to 80, tiles that cover M once, the weight-only rule for K splits
+    and a six-slot ring of 64-byte x rows that fits two blocks an SM."""
+    for K, N in _a8_shapes(M):
+        pl = k4.plan(M, K, N, 128, bf16=True, a8=True)
+        w4 = k4.plan(M, K, N, 128, bf16=True)
+        if M <= k4.DECODE_MAX_M:
+            assert pl.path == k4.DECODE and pl == k4.plan(1, K, N, 128, bf16=True, a8=True)
+            # the weight-only plan's splits, but gate_up's grid (half a round to a round)
+            # unsplit
+            assert pl.splits == (1 if N == 37888 else w4.splits) and (pl.tile, pl.tiles) == (16, 1)
+            assert pl.stages == 7 and pl.smem_bytes == k4.DECODE_SMEM_A8 == 7 * (
+                16 * 64 + 32 * 144 + 256)
+            assert 4 * (pl.smem_bytes + 1024) <= 233472
+            continue
+        assert pl.path == k4.WGMMA, (M, K, N)
+        assert pl.tile in k4.WGMMA_A8_TILES == (24, 32, 48, 64, 80)
+        assert (pl.tiles - 1) * pl.tile < M <= pl.tiles * pl.tile
+        assert pl.tile >= w4.tile and pl.tiles == w4.tiles or pl.tiles < w4.tiles
+        assert pl.stages == 6 and pl.smem_bytes == 6 * (pl.tile * 64 + 5120) + 1024
+        assert 2 * (pl.smem_bytes + 1024) <= 233472
+        assert pl.splits == k4.wgmma_splits(132, pl.tiles * -(-N // 128), K // 128, K // 64)
+
+
+@pytest.mark.parametrize("M,K,N,G,kw,path", [
+    (926, 3584, 4608, 128, dict(bf16=True, a8=True), k4.WGMMA),       # was mma.sync
+    (13, 3584, 4608, 128, dict(bf16=True, a8=True), k4.DECODE),       # was mma.sync
+    (1, 3584, 4608, 128, dict(bf16=True, a8=True), k4.DECODE),        # was the CUDA cores
+    (70, 320, 136, 64, dict(bf16=True, a8=True), TENSOR_CORE),        # N not a multiple of 16
+    (8, 320, 136, 64, dict(bf16=True, a8=True), TENSOR_CORE),         # ... at decode rows
+    (70, 320, 136, 32, dict(bf16=True, a8=True), TENSOR_CORE),        # G 32
+    (8, 3584, 4608, 32, dict(bf16=True, a8=True), TENSOR_CORE),       # ... at decode rows
+    (70, 320, 132, 64, dict(bf16=True, a8=True), SCALAR),             # N not a multiple of 8
+    (49, 3584, 4608, 128, dict(bf16=True, a8=True, align=(8, 16, 16)), VEC16),   # misaligned xq
+    (8, 3584, 4608, 128, dict(bf16=True, a8=True, align=(16, 16, 8)), TENSOR_CORE),
+])
+def test_a8_plan_takes_the_new_paths_and_keeps_the_earlier_ones(M, K, N, G, kw, path):
+    """The three int8-activation shapes that the earlier paths took (now on the
+    Hopper kernels), and what stays there besides an f32 output
+    (test_forward_plan_keeps_the_earlier_paths): N not a multiple of 16, G not a
+    multiple of 64, misaligned operands."""
+    pl = k4.plan(M, K, N, G, **kw)
+    assert pl.path == path and pl.splits >= 1
+    assert (pl.smem_bytes > 0) == (path in (k4.WGMMA, k4.DECODE))
+
+
+def _nibble_columns(h: int, a: int, b: int) -> tuple[int, int]:
+    """``nibble_columns<H>`` of csrc/wgmma.cuh, step by step: a permute pairs
+    columns 2 h, 2 h + 1 of the two words, two masks split the nibbles, two
+    permutes sort them by column, n + 0x78 with the top bit flipped is n - 8."""
+    p = _byte_perm(a, b, 0x7362 if h else 0x5140)
+    lo, hi = p & 0x0F0F0F0F, (p >> 4) & 0x0F0F0F0F
+    c0 = ((_byte_perm(lo, hi, 0x5140) + 0x78787878) & 0xFFFFFFFF) ^ 0x80808080
+    c1 = ((_byte_perm(lo, hi, 0x7362) + 0x78787878) & 0xFFFFFFFF) ^ 0x80808080
+    return c0, c1
+
+
+def _s8_bytes(v: int) -> list[int]:
+    return list(np.frombuffer(v.to_bytes(4, "little"), dtype=np.int8))
+
+
+A8_W_ROW = 144   # bytes from one packed row of a stage to the next, int8 x (both kernels)
+
+
+def _a8_words(stage: np.ndarray, tig: int, col0: int) -> list[int]:
+    """A thread's eight words of a stage with int8 x: packed rows 2 tig + (q & 1) +
+    8 (q >> 1) at its four columns col0 .. col0 + 3 (as the kernels' w_off)."""
+    raw = np.zeros((32, A8_W_ROW), dtype=np.uint8)
+    raw[:, :128] = stage
+    flat = raw.reshape(-1).tobytes()
+    base = 2 * tig * A8_W_ROW + col0
+    return [int.from_bytes(flat[base + ((q & 1) + 8 * (q >> 1)) * A8_W_ROW:][:4], "little")
+            for q in range(8)]
+
+
+def _every_byte_packed_stage(seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    stage = rng.permutation(np.resize(np.arange(256, dtype=np.uint8), 32 * 128)).reshape(32, 128)
+    assert len(np.unique(stage)) == 256
+    return stage
+
+
+def test_a8_nibbles_become_exact_s8():
+    """Every byte value in every position: nibble_columns gives each column's
+    four K rows 2 r .. 2 r + 3 as nibble - 8, the lowest row in the lowest byte."""
+    rng = np.random.default_rng(9)
+    for _ in range(64):
+        rows = rng.permutation(np.resize(np.arange(256, dtype=np.uint8), 8)).reshape(2, 4)
+        a, b = (int.from_bytes(rows[i].tobytes(), "little") for i in range(2))
+        w = k4.unpack_int4(torch.from_numpy(rows)).numpy()        # [4 K rows, 4 columns]
+        for h in (0, 1):
+            c0, c1 = _nibble_columns(h, a, b)
+            assert _s8_bytes(c0) == list(w[:, 2 * h]) and _s8_bytes(c1) == list(w[:, 2 * h + 1])
+
+
+def test_a8_wgmma_registers_are_the_piece_of_w():
+    """Every thread's A registers of a stage (int8 x: W^T is the register operand
+    of m64nNk32 s8), every byte value: register r of piece p for slab s holds four
+    consecutive K rows of one weight column as s8, at the positions the s8 fragment
+    names (row gid for registers 0 and 2, gid + 8 for 1 and 3; k 4 tig .. + 3 for 0
+    and 1, 16 + 4 tig .. + 3 for 2 and 3): row r of slab s is weight column
+    fwd_row_to_column(64 s + r), k is stage row 32 p + k."""
+    stage = _every_byte_packed_stage(3)
+    w = k4.unpack_int4(torch.from_numpy(stage)).numpy()            # [64, 128]
+    seen = np.zeros(w.shape, dtype=int)
+    for warp in range(4):
+        for lane in range(32):
+            gid, tig = lane // 4, lane % 4
+            wq = _a8_words(stage, tig, 4 * (8 * warp + gid))
+            for slab in range(2):
+                for p in range(2):
+                    regs = [*_nibble_columns(slab, wq[4 * p], wq[4 * p + 1]),
+                            *_nibble_columns(slab, wq[4 * p + 2], wq[4 * p + 3])]
+                    for r, reg in enumerate(regs):
+                        col = k4.fwd_row_to_column(64 * slab + 16 * warp + gid + 8 * (r & 1))
+                        k = 32 * p + 4 * tig + 16 * (r >> 1)
+                        assert _s8_bytes(reg) == list(w[k:k + 4, col]), (warp, lane, slab, p, r)
+                        seen[k:k + 4, col] += 1
+    assert (seen == 1).all()
+
+
+def test_a8_decode_registers_are_the_piece_of_w():
+    """Every thread's B registers of a stage on the decode path with int8 x
+    (m16n8k32 s8), every byte value: b0 / b1 of n-tile t in piece p of thread
+    (gid, tig) of warp w hold K rows 32 p + 4 tig .. + 3 / 32 p + 16 + 4 tig .. + 3
+    of column decode_column(w, gid, t) as s8, the lowest row in the lowest byte."""
+    stage = _every_byte_packed_stage(4)
+    w = k4.unpack_int4(torch.from_numpy(stage)).numpy()
+    seen = np.zeros(w.shape, dtype=int)
+    for warp in range(4):
+        for lane in range(32):
+            gid, tig = lane // 4, lane % 4
+            wq = _a8_words(stage, tig, 32 * warp + 4 * gid)
+            for p in range(2):
+                b0 = [*_nibble_columns(0, wq[4 * p], wq[4 * p + 1]),
+                      *_nibble_columns(1, wq[4 * p], wq[4 * p + 1])]
+                b1 = [*_nibble_columns(0, wq[4 * p + 2], wq[4 * p + 3]),
+                      *_nibble_columns(1, wq[4 * p + 2], wq[4 * p + 3])]
+                for t in range(4):
+                    col = k4.decode_column(warp, gid, t)
+                    for reg, k in ((b0[t], 32 * p + 4 * tig), (b1[t], 32 * p + 16 + 4 * tig)):
+                        assert _s8_bytes(reg) == list(w[k:k + 4, col]), (warp, lane, p, t)
+                        seen[k:k + 4, col] += 1
+    assert (seen == 1).all()
+
+
+def test_a8_shared_reads_fall_in_distinct_banks():
+    """With int8 x a thread reads packed rows 2 tig + c + 8 m: at the 144-byte
+    stride the words a warp reads at once (its 32 threads, one word each) meet 32
+    banks in both kernels, where the bf16 kernels' 160 bytes would put two on a
+    bank; 144 keeps the 16-byte copies aligned. The decode kernel's x tile (16 rows
+    of 64 bytes in the 64-byte swizzle) is read by ldmatrix without conflicts and
+    every chunk lands once."""
+    assert A8_W_ROW % 16 == 0 and k4._W_ROW[True] == A8_W_ROW
+    for row_bytes, distinct in ((A8_W_ROW, 32), (160, 16)):
+        for warp in range(4):
+            for c in range(2):
+                for m in range(4):
+                    for col0 in (lambda g: 4 * (8 * warp + g), lambda g: 32 * warp + 4 * g):
+                        banks = {((2 * tig + c + 8 * m) * row_bytes + col0(gid)) // 4 % 32
+                                 for gid in range(8) for tig in range(4)}
+                        assert len(banks) == distinct
+    for p in range(2):
+        for half in (0, 1):
+            for rows in (range(8), range(8, 16)):
+                spans = {(xr * 64 + (((2 * p + half) ^ ((xr >> 1) & 3)) << 4)) % 128 // 16
+                         for xr in rows}
+                assert len(spans) == 8
+    assert len({(r, c ^ ((r >> 1) & 3)) for r in range(16) for c in range(4)}) == 64
+
+
+def a8_emulated(x, q4value, scale4, splits, route="a"):
+    """The int8-activation kernels' order of sums (decode and wgmma alike): x
+    quantised per row (the plain quantiser, bit-equal to the kernel's); a group's
+    exact int32 sum, route "a" on the nibbles as n - 8, route "b" on the nibbles as
+    u8 minus 8 sum x over the group; made f32 once; in each K split of whole groups,
+    in group order from zero, the f32 product with the group's scale rounded, then
+    the f32 sum rounded; the splits' totals added in split order from zero; times
+    the row scale; one cast."""
+    K = x.shape[-1]
+    groups = scale4.shape[0]
+    G = K // groups
+    per = -(-groups // splits)
+    xq, sx = k4.quantize_rows_plain(x.reshape(-1, K))
+    xl = xq.long().reshape(-1, groups, G)
+    nib = k4.unpack_int4(q4value).long() + 8                       # 0 .. 15
+    nib = nib.reshape(groups, G, -1)
+    if route == "a":
+        part = torch.einsum("mgk,gkn->mgn", xl, nib - 8)
+    else:
+        part = torch.einsum("mgk,gkn->mgn", xl, nib) - 8 * xl.sum(-1, keepdim=True)
+    assert part.abs().max() < 2 ** 24
+    part = part.float()
+    out = torch.zeros((xl.shape[0], nib.shape[-1]), dtype=torch.float32)
+    for s in range(splits):
+        tot = torch.zeros_like(out)
+        for g in range(s * per, min(groups, (s + 1) * per)):
+            tot = tot + part[:, g] * scale4[g].float()
+        out = out + tot
+    return (out * sx).to(x.dtype).reshape(*x.shape[:-1], -1)
+
+
+@pytest.mark.parametrize("group", [64, 128, 256])
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("M", [1, 5, 16, 21, 232])
+def test_a8_order_of_sums(M, splits, group):
+    """bf16 x, int8 activations, both Hopper kernels' order of sums: route (b)'s
+    u8 nibbles with the group's correction equal route (a) bit for bit; within one
+    bf16 step of int4_matmul_plain(a8=True); within the card's tolerance, 1e-2 of
+    the largest value, of the Pallas kernel in interpret mode, and with one split
+    equal to it bit for bit on every row whose scale XLA's compiled quantiser makes
+    the IEEE quotient absmax / 127 (on others it is one ulp off); each row of the
+    M-row product equal to its one-row product."""
+    from aha_tpu.ops.pallas.fused_matmul import _quantize_rows
+
+    rng = np.random.default_rng(17 + M + group)
+    K, N = 768, 256
+    w = (rng.standard_normal((K, N)) * 0.02).astype(np.float32)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    q4 = quantize_array_int4(jnp.asarray(w), 0, group=group)
+    jx = jnp.asarray(x).astype(jnp.bfloat16)
+    ref = np.asarray(j_int4_matmul(jx, q4["q4value"], q4["scale4"], a8=True, interpret=True)
+                     .astype(jnp.float32))
+    xt = _t(x).to(torch.bfloat16)
+    q, s = _t(q4["q4value"]), _t(q4["scale4"])
+    out = a8_emulated(xt, q, s, splits)
+    assert out.shape == (M, N) and out.dtype == torch.bfloat16
+    assert torch.equal(out, a8_emulated(xt, q, s, splits, route="b"))
+    rows = torch.cat([a8_emulated(xt[r:r + 1], q, s, splits) for r in range(M)])
+    assert torch.equal(out, rows)
+    plain = k4.int4_matmul_plain(xt, q, s, a8=True).float().numpy()
+    assert np.abs(out.float().numpy() - plain).max() <= np.abs(plain).max() * 2.0 ** -8
+    assert np.abs(out.float().numpy() - ref).max() <= 1e-2 * np.abs(ref).max()
+    if splits == 1:
+        _, js = jax.jit(_quantize_rows)(jx)
+        ieee = np.asarray(js).reshape(-1) == k4.quantize_rows_plain(xt)[1].numpy().reshape(-1)
+        assert ieee.sum() >= M // 2
+        np.testing.assert_array_equal(out.float().numpy()[ieee], ref[ieee])
+
+
+@pytest.mark.parametrize("what,match", [
+    ("a8-f32-out", "and a bf16 output; got torch.int8 x with row scales and a torch.float32"),
+    ("a8-tile", "takes token tiles"),
+    ("int8-x-without-scales", "got torch.int8 x without row scales"),
+    ("bf16-x-with-scales", "got torch.bfloat16 x with row scales"),
+    ("decode-rows", "takes at most 16 rows"),
+])
+def test_launch_plan_refuses_an_a8_plan_the_kernels_do_not_take(what, match):
+    """A wgmma plan for int8 x with an f32 output, or with a token tile the s8
+    product has no width for (40), int8 x without its row scales, bf16 x with row
+    scales, and a decode plan of 17 rows raise before any library is built or
+    launched."""
+    M, K, N, G = (17 if what == "decode-rows" else 40), 128, 32, 64
+    x = torch.zeros((M, K), dtype=torch.bfloat16 if what == "bf16-x-with-scales" else torch.int8)
+    sx = None if what == "int8-x-without-scales" else torch.ones(M, 1)
+    q = torch.zeros((K // 2, N), dtype=torch.uint8)
+    s = torch.ones((K // G, N), dtype=torch.bfloat16)
+    y = torch.empty((M, N), dtype=torch.float32 if what == "a8-f32-out" else torch.bfloat16)
+    if what == "decode-rows":
+        pl = k4.Plan(k4.DECODE, 1, 16, 1, 7, k4.DECODE_SMEM_A8)
+    else:
+        tile = 40 if what == "a8-tile" else 48
+        pl = k4.Plan(k4.WGMMA, 1, tile, 1, 6, 6 * k4.wgmma_stage_bytes(tile, True) + 1024)
+    with pytest.raises(ValueError, match=match):
+        k4.launch_plan(x, sx, q, s, y, pl)

@@ -315,6 +315,49 @@ def test_int8_session_matches_jax_at_product_widths(tiny):
                                atol=1e-4, rtol=1e-3)
 
 
+def test_int4_fused_a8_session_at_product_widths(tiny):
+    """Packed-int4 tiny params with per-token int8 activations (backend
+    "fused_a8", the W4A8 recipe), on the CPU through the plain versions, at the
+    product widths: fused scoring of 4 frames and speculative generation 4 -> 8.
+    Its texts equal its own width-1 texts, and its scores lie within the recipe's
+    bound of the weight-only session's, 3% of their mean magnitude (the bound of
+    tests/test_torch_models.py::test_decode_chunk_int8_activations): JAX has no
+    int4 int8-activation path off the TPU (the kernel's parity with JAX in
+    interpret mode is held in tests/test_torch_ops.py and test_torch_int4_kernels.py)."""
+    params, cfg, tok, tcfg, ttok = tiny
+    qparams = quant.quantize_params(params, bits=4)
+    qparams = {**qparams, "llm": quant.merge_decoder_projections(qparams["llm"])}
+    tparams = params_from_jax(jax.tree.map(np.asarray, qparams))
+    kw = dict(frame_fps=2.0, kv_cache_policy="sink", kv_window=256, num_sink_tokens=8,
+              max_new_tokens=12, repetition_penalty=1.3, fused_score_frames=4,
+              spec_decode_tokens=4, spec_decode_tokens_max=8,
+              stream_end_score_sum_threshold=2.2)
+    frames = np.random.default_rng(6).integers(0, 256, (10, 40, 48, 3), dtype=np.uint8)
+    conv = [{"role": "user", "content": QUERY, "time": 0}]
+
+    def run(backend, **widths):
+        ts = build_session(tparams, tcfg, ttok, InferConfig(**{**kw, **widths}), backend=backend,
+                           **CPU)
+        ts.input_video_stream(frames)
+        ts.input_query_stream(conv)
+        turns = [(t["role"], t["time"], t["content"]) for t in ts.inference()]
+        streamed = _scores(ts.debug_data_list)
+        ts.reset()
+        return ts, turns, streamed, _scores(ts.score_video(frames, query=QUERY))
+
+    ts, turns, streamed, fused = run("fused_a8")
+    assert ts.engine.spec_tokens == 4 and ts.engine.spec_max == 8 and ts.engine.fused_frames == 4
+    assert ts.engine.spec_acceptance()["passes"] > 0
+    assert any(role == "assistant" for role, _, _ in turns)
+    _, turns1, streamed1, _ = run("fused_a8", spec_decode_tokens=1, spec_decode_tokens_max=1)
+    assert turns == turns1
+    np.testing.assert_array_equal(streamed, streamed1)
+    _, _, streamed_w, fused_w = run("fused")
+    for got, ref in ((streamed, streamed_w), (fused, fused_w)):
+        assert np.abs(got - ref).mean() < 0.03 * np.abs(ref).mean()
+    assert np.abs(fused - fused_w).max() > 0          # the activations really were quantised
+
+
 @pytest.fixture(scope="module")
 def int8_port(tiny):
     params, _, _, tcfg, _ = tiny
