@@ -13,7 +13,11 @@ Layout mirrors ``aha_tpu`` so each module has a named counterpart:
                       and the nvcc build (sources in ``csrc/``)
   models            - SigLIP tower, Qwen2 decoder, Aha heads
   streaming         - engine and StreamSession (single stream; fused frame
-                      scoring and speculative generation)
+                      scoring, the chunked trigger loops of inference(),
+                      speculative generation)
+  data, drivers     - cv2 decoding, prefetching, the streaming-QA dataset and
+                      driver of ``infer``
+  cli               - ``python -m aha_tpu_torch.cli infer``
 
 The port imports torch and never jax, and nothing of ``aha_tpu``: what it
 needs of that package's framework-free modules it keeps as its own copy

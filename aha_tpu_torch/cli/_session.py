@@ -1,0 +1,159 @@
+"""Session construction and the inference flags of the command line: the
+port's copy of ``aha_tpu/cli/_session.py:57-268``, with its flag names and
+defaults and one flag of its own, ``--device`` (the card unless the caller
+asks for the CPU).
+
+Weights: ``--synthetic_weights`` with ``--int8`` or ``--int4`` builds
+seeded random params in the final quantized form (``models.aha.
+random_params``) and serves them on the ``"fused"`` backend. What the port
+cannot build yet is refused with its ROADMAP.md item: checkpoints
+(``--llm_pretrained``, and a run without synthetic weights), adapters
+(``--lora_pretrained``), dense synthetic weights, and the int8 vision tower
+of ``--w8a8`` / ``--vision_int8``.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+
+def _refuse_unported(args) -> None:
+    """Raise NotImplementedError for an option the port does not run yet,
+    naming its ROADMAP.md item."""
+    for flag, item in (("w8a8", "Queue 1 item 8: --w8a8 also quantises the vision tower"),
+                       ("vision_int8", "Queue 1 item 8"),
+                       ("llm_pretrained", "Queue 1 item 9"),
+                       ("lora_pretrained", "Queue 1 item 5")):
+        if getattr(args, flag, None):
+            raise NotImplementedError(f"--{flag} is not ported to aha_tpu_torch yet "
+                                      f"(ROADMAP.md, {item})")
+    if not args.synthetic_weights:
+        raise NotImplementedError("aha_tpu_torch loads no checkpoint yet: pass "
+                                  "--synthetic_weights (ROADMAP.md, Queue 1 item 9)")
+    if not (args.int8 or args.int4):
+        raise NotImplementedError("aha_tpu_torch builds synthetic weights in a quantized form "
+                                  "only: pass --int8 or --int4 (dense synthetic weights: "
+                                  "ROADMAP.md, Queue 1 item 9)")
+
+
+def _build_session(args):
+    """Parsed flags -> a StreamSession on ``args.device``."""
+    from ..config import InferConfig, aha_7b, aha_tiny
+    from ..models.aha import random_params
+    from ..streaming.session import build_session
+    from ..tokenization import build_stream_tokenizer
+
+    _refuse_unported(args)
+    cfg = aha_tiny() if args.model_preset == "tiny" else aha_7b()
+    tokenizer = build_stream_tokenizer(args.tokenizer_pretrained,
+                                       frame_num_tokens=cfg.frame_num_tokens,
+                                       vocab_size=cfg.llm.vocab_size)
+    cfg = cfg.replace(v_placeholder_id=tokenizer.v_placeholder_id,
+                      eos_token_id=tokenizer.eos_token_id)
+    # int4 wins when both are given, as in JAX
+    params = random_params(cfg, mode="int4" if args.int4 else "int8", device=args.device)
+    infer_cfg = InferConfig(
+        frame_fps=args.frame_fps,
+        frame_resolution=cfg.frame_resolution,
+        grounding_mode=args.grounding_mode,
+        stream_end_prob_threshold=args.stream_end_prob_threshold,
+        threshold_z=args.threshold_z,
+        first_n_frames_no_generate=args.first_n_frames_no_generate,
+        running_list_length=args.running_list_length,
+        response_min_interval_frames=args.response_min_interval_frames,
+        stream_end_score_sum_threshold=args.stream_end_score_sum_threshold,
+        remove_assistant_turns=args.remove_assistant_turns,
+        score_heads=tuple(args.score_heads.split(",")),
+        repetition_penalty=args.repetition_penalty,
+        max_new_tokens=args.max_new_tokens,
+        kv_cache_policy=args.kv_cache_policy,
+        kv_window=args.kv_window,
+        num_sink_tokens=args.num_sink_tokens,
+        kv_cache_dtype=args.kv_cache_dtype,
+        kv_mask_mode=args.kv_mask_mode,
+        spec_decode_tokens=args.spec_decode_tokens,
+        spec_decode_tokens_max=args.spec_decode_tokens_max,
+        fused_score_frames=args.fused_score_frames,
+    )
+    return build_session(params, cfg, tokenizer, infer_cfg, device=args.device,
+                         backend="fused")
+
+
+def _add_infer_flags(p: argparse.ArgumentParser):
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the session (default: the card; 'cpu' runs the "
+                        "kernels' plain versions on the host)")
+    p.add_argument("--model_preset", default="7b", choices=["7b", "tiny"])
+    p.add_argument("--llm_pretrained", default=None,
+                   help="converted / HF checkpoint dir (not ported yet)")
+    p.add_argument("--tokenizer_pretrained", default=None)
+    p.add_argument("--lora_pretrained", default=None,
+                   help="peft adapter-only checkpoint dir (not ported yet)")
+    p.add_argument("--int8", action="store_true", help="int8 weights (per output channel)")
+    p.add_argument("--int4", action="store_true",
+                   help="packed int4 weights (groups of 128; the smallest memory)")
+    p.add_argument("--synthetic_weights", action="store_true",
+                   help="seeded random params built on the device in their final quantized "
+                        "form: a run of the product without a checkpoint (scores "
+                        "meaningless; speed and memory real)")
+    p.add_argument("--vision_int8", action="store_true",
+                   help="also quantize the SigLIP tower (not ported yet)")
+    p.add_argument("--w8a8", action="store_true",
+                   help="serving mode: int8 weights, per-token int8 activations, an int8 "
+                        "vision tower and fused width 8 (not ported yet)")
+    p.add_argument("--test_dataset", required=True,
+                   choices=["tvsum", "tvsum_degraded", "hisum", "youcook2",
+                            "magqa", "charades", "generic",
+                            "arl_scout", "hubble_space", "jkim_landing"])
+    p.add_argument("--query", default=None,
+                   help="live-video demo datasets: the running query")
+    p.add_argument("--tick_table", default="configs/tick_tables/demo_ticks.json")
+    p.add_argument("--start_sec", type=float, default=0.0)
+    p.add_argument("--input_dir", required=True)
+    p.add_argument("--output_fname", required=True)
+    p.add_argument("--test_fname", default=None)
+    p.add_argument("--caption_metadata_file", default=None)
+    p.add_argument("--video_metadata_file", default=None)
+    p.add_argument("--anno_file", default=None)
+    p.add_argument("--hisum_h5_file", default=None)
+    p.add_argument("--frame_fps", type=float, default=2.0)
+    p.add_argument("--max_num_frames", type=int, default=400)
+    p.add_argument("--grounding_mode", action="store_true")
+    p.add_argument("--stream_end_prob_threshold", type=float, default=None)
+    p.add_argument("--threshold_z", type=float, default=None)
+    p.add_argument("--first_n_frames_no_generate", type=int, default=0)
+    p.add_argument("--running_list_length", type=int, default=20)
+    p.add_argument("--response_min_interval_frames", type=int, default=None)
+    p.add_argument("--stream_end_score_sum_threshold", type=float, default=None)
+    p.add_argument("--remove_assistant_turns", action="store_true")
+    p.add_argument("--score_heads", default="relevance_score,informative_score")
+    p.add_argument("--repetition_penalty", type=float, default=None)
+    p.add_argument("--max_new_tokens", type=int, default=200)
+    p.add_argument("--kv_cache_policy", default="sink",
+                   choices=["sink", "sliding", "static", "none"])
+    p.add_argument("--kv_window", type=int, default=2048)
+    p.add_argument("--num_sink_tokens", type=int, default=32)
+    p.add_argument("--kv_cache_dtype", default="auto", choices=["auto", "int8"],
+                   help="int8: per-(slot, head) quantized KV cache")
+    p.add_argument("--spec_decode_tokens", type=int, default=4,
+                   help="speculative decoding: tokens verified per decoder pass (1 = off); "
+                        "the same tokens either way")
+    p.add_argument("--spec_decode_tokens_max", type=int, default=8,
+                   help="acceptance-adaptive ceiling of the speculative width "
+                        "(<= spec_decode_tokens = fixed width)")
+    p.add_argument("--fused_score_frames", type=int, default=4,
+                   help="frames verified per decoder weight stream on the scoring paths "
+                        "(1 = one frame a pass); the same decisions either way")
+    p.add_argument("--kv_mask_mode", default="hf", choices=["hf", "strict"],
+                   help="hf: the reference's transformers-4.49 mask arithmetic; strict: "
+                        "true causal masking")
+    p.add_argument("--no_query", action="store_true")
+    p.add_argument("--title_ablation", default=None, choices=["ambiguous", "unrelated"])
+    p.add_argument("--title_table", default=None)
+    p.add_argument("--time_instruction_format", default=None)
+    p.add_argument("--start_idx", type=int, default=0)
+    p.add_argument("--end_idx", type=int, default=None)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--concurrent_streams", type=int, default=1,
+                   help="streaming-QA datasets: videos served at once in one batched "
+                        "engine (not ported yet: 1 only)")

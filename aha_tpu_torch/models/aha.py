@@ -45,7 +45,7 @@ def encode_vision_tokens(params: dict, cfg: AhaConfig, frames: torch.Tensor,
     if cfg.vision.arch != "siglip" or cfg.frame_token_cls:
         raise NotImplementedError(
             "aha_tpu_torch ports the SigLIP tower without the CLS probe only "
-            "(ROADMAP.md, Queue 1 item 3)")
+            "(ROADMAP.md, Queue 1 item 8)")
     if tuple(frames.shape[1:3]) != (cfg.frame_resolution, cfg.frame_resolution):
         frames = device_letterbox(frames, cfg.frame_resolution)
     pixels = siglip.preprocess_frames(frames, dtype)

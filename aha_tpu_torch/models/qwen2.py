@@ -148,7 +148,7 @@ def forward_hidden(params: dict, cfg: QwenConfig, inputs_embeds: torch.Tensor, *
         replay = lambda i: False
     elif remat in ("dots", "dots_no_batch"):
         raise NotImplementedError(
-            f"remat={remat!r} is not ported (ROADMAP.md, What remains: 'dots' remat); "
+            f"remat={remat!r} is not ported (ROADMAP.md, Queue 1 item 6); "
             "use 'none', 'half' or 'full'")
     else:
         raise ValueError(f"unknown remat policy: {remat!r}")

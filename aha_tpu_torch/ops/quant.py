@@ -73,7 +73,7 @@ def qlinear(x: torch.Tensor, qkernel: dict, backend: str = "fused") -> torch.Ten
                          "gradient; train with backend='fused'")
     if under_grad and "q4value" not in qkernel:
         raise NotImplementedError(
-            "training through int8 weights is not ported yet (ROADMAP.md, What remains: "
+            "training through int8 weights is not ported yet (ROADMAP.md, Queue 1 item 6: "
             "int8-trunk training); quantise the trunk to packed int4")
     if "q4value" in qkernel:
         if backend == "pallas":

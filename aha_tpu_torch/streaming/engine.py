@@ -4,13 +4,14 @@ Counterpart of the single-stream subset of ``aha_tpu/streaming/engine.py``,
 ``engine_core.py`` and ``engine_generate.py``: cache creation and reset,
 frame pre-encoding, text / frame / text+frame chunk appends, per-frame and
 fused frame scoring (``fused_frames`` frames per weight stream through the
-read-only verify pass), greedy generation with repetition penalty, and its
-speculative form (``spec_tokens`` candidates per weight stream, widening to
+read-only verify pass), the trigger loops that score until a stopping
+rule fires (``engine_trigger.py``), greedy generation with repetition
+penalty, and its speculative form (``spec_tokens`` candidates per weight stream, widening to
 ``spec_max`` while drafts are being accepted), which writes the same tokens.
 
-The cache is updated IN PLACE by every append, by ``append_frames_fused``
-and by both generation loops (the JAX engine donates it instead); the verify
-pass itself only reads it. Each method returns what the caller reads
+The cache is updated IN PLACE by every append, by ``commit_frames``, by
+the trigger loops and by both generation loops (the JAX engine donates it
+instead); the verify pass itself only reads it. Each method returns what the caller reads
 (scores, logits, ids).
 Id chunks are not padded to buckets: JAX pads only for static shapes, and a
 padded token goes to the junk slot, so padding carries no meaning.
@@ -26,6 +27,7 @@ from ..models import aha, qwen2
 from ..ops import spec_decode
 from ..ops.kv_cache import CachePolicy, KVCache, init_cache, reset_cache
 from ..ops.quant import BACKENDS
+from .engine_trigger import TriggerLoops
 
 
 def _apply_repetition_penalty(logits: torch.Tensor, counts: torch.Tensor,
@@ -57,7 +59,7 @@ SPEC_EMA_ALPHA = 0.35
 SPEC_EMA_HI = 0.7
 
 
-class StreamEngine:
+class StreamEngine(TriggerLoops):
     """Params and compute primitives for one (config, cache policy) pair on
     one device, for one stream (batch 1 cache)."""
 
@@ -72,7 +74,8 @@ class StreamEngine:
         (``ops.quant.BACKENDS``). ``spec_tokens``: candidates verified per
         generation pass (1 = the sequential loop); ``spec_tokens_max``: the
         adaptive ceiling (None or <= spec_tokens = fixed width).
-        ``fused_score_frames``: frames per pass in ``score_stream``."""
+        ``fused_score_frames``: frames per pass in ``score_stream`` and in
+        the trigger loops."""
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -175,30 +178,48 @@ class StreamEngine:
         hidden = self._decode(cache, emb, valid)
         return aha.scores_from_hidden(self.params, self._last_valid(hidden, valid))
 
-    def append_frames_fused(self, cache: KVCache, frame_embeds: torch.Tensor,
-                            n_active: torch.Tensor | None = None) -> torch.Tensor:
-        """k frame appends verified in ONE weight stream: frame_embeds
-        [B, k, F, H] -> scores [B, k, 3]; the cache ends where k sequential
-        ``append_frames`` calls would leave it.
+    def verify_frames(self, cache: KVCache, frame_embeds: torch.Tensor,
+                      n_active: torch.Tensor | None = None):
+        """k frame appends verified in ONE weight stream, READ-ONLY:
+        frame_embeds [B, k, F, H] -> (scores [B, k, 3], pending), where
+        ``commit_frames(cache, pending, m)`` then moves the cache to where m
+        sequential ``append_frames`` calls would leave it.
 
-        The read-only verify pass over plans composed with ``step=F``
-        reproduces k sequential ``decode_chunk(F)`` steps exactly, for every
-        policy and fill state, while streaming the weights once. Nothing can
-        be rejected (the inputs are known in advance), so the commit is the
-        whole valid prefix. ``n_active`` [B]: frames of each row that are
-        real, a per-row prefix (the padded tail of a stream); their scores
-        are garbage and they leave the cache alone. MUTATES ``cache``."""
+        The verify pass over plans composed with ``step=F`` reproduces k
+        sequential ``decode_chunk(F)`` steps exactly, for every policy and
+        fill state, while streaming the weights once. ``n_active`` [B]:
+        frames of each row that are real, a per-row prefix (the padded tail
+        of a stream); their scores are garbage."""
         B, k, F, H = frame_embeds.shape
         if n_active is None:
             n_active = torch.full((B,), k, dtype=torch.int32, device=self.device)
-        valid_len = n_active * F
-        plans = spec_decode.plan_compose(cache, self.policy, valid_len, k, step=F)
+        plans = spec_decode.plan_compose(cache, self.policy, n_active * F, k, step=F)
         hidden, infl_k, infl_v = qwen2.decode_chunk_spec(
             self.params["llm"], self.cfg.llm, self.policy, cache,
             frame_embeds.reshape(B, k * F, H), plans, backend=self.backend)
-        spec_decode.commit_slots(cache, plans, infl_k, infl_v, valid_len, self.policy.junk)
-        spec_decode.select_meta(cache, plans, n_active)
-        return aha.scores_from_hidden(self.params, hidden[:, F - 1::F])
+        scores = aha.scores_from_hidden(self.params, hidden[:, F - 1::F])
+        return scores, (plans, infl_k, infl_v, F)
+
+    def commit_frames(self, cache: KVCache, pending, m: torch.Tensor) -> None:
+        """Commit the first m [B] frames of a ``verify_frames`` pass (at most
+        its active ones): the metadata of the m-th composed step and those
+        frames' K/V. Both writes read only the plans, so their order does
+        not matter. MUTATES ``cache``."""
+        plans, infl_k, infl_v, F = pending
+        spec_decode.select_meta(cache, plans, m)
+        spec_decode.commit_slots(cache, plans, infl_k, infl_v, m * F, self.policy.junk)
+
+    def append_frames_fused(self, cache: KVCache, frame_embeds: torch.Tensor,
+                            n_active: torch.Tensor | None = None) -> torch.Tensor:
+        """``verify_frames`` and the commit of every active frame: nothing can
+        be rejected (the inputs are known in advance). Returns scores
+        [B, k, 3]. MUTATES ``cache``."""
+        B, k = frame_embeds.shape[:2]
+        if n_active is None:
+            n_active = torch.full((B,), k, dtype=torch.int32, device=self.device)
+        scores, pending = self.verify_frames(cache, frame_embeds, n_active)
+        self.commit_frames(cache, pending, n_active)
+        return scores
 
     def score_stream(self, cache: KVCache, frames: torch.Tensor) -> torch.Tensor:
         """frames [B, T, F, H] -> scores [B, T, 3]: one frame chunk at a

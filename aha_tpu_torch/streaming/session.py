@@ -1,17 +1,18 @@
 """StreamSession: the single-stream streaming-inference session.
 
 Counterpart of ``aha_tpu/streaming/session.py``: the benchmark loop
-``inference()`` (the stepwise loop; the JAX chunked loop gives the same
-outputs, tests/test_streaming.py::test_chunked_inference_matches_stepwise),
-the prob / sum / z trigger rules, and ``score_video``. ``score_video`` scores
-``fused_score_frames`` frames per decoder pass and a response is generated
+``inference()``, the prob / sum / z trigger rules, and ``score_video``.
+``inference()`` runs the chunked loop by default, as JAX's does: the runs of
+frames between queries and responses go through the engine's trigger loops
+(``engine_trigger.py``), which score ``fused_score_frames`` frames a decoder
+pass and read one small tensor back per pass; ``inference(chunked=False)``
+is the stepwise loop, one frame a pass with the rule applied on the host.
+Both make the same decisions on the same scores. ``score_video`` scores
+``fused_score_frames`` frames per pass and a response is generated
 ``spec_decode_tokens`` candidates per pass (both through the engine's
-read-only verify pass); inside ``inference()`` frames are scored one per
-pass, because a trigger may fire after any of them (the chunked on-device
-trigger loops of the JAX session are not ported: ROADMAP.md, Queue 1;
-``inference(chunked=True)`` runs the stepwise loop too). The
-session only sequences chunks and applies the trigger policy; tensor work is
-in :class:`~aha_tpu_torch.streaming.engine.StreamEngine`.
+read-only verify pass). The session only sequences chunks and applies the
+trigger policy; tensor work is in
+:class:`~aha_tpu_torch.streaming.engine.StreamEngine`.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from ..config import AhaConfig, InferConfig
 from ..ops.kv_cache import CachePolicy
 from ..tokenization import StreamTokenizer
 from .engine import StreamEngine
+from .engine_trigger import z_step_host
 
 
 class StreamSession:
@@ -33,6 +35,7 @@ class StreamSession:
         infer_cfg.validate()
         self.engine = engine
         self.tokenizer = tokenizer
+        self.args = infer_cfg
         self.score_heads = list(infer_cfg.score_heads)
         self.stream_end_prob_threshold = infer_cfg.stream_end_prob_threshold
         self.stream_end_score_sum_threshold = infer_cfg.stream_end_score_sum_threshold
@@ -76,6 +79,8 @@ class StreamSession:
         self.last_role = "system"
         self.init_vision_time = False
         self.stream_end_prob_list: list[float] = []
+        # the chunked loop's z window on the device (made at first use)
+        self._z_state = None
         self.stream_end_score_sum = 0.0
         self.last_response_frame: int | None = None
         self.debug_data_list: list[dict] = []
@@ -112,16 +117,7 @@ class StreamSession:
         if not self.frame_embeds_queue:
             return None, None
         _, frame_embeds = self.frame_embeds_queue.popleft()
-        if not self.init_vision_time:
-            prefix_ids = self._start_ids
-            self.init_vision_time = True
-        elif self.last_role == "assistant" and not self.remove_assistant_turns:
-            # the response's final token (usually eos) was produced but never
-            # fed through the decoder; it leads the next chunk, as the
-            # reference's cat([last_ids, _added_stream_prompt_ids])
-            prefix_ids = self._pending_last_ids + self._added_stream_prompt_ids
-        else:
-            prefix_ids = []
+        prefix_ids = self._frame_prefix_ids()
         if prefix_ids:
             scores = self.engine.append_text_frames(self.cache, [prefix_ids],
                                                     frame_embeds[None])
@@ -131,6 +127,19 @@ class StreamSession:
         self.last_role = "stream"
         info, rel, unc = (float(x) for x in scores[0].cpu())
         return {"informative_score": info, "relevance_score": rel}, unc
+
+    def _frame_prefix_ids(self) -> list[int]:
+        """Role-transition ids owed before the next frame, which carries them
+        in its own chunk: the system prompt before the first frame, and after
+        a response its final token (usually eos, produced but never fed
+        through the decoder) with the stream prompt, as the reference's
+        cat([last_ids, _added_stream_prompt_ids])."""
+        if not self.init_vision_time:
+            self.init_vision_time = True
+            return list(self._start_ids)
+        if self.last_role == "assistant" and not self.remove_assistant_turns:
+            return self._pending_last_ids + self._added_stream_prompt_ids
+        return []
 
     def _encode_query(self):
         _, query = self.query_queue.popleft()
@@ -176,22 +185,35 @@ class StreamSession:
 
     # -- decision policy --------------------------------------------------------
 
-    def _check_trigger(self, video_scores: dict) -> bool:
+    def _stream_end(self, info: float, rel: float) -> float:
+        """The stream-end score: the sum of the ``score_heads`` among
+        informative and relevance."""
+        return sum(v for key, v in (("informative_score", info), ("relevance_score", rel))
+                   if key in self.score_heads)
+
+    def _sum_prob_trigger(self, stream_end_score: float, eligible: bool) -> bool:
+        """The sum rule (the running sum, reset to 0 on a hit) and the prob
+        rule for one frame."""
         need_response = False
-        stream_end_score = sum(v for k, v in video_scores.items() if k in self.score_heads)
-        self.stream_end_prob_list.append(stream_end_score)
         self.stream_end_score_sum += stream_end_score
-        if isinstance(self.running_list_length, int) and self.running_list_length > 0:
-            self.stream_end_prob_list = self.stream_end_prob_list[-self.running_list_length:]
-        eligible = self._trigger_eligible(self.frame_idx - 1)
         if (self.stream_end_score_sum_threshold is not None
                 and self.stream_end_score_sum > self.stream_end_score_sum_threshold
                 and eligible):
             need_response = True
-            self.stream_end_score_sum = 0
+            self.stream_end_score_sum = 0.0
         if (self.stream_end_prob_threshold is not None
                 and stream_end_score > self.stream_end_prob_threshold and eligible):
             need_response = True
+        return need_response
+
+    def _check_trigger(self, video_scores: dict) -> bool:
+        stream_end_score = self._stream_end(video_scores["informative_score"],
+                                            video_scores["relevance_score"])
+        self.stream_end_prob_list.append(stream_end_score)
+        if isinstance(self.running_list_length, int) and self.running_list_length > 0:
+            self.stream_end_prob_list = self.stream_end_prob_list[-self.running_list_length:]
+        eligible = self._trigger_eligible(self.frame_idx - 1)
+        need_response = self._sum_prob_trigger(stream_end_score, eligible)
         if self.threshold_z is not None and eligible and self._z_trigger(stream_end_score):
             need_response = True
         if need_response:
@@ -227,11 +249,21 @@ class StreamSession:
     def inference(self, verbose: bool = False, chunked: bool = True) -> list[dict]:
         """The benchmark loop: returns the conversation with the generated
         assistant turns; per-frame scores land in ``self.debug_data_list``.
-        Takes the JAX session's arguments: ``chunked`` picks its on-device
-        trigger loop or its stepwise loop, whose outputs are equal
-        (tests/test_streaming.py::test_chunked_inference_matches_stepwise);
-        here both run the stepwise loop, since the chunked loops are not
-        ported yet. ``verbose`` is accepted and changes nothing, as there."""
+        ``chunked=True`` (the default, as in JAX) scores each run of frames
+        between queries and responses through the engine's trigger loops:
+        ``score_until_trigger`` for the prob and sum rules,
+        ``score_until_trigger_multi`` at one row for the z rule (its window
+        lives on the device), ``fused_score_frames`` frames a pass and one
+        host read per pass. ``chunked=False`` is the stepwise loop: one frame
+        a pass, the rule applied on the host. The two give the same
+        decisions on the same scores; the frame a response follows carries
+        its role prefix in its own chunk either way. ``verbose`` is accepted
+        and changes nothing, as in JAX."""
+        if chunked:
+            return self._inference_chunked()
+        return self._inference_stepwise()
+
+    def _inference_stepwise(self) -> list[dict]:
         model_response_list = [
             {"time": q[0], "content": q[1], "role": "user"} for q in self.query_queue]
         while self.frame_embeds_queue:
@@ -245,6 +277,116 @@ class StreamSession:
                 model_response_list.append(
                     {"time": self.video_time, "content": response, "role": "assistant"})
             self.video_time += 1.0 / self.frame_fps
+        return sorted(model_response_list, key=lambda x: x["time"])
+
+    def _z_dev(self):
+        """The z window on the device, ([1, L] scores, [1] count), L the
+        running-list length; made at first use."""
+        if self._z_state is None:
+            self._z_state = self.engine.new_z_state(
+                window=max(int(self.running_list_length or 20), 2))
+        return self._z_state
+
+    def _prefix_frame(self, prefix: list[int], frame_embeds: torch.Tensor) -> tuple:
+        """The frame after a response (or the first frame) with its
+        role-transition prefix in the same chunk (the chunk boundary is
+        semantic under the 'hf' mask once the window is full), its rule
+        checked on the host; the z window on the device is pushed too.
+        Returns (scores [1, 3] f64 on the host, fired)."""
+        s = self.engine.append_text_frames(self.cache, [prefix], frame_embeds[None])
+        s_host = s.double().cpu().numpy()
+        stream_end = self._stream_end(float(s_host[0, 0]), float(s_host[0, 1]))
+        eligible = self._trigger_eligible(self.frame_idx)
+        triggered = self._sum_prob_trigger(stream_end, eligible)
+        if self.threshold_z is not None:
+            zh, zc = self._z_dev()
+            zh, zc = zh.cpu().numpy().copy(), zc.cpu().numpy().copy()
+            fire = z_step_host(zh, zc, 0, stream_end, self.threshold_z,
+                               int(self.first_n_frames_no_generate or 0))
+            triggered = triggered or (eligible and fire)
+            dev = self.engine.device
+            self._z_state = (torch.as_tensor(zh, device=dev), torch.as_tensor(zc, device=dev))
+        return s_host, triggered
+
+    def _resume_offset(self) -> int:
+        """Frames from the next one to score until one may fire again
+        (response_min_interval_frames; <= 0: no suppression)."""
+        if self.response_min_interval_frames is None or self.last_response_frame is None:
+            return 0
+        return self.last_response_frame + self.response_min_interval_frames - self.frame_idx
+
+    def _inference_chunked(self) -> list[dict]:
+        model_response_list = [
+            {"time": q[0], "content": q[1], "role": "user"} for q in self.query_queue]
+        while self.frame_embeds_queue:
+            if self.query_queue and self.video_time >= self.query_queue[0][0]:
+                self._encode_query()
+            # the frames until the next query is due, at least one: one query
+            # is encoded per frame step, so two queries due at the same time
+            # interleave as q1, frame, q2, frame
+            next_q = self.query_queue[0][0] if self.query_queue else None
+            chunk, times = [], []
+            t = self.video_time
+            for _, emb in self.frame_embeds_queue:
+                if chunk and next_q is not None and t >= next_q:
+                    break
+                chunk.append(emb)
+                times.append(t)
+                t += 1.0 / self.frame_fps
+            for _ in chunk:
+                self.frame_embeds_queue.popleft()
+            embeds = torch.stack(chunk)                      # [T, F, H]
+
+            k = 0
+            while k < len(chunk):
+                prefix = self._frame_prefix_ids()
+                if prefix:
+                    s_host, triggered = self._prefix_frame(prefix, embeds[k])
+                    n = 1
+                elif self.threshold_z is None:
+                    scores, n, self.stream_end_score_sum, triggered = \
+                        self.engine.score_until_trigger(
+                            self.cache, embeds[k:], len(chunk) - k, self.stream_end_score_sum,
+                            self.stream_end_prob_threshold,
+                            self.stream_end_score_sum_threshold, tuple(self.score_heads),
+                            resume_at=self._resume_offset())
+                    s_host = scores[:n].double().cpu().numpy()
+                else:
+                    # the z rule: the one-row loop of multi-stream serving, its
+                    # window on the device; positions (start, resume_at) are
+                    # indices into this chunk
+                    scores, i_next, new_sum, trig, zh, zc = \
+                        self.engine.score_until_trigger_multi(
+                            self.cache, embeds[None], [k], [len(chunk)],
+                            [self.stream_end_score_sum], self.stream_end_prob_threshold,
+                            self.stream_end_score_sum_threshold, tuple(self.score_heads),
+                            z_threshold=[self.threshold_z], z_state=self._z_dev(),
+                            first_n_frames=max(int(self.first_n_frames_no_generate or 0), 0),
+                            resume_at=[max(k + self._resume_offset(), 0)])
+                    self._z_state = (zh, zc)
+                    n = int(i_next[0]) - k
+                    triggered = bool(trig[0])
+                    s_host = scores[0, k:k + n].double().cpu().numpy()
+                    self.stream_end_score_sum = float(new_sum[0])
+                self.last_role = "stream"
+                self.frame_idx += n
+                for j in range(n):
+                    info, rel, unc = (float(x) for x in s_host[j])
+                    self.debug_data_list.append(dict(
+                        time=times[k + j], informative_score=info, relevance_score=rel,
+                        uncertainty_score=unc))
+                    self.stream_end_prob_list.append(self._stream_end(info, rel))
+                if isinstance(self.running_list_length, int) and self.running_list_length > 0:
+                    self.stream_end_prob_list = self.stream_end_prob_list[-self.running_list_length:]
+                k += n
+                self.video_time = times[k - 1] + 1.0 / self.frame_fps
+                if triggered:
+                    self.last_response_frame = self.frame_idx - 1
+                    self.video_time = times[k - 1]       # stamped at the triggering frame
+                    response = self._generate_response()
+                    model_response_list.append(
+                        {"time": self.video_time, "content": response, "role": "assistant"})
+                    self.video_time = times[k - 1] + 1.0 / self.frame_fps
         return sorted(model_response_list, key=lambda x: x["time"])
 
     def score_video(self, video_frames, query: str | None = None) -> list[dict]:

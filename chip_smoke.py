@@ -44,7 +44,8 @@ Phases, one or more lines each:
      attention's forward and backward at T = 926, at ragged lengths, at
      T = 63, 64, 65 and 129 across its tile edges, at T = 4096, and with a
      padding mask, each launched twice for equal bits, beside
-     scaled_dot_product_attention, which is timed and used nowhere (these
+     scaled_dot_product_attention (with a padding mask: a boolean mask, causal
+     and key-valid), which is timed and used nowhere (these
      two as device time from a replayed CUDA graph: the kernels are shorter
      than the host's work to launch them); the cached attention at every S of
      a write pass on the 7B's 2049-slot cache, either side of the tensor
@@ -75,30 +76,47 @@ Phases, one or more lines each:
      trained leaf within 1e-3 of its largest magnitude;
   4. at the 7B's full width and depth, seeded synthetic weights, sink cache
      2048 + 32, launch counters zeroed just before each path and read just
-     after:
+     after; inference() runs its chunked trigger loops (the default) unless
+     said otherwise, and a comparison of texts across generation widths keeps
+     the run's own scoring width:
        a. 7B-int4 at the product widths: score_video over 64 frames (16 fused
           passes of 196 rows), inference() over 96 frames at 2 fps with a
-          query at t=0, past the window fill, speculative generation 4 -> 8,
-          then the same inference() at width 1 (texts compared) and one
-          verify pass of 8 tokens, as generation runs it (attention replayed
-          through the kernel), against 8 sequential passes on the filled
-          cache (hidden states equal bit for bit);
+          query at t=0, past the window fill, fused scoring of 4 frames,
+          speculative generation 4 -> 8, then the same inference() at
+          generation width 1 (texts compared) and one verify pass of 8 tokens,
+          as generation runs it (attention replayed through the kernel),
+          against 8 sequential passes on the filled cache (hidden states equal
+          bit for bit);
        b. 7B-int8 at the product widths as in a (its products at 1 .. 16 rows on
-          the int8 decode kernel), then the same stream at width 1: score_video
-          one frame a pass, inference() with S = 1 passes (texts compared), and
-          the verify pass against sequential passes as in a;
+          the int8 decode kernel), then score_video one frame a pass, the same
+          inference() at generation width 1 (texts compared), and the verify
+          pass against sequential passes as in a;
        c. 7B-int8 at the --w8a8 widths (backend "fused_a8": per-token int8
           activations): score_video over 64 frames in 8 fused passes of 392
-          rows, inference() over b's stream with generation 4 -> 8, then the
-          same inference() at width 1 (texts compared), frames/s and decode
-          tokens/s beside b's; a short score_video run (8 frames) of 7B-int8 with
-          "pallas" (scores against b's width-1 run);
+          rows, inference() over b's stream at fused 8 with generation 4 -> 8,
+          then the same inference() at generation width 1 (texts compared),
+          frames/s and decode tokens/s beside b's; a short score_video run (8
+          frames) of 7B-int8 with "pallas" (scores against b's width-1 run);
        d. 7B-int4 with per-token int8 activations (backend "fused_a8", the W4A8
           recipe) at the product widths on a's weights and stream: score_video
           over 64 frames in 16 fused passes of 196 rows, inference() with
-          generation 4 -> 8, then the same inference() at width 1 (texts
-          compared) and the verify pass against sequential passes as in a;
-          frames/s and decode tokens/s beside a's, scores against a's.
+          generation 4 -> 8, then the same inference() at generation width 1
+          (texts compared) and the verify pass against sequential passes as in
+          a; frames/s and decode tokens/s beside a's, scores against a's;
+       e. the chunked trigger loops on b's and d's weights (max_new_tokens 16):
+          7B-int8 at fused 1 with generation 4 -> 8, the sum rule and the z rule
+          (threshold_z 1.5, first 8 frames, running list 20), chunked equal to
+          stepwise bit for bit (every score, response time and text, 3
+          responses at least); 7B-int4 (sum rule) and 7B-int8 (z rule) at fused
+          4 and 7B-int8 "fused_a8" (prob rule) at fused 8, each with generation
+          4 -> 8 and response_min_interval_frames 4: the responses fire at
+          exactly the frames where the stepwise rule, applied on the host to
+          the run's own scores, fires; the largest score gap to the stepwise
+          run at the same widths before their first differing decision;
+          frames/s of both loops beside score_video's; then the infer command:
+          its session from parsed flags (--synthetic_weights --int8, then
+          --int4, product defaults), its driver's _full_pass over 32 frames,
+          and cmd_infer end to end on a 4 s clip written with cv2.
      Last, every shape that a path handed a kernel's wrapper must be one that
      phase 2 held against the plain version;
   5. 7B int4 QLoRA training at full width and depth: int4 trunk, int8
@@ -125,6 +143,7 @@ import gc
 import json
 import math
 import pathlib
+import statistics
 import subprocess
 import sys
 import time
@@ -995,17 +1014,21 @@ def check_flash_attention(gen, stats: Stats):
         pms_f = cuda_ms(lambda i: fa.flash_attention_fwd_plain(q, k, v, valid), iters=3, warmup=1)
         pms_b = cuda_ms(lambda i: fa.flash_causal_attention_bwd_plain(
             q, k, v, o_ref, dout, lse_ref, valid), iters=3, warmup=1)
-        lib_f = lib_b = None
-        if pad is None:
-            # one PyTorch call for the same function (no padding mask): timed, never used
-            qt, kt_, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-            dot = dout.transpose(1, 2)
-            sdpa = lambda: F.scaled_dot_product_attention(qt, kt_, vt, is_causal=True,
-                                                          enable_gqa=True)
-            with torch.no_grad():
-                lib_f = graph_ms(lambda i: sdpa())
-            # a graph holds a backward only with its forward: the difference of the two
-            lib_b = graph_ms(lambda i: torch.autograd.grad(sdpa(), (qt, kt_, vt), dot)) - lib_f
+        # one PyTorch call for the same function: timed, never used. With a padding mask it
+        # takes a boolean mask, causal and key-valid; a padded query row that sees no key is
+        # NaN there and 0 in the kernel, so only the time is compared
+        qt, kt_, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        dot = dout.transpose(1, 2)
+        mask = None
+        if valid is not None:
+            causal = torch.ones((T, T), dtype=torch.bool, device=dev).tril()
+            mask = causal[None, None] & valid[:, None, None, :]
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt_, vt, attn_mask=mask,
+                                                      is_causal=mask is None, enable_gqa=True)
+        with torch.no_grad():
+            lib_f = graph_ms(lambda i: sdpa())
+        # a graph holds a backward only with its forward: the difference of the two
+        lib_b = graph_ms(lambda i: torch.autograd.grad(sdpa(), (qt, kt_, vt), dot)) - lib_f
         # the (query, key) pairs this mask admits; 4 Dh operations a pair and head forward
         # (scores and weighted sum), 2.5 times that backward
         qpos = torch.arange(T, device=dev)
@@ -1021,15 +1044,12 @@ def check_flash_attention(gen, stats: Stats):
             shape = f"one layer: B={B} T={T}, {NH} / {KVH} heads, Dh {Dh}, bf16, causal"
             stats.add("flash_attention_fwd", ms_f, pms_f, b_f, by_f, lib_f, shape)
             stats.add("flash_attention_bwd", ms_b, pms_b, b_b, by_b, lib_b, shape)
-        lib = lambda x: "none" if x is None else f"{x:.4f}"
         print(f"phase2 flash_attention_fwd {label} {what} max_abs_err={err_f:.3e} equal_twice "
               f"kernel_ms={ms_f:.4f} loop_ms={loop_f:.4f} plain_ms={pms_f:.4f} "
-              f"bound_ms={b_f:.4f} ({by_f}) "
-              f"library_ms={lib(lib_f)}", flush=True)
+              f"bound_ms={b_f:.4f} ({by_f}) library_ms={lib_f:.4f}", flush=True)
         print(f"phase2 flash_attention_bwd {label} {what} max_abs_err={err_b:.3e} equal_twice "
               f"kernel_ms={ms_b:.4f} loop_ms={loop_b:.4f} plain_ms={pms_b:.4f} "
-              f"bound_ms={b_b:.4f} ({by_b}) "
-              f"library_ms={lib(lib_b)}", flush=True)
+              f"bound_ms={b_b:.4f} ({by_b}) library_ms={lib_b:.4f}", flush=True)
 
 
 # -- phases 3 and 4 --------------------------------------------------------------
@@ -1390,19 +1410,23 @@ class ShapeRecorder:
             setattr(mod, name, fn)
 
 
-def run_inference(params, cfg, tok, frames, threshold, widths, backend="fused"):
-    """inference() over ``frames`` with a query at t=0. Returns (session,
-    responses, seconds in all, seconds inside generate(), seconds and tokens
-    of the decode passes alone: a response's first token comes from the
-    prompt chunk's logits)."""
+def run_inference(params, cfg, tok, frames, rule, widths, backend="fused", chunked=True,
+                  max_new_tokens=32):
+    """inference() over ``frames`` with a query at t=0, the trigger ``rule``
+    (a float: the prob rule at that threshold; else InferConfig fields), the
+    chunked loop or the stepwise one. Returns (session, turns, seconds in
+    all, seconds inside generate(), seconds and tokens of the decode passes
+    alone: a response's first token comes from the prompt chunk's logits)."""
     import torch
 
     from aha_tpu_torch.config import InferConfig
     from aha_tpu_torch.streaming.session import build_session
 
+    if not isinstance(rule, dict):
+        rule = dict(stream_end_prob_threshold=rule)
     sess = build_session(params, cfg, tok, InferConfig(
-        stream_end_prob_threshold=threshold, frame_fps=2.0, kv_cache_policy="sink",
-        kv_window=2048, num_sink_tokens=32, max_new_tokens=32, **widths), backend=backend)
+        frame_fps=2.0, kv_cache_policy="sink", kv_window=2048, num_sink_tokens=32,
+        max_new_tokens=max_new_tokens, **rule, **widths), backend=backend)
     generate, append_ids = sess.engine.generate, sess.engine.append_ids
     gen_s, dec_s, dec_tokens, prompt_end = [0.0], [0.0], [0], [0.0]
 
@@ -1427,11 +1451,14 @@ def run_inference(params, cfg, tok, frames, threshold, widths, backend="fused"):
     t0 = time.perf_counter()
     sess.input_video_stream(frames)
     sess.input_query_stream([{"role": "user", "content": QUERY, "time": 0}])
-    turns = sess.inference()
+    turns = sess.inference(chunked=chunked)
     torch.cuda.synchronize()
     t_all = time.perf_counter() - t0
-    responses = [t["content"] for t in turns if t["role"] == "assistant"]
-    return sess, responses, t_all, gen_s[0], dec_s[0], dec_tokens[0]
+    return sess, turns, t_all, gen_s[0], dec_s[0], dec_tokens[0]
+
+
+def texts(turns) -> list[str]:
+    return [t["content"] for t in turns if t["role"] == "assistant"]
 
 
 def check_7b_run(name, rows, sess, responses, n_frames):
@@ -1531,12 +1558,6 @@ def drive_7b_paths(gpu: str, seed: int, stats: Stats):
         torch.cuda.synchronize()
         return params, time.perf_counter() - t0
 
-    def threshold(rows):
-        # the eighth-highest score of the same frames, so that the first
-        # responses fire within the first 64 frames
-        return sorted((r["informative_score"] + r["relevance_score"] for r in rows),
-                      reverse=True)[7]
-
     # -- a. 7B-int4 at the product widths -------------------------------------------
     params4, t_params = build("int4")
     torch.cuda.reset_peak_memory_stats()
@@ -1544,11 +1565,12 @@ def drive_7b_paths(gpu: str, seed: int, stats: Stats):
         kernels.reset_launches()                       # the new main path starts here
         rows, t_sv = score_64(params4, cfg, tok, frames[:64], product)
         sv_verifies = pc.verifies
-        sess, responses, t_inf, gen_s, dec_s, dec_tokens = run_inference(
+        sess, turns, t_inf, gen_s, dec_s, dec_tokens = run_inference(
             params4, cfg, tok, frames, threshold(rows), product)
         counts = dict(kernels.LAUNCHES)                # ... and ends here
         chunks, verifies = pc.chunks, pc.verifies
     peak = torch.cuda.max_memory_allocated()
+    responses = texts(turns)
     seen = check_7b_run("7b-int4", rows, sess, responses, 96)
     if sv_verifies != 16:
         raise AssertionError(f"7b-int4: score_video took {sv_verifies} fused passes, not 16")
@@ -1563,10 +1585,10 @@ def drive_7b_paths(gpu: str, seed: int, stats: Stats):
     acc = sess.engine.spec_acceptance()
     print(f"phase4a 7b-int4 widths 4 / 4->8 [{gpu}] params {t_params:.2f}s; score_video 64 "
           f"frames in 16 fused passes {t_sv:.3f}s = {64 / t_sv:.2f} frames/s (vision included); "
-          f"inference 96 frames {t_inf:.3f}s, {len(responses)} responses in {gen_s:.3f}s; "
-          f"decode {dec_tokens} tokens in {dec_s:.3f}s = {dec_tokens / max(dec_s, 1e-9):.2f} "
-          f"decode tokens/s, {acc['tokens_per_pass']} tokens per verify pass "
-          f"({acc['passes']} passes, acceptance EMA {acc['ema']}); per-frame scoring "
+          f"inference (chunked) 96 frames {t_inf:.3f}s, {len(responses)} responses in "
+          f"{gen_s:.3f}s; decode {dec_tokens} tokens in {dec_s:.3f}s = "
+          f"{dec_tokens / max(dec_s, 1e-9):.2f} decode tokens/s, {acc['tokens_per_pass']} tokens "
+          f"per verify pass ({acc['passes']} passes, acceptance EMA {acc['ema']}); scoring "
           f"{96 / (t_inf - gen_s):.2f} frames/s; stream {seen} tokens; {chunks} chunks + "
           f"{verifies} verify passes; launches int4_matmul={n4} decode_attention={na}; "
           f"max_memory_allocated {peak / 2**30:.2f} GiB", flush=True)
@@ -1574,17 +1596,18 @@ def drive_7b_paths(gpu: str, seed: int, stats: Stats):
     rows4, t_sv4, dec_tokens4, dec_s4 = rows, t_sv, dec_tokens, dec_s
     frames_s4 = 96 / (t_inf - gen_s)
 
-    # the same stream at width 1: the speculative texts against the sequential ones
-    sess1, responses1, t_inf1, gen_s1, dec_s1, dec_tokens1 = run_inference(
+    # the same stream at generation width 1, scoring at the same width: the speculative
+    # texts against the sequential ones
+    sess1, turns1, t_inf1, gen_s1, dec_s1, dec_tokens1 = run_inference(
         params4, cfg, tok, frames, threshold(rows), dict(product, spec_decode_tokens=1))
-    if responses1 != responses:
+    if texts(turns1) != responses:
         raise AssertionError("7b-int4: speculative texts differ from the width-1 texts:"
-                             + _first_divergence(responses, responses1))
+                             + _first_divergence(responses, texts(turns1)))
     dec_tokens1_4, dec_s1_4 = dec_tokens1, dec_s1
     err, same = verify_vs_sequential(sess, cfg)
-    print(f"phase4a width 1 [{gpu}]: decode {dec_tokens1} tokens in {dec_s1:.3f}s = "
+    print(f"phase4a generation width 1 [{gpu}]: decode {dec_tokens1} tokens in {dec_s1:.3f}s = "
           f"{dec_tokens1 / max(dec_s1, 1e-9):.2f} decode tokens/s; texts identical to the "
-          f"speculative run's ({len(responses1)} responses); verify pass "
+          f"speculative run's ({len(responses)} responses); verify pass "
           f"S=8 (attention replayed) vs 8 sequential passes on the filled cache: hidden "
           f"states equal bit for bit (max_abs_err={err:.3e}), argmax equal at {same}/8 "
           f"positions", flush=True)
@@ -1592,18 +1615,20 @@ def drive_7b_paths(gpu: str, seed: int, stats: Stats):
     gc.collect()      # a session and its timing wrappers form a cycle that holds the params
     torch.cuda.empty_cache()
 
-    # -- b. 7B-int8 at the product widths, then the same stream at width 1 ---------------
+    # -- b. 7B-int8 at the product widths, then generation at width 1 and score_video at
+    # width 1 -------------------------------------------------------------------------
     params8, t_params = build("int8")
     torch.cuda.reset_peak_memory_stats()
     with PassCounter() as pc:
         kernels.reset_launches()
-        rows8, t_sv = score_64(params8, cfg, tok, frames[:64], product)
+        rows8, t_sv8 = score_64(params8, cfg, tok, frames[:64], product)
         sv_verifies = pc.verifies
-        sess, responses, t_inf, gen_s, dec_s, dec_tokens = run_inference(
+        sess, turns, t_inf, gen_s, dec_s, dec_tokens = run_inference(
             params8, cfg, tok, frames, threshold(rows8), product)
         counts = dict(kernels.LAUNCHES)
         chunks, verifies = pc.chunks, pc.verifies
     peak = torch.cuda.max_memory_allocated()
+    responses = texts(turns)
     seen = check_7b_run("7b-int8", rows8, sess, responses, 96)
     if sv_verifies != 16:
         raise AssertionError(f"7b-int8: score_video took {sv_verifies} fused passes, not 16")
@@ -1618,62 +1643,65 @@ def drive_7b_paths(gpu: str, seed: int, stats: Stats):
     stats.launches(counts)
     acc = sess.engine.spec_acceptance()
     print(f"phase4b 7b-int8 widths 4 / 4->8 [{gpu}] params {t_params:.2f}s; score_video 64 "
-          f"frames in 16 fused passes {t_sv:.3f}s = {64 / t_sv:.2f} frames/s (vision included); "
-          f"inference 96 frames {t_inf:.3f}s, {len(responses)} responses in {gen_s:.3f}s; "
-          f"decode {dec_tokens} tokens in {dec_s:.3f}s = {dec_tokens / max(dec_s, 1e-9):.2f} "
-          f"decode tokens/s, {acc['tokens_per_pass']} tokens per verify pass "
-          f"({acc['passes']} passes, acceptance EMA {acc['ema']}); per-frame scoring "
+          f"frames in 16 fused passes {t_sv8:.3f}s = {64 / t_sv8:.2f} frames/s (vision "
+          f"included); inference (chunked) 96 frames {t_inf:.3f}s, {len(responses)} responses "
+          f"in {gen_s:.3f}s; decode {dec_tokens} tokens in {dec_s:.3f}s = "
+          f"{dec_tokens / max(dec_s, 1e-9):.2f} decode tokens/s, {acc['tokens_per_pass']} tokens "
+          f"per verify pass ({acc['passes']} passes, acceptance EMA {acc['ema']}); scoring "
           f"{96 / (t_inf - gen_s):.2f} frames/s; stream {seen} tokens; {chunks} chunks + "
           f"{verifies} verify passes; launches int8_matmul={n8} decode_attention={na}; "
           f"max_memory_allocated {peak / 2**30:.2f} GiB", flush=True)
     print(f"phase4b first response: {responses[0][:60]!r}", flush=True)
     dec_tokens8, dec_s8 = dec_tokens, dec_s
 
-    # the same stream at width 1 (one frame a pass in score_video, S = 1 passes in
-    # generation, the trigger threshold of the run above): the texts must be equal
+    # score_video one frame a pass, and the same stream with S = 1 passes in generation
+    # at the run's own scoring width and threshold: the texts must be equal
     with PassCounter() as pc:
         kernels.reset_launches()
         rows, t_sv1 = score_64(params8, cfg, tok, frames[:64], w1)
-        sess1, responses1, t_inf1, gen_s1, dec_s1, dec_tokens1 = run_inference(
-            params8, cfg, tok, frames, threshold(rows8), w1)
+        sv_chunks, sv_verifies = pc.chunks, pc.verifies
+        sess1, turns1, t_inf1, gen_s1, dec_s1, dec_tokens1 = run_inference(
+            params8, cfg, tok, frames, threshold(rows8), dict(product, spec_decode_tokens=1))
         counts = dict(kernels.LAUNCHES)
-        chunks1 = pc.chunks
-    check_7b_run("7b-int8 width 1", rows, sess1, responses1, 96)
+        chunks1, verifies1 = pc.chunks, pc.verifies
+    check_7b_run("7b-int8 generation width 1", rows, sess1, texts(turns1), 96)
     n8 = counts.get("int8_matmul", 0)
-    if n8 < L * chunks1 * 4 or pc.verifies:
+    if n8 < L * (chunks1 + verifies1) * 4 or sv_verifies or sv_chunks < 64:
         raise AssertionError(f"7b-int8 width 1: launches int8_matmul={n8} < {L} layers x "
-                             f"{chunks1} chunks, or a verify pass ran ({pc.verifies})")
+                             f"({chunks1} chunks + {verifies1} verify passes), or score_video "
+                             f"at width 1 took {sv_verifies} verify passes")
     stats.launches(counts)
-    if responses1 != responses:
+    if texts(turns1) != responses:
         raise AssertionError("7b-int8: speculative texts differ from the width-1 texts:"
-                             + _first_divergence(responses, responses1))
+                             + _first_divergence(responses, texts(turns1)))
     dec_tokens1_8, dec_s1_8 = dec_tokens1, dec_s1
     d = max(abs(a[k] - b[k]) for a, b in zip(rows8, rows) for k in SCORE_KEYS)
     err, same = verify_vs_sequential(sess, cfg)
     print(f"phase4b width 1 [{gpu}]: score_video 64 frames {t_sv1:.3f}s = {64 / t_sv1:.2f} "
-          f"frames/s, fused-4 scores vs width 1 max_abs_diff={d:.3e}; inference 96 frames "
-          f"{t_inf1:.3f}s; decode {dec_tokens1} tokens in {dec_s1:.3f}s = "
-          f"{dec_tokens1 / max(dec_s1, 1e-9):.2f} decode tokens/s; {chunks1} chunks; texts "
-          f"identical to the speculative run's ({len(responses1)} responses); verify pass "
-          f"S=8 (attention replayed) vs 8 sequential passes on the filled cache: hidden "
-          f"states equal bit for bit (max_abs_err={err:.3e}), argmax equal at {same}/8 "
-          f"positions", flush=True)
+          f"frames/s, fused-4 scores vs width 1 max_abs_diff={d:.3e}; inference at fused 4 with "
+          f"generation width 1 96 frames {t_inf1:.3f}s; decode {dec_tokens1} tokens in "
+          f"{dec_s1:.3f}s = {dec_tokens1 / max(dec_s1, 1e-9):.2f} decode tokens/s; {chunks1} "
+          f"chunks + {verifies1} verify passes; texts identical to the speculative run's "
+          f"({len(responses)} responses); verify pass S=8 (attention replayed) vs 8 sequential "
+          f"passes on the filled cache: hidden states equal bit for bit (max_abs_err={err:.3e}), "
+          f"argmax equal at {same}/8 positions", flush=True)
     del sess, sess1
     gc.collect()      # a session and its timing wrappers form a cycle that holds the params
 
     # -- c (int8 part). --w8a8 at its widths: "fused_a8" with fused scoring of 8 frames
-    # (392-row passes) and generation 4 -> 8, then the same stream at width 1 (texts
-    # must be equal); then "pallas", 8 frames ---------------------------------------------
+    # (392-row passes) and generation 4 -> 8, then generation at width 1 at the same
+    # scoring width (texts must be equal); then "pallas", 8 frames --------------------------
     w8a8 = dict(fused_score_frames=8, spec_decode_tokens=4, spec_decode_tokens_max=8)
     rows_w8, _ = score_64(params8, cfg, tok, frames[:64], w8a8)   # weight-only at the same width
     with PassCounter() as pc:
         kernels.reset_launches()
         rows_a8, t_sv_a8 = score_64(params8, cfg, tok, frames[:64], w8a8, backend="fused_a8")
         sv_verifies = pc.verifies
-        sess, responses, t_inf, gen_s, dec_s, dec_tokens = run_inference(
+        sess, turns, t_inf, gen_s, dec_s, dec_tokens = run_inference(
             params8, cfg, tok, frames, threshold(rows_a8), w8a8, backend="fused_a8")
         counts = dict(kernels.LAUNCHES)
         chunks, verifies = pc.chunks, pc.verifies
+    responses = texts(turns)
     seen = check_7b_run("7b-int8 fused_a8", rows_a8, sess, responses, 96)
     if sv_verifies != 8:
         raise AssertionError(f"7b-int8 fused_a8: score_video took {sv_verifies} fused passes, "
@@ -1690,31 +1718,32 @@ def drive_7b_paths(gpu: str, seed: int, stats: Stats):
     d8 = max(abs(a[k] - b[k]) for a, b in zip(rows_a8, rows_w8) for k in SCORE_KEYS)
     print(f"phase4c 7b-int8 backend=fused_a8 widths 8 / 4->8 (--w8a8) [{gpu}] score_video 64 "
           f"frames in 8 fused passes of 392 rows {t_sv_a8:.3f}s = {64 / t_sv_a8:.2f} frames/s "
-          f"(weight-only at 4: {64 / t_sv:.2f}); scores vs weight-only at width 8 max_abs_diff="
-          f"{d8:.3e}, vs weight-only width 1 {d:.3e}; inference 96 frames {t_inf:.3f}s, "
-          f"{len(responses)} responses; decode {dec_tokens} tokens in {dec_s:.3f}s = "
-          f"{dec_tokens / max(dec_s, 1e-9):.2f} decode tokens/s (weight-only at 4->8: "
-          f"{dec_tokens8 / max(dec_s8, 1e-9):.2f}), "
+          f"(weight-only at 4: {64 / t_sv8:.2f}); scores vs weight-only at width 8 "
+          f"max_abs_diff={d8:.3e}, vs weight-only width 1 {d:.3e}; inference (chunked) 96 "
+          f"frames {t_inf:.3f}s, {len(responses)} responses; decode {dec_tokens} tokens in "
+          f"{dec_s:.3f}s = {dec_tokens / max(dec_s, 1e-9):.2f} decode tokens/s (weight-only at "
+          f"4->8: {dec_tokens8 / max(dec_s8, 1e-9):.2f}), "
           f"{acc['tokens_per_pass']} tokens per verify pass; stream {seen} tokens; {chunks} "
           f"chunks + {verifies} verify passes; launches int8_matmul_a8={n} quantize_rows="
           f"{counts['quantize_rows']}", flush=True)
     with PassCounter() as pc:
         kernels.reset_launches()
-        sess1, responses1, t_inf1, gen_s1, dec_s1, dec_tokens1 = run_inference(
-            params8, cfg, tok, frames, threshold(rows_a8), w1, backend="fused_a8")
+        sess1, turns1, t_inf1, gen_s1, dec_s1, dec_tokens1 = run_inference(
+            params8, cfg, tok, frames, threshold(rows_a8), dict(w8a8, spec_decode_tokens=1),
+            backend="fused_a8")
         counts = dict(kernels.LAUNCHES)
-    check_7b_run("7b-int8 fused_a8 width 1", rows_a8, sess1, responses1, 96)
-    if pc.verifies or counts.get("int8_matmul_a8", 0) < L * pc.chunks * 4:
+    check_7b_run("7b-int8 fused_a8 generation width 1", rows_a8, sess1, texts(turns1), 96)
+    if counts.get("int8_matmul_a8", 0) < L * (pc.chunks + pc.verifies) * 4:
         raise AssertionError(f"7b-int8 fused_a8 width 1: launches {counts} over {pc.chunks} "
-                             f"chunks, {pc.verifies} verify passes")
+                             f"chunks + {pc.verifies} verify passes")
     stats.launches(counts)
-    if responses1 != responses:
+    if texts(turns1) != responses:
         raise AssertionError("7b-int8 fused_a8: speculative texts differ from the width-1 "
-                             "texts:" + _first_divergence(responses, responses1))
-    print(f"phase4c 7b-int8 backend=fused_a8 width 1 [{gpu}]: decode {dec_tokens1} tokens in "
-          f"{dec_s1:.3f}s = {dec_tokens1 / max(dec_s1, 1e-9):.2f} decode tokens/s (weight-only "
-          f"at width 1: {dec_tokens1_8 / max(dec_s1_8, 1e-9):.2f}); texts identical to the "
-          f"speculative run's ({len(responses1)} responses)", flush=True)
+                             "texts:" + _first_divergence(responses, texts(turns1)))
+    print(f"phase4c 7b-int8 backend=fused_a8 generation width 1 [{gpu}]: decode {dec_tokens1} "
+          f"tokens in {dec_s1:.3f}s = {dec_tokens1 / max(dec_s1, 1e-9):.2f} decode tokens/s "
+          f"(weight-only at width 1: {dec_tokens1_8 / max(dec_s1_8, 1e-9):.2f}); texts "
+          f"identical to the speculative run's ({len(responses)} responses)", flush=True)
     del sess, sess1
     gc.collect()
 
@@ -1733,23 +1762,22 @@ def drive_7b_paths(gpu: str, seed: int, stats: Stats):
     print(f"phase4c 7b-int8 backend=pallas [{gpu}] score_video 8 frames {t_b:.3f}s; "
           f"launches quant_matmul={n}; scores vs backend=fused max_abs_diff={d:.3e}",
           flush=True)
-    del params8
-    gc.collect()
     torch.cuda.empty_cache()
 
     # -- d. 7B-int4 with per-token int8 activations (backend "fused_a8", the W4A8
     # recipe) at the product widths: a's seeded weights and stream, fused scoring of 4
-    # frames (196-row passes), generation 4 -> 8, then the same stream at width 1 (texts
+    # frames (196-row passes), generation 4 -> 8, then generation at width 1 (texts
     # must be equal) and the verify pass against sequential passes ----------------------
     params4, _ = build("int4")
     with PassCounter() as pc:
         kernels.reset_launches()
         rows_d, t_sv_d = score_64(params4, cfg, tok, frames[:64], product, backend="fused_a8")
         sv_verifies = pc.verifies
-        sess, responses, t_inf, gen_s, dec_s, dec_tokens = run_inference(
+        sess, turns, t_inf, gen_s, dec_s, dec_tokens = run_inference(
             params4, cfg, tok, frames, threshold(rows_d), product, backend="fused_a8")
         counts = dict(kernels.LAUNCHES)
         chunks, verifies = pc.chunks, pc.verifies
+    responses = texts(turns)
     seen = check_7b_run("7b-int4 fused_a8", rows_d, sess, responses, 96)
     if sv_verifies != 16:
         raise AssertionError(f"7b-int4 fused_a8: score_video took {sv_verifies} fused passes, "
@@ -1766,37 +1794,278 @@ def drive_7b_paths(gpu: str, seed: int, stats: Stats):
     print(f"phase4d 7b-int4 backend=fused_a8 widths 4 / 4->8 [{gpu}] score_video 64 frames in "
           f"16 fused passes of 196 rows {t_sv_d:.3f}s = {64 / t_sv_d:.2f} frames/s (weight-only, "
           f"4a: {64 / t_sv4:.2f}); scores vs 4a's weight-only at width 4 max_abs_diff={d:.3e}; "
-          f"inference 96 frames {t_inf:.3f}s, {len(responses)} responses in {gen_s:.3f}s; decode "
-          f"{dec_tokens} tokens in {dec_s:.3f}s = {dec_tokens / max(dec_s, 1e-9):.2f} decode "
-          f"tokens/s (4a: {dec_tokens4 / max(dec_s4, 1e-9):.2f}), {acc['tokens_per_pass']} "
-          f"tokens per verify pass ({acc['passes']} passes); per-frame scoring "
-          f"{96 / (t_inf - gen_s):.2f} frames/s (4a: {frames_s4:.2f}); stream {seen} tokens; "
-          f"{chunks} chunks + {verifies} verify passes; launches int4_matmul_a8={n} "
-          f"quantize_rows={counts['quantize_rows']}", flush=True)
+          f"inference (chunked) 96 frames {t_inf:.3f}s, {len(responses)} responses in "
+          f"{gen_s:.3f}s; decode {dec_tokens} tokens in {dec_s:.3f}s = "
+          f"{dec_tokens / max(dec_s, 1e-9):.2f} decode tokens/s (4a: "
+          f"{dec_tokens4 / max(dec_s4, 1e-9):.2f}), {acc['tokens_per_pass']} tokens per verify "
+          f"pass ({acc['passes']} passes); scoring {96 / (t_inf - gen_s):.2f} frames/s (4a: "
+          f"{frames_s4:.2f}); stream {seen} tokens; {chunks} chunks + {verifies} verify passes; "
+          f"launches int4_matmul_a8={n} quantize_rows={counts['quantize_rows']}", flush=True)
     print(f"phase4d first response: {responses[0][:60]!r}", flush=True)
     with PassCounter() as pc:
         kernels.reset_launches()
-        sess1, responses1, t_inf1, gen_s1, dec_s1, dec_tokens1 = run_inference(
+        sess1, turns1, t_inf1, gen_s1, dec_s1, dec_tokens1 = run_inference(
             params4, cfg, tok, frames, threshold(rows_d), dict(product, spec_decode_tokens=1),
             backend="fused_a8")
         counts = dict(kernels.LAUNCHES)
-    check_7b_run("7b-int4 fused_a8 width 1", rows_d, sess1, responses1, 96)
-    if pc.verifies or counts.get("int4_matmul_a8", 0) < L * pc.chunks * 4:
+    check_7b_run("7b-int4 fused_a8 generation width 1", rows_d, sess1, texts(turns1), 96)
+    if counts.get("int4_matmul_a8", 0) < L * (pc.chunks + pc.verifies) * 4:
         raise AssertionError(f"7b-int4 fused_a8 width 1: launches {counts} over {pc.chunks} "
-                             f"chunks, {pc.verifies} verify passes")
+                             f"chunks + {pc.verifies} verify passes")
     stats.launches(counts)
-    if responses1 != responses:
+    if texts(turns1) != responses:
         raise AssertionError("7b-int4 fused_a8: speculative texts differ from the width-1 "
-                             "texts:" + _first_divergence(responses, responses1))
+                             "texts:" + _first_divergence(responses, texts(turns1)))
     err, same = verify_vs_sequential(sess, cfg)
-    print(f"phase4d 7b-int4 backend=fused_a8 width 1 [{gpu}]: decode {dec_tokens1} tokens in "
-          f"{dec_s1:.3f}s = {dec_tokens1 / max(dec_s1, 1e-9):.2f} decode tokens/s (4a at width 1: "
-          f"{dec_tokens1_4 / max(dec_s1_4, 1e-9):.2f}); texts identical to the speculative run's "
-          f"({len(responses1)} responses); verify pass S=8 (attention replayed) vs 8 sequential "
-          f"passes on the filled cache: hidden states equal bit for bit (max_abs_err={err:.3e}), "
-          f"argmax equal at {same}/8 positions", flush=True)
-    del sess, sess1, params4
+    print(f"phase4d 7b-int4 backend=fused_a8 generation width 1 [{gpu}]: decode {dec_tokens1} "
+          f"tokens in {dec_s1:.3f}s = {dec_tokens1 / max(dec_s1, 1e-9):.2f} decode tokens/s (4a "
+          f"at width 1: {dec_tokens1_4 / max(dec_s1_4, 1e-9):.2f}); texts identical to the "
+          f"speculative run's ({len(responses)} responses); verify pass S=8 (attention "
+          f"replayed) vs 8 sequential passes on the filled cache: hidden states equal bit for "
+          f"bit (max_abs_err={err:.3e}), argmax equal at {same}/8 positions", flush=True)
+    del sess, sess1
     gc.collect()
+
+    phase4e(gpu, stats, cfg, tok, frames, params4, params8,
+            {"7b-int4": (rows4, 64 / t_sv4), "7b-int8": (rows8, 64 / t_sv8),
+             "7b-int8 fused_a8": (rows_a8, 64 / t_sv_a8)})
+    del params4, params8
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def threshold(rows) -> float:
+    """The eighth-highest stream-end score of ``rows``, so that the first
+    responses fire within the first 64 frames."""
+    return sorted((r["informative_score"] + r["relevance_score"] for r in rows),
+                  reverse=True)[7]
+
+
+def median_stream_end(rows) -> float:
+    return statistics.median(r["informative_score"] + r["relevance_score"] for r in rows)
+
+
+def host_rule_frames(rows, icfg) -> list[int]:
+    """The frames at which the stepwise rule (the session's own
+    ``_check_trigger``, run on the host) fires on the scores of ``rows`` in
+    order, under the rule and gate of ``icfg``."""
+    from aha_tpu_torch.streaming.session import StreamSession
+
+    s = StreamSession.__new__(StreamSession)
+    for f in ("stream_end_prob_threshold", "stream_end_score_sum_threshold", "threshold_z",
+              "response_min_interval_frames", "first_n_frames_no_generate",
+              "running_list_length"):
+        setattr(s, f, getattr(icfg, f))
+    s.score_heads = list(icfg.score_heads)
+    s.stream_end_prob_list, s.stream_end_score_sum = [], 0.0
+    s.frame_idx, s.last_response_frame = 0, None
+    fired = []
+    for f, r in enumerate(rows):
+        s.frame_idx += 1
+        if s._check_trigger({"informative_score": r["informative_score"],
+                             "relevance_score": r["relevance_score"]}):
+            fired.append(f)
+    return fired
+
+
+def count_syncs(fn) -> int:
+    """The calls that made the host wait for the card while ``fn`` ran: the
+    warnings of CUDA's sync debug mode, one a synchronising call."""
+    import warnings
+
+    import torch
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def fired_frames(sess, turns) -> list[int]:
+    """The frames whose scores a response followed (it is stamped with the
+    frame's time)."""
+    at = {r["time"]: f for f, r in enumerate(sess.debug_data_list)}
+    return [at[t["time"]] for t in turns if t["role"] == "assistant"]
+
+
+def phase4e(gpu, stats, cfg, tok, frames, params4, params8, scored):
+    """inference()'s chunked trigger loops at 7B on the weights of phases 4a-4d:
+    bit for bit the stepwise loop at fused 1 (sum and z rules), the host rule
+    on each fused run's own scores at fused 4 and 8, frames/s beside
+    score_video's and the stepwise loop's; then the ``infer`` command's
+    session and driver, and ``cmd_infer`` on a clip written with cv2."""
+    import argparse
+    import tempfile
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from aha_tpu_torch.cli import _session, cmd_infer
+    from aha_tpu_torch.drivers import benchmarks
+    from aha_tpu_torch.ops import kernels
+
+    L = cfg.llm.num_layers
+    n_frames = frames.shape[0]
+    rows4, rows8, rows_a8 = (scored[m][0] for m in ("7b-int4", "7b-int8", "7b-int8 fused_a8"))
+    z_rule = dict(threshold_z=1.5, first_n_frames_no_generate=8, running_list_length=20)
+
+    def run_both(params, kernel, rule, widths, backend="fused"):
+        """The chunked and the stepwise run, and each one's decoder passes."""
+        kernels.reset_launches()
+        runs, passes = [], []
+        for chunked in (True, False):
+            with PassCounter() as pc:
+                runs.append(run_inference(params, cfg, tok, frames, rule, widths,
+                                          backend=backend, chunked=chunked, max_new_tokens=16))
+            passes.append(pc.chunks + pc.verifies)
+        counts = dict(kernels.LAUNCHES)
+        if counts.get(kernel, 0) < L * sum(passes) * 4 or counts.get("decode_attention", 0) < L:
+            raise AssertionError(f"phase4e: launches {counts} over {passes} decoder passes")
+        stats.launches(counts)
+        for sess, turns, *_ in runs:
+            if len(sess.debug_data_list) != n_frames or not all(
+                    math.isfinite(r[k]) for r in sess.debug_data_list for k in SCORE_KEYS):
+                raise AssertionError(f"phase4e: {len(sess.debug_data_list)} frame scores or a "
+                                     f"non-finite one")
+        return runs, passes
+
+    def rate(run):
+        return n_frames / (run[2] - run[3])          # frames over the time outside generate()
+
+    # 1. fused 1: the chunked loop makes the stepwise loop's calls, so every bit is equal
+    t0 = time.perf_counter()
+    widths = dict(fused_score_frames=1, spec_decode_tokens=4, spec_decode_tokens_max=8)
+    for name, rule in (("sum", dict(stream_end_score_sum_threshold=10 * median_stream_end(rows8))),
+                       ("z", z_rule)):
+        runs, passes = run_both(params8, "int8_matmul", rule, widths)
+        (ca, ta, *_), (cb, tb, *_) = runs
+        fired = fired_frames(ca, ta)
+        if ca.debug_data_list != cb.debug_data_list or ta != tb:
+            raise AssertionError(f"phase4e 7b-int8 fused 1 {name} rule: the chunked run differs "
+                                 f"from the stepwise run")
+        if len(fired) < 3:
+            raise AssertionError(f"phase4e 7b-int8 fused 1 {name} rule: {len(fired)} responses")
+        print(f"phase4e 7b-int8 fused 1, generation 4->8, {name} rule ({rule}) [{gpu}]: chunked "
+              f"inference() equal to stepwise bit for bit over {n_frames} frames (every score, "
+              f"response time and text; {len(fired)} responses at frames {fired}); chunked "
+              f"{rate(runs[0]):.2f} frames/s, stepwise {rate(runs[1]):.2f}; decoder passes "
+              f"{passes[0]} and {passes[1]}", flush=True)
+        del runs, ca, cb
+
+    # 2. fused 4 and 8: the responses fire where the host rule puts them on the run's own
+    # scores; the stepwise run at the same widths parts at the first differing decision
+    cases = [("7b-int4", params4, "int4_matmul", "fused", dict(fused_score_frames=4),
+              dict(stream_end_score_sum_threshold=8 * median_stream_end(rows4))),
+             ("7b-int8", params8, "int8_matmul", "fused", dict(fused_score_frames=4), z_rule),
+             ("7b-int8 fused_a8", params8, "int8_matmul_a8", "fused_a8",
+              dict(fused_score_frames=8), dict(stream_end_prob_threshold=threshold(rows_a8)))]
+    for name, params, kernel, backend, widths, rule in cases:
+        widths = dict(widths, spec_decode_tokens=4, spec_decode_tokens_max=8)
+        rule = dict(rule, response_min_interval_frames=4)
+        runs, passes = run_both(params, kernel, rule, widths, backend)
+        (ca, ta, *_), (cb, tb, *_) = runs
+        fired, host = fired_frames(ca, ta), host_rule_frames(ca.debug_data_list, ca.args)
+        if fired != host or len(fired) < 3:
+            raise AssertionError(f"phase4e {name}: responses at frames {fired}, the host rule "
+                                 f"on the run's scores fires at {host}")
+        step = fired_frames(cb, tb)
+        first = min(sorted(set(fired) ^ set(step)) or [n_frames])
+        gap = max((abs(a[k] - b[k]) for a, b in zip(ca.debug_data_list[:first],
+                                                    cb.debug_data_list[:first])
+                   for k in SCORE_KEYS), default=0.0)
+        sv = scored[name][1]
+        print(f"phase4e {name} fused {widths['fused_score_frames']}, generation 4->8, "
+              f"min interval 4, {rule} [{gpu}]: {len(fired)} responses at frames {fired}, "
+              f"where the host rule on the run's own scores fires; stepwise run at the same "
+              f"widths fires at {step}, first differing decision at frame "
+              f"{first if first < n_frames else 'none'}, largest score gap before it "
+              f"{gap:.3e}; frames/s chunked {rate(runs[0]):.2f}, stepwise {rate(runs[1]):.2f}, "
+              f"score_video {sv:.2f} (chunked / score_video {rate(runs[0]) / sv:.3f}); decoder "
+              f"passes chunked {passes[0]}, stepwise {passes[1]}", flush=True)
+        del runs, ca, cb
+
+    # 3. host reads: the synchronising calls of 32 frames scored with no response (the prob
+    # rule at 2: informative + relevance never exceeds it), 7B-int8 at fused 4
+    for chunked in (True, False):
+        with PassCounter() as pc:
+            syncs = count_syncs(lambda: run_inference(
+                params8, cfg, tok, frames[:32], 2.0, dict(fused_score_frames=4),
+                chunked=chunked))
+        passes = pc.chunks + pc.verifies
+        print(f"phase4e host reads, 7b-int8 fused 4, 32 frames, no response, "
+              f"{'chunked' if chunked else 'stepwise'} [{gpu}]: {syncs} synchronising calls "
+              f"over {passes} decoder passes ({syncs / passes:.2f} a pass, "
+              f"{syncs / 32:.2f} a frame)", flush=True)
+
+    # 5. the infer command: its session from parsed flags at the product defaults (the
+    # weights of phases 4a-4d: the same seed), its driver's pass on the seeded frames
+    p = argparse.ArgumentParser()
+    _session._add_infer_flags(p)
+    query = [{"role": "user", "content": QUERY, "time": 0}]
+    for flag, rows in (("--int8", rows8), ("--int4", rows4)):
+        args = p.parse_args(["--synthetic_weights", flag, "--test_dataset", "youcook2",
+                             "--input_dir", ".", "--output_fname", "unused",
+                             "--stream_end_prob_threshold", repr(threshold(rows[:32])),
+                             "--max_new_tokens", "16"])
+        kernels.reset_launches()
+        t0_cli = time.perf_counter()
+        sess = _session._build_session(args)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0_cli
+        responses, debug = benchmarks._full_pass(sess, frames[:32], 2.0, query)
+        torch.cuda.synchronize()
+        counts = dict(kernels.LAUNCHES)
+        kernel = "int8_matmul" if flag == "--int8" else "int4_matmul"
+        n_resp = sum(t["role"] == "assistant" for t in responses)
+        if (len(debug) != 32 or n_resp < 1 or counts.get(kernel, 0) < L * 4
+                or not all(math.isfinite(r[k]) for r in debug for k in SCORE_KEYS)):
+            raise AssertionError(f"phase4e infer {flag}: {len(debug)} frame scores, {n_resp} "
+                                 f"responses, launches {counts}")
+        stats.launches(counts)
+        e = sess.engine
+        print(f"phase4e infer session from flags {args.model_preset} {flag} [{gpu}]: weights "
+              f"{t_build:.2f}s; fused {e.fused_frames}, generation {e.spec_tokens}->"
+              f"{e.spec_max}, backend {e.backend}; _full_pass 32 frames "
+              f"{time.perf_counter() - t0_cli - t_build:.3f}s, {n_resp} responses; launches "
+              f"{kernel}={counts[kernel]}", flush=True)
+        del sess
+        gc.collect()
+    # ... and cmd_infer end to end on a clip written with cv2 (4 s at 8 fps)
+    with tempfile.TemporaryDirectory() as d:
+        writer = cv2.VideoWriter(f"{d}/clip.mp4", cv2.VideoWriter_fourcc(*"mp4v"), 8.0, (64, 48))
+        for i in range(32):
+            writer.write(np.full((48, 64, 3), (i * 10) % 255, np.uint8))
+        writer.release()
+        with open(f"{d}/qa.json", "w") as f:
+            json.dump([{"question_id": "clip", "video": "clip.mp4", "conversation": query}], f)
+        kernels.reset_launches()
+        t1 = time.perf_counter()
+        cmd_infer(["--synthetic_weights", "--int4", "--test_dataset", "youcook2",
+                   "--input_dir", d, "--test_fname", f"{d}/qa.json",
+                   "--output_fname", f"{d}/out.jsonl",
+                   "--stream_end_prob_threshold", repr(threshold(rows4)),
+                   "--max_new_tokens", "16"])
+        torch.cuda.synchronize()
+        t_cmd = time.perf_counter() - t1
+        counts = dict(kernels.LAUNCHES)
+        with open(f"{d}/out.jsonl") as f:
+            lines = [json.loads(x) for x in f]
+    debug = lines[0]["debug_data"] if len(lines) == 1 else []
+    if (len(debug) != 8 or set(lines[0]) != {"question_id", "model_response_list",
+                                             "video_duration", "debug_data"}
+            or not all(math.isfinite(r[k]) for r in debug for k in SCORE_KEYS)
+            or counts.get("int4_matmul", 0) < L * 4):
+        raise AssertionError(f"phase4e cmd_infer: {lines!r:.500}, launches {counts}")
+    stats.launches(counts)
+    print(f"phase4e cmd_infer youcook2 --synthetic_weights --int4 on a 4 s cv2 clip [{gpu}]: "
+          f"{t_cmd:.2f}s with the weights; {len(debug)} frames, "
+          f"{sum(t['role'] == 'assistant' for t in lines[0]['model_response_list'])} responses; "
+          f"cv2 {cv2.__version__}; phase 4e took {time.perf_counter() - t0:.1f}s", flush=True)
 
 
 def main() -> int:

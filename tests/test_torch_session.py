@@ -128,8 +128,8 @@ def test_int8_session_matches_jax(tiny, int8_engines, rule):
     mask), repetition penalty, and the rollback of remove_assistant_turns
     (the port's cache is updated in place, so it restores a copy):
     stepwise inference() and score_video against
-    the JAX session's stepwise loop at widths 1 (which its own tests hold
-    equal to the chunked loop), in scores and texts."""
+    the JAX session's stepwise loop at widths 1 (the chunked loops are held
+    against each other in tests/test_torch_trigger.py), in scores and texts."""
     _, _, tok, tcfg, ttok = tiny
     jengine, tparams = int8_engines
     kw = dict(frame_fps=2.0, kv_cache_policy="sink", kv_window=256, num_sink_tokens=8,
@@ -146,7 +146,7 @@ def test_int8_session_matches_jax(tiny, int8_engines, rule):
     ts = build_session(tparams, tcfg, ttok, InferConfig(**kw), **CPU)
     ts.input_video_stream(frames)
     ts.input_query_stream(conv)
-    tturns = ts.inference()
+    tturns = ts.inference(chunked=False)
     np.testing.assert_allclose(_scores(ts.debug_data_list), _scores(js.debug_data_list),
                                atol=1e-4, rtol=1e-3)
     assert [(t["role"], t["time"], t["content"]) for t in tturns] == \
@@ -162,9 +162,10 @@ def test_int8_session_matches_jax(tiny, int8_engines, rule):
 
 @pytest.mark.parametrize("chunked", [True, False])
 def test_inference_takes_the_jax_arguments(tiny, int8_engines, chunked):
-    """inference(verbose=, chunked=) as the JAX session's: either value of
-    chunked runs the stepwise loop and gives the JAX stepwise loop's turns
-    and scores (the JAX tests hold its chunked loop equal to that one)."""
+    """inference(verbose=, chunked=) as the JAX session's: chunked=True runs
+    the chunked trigger loops and chunked=False the stepwise loop, each
+    giving the turns and scores of the JAX session's loop of the same
+    name."""
     _, _, tok, tcfg, ttok = tiny
     jengine, tparams = int8_engines
     kw = dict(frame_fps=2.0, kv_cache_policy="sink", kv_window=256, num_sink_tokens=8,
@@ -175,7 +176,7 @@ def test_inference_takes_the_jax_arguments(tiny, int8_engines, chunked):
     js = JStreamSession(jengine, tok, JInferConfig(**kw))
     js.input_video_stream(frames)
     js.input_query_stream(conv)
-    jturns = js.inference(verbose=False, chunked=False)
+    jturns = js.inference(verbose=False, chunked=chunked)
     ts = build_session(tparams, tcfg, ttok, InferConfig(**kw), **CPU)
     ts.input_video_stream(frames)
     ts.input_query_stream(conv)
@@ -222,12 +223,14 @@ def test_set_fps_takes_one_of_its_two_arguments(tiny, int8_engines):
             ts.set_fps(**args)
 
 
-def test_int4_session_matches_jax_at_product_widths(tiny):
+@pytest.mark.parametrize("chunked", [True, False])
+def test_int4_session_matches_jax_at_product_widths(tiny, chunked):
     """Packed-int4 tiny params (merged projections, int4 projector and
     lm_head, int8 embedding), small sink window, repetition penalty, at the
     product widths: fused scoring of 4 frames per pass in score_video and
     speculative generation (4 candidates per pass) in inference(), against
-    the JAX session at the same widths on the same tree, in scores (atol
+    the JAX session at the same widths on the same tree, chunked loop
+    against chunked loop and stepwise against stepwise, in scores (atol
     1e-4, rtol 1e-3) and texts."""
     from aha_tpu.ops.kv_cache import CachePolicy as JCachePolicy
     from aha_tpu.streaming.engine import StreamEngine as JStreamEngine
@@ -249,12 +252,12 @@ def test_int4_session_matches_jax_at_product_widths(tiny):
     js = JStreamSession(jengine, tok, JInferConfig(**kw))
     js.input_video_stream(frames)
     js.input_query_stream(conv)
-    jturns = js.inference(chunked=False)
+    jturns = js.inference(chunked=chunked)
     ts = build_session(tparams, tcfg, ttok, InferConfig(**kw), **CPU)
     assert ts.engine.spec_tokens == 4 and ts.engine.fused_frames == 4
     ts.input_video_stream(frames)
     ts.input_query_stream(conv)
-    tturns = ts.inference()
+    tturns = ts.inference(chunked=chunked)
     np.testing.assert_allclose(_scores(ts.debug_data_list), _scores(js.debug_data_list),
                                atol=1e-4, rtol=1e-3)
     assert [(t["role"], t["time"], t["content"]) for t in tturns] == \
@@ -267,13 +270,15 @@ def test_int4_session_matches_jax_at_product_widths(tiny):
                                atol=1e-4, rtol=1e-3)
 
 
-def test_int8_session_matches_jax_at_product_widths(tiny):
+@pytest.mark.parametrize("chunked", [True, False])
+def test_int8_session_matches_jax_at_product_widths(tiny, chunked):
     """int8-quantized tiny params with merged projections (as JAX's StreamEngine
     merges them), small sink window, repetition penalty, at the product widths of
     the JAX package's main path: fused scoring of 4 frames per pass in
     score_video and speculative generation (4 candidates per pass) in
-    inference(), against the JAX session at the same widths on the same tree, in
-    scores (atol 1e-4, rtol 1e-3) and texts."""
+    inference(), against the JAX session at the same widths on the same tree
+    (chunked loop against chunked loop, stepwise against stepwise), in scores
+    (atol 1e-4, rtol 1e-3) and texts."""
     from aha_tpu.ops.kv_cache import CachePolicy as JCachePolicy
     from aha_tpu.streaming.engine import StreamEngine as JStreamEngine
 
@@ -296,12 +301,12 @@ def test_int8_session_matches_jax_at_product_widths(tiny):
     js = JStreamSession(jengine, tok, JInferConfig(**kw))
     js.input_video_stream(frames)
     js.input_query_stream(conv)
-    jturns = js.inference(chunked=False)
+    jturns = js.inference(chunked=chunked)
     ts = build_session(tparams, tcfg, ttok, InferConfig(**kw), **CPU)
     assert ts.engine.spec_tokens == 4 and ts.engine.fused_frames == 4
     ts.input_video_stream(frames)
     ts.input_query_stream(conv)
-    tturns = ts.inference()
+    tturns = ts.inference(chunked=chunked)
     np.testing.assert_allclose(_scores(ts.debug_data_list), _scores(js.debug_data_list),
                                atol=1e-4, rtol=1e-3)
     assert [(t["role"], t["time"], t["content"]) for t in tturns] == \
@@ -315,11 +320,13 @@ def test_int8_session_matches_jax_at_product_widths(tiny):
                                atol=1e-4, rtol=1e-3)
 
 
-def test_int4_fused_a8_session_at_product_widths(tiny):
+@pytest.mark.parametrize("chunked", [True, False])
+def test_int4_fused_a8_session_at_product_widths(tiny, chunked):
     """Packed-int4 tiny params with per-token int8 activations (backend
     "fused_a8", the W4A8 recipe), on the CPU through the plain versions, at the
-    product widths: fused scoring of 4 frames and speculative generation 4 -> 8.
-    Its texts equal its own width-1 texts, and its scores lie within the recipe's
+    product widths: fused scoring of 4 frames and speculative generation 4 -> 8,
+    in the chunked loop and in the stepwise one. Its texts equal its own texts at
+    generation width 1 in the same loop, and its scores lie within the recipe's
     bound of the weight-only session's, 3% of their mean magnitude (the bound of
     tests/test_torch_models.py::test_decode_chunk_int8_activations): JAX has no
     int4 int8-activation path off the TPU (the kernel's parity with JAX in
@@ -340,7 +347,7 @@ def test_int4_fused_a8_session_at_product_widths(tiny):
                            **CPU)
         ts.input_video_stream(frames)
         ts.input_query_stream(conv)
-        turns = [(t["role"], t["time"], t["content"]) for t in ts.inference()]
+        turns = [(t["role"], t["time"], t["content"]) for t in ts.inference(chunked=chunked)]
         streamed = _scores(ts.debug_data_list)
         ts.reset()
         return ts, turns, streamed, _scores(ts.score_video(frames, query=QUERY))
@@ -507,9 +514,11 @@ def test_build_session_refuses_what_is_not_ported(tiny):
 
 def test_port_runs_without_jax():
     """A fresh interpreter where importing jax, aha_tpu or any aha_tpu.*
-    module raises imports every module of the port (the training modules
-    with the rest, and the card's scripts chip_smoke.py and
-    spec_divergence.py) and runs a tiny int4 session at the product widths and one
+    module raises imports every module of the port (the training modules,
+    the command line, the drivers and the data modules with the rest, and the
+    card's scripts chip_smoke.py and spec_divergence.py) and runs a tiny int4
+    session at the product widths (chunked inference() with the prob and the
+    z rule), ``infer`` of the command line on a clip written with cv2, and one
     int4 QLoRA train step on the CPU from seeded synthetic params."""
     code = textwrap.dedent(f"""
         import importlib.abc, sys
@@ -551,10 +560,40 @@ def test_port_runs_without_jax():
         s.input_query_stream([{{"role": "user", "content": "hi", "time": 0}}])
         turns = s.inference()
         assert sum(t["role"] == "assistant" for t in turns) == 3, turns
+        # the chunked loop's trigger loops: the z rule's one-row loop over fused passes
+        s = build_session(params, cfg, tok, InferConfig(
+            threshold_z=0.5, first_n_frames_no_generate=2, max_new_tokens=4), device="cpu")
+        s.input_video_stream(np.random.default_rng(0).integers(0, 256, (9, 32, 32, 3),
+                                                               dtype=np.uint8))
+        s.input_query_stream([{{"role": "user", "content": "hi", "time": 0}}])
+        s.inference()
+        assert len(s.debug_data_list) == 9 and s._z_state is not None
+        # the command line: infer on a clip written with cv2, a command not ported
+        import json, os, tempfile
+        import cv2
+        from aha_tpu_torch.cli import main
+        d = tempfile.mkdtemp()
+        out = cv2.VideoWriter(os.path.join(d, "v.mp4"), cv2.VideoWriter_fourcc(*"mp4v"), 4.0,
+                              (32, 32))
+        for i in range(8):
+            out.write(np.full((32, 32, 3), 20 * i, np.uint8))
+        out.release()
+        with open(os.path.join(d, "qa.json"), "w") as f:
+            json.dump([{{"question_id": "q", "video": "v.mp4", "conversation": [
+                {{"role": "user", "content": "hi", "time": 0}}]}}], f)
+        assert main(["infer", "--model_preset", "tiny", "--device", "cpu",
+                     "--synthetic_weights", "--int4", "--test_dataset", "generic",
+                     "--input_dir", d, "--test_fname", os.path.join(d, "qa.json"),
+                     "--output_fname", os.path.join(d, "out.jsonl"), "--max_new_tokens", "4",
+                     "--stream_end_score_sum_threshold", "1.5"]) == 0
+        with open(os.path.join(d, "out.jsonl")) as f:
+            assert len(json.loads(f.readline())["debug_data"]) == 4
+        assert main(["serve"]) == 2
         rows = build_session(params, cfg, tok, InferConfig(grounding_mode=True),
                              device="cpu").score_video(np.zeros((6, 32, 32, 3), np.uint8))
         assert len(rows) == 6
         assert "aha_tpu_torch.train.trainer" in sys.modules
+        assert "aha_tpu_torch.drivers.benchmarks" in sys.modules
         assert "aha_tpu_torch.ops.kernels.flash_attention" in sys.modules
         from aha_tpu_torch.config import TrainConfig
         from aha_tpu_torch.train.trainer import init_train_state, make_train_step
