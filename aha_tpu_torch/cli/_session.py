@@ -1,20 +1,27 @@
 """Session construction and the inference flags of the command line: the
-port's copy of ``aha_tpu/cli/_session.py:57-268``, with its flag names and
+port's copy of ``aha_tpu/cli/_session.py:33-268``, with its flag names and
 defaults and one flag of its own, ``--device`` (the card unless the caller
 asks for the CPU).
 
-Weights: ``--synthetic_weights`` with ``--int8`` or ``--int4`` builds
-seeded random params in the final quantized form (``models.aha.
-random_params``) and serves them on the ``"fused"`` backend. What the port
-cannot build yet is refused with its ROADMAP.md item: checkpoints
-(``--llm_pretrained``, and a run without synthetic weights), adapters
-(``--lora_pretrained``), dense synthetic weights, and the int8 vision tower
+Weights, in JAX's order (``models/loader.py``): ``--synthetic_weights``
+builds JAX's seeded synthetic tree in its final form (``--int4``, ``--int8``
+or dense ``cfg.dtype``); else ``--llm_pretrained DIR`` loads a checkpoint
+(``.safetensors`` or torch shards, ``config.json``'s ``vocab_size``
+adopted) in ``cfg.dtype``; with neither, JAX's random init at seed 0. Then
+``--int4`` (which wins) or ``--int8`` quantises the loaded tree, and a
+quantised decoder's q/k/v and gate/up are merged, as JAX's engine serves
+them. The session runs on the ``"fused"`` backend. Refused, with their
+ROADMAP.md item: adapters (``--lora_pretrained``) and the int8 vision tower
 of ``--w8a8`` / ``--vision_int8``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
+import os
+import sys
 
 
 def _refuse_unported(args) -> None:
@@ -22,36 +29,66 @@ def _refuse_unported(args) -> None:
     naming its ROADMAP.md item."""
     for flag, item in (("w8a8", "Queue 1 item 8: --w8a8 also quantises the vision tower"),
                        ("vision_int8", "Queue 1 item 8"),
-                       ("llm_pretrained", "Queue 1 item 9"),
                        ("lora_pretrained", "Queue 1 item 5")):
         if getattr(args, flag, None):
             raise NotImplementedError(f"--{flag} is not ported to aha_tpu_torch yet "
                                       f"(ROADMAP.md, {item})")
-    if not args.synthetic_weights:
-        raise NotImplementedError("aha_tpu_torch loads no checkpoint yet: pass "
-                                  "--synthetic_weights (ROADMAP.md, Queue 1 item 9)")
-    if not (args.int8 or args.int4):
-        raise NotImplementedError("aha_tpu_torch builds synthetic weights in a quantized form "
-                                  "only: pass --int8 or --int4 (dense synthetic weights: "
-                                  "ROADMAP.md, Queue 1 item 9)")
+
+
+def _adopt_checkpoint_config(cfg, weights_path):
+    """The preset with ``vocab_size`` taken from a checkpoint directory's
+    config.json where it has one: buffers indexed by token id (repetition
+    counts, the lm_head's argmax) are sized by it."""
+    if not weights_path or not os.path.isdir(weights_path):
+        return cfg
+    cj = os.path.join(weights_path, "config.json")
+    if not os.path.exists(cj):
+        return cfg
+    with open(cj) as f:
+        v = json.load(f).get("vocab_size")
+    if v and int(v) != cfg.llm.vocab_size:
+        print(f"[aha] adopting vocab_size={v} from {cj} (preset had {cfg.llm.vocab_size})",
+              file=sys.stderr)
+        cfg = cfg.replace(llm=dataclasses.replace(cfg.llm, vocab_size=int(v)))
+    return cfg
+
+
+def _build_params(args, cfg):
+    """The weights the flags ask for, on ``args.device``, in the layout the
+    engine serves."""
+    from ..models import loader
+    from ..models.aha import torch_dtype
+    from ..ops import quant
+
+    mode = "int4" if args.int4 else "int8" if args.int8 else None
+    if args.synthetic_weights:
+        return loader.materialize_random_params(cfg, mode, device=args.device)
+    if args.llm_pretrained:
+        params = loader.load_params(args.llm_pretrained, cfg, torch_dtype(cfg.dtype),
+                                    device=args.device)
+    else:
+        params = loader.init_aha_params(cfg, seed=0, device=args.device)
+    if mode is None:
+        return params
+    params = quant.quantize_params(params, bits=4 if mode == "int4" else 8)
+    return {**params, "llm": quant.merge_decoder_projections(params["llm"])}
 
 
 def _build_session(args):
     """Parsed flags -> a StreamSession on ``args.device``."""
     from ..config import InferConfig, aha_7b, aha_tiny
-    from ..models.aha import random_params
     from ..streaming.session import build_session
     from ..tokenization import build_stream_tokenizer
 
     _refuse_unported(args)
     cfg = aha_tiny() if args.model_preset == "tiny" else aha_7b()
+    cfg = _adopt_checkpoint_config(cfg, args.llm_pretrained)
     tokenizer = build_stream_tokenizer(args.tokenizer_pretrained,
                                        frame_num_tokens=cfg.frame_num_tokens,
                                        vocab_size=cfg.llm.vocab_size)
     cfg = cfg.replace(v_placeholder_id=tokenizer.v_placeholder_id,
                       eos_token_id=tokenizer.eos_token_id)
-    # int4 wins when both are given, as in JAX
-    params = random_params(cfg, mode="int4" if args.int4 else "int8", device=args.device)
+    params = _build_params(args, cfg)
     infer_cfg = InferConfig(
         frame_fps=args.frame_fps,
         frame_resolution=cfg.frame_resolution,
@@ -85,7 +122,7 @@ def _add_infer_flags(p: argparse.ArgumentParser):
                         "kernels' plain versions on the host)")
     p.add_argument("--model_preset", default="7b", choices=["7b", "tiny"])
     p.add_argument("--llm_pretrained", default=None,
-                   help="converted / HF checkpoint dir (not ported yet)")
+                   help="HF checkpoint dir (.safetensors or torch .bin / .pt shards)")
     p.add_argument("--tokenizer_pretrained", default=None)
     p.add_argument("--lora_pretrained", default=None,
                    help="peft adapter-only checkpoint dir (not ported yet)")
@@ -93,9 +130,9 @@ def _add_infer_flags(p: argparse.ArgumentParser):
     p.add_argument("--int4", action="store_true",
                    help="packed int4 weights (groups of 128; the smallest memory)")
     p.add_argument("--synthetic_weights", action="store_true",
-                   help="seeded random params built on the device in their final quantized "
-                        "form: a run of the product without a checkpoint (scores "
-                        "meaningless; speed and memory real)")
+                   help="JAX's seeded synthetic params built on the device in their final "
+                        "form (--int8, --int4 or dense): a run of the product without a "
+                        "checkpoint (scores meaningless; speed and memory real)")
     p.add_argument("--vision_int8", action="store_true",
                    help="also quantize the SigLIP tower (not ported yet)")
     p.add_argument("--w8a8", action="store_true",

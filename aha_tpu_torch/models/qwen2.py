@@ -32,9 +32,19 @@ from ..ops.rope import apply_rope, rope_cos_sin
 from . import layer_view
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float, *,
+             f64_mean: bool = False) -> torch.Tensor:
+    """RMSNorm in f32. ``f64_mean`` (the decoder's serving passes) takes the mean
+    of squares in f64 and rounds it to f32 once. The squares are exact there and
+    the sum's rounding lies far below f32's last place (some 2^-41 of the sum over
+    3584 terms), so a row's mean rarely depends on the order torch sums it in. On
+    the card that order depends on how many rows the tensor holds: an f32 sum gave
+    a verify pass's row other bits than its sequential pass's (``chip_smoke.py``
+    phase 4 holds the two passes equal bit for bit). Training keeps JAX's f32 sum,
+    which its train steps are held to."""
     xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
+    sq = xf.double().square() if f64_mean else xf * xf
+    var = sq.mean(dim=-1, keepdim=True).float()
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
@@ -196,7 +206,7 @@ def decode_chunk(params: dict, cfg: QwenConfig, policy: CachePolicy, cache: KVCa
     x = inputs_embeds
     for i in range(cfg.num_layers):
         lp = layer_view(lyr, i)
-        h = rms_norm(x, lp["input_norm"]["scale"], cfg.rms_norm_eps)
+        h = rms_norm(x, lp["input_norm"]["scale"], cfg.rms_norm_eps, f64_mean=True)
         q, k, v = _qkv(h, lp, cfg, backend)
         ks = vs = None
         if cache.quantized:
@@ -206,10 +216,10 @@ def decode_chunk(params: dict, cfg: QwenConfig, policy: CachePolicy, cache: KVCa
         attn = cached_attention(q, cache.k[i], cache.v[i], tables,
                                 None if ks is None else (ks, vs))
         x = x + linear(attn.reshape(*x.shape[:2], cfg.q_dim), lp["o_proj"], backend)
-        h = rms_norm(x, lp["post_norm"]["scale"], cfg.rms_norm_eps)
+        h = rms_norm(x, lp["post_norm"]["scale"], cfg.rms_norm_eps, f64_mean=True)
         x = x + _mlp(h, lp, backend)
     advance(cache, plan)
-    return rms_norm(x, params["final_norm"]["scale"], cfg.rms_norm_eps)
+    return rms_norm(x, params["final_norm"]["scale"], cfg.rms_norm_eps, f64_mean=True)
 
 
 def decode_chunk_spec(params: dict, cfg: QwenConfig, policy: CachePolicy, cache: KVCache,
@@ -252,7 +262,7 @@ def decode_chunk_spec(params: dict, cfg: QwenConfig, policy: CachePolicy, cache:
     infl_k, infl_v = [], []
     for i in range(cfg.num_layers):
         lp = layer_view(lyr, i)
-        h = rms_norm(x, lp["input_norm"]["scale"], cfg.rms_norm_eps)
+        h = rms_norm(x, lp["input_norm"]["scale"], cfg.rms_norm_eps, f64_mean=True)
         q, k, v = _qkv(h, lp, cfg, backend)
         k_rot = apply_rope(k.float(), w_cos, w_sin).to(k.dtype)
         if replay:
@@ -264,11 +274,11 @@ def decode_chunk_spec(params: dict, cfg: QwenConfig, policy: CachePolicy, cache:
                 q, cache.k[i], cache.v[i], k_rot, v, tables, sink_slots=sink_slots,
                 kv_scales=kv_scales)
         x = x + linear(attn.reshape(*x.shape[:2], cfg.q_dim), lp["o_proj"], backend)
-        h = rms_norm(x, lp["post_norm"]["scale"], cfg.rms_norm_eps)
+        h = rms_norm(x, lp["post_norm"]["scale"], cfg.rms_norm_eps, f64_mean=True)
         x = x + _mlp(h, lp, backend)
         infl_k.append(k_rot)
         infl_v.append(v)
-    x = rms_norm(x, params["final_norm"]["scale"], cfg.rms_norm_eps)
+    x = rms_norm(x, params["final_norm"]["scale"], cfg.rms_norm_eps, f64_mean=True)
     return x, torch.stack(infl_k), torch.stack(infl_v)
 
 

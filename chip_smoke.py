@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                # all phases, one card
     python3 chip_smoke.py --phases 1,2   # device + kernel checks only
+    python3 chip_smoke.py --phases 1,2,6 # + JAX's weights and the 7B fixture
 
 Phases, one or more lines each:
   1. device: nvidia-smi name and power limit, torch / CUDA / nvcc versions,
@@ -58,7 +59,10 @@ Phases, one or more lines each:
      too, whose quantiser is bit-equal to the plain one and whose group sums
      are exact; int8_matmul with int8 activations and int4's mma.sync path for
      them 2e-2) and
-     at small ragged shapes (f32: 1e-4 * max|y_ref|), with kernel and plain
+     at small ragged shapes and at phase 6's f32 shapes (int8_matmul at the
+     layer's products at 49, 171 and 196 rows, the lm_head's row, the
+     projector's 392; the cached attention at S = 49 and 171) (f32: 1e-4 *
+     max|y_ref|), with kernel and plain
      times (CUDA events; weights cycled through > L2 worth of copies), the
      bound (the larger of bytes moved / 3.35 TB/s and operations / the
      published dense peak of their type: 989 TFLOP/s bf16, 1979 TOP/s int8,
@@ -115,7 +119,8 @@ Phases, one or more lines each:
           run at the same widths before their first differing decision;
           frames/s of both loops beside score_video's; then the infer command:
           its session from parsed flags (--synthetic_weights --int8, then
-          --int4, product defaults), its driver's _full_pass over 32 frames,
+          --int4, product defaults: JAX's synthetic weights, the prob threshold
+          from their own scores), its driver's _full_pass over 32 frames,
           and cmd_infer end to end on a 4 s clip written with cv2.
      Last, every shape that a path handed a kernel's wrapper must be one that
      phase 2 held against the plain version;
@@ -127,7 +132,27 @@ Phases, one or more lines each:
      launches per step: 2 x 4 x 28 int4_matmul, 4 x 28 int4_matmul_t, 2 x 28
      flash forward, 28 flash backward), the frozen leaves' checksums, then
      one step each at remat 'half' and 'none' from the same state (same loss
-     to 1e-2). The shape check of phase 4 covers this path too.
+     to 1e-2). The shape check of phase 4 covers this path too;
+  6. JAX's weights at 7B (models/loader.py, golden.py), in the same shape check:
+       a. materialize_random_params(aha_7b(), "int8") built on the card (seconds
+          printed), three leaves' slabs drawn again on the CPU (equal bit for
+          bit), then tests/fixtures/golden_7b_int8_chip.npz, recorded on the TPU:
+          its frames (by hash) and ids reproduced; its four traces in bf16 (score
+          traces at fused 1 and 4; generation widths 1 and 4 -> 8, texts equal);
+          the score traces again with the float leaves widened to f32 (the
+          exact function: within the fixture's atol 2e-2, rtol 5e-2); the bf16
+          traces within that tolerance of the fixture, or their largest gap per
+          column within the TPU's own per-frame vs fused gap plus the card's
+          bf16 vs f32 gap (both printed); the texts' first divergence from the
+          fixture's with the port's top two logits there: the fixture's token
+          within 2 bf16 steps of the top one;
+       b. the dense bf16 tree (its score_video at fused 4 on torch.matmul
+          timed), exported in the reference's key layout as safetensors shards
+          of 5 GB at most in a temporary directory outside the repo (free space,
+          write and read rates printed; removed at the end), served by the
+          session of `infer --llm_pretrained DIR --int8 --model_preset 7b`: its
+          scores at fused 1 and 4 equal bit for bit to the same tree quantised
+          in memory.
 
 Prints the kernels' JSON line and, last, {"ok": true, "device": ...}.
 Exits nonzero, with no result line, when there is no CUDA device, when the
@@ -506,11 +531,17 @@ def check_matmuls(gen, stats: Stats):
                 for M in (k4.WGMMA_MIN_M, 23, 24, 25, 79, 80, 81, 231, 232, 233, 1568)]
     wgmma4a8 += [("long-k", M, 18944, 3584, 128) for M in (k4.WGMMA_MIN_M, 1568)]
 
+    # int8, f32 activations (phase 6's f32 score traces: a frame, the system prompt and
+    # query, a fused pass of 4 frames; the lm_head's row; the projector's 8 frames)
+    f32_8 = [(n, M, *layer[n]) for n in layer for M in (49, 171, 196)]
+    f32_8 += [("lm_head", 1, 3584, 152064), ("projector_fc1", 392, 1024, 3584),
+              ("projector_fc2", 392, 3584, 3584)]
+
     # (kernel name, weight bits, a8, cases, M of the representative set)
     families = [
         ("int8_matmul", 8, False,
          [(*c, None, bf, 1e-2) for c in cards]
-         + [(*r, None, f32, 1e-4) for r in ragged8] + [(*edge, None, bf, 1e-2)]
+         + [(*r, None, f32, 1e-4) for r in ragged8 + f32_8] + [(*edge, None, bf, 1e-2)]
          + [(*c, None, bf, 1e-2) for c in wgmma8 + old8 + decode_rows], 49),
         ("int8_matmul_a8", 8, True,
          [(*c, None, bf, 2e-2) for c in cards]
@@ -563,7 +594,7 @@ def check_matmuls(gen, stats: Stats):
             what = f"{name} {label} M={M} K={K} N={N}" + (f" G={G}" if G else "")
             err = rel_check(what, y, ref, tol)
             stats.err(name, err)
-            stats.checked.add((name, M, K, N))
+            stats.checked.add((name, M, K, N) if dt == bf else (name, M, K, N, "f32"))
             # which kernel the wrapper chose, and the same bits from a second launch
             # (K splits are added in a fixed order, no atomics)
             if not torch.equal(y, run(x, ws[0])):
@@ -809,6 +840,9 @@ def check_attention(gen, stats: Stats):
     cases += [dict(seven, label="7b-one-split", B=1, S=S, Wp=2049, occupied=(640, 670))
               for S in (1, 3)]
     cases += [dict(seven, label="7b-blind-row", B=1, S=S, Wp=2049, blind=True) for S in (2, 49)]
+    # f32 queries and cache: phase 6's f32 score traces (a frame, the prompt and query)
+    cases += [dict(seven, label="7b-f32", B=1, S=S, Wp=2049, q=f32, kv=f32, tol=1e-4)
+              for S in (49, 171)]
     cases += [dict(label="ragged", B=2, S=5, NH=4, KVH=2, Dh=16, Wp=77, q=f32, kv=f32, tol=1e-4),
               dict(label="ragged", B=2, S=3, NH=6, KVH=2, Dh=64, Wp=129, q=f32, kv=f32, tol=1e-4),
               dict(label="ragged", B=1, S=9, NH=8, KVH=2, Dh=32, Wp=45, q=f32, kv=f32, tol=1e-4),
@@ -836,7 +870,8 @@ def check_attention(gen, stats: Stats):
         if c.get("blind") and torch.count_nonzero(y[:, 0]):
             raise AssertionError(f"{what}: a query that sees no slot is not zero")
         stats.err("decode_attention", err)
-        stats.checked.add(("decode_attention", S, Wp))
+        stats.checked.add(("decode_attention", S, Wp) if qdt == bf else
+                          ("decode_attention", S, Wp, "f32"))
         # the cache (and its scales) cycled through more copies than L2 holds: a pass
         # of 28 layers reads 28 of them; the rotation tables are the same in every
         # layer of a pass and stay as they are
@@ -1348,12 +1383,17 @@ class PassCounter:
 class ShapeRecorder:
     """Records the shapes the model hands each kernel's wrapper (matmuls and
     the activation quantiser behind them: rows, K, N; attention: query rows,
-    slots) by wrapping the names the model calls them by."""
+    slots; "f32" after them for f32 activations) by wrapping the names the
+    model calls them by."""
 
     def __init__(self):
+        import torch
+
         from aha_tpu_torch.ops import attention, quant
 
         from aha_tpu_torch.ops.kernels import flash_attention, int4_matmul, int4_matmul_t
+
+        self.f32 = torch.float32
 
         self.seen = set()
         self.sites = [(quant, "int4_matmul"), (quant, "int8_matmul"), (quant, "quant_matmul"),
@@ -1372,7 +1412,7 @@ class ShapeRecorder:
                 self.seen.add((name + "_a8", M, K, N))
                 self.seen.add(("quantize_rows", M, K))
             else:
-                self.seen.add((name, M, K, N))
+                self.seen.add((name, M, K, N) + (("f32",) if x.dtype == self.f32 else ()))
             return fn(x, w, scale, a8=a8) if name != "quant_matmul" else fn(x, w, scale)
         return recorded
 
@@ -1389,7 +1429,8 @@ class ShapeRecorder:
         attend = self.saved[3]
 
         def recorded_attention(q, k, *a, **kw):
-            self.seen.add((name, q.shape[1], k.shape[1]))
+            f32 = ("f32",) if q.dtype == self.f32 else ()
+            self.seen.add((name, q.shape[1], k.shape[1]) + f32)
             return attend(q, k, *a, **kw)
 
         setattr(mod, name, recorded_attention)
@@ -1521,7 +1562,7 @@ def verify_vs_sequential(sess, cfg, S: int = 8):
     return err, same
 
 
-def phases_4_and_5(gpu: str, seed: int, stats: Stats, phases: set):
+def phases_4_to_6(gpu: str, seed: int, stats: Stats, phases: set):
     """The 7B paths, then: every shape they gave a kernel was held against the
     plain version in phase 2."""
     phase2_ran = 2 in phases
@@ -1530,8 +1571,10 @@ def phases_4_and_5(gpu: str, seed: int, stats: Stats, phases: set):
             drive_7b_paths(gpu, seed, stats)
         if 5 in phases:
             phase5(gpu, seed, stats)
+        if 6 in phases:
+            phase6(gpu, stats)
     missing = sorted(rec.seen - stats.checked)
-    print(f"phases 4-5 shapes handed to the kernels: {len(rec.seen)} distinct, "
+    print(f"phases 4-6 shapes handed to the kernels: {len(rec.seen)} distinct, "
           f"{len(missing)} not checked in phase 2"
           + ("" if phase2_ran else " (phase 2 did not run)"), flush=True)
     if phase2_ran and missing:
@@ -2002,24 +2045,31 @@ def phase4e(gpu, stats, cfg, tok, frames, params4, params8, scored):
               f"over {passes} decoder passes ({syncs / passes:.2f} a pass, "
               f"{syncs / 32:.2f} a frame)", flush=True)
 
-    # 5. the infer command: its session from parsed flags at the product defaults (the
-    # weights of phases 4a-4d: the same seed), its driver's pass on the seeded frames
+    # 5. the infer command: its session from parsed flags at the product defaults (JAX's
+    # synthetic weights, not those of phases 4a-4d: the prob threshold comes from the
+    # session's own scores over the first 32 frames), its driver's pass on the seeded frames
     p = argparse.ArgumentParser()
     _session._add_infer_flags(p)
     query = [{"role": "user", "content": QUERY, "time": 0}]
-    for flag, rows in (("--int8", rows8), ("--int4", rows4)):
+    product = dict(fused_score_frames=4, spec_decode_tokens=4, spec_decode_tokens_max=8)
+    for flag in ("--int8", "--int4"):
+        # a placeholder threshold for the flags' rule; the session's own is set below
         args = p.parse_args(["--synthetic_weights", flag, "--test_dataset", "youcook2",
                              "--input_dir", ".", "--output_fname", "unused",
-                             "--stream_end_prob_threshold", repr(threshold(rows[:32])),
-                             "--max_new_tokens", "16"])
+                             "--stream_end_prob_threshold", "1.0", "--max_new_tokens", "16"])
         kernels.reset_launches()
         t0_cli = time.perf_counter()
         sess = _session._build_session(args)
         torch.cuda.synchronize()
         t_build = time.perf_counter() - t0_cli
+        sess.stream_end_prob_threshold = threshold(
+            score_64(sess.engine.params, cfg, tok, frames[:32], product)[0])
+        stats.launches(dict(kernels.LAUNCHES))         # the build and the threshold's pass
+        kernels.reset_launches()                       # the driver's run starts here
+        t1_cli = time.perf_counter()
         responses, debug = benchmarks._full_pass(sess, frames[:32], 2.0, query)
         torch.cuda.synchronize()
-        counts = dict(kernels.LAUNCHES)
+        counts = dict(kernels.LAUNCHES)                # ... and ends here
         kernel = "int8_matmul" if flag == "--int8" else "int4_matmul"
         n_resp = sum(t["role"] == "assistant" for t in responses)
         if (len(debug) != 32 or n_resp < 1 or counts.get(kernel, 0) < L * 4
@@ -2031,7 +2081,7 @@ def phase4e(gpu, stats, cfg, tok, frames, params4, params8, scored):
         print(f"phase4e infer session from flags {args.model_preset} {flag} [{gpu}]: weights "
               f"{t_build:.2f}s; fused {e.fused_frames}, generation {e.spec_tokens}->"
               f"{e.spec_max}, backend {e.backend}; _full_pass 32 frames "
-              f"{time.perf_counter() - t0_cli - t_build:.3f}s, {n_resp} responses; launches "
+              f"{time.perf_counter() - t1_cli:.3f}s, {n_resp} responses; launches "
               f"{kernel}={counts[kernel]}", flush=True)
         del sess
         gc.collect()
@@ -2068,9 +2118,233 @@ def phase4e(gpu, stats, cfg, tok, frames, params4, params8, scored):
           f"cv2 {cv2.__version__}; phase 4e took {time.perf_counter() - t0:.1f}s", flush=True)
 
 
+# -- phase 6: JAX's weights at 7B ----------------------------------------------------
+
+
+def check_slabs(params, cfg) -> str:
+    """Slabs of three leaves of the card-built 7B-int8 tree (an int8 product leaf,
+    the int8 embedding table, a bf16 normal leaf) drawn again on the CPU with the
+    same generator: equal bit for bit, to the tree's values and to the card's draw."""
+    import torch
+
+    from aha_tpu_torch.models import loader
+
+    specs = loader.leaf_specs(cfg, "int8")
+    counters = {path: i for i, (path, _, _) in enumerate(specs, 1)}
+    picks = {("llm", "layers", "o_proj", "kernel", "qvalue"):
+             params["llm"]["layers"]["o_proj"]["kernel"]["qvalue"],
+             ("llm", "embed", "weight", "qvalue"): params["llm"]["embed"]["weight"]["qvalue"],
+             ("vision", "layers", "fc1", "kernel"): params["vision"]["layers"]["fc1"]["kernel"]}
+    notes = []
+    for path, leaf in picks.items():
+        shape, dtype = tuple(leaf.shape), leaf.dtype
+        n, slab = leaf.numel(), 1 << 20
+        for start in (0, n // 2 - slab // 2, n - slab):
+            cpu = loader.draw_leaf(path, shape, dtype, counters[path], start, start + slab, "cpu")
+            card = loader.draw_leaf(path, shape, dtype, counters[path], start, start + slab,
+                                    "cuda")
+            if not (torch.equal(card.cpu(), cpu)
+                    and torch.equal(leaf.reshape(-1)[start:start + slab].cpu(), cpu)):
+                raise AssertionError(f"phase6a: leaf {'/'.join(path)} values {start}.."
+                                     f"{start + slab}: the card's draw is not the CPU's")
+        notes.append(f"{'/'.join(path)} (leaf {counters[path]}, {n} values)")
+    return "3 slabs of 2^20 values each of " + ", ".join(notes)
+
+
+def phase6(gpu: str, stats: Stats):
+    """JAX's synthetic 7B-int8 tree against golden_7b_int8_chip.npz (recorded on
+    the TPU), then a 7B checkpoint written and read back through the command line."""
+    import numpy as np
+    import torch
+
+    from aha_tpu_torch import golden
+    from aha_tpu_torch.ops import kernels
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    ref = np.load(golden.FIXTURES["chip7b"], allow_pickle=False)
+    atol, rtol = golden.ATOL["chip7b"], golden.RTOL
+    keys = ("scores", "scores_fused4")
+    widths = {"scores": 1, "scores_fused4": 4}
+    L = 28
+
+    t0 = time.perf_counter()
+    params, cfg, tok, frames = golden.build("chip7b", "cuda")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    print(f"phase6a materialize_random_params(aha_7b(), 'int8') on the card [{gpu}]: "
+          f"{t_build:.2f}s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB; "
+          f"{check_slabs(params, cfg)}: card equal to CPU", flush=True)
+    if golden.frames_sha256(frames) != str(ref["frames_sha256"]) or not np.array_equal(
+            golden.rendered_ids(tok), ref["ids"]):
+        raise AssertionError("phase6a: the fixture's frames or ids do not reproduce")
+
+    def traces(tree, c, what):
+        kernels.reset_launches()
+        t = time.perf_counter()
+        out = {k: golden.score_trace(tree, c, tok, frames, widths[k]) for k in keys}
+        torch.cuda.synchronize()
+        counts = dict(kernels.LAUNCHES)
+        stats.launches(counts)
+        print(f"phase6a {what} score traces (8 frames at fused 1 and 4) "
+              f"{time.perf_counter() - t:.2f}s; launches {counts}", flush=True)
+        return out, counts
+
+    bf, counts = traces(params, cfg, "bf16")
+    if counts.get("int8_matmul", 0) < L * 4 * 2 or counts.get("decode_attention", 0) < L:
+        raise AssertionError(f"phase6a: launches {counts}")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with golden.recorded_logits() as logits:
+        seq = golden.gen_trace(params, cfg, tok, frames, 1, 1)
+    t_seq = time.perf_counter() - t0
+    spec = golden.gen_trace(params, cfg, tok, frames, 4, 8)
+    torch.cuda.synchronize()
+    t_spec = time.perf_counter() - t0 - t_seq
+    counts = dict(kernels.LAUNCHES)
+    stats.launches(counts)
+    if seq != spec:
+        raise AssertionError("phase6a: speculative texts differ from sequential ones:"
+                             + _first_divergence(seq, spec))
+    print(f"phase6a bf16 generation traces (a response after each of 8 frames, 48 tokens) "
+          f"[{gpu}]: width 1 {t_seq:.2f}s, 4 -> 8 {t_spec:.2f}s; texts equal; launches "
+          f"{counts}", flush=True)
+    ok_texts = True
+    for key, got in (("gen_texts_seq", seq), ("gen_texts_spec", spec)):
+        div = golden.first_divergences(got, list(ref[key]), tok, logits)
+        for d in div:
+            print(f"phase6a {key} vs the fixture: "
+                  + ("equal" if d is None else json.dumps(d)), flush=True)
+        ok_texts = ok_texts and golden.texts_ok("chip7b", div)
+    wide, cfg32 = golden.widened(params, cfg)
+    f32, counts = traces(wide, cfg32, "f32")
+    if counts.get("int8_matmul", 0) < L * 4 * 2 or counts.get("decode_attention", 0) < L:
+        raise AssertionError(f"phase6a f32: launches {counts}")
+    del wide, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tpu_own = np.abs(ref["scores"] - ref["scores_fused4"]).max(axis=0)
+    failed = [] if ok_texts else ["texts: the fixture's token is more than 2 bf16 steps "
+                                  "below the port's top logit at the first divergence"]
+    for key in keys:
+        gap32, ok32 = golden.score_gaps(f32[key], ref[key], atol, rtol)
+        gap16, ok16 = golden.score_gaps(bf[key], ref[key], atol, rtol)
+        card = np.abs(bf[key] - f32[key]).max(axis=0)
+        allowed = tpu_own + card
+        ok_bf = ok16 or bool((gap16 <= allowed).all())
+        print(f"phase6a {key} [{gpu}] (atol {atol}, rtol {rtol}), largest gap per column "
+              f"(informative, relevance, uncertainty): f32 vs fixture {gap32.tolist()} "
+              f"within={ok32}; bf16 vs fixture {gap16.tolist()} within={ok16}; bf16 vs f32 "
+              f"{card.tolist()}; the TPU's own per-frame vs fused {tpu_own.tolist()} + bf16 vs "
+              f"f32 = {allowed.tolist()}: bf16 gap within it {bool((gap16 <= allowed).all())}",
+              flush=True)
+        if not ok32:
+            failed.append(f"{key}: the f32 trace is not within the fixture's tolerance")
+        if not ok_bf:
+            failed.append(f"{key}: the bf16 trace is outside the tolerance and the allowance")
+    if failed:
+        raise AssertionError(f"phase6a: {failed}")
+    phase6b(gpu, stats, cfg, tok, frames)
+    print(f"phase6 took {time.perf_counter() - t_phase:.1f}s", flush=True)
+
+
+def phase6b(gpu: str, stats: Stats, cfg, tok, frames):
+    """JAX's dense bf16 7B tree exported in the reference's key layout, written as
+    safetensors shards of 5 GB at most outside the repo, then served by the session
+    that ``infer --llm_pretrained DIR --int8 --model_preset 7b`` builds: its scores
+    equal bit for bit those of the same tree quantised in memory. The dense tree's own
+    scores (torch.matmul products) at fused 4 are timed."""
+    import argparse
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from aha_tpu_torch import golden
+    from aha_tpu_torch.cli import _session
+    from aha_tpu_torch.models import loader
+    from aha_tpu_torch.ops import kernels, quant
+
+    t0 = time.perf_counter()
+    dense = loader.materialize_random_params(cfg, None, device="cuda")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    dense_scores = golden.score_trace(dense, cfg, tok, frames, 4)
+    torch.cuda.synchronize()
+    t_dense = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    stats.launches(counts)
+    if counts.get("int8_matmul", 0) or not counts.get("decode_attention", 0) or not (
+            np.isfinite(dense_scores).all()):
+        raise AssertionError(f"phase6b dense bf16: launches {counts}, scores {dense_scores}")
+    print(f"phase6b materialize_random_params(aha_7b(), None) (dense bf16) [{gpu}]: "
+          f"{t_build:.2f}s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB; score_video 8 "
+          f"frames at fused 4 on torch.matmul {t_dense:.2f}s = {8 / t_dense:.2f} frames/s "
+          f"(vision included); launches {counts}", flush=True)
+    q = quant.quantize_params(dense)
+    q = {**q, "llm": quant.merge_decoder_projections(q["llm"])}
+    in_memory = {w: golden.score_trace(q, cfg, tok, frames, w) for w in (1, 4)}
+    del q
+    sd = loader.export_hf_state_dict(dense, cfg)
+    nbytes = sum(t.numel() * t.element_size() for t in sd.values())
+    d = tempfile.mkdtemp(prefix="aha_ckpt_")        # the system's temporary directory
+    try:
+        free = shutil.disk_usage(d).free
+        print(f"phase6b checkpoint directory {d}: {free / 1e9:.1f} GB free, "
+              f"{nbytes / 1e9:.2f} GB to write", flush=True)
+        if free < 1.05 * nbytes:
+            raise AssertionError(f"phase6b: {free} bytes free for a {nbytes}-byte checkpoint")
+        t0 = time.perf_counter()
+        paths = loader.save_sharded(sd, d)
+        t_write = time.perf_counter() - t0
+        written = sum(os.path.getsize(x) for x in paths)
+        del sd, dense
+        gc.collect()
+        torch.cuda.empty_cache()
+        p = argparse.ArgumentParser()
+        _session._add_infer_flags(p)
+        args = p.parse_args(["--llm_pretrained", d, "--int8", "--model_preset", "7b",
+                             "--test_dataset", "youcook2", "--input_dir", ".",
+                             "--output_fname", "unused", "--grounding_mode", "--frame_fps", "1",
+                             "--fused_score_frames", "1", "--spec_decode_tokens", "1"])
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        sess = _session._build_session(args)
+        torch.cuda.synchronize()
+        t_read = time.perf_counter() - t0
+        rows = sess.score_video(frames, query=golden.QUERY)
+        from_files = {1: np.asarray([[r[k] for k in SCORE_KEYS] for r in rows], np.float32),
+                      4: golden.score_trace(sess.engine.params, sess.engine.cfg, sess.tokenizer,
+                                            frames, 4)}
+        torch.cuda.synchronize()
+        counts = dict(kernels.LAUNCHES)
+        stats.launches(counts)
+        del sess
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    equal = all(np.array_equal(from_files[w], in_memory[w]) for w in (1, 4))
+    print(f"phase6b infer --llm_pretrained DIR --int8 --model_preset 7b [{gpu}]: "
+          f"{len(paths)} shards, {written / 1e9:.2f} GB written in {t_write:.2f}s "
+          f"({written / 1e9 / t_write:.2f} GB/s); session from the flags (read, convert on "
+          f"the card, quantise, merge) {t_read:.2f}s ({written / 1e9 / t_read:.2f} GB/s); "
+          f"scores at fused 1 and 4 equal bit for bit to the tree quantised in memory: "
+          f"{equal}; launches {counts}; the directory removed", flush=True)
+    if not equal or counts.get("int8_matmul", 0) < 28 * 4:
+        raise AssertionError(f"phase6b: scores from the files differ from the in-memory "
+                             f"tree's, or launches {counts}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5")
+    ap.add_argument("--phases", default="1,2,3,4,5,6")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -2126,8 +2400,8 @@ def main() -> int:
     if 3 in phases:
         phase3(args.seed)
         phase3_train(args.seed)
-    if phases & {4, 5}:
-        phases_4_and_5(gpu, args.seed, stats, phases)
+    if phases & {4, 5, 6}:
+        phases_4_to_6(gpu, args.seed, stats, phases)
 
     print(f"{gpu}; chip_smoke took {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": [
@@ -2137,7 +2411,7 @@ def main() -> int:
          "bound_ms": stats.k[n]["bound_ms"], "bound_by": stats.k[n]["bound_by"],
          "library_ms": stats.k[n]["library_ms"], "shape": stats.k[n]["shape"]}
         for n, (src, tpu) in KERNELS.items()]}), flush=True)
-    if phases != {1, 2, 3, 4, 5}:
+    if phases != {1, 2, 3, 4, 5, 6}:
         print(f"chip_smoke: ran phases {sorted(phases)} only", file=sys.stderr)
         return 1
     missing = [n for n in KERNELS if stats.k[n]["launches"] <= 0]

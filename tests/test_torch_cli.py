@@ -261,9 +261,12 @@ def test_cli_infer_writes_the_jax_format(video_dir, tmp_path, mode):
 REFUSED_FLAGS = {
     "w8a8": (["--int8", "--w8a8"], "item 8"),
     "vision_int8": (["--int8", "--vision_int8"], "item 8"),
-    "llm_pretrained": (["--int8", "--llm_pretrained", "ckpt"], "item 9"),
+    # a checkpoint loads now; its adapters are still refused
+    "llm_pretrained": (["--int8", "--llm_pretrained", "ckpt", "--lora_pretrained", "lora"],
+                       "item 5"),
     "lora_pretrained": (["--int8", "--lora_pretrained", "lora"], "item 5"),
-    "dense_synthetic": ([], "item 9"),
+    # dense synthetic weights run now; a quantised tower over them is still refused
+    "dense_synthetic": (["--vision_int8"], "item 8"),
     "concurrent_streams": (["--int8", "--concurrent_streams", "2"], "item 10"),
 }
 
@@ -276,11 +279,70 @@ def test_cli_infer_refuses_what_is_not_ported(video_dir, tmp_path, case):
     assert not (tmp_path / "x.jsonl").exists()
 
 
+def _session_scores(sess, frames):
+    return np.asarray([[r[k] for k in KEYS] for r in sess.score_video(frames, query="what?")])
+
+
 def test_cli_infer_refuses_a_run_without_synthetic_weights(video_dir, tmp_path):
-    argv = [a for a in _infer_argv(video_dir, tmp_path / "x.jsonl", "--int8")
+    """Refused before the loader was ported; now, as in JAX, a run with
+    neither --synthetic_weights nor --llm_pretrained serves the seed-0 random
+    init (``init_aha_params``), here quantised by --int8: the session scores
+    frames as the JAX command's does (atol 1e-3), and the command writes its
+    lines."""
+    import argparse
+
+    from aha_tpu.cli._session import _add_infer_flags as jflags
+    from aha_tpu.cli._session import _build_session as jbuild
+
+    from aha_tpu_torch.cli._session import _add_infer_flags, _build_session
+
+    argv = [a for a in _infer_argv(video_dir, tmp_path / "x.jsonl", "--int8",
+                                   "--stream_end_prob_threshold", "0.5")
             if a != "--synthetic_weights"]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        cmd_infer(argv[1:])
+    cmd_infer(argv[1:])
+    assert len((tmp_path / "x.jsonl").read_text().splitlines()) == 2
+
+    def args(add, *extra):
+        p = argparse.ArgumentParser()
+        add(p)
+        return p.parse_args(["--test_dataset", "youcook2", "--input_dir", ".",
+                             "--output_fname", "unused", "--model_preset", "tiny", "--int8",
+                             "--grounding_mode", *extra])
+
+    frames = np.random.default_rng(2).integers(0, 256, (5, 32, 32, 3), dtype=np.uint8)
+    np.testing.assert_allclose(
+        _session_scores(_build_session(args(_add_infer_flags, "--device", "cpu")), frames),
+        _session_scores(jbuild(args(jflags)), frames), atol=1e-3)
+
+
+@pytest.fixture(scope="module")
+def checkpoint(tmp_path_factory):
+    """scripts/make_synthetic_hf_checkpoint.py's reduced llava-onevision
+    checkpoint (bf16 .safetensors shards, config.json, a BPE tokenizer)."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import make_synthetic_hf_checkpoint
+
+    return make_synthetic_hf_checkpoint.generate(str(tmp_path_factory.mktemp("ckpt")))[0]
+
+
+@pytest.mark.parametrize("weights", ["checkpoint-int8", "dense-synthetic"])
+def test_cli_infer_runs_checkpoints_and_dense_synthetic_weights(video_dir, tmp_path, checkpoint,
+                                                               weights):
+    """``python -m aha_tpu_torch.cli infer --llm_pretrained DIR
+    --tokenizer_pretrained DIR --int8`` (the port's own safetensors reader),
+    and ``--synthetic_weights`` without a quantised form (JAX's dense tree in
+    the preset's dtype): the command writes its lines with finite scores."""
+    out = tmp_path / "pred.jsonl"
+    argv = _infer_argv(video_dir, out, "--grounding_mode")
+    if weights == "checkpoint-int8":
+        argv = [a for a in argv if a != "--synthetic_weights"]
+        argv += ["--llm_pretrained", checkpoint, "--tokenizer_pretrained", checkpoint, "--int8"]
+    res = subprocess.run([sys.executable, "-m", "aha_tpu_torch.cli", *argv],
+                         capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert res.returncode == 0, res.stderr[-2000:]
+    lines = [json.loads(x) for x in out.read_text().splitlines()]
+    assert [x["question_id"] for x in lines] == ["q1", "q3"]
+    assert all(np.isfinite(d[k]) for x in lines for d in x["debug_data"] for k in KEYS)
 
 
 @pytest.mark.parametrize("dataset", ["tvsum", "tvsum_degraded", "hisum", "arl_scout",

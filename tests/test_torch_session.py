@@ -519,7 +519,10 @@ def test_port_runs_without_jax():
     card's scripts chip_smoke.py and spec_divergence.py) and runs a tiny int4
     session at the product widths (chunked inference() with the prob and the
     z rule), ``infer`` of the command line on a clip written with cv2, and one
-    int4 QLoRA train step on the CPU from seeded synthetic params."""
+    int4 QLoRA train step on the CPU from seeded synthetic params. The
+    weights' modules (``models/jax_random.py``, ``models/loader.py``,
+    ``golden.py``) are among those imported; they run with jax blocked in
+    ``tests/test_torch_loader.py::test_weights_run_without_jax``."""
     code = textwrap.dedent(f"""
         import importlib.abc, sys
 
@@ -609,6 +612,10 @@ def test_port_runs_without_jax():
             "input_ids": ids, "labels": np.roll(ids, -1, 1).astype(np.int64),
             "frames": np.zeros((2, 32, 32, 3), np.uint8)}})
         assert state.step == 1 and np.isfinite(float(parts.total))
+        # the weights' modules came in with the rest (their runs: test_torch_loader.py)
+        for m in ("aha_tpu_torch.models.jax_random", "aha_tpu_torch.models.loader",
+                  "aha_tpu_torch.golden"):
+            assert m in sys.modules, m
         bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "aha_tpu")]
         assert not bad, bad
         print("ok")
