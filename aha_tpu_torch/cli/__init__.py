@@ -1,9 +1,10 @@
 """Command line of the port: ``python -m aha_tpu_torch.cli <command> ...``.
 
 Counterpart of ``aha_tpu/cli``, with its command names and flags. Ported:
-``infer`` for the streaming-QA datasets at one stream (``infer.py``; session
-construction and the flags in ``_session.py``). Every other command exits 2
-with a message that names its ROADMAP.md item.
+``infer`` for the streaming-QA datasets, at one stream or several
+(``infer.py``; session construction and the flags in ``_session.py``), and
+``serve``, the continuous-batching JSONL server (``serve.py``). Every other
+command exits 2 with a message that names its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import sys
 
 from .infer import cmd_infer
+from .serve import cmd_serve
 
 # commands of the JAX package that are not ported yet -> their ROADMAP.md item
 NOT_PORTED = {
@@ -20,7 +22,6 @@ NOT_PORTED = {
     "demo": "Queue 1 item 7",
     "train": "Queue 1 item 6",
     "visualize": "Queue 1 item 11",
-    "serve": "Queue 1 item 10",
 }
 
 
@@ -31,7 +32,8 @@ def _not_ported(name: str):
     return cmd
 
 
-COMMANDS = {"infer": cmd_infer, **{name: _not_ported(name) for name in NOT_PORTED}}
+COMMANDS = {"infer": cmd_infer, "serve": cmd_serve,
+            **{name: _not_ported(name) for name in NOT_PORTED}}
 
 
 def main(argv=None) -> int:

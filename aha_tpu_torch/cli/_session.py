@@ -76,8 +76,17 @@ def _build_params(args, cfg):
 
 def _build_session(args):
     """Parsed flags -> a StreamSession on ``args.device``."""
-    from ..config import InferConfig, aha_7b, aha_tiny
     from ..streaming.session import build_session
+
+    params, cfg, tokenizer, infer_cfg = _build_parts(args)
+    return build_session(params, cfg, tokenizer, infer_cfg, device=args.device,
+                         backend="fused")
+
+
+def _build_parts(args):
+    """Parsed flags -> (params on ``args.device``, cfg, tokenizer,
+    InferConfig): what a session or a multi-stream server is built from."""
+    from ..config import InferConfig, aha_7b, aha_tiny
     from ..tokenization import build_stream_tokenizer
 
     _refuse_unported(args)
@@ -111,9 +120,9 @@ def _build_session(args):
         spec_decode_tokens=args.spec_decode_tokens,
         spec_decode_tokens_max=args.spec_decode_tokens_max,
         fused_score_frames=args.fused_score_frames,
+        retire_defer=getattr(args, "retire_defer", 1),
     )
-    return build_session(params, cfg, tokenizer, infer_cfg, device=args.device,
-                         backend="fused")
+    return params, cfg, tokenizer, infer_cfg
 
 
 def _add_infer_flags(p: argparse.ArgumentParser):
@@ -193,4 +202,5 @@ def _add_infer_flags(p: argparse.ArgumentParser):
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--concurrent_streams", type=int, default=1,
                    help="streaming-QA datasets: videos served at once in one batched "
-                        "engine (not ported yet: 1 only)")
+                        "engine (generation mode: continuous batching); the same "
+                        "per-stream output as 1")

@@ -1,10 +1,12 @@
-"""``aha infer`` on the port: the streaming-QA benchmark driver at one
-stream, in generation and in grounding mode (``aha_tpu/cli/infer.py:12-121``,
-its youcook2 / magqa / charades / generic branch)."""
+"""``aha infer`` on the port: the streaming-QA benchmark driver, at one
+stream or at ``--concurrent_streams`` N in one batched engine, in generation
+and in grounding mode (``aha_tpu/cli/infer.py:12-121``, its youcook2 /
+magqa / charades / generic branches)."""
 
 from __future__ import annotations
 
 import argparse
+import functools
 
 from ._session import _add_infer_flags, _build_session
 
@@ -23,12 +25,12 @@ def cmd_infer(argv):
         raise NotImplementedError(
             f"--test_dataset {args.test_dataset} is not ported to aha_tpu_torch yet "
             "(ROADMAP.md, Queue 1 item 7)")
-    if args.concurrent_streams > 1:
-        raise NotImplementedError("--concurrent_streams > 1 (multi-stream serving) is not "
-                                  "ported to aha_tpu_torch yet (ROADMAP.md, Queue 1 item 10)")
     session = _build_session(args)
-    benchmarks.run_streaming_qa(
-        session, test_fname=args.test_fname, input_dir=args.input_dir,
+    run = benchmarks.run_streaming_qa
+    if args.concurrent_streams > 1:
+        run = functools.partial(benchmarks.run_streaming_qa_multi,
+                                batch=args.concurrent_streams)
+    run(session, test_fname=args.test_fname, input_dir=args.input_dir,
         output_fname=args.output_fname, frame_fps=args.frame_fps,
         max_num_frames=args.max_num_frames, grounding_mode=args.grounding_mode,
         start_idx=args.start_idx, end_idx=args.end_idx,

@@ -111,6 +111,19 @@ def reset_cache(cache: KVCache) -> KVCache:
     return cache
 
 
+def reset_cache_rows(cache: KVCache, rows: torch.Tensor) -> KVCache:
+    """Empty the metadata of the rows where ``rows`` ([B] bool) is True, in
+    place: the slot of a finished stream is recycled for the next one
+    (continuous batching). As in ``reset_cache``, their stale K/V stay and
+    are masked out."""
+    r = torch.as_tensor(rows, dtype=torch.bool, device=cache.order.device)
+    cache.order.masked_fill_(r[:, None], -1)
+    cache.key_pos.masked_fill_(r[:, None], 0)
+    cache.seen.masked_fill_(r, 0)
+    cache.length.masked_fill_(r, 0)
+    return cache
+
+
 @dataclass
 class UpdatePlan:
     """Where a chunk of S new tokens goes ([B, S] unless noted); computed

@@ -2,7 +2,7 @@
 train step on one CUDA card.
 
     python3 -m aha_tpu_torch.profile_slice [--seed 0] [--frames 8]
-                                           [--paths int8,int4,int8a8,int4a8,train]
+                                           [--paths int8,int4,int8a8,int4a8,serve8,train]
                                            [--remat full]
 
 For each path it builds seeded synthetic 7B params on the card
@@ -31,6 +31,18 @@ fused passes of 4 frames, as JAX runs ``--int4`` with ``AHA_QUANT_MATMUL=fused_a
   token       greedy generation: a ``generate`` with a budget of 33 tokens
               minus one with a budget of 1, each on a copy of the same
               cache, so that only the 32 S = 1 passes remain.
+
+serve8 (multi-stream serving: 7B-int8, B 8 rows of one batched engine, each
+row's window filled) traces the passes a ``MultiStreamServer`` of 8 slots
+runs, per pass (each carries 8 rows):
+
+  token       the S = 1 passes of ``generate`` for all 8 rows (8 tokens a
+              pass), as the token table above;
+  frame step  ``--frames`` frame chunks of 8 rows (392 rows), each followed by
+              the host read of its scores: the mixed loop's scoring pass;
+  fused pass  ``--frames`` fused passes of 8 rows x 4 frames (1,568 rows);
+  verify S=4  8 verify passes of 8 rows x 4 tokens (32 rows), as the
+              speculative tail runs them.
 
 The verify-pass and token tables list the path's decode kernel for products of
 1 .. 16 rows (``int8_mm_decode_kernel``, ``int4_mm_decode_kernel``), the sum of
@@ -194,64 +206,120 @@ def _setup(mode: str, seed: int, n_frames: int, backend: str = "fused", **widths
     return cfg, tok, icfg, engine, frames
 
 
-def _fill(engine, tok, icfg, embeds):
-    """Query, system + first frame, then frames until the window has filled.
-    Returns (cache, index of the next frame)."""
+def _fill(engine, tok, icfg, rows):
+    """Each of the engine's rows (``rows`` [B, T, F, H]): query, system + first
+    frame, then frames until the window has filled. Returns (cache, index of
+    the next frame)."""
+    B = rows.shape[0]
     query = tok.apply_chat_template([{"role": "user", "content": "What is happening?"}],
                                     add_stream_query_prompt=False, add_stream_prompt=True)
     start = tok.apply_chat_template([{"role": "system", "content": icfg.system_prompt}])
     fill = engine.policy.window + engine.policy.num_sink
     cache = engine.new_cache()
-    engine.append_ids(cache, [query])
-    engine.append_text_frames(cache, [start], embeds[:1])
+    engine.append_ids(cache, [query] * B)
+    engine.append_text_frames(cache, [start] * B, rows[:, 0])
     t = 1
-    while int(cache.seen[0]) <= fill:
-        engine.append_frames(cache, embeds[t:t + 1]).cpu()
+    while int(cache.seen.min()) <= fill:
+        engine.append_frames(cache, rows[:, t]).cpu()
         t += 1
     return cache, t
 
 
-def _trace_frames(label, engine, cache, embeds, first, n):
+def _trace_frames(label, engine, cache, rows, first, n):
+    """``n`` frame chunks of every row (``rows`` [B, T, F, H]), each followed
+    by the host read of its scores, as ``inference()`` and the mixed serving
+    loop run them."""
+    B = rows.shape[0]
+
     def frame_chunks():
         for _ in range(n):
-            i = next(nxt)
-            engine.append_frames(cache, embeds[i:i + 1]).cpu()   # the session reads scores
+            engine.append_frames(cache, rows[:, next(nxt)]).cpu()   # the session reads scores
 
     # two runs (plain, traced) consume 2 n frames
     nxt = iter(range(first, first + 2 * n))
     tr = Trace()
     tr.run(frame_chunks)
-    report(f"{label} frame (stream at {int(cache.seen[0])} tokens)", n, "frame",
-           tr.wall_ms, tr.traced_wall_ms, tr.busy_ms(), tr.kernels(), tr.aten_ops(),
-           named=DECODE_KERNELS)
+    what, unit = ((f"frame (stream at {int(cache.seen[0])} tokens)", "frame") if B == 1 else
+                  (f"frame step ({B * 49} rows)", "pass"))
+    report(f"{label} {what}", n, unit, tr.wall_ms, tr.traced_wall_ms, tr.busy_ms(),
+           tr.kernels(), tr.aten_ops(), named=DECODE_KERNELS)
+
+
+def _trace_fused(label, engine, cache, rows, first, n, K):
+    """``n`` fused passes of ``K`` frames a row through the read-only verify
+    pass and its commit (``score_video``, the mixed loop's scoring pass)."""
+    B = rows.shape[0]
+    nxt = iter(range(first, first + 2 * n * K, K))
+
+    def fused_passes():
+        for _ in range(n):
+            i = next(nxt)
+            engine.append_frames_fused(cache, rows[:, i:i + K]).cpu()
+
+    tr = Trace()
+    tr.run(fused_passes)
+    what = (f"({K} frames, {K * 49} rows; stream at {int(cache.seen[0])} tokens)" if B == 1
+            else f"({B} x {K} frames, {B * K * 49} rows)")
+    report(f"{label} fused pass {what}", n, "pass", tr.wall_ms, tr.traced_wall_ms,
+           tr.busy_ms(), tr.kernels(), tr.aten_ops(), named=DECODE_KERNELS)
+
+
+def _trace_verify(label, engine, cfg, cache, S, named):
+    """8 verify passes of ``S`` candidate tokens a row (plans, embedding,
+    decoder, lm_head, no commit), as ``generate_spec`` and the speculative
+    serving tail run them (attention replayed through the cached-attention
+    kernel)."""
+    from .models import qwen2
+    from .ops import spec_decode
+
+    B = cache.batch
+    llm = engine.params["llm"]
+    ids = torch.randint(0, 1000, (B, S), device="cuda")
+
+    def verify_passes():
+        for _ in range(8):
+            plans = spec_decode.plan_compose(
+                cache, engine.policy, torch.full((B,), S, dtype=torch.int32, device="cuda"), S)
+            hidden, _, _ = qwen2.decode_chunk_spec(
+                llm, cfg.llm, engine.policy, cache, qwen2.embed_tokens(llm, ids, engine.dtype),
+                plans, backend=engine.backend, replay=not cache.quantized)
+            qwen2.lm_logits(llm, cfg.llm, hidden, engine.backend).float().argmax(-1).cpu()
+
+    tr = Trace()
+    tr.run(verify_passes)
+    rows = f" ({B * S} rows)" if B > 1 else ""
+    report(f"{label} verify S={S}{rows}", 8, "pass", tr.wall_ms, tr.traced_wall_ms, tr.busy_ms(),
+           tr.kernels(), tr.aten_ops(), named=named)
 
 
 def _trace_tokens(label, engine, tok, cache, named=DECODE_KERNELS):
     """Budget 1 + GEN_TOKENS minus budget 1, each from the same cache state
-    (the clone is in both, and cancels)."""
+    (the clone is in both, and cancels), for every row of the cache: a pass
+    writes a token a row."""
+    B = cache.batch
     prompt = tok.apply_chat_template([{}], add_stream_generation_prompt=True)
     traces = []
     for budget in (1, 1 + GEN_TOKENS):
         engine.max_new_tokens = budget
         tr = Trace()
-        out = tr.run(lambda: engine.generate(cache.clone(), [prompt], engine.new_rep_counts()))
+        out = tr.run(lambda: engine.generate(cache.clone(), [prompt] * B,
+                                             engine.new_rep_counts()))
         traces.append(tr)
-    if int(out[1][0]) != 1 + GEN_TOKENS:
-        raise RuntimeError(f"generation stopped after {int(out[1][0])} tokens")
+    if int(out[1].min()) != 1 + GEN_TOKENS:
+        raise RuntimeError(f"generation stopped after {out[1].tolist()} tokens")
     a, b = traces
     ka, kb = a.kernels(), b.kernels()
     diff = {n: [kb[n][0] - ka.get(n, [0, 0.0])[0], kb[n][1] - ka.get(n, [0, 0.0])[1]]
             for n in kb}
-    report(f"{label} token (S = 1 passes only)", GEN_TOKENS, "token", b.wall_ms - a.wall_ms,
+    what, unit = (("token (S = 1 passes only)", "token") if B == 1 else
+                  (f"token pass (S = 1, {B} tokens a pass)", "pass"))
+    report(f"{label} {what}", GEN_TOKENS, unit, b.wall_ms - a.wall_ms,
            b.traced_wall_ms - a.traced_wall_ms, b.busy_ms() - a.busy_ms(),
            {n: v for n, v in diff.items() if v[0] > 0}, b.aten_ops() - a.aten_ops(),
            named=named)
 
 
 def profile_serving(path: str, seed: int, n: int) -> None:
-    from .models import qwen2
-    from .ops import spec_decode
-
     mode, backend, K = SERVING[path]                  # K: fused_score_frames of the product
     fill_frames = (2048 + 32) // 49 + 2
     cfg, tok, icfg, engine, frames = _setup(
@@ -264,45 +332,33 @@ def profile_serving(path: str, seed: int, n: int) -> None:
         tr.run(lambda: engine.encode_frames(frames[:VISION_FRAMES]))
         report(f"{path} vision", VISION_FRAMES, "frame", tr.wall_ms, tr.traced_wall_ms,
                tr.busy_ms(), tr.kernels(), tr.aten_ops())
-    embeds = engine.encode_frames(frames)
-    cache, t = _fill(engine, tok, icfg, embeds)
-    _trace_frames(path, engine, cache, embeds, t, n)
-    t += 2 * n
-
-    nxt = iter(range(t, t + 2 * n * K, K))
-
-    def fused_passes():
-        for _ in range(n):
-            i = next(nxt)
-            engine.append_frames_fused(cache, embeds[None, i:i + K]).cpu()
-
-    tr = Trace()
-    tr.run(fused_passes)
-    report(f"{path} fused pass ({K} frames, {K * 49} rows; stream at {int(cache.seen[0])} "
-           f"tokens)",
-           n, "pass", tr.wall_ms, tr.traced_wall_ms, tr.busy_ms(), tr.kernels(), tr.aten_ops(),
-           named=DECODE_KERNELS)
-
-    llm = engine.params["llm"]
+    rows = engine.encode_frames(frames)[None]
+    cache, t = _fill(engine, tok, icfg, rows)
+    _trace_frames(path, engine, cache, rows, t, n)
+    _trace_fused(path, engine, cache, rows, t + 2 * n, n, K)
     for S in (4, 8):
-        ids = torch.randint(0, 1000, (1, S), device="cuda")
-
-        def verify_passes():
-            for _ in range(8):
-                plans = spec_decode.plan_compose(
-                    cache, engine.policy, torch.full((1,), S, dtype=torch.int32, device="cuda"),
-                    S)
-                hidden, _, _ = qwen2.decode_chunk_spec(
-                    llm, cfg.llm, engine.policy, cache,
-                    qwen2.embed_tokens(llm, ids, engine.dtype), plans, backend=engine.backend,
-                    replay=not cache.quantized)
-                qwen2.lm_logits(llm, cfg.llm, hidden, engine.backend).float().argmax(-1).cpu()
-
-        tr = Trace()
-        tr.run(verify_passes)
-        report(f"{path} verify S={S}", 8, "pass", tr.wall_ms, tr.traced_wall_ms, tr.busy_ms(),
-               tr.kernels(), tr.aten_ops(), named=MATMUL_DECODE_KERNELS[path])
+        _trace_verify(path, engine, cfg, cache, S, MATMUL_DECODE_KERNELS[path])
     _trace_tokens(path, engine, tok, cache, named=DECODE_KERNELS + MATMUL_DECODE_KERNELS[path])
+
+
+def profile_serve8(seed: int, n: int) -> None:
+    """The passes of multi-stream serving at 7B-int8, B 8 (module docstring)."""
+    from .streaming.engine import StreamEngine
+
+    B, K = 8, 4
+    fill_frames = (2048 + 32) // 49 + 2
+    cfg, tok, icfg, solo, frames = _setup("int8", seed, fill_frames + 2 * n + 2 * n * K,
+                                          fused_score_frames=K, spec_decode_tokens=1)
+    engine = StreamEngine(solo.params, cfg, solo.policy, batch=B, fused_score_frames=K)
+    embeds = engine.encode_frames(frames)
+    # the same stream in every row, each row at its own offset of it
+    rows = torch.stack([embeds.roll(-3 * b, dims=0) for b in range(B)])     # [B, T, F, H]
+    cache, t = _fill(engine, tok, icfg, rows)
+    label = f"serve8 (B={B}, stream at {int(cache.seen[0])} tokens a row)"
+    _trace_frames(label, engine, cache, rows, t, n)
+    _trace_fused(label, engine, cache, rows, t + 2 * n, n, K)
+    _trace_verify(label, engine, cfg, cache, 4, MATMUL_DECODE_KERNELS["int8"])
+    _trace_tokens(label, engine, tok, cache, named=DECODE_KERNELS + MATMUL_DECODE_KERNELS["int8"])
 
 
 def profile_train(seed: int, remat: str) -> None:
@@ -379,6 +435,8 @@ def main() -> int:
     for path in args.paths.split(","):
         if path == "train":
             profile_train(args.seed, args.remat)
+        elif path == "serve8":
+            profile_serve8(args.seed, args.frames)
         else:
             profile_serving(path, args.seed, args.frames)
         torch.cuda.empty_cache()

@@ -1,13 +1,20 @@
-"""StreamEngine: the compute primitives behind single-stream inference.
+"""StreamEngine: the compute primitives behind streaming inference, for one
+stream or ``batch`` of them.
 
-Counterpart of the single-stream subset of ``aha_tpu/streaming/engine.py``,
-``engine_core.py`` and ``engine_generate.py``: cache creation and reset,
-frame pre-encoding, text / frame / text+frame chunk appends, per-frame and
-fused frame scoring (``fused_frames`` frames per weight stream through the
-read-only verify pass), the trigger loops that score until a stopping
-rule fires (``engine_trigger.py``), greedy generation with repetition
-penalty, and its speculative form (``spec_tokens`` candidates per weight stream, widening to
+Counterpart of ``aha_tpu/streaming/engine.py``, ``engine_core.py`` and
+``engine_generate.py``: cache creation and reset (whole or by rows), frame
+pre-encoding, text / frame / text+frame chunk appends, per-frame and fused
+frame scoring (``fused_frames`` frames per weight stream through the
+read-only verify pass), the trigger loops that score until a stopping rule
+fires (``engine_trigger.py``), the serving iteration of multi-stream serving
+(``engine_serve.py``), greedy generation with repetition penalty, and its
+speculative form (``spec_tokens`` candidates per weight stream, widening to
 ``spec_max`` while drafts are being accepted), which writes the same tokens.
+
+Every row is an independent stream: ``active`` [B] flags (or per-row valid
+lengths) keep a row out of a pass, and an inactive row appends zero valid
+tokens, whose writes go to the cache's junk slot, so its cache slice never
+moves.
 
 The cache is updated IN PLACE by every append, by ``commit_frames``, by
 the trigger loops and by both generation loops (the JAX engine donates it
@@ -25,8 +32,9 @@ import torch
 from ..config import AhaConfig
 from ..models import aha, qwen2
 from ..ops import spec_decode
-from ..ops.kv_cache import CachePolicy, KVCache, init_cache, reset_cache
+from ..ops.kv_cache import CachePolicy, KVCache, init_cache, reset_cache, reset_cache_rows
 from ..ops.quant import BACKENDS
+from .engine_serve import ServeLoop
 from .engine_trigger import TriggerLoops
 
 
@@ -59,12 +67,12 @@ SPEC_EMA_ALPHA = 0.35
 SPEC_EMA_HI = 0.7
 
 
-class StreamEngine(TriggerLoops):
+class StreamEngine(TriggerLoops, ServeLoop):
     """Params and compute primitives for one (config, cache policy) pair on
-    one device, for one stream (batch 1 cache)."""
+    one device, for ``batch`` streams (the rows of its caches)."""
 
     def __init__(self, params: dict, cfg: AhaConfig, policy: CachePolicy, *,
-                 device="cuda", max_new_tokens: int = 200,
+                 device="cuda", batch: int = 1, max_new_tokens: int = 200,
                  repetition_penalty: float | None = None,
                  kv_dtype: torch.dtype | None = None, backend: str = "fused",
                  spec_tokens: int = 1, spec_tokens_max: int | None = None,
@@ -91,6 +99,7 @@ class StreamEngine(TriggerLoops):
         if self.spec_tokens <= 1:
             self.spec_max = 1            # speculation off: no widening
         self.fused_frames = max(int(fused_score_frames), 1)
+        self.batch = int(batch)
         self._spec_ema = np.float32(0.0)   # acceptance EMA, kept across responses
         self.last_spec_info = None         # (passes, committed, EMA) of the last call
         self.spec_totals = [0, 0]        # run-level [verify passes, committed tokens]
@@ -109,16 +118,25 @@ class StreamEngine(TriggerLoops):
 
     def new_cache(self) -> KVCache:
         llm = self.cfg.llm
-        return init_cache(self.policy, num_layers=llm.num_layers, batch=1,
+        return init_cache(self.policy, num_layers=llm.num_layers, batch=self.batch,
                           num_kv_heads=llm.num_kv_heads, head_dim=llm.head_dim,
                           dtype=self.kv_dtype, device=self.device)
 
     def reset_cache(self, cache: KVCache) -> KVCache:
         return reset_cache(cache)
 
+    def reset_cache_rows(self, cache: KVCache, rows) -> KVCache:
+        """Recycle finished slots: empty the metadata of the rows where
+        ``rows`` ([B] bool) is True, in place."""
+        return reset_cache_rows(cache, rows)
+
     def new_rep_counts(self) -> torch.Tensor:
-        return torch.zeros((1, self.cfg.llm.vocab_size), dtype=torch.int32,
+        return torch.zeros((self.batch, self.cfg.llm.vocab_size), dtype=torch.int32,
                            device=self.device)
+
+    def _active(self, active, B: int) -> torch.Tensor | None:
+        return None if active is None else torch.as_tensor(active, dtype=torch.bool,
+                                                           device=self.device).reshape(B)
 
     # -- chunks ---------------------------------------------------------------
 
@@ -145,26 +163,34 @@ class StreamEngine(TriggerLoops):
         return x[torch.arange(x.shape[0], device=x.device), idx]
 
     def append_ids(self, cache: KVCache, ids_list: list[list[int]]) -> torch.Tensor:
-        """Feed id chunks; returns f32 logits [B, V] at each row's last real
-        token."""
-        ids, lens = self.pad_ids(ids_list)
+        """Feed id chunks (an empty list: the row appends nothing); returns
+        f32 logits [B, V] at each row's last real token."""
+        return self._append_padded(cache, *self.pad_ids(ids_list))
+
+    def _append_padded(self, cache: KVCache, ids: torch.Tensor, lens: torch.Tensor):
         embeds = qwen2.embed_tokens(self.params["llm"], ids, self.dtype)
         hidden = self._decode(cache, embeds, lens)
         return self._logits(self._last_valid(hidden, lens))
 
-    def append_frames(self, cache: KVCache, frame_embeds: torch.Tensor) -> torch.Tensor:
-        """frame_embeds [B, F, H]; returns scores [B, 3] at the last token."""
+    def append_frames(self, cache: KVCache, frame_embeds: torch.Tensor,
+                      active=None) -> torch.Tensor:
+        """frame_embeds [B, F, H]; returns scores [B, 3] at the last token.
+        ``active`` [B] bool: the other rows append nothing (their scores are
+        garbage)."""
         B, F = frame_embeds.shape[:2]
         valid = torch.full((B,), F, dtype=torch.int32, device=self.device)
+        act = self._active(active, B)
+        if act is not None:
+            valid = torch.where(act, valid, 0)
         hidden = self._decode(cache, frame_embeds, valid)
         return aha.scores_from_hidden(self.params, hidden[:, -1])
 
     def append_text_frames(self, cache: KVCache, ids_list: list[list[int]],
-                           frame_embeds: torch.Tensor) -> torch.Tensor:
+                           frame_embeds: torch.Tensor, active=None) -> torch.Tensor:
         """One chunk per row: its text prefix immediately followed by one
         frame (the reference's forward boundary, semantic under the 'hf'
         mask once the window is full). Returns scores [B, 3] at the frame's
-        last token."""
+        last token. ``active`` [B] bool: the other rows append nothing."""
         ids, lens = self.pad_ids(ids_list)
         B, P = ids.shape
         F = frame_embeds.shape[1]
@@ -175,6 +201,9 @@ class StreamEngine(TriggerLoops):
         emb = torch.where((j < n)[..., None], text[bidx, j.clamp(max=P - 1)],
                           frame_embeds[bidx, (j - n).clamp(0, F - 1)])
         valid = lens + F
+        act = self._active(active, B)
+        if act is not None:
+            valid = torch.where(act, valid, 0)
         hidden = self._decode(cache, emb, valid)
         return aha.scores_from_hidden(self.params, self._last_valid(hidden, valid))
 
@@ -221,27 +250,33 @@ class StreamEngine(TriggerLoops):
         self.commit_frames(cache, pending, n_active)
         return scores
 
-    def score_stream(self, cache: KVCache, frames: torch.Tensor) -> torch.Tensor:
+    def score_stream(self, cache: KVCache, frames: torch.Tensor, active=None) -> torch.Tensor:
         """frames [B, T, F, H] -> scores [B, T, 3]: one frame chunk at a
         time, or, with ``fused_frames`` > 1, groups of that many frames per
-        weight stream (the tail padded with inactive frames). The fused form
-        reads one scalar per pass (the verify pass's gate); the per-frame
-        form has no host sync inside the loop."""
+        weight stream (the tail padded with inactive frames). ``active``
+        [B, T] bool, a per-row prefix: the frames of a ragged batch that are
+        real (the others are appended by nobody; their scores are garbage).
+        The fused form reads one scalar per pass (the verify pass's gate);
+        the per-frame form has no host sync inside the loop."""
         B, T = frames.shape[:2]
         if T == 0:
             return torch.zeros((B, 0, 3), device=self.device)
+        act = (torch.ones((B, T), dtype=torch.bool, device=self.device) if active is None
+               else torch.as_tensor(active, dtype=torch.bool, device=self.device))
         k = self.fused_frames
         if k == 1:
-            return torch.stack([self.append_frames(cache, frames[:, t]) for t in range(T)],
-                               dim=1)
+            return torch.stack([self.append_frames(cache, frames[:, t],
+                                                   None if active is None else act[:, t])
+                                for t in range(T)], dim=1)
+        n_act = act.to(torch.int32)
         scores = []
         for t in range(0, T, k):
             chunk = frames[:, t:t + k]
             n = chunk.shape[1]
             if n < k:
                 chunk = torch.cat([chunk, chunk.new_zeros((B, k - n, *chunk.shape[2:]))], dim=1)
-            active = torch.full((B,), n, dtype=torch.int32, device=self.device)
-            scores.append(self.append_frames_fused(cache, chunk, active)[:, :n])
+            scores.append(self.append_frames_fused(cache, chunk,
+                                                   n_act[:, t:t + k].sum(dim=1))[:, :n])
         return torch.cat(scores, dim=1)
 
     def encode_frames(self, frames) -> torch.Tensor:
@@ -257,30 +292,43 @@ class StreamEngine(TriggerLoops):
 
     # -- generation -----------------------------------------------------------
 
+    def _prompt(self, ids_list, active):
+        """The prompt chunk (ids [B, P], valid lengths [B]); an inactive row's
+        prompt is skipped (0 valid tokens)."""
+        ids, lens = self.pad_ids(ids_list)
+        act = self._active(active, ids.shape[0])
+        if act is not None:
+            lens = torch.where(act, lens, 0)
+        return ids, lens, act
+
     def generate(self, cache: KVCache, ids_list: list[list[int]], counts: torch.Tensor,
-                 ctx=None):
+                 active=None, ctx=None):
         """Greedy decode after the prompt chunk. Returns (out_ids [B, N],
         out_len [B], counts, last_tok [B]); ``counts`` and ``cache`` are
-        updated in place. With ``spec_tokens`` > 1 this is ``generate_spec``
-        (same tokens, fewer passes); ``ctx`` = (ctx_ids [B, C], ctx_len [B])
-        is its draft context and is ignored by the sequential loop.
+        updated in place. ``active`` [B] bool: the other rows are no-ops
+        (their prompt is skipped, they write and penalise nothing), which is
+        how multi-stream serving generates for the rows that fired. With
+        ``spec_tokens`` > 1 this is ``generate_spec`` (same tokens, fewer
+        passes); ``ctx`` = (ctx_ids [B, C], ctx_len [B]) is its draft
+        context and is ignored by the sequential loop.
 
         Every produced token is written, an eos included; eos is never
         penalised; the final written token is never fed back through the
         decoder (it leads the next chunk instead), and a pass in which no
         row has a token to feed is skipped."""
         if self.spec_tokens > 1:
-            return self.generate_spec(cache, ids_list, counts, ctx)
+            return self.generate_spec(cache, ids_list, counts, ctx, active=active)
         eos = self.cfg.eos_token_id
         N = self.max_new_tokens
         pen = self.repetition_penalty
-        logits = self.append_ids(cache, ids_list)
+        ids, lens, act = self._prompt(ids_list, active)
+        logits = self._append_padded(cache, ids, lens)
         B = logits.shape[0]
         rows = torch.arange(B, device=self.device)
         tok = torch.argmax(_apply_repetition_penalty(logits, counts, pen), dim=-1)
         out_ids = torch.zeros((B, N), dtype=torch.int32, device=self.device)
         out_len = torch.zeros((B,), dtype=torch.int32, device=self.device)
-        done = torch.zeros((B,), dtype=torch.bool, device=self.device)
+        done = torch.zeros((B,), dtype=torch.bool, device=self.device) if act is None else ~act
         for i in range(N):
             write = ~done
             out_ids[:, i] = torch.where(write, tok, torch.zeros_like(tok)).to(torch.int32)
@@ -299,12 +347,14 @@ class StreamEngine(TriggerLoops):
         return out_ids, out_len, counts, last_tok
 
     def generate_spec(self, cache: KVCache, ids_list: list[list[int]], counts: torch.Tensor,
-                      ctx=None):
+                      ctx=None, active=None):
         """Speculative greedy decode: the tokens of ``generate`` (the strictly
         sequential loop), but each weight stream verifies S candidates: the
         carried token plus S-1 n-gram-lookup drafts
         (``spec_decode.ngram_draft``) through the read-only verify pass,
         committing only the prefix that matches sequential greedy argmax.
+        Rows accept drafts and finish at their own pace; an inactive row
+        (``active`` [B] bool) is done from the start.
 
         Position p's hidden state equals the p-th sequential 1-token pass
         for every cache policy and fill state; acceptance replays the
@@ -313,40 +363,42 @@ class StreamEngine(TriggerLoops):
         draft costs nothing but the pass and a perfect drafter changes no
         output.
 
-        ``ctx`` = (ctx_ids [B, C] int, ctx_len [B]): recent conversation text
-        prepended to the lookup history; a draft source only, never fed to
-        the model. The width is ``spec_tokens``, or ``spec_max`` while the
-        acceptance EMA (kept across calls) is above ``SPEC_EMA_HI``. One host
-        read per pass (rows still decoding, tokens committed), plus the
-        verify pass's gate. MUTATES ``cache`` and ``counts``. Returns what
-        ``generate`` returns; ``self.last_spec_info`` = (passes, committed
-        tokens, EMA) of this call."""
+        ``ctx`` = (ctx_ids [B, C] int, ctx_len [B]): each row's recent
+        conversation text prepended to its lookup history; a draft source
+        only, never fed to the model. The width is ``spec_tokens``, or
+        ``spec_max`` while the acceptance EMA (kept across calls, one for
+        the whole batch) is above ``SPEC_EMA_HI``. One host read per pass
+        (rows still decoding, tokens committed), plus the verify pass's gate.
+        MUTATES ``cache`` and ``counts``. Returns what ``generate`` returns;
+        ``self.last_spec_info`` = (passes, committed tokens, EMA) of this
+        call."""
         eos = self.cfg.eos_token_id
         N = self.max_new_tokens
         pen = self.repetition_penalty
         dev = self.device
-        ids, lens = self.pad_ids(ids_list)
+        ids, lens, act = self._prompt(ids_list, active)
         B, P = ids.shape
         ctx_ids, ctx_len = ctx if ctx is not None else (None, None)
         if ctx_ids is not None:
             ctx_ids = torch.as_tensor(ctx_ids, device=dev)
             ctx_len = torch.as_tensor(ctx_len, device=dev)
         M = (0 if ctx_ids is None else ctx_ids.shape[1]) + P + N + 1
-        logits = self.append_ids(cache, ids_list)
+        logits = self._append_padded(cache, ids, lens)
         tok = torch.argmax(_apply_repetition_penalty(logits, counts, pen), dim=-1).to(torch.int32)
 
         bidx = torch.arange(B, device=dev)
         # one spare column each takes the writes of rows that do not write
         out_buf = torch.zeros((B, N + 1), dtype=torch.int32, device=dev)
         out_len = torch.zeros((B,), dtype=torch.int32, device=dev)
-        done = torch.zeros((B,), dtype=torch.bool, device=dev)
+        done = torch.zeros((B,), dtype=torch.bool, device=dev) if act is None else ~act
         hist, hist_len = spec_decode.build_draft_hist(ctx_ids, ctx_len, ids, lens, N + 1)
         hist = torch.cat([hist, hist.new_full((B, 1), -1)], dim=1)
         # the EMA in f32, as the JAX engine carries it
         ema, passes, committed_total = np.float32(self._spec_ema), 0, 0
 
         rows = ~done & (out_len < N)
-        more = N > 0                          # no row is done before the first pass
+        # no row is done before the first pass unless it is inactive
+        more = N > 0 and (act is None or bool(act.any()))
         while more:
             S = self.spec_max if ema > SPEC_EMA_HI else self.spec_tokens
             out_len0 = out_len

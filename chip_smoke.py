@@ -4,6 +4,7 @@
     python3 chip_smoke.py                # all phases, one card
     python3 chip_smoke.py --phases 1,2   # device + kernel checks only
     python3 chip_smoke.py --phases 1,2,6 # + JAX's weights and the 7B fixture
+    python3 chip_smoke.py --phases 1,2,7 # + multi-stream serving at B 8
 
 Phases, one or more lines each:
   1. device: nvidia-smi name and power limit, torch / CUDA / nvcc versions,
@@ -59,6 +60,11 @@ Phases, one or more lines each:
      too, whose quantiser is bit-equal to the plain one and whose group sums
      are exact; int8_matmul with int8 activations and int4's mma.sync path for
      them 2e-2) and
+     at the B = 8 shapes of phase 7 (int8_matmul and int4_matmul at the layer's
+     products at 32, 64, 392 and 1568 rows, int8's lm_head at 32 and 64, the
+     cached attention at B 8, S 1 and 49: timed; every other width phase 7's
+     passes give int8_matmul and the cached attention at B 8, and its projector
+     rows: held against the plain version without timing),
      at small ragged shapes and at phase 6's f32 shapes (int8_matmul at the
      layer's products at 49, 171 and 196 rows, the lm_head's row, the
      projector's 392; the cached attention at S = 49 and 171) (f32: 1e-4 *
@@ -122,8 +128,8 @@ Phases, one or more lines each:
           --int4, product defaults: JAX's synthetic weights, the prob threshold
           from their own scores), its driver's _full_pass over 32 frames,
           and cmd_infer end to end on a 4 s clip written with cv2.
-     Last, every shape that a path handed a kernel's wrapper must be one that
-     phase 2 held against the plain version;
+     Last (after phases 5-7 too), every shape that a path handed a kernel's
+     wrapper must be one that phase 2 held against the plain version;
   5. 7B int4 QLoRA training at full width and depth: int4 trunk, int8
      embedding table, dense bf16 projector and lm_head, LoRA r 16 on the seven
      decoder projections, B 1, 16 synthetic 384 x 384 frames in a conversation
@@ -153,6 +159,29 @@ Phases, one or more lines each:
           session of `infer --llm_pretrained DIR --int8 --model_preset 7b`: its
           scores at fused 1 and 4 equal bit for bit to the same tree quantised
           in memory.
+  7. multi-stream serving at 7B-int8, B 8, at the product widths (fused 4,
+     generation 4 -> 8), phase 4b's weights and stream, bf16 sink cache 2048 +
+     32, max_new_tokens 16, launch counters zeroed just before each main path:
+       b. MultiStreamScorer over 8 streams of 32 frames: each within the 7B
+          fixture's tolerance (atol 2e-2 + rtol 5e-2) of its solo score_video
+          (largest gap per column printed), stream 0 alone in slot 0 of an
+          otherwise empty batch equal bit for bit; the tolerance's place
+          measured in the same run: solo fused 1 against fused 4 (the noise of
+          another product plan) must fit in it, a frame off by one and two
+          rows swapped (faults) must not;
+       a. MultiStreamServer(batch=8) over 12 requests of 24-64 frames sliced
+          from the stream at different offsets, queries at t = 0 and on some
+          mid-stream, the prob rule on some and the sum rule on others through
+          per-request overrides (thresholds from b's scores), so slots are
+          refilled: each stream's responses where the host rule on its own
+          batched scores fires, its scores within atol 2e-2 + rtol 5e-2 of a
+          solo inference() on the same request up to their first differing
+          decision, its texts equal to the solo texts while the responses follow
+          the same frames, or parting at a tie (the batched token within 2 bf16
+          steps of the top logit of the solo run at width 1); aggregate frames/s
+          and decode tokens/s beside the solo runs', latency_stats(), launches;
+       c. `serve --synthetic_weights --int8 --batch 8` on 4 requests whose clips
+          are written with cv2: one result line each, keys complete.
 
 Prints the kernels' JSON line and, last, {"ok": true, "device": ...}.
 Exits nonzero, with no result line, when there is no CUDA device, when the
@@ -363,6 +392,32 @@ LAYER = [("qkv", 3584, 4608), ("o_proj", 3584, 3584), ("gate_up", 3584, 37888),
 PATH_M = (1, 4, 8, 13, 49, 59, 171, 196, 220)
 # rows of the training sequence of phase 5 (16 frames in one conversation)
 TRAIN_T = 926
+# multi-stream serving (phase 7): slots, and the lengths of its requests (the vision
+# tower's last batch of 32 frames leaves 24, 0, 8 or 16 frames: projector rows)
+SERVE_B = 8
+SERVE_LENGTHS = (24, 32, 40, 48, 56, 64, 24, 32, 40, 48, 56, 64)
+
+
+def serve8_widths() -> dict:
+    """The chunk widths (tokens a row) of phase 7's passes at B = 8, from the
+    7B's templates: a frame step behind the system prompt, behind a response's
+    last token + the stream prompt, or alone (padded to one id); a query at
+    t = 0 and mid-stream; the mixed loop's frame, generation prompt and token;
+    the speculative tail at 4 and 8; a fused pass of 4 frames. ``b1``: the
+    widths phase 7's solo runs add to PATH_M (the mid-stream query)."""
+    from aha_tpu_torch.config import InferConfig
+
+    cfg, tok = _model("7b")
+    F = cfg.frame_num_tokens
+    t = tok.apply_chat_template
+    start = len(t([{"role": "system", "content": InferConfig().system_prompt}]))
+    stream = len(t([{}], add_stream_prompt=True))
+    gen = len(t([{}], add_stream_generation_prompt=True))
+    q0, q1 = (len(t([{"role": "user", "content": QUERY}], add_stream_query_prompt=mid,
+                    add_stream_prompt=True)) for mid in (False, True))
+    return {"frame_steps": (start + F, 1 + stream + F, 1 + F), "queries": (q0, q1),
+            "mixed": (F, gen, 1), "spec": (4, 8), "fused": (4 * F,), "start": (start,),
+            "b1": (q1,)}
 
 
 def _dt(dt) -> str:
@@ -402,8 +457,10 @@ def product_only_ms(a, w, short: bool, transposed: bool = False) -> float:
     return timer(lambda i: torch.matmul(a, wt))
 
 
-# rows at which phase 2 also times the library's product on the decode paths
+# rows at which phase 2 also times the library's product on the decode paths, and on
+# phase 7's B = 8 passes (a verify pass of 4 and of 8 rows x 8, a frame step, a fused pass)
 DECODE_LIB_M = (1, 4, 8, 13)
+SERVE_LIB_M = (32, 64, 392, 1568)
 
 
 def replaced_plan(M: int, K: int, N: int, G: int, sms: int):
@@ -531,6 +588,24 @@ def check_matmuls(gen, stats: Stats):
                 for M in (k4.WGMMA_MIN_M, 23, 24, 25, 79, 80, 81, 231, 232, 233, 1568)]
     wgmma4a8 += [("long-k", M, 18944, 3584, 128) for M in (k4.WGMMA_MIN_M, 1568)]
 
+    # multi-stream serving at B = 8 (phase 7): the layer at the token rows of a verify
+    # pass of 8 rows (32, 64), the mixed loop's frame rows (392) and a fused pass of 8
+    # rows x 4 frames (1568), timed for int8 and int4; the lm_head of the speculative
+    # tail (32, 64), timed; every other width phase 7 gives int8 weights, and the
+    # projector rows of its requests' last vision batches, held against the plain
+    # version without timing ("held")
+    sw = serve8_widths()
+    serve_t = [(n, M, *layer[n]) for n in layer for M in (32, 64, 392, 1568)]
+    serve_t8 = [c for c in serve_t if c not in wgmma8] + [
+        ("lm_head", M, 3584, 152064) for M in (32, 64)]
+    timed8 = {M for _, M, _, _ in cards + serve_t8 + wgmma8}
+    held8 = sorted({SERVE_B * w for k in ("frame_steps", "queries", "mixed", "spec", "fused",
+                                          "start") for w in sw[k]} | set(sw["b1"]))
+    serve_h8 = [("held-" + n, M, *layer[n]) for n in layer for M in held8 if M not in timed8]
+    serve_h8 += [("held-" + n, M, K, N) for M in sorted({49 * (n % 32) for n in SERVE_LENGTHS}
+                                                        - {0, 392, 1568})
+                 for n, K, N in (("projector_fc1", 1024, 3584), ("projector_fc2", 3584, 3584))]
+
     # int8, f32 activations (phase 6's f32 score traces: a frame, the system prompt and
     # query, a fused pass of 4 frames; the lm_head's row; the projector's 8 frames)
     f32_8 = [(n, M, *layer[n]) for n in layer for M in (49, 171, 196)]
@@ -542,7 +617,8 @@ def check_matmuls(gen, stats: Stats):
         ("int8_matmul", 8, False,
          [(*c, None, bf, 1e-2) for c in cards]
          + [(*r, None, f32, 1e-4) for r in ragged8 + f32_8] + [(*edge, None, bf, 1e-2)]
-         + [(*c, None, bf, 1e-2) for c in wgmma8 + old8 + decode_rows], 49),
+         + [(*c, None, bf, 1e-2) for c in wgmma8 + old8 + decode_rows + serve_t8 + serve_h8],
+         49),
         ("int8_matmul_a8", 8, True,
          [(*c, None, bf, 2e-2) for c in cards]
          + [(*r, None, f32, 1e-4) for r in ragged8] + [(*edge, None, bf, 2e-2)]
@@ -552,6 +628,7 @@ def check_matmuls(gen, stats: Stats):
         ("int4_matmul", 4, False,
          [(*c, 128, bf, 1e-2) for c in cards]
          + [(n, TRAIN_T, *layer[n], 128, bf, 1e-2) for n in layer]   # the training sequence
+         + [(*c, 128, bf, 1e-2) for c in serve_t]                    # B = 8 serving rows
          + [(*r, f32, 1e-4) for r in ragged4] + [(*edge, 64, bf, 1e-2)]
          + [(*c, bf, 1e-2) for c in wgmma4 + old4 + decode4], 196),
         ("int4_matmul_a8", 4, True,
@@ -640,6 +717,11 @@ def check_matmuls(gen, stats: Stats):
                 if not torch.equal(y, rows):
                     raise AssertionError(f"{what}: a row differs from its one-row product")
                 note += " rows_equal_one_row"
+            if label.startswith("held-"):
+                print(f"phase2 {what} {_dt(dt)} max_abs_err={err:.3e}{note} (held, not timed)",
+                      flush=True)
+                del ws
+                continue
             # device time from a replayed graph (a launch under 100 us is shorter than
             # the host's work to launch it, and a loop of plain calls times the host)
             loop = cuda_ms(lambda i: run(x, ws[i % copies]))
@@ -712,7 +794,8 @@ def check_matmuls(gen, stats: Stats):
                 lib = timer(lambda i: torch._int_mm(xq, w8[i % len(w8)]))
                 del w8
             if not a8 and dt == bf and (label in layer or label == "lm_head") and (
-                    M in (rep_m, TRAIN_T) + DECODE_LIB_M or (bits == 8 and M == 196)):
+                    M in (rep_m, TRAIN_T) + DECODE_LIB_M + SERVE_LIB_M
+                    or (bits == 8 and M == 196)):
                 # the bf16 product alone, on a weight dequantised beforehand
                 wd = dequantized(ws[0], sc) if bits == 4 else dequantized8(ws[0], sc)
                 lib = product_only_ms(x, wd, short)
@@ -840,6 +923,14 @@ def check_attention(gen, stats: Stats):
     cases += [dict(seven, label="7b-one-split", B=1, S=S, Wp=2049, occupied=(640, 670))
               for S in (1, 3)]
     cases += [dict(seven, label="7b-blind-row", B=1, S=S, Wp=2049, blind=True) for S in (2, 49)]
+    # multi-stream serving at B = 8 (phase 7): a token and a frame, timed; the other
+    # widths of its passes held; the mid-stream query of its solo runs at B = 1
+    sw = serve8_widths()
+    cases += [dict(seven, label="7b-b8", B=SERVE_B, S=S, Wp=2049) for S in (1, 49)]
+    cases += [dict(seven, label="7b-b8-held", B=SERVE_B, S=S, Wp=2049)
+              for S in sorted(set(sw["frame_steps"] + sw["queries"] + sw["mixed"] + sw["start"])
+                              - {1, 49})]
+    cases += [dict(seven, label="7b-held", B=1, S=S, Wp=2049) for S in sw["b1"]]
     # f32 queries and cache: phase 6's f32 score traces (a frame, the prompt and query)
     cases += [dict(seven, label="7b-f32", B=1, S=S, Wp=2049, q=f32, kv=f32, tol=1e-4)
               for S in (49, 171)]
@@ -872,6 +963,14 @@ def check_attention(gen, stats: Stats):
         stats.err("decode_attention", err)
         stats.checked.add(("decode_attention", S, Wp) if qdt == bf else
                           ("decode_attention", S, Wp, "f32"))
+        if B > 1 and qdt == bf:
+            stats.checked.add(("decode_attention", S, Wp, f"B{B}"))
+        if label.endswith("-held"):
+            print(f"phase2 {what} NH={NH} KVH={KVH} q={_dt(qdt)} kv={_dt(kvdt)} "
+                  f"max_abs_err={err:.3e} path={'wgmma' if pl.path == da.WGMMA else 'cuda-cores'} "
+                  f"splits={pl.splits}x{pl.span} blocks={pl.blocks} equal_twice (held, not "
+                  f"timed)", flush=True)
+            continue
         # the cache (and its scales) cycled through more copies than L2 holds: a pass
         # of 28 layers reads 28 of them; the rotation tables are the same in every
         # layer of a pass and stay as they are
@@ -1383,8 +1482,8 @@ class PassCounter:
 class ShapeRecorder:
     """Records the shapes the model hands each kernel's wrapper (matmuls and
     the activation quantiser behind them: rows, K, N; attention: query rows,
-    slots; "f32" after them for f32 activations) by wrapping the names the
-    model calls them by."""
+    slots, then "f32" for f32 activations and the batch where it is over 1)
+    by wrapping the names the model calls them by."""
 
     def __init__(self):
         import torch
@@ -1430,7 +1529,8 @@ class ShapeRecorder:
 
         def recorded_attention(q, k, *a, **kw):
             f32 = ("f32",) if q.dtype == self.f32 else ()
-            self.seen.add((name, q.shape[1], k.shape[1]) + f32)
+            rows = (f"B{q.shape[0]}",) if q.shape[0] > 1 else ()
+            self.seen.add((name, q.shape[1], k.shape[1]) + f32 + rows)
             return attend(q, k, *a, **kw)
 
         setattr(mod, name, recorded_attention)
@@ -1562,7 +1662,7 @@ def verify_vs_sequential(sess, cfg, S: int = 8):
     return err, same
 
 
-def phases_4_to_6(gpu: str, seed: int, stats: Stats, phases: set):
+def phases_4_to_7(gpu: str, seed: int, stats: Stats, phases: set):
     """The 7B paths, then: every shape they gave a kernel was held against the
     plain version in phase 2."""
     phase2_ran = 2 in phases
@@ -1573,8 +1673,10 @@ def phases_4_to_6(gpu: str, seed: int, stats: Stats, phases: set):
             phase5(gpu, seed, stats)
         if 6 in phases:
             phase6(gpu, stats)
-    missing = sorted(rec.seen - stats.checked)
-    print(f"phases 4-6 shapes handed to the kernels: {len(rec.seen)} distinct, "
+        if 7 in phases:
+            phase7(gpu, seed, stats)
+    missing = sorted(rec.seen - stats.checked, key=str)
+    print(f"phases 4-7 shapes handed to the kernels: {len(rec.seen)} distinct, "
           f"{len(missing)} not checked in phase 2"
           + ("" if phase2_ran else " (phase 2 did not run)"), flush=True)
     if phase2_ran and missing:
@@ -2342,9 +2444,295 @@ def phase6b(gpu: str, stats: Stats, cfg, tok, frames):
                              f"tree's, or launches {counts}")
 
 
+# -- phase 7: multi-stream serving, 7B-int8 at B 8 ------------------------------------
+
+
+def solo_run(params, cfg, tok, video, conv, rule: dict, widths: dict):
+    """A solo ``StreamSession.inference()`` over one request at the serving
+    settings of phase 7. Returns (session, turns, seconds in all, seconds
+    inside generate(), tokens written)."""
+    import torch
+
+    from aha_tpu_torch.config import InferConfig
+    from aha_tpu_torch.streaming.session import build_session
+
+    sess = build_session(params, cfg, tok, InferConfig(
+        frame_fps=2.0, kv_cache_policy="sink", kv_window=2048, num_sink_tokens=32,
+        max_new_tokens=16, **rule, **widths))
+    generate = sess.engine.generate
+    gen_s, tokens = [0.0], [0]
+
+    def timed_generate(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = generate(*a, **k)
+        tokens[0] += int(out[1].sum())
+        torch.cuda.synchronize()
+        gen_s[0] += time.perf_counter() - t
+        return out
+
+    sess.engine.generate = timed_generate
+    t0 = time.perf_counter()
+    sess.input_video_stream(video)
+    sess.input_query_stream(conv)
+    turns = sess.inference()
+    torch.cuda.synchronize()
+    return sess, turns, time.perf_counter() - t0, gen_s[0], tokens[0]
+
+
+def phase7(gpu: str, seed: int, stats: Stats):
+    """Multi-stream serving at 7B-int8, B 8, at the product widths: (b) the
+    lockstep scorer against solo ``score_video`` and a stream alone in an
+    otherwise empty batch (equal bits); (a) the continuous-batching server
+    over 12 requests against solo ``inference()`` runs; (c) the ``serve``
+    command on clips written with cv2."""
+    import numpy as np
+    import torch
+
+    from aha_tpu_torch import golden
+    from aha_tpu_torch.config import InferConfig
+    from aha_tpu_torch.models.aha import random_params
+    from aha_tpu_torch.ops import kernels
+    from aha_tpu_torch.streaming.multi import MultiStreamScorer, MultiStreamServer
+    from aha_tpu_torch.streaming.session import build_session
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg, tok = _model("7b")
+    L = cfg.llm.num_layers
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    frames = torch.randint(0, 256, (96, 384, 384, 3), generator=gen, device="cuda",
+                           dtype=torch.uint8)                     # phase 4's stream
+    t0 = time.perf_counter()
+    params = random_params(cfg, mode="int8", seed=seed)          # phase 4b's weights
+    torch.cuda.synchronize()
+    t_params = time.perf_counter() - t0
+    cache = dict(frame_fps=2.0, kv_cache_policy="sink", kv_window=2048, num_sink_tokens=32)
+    product = dict(fused_score_frames=4, spec_decode_tokens=4, spec_decode_tokens_max=8)
+    B = SERVE_B
+
+    def launched(counts, chunks, verifies, what):
+        n8, na = counts.get("int8_matmul", 0), counts.get("decode_attention", 0)
+        if n8 < L * 4 * (chunks + verifies) or na < L * chunks or counts.get("int4_matmul", 0):
+            raise AssertionError(f"phase7 {what}: launches {counts} over {chunks} chunks + "
+                                 f"{verifies} verify passes")
+        stats.launches(counts)
+
+    atol, rtol = golden.ATOL["chip7b"], golden.RTOL
+
+    def gap(a, b):
+        """The largest |a - b| per score column over two lists of score rows, and
+        whether every value of ``a`` is within the 7B fixture's tolerance of
+        ``b`` (atol 2e-2 + rtol 5e-2 x |b|). 7b measures below which gaps
+        another product plan gives (noise) and which a fault gives."""
+        got, ref = (np.asarray([[r[k] for k in SCORE_KEYS] for r in x], np.float64).reshape(-1, 3)
+                    for x in (a, b))
+        g, ok = golden.score_gaps(got, ref, atol, rtol)
+        return g.tolist(), ok
+
+    def use(a, b):
+        """The largest share of the tolerance that a gap takes, |a - b| / (atol +
+        rtol |b|), over two lists of score rows (within the tolerance: <= 1)."""
+        got, ref = (np.asarray([[r[k] for k in SCORE_KEYS] for r in x], np.float64).reshape(-1, 3)
+                    for x in (a, b))
+        return round(float((np.abs(got - ref) / (atol + rtol * np.abs(ref))).max()), 4)
+
+    # -- b. the lockstep scorer: 8 streams of 32 frames at fused 4 --------------------------
+    videos = [frames[8 * b:8 * b + 32] for b in range(B)]
+    gcfg = InferConfig(grounding_mode=True, **cache, **product)
+    scorer = MultiStreamScorer(params, cfg, tok, gcfg, batch=B)
+    with PassCounter() as pc:
+        kernels.reset_launches()                        # the main path starts here
+        t0 = time.perf_counter()
+        full = scorer.score_videos(videos, [QUERY] * B, fps=2.0)
+        torch.cuda.synchronize()
+        t_full = time.perf_counter() - t0
+        counts = dict(kernels.LAUNCHES)                 # ... and ends here
+    launched(counts, pc.chunks, pc.verifies, "lockstep scorer")
+    alone = scorer.score_videos([videos[0]] + [frames[:0]] * (B - 1), [QUERY] + [None] * (B - 1),
+                                fps=2.0)
+    t0 = time.perf_counter()
+    solo = [build_session(params, cfg, tok, gcfg).score_video(v, query=QUERY) for v in videos]
+    torch.cuda.synchronize()
+    t_solo = time.perf_counter() - t0
+    flat = lambda runs: [r for rows in runs for r in rows]
+    gaps, within = gap(flat(full), flat(solo))
+    finite = all(math.isfinite(r[k]) for rows in full for r in rows for k in SCORE_KEYS)
+    # the tolerance's place: the noise of another product plan (solo at fused 1
+    # against fused 4: 49 + prefix rows a frame step against 196 a fused pass) must
+    # fit in it, and the gaps of two faults must not: a frame off by one, and a
+    # row swapped with its neighbour (stream b + 1 starts 8 frames later)
+    g1cfg = InferConfig(grounding_mode=True, **cache, **dict(product, fused_score_frames=1))
+    solo1 = [build_session(params, cfg, tok, g1cfg).score_video(v, query=QUERY) for v in videos]
+    noise_gaps, _ = gap(flat(solo1), flat(solo))
+    readings = {"batched": use(flat(full), flat(solo)), "noise": use(flat(solo1), flat(solo)),
+                "frame_off_by_one": use(flat(r[1:] for r in full), flat(r[:-1] for r in solo)),
+                "rows_swapped": use(flat(full), flat(solo[1:] + solo[:1]))}
+    print(f"phase7b MultiStreamScorer B {B} x 32 frames at fused 4 [{gpu}]: params "
+          f"{t_params:.2f}s; {t_full:.3f}s = {B * 32 / t_full:.2f} frames/s (vision included), "
+          f"solo score_video x {B} {t_solo:.3f}s = {B * 32 / t_solo:.2f} frames/s; largest gap "
+          f"to solo per column {gaps}, within atol 2e-2 + rtol 5e-2: {within}; noise (solo "
+          f"fused 1 against fused 4) per column {noise_gaps}; share of the tolerance taken "
+          f"{readings}; stream 0 alone in slot 0 of an otherwise empty batch equal bit for bit "
+          f"to the full batch: {alone[0] == full[0]}; {pc.chunks} chunks + "
+          f"{pc.verifies} verify passes; launches {counts}", flush=True)
+    if (alone[0] != full[0] or not within or not finite or [len(r) for r in full] != [32] * B
+            or readings["noise"] > 1.0 or readings["frame_off_by_one"] <= 1.0
+            or readings["rows_swapped"] <= 1.0):
+        raise AssertionError(f"phase7b: alone equal {alone[0] == full[0]}, gaps {gaps}, "
+                             f"finite {finite}, tolerance taken {readings}")
+    del scorer, solo, solo1, alone
+
+    # -- a. the server: 12 requests of 24-64 frames over 8 slots ---------------------------
+    se = sorted(r["informative_score"] + r["relevance_score"] for rows in full for r in rows)
+    prob_thr, sum_thr = se[int(0.97 * len(se))], 20 * statistics.median(se)
+    items = []
+    for j, n in enumerate(SERVE_LENGTHS):
+        o = (11 * j) % (96 - n + 1)
+        conv = [{"role": "user", "content": QUERY, "time": 0}]
+        if j % 3 == 1:                                  # and a query mid-stream
+            conv.append({"role": "user", "content": QUERY, "time": (n // 2) / 2.0})
+        rule = ({"stream_end_prob_threshold": prob_thr} if j % 2 == 0
+                else {"stream_end_score_sum_threshold": sum_thr})
+        items.append((f"r{j}", frames[o:o + n], conv, rule))
+    server = MultiStreamServer(params, cfg, tok, InferConfig(
+        **cache, **product, max_new_tokens=16, stream_end_prob_threshold=prob_thr),
+        batch=B, max_frames=max(SERVE_LENGTHS))
+    with PassCounter() as pc:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = server.run_items(items, fps=2.0)
+        torch.cuda.synchronize()
+        t_serve = time.perf_counter() - t0
+        counts = dict(kernels.LAUNCHES)
+    launched(counts, pc.chunks, pc.verifies, "server")
+    lat = server.latency_stats()
+    n_frames = sum(SERVE_LENGTHS)
+    solo_s = solo_gen_s = 0.0
+    solo_tokens = n_resp = 0
+    failed = []
+    for key, video, conv, rule in items:
+        got = res[key]
+        rows = got["debug_data"]
+        b_turns = [t for t in got["responses"] if t["role"] == "assistant"]
+        fired = [round(t["time"] * 2.0) for t in b_turns]
+        host = host_rule_frames(rows, InferConfig(**rule))
+        sess, turns, t_s, g_s, n_tok = solo_run(params, cfg, tok, video, conv, rule, product)
+        solo_s, solo_gen_s, solo_tokens = solo_s + t_s, solo_gen_s + g_s, solo_tokens + n_tok
+        n_resp += len(b_turns)
+        s_fired = fired_frames(sess, turns)
+        first = min(sorted(set(fired) ^ set(s_fired)) or [len(video)])
+        g, within = gap(rows[:first + 1], sess.debug_data_list[:first + 1])
+        taken = use(rows[:first + 1], sess.debug_data_list[:first + 1])
+        # texts: pairwise while the responses follow the same frames; at the first text
+        # that parts, the tokens must tie in the solo run's logits (width 1: its texts)
+        b_texts, s_texts = texts(got["responses"]), texts(turns)
+        same = 0
+        while (same < min(len(b_texts), len(s_texts)) and fired[same] == s_fired[same]
+               and b_texts[same] == s_texts[same]):
+            same += 1
+        tie = ""
+        if same < min(len(b_texts), len(s_texts)) and fired[same] == s_fired[same]:
+            with golden.recorded_logits() as logits:
+                _, turns1, *_ = solo_run(params, cfg, tok, video, conv, rule,
+                                         dict(product, spec_decode_tokens=1))
+            div = golden.first_divergences(texts(turns1)[:same + 1], b_texts[:same + 1], tok,
+                                           logits)
+            d = next((x for x in div if x is not None), None)
+            steps = float("inf") if d is None else d.get("gap_bf16_steps", float("inf"))
+            tie = f"; response {same} parts at a tie: {json.dumps(d)}"
+            if not steps <= 2.0:
+                failed.append(f"{key}: response {same} parts {steps} bf16 steps from the top")
+        ok = (len(rows) == len(video) and fired == host and within
+              and all(math.isfinite(r[k]) for r in rows for k in SCORE_KEYS))
+        if not ok:
+            failed.append(f"{key}: {len(rows)} frames, responses at {fired}, host rule {host}, "
+                          f"gap {g}")
+        print(f"phase7a {key} {len(video)} frames, {len(conv)} queries, {rule} [{gpu}]: "
+              f"responses at frames {fired} (host rule on the batched scores: {host}); solo at "
+              f"{s_fired}; largest score gap per column up to the first differing decision "
+              f"{g} (within atol 2e-2 + rtol 5e-2: {within}, share of it taken {taken}); texts "
+              f"equal to solo for {same} "
+              f"of {len(b_texts)} responses{tie}",
+              flush=True)
+        del sess
+    print(f"phase7a MultiStreamServer batch {B}, 12 requests, {n_frames} frames, fused 4, "
+          f"generation 4->8, max_new_tokens 16 [{gpu}]: {t_serve:.3f}s = "
+          f"{n_frames / t_serve:.2f} frames/s and {lat.get('tokens', 0) / t_serve:.2f} decode "
+          f"tokens/s aggregate ({n_resp} responses, {lat.get('tokens', 0)} tokens); solo runs "
+          f"summed {solo_s:.3f}s: {n_frames / (solo_s - solo_gen_s):.2f} frames/s outside "
+          f"generate(), {solo_tokens / max(solo_gen_s, 1e-9):.2f} tokens/s inside it, "
+          f"{n_frames / solo_s:.2f} frames/s in all; latency_stats {lat}; {pc.chunks} chunks "
+          f"+ {pc.verifies} verify passes; launches {counts}", flush=True)
+    if failed or n_resp < 6:
+        raise AssertionError(f"phase7a: {n_resp} responses; {failed}")
+    del server, res, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase7c(gpu, stats, L)
+    print(f"phase7 took {time.perf_counter() - t_phase:.1f}s", flush=True)
+
+
+def phase7c(gpu: str, stats: Stats, L: int):
+    """``python -m aha_tpu_torch.cli serve --synthetic_weights --int8 --batch 8`` on
+    four requests whose clips are written with cv2: one result line each."""
+    import tempfile
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from aha_tpu_torch.cli import cmd_serve
+    from aha_tpu_torch.ops import kernels
+
+    with tempfile.TemporaryDirectory() as d:
+        reqs = []
+        for j in range(4):
+            writer = cv2.VideoWriter(f"{d}/c{j}.mp4", cv2.VideoWriter_fourcc(*"mp4v"), 8.0,
+                                     (64, 48))
+            for i in range(32):                          # 4 s: 8 frames at 2 fps
+                writer.write(np.full((48, 64, 3), (i * 10 + 40 * j) % 255, np.uint8))
+            writer.release()
+            conv = [{"role": "user", "content": QUERY, "time": 0}]
+            if j == 1:
+                conv.append({"role": "user", "content": QUERY, "time": 2.0})
+            reqs.append({"key": f"c{j}", "video": f"{d}/c{j}.mp4", "conversation": conv})
+        reqs[3]["stream_end_prob_threshold"] = 0.5       # a rule of its own
+        with open(f"{d}/requests.jsonl", "w") as f:
+            f.writelines(json.dumps(r) + "\n" for r in reqs)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        cmd_serve(["--synthetic_weights", "--int8", "--batch", str(SERVE_B), "--input",
+                   f"{d}/requests.jsonl", "--output", f"{d}/out.jsonl", "--emit_scores",
+                   "--max_new_tokens", "16", "--stream_end_score_sum_threshold", "3.0"])
+        torch.cuda.synchronize()
+        t_cmd = time.perf_counter() - t0
+        counts = dict(kernels.LAUNCHES)
+        with open(f"{d}/out.jsonl") as f:
+            lines = [json.loads(x) for x in f]
+    keys = sorted(x.get("key") for x in lines)
+    good = (keys == [f"c{j}" for j in range(4)]
+            and all(set(x) == {"key", "responses", "debug_data"} and len(x["debug_data"]) == 8
+                    and all(math.isfinite(r[k]) for r in x["debug_data"] for k in SCORE_KEYS)
+                    for x in lines))
+    if not good or counts.get("int8_matmul", 0) < L * 4 or not counts.get("decode_attention"):
+        raise AssertionError(f"phase7c serve: {lines!r:.600}, launches {counts}")
+    stats.launches(counts)
+    for x in lines:
+        short = {**x, "debug_data": f"{len(x['debug_data'])} frames"}
+        print(f"phase7c {json.dumps(short)}", flush=True)
+    print(f"phase7c serve --synthetic_weights --int8 --batch {SERVE_B}, 4 requests on cv2 clips "
+          f"[{gpu}]: {t_cmd:.2f}s with the weights; {len(lines)} result lines, keys "
+          f"{sorted(lines[0])}; launches {counts}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
+                    help="comma-separated phases (1 device, 2 kernels, 3 tiny slices, 4 7B "
+                         "serving, 5 7B training, 6 JAX's weights, 7 multi-stream serving); "
+                         "anything short of all of them exits 1 with no result line")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -2400,8 +2788,8 @@ def main() -> int:
     if 3 in phases:
         phase3(args.seed)
         phase3_train(args.seed)
-    if phases & {4, 5, 6}:
-        phases_4_to_6(gpu, args.seed, stats, phases)
+    if phases & {4, 5, 6, 7}:
+        phases_4_to_7(gpu, args.seed, stats, phases)
 
     print(f"{gpu}; chip_smoke took {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": [
@@ -2411,7 +2799,7 @@ def main() -> int:
          "bound_ms": stats.k[n]["bound_ms"], "bound_by": stats.k[n]["bound_by"],
          "library_ms": stats.k[n]["library_ms"], "shape": stats.k[n]["shape"]}
         for n, (src, tpu) in KERNELS.items()]}), flush=True)
-    if phases != {1, 2, 3, 4, 5, 6}:
+    if phases != {1, 2, 3, 4, 5, 6, 7}:
         print(f"chip_smoke: ran phases {sorted(phases)} only", file=sys.stderr)
         return 1
     missing = [n for n in KERNELS if stats.k[n]["launches"] <= 0]

@@ -267,7 +267,9 @@ REFUSED_FLAGS = {
     "lora_pretrained": (["--int8", "--lora_pretrained", "lora"], "item 5"),
     # dense synthetic weights run now; a quantised tower over them is still refused
     "dense_synthetic": (["--vision_int8"], "item 8"),
-    "concurrent_streams": (["--int8", "--concurrent_streams", "2"], "item 10"),
+    # concurrent streams run now; their adapters are still refused
+    "concurrent_streams": (["--int8", "--concurrent_streams", "2", "--lora_pretrained", "lora"],
+                           "item 5"),
 }
 
 
@@ -361,10 +363,13 @@ def test_cli_commands_not_ported_exit_2(command, capsys):
 
 
 def test_cli_dispatcher():
-    """The JAX command names, one of them ported; an unknown command exits 2."""
+    """The JAX command names, two of them ported; an unknown command exits 2."""
     from aha_tpu.cli import COMMANDS as JCOMMANDS
 
+    from aha_tpu_torch.cli import cmd_serve
+
     assert set(COMMANDS) == set(JCOMMANDS) and COMMANDS["infer"] is cmd_infer
+    assert COMMANDS["serve"] is cmd_serve and "serve" not in NOT_PORTED
     assert main(["nonsense"]) == 2 and main([]) == 0
 
 

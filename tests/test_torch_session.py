@@ -518,7 +518,9 @@ def test_port_runs_without_jax():
     the command line, the drivers and the data modules with the rest, and the
     card's scripts chip_smoke.py and spec_divergence.py) and runs a tiny int4
     session at the product widths (chunked inference() with the prob and the
-    z rule), ``infer`` of the command line on a clip written with cv2, and one
+    z rule), ``infer`` of the command line on a clip written with cv2,
+    ``serve`` (multi-stream serving: ``engine_serve``, ``multi``,
+    ``cli/serve``) on two requests of that clip over two slots, and one
     int4 QLoRA train step on the CPU from seeded synthetic params. The
     weights' modules (``models/jax_random.py``, ``models/loader.py``,
     ``golden.py``) are among those imported; they run with jax blocked in
@@ -591,7 +593,25 @@ def test_port_runs_without_jax():
                      "--stream_end_score_sum_threshold", "1.5"]) == 0
         with open(os.path.join(d, "out.jsonl")) as f:
             assert len(json.loads(f.readline())["debug_data"]) == 4
-        assert main(["serve"]) == 2
+        assert main(["train"]) == 2
+        # multi-stream serving: serve two requests over two slots, one a clip
+        with open(os.path.join(d, "req.jsonl"), "w") as f:
+            f.write(json.dumps({{"key": "a", "video": os.path.join(d, "v.mp4"),
+                                "conversation": [{{"role": "user", "content": "hi",
+                                                   "time": 0}}]}}) + "\\n")
+            f.write(json.dumps({{"key": "b", "video": os.path.join(d, "v.mp4"),
+                                "conversation": []}}) + "\\n")
+        assert main(["serve", "--model_preset", "tiny", "--device", "cpu",
+                     "--synthetic_weights", "--int4", "--batch", "2", "--max_new_tokens", "4",
+                     "--input", os.path.join(d, "req.jsonl"), "--output",
+                     os.path.join(d, "served.jsonl"),
+                     "--stream_end_prob_threshold=-1e9"]) == 0
+        with open(os.path.join(d, "served.jsonl")) as f:
+            served = {{json.loads(x)["key"]: json.loads(x) for x in f}}
+        assert set(served) == {{"a", "b"}} and all(r["responses"] for r in served.values())
+        for m in ("aha_tpu_torch.streaming.engine_serve", "aha_tpu_torch.streaming.multi",
+                  "aha_tpu_torch.cli.serve"):
+            assert m in sys.modules, m
         rows = build_session(params, cfg, tok, InferConfig(grounding_mode=True),
                              device="cpu").score_video(np.zeros((6, 32, 32, 3), np.uint8))
         assert len(rows) == 6

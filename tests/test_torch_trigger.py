@@ -339,13 +339,84 @@ def test_score_until_trigger_multi_matches_jax(dense, jax_engines, trace, rule, 
     _assert_meta_equal(tc, jc, teng.policy.junk)
 
 
-def test_trigger_loops_take_batch_one(dense):
-    """Two rows are refused with a pointer to multi-stream serving."""
-    eng = _port_engine(dense, 1)
-    frames = torch.zeros((2, 3, F, dense[1].llm.hidden_size))
-    with pytest.raises(ValueError, match="Queue 1 item 10"):
-        eng.score_until_trigger_multi(eng.new_cache(), frames, [0, 0], [3, 3], [0.0, 0.0],
-                                      0.5, None, HEADS)
+def test_trigger_loops_at_three_rows_match_jax(dense, trace):
+    """Three rows (multi-stream serving), each with its own stream, start,
+    limit, threshold (the prob rule, the sum rule, the z rule alone) and
+    resume_at, driven call after call (a call returns when a row fires or
+    reaches its limit) to every row's limit. Every call gives JAX's
+    engine's next frames, fired rows, sums, z windows and scores (1e-5), and
+    the cache ends with JAX's metadata; per frame and fused (k = 4)."""
+    for k in (1, 4):
+        _drive_rows(dense, trace, k, [0, 1, 2], with_jax=True)
+
+
+def test_trigger_loops_take_batch_one(dense, trace):
+    """Each of the three rows above, alone in an engine of batch one, gives
+    what it gives among the three: the same scores (1e-5), fired frames and
+    end cursor; per frame and fused (k = 4)."""
+    for k in (1, 4):
+        three = _drive_rows(dense, trace, k, [0, 1, 2])
+        for b in range(3):
+            alone = _drive_rows(dense, trace, k, [b])
+            assert alone[0]["fired"] == three[b]["fired"], (k, b)
+            assert alone[0]["end"] == three[b]["end"], (k, b)
+            np.testing.assert_allclose(alone[0]["scores"], three[b]["scores"], rtol=1e-5,
+                                       atol=1e-5)
+
+
+def _drive_rows(dense, trace, k, rows, with_jax=False):
+    """Drive the port's engine over the three-row case's ``rows`` to their
+    limits (with ``with_jax``, JAX's engine beside it, checked call by call).
+    Returns per row its scores over [start, limit), fired frames and end."""
+    B, H = len(rows), dense[1].llm.hidden_size
+    pick = lambda x, dt: np.asarray([x[r] for r in rows], dt)
+    frames = np.stack([_embeds(T13, H, 5 + r) for r in rows])
+    prob = pick([float(np.quantile(trace, 0.6)), np.inf, np.inf], np.float32)
+    ssum = pick([np.inf, float(np.cumsum(trace)[2]), np.inf], np.float32)
+    zthr = pick([np.inf, np.inf, 0.2], np.float32)
+    limit = pick([T13, 11, 9], np.int32)
+    resume = pick([0, 3, 0], np.int32)
+    start = pick([0, 1, 0], np.int32)
+    params, cfg, tp, tcfg = dense
+    teng = StreamEngine(tp, tcfg, CachePolicy(**POLICY), batch=B, fused_score_frames=k, **CPU)
+    tc, tz = teng.new_cache(), teng.new_z_state(6)
+    if with_jax:
+        jeng = JStreamEngine(params, cfg, JCachePolicy(**POLICY), batch=B, fused_score_frames=k)
+        jc, jz = jeng.new_cache(), jeng.new_z_state(6)
+    out = [dict(scores=[], fired=[], end=int(start[b])) for b in range(B)]
+    run = np.zeros(B, np.float32)
+    calls = fired_rows = 0
+    while (start < limit).any():
+        args = (start, limit, run, prob, ssum, HEADS)
+        kw = dict(z_threshold=zthr, first_n_frames=2, resume_at=resume)
+        tsb, ti, tsum, ttrig, tzh, tzc = teng.score_until_trigger_multi(
+            tc, torch.from_numpy(frames), *args, z_state=tz, **kw)
+        if with_jax:
+            jc, jsb, ji, jsum, jtrig, jzh, jzc = jeng.score_until_trigger_multi(
+                jc, jnp.asarray(frames), *args, z_state=jz, **kw)
+            np.testing.assert_array_equal(ti, np.asarray(ji))
+            np.testing.assert_array_equal(ttrig, np.asarray(jtrig))
+            np.testing.assert_allclose(tsum, np.asarray(jsum), rtol=1e-5, atol=1e-5)
+            np.testing.assert_array_equal(tzc.numpy(), np.asarray(jzc))
+            np.testing.assert_allclose(tzh.numpy(), np.asarray(jzh), atol=1e-5)
+            for b in range(B):
+                np.testing.assert_allclose(tsb.numpy()[b, start[b]:ti[b]],
+                                           np.asarray(jsb)[b, start[b]:ti[b]], rtol=1e-5,
+                                           atol=1e-5)
+            jz = (jzh, jzc)
+        for b in range(B):
+            out[b]["scores"].extend(tsb.numpy()[b, start[b]:ti[b]].tolist())
+            if ttrig[b]:
+                out[b]["fired"].append(int(ti[b]))
+            out[b]["end"] = int(ti[b])
+        tz = (tzh, tzc)
+        start, run = np.asarray(ti, np.int32), np.asarray(tsum, np.float32)
+        calls += 1
+        fired_rows += int(np.asarray(ttrig).sum())
+    if with_jax:
+        _assert_meta_equal(tc, jc, teng.policy.junk)
+        assert calls >= 3 and fired_rows >= 3
+    return out
 
 
 # -- the chunked session against JAX's chunked session ---------------------------------
