@@ -14,7 +14,9 @@ projections, packed int4 ``{q4value, scale4}`` (uint8 / bf16). Two leaves need c
     permuted here (the only leaf whose layout changes).
 
 A LoRA tree (``train/lora.py::init_lora``: ``{proj: {"a", "b"}}``, layer-stacked)
-crosses through ``params_from_jax`` as it is. ``load_trained_leaves`` carries the
+crosses through ``params_from_jax`` as it is. ``numpy_from_params`` carries a
+port tree (trained adapters, a trained model) the other way, to numpy leaves
+that JAX takes. ``load_trained_leaves`` carries the
 trained leaves of a JAX train state's tree into a port state, so that both
 sides start a step from the same numbers.
 """
@@ -45,6 +47,27 @@ def params_from_jax(tree: dict, device="cuda") -> dict:
         if path == PATCH_KERNEL:
             t = t.permute(3, 2, 0, 1).contiguous()   # HWIO -> OIHW
         return t.to(device)
+
+    return visit(tree, ())
+
+
+def numpy_from_params(tree: dict) -> dict:
+    """The port's nested dict of tensors (any device, with or without a
+    gradient) -> numpy leaves in JAX's layout: bf16 as ``ml_dtypes.bfloat16``
+    (imported only when a bf16 leaf is met), the patch kernel back to HWIO."""
+
+    def visit(node, path):
+        if isinstance(node, dict):
+            return {k: visit(v, path + (k,)) for k, v in node.items()}
+        t = node.detach().cpu()
+        if path == PATCH_KERNEL:
+            t = t.permute(2, 3, 1, 0)                    # OIHW -> HWIO
+        t = t.contiguous()
+        if t.dtype == torch.bfloat16:
+            import ml_dtypes
+
+            return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+        return t.numpy()
 
     return visit(tree, ())
 

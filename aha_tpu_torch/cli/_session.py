@@ -3,16 +3,24 @@ port's copy of ``aha_tpu/cli/_session.py:33-268``, with its flag names and
 defaults and one flag of its own, ``--device`` (the card unless the caller
 asks for the CPU).
 
-Weights, in JAX's order (``models/loader.py``): ``--synthetic_weights``
-builds JAX's seeded synthetic tree in its final form (``--int4``, ``--int8``
-or dense ``cfg.dtype``); else ``--llm_pretrained DIR`` loads a checkpoint
-(``.safetensors`` or torch shards, ``config.json``'s ``vocab_size``
-adopted) in ``cfg.dtype``; with neither, JAX's random init at seed 0. Then
-``--int4`` (which wins) or ``--int8`` quantises the loaded tree, and a
-quantised decoder's q/k/v and gate/up are merged, as JAX's engine serves
-them. The session runs on the ``"fused"`` backend. Refused, with their
-ROADMAP.md item: adapters (``--lora_pretrained``) and the int8 vision tower
-of ``--w8a8`` / ``--vision_int8``.
+Weights, in JAX's order (``aha_tpu/cli/_session.py:57-164``):
+``--synthetic_weights`` builds JAX's seeded synthetic tree in its final form
+(``--int4``, ``--int8`` / ``--w8a8`` or dense ``cfg.dtype``); else
+``--llm_pretrained DIR`` loads a checkpoint (``.safetensors`` or torch shards,
+``config.json``'s ``vocab_size`` adopted) in ``cfg.dtype``; with neither,
+JAX's random init at seed 0. ``--lora_pretrained DIR`` then loads a peft
+adapter-only checkpoint: its adapters apply at every decoder pass (at
+``lora_alpha / r``) and its modules_to_save (projector, heads, lm_head, f32)
+replace the tree's. Then ``--int4`` or ``--int8`` quantises the loaded tree,
+overrides included (``--vision_int8``: the tower and the projector too, or
+those alone without either), and a quantised decoder's q/k/v and gate/up are
+merged, as JAX's engine serves them; a synthetic tree is already in its final
+form, so its overrides stay dense and JAX's tower flag does nothing there.
+``--w8a8`` (not with ``--int4``) is ``--int8 --vision_int8`` on the
+``"fused_a8"`` backend (per-token int8 activations: JAX's ``w8a8``), and
+turns fused scoring of 4 frames into 8 where the command has no ``batch``
+(``infer``, even with ``--concurrent_streams``) or a batch of 1; otherwise the
+session runs on ``"fused"``.
 """
 
 from __future__ import annotations
@@ -22,17 +30,6 @@ import dataclasses
 import json
 import os
 import sys
-
-
-def _refuse_unported(args) -> None:
-    """Raise NotImplementedError for an option the port does not run yet,
-    naming its ROADMAP.md item."""
-    for flag, item in (("w8a8", "Queue 1 item 8: --w8a8 also quantises the vision tower"),
-                       ("vision_int8", "Queue 1 item 8"),
-                       ("lora_pretrained", "Queue 1 item 5")):
-        if getattr(args, flag, None):
-            raise NotImplementedError(f"--{flag} is not ported to aha_tpu_torch yet "
-                                      f"(ROADMAP.md, {item})")
 
 
 def _adopt_checkpoint_config(cfg, weights_path):
@@ -54,42 +51,70 @@ def _adopt_checkpoint_config(cfg, weights_path):
 
 
 def _build_params(args, cfg):
-    """The weights the flags ask for, on ``args.device``, in the layout the
-    engine serves."""
+    """The weights and adapters the flags ask for, on ``args.device``, in the
+    layout the engine serves: (params, lora, lora_scale)."""
+    import torch
+
     from ..models import loader
     from ..models.aha import torch_dtype
     from ..ops import quant
 
     mode = "int4" if args.int4 else "int8" if args.int8 else None
     if args.synthetic_weights:
-        return loader.materialize_random_params(cfg, mode, device=args.device)
-    if args.llm_pretrained:
+        params = loader.materialize_random_params(cfg, mode, device=args.device)
+    elif args.llm_pretrained:
         params = loader.load_params(args.llm_pretrained, cfg, torch_dtype(cfg.dtype),
                                     device=args.device)
     else:
         params = loader.init_aha_params(cfg, seed=0, device=args.device)
-    if mode is None:
-        return params
-    params = quant.quantize_params(params, bits=4 if mode == "int4" else 8)
-    return {**params, "llm": quant.merge_decoder_projections(params["llm"])}
+    lora, lora_scale = None, 0.0
+    if args.lora_pretrained:
+        lora, overrides, lora_scale = loader.load_adapter(args.lora_pretrained, cfg,
+                                                          torch.float32, args.device)
+        params = loader.apply_overrides(params, overrides)
+    if args.synthetic_weights:
+        return params, lora, lora_scale
+    if mode is not None:
+        params = quant.quantize_params(params, bits=4 if mode == "int4" else 8,
+                                       quantize_vision=args.vision_int8)
+        params = {**params, "llm": quant.merge_decoder_projections(params["llm"])}
+    elif args.vision_int8:
+        params = quant.quantize_params(params, quantize_vision=True, keep_dense=("llm",))
+    return params, lora, lora_scale
+
+
+def _serving_mode(args) -> str:
+    """``--w8a8``, as JAX's command line reads it: ``--int8`` and
+    ``--vision_int8`` set, fused scoring of 4 frames widened to 8 where the
+    command has no ``batch`` or a batch of 1, and the int8-activation backend.
+    Returns the session's matmul backend."""
+    if not args.w8a8:
+        return "fused"
+    if args.int4:
+        raise SystemExit("--w8a8 and --int4 are mutually exclusive: the w8a8 backend "
+                         "bypasses the fused int4 kernel")
+    args.int8 = args.vision_int8 = True
+    if args.fused_score_frames == 4 and getattr(args, "batch", 1) == 1:
+        args.fused_score_frames = 8
+    return "fused_a8"
 
 
 def _build_session(args):
     """Parsed flags -> a StreamSession on ``args.device``."""
     from ..streaming.session import build_session
 
-    params, cfg, tokenizer, infer_cfg = _build_parts(args)
-    return build_session(params, cfg, tokenizer, infer_cfg, device=args.device,
-                         backend="fused")
+    params, cfg, tokenizer, infer_cfg, kw = _build_parts(args)
+    return build_session(params, cfg, tokenizer, infer_cfg, device=args.device, **kw)
 
 
 def _build_parts(args):
-    """Parsed flags -> (params on ``args.device``, cfg, tokenizer,
-    InferConfig): what a session or a multi-stream server is built from."""
+    """Parsed flags -> (params on ``args.device``, cfg, tokenizer, InferConfig,
+    and the keywords of the engine: ``backend``, ``lora``, ``lora_scale``):
+    what a session or a multi-stream server is built from."""
     from ..config import InferConfig, aha_7b, aha_tiny
     from ..tokenization import build_stream_tokenizer
 
-    _refuse_unported(args)
+    backend = _serving_mode(args)
     cfg = aha_tiny() if args.model_preset == "tiny" else aha_7b()
     cfg = _adopt_checkpoint_config(cfg, args.llm_pretrained)
     tokenizer = build_stream_tokenizer(args.tokenizer_pretrained,
@@ -97,7 +122,7 @@ def _build_parts(args):
                                        vocab_size=cfg.llm.vocab_size)
     cfg = cfg.replace(v_placeholder_id=tokenizer.v_placeholder_id,
                       eos_token_id=tokenizer.eos_token_id)
-    params = _build_params(args, cfg)
+    params, lora, lora_scale = _build_params(args, cfg)
     infer_cfg = InferConfig(
         frame_fps=args.frame_fps,
         frame_resolution=cfg.frame_resolution,
@@ -122,7 +147,8 @@ def _build_parts(args):
         fused_score_frames=args.fused_score_frames,
         retire_defer=getattr(args, "retire_defer", 1),
     )
-    return params, cfg, tokenizer, infer_cfg
+    return params, cfg, tokenizer, infer_cfg, dict(backend=backend, lora=lora,
+                                                   lora_scale=lora_scale)
 
 
 def _add_infer_flags(p: argparse.ArgumentParser):
@@ -134,7 +160,8 @@ def _add_infer_flags(p: argparse.ArgumentParser):
                    help="HF checkpoint dir (.safetensors or torch .bin / .pt shards)")
     p.add_argument("--tokenizer_pretrained", default=None)
     p.add_argument("--lora_pretrained", default=None,
-                   help="peft adapter-only checkpoint dir (not ported yet)")
+                   help="peft adapter-only checkpoint dir (the published artifact): its "
+                        "adapters and modules_to_save on top of the base weights")
     p.add_argument("--int8", action="store_true", help="int8 weights (per output channel)")
     p.add_argument("--int4", action="store_true",
                    help="packed int4 weights (groups of 128; the smallest memory)")
@@ -143,10 +170,11 @@ def _add_infer_flags(p: argparse.ArgumentParser):
                         "form (--int8, --int4 or dense): a run of the product without a "
                         "checkpoint (scores meaningless; speed and memory real)")
     p.add_argument("--vision_int8", action="store_true",
-                   help="also quantize the SigLIP tower (not ported yet)")
+                   help="also quantize the SigLIP tower and the projector (int8 per "
+                        "channel; not with --synthetic_weights, whose tower stays dense)")
     p.add_argument("--w8a8", action="store_true",
                    help="serving mode: int8 weights, per-token int8 activations, an int8 "
-                        "vision tower and fused width 8 (not ported yet)")
+                        "vision tower and fused width 8 (~1%% hidden-state error)")
     p.add_argument("--test_dataset", required=True,
                    choices=["tvsum", "tvsum_degraded", "hisum", "youcook2",
                             "magqa", "charades", "generic",

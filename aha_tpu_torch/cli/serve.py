@@ -15,14 +15,18 @@ def _add_serve_flags(p: argparse.ArgumentParser):
     p.add_argument("--model_preset", default="7b", choices=["7b", "tiny"])
     p.add_argument("--llm_pretrained", default=None)
     p.add_argument("--tokenizer_pretrained", default=None)
-    p.add_argument("--lora_pretrained", default=None, help="not ported yet")
+    p.add_argument("--lora_pretrained", default=None,
+                   help="peft adapter-only checkpoint dir (see infer)")
     p.add_argument("--int8", action="store_true")
     p.add_argument("--int4", action="store_true")
     p.add_argument("--synthetic_weights", action="store_true",
                    help="JAX's seeded synthetic params built on the device in their final "
                         "form (see infer)")
-    p.add_argument("--vision_int8", action="store_true", help="not ported yet")
-    p.add_argument("--w8a8", action="store_true", help="not ported yet")
+    p.add_argument("--vision_int8", action="store_true",
+                   help="also quantize the SigLIP tower and the projector (see infer)")
+    p.add_argument("--w8a8", action="store_true",
+                   help="serving mode: int8 weights, per-token int8 activations, an int8 "
+                        "vision tower (see infer; fused width stays 4 at --batch > 1)")
     p.add_argument("--fused_score_frames", type=int, default=4,
                    help="frames verified per decoder weight stream on the scoring passes "
                         "(1 = one frame a pass)")
@@ -94,9 +98,9 @@ def cmd_serve(argv):
         raise NotImplementedError("--mesh_data / --mesh_model > 1 (sharded serving) are not "
                                   "ported to aha_tpu_torch yet (ROADMAP.md, Queue 1 item 12)")
 
-    params, cfg, tokenizer, infer_cfg = _build_parts(args)
+    params, cfg, tokenizer, infer_cfg, kw = _build_parts(args)
     server = MultiStreamServer(params, cfg, tokenizer, infer_cfg, batch=args.batch,
-                               max_frames=args.max_frames, device=args.device, backend="fused")
+                               max_frames=args.max_frames, device=args.device, **kw)
     res = cfg.frame_resolution
 
     class RequestError(Exception):

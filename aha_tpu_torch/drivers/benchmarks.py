@@ -114,7 +114,8 @@ def run_streaming_qa_multi(session: StreamSession, *, batch: int, test_fname: st
         output_resolution=session.args.frame_resolution, max_num_frames=max_num_frames,
         time_instruction_format=time_instruction_format,
         system_prompt=session.args.system_prompt)
-    kw = dict(batch=batch, device=eng.device, backend=eng.backend)
+    kw = dict(batch=batch, device=eng.device, backend=eng.backend, lora=eng.lora,
+              lora_scale=eng.lora_scale)
     results: list[dict] = []
     if grounding_mode:
         scorer = MultiStreamScorer(eng.params, eng.cfg, session.tokenizer, session.args, **kw)

@@ -40,8 +40,9 @@ def project_features(params: dict, feats: torch.Tensor,
 
 
 def encode_vision_tokens(params: dict, cfg: AhaConfig, frames: torch.Tensor,
-                         dtype: torch.dtype) -> torch.Tensor:
-    """frames [N, H, W, 3] of any size -> pooled features [N, F, Hv]."""
+                         dtype: torch.dtype, backend: str = "fused") -> torch.Tensor:
+    """frames [N, H, W, 3] of any size -> pooled features [N, F, Hv];
+    ``backend``: the kernels of a quantised tower's products."""
     if cfg.vision.arch != "siglip" or cfg.frame_token_cls:
         raise NotImplementedError(
             "aha_tpu_torch ports the SigLIP tower without the CLS probe only "
@@ -49,17 +50,20 @@ def encode_vision_tokens(params: dict, cfg: AhaConfig, frames: torch.Tensor,
     if tuple(frames.shape[1:3]) != (cfg.frame_resolution, cfg.frame_resolution):
         frames = device_letterbox(frames, cfg.frame_resolution)
     pixels = siglip.preprocess_frames(frames, dtype)
-    spatial = siglip.forward(params["vision"], cfg.vision, pixels)
+    spatial = siglip.forward(params["vision"], cfg.vision, pixels, backend)
     return pool_patch_tokens(spatial, cfg.vision.grid_size, cfg.frame_token_pooled,
                              cfg.pooling_mode)
 
 
 def visual_embed(params: dict, cfg: AhaConfig, frames: torch.Tensor,
                  backend: str = "fused") -> torch.Tensor:
-    """frames [N, H, W, 3] (uint8 or float pixels) -> [N, F, H_llm]."""
+    """frames [N, H, W, 3] (uint8 or float pixels) -> [N, F, H_llm]. The
+    tower runs in the dtype of a dense projector kernel (f32 behind a peft
+    artifact's projector, as in JAX), else in ``cfg.dtype``; ``backend``
+    serves the tower's quantised products and the projector's."""
     k = params["projector"]["fc1"]["kernel"]
     dtype = torch_dtype(cfg.dtype) if isinstance(k, dict) else k.dtype
-    feats = encode_vision_tokens(params, cfg, frames, dtype)
+    feats = encode_vision_tokens(params, cfg, frames, dtype, backend)
     return project_features(params, feats, backend)
 
 
@@ -137,7 +141,7 @@ def forward_train(params: dict, cfg: AhaConfig, input_ids: torch.Tensor,
         k = params["projector"]["fc1"]["kernel"]
         dtype = torch_dtype(cfg.dtype) if isinstance(k, dict) else k.dtype
         with torch.no_grad():
-            feats = encode_vision_tokens(params, cfg, frames, dtype)
+            feats = encode_vision_tokens(params, cfg, frames, dtype, backend)
         frame_embeds = project_features(params, feats, backend)
     if frame_embeds is not None:
         frame_embeds = frame_embeds.reshape(-1, frame_embeds.shape[-1])

@@ -1,7 +1,7 @@
 """The weights: JAX's synthetic trees drawn exactly, and checkpoints.
 
-Counterpart of ``aha_tpu/models/loader.py`` (without the peft adapters,
-ROADMAP Queue 1 item 5, and the CLIP tower, item 8):
+Counterpart of ``aha_tpu/models/loader.py`` (without the CLIP tower,
+ROADMAP Queue 1 item 8):
 
   * ``materialize_random_params(cfg, mode, keep_dense, device)``: the tree
     that ``aha_tpu``'s ``materialize_random_params`` builds, leaf by leaf on
@@ -21,6 +21,12 @@ ROADMAP Queue 1 item 5, and the CLIP tower, item 8):
     ``.safetensors`` shards (read by ``read_safetensors``: no ``safetensors``
     package needed) or torch ``.bin`` / ``.pt`` shards; ``save_safetensors``
     writes shards;
+  * ``load_adapter(path, cfg, dtype, device)``: a peft adapter-only
+    checkpoint directory (the published Aha artifact): its LoRA pairs
+    (``convert_peft_lora``), its ``modules_to_save`` as partial param
+    overrides (``convert_peft_modules_to_save``, merged by
+    ``apply_overrides``) and ``lora_alpha / r`` from ``adapter_config.json``;
+    ``save_adapter`` writes such a directory;
   * ``save_converted`` / ``load_converted``: ``torch.save`` / ``torch.load``
     of a converted tree.
 
@@ -202,12 +208,15 @@ def materialize_random_params(cfg: AhaConfig, mode: str | None = None,
 
 
 def init_aha_params(cfg: AhaConfig, seed: int = 0, dtype: str | None = None,
-                    device="cuda") -> dict:
+                    device="cuda", slab: int = jax_random.SLAB) -> dict:
     """The tree of ``aha_tpu``'s ``init_aha_params(cfg, PRNGKey(seed), dtype)``
     (what JAX's command line serves with neither a checkpoint nor synthetic
     weights, and the tiny golden fixture's weights): its keys split as JAX
     splits them, kernels and embeddings ``0.02 * normal`` in ``dtype``
-    (``cfg.dtype`` by default), norms one, biases zero; the port's layout."""
+    (``cfg.dtype`` by default), norms one, biases zero; the port's layout.
+    Each leaf is drawn in slabs of ``slab`` values, as in
+    ``materialize_random_params``: a whole 7B leaf's counters would take tens
+    of GB."""
     from .aha import torch_dtype
 
     device = _check_device(device, "init_aha_params")
@@ -238,8 +247,13 @@ def init_aha_params(cfg: AhaConfig, seed: int = 0, dtype: str | None = None,
                 make = torch.zeros if path[-1] == "bias" else torch.ones
                 yield path, make(meta.shape, dtype=dt, device=device)
             else:
-                normal = jax_random.normal(key, meta.shape, device=device)
-                yield path, (0.02 * normal).to(dt).reshape(meta.shape)
+                leaf = torch.empty(meta.shape, dtype=dt, device=device)
+                flat = leaf.view(-1)
+                for start in range(0, flat.numel(), slab):
+                    stop = min(start + slab, flat.numel())
+                    flat[start:stop] = (0.02 * jax_random.normal(key, meta.shape, start, stop,
+                                                                 device)).to(dt)
+                yield path, leaf
 
     return _port_tree(leaves())
 
@@ -537,6 +551,137 @@ def load_params(path: str, cfg: AhaConfig, dtype=torch.float32, device="cuda") -
               "vision": convert_siglip(sd, cfg.vision, vis_prefix, dtype, device)}
     params["projector"], params["heads"] = convert_projector_heads(sd, dtype, device)
     return params
+
+
+# -- peft adapter-only checkpoints ------------------------------------------------------
+
+_PEFT_PROJS = {"q_proj": "self_attn.q_proj", "k_proj": "self_attn.k_proj",
+               "v_proj": "self_attn.v_proj", "o_proj": "self_attn.o_proj",
+               "gate_proj": "mlp.gate_proj", "up_proj": "mlp.up_proj",
+               "down_proj": "mlp.down_proj"}
+
+
+def convert_peft_lora(sd: dict, cfg: QwenConfig, dtype=torch.float32, device="cuda") -> dict:
+    """A peft LoRA state dict -> the port's stacked adapter tree ``{proj: {"a":
+    [L, in, r], "b": [L, r, out]}}``. peft's keys are
+    ``<prefix>layers.{i}.self_attn.q_proj.lora_A.weight`` ([r, in]) and
+    ``...lora_B.weight`` ([out, r]); the prefix (the wrapping depth) is read off
+    layer 0's first lora_A key. A projection without adapters is left out."""
+    device = _check_device(device, "convert_peft_lora")
+    sample = next((k for k in sd if ".lora_A." in k and "layers.0." in k), None)
+    if sample is None:
+        raise ValueError("convert_peft_lora: no lora_A keys in the state dict")
+    prefix = sample.split("layers.0.")[0]
+    tree = {}
+    for name, hf_name in _PEFT_PROJS.items():
+        a_tmpl = prefix + "layers.{i}." + hf_name + ".lora_A.weight"
+        if a_tmpl.format(i=0) not in sd:
+            continue
+        b_tmpl = a_tmpl.replace(".lora_A.", ".lora_B.")
+        tree[name] = {"a": _stack(sd, a_tmpl, cfg.num_layers, dtype, device, transpose=True),
+                      "b": _stack(sd, b_tmpl, cfg.num_layers, dtype, device, transpose=True)}
+    return tree
+
+
+def convert_peft_modules_to_save(sd: dict, dtype=torch.float32, device="cuda") -> dict:
+    """The dense modules a peft checkpoint saves beside its adapters (the
+    mm_projector, the three score heads, the lm_head) as partial param
+    overrides keyed like the port's tree, kernels [in, out]; a module the
+    checkpoint lacks is left out."""
+    device = _check_device(device, "convert_peft_modules_to_save")
+
+    def find(suffix, transpose=False):
+        key = next((k for k in sd if k.endswith(suffix)), None)
+        return None if key is None else _one(sd, key, dtype, device, transpose)
+
+    out: dict = {}
+    if any(k.endswith("mm_projector.0.weight") for k in sd):
+        fcs = {f"fc{j}": {"kernel": find(f"mm_projector.{i}.weight", True),
+                          "bias": find(f"mm_projector.{i}.bias")} for j, i in ((1, 0), (2, 2))}
+        out["projector"] = {n: {k: t for k, t in fc.items() if t is not None}
+                            for n, fc in fcs.items()}
+    heads = {n: find(f"{n}_head.weight", True) for n in _HEADS}
+    if any(w is not None for w in heads.values()):
+        out["heads"] = {n: {"kernel": w} for n, w in heads.items() if w is not None}
+    lm = find("lm_head.weight", True)
+    if lm is not None:
+        out["llm"] = {"lm_head": {"kernel": lm}}
+    return out
+
+
+def load_adapter(path: str, cfg: AhaConfig, dtype=torch.float32,
+                 device="cuda") -> tuple[dict, dict, float]:
+    """A peft adapter-only checkpoint directory (``.safetensors`` or torch
+    shards, read by ``read_state_dict``) -> (adapters, overrides, lora_scale)
+    in ``dtype`` on ``device``. ``lora_scale`` is ``lora_alpha / r`` from
+    ``adapter_config.json`` where the directory has one (``lora_alpha``
+    defaulting to 2 r), else the reference's 32 / 16."""
+    sd = read_state_dict(path)
+    lora = convert_peft_lora(sd, cfg.llm, dtype, device)
+    overrides = convert_peft_modules_to_save(sd, dtype, device)
+    scale = 32.0 / 16.0
+    cfg_path = os.path.join(path, "adapter_config.json")
+    if os.path.exists(cfg_path):
+        with open(cfg_path) as f:
+            ac = json.load(f)
+        if ac.get("r"):
+            scale = float(ac.get("lora_alpha", 2 * ac["r"])) / float(ac["r"])
+    return lora, overrides, scale
+
+
+def save_adapter(path: str, lora: dict, lora_scale: float, params: dict | None = None) -> str:
+    """``load_adapter``'s inverse: ``lora`` (``{proj: {"a": [L, in, r], "b":
+    [L, r, out]}}``, any device) as a peft adapter-only directory,
+    ``adapter_model.safetensors`` with peft's keys and ``adapter_config.json``
+    (r, ``lora_alpha = lora_scale * r``); with ``params``, its dense projector,
+    score heads and lm_head go beside the adapters as modules_to_save, f32.
+    Returns the directory."""
+    pre = "base_model.model."
+    sd = {}
+    for name, ab in lora.items():
+        hf = _PEFT_PROJS[name]
+        for i in range(ab["a"].shape[0]):
+            sd[f"{pre}model.layers.{i}.{hf}.lora_A.weight"] = ab["a"][i].T.float().contiguous()
+            sd[f"{pre}model.layers.{i}.{hf}.lora_B.weight"] = ab["b"][i].T.float().contiguous()
+    modules = []
+    if params is not None:
+        dense = lambda p: not isinstance(p["kernel"], dict)
+        proj = params.get("projector", {})
+        if proj and all(dense(p) for p in proj.values()):
+            for j, i in ((1, 0), (2, 2)):
+                sd[f"{pre}model.mm_projector.{i}.weight"] = proj[f"fc{j}"]["kernel"].T.float()
+                sd[f"{pre}model.mm_projector.{i}.bias"] = proj[f"fc{j}"]["bias"].float()
+            modules.append("mm_projector")
+        for n in _HEADS:
+            sd[f"{pre}{n}_head.weight"] = params["heads"][n]["kernel"].T.float()
+            modules.append(f"{n}_head")
+        lm = params["llm"].get("lm_head")
+        if lm is not None and dense(lm):
+            sd[f"{pre}lm_head.weight"] = lm["kernel"].T.float()
+            modules.append("lm_head")
+    os.makedirs(path, exist_ok=True)
+    save_safetensors({k: v.contiguous() for k, v in sd.items()},
+                     os.path.join(path, "adapter_model.safetensors"), {"format": "pt"})
+    r = next(iter(lora.values()))["a"].shape[-1]
+    with open(os.path.join(path, "adapter_config.json"), "w") as f:
+        json.dump({"peft_type": "LORA", "r": r, "lora_alpha": lora_scale * r,
+                   "target_modules": sorted(lora), "modules_to_save": modules,
+                   "task_type": "CAUSAL_LM"}, f, indent=1)
+    return path
+
+
+def apply_overrides(params: dict, overrides: dict) -> dict:
+    """``overrides`` merged into ``params`` (a new tree; ``params`` is left as
+    it was): a module (a dict with a kernel, a weight or an adapter pair)
+    replaces the one at its path whole; any other dict merges key by key."""
+    out = dict(params)
+    for k, v in overrides.items():
+        if (isinstance(v, dict) and isinstance(out.get(k), dict)
+                and not {"kernel", "weight", "a"} & set(v)):
+            out[k] = apply_overrides(out[k], v)
+        else:
+            out[k] = v
+    return out
 
 
 def save_converted(params: dict, path: str) -> None:

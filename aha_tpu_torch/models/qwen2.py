@@ -13,8 +13,9 @@ the quantized-matmul kernels (``ops/quant.py``).
 
 ``decode_chunk`` WRITES the cache in place; ``decode_chunk_spec`` only reads
 it. ``forward_hidden`` has no cache: full causal attention through the flash
-kernel, LoRA deltas at the matmul sites, activation rematerialisation on
-``torch.utils.checkpoint``.
+kernel, activation rematerialisation on ``torch.utils.checkpoint``. All three
+take LoRA adapters, added at the matmul sites (the serving passes without
+dropout).
 """
 
 from __future__ import annotations
@@ -126,6 +127,12 @@ def _mlp(x: torch.Tensor, lp: dict, backend: str = "fused",
     return down if adapters is None else down + adapters.delta("down_proj", act)
 
 
+def _o_proj(attn: torch.Tensor, lp: dict, backend: str = "fused",
+            adapters: LayerAdapters | None = None) -> torch.Tensor:
+    o = linear(attn, lp["o_proj"], backend)
+    return o if adapters is None else o + adapters.delta("o_proj", attn)
+
+
 def embed_tokens(params: dict, ids: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
     return embed_rows(params["embed"]["weight"], ids, dtype)
 
@@ -177,8 +184,7 @@ def forward_hidden(params: dict, cfg: QwenConfig, inputs_embeds: torch.Tensor, *
         q, k, v = _qkv(h, lp, cfg, backend, ad)
         attn = causal_attention(q, k, v, rope_theta=cfg.rope_theta, attn_mask=attn_mask,
                                 rope_tables=rope_tables).reshape(B, T, cfg.q_dim)
-        o = linear(attn, lp["o_proj"], backend)
-        x = x + (o if ad is None else o + ad.delta("o_proj", attn))
+        x = x + _o_proj(attn, lp, backend, ad)
         h = rms_norm(x, lp["post_norm"]["scale"], cfg.rms_norm_eps)
         return x + _mlp(h, lp, backend, ad)
 
@@ -195,10 +201,12 @@ def forward_hidden(params: dict, cfg: QwenConfig, inputs_embeds: torch.Tensor, *
 
 def decode_chunk(params: dict, cfg: QwenConfig, policy: CachePolicy, cache: KVCache,
                  inputs_embeds: torch.Tensor, valid_len: torch.Tensor, *,
-                 backend: str = "fused") -> torch.Tensor:
+                 backend: str = "fused", lora: dict | None = None,
+                 lora_scale: float = 0.0) -> torch.Tensor:
     """One streaming chunk [B, S, H] with ``valid_len`` [B] real tokens.
     Writes the chunk into ``cache`` IN PLACE (K/V and metadata) and returns
-    the final-normed hidden states [B, S, H]."""
+    the final-normed hidden states [B, S, H]. ``lora``: adapters added at the
+    seven projections of every row (``LayerAdapters``, no dropout)."""
     S = inputs_embeds.shape[1]
     plan = plan_update(cache, policy, valid_len, S)
     tables = chunk_tables(plan, policy, cfg.head_dim, cfg.rope_theta)
@@ -206,8 +214,9 @@ def decode_chunk(params: dict, cfg: QwenConfig, policy: CachePolicy, cache: KVCa
     x = inputs_embeds
     for i in range(cfg.num_layers):
         lp = layer_view(lyr, i)
+        ad = None if lora is None else LayerAdapters(lora, i, lora_scale)
         h = rms_norm(x, lp["input_norm"]["scale"], cfg.rms_norm_eps, f64_mean=True)
-        q, k, v = _qkv(h, lp, cfg, backend)
+        q, k, v = _qkv(h, lp, cfg, backend, ad)
         ks = vs = None
         if cache.quantized:
             ks, vs = cache.k_scale[i], cache.v_scale[i]
@@ -215,16 +224,16 @@ def decode_chunk(params: dict, cfg: QwenConfig, policy: CachePolicy, cache: KVCa
                     rot=(tables.w_cos, tables.w_sin))
         attn = cached_attention(q, cache.k[i], cache.v[i], tables,
                                 None if ks is None else (ks, vs))
-        x = x + linear(attn.reshape(*x.shape[:2], cfg.q_dim), lp["o_proj"], backend)
+        x = x + _o_proj(attn.reshape(*x.shape[:2], cfg.q_dim), lp, backend, ad)
         h = rms_norm(x, lp["post_norm"]["scale"], cfg.rms_norm_eps, f64_mean=True)
-        x = x + _mlp(h, lp, backend)
+        x = x + _mlp(h, lp, backend, ad)
     advance(cache, plan)
     return rms_norm(x, params["final_norm"]["scale"], cfg.rms_norm_eps, f64_mean=True)
 
 
 def decode_chunk_spec(params: dict, cfg: QwenConfig, policy: CachePolicy, cache: KVCache,
                       inputs_embeds: torch.Tensor, plans, *, backend: str = "fused",
-                      replay: bool = False):
+                      replay: bool = False, lora: dict | None = None, lora_scale: float = 0.0):
     """The VERIFY pass: like ``decode_chunk`` over the N = S * step tokens of
     ``plans`` (``spec_decode.plan_compose``), but equal to the S sequential
     passes the plans compose, and READ-ONLY on the cache: each layer's
@@ -247,7 +256,7 @@ def decode_chunk_spec(params: dict, cfg: QwenConfig, policy: CachePolicy, cache:
     softmax over cache and in-flight columns differs from the kernel's sums
     in the last bf16 place; ``generate_spec`` takes it on a bf16 or f32 cache
     so that speculative texts equal sequential ones. Needs no gate and no
-    host sync."""
+    host sync. ``lora``: as in ``decode_chunk``."""
     sink_policy = policy.kind == "sink"
     sink_slots = policy.num_sink if sink_policy else 0
     if replay:
@@ -262,8 +271,9 @@ def decode_chunk_spec(params: dict, cfg: QwenConfig, policy: CachePolicy, cache:
     infl_k, infl_v = [], []
     for i in range(cfg.num_layers):
         lp = layer_view(lyr, i)
+        ad = None if lora is None else LayerAdapters(lora, i, lora_scale)
         h = rms_norm(x, lp["input_norm"]["scale"], cfg.rms_norm_eps, f64_mean=True)
-        q, k, v = _qkv(h, lp, cfg, backend)
+        q, k, v = _qkv(h, lp, cfg, backend, ad)
         k_rot = apply_rope(k.float(), w_cos, w_sin).to(k.dtype)
         if replay:
             attn = replayed_attention(q, cache.k[i], cache.v[i], k_rot, v, plans.slots, w_cos,
@@ -273,9 +283,9 @@ def decode_chunk_spec(params: dict, cfg: QwenConfig, policy: CachePolicy, cache:
             attn = speculative_attention(
                 q, cache.k[i], cache.v[i], k_rot, v, tables, sink_slots=sink_slots,
                 kv_scales=kv_scales)
-        x = x + linear(attn.reshape(*x.shape[:2], cfg.q_dim), lp["o_proj"], backend)
+        x = x + _o_proj(attn.reshape(*x.shape[:2], cfg.q_dim), lp, backend, ad)
         h = rms_norm(x, lp["post_norm"]["scale"], cfg.rms_norm_eps, f64_mean=True)
-        x = x + _mlp(h, lp, backend)
+        x = x + _mlp(h, lp, backend, ad)
         infl_k.append(k_rot)
         infl_v.append(v)
     x = rms_norm(x, params["final_norm"]["scale"], cfg.rms_norm_eps, f64_mean=True)

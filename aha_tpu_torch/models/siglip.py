@@ -2,7 +2,10 @@
 
 Counterpart of ``aha_tpu/models/siglip.py`` (``forward``, ``layer_norm``,
 ``_mha``, ``preprocess_frames``). The JAX tower has no Pallas kernel, so its
-matmuls and attention are plain PyTorch here. The patch-embedding kernel is
+matmuls and attention are plain PyTorch here, except where the tower is
+quantised (``--vision_int8``, ``--w8a8``): its q/k/v/out and fc1/fc2 products
+then run ``ops.quant.linear``'s int8 kernels on the session's ``backend``, as
+JAX's ``qlinear`` serves them. The patch-embedding kernel is
 stored in torch's conv layout [H, 3, P, P] (the bridge converts JAX's
 HWIO). The MAP probe head (``frame_token_cls``) is off the streaming path
 and not ported.
@@ -28,17 +31,16 @@ def layer_norm(x: torch.Tensor, p: dict, eps: float) -> torch.Tensor:
     return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
 
 
-def _mha(x: torch.Tensor, lp: dict, num_heads: int) -> torch.Tensor:
+def _mha(x: torch.Tensor, lp: dict, num_heads: int, backend: str = "fused") -> torch.Tensor:
     B, T, H = x.shape
     d = H // num_heads
-    q = linear(x, lp["q_proj"]).reshape(B, T, num_heads, d).transpose(1, 2)
-    k = linear(x, lp["k_proj"]).reshape(B, T, num_heads, d).transpose(1, 2)
-    v = linear(x, lp["v_proj"]).reshape(B, T, num_heads, d).transpose(1, 2)
+    q, k, v = (linear(x, lp[n], backend).reshape(B, T, num_heads, d).transpose(1, 2)
+               for n in ("q_proj", "k_proj", "v_proj"))
     # products in the storage dtype, softmax in f32 (as the JAX tower)
     scores = torch.matmul(q, k.transpose(-1, -2)).float() * (1.0 / math.sqrt(d))
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.matmul(probs, v).to(x.dtype)
-    return linear(out.transpose(1, 2).reshape(B, T, H), lp["out_proj"])
+    return linear(out.transpose(1, 2).reshape(B, T, H), lp["out_proj"], backend)
 
 
 def preprocess_frames(frames: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
@@ -47,8 +49,11 @@ def preprocess_frames(frames: torch.Tensor, dtype=torch.float32) -> torch.Tensor
     return (frames.float() * (2.0 / 255.0) - 1.0).to(dtype)
 
 
-def forward(params: dict, cfg: SiglipConfig, pixels: torch.Tensor) -> torch.Tensor:
-    """Normalised pixels [N, H, W, 3] -> patch features [N, num_patches, H]."""
+def forward(params: dict, cfg: SiglipConfig, pixels: torch.Tensor,
+            backend: str = "fused") -> torch.Tensor:
+    """Normalised pixels [N, H, W, 3] -> patch features [N, num_patches, H].
+    ``backend``: the kernels of a quantised tower's products
+    (``ops.quant.BACKENDS``)."""
     pe = params["patch_embed"]
     x = F.conv2d(pixels.permute(0, 3, 1, 2), pe["kernel"].to(pixels.dtype),
                  stride=cfg.patch_size)                     # [N, H, gh, gw]
@@ -59,9 +64,9 @@ def forward(params: dict, cfg: SiglipConfig, pixels: torch.Tensor) -> torch.Tens
     for i in range(cfg.num_layers):
         lp = layer_view(lyr, i)
         h = layer_norm(x, lp["ln1"], cfg.layer_norm_eps)
-        x = x + _mha(h, lp, cfg.num_heads)
+        x = x + _mha(h, lp, cfg.num_heads, backend)
         h = layer_norm(x, lp["ln2"], cfg.layer_norm_eps)
-        h = linear(h, lp["fc1"])
+        h = linear(h, lp["fc1"], backend)
         h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-        x = x + linear(h, lp["fc2"])
+        x = x + linear(h, lp["fc2"], backend)
     return layer_norm(x, params["post_ln"], cfg.layer_norm_eps)

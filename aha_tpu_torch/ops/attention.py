@@ -81,8 +81,15 @@ def chunk_tables(plan: UpdatePlan, policy: CachePolicy, head_dim: int,
 def cached_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                      tables: ChunkTables, kv_scales: tuple | None = None) -> torch.Tensor:
     """q [B, S, NH, Dh] (unrotated) against one layer's cache [B, W+1, KVH,
-    Dh] (keys pre-rotated at write_pos) -> [B, S, NH, Dh] in q's dtype."""
+    Dh] (keys pre-rotated at write_pos) -> [B, S, NH, Dh] in q's dtype.
+    f32 queries against a bf16 cache (the frame chunks behind a peft
+    artifact's f32 projector) attend to the layer's keys and values widened
+    to f32, exactly, as JAX's einsums promote them; JAX's jnp path also rounds
+    the probabilities to bf16 before the second product, which the f32 kernel
+    does not."""
     q_rot = apply_rope(q.float(), tables.w_cos, tables.w_sin).to(q.dtype)
+    if q.dtype == torch.float32 and k_cache.dtype == torch.bfloat16:
+        k_cache, v_cache = k_cache.float(), v_cache.float()
     return decode_attention(q_rot.contiguous(), k_cache, v_cache, tables.d_cos,
                             tables.d_sin, tables.mask_order, tables.mask_g, kv_scales)
 

@@ -187,10 +187,17 @@ def qlinear(x: torch.Tensor, qkernel: dict, backend: str = "fused") -> torch.Ten
 
 def linear(x: torch.Tensor, p: dict, backend: str = "fused") -> torch.Tensor:
     """x @ p["kernel"] (dense [K, N] or a quantized dict) + p["bias"] if
-    present: the matmul site shared by the tower, the projector and the
-    decoder."""
+    present: the matmul site shared by the tower, the projector, the decoder
+    and the lm_head. A dense kernel of another dtype than x (a peft
+    artifact's f32 projector or lm_head over a bf16 tree) promotes the product
+    as JAX's einsum does: both sides in the wider dtype, so is the result; a
+    bias of another dtype promotes the sum alike."""
     k = p["kernel"]
-    y = qlinear(x, k, backend) if isinstance(k, dict) else torch.matmul(x, k)
+    if isinstance(k, dict):
+        y = qlinear(x, k, backend)
+    else:
+        dt = torch.promote_types(x.dtype, k.dtype)
+        y = torch.matmul(x.to(dt), k.to(dt))
     if "bias" in p:
         y = y + p["bias"]
     return y

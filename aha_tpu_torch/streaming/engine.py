@@ -11,6 +11,10 @@ fires (``engine_trigger.py``), the serving iteration of multi-stream serving
 speculative form (``spec_tokens`` candidates per weight stream, widening to
 ``spec_max`` while drafts are being accepted), which writes the same tokens.
 
+LoRA adapters (``lora``, ``lora_scale``) apply at every decoder pass of every
+row, write passes and verify passes alike, as in JAX's engine; the vision
+tower and the projector take none.
+
 Every row is an independent stream: ``active`` [B] flags (or per-row valid
 lengths) keep a row out of a pass, and an inactive row appends zero valid
 tokens, whose writes go to the cache's junk slot, so its cache slice never
@@ -76,14 +80,17 @@ class StreamEngine(TriggerLoops, ServeLoop):
                  repetition_penalty: float | None = None,
                  kv_dtype: torch.dtype | None = None, backend: str = "fused",
                  spec_tokens: int = 1, spec_tokens_max: int | None = None,
-                 fused_score_frames: int = 1):
+                 fused_score_frames: int = 1, lora: dict | None = None,
+                 lora_scale: float = 0.0):
         """Runs on the card unless ``device`` says otherwise, and raises when
         there is none. ``backend``: the quantized-matmul kernels
         (``ops.quant.BACKENDS``). ``spec_tokens``: candidates verified per
         generation pass (1 = the sequential loop); ``spec_tokens_max``: the
         adaptive ceiling (None or <= spec_tokens = fixed width).
         ``fused_score_frames``: frames per pass in ``score_stream`` and in
-        the trigger loops."""
+        the trigger loops. ``lora``: adapters ``{proj: {"a": [L, in, r], "b":
+        [L, r, out]}}`` on the engine's device, added at ``lora_scale`` in
+        every decoder pass."""
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -103,10 +110,11 @@ class StreamEngine(TriggerLoops, ServeLoop):
         self._spec_ema = np.float32(0.0)   # acceptance EMA, kept across responses
         self.last_spec_info = None         # (passes, committed, EMA) of the last call
         self.spec_totals = [0, 0]        # run-level [verify passes, committed tokens]
-        for t in _leaves(params):
+        for t in _leaves({"params": params, "lora": lora or {}}):
             if t.device != self.device:
                 raise ValueError(f"param on {t.device}, engine on {self.device}")
         self.params = params
+        self.lora, self.lora_scale = lora, lora_scale
         self.cfg = cfg
         self.policy = policy
         self.max_new_tokens = max_new_tokens
@@ -152,7 +160,13 @@ class StreamEngine(TriggerLoops, ServeLoop):
 
     def _decode(self, cache: KVCache, embeds: torch.Tensor, valid_len: torch.Tensor):
         return qwen2.decode_chunk(self.params["llm"], self.cfg.llm, self.policy, cache,
-                                  embeds, valid_len, backend=self.backend)
+                                  embeds, valid_len, backend=self.backend, lora=self.lora,
+                                  lora_scale=self.lora_scale)
+
+    def _verify(self, cache: KVCache, embeds: torch.Tensor, plans, replay: bool = False):
+        return qwen2.decode_chunk_spec(self.params["llm"], self.cfg.llm, self.policy, cache,
+                                       embeds, plans, backend=self.backend, replay=replay,
+                                       lora=self.lora, lora_scale=self.lora_scale)
 
     def _logits(self, hidden: torch.Tensor) -> torch.Tensor:
         return qwen2.lm_logits(self.params["llm"], self.cfg.llm, hidden, self.backend).float()
@@ -223,9 +237,7 @@ class StreamEngine(TriggerLoops, ServeLoop):
         if n_active is None:
             n_active = torch.full((B,), k, dtype=torch.int32, device=self.device)
         plans = spec_decode.plan_compose(cache, self.policy, n_active * F, k, step=F)
-        hidden, infl_k, infl_v = qwen2.decode_chunk_spec(
-            self.params["llm"], self.cfg.llm, self.policy, cache,
-            frame_embeds.reshape(B, k * F, H), plans, backend=self.backend)
+        hidden, infl_k, infl_v = self._verify(cache, frame_embeds.reshape(B, k * F, H), plans)
         scores = aha.scores_from_hidden(self.params, hidden[:, F - 1::F])
         return scores, (plans, infl_k, infl_v, F)
 
@@ -409,9 +421,8 @@ class StreamEngine(TriggerLoops, ServeLoop):
             embeds = qwen2.embed_tokens(self.params["llm"], chunk, self.dtype)
             # the sequential passes' attention replayed, so that every position's
             # bits are its sequential pass's (an int8 cache composes, as in JAX)
-            hidden, infl_k, infl_v = qwen2.decode_chunk_spec(
-                self.params["llm"], self.cfg.llm, self.policy, cache, embeds, plans,
-                backend=self.backend, replay=not cache.quantized)
+            hidden, infl_k, infl_v = self._verify(cache, embeds, plans,
+                                                  replay=not cache.quantized)
             logits = self._logits(hidden)                                      # [B, S, V]
 
             reach = rows                      # position p reached and writable

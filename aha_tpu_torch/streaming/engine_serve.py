@@ -203,9 +203,8 @@ class ServeLoop:
                 chunk = torch.cat([tok[:, None], drafts], dim=1)
                 plans = spec_decode.plan_compose(cache, self.policy,
                                                  torch.where(decoding, Sw, 0).to(torch.int32), Sw)
-                hidden, infl_k, infl_v = qwen2.decode_chunk_spec(
-                    llm, self.cfg.llm, self.policy, cache,
-                    qwen2.embed_tokens(llm, chunk, self.dtype), plans, backend=self.backend,
+                hidden, infl_k, infl_v = self._verify(
+                    cache, qwen2.embed_tokens(llm, chunk, self.dtype), plans,
                     replay=not cache.quantized)
                 logits = self._logits(hidden)                                 # [B, Sw, V]
                 reach = decoding            # chunk[:, p] is fed as the sequential loop would

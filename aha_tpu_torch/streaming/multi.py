@@ -16,8 +16,8 @@ stream at once. Three classes:
   waiting stream is admitted the moment a slot frees (its cache rows reset,
   ``ops.kv_cache.reset_cache_rows``).
 
-Sharded serving (``mesh=``) and adapters (``lora=``) are refused, with their
-ROADMAP.md items.
+``lora=`` / ``lora_scale=`` adapters apply to every row of every pass, as in
+JAX. Sharded serving (``mesh=``) is refused, with its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -35,13 +35,10 @@ from .engine import StreamEngine
 _THR_KEYS = ("stream_end_prob_threshold", "stream_end_score_sum_threshold", "threshold_z")
 
 
-def _refuse(mesh, lora):
+def _refuse(mesh):
     if mesh is not None:
         raise NotImplementedError("sharded multi-stream serving (mesh=) is not ported to "
                                   "aha_tpu_torch yet (ROADMAP.md, Queue 1 item 12)")
-    if lora is not None:
-        raise NotImplementedError("adapters on the serving path (lora=) are not ported to "
-                                  "aha_tpu_torch yet (ROADMAP.md, Queue 1 item 5)")
 
 
 def _engine(params, cfg, infer_cfg: InferConfig, batch: int, device, backend, **kw):
@@ -57,13 +54,14 @@ class MultiStreamScorer:
 
     def __init__(self, params: dict, cfg: AhaConfig, tokenizer: StreamTokenizer,
                  infer_cfg: InferConfig, *, batch: int, device="cuda", backend: str = "fused",
-                 lora=None, mesh=None):
-        _refuse(mesh, lora)
+                 lora=None, lora_scale: float = 0.0, mesh=None):
+        _refuse(mesh)
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.args = infer_cfg
         self.batch = batch
-        self.engine = _engine(params, cfg, infer_cfg, batch, device, backend)
+        self.engine = _engine(params, cfg, infer_cfg, batch, device, backend, lora=lora,
+                              lora_scale=lora_scale)
 
     def score_videos(self, videos: list, queries: list, *, fps: float) -> list[list[dict]]:
         """B videos ([T_b, S, S, 3] pixels, arrays or tensors) and B queries (None: no query
@@ -113,8 +111,9 @@ class MultiStreamSession:
 
     def __init__(self, params: dict, cfg: AhaConfig, tokenizer: StreamTokenizer,
                  infer_cfg: InferConfig, *, batch: int, engine: StreamEngine | None = None,
-                 device="cuda", backend: str = "fused", lora=None, mesh=None):
-        _refuse(mesh, lora)
+                 device="cuda", backend: str = "fused", lora=None, lora_scale: float = 0.0,
+                 mesh=None):
+        _refuse(mesh)
         infer_cfg.validate()
         if infer_cfg.threshold_z is not None and not (
                 isinstance(infer_cfg.running_list_length, int)
@@ -131,7 +130,7 @@ class MultiStreamSession:
             max_new_tokens=infer_cfg.max_new_tokens,
             repetition_penalty=infer_cfg.repetition_penalty,
             spec_tokens=infer_cfg.spec_decode_tokens,
-            spec_tokens_max=infer_cfg.spec_decode_tokens_max)
+            spec_tokens_max=infer_cfg.spec_decode_tokens_max, lora=lora, lora_scale=lora_scale)
         # each row's rule: a request may override it (inf: off for that row)
         inf = lambda x: np.inf if x is None else float(x)
         self._default_prob = inf(infer_cfg.stream_end_prob_threshold)
@@ -483,7 +482,9 @@ class MultiStreamServer(MultiStreamSession):
     ``StreamSession``'s. ``max_frames`` sizes the frames buffer."""
 
     def __init__(self, params, cfg, tokenizer, infer_cfg, *, batch: int, max_frames: int,
-                 engine=None, device="cuda", backend: str = "fused", lora=None, mesh=None):
+                 engine=None, device="cuda", backend: str = "fused", lora=None,
+                 lora_scale: float = 0.0, mesh=None):
         super().__init__(params, cfg, tokenizer, infer_cfg, batch=batch, engine=engine,
-                         device=device, backend=backend, lora=lora, mesh=mesh)
+                         device=device, backend=backend, lora=lora, lora_scale=lora_scale,
+                         mesh=mesh)
         self.max_frames = max_frames

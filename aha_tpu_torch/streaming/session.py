@@ -419,12 +419,13 @@ class StreamSession:
 
 
 def build_session(params: dict, cfg: AhaConfig, tokenizer: StreamTokenizer,
-                  infer_cfg: InferConfig, *, device="cuda",
-                  backend: str = "fused") -> StreamSession:
+                  infer_cfg: InferConfig, *, device="cuda", backend: str = "fused",
+                  lora: dict | None = None, lora_scale: float = 0.0) -> StreamSession:
     """InferConfig -> CachePolicy -> engine -> session, on ``device`` (where
-    ``params`` must already live): the card unless the caller asks for the
-    CPU; raises when there is no card. ``backend`` picks the quantized-matmul
-    kernels (``ops.quant.BACKENDS``). The widths of ``infer_cfg``
+    ``params`` and ``lora`` must already live): the card unless the caller
+    asks for the CPU; raises when there is no card. ``backend`` picks the
+    quantized-matmul kernels (``ops.quant.BACKENDS``); ``lora`` adapters apply
+    at ``lora_scale`` in every decoder pass. The widths of ``infer_cfg``
     (``fused_score_frames``, ``spec_decode_tokens``,
     ``spec_decode_tokens_max``) go to the engine as they are."""
     device = torch.device(device)
@@ -439,5 +440,5 @@ def build_session(params: dict, cfg: AhaConfig, tokenizer: StreamTokenizer,
         kv_dtype=torch.int8 if infer_cfg.kv_cache_dtype == "int8" else None,
         backend=backend, spec_tokens=infer_cfg.spec_decode_tokens,
         spec_tokens_max=infer_cfg.spec_decode_tokens_max,
-        fused_score_frames=infer_cfg.fused_score_frames)
+        fused_score_frames=infer_cfg.fused_score_frames, lora=lora, lora_scale=lora_scale)
     return StreamSession(engine, tokenizer, infer_cfg)

@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases 1,2   # device + kernel checks only
     python3 chip_smoke.py --phases 1,2,6 # + JAX's weights and the 7B fixture
     python3 chip_smoke.py --phases 1,2,7 # + multi-stream serving at B 8
+    python3 chip_smoke.py --phases 1,2,8 # + the serving options (adapters, --w8a8)
 
 Phases, one or more lines each:
   1. device: nvidia-smi name and power limit, torch / CUDA / nvcc versions,
@@ -29,7 +30,10 @@ Phases, one or more lines each:
      chose there before (replaced_ms, timed and not counted); int8_matmul with
      int8 activations also across its s8 wgmma tiles (17, 127-129, 231-233,
      1568), at the fused width of --w8a8 (392 rows) and down's long K, each
-     case on a Hopper path equal bit for bit to the plain version; int4_matmul
+     case on a Hopper path equal bit for bit to the plain version; both int8
+     entries at the int8 tower's products (q/k/v/out, fc1, fc2 at a frame's 576
+     rows and a 32-frame batch's 18,432) beside the dense tower's bf16
+     torch.matmul (dense_bf16_ms), with a tower layer's sum; int4_matmul
      with int8 activations also at the decode rows (2, 3, 7, 15, 16, G = 64 and
      256) and across its s8 wgmma tiles (17, 23-25, 79-81, 231-233, 1568) and
      down's long K; both a8 entries on their Hopper paths timed beside the
@@ -65,9 +69,10 @@ Phases, one or more lines each:
      cached attention at B 8, S 1 and 49: timed; every other width phase 7's
      passes give int8_matmul and the cached attention at B 8, and its projector
      rows: held against the plain version without timing),
-     at small ragged shapes and at phase 6's f32 shapes (int8_matmul at the
-     layer's products at 49, 171 and 196 rows, the lm_head's row, the
-     projector's 392; the cached attention at S = 49 and 171) (f32: 1e-4 *
+     at small ragged shapes and at phase 6's and 8b's f32 shapes (int8_matmul
+     at the layer's products at 49, 59, 171, 196 and 220 rows, the lm_head's
+     row, the projector's 392; the cached attention at S = 49, 59, 171 and
+     220) (f32: 1e-4 *
      max|y_ref|), with kernel and plain
      times (CUDA events; weights cycled through > L2 worth of copies), the
      bound (the larger of bytes moved / 3.35 TB/s and operations / the
@@ -128,7 +133,7 @@ Phases, one or more lines each:
           --int4, product defaults: JAX's synthetic weights, the prob threshold
           from their own scores), its driver's _full_pass over 32 frames,
           and cmd_infer end to end on a 4 s clip written with cv2.
-     Last (after phases 5-7 too), every shape that a path handed a kernel's
+     Last (after phases 5-8 too), every shape that a path handed a kernel's
      wrapper must be one that phase 2 held against the plain version;
   5. 7B int4 QLoRA training at full width and depth: int4 trunk, int8
      embedding table, dense bf16 projector and lm_head, LoRA r 16 on the seven
@@ -182,6 +187,27 @@ Phases, one or more lines each:
           and decode tokens/s beside the solo runs', latency_stats(), launches;
        c. `serve --synthetic_weights --int8 --batch 8` on 4 requests whose clips
           are written with cv2: one result line each, keys complete.
+  8. the serving options at 7B, in the same shape check, launch counters zeroed
+     just before each main path:
+       c. `infer --w8a8` from its flags: JAX's random init quantised with the
+          vision tower, backend "fused_a8", fused scoring of 8 frames; the
+          tower's ms a frame three ways (dense bf16, weight-only int8 and int8
+          activations, a 32-frame batch); score_video over 32 frames, then
+          inference() at 4 -> 8 and at generation width 1 (texts equal);
+       b. `infer --synthetic_weights --int8 --lora_pretrained DIR`: a peft
+          directory written on the card by save_adapter (r 16 adapters, f32
+          projector, heads and lm_head) in the system's temporary directory,
+          served with JAX's promotions (f32 frame embeddings and frame chunks);
+          score_video over 16 frames, inference() with a response;
+       a. r 16 adapters (B not zero) on 7B-int4, phase 4a's weights and stream:
+          score_video over 32 frames (scores against the adapter-free run's:
+          the adapters must move them), inference() over 64 frames at 4 -> 8 and
+          at generation width 1 (texts equal); at 7B-int8, B 8 (phase 7's
+          weights) the lockstep scorer (stream 0 alone in an otherwise empty
+          batch equal bit for bit to the full batch) and MultiStreamServer over 8
+          requests with the adapters; last, traced (profile_slice.Trace), the
+          wall and device-busy ms and aten ops of a token, a frame chunk and a
+          fused pass with and without the adapters.
 
 Prints the kernels' JSON line and, last, {"ok": true, "device": ...}.
 Exits nonzero, with no result line, when there is no CUDA device, when the
@@ -392,6 +418,12 @@ LAYER = [("qkv", 3584, 4608), ("o_proj", 3584, 3584), ("gate_up", 3584, 37888),
 PATH_M = (1, 4, 8, 13, 49, 59, 171, 196, 220)
 # rows of the training sequence of phase 5 (16 frames in one conversation)
 TRAIN_T = 926
+# the SigLIP-large/16-384 tower of --vision_int8 / --w8a8 (phase 8c): a layer's products
+# (q, k, v and out: 1024 x 1024; fc1 1024 x 4096; fc2 4096 x 1024), at a frame (576 rows)
+# and at the engine's vision batch of 32 frames (18,432 rows)
+TOWER = [("tower_qkvo", 1024, 1024), ("tower_fc1", 1024, 4096), ("tower_fc2", 4096, 1024)]
+TOWER_M = (576, 18432)
+TOWER_LAYER = {"tower_qkvo": 4, "tower_fc1": 1, "tower_fc2": 1}   # products a layer
 # multi-stream serving (phase 7): slots, and the lengths of its requests (the vision
 # tower's last batch of 32 frames leaves 24, 0, 8 or 16 frames: projector rows)
 SERVE_B = 8
@@ -607,20 +639,26 @@ def check_matmuls(gen, stats: Stats):
                  for n, K, N in (("projector_fc1", 1024, 3584), ("projector_fc2", 3584, 3584))]
 
     # int8, f32 activations (phase 6's f32 score traces: a frame, the system prompt and
-    # query, a fused pass of 4 frames; the lm_head's row; the projector's 8 frames)
-    f32_8 = [(n, M, *layer[n]) for n in layer for M in (49, 171, 196)]
+    # query, a fused pass of 4 frames; the lm_head's row; the projector's 8 frames; phase 8b's
+    # f32 frame chunks: the system prompt and first frame, a response's last token + stream
+    # prompt + frame)
+    f32_8 = [(n, M, *layer[n]) for n in layer for M in (49, 59, 171, 196, 220)]
     f32_8 += [("lm_head", 1, 3584, 152064), ("projector_fc1", 392, 1024, 3584),
               ("projector_fc2", 392, 3584, 3584)]
+
+    # the int8 tower (phase 8c), weight-only and with int8 activations, timed beside the
+    # dense tower's bf16 product (torch.matmul) that it replaces
+    tower = [(n, M, K, N) for M in TOWER_M for n, K, N in TOWER]
 
     # (kernel name, weight bits, a8, cases, M of the representative set)
     families = [
         ("int8_matmul", 8, False,
-         [(*c, None, bf, 1e-2) for c in cards]
+         [(*c, None, bf, 1e-2) for c in cards + tower]
          + [(*r, None, f32, 1e-4) for r in ragged8 + f32_8] + [(*edge, None, bf, 1e-2)]
          + [(*c, None, bf, 1e-2) for c in wgmma8 + old8 + decode_rows + serve_t8 + serve_h8],
          49),
         ("int8_matmul_a8", 8, True,
-         [(*c, None, bf, 2e-2) for c in cards]
+         [(*c, None, bf, 2e-2) for c in cards + tower]
          + [(*r, None, f32, 1e-4) for r in ragged8] + [(*edge, None, bf, 2e-2)]
          + [(*c, None, bf, 2e-2) for c in wgmma8a8 + decode_rows], 49),
         ("quant_matmul", 8, False,
@@ -638,8 +676,10 @@ def check_matmuls(gen, stats: Stats):
     ]
     sms = k8.num_sms(0)
     kernels = _build.library()
-    # a decoder layer's four products (and the projector's two) summed by entry and M
+    # a decoder layer's four products (and the projector's two) summed by entry and M; a
+    # tower layer's six products by entry and M, beside the dense tower's
     sums: dict = {}
+    tower_sums: dict = {}
     for name, bits, a8, cases, rep_m in families:
         for label, M, K, N, G, dt, tol in cases:
             wbytes = K * N * bits // 8
@@ -795,11 +835,18 @@ def check_matmuls(gen, stats: Stats):
                 del w8
             if not a8 and dt == bf and (label in layer or label == "lm_head") and (
                     M in (rep_m, TRAIN_T) + DECODE_LIB_M + SERVE_LIB_M
-                    or (bits == 8 and M == 196)):
-                # the bf16 product alone, on a weight dequantised beforehand
+                    or (bits == 8 and M == 196)) or label in TOWER_LAYER:
+                # the bf16 product alone, on a weight dequantised beforehand (the tower:
+                # also what its dense bf16 form computes, timed for both entries)
                 wd = dequantized(ws[0], sc) if bits == 4 else dequantized8(ws[0], sc)
-                lib = product_only_ms(x, wd, short)
+                dense = product_only_ms(x, wd, short)
+                lib = lib if a8 else dense
                 del wd
+            if label in TOWER_LAYER:
+                note += f" dense_bf16_ms={dense:.4f}"
+                acc = tower_sums.setdefault((name, M), [0.0, 0.0, 0.0, 0.0, 0.0])
+                for i, v in enumerate((ms, bms, lib, dense, pms)):
+                    acc[i] += TOWER_LAYER[label] * v
             if M == rep_m and label in layer and dt == bf:
                 stats.add(name, ms, pms, bms, by, lib,
                           f"decoder layer (qkv, o_proj, gate_up, down) at M={M}, bf16")
@@ -821,6 +868,11 @@ def check_matmuls(gen, stats: Stats):
                   f"plain_ms={pms:.4f} bound_ms={bms:.4f} ({by}) library_ms="
                   f"{'none' if lib is None else f'{lib:.4f}'}", flush=True)
             del ws
+    for (name, M), (ms, bms, lib, dense, pms) in sorted(tower_sums.items()):
+        print(f"phase2 sum {name} tower layer (q, k, v, out, fc1, fc2) M={M}: kernel_ms="
+              f"{ms:.4f} bound_ms={bms:.4f} plain_ms={pms:.4f} library_ms={lib:.4f} "
+              f"dense_bf16_ms={dense:.4f}; 24 layers {24 * ms:.3f} ms against dense "
+              f"{24 * dense:.3f} ms", flush=True)
     for (name, part, M), (ms, bms, lib, n_lib, pms, old, w8, quant) in sorted(sums.items()):
         print(f"phase2 sum {name} {part} M={M}: kernel_ms={ms:.4f} bound_ms={bms:.4f} "
               f"plain_ms={pms:.4f} library_ms={f'{lib:.4f}' if n_lib else 'none'}"
@@ -838,6 +890,7 @@ def check_quantize_rows(gen, stats: Stats):
     # the rows and widths the int8-activation products of the paths quantise
     cases = [(M, K, bf) for M in PATH_M + (5, 9) for K in (3584, 18944)]
     cases += [(M, K, bf) for M in (392, 1568) for K in (1024, 3584)] + [(392, 18944, bf)]
+    cases += [(M, K, bf) for M in TOWER_M for K in (1024, 4096)]     # the int8 tower's
     cases += [(7, 100, f32), (3, 33, f32)]
     for M, K, dt in cases:
         x = torch.randn((M, K), generator=gen, device="cuda").to(dt)
@@ -931,9 +984,12 @@ def check_attention(gen, stats: Stats):
               for S in sorted(set(sw["frame_steps"] + sw["queries"] + sw["mixed"] + sw["start"])
                               - {1, 49})]
     cases += [dict(seven, label="7b-held", B=1, S=S, Wp=2049) for S in sw["b1"]]
-    # f32 queries and cache: phase 6's f32 score traces (a frame, the prompt and query)
+    # f32 queries and cache: phase 6's f32 score traces (a frame, the prompt and query), and
+    # phase 8b's f32 frame chunks behind a peft artifact's f32 projector (the system prompt
+    # and first frame, a response's last token + stream prompt + frame), whose bf16 cache
+    # the attention reads widened to f32
     cases += [dict(seven, label="7b-f32", B=1, S=S, Wp=2049, q=f32, kv=f32, tol=1e-4)
-              for S in (49, 171)]
+              for S in (49, 59, 171, 220)]
     cases += [dict(label="ragged", B=2, S=5, NH=4, KVH=2, Dh=16, Wp=77, q=f32, kv=f32, tol=1e-4),
               dict(label="ragged", B=2, S=3, NH=6, KVH=2, Dh=64, Wp=129, q=f32, kv=f32, tol=1e-4),
               dict(label="ragged", B=1, S=9, NH=8, KVH=2, Dh=32, Wp=45, q=f32, kv=f32, tol=1e-4),
@@ -1552,12 +1608,13 @@ class ShapeRecorder:
 
 
 def run_inference(params, cfg, tok, frames, rule, widths, backend="fused", chunked=True,
-                  max_new_tokens=32):
+                  max_new_tokens=32, **session_kw):
     """inference() over ``frames`` with a query at t=0, the trigger ``rule``
     (a float: the prob rule at that threshold; else InferConfig fields), the
     chunked loop or the stepwise one. Returns (session, turns, seconds in
     all, seconds inside generate(), seconds and tokens of the decode passes
-    alone: a response's first token comes from the prompt chunk's logits)."""
+    alone: a response's first token comes from the prompt chunk's logits).
+    ``session_kw``: the adapters (``lora``, ``lora_scale``)."""
     import torch
 
     from aha_tpu_torch.config import InferConfig
@@ -1567,12 +1624,12 @@ def run_inference(params, cfg, tok, frames, rule, widths, backend="fused", chunk
         rule = dict(stream_end_prob_threshold=rule)
     sess = build_session(params, cfg, tok, InferConfig(
         frame_fps=2.0, kv_cache_policy="sink", kv_window=2048, num_sink_tokens=32,
-        max_new_tokens=max_new_tokens, **rule, **widths), backend=backend)
-    generate, append_ids = sess.engine.generate, sess.engine.append_ids
+        max_new_tokens=max_new_tokens, **rule, **widths), backend=backend, **session_kw)
+    generate, append = sess.engine.generate, sess.engine._append_padded
     gen_s, dec_s, dec_tokens, prompt_end = [0.0], [0.0], [0], [0.0]
 
-    def timed_append_ids(*a, **k):
-        out = append_ids(*a, **k)
+    def timed_append(*a, **k):
+        out = append(*a, **k)
         torch.cuda.synchronize()
         prompt_end[0] = time.perf_counter()
         return out
@@ -1580,7 +1637,7 @@ def run_inference(params, cfg, tok, frames, rule, widths, backend="fused", chunk
     def timed_generate(*a, **k):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = generate(*a, **k)           # its first call is append_ids (the prompt)
+        out = generate(*a, **k)           # its first pass is _append_padded (the prompt)
         torch.cuda.synchronize()
         end = time.perf_counter()
         gen_s[0] += end - t
@@ -1588,7 +1645,7 @@ def run_inference(params, cfg, tok, frames, rule, widths, backend="fused", chunk
         dec_tokens[0] += int(out[1].sum()) - 1
         return out
 
-    sess.engine.generate, sess.engine.append_ids = timed_generate, timed_append_ids
+    sess.engine.generate, sess.engine._append_padded = timed_generate, timed_append
     t0 = time.perf_counter()
     sess.input_video_stream(frames)
     sess.input_query_stream([{"role": "user", "content": QUERY, "time": 0}])
@@ -1616,7 +1673,7 @@ def check_7b_run(name, rows, sess, responses, n_frames):
     return seen
 
 
-def score_64(params, cfg, tok, frames, widths, backend="fused"):
+def score_64(params, cfg, tok, frames, widths, backend="fused", **session_kw):
     import torch
 
     from aha_tpu_torch.config import InferConfig
@@ -1625,7 +1682,7 @@ def score_64(params, cfg, tok, frames, widths, backend="fused"):
     t0 = time.perf_counter()
     sess = build_session(params, cfg, tok, InferConfig(
         grounding_mode=True, frame_fps=2.0, kv_cache_policy="sink", kv_window=2048,
-        num_sink_tokens=32, **widths), backend=backend)
+        num_sink_tokens=32, **widths), backend=backend, **session_kw)
     rows = sess.score_video(frames, query=QUERY)
     torch.cuda.synchronize()
     return rows, time.perf_counter() - t0
@@ -1662,7 +1719,7 @@ def verify_vs_sequential(sess, cfg, S: int = 8):
     return err, same
 
 
-def phases_4_to_7(gpu: str, seed: int, stats: Stats, phases: set):
+def phases_4_to_8(gpu: str, seed: int, stats: Stats, phases: set):
     """The 7B paths, then: every shape they gave a kernel was held against the
     plain version in phase 2."""
     phase2_ran = 2 in phases
@@ -1675,8 +1732,10 @@ def phases_4_to_7(gpu: str, seed: int, stats: Stats, phases: set):
             phase6(gpu, stats)
         if 7 in phases:
             phase7(gpu, seed, stats)
+        if 8 in phases:
+            phase8(gpu, seed, stats)
     missing = sorted(rec.seen - stats.checked, key=str)
-    print(f"phases 4-7 shapes handed to the kernels: {len(rec.seen)} distinct, "
+    print(f"phases 4-8 shapes handed to the kernels: {len(rec.seen)} distinct, "
           f"{len(missing)} not checked in phase 2"
           + ("" if phase2_ran else " (phase 2 did not run)"), flush=True)
     if phase2_ran and missing:
@@ -2727,11 +2786,418 @@ def phase7c(gpu: str, stats: Stats, L: int):
           f"{sorted(lines[0])}; launches {counts}", flush=True)
 
 
+# -- phase 8: the serving options at 7B ------------------------------------------------------
+
+LORA_R = 16
+
+
+def spaced(rows) -> dict:
+    """The prob rule at ``threshold(rows)`` with responses at least 8 frames
+    apart: a few responses a run, where the rule alone fires on most frames
+    once the first response has moved the scores."""
+    return dict(stream_end_prob_threshold=threshold(rows), response_min_interval_frames=8)
+
+
+def seeded_lora(cfg, seed: int) -> dict:
+    """r 16 adapters on the seven decoder projections, built on the card: A as
+    peft initialises it (``init_lora``: kaiming-uniform), B seeded normal x 0.01
+    (not zero, so that the adapters act); scale alpha / r = 2."""
+    import torch
+
+    from aha_tpu_torch.config import LoraConfig
+    from aha_tpu_torch.train.lora import init_lora
+
+    lora = init_lora(cfg.llm, LoraConfig(r=LORA_R), seed=seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    for ab in lora.values():
+        ab["b"] = torch.randn(ab["b"].shape, generator=gen, device="cuda") * 0.01
+    return lora
+
+
+def infer_args(*flags):
+    """``infer``'s parsed flags at the 7B preset, max_new_tokens 16 (the dataset
+    flags are placeholders)."""
+    from aha_tpu_torch.cli import _session
+
+    p = argparse.ArgumentParser()
+    _session._add_infer_flags(p)
+    return p.parse_args(["--test_dataset", "youcook2", "--input_dir", ".", "--output_fname",
+                         "unused", "--max_new_tokens", "16", *flags])
+
+
+def pass_costs(engine, tok, frames) -> dict:
+    """Per write pass of one token (8 passes, each with its host read), per
+    frame chunk (49 rows, 4 chunks) and per fused pass of 4 frames (196 rows, 2
+    passes), each run on a copy of one cache (query, system prompt and first
+    frame written): (wall ms, device busy ms, aten ops), from
+    ``profile_slice.Trace`` (a plain run for the wall, a traced one for the
+    union of the kernels' intervals)."""
+    import torch
+
+    from aha_tpu_torch.config import InferConfig
+    from aha_tpu_torch.models import qwen2
+    from aha_tpu_torch.profile_slice import Trace
+
+    rows = engine.encode_frames(frames)[None]
+    cache = engine.new_cache()
+    engine.append_ids(cache, [tok.apply_chat_template([{"role": "user", "content": QUERY}],
+                                                      add_stream_query_prompt=False,
+                                                      add_stream_prompt=True)])
+    engine.append_text_frames(cache, [tok.apply_chat_template(
+        [{"role": "system", "content": InferConfig().system_prompt}])], rows[:, 0])
+    one = torch.ones((1,), dtype=torch.int32, device="cuda")
+    emb = qwen2.embed_tokens(engine.params["llm"], torch.tensor([[100]], device="cuda"),
+                             engine.dtype)
+
+    def tokens():
+        c = cache.clone()
+        for _ in range(8):
+            engine._logits(engine._decode(c, emb, one)[:, 0]).argmax(-1).cpu()
+
+    def chunks():
+        c = cache.clone()
+        for t in range(1, 5):
+            engine.append_frames(c, rows[:, t]).cpu()
+
+    def fused():
+        c = cache.clone()
+        for t in (1, 5):
+            engine.append_frames_fused(c, rows[:, t:t + 4]).cpu()
+
+    out = {}
+    for name, fn, n in (("token", tokens, 8), ("frame chunk", chunks, 4),
+                        ("fused pass", fused, 2)):
+        tr = Trace()
+        tr.run(fn)
+        out[name] = (tr.wall_ms / n, tr.busy_ms() / n, sum(tr.aten_ops().values()) / n)
+    return out
+
+
+def phase8(gpu: str, seed: int, stats: Stats):
+    """The serving options at 7B: (c) --w8a8 from flags, (b) --lora_pretrained
+    from flags, (a) r 16 adapters on 7B-int4 and on multi-stream serving at
+    7B-int8, B 8, then the adapters' cost a pass (traced last)."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg, tok = _model("7b")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    frames = torch.randint(0, 256, (96, 384, 384, 3), generator=gen, device="cuda",
+                           dtype=torch.uint8)                     # phase 4's stream
+    phase8c(gpu, stats, cfg, tok, frames)
+    phase8b(gpu, seed, stats, cfg, tok, frames)
+    phase8a(gpu, seed, stats, cfg, tok, frames)
+    print(f"phase8 took {time.perf_counter() - t_phase:.1f}s", flush=True)
+
+
+def phase8c(gpu: str, stats: Stats, cfg, tok, frames):
+    """``infer --w8a8`` at 7B from its flags: JAX's random init quantised with
+    the tower, the "fused_a8" backend, fused scoring of 8 frames."""
+    import torch
+
+    from aha_tpu_torch.cli import _session
+    from aha_tpu_torch.models import aha
+    from aha_tpu_torch.ops import kernels, quant
+
+    L, Lv = cfg.llm.num_layers, cfg.vision.num_layers
+    t0 = time.perf_counter()
+    sess = _session._build_session(infer_args("--w8a8", "--stream_end_prob_threshold", "1.0"))
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    e = sess.engine
+    params = e.params
+    int8 = lambda p: isinstance(p["kernel"], dict) and "qvalue" in p["kernel"]
+    if not (e.backend == "fused_a8" and e.fused_frames == 8 and e.spec_max == 8
+            and int8(params["vision"]["layers"]["fc1"]) and int8(params["llm"]["lm_head"])
+            and int8(params["projector"]["fc1"])):
+        raise AssertionError(f"phase8c: --w8a8 built backend {e.backend}, fused "
+                             f"{e.fused_frames}, an int8 tower "
+                             f"{int8(params['vision']['layers']['fc1'])}")
+    del sess
+
+    # the tower's ms a frame three ways, one vision batch of 32 frames: dense bf16 (the
+    # int8 weights dequantised), weight-only int8 (--vision_int8), int8 activations
+    def dense(node):
+        if isinstance(node, dict):
+            if "kernel" in node and isinstance(node["kernel"], dict):
+                return {**node, "kernel": quant.dequantize(node["kernel"])}
+            return {k: dense(v) for k, v in node.items()}
+        return node
+
+    ways = {"dense bf16": ({**params, "vision": dense(params["vision"])}, "fused"),
+            "int8 weight-only (--vision_int8)": (params, "fused"),
+            "int8 activations (--w8a8)": (params, "fused_a8")}
+    tower_ms = {}
+    for way, (tree, backend) in ways.items():
+        run = lambda: aha.encode_vision_tokens(tree, cfg, frames[:32], torch.bfloat16, backend)
+        feats = run()
+        tower_ms[way] = cuda_ms(lambda i: run(), iters=3, warmup=1) / 32
+        if way.startswith("dense"):
+            ref = feats
+        else:
+            err = (feats.float() - ref.float()).abs().max().item()
+            tower_ms[way + " max|diff| to dense"] = err
+    del ways
+
+    w8a8 = dict(fused_score_frames=8, spec_decode_tokens=4, spec_decode_tokens_max=8)
+    with PassCounter() as pc:
+        kernels.reset_launches()                       # the main path starts here
+        rows, t_sv = score_64(params, cfg, tok, frames[:32], w8a8, backend="fused_a8")
+        sess, turns, t_inf, _, dec_s, dec_tokens = run_inference(
+            params, cfg, tok, frames[:32], spaced(rows), w8a8, backend="fused_a8",
+            max_new_tokens=16)
+        counts = dict(kernels.LAUNCHES)                # ... and ends here
+        chunks, verifies = pc.chunks, pc.verifies
+    responses = texts(turns)
+    n = counts.get("int8_matmul_a8", 0)
+    tower = 2 * 6 * Lv                                 # two vision batches, six products a layer
+    if (n < tower + L * 4 * (chunks + verifies) or counts.get("int8_matmul", 0)
+            or counts.get("quantize_rows", 0) < n or counts.get("decode_attention", 0) < L * chunks
+            or len(rows) != 32 or len(sess.debug_data_list) != 32 or not responses
+            or not all(math.isfinite(r[k]) for r in rows for k in SCORE_KEYS)):
+        raise AssertionError(f"phase8c: launches {counts} over {chunks} chunks + {verifies} "
+                             f"verify passes, {len(rows)} / {len(sess.debug_data_list)} "
+                             f"frames, {len(responses)} responses")
+    stats.launches(counts)
+    _, turns1, *_ = run_inference(params, cfg, tok, frames[:32], spaced(rows),
+                                  dict(w8a8, spec_decode_tokens=1), backend="fused_a8",
+                                  max_new_tokens=16)
+    if texts(turns1) != responses:
+        raise AssertionError("phase8c: speculative texts differ from the width-1 texts:"
+                             + _first_divergence(responses, texts(turns1)))
+    print(f"phase8c infer --w8a8 from flags, 7B [{gpu}]: random init quantised with the tower "
+          f"{t_build:.2f}s; backend {e.backend}, fused {e.fused_frames}, generation "
+          f"{e.spec_tokens}->{e.spec_max}; the tower a frame (32-frame batch, 24 layers, CUDA "
+          f"events): {json.dumps({k: round(v, 4) for k, v in tower_ms.items()})}; score_video "
+          f"32 frames in 4 fused passes of 392 rows {t_sv:.3f}s = {32 / t_sv:.2f} frames/s; "
+          f"inference() 32 frames {t_inf:.3f}s, {len(responses)} responses, decode "
+          f"{dec_tokens} tokens in {dec_s:.3f}s; texts at 4->8 equal to width 1's; "
+          f"{chunks} chunks + {verifies} verify passes; launches int8_matmul_a8={n} "
+          f"(the tower's {tower}), quantize_rows={counts.get('quantize_rows', 0)}",
+          flush=True)
+    del params, sess, rows
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase8b(gpu: str, seed: int, stats: Stats, cfg, tok, frames):
+    """``infer --synthetic_weights --int8 --lora_pretrained DIR`` at 7B: a peft
+    directory written on the card by the port's ``save_adapter`` (r 16
+    adapters, f32 projector, heads and lm_head), served over JAX's synthetic
+    int8 tree: the overrides stay dense f32, so the tower and the frame chunks
+    run in f32 (JAX's promotions)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from aha_tpu_torch.cli import _session
+    from aha_tpu_torch.models import loader
+    from aha_tpu_torch.ops import kernels
+
+    L = cfg.llm.num_layers
+    H, Hv, V = cfg.llm.hidden_size, cfg.vision.hidden_size, cfg.llm.vocab_size
+    gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+    rand = lambda *shape: torch.randn(shape, generator=gen, device="cuda") * 0.02
+    modules = {"projector": {"fc1": {"kernel": rand(Hv, H), "bias": rand(H)},
+                             "fc2": {"kernel": rand(H, H), "bias": rand(H)}},
+               "heads": {n: {"kernel": rand(H, c)} for n, c in
+                         (("informative", 2), ("relevance", 1), ("uncertainty", 1))},
+               "llm": {"lm_head": {"kernel": rand(H, V)}}}
+    with tempfile.TemporaryDirectory() as d:        # the system's temporary directory
+        t0 = time.perf_counter()
+        loader.save_adapter(d, seeded_lora(cfg, seed + 1), 2.0, modules)
+        t_write = time.perf_counter() - t0
+        size = os.path.getsize(os.path.join(d, "adapter_model.safetensors"))
+        del modules
+        t0 = time.perf_counter()
+        sess = _session._build_session(infer_args(
+            "--synthetic_weights", "--int8", "--lora_pretrained", d,
+            "--stream_end_prob_threshold", "1.0"))
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+    e = sess.engine
+    p = e.params
+    if not (e.lora_scale == 2.0 and sorted(e.lora) == sorted(
+            ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj"))
+            and all(ab["a"].shape[-1] == LORA_R and ab["a"].is_cuda for ab in e.lora.values())
+            and p["llm"]["lm_head"]["kernel"].dtype == torch.float32
+            and p["projector"]["fc1"]["kernel"].dtype == torch.float32
+            and p["vision"]["layers"]["fc1"]["kernel"].dtype == torch.bfloat16
+            and isinstance(p["llm"]["layers"]["qkv_proj"]["kernel"], dict)):
+        raise AssertionError("phase8b: the session does not hold the adapter's parts")
+    emb_dtype = e.encode_frames(frames[:1]).dtype
+    if emb_dtype != torch.float32:
+        raise AssertionError(f"phase8b: frame embeddings in {emb_dtype}, not f32")
+    product = dict(fused_score_frames=4, spec_decode_tokens=4, spec_decode_tokens_max=8)
+    with PassCounter() as pc:
+        kernels.reset_launches()                       # the main path starts here
+        t0 = time.perf_counter()
+        rows = sess.score_video(frames[:16], query=QUERY)
+        torch.cuda.synchronize()
+        t_sv = time.perf_counter() - t0
+        se = sorted((r["informative_score"] + r["relevance_score"] for r in rows), reverse=True)
+        sess2, turns, t_inf, _, dec_s, dec_tokens = run_inference(
+            p, cfg, tok, frames[:16], dict(stream_end_prob_threshold=se[3],
+                                           response_min_interval_frames=8),
+            product, max_new_tokens=16, lora=e.lora, lora_scale=e.lora_scale)
+        counts = dict(kernels.LAUNCHES)                # ... and ends here
+        chunks, verifies = pc.chunks, pc.verifies
+    responses = texts(turns)
+    if (counts.get("int8_matmul", 0) < L * 4 * (chunks + verifies)
+            or counts.get("decode_attention", 0) < L * chunks or not responses
+            or len(rows) != 16 or len(sess2.debug_data_list) != 16
+            or not all(math.isfinite(r[k]) for r in rows + sess2.debug_data_list
+                       for k in SCORE_KEYS)):
+        raise AssertionError(f"phase8b: launches {counts} over {chunks} chunks + {verifies} "
+                             f"verify passes, {len(rows)} frames, {len(responses)} responses")
+    stats.launches(counts)
+    print(f"phase8b infer --synthetic_weights --int8 --lora_pretrained DIR, 7B [{gpu}]: peft "
+          f"directory of {size / 2**30:.2f} GiB written by save_adapter in {t_write:.2f}s; "
+          f"session from the flags {t_build:.2f}s (r {LORA_R}, scale {e.lora_scale}, f32 "
+          f"projector / heads / lm_head over the int8 trunk, frame embeddings {emb_dtype}); "
+          f"score_video 16 frames at fused 4 {t_sv:.3f}s; inference() 16 frames {t_inf:.3f}s, "
+          f"{len(responses)} responses, first {responses[0][:40]!r}; decode {dec_tokens} "
+          f"tokens in {dec_s:.3f}s; {chunks} chunks + {verifies} verify passes; launches "
+          f"{counts}", flush=True)
+    del sess, sess2, p, e
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase8a(gpu: str, seed: int, stats: Stats, cfg, tok, frames):
+    """r 16 adapters at 7B: 7B-int4 on phase 4a's weights and stream at the
+    product widths and at generation width 1 (texts equal), the scores against
+    the adapter-free run's; then at 7B-int8, B 8, on phase 7's weights: the
+    lockstep scorer (stream 0 alone equal bit for bit to the full batch) and a
+    short MultiStreamServer run; last, traced, the adapters' cost a pass."""
+    import torch
+
+    from aha_tpu_torch.config import InferConfig
+    from aha_tpu_torch.models.aha import random_params
+    from aha_tpu_torch.ops import kernels
+    from aha_tpu_torch.streaming.multi import MultiStreamScorer, MultiStreamServer
+    from aha_tpu_torch.streaming.session import build_session
+
+    L = cfg.llm.num_layers
+    cache = dict(frame_fps=2.0, kv_cache_policy="sink", kv_window=2048, num_sink_tokens=32)
+    product = dict(fused_score_frames=4, spec_decode_tokens=4, spec_decode_tokens_max=8)
+    params = random_params(cfg, mode="int4", seed=seed)          # phase 4a's weights
+    ad = dict(lora=seeded_lora(cfg, seed), lora_scale=2.0)
+    with PassCounter() as pc:
+        kernels.reset_launches()                       # the main path starts here
+        rows, t_sv = score_64(params, cfg, tok, frames[:32], product, **ad)
+        sess, turns, t_inf, _, dec_s, dec_tokens = run_inference(
+            params, cfg, tok, frames[:64], spaced(rows), product, max_new_tokens=16, **ad)
+        counts = dict(kernels.LAUNCHES)                # ... and ends here
+        chunks, verifies = pc.chunks, pc.verifies
+    responses = texts(turns)
+    if (counts.get("int4_matmul", 0) < L * 4 * (chunks + verifies)
+            or counts.get("decode_attention", 0) < L * chunks or not responses
+            or len(sess.debug_data_list) != 64
+            or not all(math.isfinite(r[k]) for r in rows + sess.debug_data_list
+                       for k in SCORE_KEYS)):
+        raise AssertionError(f"phase8a: launches {counts} over {chunks} chunks + {verifies} "
+                             f"verify passes, {len(responses)} responses")
+    stats.launches(counts)
+    plain, t_plain = score_64(params, cfg, tok, frames[:32], product)
+    moved = max(abs(a[k] - b[k]) for a, b in zip(rows, plain) for k in SCORE_KEYS)
+    _, turns1, _, _, dec_s1, dec_tokens1 = run_inference(
+        params, cfg, tok, frames[:64], spaced(rows), dict(product, spec_decode_tokens=1),
+        max_new_tokens=16, **ad)
+    if texts(turns1) != responses or not moved > 1e-3:
+        raise AssertionError(f"phase8a: scores moved by the adapters {moved:.3e}; texts at "
+                             f"4->8 against width 1:"
+                             + _first_divergence(responses, texts(turns1)))
+    print(f"phase8a 7b-int4 with r {LORA_R} adapters at widths 4 / 4->8 [{gpu}]: score_video 32 "
+          f"frames {t_sv:.3f}s (without adapters {t_plain:.3f}s), scores moved by the adapters "
+          f"up to {moved:.3e}; inference() 64 frames {t_inf:.3f}s, {len(responses)} responses, "
+          f"decode {dec_tokens} tokens in {dec_s:.3f}s; at generation width 1 {dec_tokens1} "
+          f"tokens in {dec_s1:.3f}s, texts equal; {chunks} chunks + {verifies} verify passes; "
+          f"launches {counts}", flush=True)
+    del sess, rows, plain
+
+    # -- multi-stream serving with the adapters at 7B-int8, B 8 ---------------------------
+    B = SERVE_B
+    params8 = random_params(cfg, mode="int8", seed=seed)         # phase 7's weights
+    # 32 frames a stream, as in 7b: stream 0 alone then fills one vision batch of 32, as
+    # each of the full batch's does (a batch of 16 would take other product plans)
+    videos = [frames[8 * b:8 * b + 32] for b in range(B)]
+    scorer = MultiStreamScorer(params8, cfg, tok, InferConfig(grounding_mode=True, **cache,
+                                                              **product), batch=B, **ad)
+    with PassCounter() as pc:
+        kernels.reset_launches()                       # the main path starts here
+        t0 = time.perf_counter()
+        full = scorer.score_videos(videos, [QUERY] * B, fps=2.0)
+        torch.cuda.synchronize()
+        t_full = time.perf_counter() - t0
+        counts = dict(kernels.LAUNCHES)                # ... and ends here
+    if (counts.get("int8_matmul", 0) < L * 4 * (pc.chunks + pc.verifies)
+            or counts.get("decode_attention", 0) < L * pc.chunks):
+        raise AssertionError(f"phase8a scorer: launches {counts}")
+    stats.launches(counts)
+    alone = scorer.score_videos([videos[0]] + [frames[:0]] * (B - 1),
+                                [QUERY] + [None] * (B - 1), fps=2.0)
+    if alone[0] != full[0] or [len(r) for r in full] != [32] * B:
+        raise AssertionError("phase8a scorer: stream 0 alone differs from the full batch")
+    del scorer
+    se = sorted(r["informative_score"] + r["relevance_score"] for rows in full for r in rows)
+    lengths = (16, 24, 32, 16, 24, 32, 16, 24)
+    items = [(f"r{j}", frames[5 * j:5 * j + n], [{"role": "user", "content": QUERY, "time": 0}])
+             for j, n in enumerate(lengths)]
+    server = MultiStreamServer(params8, cfg, tok, InferConfig(
+        **cache, **product, max_new_tokens=16, stream_end_prob_threshold=se[int(0.9 * len(se))]),
+        batch=B, max_frames=max(lengths), **ad)
+    with PassCounter() as pc:
+        kernels.reset_launches()                       # the main path starts here
+        t0 = time.perf_counter()
+        res = server.run_items(items, fps=2.0)
+        torch.cuda.synchronize()
+        t_serve = time.perf_counter() - t0
+        counts = dict(kernels.LAUNCHES)                # ... and ends here
+    n_resp = sum(t["role"] == "assistant" for r in res.values() for t in r["responses"])
+    if ([len(res[k]["debug_data"]) for k, *_ in items] != list(lengths) or n_resp < 1
+            or counts.get("int8_matmul", 0) < L * 4 * (pc.chunks + pc.verifies)
+            or not all(math.isfinite(d[k]) for r in res.values() for d in r["debug_data"]
+                       for k in SCORE_KEYS)):
+        raise AssertionError(f"phase8a server: {n_resp} responses, launches {counts}")
+    stats.launches(counts)
+    lat = server.latency_stats()
+    print(f"phase8a 7b-int8 B {B} with r {LORA_R} adapters [{gpu}]: MultiStreamScorer {B} x 32 "
+          f"frames at fused 4 {t_full:.3f}s = {B * 32 / t_full:.2f} frames/s, stream 0 alone in "
+          f"an otherwise empty batch equal bit for bit to the full batch; MultiStreamServer "
+          f"{len(items)} requests, {sum(lengths)} frames {t_serve:.3f}s = "
+          f"{sum(lengths) / t_serve:.2f} frames/s, {n_resp} responses, {lat.get('tokens', 0)} "
+          f"tokens, latency_stats {lat}; {pc.chunks} chunks + {pc.verifies} verify passes; "
+          f"launches {counts}", flush=True)
+    del server, res, params8
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the adapters' cost a pass (7B-int4, spec 1, fused 4), traced last ------------------
+    icfg = InferConfig(grounding_mode=True, **cache, fused_score_frames=4, spec_decode_tokens=1)
+    costs = {name: pass_costs(build_session(params, cfg, tok, icfg, **kw).engine, tok,
+                              frames[:32])
+             for name, kw in (("with", ad), ("without", {}))}
+    for unit in ("token", "frame chunk", "fused pass"):
+        (w, b, a), (w0, b0, a0) = costs["with"][unit], costs["without"][unit]
+        print(f"phase8a 7b-int4 {unit} with r {LORA_R} adapters [{gpu}]: wall {w:.3f} ms, "
+              f"device busy {b:.3f} ms, {a:.0f} aten ops; without: wall {w0:.3f} ms, device "
+              f"busy {b0:.3f} ms, {a0:.0f} aten ops; the adapters' cost: wall {w - w0:+.3f} ms, "
+              f"device {b - b0:+.3f} ms, {a - a0:+.0f} aten ops", flush=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
                     help="comma-separated phases (1 device, 2 kernels, 3 tiny slices, 4 7B "
-                         "serving, 5 7B training, 6 JAX's weights, 7 multi-stream serving); "
+                         "serving, 5 7B training, 6 JAX's weights, 7 multi-stream serving, 8 "
+                         "the serving options: adapters, --w8a8); "
                          "anything short of all of them exits 1 with no result line")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -2788,8 +3254,8 @@ def main() -> int:
     if 3 in phases:
         phase3(args.seed)
         phase3_train(args.seed)
-    if phases & {4, 5, 6, 7}:
-        phases_4_to_7(gpu, args.seed, stats, phases)
+    if phases & {4, 5, 6, 7, 8}:
+        phases_4_to_8(gpu, args.seed, stats, phases)
 
     print(f"{gpu}; chip_smoke took {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": [
@@ -2799,7 +3265,7 @@ def main() -> int:
          "bound_ms": stats.k[n]["bound_ms"], "bound_by": stats.k[n]["bound_by"],
          "library_ms": stats.k[n]["library_ms"], "shape": stats.k[n]["shape"]}
         for n, (src, tpu) in KERNELS.items()]}), flush=True)
-    if phases != {1, 2, 3, 4, 5, 6, 7}:
+    if phases != {1, 2, 3, 4, 5, 6, 7, 8}:
         print(f"chip_smoke: ran phases {sorted(phases)} only", file=sys.stderr)
         return 1
     missing = [n for n in KERNELS if stats.k[n]["launches"] <= 0]

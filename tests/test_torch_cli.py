@@ -1,8 +1,9 @@
 """The port's command line and the host modules behind ``infer`` on the CPU:
 cv2 decoding and the streaming-QA dataset against JAX's on cv2-written clips,
 the driver against JAX's driver on bridged sessions, ``python -m
-aha_tpu_torch.cli infer`` end to end at the tiny preset, and every refusal of
-what is not ported."""
+aha_tpu_torch.cli infer`` end to end at the tiny preset, its serving options
+(``--w8a8``, ``--vision_int8``, ``--lora_pretrained``) against the JAX
+command, and every refusal of what is not ported."""
 
 import dataclasses
 import functools
@@ -258,27 +259,80 @@ def test_cli_infer_writes_the_jax_format(video_dir, tmp_path, mode):
         assert ("assistant" in roles) == (mode == "generation")
 
 
-REFUSED_FLAGS = {
-    "w8a8": (["--int8", "--w8a8"], "item 8"),
-    "vision_int8": (["--int8", "--vision_int8"], "item 8"),
-    # a checkpoint loads now; its adapters are still refused
-    "llm_pretrained": (["--int8", "--llm_pretrained", "ckpt", "--lora_pretrained", "lora"],
-                       "item 5"),
-    "lora_pretrained": (["--int8", "--lora_pretrained", "lora"], "item 5"),
-    # dense synthetic weights run now; a quantised tower over them is still refused
-    "dense_synthetic": (["--vision_int8"], "item 8"),
-    # concurrent streams run now; their adapters are still refused
-    "concurrent_streams": (["--int8", "--concurrent_streams", "2", "--lora_pretrained", "lora"],
-                           "item 5"),
+# the serving options of infer, each run on both sides: int8 weights, the int8 tower and
+# per-token int8 activations at fused 8 (JAX's random init, so the tower is quantised); the
+# int8 tower alone; the reference's checkpoint and peft artifact (bf16 .safetensors, r 4);
+# a peft directory written by the port over synthetic int8 weights (the overrides stay
+# dense f32 there), at one stream and at two; --vision_int8 over dense synthetic weights,
+# whose tower JAX leaves dense
+SERVING_OPTIONS = {
+    "w8a8": ["--w8a8"],
+    "vision_int8": ["--int8", "--vision_int8"],
+    "llm_pretrained": ["--int8", "--llm_pretrained", "{ckpt}", "--tokenizer_pretrained",
+                       "{ckpt}", "--lora_pretrained", "{adapter}"],
+    "lora_pretrained": ["--synthetic_weights", "--int8", "--lora_pretrained", "{peft}"],
+    "dense_synthetic": ["--synthetic_weights", "--vision_int8"],
+    "concurrent_streams": ["--synthetic_weights", "--int8", "--concurrent_streams", "2",
+                           "--lora_pretrained", "{peft}"],
 }
 
 
-@pytest.mark.parametrize("case", list(REFUSED_FLAGS))
-def test_cli_infer_refuses_what_is_not_ported(video_dir, tmp_path, case):
-    flags, item = REFUSED_FLAGS[case]
-    with pytest.raises(NotImplementedError, match=item):
-        cmd_infer(_infer_argv(video_dir, tmp_path / "x.jsonl", *flags)[1:])
-    assert not (tmp_path / "x.jsonl").exists()
+@pytest.fixture(scope="module")
+def port_peft(tmp_path_factory):
+    """A peft directory for the tiny preset (vocab 512) written by the port's
+    save_adapter: seeded r 4 adapters on the seven projections (B != 0),
+    alpha 8, and f32 projector, heads and lm_head."""
+    from aha_tpu_torch.models import loader
+    from aha_tpu_torch.train.lora import proj_dims
+
+    cfg = tconfig.aha_tiny()
+    g = torch.Generator().manual_seed(11)
+    rand = lambda *shape: torch.randn(shape, generator=g) * 0.05
+    L, H, Hv, V = (cfg.llm.num_layers, cfg.llm.hidden_size, cfg.vision.hidden_size,
+                   cfg.llm.vocab_size)
+    lora = {n: {"a": rand(L, din, 4) * 2, "b": rand(L, 4, dout)}
+            for n, (din, dout) in proj_dims(cfg.llm).items()}
+    modules = {"projector": {"fc1": {"kernel": rand(Hv, H), "bias": rand(H)},
+                             "fc2": {"kernel": rand(H, H), "bias": rand(H)}},
+               "heads": {n: {"kernel": rand(H, c)} for n, c in
+                         (("informative", 2), ("relevance", 1), ("uncertainty", 1))},
+               "llm": {"lm_head": {"kernel": rand(H, V)}}}
+    return loader.save_adapter(str(tmp_path_factory.mktemp("peft")), lora, 2.0, modules)
+
+
+@pytest.mark.parametrize("case", list(SERVING_OPTIONS))
+def test_cli_infer_runs_the_serving_options(video_dir, cv2_only, tmp_path, monkeypatch,
+                                           checkpoint_and_adapter, port_peft, case):
+    """``infer`` with --w8a8, --vision_int8 or --lora_pretrained (the options the
+    port refused before) against the JAX command with the same flags: the same
+    lines, turns equal, scores within 1e-3 after `round_numbers`' 3 places
+    (2e-3 with int8 activations, whose quantiser ties can fall the other way).
+    Widths 1 (--w8a8: its fused 8), as the commands' plumbing is what is held."""
+    from aha_tpu.cli.infer import cmd_infer as jcmd_infer
+
+    monkeypatch.setattr(quant, "_FORCE_BACKEND", None)      # JAX's --w8a8 sets it
+    ckpt, adapter = checkpoint_and_adapter
+    flags = [f.format(ckpt=ckpt, adapter=adapter, peft=port_peft)
+             for f in SERVING_OPTIONS[case]]
+    flags += ["--spec_decode_tokens", "1", "--stream_end_prob_threshold", "0.5"]
+    if case != "w8a8":
+        flags += ["--fused_score_frames", "1"]
+    argv = [a for a in _infer_argv(video_dir, tmp_path / "port.jsonl")[1:]
+            if a != "--synthetic_weights"] + flags
+    cmd_infer(argv)
+    jargv = [a for a in argv if a not in ("--device", "cpu")]
+    jargv[jargv.index("--output_fname") + 1] = str(tmp_path / "jax.jsonl")
+    jcmd_infer(jargv)
+    got = [json.loads(x) for x in (tmp_path / "port.jsonl").read_text().splitlines()]
+    ref = [json.loads(x) for x in (tmp_path / "jax.jsonl").read_text().splitlines()]
+    assert [x["question_id"] for x in got] == [x["question_id"] for x in ref] == ["q1", "q3"]
+    for a, b in zip(got, ref):
+        assert a.keys() == b.keys() and a["video_duration"] == b["video_duration"]
+        assert a["model_response_list"] == b["model_response_list"]
+        assert [d["time"] for d in a["debug_data"]] == [d["time"] for d in b["debug_data"]]
+        np.testing.assert_allclose([[d[k] for k in KEYS] for d in a["debug_data"]],
+                                   [[d[k] for k in KEYS] for d in b["debug_data"]],
+                                   atol=2e-3 if case == "w8a8" else 1e-3)
 
 
 def _session_scores(sess, frames):
@@ -318,13 +372,19 @@ def test_cli_infer_refuses_a_run_without_synthetic_weights(video_dir, tmp_path):
 
 
 @pytest.fixture(scope="module")
-def checkpoint(tmp_path_factory):
+def checkpoint_and_adapter(tmp_path_factory):
     """scripts/make_synthetic_hf_checkpoint.py's reduced llava-onevision
-    checkpoint (bf16 .safetensors shards, config.json, a BPE tokenizer)."""
+    checkpoint (bf16 .safetensors shards, config.json, a BPE tokenizer) and
+    its peft adapter directory."""
     sys.path.insert(0, str(ROOT / "scripts"))
     import make_synthetic_hf_checkpoint
 
-    return make_synthetic_hf_checkpoint.generate(str(tmp_path_factory.mktemp("ckpt")))[0]
+    return make_synthetic_hf_checkpoint.generate(str(tmp_path_factory.mktemp("ckpt")))
+
+
+@pytest.fixture(scope="module")
+def checkpoint(checkpoint_and_adapter):
+    return checkpoint_and_adapter[0]
 
 
 @pytest.mark.parametrize("weights", ["checkpoint-int8", "dense-synthetic"])

@@ -131,6 +131,15 @@ def test_init_aha_params_matches_jax(dtype, cls):
     assert_trees(got, bridged(ref), float_ulps=3 if dtype is None else 1)
 
 
+def test_init_aha_params_in_slabs():
+    """Drawn in slabs of a few thousand values (a 7B leaf's counters would not
+    fit the card whole), every leaf equals the whole draw bit for bit."""
+    cfg = port_cfg(jconfig.aha_tiny())
+    whole = loader.init_aha_params(cfg, seed=3, device="cpu", slab=1 << 40)
+    assert_trees(loader.init_aha_params(cfg, seed=3, device="cpu", slab=3001), whole,
+                 float_ulps=0)
+
+
 def test_materialize_refuses():
     cfg = tconfig.aha_tiny()
     with pytest.raises(ValueError, match="mode"):

@@ -408,11 +408,13 @@ def test_server_matches_solo_sessions(model, case, width):
 
 
 def test_refusals(model):
-    """Sharded serving and adapters are refused with their ROADMAP items."""
+    """Sharded serving is refused with its ROADMAP item; adapters are taken
+    now, and go to the engine (tests/test_torch_adapters.py serves them)."""
     _, _, _, tparams, tcfg, ttok = model
     kw = _kw(stream_end_prob_threshold=0.5)
     with pytest.raises(NotImplementedError, match="item 12"):
         multi.MultiStreamServer(tparams, tcfg, ttok, InferConfig(**kw), batch=2, max_frames=4,
                                 mesh=object(), **CPU)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        multi.MultiStreamScorer(tparams, tcfg, ttok, InferConfig(**kw), batch=2, lora={}, **CPU)
+    scorer = multi.MultiStreamScorer(tparams, tcfg, ttok, InferConfig(**kw), batch=2, lora={},
+                                     lora_scale=2.0, **CPU)
+    assert scorer.engine.lora == {} and scorer.engine.lora_scale == 2.0

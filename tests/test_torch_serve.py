@@ -3,7 +3,8 @@
 tiny preset against the JAX commands on the same clips, written with cv2.
 Neither side is given weights, so both serve JAX's seed-0 init quantised by
 --int8; the lines must agree in keys and content (scores within 1e-3 after
-the drivers' rounding), and what is not ported is refused."""
+`round_numbers`' 3 places), with adapters and with --w8a8 too, and what is not
+ported is refused."""
 
 import json
 import pathlib
@@ -135,12 +136,61 @@ def test_serve_matches_jax(clips, tmp_path):
     assert any(t["role"] == "assistant" for x in got.values() for t in x.get("responses", []))
 
 
-@pytest.mark.parametrize("flags,item", [(["--mesh_model", "2"], "item 12"),
-                                        (["--lora_pretrained", "lora"], "item 5"),
-                                        (["--int8", "--w8a8"], "item 8")])
+@pytest.fixture(scope="module")
+def port_peft(tmp_path_factory):
+    """A peft directory for the tiny preset written by the port's save_adapter:
+    seeded r 4 adapters (B != 0) at alpha 8, f32 projector, heads and lm_head."""
+    from aha_tpu_torch import config as tconfig
+    from aha_tpu_torch.models import loader
+    from aha_tpu_torch.train.lora import proj_dims
+
+    cfg = tconfig.aha_tiny()
+    g = torch.Generator().manual_seed(12)
+    rand = lambda *shape: torch.randn(shape, generator=g) * 0.05
+    L, H, Hv, V = (cfg.llm.num_layers, cfg.llm.hidden_size, cfg.vision.hidden_size,
+                   cfg.llm.vocab_size)
+    lora = {n: {"a": rand(L, din, 4) * 2, "b": rand(L, 4, dout)}
+            for n, (din, dout) in proj_dims(cfg.llm).items()}
+    modules = {"projector": {"fc1": {"kernel": rand(Hv, H), "bias": rand(H)},
+                             "fc2": {"kernel": rand(H, H), "bias": rand(H)}},
+               "heads": {n: {"kernel": rand(H, c)} for n, c in
+                         (("informative", 2), ("relevance", 1), ("uncertainty", 1))},
+               "llm": {"lm_head": {"kernel": rand(H, V)}}}
+    return loader.save_adapter(str(tmp_path_factory.mktemp("peft")), lora, 2.0, modules)
+
+
+@pytest.mark.parametrize("case", ["lora_pretrained", "w8a8"])
+def test_serve_runs_the_serving_options(clips, tmp_path, monkeypatch, port_peft, case):
+    """``serve`` with --lora_pretrained (a peft directory written by the port,
+    over the seed-0 init quantised by --int8) or --w8a8 (the int8 tower and
+    per-token int8 activations; fused scoring stays at its width at --batch 3)
+    against the JAX command on the same requests: one line per request, the
+    same keys and responses, scores within 1e-3 (2e-3 with int8 activations)."""
+    from aha_tpu.ops import quant
+
+    monkeypatch.setattr(quant, "_FORCE_BACKEND", None)      # JAX's --w8a8 sets it
+    flags = ["--lora_pretrained", port_peft] if case == "lora_pretrained" else ["--w8a8"]
+    argv = ["--input", str(clips / "requests.jsonl"), "--batch", "3", "--max_frames", "10",
+            "--emit_scores", *COMMON, *flags]
+    jcmd_serve(argv + ["--output", str(tmp_path / "jax.jsonl")])
+    cmd_serve(argv + ["--output", str(tmp_path / "port.jsonl"), "--device", "cpu"])
+    got = {x["key"]: x for x in _lines(tmp_path / "port.jsonl")}
+    ref = {x["key"]: x for x in _lines(tmp_path / "jax.jsonl")}
+    assert set(got) == set(ref) == {"r0", "r1", "r2"}
+    for k in ref:
+        assert got[k].keys() == ref[k].keys() == {"key", "responses", "debug_data"}
+        assert got[k]["responses"] == ref[k]["responses"]
+        assert [d["time"] for d in got[k]["debug_data"]] == \
+            [d["time"] for d in ref[k]["debug_data"]]
+        np.testing.assert_allclose([[d[x] for x in KEYS] for d in got[k]["debug_data"]],
+                                   [[d[x] for x in KEYS] for d in ref[k]["debug_data"]],
+                                   atol=2e-3 if case == "w8a8" else 1e-3)
+    assert any(t["role"] == "assistant" for x in got.values() for t in x["responses"])
+
+
+@pytest.mark.parametrize("flags,item", [(["--mesh_model", "2"], "item 12")])
 def test_serve_refuses_what_is_not_ported(clips, tmp_path, capsys, flags, item):
-    """Sharded serving, adapters and the int8 tower exit 2 with their
-    ROADMAP.md item, and write no line."""
+    """Sharded serving exits 2 with its ROADMAP.md item, and writes no line."""
     out = tmp_path / "out.jsonl"
     assert main(["serve", "--model_preset", "tiny", "--device", "cpu",
                  "--input", str(clips / "requests.jsonl"), "--output", str(out),
