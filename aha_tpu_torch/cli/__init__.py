@@ -2,9 +2,10 @@
 
 Counterpart of ``aha_tpu/cli``, with its command names and flags. Ported:
 ``infer`` for the streaming-QA datasets, at one stream or several
-(``infer.py``; session construction and the flags in ``_session.py``), and
-``serve``, the continuous-batching JSONL server (``serve.py``). Every other
-command exits 2 with a message that names its ROADMAP.md item.
+(``infer.py``; session construction and the flags in ``_session.py``),
+``serve``, the continuous-batching JSONL server (``serve.py``), and ``train``,
+fine-tuning from a dataset mixture (``train.py``). Every other command exits 2
+with a message that names its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import sys
 
 from .infer import cmd_infer
 from .serve import cmd_serve
+from .train import cmd_train
 
 # commands of the JAX package that are not ported yet -> their ROADMAP.md item
 NOT_PORTED = {
@@ -20,7 +22,6 @@ NOT_PORTED = {
     "evaluate": "Queue 1 item 7",
     "highlight": "Queue 1 item 7",
     "demo": "Queue 1 item 7",
-    "train": "Queue 1 item 6",
     "visualize": "Queue 1 item 11",
 }
 
@@ -32,7 +33,7 @@ def _not_ported(name: str):
     return cmd
 
 
-COMMANDS = {"infer": cmd_infer, "serve": cmd_serve,
+COMMANDS = {"infer": cmd_infer, "serve": cmd_serve, "train": cmd_train,
             **{name: _not_ported(name) for name in NOT_PORTED}}
 
 

@@ -6,9 +6,11 @@ fields and defaults kept, so a config of one package converts to the other
 field by field): ``QwenConfig``, ``SiglipConfig``, ``AhaConfig`` with the
 ``aha_7b`` / ``aha_tiny`` presets, ``InferConfig``, and the training flags
 ``LossWeights``, ``LoraConfig`` and ``TrainConfig`` (without the mesh, ring
-and pipeline fields: the port trains on one card). The CLIP presets and the
-JSON helpers are not carried, nor are the fields of ``TrainConfig`` that
-only the data pipeline and the command line read.
+and pipeline fields: the port trains on one card; ROADMAP.md, Queue 1 item
+12; and without ``vision_pretrained``, ``frame_fps``, ``frame_resolution``
+and ``max_num_frames``, which nothing reads: the mixture's entries carry
+their rate and frame count, the model config its frame size). The CLIP
+presets and the JSON helpers are not carried.
 """
 
 from __future__ import annotations
@@ -186,12 +188,17 @@ class LoraConfig:
 @dataclass
 class TrainConfig:
     output_dir: str = "outputs/debug"
+    dataset_config: str | None = None
+    llm_pretrained: str | None = None       # path to converted weights, optional
+    lora_pretrained: str | None = None
 
     learning_rate: float = 2e-5
     warmup_ratio: float = 0.05
     weight_decay: float = 0.0
     max_grad_norm: float = 1.0
+    batch_size: int = 1
     grad_accum_steps: int = 2
+    num_epochs: int = 1
     seed: int = 42
     save_steps: int = 25
     save_total_limit: int = 5
@@ -203,9 +210,17 @@ class TrainConfig:
 
     # activation rematerialization of the decoder trunk
     # (models/qwen2.forward_hidden): "full" recomputes every layer's forward
-    # in the backward (least memory), "half" every other layer's, "none"
-    # saves everything
-    remat_policy: str = "full"   # none | full | half
+    # in the backward (least memory), "half" every other layer's, "dots"
+    # keeps the outputs of a layer's products (attention included) and
+    # replays the elementwise work, "dots_no_batch" keeps the projections'
+    # outputs only, "none" saves everything
+    remat_policy: str = "full"   # none | full | half | dots | dots_no_batch
+
+    system_prompt: str = (
+        "A multimodal AI assistant is helping users with some activities."
+        " Below is their conversation, interleaved with the list of video frames"
+        " received by the assistant."
+    )
 
 
 # Inference flags -------------------------------------------------------------

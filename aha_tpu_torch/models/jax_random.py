@@ -122,12 +122,14 @@ def randint(key: tuple[int, int], shape, minval: int, maxval: int, start: int = 
 def uniform(key: tuple[int, int], shape, minval: float, maxval: float, start: int = 0,
             stop: int | None = None, device="cpu") -> torch.Tensor:
     """``jax.random.uniform`` in f32: 23 random mantissa bits under exponent 0,
-    minus one, scaled into [minval, maxval) and clamped below at minval."""
+    minus one, scaled into [minval, maxval) and clamped below at minval. The
+    scale and shift are one multiply-add rounded once, as XLA fuses them (the
+    product is exact in f64)."""
     bits = random_bits(key, shape, start, stop, device)
     floats = (((bits >> 9) & 0x7FFFFF) | 0x3F800000).view(torch.float32) - 1.0
     lo = torch.tensor(minval, dtype=torch.float32)
     width = torch.tensor(maxval, dtype=torch.float32) - lo     # rounded in f32, as JAX
-    return torch.maximum(floats * width.item() + lo.item(), lo.to(device))
+    return torch.maximum((floats.double() * width.item() + lo.item()).float(), lo.to(device))
 
 
 # XLA's erfinv in f32 (Giles' single-precision polynomials): w = -log1p(-x^2),

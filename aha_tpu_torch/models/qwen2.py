@@ -13,7 +13,8 @@ the quantized-matmul kernels (``ops/quant.py``).
 
 ``decode_chunk`` WRITES the cache in place; ``decode_chunk_spec`` only reads
 it. ``forward_hidden`` has no cache: full causal attention through the flash
-kernel, activation rematerialisation on ``torch.utils.checkpoint``. All three
+kernel, activation rematerialisation on ``torch.utils.checkpoint`` (the
+``dots`` policies with their products kept, ``models/remat.py``). All three
 take LoRA adapters, added at the matmul sites (the serving passes without
 dropout).
 """
@@ -31,6 +32,8 @@ from ..ops.kv_cache import CachePolicy, KVCache, advance, plan_update, write_lay
 from ..ops.quant import embed_rows, linear
 from ..ops.rope import apply_rope, rope_cos_sin
 from . import layer_view
+from .remat import POLICIES as DOTS_POLICIES
+from .remat import ProductStash
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float, *,
@@ -73,12 +76,13 @@ class LayerAdapters:
     not bit for bit."""
 
     def __init__(self, lora: dict, layer: int, scale: float, dropout: float = 0.0,
-                 seed: int | None = None):
+                 seed: int | None = None, stash: ProductStash | None = None):
         self.pairs = layer_view(lora, layer)
         self.order = {name: i for i, name in enumerate(sorted(lora))}
         self.layer, self.scale = layer, scale
         self.dropout = dropout if seed is not None else 0.0
         self.seed = seed
+        self.stash = stash      # remat "dots": the two low-rank products are kept
 
     def delta(self, name: str, x: torch.Tensor):
         ab = self.pairs.get(name)
@@ -90,20 +94,29 @@ class LayerAdapters:
             gen.manual_seed(site_seed(self.seed, self.order[name], self.layer))
             mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
             x = torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
-        return (self.scale * ((x.float() @ ab["a"].float()) @ ab["b"].float())).to(x.dtype)
+        a, b = ab["a"].float(), ab["b"].float()
+        if self.stash is None:
+            low = (x.float() @ a) @ b
+        else:
+            low = self.stash.matmul(self.stash.matmul(x.float(), a), b)
+        return (self.scale * low).to(x.dtype)
+
+
+def _linear(x: torch.Tensor, p: dict, backend: str, stash: ProductStash | None):
+    return linear(x, p, backend) if stash is None else stash.linear(x, p, backend)
 
 
 def _qkv(x: torch.Tensor, lp: dict, cfg: QwenConfig, backend: str = "fused",
-         adapters: LayerAdapters | None = None):
+         adapters: LayerAdapters | None = None, stash: ProductStash | None = None):
     B, S, _ = x.shape
     if "qkv_proj" in lp:
         # merged layout: one product for q, k and v; a projection's adapter is
         # added on its slice of the output
-        y = linear(x, lp["qkv_proj"], backend)
+        y = _linear(x, lp["qkv_proj"], backend, stash)
         QD, KD = cfg.q_dim, cfg.kv_dim
         q, k, v = y[..., :QD], y[..., QD:QD + KD], y[..., QD + KD:]
     else:
-        q, k, v = (linear(x, lp[n], backend) for n in ("q_proj", "k_proj", "v_proj"))
+        q, k, v = (_linear(x, lp[n], backend, stash) for n in ("q_proj", "k_proj", "v_proj"))
     if adapters is not None:
         q, k, v = (t + adapters.delta(n, x)
                    for n, t in (("q_proj", q), ("k_proj", k), ("v_proj", v)))
@@ -113,23 +126,25 @@ def _qkv(x: torch.Tensor, lp: dict, cfg: QwenConfig, backend: str = "fused",
 
 
 def _mlp(x: torch.Tensor, lp: dict, backend: str = "fused",
-         adapters: LayerAdapters | None = None) -> torch.Tensor:
+         adapters: LayerAdapters | None = None,
+         stash: ProductStash | None = None) -> torch.Tensor:
     if "gate_up_proj" in lp:
-        y = linear(x, lp["gate_up_proj"], backend)
+        y = _linear(x, lp["gate_up_proj"], backend, stash)
         I = y.shape[-1] // 2
         gate, up = y[..., :I], y[..., I:]
     else:
-        gate, up = linear(x, lp["gate_proj"], backend), linear(x, lp["up_proj"], backend)
+        gate, up = (_linear(x, lp[n], backend, stash) for n in ("gate_proj", "up_proj"))
     if adapters is not None:
         gate, up = gate + adapters.delta("gate_proj", x), up + adapters.delta("up_proj", x)
     act = F.silu(gate.float()).to(x.dtype) * up
-    down = linear(act, lp["down_proj"], backend)
+    down = _linear(act, lp["down_proj"], backend, stash)
     return down if adapters is None else down + adapters.delta("down_proj", act)
 
 
 def _o_proj(attn: torch.Tensor, lp: dict, backend: str = "fused",
-            adapters: LayerAdapters | None = None) -> torch.Tensor:
-    o = linear(attn, lp["o_proj"], backend)
+            adapters: LayerAdapters | None = None,
+            stash: ProductStash | None = None) -> torch.Tensor:
+    o = _linear(attn, lp["o_proj"], backend, stash)
     return o if adapters is None else o + adapters.delta("o_proj", attn)
 
 
@@ -149,9 +164,10 @@ def forward_hidden(params: dict, cfg: QwenConfig, inputs_embeds: torch.Tensor, *
 
     ``remat``: ``"none"`` (or False) saves every activation, ``"full"`` (or
     True) saves each layer's input only and replays the layer in the backward,
-    ``"half"`` does so for the first layer of every pair. The TPU package's
-    ``"dots"`` and ``"dots_no_batch"`` (save the matmul outputs, replay the
-    elementwise ops) are not ported and raise.
+    ``"half"`` does so for the first layer of every pair, ``"dots"`` replays
+    every layer with the outputs of its products (attention included) kept
+    from the forward, ``"dots_no_batch"`` with its projections' outputs kept
+    (``models/remat.py``).
 
     ``lora_dropout`` with a ``dropout_seed`` (which the trainer derives from
     its seed and the step) drops adapter inputs; see ``LayerAdapters``."""
@@ -163,10 +179,8 @@ def forward_hidden(params: dict, cfg: QwenConfig, inputs_embeds: torch.Tensor, *
         replay = lambda i: i % 2 == 0
     elif remat in (False, None, "none"):
         replay = lambda i: False
-    elif remat in ("dots", "dots_no_batch"):
-        raise NotImplementedError(
-            f"remat={remat!r} is not ported (ROADMAP.md, Queue 1 item 6); "
-            "use 'none', 'half' or 'full'")
+    elif remat in DOTS_POLICIES:
+        replay = lambda i: True
     else:
         raise ValueError(f"unknown remat policy: {remat!r}")
 
@@ -176,26 +190,30 @@ def forward_hidden(params: dict, cfg: QwenConfig, inputs_embeds: torch.Tensor, *
     rope_tables = rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta)   # the same for every layer
     lyr = params["layers"]
 
-    def layer_fn(x: torch.Tensor, i: int) -> torch.Tensor:
+    def layer_fn(x: torch.Tensor, i: int, stash: ProductStash | None = None) -> torch.Tensor:
         lp = layer_view(lyr, i)
         ad = None if lora is None else LayerAdapters(lora, i, lora_scale, lora_dropout,
-                                                     dropout_seed)
+                                                     dropout_seed, stash)
         h = rms_norm(x, lp["input_norm"]["scale"], cfg.rms_norm_eps)
-        q, k, v = _qkv(h, lp, cfg, backend, ad)
+        q, k, v = _qkv(h, lp, cfg, backend, ad, stash)
         attn = causal_attention(q, k, v, rope_theta=cfg.rope_theta, attn_mask=attn_mask,
-                                rope_tables=rope_tables).reshape(B, T, cfg.q_dim)
-        x = x + _o_proj(attn, lp, backend, ad)
+                                rope_tables=rope_tables,
+                                attend=stash.attend if stash and stash.attention else None)
+        x = x + _o_proj(attn.reshape(B, T, cfg.q_dim), lp, backend, ad, stash)
         h = rms_norm(x, lp["post_norm"]["scale"], cfg.rms_norm_eps)
-        return x + _mlp(h, lp, backend, ad)
+        return x + _mlp(h, lp, backend, ad, stash)
 
     x = inputs_embeds
     for i in range(cfg.num_layers):
-        if replay(i):
-            # the dropout masks come from their own seeded generators, so the
-            # global RNG state need not be stashed and restored
-            x = checkpoint(layer_fn, x, i, use_reentrant=False, preserve_rng_state=False)
-        else:
+        if not replay(i):
             x = layer_fn(x, i)
+            continue
+        # the dropout masks come from their own seeded generators, so the
+        # global RNG state need not be stashed and restored
+        stash = ProductStash(attention=remat == "dots") if remat in DOTS_POLICIES else None
+        x = checkpoint(layer_fn, x, i, stash, use_reentrant=False, preserve_rng_state=False)
+        if stash is not None:
+            stash.replay()      # the checkpoint's next run of layer_fn is the backward's
     return rms_norm(x, params["final_norm"]["scale"], cfg.rms_norm_eps)
 
 

@@ -255,13 +255,20 @@ def replayed_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Te
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, rope_theta: float,
                      positions: torch.Tensor | None = None,
                      attn_mask: torch.Tensor | None = None,
-                     rope_tables: tuple | None = None) -> torch.Tensor:
+                     rope_tables: tuple | None = None, attend=None) -> torch.Tensor:
     """Full-sequence causal attention: unrotated q [B, T, NH, Dh], k / v
     [B, T, KVH, Dh] -> [B, T, NH, Dh]. ``rope_tables`` (cos, sin) [B, T, Dh]
     are layer-invariant and passed by the decoder; else they come from
     ``positions`` [B, T] (default: 0..T-1). ``attn_mask`` [B, T] bool marks the
-    real tokens of a padded batch: padded keys are seen by no query, and a
-    query that sees no key (a padded position of a left-padded row) gives 0."""
+    real tokens of a padded batch: padded keys are seen by no query. A query
+    that sees no key (a padded position of a left-padded row) gives what the
+    JAX function's branch at this T gives it: its blockwise branch (T >= 1024
+    and a multiple of 512) 0, as the kernels do; its dense branch (any other
+    T) a uniform softmax over all T keys, so the mean of every value of its kv
+    head. The loss reads such rows where a batch has no label of a kind (its
+    guard puts one at position 0). ``attend(q, k, v, key_valid)`` replaces
+    ``flash_causal_attention`` on the rotated operands (remat "dots" keeps
+    its output)."""
     B, T, _, Dh = q.shape
     if rope_tables is not None:
         cos, sin = rope_tables
@@ -272,4 +279,11 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, rope_
     q = apply_rope(q.float(), cos, sin).to(q.dtype)
     k = apply_rope(k.float(), cos, sin).to(k.dtype)
     key_valid = None if attn_mask is None else attn_mask.bool().contiguous()
-    return flash_causal_attention(q.contiguous(), k.contiguous(), v.contiguous(), key_valid)
+    out = (attend or flash_causal_attention)(q.contiguous(), k.contiguous(), v.contiguous(),
+                                             key_valid)
+    if key_valid is None or (T >= 1024 and T % 512 == 0):
+        return out
+    blind = torch.cumsum(key_valid.int(), dim=1) == 0                      # [B, T]
+    NH, KVH = q.shape[2], k.shape[2]
+    v_mean = v.float().mean(dim=1).repeat_interleave(NH // KVH, dim=1)     # [B, NH, Dh]
+    return torch.where(blind[:, :, None, None], v_mean[:, None].to(out.dtype), out)

@@ -9,7 +9,13 @@ and the channel scale). ``quant_matmul`` is the named entry for
 ``aha_tpu/ops/pallas/quant_matmul.py::quant_matmul``, which computes the same
 function as ``a8=False`` on an unstacked weight: it launches the same kernel
 and keeps a launch count of its own. A stacked weight's layer is passed as
-the view ``qvalue[l]``; no index is needed. ``plan`` chooses the kernel's
+the view ``qvalue[l]``; no index is needed. ``int8_qlinear`` is the
+weight-only product with a gradient for ``x`` (training over an int8 trunk):
+forward this kernel, backward ``g @ (qvalue * scale)^T`` on a transient
+dequantised weight through ``torch.matmul``, as JAX's ``auto`` backend
+dequantises and lets XLA differentiate its einsum
+(``aha_tpu/ops/quant.py:202-203``); no gradient for the frozen weight and
+scale. ``plan`` chooses the kernel's
 path, token tile, ring and K splits from the shapes alone, so the CPU tests
 hold it: bf16 weight-only, and int8 activations with a bf16 output, at 1 to 16
 rows the decode kernel (one launch whatever M, so a row gives the same bits at
@@ -327,3 +333,30 @@ def quant_matmul(x: torch.Tensor, qvalue: torch.Tensor, scale: torch.Tensor) -> 
     if x.device.type != "cuda":
         raise ValueError(f"quant_matmul: unsupported device {x.device}")
     return _launch("quant_matmul", x, qvalue, scale, False)
+
+
+def int8_qlinear_vjp(grad: torch.Tensor, qvalue: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """dL/dx of ``x @ (qvalue * scale)``: the incoming gradient [..., N] times
+    the weight transposed, dequantised as JAX's ``dequantize`` does (the
+    product in f32, rounded once to the gradient's dtype)."""
+    w = (qvalue.float() * scale.reshape(1, -1).float()).to(grad.dtype)
+    return torch.matmul(grad, w.t())
+
+
+class _Int8QLinear(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, qvalue, scale):
+        ctx.save_for_backward(qvalue, scale)
+        return int8_matmul(x, qvalue, scale)
+
+    @staticmethod
+    def backward(ctx, grad):
+        qvalue, scale = ctx.saved_tensors
+        return int8_qlinear_vjp(grad, qvalue, scale), None, None
+
+
+def int8_qlinear(x: torch.Tensor, qvalue: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``int8_matmul(x, qvalue, scale)`` (weight-only) that autograd can
+    differentiate with respect to ``x``: the kernel forward, the dequantised
+    transposed product backward. The weight and its scale are frozen."""
+    return _Int8QLinear.apply(x, qvalue, scale)

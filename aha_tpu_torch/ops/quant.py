@@ -33,11 +33,13 @@ version on the CPU.
 
 Under autograd (``x`` requires a gradient, as every activation behind a
 trained adapter or projector does) packed int4 under ``"fused"`` goes through
-``int4_qlinear``, whose backward is the ``int4_matmul_t`` kernel: that is what
-makes a frozen int4 trunk trainable. Without a gradient to carry the plain
+``int4_qlinear``, whose backward is the ``int4_matmul_t`` kernel, and int8
+through ``int8_qlinear``, whose forward is the ``int8_matmul`` kernel and
+whose backward a product on the dequantised weight: that is what makes a
+frozen int4 or int8 trunk trainable. Without a gradient to carry the plain
 wrapper is called, so the serving path pays for no autograd node. The
-int8-activation recipe is not differentiable (nor is it in the TPU package),
-and int8 weights under a gradient are not ported yet: both raise.
+int8-activation recipe is not differentiable (nor is it in the TPU package)
+and raises.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ from __future__ import annotations
 import torch
 
 from .kernels.int4_matmul import int4_matmul, int4_qlinear, unpack_int4
-from .kernels.int8_matmul import int8_matmul, quant_matmul
+from .kernels.int8_matmul import int8_matmul, int8_qlinear, quant_matmul
 
 BACKENDS = ("fused", "fused_a8", "pallas")
 
@@ -166,13 +168,9 @@ def qlinear(x: torch.Tensor, qkernel: dict, backend: str = "fused") -> torch.Ten
         raise ValueError(f"unknown matmul backend {backend!r}; one of {BACKENDS}")
     x = x.contiguous()
     under_grad = torch.is_grad_enabled() and x.requires_grad
-    if under_grad and backend == "fused_a8":
-        raise ValueError("the 'fused_a8' backend quantises the activations and has no "
-                         "gradient; train with backend='fused'")
-    if under_grad and "q4value" not in qkernel:
-        raise NotImplementedError(
-            "training through int8 weights is not ported yet (ROADMAP.md, Queue 1 item 6: "
-            "int8-trunk training); quantise the trunk to packed int4")
+    if under_grad and backend != "fused":
+        raise ValueError(f"the {backend!r} backend has no gradient (the 'fused_a8' one "
+                         "quantises the activations); train with backend='fused'")
     if "q4value" in qkernel:
         if backend == "pallas":
             raise ValueError("the 'pallas' backend (quant_matmul) takes int8 weights only")
@@ -182,6 +180,8 @@ def qlinear(x: torch.Tensor, qkernel: dict, backend: str = "fused") -> torch.Ten
                            a8=backend == "fused_a8")
     if backend == "pallas":
         return quant_matmul(x, qkernel["qvalue"], qkernel["scale"])
+    if under_grad:
+        return int8_qlinear(x, qkernel["qvalue"], qkernel["scale"])
     return int8_matmul(x, qkernel["qvalue"], qkernel["scale"], a8=backend == "fused_a8")
 
 

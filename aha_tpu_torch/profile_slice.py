@@ -2,7 +2,7 @@
 train step on one CUDA card.
 
     python3 -m aha_tpu_torch.profile_slice [--seed 0] [--frames 8]
-                                           [--paths int8,int4,int8a8,int4a8,serve8,train]
+                                           [--paths int8,int4,int8a8,int4a8,serve8,train,train8]
                                            [--remat full]
 
 For each path it builds seeded synthetic 7B params on the card
@@ -50,11 +50,18 @@ its K splits and, for int8a8 and int4a8, the activation quantiser by name, with 
 of device time and calls per unit.
 
 train (int4 QLoRA: int4 trunk, dense bf16 projector and lm_head, LoRA r 16,
-B 1, 16 frames in a conversation of 926 tokens, lora_dropout 0.05, remat
-``--remat``), after two steps to warm:
+lora_dropout 0.05, remat ``--remat``) and train8 (the same over an int8 trunk,
+the default of ``train --quantize_base``), after two steps to warm:
 
-  step        one ``train_step``: vision tower, forward, backward with its
-              replay, AdamW; and the same step's forward + loss alone.
+  step        one ``train_step`` on the synthetic batch (B 1, 16 frames in a
+              conversation of 926 tokens): vision tower, forward, backward
+              with its replay, AdamW; and the same step's forward + loss
+              alone;
+  collated    one ``train_step`` on a batch the collator builds (B 2, a
+              DVC-style and a grounding-style conversation of 12 and 10
+              frames behind the training system prompt, left-padded to the
+              length bucket 1,024, the frames to the bucket 32), as ``train``
+              feeds it.
 
 Each section runs twice: once untimed by the profiler, for the wall time
 (host clock, card synchronised), then traced, for the device's work (the
@@ -361,7 +368,42 @@ def profile_serve8(seed: int, n: int) -> None:
     _trace_tokens(label, engine, tok, cache, named=DECODE_KERNELS + MATMUL_DECODE_KERNELS["int8"])
 
 
-def profile_train(seed: int, remat: str) -> None:
+def collated_batch(cfg, tok, rng, frames_per_row=(12, 10)) -> dict:
+    """A batch as ``train`` feeds it: one conversation a row (narrated frames
+    with learned answers, then a grounding query over frames with relevance
+    spans), random frames, collated by ``data/collator.py`` (left padding,
+    length and frame buckets, labels through the offset mapping)."""
+    import numpy as np
+
+    from .config import TrainConfig
+    from .data.collator import collate
+    from .data.conversations import build_example
+
+    examples = []
+    for i, n in enumerate(frames_per_row):
+        if i % 2 == 0:
+            conv = [{"role": "user", "content": "Please concisely narrate the video in real time."}]
+            for part in (n // 2, n - n // 2):
+                conv += [{"role": "stream", "num_frames": part, "learn": True},
+                         {"role": "assistant", "content": "the subject moves on.", "learn": True,
+                          "response_frame_num": 2}]
+            ex = build_example(conv, tok, system_prompt=TrainConfig().system_prompt,
+                               use_relevance=False)
+        else:
+            conv = [{"role": "user", "content": "Which clips show the subject?", "learn": False},
+                    {"role": "stream", "num_frames": n, "learn": True,
+                     "related": [{"related": False, "num_frames": n // 2},
+                                 {"related": True, "num_frames": n - n // 2}]}]
+            ex = build_example(conv, tok, system_prompt=TrainConfig().system_prompt,
+                               use_informative=False)
+        r = cfg.frame_resolution
+        ex.frames = rng.integers(0, 255, (n, r, r, 3)).astype(np.uint8)
+        examples.append(ex)
+    return collate(examples, tok, v_placeholder_id=cfg.v_placeholder_id,
+                   frame_num_tokens=cfg.frame_num_tokens).asdict()
+
+
+def profile_train(seed: int, remat: str, mode: str = "int4") -> None:
     import numpy as np
 
     from .config import TrainConfig, aha_7b
@@ -373,7 +415,7 @@ def profile_train(seed: int, remat: str) -> None:
     tok = build_stream_tokenizer(None, frame_num_tokens=cfg.frame_num_tokens,
                                  vocab_size=cfg.llm.vocab_size)
     cfg = cfg.replace(v_placeholder_id=tok.v_placeholder_id, eos_token_id=tok.eos_token_id)
-    params = random_params(cfg, mode="int4", keep_dense=("projector", "lm_head"), seed=seed)
+    params = random_params(cfg, mode=mode, keep_dense=("projector", "lm_head"), seed=seed)
     tc = TrainConfig(learning_rate=1e-4, warmup_ratio=0.0, grad_accum_steps=1,
                      remat_policy=remat)
     state, tx, labels, scale = trainer.init_train_state(cfg, tc, params, total_steps=100,
@@ -385,7 +427,7 @@ def profile_train(seed: int, remat: str) -> None:
     torch.cuda.reset_peak_memory_stats()
     tr = Trace()
     _, parts = tr.run(lambda: step(state, batch))
-    report(f"train step (int4 QLoRA, B=1 T={T}, remat={remat}, loss {float(parts.total):.4f}, "
+    report(f"train step ({mode} QLoRA, B=1 T={T}, remat={remat}, loss {float(parts.total):.4f}, "
            f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)", 1, "step",
            tr.wall_ms, tr.traced_wall_ms, tr.busy_ms(), tr.kernels(), tr.aten_ops(), top=14,
            also=("flash_",))
@@ -412,6 +454,20 @@ def profile_train(seed: int, remat: str) -> None:
            tr.wall_ms, tr.traced_wall_ms, tr.busy_ms(), tr.kernels(), tr.aten_ops(), top=8,
            also=("flash_",))
 
+    collated = collated_batch(cfg, tok, np.random.default_rng(seed))
+    B, T = collated["input_ids"].shape
+    real = int(collated["attention_mask"].sum())
+    for _ in range(2):
+        step(state, collated)
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trace()
+    _, parts = tr.run(lambda: step(state, collated))
+    report(f"train step on a collated batch ({mode} QLoRA, B={B} T={T}, {real} real tokens, "
+           f"{collated['frames'].shape[0]} frames, remat={remat}, loss {float(parts.total):.4f}, "
+           f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)", 1, "step",
+           tr.wall_ms, tr.traced_wall_ms, tr.busy_ms(), tr.kernels(), tr.aten_ops(), top=14,
+           also=("flash_",))
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -433,8 +489,8 @@ def main() -> int:
     print(f"profile device: {gpu}; torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
     for path in args.paths.split(","):
-        if path == "train":
-            profile_train(args.seed, args.remat)
+        if path in ("train", "train8"):
+            profile_train(args.seed, args.remat, "int8" if path == "train8" else "int4")
         elif path == "serve8":
             profile_serve8(args.seed, args.frames)
         else:

@@ -7,8 +7,10 @@ three extra prompt modes (``add_stream_prompt``,
 ``add_stream_query_prompt``, ``add_stream_generation_prompt``), the
 character-level tokenizer used by tests and synthetic runs, the wrapper of a
 local HuggingFace tokenizer, and ``StreamTokenizer`` /
-``build_stream_tokenizer``. The learn-range machinery (training labels) and
-the Jinja rendition of the template are not carried.
+``build_stream_tokenizer``. The learn-range machinery of the training labels
+(``transition_offsets``, ``stream_placeholder_len``, ``get_learn_ranges`` and
+the backends' ``encode_with_offsets``) is carried for the data pipeline; the
+Jinja rendition of the template is not.
 
 Roles and layout (bos = ``<|im_start|>``, eos = ``<|im_end|>``):
 
@@ -72,6 +74,53 @@ def render_chat(
     return "".join(out)
 
 
+def transition_offsets(cfg: TemplateConfig) -> dict:
+    """Char length of each role transition of the template."""
+    bos, eos = cfg.bos, cfg.eos
+    table = {
+        (None, "system"): f"{bos}system\n",
+        ("system", "user"): f"{eos}\n{bos}user\n",
+        ("system", "stream"): f"{eos}\n{bos}stream\n",
+        ("user", "assistant"): f"{eos}\n{bos}assistant\n",
+        ("user", "stream"): f"{eos}\n{bos}stream\n",
+        ("user", "user"): f"{eos}\n{bos}user\n",
+        ("assistant", "user"): f"{eos}\n{bos}user\n",
+        ("assistant", "stream"): f"{eos}\n{bos}stream\n",
+        ("stream", "user"): f"{eos}\n{bos}user\n",
+        ("stream", "assistant"): f"{eos}\n{bos}assistant\n",
+        ("stream", "stream"): f"{eos}\n{bos}stream\n",
+        "assistant": f"{bos}assistant\n",
+        "eos_token": eos,
+    }
+    return {k: len(v) for k, v in table.items()}
+
+
+def stream_placeholder_len(num_frames: int, cfg: TemplateConfig) -> int:
+    return num_frames * cfg.frame_num_tokens * len(cfg.v_placeholder)
+
+
+def get_learn_ranges(conversation: list[dict], cfg: TemplateConfig) -> list[range]:
+    """Char spans of the learned assistant turns of a rendered conversation:
+    each covers the assistant's content and its closing eos. Stream turns are
+    never learned through the LM loss (the frame-score heads supervise them)."""
+    offsets = transition_offsets(cfg)
+    offset = 0
+    learn_ranges: list[range] = []
+    last_role = None
+    for message in conversation:
+        role = message["role"]
+        offset += offsets[(last_role, role)]
+        last_role = role
+        if role == "stream":
+            offset += stream_placeholder_len(message["num_frames"], cfg)
+        else:
+            if role == "assistant" and message.get("learn", False):
+                learn_ranges.append(
+                    range(offset, offset + len(message["content"]) + offsets["eos_token"]))
+            offset += len(message["content"])
+    return learn_ranges
+
+
 class CharTokenizer:
     """Character-level tokenizer with special-token support. Regular
     characters map to their codepoint (mod ``char_vocab``); special tokens
@@ -93,20 +142,27 @@ class CharTokenizer:
     def convert_tokens_to_ids(self, token: str) -> int:
         return self.special_to_id[token]
 
-    def encode(self, text: str) -> list[int]:
+    def encode_with_offsets(self, text: str) -> tuple[list[int], list[tuple[int, int]]]:
+        """-> (ids, the (start, stop) char span of each id)."""
         ids: list[int] = []
+        offsets: list[tuple[int, int]] = []
         i = 0
         n = len(text)
         while i < n:
             for sp in self._specials_sorted:
                 if text.startswith(sp, i):
                     ids.append(self.special_to_id[sp])
+                    offsets.append((i, i + len(sp)))
                     i += len(sp)
                     break
             else:
                 ids.append(ord(text[i]) % self.char_vocab)
+                offsets.append((i, i + 1))
                 i += 1
-        return ids
+        return ids, offsets
+
+    def encode(self, text: str) -> list[int]:
+        return self.encode_with_offsets(text)[0]
 
     def decode(self, ids, skip_special_tokens: bool = True) -> str:
         out = []
@@ -141,6 +197,10 @@ class HFTokenizer:
     def convert_tokens_to_ids(self, token: str) -> int:
         return self.tok.convert_tokens_to_ids(token)
 
+    def encode_with_offsets(self, text: str):
+        enc = self.tok(text, return_offsets_mapping=True, add_special_tokens=False)
+        return enc["input_ids"], [tuple(o) for o in enc["offset_mapping"]]
+
     def encode(self, text: str) -> list[int]:
         return self.tok(text, add_special_tokens=False)["input_ids"]
 
@@ -172,6 +232,12 @@ class StreamTokenizer:
         if not tokenize:
             return text
         return self.backend.encode(text)
+
+    def get_learn_ranges(self, conversation: list[dict]) -> list[range]:
+        return get_learn_ranges(conversation, self.template)
+
+    def encode_with_offsets(self, text: str):
+        return self.backend.encode_with_offsets(text)
 
     def decode(self, ids, **kw) -> str:
         return self.backend.decode(ids, **kw)

@@ -16,6 +16,7 @@ import re
 import torch
 
 from ..config import LoraConfig, QwenConfig
+from ..models import jax_random
 
 LORA_PROJS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
 
@@ -40,23 +41,26 @@ def init_lora(cfg: QwenConfig, lora_cfg: LoraConfig, *, seed: int = 0,
               dtype=torch.float32, device="cuda") -> dict:
     """A ~ kaiming-uniform (peft's default), B = 0, so the initial delta is 0.
     Projections are selected by ``lora_cfg.target_patterns`` (the default
-    matches all seven decoder projections). Deterministic for a seed (its own
-    generator), not bit-equal to JAX's PRNG. Built on the card unless
-    ``device`` says otherwise."""
+    matches all seven decoder projections). A is JAX's draw bit for bit: the
+    key ``PRNGKey(seed)`` split into one key a projection, each drawn by
+    ``jax.random.uniform`` on the port's threefry (``models/jax_random.py``),
+    so the trainer starts from the adapters JAX's starts from. Built on the
+    card unless ``device`` says otherwise."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("init_lora: device cuda requested but no GPU is available "
                            "(pass device='cpu' to build on the host)")
-    gen = torch.Generator(device=device).manual_seed(seed)
     pattern = re.compile(lora_cfg.target_patterns)
     L, r = cfg.num_layers, lora_cfg.r
+    keys = jax_random.split(jax_random.prng_key(seed), len(LORA_PROJS))
     tree = {}
-    for name, (din, dout) in proj_dims(cfg).items():
+    for key, (name, (din, dout)) in zip(keys, proj_dims(cfg).items()):
         if not pattern.search(f"layers_0/{name}/kernel"):
             continue
         bound = (6.0 / din) ** 0.5   # kaiming_uniform(a=sqrt(5)) on [r, din]
-        a = (torch.rand((L, din, r), generator=gen, device=device) * 2.0 - 1.0) * bound
-        tree[name] = {"a": a.to(dtype), "b": torch.zeros((L, r, dout), dtype=dtype, device=device)}
+        a = jax_random.uniform(key, (L, din, r), -bound, bound, device=device)
+        tree[name] = {"a": a.reshape(L, din, r).to(dtype),
+                      "b": torch.zeros((L, r, dout), dtype=dtype, device=device)}
     return tree
 
 

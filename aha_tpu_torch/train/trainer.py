@@ -299,10 +299,17 @@ class MetricLogger:
 def train(cfg: AhaConfig, train_cfg: TrainConfig, params: dict, batches, *, total_steps: int,
           use_lora: bool = True, lora_init: dict | None = None, log_every: int | None = None,
           device="cuda") -> TrainState:
-    """Resume if ``train_cfg.resume_from_checkpoint`` says so, run until
-    ``total_steps`` micro-steps are taken or ``batches`` (an iterable of batch
-    dicts) ends, with periodic trained-only checkpoints, a last checkpoint
-    and the exported adapter under ``train_cfg.output_dir``."""
+    """``aha_tpu/train/trainer.py::train`` on one card: resume if
+    ``train_cfg.resume_from_checkpoint`` says so (the trained leaves, the
+    optimizer state and the step merged over the tree the caller built), then
+    one micro-step a batch of ``batches`` until ``total_steps`` micro-steps
+    are taken or the batches end, with trained-only checkpoints every
+    ``save_steps``, a last one (which meets the in-loop one when
+    ``total_steps % save_steps == 0``) and the exported adapter
+    (``adapter.pt``) under ``train_cfg.output_dir``. Every ``log_every``
+    (default ``logging_steps``) micro-steps a line of ``metrics.jsonl`` holds
+    the loss parts, as JAX's does, and the step's wall time, the time the step
+    waited for its batch and the batch's real (unpadded) tokens."""
     state, tx, labels, scale = init_train_state(
         cfg, train_cfg, params, total_steps=total_steps, seed=train_cfg.seed,
         use_lora=use_lora, lora_init=lora_init, device=device)
@@ -312,12 +319,22 @@ def train(cfg: AhaConfig, train_cfg: TrainConfig, params: dict, batches, *, tota
     ckpt_dir = os.path.join(train_cfg.output_dir, "checkpoints")
     logger = MetricLogger(train_cfg.output_dir)
     try:
-        for batch in batches:
-            if state.step >= total_steps:
+        batches = iter(batches)
+        while state.step < total_steps:
+            t0 = time.perf_counter()
+            batch = next(batches, None)
+            if batch is None:
                 break
+            t1 = time.perf_counter()
             state, parts = step_fn(state, batch)
             if state.step % (log_every or train_cfg.logging_steps) == 0:
-                logger.log(state.step, parts)
+                float(parts.total)            # the step's work is done when its loss is read
+                mask = batch.get("attention_mask")
+                tokens = int(np.asarray(mask).sum()) if mask is not None else int(
+                    np.asarray(batch["input_ids"]).size)
+                logger.log(state.step, parts, {"perf/step_ms": (time.perf_counter() - t1) * 1e3,
+                                               "perf/wait_ms": (t1 - t0) * 1e3,
+                                               "perf/tokens": tokens})
             if train_cfg.save_steps and state.step % train_cfg.save_steps == 0:
                 save_checkpoint(ckpt_dir, state, keep=train_cfg.save_total_limit, labels=labels)
         save_checkpoint(ckpt_dir, state, keep=train_cfg.save_total_limit, labels=labels)

@@ -114,12 +114,13 @@ Phases, one or more lines each:
           frames) of 7B-int8 with "pallas" (scores against b's width-1 run);
        d. 7B-int4 with per-token int8 activations (backend "fused_a8", the W4A8
           recipe) at the product widths on a's weights and stream: score_video
-          over 64 frames in 16 fused passes of 196 rows, inference() with
-          generation 4 -> 8, then the same inference() at generation width 1
+          over 64 frames in 16 fused passes of 196 rows, inference() over the
+          stream's first 64 frames with generation 4 -> 8, then the same
+          inference() at generation width 1
           (texts compared) and the verify pass against sequential passes as in
           a; frames/s and decode tokens/s beside a's, scores against a's;
-       e. the chunked trigger loops on b's and d's weights (max_new_tokens 16):
-          7B-int8 at fused 1 with generation 4 -> 8, the sum rule and the z rule
+       e. the chunked trigger loops on b's and d's weights and the stream's
+          first 64 frames (max_new_tokens 16): 7B-int8 at fused 1 with generation 4 -> 8, the sum rule and the z rule
           (threshold_z 1.5, first 8 frames, running list 20), chunked equal to
           stepwise bit for bit (every score, response time and text, 3
           responses at least); 7B-int4 (sum rule) and 7B-int8 (z rule) at fused
@@ -135,15 +136,28 @@ Phases, one or more lines each:
           and cmd_infer end to end on a 4 s clip written with cv2.
      Last (after phases 5-8 too), every shape that a path handed a kernel's
      wrapper must be one that phase 2 held against the plain version;
-  5. 7B int4 QLoRA training at full width and depth: int4 trunk, int8
-     embedding table, dense bf16 projector and lm_head, LoRA r 16 on the seven
-     decoder projections, B 1, 16 synthetic 384 x 384 frames in a conversation
-     of 926 tokens, lr 1e-4, lora_dropout 0.05: one step to warm and five
+  5. training at the 7B's full width and depth. a. The synthetic batch: int4
+     QLoRA, int4 trunk, int8 embedding table, dense bf16 projector and
+     lm_head, LoRA r 16 on the seven decoder projections, B 1, 16 synthetic
+     384 x 384 frames in a conversation of 926 tokens, lr 1e-4, lora_dropout 0.05: one step to warm and five
      timed at remat 'full' (step ms, tokens/s, peak memory, the six losses,
      launches per step: 2 x 4 x 28 int4_matmul, 4 x 28 int4_matmul_t, 2 x 28
      flash forward, 28 flash backward), the frozen leaves' checksums, then
-     one step each at remat 'half' and 'none' from the same state (same loss
-     to 1e-2). The shape check of phase 4 covers this path too;
+     one step each at remat 'half', 'none', 'dots' and 'dots_no_batch' from
+     the same state (step ms and peak memory each, the same loss to 1e-2,
+     each layer's slice of the adapters' gradients within GRAD_RTOL of
+     'none''s, and a stale replay under 'dots' outside it).
+     b. `train` at --model_preset 7b in this process (cmd_train), on two
+     clips of 13 and 10 s written with cv2 at 384 x 384 under a grounding and
+     a DVC entry of a mixture (frame_fps 1, max_num_frames 16; every batch
+     left-padded to T 1,024): int4 QLoRA at B 2 with 2 micro-steps a update
+     over 4 micro-steps (int4_matmul, int4_matmul_t and both flash kernels on
+     padded B 2 batches), the same command resumed from latest_checkpoint to
+     6 (the step and the optimizer count continue from 4 and 2), and the
+     default int8 trunk at B 1 over 2 (int8_matmul's forward under autograd);
+     each run's step ms (median, min, max), real tokens/s, the host's decode
+     and collate ms a batch against the step, peak memory, losses and
+     launches. The shape check of phase 4 covers this phase too;
   6. JAX's weights at 7B (models/loader.py, golden.py), in the same shape check:
        a. materialize_random_params(aha_7b(), "int8") built on the card (seconds
           printed), three leaves' slabs drawn again on the CPU (equal bit for
@@ -218,6 +232,7 @@ nothing of aha_tpu.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -416,8 +431,16 @@ LAYER = [("qkv", 3584, 4608), ("o_proj", 3584, 3584), ("gate_up", 3584, 37888),
 # stream prompt + frame (59), the system prompt (171), a fused pass of 4 frames
 # (196), system prompt + first frame (220)
 PATH_M = (1, 4, 8, 13, 49, 59, 171, 196, 220)
+# the stream of phases 4d and 4e: the first 64 of 4a's 96 frames (3,136 frame tokens, past
+# the window fill), cut to hold the script's time when phase 5b came
+D_FRAMES = 64
 # rows of the training sequence of phase 5 (16 frames in one conversation)
 TRAIN_T = 926
+# phase 5b's batches: B 1 and 2, left-padded to the length bucket 1,024 (write_train_data),
+# and so the rows of its products
+TRAIN_CLI_T = 1024
+TRAIN_CLI_B = (1, 2)
+TRAIN_CLI_M = tuple(B * TRAIN_CLI_T for B in TRAIN_CLI_B)
 # the SigLIP-large/16-384 tower of --vision_int8 / --w8a8 (phase 8c): a layer's products
 # (q, k, v and out: 1024 x 1024; fc1 1024 x 4096; fc2 4096 x 1024), at a frame (576 rows)
 # and at the engine's vision batch of 32 frames (18,432 rows)
@@ -655,7 +678,8 @@ def check_matmuls(gen, stats: Stats):
         ("int8_matmul", 8, False,
          [(*c, None, bf, 1e-2) for c in cards + tower]
          + [(*r, None, f32, 1e-4) for r in ragged8 + f32_8] + [(*edge, None, bf, 1e-2)]
-         + [(*c, None, bf, 1e-2) for c in wgmma8 + old8 + decode_rows + serve_t8 + serve_h8],
+         + [(*c, None, bf, 1e-2) for c in wgmma8 + old8 + decode_rows + serve_t8 + serve_h8]
+         + [(n, M, *layer[n], None, bf, 1e-2) for M in TRAIN_CLI_M for n in layer],
          49),
         ("int8_matmul_a8", 8, True,
          [(*c, None, bf, 2e-2) for c in cards + tower]
@@ -665,7 +689,8 @@ def check_matmuls(gen, stats: Stats):
          [(*c, None, bf, 1e-2) for c in cards] + [(*ragged8[0], None, f32, 1e-4)], 49),
         ("int4_matmul", 4, False,
          [(*c, 128, bf, 1e-2) for c in cards]
-         + [(n, TRAIN_T, *layer[n], 128, bf, 1e-2) for n in layer]   # the training sequence
+         + [(n, M, *layer[n], 128, bf, 1e-2) for M in (TRAIN_T, *TRAIN_CLI_M)
+            for n in layer]                                            # the training batches
          + [(*c, 128, bf, 1e-2) for c in serve_t]                    # B = 8 serving rows
          + [(*r, f32, 1e-4) for r in ragged4] + [(*edge, 64, bf, 1e-2)]
          + [(*c, bf, 1e-2) for c in wgmma4 + old4 + decode4], 196),
@@ -834,7 +859,7 @@ def check_matmuls(gen, stats: Stats):
                 lib = timer(lambda i: torch._int_mm(xq, w8[i % len(w8)]))
                 del w8
             if not a8 and dt == bf and (label in layer or label == "lm_head") and (
-                    M in (rep_m, TRAIN_T) + DECODE_LIB_M + SERVE_LIB_M
+                    M in (rep_m, TRAIN_T) + TRAIN_CLI_M + DECODE_LIB_M + SERVE_LIB_M
                     or (bits == 8 and M == 196)) or label in TOWER_LAYER:
                 # the bf16 product alone, on a weight dequantised beforehand (the tower:
                 # also what its dense bf16 form computes, timed for both entries)
@@ -1073,7 +1098,8 @@ def check_int4_matmul_t(gen, stats: Stats):
     dev = "cuda"
     bf, f32 = torch.bfloat16, torch.float32
     # (label, M, K, N, G, dtype, tol)
-    cases = [(n, M, K, N, 128, bf, 1e-2) for M in (TRAIN_T, 196) for n, K, N in LAYER]
+    cases = [(n, M, K, N, 128, bf, 1e-2) for M in (TRAIN_T, 196, *TRAIN_CLI_M)
+             for n, K, N in LAYER]
     # row counts that straddle the wgmma kernel's token tiles (128 rows at most),
     # the projector's rows, G = 64 and 256
     cases += [("tile-edge", M, 3584, 3584, 128, bf, 1e-2)
@@ -1150,6 +1176,9 @@ def check_flash_attention(gen, stats: Stats):
     # T = 4096 shows the kernels where the launch cost does not hide them.
     cases = [("7b", 1, TRAIN_T, 28, 4, 128, bf, None, 1e-2, 2e-2),
              ("7b-padded", 1, TRAIN_T, 28, 4, 128, bf, (37,), 1e-2, 2e-2),
+             # phase 5b's collated batches: left-padded rows at the length bucket 1,024
+             ("7b-collated", 2, 1024, 28, 4, 128, bf, (90, 333), 1e-2, 2e-2),
+             ("7b-collated", 1, 1024, 28, 4, 128, bf, (107,), 1e-2, 2e-2),
              ("7b-ragged", 2, 77, 28, 4, 128, bf, (0, 9), 1e-2, 2e-2),
              *[("7b-edge", 1, T, 28, 4, 128, bf, None, 1e-2, 2e-2) for T in (63, 64, 65, 129)],
              ("7b-edge-padded", 2, 129, 28, 4, 128, bf, (0, 70), 1e-2, 2e-2),
@@ -1395,6 +1424,40 @@ def phase3_train(seed: int):
           f"launches {counts}", flush=True)
 
 
+# phase 5a: the adapters' gradients under each remat policy against remat 'none''s,
+# as the largest ||g - g_none|| / ||g_none|| over each leaf's layer slices
+GRAD_RTOL = 5e-2
+
+
+def _grad_rel_diff(got: dict, ref: dict) -> float:
+    worst = 0.0
+    for n, r in ref.items():
+        diff = (got[n] - r).flatten(1).norm(dim=1)
+        worst = max(worst, float((diff / r.flatten(1).norm(dim=1).clamp_min(1e-30)).max()))
+    return worst
+
+
+@contextlib.contextmanager
+def _stale_replay(qwen2):
+    """remat 'dots' with a fault: in the backward every layer is handed back
+    the products that the layer before it kept (layer 0 its own)."""
+    kept = []
+
+    class StaleStash(qwen2.ProductStash):
+        def replay(self):
+            super().replay()
+            kept.append(self.outs)
+            if len(kept) > 1:
+                self.outs = kept[-2]
+
+    real = qwen2.ProductStash
+    qwen2.ProductStash = StaleStash
+    try:
+        yield
+    finally:
+        qwen2.ProductStash = real
+
+
 def _checksum(t) -> int:
     import torch
 
@@ -1406,6 +1469,7 @@ def phase5(gpu: str, seed: int, stats: Stats):
     import torch
 
     from aha_tpu_torch.config import TrainConfig
+    from aha_tpu_torch.models import qwen2
     from aha_tpu_torch.models.aha import random_params
     from aha_tpu_torch.ops import kernels
     from aha_tpu_torch.train import trainer
@@ -1483,11 +1547,26 @@ def phase5(gpu: str, seed: int, stats: Stats):
     # whole step runs, AdamW's arithmetic included, and leaves the trained values
     # where they are) and at one step number, so that every policy draws the same
     # masks: the losses agree to bf16 rounding. One step lets the allocator meet
-    # the policy's sizes, the second is timed.
+    # the policy's sizes, the second is timed. The loss is the forward, the same
+    # code under every policy; the backward is held by the adapters' gradients,
+    # each layer's slice of each against 'none''s: the largest relative
+    # difference must stay under GRAD_RTOL, which a stale replay (every layer
+    # handed back the kept products of the layer before it, shapes alike) must
+    # exceed.
     still = trainer.AdamW(dataclasses.replace(tc, learning_rate=0.0), 100)
+    update = still.update
+    grads = {}
+
+    def keep_grads(g, opt_state, trained):
+        grads[policy] = {n: t.detach().float().clone() for n, t in g.items()
+                         if n.startswith("lora/")}
+        if policy != "stale dots":          # the fault's gradients are only read
+            update(g, opt_state, trained)
+
+    still.update = keep_grads
     at_step = state.step
     policy_loss = {}
-    for policy in ("full", "half", "none"):
+    for policy in ("full", "half", "none", "dots", "dots_no_batch"):
         step = trainer.make_train_step(cfg, dataclasses.replace(tc, remat_policy=policy), still,
                                        labels, scale)
         timed_step()
@@ -1501,9 +1580,207 @@ def phase5(gpu: str, seed: int, stats: Stats):
     spread = max(policy_loss.values()) - min(policy_loss.values())
     if not spread <= 1e-2:
         raise AssertionError(f"7b train: remat policies disagree in loss: {policy_loss}")
-    del state, params
+
+    policy = "stale dots"
+    step = trainer.make_train_step(cfg, dataclasses.replace(tc, remat_policy="dots"), still,
+                                   labels, scale)
+    with _stale_replay(qwen2):
+        timed_step()
+    state.step = at_step
+    ratio = {p: _grad_rel_diff(grads[p], grads["none"]) for p in grads if p != "none"}
+    print(f"phase5 remat adapters' gradients [{gpu}]: largest relative difference of a "
+          f"layer's slice from remat=none's (limit {GRAD_RTOL}) "
+          f"{ {p: f'{r:.3e}' for p, r in ratio.items()} }", flush=True)
+    if ratio.pop("stale dots") <= GRAD_RTOL:
+        raise AssertionError("7b train: a stale replay stays within the gradients' tolerance")
+    if not max(ratio.values()) <= GRAD_RTOL:
+        raise AssertionError(f"7b train: remat policies disagree in gradients: {ratio}")
+    del grads
+    del state, params, step, still
     gc.collect()
     torch.cuda.empty_cache()
+    phase5b(gpu, stats)
+
+
+# -- phase 5b: the train command at 7B -----------------------------------------------
+
+# the clips of phase 5b (seconds; 384 x 384 at 4 fps, decoded at 1 fps), two videos that a
+# grounding and a DVC entry of the mixture share: every conversation is 513 .. 1,024 tokens
+# long behind the training system prompt, so every batch is left-padded to the length
+# bucket 1,024 and its frames to the bucket 16 or 32
+TRAIN_CLI_CLIPS = {"c0.mp4": 13, "c1.mp4": 10}
+
+
+def write_train_data(root: pathlib.Path) -> pathlib.Path:
+    """Clips written with cv2, a grounding and a DVC annotation file over them
+    and the mixture config (frame_fps 1, max_num_frames 16); -> the config."""
+    import numpy as np
+
+    from aha_tpu_torch.data.media import write_video
+
+    vids = root / "videos"
+    vids.mkdir(parents=True)
+    rng = np.random.default_rng(0)
+    for name, seconds in TRAIN_CLI_CLIPS.items():
+        frames = np.repeat(rng.integers(0, 255, (seconds, 384, 384, 3), dtype=np.uint8), 4, 0)
+        write_video(frames, str(vids / name), 4.0)
+    (root / "grounding.json").write_text(json.dumps([
+        {"video_uid": "c0.mp4", "query": "the subject turns", "timestamps": [[3.0, 7.5]]},
+        {"video_uid": "c1.mp4", "query": "a door opens", "timestamps": [[1.0, 4.0], [6.0, 8.0]]}]))
+    (root / "dvc.json").write_text(json.dumps({
+        "c0.mp4": {"a": [{"text": "someone walks in.", "time": 4.0, "timespan": [2.0, 4.0]},
+                         {"text": "they sit down.", "time": 9.0, "timespan": [7.0, 9.0]},
+                         {"text": "they leave.", "time": 12.0, "timespan": [11.0, 12.0]}]},
+        "c1.mp4": {"a": [{"text": "a car passes.", "time": 3.0, "timespan": [1.0, 3.0]},
+                         {"text": "it stops.", "time": 8.0, "timespan": [6.0, 8.0]}]}}))
+    entry = dict(video_root=str(vids), metadata_path=str(root / "meta.json"), frame_fps=1.0,
+                 max_num_frames=16)
+    mix = root / "mixture.json"
+    mix.write_text(json.dumps([
+        dict(entry, dataset_cls="GroundingStreamDataset", anno_file=str(root / "grounding.json")),
+        dict(entry, dataset_cls="DenseVideoCaptioningStreamDataset",
+             anno_file=str(root / "dvc.json"))]))
+    return mix
+
+
+class HostTimer:
+    """Thread time of the data pipeline's decode (``StreamDataset.__getitem__``)
+    and collation (``collate``) while a run lasts, by wrapping both."""
+
+    def __init__(self):
+        import threading
+
+        from aha_tpu_torch.data import datasets, pipeline
+
+        self.mods = (datasets.StreamDataset, pipeline)
+        self.saved = (datasets.StreamDataset.__getitem__, pipeline.collate)
+        self.lock = threading.Lock()
+        self.ms = {"decode": 0.0, "collate": 0.0}
+        self.batches = 0
+
+    def _timed(self, fn, key):
+        def timed(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            with self.lock:
+                self.ms[key] += (time.perf_counter() - t) * 1e3
+                self.batches += key == "collate"
+            return out
+        return timed
+
+    def __enter__(self):
+        cls, pipeline = self.mods
+        cls.__getitem__ = self._timed(self.saved[0], "decode")
+        pipeline.collate = self._timed(self.saved[1], "collate")
+        return self
+
+    def __exit__(self, *exc):
+        self.mods[0].__getitem__, self.mods[1].collate = self.saved
+
+
+def phase5b(gpu: str, stats: Stats):
+    """``cmd_train`` in this process at --model_preset 7b on the clips of
+    ``write_train_data``: int4 QLoRA on left-padded B 2 batches with
+    accumulation, the same command resumed from latest_checkpoint, and the
+    default int8 trunk at B 1. Outputs go to the system's temporary directory
+    and are removed."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from aha_tpu_torch.cli.train import cmd_train
+    from aha_tpu_torch.ops import kernels
+    from aha_tpu_torch.train import trainer
+
+    t_phase = time.perf_counter()
+    root = pathlib.Path(tempfile.mkdtemp(prefix="aha_train_"))
+    try:
+        mix = write_train_data(root)
+        base = ["--model_preset", "7b", "--dataset_config", str(mix), "--learning_rate", "1e-4"]
+        int4 = base + ["--quantize_base", "--quantize_bits", "4", "--batch_size", "2",
+                       "--grad_accum_steps", "2", "--remat_policy", "full",
+                       "--output_dir", str(root / "int4")]
+        runs = [("int4 B=2 accum 2", int4 + ["--num_steps", "4"],
+                 ("int4_matmul", "int4_matmul_t", "flash_attention_fwd", "flash_attention_bwd")),
+                ("int4 resumed", int4 + ["--num_steps", "6", "--resume_from_checkpoint", None],
+                 ("int4_matmul", "int4_matmul_t", "flash_attention_fwd", "flash_attention_bwd")),
+                ("int8 B=1", base + ["--quantize_base", "--batch_size", "1",
+                                     "--grad_accum_steps", "1", "--num_steps", "2",
+                                     "--output_dir", str(root / "int8")],
+                 ("int8_matmul", "flash_attention_fwd", "flash_attention_bwd"))]
+        train = trainer.train
+        for label, argv, must in runs:
+            if "--resume_from_checkpoint" in argv:
+                latest = trainer.latest_checkpoint(str(root / "int4" / "checkpoints"))
+                argv[argv.index("--resume_from_checkpoint") + 1] = latest
+            peak = {}
+
+            def measured(*a, **k):
+                # the weights are built and quantised: the run's own peak starts here
+                torch.cuda.synchronize()
+                peak["build"] = torch.cuda.max_memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                kernels.reset_launches()        # the training path starts here
+                return train(*a, **k)
+
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            trainer.train = measured
+            try:
+                with HostTimer() as host:
+                    state = cmd_train(argv)
+            finally:
+                trainer.train = train
+            torch.cuda.synchronize()
+            counts = dict(kernels.LAUNCHES)     # ... and ends here
+            wall = time.perf_counter() - t0
+            stats.launches(counts)
+            missing = [n for n in must if counts.get(n, 0) <= 0]
+            if missing:
+                raise AssertionError(f"7b train command {label}: {missing} never launched "
+                                     f"({counts})")
+            out = pathlib.Path(argv[argv.index("--output_dir") + 1])
+            rows = [json.loads(x) for x in (out / "metrics.jsonl").read_text().splitlines()]
+            first = 5 if "resumed" in label else 1
+            rows = [r for r in rows if r["step"] >= first]
+            n_steps = int(argv[argv.index("--num_steps") + 1])
+            accum = int(argv[argv.index("--grad_accum_steps") + 1])
+            if ([r["step"] for r in rows] != list(range(first, n_steps + 1))
+                    or state.step != n_steps or state.opt_state.count != n_steps // accum):
+                raise AssertionError(f"7b train command {label}: steps {[r['step'] for r in rows]}"
+                                     f", state at {state.step}, optimizer count "
+                                     f"{state.opt_state.count}")
+            losses = [r["train/total_loss"] for r in rows]
+            if not all(math.isfinite(x) for x in losses):
+                raise AssertionError(f"7b train command {label}: non-finite loss {losses}")
+            if not (out / "adapter.pt").exists() or trainer.latest_checkpoint(
+                    str(out / "checkpoints")) is None:
+                raise AssertionError(f"7b train command {label}: no checkpoint or export")
+            ms = [r["perf/step_ms"] for r in rows]
+            tokens = sum(r["perf/tokens"] for r in rows)
+            wait = [r["perf/wait_ms"] for r in rows]
+            B = int(argv[argv.index("--batch_size") + 1])
+            shown = " ".join("mixture.json" if a == str(mix) else a for a in argv)
+            print(f"phase5b train command {label} [{gpu}]: {shown}"
+                  f" -> steps {first}..{n_steps}, optimizer count {state.opt_state.count}; step ms "
+                  f"{[round(x, 1) for x in ms]} (median {float(np.median(ms)):.1f}, min "
+                  f"{min(ms):.1f}, max {max(ms):.1f}); {tokens} real tokens of {B * TRAIN_CLI_T * len(rows)} "
+                  f"= {tokens / sum(ms) * 1e3:.1f} real tokens/s; host decode "
+                  f"{host.ms['decode'] / max(host.batches, 1):.1f} ms + collate "
+                  f"{host.ms['collate'] / max(host.batches, 1):.1f} ms a batch on "
+                  f"{host.batches} batches (worker threads), the step waited {float(np.mean(wait)):.1f} "
+                  f"ms a batch for it; max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+                  f" GiB in train() ({peak['build'] / 2**30:.2f} GiB while building and "
+                  f"quantising the weights); losses {[round(x, 4) for x in losses]}; launches "
+                  f"{counts}; command {wall:.1f}s", flush=True)
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"phase5b took {time.perf_counter() - t_phase:.1f}s", flush=True)
 
 
 class PassCounter:
@@ -1544,9 +1821,11 @@ class ShapeRecorder:
     def __init__(self):
         import torch
 
+        from aha_tpu_torch.models import remat
         from aha_tpu_torch.ops import attention, quant
 
-        from aha_tpu_torch.ops.kernels import flash_attention, int4_matmul, int4_matmul_t
+        from aha_tpu_torch.ops.kernels import (flash_attention, int4_matmul, int4_matmul_t,
+                                               int8_matmul)
 
         self.f32 = torch.float32
 
@@ -1556,7 +1835,11 @@ class ShapeRecorder:
                       # training: int4_qlinear's forward and backward, the flash Function's
                       (int4_matmul, "int4_matmul"), (int4_matmul_t, "int4_matmul_t"),
                       (flash_attention, "flash_attention_fwd"),
-                      (flash_attention, "flash_attention_bwd")]
+                      (flash_attention, "flash_attention_bwd"),
+                      # int8_qlinear's forward; remat "dots": the kept products and attention
+                      (int8_matmul, "int8_matmul"), (remat, "int4_matmul"),
+                      (remat, "int8_matmul"), (remat, "flash_attention_fwd"),
+                      (remat, "flash_attention_bwd")]
         self.saved = [getattr(mod, name) for mod, name in self.sites]
 
     def _matmul(self, fn, name):
@@ -1598,7 +1881,11 @@ class ShapeRecorder:
             return transposed(g, w, scale)
 
         setattr(*self.sites[5], recorded_transposed)
-        for site, fn in zip(self.sites[6:], self.saved[6:]):
+        for site, fn in zip(self.sites[6:8], self.saved[6:8]):
+            setattr(*site, self._flash(fn))
+        for site, fn in zip(self.sites[8:11], self.saved[8:11]):
+            setattr(*site, self._matmul(fn, site[1]))
+        for site, fn in zip(self.sites[11:], self.saved[11:]):
             setattr(*site, self._flash(fn))
         return self
 
@@ -1978,11 +2265,12 @@ def drive_7b_paths(gpu: str, seed: int, stats: Stats):
         rows_d, t_sv_d = score_64(params4, cfg, tok, frames[:64], product, backend="fused_a8")
         sv_verifies = pc.verifies
         sess, turns, t_inf, gen_s, dec_s, dec_tokens = run_inference(
-            params4, cfg, tok, frames, threshold(rows_d), product, backend="fused_a8")
+            params4, cfg, tok, frames[:D_FRAMES], threshold(rows_d), product,
+            backend="fused_a8")
         counts = dict(kernels.LAUNCHES)
         chunks, verifies = pc.chunks, pc.verifies
     responses = texts(turns)
-    seen = check_7b_run("7b-int4 fused_a8", rows_d, sess, responses, 96)
+    seen = check_7b_run("7b-int4 fused_a8", rows_d, sess, responses, D_FRAMES)
     if sv_verifies != 16:
         raise AssertionError(f"7b-int4 fused_a8: score_video took {sv_verifies} fused passes, "
                              f"not 16")
@@ -1998,21 +2286,22 @@ def drive_7b_paths(gpu: str, seed: int, stats: Stats):
     print(f"phase4d 7b-int4 backend=fused_a8 widths 4 / 4->8 [{gpu}] score_video 64 frames in "
           f"16 fused passes of 196 rows {t_sv_d:.3f}s = {64 / t_sv_d:.2f} frames/s (weight-only, "
           f"4a: {64 / t_sv4:.2f}); scores vs 4a's weight-only at width 4 max_abs_diff={d:.3e}; "
-          f"inference (chunked) 96 frames {t_inf:.3f}s, {len(responses)} responses in "
+          f"inference (chunked) {D_FRAMES} frames {t_inf:.3f}s, {len(responses)} responses in "
           f"{gen_s:.3f}s; decode {dec_tokens} tokens in {dec_s:.3f}s = "
           f"{dec_tokens / max(dec_s, 1e-9):.2f} decode tokens/s (4a: "
           f"{dec_tokens4 / max(dec_s4, 1e-9):.2f}), {acc['tokens_per_pass']} tokens per verify "
-          f"pass ({acc['passes']} passes); scoring {96 / (t_inf - gen_s):.2f} frames/s (4a: "
+          f"pass ({acc['passes']} passes); scoring {D_FRAMES / (t_inf - gen_s):.2f} frames/s (4a: "
           f"{frames_s4:.2f}); stream {seen} tokens; {chunks} chunks + {verifies} verify passes; "
           f"launches int4_matmul_a8={n} quantize_rows={counts['quantize_rows']}", flush=True)
     print(f"phase4d first response: {responses[0][:60]!r}", flush=True)
     with PassCounter() as pc:
         kernels.reset_launches()
         sess1, turns1, t_inf1, gen_s1, dec_s1, dec_tokens1 = run_inference(
-            params4, cfg, tok, frames, threshold(rows_d), dict(product, spec_decode_tokens=1),
-            backend="fused_a8")
+            params4, cfg, tok, frames[:D_FRAMES], threshold(rows_d),
+            dict(product, spec_decode_tokens=1), backend="fused_a8")
         counts = dict(kernels.LAUNCHES)
-    check_7b_run("7b-int4 fused_a8 generation width 1", rows_d, sess1, texts(turns1), 96)
+    check_7b_run("7b-int4 fused_a8 generation width 1", rows_d, sess1, texts(turns1),
+                 D_FRAMES)
     if counts.get("int4_matmul_a8", 0) < L * (pc.chunks + pc.verifies) * 4:
         raise AssertionError(f"7b-int4 fused_a8 width 1: launches {counts} over {pc.chunks} "
                              f"chunks + {pc.verifies} verify passes")
@@ -2030,7 +2319,7 @@ def drive_7b_paths(gpu: str, seed: int, stats: Stats):
     del sess, sess1
     gc.collect()
 
-    phase4e(gpu, stats, cfg, tok, frames, params4, params8,
+    phase4e(gpu, stats, cfg, tok, frames[:D_FRAMES], params4, params8,
             {"7b-int4": (rows4, 64 / t_sv4), "7b-int8": (rows8, 64 / t_sv8),
              "7b-int8 fused_a8": (rows_a8, 64 / t_sv_a8)})
     del params4, params8

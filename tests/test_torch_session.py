@@ -593,7 +593,24 @@ def test_port_runs_without_jax():
                      "--stream_end_score_sum_threshold", "1.5"]) == 0
         with open(os.path.join(d, "out.jsonl")) as f:
             assert len(json.loads(f.readline())["debug_data"]) == 4
-        assert main(["train"]) == 2
+        assert main(["evaluate"]) == 2
+        # training from the command line: a grounding mixture over the clip, an int8 trunk
+        with open(os.path.join(d, "g.json"), "w") as f:
+            json.dump([{{"video_uid": "v.mp4", "query": "thing", "timestamps": [[0.5, 1.0]]}}], f)
+        with open(os.path.join(d, "mix.json"), "w") as f:
+            json.dump([{{"dataset_cls": "GroundingStreamDataset", "video_root": d,
+                        "anno_file": os.path.join(d, "g.json"),
+                        "metadata_path": os.path.join(d, "meta.json"), "frame_fps": 2.0,
+                        "max_num_frames": 4}}], f)
+        assert main(["train", "--model_preset", "tiny", "--device", "cpu", "--dataset_config",
+                     os.path.join(d, "mix.json"), "--output_dir", os.path.join(d, "tr"),
+                     "--num_steps", "2", "--grad_accum_steps", "1", "--quantize_base",
+                     "--remat_policy", "dots"]) == 0
+        assert os.path.exists(os.path.join(d, "tr", "adapter.pt"))
+        for m in ("aha_tpu_torch.data.collator", "aha_tpu_torch.data.datasets",
+                  "aha_tpu_torch.data.conversations", "aha_tpu_torch.models.remat",
+                  "aha_tpu_torch.cli.train"):
+            assert m in sys.modules, m
         # multi-stream serving: serve two requests over two slots, one a clip
         with open(os.path.join(d, "req.jsonl"), "w") as f:
             f.write(json.dumps({{"key": "a", "video": os.path.join(d, "v.mp4"),

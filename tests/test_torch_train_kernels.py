@@ -110,8 +110,10 @@ def test_qlinear_under_grad_refuses_what_has_no_gradient(data):
     k4 = {"q4value": _t(q4["q4value"]), "scale4": _t(q4["scale4"])}
     k8 = {"qvalue": torch.zeros(w.shape, dtype=torch.int8), "scale": torch.ones(1, w.shape[1])}
     xt = _t(x).requires_grad_()
-    with pytest.raises(NotImplementedError, match="int8-trunk training"):
-        tquant.qlinear(xt, k8)
+    # int8 weights carry a gradient since int8_qlinear; the other backends have none
+    assert tquant.qlinear(xt, k8).grad_fn is not None
+    with pytest.raises(ValueError, match="pallas"):
+        tquant.qlinear(xt, k8, backend="pallas")
     with pytest.raises(ValueError, match="fused_a8"):
         tquant.qlinear(xt, k4, backend="fused_a8")
     # no gradient to carry: the inference wrappers, no autograd node
