@@ -1,26 +1,26 @@
 """Command line of the port: ``python -m aha_tpu_torch.cli <command> ...``.
 
 Counterpart of ``aha_tpu/cli``, with its command names and flags. Ported:
-``infer`` for the streaming-QA datasets, at one stream or several
-(``infer.py``; session construction and the flags in ``_session.py``),
-``serve``, the continuous-batching JSONL server (``serve.py``), and ``train``,
-fine-tuning from a dataset mixture (``train.py``). Every other command exits 2
-with a message that names its ROADMAP.md item.
+``infer`` for the benchmark and streaming-QA datasets, at one stream or
+several (``infer.py``; session construction and the flags in
+``_session.py``), ``serve``, the continuous-batching JSONL server
+(``serve.py``), ``train``, fine-tuning from a dataset mixture
+(``train.py``), and the chain on ``infer``'s predictions: ``grid-search``,
+``evaluate`` and ``highlight`` (``evaluate.py``). ``demo`` and ``visualize``
+exit 2 with a message that names their ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 import sys
 
+from .evaluate import cmd_evaluate, cmd_grid_search, cmd_highlight
 from .infer import cmd_infer
 from .serve import cmd_serve
 from .train import cmd_train
 
 # commands of the JAX package that are not ported yet -> their ROADMAP.md item
 NOT_PORTED = {
-    "grid-search": "Queue 1 item 7",
-    "evaluate": "Queue 1 item 7",
-    "highlight": "Queue 1 item 7",
     "demo": "Queue 1 item 7",
     "visualize": "Queue 1 item 11",
 }
@@ -33,7 +33,8 @@ def _not_ported(name: str):
     return cmd
 
 
-COMMANDS = {"infer": cmd_infer, "serve": cmd_serve, "train": cmd_train,
+COMMANDS = {"infer": cmd_infer, "grid-search": cmd_grid_search, "evaluate": cmd_evaluate,
+            "highlight": cmd_highlight, "serve": cmd_serve, "train": cmd_train,
             **{name: _not_ported(name) for name in NOT_PORTED}}
 
 

@@ -1,7 +1,8 @@
 """Session construction and the inference flags of the command line: the
-port's copy of ``aha_tpu/cli/_session.py:33-268``, with its flag names and
+port's copy of ``aha_tpu/cli/_session.py``, with its flag names and
 defaults and one flag of its own, ``--device`` (the card unless the caller
-asks for the CPU).
+asks for the CPU), and the params file's fallback on the committed
+calibration (``_resolve_params_file``).
 
 Weights, in JAX's order (``aha_tpu/cli/_session.py:57-164``):
 ``--synthetic_weights`` builds JAX's seeded synthetic tree in its final form
@@ -30,6 +31,24 @@ import dataclasses
 import json
 import os
 import sys
+
+# the reference's published calibration, committed in the repository: evaluate and
+# highlight fall back on it before `grid-search` has written a params file
+_DEFAULT_PARAMS_FILE = "configs/grid_search_params.default.json"
+
+
+def _resolve_params_file(path: str) -> str:
+    """``path`` where it exists, else the committed calibration (looked for
+    in the working directory, then beside the package), else ``path``."""
+    if os.path.exists(path):
+        return path
+    repo_root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    for cand in (_DEFAULT_PARAMS_FILE, os.path.join(repo_root, _DEFAULT_PARAMS_FILE)):
+        if os.path.exists(cand):
+            print(f"[aha] {path} not found; using committed calibration {cand}",
+                  file=sys.stderr)
+            return cand
+    return path
 
 
 def _adopt_checkpoint_config(cfg, weights_path):

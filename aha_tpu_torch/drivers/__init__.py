@@ -1,2 +1,2 @@
-"""Benchmark drivers of the port (counterparts of aha_tpu/drivers, trimmed
-to the streaming-QA datasets of ``infer``)."""
+"""Benchmark drivers of the port (counterparts of aha_tpu/drivers): the
+tvsum / hisum / streaming-QA / offline drivers of ``infer`` and its dataset."""

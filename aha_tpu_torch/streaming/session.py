@@ -1,7 +1,8 @@
 """StreamSession: the single-stream streaming-inference session.
 
 Counterpart of ``aha_tpu/streaming/session.py``: the benchmark loop
-``inference()``, the prob / sum / z trigger rules, and ``score_video``.
+``inference()``, the prob / sum / z trigger rules, ``score_video``, the offline
+baseline ``offline_generate`` and the demo's ``find_ticks``.
 ``inference()`` runs the chunked loop by default, as JAX's does: the runs of
 frames between queries and responses go through the engine's trigger loops
 (``engine_trigger.py``), which score ``fused_score_frames`` frames a decoder
@@ -416,6 +417,31 @@ class StreamSession:
             self.video_time += 1.0 / self.frame_fps
         self.debug_data_list.extend(out)
         return out
+
+    def find_ticks(self, scores, fps: float | None = None, **kw) -> list[float]:
+        """Highlight tick times in seconds from a score trace
+        (``ops.signal.find_ticks``), at ``fps`` or the session's rate."""
+        from ..ops.signal import find_ticks
+
+        return find_ticks(np.asarray(scores), fps or self.frame_fps, **kw)
+
+    def offline_generate(self, video_frames, question: str, fps: float | None = None) -> str:
+        """The offline baseline: the system prompt, the whole video, then the
+        question, and one greedy answer (speculative at the engine's width,
+        with no draft context)."""
+        self.reset()
+        if fps is not None:
+            self.set_fps(fps=fps)
+        self.engine.append_ids(self.cache, [self._start_ids])
+        embeds = self.engine.encode_frames(video_frames)
+        self.engine.score_stream(self.cache, embeds[None])
+        q_ids = self.tokenizer.apply_chat_template(
+            [{"role": "user", "content": question}],
+            add_stream_query_prompt=True, add_generation_prompt=True)
+        out_ids, out_len, self.rep_counts, _ = self.engine.generate(
+            self.cache, [q_ids], self.rep_counts)
+        n = int(out_len[0])
+        return self.tokenizer.decode(out_ids[0, :n].cpu().numpy(), skip_special_tokens=True)
 
 
 def build_session(params: dict, cfg: AhaConfig, tokenizer: StreamTokenizer,

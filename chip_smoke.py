@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases 1,2,6 # + JAX's weights and the 7B fixture
     python3 chip_smoke.py --phases 1,2,7 # + multi-stream serving at B 8
     python3 chip_smoke.py --phases 1,2,8 # + the serving options (adapters, --w8a8)
+    python3 chip_smoke.py --phases 1,2,9 # + the highlight chain (infer tvsum .. highlight)
 
 Phases, one or more lines each:
   1. device: nvidia-smi name and power limit, torch / CUDA / nvcc versions,
@@ -68,7 +69,9 @@ Phases, one or more lines each:
      products at 32, 64, 392 and 1568 rows, int8's lm_head at 32 and 64, the
      cached attention at B 8, S 1 and 49: timed; every other width phase 7's
      passes give int8_matmul and the cached attention at B 8, and its projector
-     rows: held against the plain version without timing),
+     rows: held against the plain version without timing), and at the rows of
+     phase 9's query chunks (int8_matmul at the layer's products, the cached
+     attention; held, not timed),
      at small ragged shapes and at phase 6's and 8b's f32 shapes (int8_matmul
      at the layer's products at 49, 59, 171, 196 and 220 rows, the lm_head's
      row, the projector's 392; the cached attention at S = 49, 59, 171 and
@@ -134,7 +137,7 @@ Phases, one or more lines each:
           --int4, product defaults: JAX's synthetic weights, the prob threshold
           from their own scores), its driver's _full_pass over 32 frames,
           and cmd_infer end to end on a 4 s clip written with cv2.
-     Last (after phases 5-8 too), every shape that a path handed a kernel's
+     Last (after phases 5-9 too), every shape that a path handed a kernel's
      wrapper must be one that phase 2 held against the plain version;
   5. training at the 7B's full width and depth. a. The synthetic batch: int4
      QLoRA, int4 trunk, int8 embedding table, dense bf16 projector and
@@ -222,6 +225,22 @@ Phases, one or more lines each:
           requests with the adapters; last, traced (profile_slice.Trace), the
           wall and device-busy ms and aten ops of a token, a frame chunk and a
           fused pass with and without the adapters.
+  9. the highlight chain at 7B-int8, in the same shape check, launch counters
+     zeroed just before the infer stage and read just after: three clips
+     written with cv2 (64, 80 and 96 s at 30 fps, 320 x 240) beside a TVSum
+     info TSV, an annotation TSV of 20 annotators a clip and their metadata;
+     through aha_tpu_torch.cli.main in this process, `infer --test_dataset
+     tvsum --model_preset 7b --synthetic_weights --int8 --frame_fps 1 --seed
+     0` at the product defaults (fused 4, sink cache 2048 + 32), `grid-search
+     --test_dataset tvsum --seed 0`, `evaluate --func tvsum` and `highlight
+     --max_duration 10 --source_fps 30` on one clip: JAX's keys for every
+     clip, true_frames_list as long as debug_data, finite scores (informative
+     and relevance in [0, 1], uncertainty above 0), int8_matmul and
+     decode_attention launched, the AP / F1 metrics in [0, 1] and the
+     correlations in [-1, 1], frames_written equal to the highlight indices'
+     count and the reel read back with cv2 (also with fixed positive
+     parameters, ten frames selected); frames/s of the infer stage without the
+     weights' build, and each stage's seconds.
 
 Prints the kernels' JSON line and, last, {"ok": true, "device": ...}.
 Exits nonzero, with no result line, when there is no CUDA device, when the
@@ -475,6 +494,32 @@ def serve8_widths() -> dict:
             "b1": (q1,)}
 
 
+# the highlight chain (phase 9): three clips at 30 fps, 320 x 240, decoded at 1 fps (their
+# last vision batches leave 0, 16 and 0 frames: projector rows 1,568 and 784), in the order
+# of the metadata file phase 9 writes; clip -> (seconds, TVSum category, title)
+CHAIN_CLIPS = {"clip_a": (64, "GA", "grooming an animal in a garden"),
+               "clip_b": (80, "BK", "changing a bicycle tire"),
+               "clip_c": (96, "VT", "a parade on the street")}
+CHAIN_SEED = 0
+
+
+def chain_query_rows() -> tuple:
+    """The rows of the query chunks of phase 9's ``infer --test_dataset tvsum
+    --seed 0``: run_tvsum draws each clip's template from
+    ``random.Random(CHAIN_SEED)`` in metadata order, and score_video appends
+    the query as one chunk before the system prompt."""
+    import random
+
+    from aha_tpu_torch.drivers.benchmarks import QUERY_TEMPLATES
+
+    _, tok = _model("7b")
+    rng = random.Random(CHAIN_SEED)
+    return tuple(len(tok.apply_chat_template(
+        [{"role": "user", "content": rng.choice(QUERY_TEMPLATES) % title}],
+        add_stream_query_prompt=False, add_stream_prompt=True))
+        for _, _, title in CHAIN_CLIPS.values())
+
+
 def _dt(dt) -> str:
     return str(dt)[6:]
 
@@ -660,6 +705,9 @@ def check_matmuls(gen, stats: Stats):
     serve_h8 += [("held-" + n, M, K, N) for M in sorted({49 * (n % 32) for n in SERVE_LENGTHS}
                                                         - {0, 392, 1568})
                  for n, K, N in (("projector_fc1", 1024, 3584), ("projector_fc2", 3584, 3584))]
+    # the highlight chain (phase 9): each clip's query chunk, held without timing
+    chain_h8 = [("held-" + n, M, *layer[n]) for n in layer
+                for M in sorted(set(chain_query_rows()) - timed8 - set(held8))]
 
     # int8, f32 activations (phase 6's f32 score traces: a frame, the system prompt and
     # query, a fused pass of 4 frames; the lm_head's row; the projector's 8 frames; phase 8b's
@@ -678,7 +726,8 @@ def check_matmuls(gen, stats: Stats):
         ("int8_matmul", 8, False,
          [(*c, None, bf, 1e-2) for c in cards + tower]
          + [(*r, None, f32, 1e-4) for r in ragged8 + f32_8] + [(*edge, None, bf, 1e-2)]
-         + [(*c, None, bf, 1e-2) for c in wgmma8 + old8 + decode_rows + serve_t8 + serve_h8]
+         + [(*c, None, bf, 1e-2) for c in wgmma8 + old8 + decode_rows + serve_t8 + serve_h8
+            + chain_h8]
          + [(n, M, *layer[n], None, bf, 1e-2) for M in TRAIN_CLI_M for n in layer],
          49),
         ("int8_matmul_a8", 8, True,
@@ -1009,6 +1058,9 @@ def check_attention(gen, stats: Stats):
               for S in sorted(set(sw["frame_steps"] + sw["queries"] + sw["mixed"] + sw["start"])
                               - {1, 49})]
     cases += [dict(seven, label="7b-held", B=1, S=S, Wp=2049) for S in sw["b1"]]
+    # the highlight chain (phase 9): each clip's query chunk
+    cases += [dict(seven, label="7b-held", B=1, S=S, Wp=2049)
+              for S in sorted(set(chain_query_rows()) - set(PATH_M) - set(sw["b1"]))]
     # f32 queries and cache: phase 6's f32 score traces (a frame, the prompt and query), and
     # phase 8b's f32 frame chunks behind a peft artifact's f32 projector (the system prompt
     # and first frame, a response's last token + stream prompt + frame), whose bf16 cache
@@ -2006,7 +2058,7 @@ def verify_vs_sequential(sess, cfg, S: int = 8):
     return err, same
 
 
-def phases_4_to_8(gpu: str, seed: int, stats: Stats, phases: set):
+def phases_4_to_9(gpu: str, seed: int, stats: Stats, phases: set):
     """The 7B paths, then: every shape they gave a kernel was held against the
     plain version in phase 2."""
     phase2_ran = 2 in phases
@@ -2021,8 +2073,10 @@ def phases_4_to_8(gpu: str, seed: int, stats: Stats, phases: set):
             phase7(gpu, seed, stats)
         if 8 in phases:
             phase8(gpu, seed, stats)
+        if 9 in phases:
+            phase9(gpu, stats)
     missing = sorted(rec.seen - stats.checked, key=str)
-    print(f"phases 4-8 shapes handed to the kernels: {len(rec.seen)} distinct, "
+    print(f"phases 4-9 shapes handed to the kernels: {len(rec.seen)} distinct, "
           f"{len(missing)} not checked in phase 2"
           + ("" if phase2_ran else " (phase 2 did not run)"), flush=True)
     if phase2_ran and missing:
@@ -3481,12 +3535,218 @@ def phase8a(gpu: str, seed: int, stats: Stats, cfg, tok, frames):
     torch.cuda.empty_cache()
 
 
+# -- phase 9: the highlight chain at 7B-int8 ----------------------------------------------------
+
+
+def write_chain_data(root: pathlib.Path) -> dict:
+    """Phase 9's benchmark on disk: the CHAIN_CLIPS written with cv2 (30 fps,
+    320 x 240: a gradient that drifts, a bright square crossing the frame,
+    noise in a corner), TVSum's info TSV, an annotation TSV of 20 annotators
+    a clip (1-5 per source frame, higher where the square is in the middle
+    third), and the video metadata in CHAIN_CLIPS' order. Returns the paths."""
+    import cv2
+    import numpy as np
+
+    videos = root / "videos"
+    videos.mkdir()
+    rng = np.random.default_rng(9)
+    W, H, FPS = 320, 240, 30
+    meta, anno = {}, []
+    xs = np.arange(W)[None, :, None]
+    for k, (name, (sec, cat, _)) in enumerate(CHAIN_CLIPS.items()):
+        n = sec * FPS
+        writer = cv2.VideoWriter(str(videos / f"{name}.mp4"), cv2.VideoWriter_fourcc(*"mp4v"),
+                                 float(FPS), (W, H))
+        mid = np.zeros(n, bool)
+        for i in range(n):
+            frame = np.broadcast_to(((xs + i + 50 * k) % 256).astype(np.uint8), (H, W, 3)).copy()
+            x = (i * 3) % (W - 40)
+            frame[100:140, x:x + 40] = (255, 255 - 60 * k, 40 * k)
+            frame[:16, :16] = rng.integers(0, 256, (16, 16, 3), dtype=np.uint8)
+            mid[i] = W / 3 <= x <= 2 * W / 3
+            writer.write(frame)
+        writer.release()
+        meta[f"{name}.mp4"] = {"path": str(videos / f"{name}.mp4"), "valid": True,
+                               "fps": float(FPS), "duration": float(sec)}
+        for _ in range(20):
+            scores = np.clip(rng.integers(1, 4, n) + 2 * mid, 1, 5)
+            anno.append(f"{name}\t{cat}\t" + ",".join(map(str, scores)))
+    info = root / "info.tsv"
+    info.write_text("category\tvideo_id\ttitle\turl\tlength\n" + "".join(
+        f"{cat}\t{name}\t{title}\thttp://example.com/{name}\t{sec // 60}:{sec % 60:02d}\n"
+        for name, (sec, cat, title) in CHAIN_CLIPS.items()))
+    (root / "anno.tsv").write_text("\n".join(anno) + "\n")
+    (root / "meta.json").write_text(json.dumps(meta))
+    return {"videos": videos, "info": info, "anno": root / "anno.tsv",
+            "meta": root / "meta.json"}
+
+
+def read_reel(path) -> int:
+    """Frames cv2 reads back from a reel (0 where it does not open)."""
+    import cv2
+
+    cap = cv2.VideoCapture(str(path))
+    n = 0
+    while cap.isOpened() and cap.read()[0]:
+        n += 1
+    cap.release()
+    return n
+
+
+def phase9(gpu: str, stats: Stats):
+    """The chain a user who measures the model runs, through
+    ``aha_tpu_torch.cli.main`` in this process: ``infer --test_dataset tvsum
+    --model_preset 7b --synthetic_weights --int8`` at the product defaults
+    (fused 4, sink cache 2048 + 32) at 1 fps over three cv2 clips, then
+    ``grid-search`` (the default grid of 15,000 combinations), ``evaluate
+    --func tvsum`` and ``highlight --max_duration 10 --source_fps 30`` on one
+    clip; the reel of the calibrated parameters and one of fixed positive
+    parameters (alpha 1, beta 1, epsilon 0: ten frames selected) read back
+    with cv2."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from aha_tpu_torch.cli import infer as cli_infer
+    from aha_tpu_torch.cli import main as cli_main
+    from aha_tpu_torch.eval import highlight
+    from aha_tpu_torch.ops import kernels
+
+    L = 28
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        paths = write_chain_data(root)
+        t_write = time.perf_counter() - t0
+        pred, params = root / "pred.json", root / "params.json"
+        metrics, reel = root / "metrics.json", root / "reel.mp4"
+
+        # infer: the session's build timed apart (the weights are the stage's set-up)
+        built = []
+        build_session = cli_infer._build_session
+
+        def timed_build(args):
+            t = time.perf_counter()
+            sess = build_session(args)
+            torch.cuda.synchronize()
+            built.append(time.perf_counter() - t)
+            return sess
+
+        cli_infer._build_session = timed_build
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            rc = cli_main(["infer", "--test_dataset", "tvsum", "--model_preset", "7b",
+                           "--synthetic_weights", "--int8", "--input_dir", str(paths["videos"]),
+                           "--caption_metadata_file", str(paths["info"]),
+                           "--video_metadata_file", str(paths["meta"]),
+                           "--output_fname", str(pred), "--frame_fps", "1",
+                           "--seed", str(CHAIN_SEED)])
+            torch.cuda.synchronize()
+        finally:
+            cli_infer._build_session = build_session
+        t_infer = time.perf_counter() - t0
+        counts = dict(kernels.LAUNCHES)
+        gc.collect()
+        torch.cuda.empty_cache()
+        preds = json.loads(pred.read_text())
+        n_frames = sum(len(x["debug_data"]) for x in preds)
+        keys = {"video_uuid", "model_response_list", "video_duration", "true_frames_list",
+                "debug_data"}
+        bad = [x["video_uuid"] for x in preds
+               if set(x) != keys or len(x["true_frames_list"]) != len(x["debug_data"])
+               or len(x["debug_data"]) != CHAIN_CLIPS[x["video_uuid"]][0]
+               or x["model_response_list"]
+               or not all(math.isfinite(r[k]) for r in x["debug_data"] for k in SCORE_KEYS)
+               or not all(0 <= r["informative_score"] <= 1 and 0 <= r["relevance_score"] <= 1
+                          and r["uncertainty_score"] > 0 for r in x["debug_data"])]
+        if (rc != 0 or sorted(x["video_uuid"] for x in preds) != sorted(CHAIN_CLIPS) or bad
+                or counts.get("int8_matmul", 0) < L * 4 or counts.get("decode_attention", 0) < L):
+            raise AssertionError(f"phase9 infer: rc {rc}, videos "
+                                 f"{[x['video_uuid'] for x in preds]}, bad {bad}, launches "
+                                 f"{counts}")
+        stats.launches(counts)
+        print(f"phase9 infer --test_dataset tvsum --model_preset 7b --synthetic_weights --int8 "
+              f"--frame_fps 1 --seed {CHAIN_SEED} [{gpu}]: {len(preds)} clips, {n_frames} frames "
+              f"scored in {t_infer:.2f}s, of which the weights {built[0]:.2f}s: "
+              f"{n_frames / (t_infer - built[0]):.2f} frames/s without the build; launches "
+              f"int8_matmul={counts['int8_matmul']} decode_attention={counts['decode_attention']}"
+              f"; clips written with cv2 in {t_write:.2f}s", flush=True)
+
+        # grid-search, evaluate, highlight: numpy on the host
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli_main(["grid-search", "--test_dataset", "tvsum", "--pred_file", str(pred),
+                           "--gold_file", str(paths["anno"]), "--save_path", str(params),
+                           "--seed", str(CHAIN_SEED)])
+        t_grid = time.perf_counter() - t0
+        best = json.loads(params.read_text())["tvsum"]
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc |= cli_main(["evaluate", "--func", "tvsum", "--pred_file", str(pred),
+                            "--gold_file", str(paths["anno"]), "--params_file", str(params),
+                            "--output_file", str(metrics)])
+        t_eval = time.perf_counter() - t0
+        overall = json.loads(metrics.read_text())["overall"]
+        unit = [best["best_score"], best["test_top5_map"], overall["mAP50"], overall["mAP15"],
+                overall["top5_mAP"], overall["f1@15"]]
+        corr = [overall["spearman"], overall["kendall"]]
+        if (rc != 0 or not all(math.isfinite(v) and 0 <= v <= 1 for v in unit)
+                or not all(math.isfinite(v) and -1 <= v <= 1 for v in corr)):
+            raise AssertionError(f"phase9 grid-search / evaluate: rc {rc}, best {best}, "
+                                 f"metrics {overall}")
+        print(f"phase9 grid-search --test_dataset tvsum --seed {CHAIN_SEED}: {t_grid:.2f}s, "
+              f"best {json.dumps(best)}; evaluate --func tvsum: {t_eval:.2f}s, overall "
+              f"{json.dumps(overall)}", flush=True)
+
+        clip = "clip_c"
+        entry = next(x for x in preds if x["video_uuid"] == clip)
+        fixed = root / "fixed.json"
+        fixed.write_text(json.dumps({"tvsum": {"alpha": 1.0, "beta": 1.0, "epsilon": 0.0,
+                                               "uncertainty_threshold": 0.1}}))
+        for label, pfile, out_reel in (("calibrated", params, reel),
+                                       ("alpha 1, beta 1, epsilon 0", fixed,
+                                        root / "fixed.mp4")):
+            printed = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                rc = cli_main(["highlight", "--pred_file", str(pred), "--video_uuid", clip,
+                               "--video_path", str(paths["videos"] / f"{clip}.mp4"),
+                               "--output_filepath", str(out_reel), "--max_duration", "10",
+                               "--params_file", str(pfile), "--source_fps", "30"])
+            t_hl = time.perf_counter() - t0
+            res = json.loads(printed.getvalue())
+            a, b, e = highlight.load_calibrated_params(str(pfile))
+            indices = highlight.generate_highlight(
+                entry["debug_data"], entry["true_frames_list"], 10, alpha=a, beta=b, epsilon=e,
+                source_fps=30.0)["highlight_indices"]
+            read = read_reel(out_reel) if res["frames_written"] else 0
+            if (rc != 0 or res["frames_written"] != len(indices) or read != len(indices)
+                    or (pfile == fixed and len(res["selected"]) != 10)):
+                raise AssertionError(f"phase9 highlight ({label}): rc {rc}, {res}, "
+                                     f"{len(indices)} highlight indices, {read} frames read "
+                                     f"back")
+            print(f"phase9 highlight {clip} --max_duration 10 --source_fps 30 ({label}): "
+                  f"{t_hl:.2f}s, {len(res['selected'])} frames selected, "
+                  f"{res['frames_written']} source frames written, the reel read back with "
+                  f"cv2: {read} frames", flush=True)
+    print(f"phase9 the chain [{gpu}]: infer {t_infer:.2f}s (weights {built[0]:.2f}s), "
+          f"grid-search {t_grid:.2f}s, evaluate {t_eval:.2f}s; phase 9 took "
+          f"{time.perf_counter() - t_phase:.1f}s", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
                     help="comma-separated phases (1 device, 2 kernels, 3 tiny slices, 4 7B "
                          "serving, 5 7B training, 6 JAX's weights, 7 multi-stream serving, 8 "
-                         "the serving options: adapters, --w8a8); "
+                         "the serving options: adapters, --w8a8, 9 the highlight chain: "
+                         "infer tvsum, grid-search, evaluate, highlight); "
                          "anything short of all of them exits 1 with no result line")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -3543,8 +3803,8 @@ def main() -> int:
     if 3 in phases:
         phase3(args.seed)
         phase3_train(args.seed)
-    if phases & {4, 5, 6, 7, 8}:
-        phases_4_to_8(gpu, args.seed, stats, phases)
+    if phases & {4, 5, 6, 7, 8, 9}:
+        phases_4_to_9(gpu, args.seed, stats, phases)
 
     print(f"{gpu}; chip_smoke took {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": [
@@ -3554,7 +3814,7 @@ def main() -> int:
          "bound_ms": stats.k[n]["bound_ms"], "bound_by": stats.k[n]["bound_by"],
          "library_ms": stats.k[n]["library_ms"], "shape": stats.k[n]["shape"]}
         for n, (src, tpu) in KERNELS.items()]}), flush=True)
-    if phases != {1, 2, 3, 4, 5, 6, 7, 8}:
+    if phases != {1, 2, 3, 4, 5, 6, 7, 8, 9}:
         print(f"chip_smoke: ran phases {sorted(phases)} only", file=sys.stderr)
         return 1
     missing = [n for n in KERNELS if stats.k[n]["launches"] <= 0]

@@ -407,8 +407,7 @@ def test_cli_infer_runs_checkpoints_and_dense_synthetic_weights(video_dir, tmp_p
     assert all(np.isfinite(d[k]) for x in lines for d in x["debug_data"] for k in KEYS)
 
 
-@pytest.mark.parametrize("dataset", ["tvsum", "tvsum_degraded", "hisum", "arl_scout",
-                                     "hubble_space", "jkim_landing"])
+@pytest.mark.parametrize("dataset", ["arl_scout", "hubble_space", "jkim_landing"])
 def test_cli_infer_refuses_the_other_datasets(video_dir, tmp_path, dataset):
     argv = _infer_argv(video_dir, tmp_path / "x.jsonl", "--int8")
     argv[argv.index("youcook2")] = dataset
@@ -423,13 +422,19 @@ def test_cli_commands_not_ported_exit_2(command, capsys):
 
 
 def test_cli_dispatcher():
-    """The JAX command names, two of them ported; an unknown command exits 2."""
+    """The JAX command names, six of them ported (infer, serve, train,
+    grid-search, evaluate, highlight), demo and visualize refused; an unknown
+    command exits 2."""
     from aha_tpu.cli import COMMANDS as JCOMMANDS
 
-    from aha_tpu_torch.cli import cmd_serve
+    from aha_tpu_torch.cli import (cmd_evaluate, cmd_grid_search, cmd_highlight, cmd_serve,
+                                   cmd_train)
 
     assert set(COMMANDS) == set(JCOMMANDS) and COMMANDS["infer"] is cmd_infer
-    assert COMMANDS["serve"] is cmd_serve and "serve" not in NOT_PORTED
+    ported = {"serve": cmd_serve, "train": cmd_train, "grid-search": cmd_grid_search,
+              "evaluate": cmd_evaluate, "highlight": cmd_highlight}
+    assert all(COMMANDS[name] is cmd for name, cmd in ported.items())
+    assert set(NOT_PORTED) == {"demo", "visualize"} == set(COMMANDS) - set(ported) - {"infer"}
     assert main(["nonsense"]) == 2 and main([]) == 0
 
 

@@ -518,7 +518,9 @@ def test_port_runs_without_jax():
     the command line, the drivers and the data modules with the rest, and the
     card's scripts chip_smoke.py and spec_divergence.py) and runs a tiny int4
     session at the product widths (chunked inference() with the prob and the
-    z rule), ``infer`` of the command line on a clip written with cv2,
+    z rule), ``infer`` of the command line on a clip written with cv2, the
+    highlight chain on it (``infer --test_dataset tvsum``, ``grid-search``,
+    ``evaluate``, ``highlight``; ``ops/signal.py`` and ``eval/`` with the rest),
     ``serve`` (multi-stream serving: ``engine_serve``, ``multi``,
     ``cli/serve``) on two requests of that clip over two slots, and one
     int4 QLoRA train step on the CPU from seeded synthetic params. The
@@ -593,7 +595,47 @@ def test_port_runs_without_jax():
                      "--stream_end_score_sum_threshold", "1.5"]) == 0
         with open(os.path.join(d, "out.jsonl")) as f:
             assert len(json.loads(f.readline())["debug_data"]) == 4
-        assert main(["evaluate"]) == 2
+        # the highlight chain: infer over a TVSum-format benchmark, grid-search, evaluate,
+        # highlight; visualize is refused
+        out = cv2.VideoWriter(os.path.join(d, "w.mp4"), cv2.VideoWriter_fourcc(*"mp4v"), 4.0,
+                              (32, 32))
+        for i in range(8):
+            out.write(np.full((32, 32, 3), 250 - 30 * i, np.uint8))
+        out.release()
+        with open(os.path.join(d, "info.tsv"), "w") as f:
+            f.write("category\\tvideo_id\\ttitle\\turl\\tlength\\n"
+                    "GA\\tv\\ta grey ramp\\turl\\t0:02\\nBK\\tw\\tfading\\turl\\t0:02\\n")
+        with open(os.path.join(d, "anno.tsv"), "w") as f:
+            f.write("".join(f"{{v}}\\t{{c}}\\t{{','.join(str(1 + (i * j) % 5) for j in range(8))}}\\n"
+                            for v, c in (("v", "GA"), ("w", "BK")) for i in range(20)))
+        pred, calib = os.path.join(d, "pred.json"), os.path.join(d, "params.json")
+        assert main(["infer", "--model_preset", "tiny", "--device", "cpu",
+                     "--synthetic_weights", "--int4", "--test_dataset", "tvsum",
+                     "--input_dir", d, "--caption_metadata_file", os.path.join(d, "info.tsv"),
+                     "--video_metadata_file", os.path.join(d, "meta.json"),
+                     "--output_fname", pred, "--seed", "0"]) == 0
+        with open(pred) as f:
+            assert [len(x["debug_data"]) for x in json.load(f)] == [4, 4]
+        gold = os.path.join(d, "anno.tsv")
+        import contextlib, io
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            assert main(["grid-search", "--test_dataset", "tvsum", "--pred_file", pred,
+                         "--gold_file", gold, "--save_path", calib, "--seed", "0"]) == 0
+            assert main(["evaluate", "--func", "tvsum", "--pred_file", pred, "--gold_file",
+                         gold, "--params_file", calib]) == 0
+            assert main(["highlight", "--pred_file", pred, "--video_uuid", "v", "--video_path",
+                         os.path.join(d, "v.mp4"), "--output_filepath",
+                         os.path.join(d, "reel.mp4"), "--max_duration", "2", "--params_file",
+                         calib, "--source_fps", "4"]) == 0
+        assert '"top5_mAP"' in printed.getvalue() and '"frames_written"' in printed.getvalue()
+        assert main(["visualize"]) == 2
+        for m in ("aha_tpu_torch.ops.signal", "aha_tpu_torch.eval.scoring",
+                  "aha_tpu_torch.eval.tvsum", "aha_tpu_torch.eval.hisum",
+                  "aha_tpu_torch.eval.grounding", "aha_tpu_torch.eval.grid_search",
+                  "aha_tpu_torch.eval.highlight", "aha_tpu_torch.eval.qvh",
+                  "aha_tpu_torch.eval.captioning", "aha_tpu_torch.eval.soda",
+                  "aha_tpu_torch.cli.evaluate"):
+            assert m in sys.modules, m
         # training from the command line: a grounding mixture over the clip, an int8 trunk
         with open(os.path.join(d, "g.json"), "w") as f:
             json.dump([{{"video_uid": "v.mp4", "query": "thing", "timestamps": [[0.5, 1.0]]}}], f)
