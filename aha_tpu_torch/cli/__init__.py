@@ -1,41 +1,29 @@
 """Command line of the port: ``python -m aha_tpu_torch.cli <command> ...``.
 
-Counterpart of ``aha_tpu/cli``, with its command names and flags. Ported:
-``infer`` for the benchmark and streaming-QA datasets, at one stream or
-several (``infer.py``; session construction and the flags in
-``_session.py``), ``serve``, the continuous-batching JSONL server
+Counterpart of ``aha_tpu/cli``, with its eight command names and their
+flags: ``infer`` for every dataset (the benchmarks, streaming QA at one
+stream or several, the live-video datasets; ``infer.py``, with session
+construction and the flags in ``_session.py``), ``demo``, the live-video
+demo (``infer.py``), ``serve``, the continuous-batching JSONL server
 (``serve.py``), ``train``, fine-tuning from a dataset mixture
 (``train.py``), and the chain on ``infer``'s predictions: ``grid-search``,
-``evaluate`` and ``highlight`` (``evaluate.py``). ``demo`` and ``visualize``
-exit 2 with a message that names their ROADMAP.md item.
+``evaluate`` (the local LLM judge included), ``highlight`` and
+``visualize`` (``evaluate.py``). Each command that builds a model takes
+``--device`` as well (the card unless it names the CPU).
 """
 
 from __future__ import annotations
 
 import sys
 
-from .evaluate import cmd_evaluate, cmd_grid_search, cmd_highlight
-from .infer import cmd_infer
+from .evaluate import cmd_evaluate, cmd_grid_search, cmd_highlight, cmd_visualize
+from .infer import cmd_demo, cmd_infer
 from .serve import cmd_serve
 from .train import cmd_train
 
-# commands of the JAX package that are not ported yet -> their ROADMAP.md item
-NOT_PORTED = {
-    "demo": "Queue 1 item 7",
-    "visualize": "Queue 1 item 11",
-}
-
-
-def _not_ported(name: str):
-    def cmd(argv):
-        raise NotImplementedError(f"aha {name} is not ported to aha_tpu_torch yet "
-                                  f"(ROADMAP.md, {NOT_PORTED[name]})")
-    return cmd
-
-
-COMMANDS = {"infer": cmd_infer, "grid-search": cmd_grid_search, "evaluate": cmd_evaluate,
-            "highlight": cmd_highlight, "serve": cmd_serve, "train": cmd_train,
-            **{name: _not_ported(name) for name in NOT_PORTED}}
+COMMANDS = {"infer": cmd_infer, "demo": cmd_demo, "grid-search": cmd_grid_search,
+            "evaluate": cmd_evaluate, "highlight": cmd_highlight, "visualize": cmd_visualize,
+            "serve": cmd_serve, "train": cmd_train}
 
 
 def main(argv=None) -> int:

@@ -78,8 +78,9 @@ def _build_params(args, cfg):
     from ..models.aha import torch_dtype
     from ..ops import quant
 
-    mode = "int4" if args.int4 else "int8" if args.int8 else None
-    if args.synthetic_weights:
+    synthetic = getattr(args, "synthetic_weights", False)
+    mode = "int4" if getattr(args, "int4", False) else "int8" if args.int8 else None
+    if synthetic:
         params = loader.materialize_random_params(cfg, mode, device=args.device)
     elif args.llm_pretrained:
         params = loader.load_params(args.llm_pretrained, cfg, torch_dtype(cfg.dtype),
@@ -87,17 +88,17 @@ def _build_params(args, cfg):
     else:
         params = loader.init_aha_params(cfg, seed=0, device=args.device)
     lora, lora_scale = None, 0.0
-    if args.lora_pretrained:
+    if getattr(args, "lora_pretrained", None):
         lora, overrides, lora_scale = loader.load_adapter(args.lora_pretrained, cfg,
                                                           torch.float32, args.device)
         params = loader.apply_overrides(params, overrides)
-    if args.synthetic_weights:
+    if synthetic:
         return params, lora, lora_scale
     if mode is not None:
         params = quant.quantize_params(params, bits=4 if mode == "int4" else 8,
-                                       quantize_vision=args.vision_int8)
+                                       quantize_vision=getattr(args, "vision_int8", False))
         params = {**params, "llm": quant.merge_decoder_projections(params["llm"])}
-    elif args.vision_int8:
+    elif getattr(args, "vision_int8", False):
         params = quant.quantize_params(params, quantize_vision=True, keep_dense=("llm",))
     return params, lora, lora_scale
 
@@ -107,19 +108,20 @@ def _serving_mode(args) -> str:
     ``--vision_int8`` set, fused scoring of 4 frames widened to 8 where the
     command has no ``batch`` or a batch of 1, and the int8-activation backend.
     Returns the session's matmul backend."""
-    if not args.w8a8:
+    if not getattr(args, "w8a8", False):
         return "fused"
-    if args.int4:
+    if getattr(args, "int4", False):
         raise SystemExit("--w8a8 and --int4 are mutually exclusive: the w8a8 backend "
                          "bypasses the fused int4 kernel")
     args.int8 = args.vision_int8 = True
-    if args.fused_score_frames == 4 and getattr(args, "batch", 1) == 1:
+    if getattr(args, "fused_score_frames", 4) == 4 and getattr(args, "batch", 1) == 1:
         args.fused_score_frames = 8
     return "fused_a8"
 
 
 def _build_session(args):
-    """Parsed flags -> a StreamSession on ``args.device``."""
+    """Parsed flags -> a StreamSession on ``args.device``. A command with a
+    narrower flag set (``demo``) leaves the others at JAX's defaults."""
     from ..streaming.session import build_session
 
     params, cfg, tokenizer, infer_cfg, kw = _build_parts(args)
@@ -148,9 +150,9 @@ def _build_parts(args):
         grounding_mode=args.grounding_mode,
         stream_end_prob_threshold=args.stream_end_prob_threshold,
         threshold_z=args.threshold_z,
-        first_n_frames_no_generate=args.first_n_frames_no_generate,
-        running_list_length=args.running_list_length,
-        response_min_interval_frames=args.response_min_interval_frames,
+        first_n_frames_no_generate=getattr(args, "first_n_frames_no_generate", 0),
+        running_list_length=getattr(args, "running_list_length", 20),
+        response_min_interval_frames=getattr(args, "response_min_interval_frames", None),
         stream_end_score_sum_threshold=args.stream_end_score_sum_threshold,
         remove_assistant_turns=args.remove_assistant_turns,
         score_heads=tuple(args.score_heads.split(",")),
@@ -159,11 +161,11 @@ def _build_parts(args):
         kv_cache_policy=args.kv_cache_policy,
         kv_window=args.kv_window,
         num_sink_tokens=args.num_sink_tokens,
-        kv_cache_dtype=args.kv_cache_dtype,
-        kv_mask_mode=args.kv_mask_mode,
-        spec_decode_tokens=args.spec_decode_tokens,
-        spec_decode_tokens_max=args.spec_decode_tokens_max,
-        fused_score_frames=args.fused_score_frames,
+        kv_cache_dtype=getattr(args, "kv_cache_dtype", "auto"),
+        kv_mask_mode=getattr(args, "kv_mask_mode", "hf"),
+        spec_decode_tokens=getattr(args, "spec_decode_tokens", 4),
+        spec_decode_tokens_max=getattr(args, "spec_decode_tokens_max", 8),
+        fused_score_frames=getattr(args, "fused_score_frames", 4),
         retire_defer=getattr(args, "retire_defer", 1),
     )
     return params, cfg, tokenizer, infer_cfg, dict(backend=backend, lora=lora,

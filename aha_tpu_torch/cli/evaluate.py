@@ -1,17 +1,25 @@
-"""``aha grid-search``, ``aha evaluate`` and ``aha highlight`` on the port: the
-calibration, metric and reel commands (``aha_tpu/cli/evaluate.py:17-220``),
-on the prediction files of ``infer``. Numpy on the host: nothing here runs
-on the card. ``evaluate --func magqa`` with a judge checkpoint and
-``visualize`` are not ported (ROADMAP.md, Queue 1 item 11)."""
+"""``aha grid-search``, ``aha evaluate``, ``aha highlight`` and ``aha
+visualize`` on the port: the calibration, metric, reel and figure commands
+(``aha_tpu/cli/evaluate.py``), on the prediction files of ``infer``. Numpy on
+the host, except ``evaluate --func magqa --judge_ckpt DIR``: the local LLM
+judge, a Qwen2 decoder read from ``DIR`` in bf16 (at ``qwen2_7b()``'s shape,
+with ``config.json``'s vocabulary) and run on ``--device`` under the f32
+config that ``LocalJudge`` gives a bare decoder (bf16 products, an f32 cache).
+
+JAX's own judge command reads ``DIR`` with its full-model loader, which needs
+a vision config that ``qwen2_7b()`` does not have, and stops there; the port
+reads the decoder alone and judges, as JAX's code means to (ROADMAP.md,
+Queue 3, known divergences)."""
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 
 import numpy as np
 
-from ._session import _resolve_params_file
+from ._session import _adopt_checkpoint_config, _resolve_params_file
 
 
 def _read_jsonl(path: str) -> list[dict]:
@@ -88,18 +96,15 @@ def cmd_evaluate(argv):
     p.add_argument("--params_key", default=None)
     p.add_argument("--output_file", default=None)
     p.add_argument("--judge_ckpt", default=None, help="magqa: converted judge dir")
+    p.add_argument("--device", default="cuda",
+                   help="magqa --judge_ckpt: torch device of the judge (default: the card)")
     p.add_argument("--relevance_threshold", type=float, default=0.1)
     p.add_argument("--min_relevance_frames", type=int, default=5)
     args = p.parse_args(argv)
 
     if args.func == "magqa":
-        if not args.judge_ckpt:
-            print("magqa needs --judge_ckpt (a converted Qwen2-style judge), or use "
-                  "llm_judge.to_openai_batch_input for the remote-judge path")
-            return
-        raise NotImplementedError("evaluate --func magqa --judge_ckpt (the local LLM judge) "
-                                  "is not ported to aha_tpu_torch yet (ROADMAP.md, Queue 1 "
-                                  "item 11)")
+        _evaluate_magqa(args)
+        return
     if args.func == "dense_captioning":
         from ..eval.soda import eval_with_files
 
@@ -165,6 +170,39 @@ def cmd_evaluate(argv):
     _write(out, args.output_file)
 
 
+def _evaluate_magqa(args):
+    """The judge's score matrices over a streaming-QA prediction file, written
+    to ``--output_file`` a line an example, and their in-span analysis."""
+    from ..eval import llm_judge
+
+    preds = _read_jsonl(args.pred_file)
+    with open(args.gold_file) as f:
+        gold = json.load(f)
+    if not args.judge_ckpt:
+        print("magqa needs --judge_ckpt (a converted Qwen2-style judge), or use "
+              "llm_judge.to_openai_batch_input for the remote-judge path")
+        return
+    import torch
+
+    from ..config import AhaConfig, qwen2_7b
+    from ..models.loader import convert_qwen2, read_state_dict
+    from ..tokenization import build_stream_tokenizer
+
+    cfg = _adopt_checkpoint_config(AhaConfig(llm=qwen2_7b()), args.judge_ckpt).llm
+    sd = read_state_dict(args.judge_ckpt)
+    prefix = "model." if "model.embed_tokens.weight" in sd else "language_model.model."
+    params = convert_qwen2(sd, cfg, prefix, torch.bfloat16, args.device)
+    del sd
+    judge = llm_judge.LocalJudge(params, cfg, build_stream_tokenizer(args.judge_ckpt),
+                                 device=args.device)
+    scored = llm_judge.magqa_score_matrices(preds, gold, judge)
+    if args.output_file:
+        with open(args.output_file, "w") as f:
+            for ex in scored:
+                f.write(json.dumps(ex) + "\n")
+    print(json.dumps(llm_judge.analyze_magqa(scored), indent=2))
+
+
 def cmd_highlight(argv):
     from ..eval import highlight
 
@@ -187,3 +225,84 @@ def cmd_highlight(argv):
         epsilon=e, source_fps=args.source_fps, video_path=args.video_path,
         output_path=args.output_filepath)
     print(json.dumps({k: v for k, v in result.items() if k != "highlight_indices"}))
+
+
+def cmd_visualize(argv):
+    """Prediction-against-gold overlays and the comparison panels beside the
+    published baselines."""
+    p = argparse.ArgumentParser(prog="aha visualize")
+    p.add_argument("--func", required=True, choices=["hisum_sota", "tvsum_sota", "pred_vs_gt"])
+    p.add_argument("--pred_file", default=None,
+                   help="driver prediction json (required for hisum_sota / pred_vs_gt; "
+                        "tvsum_sota reads --metrics_file)")
+    p.add_argument("--gold_file", default=None,
+                   help="hisum_sota: .h5; pred_vs_gt: json uuid->scores, TVSum annotation "
+                        ".tsv, or HiSum .h5")
+    p.add_argument("--metrics_file", default=None, help="tvsum_sota: evaluate output json")
+    p.add_argument("--params_file", default="outputs/grid_search_params.json")
+    p.add_argument("--params_key", default=None)
+    p.add_argument("--output", default="outputs/figures")
+    p.add_argument("--max_show", type=int, default=5)
+    args = p.parse_args(argv)
+
+    from ..drivers import visualize as viz
+
+    if args.func in ("hisum_sota", "pred_vs_gt") and not args.gold_file:
+        p.error(f"--gold_file is required for --func {args.func}")
+    if args.func in ("hisum_sota", "pred_vs_gt") and not args.pred_file:
+        p.error(f"--pred_file is required for --func {args.func}")
+    if args.func == "tvsum_sota" and not (args.metrics_file or args.pred_file):
+        p.error("--metrics_file is required for --func tvsum_sota")
+    os.makedirs(args.output, exist_ok=True)
+    args.params_file = _resolve_params_file(args.params_file)
+    if args.func == "hisum_sota":
+        with open(args.params_file) as f:
+            params = json.load(f)[args.params_key or "hisum"]
+        out = viz.hisum_sota_figure(args.pred_file, args.gold_file, params,
+                                    os.path.join(args.output, "hisum_results_comparison.png"))
+        print(json.dumps(out, indent=2, default=float))
+    elif args.func == "tvsum_sota":
+        with open(args.metrics_file or args.pred_file) as f:
+            metrics = json.load(f)
+        print(viz.tvsum_sota_figure(metrics,
+                                    os.path.join(args.output, "tvsum_results_comparison.png")))
+    else:
+        gt, gold_kind = _load_gt_scores(args.gold_file, args.pred_file)
+
+        def gt_for(pred):
+            g = gt.get(pred["video_uuid"])
+            # TVSum's TSV gold is per source frame (indexed by true_frames_list), HiSum's
+            # gtscore[i - 1] pairs with debug_data[i]
+            return None if g is None else viz.align_gt_to_pred(pred, g, gold_kind)
+
+        paths = viz.visualize_benchmark(args.pred_file, args.params_file,
+                                        args.params_key or "tvsum", gt_for, args.output,
+                                        max_videos=args.max_show)
+        print("\n".join(paths))
+
+
+def _load_gt_scores(gold_file: str, pred_file: str) -> tuple[dict, str]:
+    """(uuid -> gold scores, gold kind) from a TVSum annotation TSV (per
+    source frame: "tvsum_tsv"), a HiSum h5 (by each prediction's
+    h5_identifier: "hisum_h5") or a JSON map uuid -> scores ("json");
+    the kind names ``align_gt_to_pred``'s rule."""
+    ext = os.path.splitext(gold_file)[1].lower()
+    if ext == ".tsv":
+        from ..eval import tvsum
+
+        return {uid: np.asarray(a["importance_scores"])
+                for uid, a in tvsum.load_annotations(gold_file).items()}, "tvsum_tsv"
+    if ext in (".h5", ".hdf5"):
+        import h5py
+
+        with open(pred_file) as f:
+            preds = json.load(f)
+        out = {}
+        with h5py.File(gold_file, "r") as hdf:
+            for pr in preds:
+                h5_id = pr.get("h5_identifier")
+                if h5_id is not None and h5_id in hdf:
+                    out[pr["video_uuid"]] = np.asarray(hdf[h5_id]["gtscore"])
+        return out, "hisum_h5"
+    with open(gold_file) as f:
+        return {k: np.asarray(v) for k, v in json.load(f).items()}, "json"

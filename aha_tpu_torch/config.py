@@ -9,8 +9,9 @@ field by field): ``QwenConfig``, ``SiglipConfig``, ``AhaConfig`` with the
 and pipeline fields: the port trains on one card; ROADMAP.md, Queue 1 item
 12; and without ``vision_pretrained``, ``frame_fps``, ``frame_resolution``
 and ``max_num_frames``, which nothing reads: the mixture's entries carry
-their rate and frame count, the model config its frame size). The CLIP
-presets and the JSON helpers are not carried.
+their rate and frame count, the model config its frame size), with the CLIP
+presets ``clip_large_336`` / ``clip_tiny``. The JSON helpers are not
+carried.
 """
 
 from __future__ import annotations
@@ -48,9 +49,9 @@ class QwenConfig:
 @dataclass(frozen=True)
 class SiglipConfig:
     """ViT vision tower shape; the default is
-    google/siglip-large-patch16-384. ``arch='clip'`` and ``use_head`` (the
-    attention-pool probe) are declared for field parity; the port's tower
-    raises for both."""
+    google/siglip-large-patch16-384. ``arch='clip'`` is the CLIP tower
+    (``models/clip.py``); ``use_head`` gives a SigLIP tower its MAP probe
+    (``siglip.attention_pool``), which ``frame_token_cls`` needs."""
 
     image_size: int = 384
     patch_size: int = 16
@@ -135,6 +136,16 @@ def siglip_tiny() -> SiglipConfig:
         num_layers=2,
         num_heads=2,
     )
+
+
+def clip_large_336() -> SiglipConfig:
+    """openai/clip-vit-large-patch14-336."""
+    return SiglipConfig(image_size=336, patch_size=14, layer_norm_eps=1e-5, arch="clip")
+
+
+def clip_tiny() -> SiglipConfig:
+    return SiglipConfig(image_size=32, patch_size=16, hidden_size=32, intermediate_size=64,
+                        num_layers=2, num_heads=2, layer_norm_eps=1e-5, arch="clip")
 
 
 def aha_7b() -> AhaConfig:

@@ -6,11 +6,11 @@ imports nothing of that package): ``round_time_by_fps`` /
 ``ceil_time_by_fps`` / ``floor_time_by_fps``, ``resize_and_pad_frame``,
 ``dropout_simulation`` / ``generate_dropout_segments``, the cv2 path of
 ``decode_video`` (with the corruption applied during the decode),
-``load_frame_folder``, ``write_video``, ``probe_video`` and
-``scan_metadata``. Not carried: the native libav decoder (``aha_tpu/native``;
-JAX falls back to the same cv2 path where it is not built), ``motion_mask``
-and ``reencode_video`` (ROADMAP.md, Queue 1 item 7). cv2 is imported where it
-is used, so importing this module needs no cv2.
+``motion_mask`` (the live-video demo's frame skip), ``load_frame_folder``,
+``write_video``, ``reencode_video``, ``probe_video`` and ``scan_metadata``.
+Not carried: the native libav decoder (``aha_tpu/native``; JAX falls back to
+the same cv2 path where it is not built). cv2 is imported where it is used,
+so importing this module needs no cv2.
 """
 
 from __future__ import annotations
@@ -167,6 +167,34 @@ def decode_video(path: str, *, output_fps: float, output_size: int = 384,
     return np.stack(frames), true_idx
 
 
+def motion_mask(frames: np.ndarray, threshold: float, *, max_skip: int = 8) -> np.ndarray:
+    """[T, H, W, 3] uint8 -> bool [T]: the frames that carry new content. A
+    frame is kept when its mean absolute pixel difference from the last kept
+    frame exceeds ``threshold`` (a share of full scale: 0.02 is 5.1 grey
+    levels), or when ``max_skip`` frames have been held since the last kept
+    one (a slow pan still gets scored). Frame 0 is always kept. Skipped frames
+    never enter the cache: the same kind of result as decoding at a lower
+    rate."""
+    T = frames.shape[0]
+    keep = np.zeros(T, bool)
+    if T == 0:
+        return keep
+    keep[0] = True
+    anchor = frames[0].astype(np.int16)
+    held = 0
+    lim = float(threshold) * 255.0
+    for t in range(1, T):
+        held += 1
+        if held >= max_skip:
+            keep[t] = True
+        else:
+            keep[t] = np.abs(frames[t].astype(np.int16) - anchor).mean() > lim
+        if keep[t]:
+            anchor = frames[t].astype(np.int16)
+            held = 0
+    return keep
+
+
 def load_frame_folder(frame_folder: str, *, output_size: int = 384, output_fps: float = 1.0,
                       start: int | None = None, end: int | None = None,
                       exts=(".jpg", ".jpeg", ".png")) -> tuple[np.ndarray, float, float]:
@@ -198,6 +226,42 @@ def write_video(frames_rgb: np.ndarray, path: str, fps: float) -> int:
         writer.write(cv2.cvtColor(frames_rgb[t], cv2.COLOR_RGB2BGR))
     writer.release()
     return T
+
+
+def reencode_video(src: str, dst: str, *, fps: float | None = None,
+                   size: tuple[int, int] | None = None) -> int:
+    """``src`` written again as an mp4v file at ``fps`` (the source's rate by
+    default; frames kept at every source-rate / fps step) and ``size`` (W, H;
+    the source's by default). Returns the frames written."""
+    import cv2
+
+    cap = cv2.VideoCapture(src)
+    if not cap.isOpened():
+        raise IOError(f"cannot open {src}")
+    src_fps = cap.get(cv2.CAP_PROP_FPS) or 30.0
+    out_fps = fps or src_fps
+    w = int(cap.get(cv2.CAP_PROP_FRAME_WIDTH))
+    h = int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT))
+    out_size = size or (w, h)
+    writer = cv2.VideoWriter(dst, cv2.VideoWriter_fourcc(*"mp4v"), out_fps, out_size)
+    written, i, next_keep = 0, 0, 0.0
+    step = src_fps / out_fps
+    try:
+        while True:
+            ret, frame = cap.read()
+            if not ret:
+                break
+            if i >= next_keep:
+                if out_size != (w, h):
+                    frame = cv2.resize(frame, out_size)
+                writer.write(frame)
+                written += 1
+                next_keep += step
+            i += 1
+    finally:
+        cap.release()
+        writer.release()
+    return written
 
 
 def probe_video(path: str) -> dict:

@@ -6,8 +6,9 @@ Counterpart of ``aha_tpu/models/aha.py`` (``encode_vision_tokens``,
 ``forward_train``), of the heads in
 ``aha_tpu/streaming/engine_core.py::_scores_from_hidden``, and of
 ``aha_tpu/models/loader.py::materialize_random_params`` (``random_params``).
-Only the SigLIP tower without the CLS probe (``frame_token_cls=False``) is
-on the streaming path and ported.
+Both towers of JAX's config are here: SigLIP (``models/siglip.py``; with
+``frame_token_cls`` its MAP probe gives the CLS token) and CLIP
+(``models/clip.py``; its own CLS token).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from ..config import AhaConfig
 from ..ops.pooling import pool_patch_tokens
 from ..ops.preprocess import device_letterbox
 from ..ops.quant import linear
-from . import qwen2, siglip
+from . import clip, qwen2, siglip
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -41,18 +42,33 @@ def project_features(params: dict, feats: torch.Tensor,
 
 def encode_vision_tokens(params: dict, cfg: AhaConfig, frames: torch.Tensor,
                          dtype: torch.dtype, backend: str = "fused") -> torch.Tensor:
-    """frames [N, H, W, 3] of any size -> pooled features [N, F, Hv];
-    ``backend``: the kernels of a quantised tower's products."""
-    if cfg.vision.arch != "siglip" or cfg.frame_token_cls:
-        raise NotImplementedError(
-            "aha_tpu_torch ports the SigLIP tower without the CLS probe only "
-            "(ROADMAP.md, Queue 1 item 8)")
+    """frames [N, H, W, 3] of any size -> pooled features [N, F, Hv], the CLS
+    token first where ``frame_token_cls`` (F = ``cfg.frame_num_tokens``):
+    CLIP's own CLS token, or SigLIP's MAP probe over its patches (the tree
+    must carry ``vision/head``). ``backend``: the kernels of a quantised
+    tower's products."""
     if tuple(frames.shape[1:3]) != (cfg.frame_resolution, cfg.frame_resolution):
         frames = device_letterbox(frames, cfg.frame_resolution)
-    pixels = siglip.preprocess_frames(frames, dtype)
-    spatial = siglip.forward(params["vision"], cfg.vision, pixels, backend)
-    return pool_patch_tokens(spatial, cfg.vision.grid_size, cfg.frame_token_pooled,
-                             cfg.pooling_mode)
+    if cfg.vision.arch == "clip":
+        pixels = clip.preprocess_frames(frames, dtype)
+        tokens = clip.forward(params["vision"], cfg.vision, pixels, backend)   # [N, 1+P, Hv]
+        cls_tok, spatial = tokens[:, :1], tokens[:, 1:]
+    else:
+        pixels = siglip.preprocess_frames(frames, dtype)
+        spatial = siglip.forward(params["vision"], cfg.vision, pixels, backend)
+        cls_tok = None
+        if cfg.frame_token_cls:
+            head = params["vision"].get("head")
+            if head is None:
+                raise ValueError("frame_token_cls with the SigLIP tower needs the MAP probe "
+                                 "head's params (vision/head: vision.use_head at init, or a "
+                                 "checkpoint carrying vision_model.head.*)")
+            cls_tok = siglip.attention_pool(head, cfg.vision, spatial, backend)[:, None]
+    feats = pool_patch_tokens(spatial, cfg.vision.grid_size, cfg.frame_token_pooled,
+                              cfg.pooling_mode)
+    if cfg.frame_token_cls:
+        feats = torch.cat([cls_tok.to(feats.dtype), feats], dim=1)
+    return feats
 
 
 def visual_embed(params: dict, cfg: AhaConfig, frames: torch.Tensor,
@@ -171,7 +187,8 @@ def random_params(cfg: AhaConfig, *, mode: str = "int8", keep_dense: tuple[str, 
     Every decoder projection (merged qkv / gate_up, the layout the engine
     serves), the projector and the lm_head are quantized in ``mode``; the
     embedding table is int8 with per-row scales in both; the vision tower
-    and the heads stay dense. ``keep_dense`` names the modules of
+    (SigLIP with its MAP probe where ``frame_token_cls``, or CLIP) and the
+    heads stay dense. ``keep_dense`` names the modules of
     ``("projector", "lm_head")`` to leave dense instead: QLoRA trains both
     densely over the frozen quantized trunk
     (``quantize_params(keep_dense=("projector", "lm_head"))``).
@@ -224,19 +241,35 @@ def random_params(cfg: AhaConfig, *, mode: str = "int8", keep_dense: tuple[str, 
     L, H, I = q.num_layers, q.hidden_size, q.intermediate_size
     QD, KD = q.q_dim, q.kv_dim
     Lv, Hv, Iv, P = v.num_layers, v.hidden_size, v.intermediate_size, v.patch_size
-    vision = {
-        "patch_embed": {"kernel": normal(Hv, 3, P, P), "bias": zeros(Hv)},
-        "pos_embed": normal(v.num_patches, Hv),
-        "layers": {
+    def tower_layers():
+        return {
             "ln1": {"scale": ones(Lv, Hv), "bias": zeros(Lv, Hv)},
             **{n: {"kernel": normal(Lv, Hv, Hv), "bias": zeros(Lv, Hv)}
                for n in ("q_proj", "k_proj", "v_proj", "out_proj")},
             "ln2": {"scale": ones(Lv, Hv), "bias": zeros(Lv, Hv)},
             "fc1": {"kernel": normal(Lv, Hv, Iv), "bias": zeros(Lv, Iv)},
             "fc2": {"kernel": normal(Lv, Iv, Hv), "bias": zeros(Lv, Hv)},
-        },
-        "post_ln": {"scale": ones(Hv), "bias": zeros(Hv)},
-    }
+        }
+
+    # the tower's leaves are drawn in dict order: patch kernel, position table, layers
+    if v.arch == "clip":          # CLS token and pre-LN; no patch bias, no post-LN
+        vision = {"cls_embed": normal(Hv), "patch_embed": {"kernel": normal(Hv, 3, P, P)},
+                  "pos_embed": normal(v.num_patches + 1, Hv),
+                  "pre_ln": {"scale": ones(Hv), "bias": zeros(Hv)}}
+        vision["layers"] = tower_layers()
+    else:
+        vision = {"patch_embed": {"kernel": normal(Hv, 3, P, P), "bias": zeros(Hv)},
+                  "pos_embed": normal(v.num_patches, Hv)}
+        vision["layers"] = tower_layers()
+        vision["post_ln"] = {"scale": ones(Hv), "bias": zeros(Hv)}
+        if v.use_head or cfg.frame_token_cls:      # the MAP probe of frame_token_cls
+            vision["head"] = {
+                "probe": normal(1, Hv),
+                **{n: {"kernel": normal(Hv, Hv), "bias": zeros(Hv)}
+                   for n in ("q_proj", "k_proj", "v_proj", "out_proj")},
+                "ln": {"scale": ones(Hv), "bias": zeros(Hv)},
+                "fc1": {"kernel": normal(Hv, Iv), "bias": zeros(Iv)},
+                "fc2": {"kernel": normal(Iv, Hv), "bias": zeros(Hv)}}
     llm = {
         "embed": {"weight": kernel8(q.vocab_size, H, per_row=True)},
         "layers": {

@@ -1,7 +1,7 @@
 """The weights: JAX's synthetic trees drawn exactly, and checkpoints.
 
-Counterpart of ``aha_tpu/models/loader.py`` (without the CLIP tower,
-ROADMAP Queue 1 item 8):
+Counterpart of ``aha_tpu/models/loader.py``, both towers (SigLIP, with its
+MAP probe where the config or the checkpoint has one, and CLIP):
 
   * ``materialize_random_params(cfg, mode, keep_dense, device)``: the tree
     that ``aha_tpu``'s ``materialize_random_params`` builds, leaf by leaf on
@@ -13,10 +13,11 @@ ROADMAP Queue 1 item 8):
     ``PRNGKey(i)``, slab by slab (``jax_random.SLAB`` values), in JAX's layout;
     then the patch kernel goes HWIO -> OIHW and, quantised, q/k/v and gate/up
     are merged (the layout JAX's engine serves);
-  * ``convert_qwen2`` / ``convert_siglip`` / ``convert_projector_heads``:
-    a Hugging Face state dict (torch [out, in] tensors) -> the port's tree
-    ([in, out] kernels stacked on a leading layer axis, the SigLIP patch kernel
-    kept OIHW); ``export_hf_state_dict`` is their inverse;
+  * ``convert_qwen2`` / ``convert_siglip`` / ``convert_clip`` /
+    ``convert_projector_heads``: a Hugging Face state dict (torch [out, in]
+    tensors) -> the port's tree ([in, out] kernels stacked on a leading layer
+    axis, the patch kernel kept OIHW); ``export_hf_state_dict`` is their
+    inverse;
   * ``load_params(path, cfg, dtype, device)``: a checkpoint directory of
     ``.safetensors`` shards (read by ``read_safetensors``: no ``safetensors``
     package needed) or torch ``.bin`` / ``.pt`` shards; ``save_safetensors``
@@ -64,9 +65,6 @@ def _jax_dense_tree(cfg: AhaConfig) -> dict:
     (the patch kernel HWIO), every leaf in ``cfg.dtype``."""
     from .aha import torch_dtype
 
-    if cfg.vision.arch != "siglip":
-        raise NotImplementedError("aha_tpu_torch builds the SigLIP tower only "
-                                  "(ROADMAP.md, Queue 1 item 8: CLIP)")
     dt = torch_dtype(cfg.dtype)
 
     def t(*shape):
@@ -79,23 +77,27 @@ def _jax_dense_tree(cfg: AhaConfig) -> dict:
     def lin(*shape, bias=True):
         return {"kernel": t(*shape), **({"bias": t(*shape[:-2], shape[-1])} if bias else {})}
 
-    vision = {
-        "patch_embed": {"kernel": t(P, P, 3, Hv), "bias": t(Hv)},
-        "pos_embed": t(v.num_patches, Hv),
-        "layers": {
-            "ln1": {"scale": t(Lv, Hv), "bias": t(Lv, Hv)},
-            **{n: lin(Lv, Hv, Hv) for n in ("q_proj", "k_proj", "v_proj", "out_proj")},
-            "ln2": {"scale": t(Lv, Hv), "bias": t(Lv, Hv)},
-            "fc1": lin(Lv, Hv, Iv),
-            "fc2": lin(Lv, Iv, Hv),
-        },
-        "post_ln": {"scale": t(Hv), "bias": t(Hv)},
+    layers = {
+        "ln1": {"scale": t(Lv, Hv), "bias": t(Lv, Hv)},
+        **{n: lin(Lv, Hv, Hv) for n in ("q_proj", "k_proj", "v_proj", "out_proj")},
+        "ln2": {"scale": t(Lv, Hv), "bias": t(Lv, Hv)},
+        "fc1": lin(Lv, Hv, Iv),
+        "fc2": lin(Lv, Iv, Hv),
     }
-    if v.use_head or cfg.frame_token_cls:    # the MAP probe head, as JAX makes it
-        vision["head"] = {"probe": t(1, Hv),
-                          **{n: lin(Hv, Hv) for n in ("q_proj", "k_proj", "v_proj", "out_proj")},
-                          "ln": {"scale": t(Hv), "bias": t(Hv)},
-                          "fc1": lin(Hv, Iv), "fc2": lin(Iv, Hv)}
+    if v.arch == "clip":
+        vision = {"cls_embed": t(Hv), "patch_embed": {"kernel": t(P, P, 3, Hv)},
+                  "pos_embed": t(v.num_patches + 1, Hv),
+                  "pre_ln": {"scale": t(Hv), "bias": t(Hv)}, "layers": layers}
+    else:
+        vision = {"patch_embed": {"kernel": t(P, P, 3, Hv), "bias": t(Hv)},
+                  "pos_embed": t(v.num_patches, Hv), "layers": layers,
+                  "post_ln": {"scale": t(Hv), "bias": t(Hv)}}
+        if v.use_head or cfg.frame_token_cls:    # the MAP probe head, as JAX makes it
+            vision["head"] = {"probe": t(1, Hv),
+                              **{n: lin(Hv, Hv) for n in ("q_proj", "k_proj", "v_proj",
+                                                          "out_proj")},
+                              "ln": {"scale": t(Hv), "bias": t(Hv)},
+                              "fc1": lin(Hv, Iv), "fc2": lin(Iv, Hv)}
     llm = {
         "embed": {"weight": t(q.vocab_size, H)},
         "layers": {
@@ -228,14 +230,19 @@ def init_aha_params(cfg: AhaConfig, seed: int = 0, dtype: str | None = None,
     draws = dict(zip((("projector", "fc1"), ("projector", "fc2"), ("heads", "informative"),
                       ("heads", "relevance"), ("heads", "uncertainty")),
                      jax_random.split(kp, 5)))
-    # the order each tower's init draws its keys in (``next(ks)`` down its dict)
-    ks = iter(jax_random.split(kv, 16))
-    for path in (("patch_embed",), ("pos_embed",), *(("layers", n) for n in (
-            "q_proj", "k_proj", "v_proj", "out_proj", "fc1", "fc2"))):
-        draws[("vision", *path)] = next(ks)
-    if "head" in tree["vision"]:
-        for n in ("probe", "q_proj", "k_proj", "v_proj", "out_proj", "fc1", "fc2"):
-            draws[("vision", "head", n)] = next(ks)
+    # the order the SigLIP tower's init draws its keys in (``next(ks)`` down its dict);
+    # the CLIP tower is clip.init_params' own
+    clip_tower = cfg.vision.arch == "clip"
+    if clip_tower:
+        del tree["vision"]
+    else:
+        ks = iter(jax_random.split(kv, 16))
+        for path in (("patch_embed",), ("pos_embed",), *(("layers", n) for n in (
+                "q_proj", "k_proj", "v_proj", "out_proj", "fc1", "fc2"))):
+            draws[("vision", *path)] = next(ks)
+        if "head" in tree["vision"]:
+            for n in ("probe", "q_proj", "k_proj", "v_proj", "out_proj", "fc1", "fc2"):
+                draws[("vision", "head", n)] = next(ks)
     ks = iter(jax_random.split(kl, 16))
     for path in (*(("layers", n) for n in ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
                                            "up_proj", "down_proj")), ("embed",), ("lm_head",)):
@@ -255,7 +262,12 @@ def init_aha_params(cfg: AhaConfig, seed: int = 0, dtype: str | None = None,
                                                                  device)).to(dt)
                 yield path, leaf
 
-    return _port_tree(leaves())
+    out = _port_tree(leaves())
+    if clip_tower:
+        from . import clip
+
+        out["vision"] = clip.init_params(cfg.vision, kv, dt, device, slab)
+    return out
 
 
 # -- Hugging Face state dicts <-> the port's tree -------------------------------------
@@ -358,6 +370,34 @@ def convert_siglip(sd: dict, cfg: SiglipConfig, prefix: str = "vision_model.",
     return out
 
 
+def convert_clip(sd: dict, cfg: SiglipConfig, prefix: str = "vision_model.",
+                 dtype=torch.float32, device="cuda") -> dict:
+    """A CLIPVisionModel state dict -> the CLIP tower's tree; the patch kernel
+    stays in torch's OIHW. CLIP's patch conv has no bias, the CLS token and
+    the pre-LN are its own, and its post-LN is dropped (the reference reads
+    the un-normalised last hidden state)."""
+    device = _check_device(device, "convert_clip")
+    L, p = cfg.num_layers, prefix
+    lyr = p + "encoder.layers.{i}."
+
+    def norm(name, n=None):
+        if n is None:
+            return {"scale": _one(sd, name + ".weight", dtype, device),
+                    "bias": _one(sd, name + ".bias", dtype, device)}
+        return {"scale": _stack(sd, name + ".weight", n, dtype, device),
+                "bias": _stack(sd, name + ".bias", n, dtype, device)}
+
+    return {
+        "cls_embed": _one(sd, p + "embeddings.class_embedding", dtype, device),
+        "patch_embed": {"kernel": _one(sd, p + "embeddings.patch_embedding.weight", dtype,
+                                       device)},
+        "pos_embed": _one(sd, p + "embeddings.position_embedding.weight", dtype, device),
+        "pre_ln": norm(p + "pre_layrnorm"),
+        "layers": {"ln1": norm(lyr + "layer_norm1", L), "ln2": norm(lyr + "layer_norm2", L),
+                   **_linear_layers(sd, lyr, _SIGLIP_LAYER, L, dtype, device, bias=True)},
+    }
+
+
 _HEADS = ("informative", "relevance", "uncertainty")
 
 
@@ -398,11 +438,18 @@ def export_hf_state_dict(params: dict, cfg: AhaConfig,
         for proj in ("gate_proj", "up_proj", "down_proj"):
             sd[p + f"mlp.{proj}.weight"] = lyr[proj]["kernel"][i].T
     vis, vp = params["vision"], vis_prefix
+    clip_tower = cfg.vision.arch == "clip"
     sd[vp + "embeddings.patch_embedding.weight"] = vis["patch_embed"]["kernel"]
-    sd[vp + "embeddings.patch_embedding.bias"] = vis["patch_embed"]["bias"]
+    if not clip_tower:
+        sd[vp + "embeddings.patch_embedding.bias"] = vis["patch_embed"]["bias"]
     sd[vp + "embeddings.position_embedding.weight"] = vis["pos_embed"]
-    sd[vp + "post_layernorm.weight"] = vis["post_ln"]["scale"]
-    sd[vp + "post_layernorm.bias"] = vis["post_ln"]["bias"]
+    if clip_tower:
+        sd[vp + "embeddings.class_embedding"] = vis["cls_embed"]
+        sd[vp + "pre_layrnorm.weight"] = vis["pre_ln"]["scale"]
+        sd[vp + "pre_layrnorm.bias"] = vis["pre_ln"]["bias"]
+    else:
+        sd[vp + "post_layernorm.weight"] = vis["post_ln"]["scale"]
+        sd[vp + "post_layernorm.bias"] = vis["post_ln"]["bias"]
     vmap = {"ln1": "layer_norm1", "ln2": "layer_norm2", **_SIGLIP_LAYER}
     vl = vis["layers"]
     for i in range(cfg.vision.num_layers):
@@ -538,17 +585,15 @@ def read_state_dict(path: str) -> dict:
 def load_params(path: str, cfg: AhaConfig, dtype=torch.float32, device="cuda") -> dict:
     """A reference-style checkpoint directory -> the port's dense tree in
     ``dtype`` on ``device``: the decoder under 'model.' or
-    'language_model.model.', the tower under whatever prefix holds
-    'embeddings.patch_embedding.weight'."""
-    if cfg.vision.arch != "siglip":
-        raise NotImplementedError("aha_tpu_torch converts SigLIP towers only "
-                                  "(ROADMAP.md, Queue 1 item 8: CLIP)")
+    'language_model.model.', the tower (``cfg.vision.arch``: SigLIP or CLIP)
+    under whatever prefix holds 'embeddings.patch_embedding.weight'."""
     sd = read_state_dict(path)
     llm_prefix = "model." if "model.embed_tokens.weight" in sd else "language_model.model."
     suffix = "embeddings.patch_embedding.weight"
     vis_prefix = next((k[:-len(suffix)] for k in sd if k.endswith(suffix)), "vision_model.")
+    convert_vision = convert_clip if cfg.vision.arch == "clip" else convert_siglip
     params = {"llm": convert_qwen2(sd, cfg.llm, llm_prefix, dtype, device),
-              "vision": convert_siglip(sd, cfg.vision, vis_prefix, dtype, device)}
+              "vision": convert_vision(sd, cfg.vision, vis_prefix, dtype, device)}
     params["projector"], params["heads"] = convert_projector_heads(sd, dtype, device)
     return params
 

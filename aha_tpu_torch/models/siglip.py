@@ -7,8 +7,8 @@ quantised (``--vision_int8``, ``--w8a8``): its q/k/v/out and fc1/fc2 products
 then run ``ops.quant.linear``'s int8 kernels on the session's ``backend``, as
 JAX's ``qlinear`` serves them. The patch-embedding kernel is
 stored in torch's conv layout [H, 3, P, P] (the bridge converts JAX's
-HWIO). The MAP probe head (``frame_token_cls``) is off the streaming path
-and not ported.
+HWIO). ``attention_pool`` is the MAP probe head, the CLS token of
+``frame_token_cls``.
 """
 
 from __future__ import annotations
@@ -70,3 +70,28 @@ def forward(params: dict, cfg: SiglipConfig, pixels: torch.Tensor,
         h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
         x = x + linear(h, lp["fc2"], backend)
     return layer_norm(x, params["post_ln"], cfg.layer_norm_eps)
+
+
+def attention_pool(head: dict, cfg: SiglipConfig, tokens: torch.Tensor,
+                   backend: str = "fused") -> torch.Tensor:
+    """The MAP probe head (HF's SiglipMultiheadAttentionPoolingHead, the
+    reference's ``pooler_output``): post-LN patch tokens [N, P, H] -> [N, H].
+    A learned one-token probe attends over the patches, then LN and a
+    tanh-GELU MLP with a residual. As in JAX, both products of the attention
+    sum in f32 and the probabilities are rounded to the values' dtype before
+    the second."""
+    N, P, H = tokens.shape
+    nh = cfg.num_heads
+    d = H // nh
+    probe = head["probe"].to(tokens.dtype).expand(N, 1, H)
+    q = linear(probe, head["q_proj"], backend).reshape(N, 1, nh, d).transpose(1, 2)
+    k, v = (linear(tokens, head[n], backend).reshape(N, P, nh, d).transpose(1, 2)
+            for n in ("k_proj", "v_proj"))
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / math.sqrt(d))
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.matmul(probs.float(), v.float()).to(tokens.dtype)
+    out = linear(out.transpose(1, 2).reshape(N, 1, H), head["out_proj"], backend)
+    h = layer_norm(out, head["ln"], cfg.layer_norm_eps)
+    h = linear(h, head["fc1"], backend)
+    h = F.gelu(h.float(), approximate="tanh").to(tokens.dtype)
+    return (out + linear(h, head["fc2"], backend))[:, 0]

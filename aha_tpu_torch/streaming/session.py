@@ -2,7 +2,10 @@
 
 Counterpart of ``aha_tpu/streaming/session.py``: the benchmark loop
 ``inference()``, the prob / sum / z trigger rules, ``score_video``, the offline
-baseline ``offline_generate`` and the demo's ``find_ticks``.
+baseline ``offline_generate``, and the demo's interactive API
+(``input_frame_embeds``, ``encode_given_query``, ``input_one_frame``: a frame
+a call, the rule checked on the host, as the stepwise loop) and
+``find_ticks``.
 ``inference()`` runs the chunked loop by default, as JAX's does: the runs of
 frames between queries and responses go through the engine's trigger loops
 (``engine_trigger.py``), which score ``fused_score_frames`` frames a decoder
@@ -107,10 +110,34 @@ class StreamSession:
         for r in range(embeds.shape[0]):
             self.frame_embeds_queue.append((r / self.frame_fps, embeds[r]))
 
+    def input_frame_embeds(self, frame_embeds: torch.Tensor, time: float):
+        """Push one pre-encoded frame ([F, H], on the engine's device): the
+        interactive path."""
+        self.frame_embeds_queue.append((time, frame_embeds))
+
     def input_query_stream(self, conversation: list[dict]):
         for turn in conversation:
             if turn["role"] == "user":
                 self.query_queue.append((turn["time"], turn["content"]))
+
+    def encode_given_query(self, query: str):
+        """Encode ``query`` now, at the stream's current time (interactive
+        path)."""
+        self.query_queue.append((self.video_time, query))
+        self._encode_query()
+
+    def input_one_frame(self) -> dict:
+        """Score the next queued frame and apply the trigger rule to it, as
+        one step of the stepwise loop: {frame_idx, time (rounded to 0.1 s),
+        uncertainty_score, informative_score, relevance_score, response (the
+        generated text, or None)}."""
+        video_scores, uncertainty_score = self._encode_frame()
+        ret = dict(frame_idx=self.frame_idx, time=round(self.video_time, 1),
+                   uncertainty_score=uncertainty_score, **video_scores)
+        ret["response"] = (self._generate_response() if self._check_trigger(video_scores)
+                           else None)
+        self.video_time += 1.0 / self.frame_fps
+        return ret
 
     # -- chunk encoders -------------------------------------------------------
 

@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases 1,2,7 # + multi-stream serving at B 8
     python3 chip_smoke.py --phases 1,2,8 # + the serving options (adapters, --w8a8)
     python3 chip_smoke.py --phases 1,2,9 # + the highlight chain (infer tvsum .. highlight)
+    python3 chip_smoke.py --phases 1,2,10 # + the live datasets, demo, the judge, the towers
 
 Phases, one or more lines each:
   1. device: nvidia-smi name and power limit, torch / CUDA / nvcc versions,
@@ -98,7 +99,7 @@ Phases, one or more lines each:
      said otherwise, and a comparison of texts across generation widths keeps
      the run's own scoring width:
        a. 7B-int4 at the product widths: score_video over 64 frames (16 fused
-          passes of 196 rows), inference() over 96 frames at 2 fps with a
+          passes of 196 rows), inference() over the same 64 frames at 2 fps with a
           query at t=0, past the window fill, fused scoring of 4 frames,
           speculative generation 4 -> 8, then the same inference() at
           generation width 1 (texts compared) and one verify pass of 8 tokens,
@@ -227,7 +228,7 @@ Phases, one or more lines each:
           fused pass with and without the adapters.
   9. the highlight chain at 7B-int8, in the same shape check, launch counters
      zeroed just before the infer stage and read just after: three clips
-     written with cv2 (64, 80 and 96 s at 30 fps, 320 x 240) beside a TVSum
+     written with cv2 (32, 48 and 64 s at 30 fps, 320 x 240) beside a TVSum
      info TSV, an annotation TSV of 20 annotators a clip and their metadata;
      through aha_tpu_torch.cli.main in this process, `infer --test_dataset
      tvsum --model_preset 7b --synthetic_weights --int8 --frame_fps 1 --seed
@@ -241,6 +242,35 @@ Phases, one or more lines each:
      count and the reel read back with cv2 (also with fixed positive
      parameters, ten frames selected); frames/s of the infer stage without the
      weights' build, and each stage's seconds.
+  10. the rest of the command line and the other towers at 7B, in the same shape
+     check, launch counters zeroed just before each part and read just after
+     (the packages matplotlib, transformers, tokenizers and h5py probed first):
+       a. `infer --test_dataset hubble_space --model_preset 7b --int8
+          --synthetic_weights --frame_fps 1` at the product defaults on a cv2
+          clip of 120 s (30 fps, 320 x 240) with the tick table, then
+          `--test_dataset arl_scout` on a folder of 60 frames from --start_sec
+          10: frames scored, frames/s without the build, telemetry.peak_hbm_gb
+          beside max_memory_allocated, ticks (without matplotlib the command
+          runs with its plot left out);
+       c. the interactive API on a's session: encode_given_query and 32 calls
+          of input_one_frame, every score equal bit for bit to the stepwise
+          inference() over the same frames and query;
+       b. `demo --model_preset 7b --int8 --render_video --motion_skip_threshold
+          0.02` on a 60 s clip of moving and static stretches (JAX's seed-0
+          init): frames scored (demo_kept()) against frames decoded, the
+          stitched MP4 read back with cv2; without matplotlib, demo's device
+          path with no plot (infer_on_live_video, then render_demo_video);
+       d. LocalJudge at Qwen2-7B width on JAX's synthetic dense bf16 decoder
+          (an f32 cache of 4,096 slots, the char tokenizer) over 3 questions x
+          3 responses x 3 gold answers: ms a judgement, the prefix cache's
+          metadata and keys / values unchanged after every call, its metadata's
+          save and restore against a clone of the whole cache; with
+          transformers, `evaluate --func magqa --judge_ckpt DIR` on the
+          decoder written there and a BPE tokenizer trained there;
+       e. SigLIP with its MAP probe and CLIP-L/14-336 (frame_token_cls, 50
+          tokens a frame), JAX's synthetic 7B-int8 trees: score_video over 32
+          frames at fused 4 and 1, dense tower and --vision_int8, the tower's
+          ms a frame, fused against fused 1 within atol 2e-2 + rtol 5e-2.
 
 Prints the kernels' JSON line and, last, {"ok": true, "device": ...}.
 Exits nonzero, with no result line, when there is no CUDA device, when the
@@ -450,9 +480,10 @@ LAYER = [("qkv", 3584, 4608), ("o_proj", 3584, 3584), ("gate_up", 3584, 37888),
 # stream prompt + frame (59), the system prompt (171), a fused pass of 4 frames
 # (196), system prompt + first frame (220)
 PATH_M = (1, 4, 8, 13, 49, 59, 171, 196, 220)
-# the stream of phases 4d and 4e: the first 64 of 4a's 96 frames (3,136 frame tokens, past
-# the window fill), cut to hold the script's time when phase 5b came
-D_FRAMES = 64
+# the stream of phases 4a-4e and 8a: the first 64 of 96 seeded frames at 2 fps (3,136 frame
+# tokens, past the window fill); inference() ran over all 96 in phases 4a-4c before phase 10
+# came, and over 64 in 4d, 4e and 8a since phase 5b came
+STREAM_FRAMES = 64
 # rows of the training sequence of phase 5 (16 frames in one conversation)
 TRAIN_T = 926
 # phase 5b's batches: B 1 and 2, left-padded to the length bucket 1,024 (write_train_data),
@@ -495,11 +526,12 @@ def serve8_widths() -> dict:
 
 
 # the highlight chain (phase 9): three clips at 30 fps, 320 x 240, decoded at 1 fps (their
-# last vision batches leave 0, 16 and 0 frames: projector rows 1,568 and 784), in the order
-# of the metadata file phase 9 writes; clip -> (seconds, TVSum category, title)
-CHAIN_CLIPS = {"clip_a": (64, "GA", "grooming an animal in a garden"),
-               "clip_b": (80, "BK", "changing a bicycle tire"),
-               "clip_c": (96, "VT", "a parade on the street")}
+# last vision batches leave 0, 16 and 0 frames: projector rows 1,568 and 784; 64, 80 and
+# 96 s before phase 10 came), in the order of the metadata file phase 9 writes; clip ->
+# (seconds, TVSum category, title)
+CHAIN_CLIPS = {"clip_a": (32, "GA", "grooming an animal in a garden"),
+               "clip_b": (48, "BK", "changing a bicycle tire"),
+               "clip_c": (64, "VT", "a parade on the street")}
 CHAIN_SEED = 0
 
 
@@ -709,6 +741,24 @@ def check_matmuls(gen, stats: Stats):
     chain_h8 = [("held-" + n, M, *layer[n]) for n in layer
                 for M in sorted(set(chain_query_rows()) - timed8 - set(held8))]
 
+    # phase 10: the CLS configurations' frame chunk (50 rows) and fused pass (200), timed;
+    # CLIP-L/14-336's tower under --vision_int8 (577 rows a frame, a 32-frame batch), timed;
+    # SigLIP's MAP probe under --vision_int8 (a row a frame: q and out, fc1, fc2), the
+    # CLS configurations' projector (50 rows a frame), the live datasets' query chunks and
+    # the projector rows of their last vision batches, held
+    cls_t = [(n, M, *layer[n]) for n in layer for M in (50, 200)]
+    clip_tower = [(n, 577 * TOWER_FRAMES, K, N) for n, K, N in TOWER]
+    live_rows = (set(live_query_rows().values()) - timed8 - set(held8)
+                 - set(chain_query_rows()) - set(PATH_M))
+    live_h8 = [("held-" + n, M, *layer[n]) for n in layer for M in sorted(live_rows)]
+    live_h8 += [("held-probe_qo", TOWER_FRAMES, 1024, 1024),
+                ("held-probe_fc1", TOWER_FRAMES, 1024, 4096),
+                ("held-probe_fc2", TOWER_FRAMES, 4096, 1024)]
+    live_h8 += [("held-" + n, M, K, N)
+                for M in sorted(live_projector_rows() | {50 * TOWER_FRAMES})
+                for n, K, N in (("projector_fc1", 1024, 3584), ("projector_fc2", 3584, 3584))
+                if M not in {49 * (k % 32) for k in SERVE_LENGTHS} | {392, 1568}]
+
     # int8, f32 activations (phase 6's f32 score traces: a frame, the system prompt and
     # query, a fused pass of 4 frames; the lm_head's row; the projector's 8 frames; phase 8b's
     # f32 frame chunks: the system prompt and first frame, a response's last token + stream
@@ -727,7 +777,7 @@ def check_matmuls(gen, stats: Stats):
          [(*c, None, bf, 1e-2) for c in cards + tower]
          + [(*r, None, f32, 1e-4) for r in ragged8 + f32_8] + [(*edge, None, bf, 1e-2)]
          + [(*c, None, bf, 1e-2) for c in wgmma8 + old8 + decode_rows + serve_t8 + serve_h8
-            + chain_h8]
+            + chain_h8 + cls_t + clip_tower + live_h8]
          + [(n, M, *layer[n], None, bf, 1e-2) for M in TRAIN_CLI_M for n in layer],
          49),
         ("int8_matmul_a8", 8, True,
@@ -1067,6 +1117,28 @@ def check_attention(gen, stats: Stats):
     # the attention reads widened to f32
     cases += [dict(seven, label="7b-f32", B=1, S=S, Wp=2049, q=f32, kv=f32, tol=1e-4)
               for S in (49, 59, 171, 220)]
+    # phase 10: the CLS configurations' frame chunk (50 rows), timed; the live datasets'
+    # query chunks, held; the judge's f32 cache of JUDGE_WINDOW slots: a token and the
+    # rubric prefix timed, each judgement's prompt held
+    cases += [dict(seven, label="7b", B=1, S=50, Wp=2049)]
+    cases += [dict(seven, label="7b-held", B=1, S=S, Wp=2049)
+              for S in sorted(set(live_query_rows().values()) - set(PATH_M) - set(sw["b1"])
+                              - set(chain_query_rows()))]
+    prefix_rows, prompt_rows = judge_rows()
+    judge = dict(seven, B=1, Wp=JUDGE_WINDOW + 1, q=f32, kv=f32, tol=1e-4)
+    cases += [dict(judge, label="7b-f32-judge", S=S) for S in (1, prefix_rows)]
+    cases += [dict(judge, label="7b-f32-judge-held", S=S) for S in sorted(set(prompt_rows))]
+    if _module_ok("transformers") and _module_ok("tokenizers"):
+        # 10d's command: the rows under the BPE tokenizer it trains
+        import tempfile
+
+        from aha_tpu_torch.tokenization import build_stream_tokenizer
+
+        with tempfile.TemporaryDirectory() as d:
+            write_judge_tokenizer(pathlib.Path(d))
+            bpe_prefix, bpe_prompts = judge_rows(build_stream_tokenizer(d))
+        cases += [dict(judge, label="7b-f32-judge-held", S=S)
+                  for S in sorted({bpe_prefix, *bpe_prompts} - {1, prefix_rows, *prompt_rows})]
     cases += [dict(label="ragged", B=2, S=5, NH=4, KVH=2, Dh=16, Wp=77, q=f32, kv=f32, tol=1e-4),
               dict(label="ragged", B=2, S=3, NH=6, KVH=2, Dh=64, Wp=129, q=f32, kv=f32, tol=1e-4),
               dict(label="ragged", B=1, S=9, NH=8, KVH=2, Dh=32, Wp=45, q=f32, kv=f32, tol=1e-4),
@@ -2058,7 +2130,7 @@ def verify_vs_sequential(sess, cfg, S: int = 8):
     return err, same
 
 
-def phases_4_to_9(gpu: str, seed: int, stats: Stats, phases: set):
+def phases_4_to_10(gpu: str, seed: int, stats: Stats, phases: set):
     """The 7B paths, then: every shape they gave a kernel was held against the
     plain version in phase 2."""
     phase2_ran = 2 in phases
@@ -2075,8 +2147,10 @@ def phases_4_to_9(gpu: str, seed: int, stats: Stats, phases: set):
             phase8(gpu, seed, stats)
         if 9 in phases:
             phase9(gpu, stats)
+        if 10 in phases:
+            phase10(gpu, seed, stats)
     missing = sorted(rec.seen - stats.checked, key=str)
-    print(f"phases 4-9 shapes handed to the kernels: {len(rec.seen)} distinct, "
+    print(f"phases 4-10 shapes handed to the kernels: {len(rec.seen)} distinct, "
           f"{len(missing)} not checked in phase 2"
           + ("" if phase2_ran else " (phase 2 did not run)"), flush=True)
     if phase2_ran and missing:
@@ -2093,7 +2167,7 @@ def drive_7b_paths(gpu: str, seed: int, stats: Stats):
     L = cfg.llm.num_layers
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     frames = torch.randint(0, 256, (96, 384, 384, 3), generator=gen, device="cuda",
-                           dtype=torch.uint8)
+                           dtype=torch.uint8)[:STREAM_FRAMES]
     product = dict(fused_score_frames=4, spec_decode_tokens=4, spec_decode_tokens_max=8)
     w1 = dict(fused_score_frames=1, spec_decode_tokens=1)
 
@@ -2116,7 +2190,7 @@ def drive_7b_paths(gpu: str, seed: int, stats: Stats):
         chunks, verifies = pc.chunks, pc.verifies
     peak = torch.cuda.max_memory_allocated()
     responses = texts(turns)
-    seen = check_7b_run("7b-int4", rows, sess, responses, 96)
+    seen = check_7b_run("7b-int4", rows, sess, responses, STREAM_FRAMES)
     if sv_verifies != 16:
         raise AssertionError(f"7b-int4: score_video took {sv_verifies} fused passes, not 16")
     passes = chunks + verifies
@@ -2130,16 +2204,16 @@ def drive_7b_paths(gpu: str, seed: int, stats: Stats):
     acc = sess.engine.spec_acceptance()
     print(f"phase4a 7b-int4 widths 4 / 4->8 [{gpu}] params {t_params:.2f}s; score_video 64 "
           f"frames in 16 fused passes {t_sv:.3f}s = {64 / t_sv:.2f} frames/s (vision included); "
-          f"inference (chunked) 96 frames {t_inf:.3f}s, {len(responses)} responses in "
+          f"inference (chunked) {STREAM_FRAMES} frames {t_inf:.3f}s, {len(responses)} responses in "
           f"{gen_s:.3f}s; decode {dec_tokens} tokens in {dec_s:.3f}s = "
           f"{dec_tokens / max(dec_s, 1e-9):.2f} decode tokens/s, {acc['tokens_per_pass']} tokens "
           f"per verify pass ({acc['passes']} passes, acceptance EMA {acc['ema']}); scoring "
-          f"{96 / (t_inf - gen_s):.2f} frames/s; stream {seen} tokens; {chunks} chunks + "
+          f"{STREAM_FRAMES / (t_inf - gen_s):.2f} frames/s; stream {seen} tokens; {chunks} chunks + "
           f"{verifies} verify passes; launches int4_matmul={n4} decode_attention={na}; "
           f"max_memory_allocated {peak / 2**30:.2f} GiB", flush=True)
     print(f"phase4a first response: {responses[0][:60]!r}", flush=True)
     rows4, t_sv4, dec_tokens4, dec_s4 = rows, t_sv, dec_tokens, dec_s
-    frames_s4 = 96 / (t_inf - gen_s)
+    frames_s4 = STREAM_FRAMES / (t_inf - gen_s)
 
     # the same stream at generation width 1, scoring at the same width: the speculative
     # texts against the sequential ones
@@ -2174,7 +2248,7 @@ def drive_7b_paths(gpu: str, seed: int, stats: Stats):
         chunks, verifies = pc.chunks, pc.verifies
     peak = torch.cuda.max_memory_allocated()
     responses = texts(turns)
-    seen = check_7b_run("7b-int8", rows8, sess, responses, 96)
+    seen = check_7b_run("7b-int8", rows8, sess, responses, STREAM_FRAMES)
     if sv_verifies != 16:
         raise AssertionError(f"7b-int8: score_video took {sv_verifies} fused passes, not 16")
     passes = chunks + verifies
@@ -2189,11 +2263,11 @@ def drive_7b_paths(gpu: str, seed: int, stats: Stats):
     acc = sess.engine.spec_acceptance()
     print(f"phase4b 7b-int8 widths 4 / 4->8 [{gpu}] params {t_params:.2f}s; score_video 64 "
           f"frames in 16 fused passes {t_sv8:.3f}s = {64 / t_sv8:.2f} frames/s (vision "
-          f"included); inference (chunked) 96 frames {t_inf:.3f}s, {len(responses)} responses "
+          f"included); inference (chunked) {STREAM_FRAMES} frames {t_inf:.3f}s, {len(responses)} responses "
           f"in {gen_s:.3f}s; decode {dec_tokens} tokens in {dec_s:.3f}s = "
           f"{dec_tokens / max(dec_s, 1e-9):.2f} decode tokens/s, {acc['tokens_per_pass']} tokens "
           f"per verify pass ({acc['passes']} passes, acceptance EMA {acc['ema']}); scoring "
-          f"{96 / (t_inf - gen_s):.2f} frames/s; stream {seen} tokens; {chunks} chunks + "
+          f"{STREAM_FRAMES / (t_inf - gen_s):.2f} frames/s; stream {seen} tokens; {chunks} chunks + "
           f"{verifies} verify passes; launches int8_matmul={n8} decode_attention={na}; "
           f"max_memory_allocated {peak / 2**30:.2f} GiB", flush=True)
     print(f"phase4b first response: {responses[0][:60]!r}", flush=True)
@@ -2209,7 +2283,7 @@ def drive_7b_paths(gpu: str, seed: int, stats: Stats):
             params8, cfg, tok, frames, threshold(rows8), dict(product, spec_decode_tokens=1))
         counts = dict(kernels.LAUNCHES)
         chunks1, verifies1 = pc.chunks, pc.verifies
-    check_7b_run("7b-int8 generation width 1", rows, sess1, texts(turns1), 96)
+    check_7b_run("7b-int8 generation width 1", rows, sess1, texts(turns1), STREAM_FRAMES)
     n8 = counts.get("int8_matmul", 0)
     if n8 < L * (chunks1 + verifies1) * 4 or sv_verifies or sv_chunks < 64:
         raise AssertionError(f"7b-int8 width 1: launches int8_matmul={n8} < {L} layers x "
@@ -2224,7 +2298,7 @@ def drive_7b_paths(gpu: str, seed: int, stats: Stats):
     err, same = verify_vs_sequential(sess, cfg)
     print(f"phase4b width 1 [{gpu}]: score_video 64 frames {t_sv1:.3f}s = {64 / t_sv1:.2f} "
           f"frames/s, fused-4 scores vs width 1 max_abs_diff={d:.3e}; inference at fused 4 with "
-          f"generation width 1 96 frames {t_inf1:.3f}s; decode {dec_tokens1} tokens in "
+          f"generation width 1 {STREAM_FRAMES} frames {t_inf1:.3f}s; decode {dec_tokens1} tokens in "
           f"{dec_s1:.3f}s = {dec_tokens1 / max(dec_s1, 1e-9):.2f} decode tokens/s; {chunks1} "
           f"chunks + {verifies1} verify passes; texts identical to the speculative run's "
           f"({len(responses)} responses); verify pass S=8 (attention replayed) vs 8 sequential "
@@ -2247,7 +2321,7 @@ def drive_7b_paths(gpu: str, seed: int, stats: Stats):
         counts = dict(kernels.LAUNCHES)
         chunks, verifies = pc.chunks, pc.verifies
     responses = texts(turns)
-    seen = check_7b_run("7b-int8 fused_a8", rows_a8, sess, responses, 96)
+    seen = check_7b_run("7b-int8 fused_a8", rows_a8, sess, responses, STREAM_FRAMES)
     if sv_verifies != 8:
         raise AssertionError(f"7b-int8 fused_a8: score_video took {sv_verifies} fused passes, "
                              f"not 8")
@@ -2264,7 +2338,7 @@ def drive_7b_paths(gpu: str, seed: int, stats: Stats):
     print(f"phase4c 7b-int8 backend=fused_a8 widths 8 / 4->8 (--w8a8) [{gpu}] score_video 64 "
           f"frames in 8 fused passes of 392 rows {t_sv_a8:.3f}s = {64 / t_sv_a8:.2f} frames/s "
           f"(weight-only at 4: {64 / t_sv8:.2f}); scores vs weight-only at width 8 "
-          f"max_abs_diff={d8:.3e}, vs weight-only width 1 {d:.3e}; inference (chunked) 96 "
+          f"max_abs_diff={d8:.3e}, vs weight-only width 1 {d:.3e}; inference (chunked) {STREAM_FRAMES} "
           f"frames {t_inf:.3f}s, {len(responses)} responses; decode {dec_tokens} tokens in "
           f"{dec_s:.3f}s = {dec_tokens / max(dec_s, 1e-9):.2f} decode tokens/s (weight-only at "
           f"4->8: {dec_tokens8 / max(dec_s8, 1e-9):.2f}), "
@@ -2277,7 +2351,7 @@ def drive_7b_paths(gpu: str, seed: int, stats: Stats):
             params8, cfg, tok, frames, threshold(rows_a8), dict(w8a8, spec_decode_tokens=1),
             backend="fused_a8")
         counts = dict(kernels.LAUNCHES)
-    check_7b_run("7b-int8 fused_a8 generation width 1", rows_a8, sess1, texts(turns1), 96)
+    check_7b_run("7b-int8 fused_a8 generation width 1", rows_a8, sess1, texts(turns1), STREAM_FRAMES)
     if counts.get("int8_matmul_a8", 0) < L * (pc.chunks + pc.verifies) * 4:
         raise AssertionError(f"7b-int8 fused_a8 width 1: launches {counts} over {pc.chunks} "
                              f"chunks + {pc.verifies} verify passes")
@@ -2319,12 +2393,12 @@ def drive_7b_paths(gpu: str, seed: int, stats: Stats):
         rows_d, t_sv_d = score_64(params4, cfg, tok, frames[:64], product, backend="fused_a8")
         sv_verifies = pc.verifies
         sess, turns, t_inf, gen_s, dec_s, dec_tokens = run_inference(
-            params4, cfg, tok, frames[:D_FRAMES], threshold(rows_d), product,
+            params4, cfg, tok, frames[:STREAM_FRAMES], threshold(rows_d), product,
             backend="fused_a8")
         counts = dict(kernels.LAUNCHES)
         chunks, verifies = pc.chunks, pc.verifies
     responses = texts(turns)
-    seen = check_7b_run("7b-int4 fused_a8", rows_d, sess, responses, D_FRAMES)
+    seen = check_7b_run("7b-int4 fused_a8", rows_d, sess, responses, STREAM_FRAMES)
     if sv_verifies != 16:
         raise AssertionError(f"7b-int4 fused_a8: score_video took {sv_verifies} fused passes, "
                              f"not 16")
@@ -2340,22 +2414,22 @@ def drive_7b_paths(gpu: str, seed: int, stats: Stats):
     print(f"phase4d 7b-int4 backend=fused_a8 widths 4 / 4->8 [{gpu}] score_video 64 frames in "
           f"16 fused passes of 196 rows {t_sv_d:.3f}s = {64 / t_sv_d:.2f} frames/s (weight-only, "
           f"4a: {64 / t_sv4:.2f}); scores vs 4a's weight-only at width 4 max_abs_diff={d:.3e}; "
-          f"inference (chunked) {D_FRAMES} frames {t_inf:.3f}s, {len(responses)} responses in "
+          f"inference (chunked) {STREAM_FRAMES} frames {t_inf:.3f}s, {len(responses)} responses in "
           f"{gen_s:.3f}s; decode {dec_tokens} tokens in {dec_s:.3f}s = "
           f"{dec_tokens / max(dec_s, 1e-9):.2f} decode tokens/s (4a: "
           f"{dec_tokens4 / max(dec_s4, 1e-9):.2f}), {acc['tokens_per_pass']} tokens per verify "
-          f"pass ({acc['passes']} passes); scoring {D_FRAMES / (t_inf - gen_s):.2f} frames/s (4a: "
+          f"pass ({acc['passes']} passes); scoring {STREAM_FRAMES / (t_inf - gen_s):.2f} frames/s (4a: "
           f"{frames_s4:.2f}); stream {seen} tokens; {chunks} chunks + {verifies} verify passes; "
           f"launches int4_matmul_a8={n} quantize_rows={counts['quantize_rows']}", flush=True)
     print(f"phase4d first response: {responses[0][:60]!r}", flush=True)
     with PassCounter() as pc:
         kernels.reset_launches()
         sess1, turns1, t_inf1, gen_s1, dec_s1, dec_tokens1 = run_inference(
-            params4, cfg, tok, frames[:D_FRAMES], threshold(rows_d),
+            params4, cfg, tok, frames[:STREAM_FRAMES], threshold(rows_d),
             dict(product, spec_decode_tokens=1), backend="fused_a8")
         counts = dict(kernels.LAUNCHES)
     check_7b_run("7b-int4 fused_a8 generation width 1", rows_d, sess1, texts(turns1),
-                 D_FRAMES)
+                 STREAM_FRAMES)
     if counts.get("int4_matmul_a8", 0) < L * (pc.chunks + pc.verifies) * 4:
         raise AssertionError(f"7b-int4 fused_a8 width 1: launches {counts} over {pc.chunks} "
                              f"chunks + {pc.verifies} verify passes")
@@ -2373,7 +2447,7 @@ def drive_7b_paths(gpu: str, seed: int, stats: Stats):
     del sess, sess1
     gc.collect()
 
-    phase4e(gpu, stats, cfg, tok, frames[:D_FRAMES], params4, params8,
+    phase4e(gpu, stats, cfg, tok, frames[:STREAM_FRAMES], params4, params8,
             {"7b-int4": (rows4, 64 / t_sv4), "7b-int8": (rows8, 64 / t_sv8),
              "7b-int8 fused_a8": (rows_a8, 64 / t_sv_a8)})
     del params4, params8
@@ -2383,7 +2457,7 @@ def drive_7b_paths(gpu: str, seed: int, stats: Stats):
 
 def threshold(rows) -> float:
     """The eighth-highest stream-end score of ``rows``, so that the first
-    responses fire within the first 64 frames."""
+    responses fire within the first STREAM_FRAMES frames."""
     return sorted((r["informative_score"] + r["relevance_score"] for r in rows),
                   reverse=True)[7]
 
@@ -3433,13 +3507,13 @@ def phase8a(gpu: str, seed: int, stats: Stats, cfg, tok, frames):
         kernels.reset_launches()                       # the main path starts here
         rows, t_sv = score_64(params, cfg, tok, frames[:32], product, **ad)
         sess, turns, t_inf, _, dec_s, dec_tokens = run_inference(
-            params, cfg, tok, frames[:64], spaced(rows), product, max_new_tokens=16, **ad)
+            params, cfg, tok, frames[:STREAM_FRAMES], spaced(rows), product, max_new_tokens=16, **ad)
         counts = dict(kernels.LAUNCHES)                # ... and ends here
         chunks, verifies = pc.chunks, pc.verifies
     responses = texts(turns)
     if (counts.get("int4_matmul", 0) < L * 4 * (chunks + verifies)
             or counts.get("decode_attention", 0) < L * chunks or not responses
-            or len(sess.debug_data_list) != 64
+            or len(sess.debug_data_list) != STREAM_FRAMES
             or not all(math.isfinite(r[k]) for r in rows + sess.debug_data_list
                        for k in SCORE_KEYS)):
         raise AssertionError(f"phase8a: launches {counts} over {chunks} chunks + {verifies} "
@@ -3448,7 +3522,7 @@ def phase8a(gpu: str, seed: int, stats: Stats, cfg, tok, frames):
     plain, t_plain = score_64(params, cfg, tok, frames[:32], product)
     moved = max(abs(a[k] - b[k]) for a, b in zip(rows, plain) for k in SCORE_KEYS)
     _, turns1, _, _, dec_s1, dec_tokens1 = run_inference(
-        params, cfg, tok, frames[:64], spaced(rows), dict(product, spec_decode_tokens=1),
+        params, cfg, tok, frames[:STREAM_FRAMES], spaced(rows), dict(product, spec_decode_tokens=1),
         max_new_tokens=16, **ad)
     if texts(turns1) != responses or not moved > 1e-3:
         raise AssertionError(f"phase8a: scores moved by the adapters {moved:.3e}; texts at "
@@ -3456,7 +3530,7 @@ def phase8a(gpu: str, seed: int, stats: Stats, cfg, tok, frames):
                              + _first_divergence(responses, texts(turns1)))
     print(f"phase8a 7b-int4 with r {LORA_R} adapters at widths 4 / 4->8 [{gpu}]: score_video 32 "
           f"frames {t_sv:.3f}s (without adapters {t_plain:.3f}s), scores moved by the adapters "
-          f"up to {moved:.3e}; inference() 64 frames {t_inf:.3f}s, {len(responses)} responses, "
+          f"up to {moved:.3e}; inference() {STREAM_FRAMES} frames {t_inf:.3f}s, {len(responses)} responses, "
           f"decode {dec_tokens} tokens in {dec_s:.3f}s; at generation width 1 {dec_tokens1} "
           f"tokens in {dec_s1:.3f}s, texts equal; {chunks} chunks + {verifies} verify passes; "
           f"launches {counts}", flush=True)
@@ -3740,13 +3814,684 @@ def phase9(gpu: str, stats: Stats):
           f"{time.perf_counter() - t_phase:.1f}s", flush=True)
 
 
+
+# -- phase 10: the live-video datasets, demo, the interactive API, the judge, the towers ------
+
+LIVE_TICKS = ROOT / "configs" / "tick_tables" / "demo_ticks.json"
+LIVE_CLIP_S = 120          # 10a: hubble_space on a cv2 clip of 120 s (30 fps, 320 x 240) at 1 fps
+LIVE_FOLDER_N = 60         # 10a: arl_scout on a folder of 60 frames, read from --start_sec 10
+LIVE_START = 10
+# 10b: demo's 60 s clip, (seconds, moving): a moving stretch shows another picture every
+# second, a static one the same picture throughout
+DEMO_SEGMENTS = ((10, True), (15, False), (10, True), (15, False), (10, True))
+DEMO_SKIP = 0.02
+INTERACTIVE_FRAMES = 32    # 10c
+JUDGE_WINDOW = 4096        # 10d: LocalJudge's cache (kind "none"), f32
+TOWER_FRAMES = 32          # 10e
+
+
+def live_query_rows() -> dict:
+    """The rows of the query chunks of phase 10's scoring passes (score_video
+    appends the query as one chunk before the system prompt; 10c's
+    encode_given_query after a reset gives the same ids): the live datasets'
+    default queries and the demo's."""
+    from aha_tpu_torch.cli.infer import DEFAULT_QUERIES
+
+    _, tok = _model("7b")
+    queries = {**{k: DEFAULT_QUERIES[k] for k in ("hubble_space", "arl_scout")}, "demo": QUERY}
+    return {k: len(tok.apply_chat_template([{"role": "user", "content": q}],
+                                           add_stream_query_prompt=False,
+                                           add_stream_prompt=True))
+            for k, q in queries.items()}
+
+
+def demo_picture(second: int, W: int = 320, H: int = 240):
+    """The BGR picture the demo clip shows during ``second``: in a moving stretch
+    a gradient shifted 37 levels a second and a square that moves, in a static
+    stretch a flat grey of its own."""
+    import numpy as np
+
+    start, static_index = 0, 0
+    for sec, moving in DEMO_SEGMENTS:
+        if second < start + sec:
+            break
+        start += sec
+        static_index += not moving
+    if not moving:
+        return np.full((H, W, 3), 128 - 60 * static_index, np.uint8)
+    xs = np.arange(W)[None, :, None]
+    frame = np.broadcast_to(((xs + 37 * second) % 256).astype(np.uint8), (H, W, 3)).copy()
+    x = (29 * second) % (W - 60)
+    frame[90:150, x:x + 60] = (255, 255, 255)
+    return frame
+
+
+def demo_kept() -> int:
+    """The frames demo's motion skip keeps at 1 fps: media.motion_mask over the
+    clip's pictures, letterboxed as decode_video hands them over."""
+    import numpy as np
+
+    from aha_tpu_torch.data import media
+
+    n = sum(s for s, _ in DEMO_SEGMENTS)
+    frames = np.stack([media.resize_and_pad_frame(demo_picture(s), 384)[..., ::-1]
+                       for s in range(n)])
+    return int(media.motion_mask(frames, DEMO_SKIP).sum())
+
+
+def live_projector_rows() -> set:
+    """The projector rows of phase 10's last vision batches (32 frames a batch,
+    49 rows a frame): the hubble clip, the arl folder from its start, the demo's
+    kept frames."""
+    frames = (LIVE_CLIP_S, LIVE_FOLDER_N - LIVE_START, demo_kept())
+    return {49 * (n % 32) for n in frames} - {0}
+
+
+def judge_examples():
+    """10d's predictions and gold: three questions, three gold answers with
+    their spans and three responses each."""
+    answers = ["A person is cooking rice in a small pan.", "A dog runs across the garden.",
+               "The chef chops onions, then fries them until golden."]
+    preds, golds = [], []
+    for q in range(3):
+        question = f"What is happening in part {q + 1} of the video?"
+        golds.append({"question_id": q, "conversation": [{"role": "user", "content": question}],
+                      "answer": [{"content": answers[(q + g) % 3], "time": [4 * g, 4 * g + 3]}
+                                 for g in range(3)]})
+        preds.append({"question_id": q, "debug_data": [], "model_response_list": [
+            {"role": "user", "content": question, "time": 0}] + [
+            {"role": "assistant", "content": answers[(2 * q + i) % 3], "time": 4 * i + 1}
+            for i in range(3)]})
+    return preds, golds
+
+
+def write_judge_tokenizer(d: pathlib.Path) -> None:
+    """A byte-level BPE tokenizer trained here on the rubric (tokenizers and
+    transformers), saved in ``d`` as a Hugging Face checkpoint keeps it: the
+    tokenizer of 10d's judge directory."""
+    from tokenizers import Tokenizer, decoders, models, pre_tokenizers, trainers
+    from transformers import PreTrainedTokenizerFast
+
+    from aha_tpu_torch.eval import llm_judge
+    from aha_tpu_torch.tokenization import BOS, EOS
+
+    tok = Tokenizer(models.BPE(unk_token=None))
+    tok.pre_tokenizer = pre_tokenizers.ByteLevel(add_prefix_space=False)
+    tok.decoder = decoders.ByteLevel()
+    corpus = [llm_judge.RUBRIC_SYSTEM] + [u for u, _ in llm_judge.RUBRIC_SHOTS] * 5
+    tok.train_from_iterator(corpus, trainers.BpeTrainer(
+        vocab_size=2000, special_tokens=[BOS, EOS, "<|endoftext|>"],
+        initial_alphabet=pre_tokenizers.ByteLevel.alphabet()))
+    PreTrainedTokenizerFast(tokenizer_object=tok, bos_token=BOS, eos_token=EOS,
+                            pad_token="<|endoftext|>").save_pretrained(str(d))
+
+
+def judge_rows(tok=None) -> tuple:
+    """(the rubric prefix's rows, each judgement's rows in 10d's order) under
+    ``tok`` (default: the char tokenizer at Qwen2-7B's vocabulary): the judged
+    pairs replayed with an evaluator that only records them."""
+    from aha_tpu_torch.eval import llm_judge
+    from aha_tpu_torch.tokenization import build_stream_tokenizer
+
+    tok = tok or build_stream_tokenizer(None, vocab_size=152064)
+    judged = []
+
+    class Record:
+        def evaluate(self, question, gold, pred):
+            content = f"Question: {question}\nGround Truth Answer: {gold}\nPredicted Answer: {pred}"
+            judged.append(len(tok.apply_chat_template([{"role": "user", "content": content}],
+                                                      add_generation_prompt=True)))
+            return 1
+
+    llm_judge.magqa_score_matrices(*judge_examples(), Record())
+    return len(tok.apply_chat_template(llm_judge.rubric_conversation())), tuple(judged)
+
+
+def tower_configs() -> dict:
+    """10e's two towers at 7B: SigLIP with its MAP probe (frame_token_cls: 50
+    tokens a frame) and CLIP-L/14-336 with its CLS token."""
+    from aha_tpu_torch.config import aha_7b, clip_large_336
+
+    return {"siglip-cls": aha_7b().replace(frame_token_cls=True),
+            "clip-l-336": aha_7b().replace(vision=clip_large_336(), frame_resolution=336,
+                                           frame_token_cls=True)}
+
+
+def write_live_data(root: pathlib.Path) -> dict:
+    """Phase 10's inputs on disk: 10a's clip (a drifting gradient, a square
+    crossing it, noise in a corner) and frame folder (PNG), 10b's demo clip
+    (DEMO_SEGMENTS), all 320 x 240 at 30 fps written with cv2."""
+    import cv2
+    import numpy as np
+
+    rng = np.random.default_rng(10)
+    W, H, FPS = 320, 240, 30
+    xs = np.arange(W)[None, :, None]
+
+    def picture(i):
+        frame = np.broadcast_to(((xs + i) % 256).astype(np.uint8), (H, W, 3)).copy()
+        x = (i * 3) % (W - 40)
+        frame[100:140, x:x + 40] = (255, 200, 40)
+        frame[:16, :16] = rng.integers(0, 256, (16, 16, 3), dtype=np.uint8)
+        return frame
+
+    out = {"clip": root / "hubble.mp4", "folder": root / "arl_frames",
+           "demo": root / "demo.mp4"}
+    writer = cv2.VideoWriter(str(out["clip"]), cv2.VideoWriter_fourcc(*"mp4v"), float(FPS),
+                             (W, H))
+    for i in range(LIVE_CLIP_S * FPS):
+        writer.write(picture(i))
+    writer.release()
+    out["folder"].mkdir()
+    for i in range(LIVE_FOLDER_N):
+        cv2.imwrite(str(out["folder"] / f"{i:05d}.png"), picture(97 * i))
+    writer = cv2.VideoWriter(str(out["demo"]), cv2.VideoWriter_fourcc(*"mp4v"), float(FPS),
+                             (W, H))
+    for i in range(sum(s for s, _ in DEMO_SEGMENTS) * FPS):
+        writer.write(demo_picture(i // FPS))
+    writer.release()
+    return out
+
+
+def _module_ok(name: str) -> str | None:
+    """The module's version where it imports on this host, else None."""
+    import importlib
+
+    try:
+        return getattr(importlib.import_module(name), "__version__", "?")
+    except ImportError:
+        return None
+
+
+def _captured(fn, *a):
+    """fn(*a) with its standard output captured: (return value, printed lines)."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        ret = fn(*a)
+    return ret, out.getvalue().splitlines()
+
+
+def phase10(gpu: str, seed: int, stats: Stats):
+    """The rest of the command line and the other towers at 7B: (a) `infer` of the
+    live-video datasets, (c) the interactive API on (a)'s session, (b) `demo`,
+    (d) the judge, (e) the SigLIP probe and CLIP towers."""
+    import tempfile
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    mods = {m: _module_ok(m) for m in ("matplotlib", "transformers", "tokenizers", "h5py")}
+    print(f"phase10 packages on this host: {json.dumps(mods)}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        paths = write_live_data(root)
+        print(f"phase10 clips written with cv2 in {time.perf_counter() - t0:.2f}s", flush=True)
+        sess = phase10a(gpu, stats, root, paths, have_plot=mods["matplotlib"] is not None)
+        phase10c(gpu, stats, sess)
+        del sess
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase10b(gpu, stats, root, paths, have_plot=mods["matplotlib"] is not None)
+    phase10d(gpu, stats, have_hf=mods["transformers"] is not None and mods["tokenizers"] is not None)
+    phase10e(gpu, seed, stats)
+    print(f"phase10 took {time.perf_counter() - t_phase:.1f}s", flush=True)
+
+
+def phase10a(gpu: str, stats: Stats, root, paths, have_plot: bool):
+    """`infer --test_dataset hubble_space --model_preset 7b --int8 --synthetic_weights` at
+    the product defaults (fused 4, sink cache 2048 + 32) at 1 fps on a cv2 clip with the
+    tick table, then `--test_dataset arl_scout` on a frame folder from --start_sec 10.
+    Returns the first run's session (for 10c). Without matplotlib on the host the
+    command's plot cannot be drawn: the same session then runs the command's branch
+    (cli.infer._infer_live) with the result written where matplotlib is not asked for."""
+    import torch
+
+    from aha_tpu_torch.cli import infer as cli_infer
+    from aha_tpu_torch.cli import main as cli_main
+    from aha_tpu_torch.drivers import live_video
+    from aha_tpu_torch.ops import kernels
+
+    L = 28
+    built, sessions = [], []
+    build_session = cli_infer._build_session
+
+    def timed_build(args):
+        t = time.perf_counter()
+        s = build_session(args)
+        torch.cuda.synchronize()
+        built.append(time.perf_counter() - t)
+        sessions.append(s)
+        return s
+
+    plot = live_video.plot_scores
+    runs = (("hubble_space", paths["clip"], LIVE_CLIP_S, []),
+            ("arl_scout", paths["folder"], LIVE_FOLDER_N - LIVE_START,
+             ["--start_sec", str(LIVE_START)]))
+    out = {}
+    cli_infer._build_session = timed_build
+    if not have_plot:
+        live_video.plot_scores = lambda *a, **k: None
+    try:
+        for name, src, n_frames, extra in runs:
+            (root / name).mkdir()
+            fname = root / name / "live.json"
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()                  # the main path starts here
+            t0 = time.perf_counter()
+            rc, lines = _captured(cli_main, [
+                "infer", "--test_dataset", name, "--model_preset", "7b", "--int8",
+                "--synthetic_weights", "--input_dir", str(src), "--output_fname", str(fname),
+                "--frame_fps", "1", "--tick_table", str(LIVE_TICKS), *extra])
+            torch.cuda.synchronize()
+            t_all = time.perf_counter() - t0
+            counts = dict(kernels.LAUNCHES)           # ... and ends here
+            peak = torch.cuda.max_memory_allocated() / 1024**3
+            res = json.loads(lines[-1])
+            full = json.loads(fname.read_text())
+            want = {"ticks", "gt_ticks", "gt_spans", "fps", "query", "frames_scored",
+                    "telemetry"}
+            if (rc != 0 or set(res) != want or res["frames_scored"] != n_frames
+                    or len(full["debug_data"]) != n_frames or not res["gt_ticks"]
+                    or set(res["telemetry"]) != {"peak_hbm_gb", "peak_ram_gb", "samples"}
+                    or not all(math.isfinite(d[k]) for d in full["debug_data"]
+                               for k in SCORE_KEYS)
+                    or counts.get("int8_matmul", 0) < L * 4 * (n_frames // 4)
+                    or counts.get("decode_attention", 0) < 2 * L
+                    or (have_plot and not (root / name / "live_scores.png").exists())):
+                raise AssertionError(f"phase10a {name}: rc {rc}, {res}, "
+                                     f"{len(full['debug_data'])} frames, launches {counts}")
+            stats.launches(counts)
+            out[name] = res
+            print(f"phase10a infer --test_dataset {name} --model_preset 7b --int8 "
+                  f"--synthetic_weights --frame_fps 1 {' '.join(extra)} [{gpu}]: "
+                  f"{n_frames} frames in {t_all:.2f}s, of which the weights "
+                  f"{built[-1]:.2f}s: {n_frames / (t_all - built[-1]):.2f} frames/s without "
+                  f"the build (cv2 decode included); telemetry.peak_hbm_gb "
+                  f"{res['telemetry']['peak_hbm_gb']} against torch.cuda.max_memory_allocated "
+                  f"{peak:.3f} GiB ({res['telemetry']['samples']} samples); ticks "
+                  f"{res['ticks']}, {len(res['gt_ticks'])} ground-truth ticks; launches "
+                  f"int8_matmul={counts.get('int8_matmul', 0)} decode_attention="
+                  f"{counts.get('decode_attention', 0)}"
+                  + ("" if have_plot else "; no matplotlib here: the plot not drawn"),
+                  flush=True)
+    finally:
+        cli_infer._build_session = build_session
+        live_video.plot_scores = plot
+    del sessions[1:]
+    return sessions[0]
+
+
+def phase10c(gpu: str, stats: Stats, sess):
+    """The interactive API on 10a's session: encode_given_query, then
+    input_one_frame a frame at a time, against the session's stepwise loop at fused
+    1 over the same frames and query (the same passes and plans): the scores equal
+    bit for bit."""
+    import torch
+
+    from aha_tpu_torch.cli.infer import DEFAULT_QUERIES
+    from aha_tpu_torch.ops import kernels
+
+    L = 28
+    n = INTERACTIVE_FRAMES
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    frames = torch.randint(0, 256, (n, 240, 320, 3), generator=gen, device="cuda",
+                           dtype=torch.uint8)
+    query = DEFAULT_QUERIES["hubble_space"]
+    sess.reset()
+    sess.set_fps(fps=1.0)
+    kernels.reset_launches()                          # the main path starts here
+    t0 = time.perf_counter()
+    sess.input_video_stream(frames)
+    sess.encode_given_query(query)
+    rows = [sess.input_one_frame() for _ in range(n)]
+    torch.cuda.synchronize()
+    t_api = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)                   # ... and ends here
+    stats.launches(counts)
+    sess.reset()
+    sess.set_fps(fps=1.0)
+    sess.input_video_stream(frames)
+    sess.input_query_stream([{"role": "user", "content": query, "time": 0}])
+    sess.inference(chunked=False)
+    step = [[d[k] for k in SCORE_KEYS] for d in sess.debug_data_list]
+    got = [[r[k] for k in SCORE_KEYS] for r in rows]
+    if (got != step or any(r["response"] is not None for r in rows)
+            or counts.get("decode_attention", 0) != L * (n + 1)
+            or counts.get("int8_matmul", 0) < L * 4 * (n + 1)):
+        raise AssertionError(f"phase10c: interactive scores differ from the stepwise loop's "
+                             f"({sum(a != b for a, b in zip(got, step))} of {n} frames), "
+                             f"launches {counts}")
+    print(f"phase10c encode_given_query + {n} x input_one_frame on 10a's session [{gpu}]: "
+          f"{t_api:.2f}s = {n / t_api:.2f} frames/s (a pass and a host read a frame; vision "
+          f"included); every score equal bit for bit to the stepwise inference() at fused 1 "
+          f"over the same frames and query; launches int8_matmul="
+          f"{counts.get('int8_matmul', 0)} decode_attention={counts.get('decode_attention', 0)}",
+          flush=True)
+
+
+def phase10b(gpu: str, stats: Stats, root, paths, have_plot: bool):
+    """`demo` at 7B-int8 through its argv (JAX's seed-0 init, --int8) with the
+    tick table, --render_video and --motion_skip_threshold 0.02 on the 60 s clip of
+    DEMO_SEGMENTS: frames scored against frames decoded, the stitched MP4 read back
+    with cv2 (one frame a decoded frame). Without matplotlib on the host, the same
+    device path without the plot: the command's session from its flags,
+    infer_on_live_video with no output directory, then render_demo_video."""
+    import numpy as np
+    import torch
+
+    from aha_tpu_torch.cli import infer as cli_infer
+    from aha_tpu_torch.cli import main as cli_main
+    from aha_tpu_torch.data import media
+    from aha_tpu_torch.drivers import live_video
+    from aha_tpu_torch.ops import kernels
+
+    out_dir = root / "demo"
+    argv = ["--video", str(paths["demo"]), "--query", QUERY, "--output_dir", str(out_dir),
+            "--tick_table", str(LIVE_TICKS), "--tick_name", "arl_scout", "--render_video",
+            "--model_preset", "7b", "--int8", "--motion_skip_threshold", str(DEMO_SKIP)]
+    built = []
+    build_session = cli_infer._build_session
+
+    def timed_build(args):
+        t = time.perf_counter()
+        s = build_session(args)
+        torch.cuda.synchronize()
+        built.append((time.perf_counter() - t, torch.cuda.max_memory_allocated() / 1024**3))
+        torch.cuda.reset_peak_memory_stats()
+        return s
+
+    n_decoded = sum(s for s, _ in DEMO_SEGMENTS)
+    kept = demo_kept()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()                          # the main path starts here
+    t0 = time.perf_counter()
+    cli_infer._build_session = timed_build
+    try:
+        if have_plot:
+            rc, lines = _captured(cli_main, ["demo", *argv])
+            res = json.loads(lines[-2])
+            done = lines[-1]
+        else:
+            print("phase10b matplotlib does not import on this host: demo's device path "
+                  "without the plot (infer_on_live_video with no output directory, then "
+                  "render_demo_video)", flush=True)
+            args = cli_infer.demo_args(argv)
+            sess = cli_infer._build_session(args)
+            frames, _ = media.decode_video(args.video, output_fps=args.frame_fps,
+                                           output_size=sess.args.frame_resolution)
+            res = live_video.infer_on_live_video(
+                sess, frames, args.query, args.frame_fps, output_dir=None,
+                gt_ticks=live_video.load_tick_table(args.tick_table, args.tick_name),
+                monitor=cli_infer._monitor(sess), motion_skip_threshold=DEMO_SKIP)
+            out_dir.mkdir()
+            scores = np.asarray([d["relevance_score"] for d in res["debug_data"]])
+            live_video.render_demo_video(frames, scores, args.frame_fps,
+                                         f"{out_dir}/demo_stitched.mp4", ticks=res["ticks"])
+            rc, done = 0, f"stitched demo video: {out_dir}/demo_stitched.mp4"
+            del sess
+        torch.cuda.synchronize()
+    finally:
+        cli_infer._build_session = build_session
+    t_all = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)                   # ... and ends here
+    peak_stream = torch.cuda.max_memory_allocated() / 1024**3
+    stitched = out_dir / "demo_stitched.mp4"
+    read = read_reel(stitched)
+    if (rc != 0 or res["frames_scored"] != kept or read != n_decoded or not res["gt_spans"]
+            or done != f"stitched demo video: {stitched}"
+            or counts.get("int8_matmul", 0) < 28 * 4 * (kept // 4)
+            or (have_plot and not (out_dir / "live_scores.png").exists())):
+        raise AssertionError(f"phase10b demo: rc {rc}, {res.get('frames_scored')} frames "
+                             f"scored (expected {kept}), {read} read back of {n_decoded}, "
+                             f"launches {counts}")
+    stats.launches(counts)
+    t_build, peak_build = built[0]
+    print(f"phase10b demo --model_preset 7b --int8 --render_video --motion_skip_threshold "
+          f"{DEMO_SKIP} on a {n_decoded} s clip [{gpu}]: frames_scored {res['frames_scored']} of "
+          f"{n_decoded} decoded; the stitched MP4 read back with cv2: {read} frames; "
+          f"{t_all:.2f}s in all, the build (JAX's seed-0 init, quantised) {t_build:.2f}s with "
+          f"peak {peak_build:.2f} GiB, the stream's peak {peak_stream:.2f} GiB; ticks "
+          f"{res['ticks']}; launches int8_matmul={counts.get('int8_matmul', 0)} "
+          f"decode_attention={counts.get('decode_attention', 0)}", flush=True)
+
+
+def phase10d(gpu: str, stats: Stats, have_hf: bool):
+    """The judge at Qwen2-7B width: JAX's synthetic dense bf16 7B decoder under
+    LocalJudge's bare-decoder branch and f32 config (JAX's promotions: bf16
+    products over the bf16 tree, an f32 cache read by the cached attention's f32
+    path), a cache of JUDGE_WINDOW slots (kind "none"), the char tokenizer;
+    magqa_score_matrices and analyze_magqa over judge_examples(). Each judgement leaves the prefix cache as it was (its
+    metadata and its prefix's keys and values checked after every call); the
+    metadata's save and restore timed against a clone of the whole cache."""
+    import torch
+
+    from aha_tpu_torch.config import aha_7b
+    from aha_tpu_torch.eval import llm_judge
+    from aha_tpu_torch.models import loader
+    from aha_tpu_torch.ops import kernels
+    from aha_tpu_torch.tokenization import build_stream_tokenizer
+
+    L = 28
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tree = loader.materialize_random_params(aha_7b(), None)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    llm = tree["llm"]
+    tok = build_stream_tokenizer(None, vocab_size=152064)
+    prefix_rows, prompt_rows = judge_rows()
+    kernels.reset_launches()                          # the main path starts here
+    t0 = time.perf_counter()
+    judge = llm_judge.LocalJudge(llm, aha_7b().llm, tok, window=JUDGE_WINDOW)
+    torch.cuda.synchronize()
+    t_prefix = time.perf_counter() - t0
+    c = judge.prefix_cache
+    n = int(c.length[0])
+    meta = [t.clone() for t in (c.key_pos, c.order, c.seen, c.length)]
+    prefix_kv = (c.k[:, :, :n].clone(), c.v[:, :, :n].clone())
+    times, changed = [], 0
+
+    class Checked:
+        """The judge, with the prefix cache checked after each judgement."""
+
+        def evaluate(self, question, gold, pred):
+            nonlocal changed
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            score = judge.evaluate(question, gold, pred)
+            times.append(time.perf_counter() - t)
+            same = (all(torch.equal(a, b) for a, b in zip(
+                meta, (c.key_pos, c.order, c.seen, c.length)))
+                and torch.equal(prefix_kv[0], c.k[:, :, :n]) and torch.equal(prefix_kv[1],
+                                                                              c.v[:, :, :n]))
+            changed += not same
+            return score
+
+    preds, golds = judge_examples()
+    scored = llm_judge.magqa_score_matrices(preds, golds, Checked())
+    result = llm_judge.analyze_magqa(scored, num_examples=len(scored))
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)                   # ... and ends here
+    stats.launches(counts)
+    f32_launches = counts.get("decode_attention", 0)
+    want = L * (1 + sum(1 + 7 for _ in prompt_rows))  # prefix, each prompt and up to 7 tokens
+    if (changed or n != prefix_rows or len(times) != len(prompt_rows)
+            or c.k.dtype != torch.float32 or not f32_launches or f32_launches > want
+            or not all(1 <= s <= 5 for ex in scored for row in ex["evaluator_output"]
+                       for s in row)):
+        raise AssertionError(f"phase10d: prefix {n} rows (expected {prefix_rows}), "
+                             f"{len(times)} judgements of {len(prompt_rows)}, {changed} left "
+                             f"the prefix cache changed, launches {counts}")
+    restore = cuda_ms(lambda i: [t.clone() for t in (c.key_pos, c.order, c.seen, c.length)],
+                      iters=10)
+    whole = cuda_ms(lambda i: c.clone(), iters=3, warmup=1)
+    cache_gb = sum(t.numel() * t.element_size() for t in (c.k, c.v)) / 1e9
+    print(f"phase10d LocalJudge at Qwen2-7B width (JAX's synthetic dense bf16 decoder, f32 "
+          f"config: bf16 products, an f32 cache of {JUDGE_WINDOW} slots, kind none; char "
+          f"tokenizer) [{gpu}]: the decoder "
+          f"{t_build:.2f}s; the rubric prefix {n} rows in {t_prefix:.2f}s; {len(times)} "
+          f"judgements of {min(prompt_rows)}-{max(prompt_rows)} rows: "
+          f"{1e3 * statistics.median(times):.1f} ms a judgement (median; min "
+          f"{1e3 * min(times):.1f}, max {1e3 * max(times):.1f}); the prefix cache (metadata "
+          f"and its {n} slots' keys and values) unchanged after every call; its metadata "
+          f"saved and restored {restore:.4f} ms against {whole:.3f} ms for a clone of the "
+          f"whole {cache_gb:.2f} GB cache; analyze_magqa {json.dumps(result)}; launches "
+          f"decode_attention (f32) {f32_launches}", flush=True)
+    del judge, llm, c, prefix_kv
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not have_hf:
+        print("phase10d transformers / tokenizers do not import on this host: `evaluate --func "
+              "magqa --judge_ckpt DIR` (a Hugging Face tokenizer in DIR) is held by the CPU "
+              "test alone (tests/test_torch_judge_cli.py)", flush=True)
+        return
+    phase10d_command(gpu, stats, tree)
+
+
+def phase10d_command(gpu: str, stats: Stats, tree: dict):
+    """`evaluate --func magqa --judge_ckpt DIR` at 7B where the host has
+    transformers: DIR holds ``tree``'s decoder (JAX's synthetic dense bf16 7B)
+    in the reference's key layout (safetensors shards) and a byte-level BPE
+    tokenizer trained here; the output lines and the analysis checked for
+    form."""
+    import tempfile
+
+    import torch
+
+    from aha_tpu_torch.cli import main as cli_main
+    from aha_tpu_torch.config import aha_7b
+    from aha_tpu_torch.models import loader
+    from aha_tpu_torch.ops import kernels
+
+    cfg = aha_7b()
+    with tempfile.TemporaryDirectory() as tmp:
+        d = pathlib.Path(tmp)
+        write_judge_tokenizer(d)
+        t0 = time.perf_counter()
+        sd = {k: v for k, v in loader.export_hf_state_dict(tree, cfg).items()
+              if k.startswith(("model.layers.", "model.embed_tokens.", "model.norm.",
+                               "lm_head."))}
+        loader.save_sharded(sd, str(d))
+        (d / "config.json").write_text(json.dumps({"vocab_size": cfg.llm.vocab_size}))
+        nbytes = sum(t.numel() * t.element_size() for t in sd.values())
+        tree.clear()
+        del sd
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_write = time.perf_counter() - t0
+        preds, golds = judge_examples()
+        (d / "pred.jsonl").write_text("".join(json.dumps(p) + "\n" for p in preds))
+        (d / "gold.json").write_text(json.dumps(golds))
+        kernels.reset_launches()                      # the main path starts here
+        t0 = time.perf_counter()
+        rc, lines = _captured(cli_main, [
+            "evaluate", "--func", "magqa", "--pred_file", str(d / "pred.jsonl"), "--gold_file",
+            str(d / "gold.json"), "--judge_ckpt", str(d), "--output_file",
+            str(d / "scored.jsonl")])
+        torch.cuda.synchronize()
+        t_cmd = time.perf_counter() - t0
+        counts = dict(kernels.LAUNCHES)               # ... and ends here
+        stats.launches(counts)
+        analysis = json.loads("\n".join(lines))
+        scored = [json.loads(x) for x in (d / "scored.jsonl").read_text().splitlines()]
+        if rc != 0 or len(scored) != 3 or set(analysis) != {"in_span_score", "max_score",
+                                                            "turns", "turns_dedup", "n"}:
+            raise AssertionError(f"phase10d command: rc {rc}, {analysis}, {len(scored)} lines")
+    print(f"phase10d evaluate --func magqa --judge_ckpt DIR at 7B [{gpu}]: the decoder's "
+          f"{nbytes / 1e9:.2f} GB and a BPE tokenizer trained here written in {t_write:.2f}s; "
+          f"the command (read, convert on the card, judge) {t_cmd:.2f}s; {json.dumps(analysis)}; launches "
+          f"decode_attention {counts.get('decode_attention', 0)}", flush=True)
+
+
+def phase10e(gpu: str, seed: int, stats: Stats):
+    """The towers at 7B-int8, each from JAX's synthetic tree (int8 decoder,
+    dense tower): SigLIP with its MAP probe and CLIP-L/14-336 with its CLS token.
+    score_video over TOWER_FRAMES frames at fused 4 and fused 1, with the dense
+    tower and with the tower quantised as --vision_int8 quantises a loaded tree;
+    the tower's ms a frame both ways; fused against fused 1 within the 7B
+    fixture's atol 2e-2 + rtol 5e-2."""
+    import torch
+
+    from aha_tpu_torch.config import InferConfig
+    from aha_tpu_torch.models import aha, loader
+    from aha_tpu_torch.ops import kernels, quant
+    from aha_tpu_torch.streaming.session import build_session
+    from aha_tpu_torch.tokenization import build_stream_tokenizer
+
+    L = 28
+    for name, cfg in tower_configs().items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        tok = build_stream_tokenizer(None, frame_num_tokens=cfg.frame_num_tokens,
+                                     vocab_size=cfg.llm.vocab_size)
+        cfg = cfg.replace(v_placeholder_id=tok.v_placeholder_id, eos_token_id=tok.eos_token_id)
+        t0 = time.perf_counter()
+        params = loader.materialize_random_params(cfg, "int8")
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        q_vision = quant.quantize_params({"vision": params["vision"]},
+                                         quantize_vision=True)["vision"]
+        trees = {"dense tower": params, "--vision_int8": {**params, "vision": q_vision}}
+        gen = torch.Generator(device="cuda").manual_seed(seed + 10)
+        frames = torch.randint(0, 256, (TOWER_FRAMES, cfg.frame_resolution,
+                                        cfg.frame_resolution, 3), generator=gen, device="cuda",
+                               dtype=torch.uint8)
+        line = {}
+        for way, tree in trees.items():
+            tower_ms = cuda_ms(lambda i: aha.encode_vision_tokens(
+                tree, cfg, frames, torch.bfloat16), iters=3, warmup=1) / TOWER_FRAMES
+            scores = {}
+            kernels.reset_launches()                  # the main path starts here
+            for fused in (4, 1):
+                sess = build_session(tree, cfg, tok, InferConfig(
+                    grounding_mode=True, frame_fps=1.0, kv_cache_policy="sink",
+                    kv_window=2048, num_sink_tokens=32, fused_score_frames=fused))
+                t0 = time.perf_counter()
+                rows = sess.score_video(frames, query=QUERY)
+                torch.cuda.synchronize()
+                t_sv = time.perf_counter() - t0
+                scores[fused] = (torch.tensor([[r[k] for k in SCORE_KEYS] for r in rows],
+                                              dtype=torch.float64), t_sv)
+                del sess
+            counts = dict(kernels.LAUNCHES)           # ... and ends here
+            stats.launches(counts)
+            a, b = scores[4][0], scores[1][0]
+            gap = (a - b).abs()
+            if (a.shape != (TOWER_FRAMES, 3) or not torch.isfinite(a).all()
+                    or not (gap <= 2e-2 + 5e-2 * b.abs()).all()
+                    or counts.get("int8_matmul", 0) < L * 4 * 2 * (TOWER_FRAMES // 4)
+                    or counts.get("decode_attention", 0) < L * TOWER_FRAMES):
+                raise AssertionError(f"phase10e {name} {way}: scores {tuple(a.shape)}, fused "
+                                     f"vs fused 1 gap {gap.max().item():.3e}, launches {counts}")
+            line[way] = (f"the tower {tower_ms:.3f} ms a frame (a {TOWER_FRAMES}-frame batch, "
+                         f"CUDA events); score_video {TOWER_FRAMES} frames at fused 4 "
+                         f"{scores[4][1]:.3f}s, at fused 1 {scores[1][1]:.3f}s; scores in "
+                         f"[{a.min().item():.4f}, {a.max().item():.4f}], fused vs fused 1 "
+                         f"largest gap {gap.max().item():.3e} (atol 2e-2 + rtol 5e-2); "
+                         f"launches int8_matmul={counts.get('int8_matmul', 0)} "
+                         f"decode_attention={counts.get('decode_attention', 0)}")
+        print(f"phase10e {name} at 7B-int8 ({cfg.frame_num_tokens} tokens a frame, frames "
+              f"{cfg.frame_resolution} x {cfg.frame_resolution}) [{gpu}]: JAX's synthetic tree "
+              f"{t_build:.2f}s; " + "; ".join(f"{way}: {v}" for way, v in line.items()),
+              flush=True)
+        del params, q_vision, trees, frames
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
                     help="comma-separated phases (1 device, 2 kernels, 3 tiny slices, 4 7B "
                          "serving, 5 7B training, 6 JAX's weights, 7 multi-stream serving, 8 "
                          "the serving options: adapters, --w8a8, 9 the highlight chain: "
-                         "infer tvsum, grid-search, evaluate, highlight); "
+                         "infer tvsum, grid-search, evaluate, highlight, 10 the live-video "
+                         "datasets, demo, the interactive API, the judge, the towers); "
                          "anything short of all of them exits 1 with no result line")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -3803,8 +4548,8 @@ def main() -> int:
     if 3 in phases:
         phase3(args.seed)
         phase3_train(args.seed)
-    if phases & {4, 5, 6, 7, 8, 9}:
-        phases_4_to_9(gpu, args.seed, stats, phases)
+    if phases & {4, 5, 6, 7, 8, 9, 10}:
+        phases_4_to_10(gpu, args.seed, stats, phases)
 
     print(f"{gpu}; chip_smoke took {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": [
@@ -3814,7 +4559,7 @@ def main() -> int:
          "bound_ms": stats.k[n]["bound_ms"], "bound_by": stats.k[n]["bound_by"],
          "library_ms": stats.k[n]["library_ms"], "shape": stats.k[n]["shape"]}
         for n, (src, tpu) in KERNELS.items()]}), flush=True)
-    if phases != {1, 2, 3, 4, 5, 6, 7, 8, 9}:
+    if phases != {1, 2, 3, 4, 5, 6, 7, 8, 9, 10}:
         print(f"chip_smoke: ran phases {sorted(phases)} only", file=sys.stderr)
         return 1
     missing = [n for n in KERNELS if stats.k[n]["launches"] <= 0]

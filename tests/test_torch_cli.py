@@ -3,7 +3,7 @@ cv2 decoding and the streaming-QA dataset against JAX's on cv2-written clips,
 the driver against JAX's driver on bridged sessions, ``python -m
 aha_tpu_torch.cli infer`` end to end at the tiny preset, its serving options
 (``--w8a8``, ``--vision_int8``, ``--lora_pretrained``) against the JAX
-command, and every refusal of what is not ported."""
+command, and the dispatcher's eight commands."""
 
 import dataclasses
 import functools
@@ -30,7 +30,7 @@ from aha_tpu.streaming.session import build_session as jbuild_session
 
 from aha_tpu_torch import bridge
 from aha_tpu_torch import config as tconfig
-from aha_tpu_torch.cli import COMMANDS, NOT_PORTED, cmd_infer, main
+from aha_tpu_torch.cli import COMMANDS, cmd_infer, main
 from aha_tpu_torch.config import InferConfig
 from aha_tpu_torch.data import media, pipeline
 from aha_tpu_torch.drivers import benchmarks, eval_dataset
@@ -407,34 +407,22 @@ def test_cli_infer_runs_checkpoints_and_dense_synthetic_weights(video_dir, tmp_p
     assert all(np.isfinite(d[k]) for x in lines for d in x["debug_data"] for k in KEYS)
 
 
-@pytest.mark.parametrize("dataset", ["arl_scout", "hubble_space", "jkim_landing"])
-def test_cli_infer_refuses_the_other_datasets(video_dir, tmp_path, dataset):
-    argv = _infer_argv(video_dir, tmp_path / "x.jsonl", "--int8")
-    argv[argv.index("youcook2")] = dataset
-    with pytest.raises(NotImplementedError, match="item 7"):
-        cmd_infer(argv[1:])
-
-
-@pytest.mark.parametrize("command", sorted(NOT_PORTED))
-def test_cli_commands_not_ported_exit_2(command, capsys):
-    assert main([command, "--help"]) == 2
-    assert f"ROADMAP.md, {NOT_PORTED[command]}" in capsys.readouterr().err
-
-
 def test_cli_dispatcher():
-    """The JAX command names, six of them ported (infer, serve, train,
-    grid-search, evaluate, highlight), demo and visualize refused; an unknown
-    command exits 2."""
+    """The JAX command names, all eight ported (infer, demo, serve, train,
+    grid-search, evaluate, highlight, visualize); an unknown command exits 2.
+    The live-video datasets and demo run in tests/test_torch_live_video.py,
+    visualize in tests/test_torch_visualize.py."""
     from aha_tpu.cli import COMMANDS as JCOMMANDS
 
-    from aha_tpu_torch.cli import (cmd_evaluate, cmd_grid_search, cmd_highlight, cmd_serve,
-                                   cmd_train)
+    from aha_tpu_torch.cli import (cmd_demo, cmd_evaluate, cmd_grid_search, cmd_highlight,
+                                   cmd_serve, cmd_train, cmd_visualize)
 
     assert set(COMMANDS) == set(JCOMMANDS) and COMMANDS["infer"] is cmd_infer
     ported = {"serve": cmd_serve, "train": cmd_train, "grid-search": cmd_grid_search,
-              "evaluate": cmd_evaluate, "highlight": cmd_highlight}
+              "evaluate": cmd_evaluate, "highlight": cmd_highlight, "demo": cmd_demo,
+              "visualize": cmd_visualize}
     assert all(COMMANDS[name] is cmd for name, cmd in ported.items())
-    assert set(NOT_PORTED) == {"demo", "visualize"} == set(COMMANDS) - set(ported) - {"infer"}
+    assert set(COMMANDS) - set(ported) == {"infer"}
     assert main(["nonsense"]) == 2 and main([]) == 0
 
 

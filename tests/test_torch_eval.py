@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from aha_tpu.cli import evaluate as jcli
+from aha_tpu.cli import infer as jinfer
 from aha_tpu.eval import captioning as jcaptioning
 from aha_tpu.eval import grid_search as jgrid
 from aha_tpu.eval import grounding as jgrounding
@@ -31,6 +32,7 @@ from aha_tpu.eval import tvsum as jtvsum
 from aha_tpu.ops import signal as jsignal
 
 from aha_tpu_torch.cli import evaluate as tcli
+from aha_tpu_torch.cli import infer as tinfer
 from aha_tpu_torch.cli import main
 from aha_tpu_torch.eval import captioning, grid_search, grounding, highlight, hisum, qvh, scoring
 from aha_tpu_torch.eval import soda, tvsum
@@ -853,21 +855,24 @@ def test_cmd_highlight_matches_jax(pred_files, tmp_path, capsys):
 
 
 def test_cmd_evaluate_magqa_and_refusals(pred_files, capsys):
-    """magqa without a judge prints JAX's message and writes nothing; with a
-    judge it exits 2 naming ROADMAP item 11, as ``visualize`` does; ``demo``
-    names item 7."""
+    """magqa without a judge prints JAX's message and writes nothing (the
+    judge itself: tests/test_torch_judge_cli.py); ``visualize --func
+    tvsum_sota`` without a metrics file and ``demo`` without a video are
+    refused by their flags as JAX's are (argparse, exit 2)."""
     argv = ["--func", "magqa", "--pred_file", str(pred_files / "grounding.jsonl"),
             "--gold_file", str(pred_files / "charades_gold.json")]
     tcli.cmd_evaluate(argv)
     got = capsys.readouterr().out
     jcli.cmd_evaluate(argv)
     assert got == capsys.readouterr().out and "--judge_ckpt" in got
-    assert main(["evaluate", *argv, "--judge_ckpt", str(pred_files)]) == 2
-    assert "ROADMAP.md, Queue 1 item 11" in capsys.readouterr().err
-    assert main(["visualize", "--func", "tvsum_sota"]) == 2
-    assert "ROADMAP.md, Queue 1 item 11" in capsys.readouterr().err
-    assert main(["demo", "--video", "x", "--query", "y"]) == 2
-    assert "ROADMAP.md, Queue 1 item 7" in capsys.readouterr().err
+    for port, jax_, bad in ((tcli.cmd_visualize, jcli.cmd_visualize, ["--func", "tvsum_sota"]),
+                            (tinfer.cmd_demo, jinfer.cmd_demo, ["--query", "y"])):
+        errs = []
+        for cmd in (port, jax_):
+            with pytest.raises(SystemExit) as e:
+                cmd(bad)
+            errs.append((e.value.code, capsys.readouterr().err.splitlines()[-1]))
+        assert errs[0] == errs[1] and errs[0][0] == 2
 
 
 # -- the offline baseline ---------------------------------------------------------------------

@@ -95,13 +95,15 @@ def jax_leaves(cfg, mode):
     return out
 
 
-@pytest.mark.parametrize("preset", ["tiny", "7b", "tiny-cls"])
+@pytest.mark.parametrize("preset", ["tiny", "7b", "tiny-cls", "tiny-clip"])
 @pytest.mark.parametrize("mode", [None, "int8", "int4"])
 def test_leaf_specs_match_eval_shape(preset, mode):
     """Path, shape and dtype of every leaf, in JAX's drawing order: one leaf
-    out of place would shift every later key."""
+    out of place would shift every later key. Both towers: SigLIP with and
+    without its probe head, and CLIP."""
     cfg = {"tiny": jconfig.aha_tiny(), "7b": jconfig.aha_7b(),
-           "tiny-cls": jconfig.aha_tiny().replace(frame_token_cls=True)}[preset]
+           "tiny-cls": jconfig.aha_tiny().replace(frame_token_cls=True),
+           "tiny-clip": jconfig.aha_tiny().replace(vision=jconfig.clip_tiny())}[preset]
     got = [(p, s, str(d).removeprefix("torch.")) for p, s, d in
            loader.leaf_specs(port_cfg(cfg), mode)]
     assert got == jax_leaves(cfg, mode)
@@ -144,8 +146,6 @@ def test_materialize_refuses():
     cfg = tconfig.aha_tiny()
     with pytest.raises(ValueError, match="mode"):
         loader.materialize_random_params(cfg, "int2", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        loader.leaf_specs(cfg.replace(vision=dataclasses.replace(cfg.vision, arch="clip")))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no GPU"):
             loader.materialize_random_params(cfg, "int8")
