@@ -35,9 +35,11 @@ def main(argv=None) -> int:
     if cmd not in COMMANDS:
         print(f"unknown command {cmd}; available: {', '.join(COMMANDS)}", file=sys.stderr)
         return 2
+    from ..parallel.mesh import RanksError
+
     try:
         COMMANDS[cmd](argv[1:])
-    except NotImplementedError as e:          # a command or an option not ported yet
+    except (NotImplementedError, RanksError) as e:   # an option not ported; a mesh too big
         print(f"aha_tpu_torch: {e}", file=sys.stderr)
         return 2
     return 0

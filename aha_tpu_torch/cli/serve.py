@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 
@@ -66,8 +67,20 @@ def _add_serve_flags(p: argparse.ArgumentParser):
     p.add_argument("--retire_defer", type=int, default=1,
                    help="return to the host once this many streams have ended (1 = refill "
                         "slots at once)")
-    p.add_argument("--mesh_data", type=int, default=1, help="not ported yet")
-    p.add_argument("--mesh_model", type=int, default=1, help="not ported yet")
+    p.add_argument("--mesh_data", type=int, default=1,
+                   help="shard the slot batch over this many ranks (torchrun --nproc_per_node)")
+    p.add_argument("--mesh_model", type=int, default=1,
+                   help="tensor-parallel ranks (7 q / 1 kv head a rank at --mesh_model 4)")
+
+
+def _agreed(ready: bool, mesh) -> bool:
+    """True on every rank when ``ready`` holds on all of them (one rank alone:
+    ``ready``)."""
+    if mesh is None:
+        return ready
+    from ..utils.dist import agreed_flag
+
+    return agreed_flag(int(ready), "min")
 
 
 def cmd_serve(argv):
@@ -94,13 +107,18 @@ def cmd_serve(argv):
     _add_serve_flags(p)
     args = p.parse_args(argv)
     args.grounding_mode = False
+    mesh = None
     if args.mesh_data * args.mesh_model > 1:
-        raise NotImplementedError("--mesh_data / --mesh_model > 1 (sharded serving) are not "
-                                  "ported to aha_tpu_torch yet (ROADMAP.md, Queue 1 item 12)")
+        from ..parallel.mesh import make_mesh
+        from ..utils.dist import maybe_init_distributed
+
+        maybe_init_distributed(args.device)
+        mesh = make_mesh(args.mesh_data, args.mesh_model)   # the world must be the mesh
+    main_rank = mesh is None or mesh.rank == 0
 
     params, cfg, tokenizer, infer_cfg, kw = _build_parts(args)
     server = MultiStreamServer(params, cfg, tokenizer, infer_cfg, batch=args.batch,
-                               max_frames=args.max_frames, device=args.device, **kw)
+                               max_frames=args.max_frames, device=args.device, mesh=mesh, **kw)
     res = cfg.frame_resolution
 
     class RequestError(Exception):
@@ -125,7 +143,9 @@ def cmd_serve(argv):
         return key, frames, req.get("conversation", []), opts
 
     src = sys.stdin if args.input == "-" else open(args.input)
-    out = sys.stdout if args.output == "-" else open(args.output, "w")
+    # every rank serves every request; rank 0 alone writes the results
+    out = (open(os.devnull, "w") if not main_rank else
+           sys.stdout if args.output == "-" else open(args.output, "w"))
     pool = ThreadPoolExecutor(max_workers=args.decode_workers)
     pending: _queue.Queue = _queue.Queue()
     # at most 2 x workers requests decoded ahead: a long backlog cannot fill the
@@ -153,15 +173,17 @@ def cmd_serve(argv):
         while True:
             if cur is None:
                 try:
-                    cur = pending.get_nowait()
+                    # on a mesh the ranks admit a request at the same pull: wait
+                    # for the next future, then agree on whether it is decoded
+                    cur = pending.get() if mesh is not None else pending.get_nowait()
                 except _queue.Empty:
                     yield None
                     continue
-            if cur is DONE:
-                return
-            if not cur.done():
+            if not _agreed(cur is DONE or cur.done(), mesh):
                 yield None
                 continue
+            if cur is DONE:
+                return
             fut, cur = cur, None
             depth.release()
             try:
@@ -188,6 +210,8 @@ def cmd_serve(argv):
             out.close()
         if src is not sys.stdin:
             src.close()
+    if not main_rank:
+        return
     print(f"served {n} streams", file=sys.stderr)
     if stats is not None:
         print("phase split: " + json.dumps(

@@ -11,8 +11,10 @@ projector and the lm_head kept dense; the decoder's q/k/v and gate/up then
 merged, as the port's kernels take them), the mixture, ``--num_steps`` or
 ``--num_epochs``, the prefetching batch iterator and ``train()``. The export
 is ``adapter.pt`` beside ``metrics.jsonl`` and ``checkpoints/`` (JAX writes an
-orbax directory; orbax is not ported). One card: a data axis other than -1 or
-1, a model or pipeline axis over 1 and ``--wandb`` exit 2.
+orbax directory; orbax is not ported). The mesh flags run under a world of the
+mesh's size (``torchrun --nproc_per_node N -m aha_tpu_torch.cli train
+--mesh_*``; the process group comes up first, from torchrun's environment);
+a mesh larger than the world, and ``--wandb``, exit 2.
 """
 
 from __future__ import annotations
@@ -72,11 +74,6 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    if args.mesh_data not in (-1, 1) or args.mesh_model > 1 or args.mesh_pipe > 1:
-        raise NotImplementedError(
-            f"train --mesh_data {args.mesh_data} --mesh_model {args.mesh_model} --mesh_pipe "
-            f"{args.mesh_pipe} (--pipe_microbatches {args.pipe_microbatches}): the port "
-            "trains on one card; sharding is ROADMAP.md, Queue 1 item 12")
     if args.wandb:
         raise NotImplementedError("train --wandb: not ported (ROADMAP.md, 'Do not port': no "
                                   "network); metrics.jsonl holds every logged step")
@@ -86,6 +83,9 @@ def cmd_train(argv):
     """Parse the flags, build the weights and the mixture, run ``train()``;
     returns the final ``TrainState``."""
     import torch
+
+    from ..parallel import mesh as mesh_lib
+    from ..utils import dist as dist_utils
 
     from ..config import TrainConfig, aha_7b, aha_tiny
     from ..data.datasets import build_mixture_from_config
@@ -99,7 +99,13 @@ def cmd_train(argv):
 
     p = _parser()
     args = p.parse_args(argv)
+    # the process group first: torchrun's environment says whether there is one
+    dist_utils.maybe_init_distributed(args.device)
     _refuse_unported(args)
+    n_proc = dist_utils.process_count()
+    mesh = None
+    if n_proc > 1 or args.mesh_data not in (-1, 1) or args.mesh_model > 1 or args.mesh_pipe > 1:
+        mesh = mesh_lib.make_mesh(args.mesh_data, args.mesh_model, args.mesh_pipe)
     if args.num_steps is None and args.num_epochs is None:
         p.error("one of --num_steps / --num_epochs is required")
     train_cfg = TrainConfig(
@@ -114,6 +120,10 @@ def cmd_train(argv):
         resume_from_checkpoint=args.resume_from_checkpoint,
         seed=args.seed,
         remat_policy=args.remat_policy,
+        mesh_data=args.mesh_data,
+        mesh_model=args.mesh_model,
+        mesh_pipe=args.mesh_pipe,
+        pipe_microbatches=args.pipe_microbatches,
     )
 
     cfg = aha_tiny() if args.model_preset == "tiny" else aha_7b()
@@ -149,11 +159,21 @@ def cmd_train(argv):
     num_steps = args.num_steps
     if num_steps is None:
         num_steps = train_cfg.num_epochs * max(len(dataset) // train_cfg.batch_size, 1)
+    # one process a rank: when the data axis splits cleanly across the
+    # processes each decodes only its own rows (batch_size / n local), else
+    # every process decodes the whole batch and the step takes its rows
+    per_host = (n_proc > 1 and train_cfg.batch_size % n_proc == 0
+                and mesh_lib.data_axis_spans_processes(mesh) and not train_cfg.ring_attention)
+    loader_bs = train_cfg.batch_size // n_proc if per_host else train_cfg.batch_size
+    if n_proc > 1 and not per_host:
+        print(f"multi-host replicated loading: batch {train_cfg.batch_size} or mesh layout "
+              f"not splittable over {n_proc} processes — every host decodes the full batch")
     # host decode on a thread pool, collated batches prefetched ahead of the step
-    batches = batch_iterator(dataset, tokenizer, batch_size=train_cfg.batch_size,
+    batches = batch_iterator(dataset, tokenizer, batch_size=loader_bs,
                              v_placeholder_id=cfg.v_placeholder_id,
                              frame_num_tokens=cfg.frame_num_tokens, seed=train_cfg.seed,
                              prefetch=args.prefetch_batches, num_workers=args.decode_workers,
-                             shard_across_hosts=False)
+                             shard_across_hosts=per_host)
     return train(cfg, train_cfg, params, batches, total_steps=num_steps, lora_init=lora_init,
-                 device=args.device)
+                 device=args.device, device_mesh=mesh, per_host_batches=per_host,
+                 pad_token_id=tokenizer.pad_token_id)

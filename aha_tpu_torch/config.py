@@ -5,9 +5,8 @@ The port's own copy of what it reads from ``aha_tpu/config.py`` (names,
 fields and defaults kept, so a config of one package converts to the other
 field by field): ``QwenConfig``, ``SiglipConfig``, ``AhaConfig`` with the
 ``aha_7b`` / ``aha_tiny`` presets, ``InferConfig``, and the training flags
-``LossWeights``, ``LoraConfig`` and ``TrainConfig`` (without the mesh, ring
-and pipeline fields: the port trains on one card; ROADMAP.md, Queue 1 item
-12; and without ``vision_pretrained``, ``frame_fps``, ``frame_resolution``
+``LossWeights``, ``LoraConfig`` and ``TrainConfig`` (with its mesh, ring and
+pipeline fields; without ``vision_pretrained``, ``frame_fps``, ``frame_resolution``
 and ``max_num_frames``, which nothing reads: the mixture's entries carry
 their rate and frame count, the model config its frame size), with the CLIP
 presets ``clip_large_336`` / ``clip_tiny``. The JSON helpers are not
@@ -218,6 +217,18 @@ class TrainConfig:
 
     lora: LoraConfig = field(default_factory=LoraConfig)
     loss_weights: LossWeights = field(default_factory=LossWeights)
+
+    # mesh shape: data (fsdp) x model (tensor) x pipe (pipeline stage) axes
+    mesh_data: int = -1   # -1: all remaining ranks
+    mesh_model: int = 1
+    mesh_pipe: int = 1    # >1: GPipe over the decoder stack (parallel/pipeline.py)
+    pipe_microbatches: int = 2  # GPipe microbatches per step (divides batch)
+
+    # sequence-parallel ring attention: when on, batches whose padded length
+    # reaches ring_min_seq run the decoder sequence-sharded over the data axis
+    # (parallel/ring_attention.py)
+    ring_attention: bool = False
+    ring_min_seq: int = 2048
 
     # activation rematerialization of the decoder trunk
     # (models/qwen2.forward_hidden): "full" recomputes every layer's forward

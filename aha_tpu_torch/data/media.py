@@ -8,9 +8,10 @@ imports nothing of that package): ``round_time_by_fps`` /
 ``decode_video`` (with the corruption applied during the decode),
 ``motion_mask`` (the live-video demo's frame skip), ``load_frame_folder``,
 ``write_video``, ``reencode_video``, ``probe_video`` and ``scan_metadata``.
-Not carried: the native libav decoder (``aha_tpu/native``; JAX falls back to
-the same cv2 path where it is not built). cv2 is imported where it is used,
-so importing this module needs no cv2.
+``decode_video`` takes the native libav decoder (``aha_tpu_torch/native``)
+where it is built, as JAX's does, and cv2 otherwise and for the corruption
+path. cv2 is imported where it is used, so importing this module needs no
+cv2.
 """
 
 from __future__ import annotations
@@ -126,7 +127,20 @@ def decode_video(path: str, *, output_fps: float, output_size: int = 384,
     ``max_frames``). ``dropout_intervals`` [(start s, end s, type)], sorted:
     a frame whose source time lies in one is corrupted by
     ``dropout_simulation`` (with ``rng``) before the letterbox. Returns
-    (frames [T, S, S, 3] uint8 RGB, the source index of each output frame)."""
+    (frames [T, S, S, 3] uint8 RGB, the source index of each output frame).
+    Without ``dropout_intervals`` the native libav decoder runs where it is
+    built (``aha_tpu_torch.native``: the same frame selection and letterbox);
+    its failure falls back to cv2."""
+    if dropout_intervals is None:
+        try:
+            from .. import native
+
+            if native.available():
+                return native.decode_video_native(path, output_fps=output_fps,
+                                                  output_size=output_size,
+                                                  max_frames=max_frames)
+        except Exception:
+            pass  # fall through to cv2
     import cv2
 
     cap = cv2.VideoCapture(path)

@@ -5,9 +5,9 @@
     (the eval drivers' dataset loops);
   * ``batch_iterator``: seeded shuffled epochs -> collated batches, the
     examples decoded by a thread pool (cv2 releases the interpreter lock)
-    and prefetched ahead of the train step. One process: JAX's split of the
-    order across hosts belongs to ROADMAP.md Queue 1 item 12, and
-    ``shard_across_hosts`` does nothing at one process, as in JAX;
+    and prefetched ahead of the train step; ``shard_across_hosts`` splits each
+    epoch's order across the processes (truncated to the shortest share), as
+    JAX's does, and does nothing at one process;
   * ``extract_features``: videos pre-encoded to [T, F, H] ``.npy`` embeds
     by an engine's ``encode_frames`` (the port's ``visual_embed``);
   * ``FeatureSource``: a dataset's frame loader over those files.
@@ -78,8 +78,12 @@ def batch_iterator(dataset, tokenizer, *, batch_size: int, v_placeholder_id: int
     consumer. Each epoch is a ``random.Random(seed)`` shuffle of the dataset's
     indices cut into full batches (the remainder dropped); the examples of a
     batch are fetched by a pool of ``num_workers`` threads. Endless unless
-    ``num_epochs`` is given. ``shard_across_hosts`` is kept for the signature
-    of JAX's iterator: with one process there is nothing to split."""
+    ``num_epochs`` is given. ``shard_across_hosts`` with several processes: each
+    takes every n-th index of the epoch's order (``utils.dist.shard_iterable``),
+    all of them as many as the shortest share, so that every process yields as
+    many batches and none waits in a collective the others never reach."""
+    from ..utils import dist
+
     rng = random.Random(seed)
 
     def index_stream():
@@ -87,6 +91,9 @@ def batch_iterator(dataset, tokenizer, *, batch_size: int, v_placeholder_id: int
         while num_epochs is None or epoch < num_epochs:
             order = list(range(len(dataset)))
             rng.shuffle(order)
+            if shard_across_hosts and dist.process_count() > 1:
+                order = list(dist.shard_iterable(order))
+                order = order[: len(dataset) // dist.process_count()]
             for i in range(0, len(order) - batch_size + 1, batch_size):
                 yield order[i : i + batch_size]
             epoch += 1
@@ -130,14 +137,15 @@ def extract_features(video_paths: list[str], engine, output_dir: str, *, output_
                      shard: bool = True) -> list[str]:
     """Each video's frames encoded by ``engine.encode_frames`` (``visual_embed``
     a vision batch at a time) and saved as f32 [T, F, H] ``<name>.npy`` under
-    ``output_dir``; a file already there is kept. One process: ``shard`` (JAX's
-    split across hosts) has nothing to split. Returns the files written or
-    found; a video with no frame writes none."""
+    ``output_dir``; a file already there is kept. ``shard``: each process
+    encodes every n-th video (``utils.dist.shard_iterable``). Returns the files
+    written or found; a video with no frame writes none."""
+    from ..utils import dist
     from . import media
 
     os.makedirs(output_dir, exist_ok=True)
     written = []
-    for path in video_paths:
+    for path in (list(dist.shard_iterable(video_paths)) if shard else video_paths):
         name = os.path.splitext(os.path.basename(path))[0]
         out_path = os.path.join(output_dir, f"{name}.npy")
         if os.path.exists(out_path):

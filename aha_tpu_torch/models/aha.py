@@ -21,7 +21,6 @@ import torch.nn.functional as F
 from ..config import AhaConfig
 from ..ops.pooling import pool_patch_tokens
 from ..ops.preprocess import device_letterbox
-from ..ops.quant import linear
 from . import clip, qwen2, siglip
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -32,30 +31,31 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def project_features(params: dict, feats: torch.Tensor,
-                     backend: str = "fused") -> torch.Tensor:
-    """llava mlp2x_gelu projector: Linear -> exact GELU (f32) -> Linear."""
+                     backend: str = "fused", sh=None) -> torch.Tensor:
+    """llava mlp2x_gelu projector: Linear -> exact GELU (f32) -> Linear.
+    ``sh``: the whole tree's specs on a mesh (fc1 column-, fc2 row-parallel)."""
     p = params["projector"]
-    x = linear(feats, p["fc1"], backend)
-    x = F.gelu(x.float()).to(feats.dtype)
-    return linear(x, p["fc2"], backend)
+    return siglip.mlp(feats, p, lambda y: F.gelu(y.float()).to(feats.dtype), backend,
+                      None if sh is None else sh.sub("projector"))
 
 
 def encode_vision_tokens(params: dict, cfg: AhaConfig, frames: torch.Tensor,
-                         dtype: torch.dtype, backend: str = "fused") -> torch.Tensor:
+                         dtype: torch.dtype, backend: str = "fused", sh=None) -> torch.Tensor:
     """frames [N, H, W, 3] of any size -> pooled features [N, F, Hv], the CLS
     token first where ``frame_token_cls`` (F = ``cfg.frame_num_tokens``):
     CLIP's own CLS token, or SigLIP's MAP probe over its patches (the tree
     must carry ``vision/head``). ``backend``: the kernels of a quantised
-    tower's products."""
+    tower's products. ``sh``: the whole tree's specs on a mesh."""
+    vsh = None if sh is None else sh.sub("vision")
     if tuple(frames.shape[1:3]) != (cfg.frame_resolution, cfg.frame_resolution):
         frames = device_letterbox(frames, cfg.frame_resolution)
     if cfg.vision.arch == "clip":
         pixels = clip.preprocess_frames(frames, dtype)
-        tokens = clip.forward(params["vision"], cfg.vision, pixels, backend)   # [N, 1+P, Hv]
+        tokens = clip.forward(params["vision"], cfg.vision, pixels, backend, vsh)  # [N, 1+P, Hv]
         cls_tok, spatial = tokens[:, :1], tokens[:, 1:]
     else:
         pixels = siglip.preprocess_frames(frames, dtype)
-        spatial = siglip.forward(params["vision"], cfg.vision, pixels, backend)
+        spatial = siglip.forward(params["vision"], cfg.vision, pixels, backend, vsh)
         cls_tok = None
         if cfg.frame_token_cls:
             head = params["vision"].get("head")
@@ -63,6 +63,8 @@ def encode_vision_tokens(params: dict, cfg: AhaConfig, frames: torch.Tensor,
                 raise ValueError("frame_token_cls with the SigLIP tower needs the MAP probe "
                                  "head's params (vision/head: vision.use_head at init, or a "
                                  "checkpoint carrying vision_model.head.*)")
+            if vsh is not None:          # the probe head is small: read whole
+                head = _whole(head, vsh.sub("head"))
             cls_tok = siglip.attention_pool(head, cfg.vision, spatial, backend)[:, None]
     feats = pool_patch_tokens(spatial, cfg.vision.grid_size, cfg.frame_token_pooled,
                               cfg.pooling_mode)
@@ -71,16 +73,22 @@ def encode_vision_tokens(params: dict, cfg: AhaConfig, frames: torch.Tensor,
     return feats
 
 
+def _whole(tree, sh):
+    if isinstance(tree, dict):
+        return {k: _whole(v, sh.sub(k)) for k, v in tree.items()}
+    return sh.whole(tree, sh.specs)
+
+
 def visual_embed(params: dict, cfg: AhaConfig, frames: torch.Tensor,
-                 backend: str = "fused") -> torch.Tensor:
+                 backend: str = "fused", sh=None) -> torch.Tensor:
     """frames [N, H, W, 3] (uint8 or float pixels) -> [N, F, H_llm]. The
     tower runs in the dtype of a dense projector kernel (f32 behind a peft
     artifact's projector, as in JAX), else in ``cfg.dtype``; ``backend``
     serves the tower's quantised products and the projector's."""
     k = params["projector"]["fc1"]["kernel"]
     dtype = torch_dtype(cfg.dtype) if isinstance(k, dict) else k.dtype
-    feats = encode_vision_tokens(params, cfg, frames, dtype, backend)
-    return project_features(params, feats, backend)
+    feats = encode_vision_tokens(params, cfg, frames, dtype, backend, sh)
+    return project_features(params, feats, backend, sh)
 
 
 def scores_from_hidden(params: dict, hidden_last: torch.Tensor) -> torch.Tensor:
@@ -107,12 +115,12 @@ class AhaOutputs:
 
 
 def joint_embed(params: dict, cfg: AhaConfig, input_ids: torch.Tensor,
-                frame_embeds: torch.Tensor | None) -> torch.Tensor:
+                frame_embeds: torch.Tensor | None, sh=None) -> torch.Tensor:
     """Token embeddings [B, T, H] with the projected frame tokens
     ``frame_embeds`` [N, H] at the ``<image>`` placeholder positions: the k-th
     placeholder (row-major over the batch) takes frame token k."""
     embeds = qwen2.embed_tokens(params["llm"], input_ids.clamp(0, cfg.llm.vocab_size - 1),
-                                torch_dtype(cfg.dtype))
+                                torch_dtype(cfg.dtype), None if sh is None else sh.sub("llm"))
     if frame_embeds is None:
         return embeds
     B, T = input_ids.shape
@@ -123,7 +131,7 @@ def joint_embed(params: dict, cfg: AhaConfig, input_ids: torch.Tensor,
 
 
 def apply_heads(params: dict, cfg: AhaConfig, hidden: torch.Tensor,
-                backend: str = "fused") -> AhaOutputs:
+                backend: str = "fused", sh=None) -> AhaOutputs:
     hf = hidden.float()
     if cfg.video_head_stop_grad:
         # ablation: the video losses train the head kernels only, never the trunk
@@ -132,7 +140,8 @@ def apply_heads(params: dict, cfg: AhaConfig, hidden: torch.Tensor,
     rel = hf @ heads["relevance"]["kernel"].float()
     unc = hf @ heads["uncertainty"]["kernel"].float()
     return AhaOutputs(
-        logits=qwen2.lm_logits(params["llm"], cfg.llm, hidden, backend).float(),
+        logits=qwen2.lm_logits(params["llm"], cfg.llm, hidden, backend,
+                               None if sh is None else sh.sub("llm")).float(),
         informative_logits=hf @ heads["informative"]["kernel"].float(),
         relevance=torch.sigmoid(rel[..., 0]),
         log_variance=unc[..., 0],
@@ -144,32 +153,47 @@ def forward_train(params: dict, cfg: AhaConfig, input_ids: torch.Tensor,
                   frame_embeds: torch.Tensor | None = None, lora: dict | None = None,
                   lora_scale: float = 0.0, remat: bool | str = True,
                   lora_dropout: float = 0.0, dropout_seed: int | None = None,
-                  backend: str = "fused") -> AhaOutputs:
+                  backend: str = "fused", sh=None, lora_sh=None, ring=None,
+                  pipe=None) -> AhaOutputs:
     """The full-sequence forward of training and offline evaluation.
     ``frames`` [N, H, W, 3] are encoded here (the frozen tower without a
     graph, the projector with one); ``frame_embeds`` [N, F, H] or [N * F, H]
     are projected features extracted beforehand. Pass one or neither. In a
     left-padded batch (``attn_mask`` [B, T] bool) positions start at 0 on a
-    row's first real token."""
+    row's first real token.
+
+    On a mesh: ``sh`` / ``lora_sh`` (``parallel.sharded.Shard`` of the tree's
+    and the adapters' specs, ``sh.rows`` where the batch holds the rank's
+    rows), ``ring`` = (mesh, axis): the batch holds every row and each rank
+    runs its stretch of the tokens (``sh.seq``), whose outputs are returned;
+    ``pipe`` = (mesh, axis, n_micro): GPipe stages (``qwen2.forward_hidden``)."""
     if frames is not None:
         if frame_embeds is not None:
             raise ValueError("pass frames or frame_embeds, not both")
         k = params["projector"]["fc1"]["kernel"]
         dtype = torch_dtype(cfg.dtype) if isinstance(k, dict) else k.dtype
         with torch.no_grad():
-            feats = encode_vision_tokens(params, cfg, frames, dtype, backend)
-        frame_embeds = project_features(params, feats, backend)
+            feats = encode_vision_tokens(params, cfg, frames, dtype, backend, sh)
+        frame_embeds = project_features(params, feats, backend, sh)
     if frame_embeds is not None:
         frame_embeds = frame_embeds.reshape(-1, frame_embeds.shape[-1])
-    embeds = joint_embed(params, cfg, input_ids, frame_embeds)
+    embeds = joint_embed(params, cfg, input_ids, frame_embeds, sh)
     positions = None
     if attn_mask is not None:
         positions = (torch.cumsum(attn_mask.int(), dim=1) - 1).clamp(min=0)
+    if ring is not None:
+        t0, T = sh.seq
+        t1 = t0 + T // sh.mesh.shape[ring[1]]
+        if positions is None:
+            positions = torch.arange(T, device=embeds.device)[None].expand(embeds.shape[0], T)
+        embeds, positions = embeds[:, t0:t1], positions[:, t0:t1]
+        attn_mask = None if attn_mask is None else attn_mask[:, t0:t1]
     hidden = qwen2.forward_hidden(
         params["llm"], cfg.llm, embeds, attn_mask=attn_mask, positions=positions, lora=lora,
         lora_scale=lora_scale, remat=remat, lora_dropout=lora_dropout,
-        dropout_seed=dropout_seed, backend=backend)
-    return apply_heads(params, cfg, hidden, backend)
+        dropout_seed=dropout_seed, backend=backend,
+        sh=None if sh is None else sh.sub("llm"), lora_sh=lora_sh, ring=ring, pipe=pipe)
+    return apply_heads(params, cfg, hidden, backend, sh)
 
 
 def random_params(cfg: AhaConfig, *, mode: str = "int8", keep_dense: tuple[str, ...] = (),

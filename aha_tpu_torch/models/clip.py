@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from ..config import SiglipConfig
 from ..ops.quant import linear
 from . import jax_random, layer_view
-from .siglip import _mha, layer_norm
+from .siglip import _mha, layer_norm, mlp
 
 # transformers.utils.constants OPENAI_CLIP_MEAN / OPENAI_CLIP_STD
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
@@ -76,25 +76,26 @@ def _quick_gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def forward(params: dict, cfg: SiglipConfig, pixels: torch.Tensor,
-            backend: str = "fused") -> torch.Tensor:
+            backend: str = "fused", sh=None) -> torch.Tensor:
     """Normalised pixels [N, H, W, 3] -> tokens [N, 1 + num_patches, H], CLS
     first and not post-layernormed (HF's last_hidden_state, which the
     reference slices). ``backend``: the kernels of a quantised tower's
-    products (``ops.quant.BACKENDS``)."""
+    products (``ops.quant.BACKENDS``). ``sh``: the tower's specs on a mesh."""
     x = F.conv2d(pixels.permute(0, 3, 1, 2), params["patch_embed"]["kernel"].to(pixels.dtype),
                  stride=cfg.patch_size)                       # [N, H, gh, gw]
     N = x.shape[0]
     x = x.permute(0, 2, 3, 1).reshape(N, cfg.num_patches, cfg.hidden_size)
     cls_tok = params["cls_embed"].to(x.dtype).expand(N, 1, cfg.hidden_size)
-    x = torch.cat([cls_tok, x], dim=1) + params["pos_embed"].to(x.dtype)
+    pos = params["pos_embed"] if sh is None else sh.whole(params["pos_embed"],
+                                                          sh.specs["pos_embed"])
+    x = torch.cat([cls_tok, x], dim=1) + pos.to(x.dtype)
     x = layer_norm(x, params["pre_ln"], cfg.layer_norm_eps)
     lyr = params["layers"]
+    lsh = None if sh is None else sh.sub("layers").layer()
     for i in range(cfg.num_layers):
         lp = layer_view(lyr, i)
         h = layer_norm(x, lp["ln1"], cfg.layer_norm_eps)
-        x = x + _mha(h, lp, cfg.num_heads, backend)
+        x = x + _mha(h, lp, cfg.num_heads, backend, lsh)
         h = layer_norm(x, lp["ln2"], cfg.layer_norm_eps)
-        h = _quick_gelu(linear(h, lp["fc1"], backend))
-        x = x + linear(h, lp["fc2"], backend)
+        x = x + mlp(h, lp, _quick_gelu, backend, lsh)
     return x
-

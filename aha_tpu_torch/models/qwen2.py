@@ -31,6 +31,7 @@ from ..ops.attention import (cached_attention, causal_attention, chunk_tables,
 from ..ops.kv_cache import CachePolicy, KVCache, advance, plan_update, write_layer
 from ..ops.quant import embed_rows, linear
 from ..ops.rope import apply_rope, rope_cos_sin
+from ..parallel.sharded import row_slice
 from . import layer_view
 from .remat import POLICIES as DOTS_POLICIES
 from .remat import ProductStash
@@ -73,33 +74,67 @@ class LayerAdapters:
     that is advanced: ``torch.utils.checkpoint`` replays a layer's forward in
     the backward, and only a generator rebuilt from the same seed gives the
     replay the same mask. The masks match the TPU package's in distribution,
-    not bit for bit."""
+    not bit for bit.
+
+    ``sh`` (a ``parallel.sharded.Shard`` of the layer's adapter specs): the
+    pairs are this rank's blocks, gathered over ``data`` at use; ``delta``'s
+    ``mode`` says how the base product is split over ``model`` ("col": its
+    output columns, "row": its input, whose partial low-rank products are
+    all-reduced). A dropout mask is drawn on the global shape (every row,
+    token and input column of the batch) and the rank's part taken, so that
+    every shard and microbatch drops what the one-rank step drops there."""
 
     def __init__(self, lora: dict, layer: int, scale: float, dropout: float = 0.0,
-                 seed: int | None = None, stash: ProductStash | None = None):
+                 seed: int | None = None, stash: ProductStash | None = None, sh=None,
+                 layer_id: int | None = None):
         self.pairs = layer_view(lora, layer)
         self.order = {name: i for i, name in enumerate(sorted(lora))}
-        self.layer, self.scale = layer, scale
+        self.layer, self.scale = layer if layer_id is None else layer_id, scale
         self.dropout = dropout if seed is not None else 0.0
         self.seed = seed
         self.stash = stash      # remat "dots": the two low-rank products are kept
+        self.sh = sh
 
-    def delta(self, name: str, x: torch.Tensor):
+    def _mask(self, name: str, x: torch.Tensor, mode) -> torch.Tensor:
+        keep = 1.0 - self.dropout
+        gen = torch.Generator(device=x.device)
+        gen.manual_seed(site_seed(self.seed, self.order[name], self.layer))
+        sh = self.sh
+        if sh is None:
+            return torch.rand(x.shape, generator=gen, device=x.device) < keep
+        B, T, K = x.shape
+        (r0, Bg), (t0, Tg) = sh.rows or (0, B), sh.seq or (0, T)
+        Kg, k0 = (K * sh.M, sh.mi * K) if mode == "row" else (K, 0)
+        full = torch.rand((Bg, Tg, Kg), generator=gen, device=x.device)
+        return full[r0:r0 + B, t0:t0 + T, k0:k0 + K] < keep
+
+    def delta(self, name: str, x: torch.Tensor, mode=None):
         ab = self.pairs.get(name)
         if ab is None:
             return 0.0
         if self.dropout > 0.0:
             keep = 1.0 - self.dropout
-            gen = torch.Generator(device=x.device)
-            gen.manual_seed(site_seed(self.seed, self.order[name], self.layer))
-            mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+            mask = self._mask(name, x, mode)
             x = torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
         a, b = ab["a"].float(), ab["b"].float()
-        if self.stash is None:
-            low = (x.float() @ a) @ b
+        mm = torch.matmul if self.stash is None else self.stash.matmul
+        sh = self.sh
+        if sh is None:
+            return (self.scale * mm(mm(x.float(), a), b)).to(x.dtype)
+        from ..parallel import comm as C
+
+        sp = sh.specs[name]
+        a, _ = sh.gather_data(a, sp["a"])
+        b, _ = sh.gather_data(b, sp["b"])
+        if mode == "col":
+            low = C.copy_to(mm(x.float(), a), sh.model)
+            out = mm(low, C.split_to(b, sh.model, -1))
+        elif mode == "row":
+            low = C.reduce_from(mm(x.float(), C.split_to(a, sh.model, 0)), sh.model)
+            out = mm(low, b)
         else:
-            low = self.stash.matmul(self.stash.matmul(x.float(), a), b)
-        return (self.scale * low).to(x.dtype)
+            out = mm(mm(x.float(), a), b)
+        return (self.scale * out).to(x.dtype)
 
 
 def _linear(x: torch.Tensor, p: dict, backend: str, stash: ProductStash | None):
@@ -107,8 +142,12 @@ def _linear(x: torch.Tensor, p: dict, backend: str, stash: ProductStash | None):
 
 
 def _qkv(x: torch.Tensor, lp: dict, cfg: QwenConfig, backend: str = "fused",
-         adapters: LayerAdapters | None = None, stash: ProductStash | None = None):
+         adapters: LayerAdapters | None = None, stash: ProductStash | None = None, sh=None):
+    """q [B, S, NH, Dh], k / v [B, S, KVH, Dh]; under ``sh`` the heads are the
+    rank's own where ``sh.heads_local`` (NH / M and KVH / M of them), else all."""
     B, S, _ = x.shape
+    if sh is not None:
+        return _qkv_sharded(x, lp, cfg, backend, adapters, stash, sh)
     if "qkv_proj" in lp:
         # merged layout: one product for q, k and v; a projection's adapter is
         # added on its slice of the output
@@ -125,9 +164,55 @@ def _qkv(x: torch.Tensor, lp: dict, cfg: QwenConfig, backend: str = "fused",
             v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim))
 
 
+def _qkv_sharded(x, lp, cfg, backend, adapters, stash, sh):
+    B, S, _ = x.shape
+    names = ("q_proj", "k_proj", "v_proj")
+    if "qkv_proj" in lp:
+        # each rank's merged kernel is its own q, k and v blocks side by side
+        y, split = sh.linear(x, lp["qkv_proj"], sh.specs["qkv_proj"], backend, stash=stash)
+        m = sh.M if split else 1
+        QD, KD = cfg.q_dim // m, cfg.kv_dim // m
+        outs = [(y[..., :QD], split), (y[..., QD:QD + KD], split), (y[..., QD + KD:], split)]
+        if adapters is not None:
+            outs = [(t + adapters.delta(n, x, mode="col" if sp else None), sp)
+                    for n, (t, sp) in zip(names, outs)]
+    else:
+        outs = [sh.linear(x, lp[n], sh.specs[n], backend, stash=stash, adapters=adapters,
+                          name=n) for n in names]
+    local = sh.heads_local(cfg.num_heads, cfg.num_kv_heads) and all(sp for _, sp in outs)
+    if not local:
+        outs = [(sh.full(t, sp), False) for t, sp in outs]
+    m = sh.M if local else 1
+    (q, _), (k, _), (v, _) = outs
+    return (q.reshape(B, S, cfg.num_heads // m, cfg.head_dim),
+            k.reshape(B, S, cfg.num_kv_heads // m, cfg.head_dim),
+            v.reshape(B, S, cfg.num_kv_heads // m, cfg.head_dim))
+
+
 def _mlp(x: torch.Tensor, lp: dict, backend: str = "fused",
          adapters: LayerAdapters | None = None,
-         stash: ProductStash | None = None) -> torch.Tensor:
+         stash: ProductStash | None = None, sh=None) -> torch.Tensor:
+    if sh is not None:
+        if "gate_up_proj" in lp:
+            y, split = sh.linear(x, lp["gate_up_proj"], sh.specs["gate_up_proj"], backend,
+                                 stash=stash)
+            I = y.shape[-1] // 2
+            (gate, gs), (up, us) = (y[..., :I], split), (y[..., I:], split)
+            if adapters is not None:
+                mode = "col" if split else None
+                gate = gate + adapters.delta("gate_proj", x, mode=mode)
+                up = up + adapters.delta("up_proj", x, mode=mode)
+        else:
+            gate, gs = sh.linear(x, lp["gate_proj"], sh.specs["gate_proj"], backend,
+                                 stash=stash, adapters=adapters, name="gate_proj")
+            up, us = sh.linear(x, lp["up_proj"], sh.specs["up_proj"], backend, stash=stash,
+                               adapters=adapters, name="up_proj")
+        if gs != us:
+            gate, up, gs = sh.full(gate, gs), sh.full(up, us), False
+        act = F.silu(gate.float()).to(x.dtype) * up
+        down, split = sh.linear(act, lp["down_proj"], sh.specs["down_proj"], backend,
+                                x_split=gs, stash=stash, adapters=adapters, name="down_proj")
+        return sh.full(down, split)
     if "gate_up_proj" in lp:
         y = _linear(x, lp["gate_up_proj"], backend, stash)
         I = y.shape[-1] // 2
@@ -143,13 +228,67 @@ def _mlp(x: torch.Tensor, lp: dict, backend: str = "fused",
 
 def _o_proj(attn: torch.Tensor, lp: dict, backend: str = "fused",
             adapters: LayerAdapters | None = None,
-            stash: ProductStash | None = None) -> torch.Tensor:
+            stash: ProductStash | None = None, sh=None, split: bool = False) -> torch.Tensor:
+    """``split``: ``attn`` holds the rank's own heads (its rows of o_proj)."""
+    if sh is not None:
+        o, osplit = sh.linear(attn, lp["o_proj"], sh.specs["o_proj"], backend, x_split=split,
+                              stash=stash, adapters=adapters, name="o_proj")
+        return sh.full(o, osplit)
     o = _linear(attn, lp["o_proj"], backend, stash)
     return o if adapters is None else o + adapters.delta("o_proj", attn)
 
 
-def embed_tokens(params: dict, ids: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
-    return embed_rows(params["embed"]["weight"], ids, dtype)
+def embed_tokens(params: dict, ids: torch.Tensor, dtype=torch.bfloat16, sh=None) -> torch.Tensor:
+    """Token embeddings. Under ``sh`` a table split over ``model`` by vocabulary
+    looks up the ids in the rank's rows, zeroes the others and all-reduces."""
+    w = params["embed"]["weight"]
+    if sh is None:
+        return embed_rows(w, ids, dtype)
+    w, split = _vocab_table(w, sh)
+    if not split:
+        return embed_rows(w, ids, dtype)
+    from ..parallel import comm as C
+
+    Vl = (w["qvalue"] if isinstance(w, dict) else w).shape[0]
+    loc = ids.long() - sh.mi * Vl
+    inside = (loc >= 0) & (loc < Vl)
+    rows = embed_rows(w, loc.clamp(0, Vl - 1), dtype)
+    rows = torch.where(inside[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                            device=rows.device))
+    return C.reduce_from(rows, sh.model)
+
+
+def _vocab_table(w, sh):
+    """The embedding table gathered over ``data`` -> (table, split over
+    ``model`` by vocabulary); a table whose parts cannot follow the split is
+    gathered whole."""
+    sp = sh.specs["embed"]["weight"]
+    if isinstance(w, dict):
+        parts = {n: sh.gather_data(t, sp[n]) for n, t in w.items()}
+        split = all(psp[0] == "model" for _, psp in parts.values())
+        if not split:
+            return {n: sh.gather_model(t, psp)[0] for n, (t, psp) in parts.items()}, False
+        return {n: t for n, (t, _) in parts.items()}, True
+    w, wsp = sh.gather_data(w, sp)
+    if wsp[0] != "model":
+        return sh.gather_model(w, wsp)[0], False
+    return w, True
+
+
+def _pipe_layer0(lyr, sh) -> int:
+    """The global index of this pipeline stage's first layer."""
+    if sh is None or sh.pipe is None:
+        return 0
+    L_local = next(iter(_leaves(lyr))).shape[0]
+    return sh.mesh.index("pipe") * L_local
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def forward_hidden(params: dict, cfg: QwenConfig, inputs_embeds: torch.Tensor, *,
@@ -157,7 +296,8 @@ def forward_hidden(params: dict, cfg: QwenConfig, inputs_embeds: torch.Tensor, *
                    positions: torch.Tensor | None = None,
                    lora: dict | None = None, lora_scale: float = 0.0,
                    remat: bool | str = "none", lora_dropout: float = 0.0,
-                   dropout_seed: int | None = None, backend: str = "fused") -> torch.Tensor:
+                   dropout_seed: int | None = None, backend: str = "fused",
+                   sh=None, lora_sh=None, ring=None, pipe=None) -> torch.Tensor:
     """Final-normed hidden states [B, T, H] of a whole sequence (training,
     prefill without a cache). ``attn_mask`` [B, T] bool marks the real tokens
     of a padded batch; ``positions`` [B, T] default to 0..T-1.
@@ -170,7 +310,23 @@ def forward_hidden(params: dict, cfg: QwenConfig, inputs_embeds: torch.Tensor, *
     (``models/remat.py``).
 
     ``lora_dropout`` with a ``dropout_seed`` (which the trainer derives from
-    its seed and the step) drops adapter inputs; see ``LayerAdapters``."""
+    its seed and the step) drops adapter inputs; see ``LayerAdapters``.
+
+    Sharded (``sh``: a ``parallel.sharded.Shard`` of this tree's specs,
+    ``lora_sh`` of the adapters'): the rank's blocks, gathered and reduced as
+    the specs say. ``ring`` = (mesh, axis): the batch's tokens are split over
+    the axis (``inputs_embeds``, ``attn_mask`` and ``positions`` hold the
+    rank's stretch, ``sh.seq`` says where it lies) and the attention is
+    ``parallel.ring_attention``'s. ``pipe`` = (mesh, axis, n_micro): the
+    layers are this stage's (``parallel.pipeline.gpipe_scan_layers``); pipe and
+    ring exclude each other and remat 'half' is refused under pipe, as in
+    JAX."""
+    if pipe is not None:
+        if ring is not None:
+            raise ValueError("pipe and ring attention are mutually exclusive")
+        if remat == "half":
+            raise ValueError("remat='half' pairs layers in the plain scan; "
+                             "use 'full'/'dots' with pipeline stages")
     if remat in (True, "full"):
         replay = lambda i: True
     elif remat == "half":
@@ -189,69 +345,132 @@ def forward_hidden(params: dict, cfg: QwenConfig, inputs_embeds: torch.Tensor, *
         T, device=inputs_embeds.device)[None].expand(B, T)
     rope_tables = rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta)   # the same for every layer
     lyr = params["layers"]
+    L_local = next(iter(_leaves(lyr))).shape[0]
+    layer0 = _pipe_layer0(lyr, sh)
+    lsh = None if sh is None else sh.sub("layers").layer()
+    ash = None if lora_sh is None else lora_sh.layer()
 
-    def layer_fn(x: torch.Tensor, i: int, stash: ProductStash | None = None) -> torch.Tensor:
-        lp = layer_view(lyr, i)
-        ad = None if lora is None else LayerAdapters(lora, i, lora_scale, lora_dropout,
-                                                     dropout_seed, stash)
-        h = rms_norm(x, lp["input_norm"]["scale"], cfg.rms_norm_eps)
-        q, k, v = _qkv(h, lp, cfg, backend, ad, stash)
-        attn = causal_attention(q, k, v, rope_theta=cfg.rope_theta, attn_mask=attn_mask,
-                                rope_tables=rope_tables,
-                                attend=stash.attend if stash and stash.attention else None)
-        x = x + _o_proj(attn.reshape(B, T, cfg.q_dim), lp, backend, ad, stash)
-        h = rms_norm(x, lp["post_norm"]["scale"], cfg.rms_norm_eps)
-        return x + _mlp(h, lp, backend, ad, stash)
+    def attention(q, k, v, mask_, tables_, pos_, stash):
+        if ring is None:
+            return causal_attention(q, k, v, rope_theta=cfg.rope_theta, attn_mask=mask_,
+                                    rope_tables=tables_,
+                                    attend=stash.attend if stash and stash.attention else None)
+        from ..parallel.ring_attention import ring_causal_attention
 
+        cos, sin = tables_
+        q = apply_rope(q.float(), cos, sin).to(q.dtype)
+        k = apply_rope(k.float(), cos, sin).to(k.dtype)
+        # GQA: the ring carries kv heads expanded to q's, as JAX's does
+        rep = q.shape[2] // k.shape[2]
+        k, v = k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2)
+        mesh, axis = ring
+        return ring_causal_attention(q, k, v, mesh.comm(axis), positions=pos_,
+                                     attn_mask=mask_)
+
+    def make_layer_fn(mask_, tables_, pos_, region):
+        lsh_r = None if lsh is None else lsh.region(**region)
+        ash_r = None if ash is None else ash.region(**region)
+
+        def layer_fn(x: torch.Tensor, i: int, stash: ProductStash | None = None) -> torch.Tensor:
+            lp = layer_view(lyr, i)
+            ad = None if lora is None else LayerAdapters(lora, i, lora_scale, lora_dropout,
+                                                         dropout_seed, stash, sh=ash_r,
+                                                         layer_id=layer0 + i)
+            Bx, Tx = x.shape[:2]
+            h = rms_norm(x, lp["input_norm"]["scale"], cfg.rms_norm_eps)
+            q, k, v = _qkv(h, lp, cfg, backend, ad, stash, sh=lsh_r)
+            attn = attention(q, k, v, mask_, tables_, pos_, stash)
+            split = q.shape[2] != cfg.num_heads
+            x = x + _o_proj(attn.reshape(Bx, Tx, -1), lp, backend, ad, stash, sh=lsh_r,
+                            split=split)
+            h = rms_norm(x, lp["post_norm"]["scale"], cfg.rms_norm_eps)
+            return x + _mlp(h, lp, backend, ad, stash, sh=lsh_r)
+
+        return layer_fn
+
+    region = {} if sh is None else {"rows": sh.rows, "seq": sh.seq}
     x = inputs_embeds
-    for i in range(cfg.num_layers):
-        if not replay(i):
-            x = layer_fn(x, i)
-            continue
-        # the dropout masks come from their own seeded generators, so the
-        # global RNG state need not be stashed and restored
-        stash = ProductStash(attention=remat == "dots") if remat in DOTS_POLICIES else None
-        x = checkpoint(layer_fn, x, i, stash, use_reentrant=False, preserve_rng_state=False)
-        if stash is not None:
-            stash.replay()      # the checkpoint's next run of layer_fn is the backward's
+    if pipe is not None:
+        from ..parallel.pipeline import gpipe_scan_layers
+
+        mesh_p, axis_p, n_micro = pipe
+        cos_t, sin_t = rope_tables
+        extras = {"mask": attn_mask, "cos": cos_t, "sin": sin_t, "pos": pos}
+        r0, Bg = (sh.rows if sh is not None and sh.rows else (0, B))
+        mb = B // n_micro
+
+        def stage_fn(x_mb, ex, m):
+            fn = make_layer_fn(ex["mask"], (ex["cos"], ex["sin"]), ex["pos"],
+                               {"rows": (r0 + m * mb, Bg), "seq": region.get("seq")})
+            for i in range(L_local):
+                x_mb = fn(x_mb, i)
+            return x_mb
+
+        trained = [t for t in _leaves(lora or {}) if t.requires_grad]
+        x = gpipe_scan_layers(mesh_p.comm(axis_p), x, extras, stage_fn, n_micro, trained)
+    else:
+        layer_fn = make_layer_fn(attn_mask, rope_tables, pos, region)
+        for i in range(L_local):
+            if not replay(i):
+                x = layer_fn(x, i)
+                continue
+            # the dropout masks come from their own seeded generators, so the
+            # global RNG state need not be stashed and restored
+            stash = ProductStash(attention=remat == "dots") if remat in DOTS_POLICIES else None
+            x = checkpoint(layer_fn, x, i, stash, use_reentrant=False, preserve_rng_state=False)
+            if stash is not None:
+                stash.replay()      # the checkpoint's next run of layer_fn is the backward's
     return rms_norm(x, params["final_norm"]["scale"], cfg.rms_norm_eps)
 
 
 def decode_chunk(params: dict, cfg: QwenConfig, policy: CachePolicy, cache: KVCache,
                  inputs_embeds: torch.Tensor, valid_len: torch.Tensor, *,
                  backend: str = "fused", lora: dict | None = None,
-                 lora_scale: float = 0.0) -> torch.Tensor:
+                 lora_scale: float = 0.0, sh=None, lora_sh=None) -> torch.Tensor:
     """One streaming chunk [B, S, H] with ``valid_len`` [B] real tokens.
     Writes the chunk into ``cache`` IN PLACE (K/V and metadata) and returns
     the final-normed hidden states [B, S, H]. ``lora``: adapters added at the
-    seven projections of every row (``LayerAdapters``, no dropout)."""
+    seven projections of every row (``LayerAdapters``, no dropout).
+
+    Sharded (``sh``, ``lora_sh``): the cache's K/V hold the rank's rows
+    (``cache.rows``) and heads; the metadata and the plan are every row's, the
+    layers run on the rank's rows, and the hidden states are gathered over
+    ``data`` so that every rank returns all of them."""
     S = inputs_embeds.shape[1]
     plan = plan_update(cache, policy, valid_len, S)
-    tables = chunk_tables(plan, policy, cfg.head_dim, cfg.rope_theta)
+    rows = cache.rows if sh is not None else None
+    lplan, x = plan, inputs_embeds
+    if rows is not None:
+        lplan, x = row_slice(plan, *rows), inputs_embeds[rows[0]:rows[1]]
+    tables = chunk_tables(lplan, policy, cfg.head_dim, cfg.rope_theta)
     lyr = params["layers"]
-    x = inputs_embeds
+    lsh = None if sh is None else sh.sub("layers").layer()
+    ash = None if lora_sh is None else lora_sh.layer()
     for i in range(cfg.num_layers):
         lp = layer_view(lyr, i)
-        ad = None if lora is None else LayerAdapters(lora, i, lora_scale)
+        ad = None if lora is None else LayerAdapters(lora, i, lora_scale, sh=ash)
         h = rms_norm(x, lp["input_norm"]["scale"], cfg.rms_norm_eps, f64_mean=True)
-        q, k, v = _qkv(h, lp, cfg, backend, ad)
+        q, k, v = _qkv(h, lp, cfg, backend, ad, sh=lsh)
         ks = vs = None
         if cache.quantized:
             ks, vs = cache.k_scale[i], cache.v_scale[i]
-        write_layer(cache.k[i], cache.v[i], k, v, plan, ks, vs,
+        write_layer(cache.k[i], cache.v[i], k, v, lplan, ks, vs,
                     rot=(tables.w_cos, tables.w_sin))
         attn = cached_attention(q, cache.k[i], cache.v[i], tables,
                                 None if ks is None else (ks, vs))
-        x = x + _o_proj(attn.reshape(*x.shape[:2], cfg.q_dim), lp, backend, ad)
+        x = x + _o_proj(attn.reshape(*x.shape[:2], -1), lp, backend, ad, sh=lsh,
+                        split=q.shape[2] != cfg.num_heads)
         h = rms_norm(x, lp["post_norm"]["scale"], cfg.rms_norm_eps, f64_mean=True)
-        x = x + _mlp(h, lp, backend, ad)
+        x = x + _mlp(h, lp, backend, ad, sh=lsh)
     advance(cache, plan)
-    return rms_norm(x, params["final_norm"]["scale"], cfg.rms_norm_eps, f64_mean=True)
+    out = rms_norm(x, params["final_norm"]["scale"], cfg.rms_norm_eps, f64_mean=True)
+    return out if rows is None else sh.data.all_gather(out, 0)
 
 
 def decode_chunk_spec(params: dict, cfg: QwenConfig, policy: CachePolicy, cache: KVCache,
                       inputs_embeds: torch.Tensor, plans, *, backend: str = "fused",
-                      replay: bool = False, lora: dict | None = None, lora_scale: float = 0.0):
+                      replay: bool = False, lora: dict | None = None, lora_scale: float = 0.0,
+                      sh=None, lora_sh=None):
     """The VERIFY pass: like ``decode_chunk`` over the N = S * step tokens of
     ``plans`` (``spec_decode.plan_compose``), but equal to the S sequential
     passes the plans compose, and READ-ONLY on the cache: each layer's
@@ -274,9 +493,14 @@ def decode_chunk_spec(params: dict, cfg: QwenConfig, policy: CachePolicy, cache:
     softmax over cache and in-flight columns differs from the kernel's sums
     in the last bf16 place; ``generate_spec`` takes it on a bf16 or f32 cache
     so that speculative texts equal sequential ones. Needs no gate and no
-    host sync. ``lora``: as in ``decode_chunk``."""
+    host sync. ``lora``, ``sh``: as in ``decode_chunk``; the in-flight K/V
+    are the rank's rows and heads, the hidden states every row's."""
     sink_policy = policy.kind == "sink"
     sink_slots = policy.num_sink if sink_policy else 0
+    rows = cache.rows if sh is not None else None
+    x = inputs_embeds
+    if rows is not None:
+        plans, x = row_slice(plans, *rows), inputs_embeds[rows[0]:rows[1]]
     if replay:
         w_cos, w_sin = rope_cos_sin(plans.write_pos, cfg.head_dim, cfg.rope_theta)
         steps = [chunk_tables(p, policy, cfg.head_dim, cfg.rope_theta) for p in plans.steps]
@@ -285,13 +509,14 @@ def decode_chunk_spec(params: dict, cfg: QwenConfig, policy: CachePolicy, cache:
         tables = spec_tables(plans, sink_policy, cfg.head_dim, cfg.rope_theta, exact)
         w_cos, w_sin = tables.w_cos, tables.w_sin
     lyr = params["layers"]
-    x = inputs_embeds
+    lsh = None if sh is None else sh.sub("layers").layer()
+    ash = None if lora_sh is None else lora_sh.layer()
     infl_k, infl_v = [], []
     for i in range(cfg.num_layers):
         lp = layer_view(lyr, i)
-        ad = None if lora is None else LayerAdapters(lora, i, lora_scale)
+        ad = None if lora is None else LayerAdapters(lora, i, lora_scale, sh=ash)
         h = rms_norm(x, lp["input_norm"]["scale"], cfg.rms_norm_eps, f64_mean=True)
-        q, k, v = _qkv(h, lp, cfg, backend, ad)
+        q, k, v = _qkv(h, lp, cfg, backend, ad, sh=lsh)
         k_rot = apply_rope(k.float(), w_cos, w_sin).to(k.dtype)
         if replay:
             attn = replayed_attention(q, cache.k[i], cache.v[i], k_rot, v, plans.slots, w_cos,
@@ -301,17 +526,35 @@ def decode_chunk_spec(params: dict, cfg: QwenConfig, policy: CachePolicy, cache:
             attn = speculative_attention(
                 q, cache.k[i], cache.v[i], k_rot, v, tables, sink_slots=sink_slots,
                 kv_scales=kv_scales)
-        x = x + _o_proj(attn.reshape(*x.shape[:2], cfg.q_dim), lp, backend, ad)
+        x = x + _o_proj(attn.reshape(*x.shape[:2], -1), lp, backend, ad, sh=lsh,
+                        split=q.shape[2] != cfg.num_heads)
         h = rms_norm(x, lp["post_norm"]["scale"], cfg.rms_norm_eps, f64_mean=True)
-        x = x + _mlp(h, lp, backend, ad)
+        x = x + _mlp(h, lp, backend, ad, sh=lsh)
         infl_k.append(k_rot)
         infl_v.append(v)
     x = rms_norm(x, params["final_norm"]["scale"], cfg.rms_norm_eps, f64_mean=True)
+    if rows is not None:
+        x = sh.data.all_gather(x, 0)
     return x, torch.stack(infl_k), torch.stack(infl_v)
 
 
 def lm_logits(params: dict, cfg: QwenConfig, hidden: torch.Tensor,
-              backend: str = "fused") -> torch.Tensor:
+              backend: str = "fused", sh=None) -> torch.Tensor:
+    """Logits over the whole vocabulary. Under ``sh`` the lm_head (or the tied
+    table) is split over ``model`` by vocabulary: each rank's columns, then
+    gathered, so that greedy argmax and the repetition penalty read the whole
+    row (argmax keeps the lowest index among equal maxima)."""
+    if sh is not None:
+        if cfg.tie_word_embeddings:
+            w, split = _vocab_table(params["embed"]["weight"], sh)
+            if isinstance(w, dict):
+                w = (w["qvalue"].float() * w["scale"]).to(hidden.dtype)
+            from ..parallel import comm as C
+
+            y = torch.matmul(C.copy_to(hidden, sh.model) if split else hidden, w.t())
+            return sh.full(y, split)
+        y, split = sh.linear(hidden, params["lm_head"], sh.specs["lm_head"], backend)
+        return sh.full(y, split)
     if cfg.tie_word_embeddings:
         w = params["embed"]["weight"]
         if isinstance(w, dict):

@@ -31,16 +31,41 @@ def layer_norm(x: torch.Tensor, p: dict, eps: float) -> torch.Tensor:
     return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
 
 
-def _mha(x: torch.Tensor, lp: dict, num_heads: int, backend: str = "fused") -> torch.Tensor:
+def _mha(x: torch.Tensor, lp: dict, num_heads: int, backend: str = "fused",
+         sh=None) -> torch.Tensor:
+    """Self-attention. Under ``sh`` (a ``parallel.sharded.Shard`` of the
+    layer's specs) q/k/v run on the rank's heads where they stay whole,
+    out_proj reduces over ``model``."""
     B, T, H = x.shape
     d = H // num_heads
-    q, k, v = (linear(x, lp[n], backend).reshape(B, T, num_heads, d).transpose(1, 2)
-               for n in ("q_proj", "k_proj", "v_proj"))
+    if sh is None:
+        q, k, v = (linear(x, lp[n], backend).reshape(B, T, num_heads, d).transpose(1, 2)
+                   for n in ("q_proj", "k_proj", "v_proj"))
+    else:
+        outs = [sh.linear(x, lp[n], sh.specs[n], backend) for n in ("q_proj", "k_proj", "v_proj")]
+        local = sh.heads_local(num_heads, num_heads) and all(sp for _, sp in outs)
+        outs = [t if local else sh.full(t, sp) for t, sp in outs]
+        nh = num_heads // (sh.M if local else 1)
+        q, k, v = (t.reshape(B, T, nh, d).transpose(1, 2) for t in outs)
     # products in the storage dtype, softmax in f32 (as the JAX tower)
     scores = torch.matmul(q, k.transpose(-1, -2)).float() * (1.0 / math.sqrt(d))
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.matmul(probs, v).to(x.dtype)
-    return linear(out.transpose(1, 2).reshape(B, T, H), lp["out_proj"], backend)
+    out = out.transpose(1, 2).reshape(B, T, -1)
+    if sh is None:
+        return linear(out, lp["out_proj"], backend)
+    y, split = sh.linear(out, lp["out_proj"], sh.specs["out_proj"], backend,
+                         x_split=q.shape[1] != num_heads)
+    return sh.full(y, split)
+
+
+def mlp(h: torch.Tensor, lp: dict, act, backend: str = "fused", sh=None) -> torch.Tensor:
+    """fc2(act(fc1(h))); under ``sh`` fc1 column- and fc2 row-parallel."""
+    if sh is None:
+        return linear(act(linear(h, lp["fc1"], backend)), lp["fc2"], backend)
+    y, split = sh.linear(h, lp["fc1"], sh.specs["fc1"], backend)
+    y, split = sh.linear(act(y), lp["fc2"], sh.specs["fc2"], backend, x_split=split)
+    return sh.full(y, split)
 
 
 def preprocess_frames(frames: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
@@ -50,25 +75,27 @@ def preprocess_frames(frames: torch.Tensor, dtype=torch.float32) -> torch.Tensor
 
 
 def forward(params: dict, cfg: SiglipConfig, pixels: torch.Tensor,
-            backend: str = "fused") -> torch.Tensor:
+            backend: str = "fused", sh=None) -> torch.Tensor:
     """Normalised pixels [N, H, W, 3] -> patch features [N, num_patches, H].
     ``backend``: the kernels of a quantised tower's products
-    (``ops.quant.BACKENDS``)."""
+    (``ops.quant.BACKENDS``). ``sh``: the tower's specs on a mesh."""
     pe = params["patch_embed"]
     x = F.conv2d(pixels.permute(0, 3, 1, 2), pe["kernel"].to(pixels.dtype),
                  stride=cfg.patch_size)                     # [N, H, gh, gw]
     N = x.shape[0]
+    pos = params["pos_embed"] if sh is None else sh.whole(params["pos_embed"],
+                                                          sh.specs["pos_embed"])
     x = x.permute(0, 2, 3, 1) + pe["bias"]
-    x = x.reshape(N, cfg.num_patches, cfg.hidden_size) + params["pos_embed"]
+    x = x.reshape(N, cfg.num_patches, cfg.hidden_size) + pos
     lyr = params["layers"]
+    lsh = None if sh is None else sh.sub("layers").layer()
     for i in range(cfg.num_layers):
         lp = layer_view(lyr, i)
         h = layer_norm(x, lp["ln1"], cfg.layer_norm_eps)
-        x = x + _mha(h, lp, cfg.num_heads, backend)
+        x = x + _mha(h, lp, cfg.num_heads, backend, lsh)
         h = layer_norm(x, lp["ln2"], cfg.layer_norm_eps)
-        h = linear(h, lp["fc1"], backend)
-        h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-        x = x + linear(h, lp["fc2"], backend)
+        x = x + mlp(h, lp, lambda y: F.gelu(y.float(), approximate="tanh").to(x.dtype),
+                    backend, lsh)
     return layer_norm(x, params["post_ln"], cfg.layer_norm_eps)
 
 

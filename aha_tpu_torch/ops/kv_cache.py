@@ -66,18 +66,22 @@ class KVCache:
     length: torch.Tensor   # [B] int32, logical cache length
     k_scale: torch.Tensor | None = None   # [L, B, W+1, KVH] f32 (int8 KV only)
     v_scale: torch.Tensor | None = None
+    # sharded serving (parallel/mesh.py::shard_cache): the global rows [r0, r1)
+    # whose K/V this rank holds; the metadata above is every row's
+    rows: tuple | None = None
 
     @property
     def batch(self) -> int:
-        return self.k.shape[1]
+        return self.order.shape[0]
 
     @property
     def quantized(self) -> bool:
         return self.k_scale is not None
 
     def clone(self) -> "KVCache":
-        return KVCache(*(None if t is None else t.clone()
-                         for t in dataclasses.astuple(self)))
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).clone() for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
 
 
 def init_cache(policy: CachePolicy, *, num_layers: int, batch: int,

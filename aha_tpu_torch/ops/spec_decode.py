@@ -325,6 +325,11 @@ def commit_slots(cache: KVCache, plans: SpecPlans, infl_k: torch.Tensor,
     ``plans.write_pos``; m_cache [B]: accepted chunk tokens (0..N). Rejected
     and invalid columns go to the junk slot. An int8 cache quantizes the
     in-flight block here (per (token, head) scales, like ``write_layer``)."""
+    if cache.rows is not None:
+        # sharded serving: the in-flight block holds this rank's rows only
+        from ..parallel.sharded import row_slice
+
+        plans, m_cache = row_slice(plans, *cache.rows), m_cache[cache.rows[0]:cache.rows[1]]
     N = infl_k.shape[2]
     dev = infl_k.device
     keep = torch.arange(N, dtype=torch.int32, device=dev)[None, :] < m_cache[:, None]

@@ -81,7 +81,7 @@ class StreamEngine(TriggerLoops, ServeLoop):
                  kv_dtype: torch.dtype | None = None, backend: str = "fused",
                  spec_tokens: int = 1, spec_tokens_max: int | None = None,
                  fused_score_frames: int = 1, lora: dict | None = None,
-                 lora_scale: float = 0.0):
+                 lora_scale: float = 0.0, mesh=None):
         """Runs on the card unless ``device`` says otherwise, and raises when
         there is none. ``backend``: the quantized-matmul kernels
         (``ops.quant.BACKENDS``). ``spec_tokens``: candidates verified per
@@ -90,7 +90,15 @@ class StreamEngine(TriggerLoops, ServeLoop):
         ``fused_score_frames``: frames per pass in ``score_stream`` and in
         the trigger loops. ``lora``: adapters ``{proj: {"a": [L, in, r], "b":
         [L, r, out]}}`` on the engine's device, added at ``lora_scale`` in
-        every decoder pass."""
+        every decoder pass.
+
+        ``mesh`` (``parallel.mesh.Mesh``, one process a rank): every rank
+        passes the whole tree and keeps its blocks (``param_specs``; a merged
+        decoder merges each rank's own q/k/v and gate/up blocks), the cache's
+        K/V by ``cache_specs`` (kv heads over ``model``, rows over ``data``)
+        with every row's metadata, and every method returns every row's
+        results on every rank, so that the ranks take the same host decisions
+        (``qwen2.decode_chunk``)."""
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -113,6 +121,20 @@ class StreamEngine(TriggerLoops, ServeLoop):
         for t in _leaves({"params": params, "lora": lora or {}}):
             if t.device != self.device:
                 raise ValueError(f"param on {t.device}, engine on {self.device}")
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.sh = self.lora_sh = None
+        if self.mesh is not None:
+            from ..parallel.mesh import apply_named_sharding, param_specs
+            from ..parallel.sharded import Shard, place
+
+            merged = "qkv_proj" in params["llm"]["layers"]
+            params, specs = place(params, self.mesh, q_dim=cfg.llm.q_dim,
+                                  kv_dim=cfg.llm.kv_dim, merge=merged)
+            self.sh = Shard(self.mesh, specs)
+            if lora is not None:
+                lspecs = param_specs(lora, self.mesh, prefix=("lora",))
+                lora = apply_named_sharding(lora, self.mesh, lspecs)
+                self.lora_sh = Shard(self.mesh, lspecs)
         self.params = params
         self.lora, self.lora_scale = lora, lora_scale
         self.cfg = cfg
@@ -126,9 +148,23 @@ class StreamEngine(TriggerLoops, ServeLoop):
 
     def new_cache(self) -> KVCache:
         llm = self.cfg.llm
-        return init_cache(self.policy, num_layers=llm.num_layers, batch=self.batch,
-                          num_kv_heads=llm.num_kv_heads, head_dim=llm.head_dim,
-                          dtype=self.kv_dtype, device=self.device)
+        kw = dict(num_layers=llm.num_layers, head_dim=llm.head_dim, dtype=self.kv_dtype)
+        if self.mesh is None:
+            return init_cache(self.policy, batch=self.batch, num_kv_heads=llm.num_kv_heads,
+                              device=self.device, **kw)
+        from ..parallel.mesh import cache_specs, local_shape, shard_cache
+
+        # K/V made at their local shape, the metadata whole
+        whole = init_cache(self.policy, batch=self.batch, num_kv_heads=llm.num_kv_heads,
+                           device="meta", **kw)
+        B, KVH = (local_shape(whole.k.shape, cache_specs(whole, self.mesh)["k"],
+                              self.mesh)[i] for i in (1, 3))
+        local = init_cache(self.policy, batch=B, num_kv_heads=KVH, device=self.device, **kw)
+        meta = init_cache(self.policy, batch=self.batch, num_kv_heads=1, num_layers=1,
+                          head_dim=1, dtype=self.kv_dtype, device=self.device)
+        for f in ("key_pos", "order", "seen", "length"):
+            setattr(local, f, getattr(meta, f))
+        return shard_cache(local, self.mesh, local=True)
 
     def reset_cache(self, cache: KVCache) -> KVCache:
         return reset_cache(cache)
@@ -158,18 +194,28 @@ class StreamEngine(TriggerLoops, ServeLoop):
         return (torch.as_tensor(arr, device=self.device),
                 torch.as_tensor(lens, device=self.device))
 
+    @property
+    def _llm_sh(self):
+        return None if self.sh is None else self.sh.sub("llm")
+
+    def _embed(self, ids: torch.Tensor) -> torch.Tensor:
+        return qwen2.embed_tokens(self.params["llm"], ids, self.dtype, self._llm_sh)
+
     def _decode(self, cache: KVCache, embeds: torch.Tensor, valid_len: torch.Tensor):
         return qwen2.decode_chunk(self.params["llm"], self.cfg.llm, self.policy, cache,
                                   embeds, valid_len, backend=self.backend, lora=self.lora,
-                                  lora_scale=self.lora_scale)
+                                  lora_scale=self.lora_scale, sh=self._llm_sh,
+                                  lora_sh=self.lora_sh)
 
     def _verify(self, cache: KVCache, embeds: torch.Tensor, plans, replay: bool = False):
         return qwen2.decode_chunk_spec(self.params["llm"], self.cfg.llm, self.policy, cache,
                                        embeds, plans, backend=self.backend, replay=replay,
-                                       lora=self.lora, lora_scale=self.lora_scale)
+                                       lora=self.lora, lora_scale=self.lora_scale,
+                                       sh=self._llm_sh, lora_sh=self.lora_sh)
 
     def _logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        return qwen2.lm_logits(self.params["llm"], self.cfg.llm, hidden, self.backend).float()
+        return qwen2.lm_logits(self.params["llm"], self.cfg.llm, hidden, self.backend,
+                               self._llm_sh).float()
 
     @staticmethod
     def _last_valid(x: torch.Tensor, valid_len: torch.Tensor) -> torch.Tensor:
@@ -182,7 +228,7 @@ class StreamEngine(TriggerLoops, ServeLoop):
         return self._append_padded(cache, *self.pad_ids(ids_list))
 
     def _append_padded(self, cache: KVCache, ids: torch.Tensor, lens: torch.Tensor):
-        embeds = qwen2.embed_tokens(self.params["llm"], ids, self.dtype)
+        embeds = self._embed(ids)
         hidden = self._decode(cache, embeds, lens)
         return self._logits(self._last_valid(hidden, lens))
 
@@ -208,7 +254,7 @@ class StreamEngine(TriggerLoops, ServeLoop):
         ids, lens = self.pad_ids(ids_list)
         B, P = ids.shape
         F = frame_embeds.shape[1]
-        text = qwen2.embed_tokens(self.params["llm"], ids, self.dtype)
+        text = self._embed(ids)
         j = torch.arange(P + F, device=self.device)[None, :]
         n = lens.long()[:, None]
         bidx = torch.arange(B, device=self.device)[:, None]
@@ -295,7 +341,7 @@ class StreamEngine(TriggerLoops, ServeLoop):
         """[N, H, W, 3] pixels -> [N, F, H_llm], VISION_BATCH frames at a time."""
         frames = torch.as_tensor(frames, device=self.device)
         outs = [aha.visual_embed(self.params, self.cfg, frames[i:i + VISION_BATCH],
-                                 self.backend)
+                                 self.backend, self.sh)
                 for i in range(0, frames.shape[0], VISION_BATCH)]
         if not outs:
             return torch.zeros((0, self.cfg.frame_num_tokens, self.cfg.llm.hidden_size),
@@ -351,7 +397,7 @@ class StreamEngine(TriggerLoops, ServeLoop):
             step = ~done & (i + 1 < N)
             if not bool(step.any()):
                 break
-            embeds = qwen2.embed_tokens(self.params["llm"], tok, self.dtype)[:, None, :]
+            embeds = self._embed(tok)[:, None, :]
             hidden = self._decode(cache, embeds, step.to(torch.int32))
             logits = self._logits(hidden[:, 0])
             tok = torch.argmax(_apply_repetition_penalty(logits, counts, pen), dim=-1)
@@ -418,7 +464,7 @@ class StreamEngine(TriggerLoops, ServeLoop):
             chunk = torch.cat([tok[:, None], drafts], dim=1)                   # [B, S]
             plan_valid = torch.where(rows, S, 0).to(torch.int32)
             plans = spec_decode.plan_compose(cache, self.policy, plan_valid, S)
-            embeds = qwen2.embed_tokens(self.params["llm"], chunk, self.dtype)
+            embeds = self._embed(chunk)
             # the sequential passes' attention replayed, so that every position's
             # bits are its sequential pass's (an int8 cache composes, as in JAX)
             hidden, infl_k, infl_v = self._verify(cache, embeds, plans,

@@ -25,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..models import aha, qwen2
+from ..models import aha
 from ..ops import spec_decode
 
 # per-row modes of the mixed loop
@@ -126,10 +126,9 @@ class ServeLoop:
         S = self.spec_tokens
         eos = self.cfg.eos_token_id
         pen = self.repetition_penalty
-        llm = self.params["llm"]
         Pg = gen_ids.shape[1]
         bidx = torch.arange(B, device=dev)
-        gen_emb = qwen2.embed_tokens(llm, gen_ids, self.dtype)               # [B, Pg, H]
+        gen_emb = self._embed(gen_ids)               # [B, Pg, H]
         junk = scores.shape[1] - 1
 
         mode_h = np.where(triggered, PROMPT, np.where(i < limit, SCORING, WAITING))
@@ -204,7 +203,7 @@ class ServeLoop:
                 plans = spec_decode.plan_compose(cache, self.policy,
                                                  torch.where(decoding, Sw, 0).to(torch.int32), Sw)
                 hidden, infl_k, infl_v = self._verify(
-                    cache, qwen2.embed_tokens(llm, chunk, self.dtype), plans,
+                    cache, self._embed(chunk), plans,
                     replay=not cache.quantized)
                 logits = self._logits(hidden)                                 # [B, Sw, V]
                 reach = decoding            # chunk[:, p] is fed as the sequential loop would
@@ -228,7 +227,7 @@ class ServeLoop:
                 width = max(F if (mode_h == SCORING).any() else 0,
                             Pg if (mode_h == PROMPT).any() else 0,
                             1 if (mode_h == DECODING).any() else 0)
-                emb = qwen2.embed_tokens(llm, tok[:, None], self.dtype)
+                emb = self._embed(tok[:, None])
                 emb = torch.cat([emb, emb.new_zeros((B, width - 1, emb.shape[2]))], dim=1)
                 m = mode[:, None, None]
                 if (mode_h == PROMPT).any():

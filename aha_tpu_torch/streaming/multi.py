@@ -17,7 +17,10 @@ stream at once. Three classes:
   ``ops.kv_cache.reset_cache_rows``).
 
 ``lora=`` / ``lora_scale=`` adapters apply to every row of every pass, as in
-JAX. Sharded serving (``mesh=``) is refused, with its ROADMAP.md item.
+JAX. ``mesh=`` (a ``parallel.mesh.Mesh``, one process a rank) serves sharded:
+the engine keeps each rank's blocks of the tree and of the cache, and returns
+every row's results on every rank, so each rank runs the same host loop over
+the same requests (``StreamEngine``).
 """
 
 from __future__ import annotations
@@ -35,12 +38,6 @@ from .engine import StreamEngine
 _THR_KEYS = ("stream_end_prob_threshold", "stream_end_score_sum_threshold", "threshold_z")
 
 
-def _refuse(mesh):
-    if mesh is not None:
-        raise NotImplementedError("sharded multi-stream serving (mesh=) is not ported to "
-                                  "aha_tpu_torch yet (ROADMAP.md, Queue 1 item 12)")
-
-
 def _engine(params, cfg, infer_cfg: InferConfig, batch: int, device, backend, **kw):
     policy = CachePolicy(kind=infer_cfg.kv_cache_policy, window=infer_cfg.kv_window,
                          num_sink=infer_cfg.num_sink_tokens, mask_mode=infer_cfg.kv_mask_mode)
@@ -55,13 +52,12 @@ class MultiStreamScorer:
     def __init__(self, params: dict, cfg: AhaConfig, tokenizer: StreamTokenizer,
                  infer_cfg: InferConfig, *, batch: int, device="cuda", backend: str = "fused",
                  lora=None, lora_scale: float = 0.0, mesh=None):
-        _refuse(mesh)
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.args = infer_cfg
         self.batch = batch
         self.engine = _engine(params, cfg, infer_cfg, batch, device, backend, lora=lora,
-                              lora_scale=lora_scale)
+                              lora_scale=lora_scale, mesh=mesh)
 
     def score_videos(self, videos: list, queries: list, *, fps: float) -> list[list[dict]]:
         """B videos ([T_b, S, S, 3] pixels, arrays or tensors) and B queries (None: no query
@@ -113,7 +109,6 @@ class MultiStreamSession:
                  infer_cfg: InferConfig, *, batch: int, engine: StreamEngine | None = None,
                  device="cuda", backend: str = "fused", lora=None, lora_scale: float = 0.0,
                  mesh=None):
-        _refuse(mesh)
         infer_cfg.validate()
         if infer_cfg.threshold_z is not None and not (
                 isinstance(infer_cfg.running_list_length, int)
@@ -130,7 +125,8 @@ class MultiStreamSession:
             max_new_tokens=infer_cfg.max_new_tokens,
             repetition_penalty=infer_cfg.repetition_penalty,
             spec_tokens=infer_cfg.spec_decode_tokens,
-            spec_tokens_max=infer_cfg.spec_decode_tokens_max, lora=lora, lora_scale=lora_scale)
+            spec_tokens_max=infer_cfg.spec_decode_tokens_max, lora=lora, lora_scale=lora_scale,
+            mesh=mesh)
         # each row's rule: a request may override it (inf: off for that row)
         inf = lambda x: np.inf if x is None else float(x)
         self._default_prob = inf(infer_cfg.stream_end_prob_threshold)

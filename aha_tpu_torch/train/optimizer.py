@@ -76,7 +76,7 @@ class AdamW:
         return OptState(mu=zeros(), nu=zeros(), acc=zeros() if self.every_k > 1 else {})
 
     @torch.no_grad()
-    def update(self, grads: dict, state: OptState, trained: dict) -> None:
+    def update(self, grads: dict, state: OptState, trained: dict, sq_sum=None) -> None:
         """One micro-step: fold ``grads`` (path -> tensor) into the mean and,
         on every k-th, update ``trained`` and ``state`` IN PLACE. Works leaf by
         leaf with one f32 buffer of the leaf's size, so that the largest leaf
@@ -90,7 +90,9 @@ class AdamW:
                 return
             grads = state.acc
 
-        norm = torch.sqrt(sum(g.float().pow(2).sum() for g in grads.values()))
+        # on a mesh ``sq_sum`` sums the squares over every shard of each leaf
+        norm = torch.sqrt(sq_sum(grads) if sq_sum is not None else
+                          sum(g.float().pow(2).sum() for g in grads.values()))
         # optax: g where the norm is within the limit, else g / norm * limit
         factor = torch.where(norm < self.max_grad_norm, torch.ones_like(norm),
                              self.max_grad_norm / norm)

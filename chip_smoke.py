@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases 1,2,8 # + the serving options (adapters, --w8a8)
     python3 chip_smoke.py --phases 1,2,9 # + the highlight chain (infer tvsum .. highlight)
     python3 chip_smoke.py --phases 1,2,10 # + the live datasets, demo, the judge, the towers
+    python3 chip_smoke.py --phases 1,2,11 # + parallelism: sharded serving and training
 
 Phases, one or more lines each:
   1. device: nvidia-smi name and power limit, torch / CUDA / nvcc versions,
@@ -271,6 +272,27 @@ Phases, one or more lines each:
           tokens a frame), JAX's synthetic 7B-int8 trees: score_video over 32
           frames at fused 4 and 1, dense tower and --vision_int8, the tower's
           ms a frame, fused against fused 1 within atol 2e-2 + rtol 5e-2.
+  11. parallelism (aha_tpu_torch/parallel/), in the same shape check: a world of 2
+     ranks, two processes that share cuda:0 over gloo (NCCL refuses two ranks on one
+     device; the collectives gloo does not take on CUDA tensors, probed in phase 1,
+     are staged through pinned host memory), or of 4 over NCCL where the host has 4
+     cards; the ranks record the shapes they hand the kernels, and this process runs
+     the one-rank references meanwhile:
+       a. 7B-int8 at full depth and width, MultiStreamServer(batch=8) at data 1 x
+          model 2 (model 4: 7 q / 1 kv head a rank) over 8 requests of 16-32 frames at
+          the product widths (fused 4, generation 4 -> 8, the sum rule at 8): each
+          request's scores within atol 2e-2 + rtol 5e-2 of the one-rank server's up
+          to their first differing decision, texts compared (a text that parts is
+          shown with the solo run's logit gap at the parting token, at most 2 bf16
+          steps), kernel launches, collectives (staged ones apart) and frames/s per
+          rank;
+       b. training at full width and 4 of 28 layers (cut), QLoRA on synthetic int4 and
+          int8 trunks: FSDP (data 2, int4), TP (model 2, int8), GPipe (pipe 2, 2
+          microbatches, int4) and ring attention (data 2, one row of ring_min_seq
+          2,048 tokens, int8), a step each: a finite loss within 1e-2 relative of
+          the one-rank step's, its ms per rank;
+       c. the native decoder: built or not (and why), and on a clip written with cv2
+          its frames against the cv2 path's in count and source indices.
 
 Prints the kernels' JSON line and, last, {"ok": true, "device": ...}.
 Exits nonzero, with no result line, when there is no CUDA device, when the
@@ -400,6 +422,7 @@ class Stats:
                           library_ms=None, launches=0, shape=None) for n in KERNELS}
         self.checked = set()     # (kernel, M, K, N) or (kernel, S) held against the plain version
         self.train_fwd_ms = 0.0  # int4_matmul, a layer's four products at the training rows
+        self.native_ops = []     # the collectives gloo took on CUDA tensors in phase 1
 
     def err(self, name, e):
         self.k[name]["err"] = max(self.k[name]["err"], e)
@@ -759,6 +782,32 @@ def check_matmuls(gen, stats: Stats):
                 for n, K, N in (("projector_fc1", 1024, 3584), ("projector_fc2", 3584, 3584))
                 if M not in {49 * (k % 32) for k in SERVE_LENGTHS} | {392, 1568}]
 
+    # phase 11: a rank's local products at model 2 (model 4 where the host has 4 cards):
+    # the decoder layer at M = 1, 49 and 196 timed beside the whole layer; 11a's serving
+    # rows (phase 7's widths at B = 8), its lm_head and projector rows, and 11b's TP step
+    # (2 rows of 1,024 tokens), held
+    world = p11_world()
+    tp = {2: LAYER_TP2, 4: LAYER_TP4}[world]
+    tp_t = [(n, M, K, N) for M in (1, 49, 196) for n, K, N in tp]
+    serve_rows = p11_serve_rows()
+    tp_h = [("held-" + n, M, K, N) for M in sorted(serve_rows | {2 * P11_T} - {1, 49, 196})
+            for n, K, N in tp]
+    lm_tp = LM_HEAD_TP[world]
+    tp_h += [("held-" + lm_tp[0], M, *lm_tp[1:]) for M in (SERVE_B, 32, 64)]
+    # the projector rows of 11a's requests (and at 4 ranks 11d's 8-frame clips)
+    tp_h += [("held-" + n, 49 * (f % 32 or 32), K, N)
+             for f in sorted(set(P11_LENGTHS) | ({8} if world == 4 else set()))
+             for n, K, N in PROJECTOR_TP[world]]
+    tp4_h = []
+    if world == 4:
+        # 11b at 4 ranks: FSDP x TP on 4 rows (2 a data rank) over the int4 trunk, TP over
+        # 4 rows, ring attention 512 tokens a rank, and the one-rank steps on 4 rows
+        tp_h += [("held-" + n, 4 * P11_T, K, N) for n, K, N in LAYER_TP4]
+        tp_h += [("held-" + n, M, *layer[n]) for M in (P11_RING_T // 4, 4 * P11_T)
+                 for n in layer]
+        tp4_h = [("held-" + n, M, K, N) for M in (2 * P11_T,) for n, K, N in LAYER_TP2]
+        tp4_h += [("held-" + n, 4 * P11_T, *layer[n]) for n in layer]
+
     # int8, f32 activations (phase 6's f32 score traces: a frame, the system prompt and
     # query, a fused pass of 4 frames; the lm_head's row; the projector's 8 frames; phase 8b's
     # f32 frame chunks: the system prompt and first frame, a response's last token + stream
@@ -777,7 +826,7 @@ def check_matmuls(gen, stats: Stats):
          [(*c, None, bf, 1e-2) for c in cards + tower]
          + [(*r, None, f32, 1e-4) for r in ragged8 + f32_8] + [(*edge, None, bf, 1e-2)]
          + [(*c, None, bf, 1e-2) for c in wgmma8 + old8 + decode_rows + serve_t8 + serve_h8
-            + chain_h8 + cls_t + clip_tower + live_h8]
+            + chain_h8 + cls_t + clip_tower + live_h8 + tp_t + tp_h]
          + [(n, M, *layer[n], None, bf, 1e-2) for M in TRAIN_CLI_M for n in layer],
          49),
         ("int8_matmul_a8", 8, True,
@@ -791,6 +840,7 @@ def check_matmuls(gen, stats: Stats):
          + [(n, M, *layer[n], 128, bf, 1e-2) for M in (TRAIN_T, *TRAIN_CLI_M)
             for n in layer]                                            # the training batches
          + [(*c, 128, bf, 1e-2) for c in serve_t]                    # B = 8 serving rows
+         + [(*c, 128, bf, 1e-2) for c in tp4_h]                      # phase 11 at 4 ranks
          + [(*r, f32, 1e-4) for r in ragged4] + [(*edge, 64, bf, 1e-2)]
          + [(*c, bf, 1e-2) for c in wgmma4 + old4 + decode4], 196),
         ("int4_matmul_a8", 4, True,
@@ -798,6 +848,7 @@ def check_matmuls(gen, stats: Stats):
          + [(*r, f32, 1e-4) for r in ragged4] + [(*edge, 64, bf, 2e-2)]
          + [(*c, bf, 1e-2) for c in wgmma4a8 + decode4], 196),
     ]
+    tp_names = {n for n, _, _ in tp}
     sms = k8.num_sms(0)
     kernels = _build.library()
     # a decoder layer's four products (and the projector's two) summed by entry and M; a
@@ -807,8 +858,9 @@ def check_matmuls(gen, stats: Stats):
     for name, bits, a8, cases, rep_m in families:
         for label, M, K, N, G, dt, tol in cases:
             wbytes = K * N * bits // 8
-            # enough weight copies that a timing loop cannot live in the 50 MB L2
-            copies = max(1, math.ceil(160e6 / wbytes))
+            # enough weight copies that a timing loop cannot live in the 50 MB L2 (a
+            # case held without timing needs one)
+            copies = 1 if label.startswith("held-") else max(1, math.ceil(160e6 / wbytes))
             if bits == 8:
                 ws = [torch.randint(-127, 128, (K, N), generator=gen, device=dev,
                                     dtype=torch.int8) for _ in range(copies)]
@@ -977,8 +1029,9 @@ def check_matmuls(gen, stats: Stats):
             if M == TRAIN_T and label in layer:
                 stats.train_fwd_ms += ms
             if dt == bf and (label in layer or label.startswith("projector")
-                             or label == "lm_head"):
-                part = "layer" if label in layer else label.split("_fc")[0]
+                             or label == "lm_head" or label in tp_names):
+                part = ("layer" if label in layer else f"local_layer_model{world}"
+                        if label in tp_names else label.split("_fc")[0])
                 acc = sums.setdefault((name, part, M), [0.0, 0.0, 0.0, 0, 0.0, 0.0, 0.0, 0.0])
                 acc[0] += ms
                 acc[1] += bms
@@ -997,6 +1050,16 @@ def check_matmuls(gen, stats: Stats):
               f"{ms:.4f} bound_ms={bms:.4f} plain_ms={pms:.4f} library_ms={lib:.4f} "
               f"dense_bf16_ms={dense:.4f}; 24 layers {24 * ms:.3f} ms against dense "
               f"{24 * dense:.3f} ms", flush=True)
+    for M in (1, 49, 196):
+        whole, local = sums.get(("int8_matmul", "layer", M)), sums.get(
+            ("int8_matmul", f"local_layer_model{world}", M))
+        if whole and local:
+            print(f"phase2 int8_matmul a rank's decoder layer at model {world} M={M}: "
+                  f"{local[0]:.4f} ms against the whole layer's {whole[0]:.4f} ms ({world} ranks "
+                  f"would take {world * local[0]:.4f} ms of kernel time for the layer; bound "
+                  f"{local[1]:.4f} against {whole[1]:.4f} ms; a byte of the local products "
+                  f"costs {local[0] / local[1]:.2f}x its bound, the whole layer's "
+                  f"{whole[0] / whole[1]:.2f}x)", flush=True)
     for (name, part, M), (ms, bms, lib, n_lib, pms, old, w8, quant) in sorted(sums.items()):
         print(f"phase2 sum {name} {part} M={M}: kernel_ms={ms:.4f} bound_ms={bms:.4f} "
               f"plain_ms={pms:.4f} library_ms={f'{lib:.4f}' if n_lib else 'none'}"
@@ -1108,6 +1171,14 @@ def check_attention(gen, stats: Stats):
               for S in sorted(set(sw["frame_steps"] + sw["queries"] + sw["mixed"] + sw["start"])
                               - {1, 49})]
     cases += [dict(seven, label="7b-held", B=1, S=S, Wp=2049) for S in sw["b1"]]
+    # phase 11a: a rank's heads at model 2 (14 q / 2 kv; model 4: 7 / 1) at B = 8, a token
+    # and a frame timed, the other widths of phase 7's passes held
+    world = p11_world()
+    local = dict(seven, NH=28 // world, KVH=4 // world)
+    cases += [dict(local, label="7b-b8-tp", B=SERVE_B, S=S, Wp=2049) for S in (1, 49)]
+    cases += [dict(local, label="7b-b8-tp-held", B=SERVE_B, S=S, Wp=2049)
+              for S in sorted(set(sw["frame_steps"] + sw["queries"] + sw["mixed"] + sw["start"]
+                                  + sw["spec"] + sw["fused"]) - {1, 49})]
     # the highlight chain (phase 9): each clip's query chunk
     cases += [dict(seven, label="7b-held", B=1, S=S, Wp=2049)
               for S in sorted(set(chain_query_rows()) - set(PATH_M) - set(sw["b1"]))]
@@ -1166,10 +1237,11 @@ def check_attention(gen, stats: Stats):
         if c.get("blind") and torch.count_nonzero(y[:, 0]):
             raise AssertionError(f"{what}: a query that sees no slot is not zero")
         stats.err("decode_attention", err)
-        stats.checked.add(("decode_attention", S, Wp) if qdt == bf else
-                          ("decode_attention", S, Wp, "f32"))
+        heads = (f"H{NH}",) if NH != 28 and label.startswith("7b") else ()
+        stats.checked.add((("decode_attention", S, Wp) if qdt == bf else
+                           ("decode_attention", S, Wp, "f32")) + heads)
         if B > 1 and qdt == bf:
-            stats.checked.add(("decode_attention", S, Wp, f"B{B}"))
+            stats.checked.add(("decode_attention", S, Wp, f"B{B}") + heads)
         if label.endswith("-held"):
             print(f"phase2 {what} NH={NH} KVH={KVH} q={_dt(qdt)} kv={_dt(kvdt)} "
                   f"max_abs_err={err:.3e} path={'wgmma' if pl.path == da.WGMMA else 'cuda-cores'} "
@@ -1224,6 +1296,10 @@ def check_int4_matmul_t(gen, stats: Stats):
     # (label, M, K, N, G, dtype, tol)
     cases = [(n, M, K, N, 128, bf, 1e-2) for M in (TRAIN_T, 196, *TRAIN_CLI_M)
              for n, K, N in LAYER]
+    if p11_world() == 4:
+        # phase 11b at 4 ranks: FSDP x TP's local products over 2 rows, one rank's over 4
+        cases += [(n, 2 * P11_T, K, N, 128, bf, 1e-2) for n, K, N in LAYER_TP2]
+        cases += [(n, 4 * P11_T, K, N, 128, bf, 1e-2) for n, K, N in LAYER]
     # row counts that straddle the wgmma kernel's token tiles (128 rows at most),
     # the projector's rows, G = 64 and 256
     cases += [("tile-edge", M, 3584, 3584, 128, bf, 1e-2)
@@ -1236,7 +1312,7 @@ def check_int4_matmul_t(gen, stats: Stats):
               ("ragged", 13, 384, 130, 64, f32, 1e-4), ("ragged", 5, 96, 48, 6, f32, 1e-4),
               ("ragged", 9, 64, 50, 64, bf, 1e-2), ("old-path-g68", 70, 136, 320, 68, bf, 1e-2),
               ("old-path-n96", 70, 256, 96, 64, bf, 1e-2)]
-    layer_names = {n for n, _, _ in LAYER}
+    layer_names = {n for n, _, _ in LAYER + LAYER_TP2}
     for label, M, K, N, G, dt, tol in cases:
         wbytes = K * N // 2
         copies = max(1, math.ceil(160e6 / wbytes))
@@ -1307,6 +1383,14 @@ def check_flash_attention(gen, stats: Stats):
              *[("7b-edge", 1, T, 28, 4, 128, bf, None, 1e-2, 2e-2) for T in (63, 64, 65, 129)],
              ("7b-edge-padded", 2, 129, 28, 4, 128, bf, (0, 70), 1e-2, 2e-2),
              ("7b-long", 1, 4096, 28, 4, 128, bf, None, 1e-2, 2e-2),
+             # phase 11b: a rank's heads at model 2 over 2 rows of 1,024 tokens, and the
+             # one-rank step of the ring batch (ring_min_seq tokens)
+             ("7b-tp2", 2, P11_T, 14, 2, 128, bf, (P11_T - TRAIN_T,) * 2, 1e-2, 2e-2),
+             ("7b-ring-one-rank", 1, P11_RING_T, 28, 4, 128, bf, (37,), 1e-2, 2e-2),
+             *([("7b-tp", 2, P11_T, 14, 2, 128, bf, (98, 98), 1e-2, 2e-2),
+                ("7b-tp4", 4, P11_T, 7, 1, 128, bf, (98,) * 4, 1e-2, 2e-2),
+                ("7b-four-rows", 4, P11_T, 28, 4, 128, bf, (98,) * 4, 1e-2, 2e-2)]
+               if p11_world() == 4 else []),
              ("gqa3-bf16", 3, 70, 6, 2, 128, bf, (0, 33, 69), 1e-2, 2e-2),
              ("mha-bf16", 1, 100, 2, 2, 128, bf, None, 1e-2, 2e-2),
              ("tiny", 2, 45, 4, 2, 16, f32, None, 1e-4, 1e-4),
@@ -1993,7 +2077,9 @@ class ShapeRecorder:
         def recorded_attention(q, k, *a, **kw):
             f32 = ("f32",) if q.dtype == self.f32 else ()
             rows = (f"B{q.shape[0]}",) if q.shape[0] > 1 else ()
-            self.seen.add((name, q.shape[1], k.shape[1]) + f32 + rows)
+            # a rank's own heads on a mesh (the 7B has 28 query heads)
+            heads = (f"H{q.shape[2]}",) if q.shape[2] != 28 else ()
+            self.seen.add((name, q.shape[1], k.shape[1]) + f32 + rows + heads)
             return attend(q, k, *a, **kw)
 
         setattr(mod, name, recorded_attention)
@@ -2131,8 +2217,9 @@ def verify_vs_sequential(sess, cfg, S: int = 8):
 
 
 def phases_4_to_10(gpu: str, seed: int, stats: Stats, phases: set):
-    """The 7B paths, then: every shape they gave a kernel was held against the
-    plain version in phase 2."""
+    """The 7B paths (phases 4 to 11; phase 11's ranks record their own shapes),
+    then: every shape they gave a kernel was held against the plain version in
+    phase 2."""
     phase2_ran = 2 in phases
     with ShapeRecorder() as rec:
         if 4 in phases:
@@ -2149,8 +2236,10 @@ def phases_4_to_10(gpu: str, seed: int, stats: Stats, phases: set):
             phase9(gpu, stats)
         if 10 in phases:
             phase10(gpu, seed, stats)
+        if 11 in phases:
+            phase11(gpu, seed, stats, rec)
     missing = sorted(rec.seen - stats.checked, key=str)
-    print(f"phases 4-10 shapes handed to the kernels: {len(rec.seen)} distinct, "
+    print(f"phases 4-11 shapes handed to the kernels: {len(rec.seen)} distinct, "
           f"{len(missing)} not checked in phase 2"
           + ("" if phase2_ran else " (phase 2 did not run)"), flush=True)
     if phase2_ran and missing:
@@ -4484,14 +4573,486 @@ def phase10e(gpu: str, seed: int, stats: Stats):
         del params, q_vision, trees, frames
 
 
+# -- phase 11: parallelism ------------------------------------------------------------------
+
+# 11a: MultiStreamServer(batch=8) over 8 requests at data 1 x model 2 (model 4 where the
+# host has 4 cards: 7 q / 1 kv head a rank), the sum rule at P11_SUM on every request, a
+# query at t = 0 and on every third request one mid-stream
+P11_LENGTHS = (16, 24, 32, 16, 24, 32, 16, 24)
+P11_STREAM = 48
+P11_SUM = 8.0
+# 11b: the decoder cut to 4 of its 28 layers, full width; a batch of 2 rows of 16 frames
+# left-padded to 1,024 tokens, and for ring attention one row padded to ring_min_seq
+P11_LAYERS = 4
+P11_T = 1024
+P11_RING_T = 2048
+# the local products of a rank at model 2 (11a's serving, 11b's TP step): q/k/v merged
+# from each rank's own blocks (1792 + 256 + 256), o and down split by rows, gate/up by columns
+LAYER_TP2 = [("qkv_tp2", 3584, 2304), ("o_proj_tp2", 1792, 3584),
+             ("gate_up_tp2", 3584, 18944), ("down_tp2", 9472, 3584)]
+LAYER_TP4 = [("qkv_tp4", 3584, 1152), ("o_proj_tp4", 896, 3584),
+             ("gate_up_tp4", 3584, 9472), ("down_tp4", 4736, 3584)]
+LM_HEAD_TP = {2: ("lm_head_tp2", 3584, 76032), 4: ("lm_head_tp4", 3584, 38016)}
+PROJECTOR_TP = {2: (("projector_fc1_tp2", 1024, 1792), ("projector_fc2_tp2", 1792, 3584)),
+                4: (("projector_fc1_tp4", 1024, 896), ("projector_fc2_tp4", 896, 3584))}
+
+
+def p11_world() -> int:
+    """Ranks of phase 11: 4 over NCCL where the host has 4 cards, else 2 that
+    share cuda:0 over gloo."""
+    import torch
+
+    return 4 if torch.cuda.device_count() >= 4 else 2
+
+
+def p11_train_cases(world: int) -> list:
+    """11b: (name, mesh, trunk, TrainConfig fields, batch)."""
+    if world == 4:
+        return [("fsdp_tp", (2, 2), "int4", {}, "b"), ("tp4", (1, 4), "int8", {}, "b"),
+                ("gpipe", (2, 1, 2), "int4", dict(mesh_pipe=2, pipe_microbatches=2), "b"),
+                ("ring", (4, 1), "int8", dict(ring_attention=True, ring_min_seq=P11_RING_T),
+                 "ring")]
+    return [("fsdp", (2, 1), "int4", {}, "b"), ("tp", (1, 2), "int8", {}, "b"),
+            ("gpipe", (1, 1, 2), "int4", dict(mesh_pipe=2, pipe_microbatches=2), "b"),
+            ("ring", (2, 1), "int8", dict(ring_attention=True, ring_min_seq=P11_RING_T), "ring")]
+
+
+def p11_serve_rows() -> set:
+    """Rows of 11a's products: those of phase 7's passes at B = 8 (the same
+    widths and templates) and the projector rows of its requests' last vision
+    batches."""
+    sw = serve8_widths()
+    rows = {SERVE_B * w for k in ("frame_steps", "queries", "mixed", "spec", "fused", "start")
+            for w in sw[k]}
+    return rows | {SERVE_B, 32, 64, 392, 1568}
+
+
+def p11_items(cfg, seed: int):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    frames = torch.randint(0, 256, (P11_STREAM, cfg.frame_resolution, cfg.frame_resolution, 3),
+                           generator=gen, device="cuda", dtype=torch.uint8)
+    items = []
+    for j, n in enumerate(P11_LENGTHS):
+        o = (5 * j) % (P11_STREAM - n + 1)
+        conv = [{"role": "user", "content": QUERY, "time": 0}]
+        if j % 3 == 1:
+            conv.append({"role": "user", "content": QUERY, "time": (n // 2) / 2.0})
+        items.append((f"r{j}", frames[o:o + n], conv,
+                      {"stream_end_score_sum_threshold": P11_SUM}))
+    return items
+
+
+def p11_infer_cfg():
+    from aha_tpu_torch.config import InferConfig
+
+    return InferConfig(frame_fps=2.0, kv_cache_policy="sink", kv_window=2048,
+                       num_sink_tokens=32, fused_score_frames=4, spec_decode_tokens=4,
+                       spec_decode_tokens_max=8, max_new_tokens=16,
+                       stream_end_score_sum_threshold=P11_SUM)
+
+
+def p11_batches(cfg, tok, seed: int, rows: int) -> dict:
+    """11b's batches: ``rows`` rows of 16 frames at 1,024 tokens, and one row of
+    frames at ring_min_seq tokens (both left-padded)."""
+    import numpy as np
+
+    from aha_tpu_torch.train import trainer
+    from aha_tpu_torch.train.trainer import _left_pad
+
+    rng = np.random.default_rng(seed)
+    b, T = trainer.synthetic_batch(cfg, tok, rng, n_frames=16, B=rows)
+    n = 16
+    while True:                       # the most frames that fit in ring_min_seq tokens
+        r, Tr = trainer.synthetic_batch(cfg, tok, np.random.default_rng(seed + 1),
+                                        n_frames=n + 1, B=1)
+        if Tr > P11_RING_T:
+            break
+        n += 1
+    r, Tr = trainer.synthetic_batch(cfg, tok, np.random.default_rng(seed + 1), n_frames=n, B=1)
+    return {"b": _left_pad(b, P11_T - T, tok.pad_token_id),
+            "ring": _left_pad(r, P11_RING_T - Tr, tok.pad_token_id)}
+
+
+def p11_state(cfg, tok, name, shape, mode, extra, seed: int, mesh):
+    """A 4-layer 7B-width QLoRA state (``mode`` trunk; projector and lm_head
+    dense) on ``mesh`` (None: one rank) and its step."""
+    import dataclasses as dc
+
+    from aha_tpu_torch.config import TrainConfig
+    from aha_tpu_torch.models.aha import random_params
+    from aha_tpu_torch.train import trainer
+
+    kw = dict(learning_rate=1e-4, warmup_ratio=0.0, grad_accum_steps=1, remat_policy="full")
+    if mesh is not None:
+        kw.update(mesh_data=shape[0], mesh_model=shape[1], **extra)
+    tc = TrainConfig(**kw)
+    params = random_params(cfg, mode=mode, keep_dense=QLORA_DENSE, seed=seed)
+    state, tx, labels, scale = trainer.init_train_state(cfg, tc, params, total_steps=100,
+                                                        seed=seed, device_mesh=mesh)
+    del params
+    return state, trainer.make_train_step(cfg, tc, tx, labels, scale, device_mesh=state.mesh,
+                                          pad_token_id=tok.pad_token_id)
+
+
+def p11_serve_cmd(d: str, model: int) -> list:
+    """11d (4 cards): ``serve --synthetic_weights --int8 --batch 8`` over two
+    requests on clips written with cv2 under ``d`` (a directory of this rank's
+    own), at data 1 x model ``model``; returns the result lines."""
+    import cv2
+    import numpy as np
+
+    from aha_tpu_torch.cli import cmd_serve
+
+    reqs = []
+    for j in range(2):
+        writer = cv2.VideoWriter(f"{d}/c{j}.mp4", cv2.VideoWriter_fourcc(*"mp4v"), 8.0, (64, 48))
+        for i in range(32):                               # 4 s: 8 frames at 2 fps
+            writer.write(np.full((48, 64, 3), (i * 10 + 40 * j) % 255, np.uint8))
+        writer.release()
+        reqs.append({"key": f"c{j}", "video": f"{d}/c{j}.mp4",
+                     "conversation": [{"role": "user", "content": QUERY, "time": 0}]})
+    with open(f"{d}/requests.jsonl", "w") as f:
+        f.writelines(json.dumps(r) + "\n" for r in reqs)
+    cmd_serve(["--synthetic_weights", "--int8", "--batch", str(SERVE_B), "--input",
+               f"{d}/requests.jsonl", "--output", f"{d}/out.jsonl", "--max_new_tokens", "16",
+               "--stream_end_score_sum_threshold", "3.0", "--emit_scores"]
+              + (["--mesh_model", str(model)] if model > 1 else []))
+    import os
+
+    if not os.path.exists(f"{d}/out.jsonl"):
+        return []
+    with open(f"{d}/out.jsonl") as f:
+        return [json.loads(x) for x in f]
+
+
+def p11_cfg4(cfg):
+    import dataclasses as dc
+
+    return cfg.replace(llm=dc.replace(cfg.llm, num_layers=P11_LAYERS))
+
+
+def phase11_rank(rank: int, world: int, device: str, seed: int, native_ops: list) -> dict:
+    """One rank of phase 11: the collectives probed on this backend, 11a's
+    sharded server, 11b's sharded train steps; returns what the parent prints
+    and holds (every rank its own counts and times; rank 0 the results)."""
+    import torch
+
+    from aha_tpu_torch.models.aha import random_params
+    from aha_tpu_torch.ops import kernels
+    from aha_tpu_torch.ops.kernels import _build
+    from aha_tpu_torch.parallel import comm as C
+    from aha_tpu_torch.parallel.mesh import make_mesh
+    from aha_tpu_torch.streaming.multi import MultiStreamServer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.library()
+    out = {"rank": rank, "device": str(torch.cuda.current_device())}
+    C.GLOO_CUDA_NATIVE = set(native_ops)        # phase 1's probe
+    mesh = make_mesh(1, world)
+    cfg, tok = _model("7b")
+    with ShapeRecorder() as rec:
+        # -- 11a: sharded serving ------------------------------------------------------
+        items = p11_items(cfg, seed)
+        params = random_params(cfg, mode="int8", seed=seed)
+        server = MultiStreamServer(params, cfg, tok, p11_infer_cfg(), batch=SERVE_B,
+                                   max_frames=max(P11_LENGTHS), mesh=mesh)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        kernels.reset_launches()
+        C.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = server.run_items(items, fps=2.0)
+        torch.cuda.synchronize()
+        out["11a"] = dict(seconds=time.perf_counter() - t0, launches=dict(kernels.LAUNCHES),
+                          collectives=dict(C.COUNTS), staged=dict(C.STAGED),
+                          latency=server.latency_stats(),
+                          memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        if rank == 0:
+            out["11a"]["results"] = res
+        del server, items
+        gc.collect()
+        torch.cuda.empty_cache()
+        # -- 11b: sharded train steps at 4 layers --------------------------------------------
+        cfg4 = p11_cfg4(cfg)
+        batches = p11_batches(cfg4, tok, seed, rows=2 if world == 2 else 4)
+        out["11b"] = {}
+        for name, shape, mode, extra, which in p11_train_cases(world):
+            m = make_mesh(*shape)
+            state, step = p11_state(cfg4, tok, name, shape, mode, extra, seed, m)
+            kernels.reset_launches()
+            C.reset_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, parts = step(state, batches[which])
+            losses = [float(parts.total)]
+            torch.cuda.synchronize()
+            ms = [(time.perf_counter() - t) * 1e3]
+            out["11b"][name] = dict(losses=losses, ms=ms, launches=dict(kernels.LAUNCHES),
+                                    collectives=dict(C.COUNTS), staged=dict(C.STAGED))
+            del state, step
+            gc.collect()
+            torch.cuda.empty_cache()
+        if world == 4:
+            # 11d: the command itself at model 4 (7 q / 1 kv head a rank)
+            import tempfile
+
+            with tempfile.TemporaryDirectory() as d:
+                t0 = time.perf_counter()
+                out["11d"] = dict(lines=p11_serve_cmd(d, world),
+                                  seconds=time.perf_counter() - t0)
+    out["shapes"] = rec.seen
+    return out
+
+
+def probe_rank(rank: int, world: int, device: str, op: str) -> bool:
+    """Phase 1's probe on one rank of a world of its own: ``op`` once on a CUDA
+    tensor over this backend (gloo may end the process on one it refuses)."""
+    from aha_tpu_torch.parallel import comm as C
+    from aha_tpu_torch.parallel.mesh import make_mesh
+
+    return C.probe_op(make_mesh(1, world).comm("model"), op, "cuda")
+
+
+def start_probes(world: int) -> dict:
+    """One throwaway world a collective, all started at once."""
+    from aha_tpu_torch.parallel import comm as C
+    from aha_tpu_torch.parallel.launch import start
+
+    backend = "nccl" if world == 4 else "gloo"
+    return {op: start(probe_rank, world, op, device="cuda", backend=backend, timeout=60)
+            for op in C.OPS}
+
+
+def probed(worlds: dict) -> dict:
+    """op -> True where every rank ran it, False where one failed or ended."""
+    out = {}
+    for op, w in worlds.items():
+        try:
+            out[op] = all(w.result())
+        except (RuntimeError, TimeoutError):
+            out[op] = False
+    return out
+
+
+def phase11c(gpu: str):
+    """The native decoder: built or not (and why); on a clip written here, its
+    frames against the cv2 path's in count and source indices."""
+    import tempfile
+
+    import numpy as np
+
+    from aha_tpu_torch import native
+    from aha_tpu_torch.data import media
+
+    t0 = time.perf_counter()
+    ok = native.available()
+    t_build = time.perf_counter() - t0
+    if not ok:
+        print(f"phase11c native decoder not built ({native.build_error}); media.decode_video "
+              f"keeps cv2 [{gpu}]", flush=True)
+        return
+    import cv2
+
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/clip.mp4"
+        out = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 30.0, (320, 240))
+        rng = np.random.default_rng(0)
+        for i in range(150):
+            f = np.full((240, 320, 3), (i * 7) % 255, np.uint8)
+            f[40:80, 40:120] = rng.integers(0, 255, (40, 80, 3))
+            out.write(f)
+        out.release()
+        t0 = time.perf_counter()
+        nat, ni = native.decode_video_native(path, output_fps=2.0, output_size=384)
+        t_nat = time.perf_counter() - t0
+        import os
+
+        os.environ["AHA_NATIVE_DECODER"] = "off"
+        try:
+            t0 = time.perf_counter()
+            cv, ci = media.decode_video(path, output_fps=2.0, output_size=384)
+            t_cv = time.perf_counter() - t0
+        finally:
+            del os.environ["AHA_NATIVE_DECODER"]
+    gap = float(np.abs(nat.astype(np.int16) - cv.astype(np.int16)).mean())
+    print(f"phase11c native decoder built (load {t_build:.2f}s): a 5 s clip at 30 fps, 320 x "
+          f"240 decoded at 2 fps to 384: {len(ni)} frames natively in {t_nat * 1e3:.1f} ms, "
+          f"{len(ci)} with cv2 in {t_cv * 1e3:.1f} ms; indices equal {ni == ci}; mean pixel "
+          f"gap {gap:.3f} [{gpu}]", flush=True)
+    if ni != ci or len(ni) != 10 or gap > 8.0:
+        raise AssertionError(f"phase11c: native {ni} against cv2 {ci}, gap {gap}")
+
+
+def phase11(gpu: str, seed: int, stats: Stats, rec):
+    """Parallelism on the card: 11a sharded serving and 11b sharded train steps
+    on a world of 2 ranks sharing cuda:0 over gloo (4 over NCCL where the host
+    has 4 cards), each held against the one-rank run this process makes
+    meanwhile; 11c the native decoder."""
+    import numpy as np
+    import torch
+
+    from aha_tpu_torch import golden
+    from aha_tpu_torch.models.aha import random_params
+    from aha_tpu_torch.ops import kernels
+    from aha_tpu_torch.parallel.launch import start
+    from aha_tpu_torch.streaming.multi import MultiStreamServer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    world = p11_world()
+    backend = "nccl" if world == 4 else "gloo"
+    ranks = start(phase11_rank, world, seed, stats.native_ops, device="cuda", backend=backend,
+                  timeout=600, threads=4)
+    phase11c(gpu)
+    cfg, tok = _model("7b")
+    # 11b's one-rank first losses, then 11a's one-rank server, while the ranks run
+    cfg4 = p11_cfg4(cfg)
+    batches = p11_batches(cfg4, tok, seed, rows=2 if world == 2 else 4)
+    one_loss = {}
+    for mode, which in (("int4", "b"), ("int8", "b"), ("int8", "ring")):
+        state, step = p11_state(cfg4, tok, "one", None, mode, {}, seed, None)
+        _, parts = step(state, batches[which])
+        one_loss[(mode, which)] = float(parts.total)
+        del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    items = p11_items(cfg, seed)
+    params = random_params(cfg, mode="int8", seed=seed)
+    server = MultiStreamServer(params, cfg, tok, p11_infer_cfg(), batch=SERVE_B,
+                               max_frames=max(P11_LENGTHS))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = server.run_items(items, fps=2.0)
+    torch.cuda.synchronize()
+    t_one = time.perf_counter() - t0
+    del server
+    t_wait = time.perf_counter()
+    outs = ranks.result()
+    t_wait = time.perf_counter() - t_wait
+    rec.seen |= outs[0]["shapes"]
+    print(f"phase11 world {world} ({backend}{', one card shared' if world == 2 else ''}) "
+          f"[{gpu}]: collectives taken on CUDA tensors {stats.native_ops} (phase 1); the "
+          f"others staged through pinned host memory", flush=True)
+
+    # -- 11a ------------------------------------------------------------------------------
+    atol, rtol = golden.ATOL["chip7b"], golden.RTOL
+    got = outs[0]["11a"]["results"]
+    n_frames = sum(P11_LENGTHS)
+    failed, n_resp, n_same, parted = [], 0, 0, []
+    for key, video, conv, rule in items:
+        g, r = got[key], one[key]
+        rows, ref_rows = g["debug_data"], r["debug_data"]
+        fired = [round(t["time"] * 2.0) for t in g["responses"] if t["role"] == "assistant"]
+        ref_fired = [round(t["time"] * 2.0) for t in r["responses"]
+                     if t["role"] == "assistant"]
+        upto = min(sorted(set(fired) ^ set(ref_fired)) or [len(video)])
+        a = np.asarray([[x[k] for k in SCORE_KEYS] for x in rows[:upto + 1]], np.float64)
+        b = np.asarray([[x[k] for k in SCORE_KEYS] for x in ref_rows[:upto + 1]], np.float64)
+        gaps, within = golden.score_gaps(a.reshape(-1, 3), b.reshape(-1, 3), atol, rtol)
+        bt, st = texts(g["responses"]), texts(r["responses"])
+        same = 0
+        while same < min(len(bt), len(st)) and fired[same] == ref_fired[same] and \
+                bt[same] == st[same]:
+            same += 1
+        n_resp += len(bt)
+        n_same += same
+        if same < min(len(bt), len(st)) and fired[same] == ref_fired[same]:
+            with golden.recorded_logits() as logits:
+                _, turns1, *_ = solo_run(params, cfg, tok, video, conv, rule,
+                                         dict(fused_score_frames=4, spec_decode_tokens=1,
+                                              spec_decode_tokens_max=1))
+            div = golden.first_divergences(texts(turns1)[:same + 1], bt[:same + 1], tok, logits)
+            d = next((x for x in div if x is not None), None)
+            parted.append({"key": key, "response": same, "divergence": d})
+        ok = (len(rows) == len(video) and within
+              and all(math.isfinite(x[k]) for x in rows for k in SCORE_KEYS))
+        if not ok:
+            failed.append(f"{key}: {len(rows)} frames, responses {fired} / {ref_fired}, "
+                          f"gaps {gaps.tolist()}")
+        print(f"phase11a {key} {len(video)} frames: responses at {fired} (one rank: "
+              f"{ref_fired}); largest score gap per column {gaps.tolist()} up to the first "
+              f"differing decision (within atol 2e-2 + rtol 5e-2: {within}); texts equal for "
+              f"{same} of {len(bt)}", flush=True)
+    del params
+    for o in outs:
+        a = o["11a"]
+        print(f"phase11a rank {o['rank']} [{gpu}]: {a['seconds']:.3f}s = "
+              f"{n_frames / a['seconds']:.2f} frames/s ({n_frames} frames, "
+              f"{a['latency'].get('tokens', 0)} tokens), peak {a['memory_gb']:.2f} GB; "
+              f"launches {a['launches']}; collectives {a['collectives']}, staged "
+              f"{a['staged']}", flush=True)
+    print(f"phase11a MultiStreamServer batch {SERVE_B} at data 1 x model {world}, "
+          f"{len(P11_LENGTHS)} requests, fused 4, generation 4->8, max_new_tokens 16 [{gpu}]: "
+          f"one rank {t_one:.3f}s = {n_frames / t_one:.2f} frames/s (run in this process while "
+          f"the ranks ran); {n_resp} responses, texts equal {n_same}; parted {parted}",
+          flush=True)
+    counts = outs[0]["11a"]["launches"]
+    if counts.get("int8_matmul", 0) <= 0 or counts.get("decode_attention", 0) <= 0:
+        failed.append(f"kernels not launched on the sharded path: {counts}")
+    if n_resp < 4:
+        failed.append(f"{n_resp} responses")
+    for p in parted:
+        # None: the sharded text is the solo width-1 text (the one-rank server parted)
+        d = p["divergence"]
+        steps = 0.0 if d is None else d.get("gap_bf16_steps", float("inf"))
+        if not steps <= 2.0:
+            failed.append(f"{p['key']} parts {steps} bf16 steps from the top")
+    stats.launches(counts)
+
+    # -- 11b ------------------------------------------------------------------------------
+    for name, shape, mode, extra, which in p11_train_cases(world):
+        r = outs[0]["11b"][name]
+        ref = one_loss[(mode, which)]
+        rel = abs(r["losses"][0] - ref) / abs(ref)
+        ok = all(math.isfinite(x) for x in r["losses"]) and rel <= 1e-2
+        per_rank = [o["11b"][name]["ms"][0] for o in outs]
+        print(f"phase11b {name} mesh {'x'.join(map(str, shape))} {mode} trunk, {P11_LAYERS} of "
+              f"28 layers at full width, batch {which} [{gpu}]: losses {r['losses']} (one rank "
+              f"{ref:.6f}, relative gap {rel:.2e}); ms of the step per rank {per_rank} (the "
+              f"first: every kernel and collective's first use in it); launches "
+              f"{r['launches']}; collectives {r['collectives']}, staged {r['staged']}",
+              flush=True)
+        if not ok:
+            failed.append(f"11b {name}: losses {r['losses']} against {ref}")
+        stats.launches(r["launches"])
+    if world == 4:
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as d:
+            ref = {x["key"]: x for x in p11_serve_cmd(d, 1)}
+        got = {x["key"]: x for x in outs[0]["11d"]["lines"]}
+        same_keys = set(got) == set(ref) == {"c0", "c1"}
+        rows = {k: (len(got[k]["debug_data"]), len(ref[k]["debug_data"])) for k in got}
+        times = {k: ([t["time"] for t in got[k]["responses"] if t["role"] == "assistant"],
+                     [t["time"] for t in ref[k]["responses"] if t["role"] == "assistant"])
+                 for k in got}
+        print(f"phase11d serve --synthetic_weights --int8 --batch 8 --mesh_model 4 under a "
+              f"world of 4 [{gpu}]: {outs[0]['11d']['seconds']:.2f}s with the weights; keys "
+              f"{sorted(got)}; frames scored per key (sharded, one rank) {rows}; response "
+              f"times {times}", flush=True)
+        if not same_keys or any(a != b for a, b in rows.values()):
+            failed.append(f"11d: keys {sorted(got)}, frames {rows}")
+    print(f"phase11 took {time.perf_counter() - t_phase:.1f}s (waited {t_wait:.1f}s for the "
+          f"ranks)", flush=True)
+    if failed:
+        raise AssertionError(f"phase11: {failed}")
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
                     help="comma-separated phases (1 device, 2 kernels, 3 tiny slices, 4 7B "
                          "serving, 5 7B training, 6 JAX's weights, 7 multi-stream serving, 8 "
                          "the serving options: adapters, --w8a8, 9 the highlight chain: "
                          "infer tvsum, grid-search, evaluate, highlight, 10 the live-video "
-                         "datasets, demo, the interactive API, the judge, the towers); "
+                         "datasets, demo, the interactive API, the judge, the towers, 11 "
+                         "parallelism: sharded serving and training, the native decoder); "
                          "anything short of all of them exits 1 with no result line")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -4515,6 +5076,7 @@ def main() -> int:
     t_start = time.perf_counter()
     gpu = gpu_line()
     print(gpu, flush=True)
+    world = p11_world()
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip().splitlines()[-1]
     t0 = time.perf_counter()
@@ -4524,6 +5086,20 @@ def main() -> int:
           f"{_build.build_seconds if _build.build_seconds is not None else 0.0:.2f}s "
           f"(load {time.perf_counter() - t0:.2f}s)", flush=True)
     print(f"phase1 {check_ptxas(_build.ptxas_log)}", flush=True)
+    # each collective probed in a throwaway world while phase 2 runs (the ranks start
+    # after the build, so that their interpreters do not slow nvcc)
+    probes = start_probes(world)
+
+    def print_probes():
+        from aha_tpu_torch import native
+
+        native_ops = probed(probes)
+        print(f"phase1 collectives on CUDA tensors, {world} ranks over "
+          f"{'nccl' if world == 4 else 'gloo (sharing cuda:0)'}, each probed in a world of its "
+          f"own: {', '.join(f'{k} ' + ('taken' if v else 'refused: staged through pinned host memory') for k, v in native_ops.items())}; "
+          f"native decoder: {'built' if native.available() else f'not built ({native.build_error})'}",
+          flush=True)
+        return sorted(op for op, ok in native_ops.items() if ok)
 
     stats = Stats()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -4545,10 +5121,11 @@ def main() -> int:
               flush=True)
         gc.collect()
         torch.cuda.empty_cache()
+    stats.native_ops = print_probes()
     if 3 in phases:
         phase3(args.seed)
         phase3_train(args.seed)
-    if phases & {4, 5, 6, 7, 8, 9, 10}:
+    if phases & {4, 5, 6, 7, 8, 9, 10, 11}:
         phases_4_to_10(gpu, args.seed, stats, phases)
 
     print(f"{gpu}; chip_smoke took {time.perf_counter() - t_start:.1f}s", flush=True)
@@ -4559,7 +5136,7 @@ def main() -> int:
          "bound_ms": stats.k[n]["bound_ms"], "bound_by": stats.k[n]["bound_by"],
          "library_ms": stats.k[n]["library_ms"], "shape": stats.k[n]["shape"]}
         for n, (src, tpu) in KERNELS.items()]}), flush=True)
-    if phases != {1, 2, 3, 4, 5, 6, 7, 8, 9, 10}:
+    if phases != set(range(1, 12)):
         print(f"chip_smoke: ran phases {sorted(phases)} only", file=sys.stderr)
         return 1
     missing = [n for n in KERNELS if stats.k[n]["launches"] <= 0]

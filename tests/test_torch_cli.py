@@ -81,8 +81,9 @@ def video_dir(tmp_path_factory):
 @pytest.fixture()
 def cv2_only(monkeypatch):
     """JAX's decoder prefers its native libav build where there is one; the
-    port decodes with cv2 only, so JAX is held to its cv2 path."""
+    port's does too, so both are held to their cv2 paths."""
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setenv("AHA_NATIVE_DECODER", "off")   # the port's too
 
 
 @pytest.mark.parametrize("fps,size,max_frames", [(2.0, 32, None), (3.0, 40, 5), (8.0, 24, None),

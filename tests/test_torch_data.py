@@ -8,7 +8,7 @@ The data code is host-side numpy and Python's ``random`` in both packages, so
 every comparison is exact (arrays equal) except ``extract_features``, whose
 embeds come from the two packages' vision towers on bridged tiny params
 (atol 1e-5). JAX's decoder prefers its native libav build where there is one;
-the port decodes with cv2 only, so JAX is held to its cv2 path. Grounding
+the port's does too, so both are held to their cv2 paths. Grounding
 templates are drawn from the global ``random`` where no generator is passed
 (as in JAX): it is seeded before each build.
 """
@@ -49,6 +49,7 @@ F = 3          # frame tokens in these tests' templates
 @pytest.fixture(autouse=True)
 def cv2_only(monkeypatch):
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setenv("AHA_NATIVE_DECODER", "off")   # the port's too
 
 
 def toks(vocab=512, frame_num_tokens=F):

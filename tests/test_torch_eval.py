@@ -917,6 +917,7 @@ def test_run_offline_baseline_matches_jax(offline_sessions, tmp_path, monkeypatc
     from aha_tpu_torch.drivers import benchmarks
 
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setenv("AHA_NATIVE_DECODER", "off")   # the port's too
     for i, name in enumerate(("vidA", "vidB")):
         write_clip(tmp_path / f"{name}.mp4", n_frames=40, seed=i)
     (tmp_path / "qa.json").write_text(json.dumps([

@@ -63,10 +63,11 @@ def _one_torch_thread():
 
 @pytest.fixture(autouse=True, scope="module")
 def _cv2_only():
-    """JAX decodes with its native libav build where there is one; the port
-    decodes with cv2 only, so JAX is held to its cv2 path."""
+    """Both packages decode with their native libav builds where there is
+    one; both are held to their cv2 paths here."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(native, "available", lambda: False)
+        mp.setenv("AHA_NATIVE_DECODER", "off")   # the port's too
         yield
 
 

@@ -62,9 +62,10 @@ def _one_torch_thread():
 
 @pytest.fixture(autouse=True)
 def _cv2_decoder(monkeypatch):
-    """JAX decodes with its native libav build where there is one; the port
-    with cv2, so JAX is held to its cv2 path."""
+    """Both packages decode with their native libav builds where there is
+    one; both are held to their cv2 paths."""
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setenv("AHA_NATIVE_DECODER", "off")   # the port's too
 
 
 def stepped_frames(n: int, hw=(40, 48), seed: int = 0) -> np.ndarray:

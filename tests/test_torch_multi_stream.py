@@ -408,13 +408,17 @@ def test_server_matches_solo_sessions(model, case, width):
 
 
 def test_refusals(model):
-    """Sharded serving is refused with its ROADMAP item; adapters are taken
-    now, and go to the engine (tests/test_torch_adapters.py serves them)."""
+    """``mesh=`` is taken: a one-rank mesh serves as no mesh does (sharded
+    meshes: tests/test_torch_sharded_serving.py); adapters are taken too, and
+    go to the engine (tests/test_torch_adapters.py serves them)."""
+    from aha_tpu_torch.parallel.mesh import make_mesh
+
     _, _, _, tparams, tcfg, ttok = model
     kw = _kw(stream_end_prob_threshold=0.5)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        multi.MultiStreamServer(tparams, tcfg, ttok, InferConfig(**kw), batch=2, max_frames=4,
-                                mesh=object(), **CPU)
+    mesh = make_mesh(1, 1)
+    server = multi.MultiStreamServer(tparams, tcfg, ttok, InferConfig(**kw), batch=2,
+                                     max_frames=4, mesh=mesh, **CPU)
+    assert server.engine.mesh is None and server.engine.params is tparams
     scorer = multi.MultiStreamScorer(tparams, tcfg, ttok, InferConfig(**kw), batch=2, lora={},
                                      lora_scale=2.0, **CPU)
     assert scorer.engine.lora == {} and scorer.engine.lora_scale == 2.0

@@ -529,7 +529,11 @@ def test_port_runs_without_jax():
     int4 QLoRA train step on the CPU from seeded synthetic params. The
     weights' modules (``models/jax_random.py``, ``models/loader.py``,
     ``golden.py``) are among those imported; they run with jax blocked in
-    ``tests/test_torch_loader.py::test_weights_run_without_jax``."""
+    ``tests/test_torch_loader.py::test_weights_run_without_jax``. The
+    parallel modules (``parallel/``, ``utils/dist.py``, ``dryrun_multichip``)
+    and the native decoder (``native``) come in with the rest: the clip decoded
+    natively where libav is built, the tiny tree's specs on a 2 x 2 mesh, ring
+    attention at one rank."""
     code = textwrap.dedent(f"""
         import importlib.abc, sys
 
@@ -711,6 +715,26 @@ def test_port_runs_without_jax():
         # the weights' modules came in with the rest (their runs: test_torch_loader.py)
         for m in ("aha_tpu_torch.models.jax_random", "aha_tpu_torch.models.loader",
                   "aha_tpu_torch.golden"):
+            assert m in sys.modules, m
+        # parallelism and the native decoder (their runs: test_torch_parallel.py,
+        # test_torch_sharded_serving.py, test_torch_dist_cli.py, test_torch_native_decoder.py)
+        import torch
+        from aha_tpu_torch import native
+        if native.available():
+            frames, idx = native.decode_video_native(os.path.join(d, "v.mp4"), output_fps=2.0,
+                                                     output_size=32)
+            assert frames.shape == (4, 32, 32, 3) and idx == [0, 2, 4, 6], idx
+        from aha_tpu_torch.parallel.mesh import Mesh, param_specs
+        from aha_tpu_torch.parallel.ring_attention import ring_causal_attention
+        specs = param_specs(params, Mesh(2, 2, groups=False))
+        assert specs["llm"]["lm_head"]["kernel"]["q4value"] == ("data", "model")
+        q = torch.randn(1, 5, 2, 4)
+        assert ring_causal_attention(q, q, q, None).shape == q.shape
+        for m in ("aha_tpu_torch.parallel.mesh", "aha_tpu_torch.parallel.comm",
+                  "aha_tpu_torch.parallel.sharded", "aha_tpu_torch.parallel.pipeline",
+                  "aha_tpu_torch.parallel.ring_attention", "aha_tpu_torch.parallel.launch",
+                  "aha_tpu_torch.utils.dist", "aha_tpu_torch.dryrun_multichip",
+                  "aha_tpu_torch.native"):
             assert m in sys.modules, m
         bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "aha_tpu")]
         assert not bad, bad

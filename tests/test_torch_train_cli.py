@@ -16,7 +16,7 @@ Both packages train from JAX's seed-0 weights and JAX's adapter draw
 adapter-input dropout off (the two packages draw their masks from different
 generators, equal in distribution only), one decode worker (two threads
 would race on a dataset's instruction draws, in JAX as in the port), JAX on
-its cv2 decoder (the port has no native one), and the global ``random``
+both on their cv2 decoders, and the global ``random``
 seeded before each run (the grounding templates are drawn from it, in both).
 """
 
@@ -73,6 +73,7 @@ def _one_torch_thread():
 @pytest.fixture()
 def held_equal(monkeypatch):
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setenv("AHA_NATIVE_DECODER", "off")   # the port's too
     for mod in (jtrainer, ttrainer):
         make = mod.make_train_step
 
@@ -284,9 +285,17 @@ def test_resumed_run_equals_uninterrupted(data, tmp_path, held_equal, monkeypatc
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--mesh_model", "2"], "item 12"), (["--mesh_data", "4"], "item 12"),
-    (["--mesh_pipe", "2", "--pipe_microbatches", "4"], "item 12"), (["--wandb"], "Do not port")])
+    pytest.param(["--mesh_model", "2"], "mesh 1x2 needs 2 ranks; start it with torchrun "
+                 "--nproc_per_node 2", id="flags0-item 12"),
+    pytest.param(["--mesh_data", "4"], "mesh 4x1 needs 4 ranks; start it with torchrun "
+                 "--nproc_per_node 4", id="flags1-item 12"),
+    pytest.param(["--mesh_pipe", "2", "--pipe_microbatches", "4"], "mesh 1x1x2 needs 2 ranks; "
+                 "start it with torchrun --nproc_per_node 2", id="flags2-item 12"),
+    pytest.param(["--wandb"], "Do not port", id="flags3-Do not port")])
 def test_refused_flags_exit_2(data, tmp_path, capsys, flags, item):
+    """In one process, without a world of the mesh's size, the mesh flags exit
+    2 naming the ranks the mesh needs (they run under torchrun:
+    tests/test_torch_dist_cli.py); --wandb stays refused."""
     argv = ["train", "--device", "cpu", *base_flags(data), "--num_steps", "1",
             "--output_dir", str(tmp_path), *flags]
     assert main(argv) == 2
