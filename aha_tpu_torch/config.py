@@ -303,7 +303,10 @@ class InferConfig:
     # incl. its post-fill intra-chunk non-causality (CachePolicy.mask_mode);
     # "strict": true causal order <= g
     kv_mask_mode: str = "hf"
-    # multi-stream serving knob (not ported; kept for field parity)
+    # multi-stream serving: the server's mixed loop returns to the host once this
+    # many rows have reached their frame limit (or a response finished), so slots
+    # are retired and refilled in batches (streaming/engine_serve.py); per-row
+    # outputs are the same whatever the value
     retire_defer: int = 1
     # fused frame scoring: frames verified per decoder weight stream on the
     # scoring path (score_video). 1 = one pass per frame. Exact score and

@@ -7,7 +7,8 @@
 #include <stdint.h>
 
 // dtype codes passed by the Python wrappers
-enum AhaDtype { AHA_F32 = 0, AHA_BF16 = 1, AHA_I8 = 2 };
+// AHA_BF16X3: an f32 x as its three bf16 planes [3, M, K] (split_bf16x3)
+enum AhaDtype { AHA_F32 = 0, AHA_BF16 = 1, AHA_I8 = 2, AHA_BF16X3 = 3 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }

@@ -36,7 +36,8 @@
 //     and the mma.sync kernel 0.35 (M = 4 .. 13), the lm_head 0.11 ms where they
 //     took 0.24 and 0.59 (NVIDIA H100 80GB HBM3, 700 W; bounds 0.036 and
 //     0.084 ms, bytes).
-//   * wgmma (as decode, M >= 17): section "tensor-core path, wgmma" below. The
+//   * wgmma (as decode, M >= 17; also f32 x weight-only from 17 rows, as three
+//     bf16 planes, with an f32 output): section "tensor-core path, wgmma" below. The
 //     product is turned round (y^T = W^T x^T), the unpacked weight is the
 //     register operand of the warpgroup products (m64nTMk16 bf16, or m64nTMk32
 //     s8) and never touches shared memory, raw bytes, x tiles and scales arrive
@@ -53,7 +54,8 @@
 //     bf16. A warp keeps two accumulator sets: the running group's (f32 or
 //     int32) and the total (f32); at a group's last K step the first is
 //     scaled into the second.
-//   * CUDA cores (M = 1 off the decode path, f32 x, ragged shapes): a block covers 128 columns;
+//   * CUDA cores (M = 1 off the decode path, f32 x at 1 .. 16 rows, ragged shapes): a
+//     block covers 128 columns;
 //     each of its 256 threads owns 16 contiguous columns (one 16-byte load
 //     = 16 columns x 2 rows) and one of 32 lanes along K. The lanes are 4
 //     group slots x 8 row lanes: a thread walks whole groups, so that it
@@ -340,6 +342,19 @@ int4_mm_tc_kernel(const void* __restrict__ x, const float* __restrict__ sx,
 //     one cast. The kernel starts while the quantiser ahead of it runs
 //     (programmatic dependent launch): the weight and scale copies of the first
 //     stages are in flight before it waits for xq and sx.
+//   * f32 x, weight-only, f32 output (PL = 3), as int8_matmul.cu's: x arrives as
+//     its three bf16 planes ([3, M, K], split_bf16x3 in csrc/quantize_rows.cu),
+//     the stage holds the three x tiles one after another, and each piece's
+//     unpacked register is the operand of three products (hi, mid, lo) into the
+//     group's f32 sum, which then takes its scale as with bf16 x: the planes add
+//     up within the group before the bf16 group scale, as the TPU kernel's f32
+//     dot of a group does (acc += part * s). Values -8 .. 7 and the planes are
+//     exact in bf16, so each product is exact, and a group's sum takes 24 of them
+//     (G 128). The ring is as deep as two blocks an SM leave room for (three to
+//     six slots); the kernel starts while the split ahead of it runs, as behind
+//     the quantiser. A 7B decoder layer at M = 49 takes 0.31 ms, where the
+//     CUDA-core kernel took 4.65; at 196 0.91 against 17.26 (NVIDIA H100 80GB
+//     HBM3, 700 W).
 //
 // The two slabs alternate: while the tensor cores run one slab's products of a
 // stage, the threads unpack the other's operand. After a group's last stage the
@@ -365,8 +380,9 @@ using namespace wg;
 constexpr int kSlabs = 2;             // 64-column slabs of the weight per block
 constexpr int kBN = 64 * kSlabs;      // weight columns per block
 constexpr int kKS = 64;               // contraction depth of a stage
-constexpr int kStages = 6;            // ring slots; kStages - 2 stages are in flight
+constexpr int kMaxStages = 6;         // ring slots at most; all but two stages are in flight
 constexpr int kSBytes = kBN * 2;      // the group's scales of the block's columns
+constexpr int kSmemPerSm = 233472;    // 228 KB, of which each block costs 1 KB more
 
 // what the two operand types change: the x tile's row bytes, the packed rows'
 // stride, the pieces of a stage, the group sums' type
@@ -381,12 +397,21 @@ template <> struct Operand<true> {
   static constexpr int kXRow = 64, kWRow = 144, kPieces = 2;
 };
 
-// the x tile, then the packed bytes and the scales from a multiple of 1024 bytes
-template <bool A8> __host__ __device__ constexpr int stage_bytes(int TM) {
-  return TM * Operand<A8>::kXRow + ((kKS / 2) * Operand<A8>::kWRow + kSBytes + 1023) / 1024 * 1024;
+// the x tile (PL tiles: the planes of an f32 x), then the packed bytes and the scales
+// from a multiple of 1024 bytes
+template <bool A8, int PL = 1> __host__ __device__ constexpr int stage_bytes(int TM) {
+  return PL * TM * Operand<A8>::kXRow +
+         ((kKS / 2) * Operand<A8>::kWRow + kSBytes + 1023) / 1024 * 1024;
 }
-template <bool A8> __host__ __device__ constexpr int smem_bytes(int TM) {
-  return kStages * stage_bytes<A8>(TM) + kAlignSlack;
+// ring slots: six, or as many as two blocks an SM leave room for (f32 x)
+template <bool A8, int PL = 1> __host__ __device__ constexpr int stages(int TM) {
+  return PL == 1 ? kMaxStages
+         : (kSmemPerSm / 2 - 1024 - kAlignSlack) / stage_bytes<A8, PL>(TM) < kMaxStages
+             ? (kSmemPerSm / 2 - 1024 - kAlignSlack) / stage_bytes<A8, PL>(TM)
+             : kMaxStages;
+}
+template <bool A8, int PL = 1> __host__ __device__ constexpr int smem_bytes(int TM) {
+  return stages<A8, PL>(TM) * stage_bytes<A8, PL>(TM) + kAlignSlack;
 }
 
 // the constants the unpacking holds in registers: 0x43 in every byte (bf16 x), the
@@ -446,6 +471,19 @@ __device__ __forceinline__ void slab_products(int (&grp)[TM / 2], const uint32_t
   wgmma_rs_s8<TM>(grp, a[0], xd[0], ACC);
   wgmma_rs_s8<TM>(grp, a[1], xd[1], 1);
 }
+// the same with the three planes of an f32 x: piece p of each plane (hi, mid, lo) times
+// the piece's operand, one after another into the group's sum
+template <int TM, int ACC>
+__device__ __forceinline__ void slab_products(float (&grp)[TM / 2], const uint32_t (&a)[4][4],
+                                              const uint64_t (&xd)[3][4]) {
+  wgmma_rs<TM>(grp, a[0], xd[0][0], ACC);
+  wgmma_rs<TM>(grp, a[0], xd[1][0], 1);
+  wgmma_rs<TM>(grp, a[0], xd[2][0], 1);
+#pragma unroll
+  for (int p = 1; p < 4; ++p)
+#pragma unroll
+    for (int q = 0; q < 3; ++q) wgmma_rs<TM>(grp, a[p], xd[q][p], 1);
+}
 __device__ __forceinline__ void desc_pieces(uint64_t (&d)[4], uint32_t tile) {
   wg_desc_pieces(d, tile);
 }
@@ -469,14 +507,21 @@ __device__ __forceinline__ void add_scaled(float (&tot)[NA], const Grp (&grp)[NA
   for (int e = 0; e < NA; ++e) tot[e] = scaled_add(tot[e], grp[e], (e & 2) ? s_b : s_a);
 }
 
-template <bool A8, int TM>
+// PL: the x planes (1; 3 for f32 x split into bf16 planes [3, M, K], f32 output)
+template <bool A8, int TM, int PL>
 __global__ void __launch_bounds__(kWgThreads, 2)
 int4_mm_wgmma_kernel(const typename Operand<A8>::X* __restrict__ x, const float* __restrict__ sx,
                      const uint8_t* __restrict__ w, const bf16* __restrict__ scale4,
-                     bf16* __restrict__ y, float* __restrict__ ws, int M, int K, int N, int G,
-                     int k_per_split, int splits) {
+                     std::conditional_t<PL == 3, float, bf16>* __restrict__ y,
+                     float* __restrict__ ws, int M, int K, int N, int G, int k_per_split,
+                     int splits) {
   using Op = Operand<A8>;
-  constexpr int kStage = stage_bytes<A8>(TM), NA = TM / 2, P = Op::kPieces, kWRow = Op::kWRow;
+  constexpr int kStages = stages<A8, PL>(TM), kStage = stage_bytes<A8, PL>(TM), NA = TM / 2;
+  constexpr int P = Op::kPieces, kWRow = Op::kWRow;
+  // the kernels launched to start while the grid ahead of them (quantiser, split) runs
+  constexpr bool kBehindPrior = A8 || PL == 3;
+  static_assert(PL == 1 || (PL == 3 && !A8), "planes of bf16 x only");
+  static_assert(kStages >= 3, "the ring needs a slot in use, one in flight and one free");
   extern __shared__ __align__(128) unsigned char smem_w4[];
   unsigned char* ring = align_tiles(smem_w4);
   const uint32_t ring_a = smem_addr(ring);
@@ -493,7 +538,9 @@ int4_mm_wgmma_kernel(const typename Operand<A8>::X* __restrict__ x, const float*
   // packed bytes (row idx / 8, columns 16 (idx % 8) ..), and for 16 threads 8 scales
   const std::conditional_t<A8, Rows64Copy<TM>, RowsCopy<TM>> copy_x(static_cast<size_t>(K));
   const typename Op::X* xsrc = x + static_cast<size_t>(m0) * K + kbeg;
-  constexpr int kWOff = TM * Op::kXRow, kSOff = kWOff + (kKS / 2) * kWRow;
+  const size_t plane = static_cast<size_t>(M) * K;   // elements of an x plane
+  constexpr int kXTile = TM * Op::kXRow;              // bytes of an x tile (a plane's)
+  constexpr int kWOff = PL * kXTile, kSOff = kWOff + (kKS / 2) * kWRow;
   const uint8_t* wsrc[2];
   uint32_t wdst[2];
   bool wok[2];
@@ -514,8 +561,13 @@ int4_mm_wgmma_kernel(const typename Operand<A8>::X* __restrict__ x, const float*
     if (tid < 16)
       cp_async16(st + kSOff + tid * 16, ssrc + static_cast<size_t>((kbeg + i * kKS) / G) * N, sok);
   };
+  auto load_x = [&](int i) {   // the x tiles of stage i of this split into its slot
+#pragma unroll
+    for (int q = 0; q < PL; ++q)
+      copy_x(ring_a + (i % kStages) * kStage + q * kXTile, xsrc + q * plane + i * kKS, M - m0);
+  };
   auto load = [&](int i) {     // stage i of this split into its slot
-    copy_x(ring_a + (i % kStages) * kStage, xsrc + i * kKS, M - m0);
+    load_x(i);
     load_w(i);
   };
   // bf16: packed row tig of a stage at this thread's four columns (its words: rows
@@ -542,16 +594,17 @@ int4_mm_wgmma_kernel(const typename Operand<A8>::X* __restrict__ x, const float*
                                             pinned(0x80808080u)}
                             : UnpackConsts{bias_bytes(), 0u, 0u, 0u};
 
-  if constexpr (A8) {
+  if constexpr (kBehindPrior) {
     // the packed bytes and scales of the first stages do not depend on the
-    // quantiser ahead of this kernel: in flight before waiting for its xq and sx
+    // quantiser (the split) ahead of this kernel: in flight before waiting for its
+    // xq and sx (planes)
 #pragma unroll
     for (int i = 0; i < kStages - 2; ++i)
       if (i < nst) load_w(i);
     wait_prior_grid();
 #pragma unroll
     for (int i = 0; i < kStages - 2; ++i) {
-      if (i < nst) copy_x(ring_a + i * kStage, xsrc + i * kKS, M - m0);
+      if (i < nst) load_x(i);
       cp_async_commit();
     }
   } else {
@@ -581,8 +634,13 @@ int4_mm_wgmma_kernel(const typename Operand<A8>::X* __restrict__ x, const float*
 #pragma unroll
     for (int q = 0; q < 8; ++q)
       wq[q] = lds32(st + (A8 ? (q & 1) + 8 * (q >> 1) : 4 * q) * kWRow);
-    uint64_t xd[P];
-    desc_pieces(xd, ring_a + slot * kStage);
+    std::conditional_t<PL == 3, uint64_t[3][P], uint64_t[P]> xd;   // (plane q's) pieces
+    if constexpr (PL == 3) {
+#pragma unroll
+      for (int q = 0; q < 3; ++q) desc_pieces(xd[q], ring_a + slot * kStage + q * kXTile);
+    } else {
+      desc_pieces(xd, ring_a + slot * kStage);
+    }
     keep(a0);
     unpack<0>(a0, wq, k);
     keep(a0);
@@ -631,10 +689,15 @@ int4_mm_wgmma_kernel(const typename Operand<A8>::X* __restrict__ x, const float*
 #pragma unroll
           for (int e = 0; e < 4; ++e) v[e] *= s;
         }
-        const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-        *reinterpret_cast<uint2*>(y + static_cast<size_t>(m) * N + n4) =
-            make_uint2(as_u32(lo), as_u32(hi));
+        if constexpr (PL == 3) {
+          *reinterpret_cast<float4*>(y + static_cast<size_t>(m) * N + n4) =
+              make_float4(v[0], v[1], v[2], v[3]);
+        } else {
+          const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+          *reinterpret_cast<uint2*>(y + static_cast<size_t>(m) * N + n4) =
+              make_uint2(as_u32(lo), as_u32(hi));
+        }
       } else {
         *reinterpret_cast<float4*>(ws + (static_cast<size_t>(blockIdx.z) * M + m) * N + n4) =
             make_float4(v[0], v[1], v[2], v[3]);
@@ -642,41 +705,48 @@ int4_mm_wgmma_kernel(const typename Operand<A8>::X* __restrict__ x, const float*
     }
 }
 
-template <bool A8, int TM>
+template <bool A8, int TM, int PL>
 cudaError_t launch_tile(const void* x, const float* sx, const uint8_t* w, const bf16* scale4,
                         void* y, float* ws, int M, int K, int N, int G, int splits,
                         cudaStream_t st) {
-  cudaError_t err = allow_smem(int4_mm_wgmma_kernel<A8, TM>, smem_bytes<A8>(TM));
+  constexpr int kSmem = smem_bytes<A8, PL>(TM);
+  cudaError_t err = allow_smem(int4_mm_wgmma_kernel<A8, TM, PL>, kSmem);
   if (err != cudaSuccess) return err;
   // whole groups a split; a split past K writes zeros
   const int kps = ((K / G + splits - 1) / splits) * G;
   // token tiles run fastest: the blocks in flight share a few column blocks of W
   const dim3 grid((M + TM - 1) / TM, (N + kBN - 1) / kBN, splits);
   const auto* xp = static_cast<const typename Operand<A8>::X*>(x);
-  bf16* yp = static_cast<bf16*>(y);
-  if constexpr (A8)   // starts while the quantiser ahead of it runs
-    return launch_after_prior_grid(int4_mm_wgmma_kernel<A8, TM>, grid, dim3(kWgThreads),
-                                   smem_bytes<A8>(TM), st, xp, sx, w, scale4, yp, ws, M, K, N, G,
-                                   kps, splits);
-  int4_mm_wgmma_kernel<A8, TM><<<grid, kWgThreads, smem_bytes<A8>(TM), st>>>(
-      xp, sx, w, scale4, yp, ws, M, K, N, G, kps, splits);
+  auto* yp = static_cast<std::conditional_t<PL == 3, float, bf16>*>(y);
+  if constexpr (A8 || PL == 3)   // starts while the quantiser (the split) ahead of it runs
+    return launch_after_prior_grid(int4_mm_wgmma_kernel<A8, TM, PL>, grid, dim3(kWgThreads),
+                                   kSmem, st, xp, sx, w, scale4, yp, ws, M, K, N, G, kps, splits);
+  int4_mm_wgmma_kernel<A8, TM, PL><<<grid, kWgThreads, kSmem, st>>>(xp, sx, w, scale4, yp, ws, M,
+                                                                      K, N, G, kps, splits);
   return cudaGetLastError();
 }
 
 // the token tiles of each operand type: multiples of 8 from 16 to 80 for bf16; for
-// int8 the widths the s8 product takes up to 80
+// int8 the widths the s8 product takes up to 80; for f32 x (three planes) the
+// multiples of 8 from 24 (17 rows) to 64
 #define AHA_W4_TILES(X) X(16) X(24) X(32) X(40) X(48) X(56) X(64) X(72) X(80)
 #define AHA_W4A8_TILES(X) X(24) X(32) X(48) X(64) X(80)
+#define AHA_W4X3_TILES(X) X(24) X(32) X(40) X(48) X(56) X(64)
 
-template <bool A8>
+template <bool A8, int PL>
 cudaError_t launch(const void* x, const float* sx, const uint8_t* w, const bf16* scale4, void* y,
                    float* ws, int M, int K, int N, int G, int splits, int tile, cudaStream_t st) {
   if (G % kKS != 0 || N % 16 != 0 || (N + kBN - 1) / kBN > 65535) return cudaErrorInvalidValue;
 #define AHA_TILE(TM) \
-  case TM: return launch_tile<A8, TM>(x, sx, w, scale4, y, ws, M, K, N, G, splits, st);
+  case TM: return launch_tile<A8, TM, PL>(x, sx, w, scale4, y, ws, M, K, N, G, splits, st);
   if constexpr (A8) {
     switch (tile) {
       AHA_W4A8_TILES(AHA_TILE)
+      default: return cudaErrorInvalidValue;
+    }
+  } else if constexpr (PL == 3) {
+    switch (tile) {
+      AHA_W4X3_TILES(AHA_TILE)
       default: return cudaErrorInvalidValue;
     }
   } else {
@@ -688,15 +758,24 @@ cudaError_t launch(const void* x, const float* sx, const uint8_t* w, const bf16*
 #undef AHA_TILE
 }
 
-int smem_of(int tile, bool a8) {
+// operand: 0 bf16 x, 1 int8 x, 2 f32 x as three bf16 planes
+int smem_of(int tile, int operand) {
 #define AHA_TILE(TM) \
-  case TM: return a8 ? smem_bytes<true>(TM) : smem_bytes<false>(TM);
-  if (a8) {
+  case TM: return operand == 1 ? smem_bytes<true>(TM) : operand == 2 ? smem_bytes<false, 3>(TM) \
+                                                                     : smem_bytes<false>(TM);
+  if (operand == 1) {
     switch (tile) {
       AHA_W4A8_TILES(AHA_TILE)
       default: return -1;
     }
   }
+  if (operand == 2) {
+    switch (tile) {
+      AHA_W4X3_TILES(AHA_TILE)
+      default: return -1;
+    }
+  }
+  if (operand != 0) return -1;
   switch (tile) {
     AHA_W4_TILES(AHA_TILE)
     default: return -1;
@@ -1121,8 +1200,10 @@ cudaError_t launch(const void* x, const float* sx, const void* w, const void* sc
 // or int8 x), 3 tensor cores through wgmma (bf16 x, or int8 x, -> bf16 y,
 // G % 64 == 0, N % 16 == 0, x, weight and scales 16-byte aligned, tile: the token
 // tile, a multiple of 8 from 16 to 80 for bf16 x, 24, 32, 48, 64 or 80 for int8 x;
-// whole groups a split), 4 the decode rows on mma.sync (as 3, M <= 16, tile
-// unused; whole groups a split); the wrapper checks.
+// whole groups a split; or x_dtype AHA_BF16X3: x is an f32 x's three bf16 planes
+// [3, M, K], y f32, tile a multiple of 8 from 24 to 64), 4 the decode rows on
+// mma.sync (as 3 with bf16 or int8 x, M <= 16, tile unused; whole groups a split);
+// the wrapper checks.
 extern "C" int aha_int4_matmul(const void* x, const void* sx, const void* w, const void* scale4,
                                void* y, void* workspace, int M, int K, int N, int G,
                                int x_dtype, int y_dtype, int splits, int path, int tile,
@@ -1133,6 +1214,17 @@ extern "C" int aha_int4_matmul(const void* x, const void* sx, const void* w, con
     return static_cast<int>(cudaErrorInvalidValue);
   const float* sxf = static_cast<const float*>(sx);
   cudaError_t err = cudaErrorInvalidValue;
+  if (path == kWgmma && x_dtype == AHA_BF16X3) {   // an f32 x's three bf16 planes
+    if (y_dtype != AHA_F32) return static_cast<int>(err);
+    float* wsf = static_cast<float*>(workspace);
+    err = w4::launch<false, 3>(x, nullptr, static_cast<const uint8_t*>(w),
+                               static_cast<const __nv_bfloat16*>(scale4), y, wsf, M, K, N, G,
+                               splits, tile, st);
+    if (err == cudaSuccess && splits > 1)
+      err = launch_splitk_reduce<float>(wsf, nullptr, nullptr, static_cast<float*>(y), M, N,
+                                        splits, st);
+    return static_cast<int>(err);
+  }
   if (path == kWgmma || path == kDecode) {
     if ((x_dtype != AHA_BF16 && x_dtype != AHA_I8) || y_dtype != AHA_BF16)
       return static_cast<int>(err);
@@ -1141,8 +1233,8 @@ extern "C" int aha_int4_matmul(const void* x, const void* sx, const void* w, con
     const uint8_t* wq = static_cast<const uint8_t*>(w);
     const __nv_bfloat16* sc = static_cast<const __nv_bfloat16*>(scale4);
     if (path == kWgmma)
-      err = a8 ? w4::launch<true>(x, sxf, wq, sc, y, wsf, M, K, N, G, splits, tile, st)
-               : w4::launch<false>(x, nullptr, wq, sc, y, wsf, M, K, N, G, splits, tile, st);
+      err = a8 ? w4::launch<true, 1>(x, sxf, wq, sc, y, wsf, M, K, N, G, splits, tile, st)
+               : w4::launch<false, 1>(x, nullptr, wq, sc, y, wsf, M, K, N, G, splits, tile, st);
     else
       err = a8 ? w4d::launch<true>(x, sxf, wq, sc, y, wsf, M, K, N, G, splits, st)
                : w4d::launch<false>(x, nullptr, wq, sc, y, wsf, M, K, N, G, splits, st);
@@ -1165,10 +1257,11 @@ extern "C" int aha_int4_matmul(const void* x, const void* sx, const void* w, con
 }
 
 // bytes of dynamic shared memory path 3 (wgmma, at token tile `tile`) or 4 (decode)
-// asks for with bf16 x (a8 = 0) or int8 x (a8 = 1); -1: no such path or tile. The
-// wrapper's plan computes the same number
-extern "C" int aha_int4_matmul_smem(int path, int tile, int a8) {
-  if (path == kWgmma) return w4::smem_of(tile, a8 != 0);
-  if (path == kDecode) return a8 ? w4d::Slot<true>::kSmem : w4d::Slot<false>::kSmem;
+// asks for with bf16 x (operand 0), int8 x (1) or, on path 3, an f32 x's three bf16
+// planes (2); -1: no such path or tile. The wrapper's plan computes the same number
+extern "C" int aha_int4_matmul_smem(int path, int tile, int operand) {
+  if (path == kWgmma) return w4::smem_of(tile, operand);
+  if (path == kDecode && operand != 2)
+    return operand == 1 ? w4d::Slot<true>::kSmem : w4d::Slot<false>::kSmem;
   return -1;
 }

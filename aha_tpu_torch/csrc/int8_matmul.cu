@@ -24,11 +24,14 @@
 //     as the B operand (converted to bf16, or transposed as int8), a cp.async
 //     ring, one plan and one order of sums for every M, so a row gives the same
 //     bits at every width.
-//   * wgmma (as decode, M >= 17): section "tensor-core path, wgmma" below. The
+//   * wgmma (as decode, M >= 17; also f32 x weight-only from 17 rows, with an
+//     f32 output): section "tensor-core path, wgmma" below. The
 //     product is turned round (y^T = W^T x^T), the weight bytes (converted to
 //     bf16, or transposed as int8) are the register operand of the warpgroup
 //     products, raw bytes and x tiles arrive by cp.async through a ring of up to
 //     six stages, one accumulator set over all of K, the scales in the epilogue.
+//     An f32 x arrives as three bf16 planes (csrc/quantize_rows.cu,
+//     split_bf16x3) whose three products a stage share the converted weight.
 //   * mma.sync (bf16 x where neither applies, M > 1, K % 32 == 0, N % 8 == 0):
 //     a block owns a 64 x 128 output tile and walks K in steps of
 //     32. It stages the x tile (bf16) and the weight tile (int8 -> bf16,
@@ -38,8 +41,8 @@
 //   * mma.sync on int8 activations (a8, M > 1, where neither Hopper path
 //     applies: an f32 output, ragged or misaligned operands): both tiles staged
 //     as int8, m16n8k32 s8 with int32 accumulators, whatever the output type.
-//   * CUDA cores (everything else: f32, ragged or misaligned operands at one
-//     row): a block covers 128 output columns; each of its
+//   * CUDA cores (everything else: f32 at 1 .. 16 rows, ragged or misaligned
+//     operands at one row): a block covers 128 output columns; each of its
 //     256 threads owns 16 contiguous columns (one 16-byte int8 load per
 //     weight row) and one of 32 lanes along K, so a warp reads 4 rows x 128
 //     contiguous bytes; rows of x are taken BM at a time.
@@ -306,7 +309,8 @@ int8_mm_tc_a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx
   store_tile<Y>(acc, y, ws, scale, sx, M, N, m0, n0, wm, wn, gid, tig, splits, blockIdx.z);
 }
 
-// ---- tensor-core path, wgmma (K % 64 == 0, N % 16 == 0): bf16 x weight-only, or int8 x ------
+// ---- tensor-core path, wgmma (K % 64 == 0, N % 16 == 0): bf16 x weight-only, int8 x, or -----
+// ---- f32 x weight-only as three bf16 planes -----------------------------------------------
 //
 // The product turned round: y^T = W^T x^T. The 64-row side of a warpgroup
 // product runs over weight columns, its register operand is a piece of W^T built
@@ -342,6 +346,27 @@ int8_mm_tc_a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx
 //     the thread reads anyway (byte_columns): two byte permutes a register, no
 //     conversion, 32 a stage. The token tile is a width the s8 product takes
 //     (24, 32, then multiples of 16).
+//   * f32 x, weight-only, f32 output (PL = 3; replaces the CUDA-core kernel
+//     above at 17 rows and more: a 7B decoder layer at M = 49 takes 0.24 ms here
+//     and took 2.86 there, at 196 0.73 against 9.69; NVIDIA H100 80GB HBM3,
+//     700 W): x arrives as three bf16 planes hi = bf16(x), mid = bf16(x - hi), lo =
+//     bf16(x - hi - mid) ([3, M, K], split_bf16x3 in csrc/quantize_rows.cu), whose
+//     sum is x: each residual is exact in f32, and three planes hold 24 bits and
+//     more of x's significand. Every weight value (-127 .. 127) is exact in bf16,
+//     so each plane's product with it is exact; the sums are f32 in the tensor
+//     cores' adder, whose error grows with the products a sum takes (down at 196
+//     rows, 1,776 a split: 2.6e-5 of the largest output, on the same card). A
+//     stage holds the three x tiles one after another (as the bf16
+//     tile, 1024-byte aligned each), and each piece's converted weight register
+//     is the operand of three products, hi, mid and lo, into one accumulator:
+//     the conversion is paid once for three times the tensor work. The epilogue
+//     scales and stores f32, or writes the f32 partial of a split; nothing is
+//     rounded to bf16. The kernel starts while the split ahead of it runs, as
+//     the int8 one does behind the quantiser. The price: 2 M K bytes more of x
+//     tiles a stage (from L2), and three products where bf16 x has one, which at
+//     M = 196 make the operations and not the weight bytes its bound (3 x 2 M K N
+//     at 989 TFLOP/s). Two blocks an SM; the ring as deep as that leaves room for
+//     (three to six slots).
 //
 // The two slabs alternate: while the tensor cores run one slab's products of a
 // stage, the threads build the other's operand. Each slab keeps one accumulator
@@ -364,7 +389,7 @@ constexpr int kSmemPerSm = 233472;    // 228 KB, of which each block costs 1 KB 
 constexpr int kMaxStages = 6;
 
 // what the two operand types change: the x tile's row bytes, the weight rows'
-// stride, the pieces of a stage, the accumulator
+// stride, the pieces of a stage, the accumulator (f32 x: bf16 planes, as bf16 x)
 template <bool A8> struct Operand {
   using X = bf16;
   using Acc = float;
@@ -382,18 +407,22 @@ template <bool A8> __device__ __forceinline__ int weight_chunk(int r, int c) {
 
 // Blocks an SM holds: three up to 64 rows (the 296 column blocks of gate_up
 // then run in one round), else two (the accumulators of wider tiles need more
-// than a third of the registers).
-__host__ __device__ constexpr int blocks_per_sm(int TM) { return TM <= 64 ? 3 : 2; }
-template <bool A8> __host__ __device__ constexpr int stage_bytes(int TM) {
-  return TM * Operand<A8>::kXRow + kKS * Operand<A8>::kWRow;
+// than a third of the registers); two for f32 x (PL = 3 planes), whose x tiles
+// take three times the room.
+__host__ __device__ constexpr int blocks_per_sm(int TM, int PL = 1) {
+  return PL == 1 && TM <= 64 ? 3 : 2;
 }
-template <bool A8> __host__ __device__ constexpr int stages(int TM) {
-  return (kSmemPerSm / blocks_per_sm(TM) - 1024 - kAlignSlack) / stage_bytes<A8>(TM) < kMaxStages
-             ? (kSmemPerSm / blocks_per_sm(TM) - 1024 - kAlignSlack) / stage_bytes<A8>(TM)
+template <bool A8, int PL = 1> __host__ __device__ constexpr int stage_bytes(int TM) {
+  return PL * TM * Operand<A8>::kXRow + kKS * Operand<A8>::kWRow;
+}
+template <bool A8, int PL = 1> __host__ __device__ constexpr int stages(int TM) {
+  return (kSmemPerSm / blocks_per_sm(TM, PL) - 1024 - kAlignSlack) / stage_bytes<A8, PL>(TM) <
+                 kMaxStages
+             ? (kSmemPerSm / blocks_per_sm(TM, PL) - 1024 - kAlignSlack) / stage_bytes<A8, PL>(TM)
              : kMaxStages;
 }
-template <bool A8> __host__ __device__ constexpr int smem_bytes(int TM) {
-  return stages<A8>(TM) * stage_bytes<A8>(TM) + kAlignSlack;
+template <bool A8, int PL = 1> __host__ __device__ constexpr int smem_bytes(int TM) {
+  return stages<A8, PL>(TM) * stage_bytes<A8, PL>(TM) + kAlignSlack;
 }
 
 // The bf16 pair (byte C of a, byte C of b) as int8 values, exactly: a byte
@@ -431,15 +460,35 @@ __device__ __forceinline__ void convert(uint32_t (&a)[Operand<A8>::kPieces][4],
   }
 }
 
-template <bool A8, int TM>
-__global__ void __launch_bounds__(kWgThreads, blocks_per_sm(TM))
+// a slab's products of a stage: piece p of each x plane times the piece's weight
+// operand, into one accumulator (piece after piece, plane after plane: hi, mid, lo)
+template <bool A8, int TM, int PL, typename Acc, int P>
+__device__ __forceinline__ void slab_products(Acc (&acc)[TM / 2], const uint32_t (&a)[P][4],
+                                              const uint64_t (&xd)[PL][P]) {
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int q = 0; q < PL; ++q) {
+      if constexpr (A8)
+        wgmma_rs_s8<TM>(acc, a[p], xd[q][p]);
+      else
+        wgmma_rs<TM>(acc, a[p], xd[q][p], 1);
+    }
+}
+
+// PL: the x planes (1; 3 for f32 x split into bf16 planes [3, M, K], f32 output)
+template <bool A8, int TM, int PL>
+__global__ void __launch_bounds__(kWgThreads, blocks_per_sm(TM, PL))
 int8_mm_wgmma_kernel(const typename Operand<A8>::X* __restrict__ x, const float* __restrict__ sx,
                      const int8_t* __restrict__ w, const float* __restrict__ scale,
-                     bf16* __restrict__ y, float* __restrict__ ws, int M, int K, int N,
-                     int k_per_split, int splits) {
+                     std::conditional_t<PL == 3, float, bf16>* __restrict__ y,
+                     float* __restrict__ ws, int M, int K, int N, int k_per_split, int splits) {
   using Op = Operand<A8>;
-  constexpr int kStages = stages<A8>(TM), kStage = stage_bytes<A8>(TM), NA = TM / 2;
+  constexpr int kStages = stages<A8, PL>(TM), kStage = stage_bytes<A8, PL>(TM), NA = TM / 2;
   constexpr int P = Op::kPieces, kWRow = Op::kWRow;
+  // the kernels launched to start while the grid ahead of them (quantiser, split) runs
+  constexpr bool kBehindPrior = A8 || PL == 3;
+  static_assert(PL == 1 || (PL == 3 && !A8), "planes of bf16 x only");
   static_assert(kStages >= 3, "the ring needs a slot in use, one in flight and one free");
   extern __shared__ __align__(128) unsigned char smem_w8[];
   unsigned char* ring = align_tiles(smem_w8);
@@ -455,7 +504,9 @@ int8_mm_wgmma_kernel(const typename Operand<A8>::X* __restrict__ x, const float*
   // the weight bytes (row idx / 8, columns 16 (idx % 8) ..)
   const std::conditional_t<A8, Rows64Copy<TM>, RowsCopy<TM>> copy_x(static_cast<size_t>(K));
   const typename Op::X* xsrc = x + static_cast<size_t>(m0) * K + kbeg;
-  constexpr int kWOff = TM * Op::kXRow;
+  const size_t plane = static_cast<size_t>(M) * K;   // elements of an x plane
+  constexpr int kXTile = TM * Op::kXRow;              // bytes of an x tile (a plane's)
+  constexpr int kWOff = PL * kXTile;
   const int8_t* wsrc[4];
   uint32_t wdst[4];
   bool wok[4];
@@ -472,8 +523,13 @@ int8_mm_wgmma_kernel(const typename Operand<A8>::X* __restrict__ x, const float*
 #pragma unroll
     for (int c = 0; c < 4; ++c) cp_async16(st + wdst[c], wsrc[c] + rows, wok[c]);
   };
+  auto load_x = [&](int i) {   // the x tiles of stage i of this split into its slot
+#pragma unroll
+    for (int q = 0; q < PL; ++q)
+      copy_x(ring_a + (i % kStages) * kStage + q * kXTile, xsrc + q * plane + i * kKS, M - m0);
+  };
   auto load = [&](int i) {     // stage i of this split into its slot
-    copy_x(ring_a + (i % kStages) * kStage, xsrc + i * kKS, M - m0);
+    load_x(i);
     load_w(i);
   };
   // bf16: weight row 2 tig of a stage at this thread's four columns; int8: row
@@ -490,16 +546,16 @@ int8_mm_wgmma_kernel(const typename Operand<A8>::X* __restrict__ x, const float*
 #pragma unroll
     for (int e = 0; e < 4; ++e) a0[p][e] = a1[p][e] = 0u;
 
-  if constexpr (A8) {
-    // the weight bytes of the first stages do not depend on the quantiser ahead of
-    // this kernel: in flight before waiting for its xq and sx
+  if constexpr (kBehindPrior) {
+    // the weight bytes of the first stages do not depend on the quantiser (the
+    // split) ahead of this kernel: in flight before waiting for its xq and sx (planes)
 #pragma unroll
     for (int i = 0; i < kStages - 2; ++i)
       if (i < nst) load_w(i);
     wait_prior_grid();
 #pragma unroll
     for (int i = 0; i < kStages - 2; ++i) {
-      if (i < nst) copy_x(ring_a + i * kStage, xsrc + i * kKS, M - m0);
+      if (i < nst) load_x(i);
       cp_async_commit();
     }
   } else {
@@ -530,22 +586,19 @@ int8_mm_wgmma_kernel(const typename Operand<A8>::X* __restrict__ x, const float*
 #pragma unroll
       for (int d = 0; d < 4; ++d)   // past w_off's row: 16 p + d (int8), 16 p + (0, 1, 8, 9)[d]
         wq[p][d] = lds32(st + (A8 ? 16 * p + d : 16 * p + (d & 1) + 8 * (d >> 1)) * kWRow);
-    uint64_t xd[P];
-    if constexpr (A8)
-      wg_desc64_pieces(xd, ring_a + slot * kStage);
-    else
-      wg_desc_pieces(xd, ring_a + slot * kStage);
+    uint64_t xd[PL][P];   // plane q's pieces
+#pragma unroll
+    for (int q = 0; q < PL; ++q) {
+      if constexpr (A8)
+        wg_desc64_pieces(xd[q], ring_a + slot * kStage);
+      else
+        wg_desc_pieces(xd[q], ring_a + slot * kStage + q * kXTile);
+    }
     keep(a0);
     convert<A8, 0>(a0, wq);
     keep(a0);
     wg_fence();
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      if constexpr (A8)
-        wgmma_rs_s8<TM>(acc0, a0[p], xd[p]);
-      else
-        wgmma_rs<TM>(acc0, a0[p], xd[p], 1);
-    }
+    slab_products<A8, TM, PL>(acc0, a0, xd);
     wg_commit();
 
     wg_wait<1>();                   // slab 1 of stage i - 1 is done: a1 is free
@@ -553,13 +606,7 @@ int8_mm_wgmma_kernel(const typename Operand<A8>::X* __restrict__ x, const float*
     convert<A8, 1>(a1, wq);
     keep(a1);
     wg_fence();
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      if constexpr (A8)
-        wgmma_rs_s8<TM>(acc1, a1[p], xd[p]);
-      else
-        wgmma_rs<TM>(acc1, a1[p], xd[p], 1);
-    }
+    slab_products<A8, TM, PL>(acc1, a1, xd);
     wg_commit();
   }
   wg_wait<0>();
@@ -587,10 +634,15 @@ int8_mm_wgmma_kernel(const typename Operand<A8>::X* __restrict__ x, const float*
 #pragma unroll
           for (int e = 0; e < 4; ++e) o[e] *= s;
         }
-        const __nv_bfloat162 lo = __floats2bfloat162_rn(o[0], o[1]);
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(o[2], o[3]);
-        *reinterpret_cast<uint2*>(y + static_cast<size_t>(m) * N + n4) =
-            make_uint2(as_u32(lo), as_u32(hi));
+        if constexpr (PL == 3) {
+          *reinterpret_cast<float4*>(y + static_cast<size_t>(m) * N + n4) =
+              make_float4(o[0], o[1], o[2], o[3]);
+        } else {
+          const __nv_bfloat162 lo = __floats2bfloat162_rn(o[0], o[1]);
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(o[2], o[3]);
+          *reinterpret_cast<uint2*>(y + static_cast<size_t>(m) * N + n4) =
+              make_uint2(as_u32(lo), as_u32(hi));
+        }
       } else {
         *reinterpret_cast<float4*>(ws + (static_cast<size_t>(blockIdx.z) * M + m) * N + n4) =
             make_float4(v0, v1, v2, v3);
@@ -598,43 +650,51 @@ int8_mm_wgmma_kernel(const typename Operand<A8>::X* __restrict__ x, const float*
     }
 }
 
-template <bool A8, int TM>
+template <bool A8, int TM, int PL>
 cudaError_t launch_tile(const void* x, const float* sx, const int8_t* w, const float* scale,
-                        bf16* y, float* ws, int M, int K, int N, int splits, cudaStream_t st) {
-  cudaError_t err = allow_smem(int8_mm_wgmma_kernel<A8, TM>, smem_bytes<A8>(TM));
+                        void* y, float* ws, int M, int K, int N, int splits, cudaStream_t st) {
+  constexpr int kSmem = smem_bytes<A8, PL>(TM);
+  cudaError_t err = allow_smem(int8_mm_wgmma_kernel<A8, TM, PL>, kSmem);
   if (err != cudaSuccess) return err;
   // whole stages a split; a split past K writes zeros
   const int kps = ((K / kKS + splits - 1) / splits) * kKS;
   // token tiles run fastest: the blocks in flight share a few column blocks of W
   const dim3 grid((M + TM - 1) / TM, (N + kBN - 1) / kBN, splits);
   const auto* xp = static_cast<const typename Operand<A8>::X*>(x);
-  if constexpr (A8)   // starts while the quantiser ahead of it runs
-    return launch_after_prior_grid(int8_mm_wgmma_kernel<A8, TM>, grid, dim3(kWgThreads),
-                                   smem_bytes<A8>(TM), st, xp, sx, w, scale, y, ws, M, K, N,
-                                   kps, splits);
-  int8_mm_wgmma_kernel<A8, TM><<<grid, kWgThreads, smem_bytes<A8>(TM), st>>>(
-      xp, sx, w, scale, y, ws, M, K, N, kps, splits);
+  auto* yp = static_cast<std::conditional_t<PL == 3, float, bf16>*>(y);
+  if constexpr (A8 || PL == 3)   // starts while the quantiser (the split) ahead of it runs
+    return launch_after_prior_grid(int8_mm_wgmma_kernel<A8, TM, PL>, grid, dim3(kWgThreads),
+                                   kSmem, st, xp, sx, w, scale, yp, ws, M, K, N, kps, splits);
+  int8_mm_wgmma_kernel<A8, TM, PL><<<grid, kWgThreads, kSmem, st>>>(xp, sx, w, scale, yp, ws, M,
+                                                                      K, N, kps, splits);
   return cudaGetLastError();
 }
 
 // the token tiles of each operand type: multiples of 8 for bf16; for int8 the
-// widths the s8 product takes from 17 rows on
+// widths the s8 product takes from 17 rows on; for f32 x (three planes) the
+// multiples of 8 from 24 (17 rows) to 64
 #define AHA_W8_TILES(X) \
   X(8) X(16) X(24) X(32) X(40) X(48) X(56) X(64) X(72) X(80) X(88) X(96) X(104) X(112) X(120) X(128)
 #define AHA_W8A8_TILES(X) X(24) X(32) X(48) X(64) X(80) X(96) X(112) X(128)
+#define AHA_W8X3_TILES(X) X(24) X(32) X(40) X(48) X(56) X(64)
 
-template <bool A8>
+// the operand types' codes (the wrapper's): 0 bf16 x, 1 int8 x, 2 f32 x as three bf16 planes
+template <bool A8, int PL>
 cudaError_t launch(const void* x, const float* sx, const void* w, const void* scale, void* y,
                    float* ws, int M, int K, int N, int splits, int tile, cudaStream_t st) {
   if (K % kKS != 0 || N % 16 != 0 || (N + kBN - 1) / kBN > 65535) return cudaErrorInvalidValue;
   const int8_t* wp = static_cast<const int8_t*>(w);
   const float* sp = static_cast<const float*>(scale);
-  bf16* yp = static_cast<bf16*>(y);
 #define AHA_TILE(TM) \
-  case TM: return launch_tile<A8, TM>(x, sx, wp, sp, yp, ws, M, K, N, splits, st);
+  case TM: return launch_tile<A8, TM, PL>(x, sx, wp, sp, y, ws, M, K, N, splits, st);
   if constexpr (A8) {
     switch (tile) {
       AHA_W8A8_TILES(AHA_TILE)
+      default: return cudaErrorInvalidValue;
+    }
+  } else if constexpr (PL == 3) {
+    switch (tile) {
+      AHA_W8X3_TILES(AHA_TILE)
       default: return cudaErrorInvalidValue;
     }
   } else {
@@ -646,15 +706,23 @@ cudaError_t launch(const void* x, const float* sx, const void* w, const void* sc
 #undef AHA_TILE
 }
 
-int smem_of(int tile, bool a8) {
+int smem_of(int tile, int operand) {
 #define AHA_TILE(TM) \
-  case TM: return a8 ? smem_bytes<true>(TM) : smem_bytes<false>(TM);
-  if (a8) {
+  case TM: return operand == 1 ? smem_bytes<true>(TM) : operand == 2 ? smem_bytes<false, 3>(TM) \
+                                                                     : smem_bytes<false>(TM);
+  if (operand == 1) {
     switch (tile) {
       AHA_W8A8_TILES(AHA_TILE)
       default: return -1;
     }
   }
+  if (operand == 2) {
+    switch (tile) {
+      AHA_W8X3_TILES(AHA_TILE)
+      default: return -1;
+    }
+  }
+  if (operand != 0) return -1;
   switch (tile) {
     AHA_W8_TILES(AHA_TILE)
     default: return -1;
@@ -1036,11 +1104,25 @@ cudaError_t launch_hopper(const void* x, const float* sx, const void* w, const v
                           int tile, cudaStream_t st) {
   float* wsf = static_cast<float*>(workspace);
   cudaError_t err = path == kWgmma
-                        ? w8::launch<A8>(x, sx, w, scale, y, wsf, M, K, N, splits, tile, st)
+                        ? w8::launch<A8, 1>(x, sx, w, scale, y, wsf, M, K, N, splits, tile, st)
                         : w8d::launch<A8>(x, sx, w, scale, y, wsf, M, K, N, splits, tile, st);
   if (err == cudaSuccess && splits > 1)
     err = launch_splitk_reduce<__nv_bfloat16>(wsf, static_cast<const float*>(scale), sx,
                                               static_cast<__nv_bfloat16*>(y), M, N, splits, st);
+  return err;
+}
+
+// f32 x as three bf16 planes [3, M, K] on the wgmma path (f32 output), then the sum of
+// the splits
+cudaError_t launch_planes(const void* planes, const void* w, const void* scale, void* y,
+                          void* workspace, int M, int K, int N, int splits, int tile,
+                          cudaStream_t st) {
+  float* wsf = static_cast<float*>(workspace);
+  cudaError_t err = w8::launch<false, 3>(planes, nullptr, w, scale, y, wsf, M, K, N, splits, tile,
+                                         st);
+  if (err == cudaSuccess && splits > 1)
+    err = launch_splitk_reduce<float>(wsf, static_cast<const float*>(scale), nullptr,
+                                      static_cast<float*>(y), M, N, splits, st);
   return err;
 }
 
@@ -1051,14 +1133,18 @@ cudaError_t launch_hopper(const void* x, const float* sx, const void* w, const v
 // K % 32 == 0, N % 8 == 0, x 16-byte and weight 8-byte aligned), 3 tensor cores
 // through wgmma (bf16 x, K % 64 == 0, N % 16 == 0, x, weight and scale 16-byte
 // aligned; tile: the token tile, a multiple of 8 from 8 to 128; whole 64-row
-// stages a split), 4 the decode rows on mma.sync (as 3, M <= 16, tile: the
-// ring's slots, 3 or 6; whole 64-row stages a split); the wrapper's plan checks.
+// stages a split; or x_dtype AHA_BF16X3: x is an f32 x's three bf16 planes
+// [3, M, K] and y f32, tile a multiple of 8 from 24 to 64), 4 the decode rows on
+// mma.sync (as 3 with bf16 x, M <= 16, tile: the ring's slots, 3 or 6; whole
+// 64-row stages a split); the wrapper's plan checks.
 extern "C" int aha_int8_matmul(const void* x, const void* w, const void* scale, void* y,
                                void* workspace, int M, int K, int N, int x_dtype, int splits,
                                int path, int tile, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M <= 0 || N <= 0 || K <= 0 || splits < 1 || (splits > 1 && workspace == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (path == kWgmma && x_dtype == AHA_BF16X3)
+    return static_cast<int>(launch_planes(x, w, scale, y, workspace, M, K, N, splits, tile, st));
   if (path == kWgmma || path == kDecode) {
     if (x_dtype != AHA_BF16) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(launch_hopper<false>(x, nullptr, w, scale, y, workspace, M, K, N,
@@ -1074,9 +1160,11 @@ extern "C" int aha_int8_matmul(const void* x, const void* w, const void* scale, 
 }
 
 // bytes of dynamic shared memory the wgmma path asks for at token tile `tile`
-// with bf16 x (a8 = 0) or int8 x (a8 = 1); -1: no such tile. The wrapper's plan
-// computes the same number
-extern "C" int aha_int8_matmul_wgmma_smem(int tile, int a8) { return w8::smem_of(tile, a8 != 0); }
+// with bf16 x (operand 0), int8 x (1) or an f32 x's three bf16 planes (2); -1: no
+// such tile. The wrapper's plan computes the same number
+extern "C" int aha_int8_matmul_wgmma_smem(int tile, int operand) {
+  return w8::smem_of(tile, operand);
+}
 
 // bytes of dynamic shared memory the decode path asks for with a ring of `slots`
 // (-1: no such ring); the wrapper's plan computes the same number

@@ -24,6 +24,26 @@
 // they wait for its xq and sx only after their weight copies are in flight.
 // The division and the rounding are IEEE (no fast-math), so the result is
 // bit-equal to the plain version.
+//
+// planes[3, M, K] bf16 from x[M, K] f32: hi = bf16(x), mid = bf16(x - hi),
+// lo = bf16(x - hi - mid), each rounded to nearest even (split_bf16x3).
+//
+// The prologue of the f32-activation paths of int8_matmul.cu's and
+// int4_matmul.cu's wgmma kernels, which multiply each plane on the bf16 tensor
+// cores and add the three products into one f32 accumulator. It replaces no
+// TPU kernel of its own: the TPU kernel computes an f32 dot on its matrix unit
+// (aha_tpu/ops/pallas/fused_matmul.py::_kernel_int8 / _kernel_int4), which the
+// H100 offers only on the CUDA cores (67 TFLOP/s against 989 for bf16). Each
+// residual is exact in f32 (x - hi and its remainder are differences of nearby
+// floats), and three planes of 8 significant bits and a sign hold the 24 of x,
+// so hi + mid + lo == x but for values whose residual falls below bf16's
+// smallest normal (|x| < 2^-100 or so). What bounds it: bytes, 4 read and 6
+// written an element (a layer's four widths at 49 rows: 5.3 MB, 1.6 us at
+// 3.35 TB/s). A thread takes four values (one 16-byte load, three 8-byte
+// stores); the products behind it start while it runs (programmatic dependent
+// launch), their weight copies in flight before they wait for the planes.
+// Subtractions and round-to-nearest conversions only, so the planes are
+// bit-equal to the plain version.
 #include "common.cuh"
 
 namespace {
@@ -147,7 +167,59 @@ cudaError_t launch(const void* x, int8_t* xq, float* sx, int M, int K, cudaStrea
   return cudaGetLastError();
 }
 
+// the three planes of one f32 value
+__device__ __forceinline__ void split3(float v, __nv_bfloat16& hi, __nv_bfloat16& mid,
+                                       __nv_bfloat16& lo) {
+  hi = __float2bfloat16_rn(v);
+  const float r = __fsub_rn(v, __bfloat162float(hi));
+  mid = __float2bfloat16_rn(r);
+  lo = __float2bfloat16_rn(__fsub_rn(r, __bfloat162float(mid)));
+}
+
+// n values; VEC: four a thread (n % 4 == 0, x 16-byte aligned), else one
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
+split_bf16x3_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ planes, size_t n) {
+  allow_dependents();
+  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
+  const size_t first = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if constexpr (VEC) {
+    for (size_t i = first; i < n / 4; i += stride) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(x) + i);
+      const float vs[4] = {v.x, v.y, v.z, v.w};
+      __nv_bfloat16 p[3][4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split3(vs[e], p[0][e], p[1][e], p[2][e]);
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+        reinterpret_cast<uint2*>(planes + q * n)[i] =
+            make_uint2(as_u32(__halves2bfloat162(p[q][0], p[q][1])),
+                       as_u32(__halves2bfloat162(p[q][2], p[q][3])));
+    }
+  } else {
+    for (size_t i = first; i < n; i += stride) split3(x[i], planes[i], planes[n + i], planes[2 * n + i]);
+  }
+}
+
 }  // namespace
+
+// planes [3, M, K] bf16 (contiguous) of x [M, K] f32 (contiguous)
+extern "C" int aha_split_bf16x3(const void* x, void* planes, int M, int K, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (M <= 0 || K <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t n = static_cast<size_t>(M) * K;
+  const float* xp = static_cast<const float*>(x);
+  __nv_bfloat16* pp = static_cast<__nv_bfloat16*>(planes);
+  const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const size_t items = vec ? n / 4 : n;
+  const size_t want = (items + kThreads - 1) / kThreads;
+  const int blocks = static_cast<int>(want < 4096 ? want : 4096);
+  if (vec)
+    split_bf16x3_kernel<true><<<blocks, kThreads, 0, st>>>(xp, pp, n);
+  else
+    split_bf16x3_kernel<false><<<blocks, kThreads, 0, st>>>(xp, pp, n);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int aha_quantize_rows(const void* x, void* xq, void* sx, int M, int K, int x_dtype,
                                  void* stream) {

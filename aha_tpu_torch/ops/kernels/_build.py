@@ -126,6 +126,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.aha_flash_attention_bwd_scratch_bytes.restype = ctypes.c_longlong
     lib.aha_quantize_rows.argtypes = [P, P, P, I, I, I, P]
     lib.aha_quantize_rows.restype = I
+    lib.aha_split_bf16x3.argtypes = [P, P, I, I, P]
+    lib.aha_split_bf16x3.restype = I
     lib.aha_decode_attention.argtypes = [P, P, P, P, P, P, P, P, P, P, P,
                                          I, I, I, I, I, I, I, I, F, I, I, I, P]
     lib.aha_decode_attention.restype = I

@@ -15,7 +15,10 @@ the frozen weight and scales. ``plan`` chooses the kernel's path from the
 shapes alone, so the CPU tests hold it: bf16 x weight-only, and int8
 activations with a bf16 output, at 1 to 16 rows the decode kernel (one launch
 whatever M, so a row gives the same bits at every width), from 17 rows the
-wgmma kernel, the rest the earlier paths.
+wgmma kernel; f32 weight-only from 17 rows the wgmma kernel too, on x split
+into three bf16 planes (``split_bf16x3``) whose products add into each
+group's f32 sum before its scale (``int4_matmul_x3_plain`` models it); the
+rest the earlier paths.
 
 On a CPU tensor the plain version runs; on a CUDA tensor the kernel
 launches, or the call raises.
@@ -28,14 +31,16 @@ import functools
 
 import torch
 
-from . import LAUNCHES, _build
+from . import LAUNCHES, PATH_LAUNCHES, _build
 from .int8_matmul import WGMMA_A8_TILES as _A8_WIDTHS
-from .int8_matmul import (DECODE, DECODE_MAX_M, SCALAR, TENSOR_CORE, VEC16, WGMMA, WGMMA_MIN_M,
-                          Plan, decode_column, fwd_row_to_column, num_sms, splits_on, token_tile)
+from .int8_matmul import (DECODE, DECODE_MAX_M, PATH_NAMES, SCALAR, TENSOR_CORE, VEC16, WGMMA,
+                          WGMMA_MIN_M, X3_TILE_CAP, X3_TILES, Plan, check_hopper_operands,
+                          decode_column, fwd_row_to_column, num_sms, splits_on, token_tile)
 from .int8_matmul import align_of as _align
-from .quantize_rows import quantize_rows, quantize_rows_plain
+from .quantize_rows import quantize_rows, quantize_rows_plain, split_bf16x3, split_bf16x3_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_BF16X3 = 3      # x is an f32 x's three bf16 planes (AHA_BF16X3)
 
 
 def unpack_int4(q4value: torch.Tensor) -> torch.Tensor:
@@ -71,6 +76,24 @@ def int4_matmul_plain(x: torch.Tensor, q4value: torch.Tensor, scale4: torch.Tens
     return y.to(x.dtype).reshape(*lead, N)
 
 
+def int4_matmul_x3_plain(x: torch.Tensor, q4value: torch.Tensor,
+                         scale4: torch.Tensor) -> torch.Tensor:
+    """What the f32-activation wgmma path computes: x split into three bf16
+    planes (``split_bf16x3_plain``); a group's partial sum is the three planes'
+    products with the int4 values (each exact) added in f32, times the group's
+    bf16 scale as f32; the groups added in f32; f32 out. Equal to
+    ``int4_matmul_plain`` but for the order of the f32 sums."""
+    *lead, K = x.shape
+    N = q4value.shape[1]
+    n_groups = scale4.shape[0]
+    G = K // n_groups
+    planes = split_bf16x3_plain(x.reshape(-1, K)).float().reshape(3, -1, n_groups, G)
+    w = unpack_int4(q4value).reshape(n_groups, G, N).float()
+    part = sum(torch.einsum("mgk,gkn->mgn", planes[q], w) for q in range(3))
+    y = (part * scale4.float()[None]).sum(dim=1)
+    return y.reshape(*lead, N)
+
+
 WGMMA_TILE_CAP = 80      # rows of its token tile at most (two accumulator sets of 2 x 40 registers)
 # the widths the s8 warpgroup product takes from 17 rows, up to the cap
 WGMMA_A8_TILES = tuple(t for t in _A8_WIDTHS if t <= WGMMA_TILE_CAP)
@@ -88,11 +111,22 @@ DECODE_SMEM_A8 = DECODE_STAGES * DECODE_SLOT[True]
 DECODE_BLOCKS_PER_SM = 4
 
 
-def wgmma_stage_bytes(tile: int, a8: bool = False) -> int:
-    """Bytes of a wgmma ring slot at token tile ``tile``: the x tile, then the
-    packed rows and the scales from a multiple of 1024 bytes (the kernel's
-    ``stage_bytes``)."""
-    return tile * _X_ROW[a8] + -(-(32 * _W_ROW[a8] + 256) // 1024) * 1024
+SMEM_PER_SM = 233472     # 228 KB; each resident block also takes 1 KB of it
+
+
+def wgmma_stage_bytes(tile: int, a8: bool = False, planes: int = 1) -> int:
+    """Bytes of a wgmma ring slot at token tile ``tile``: the x tile (three for
+    the planes of an f32 x), then the packed rows and the scales from a
+    multiple of 1024 bytes (the kernel's ``stage_bytes``)."""
+    return planes * tile * _X_ROW[a8] + -(-(32 * _W_ROW[a8] + 256) // 1024) * 1024
+
+
+def wgmma_stages(tile: int, planes: int = 1) -> int:
+    """Ring slots of the wgmma kernel: six, or for f32 x (three planes) as many
+    as two blocks an SM leave room for, at most six (the kernel's ``stages``)."""
+    if planes == 1:
+        return WGMMA_STAGES
+    return min(WGMMA_STAGES, (SMEM_PER_SM // 2 - 2048) // wgmma_stage_bytes(tile, planes=planes))
 
 
 def decode_splits(sms: int, N: int, groups: int, a8: bool = False) -> int:
@@ -147,11 +181,14 @@ def plan(M: int, K: int, N: int, G: int, *, bf16: bool, a8: bool = False,
     ``a8``) are multiples of ``align`` bytes. The two Hopper paths take a bf16
     output, G % 64 == 0, N % 16 == 0 and 16-byte aligned operands, with either
     operand type under the same conditions: the decode kernel at 1 to 16 rows,
-    the wgmma kernel from 17 (int8 x: a token tile among the s8 widths). Pure (no
-    card is asked) and remembered: a path's shapes recur with every pass."""
+    the wgmma kernel from 17 (int8 x: a token tile among the s8 widths). Under
+    the same conditions f32 x weight-only takes the wgmma kernel from 17 rows
+    (three bf16 planes, an f32 output); 1 to 16 f32 rows stay on the CUDA
+    cores. Pure (no card is asked) and remembered: a path's shapes recur with
+    every pass."""
     ax, aw, asc = align
-    tensor_cores = (bf16 and G % 64 == 0 and N % 16 == 0
-                    and ax % 16 == 0 and aw % 16 == 0 and asc % 16 == 0)
+    hopper = G % 64 == 0 and N % 16 == 0 and ax % 16 == 0 and aw % 16 == 0 and asc % 16 == 0
+    tensor_cores = bf16 and hopper
     if tensor_cores and M <= DECODE_MAX_M:
         return Plan(DECODE, decode_splits(sms, N, K // G, a8), 16, 1, DECODE_STAGES,
                     DECODE_SMEM_A8 if a8 else DECODE_SMEM)
@@ -160,11 +197,24 @@ def plan(M: int, K: int, N: int, G: int, *, bf16: bool, a8: bool = False,
         splits = wgmma_splits(sms, tiles * -(-N // 128), K // G, K // 64)
         return Plan(WGMMA, splits, tile, tiles, WGMMA_STAGES,
                     WGMMA_STAGES * wgmma_stage_bytes(tile, a8) + 1024)
+    if hopper and not bf16 and not a8 and M >= WGMMA_MIN_M:
+        return x3_plan(M, K, N, G, sms)
     if (a8 or bf16) and M > 1 and G % 32 == 0 and N % 8 == 0 and ax % 16 == 0 and aw % 8 == 0:
         return Plan(TENSOR_CORE, splits_on(sms, -(-M // 64) * -(-N // 128), K // 256))
     path = VEC16 if N % 16 == 0 and aw % 16 == 0 else SCALAR
     # whole groups per split, four groups in flight per block
     return Plan(path, splits_on(sms, -(-N // 128) * -(-M // 2), (K // G) // 4))
+
+
+def x3_plan(M: int, K: int, N: int, G: int, sms: int) -> Plan:
+    """The wgmma launch of f32 x as three bf16 planes at M >= 17 rows: token
+    tiles of at most 64 rows, the ring that two blocks an SM leave room for,
+    whole groups a split as for bf16 x."""
+    tile, tiles = token_tile(M, X3_TILE_CAP)
+    stages = wgmma_stages(tile, 3)
+    splits = wgmma_splits(sms, tiles * -(-N // 128), K // G, K // 64)
+    return Plan(WGMMA, splits, tile, tiles, stages,
+                stages * wgmma_stage_bytes(tile, planes=3) + 1024)
 
 
 def _check(x: torch.Tensor, q4value: torch.Tensor, scale4: torch.Tensor) -> tuple[int, int]:
@@ -217,28 +267,28 @@ def int4_matmul(x: torch.Tensor, q4value: torch.Tensor, scale4: torch.Tensor, *,
     pl = plan(M, K, N, G, bf16=x.dtype == torch.bfloat16, a8=a8,
               align=(_align(x2), _align(q4value), _align(scale4)),
               sms=num_sms(x.device.index or 0))
+    operand = "s8" if a8 else "bf16" if x.dtype == torch.bfloat16 else "f32"
+    if pl.path == WGMMA and operand == "f32":
+        x2 = split_bf16x3(x2)
     launch_plan(x2, sx, q4value, scale4, y, pl)
-    LAUNCHES["int4_matmul_a8" if a8 else "int4_matmul"] += 1
+    name = "int4_matmul_a8" if a8 else "int4_matmul"
+    LAUNCHES[name] += 1
+    PATH_LAUNCHES[f"{name}/{PATH_NAMES[pl.path]}/{operand}"] += 1
     return y.reshape(*lead, N)
 
 
 def launch_plan(x2: torch.Tensor, sx: torch.Tensor | None, q4value: torch.Tensor,
                 scale4: torch.Tensor, y: torch.Tensor, pl: Plan) -> None:
-    """Launch the kernel into ``y`` [M, N] along ``pl`` (x2 [M, K] bf16 / f32, or
-    int8 with its row scales ``sx``), checked by ``int4_matmul``. Not counted:
-    ``chip_smoke.py`` also times here the kernels a plan no longer picks. Raises
-    on a Hopper plan the kernels would refuse."""
-    M, K = x2.shape
+    """Launch the kernel into ``y`` [M, N] along ``pl`` (x2 [M, K] bf16 / f32,
+    int8 with its row scales ``sx``, or on the wgmma path an f32 x's planes
+    [3, M, K] from ``split_bf16x3`` with an f32 ``y``), checked by
+    ``int4_matmul``. Not counted: ``chip_smoke.py`` also times here the kernels
+    a plan no longer picks. Raises on a Hopper plan the kernels would refuse."""
+    M, K = x2.shape[-2:]
     N = q4value.shape[1]
+    planes = False
     if pl.path in (WGMMA, DECODE):
-        if x2.dtype != (torch.bfloat16 if sx is None else torch.int8) or y.dtype != torch.bfloat16:
-            raise ValueError(f"int4_matmul: path {pl.path} takes bf16 x, weight-only, or int8 x "
-                             f"with its row scales, and a bf16 output; got {x2.dtype} x "
-                             f"{'without' if sx is None else 'with'} row scales and a {y.dtype} "
-                             f"output")
-        if pl.path == WGMMA and sx is not None and pl.tile not in WGMMA_A8_TILES:
-            raise ValueError(f"int4_matmul: the int8 wgmma path takes token tiles "
-                             f"{WGMMA_A8_TILES}, got {pl.tile}")
+        planes = check_hopper_operands("int4_matmul", x2, sx, y, pl, WGMMA_A8_TILES)
     if pl.path == DECODE and M > DECODE_MAX_M:
         raise ValueError(f"int4_matmul: the decode path takes at most {DECODE_MAX_M} rows, "
                          f"got {M}")
@@ -248,7 +298,8 @@ def launch_plan(x2: torch.Tensor, sx: torch.Tensor | None, q4value: torch.Tensor
     err = lib.aha_int4_matmul(
         x2.data_ptr(), None if sx is None else sx.data_ptr(), q4value.data_ptr(),
         scale4.data_ptr(), y.data_ptr(), None if ws is None else ws.data_ptr(),
-        M, K, N, K // scale4.shape[0], _DTYPES[x2.dtype], _DTYPES[y.dtype], pl.splits, pl.path,
+        M, K, N, K // scale4.shape[0], _BF16X3 if planes else _DTYPES[x2.dtype],
+        _DTYPES[y.dtype], pl.splits, pl.path,
         pl.tile, ctypes.c_void_p(torch.cuda.current_stream(x2.device).cuda_stream))
     _build.check(lib, err, "int4_matmul")
 

@@ -19,7 +19,10 @@ scale. ``plan`` chooses the kernel's
 path, token tile, ring and K splits from the shapes alone, so the CPU tests
 hold it: bf16 weight-only, and int8 activations with a bf16 output, at 1 to 16
 rows the decode kernel (one launch whatever M, so a row gives the same bits at
-every width), from 17 rows the wgmma kernel, the rest the earlier paths.
+every width), from 17 rows the wgmma kernel; f32 weight-only from 17 rows the
+wgmma kernel too, on x split into three bf16 planes (``split_bf16x3``) whose
+products add into one f32 sum (``int8_matmul_x3_plain`` models it); the rest
+the earlier paths.
 
 On a CPU tensor the plain version runs; on a CUDA tensor the kernel
 launches, or the call raises.
@@ -33,10 +36,11 @@ import functools
 
 import torch
 
-from . import LAUNCHES, _build
-from .quantize_rows import quantize_rows, quantize_rows_plain
+from . import LAUNCHES, PATH_LAUNCHES, _build
+from .quantize_rows import quantize_rows, quantize_rows_plain, split_bf16x3, split_bf16x3_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_BF16X3 = 3      # x is an f32 x's three bf16 planes (AHA_BF16X3)
 
 
 def int8_matmul_plain(x: torch.Tensor, qvalue: torch.Tensor, scale: torch.Tensor,
@@ -59,19 +63,43 @@ def int8_matmul_plain(x: torch.Tensor, qvalue: torch.Tensor, scale: torch.Tensor
     return y.to(x.dtype).reshape(*lead, qvalue.shape[1])
 
 
+def int8_matmul_x3_plain(x: torch.Tensor, qvalue: torch.Tensor,
+                         scale: torch.Tensor) -> torch.Tensor:
+    """What the f32-activation wgmma path computes: x split into three bf16
+    planes (``split_bf16x3_plain``), each plane's product with the int8 weight
+    exact term by term and summed in f32, the three added in f32, then the
+    per-channel scale once; f32 out. Equal to ``int8_matmul_plain`` but for
+    the order of the f32 sums."""
+    *lead, K = x.shape
+    planes = split_bf16x3_plain(x.reshape(-1, K)).float()
+    w = qvalue.float()
+    acc = planes[0] @ w + planes[1] @ w + planes[2] @ w
+    y = acc * scale.reshape(-1).float()
+    return y.reshape(*lead, qvalue.shape[1])
+
+
 @functools.lru_cache(maxsize=None)
 def num_sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 # the kernel's paths (csrc/int8_matmul.cu; int4_matmul.cu and int4_matmul_t.cu
-# number theirs alike)
+# number theirs alike), and their names in PATH_LAUNCHES
 SCALAR, VEC16, TENSOR_CORE, WGMMA, DECODE = 0, 1, 2, 3, 4
+PATH_NAMES = {SCALAR: "cuda_cores", VEC16: "cuda_cores", TENSOR_CORE: "mma_sync",
+              WGMMA: "wgmma", DECODE: "decode"}
+# the x operands of the wgmma kernel: bf16, int8, an f32 x's three bf16 planes (the
+# code its C entry points take for the shared-memory query)
+X_BF16, X_S8, X_F32 = 0, 1, 2
 DECODE_MAX_M = 16        # rows up to which the product takes DECODE: x is mma.sync's 16-row A
 WGMMA_MIN_M = DECODE_MAX_M + 1   # rows from which it takes WGMMA
 WGMMA_TILE_CAP = 128     # rows of its token tile at most (two accumulator slabs of 64 registers)
 # the widths the s8 warpgroup product takes from 17 rows (m64nNk32: 24, 32, then multiples of 16)
 WGMMA_A8_TILES = (24, 32, 48, 64, 80, 96, 112, 128)
+# f32 x as three bf16 planes from 17 rows: token tiles of multiples of 8 up to 64 (the
+# three x tiles of a stage take three times a bf16 tile's room)
+X3_TILE_CAP = 64
+X3_TILES = tuple(range(24, X3_TILE_CAP + 1, 8))
 # bytes of a stage's weight rows (64 of 128 columns): 144 apart for bf16 x, 128 apart
 # (chunks swizzled) for int8 x
 _W_STAGE = {False: 64 * 144, True: 64 * 128}
@@ -121,21 +149,22 @@ def splits_on(sms: int, blocks: int, units: int) -> int:
     return max(1, min(want, units, 64))
 
 
-def blocks_per_sm(tile: int) -> int:
+def blocks_per_sm(tile: int, planes: int = 1) -> int:
     """Blocks of the wgmma kernel an SM holds: three up to 64 rows (gate_up's
     296 column blocks then run in one round), two for wider tiles (their
-    accumulators need more than a third of the registers)."""
-    return 3 if tile <= 64 else 2
+    accumulators need more than a third of the registers), and two for f32 x
+    (``planes`` 3), whose three x tiles a stage take three times the room."""
+    return 3 if tile <= 64 and planes == 1 else 2
 
 
-def wgmma_ring(tile: int, a8: bool = False) -> tuple[int, int]:
+def wgmma_ring(tile: int, a8: bool = False, planes: int = 1) -> tuple[int, int]:
     """(slots, shared memory bytes) of the wgmma kernel's ring at token tile
-    ``tile``: a slot is the x tile (``tile`` rows of 128 bytes, 64 for int8 x)
-    and the weight rows; six slots, fewer where the SM's blocks would not fit;
-    1 KB to align the tiles. The kernel computes the same
-    (``aha_int8_matmul_wgmma_smem``)."""
-    stage = tile * _X_ROW[a8] + _W_STAGE[a8]
-    stages = min(6, (SMEM_PER_SM // blocks_per_sm(tile) - 2048) // stage)
+    ``tile``: a slot is the x tile (``tile`` rows of 128 bytes, 64 for int8 x;
+    three such tiles for the planes of an f32 x) and the weight rows; six
+    slots, fewer where the SM's blocks would not fit; 1 KB to align the tiles.
+    The kernel computes the same (``aha_int8_matmul_wgmma_smem``)."""
+    stage = planes * tile * _X_ROW[a8] + _W_STAGE[a8]
+    stages = min(6, (SMEM_PER_SM // blocks_per_sm(tile, planes) - 2048) // stage)
     return stages, stages * stage + 1024
 
 
@@ -208,11 +237,13 @@ def plan(M: int, K: int, N: int, *, bf16: bool, a8: bool = False,
     first), qvalue [K, N] and scale [N] whose addresses (x's: the quantised x's
     with ``a8``) are multiples of ``align`` bytes. The two Hopper paths take a
     bf16 output, K % 64 == 0, N % 16 == 0 and 16-byte aligned operands, with
-    either operand type under the same conditions. Pure (no card is asked) and
-    remembered: a path's shapes recur with every pass."""
+    either operand type under the same conditions; under the same conditions
+    f32 x weight-only takes the wgmma kernel from 17 rows (as three bf16
+    planes, an f32 output; 1 to 16 f32 rows stay on the CUDA cores). Pure (no
+    card is asked) and remembered: a path's shapes recur with every pass."""
     ax, aw, asc = align
-    tensor_cores = (bf16 and K % 64 == 0 and N % 16 == 0
-                    and ax % 16 == 0 and aw % 16 == 0 and asc % 16 == 0)
+    hopper = K % 64 == 0 and N % 16 == 0 and ax % 16 == 0 and aw % 16 == 0 and asc % 16 == 0
+    tensor_cores = bf16 and hopper
     if tensor_cores and M <= DECODE_MAX_M:
         slots, splits = decode_launch(sms, N, K // 64, a8)
         return Plan(DECODE, splits, 16, 1, slots, slots * DECODE_SLOTS[a8])
@@ -221,10 +252,22 @@ def plan(M: int, K: int, N: int, *, bf16: bool, a8: bool = False,
         stages, smem = wgmma_ring(tile, a8)
         splits = wgmma_splits(blocks_per_sm(tile) * sms, tiles * -(-N // 128), K // 64)
         return Plan(WGMMA, splits, tile, tiles, stages, smem)
+    if hopper and not bf16 and not a8 and M >= WGMMA_MIN_M:
+        return x3_plan(M, K, N, sms)
     if (a8 or bf16) and M > 1 and K % 32 == 0 and N % 8 == 0 and ax % 16 == 0 and aw % 8 == 0:
         return Plan(TENSOR_CORE, splits_on(sms, -(-M // 64) * -(-N // 128), K // 256))
     path = VEC16 if N % 16 == 0 and aw % 16 == 0 else SCALAR
     return Plan(path, splits_on(sms, -(-N // 128) * (1 if M == 1 else -(-M // 4)), K // 256))
+
+
+def x3_plan(M: int, K: int, N: int, sms: int) -> Plan:
+    """The wgmma launch of f32 x as three bf16 planes at M >= 17 rows: token
+    tiles of at most 64 rows, the ring that two blocks an SM leave room for, K
+    split as for bf16 x."""
+    tile, tiles = token_tile(M, X3_TILE_CAP)
+    stages, smem = wgmma_ring(tile, planes=3)
+    splits = wgmma_splits(blocks_per_sm(tile, 3) * sms, tiles * -(-N // 128), K // 64)
+    return Plan(WGMMA, splits, tile, tiles, stages, smem)
 
 
 def align_of(t: torch.Tensor) -> int:
@@ -269,28 +312,53 @@ def _launch(name: str, x: torch.Tensor, qvalue: torch.Tensor, scale: torch.Tenso
     pl = plan(M, K, N, bf16=x.dtype == torch.bfloat16, a8=a8,
               align=(align_of(x2), align_of(qvalue), align_of(scale)),
               sms=num_sms(x.device.index or 0))
+    operand = "s8" if a8 else "bf16" if x.dtype == torch.bfloat16 else "f32"
+    if pl.path == WGMMA and operand == "f32":
+        x2 = split_bf16x3(x2)
     launch_plan(x2, sx, qvalue, scale, y, pl)
     LAUNCHES[name] += 1
+    PATH_LAUNCHES[f"{name}/{PATH_NAMES[pl.path]}/{operand}"] += 1
     return y.reshape(*lead, N)
+
+
+def check_hopper_operands(name: str, x2: torch.Tensor, sx: torch.Tensor | None,
+                          y: torch.Tensor, pl: Plan, a8_tiles: tuple[int, ...]) -> bool:
+    """Raise on operands a Hopper plan's kernel would refuse (``name``: the
+    product, int8 or int4): bf16 x weight-only or int8 x with its row scales
+    and a bf16 output, or on the wgmma path an f32 x's three bf16 planes
+    [3, M, K] and an f32 output, each at the token tiles its kernel is built
+    for. -> whether x2 holds planes."""
+    planes = x2.dim() == 3
+    ok = (x2.dtype == torch.bfloat16 and sx is None and y.dtype == torch.float32
+          and pl.path == WGMMA if planes else
+          x2.dtype == (torch.bfloat16 if sx is None else torch.int8)
+          and y.dtype == torch.bfloat16)
+    if not ok:
+        raise ValueError(f"{name}: path {pl.path} takes bf16 x, weight-only, or int8 x with "
+                         f"its row scales, and a bf16 output; got {x2.dtype} x "
+                         f"{'without' if sx is None else 'with'} row scales and a {y.dtype} "
+                         f"output, x of {x2.dim()} dimensions (the wgmma path also takes "
+                         f"an f32 x's three bf16 planes [3, M, K] and an f32 output)")
+    tiles = X3_TILES if planes else a8_tiles if sx is not None else None
+    if pl.path == WGMMA and tiles is not None and pl.tile not in tiles:
+        kind = "f32" if planes else "int8"
+        raise ValueError(f"{name}: the {kind} wgmma path takes token tiles {tiles}, got "
+                         f"{pl.tile}")
+    return planes
 
 
 def launch_plan(x2: torch.Tensor, sx: torch.Tensor | None, qvalue: torch.Tensor,
                 scale: torch.Tensor, y: torch.Tensor, pl: Plan) -> None:
-    """Launch the kernel into ``y`` [M, N] along ``pl`` (x2 [M, K] bf16 / f32, or
-    int8 with its row scales ``sx``), checked by the wrappers. Not counted:
-    ``chip_smoke.py`` also times here the kernels a plan no longer picks. Raises
-    on a Hopper plan the kernels would refuse."""
-    M, K = x2.shape
+    """Launch the kernel into ``y`` [M, N] along ``pl`` (x2 [M, K] bf16 / f32,
+    int8 with its row scales ``sx``, or on the wgmma path an f32 x's planes
+    [3, M, K] from ``split_bf16x3`` with an f32 ``y``), checked by the
+    wrappers. Not counted: ``chip_smoke.py`` also times here the kernels a plan
+    no longer picks. Raises on a Hopper plan the kernels would refuse."""
+    M, K = x2.shape[-2:]
     N = qvalue.shape[1]
+    planes = False
     if pl.path in (WGMMA, DECODE):
-        if x2.dtype != (torch.bfloat16 if sx is None else torch.int8) or y.dtype != torch.bfloat16:
-            raise ValueError(f"int8_matmul: path {pl.path} takes bf16 x, weight-only, or int8 x "
-                             f"with its row scales, and a bf16 output; got {x2.dtype} x "
-                             f"{'without' if sx is None else 'with'} row scales and a {y.dtype} "
-                             f"output")
-        if pl.path == WGMMA and sx is not None and pl.tile not in WGMMA_A8_TILES:
-            raise ValueError(f"int8_matmul: the int8 wgmma path takes token tiles "
-                             f"{WGMMA_A8_TILES}, got {pl.tile}")
+        planes = check_hopper_operands("int8_matmul", x2, sx, y, pl, WGMMA_A8_TILES)
     if pl.path == DECODE and M > DECODE_MAX_M:
         raise ValueError(f"int8_matmul: the decode path takes at most {DECODE_MAX_M} rows, "
                          f"got {M}")
@@ -307,7 +375,7 @@ def launch_plan(x2: torch.Tensor, sx: torch.Tensor | None, qvalue: torch.Tensor,
     else:
         err = lib.aha_int8_matmul(
             x2.data_ptr(), qvalue.data_ptr(), scale.data_ptr(), y.data_ptr(), ws_ptr,
-            M, K, N, _DTYPES[x2.dtype], pl.splits, pl.path, tile, stream)
+            M, K, N, _BF16X3 if planes else _DTYPES[x2.dtype], pl.splits, pl.path, tile, stream)
     _build.check(lib, err, "int8_matmul")
 
 

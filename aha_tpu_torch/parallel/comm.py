@@ -299,13 +299,16 @@ class _SplitTo(torch.autograd.Function):
 
 class _FsdpGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, comm, dim):
-        ctx.comm, ctx.dim = comm, dim
+    def forward(ctx, x, comm, dim, summed):
+        ctx.comm, ctx.dim, ctx.summed = comm, dim, summed
         return comm.all_gather(x, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.comm.reduce_scatter(g, ctx.dim), None, None
+        if ctx.summed:
+            return ctx.comm.reduce_scatter(g, ctx.dim), None, None, None
+        n = g.shape[ctx.dim] // ctx.comm.size
+        return g.narrow(ctx.dim, ctx.comm.index * n, n).contiguous(), None, None, None
 
 
 def _grad(x) -> bool:
@@ -351,9 +354,12 @@ def split_to(x, comm: Comm | None, dim: int):
     return x.narrow(dim, comm.index * n, n)
 
 
-def fsdp_gather(x, comm: Comm | None, dim: int):
+def fsdp_gather(x, comm: Comm | None, dim: int, summed: bool = True):
     """All-gather along ``dim``; the gradient reduce-scattered (summed over the
-    ranks that each used the gathered copy on their own rows)."""
+    ranks that each used the gathered copy on their own rows), or with
+    ``summed=False`` (every rank ran the same rows, so each holds the whole
+    gradient already) this rank's chunk of it."""
     if comm is None or comm.size == 1:
         return x
-    return _FsdpGather.apply(x, comm, dim) if _grad(x) else comm.all_gather(x, dim)
+    return (_FsdpGather.apply(x, comm, dim, summed) if _grad(x)
+            else comm.all_gather(x, dim))

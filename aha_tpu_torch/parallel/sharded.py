@@ -26,7 +26,10 @@ Row and sequence regions: ``rows`` = (first row, global rows) where a rank
 holds some rows of the batch, ``seq`` = (first token, global length) where it
 holds a stretch of each sequence (ring attention). Adapter dropout draws its
 mask on the global shape and takes the rank's part, so a sharded step drops
-what the one-rank step drops.
+what the one-rank step drops. ``rows_replicated``: every data rank holds every
+row (a global batch the data axis does not divide, as JAX's ``shard_batch``
+leaves it), so a leaf gathered over ``data`` takes its own chunk of the
+gradient, which each rank holds whole, instead of the sum over the ranks.
 """
 
 from __future__ import annotations
@@ -54,7 +57,7 @@ class Shard:
     """One rank's view of a placed tree: ``mesh``, ``specs`` (the spec tree of
     the subtree the model function reads), the row and sequence regions."""
 
-    def __init__(self, mesh, specs, *, rows=None, seq=None):
+    def __init__(self, mesh, specs, *, rows=None, seq=None, rows_replicated=False):
         self.mesh, self.specs = mesh, specs
         self.data = mesh.comm("data")
         self.model = mesh.comm("model")
@@ -62,6 +65,7 @@ class Shard:
         self.M = mesh.shape.get("model", 1)
         self.mi = mesh.index("model")
         self.rows, self.seq = rows, seq
+        self.rows_replicated = rows_replicated
 
     def sub(self, *keys) -> "Shard":
         sp = self.specs
@@ -88,7 +92,7 @@ class Shard:
         """Gather the dims of ``t`` sharded over ``data``; returns (t, spec without data)."""
         spec = tuple(spec) + (None,) * (t.dim() - len(spec))
         for d in _dims(spec, "data"):
-            t = C.fsdp_gather(t, self.data, d)
+            t = C.fsdp_gather(t, self.data, d, summed=not self.rows_replicated)
         return t, tuple(None if a == "data" else a for a in spec)
 
     def gather_model(self, t, spec):

@@ -2,7 +2,8 @@
 train step on one CUDA card.
 
     python3 -m aha_tpu_torch.profile_slice [--seed 0] [--frames 8]
-                                           [--paths int8,int4,int8a8,int4a8,serve8,train,train8]
+                                           [--paths int8,int4,int8a8,int4a8,int8f32,int4f32,
+                                                    serve8,train,train8]
                                            [--remat full]
 
 For each path it builds seeded synthetic 7B params on the card
@@ -31,6 +32,15 @@ fused passes of 4 frames, as JAX runs ``--int4`` with ``AHA_QUANT_MATMUL=fused_a
   token       greedy generation: a ``generate`` with a budget of 33 tokens
               minus one with a budget of 1, each on a copy of the same
               cache, so that only the 32 S = 1 passes remain.
+
+int8f32 and int4f32 (the --int8 and --int4 trunks behind the f32 overrides a
+peft artifact brings, as ``--lora_pretrained`` serves them: a dense f32
+projector, heads and lm_head, seeded, merged into the tree as JAX's
+promotions take them, so the frame embeddings and every frame chunk and fused
+pass run in f32; no adapters) trace the frame chunks and the fused passes
+only (generation stays bf16), each with the products' share of device time:
+every kernel of the quantised products (``int8_mm`` / ``int4_mm`` kernels,
+the split of f32 x into bf16 planes, the sums of K splits).
 
 serve8 (multi-stream serving: 7B-int8, B 8 rows of one batched engine, each
 row's window filled) traces the passes a ``MultiStreamServer`` of 8 slots
@@ -103,7 +113,10 @@ MATMUL_DECODE_KERNELS = {"int8": ("int8_mm_decode_kernel", "splitk_reduce"),
                                     "quantize_rows_vec_kernel")}
 # path -> (weights, matmul backend, fused_score_frames of the product)
 SERVING = {"int8": ("int8", "fused", 4), "int4": ("int4", "fused", 4),
-           "int8a8": ("int8", "fused_a8", 8), "int4a8": ("int4", "fused_a8", 4)}
+           "int8a8": ("int8", "fused_a8", 8), "int4a8": ("int4", "fused_a8", 4),
+           "int8f32": ("int8", "fused", 4), "int4f32": ("int4", "fused", 4)}
+# the kernels of the quantised products, whose share of device time the f32 paths print
+PRODUCT_KERNELS = ("int8_mm_", "int4_mm_", "split_bf16x3", "splitk_reduce")
 
 
 def _short(name: str) -> str:
@@ -167,10 +180,11 @@ class Trace:
 
 def report(label: str, units: int, unit: str, wall_ms: float, traced_wall_ms: float,
            busy_ms: float, kernels: dict, aten: collections.Counter, top: int = 6,
-           also: tuple = (), named: tuple = ()) -> None:
+           also: tuple = (), named: tuple = (), share_of: tuple = ()) -> None:
     """``also``: kernels whose name holds one of these are listed below the top
     ones too; ``named``: kernels listed by these exact names, with 0 calls
-    where the unit launched none."""
+    where the unit launched none; ``share_of``: the kernels whose name holds one
+    of these are summed into one share of device time (the products')."""
     n_kernels = sum(c for c, _ in kernels.values())
     print(f"profile {label}: per {unit} wall {wall_ms / units:.3f} ms (traced "
           f"{traced_wall_ms / units:.3f} ms), device busy {busy_ms / units:.3f} ms, "
@@ -189,13 +203,21 @@ def report(label: str, units: int, unit: str, wall_ms: float, traced_wall_ms: fl
         if name not in kernels:
             print(f"profile {label}:   {name} 0.0% of device time, 0.00 calls per {unit}",
                   flush=True)
+    if share_of:
+        part = [(c, t) for n, (c, t) in kernels.items() if any(a in n for a in share_of)]
+        t_part = sum(t for _, t in part)
+        print(f"profile {label}:   products {100 * t_part / total_us:.1f}% of device time, "
+              f"{t_part / 1e3 / units:.3f} ms per {unit} in {sum(c for c, _ in part) / units:.1f} "
+              f"launches", flush=True)
     ops = ", ".join(f"{n} {c / units:.1f}" for n, c in aten.most_common(top))
     print(f"profile {label}:   aten ops per {unit}: {ops}", flush=True)
 
 
-def _setup(mode: str, seed: int, n_frames: int, backend: str = "fused", **widths):
+def _setup(mode: str, seed: int, n_frames: int, backend: str = "fused", f32: bool = False,
+           **widths):
     from .config import InferConfig, aha_7b
     from .models.aha import random_params
+    from .models.loader import apply_overrides
     from .streaming.session import build_session
     from .tokenization import build_stream_tokenizer
 
@@ -204,6 +226,8 @@ def _setup(mode: str, seed: int, n_frames: int, backend: str = "fused", **widths
                                  vocab_size=cfg.llm.vocab_size)
     cfg = cfg.replace(v_placeholder_id=tok.v_placeholder_id, eos_token_id=tok.eos_token_id)
     params = random_params(cfg, mode=mode, seed=seed)
+    if f32:
+        params = apply_overrides(params, _f32_overrides(cfg, seed))
     icfg = InferConfig(grounding_mode=True, frame_fps=2.0, kv_cache_policy="sink",
                        kv_window=2048, num_sink_tokens=32, **widths)
     engine = build_session(params, cfg, tok, icfg, backend=backend).engine
@@ -232,7 +256,21 @@ def _fill(engine, tok, icfg, rows):
     return cache, t
 
 
-def _trace_frames(label, engine, cache, rows, first, n):
+def _f32_overrides(cfg, seed: int) -> dict:
+    """The modules a peft artifact's ``--lora_pretrained`` brings besides the
+    adapters, seeded, dense f32 (``loader.load_adapter(..., torch.float32)``):
+    the projector, the three heads and the lm_head."""
+    H, Hv, V = cfg.llm.hidden_size, cfg.vision.hidden_size, cfg.llm.vocab_size
+    gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+    rand = lambda *shape: torch.randn(shape, generator=gen, device="cuda") * 0.02
+    return {"projector": {"fc1": {"kernel": rand(Hv, H), "bias": rand(H)},
+                          "fc2": {"kernel": rand(H, H), "bias": rand(H)}},
+            "heads": {n: {"kernel": rand(H, c)} for n, c in
+                      (("informative", 2), ("relevance", 1), ("uncertainty", 1))},
+            "llm": {"lm_head": {"kernel": rand(H, V)}}}
+
+
+def _trace_frames(label, engine, cache, rows, first, n, share_of=()):
     """``n`` frame chunks of every row (``rows`` [B, T, F, H]), each followed
     by the host read of its scores, as ``inference()`` and the mixed serving
     loop run them."""
@@ -249,10 +287,10 @@ def _trace_frames(label, engine, cache, rows, first, n):
     what, unit = ((f"frame (stream at {int(cache.seen[0])} tokens)", "frame") if B == 1 else
                   (f"frame step ({B * 49} rows)", "pass"))
     report(f"{label} {what}", n, unit, tr.wall_ms, tr.traced_wall_ms, tr.busy_ms(),
-           tr.kernels(), tr.aten_ops(), named=DECODE_KERNELS)
+           tr.kernels(), tr.aten_ops(), named=DECODE_KERNELS, share_of=share_of)
 
 
-def _trace_fused(label, engine, cache, rows, first, n, K):
+def _trace_fused(label, engine, cache, rows, first, n, K, share_of=()):
     """``n`` fused passes of ``K`` frames a row through the read-only verify
     pass and its commit (``score_video``, the mixed loop's scoring pass)."""
     B = rows.shape[0]
@@ -268,7 +306,7 @@ def _trace_fused(label, engine, cache, rows, first, n, K):
     what = (f"({K} frames, {K * 49} rows; stream at {int(cache.seen[0])} tokens)" if B == 1
             else f"({B} x {K} frames, {B * K * 49} rows)")
     report(f"{label} fused pass {what}", n, "pass", tr.wall_ms, tr.traced_wall_ms,
-           tr.busy_ms(), tr.kernels(), tr.aten_ops(), named=DECODE_KERNELS)
+           tr.busy_ms(), tr.kernels(), tr.aten_ops(), named=DECODE_KERNELS, share_of=share_of)
 
 
 def _trace_verify(label, engine, cfg, cache, S, named):
@@ -328,9 +366,10 @@ def _trace_tokens(label, engine, tok, cache, named=DECODE_KERNELS):
 
 def profile_serving(path: str, seed: int, n: int) -> None:
     mode, backend, K = SERVING[path]                  # K: fused_score_frames of the product
+    f32 = path.endswith("f32")
     fill_frames = (2048 + 32) // 49 + 2
     cfg, tok, icfg, engine, frames = _setup(
-        mode, seed, fill_frames + 2 * n + 2 * n * K, backend, fused_score_frames=K,
+        mode, seed, fill_frames + 2 * n + 2 * n * K, backend, f32=f32, fused_score_frames=K,
         spec_decode_tokens=1)
     if path == "int8":
         # vision: one tower batch, after a warm-up batch
@@ -341,6 +380,13 @@ def profile_serving(path: str, seed: int, n: int) -> None:
                tr.busy_ms(), tr.kernels(), tr.aten_ops())
     rows = engine.encode_frames(frames)[None]
     cache, t = _fill(engine, tok, icfg, rows)
+    if f32:
+        if rows.dtype != torch.float32:
+            raise RuntimeError(f"{path}: frame embeddings in {rows.dtype}, not f32")
+        label = f"{path} (f32 overrides, f32 frame embeddings)"
+        _trace_frames(label, engine, cache, rows, t, n, share_of=PRODUCT_KERNELS)
+        _trace_fused(label, engine, cache, rows, t + 2 * n, n, K, share_of=PRODUCT_KERNELS)
+        return
     _trace_frames(path, engine, cache, rows, t, n)
     _trace_fused(path, engine, cache, rows, t + 2 * n, n, K)
     for S in (4, 8):

@@ -219,6 +219,8 @@ def make_train_step(cfg: AhaConfig, train_cfg: TrainConfig, tx: AdamW, labels: d
                 if mesh.shape.get("pipe", 1) > 1 else None)
         ring = None
         rows = seq = None
+        comm = mesh.comm("data")
+        replicated = False
         if train_cfg.ring_attention and T >= train_cfg.ring_min_seq and D > 1:
             if per_host:
                 raise ValueError("ring attention reads every row on every data rank: load "
@@ -235,14 +237,19 @@ def make_train_step(cfg: AhaConfig, train_cfg: TrainConfig, tx: AdamW, labels: d
             else:
                 r = local_rows(B, mesh)
                 if r is None:
-                    raise ValueError(f"global batch {B} not divisible by the data axis {D}")
-                rows = (r[0], B)
-                batch = shard_batch(batch, mesh, placeholder=cfg.v_placeholder_id,
-                                    frame_tokens=cfg.frame_num_tokens)
-        sh = Shard(mesh, state.specs["model"], rows=rows, seq=seq)
+                    # a batch the data axis does not divide stays whole on every data
+                    # rank, as JAX's shard_batch leaves it (_guard drops ``data``
+                    # from its spec): each rank's loss and gradients are the whole
+                    # batch's, so nothing is summed over ``data``
+                    replicated, comm = True, None
+                else:
+                    rows = (r[0], B)
+                    batch = shard_batch(batch, mesh, placeholder=cfg.v_placeholder_id,
+                                        frame_tokens=cfg.frame_num_tokens)
+        sh = Shard(mesh, state.specs["model"], rows=rows, seq=seq, rows_replicated=replicated)
         lora_sh = (None if "lora" not in state.specs
-                   else Shard(mesh, state.specs["lora"], rows=rows, seq=seq))
-        comm = mesh.comm("data")
+                   else Shard(mesh, state.specs["lora"], rows=rows, seq=seq,
+                              rows_replicated=replicated))
         return batch, (sh, lora_sh, ring, pipe, comm, seq)
 
     def train_step(state: TrainState, batch: dict, per_host: bool = False):
@@ -266,7 +273,8 @@ def make_train_step(cfg: AhaConfig, train_cfg: TrainConfig, tx: AdamW, labels: d
                  for n, l, g in zip(names, leaves, grads)}
         mesh_kw = {}
         if state.mesh is not None:
-            grads, mesh_kw["sq_sum"] = _reduce_grads(state, grads)
+            grads, mesh_kw["sq_sum"] = _reduce_grads(
+                state, grads, rows_summed=not shard[0].rows_replicated)
         tx.update(grads, state.opt_state, dict(zip(names, leaves)), **mesh_kw)
         state.step += 1
         return state, parts.detach()
@@ -289,12 +297,13 @@ def _left_pad(batch: dict, n: int, pad_token_id: int) -> dict:
     return out
 
 
-def _reduce_grads(state: TrainState, grads: dict):
+def _reduce_grads(state: TrainState, grads: dict, rows_summed: bool = True):
     """Sum over ``data`` the gradients of leaves replicated over it (each data
-    rank differentiated its own rows); -> (grads, the global sum of squares
-    over every shard of every leaf)."""
+    rank differentiated its own rows; ``rows_summed=False``: every data rank
+    ran the whole batch, so the gradients are whole already); -> (grads, the
+    global sum of squares over every shard of every leaf)."""
     mesh = state.mesh
-    data = mesh.comm("data")
+    data = mesh.comm("data") if rows_summed else None
     out = {}
     for n, g in grads.items():
         spec = _spec_at(state.specs, n)

@@ -76,8 +76,15 @@ Phases, one or more lines each:
      attention; held, not timed),
      at small ragged shapes and at phase 6's and 8b's f32 shapes (int8_matmul
      at the layer's products at 49, 59, 171, 196 and 220 rows, the lm_head's
-     row, the projector's 392; the cached attention at S = 49, 59, 171 and
-     220) (f32: 1e-4 *
+     row, the projector's 392; int4_matmul at the layer's products at the same
+     rows, G 128; from 17 rows on the wgmma kernels' f32 path, x split into
+     three bf16 planes by split_bf16x3, each such case with the CUDA-core
+     kernel its plan chose before (replaced_ms, timed and not counted), the
+     library's f32 torch.matmul on a weight dequantised to f32 beforehand
+     (TF32 off), a bound of three bf16 products and, beside it, the f32 peak's
+     (f32_peak_bound_ms), and a decoder layer's sum; split_bf16x3 alone at
+     those rows and widths, bit-equal to its plain version; the cached
+     attention at S = 49, 59, 171 and 220) (f32: 1e-4 *
      max|y_ref|), with kernel and plain
      times (CUDA events; weights cycled through > L2 worth of copies), the
      bound (the larger of bytes moved / 3.35 TB/s and operations / the
@@ -213,11 +220,15 @@ Phases, one or more lines each:
           tower's ms a frame three ways (dense bf16, weight-only int8 and int8
           activations, a 32-frame batch); score_video over 32 frames, then
           inference() at 4 -> 8 and at generation width 1 (texts equal);
-       b. `infer --synthetic_weights --int8 --lora_pretrained DIR`: a peft
-          directory written on the card by save_adapter (r 16 adapters, f32
-          projector, heads and lm_head) in the system's temporary directory,
-          served with JAX's promotions (f32 frame embeddings and frame chunks);
-          score_video over 16 frames, inference() with a response;
+       b. `infer --synthetic_weights --int8 --lora_pretrained DIR`, then the
+          same with --int4: a peft directory written on the card by
+          save_adapter (r 16 adapters, f32 projector, heads and lm_head) in the
+          system's temporary directory, served with JAX's promotions (f32 frame
+          embeddings and frame chunks); score_video over 16 frames at fused 4
+          and at fused 1 (frames/s), inference() with a response (its wall);
+          launch counts by path: every quantised product of an f32 pass on the
+          wgmma kernel's f32 path, each behind one split_bf16x3, none on the
+          CUDA cores;
        a. r 16 adapters (B not zero) on 7B-int4, phase 4a's weights and stream:
           score_video over 32 frames (scores against the adapter-free run's:
           the adapters must move them), inference() over 64 frames at 4 -> 8 and
@@ -327,6 +338,9 @@ KERNELS = {
     "int4_matmul_a8": (CSRC + "int4_matmul.cu", FUSED_TPU + ":238"),
     "int4_matmul_t": (CSRC + "int4_matmul_t.cu", FUSED_TPU + ":313"),
     "quantize_rows": (CSRC + "quantize_rows.cu", FUSED_TPU + ":160"),
+    # the prologue of the f32-activation paths of int8_matmul and int4_matmul, whose f32
+    # dot it serves (the TPU kernel's f32 dot_general in _kernel_int8 / _kernel_int4)
+    "split_bf16x3": (CSRC + "quantize_rows.cu", FUSED_TPU + ":50"),
     "decode_attention": (CSRC + "decode_attention.cu",
                          "aha_tpu/ops/pallas/decode_attention.py:131"),
     "flash_attention_fwd": (CSRC + "flash_attention.cu", FLASH_TPU),
@@ -443,19 +457,22 @@ class Stats:
 
 
 # the kernels whose ptxas report phase 1 holds: no spill, no serialisation remark (the
-# int8 and int4 forward kernels once per operand type: bf16 x weight-only, int8 x)
+# int8 and int4 forward kernels once per operand type: bf16 x weight-only, int8 x, and
+# for the wgmma kernels an f32 x's three bf16 planes, the last template argument 3)
 PTXAS_HELD = ("int8_mm_wgmma_kernel", "int8_mm_decode_kernel", "int4_mm_wgmma_kernel",
-              "int4_mm_decode_kernel", "quantize_rows_vec_kernel")
+              "int4_mm_decode_kernel", "quantize_rows_vec_kernel", "split_bf16x3_kernel")
 PTXAS_A8 = ("int8_mm_wgmma_kernel<true", "int8_mm_decode_kernel<true", "int4_mm_wgmma_kernel<true",
             "int4_mm_decode_kernel<true")
+PTXAS_X3 = ("int8_mm_wgmma_kernel<false", "int4_mm_wgmma_kernel<false")
 
 
 def check_ptxas(log: dict) -> str:
-    """What ptxas said of the int8 and int4 wgmma and decode kernels and the
-    vector quantiser, one instantiation after another (registers, spill bytes),
-    in the build this process ran; raises on a spill, on a remark that their
-    products are serialised, or on a missing int8-activation instantiation. Such
-    remarks on other kernels are printed."""
+    """What ptxas said of the int8 and int4 wgmma and decode kernels, the
+    vector quantiser and the split of f32 x into bf16 planes, one instantiation
+    after another (registers, spill bytes), in the build this process ran;
+    raises on a spill, on a remark that their products are serialised, or on a
+    missing int8-activation or f32-activation instantiation. Such remarks on
+    other kernels are printed."""
     import re
 
     if not log:
@@ -485,6 +502,8 @@ def check_ptxas(log: dict) -> str:
                 regs[key] = int(m.group(1))
     mine = [r for r in remarks if any(k in r for k in PTXAS_HELD)]
     missing = [k for k in PTXAS_HELD + PTXAS_A8 if not any(r.startswith(k) for r in regs)]
+    missing += [k + ",*,3>" for k in PTXAS_X3
+                if not any(r.startswith(k) and r.endswith(",3>") for r in regs)]
     if missing or any(spills.get(t, 0) for t in regs) or mine:
         raise AssertionError(f"ptxas: registers {regs}, spill bytes {spills}, serialisation "
                              f"remarks {mine}, no report for {missing}")
@@ -507,6 +526,10 @@ PATH_M = (1, 4, 8, 13, 49, 59, 171, 196, 220)
 # tokens, past the window fill); inference() ran over all 96 in phases 4a-4c before phase 10
 # came, and over 64 in 4d, 4e and 8a since phase 5b came
 STREAM_FRAMES = 64
+# rows of the f32 passes (phase 6's exact traces; phase 8b's f32 frame chunks behind a peft
+# artifact's f32 projector): a frame, a response's last token + stream prompt + frame, the
+# system prompt and query, a fused pass of 4 frames, system prompt + first frame
+F32_M = (49, 59, 171, 196, 220)
 # rows of the training sequence of phase 5 (16 frames in one conversation)
 TRAIN_T = 926
 # phase 5b's batches: B 1 and 2, left-padded to the length bucket 1,024 (write_train_data),
@@ -645,6 +668,18 @@ def replaced_plan8(M: int, K: int, N: int, sms: int):
     stages, smem = k8.wgmma_ring(tile)
     splits = k8.wgmma_splits(k8.blocks_per_sm(tile) * sms, tiles * -(-N // 128), K // 64)
     return k8.Plan(k8.WGMMA, splits, tile, tiles, stages, smem)
+
+
+def replaced_plan_f32(bits: int, M: int, K: int, N: int, G: int | None, sms: int):
+    """The launch that the plans of ``int8_matmul`` (``bits`` 8) and
+    ``int4_matmul`` (4) chose for f32 x weight-only at 17 rows and more before
+    the wgmma kernel took them as three bf16 planes: the CUDA cores, 16-byte
+    loads."""
+    from aha_tpu_torch.ops.kernels import int8_matmul as k8
+
+    if bits == 8:
+        return k8.Plan(k8.VEC16, k8.splits_on(sms, -(-N // 128) * -(-M // 4), K // 256))
+    return k8.Plan(k8.VEC16, k8.splits_on(sms, -(-N // 128) * -(-M // 2), (K // G) // 4))
 
 
 def replaced_plan4_a8(M: int, K: int, N: int, G: int, sms: int):
@@ -812,9 +847,12 @@ def check_matmuls(gen, stats: Stats):
     # query, a fused pass of 4 frames; the lm_head's row; the projector's 8 frames; phase 8b's
     # f32 frame chunks: the system prompt and first frame, a response's last token + stream
     # prompt + frame)
-    f32_8 = [(n, M, *layer[n]) for n in layer for M in (49, 59, 171, 196, 220)]
+    f32_8 = [(n, M, *layer[n]) for n in layer for M in F32_M]
     f32_8 += [("lm_head", 1, 3584, 152064), ("projector_fc1", 392, 1024, 3584),
               ("projector_fc2", 392, 3584, 3584)]
+    # int4, f32 activations at G 128: phase 8b's f32 frame chunks over the int4 trunk
+    # (the projector, heads and lm_head of a peft artifact are dense f32)
+    f32_4 = [(n, M, *layer[n], 128) for n in layer for M in F32_M]
 
     # the int8 tower (phase 8c), weight-only and with int8 activations, timed beside the
     # dense tower's bf16 product (torch.matmul) that it replaces
@@ -841,7 +879,7 @@ def check_matmuls(gen, stats: Stats):
             for n in layer]                                            # the training batches
          + [(*c, 128, bf, 1e-2) for c in serve_t]                    # B = 8 serving rows
          + [(*c, 128, bf, 1e-2) for c in tp4_h]                      # phase 11 at 4 ranks
-         + [(*r, f32, 1e-4) for r in ragged4] + [(*edge, 64, bf, 1e-2)]
+         + [(*r, f32, 1e-4) for r in ragged4 + f32_4] + [(*edge, 64, bf, 1e-2)]
          + [(*c, bf, 1e-2) for c in wgmma4 + old4 + decode4], 196),
         ("int4_matmul_a8", 4, True,
          [(*c, 128, bf, 1e-2) for c in cards]
@@ -855,6 +893,7 @@ def check_matmuls(gen, stats: Stats):
     # tower layer's six products by entry and M, beside the dense tower's
     sums: dict = {}
     tower_sums: dict = {}
+    peak_sums: dict = {}     # the f32 rows' decoder layer at the f32 peak, by entry and M
     for name, bits, a8, cases, rep_m in families:
         for label, M, K, N, G, dt, tol in cases:
             wbytes = K * N * bits // 8
@@ -892,27 +931,30 @@ def check_matmuls(gen, stats: Stats):
             # (K splits are added in a fixed order, no atomics)
             if not torch.equal(y, run(x, ws[0])):
                 raise AssertionError(f"{what}: two launches on the same inputs differ")
+            # f32 x weight-only from 17 rows on the wgmma kernel, as three bf16 planes
+            x3 = dt == f32 and not a8 and M >= k8.WGMMA_MIN_M and label != "ragged"
+            operand = k8.X_F32 if x3 else k8.X_S8 if a8 else k8.X_BF16
             if bits == 4:
                 pl = k4.plan(M, K, N, G, bf16=dt == bf, a8=a8, sms=sms)
-                new = (dt == bf and not label.startswith("old-path")
-                       and label not in ("ragged", "ragged-tc"))
+                new = x3 or (dt == bf and not label.startswith("old-path")
+                             and label not in ("ragged", "ragged-tc"))
                 want = (k4.DECODE if M <= k4.DECODE_MAX_M else k4.WGMMA) if new else None
                 if pl.path != want and (new or pl.path in (k4.WGMMA, k4.DECODE)):
                     raise AssertionError(f"{what}: path {pl.path}, expected "
                                          f"{want if new else 'an earlier path'}")
-                kernel_smem = (kernels.aha_int4_matmul_smem(pl.path, pl.tile, int(a8))
+                kernel_smem = (kernels.aha_int4_matmul_smem(pl.path, pl.tile, operand)
                                if pl.path in (k4.WGMMA, k4.DECODE) else 0)
             else:
                 pl = k8.plan(M, K, N, bf16=dt == bf, a8=a8,
                              align=(k8.align_of(x), k8.align_of(ws[0]), k8.align_of(sc)), sms=sms)
-                new = dt == bf and label not in ("ragged", *old8_path)
+                new = x3 or (dt == bf and label not in ("ragged", *old8_path))
                 want = (k8.DECODE if M <= k8.DECODE_MAX_M else k8.WGMMA) if new else None
                 if dt == bf and not a8 and label in old8_path and pl.path != old8_path[label]:
                     raise AssertionError(f"{what}: path {pl.path}, expected {old8_path[label]}")
                 if pl.path != want and (new or pl.path in (k8.WGMMA, k8.DECODE)):
                     raise AssertionError(f"{what}: path {pl.path}, expected "
                                          f"{want if new else 'an earlier path'}")
-                kernel_smem = (kernels.aha_int8_matmul_wgmma_smem(pl.tile, int(a8))
+                kernel_smem = (kernels.aha_int8_matmul_wgmma_smem(pl.tile, operand)
                                if pl.path == k8.WGMMA
                                else kernels.aha_int8_matmul_decode_smem(pl.stages, int(a8))
                                if pl.path == k8.DECODE else 0)
@@ -946,10 +988,39 @@ def check_matmuls(gen, stats: Stats):
             note += f" loop_ms={loop:.4f}"
             pms = cuda_ms(lambda i: plain(x, ws[i % copies]), iters=3, warmup=1)
             esize = x.element_size()
-            bms, by = bound_ms(M * K * esize + wbytes + sbytes + M * N * esize, 2.0 * M * K * N,
-                               "int8" if a8 else ("bf16" if dt == bf else "f32"))
+            nbytes = M * K * esize + wbytes + sbytes + M * N * esize
+            if x3:
+                # the design's tensor work: three bf16 products (hi, mid and lo planes);
+                # beside it, labelled, the f32 product at the CUDA cores' f32 peak
+                bms, by = bound_ms(nbytes, 3 * 2.0 * M * K * N, "bf16")
+                f32_peak = bound_ms(nbytes, 2.0 * M * K * N, "f32")[0]
+                note += f" f32_peak_bound_ms={f32_peak:.4f}"
+                peak_sums[(name, M)] = peak_sums.get((name, M), 0.0) + (
+                    f32_peak if label in layer else 0.0)
+            else:
+                bms, by = bound_ms(nbytes, 2.0 * M * K * N,
+                                   "int8" if a8 else ("bf16" if dt == bf else "f32"))
             lib = replaced = w8_ms = quant_ms = None
             timer = graph_ms if short else cuda_ms
+            if x3:
+                # the CUDA-core kernel the plan chose before (timed, not counted), and the
+                # library's f32 product on a weight dequantised to f32 beforehand (TF32 off)
+                yo = torch.empty_like(y)
+                old = replaced_plan_f32(bits, M, K, N, G, sms)
+                launcher = k8.launch_plan if bits == 8 else k4.launch_plan
+                launch_old = lambda i: launcher(x, None, ws[i % copies], sc, yo, old)
+                launch_old(0)
+                rel_check(f"{what} replaced kernel", yo, ref, tol)
+                replaced = cuda_ms(launch_old, iters=3, warmup=1)
+                note += f" replaced_path={old.path} replaced_ms={replaced:.4f}"
+                wd = (ws[0].float() * sc.reshape(1, -1) if bits == 8
+                      else (k4.unpack_int4(ws[0]).reshape(K // G, G, N).float()
+                            * sc.float()[:, None, :]).reshape(K, N))
+                tf32 = torch.backends.cuda.matmul.allow_tf32
+                torch.backends.cuda.matmul.allow_tf32 = False
+                lib = timer(lambda i: torch.matmul(x, wd))
+                torch.backends.cuda.matmul.allow_tf32 = tf32
+                del yo, wd
             if (pl.path == k8.DECODE and name != "quant_matmul" and not a8
                     and (label in layer or label == "lm_head")):
                 # the kernel this one replaced at these rows, launched as its plan did
@@ -1028,9 +1099,11 @@ def check_matmuls(gen, stats: Stats):
                           f"decoder layer (qkv, o_proj, gate_up, down) at M={M}, bf16")
             if M == TRAIN_T and label in layer:
                 stats.train_fwd_ms += ms
-            if dt == bf and (label in layer or label.startswith("projector")
-                             or label == "lm_head" or label in tp_names):
-                part = ("layer" if label in layer else f"local_layer_model{world}"
+            if x3 or (dt == bf and (label in layer or label.startswith("projector")
+                                    or label == "lm_head" or label in tp_names)):
+                part = ("layer_f32" if x3 and label in layer else
+                        label.split("_fc")[0] + "_f32" if x3 else
+                        "layer" if label in layer else f"local_layer_model{world}"
                         if label in tp_names else label.split("_fc")[0])
                 acc = sums.setdefault((name, part, M), [0.0, 0.0, 0.0, 0, 0.0, 0.0, 0.0, 0.0])
                 acc[0] += ms
@@ -1061,8 +1134,10 @@ def check_matmuls(gen, stats: Stats):
                   f"costs {local[0] / local[1]:.2f}x its bound, the whole layer's "
                   f"{whole[0] / whole[1]:.2f}x)", flush=True)
     for (name, part, M), (ms, bms, lib, n_lib, pms, old, w8, quant) in sorted(sums.items()):
+        peak = peak_sums.get((name, M)) if part == "layer_f32" else None
         print(f"phase2 sum {name} {part} M={M}: kernel_ms={ms:.4f} bound_ms={bms:.4f} "
-              f"plain_ms={pms:.4f} library_ms={f'{lib:.4f}' if n_lib else 'none'}"
+              + (f"(three bf16 products; f32_peak_bound_ms={peak:.4f}) " if peak else "")
+              + f"plain_ms={pms:.4f} library_ms={f'{lib:.4f}' if n_lib else 'none'}"
               + (f" replaced_ms={old:.4f}" if old else "")
               + (f" weight_only_ms={w8:.4f} quantize_rows_ms={quant:.4f}" if w8 else ""),
               flush=True)
@@ -1104,6 +1179,48 @@ def check_quantize_rows(gen, stats: Stats):
         print(f"phase2 quantize_rows M={M} K={K} {_dt(dt)} values_off={off} max_step={step} "
               f"loop_ms={loop:.4f} kernel_ms={ms:.4f} plain_ms={pms:.4f} bound_ms={bms:.4f} ({by}) "
               f"library_ms=none", flush=True)
+
+
+def check_split(gen, stats: Stats):
+    """split_bf16x3 at every (rows, K) of the f32 products from 17 rows (the
+    layer's two widths at the f32 rows, the projector's at 392): the planes
+    bit-equal to the plain version (subtractions and round-to-nearest
+    conversions), hi + mid + lo == x, timed from a replayed graph."""
+    import torch
+
+    from aha_tpu_torch.ops.kernels import quantize_rows as qr
+
+    cases = [(M, K) for M in F32_M for K in (3584, 18944)] + [(392, 1024), (392, 3584)]
+    sums = [0.0, 0.0, 0.0]
+    for M, K in cases:
+        x = torch.randn((M, K), generator=gen, device="cuda") * torch.exp2(
+            torch.randint(-20, 21, (M, K), generator=gen, device="cuda").float())
+        planes = qr.split_bf16x3(x)
+        ref = qr.split_bf16x3_plain(x)
+        torch.cuda.synchronize()
+        off = int((planes != ref).sum())
+        exact = torch.equal(planes.float().sum(0), x)
+        if planes.shape != (3, M, K) or off or not exact:
+            raise AssertionError(f"split_bf16x3 M={M} K={K}: {off} values differ from the "
+                                 f"plain version; hi + mid + lo == x: {exact}")
+        stats.err("split_bf16x3", 0.0)
+        stats.checked.add(("split_bf16x3", M, K))
+        loop = cuda_ms(lambda i: qr.split_bf16x3(x))
+        ms = graph_ms(lambda i: qr.split_bf16x3(x))
+        pms = cuda_ms(lambda i: qr.split_bf16x3_plain(x), iters=5)
+        bms, by = bound_ms(M * K * (4 + 3 * 2), 5.0 * M * K, "f32")
+        if M == 49 and K in (3584, 18944):
+            stats.add("split_bf16x3", ms, pms, bms, by, None,
+                      "a decoder layer's two widths (K 3584, 18944) at M=49, f32")
+        if M == 49:
+            # a layer's four products split x at K 3584 three times (qkv, o, gate_up), 18944 once
+            for i, v in enumerate((ms, pms, bms)):
+                sums[i] += (3 if K == 3584 else 1) * v
+        print(f"phase2 split_bf16x3 M={M} K={K} f32 values_off={off} sum_exact={exact} "
+              f"loop_ms={loop:.4f} kernel_ms={ms:.4f} plain_ms={pms:.4f} bound_ms={bms:.4f} "
+              f"({by}) library_ms=none", flush=True)
+    print(f"phase2 sum split_bf16x3 decoder layer M=49 (four products): kernel_ms={sums[0]:.4f} "
+          f"plain_ms={sums[1]:.4f} bound_ms={sums[2]:.4f}", flush=True)
 
 
 def attention_inputs(gen, B, S, NH, KVH, Dh, Wp, qdt, kvdt, occupied=None, blind=False):
@@ -1608,9 +1725,12 @@ def phase3_train(seed: int):
                                             trainer.trained_leaves(state.tree, labels).items()})
     counts = dict(kernels.LAUNCHES)
     L = cfg.llm.num_layers
-    # merged qkv and gate_up: four int4 products a layer, each run again in the replay
-    want = {"int4_matmul": 3 * 2 * 4 * L, "int4_matmul_t": 3 * 4 * L,
-            "flash_attention_fwd": 3 * 2 * L, "flash_attention_bwd": 3 * L}
+    # merged qkv and gate_up: four int4 products a layer, each run again in the replay; the
+    # tiny preset trains in f32, so each product (B T rows) takes the f32 wgmma path behind
+    # a split of x into bf16 planes
+    want = {"int4_matmul": 3 * 2 * 4 * L, "split_bf16x3": 3 * 2 * 4 * L,
+            "int4_matmul_t": 3 * 4 * L, "flash_attention_fwd": 3 * 2 * L,
+            "flash_attention_bwd": 3 * L}
     if counts != want:
         raise AssertionError(f"tiny train: launches {counts}, expected {want}")
     (pg, lg), (pc, lc) = runs["cuda"], runs["cpu"]
@@ -1992,25 +2112,31 @@ def phase5b(gpu: str, stats: Stats):
 
 
 class PassCounter:
-    """Counts decoder passes (write passes and read-only verify passes) by
-    wrapping the two functions the engine calls."""
+    """Counts decoder passes (write passes and read-only verify passes, and
+    those whose embeddings are f32) by wrapping the two functions the engine
+    calls."""
 
     def __init__(self):
+        import torch
+
         from aha_tpu_torch.models import qwen2
 
         self.qwen2 = qwen2
         self.saved = (qwen2.decode_chunk, qwen2.decode_chunk_spec)
-        self.chunks = self.verifies = 0
+        self.chunks = self.verifies = self.f32 = 0
+        self.f32_type = torch.float32
 
     def __enter__(self):
         write, verify = self.saved
 
         def counted_write(*a, **k):
             self.chunks += 1
+            self.f32 += a[4].dtype == self.f32_type      # the chunk's embeddings
             return write(*a, **k)
 
         def counted_verify(*a, **k):
             self.verifies += 1
+            self.f32 += a[4].dtype == self.f32_type
             return verify(*a, **k)
 
         self.qwen2.decode_chunk, self.qwen2.decode_chunk_spec = counted_write, counted_verify
@@ -2059,6 +2185,8 @@ class ShapeRecorder:
                 self.seen.add(("quantize_rows", M, K))
             else:
                 self.seen.add((name, M, K, N) + (("f32",) if x.dtype == self.f32 else ()))
+                if x.dtype == self.f32 and M > 16:   # f32 x from 17 rows: split into planes
+                    self.seen.add(("split_bf16x3", M, K))
             return fn(x, w, scale, a8=a8) if name != "quant_matmul" else fn(x, w, scale)
         return recorded
 
@@ -3489,21 +3617,20 @@ def phase8c(gpu: str, stats: Stats, cfg, tok, frames):
 
 
 def phase8b(gpu: str, seed: int, stats: Stats, cfg, tok, frames):
-    """``infer --synthetic_weights --int8 --lora_pretrained DIR`` at 7B: a peft
-    directory written on the card by the port's ``save_adapter`` (r 16
-    adapters, f32 projector, heads and lm_head), served over JAX's synthetic
-    int8 tree: the overrides stay dense f32, so the tower and the frame chunks
-    run in f32 (JAX's promotions)."""
+    """``infer --synthetic_weights --int8 --lora_pretrained DIR`` at 7B, then
+    the same with ``--int4``: a peft directory written on the card by the
+    port's ``save_adapter`` (r 16 adapters, f32 projector, heads and lm_head),
+    served over JAX's synthetic int8 and int4 trees: the overrides stay dense
+    f32, so the tower's output, the frame embeddings and the frame chunks run
+    in f32 (JAX's promotions), their quantised products on the wgmma kernels'
+    three-plane path."""
     import os
     import tempfile
 
     import torch
 
-    from aha_tpu_torch.cli import _session
     from aha_tpu_torch.models import loader
-    from aha_tpu_torch.ops import kernels
 
-    L = cfg.llm.num_layers
     H, Hv, V = cfg.llm.hidden_size, cfg.vision.hidden_size, cfg.llm.vocab_size
     gen = torch.Generator(device="cuda").manual_seed(seed + 9)
     rand = lambda *shape: torch.randn(shape, generator=gen, device="cuda") * 0.02
@@ -3518,12 +3645,33 @@ def phase8b(gpu: str, seed: int, stats: Stats, cfg, tok, frames):
         t_write = time.perf_counter() - t0
         size = os.path.getsize(os.path.join(d, "adapter_model.safetensors"))
         del modules
-        t0 = time.perf_counter()
-        sess = _session._build_session(infer_args(
-            "--synthetic_weights", "--int8", "--lora_pretrained", d,
-            "--stream_end_prob_threshold", "1.0"))
-        torch.cuda.synchronize()
-        t_build = time.perf_counter() - t0
+        print(f"phase8b peft directory of {size / 2**30:.2f} GiB written by save_adapter in "
+              f"{t_write:.2f}s (r {LORA_R}, f32 projector / heads / lm_head)", flush=True)
+        for trunk in ("int8", "int4"):
+            phase8b_trunk(gpu, stats, cfg, tok, frames, d, trunk)
+
+
+def phase8b_trunk(gpu: str, stats: Stats, cfg, tok, frames, peft: str, trunk: str):
+    """One trunk of phase 8b: the session from the flags, score_video over 16
+    frames at fused 4 and at fused 1, inference() with a response; launch
+    counts by kernel and by path: every quantised product of an f32 pass on
+    the wgmma kernel's f32 path (``<entry>/wgmma/f32``), none on the CUDA
+    cores."""
+    import torch
+
+    from aha_tpu_torch.cli import _session
+    from aha_tpu_torch.config import InferConfig
+    from aha_tpu_torch.ops import kernels
+    from aha_tpu_torch.streaming.session import build_session
+
+    L = cfg.llm.num_layers
+    entry = f"{trunk}_matmul"
+    t0 = time.perf_counter()
+    sess = _session._build_session(infer_args(
+        "--synthetic_weights", f"--{trunk}", "--lora_pretrained", peft,
+        "--stream_end_prob_threshold", "1.0"))
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
     e = sess.engine
     p = e.params
     if not (e.lora_scale == 2.0 and sorted(e.lora) == sorted(
@@ -3532,43 +3680,60 @@ def phase8b(gpu: str, seed: int, stats: Stats, cfg, tok, frames):
             and p["llm"]["lm_head"]["kernel"].dtype == torch.float32
             and p["projector"]["fc1"]["kernel"].dtype == torch.float32
             and p["vision"]["layers"]["fc1"]["kernel"].dtype == torch.bfloat16
-            and isinstance(p["llm"]["layers"]["qkv_proj"]["kernel"], dict)):
-        raise AssertionError("phase8b: the session does not hold the adapter's parts")
+            and ("q4value" if trunk == "int4" else "qvalue")
+            in p["llm"]["layers"]["qkv_proj"]["kernel"]):
+        raise AssertionError(f"phase8b {trunk}: the session does not hold the adapter's parts")
     emb_dtype = e.encode_frames(frames[:1]).dtype
     if emb_dtype != torch.float32:
-        raise AssertionError(f"phase8b: frame embeddings in {emb_dtype}, not f32")
+        raise AssertionError(f"phase8b {trunk}: frame embeddings in {emb_dtype}, not f32")
     product = dict(fused_score_frames=4, spec_decode_tokens=4, spec_decode_tokens_max=8)
+    adapters = dict(lora=e.lora, lora_scale=e.lora_scale)
+    sess1 = build_session(p, cfg, tok, InferConfig(
+        grounding_mode=True, frame_fps=2.0, kv_cache_policy="sink", kv_window=2048,
+        num_sink_tokens=32, fused_score_frames=1), **adapters)
     with PassCounter() as pc:
         kernels.reset_launches()                       # the main path starts here
         t0 = time.perf_counter()
         rows = sess.score_video(frames[:16], query=QUERY)
         torch.cuda.synchronize()
         t_sv = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rows1 = sess1.score_video(frames[:16], query=QUERY)
+        torch.cuda.synchronize()
+        t_sv1 = time.perf_counter() - t0
         se = sorted((r["informative_score"] + r["relevance_score"] for r in rows), reverse=True)
         sess2, turns, t_inf, _, dec_s, dec_tokens = run_inference(
             p, cfg, tok, frames[:16], dict(stream_end_prob_threshold=se[3],
                                            response_min_interval_frames=8),
-            product, max_new_tokens=16, lora=e.lora, lora_scale=e.lora_scale)
+            product, max_new_tokens=16, **adapters)
         counts = dict(kernels.LAUNCHES)                # ... and ends here
-        chunks, verifies = pc.chunks, pc.verifies
+        paths = dict(kernels.PATH_LAUNCHES)
+        chunks, verifies, f32_passes = pc.chunks, pc.verifies, pc.f32
     responses = texts(turns)
-    if (counts.get("int8_matmul", 0) < L * 4 * (chunks + verifies)
+    f32_wgmma = paths.get(f"{entry}/wgmma/f32", 0)
+    if (counts.get(entry, 0) < L * 4 * (chunks + verifies)
             or counts.get("decode_attention", 0) < L * chunks or not responses
-            or len(rows) != 16 or len(sess2.debug_data_list) != 16
-            or not all(math.isfinite(r[k]) for r in rows + sess2.debug_data_list
+            or not f32_passes or f32_wgmma != L * 4 * f32_passes
+            or paths.get(f"{entry}/cuda_cores/f32", 0)
+            or counts.get("split_bf16x3", 0) != f32_wgmma
+            or len(rows) != 16 or len(rows1) != 16 or len(sess2.debug_data_list) != 16
+            or not all(math.isfinite(r[k]) for r in rows + rows1 + sess2.debug_data_list
                        for k in SCORE_KEYS)):
-        raise AssertionError(f"phase8b: launches {counts} over {chunks} chunks + {verifies} "
-                             f"verify passes, {len(rows)} frames, {len(responses)} responses")
+        raise AssertionError(f"phase8b {trunk}: launches {counts}, by path {paths}, over "
+                             f"{chunks} chunks + {verifies} verify passes ({f32_passes} in "
+                             f"f32), {len(rows)} / {len(rows1)} frames, {len(responses)} "
+                             f"responses")
     stats.launches(counts)
-    print(f"phase8b infer --synthetic_weights --int8 --lora_pretrained DIR, 7B [{gpu}]: peft "
-          f"directory of {size / 2**30:.2f} GiB written by save_adapter in {t_write:.2f}s; "
+    print(f"phase8b infer --synthetic_weights --{trunk} --lora_pretrained DIR, 7B [{gpu}]: "
           f"session from the flags {t_build:.2f}s (r {LORA_R}, scale {e.lora_scale}, f32 "
-          f"projector / heads / lm_head over the int8 trunk, frame embeddings {emb_dtype}); "
-          f"score_video 16 frames at fused 4 {t_sv:.3f}s; inference() 16 frames {t_inf:.3f}s, "
-          f"{len(responses)} responses, first {responses[0][:40]!r}; decode {dec_tokens} "
-          f"tokens in {dec_s:.3f}s; {chunks} chunks + {verifies} verify passes; launches "
+          f"projector / heads / lm_head over the {trunk} trunk, frame embeddings {emb_dtype}); "
+          f"score_video 16 frames at fused 4 {t_sv:.3f}s ({16 / t_sv:.2f} frames/s), at fused 1 "
+          f"{t_sv1:.3f}s ({16 / t_sv1:.2f} frames/s); inference() 16 "
+          f"frames {t_inf:.3f}s, {len(responses)} responses, first {responses[0][:40]!r}; "
+          f"decode {dec_tokens} tokens in {dec_s:.3f}s; {chunks} chunks + {verifies} verify "
+          f"passes, {f32_passes} of them in f32; {entry} launches by path {paths}; launches "
           f"{counts}", flush=True)
-    del sess, sess2, p, e
+    del sess, sess1, sess2, p, e
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5106,6 +5271,7 @@ def main() -> int:
     if 2 in phases:
         check_matmuls(gen, stats)
         check_quantize_rows(gen, stats)
+        check_split(gen, stats)
         check_attention(gen, stats)
         check_int4_matmul_t(gen, stats)
         check_flash_attention(gen, stats)

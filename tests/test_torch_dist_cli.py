@@ -3,6 +3,9 @@ against the same command in one process, and the multi-process dryrun:
 
   * ``train --mesh_data 2``: each rank loads its own rows (per-host loading),
     losses within 1e-4 of one process's at every step;
+  * ``train --mesh_data 2 --batch_size 3``: a batch the data axis does not
+    divide, loaded whole by every rank and held whole on each (as JAX's
+    ``shard_batch`` leaves it), losses within 1e-4 of one process's;
   * ``train --mesh_pipe 2``: GPipe over 2 stages, replicated loading;
   * a run sharded over 2 ranks, resumed in one process from its checkpoint,
     continues as the uninterrupted one-process run does (the checkpoint is
@@ -105,8 +108,10 @@ def runs(data, tmp_path_factory):
         "pipe2": flags(data, out / "pipe2", 3, "--mesh_data", "1", "--mesh_pipe", "2",
                        "--pipe_microbatches", "2"),
         "cut": flags(data, out / "cut", 2, "--mesh_data", "2", mix="same.json"),
+        "data2_b3": flags(data, out / "data2_b3", 2, "--mesh_data", "2", "--batch_size", "3"),
     }
-    one = [flags(data, out / "one", 3), flags(data, out / "whole", 4, mix="same.json")]
+    one = [flags(data, out / "one", 3), flags(data, out / "whole", 4, mix="same.json"),
+           flags(data, out / "one_b3", 2, "--batch_size", "3")]
     for name, argv in runs.items():
         world = start(_torch_world.run, 2, [("train", "train_cli", dict(argv=argv))],
                       timeout=240)
@@ -132,6 +137,18 @@ def test_train_command_sharded(runs, case):
     got = metrics(runs / case)
     assert_losses_equal(got, metrics(runs / "one")[:len(got)])
     a = torch.load(runs / case / "adapter.pt", weights_only=True)
+    assert len(a) > 20 and all(torch.isfinite(t).all() for t in a.values())
+
+
+def test_train_batch_the_data_axis_does_not_divide(runs):
+    """--mesh_data 2 --batch_size 3 over two ranks: every rank loads the whole
+    batch and holds every row (the data axis does not divide it), its loss and
+    gradients are the whole batch's and nothing is summed over ``data``; rank
+    0's losses equal one process's at batch 3, step by step."""
+    got = metrics(runs / "data2_b3")
+    assert [r["step"] for r in got] == [1, 2]
+    assert_losses_equal(got, metrics(runs / "one_b3"))
+    a = torch.load(runs / "data2_b3" / "adapter.pt", weights_only=True)
     assert len(a) > 20 and all(torch.isfinite(t).all() for t in a.values())
 
 

@@ -3,9 +3,11 @@ wrappers' pure choice of path, token tile, ring, splits and shared memory for
 every shape ``chip_smoke.py`` drives; the relabelling of accumulator rows that
 the wgmma kernels apply at their stores and of weight columns in the decode
 kernel (1 .. 16 rows), whose unpacked registers are checked bit for bit; the
-forward kernels' orders of sums (f32 group sums over 16-deep pieces, the
-group's scale, groups and K splits added) emulated in plain PyTorch against
-the Pallas kernel in interpret mode; and what the wrappers refuse. The kernels themselves run only on the card
+forward kernels' orders of sums (f32 group sums over 16-deep pieces, f32 x as
+three bf16 planes a piece, the group's scale, groups and K splits added)
+emulated in plain PyTorch against the Pallas kernel in interpret mode, and the
+three-plane product of f32 x against the plain version and JAX's kernel; and
+what the wrappers refuse. The kernels themselves run only on the card
 (``chip_smoke.py`` phase 2 holds them against the plain versions there)."""
 
 import importlib.util
@@ -23,7 +25,8 @@ from aha_tpu.ops.quant import quantize_array_int4
 from aha_tpu_torch import bridge
 from aha_tpu_torch.ops.kernels import int4_matmul as k4
 from aha_tpu_torch.ops.kernels import int4_matmul_t as kt
-from aha_tpu_torch.ops.kernels.int8_matmul import SCALAR, TENSOR_CORE, VEC16
+from aha_tpu_torch.ops.kernels.int8_matmul import SCALAR, TENSOR_CORE, VEC16, WGMMA
+from aha_tpu_torch.ops.kernels.quantize_rows import split_bf16x3_plain
 
 SMEM = 232448          # bytes of shared memory a block may use on an H100
 LM_HEAD = (3584, 152064)
@@ -101,7 +104,7 @@ def test_forward_plan_of_every_path_shape(M):
     (70, 320, 136, 64, dict(bf16=True), TENSOR_CORE),                # N not a multiple of 16
     (70, 320, 136, 24, dict(bf16=True), SCALAR),                     # G not a multiple of 16
     (70, 320, 144, 40, dict(bf16=True), VEC16),                      # G not a multiple of 16
-    (926, 3584, 4608, 128, dict(bf16=False), VEC16),                 # f32
+    (926, 3584, 4608, 128, dict(bf16=False, align=(8, 16, 16)), VEC16),   # f32, x 8 bytes off
     (926, 3584, 4608, 128, dict(bf16=False, a8=True), TENSOR_CORE),  # int8 x, an f32 output
     (926, 3584, 4608, 128, dict(bf16=True, align=(8, 16, 16)), VEC16),
     (926, 3584, 4608, 128, dict(bf16=True, align=(16, 8, 16)), TENSOR_CORE),
@@ -115,8 +118,55 @@ def test_forward_plan_of_every_path_shape(M):
     (1, 3584, 4608, 128, dict(bf16=False, a8=True), VEC16),          # the same at a token
 ])
 def test_forward_plan_keeps_the_earlier_paths(M, K, N, G, kw, path):
+    """(Aligned f32 x at 926 rows, once the sixth case here, takes the wgmma
+    kernel since its three-plane operand came: it moved to
+    ``test_f32_plan_takes_the_wgmma_kernel_from_17_rows``, and the misaligned
+    f32 x took its place.)"""
     pl = k4.plan(M, K, N, G, **kw)
     assert pl.path == path and pl.tile == 0 and pl.smem_bytes == 0 and pl.splits >= 1
+
+
+@pytest.mark.parametrize("M,K,N,G,kw,path", [
+    (926, 3584, 4608, 128, dict(bf16=False), WGMMA),                 # f32
+    (16, 3584, 4608, 128, dict(bf16=False), VEC16),                  # the last decode row
+    (17, 3584, 4608, 128, dict(bf16=False), WGMMA),                  # the first wgmma row
+    (17, 18944, 3584, 128, dict(bf16=False), WGMMA),
+    (49, 3584, 4608, 128, dict(bf16=False), WGMMA),                  # a frame chunk in f32
+    (196, 3584, 37888, 128, dict(bf16=False), WGMMA),                # a fused pass in f32
+    (196, 18944, 3584, 64, dict(bf16=False), WGMMA),                 # G 64
+    (49, 3584, 4608, 256, dict(bf16=False), WGMMA),                  # G 256
+    (49, 320, 144, 32, dict(bf16=False), VEC16),                     # G 32
+    (49, 320, 132, 64, dict(bf16=False), SCALAR),                    # N not a multiple of 8
+    (49, 3584, 4608, 128, dict(bf16=False, a8=True), TENSOR_CORE),   # int8 x, f32 output
+])
+def test_f32_plan_takes_the_wgmma_kernel_from_17_rows(M, K, N, G, kw, path):
+    """f32 x weight-only takes the wgmma kernel from 17 rows under the bf16
+    path's conditions (G % 64, N % 16, 16-byte aligned operands), as three bf16
+    planes: token tiles of 24 to 64 rows, the ring two blocks an SM leave room
+    for (three to six slots), whole groups a split; 1 to 16 f32 rows and shapes
+    the kernel does not take keep the earlier paths."""
+    pl = k4.plan(M, K, N, G, **kw)
+    assert pl.path == path
+    if path != WGMMA:
+        assert pl.tile == 0 and pl.smem_bytes == 0
+        return
+    assert pl == k4.x3_plan(M, K, N, G, 132)
+    assert pl.tile in k4.X3_TILES and (pl.tiles - 1) * pl.tile < M <= pl.tiles * pl.tile
+    assert 3 <= pl.stages == k4.wgmma_stages(pl.tile, 3) <= 6
+    assert pl.smem_bytes == pl.stages * (3 * pl.tile * 128 + 6144) + 1024 <= SMEM
+    assert 2 * (pl.smem_bytes + 1024) <= k4.SMEM_PER_SM
+    assert 1 <= pl.splits <= K // G
+
+
+@pytest.mark.parametrize("M", [17, 49, 59, 171, 196, 220])
+def test_f32_plan_of_every_path_shape(M):
+    """Every f32 product a peft artifact's f32 frame chunks hand int4_matmul
+    from 17 rows (the layer's four at ``chip_smoke.py``'s f32 rows, G 128):
+    the wgmma kernel at the three-plane tiles."""
+    for _, K, N in _smoke().LAYER:
+        pl = k4.plan(M, K, N, 128, bf16=False)
+        assert pl.path == WGMMA and pl.tile in k4.X3_TILES, (M, K, N)
+        assert (pl.tiles - 1) * pl.tile < M <= pl.tiles * pl.tile
 
 
 @pytest.mark.parametrize("M", [1, 127, 128, 129, 196, 233, 926, 1568])
@@ -176,20 +226,89 @@ def test_forward_rows_are_relabelled_not_moved():
 
 def wgmma_forward_emulated(x, q4value, scale4):
     """The wgmma kernel's order of sums: per group the 16-deep pieces' products
-    added one after the other in f32, the group's sum times its scale as f32,
-    the groups added in f32, one cast."""
+    added one after the other in f32 (f32 x: its three bf16 planes hi, mid and
+    lo, piece by piece, each plane's piece after the other), the group's sum
+    times its scale as f32, the groups added in f32, one cast."""
     K = x.shape[-1]
     groups = scale4.shape[0]
     G = K // groups
     w = k4.unpack_int4(q4value).float()
-    xf = x.reshape(-1, K).float()
-    tot = torch.zeros((xf.shape[0], w.shape[1]), dtype=torch.float32)
+    x2 = x.reshape(-1, K)
+    planes = split_bf16x3_plain(x2).float() if x.dtype == torch.float32 else x2.float()[None]
+    tot = torch.zeros((x2.shape[0], w.shape[1]), dtype=torch.float32)
     for g in range(groups):
         grp = torch.zeros_like(tot)
         for k0 in range(g * G, (g + 1) * G, 16):
-            grp = grp + xf[:, k0:k0 + 16] @ w[k0:k0 + 16]
+            for plane in planes:
+                grp = grp + plane[:, k0:k0 + 16] @ w[k0:k0 + 16]
         tot = tot + grp * scale4[g].float()
     return tot.to(x.dtype).reshape(*x.shape[:-1], -1)
+
+
+def _tricky_f32(rng, M, K):
+    """``test_torch_int8_kernels.tricky_f32``: mixed exponents, bf16 ties and
+    ties moved one f32 step, zeros."""
+    x = (rng.standard_normal((M, K)) * 2.0 ** rng.integers(-20, 21, (M, K))).astype(np.float32)
+    b = np.asarray(torch.from_numpy(x).to(torch.bfloat16).float())
+    _, e = np.frexp(b)
+    tie = (b + np.sign(b) * np.ldexp(1.0, e - 9)).astype(np.float32)
+    moved = np.nextafter(tie, np.where(rng.random((M, K)) < 0.5, np.inf, -np.inf).astype(
+        np.float32)).astype(np.float32)
+    which = rng.integers(0, 6, (M, K))
+    x = np.where(which == 0, tie, np.where(which == 1, moved, x))
+    x[rng.random((M, K)) < 0.02] = 0.0
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("group", [64, 128, 256])
+@pytest.mark.parametrize("M", [17, 49, 196])
+def test_f32_three_plane_product_matches_plain_and_jax(M, group):
+    """The product the f32 wgmma path computes (``int4_matmul_x3_plain``: the
+    three planes' products added in a group's f32 sum before its bf16 scale;
+    and the kernel's order of sums in ``wgmma_forward_emulated``) on
+    activations of mixed exponents and bf16 ties, against the plain version and
+    JAX's kernel in interpret mode with f32 x, within 1e-5 of the largest
+    output."""
+    rng = np.random.default_rng(200 + M + group)
+    K, N = 512, 256
+    w = (rng.standard_normal((K, N)) * 0.02).astype(np.float32)
+    x = _tricky_f32(rng, M, K)
+    q4 = quantize_array_int4(jnp.asarray(w), 0, group=group)
+    ref = np.asarray(j_int4_matmul(jnp.asarray(x), q4["q4value"], q4["scale4"], interpret=True))
+    xt, q, s = _t(x), _t(q4["q4value"]), _t(q4["scale4"])
+    plain = k4.int4_matmul_plain(xt, q, s).numpy()
+    x3 = k4.int4_matmul_x3_plain(xt, q, s)
+    emulated = wgmma_forward_emulated(xt, q, s)
+    assert x3.dtype == emulated.dtype == torch.float32 and x3.shape == (M, N)
+    tol = 1e-5 * np.abs(ref).max()
+    for got in (x3.numpy(), emulated.numpy()):
+        assert np.abs(got - plain).max() <= tol
+        assert np.abs(got - ref).max() <= tol
+
+
+@pytest.mark.parametrize("what,match", [
+    ("decode", "and a bf16 output; got torch.bfloat16 x without row scales and a torch.float32"),
+    ("bf16-out", "and a bf16 output; got torch.bfloat16 x without row scales and a torch.bfloat16"),
+    ("tile", "the f32 wgmma path takes token tiles"),
+])
+def test_launch_plan_refuses_planes_the_kernel_does_not_take(what, match):
+    """An f32 x's three planes on the decode path, with a bf16 output, or at a
+    token tile the three-plane kernel is not built for (72) raise before any
+    library is built or launched."""
+    M, K, N, G = 49, 128, 32, 64
+    planes = split_bf16x3_plain(torch.zeros((M, K)))
+    q = torch.zeros((K // 2, N), dtype=torch.uint8)
+    s = torch.ones((K // G, N), dtype=torch.bfloat16)
+    y = torch.empty((M, N), dtype=torch.bfloat16 if what == "bf16-out" else torch.float32)
+    if what == "decode":
+        pl = k4.Plan(k4.DECODE, 1, 16, 1, 7, k4.DECODE_SMEM)
+    else:
+        tile = 72 if what == "tile" else 56
+        stages = k4.wgmma_stages(tile, 3)
+        pl = k4.Plan(WGMMA, 1, tile, 1, stages,
+                     stages * k4.wgmma_stage_bytes(tile, planes=3) + 1024)
+    with pytest.raises(ValueError, match=match):
+        k4.launch_plan(planes, None, q, s, y, pl)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

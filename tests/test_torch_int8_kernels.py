@@ -1,6 +1,8 @@
 """The int8 product's tensor-core kernels (wgmma from 17 rows, the decode
-kernel at 1 to 16), with bf16 x weight-only and with int8 x, as far as a CPU
-can hold them: the wrapper's pure choice of
+kernel at 1 to 16), with bf16 x weight-only, with int8 x, and with f32 x as
+three bf16 planes on the wgmma kernel, as far as a CPU can hold them: the
+split of an f32 x into its planes (exact) and the product it models against
+the plain version and JAX's kernel; the wrapper's pure choice of
 path, token tile, ring, splits and shared memory for every shape
 ``chip_smoke.py`` drives; the relabelling of accumulator rows and of B columns
 at their stores and the byte permutes and bf16 additions that build their
@@ -26,6 +28,7 @@ from aha_tpu.ops.quant import quantize_array
 from aha_tpu_torch import bridge
 from aha_tpu_torch.ops.kernels import int8_matmul as k8
 from aha_tpu_torch.ops.kernels.int8_matmul import DECODE, SCALAR, TENSOR_CORE, VEC16, WGMMA
+from aha_tpu_torch.ops.kernels.quantize_rows import split_bf16x3_plain
 
 SMEM = 232448          # bytes of shared memory a block may use on an H100
 LM_HEAD = (3584, 152064)
@@ -101,7 +104,7 @@ def test_plan_of_the_frame_chunk():
 
 @pytest.mark.parametrize("M,K,N,kw,path", [
     (1, 3584, 4608, dict(bf16=True, align=(8, 16, 16)), VEC16),      # a token, x 8 bytes off
-    (49, 3584, 4608, dict(bf16=False), VEC16),                       # f32
+    (49, 3584, 4608, dict(bf16=False, align=(8, 16, 16)), VEC16),    # f32, x 8 bytes off
     (49, 3584, 4608, dict(bf16=False, a8=True), TENSOR_CORE),        # int8 x, f32 output
     (1, 3584, 4608, dict(bf16=True, a8=True, align=(2, 16, 16)), VEC16),   # int8 x 2 bytes off
     (70, 320, 136, dict(bf16=True), TENSOR_CORE),                    # N not a multiple of 16
@@ -122,9 +125,60 @@ def test_plan_of_the_frame_chunk():
 def test_plan_keeps_the_earlier_paths(M, K, N, kw, path):
     """What neither Hopper kernel takes keeps the earlier paths, at a token, at
     decode rows and above: for int8 activations an f32 output, N not a multiple
-    of 16, operands off 16 bytes."""
+    of 16, operands off 16 bytes, f32 x at decode rows or off 16 bytes.
+    (Aligned f32 x at 49 rows, once the second case here, takes the wgmma
+    kernel since its three-plane operand came: it moved to
+    ``test_f32_plan_takes_the_wgmma_kernel_from_17_rows``, and the misaligned
+    f32 x took its place.)"""
     pl = k8.plan(M, K, N, **kw)
     assert pl.path == path and pl.tile == 0 and pl.smem_bytes == 0 and pl.splits >= 1
+
+
+@pytest.mark.parametrize("M,K,N,kw,path", [
+    (49, 3584, 4608, dict(bf16=False), WGMMA),                       # a frame chunk in f32
+    (16, 3584, 4608, dict(bf16=False), VEC16),                       # the last decode row
+    (17, 3584, 4608, dict(bf16=False), WGMMA),                       # the first wgmma row
+    (17, 18944, 3584, dict(bf16=False), WGMMA),
+    (196, 3584, 37888, dict(bf16=False), WGMMA),                     # a fused pass in f32
+    (196, 18944, 3584, dict(bf16=False), WGMMA),
+    (392, 1024, 3584, dict(bf16=False), WGMMA),                      # the projector's 8 frames
+    (1, 3584, 152064, dict(bf16=False), VEC16),                      # the lm_head's row
+    (49, 3584, 4608, dict(bf16=False, align=(16, 16, 8)), VEC16),    # scale 8 bytes off
+    (49, 320, 136, dict(bf16=False), SCALAR),                        # N not a multiple of 16
+    (49, 352, 256, dict(bf16=False), VEC16),                         # K not a multiple of 64
+    (49, 3584, 4608, dict(bf16=False, a8=True), TENSOR_CORE),        # int8 x, f32 output
+])
+def test_f32_plan_takes_the_wgmma_kernel_from_17_rows(M, K, N, kw, path):
+    """f32 x weight-only takes the wgmma kernel from 17 rows under the bf16
+    path's conditions (K % 64, N % 16, 16-byte aligned operands), as three bf16
+    planes: token tiles of 24 to 64 rows, two blocks an SM, a ring of three to
+    six slots that the kernel's own count of shared memory matches; 1 to 16 f32
+    rows, shapes the kernel does not take and int8 x with an f32 output keep
+    the earlier paths."""
+    pl = k8.plan(M, K, N, **kw)
+    assert pl.path == path
+    if path != WGMMA:
+        assert pl.tile == 0 and pl.smem_bytes == 0
+        return
+    assert pl == k8.x3_plan(M, K, N, 132)
+    assert pl.tile in k8.X3_TILES and (pl.tiles - 1) * pl.tile < M <= pl.tiles * pl.tile
+    assert 3 <= pl.stages <= 6 and (pl.stages, pl.smem_bytes) == k8.wgmma_ring(pl.tile, planes=3)
+    assert pl.smem_bytes == pl.stages * (3 * pl.tile * 128 + 64 * 144) + 1024 <= SMEM
+    assert k8.blocks_per_sm(pl.tile, 3) == 2
+    assert 2 * (pl.smem_bytes + 1024) <= k8.SMEM_PER_SM
+    blocks = pl.tiles * -(-N // 128)
+    assert pl.splits == 1 or pl.splits * blocks <= 2 * 132
+
+
+@pytest.mark.parametrize("M", [17, 49, 59, 171, 196, 220, 392])
+def test_f32_plan_of_every_path_shape(M):
+    """Every f32 product of phase 6's exact traces and of a peft artifact's f32
+    frame chunks (``chip_smoke.py``'s ``f32_8``) from 17 rows: the wgmma kernel
+    at the three-plane tiles."""
+    for K, N in (_shapes(M) if M != 392 else list(PROJECTOR)):
+        pl = k8.plan(M, K, N, bf16=False)
+        assert pl.path == WGMMA and pl.tile in k8.X3_TILES, (M, K, N)
+        assert (pl.tiles - 1) * pl.tile < M <= pl.tiles * pl.tile
 
 
 def test_token_tiles_under_the_int8_cap():
@@ -210,19 +264,83 @@ def test_operand_registers_are_the_weight_piece():
 
 def wgmma_emulated(x, qvalue, scale, splits):
     """The wgmma kernel's order of sums: in each K split the 16-deep pieces'
-    products added one after the other in f32, the splits' sums added in their
-    order, times the scale once, one cast."""
+    products added one after the other in f32 (f32 x: its three bf16 planes
+    hi, mid and lo, piece by piece, each plane's piece after the other), the
+    splits' sums added in their order, times the scale once, one cast."""
     K = x.shape[-1]
-    xf = x.reshape(-1, K).float()
+    x2 = x.reshape(-1, K)
+    planes = split_bf16x3_plain(x2).float() if x.dtype == torch.float32 else x2.float()[None]
     w = qvalue.float()
     per = -(-(K // 64) // splits) * 64
-    total = torch.zeros((xf.shape[0], w.shape[1]), dtype=torch.float32)
+    total = torch.zeros((x2.shape[0], w.shape[1]), dtype=torch.float32)
     for s in range(splits):
         part = torch.zeros_like(total)
         for k0 in range(s * per, min(K, (s + 1) * per), 16):
-            part = part + xf[:, k0:k0 + 16] @ w[k0:k0 + 16]
+            for plane in planes:
+                part = part + plane[:, k0:k0 + 16] @ w[k0:k0 + 16]
         total = total + part
     return (total * scale.reshape(-1).float()).to(x.dtype)
+
+
+def tricky_f32(rng, M, K):
+    """f32 activations that try the split into bf16 planes: magnitudes from
+    2^-20 to 2^20 side by side in a row, and in every third place a bf16 tie
+    (a bf16 value plus half its step: the split rounds it to the even
+    neighbour) or a tie moved one f32 step either way; signs mixed, some
+    zeros."""
+    x = (rng.standard_normal((M, K)) * 2.0 ** rng.integers(-20, 21, (M, K))).astype(np.float32)
+    b = np.asarray(torch.from_numpy(x).to(torch.bfloat16).float())
+    _, e = np.frexp(b)
+    tie = (b + np.sign(b) * np.ldexp(1.0, e - 9)).astype(np.float32)   # half of bf16's step
+    moved = np.nextafter(tie, np.where(rng.random((M, K)) < 0.5, np.inf, -np.inf).astype(
+        np.float32)).astype(np.float32)
+    which = rng.integers(0, 6, (M, K))
+    x = np.where(which == 0, tie, np.where(which == 1, moved, x))
+    x[rng.random((M, K)) < 0.02] = 0.0
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("M", [3, 17, 49])
+def test_split_bf16x3_is_exact(M):
+    """hi + mid + lo == x bit for bit (the residuals are exact in f32 and three
+    planes hold x's 24 significant bits); hi is x rounded to nearest even (the
+    ties go to the even neighbour), and each plane is at most half a step of
+    the plane before it."""
+    x = torch.from_numpy(tricky_f32(np.random.default_rng(M), M, 512))
+    planes = split_bf16x3_plain(x)
+    assert planes.shape == (3, M, 512) and planes.dtype == torch.bfloat16
+    hi, mid, lo = planes.float()
+    assert torch.equal(hi, x.to(torch.bfloat16).float())
+    assert torch.equal((hi + mid) + lo, x) and torch.equal(hi + (mid + lo), x)
+    for big, small in ((hi, mid), (mid, lo)):
+        step = torch.where(big == 0, torch.zeros_like(big),
+                           2.0 ** (torch.frexp(big).exponent.float() - 8))
+        assert bool((small.abs() <= step / 2).all())
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("M", [17, 49, 196])
+def test_f32_three_plane_product_matches_plain_and_jax(M, splits):
+    """The product the f32 wgmma path computes (``int8_matmul_x3_plain``, and
+    the kernel's order of sums in ``wgmma_emulated``) on activations of mixed
+    exponents and bf16 ties, against the plain version (one f32 product) and
+    JAX's kernel in interpret mode with f32 x, within 1e-5 of the largest
+    output."""
+    rng = np.random.default_rng(100 + M)
+    K, N = 512, 256
+    w = (rng.standard_normal((K, N)) * 0.02).astype(np.float32)
+    x = tricky_f32(rng, M, K)
+    q = quantize_array(jnp.asarray(w), 0)
+    ref = np.asarray(j_int8_matmul(jnp.asarray(x), q["qvalue"], q["scale"], interpret=True))
+    xt, qv, s = _t(x), _t(q["qvalue"]), _t(q["scale"])
+    plain = k8.int8_matmul_plain(xt, qv, s).numpy()
+    x3 = k8.int8_matmul_x3_plain(xt, qv, s)
+    emulated = wgmma_emulated(xt, qv, s, splits)
+    assert x3.dtype == emulated.dtype == torch.float32 and x3.shape == (M, N)
+    tol = 1e-5 * np.abs(ref).max()
+    for got in (x3.numpy(), emulated.numpy()):
+        assert np.abs(got - plain).max() <= tol
+        assert np.abs(got - ref).max() <= tol
 
 
 @pytest.mark.parametrize("splits", [1, 3])
@@ -449,6 +567,30 @@ def test_launch_plan_refuses_what_the_decode_kernel_does_not_take(what, match):
     pl = k8.Plan(DECODE, 1, 16, 1, 3, 3 * k8.DECODE_SLOTS[False])
     with pytest.raises(ValueError, match=match):
         k8.launch_plan(x, sx, q, s, y, pl)
+
+
+@pytest.mark.parametrize("what,match", [
+    ("decode", "and a bf16 output; got torch.bfloat16 x without row scales and a torch.float32"),
+    ("bf16-out", "and a bf16 output; got torch.bfloat16 x without row scales and a torch.bfloat16"),
+    ("tile", "the f32 wgmma path takes token tiles"),
+])
+def test_launch_plan_refuses_planes_the_kernel_does_not_take(what, match):
+    """An f32 x's three planes on the decode path, with a bf16 output, or at a
+    token tile the three-plane kernel is not built for (72) raise before any
+    library is built or launched."""
+    M, K, N = 49, 64, 32
+    planes = split_bf16x3_plain(torch.zeros((M, K)))
+    q = torch.zeros((K, N), dtype=torch.int8)
+    s = torch.ones((1, N), dtype=torch.float32)
+    y = torch.empty((M, N), dtype=torch.bfloat16 if what == "bf16-out" else torch.float32)
+    if what == "decode":
+        pl = k8.Plan(DECODE, 1, 16, 1, 3, 3 * k8.DECODE_SLOTS[False])
+    else:
+        tile = 72 if what == "tile" else 56
+        stages, smem = k8.wgmma_ring(tile, planes=3)
+        pl = k8.Plan(WGMMA, 1, tile, 1, stages, smem)
+    with pytest.raises(ValueError, match=match):
+        k8.launch_plan(planes, None, q, s, y, pl)
 
 
 # ---- int8 activations (a8): the same two kernels on s8 tensor cores ---------------------

@@ -146,6 +146,9 @@ TRAIN = {
     "qlora8": ((2, 2), "int8", {}, (2, 3, 2, 3), 1),
     "gpipe": ((2, 1, 2), "dense", dict(mesh_pipe=2, pipe_microbatches=2), (2, 3, 2, 3), 1),
     "ring": ((2, 1), "dense", dict(ring_attention=True, ring_min_seq=8), (3, 3), 2),
+    # 3 rows on data 2: the axis does not divide the batch, so every data rank holds
+    # every row (JAX's shard_batch drops ``data`` from the batch's spec)
+    "fsdp_b3": ((2, 1), "dense", {}, (2, 3, 2), 1),
 }
 
 

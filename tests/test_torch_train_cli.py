@@ -54,12 +54,21 @@ PARTS = ("total_loss", "lm_loss", "video_loss", "info_loss", "ref_loss", "tv_los
 def _compile_in_memory():
     """JAX's ``cmd_train`` builds a new jitted step a call, so a second call of
     one program finds it in the persistent compilation cache that
-    tests/conftest.py turns on, and loading that executable aborted the
-    process now and then (XLA:CPU, jax 0.9). This module compiles in memory."""
+    tests/conftest.py turns on, and running that executable aborted the
+    process now and then (XLA:CPU, jax 0.9). This module compiles in memory.
+    jax decides once a process whether it uses the cache, at its first
+    compile, and reads the flag no more after that: a worker that compiled
+    for another module first (``--dist load`` hands this module's tests to
+    such workers) kept reading executables from the cache, and aborted. So the
+    decision is reset with the flag, here and after the module."""
+    from jax._src import compilation_cache
+
     before = jax.config.jax_enable_compilation_cache
     jax.config.update("jax_enable_compilation_cache", False)
+    compilation_cache.reset_cache()
     yield
     jax.config.update("jax_enable_compilation_cache", before)
+    compilation_cache.reset_cache()
 
 
 @pytest.fixture(autouse=True, scope="module")
