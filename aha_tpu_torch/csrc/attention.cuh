@@ -35,14 +35,15 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 // s [64 x 64] = A B^T over the 128 columns of two tiles (rows of A: the output's
-// rows; rows of B: its columns); started, not waited for
+// rows; rows of B: its columns), or s += A B^T where `acc` (a constant);
+// started, not waited for
 __device__ __forceinline__ void wg_products_nt(float (&s)[32], const unsigned char* a,
-                                               const unsigned char* b) {
+                                               const unsigned char* b, int acc = 0) {
   const uint32_t at = smem_addr(a), bt = smem_addr(b);
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk) {
     const uint32_t off = (kk >> 2) * kHalfBytes + (kk & 3) * 32;
-    wgmma_ss(s, wg_desc(at + off), wg_desc(bt + off), kk != 0);
+    wgmma_ss(s, wg_desc(at + off), wg_desc(bt + off), kk != 0 || acc);
   }
 }
 // acc [64 x 128] (lo: columns 0 .. 63, hi: 64 .. 127) += P B with P [64 x 64] in

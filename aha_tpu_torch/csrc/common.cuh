@@ -28,6 +28,16 @@ __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// the three bf16 planes of one f32 value, hi + mid + lo == v (split_bf16x3 in
+// quantize_rows.cu; the f32 queries of decode_attention.cu's tensor-core path)
+__device__ __forceinline__ void split3(float v, __nv_bfloat16& hi, __nv_bfloat16& mid,
+                                       __nv_bfloat16& lo) {
+  hi = __float2bfloat16_rn(v);
+  const float r = __fsub_rn(v, __bfloat162float(hi));
+  mid = __float2bfloat16_rn(r);
+  lo = __float2bfloat16_rn(__fsub_rn(r, __bfloat162float(mid)));
+}
+
 // Programmatic dependent launch (sm_90). A kernel launched with programmatic
 // stream serialisation (launch_after_prior_grid) may start while the kernel ahead
 // of it on the stream still runs: until wait_prior_grid() it may touch only what

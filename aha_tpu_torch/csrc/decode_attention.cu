@@ -32,15 +32,15 @@
 //
 // The wrapper (ops/kernels/decode_attention.py::plan) picks the path, the
 // slots per split and the number of splits (as many as one round of resident
-// blocks holds, 4 a SM on the CUDA cores and 2 on the tensor cores, with at
-// least 3 slot tiles a split there; one split, and no merge, where the row
-// tiles fill the round; a token: 65 splits of 32 slots, 260 blocks) and
-// allocates the scratch, whose size comes from
+// blocks holds, 4 a SM on the CUDA cores, 2 on the bf16 tensor-core path and 1
+// on the f32 one, with at least 3 slot tiles a split on the tensor cores; one
+// split, and no merge, where the row tiles fill the round; a token: 65 splits
+// of 32 slots, 260 blocks) and allocates the scratch, whose size comes from
 // aha_decode_attention_scratch_bytes. One C call launches what a path needs;
 // splits start on slot-tile boundaries, and the ragged end of the 2049-slot
 // cache is masked in the kernels, not padded.
 //
-// Two paths:
+// Three paths:
 //
 // * Tensor cores (wgmma), bf16 q at head size 128 with a bf16 or int8 cache,
 //   from 16 rows per kv head on (S = 13 .. 220 on the 7B: 91 .. 1540 rows). A
@@ -58,21 +58,54 @@
 //   themselves would make every row tile and every kv head read the f32
 //   tables again: 64 of every 96 KB a slot tile brings, three times the
 //   traffic of the rotated bf16 key.
+// * Tensor cores, f32 q at head size 128 with a bf16 or f32 cache, from 16
+//   rows per kv head on: the frame chunks behind a peft artifact's f32
+//   projector (f32 q, the bf16 cache read as it lies) and the local judge's
+//   f32 cache. The TPU kernel keeps everything f32 here (cdt = f32: the
+//   rotated key and p are not rounded), which the H100 offers only on the
+//   CUDA cores (67 TFLOP/s); so every f32 operand goes to the bf16 tensor
+//   cores as planes whose sum is the value, and the products of the planes
+//   add into f32 accumulators:
+//   - q: three planes hi + mid + lo == q (split3, as split_bf16x3 writes
+//     them), split as the block loads its rows;
+//   - the rotated key: two planes hi + lo, written by the rotation kernel
+//     (16 significant bits, |k - hi - lo| <= 2^-18 |k|). On ring slots the
+//     residual rotation is the identity (cos 1, sin 0), the key is the bf16
+//     cache value and lo is 0: there s is q k exactly, but for the f32 sums.
+//     Rotating in the blocks would read the f32 tables once a row tile, as
+//     above; two planes are the bytes of one f32 key. s = (hi + mid + lo) k_hi
+//     + (hi + mid) k_lo, five products (lo k_lo, below 2^-26 of q k, is left);
+//   - p: three planes in the register operand of o += p v, so p stays f32;
+//   - V: a bf16 cache as it lies (exact, three products); an f32 cache as two
+//     planes written beside the key's, o += (p_hi + p_mid + p_lo) v_hi + p_hi
+//     v_lo (four products; p_mid v_lo is below 2^-17 of p v, as the residual
+//     of v's planes is).
+//   The accumulators add in f32 the tensor cores' way, and their error grows
+//   with the k16 steps a sum takes: a tile's scores add the small products
+//   first, then q_hi k_hi; o takes 12 steps a tile (16 with an f32 V) over up
+//   to 65 tiles (the judge's window of 4,097 slots).
+//   Three q planes and two stages of two key planes and one or two V planes
+//   take 144 or 176 KB of shared memory: one block a SM. The output is f32.
+//   What bounds it: at a frame chunk, as on the bf16 path, the bytes and a
+//   tile's chain of copies, products and softmax; at the judge's rubric prefix
+//   (1,695 rows) the products, nine bf16 ones a tile where the TPU kernel does
+//   two f32 ones: 0.36 ms at the bf16 peak, where the f32 peak allows 1.18.
 // * CUDA cores, f32 arithmetic, everything else: fewer than 16 rows (S = 1
-//   and 2 on the 7B: a token, 7 rows), f32, head sizes 16 / 32 / 64. A block
-//   of 4 warps owns 16 rows and walks its slot range in tiles of 32: the
-//   tile's K (rotated in f32 from its own cos / sin) and V are staged in
-//   shared memory with 4-element vector loads, each warp scores its 4 rows
-//   against the 32 slots (one slot per lane), updates the running max / sum
-//   with warp shuffles and accumulates P.V with each lane owning Dh/32 output
-//   dims. Only the order of the f32 sums differs from the plain version.
+//   and 2 on the 7B: a token, 7 rows), head sizes 16 / 32 / 64, an int8 cache
+//   under f32 q. A block of 4 warps owns 16 rows and walks its slot range in
+//   tiles of 32: the tile's K (rotated in f32 from its own cos / sin) and V
+//   are staged in shared memory with 4-element vector loads (a bf16 or int8
+//   cache widened to f32 there, exactly), each warp scores its 4 rows against
+//   the 32 slots (one slot per lane), updates the running max / sum with warp
+//   shuffles and accumulates P.V with each lane owning Dh/32 output dims. Only
+//   the order of the f32 sums differs from the plain version.
 #include <math.h>
 
 #include "attention.cuh"
 
 namespace {
 
-enum Path { kCudaCores = 0, kWgmma = 1 };
+enum Path { kCudaCores = 0, kWgmma = 1, kWgmmaF32 = 2 };
 
 // ---- merge: the splits of each row, in split order ----------------------------------
 //
@@ -384,7 +417,7 @@ cudaError_t by_dim(int Dh, const void* q, const void* k, const void* v, const vo
   }
 }
 
-// ---- tensor cores: bf16 q at head size 128 -------------------------------------------
+// ---- tensor cores: head size 128 -----------------------------------------------------
 
 namespace tc {
 
@@ -417,16 +450,31 @@ __device__ __forceinline__ void store8(bf16* p, const float (&x)[8]) {
   *reinterpret_cast<uint4*>(p) = make_uint4(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]),
                                             pack_bf16(x[4], x[5]), pack_bf16(x[6], x[7]));
 }
+// eight values as two bf16 planes, hi = bf16(x) and lo = bf16(x - hi) (x - hi is
+// exact in f32): 16 significant bits, |x - hi - lo| <= 2^-18 |x|, lo 0 where x is bf16
+__device__ __forceinline__ void store8_planes(bf16* hi, bf16* lo, const float (&x)[8]) {
+  float h[8], l[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    h[e] = __bfloat162float(__float2bfloat16_rn(x[e]));
+    l[e] = x[e] - h[e];
+  }
+  store8(hi, h);
+  store8(lo, l);
+}
 
-// Every cached key rotated by its slot's cos / sin in f32 and rounded to bf16:
-// krot [B, Wp, KVH, 128]; with an int8 cache also V widened to bf16 (exact). A
-// thread takes dims 8c .. 8c + 7 and their rotate-half partners 64 + 8c .. of
-// one (slot, head).
-template <typename KT>
+// Every cached key rotated by its slot's cos / sin in f32: krot [B, Wp, KVH, 128].
+// bf16 q (PLANES false): the key rounded to bf16, and with an int8 cache V widened to
+// bf16 (exact) into vwide. f32 q (PLANES true): the key as two bf16 planes hi, lo at
+// krot and krot + plane, and with an f32 cache V the same at vwide and vwide + plane.
+// A thread takes dims 8c .. 8c + 7 and their rotate-half partners 64 + 8c .. of one
+// (slot, head).
+template <typename KT, bool PLANES>
 __global__ void __launch_bounds__(256)
 decode_rotate_keys_kernel(const KT* __restrict__ kc, const KT* __restrict__ vc,
                           const float* __restrict__ cosb, const float* __restrict__ sinb,
-                          bf16* __restrict__ krot, bf16* __restrict__ vwide, int n, int KVH) {
+                          bf16* __restrict__ krot, bf16* __restrict__ vwide, size_t plane, int n,
+                          int KVH) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int c = i & 7, row = i >> 3, bs = row / KVH;   // row: (b, slot, head); bs: (b, slot)
@@ -443,14 +491,51 @@ decode_rotate_keys_kernel(const KT* __restrict__ kc, const KT* __restrict__ vc,
     r1[e] = x1[e] * c1[e] - x2[e] * s1[e];   // rotate_half: (-x2, x1)
     r2[e] = x2[e] * c2[e] + x1[e] * s2[e];
   }
-  store8(krot + at, r1);
-  store8(krot + at + 64, r2);
+  if constexpr (PLANES) {
+    store8_planes(krot + at, krot + plane + at, r1);
+    store8_planes(krot + at + 64, krot + plane + at + 64, r2);
+  } else {
+    store8(krot + at, r1);
+    store8(krot + at + 64, r2);
+  }
   if (vwide != nullptr) {
     load8(vc + at, x1);
     load8(vc + at + 64, x2);
-    store8(vwide + at, x1);
-    store8(vwide + at + 64, x2);
+    if constexpr (PLANES) {
+      store8_planes(vwide + at, vwide + plane + at, x1);
+      store8_planes(vwide + at + 64, vwide + plane + at + 64, x2);
+    } else {
+      store8(vwide + at, x1);
+      store8(vwide + at + 64, x2);
+    }
   }
+}
+
+// p [64 x 64] (f32, an accumulator) as the A fragments of three planes hi, mid, lo
+// (split3: hi + mid + lo == p), the register operands of o += p v
+__device__ __forceinline__ void wg_split3(uint32_t (&pa)[3][4][4], const float (&s)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      bf16 h[2], m[2], l[2];
+      split3(s[8 * kk + 2 * i], h[0], m[0], l[0]);
+      split3(s[8 * kk + 2 * i + 1], h[1], m[1], l[1]);
+      pa[0][kk][i] = as_u32(__halves2bfloat162(h[0], h[1]));
+      pa[1][kk][i] = as_u32(__halves2bfloat162(m[0], m[1]));
+      pa[2][kk][i] = as_u32(__halves2bfloat162(l[0], l[1]));
+    }
+}
+
+// o += p v over PP planes of p and VP tiles of V (`v`: a stage's first V tile): each p
+// plane against V's first tile, then p hi against its second (an f32 cache's lo)
+template <int PP, int VP>
+__device__ __forceinline__ void products_pv(float (&lo)[32], float (&hi)[32],
+                                            const uint32_t (&pa)[PP][4][4],
+                                            const unsigned char* v) {
+#pragma unroll
+  for (int i = 0; i < PP; ++i) wg_products_pn(lo, hi, pa[i], v);
+  if constexpr (VP == 2) wg_products_pn(lo, hi, pa[0], v + kTileBytes);
 }
 
 // A block is one warpgroup that owns 64 rows (rows R: rep R / S, position R % S)
@@ -459,23 +544,28 @@ decode_rotate_keys_kernel(const KT* __restrict__ kc, const KT* __restrict__ vc,
 // of V in the two-stage ring (as in the flash forward), so that q k(t)^T and
 // p(t - 1) v(t - 1) are in the tensor cores together; each stage also holds its
 // tile's order (and the int8 scales), copied beside its keys. Grid (splits, row
-// tiles, B * KVH).
+// tiles, B * KVH). QT bf16: one tile of q, of K and of V a stage; QT f32: three q
+// planes, two K planes and VP V planes (planes `plane` elements apart in scratch),
+// p in three planes, f32 out.
 constexpr int kMeta = 3 * 2 * kTile * 4;   // order, K scales, V scales of two stages
-constexpr int smem_bytes() { return 5 * kTileBytes + kMeta + kAlignSlack; }
+template <int QP, int KP, int VP>
+constexpr int smem_bytes() { return (QP + 2 * KP + 2 * VP) * kTileBytes + kMeta + kAlignSlack; }
 
-template <bool SCALED>
-__global__ void __launch_bounds__(kWgThreads)
-decode_attention_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ krot,
-                              const bf16* __restrict__ vb, const int* __restrict__ order,
-                              const int* __restrict__ g, const float* __restrict__ ksc,
-                              const float* __restrict__ vsc, bf16* __restrict__ out,
-                              float* __restrict__ part_o, float* __restrict__ part_ml, int S,
-                              int NH, int KVH, int Wp, int span, float scale) {
+template <typename QT, bool SCALED, int VP>
+__device__ __forceinline__ void attend(const QT* __restrict__ q, const bf16* __restrict__ krot,
+                                       const bf16* __restrict__ vb, size_t plane,
+                                       const int* __restrict__ order, const int* __restrict__ g,
+                                       const float* __restrict__ ksc,
+                                       const float* __restrict__ vsc, QT* __restrict__ out,
+                                       float* __restrict__ part_o, float* __restrict__ part_ml,
+                                       int S, int NH, int KVH, int Wp, int span, float scale) {
+  constexpr bool F32 = sizeof(QT) == 4;
+  constexpr int QP = F32 ? 3 : 1, KP = F32 ? 2 : 1, PP = F32 ? 3 : 1;
   extern __shared__ __align__(128) unsigned char smem_tc[];
-  unsigned char* qs = align_tiles(smem_tc);
-  unsigned char* ks = qs + kTileBytes;       // two stages
-  unsigned char* vs = ks + 2 * kTileBytes;   // two stages
-  int* ord_s = reinterpret_cast<int*>(vs + 2 * kTileBytes);            // [2][64]
+  unsigned char* qs = align_tiles(smem_tc);    // QP tiles
+  unsigned char* ks = qs + QP * kTileBytes;    // two stages of KP tiles
+  unsigned char* vs = ks + 2 * KP * kTileBytes;   // two stages of VP tiles
+  int* ord_s = reinterpret_cast<int*>(vs + 2 * VP * kTileBytes);      // [2][64]
   float* ksc_s = reinterpret_cast<float*>(ord_s + 2 * kTile);          // [2][64]
   float* vsc_s = ksc_s + 2 * kTile;                                    // [2][64]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
@@ -484,15 +574,23 @@ decode_attention_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict
   const int w_begin = split * span, w_end = min(Wp, w_begin + span);
   const int ntiles = (w_end - w_begin + kTile - 1) / kTile;
   const float sl2 = scale * kLog2e;
+  // row R's first element in q and out
+  auto row_at = [&](int R) {
+    return ((static_cast<size_t>(b) * S + R % S) * NH + kvh * n_rep + R / S) * kDh;
+  };
 
   const TileCopy copy(static_cast<size_t>(KVH) * kDh);   // a slot's rows lie KVH * 128 apart
   const size_t kv0 = (static_cast<size_t>(b) * Wp * KVH + kvh) * kDh;   // slot 0 of this head
-  auto load_slots = [&](const bf16* src, unsigned char* stages, int t) {
+  // tile t of `planes` planes into its stage of `stages`
+  auto load_slots = [&](const bf16* src, unsigned char* stages, int planes, int t) {
     const int s0 = w_begin + t * kTile;
-    copy(stages + (t & 1) * kTileBytes, src + kv0 + static_cast<size_t>(s0) * KVH * kDh, w_end - s0);
+#pragma unroll
+    for (int p = 0; p < planes; ++p)
+      copy(stages + ((t & 1) * planes + p) * kTileBytes,
+           src + p * plane + kv0 + static_cast<size_t>(s0) * KVH * kDh, w_end - s0);
   };
   auto load_k = [&](int t) {
-    load_slots(krot, ks, t);
+    load_slots(krot, ks, KP, t);
     const int s0 = w_begin + t * kTile, stage = (t & 1) * kTile;
     // slots past the split's end are empty (order -1)
     for (int i = threadIdx.x; i < (SCALED ? 3 : 1) * kTile; i += kWgThreads) {
@@ -509,14 +607,40 @@ decode_attention_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict
       }
     }
   };
-  load_tile_async(qs, [&](int r, bool& ok) {
-    const int R = R0 + r;
-    ok = R < M;
-    const int Rc = ok ? R : 0;
-    return q + ((static_cast<size_t>(b) * S + Rc % S) * NH + kvh * n_rep + Rc / S) * kDh;
-  });
-  load_k(0);
-  cp_async_commit();
+  if constexpr (F32) {
+    load_k(0);
+    cp_async_commit();
+    // the f32 rows, split into the three planes as they land (plain loads, in flight
+    // beside the first keys' copies; rows past M are zeros)
+#pragma unroll
+    for (int i = 0; i < kTile * 16 / kWgThreads; ++i) {
+      const int idx = threadIdx.x + i * kWgThreads, r = idx >> 4, c = idx & 15, R = R0 + r;
+      float x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (R < M) load8(q + row_at(R) + 8 * c, x);
+      uint32_t w[3][4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        bf16 h[2], m[2], l[2];
+        split3(x[2 * e], h[0], m[0], l[0]);
+        split3(x[2 * e + 1], h[1], m[1], l[1]);
+        w[0][e] = as_u32(__halves2bfloat162(h[0], h[1]));
+        w[1][e] = as_u32(__halves2bfloat162(m[0], m[1]));
+        w[2][e] = as_u32(__halves2bfloat162(l[0], l[1]));
+      }
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+        *reinterpret_cast<uint4*>(qs + p * kTileBytes + swz(r, c)) =
+            make_uint4(w[p][0], w[p][1], w[p][2], w[p][3]);
+    }
+  } else {
+    load_tile_async(qs, [&](int r, bool& ok) {
+      const int R = R0 + r;
+      ok = R < M;
+      return q + row_at(ok ? R : 0);
+    });
+    load_k(0);
+    cp_async_commit();
+  }
 
   // this thread's two rows; a row past M sees nothing (order <= -2 never holds) and is not written
   const int Ra = R0 + row0 + gid, Rb = Ra + 8;
@@ -527,21 +651,32 @@ decode_attention_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict
   for (int i = 0; i < 32; ++i) o_lo[i] = o_hi[i] = 0.f;
   // running maxima (of the scores before scale * log2 e) and this thread's share of the row sums
   float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
-  uint32_t pa[4][4];
+  uint32_t pa[PP][4][4];
 
   for (int t = 0; t < ntiles; ++t) {
     cp_async_wait_all();
     __syncthreads();   // k(t) and v(t - 1) have arrived; k(t - 1) and v(t - 2) are consumed
     if (t + 1 < ntiles) load_k(t + 1);
-    load_slots(vb, vs, t);
+    load_slots(vb, vs, VP, t);
     cp_async_commit();
 
     float s[32];
+    const unsigned char* kt = ks + (t & 1) * KP * kTileBytes;
     wg_fence();
-    wg_products_nt(s, qs, ks + (t & 1) * kTileBytes);
+    if constexpr (F32) {
+      // the small products first (q mid and lo against the key's hi plane, q hi and mid
+      // against its lo), so that they add into a small sum, then q hi k hi
+      wg_products_nt(s, qs + kTileBytes, kt);
+      wg_products_nt(s, qs + 2 * kTileBytes, kt, 1);
+      wg_products_nt(s, qs, kt + kTileBytes, 1);
+      wg_products_nt(s, qs + kTileBytes, kt + kTileBytes, 1);
+      wg_products_nt(s, qs, kt, 1);
+    } else {
+      wg_products_nt(s, qs, kt);
+    }
     wg_commit();
     if (t > 0) {
-      wg_products_pn(o_lo, o_hi, pa, vs + ((t - 1) & 1) * kTileBytes);
+      products_pv<PP, VP>(o_lo, o_hi, pa, vs + ((t - 1) & 1) * VP * kTileBytes);
       wg_commit();
       wg_wait<1>();
     } else {
@@ -602,14 +737,16 @@ decode_attention_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict
       o_lo[4 * j] *= al_a; o_lo[4 * j + 1] *= al_a; o_lo[4 * j + 2] *= al_b; o_lo[4 * j + 3] *= al_b;
       o_hi[4 * j] *= al_a; o_hi[4 * j + 1] *= al_a; o_hi[4 * j + 2] *= al_b; o_hi[4 * j + 3] *= al_b;
     }
-    wg_round(pa, s);   // p, rounded to bf16, is the A operand of p v
+    // p is the A operand of p v: rounded to bf16, or (f32) as its three planes
+    if constexpr (F32) wg_split3(pa, s);
+    else wg_round(pa[0], s);
   }
   cp_async_wait_all();
   __syncthreads();     // the last v has arrived
   keep(o_lo);
   keep(o_hi);
   wg_fence();
-  wg_products_pn(o_lo, o_hi, pa, vs + ((ntiles - 1) & 1) * kTileBytes);
+  products_pv<PP, VP>(o_lo, o_hi, pa, vs + ((ntiles - 1) & 1) * VP * kTileBytes);
   wg_commit();
   wg_wait<0>();
   keep(o_lo);
@@ -617,45 +754,81 @@ decode_attention_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict
 
   l_a = quad_sum(l_a);
   l_b = quad_sum(l_b);
-  if (part_o == nullptr) {   // the only split: normalise and write the rows
-    store_rows(qs, o_lo, o_hi, l_a > 0.f ? 1.f / l_a : 0.f, l_b > 0.f ? 1.f / l_b : 0.f,
-               [&](int r) -> bf16* {
-                 const int R = R0 + r;
-                 return R < M ? out + ((static_cast<size_t>(b) * S + R % S) * NH + kvh * n_rep +
-                                       R / S) * kDh
-                              : nullptr;
-               });
-    return;
+  const float f_a = l_a > 0.f ? 1.f / l_a : 0.f, f_b = l_b > 0.f ? 1.f / l_b : 0.f;
+  if constexpr (!F32) {
+    if (part_o == nullptr) {   // the only split: normalise and write the rows
+      store_rows(qs, o_lo, o_hi, f_a, f_b, [&](int r) -> bf16* {
+        const int R = R0 + r;
+        return R < M ? out + row_at(R) : nullptr;
+      });
+      return;
+    }
   }
-  // one split of several: (m in log2 units, l, acc) of each row, for the merge
+  // one split of several: (m in log2 units, l, acc) of each row, for the merge; the only
+  // split of f32 rows: the rows, normalised, in 8-byte stores
   const size_t pbase = (static_cast<size_t>(bk) * gridDim.x + split) * M;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int R = h ? Rb : Ra;
     if (R >= M) continue;
-    float* po = part_o + (pbase + R) * kDh + 2 * tig;
+    const float f = part_o == nullptr ? (h ? f_b : f_a) : 1.f;
+    float* po = (part_o == nullptr ? reinterpret_cast<float*>(out) + row_at(R)
+                                   : part_o + (pbase + R) * kDh) + 2 * tig;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      *reinterpret_cast<float2*>(po + 8 * j) = make_float2(o_lo[4 * j + 2 * h], o_lo[4 * j + 2 * h + 1]);
+      *reinterpret_cast<float2*>(po + 8 * j) =
+          make_float2(o_lo[4 * j + 2 * h] * f, o_lo[4 * j + 2 * h + 1] * f);
       *reinterpret_cast<float2*>(po + 64 + 8 * j) =
-          make_float2(o_hi[4 * j + 2 * h], o_hi[4 * j + 2 * h + 1]);
+          make_float2(o_hi[4 * j + 2 * h] * f, o_hi[4 * j + 2 * h + 1] * f);
     }
-    if (tig == 0) {
+    if (part_o != nullptr && tig == 0) {
       part_ml[2 * (pbase + R)] = (h ? m_b : m_a) * sl2;
       part_ml[2 * (pbase + R) + 1] = h ? l_b : l_a;
     }
   }
 }
 
+template <bool SCALED>
+__global__ void __launch_bounds__(kWgThreads)
+decode_attention_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ krot,
+                              const bf16* __restrict__ vb, const int* __restrict__ order,
+                              const int* __restrict__ g, const float* __restrict__ ksc,
+                              const float* __restrict__ vsc, bf16* __restrict__ out,
+                              float* __restrict__ part_o, float* __restrict__ part_ml, int S,
+                              int NH, int KVH, int Wp, int span, float scale) {
+  attend<bf16, SCALED, 1>(q, krot, vb, 0, order, g, ksc, vsc, out, part_o, part_ml, S, NH, KVH,
+                          Wp, span, scale);
+}
+
+// f32 q; VP 1: V the bf16 cache as it lies, VP 2: an f32 cache's V as two planes
+template <int VP>
+__global__ void __launch_bounds__(kWgThreads)
+decode_attention_wgmma_f32_kernel(const float* __restrict__ q, const bf16* __restrict__ kpl,
+                                  const bf16* __restrict__ vb, size_t plane,
+                                  const int* __restrict__ order, const int* __restrict__ g,
+                                  float* __restrict__ out, float* __restrict__ part_o,
+                                  float* __restrict__ part_ml, int S, int NH, int KVH, int Wp,
+                                  int span, float scale) {
+  attend<float, false, VP>(q, kpl, vb, plane, order, g, nullptr, nullptr, out, part_o, part_ml,
+                           S, NH, KVH, Wp, span, scale);
+}
+
 }  // namespace tc
 
 size_t align256(size_t n) { return (n + 255) & ~static_cast<size_t>(255); }
 
-// bytes of the rotated keys (and of the widened int8 V) on the tensor-core path
+// bytes of one bf16 plane [B, Wp, KVH, 128] of the tensor-core paths' scratch
+size_t plane_bytes(int B, int Wp, int KVH) {
+  return align256(static_cast<size_t>(B) * Wp * KVH * attn::kDh * 2);
+}
+
+// bytes of the rotated keys (and of the widened int8 V) on the bf16 tensor-core
+// path; of the key's two planes (and an f32 cache's two V planes) on the f32 one
 size_t rotated_bytes(int B, int Wp, int KVH, int kv_dtype, int path) {
-  if (path != kWgmma) return 0;
-  const size_t one = align256(static_cast<size_t>(B) * Wp * KVH * attn::kDh * 2);
-  return kv_dtype == AHA_I8 ? 2 * one : one;
+  const size_t one = plane_bytes(B, Wp, KVH);
+  if (path == kWgmma) return kv_dtype == AHA_I8 ? 2 * one : one;
+  if (path == kWgmmaF32) return kv_dtype == AHA_F32 ? 4 * one : 2 * one;
+  return 0;
 }
 
 }  // namespace
@@ -679,11 +852,11 @@ extern "C" int aha_decode_attention(const void* q, const void* k, const void* v,
                                     int q_dtype, int kv_dtype, float scale, int path, int span,
                                     int splits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int tile = path == kWgmma ? wg::kTile : kBW;
+  const int tile = path == kCudaCores ? kBW : wg::kTile;
   if (B <= 0 || S <= 0 || KVH <= 0 || NH % KVH != 0 || Wp <= 0 ||
       (kv_dtype == AHA_I8) != (ks != nullptr) || splits <= 0 || span <= 0 || span % tile != 0 ||
       static_cast<long long>(splits - 1) * span >= Wp || static_cast<long long>(splits) * span < Wp ||
-      (path != kCudaCores && path != kWgmma) || B * KVH > 65535)
+      (path != kCudaCores && path != kWgmma && path != kWgmmaF32) || B * KVH > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const int M = (NH / KVH) * S;
   unsigned char* sc = static_cast<unsigned char*>(scratch);
@@ -698,47 +871,84 @@ extern "C" int aha_decode_attention(const void* q, const void* k, const void* v,
     part_o = reinterpret_cast<float*>(sc + rot);
     part_ml = reinterpret_cast<float*>(sc + rot + align256(rows * Dh * 4));
   }
+  using tc::bf16;
+  const int n = B * Wp * KVH * 8;   // threads of the rotation kernel
+  const float* cosp = static_cast<const float*>(cs);
+  const float* sinp = static_cast<const float*>(sn);
+  const dim3 wgrid(splits, (M + wg::kTile - 1) / wg::kTile, B * KVH);
   cudaError_t err = cudaErrorInvalidValue;
   if (path == kWgmma) {
-    using tc::bf16;
     if (q_dtype != AHA_BF16 || Dh != attn::kDh || (kv_dtype != AHA_BF16 && kv_dtype != AHA_I8))
       return static_cast<int>(cudaErrorInvalidValue);
     bf16* krot = reinterpret_cast<bf16*>(sc);
     bf16* vwide = kv_dtype == AHA_I8 ? reinterpret_cast<bf16*>(sc + rot / 2) : nullptr;
-    const int n = B * Wp * KVH * 8;
-    const float* cosp = static_cast<const float*>(cs);
-    const float* sinp = static_cast<const float*>(sn);
     if (kv_dtype == AHA_I8)
-      tc::decode_rotate_keys_kernel<int8_t><<<(n + 255) / 256, 256, 0, st>>>(
+      tc::decode_rotate_keys_kernel<int8_t, false><<<(n + 255) / 256, 256, 0, st>>>(
           static_cast<const int8_t*>(k), static_cast<const int8_t*>(v), cosp, sinp, krot, vwide,
-          n, KVH);
+          0, n, KVH);
     else
-      tc::decode_rotate_keys_kernel<bf16><<<(n + 255) / 256, 256, 0, st>>>(
-          static_cast<const bf16*>(k), static_cast<const bf16*>(v), cosp, sinp, krot, nullptr, n,
-          KVH);
+      tc::decode_rotate_keys_kernel<bf16, false><<<(n + 255) / 256, 256, 0, st>>>(
+          static_cast<const bf16*>(k), static_cast<const bf16*>(v), cosp, sinp, krot, nullptr, 0,
+          n, KVH);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     const bf16* vsrc = vwide != nullptr ? vwide : static_cast<const bf16*>(v);
-    const dim3 grid(splits, (M + wg::kTile - 1) / wg::kTile, B * KVH);
-    const int smem = tc::smem_bytes();
+    const int smem = tc::smem_bytes<1, 1, 1>();
     if (ks != nullptr) {
       err = wg::allow_smem(tc::decode_attention_wgmma_kernel<true>, smem);
       if (err != cudaSuccess) return static_cast<int>(err);
-      tc::decode_attention_wgmma_kernel<true><<<grid, wg::kWgThreads, smem, st>>>(
+      tc::decode_attention_wgmma_kernel<true><<<wgrid, wg::kWgThreads, smem, st>>>(
           static_cast<const bf16*>(q), krot, vsrc, static_cast<const int*>(order),
           static_cast<const int*>(g), static_cast<const float*>(ks), static_cast<const float*>(vs),
           static_cast<bf16*>(out), part_o, part_ml, S, NH, KVH, Wp, span, scale);
     } else {
       err = wg::allow_smem(tc::decode_attention_wgmma_kernel<false>, smem);
       if (err != cudaSuccess) return static_cast<int>(err);
-      tc::decode_attention_wgmma_kernel<false><<<grid, wg::kWgThreads, smem, st>>>(
+      tc::decode_attention_wgmma_kernel<false><<<wgrid, wg::kWgThreads, smem, st>>>(
           static_cast<const bf16*>(q), krot, vsrc, static_cast<const int*>(order),
           static_cast<const int*>(g), nullptr, nullptr, static_cast<bf16*>(out), part_o, part_ml,
           S, NH, KVH, Wp, span, scale);
     }
     err = cudaGetLastError();
+  } else if (path == kWgmmaF32) {
+    if (q_dtype != AHA_F32 || Dh != attn::kDh || (kv_dtype != AHA_BF16 && kv_dtype != AHA_F32))
+      return static_cast<int>(cudaErrorInvalidValue);
+    // the key's planes, then an f32 cache's V planes, each plane `plane` elements on
+    const size_t plane = plane_bytes(B, Wp, KVH) / sizeof(bf16);
+    bf16* kpl = reinterpret_cast<bf16*>(sc);
+    const float* qf = static_cast<const float*>(q);
+    const int* ord = static_cast<const int*>(order);
+    const int* gp = static_cast<const int*>(g);
+    float* o = static_cast<float*>(out);
+    if (kv_dtype == AHA_F32) {
+      bf16* vpl = kpl + 2 * plane;
+      tc::decode_rotate_keys_kernel<float, true><<<(n + 255) / 256, 256, 0, st>>>(
+          static_cast<const float*>(k), static_cast<const float*>(v), cosp, sinp, kpl, vpl, plane,
+          n, KVH);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+      const int smem = tc::smem_bytes<3, 2, 2>();
+      err = wg::allow_smem(tc::decode_attention_wgmma_f32_kernel<2>, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      tc::decode_attention_wgmma_f32_kernel<2><<<wgrid, wg::kWgThreads, smem, st>>>(
+          qf, kpl, vpl, plane, ord, gp, o, part_o, part_ml, S, NH, KVH, Wp, span, scale);
+    } else {
+      tc::decode_rotate_keys_kernel<bf16, true><<<(n + 255) / 256, 256, 0, st>>>(
+          static_cast<const bf16*>(k), nullptr, cosp, sinp, kpl, nullptr, plane, n, KVH);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+      const int smem = tc::smem_bytes<3, 2, 1>();
+      err = wg::allow_smem(tc::decode_attention_wgmma_f32_kernel<1>, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      tc::decode_attention_wgmma_f32_kernel<1><<<wgrid, wg::kWgThreads, smem, st>>>(
+          qf, kpl, static_cast<const bf16*>(v), plane, ord, gp, o, part_o, part_ml, S, NH, KVH,
+          Wp, span, scale);
+    }
+    err = cudaGetLastError();
   } else if (q_dtype == AHA_F32 && kv_dtype == AHA_F32) {
     err = by_dim<float, float>(Dh, q, k, v, cs, sn, order, g, ks, vs, out, part_o, part_ml, B, S, NH, KVH, Wp, span, splits, scale, st);
+  } else if (q_dtype == AHA_F32 && kv_dtype == AHA_BF16) {
+    err = by_dim<float, __nv_bfloat16>(Dh, q, k, v, cs, sn, order, g, ks, vs, out, part_o, part_ml, B, S, NH, KVH, Wp, span, splits, scale, st);
   } else if (q_dtype == AHA_F32 && kv_dtype == AHA_I8) {
     err = by_dim<float, int8_t>(Dh, q, k, v, cs, sn, order, g, ks, vs, out, part_o, part_ml, B, S, NH, KVH, Wp, span, splits, scale, st);
   } else if (q_dtype == AHA_BF16 && kv_dtype == AHA_BF16) {
@@ -749,9 +959,9 @@ extern "C" int aha_decode_attention(const void* q, const void* k, const void* v,
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   if (q_dtype == AHA_F32)
     err = launch_merge<float>(part_o, part_ml, static_cast<float*>(out), B, S, NH, KVH, Dh, splits,
-                              path == kWgmma, st);
+                              path != kCudaCores, st);
   else
     err = launch_merge<__nv_bfloat16>(part_o, part_ml, static_cast<__nv_bfloat16*>(out), B, S, NH,
-                                      KVH, Dh, splits, path == kWgmma, st);
+                                      KVH, Dh, splits, path != kCudaCores, st);
   return static_cast<int>(err);
 }

@@ -167,15 +167,6 @@ cudaError_t launch(const void* x, int8_t* xq, float* sx, int M, int K, cudaStrea
   return cudaGetLastError();
 }
 
-// the three planes of one f32 value
-__device__ __forceinline__ void split3(float v, __nv_bfloat16& hi, __nv_bfloat16& mid,
-                                       __nv_bfloat16& lo) {
-  hi = __float2bfloat16_rn(v);
-  const float r = __fsub_rn(v, __bfloat162float(hi));
-  mid = __float2bfloat16_rn(r);
-  lo = __float2bfloat16_rn(__fsub_rn(r, __bfloat162float(mid)));
-}
-
 // n values; VEC: four a thread (n % 4 == 0, x 16-byte aligned), else one
 template <bool VEC>
 __global__ void __launch_bounds__(kThreads)

@@ -83,15 +83,14 @@ def cached_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     """q [B, S, NH, Dh] (unrotated) against one layer's cache [B, W+1, KVH,
     Dh] (keys pre-rotated at write_pos) -> [B, S, NH, Dh] in q's dtype.
     f32 queries against a bf16 cache (the frame chunks behind a peft
-    artifact's f32 projector) attend to the layer's keys and values widened
-    to f32, exactly, as JAX's einsums promote them; JAX's jnp path also rounds
-    the probabilities to bf16 before the second product, which the f32 kernel
-    does not. bf16 queries against an f32 cache (a bf16 decoder under an f32
-    config: the local judge's) are widened to f32 the same way, and the f32
-    output is rounded to bf16, as JAX's promotions compute it."""
+    artifact's f32 projector) hand the cache to the kernel as it lies: the
+    kernel widens it on load, exactly, as JAX's einsums promote it, and keeps
+    the probabilities f32 into the second product, as the TPU kernel does
+    (JAX's jnp path rounds them to bf16 first). bf16 queries against an f32
+    cache (a bf16 decoder under an f32 config: the local judge's) are widened
+    to f32, and the f32 output is rounded to bf16, as JAX's promotions
+    compute it."""
     q_rot = apply_rope(q.float(), tables.w_cos, tables.w_sin).to(q.dtype)
-    if q.dtype == torch.float32 and k_cache.dtype == torch.bfloat16:
-        k_cache, v_cache = k_cache.float(), v_cache.float()
     if q.dtype == torch.bfloat16 and k_cache.dtype == torch.float32:
         q_rot = q_rot.float()
     return decode_attention(q_rot.contiguous(), k_cache, v_cache, tables.d_cos, tables.d_sin,

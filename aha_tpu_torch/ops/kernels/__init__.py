@@ -7,9 +7,10 @@ tensors and runs its plain PyTorch version on CPU tensors.
 ``flash_attention_fwd``, ``flash_attention_bwd``): a wrapper adds one where
 it launches its kernel and nowhere else, so a run can show which kernels its
 path went through. The plain versions do not count. ``PATH_LAUNCHES`` counts
-the quantised products' launches by wrapper, path and activation type
-(``"int8_matmul/wgmma/f32"``: f32 x on the tensor cores), so a run can show
-which path of a kernel it took.
+the launches of the quantised products and of ``decode_attention`` by
+wrapper, path and operand types (``"int8_matmul/wgmma/f32"``: f32 x on the
+tensor cores; ``"decode_attention/wgmma/f32-bf16"``: f32 q against a bf16
+cache on the tensor cores), so a run can show which path of a kernel it took.
 """
 
 import collections

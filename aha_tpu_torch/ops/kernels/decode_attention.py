@@ -10,10 +10,15 @@ fold into the score and probability columns.
 
 The kernels split the window over blocks and merge the splits' softmax
 states in a fixed order (``plan`` chooses path and splits;
-``decode_attention_split_plain`` is the same arithmetic in PyTorch).
+``decode_attention_split_plain`` is the same arithmetic in PyTorch). f32 q
+against a bf16 cache is read as it lies: the kernels widen it on load, as the
+TPU kernel does.
 
 On a CPU tensor the plain version runs; on a CUDA tensor the kernel
-launches, or the call raises.
+launches, or the call raises. ``LAUNCHES["decode_attention"]`` counts the
+launches, ``PATH_LAUNCHES["decode_attention/<path>/<q>-<kv>"]`` them by path
+and types (``decode_attention/wgmma/f32-bf16``: f32 q against a bf16 cache on
+the tensor cores).
 """
 
 from __future__ import annotations
@@ -26,20 +31,26 @@ import math
 import torch
 
 from ..rope import rotate_half
-from . import LAUNCHES, _build
+from . import LAUNCHES, PATH_LAUNCHES, _build
 from .int8_matmul import num_sms
+from .quantize_rows import split_bf16x3_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 HEAD_DIMS = (16, 32, 64, 128)
 
 CUDA_CORES = 0           # f32 arithmetic, 16 rows and 32-slot tiles a block
-WGMMA = 1                # bf16 tensor cores, 64 rows and 64-slot tiles a block
-WGMMA_MIN_ROWS = 16      # rows per kv head (n_rep * S) from which bf16 at Dh 128 takes it
+WGMMA = 1                # bf16 q on the tensor cores, 64 rows and 64-slot tiles a block
+WGMMA_F32 = 2            # f32 q on the tensor cores as bf16 planes, the same tiles
+WGMMA_MIN_ROWS = 16      # rows per kv head (n_rep * S) from which Dh 128 takes the tensor cores
+PATH_NAMES = {CUDA_CORES: "cuda_cores", WGMMA: "wgmma", WGMMA_F32: "wgmma"}
 # blocks of a path that one SM holds at once (the CUDA-core kernel: 128 threads of
-# 128 registers; the tensor-core kernel: 84 KB of shared memory), and the least
-# slot tiles a split of several walks (a tensor-core block loads 64 query rows first)
-RESIDENT = {CUDA_CORES: 4, WGMMA: 2}
-MIN_TILES = {CUDA_CORES: 1, WGMMA: 3}
+# 128 registers; the bf16 tensor-core kernel: 84 KB of shared memory; the f32 one:
+# three q planes and two stages of two key planes and one or two V planes, 146 or
+# 179 KB), and the least slot tiles a split of several walks (a tensor-core block
+# loads 64 query rows first)
+RESIDENT = {CUDA_CORES: 4, WGMMA: 2, WGMMA_F32: 1}
+MIN_TILES = {CUDA_CORES: 1, WGMMA: 3, WGMMA_F32: 3}
+_SHORT = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}
 
 
 def decode_attention_plain(q_rot, k_cache, v_cache, cos, sin, order, g, kv_scales=None):
@@ -93,20 +104,29 @@ class Plan:
 def plan(B: int, S: int, NH: int, KVH: int, Dh: int, Wp: int, q_dtype: torch.dtype,
          kv_dtype: torch.dtype, *, sms: int = 132) -> Plan:
     """The launch of ``decode_attention`` on a card of ``sms`` SMs. Tensor
-    cores for bf16 q at head size 128 (bf16 or int8 cache) from
-    ``WGMMA_MIN_ROWS`` rows per kv head; CUDA cores otherwise. The window is
-    split into as many parts as one round of resident blocks holds
-    (``RESIDENT`` a SM), each of at least ``MIN_TILES`` slot tiles, then
-    evened out over the slot tiles: a 7B token is 4 kv heads x 65 splits of 32
-    slots (260 blocks), a 49-row frame chunk 24 row tiles x 11 splits of 192.
-    Where the row tiles alone fill the round, one split. Pure (no card is
+    cores at head size 128 from ``WGMMA_MIN_ROWS`` rows per kv head: bf16 q
+    with a bf16 or int8 cache, f32 q with a bf16 or f32 cache (as bf16
+    planes); CUDA cores otherwise. The splits: ``plan_on``. Pure (no card is
     asked) and remembered: a path's shapes recur with every pass."""
     M = (NH // KVH) * S
-    if (q_dtype == torch.bfloat16 and Dh == 128 and kv_dtype in (torch.bfloat16, torch.int8)
-            and M >= WGMMA_MIN_ROWS):
-        path, row_tile, slot_tile = WGMMA, 64, 64
-    else:
-        path, row_tile, slot_tile = CUDA_CORES, 16, 32
+    path = CUDA_CORES
+    if Dh == 128 and M >= WGMMA_MIN_ROWS:
+        if q_dtype == torch.bfloat16 and kv_dtype in (torch.bfloat16, torch.int8):
+            path = WGMMA
+        elif q_dtype == torch.float32 and kv_dtype in (torch.bfloat16, torch.float32):
+            path = WGMMA_F32
+    return plan_on(path, B, S, NH, KVH, Wp, sms=sms)
+
+
+def plan_on(path: int, B: int, S: int, NH: int, KVH: int, Wp: int, *, sms: int = 132) -> Plan:
+    """The splits of a launch on ``path``: the window split into as many
+    parts as one round of resident blocks holds (``RESIDENT`` a SM), each of
+    at least ``MIN_TILES`` slot tiles, then evened out over the slot tiles: a
+    7B token is 4 kv heads x 65 splits of 32 slots (260 blocks), a 49-row
+    bf16 frame chunk 24 row tiles x 11 splits of 192, an f32 one 24 x 5 of
+    448. Where the row tiles alone fill the round, one split."""
+    M = (NH // KVH) * S
+    row_tile, slot_tile = (16, 32) if path == CUDA_CORES else (64, 64)
     row_tiles = -(-M // row_tile)
     base = B * KVH * row_tiles
     n_tiles = -(-Wp // slot_tile)
@@ -117,14 +137,20 @@ def plan(B: int, S: int, NH: int, KVH: int, Dh: int, Wp: int, q_dtype: torch.dty
 
 
 def decode_attention_split_plain(q_rot, k_cache, v_cache, cos, sin, order, g, kv_scales=None, *,
-                                 pl: Plan, bf16_products: bool = False):
+                                 pl: Plan, bf16_products: bool = False, f32_planes: bool = False):
     """The kernels' arithmetic in PyTorch: each split of ``pl`` walks its
     slots in ``pl.slot_tile`` tiles with a running maximum, sum and
     accumulator, and the splits merge in split order (M = max m_i, weights
     e^(m_i - M), a row that saw nothing anywhere gives zeros).
-    ``bf16_products``: the tensor-core path's roundings, the rotated key and
-    p (times the V scale) to bf16 before their products, an int8 V widened to
-    bf16 (exact). Same contract as ``decode_attention_plain``."""
+    ``bf16_products``: the bf16 tensor-core path's roundings, the rotated key
+    and p (times the V scale) to bf16 before their products, an int8 V
+    widened to bf16 (exact). ``f32_planes``: the f32 tensor-core path's
+    operands, q as three bf16 planes (``split_bf16x3_plain``), the rotated key
+    and an f32 V as two (hi = bf16(x), lo = bf16(x - hi)), scores
+    (q_hi + q_mid + q_lo) k_hi + (q_hi + q_mid) k_lo, p as three planes (their
+    sum is p) and o += p v_hi + p_hi v_lo; each product of bf16 planes is
+    exact in f32, only the order of the f32 sums differs. Same contract as
+    ``decode_attention_plain``."""
     B, S, NH, Dh = q_rot.shape
     Wp, KVH = k_cache.shape[1], k_cache.shape[2]
     kf = k_cache.float()
@@ -132,6 +158,12 @@ def decode_attention_split_plain(q_rot, k_cache, v_cache, cos, sin, order, g, kv
     vf = v_cache.float()
     if bf16_products:
         k_rot = k_rot.to(torch.bfloat16).float()
+    k_lo = v_lo = q_hm = None
+    if f32_planes:
+        k_rot, k_lo = _two_planes(k_rot)
+        vf, v_lo = _two_planes(vf)
+        q_hi, q_mid, _ = split_bf16x3_plain(q_rot).float()
+        q_hm = (q_hi + q_mid).reshape(B, S, KVH, NH // KVH, Dh).permute(0, 2, 3, 1, 4)
     qg = q_rot.float().reshape(B, S, KVH, NH // KVH, Dh).permute(0, 2, 3, 1, 4)   # [B,KVH,rep,S,Dh]
     visible = ((order[:, None, :] >= 0) & (order[:, None, :] <= g[:, :, None]))[:, None, None]
     ks = vs = None
@@ -144,7 +176,10 @@ def decode_attention_split_plain(q_rot, k_cache, v_cache, cos, sin, order, g, kv
         m, l, acc = neg.clone(), torch.zeros_like(neg), torch.zeros_like(qg)
         for t0 in range(lo, hi, pl.slot_tile):
             t1 = min(hi, t0 + pl.slot_tile)
-            s = torch.einsum("bgrsd,bwgd->bgrsw", qg, k_rot[:, t0:t1]) * scale
+            s = torch.einsum("bgrsd,bwgd->bgrsw", qg, k_rot[:, t0:t1])
+            if f32_planes:
+                s = s + torch.einsum("bgrsd,bwgd->bgrsw", q_hm, k_lo[:, t0:t1])
+            s = s * scale
             if ks is not None:
                 s = s * ks[..., t0:t1]
             s = s.masked_fill(~visible[..., t0:t1], float("-inf"))
@@ -157,7 +192,11 @@ def decode_attention_split_plain(q_rot, k_cache, v_cache, cos, sin, order, g, kv
                 p = p * vs[..., t0:t1]
             if bf16_products:
                 p = p.to(torch.bfloat16).float()
-            acc = acc * alpha[..., None] + torch.einsum("bgrsw,bwgd->bgrsd", p, vf[:, t0:t1])
+            pv = torch.einsum("bgrsw,bwgd->bgrsd", p, vf[:, t0:t1])
+            if f32_planes:
+                p_hi = split_bf16x3_plain(p)[0].float()
+                pv = pv + torch.einsum("bgrsw,bwgd->bgrsd", p_hi, v_lo[:, t0:t1])
+            acc = acc * alpha[..., None] + pv
             m = m_new
         parts.append((m, l, acc))
     top = torch.stack([m for m, _, _ in parts]).amax(dim=0)
@@ -171,6 +210,15 @@ def decode_attention_split_plain(q_rot, k_cache, v_cache, cos, sin, order, g, kv
     return o.permute(0, 3, 1, 2, 4).reshape(B, S, NH, Dh).to(q_rot.dtype)
 
 
+def _two_planes(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (f32) as two bf16 planes, hi = bf16(x) and lo = bf16(x - hi), as f32:
+    16 significant bits, |x - hi - lo| <= 2^-18 |x|; lo is 0 where x is a
+    bf16 value (a bf16 cache's V; a key whose residual rotation is the
+    identity)."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
 def _check(q_rot, k_cache, v_cache, cos, sin, order, g, kv_scales):
     if q_rot.dim() != 4 or k_cache.dim() != 4:
         raise ValueError("decode_attention: q_rot and the cache must be 4-D")
@@ -180,7 +228,8 @@ def _check(q_rot, k_cache, v_cache, cos, sin, order, g, kv_scales):
         raise ValueError(f"decode_attention: head_dim {Dh} not in {HEAD_DIMS}")
     if q_rot.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"decode_attention: q dtype {q_rot.dtype} not supported")
-    if k_cache.dtype not in (q_rot.dtype, torch.int8) or v_cache.dtype != k_cache.dtype:
+    kv_ok = (torch.float32, torch.bfloat16) if q_rot.dtype == torch.float32 else (q_rot.dtype,)
+    if k_cache.dtype not in (*kv_ok, torch.int8) or v_cache.dtype != k_cache.dtype:
         raise ValueError(f"decode_attention: cache dtype {k_cache.dtype} with q "
                          f"{q_rot.dtype} not supported")
     if (k_cache.dtype == torch.int8) != (kv_scales is not None):
@@ -237,6 +286,20 @@ def decode_attention(q_rot, k_cache, v_cache, cos, sin, order, g, kv_scales=None
     Wp, KVH = k_cache.shape[1], k_cache.shape[2]
     pl = plan(B, S, NH, KVH, Dh, Wp, q_rot.dtype, k_cache.dtype,
               sms=num_sms(q_rot.device.index or 0))
+    out = launch_plan(q_rot, k_cache, v_cache, cos, sin, order, g, kv_scales, pl=pl)
+    LAUNCHES["decode_attention"] += 1
+    PATH_LAUNCHES[f"decode_attention/{PATH_NAMES[pl.path]}/{_SHORT[q_rot.dtype]}-"
+                  f"{_SHORT[k_cache.dtype]}"] += 1
+    return out
+
+
+def launch_plan(q_rot, k_cache, v_cache, cos, sin, order, g, kv_scales=None, *, pl: Plan):
+    """The kernels of ``pl`` on CUDA tensors that ``_check`` admits, uncounted
+    (``decode_attention`` counts its own launches): ``chip_smoke.py`` times
+    the plan a path replaced through it. Raises where the plan's path does
+    not take the operands' types or shapes."""
+    B, S, NH, Dh = q_rot.shape
+    Wp, KVH = k_cache.shape[1], k_cache.shape[2]
     out = torch.empty_like(q_rot)
     nbytes = _scratch_bytes(B, S, NH, KVH, Dh, Wp, k_cache.dtype, pl.path, pl.splits)
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=q_rot.device) if nbytes else None
@@ -251,5 +314,4 @@ def decode_attention(q_rot, k_cache, v_cache, cos, sin, order, g, kv_scales=None
         1.0 / math.sqrt(Dh), pl.path, pl.span, pl.splits,
         ctypes.c_void_p(torch.cuda.current_stream(q_rot.device).cuda_stream))
     _build.check(lib, err, "decode_attention")
-    LAUNCHES["decode_attention"] += 1
     return out

@@ -38,9 +38,12 @@ peft artifact brings, as ``--lora_pretrained`` serves them: a dense f32
 projector, heads and lm_head, seeded, merged into the tree as JAX's
 promotions take them, so the frame embeddings and every frame chunk and fused
 pass run in f32; no adapters) trace the frame chunks and the fused passes
-only (generation stays bf16), each with the products' share of device time:
-every kernel of the quantised products (``int8_mm`` / ``int4_mm`` kernels,
-the split of f32 x into bf16 planes, the sums of K splits).
+only (generation stays bf16), each with the products' share of device time
+(every kernel of the quantised products: ``int8_mm`` / ``int4_mm`` kernels,
+the split of f32 x into bf16 planes, the sums of K splits), the cached
+attention's (its f32 tensor-core kernel, which splits q into bf16 planes as it
+loads it, and the merge of its window splits; the CUDA-core kernel where a
+pass runs it) and, apart, the rotation of the cached keys into bf16 planes.
 
 serve8 (multi-stream serving: 7B-int8, B 8 rows of one batched engine, each
 row's window filled) traces the passes a ``MultiStreamServer`` of 8 slots
@@ -102,7 +105,8 @@ GEN_TOKENS = 32
 # the cached attention's kernels (csrc/decode_attention.cu), listed in the write
 # passes' tables with their calls per unit, launched or not
 DECODE_KERNELS = ("decode_attention_kernel", "decode_attention_wgmma_kernel",
-                  "decode_rotate_keys_kernel", "decode_merge_kernel")
+                  "decode_attention_wgmma_f32_kernel", "decode_rotate_keys_kernel",
+                  "decode_merge_kernel")
 # the products' kernel at 1 .. 16 rows (csrc/int8_matmul.cu, csrc/int4_matmul.cu) and
 # the sum of its K splits, listed in the path's token and verify-pass tables
 MATMUL_DECODE_KERNELS = {"int8": ("int8_mm_decode_kernel", "splitk_reduce"),
@@ -115,8 +119,12 @@ MATMUL_DECODE_KERNELS = {"int8": ("int8_mm_decode_kernel", "splitk_reduce"),
 SERVING = {"int8": ("int8", "fused", 4), "int4": ("int4", "fused", 4),
            "int8a8": ("int8", "fused_a8", 8), "int4a8": ("int4", "fused_a8", 4),
            "int8f32": ("int8", "fused", 4), "int4f32": ("int4", "fused", 4)}
-# the kernels of the quantised products, whose share of device time the f32 paths print
-PRODUCT_KERNELS = ("int8_mm_", "int4_mm_", "split_bf16x3", "splitk_reduce")
+# the shares of device time the f32 paths print: the kernels of the quantised products,
+# of the cached attention, and the rotation of its keys (names that a kernel's name holds)
+F32_SHARES = {"products": ("int8_mm_", "int4_mm_", "split_bf16x3", "splitk_reduce"),
+              "attention": ("decode_attention_kernel", "decode_attention_wgmma_kernel",
+                            "decode_attention_wgmma_f32_kernel", "decode_merge_kernel"),
+              "key rotation": ("decode_rotate_keys_kernel",)}
 
 
 def _short(name: str) -> str:
@@ -180,11 +188,11 @@ class Trace:
 
 def report(label: str, units: int, unit: str, wall_ms: float, traced_wall_ms: float,
            busy_ms: float, kernels: dict, aten: collections.Counter, top: int = 6,
-           also: tuple = (), named: tuple = (), share_of: tuple = ()) -> None:
+           also: tuple = (), named: tuple = (), shares: dict | None = None) -> None:
     """``also``: kernels whose name holds one of these are listed below the top
     ones too; ``named``: kernels listed by these exact names, with 0 calls
-    where the unit launched none; ``share_of``: the kernels whose name holds one
-    of these are summed into one share of device time (the products')."""
+    where the unit launched none; ``shares``: label -> names, the kernels whose
+    name holds one of the names summed into one share of device time a label."""
     n_kernels = sum(c for c, _ in kernels.values())
     print(f"profile {label}: per {unit} wall {wall_ms / units:.3f} ms (traced "
           f"{traced_wall_ms / units:.3f} ms), device busy {busy_ms / units:.3f} ms, "
@@ -203,10 +211,10 @@ def report(label: str, units: int, unit: str, wall_ms: float, traced_wall_ms: fl
         if name not in kernels:
             print(f"profile {label}:   {name} 0.0% of device time, 0.00 calls per {unit}",
                   flush=True)
-    if share_of:
-        part = [(c, t) for n, (c, t) in kernels.items() if any(a in n for a in share_of)]
+    for what, names in (shares or {}).items():
+        part = [(c, t) for n, (c, t) in kernels.items() if any(a in n for a in names)]
         t_part = sum(t for _, t in part)
-        print(f"profile {label}:   products {100 * t_part / total_us:.1f}% of device time, "
+        print(f"profile {label}:   {what} {100 * t_part / total_us:.1f}% of device time, "
               f"{t_part / 1e3 / units:.3f} ms per {unit} in {sum(c for c, _ in part) / units:.1f} "
               f"launches", flush=True)
     ops = ", ".join(f"{n} {c / units:.1f}" for n, c in aten.most_common(top))
@@ -270,7 +278,7 @@ def _f32_overrides(cfg, seed: int) -> dict:
             "llm": {"lm_head": {"kernel": rand(H, V)}}}
 
 
-def _trace_frames(label, engine, cache, rows, first, n, share_of=()):
+def _trace_frames(label, engine, cache, rows, first, n, shares=None):
     """``n`` frame chunks of every row (``rows`` [B, T, F, H]), each followed
     by the host read of its scores, as ``inference()`` and the mixed serving
     loop run them."""
@@ -287,10 +295,10 @@ def _trace_frames(label, engine, cache, rows, first, n, share_of=()):
     what, unit = ((f"frame (stream at {int(cache.seen[0])} tokens)", "frame") if B == 1 else
                   (f"frame step ({B * 49} rows)", "pass"))
     report(f"{label} {what}", n, unit, tr.wall_ms, tr.traced_wall_ms, tr.busy_ms(),
-           tr.kernels(), tr.aten_ops(), named=DECODE_KERNELS, share_of=share_of)
+           tr.kernels(), tr.aten_ops(), named=DECODE_KERNELS, shares=shares)
 
 
-def _trace_fused(label, engine, cache, rows, first, n, K, share_of=()):
+def _trace_fused(label, engine, cache, rows, first, n, K, shares=None):
     """``n`` fused passes of ``K`` frames a row through the read-only verify
     pass and its commit (``score_video``, the mixed loop's scoring pass)."""
     B = rows.shape[0]
@@ -306,7 +314,7 @@ def _trace_fused(label, engine, cache, rows, first, n, K, share_of=()):
     what = (f"({K} frames, {K * 49} rows; stream at {int(cache.seen[0])} tokens)" if B == 1
             else f"({B} x {K} frames, {B * K * 49} rows)")
     report(f"{label} fused pass {what}", n, "pass", tr.wall_ms, tr.traced_wall_ms,
-           tr.busy_ms(), tr.kernels(), tr.aten_ops(), named=DECODE_KERNELS, share_of=share_of)
+           tr.busy_ms(), tr.kernels(), tr.aten_ops(), named=DECODE_KERNELS, shares=shares)
 
 
 def _trace_verify(label, engine, cfg, cache, S, named):
@@ -384,8 +392,8 @@ def profile_serving(path: str, seed: int, n: int) -> None:
         if rows.dtype != torch.float32:
             raise RuntimeError(f"{path}: frame embeddings in {rows.dtype}, not f32")
         label = f"{path} (f32 overrides, f32 frame embeddings)"
-        _trace_frames(label, engine, cache, rows, t, n, share_of=PRODUCT_KERNELS)
-        _trace_fused(label, engine, cache, rows, t + 2 * n, n, K, share_of=PRODUCT_KERNELS)
+        _trace_frames(label, engine, cache, rows, t, n, shares=F32_SHARES)
+        _trace_fused(label, engine, cache, rows, t + 2 * n, n, K, shares=F32_SHARES)
         return
     _trace_frames(path, engine, cache, rows, t, n)
     _trace_fused(path, engine, cache, rows, t + 2 * n, n, K)

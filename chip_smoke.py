@@ -458,9 +458,11 @@ class Stats:
 
 # the kernels whose ptxas report phase 1 holds: no spill, no serialisation remark (the
 # int8 and int4 forward kernels once per operand type: bf16 x weight-only, int8 x, and
-# for the wgmma kernels an f32 x's three bf16 planes, the last template argument 3)
+# for the wgmma kernels an f32 x's three bf16 planes, the last template argument 3; the
+# f32-query attention kernel against a bf16 and an f32 cache)
 PTXAS_HELD = ("int8_mm_wgmma_kernel", "int8_mm_decode_kernel", "int4_mm_wgmma_kernel",
-              "int4_mm_decode_kernel", "quantize_rows_vec_kernel", "split_bf16x3_kernel")
+              "int4_mm_decode_kernel", "quantize_rows_vec_kernel", "split_bf16x3_kernel",
+              "decode_attention_wgmma_f32_kernel")
 PTXAS_A8 = ("int8_mm_wgmma_kernel<true", "int8_mm_decode_kernel<true", "int4_mm_wgmma_kernel<true",
             "int4_mm_decode_kernel<true")
 PTXAS_X3 = ("int8_mm_wgmma_kernel<false", "int4_mm_wgmma_kernel<false")
@@ -468,7 +470,8 @@ PTXAS_X3 = ("int8_mm_wgmma_kernel<false", "int4_mm_wgmma_kernel<false")
 
 def check_ptxas(log: dict) -> str:
     """What ptxas said of the int8 and int4 wgmma and decode kernels, the
-    vector quantiser and the split of f32 x into bf16 planes, one instantiation
+    vector quantiser, the split of f32 x into bf16 planes and the f32-query
+    attention kernel, one instantiation
     after another (registers, spill bytes), in the build this process ran;
     raises on a spill, on a remark that their products are serialised, or on a
     missing int8-activation or f32-activation instantiation. Such remarks on
@@ -1299,12 +1302,18 @@ def check_attention(gen, stats: Stats):
     # the highlight chain (phase 9): each clip's query chunk
     cases += [dict(seven, label="7b-held", B=1, S=S, Wp=2049)
               for S in sorted(set(chain_query_rows()) - set(PATH_M) - set(sw["b1"]))]
-    # f32 queries and cache: phase 6's f32 score traces (a frame, the prompt and query), and
-    # phase 8b's f32 frame chunks behind a peft artifact's f32 projector (the system prompt
-    # and first frame, a response's last token + stream prompt + frame), whose bf16 cache
-    # the attention reads widened to f32
-    cases += [dict(seven, label="7b-f32", B=1, S=S, Wp=2049, q=f32, kv=f32, tol=1e-4)
+    # f32 queries: phase 8b's f32 frame chunks behind a peft artifact's f32 projector (a
+    # frame, a response's last token + stream prompt + frame, the system prompt, the system
+    # prompt and first frame) against the bf16 cache, read as it lies; phase 6's f32 score
+    # traces, one against an f32 cache. Each timed beside the route the f32 tensor-core
+    # path replaced: the cache widened to f32, then the CUDA-core kernel
+    cases += [dict(seven, label="7b-f32", B=1, S=S, Wp=2049, q=f32, kv=bf, tol=1e-4)
               for S in (49, 59, 171, 220)]
+    cases += [dict(seven, label="7b-f32", B=1, S=49, Wp=2049, q=f32, kv=f32, tol=1e-4)]
+    # f32 q against the bf16 cache, as it lies, on the CUDA cores: below 16 rows per kv head
+    # (S = 2: 14 rows) and at a head size under 128
+    cases += [dict(seven, label="7b-f32-held", B=1, S=2, Wp=2049, q=f32, kv=bf, tol=1e-4),
+              dict(label="ragged", B=2, S=5, NH=4, KVH=2, Dh=64, Wp=129, q=f32, kv=bf, tol=1e-4)]
     # phase 10: the CLS configurations' frame chunk (50 rows), timed; the live datasets'
     # query chunks, held; the judge's f32 cache of JUDGE_WINDOW slots: a token and the
     # rubric prefix timed, each judgement's prompt held
@@ -1340,9 +1349,12 @@ def check_attention(gen, stats: Stats):
                                 c.get("blind", False))
         what = f"decode_attention {label} B={B} S={S} Dh={Dh} Wp={Wp}"
         pl = da.plan(B, S, NH, KVH, Dh, Wp, qdt, kvdt, sms=sms)
-        wgmma = qdt == bf and Dh == 128 and (NH // KVH) * S >= da.WGMMA_MIN_ROWS
-        if (pl.path == da.WGMMA) != wgmma:
-            raise AssertionError(f"{what}: path {pl.path}, tensor cores expected: {wgmma}")
+        path = da.CUDA_CORES
+        if Dh == 128 and (NH // KVH) * S >= da.WGMMA_MIN_ROWS:
+            path = (da.WGMMA if qdt == bf and kvdt in (bf, i8) else
+                    da.WGMMA_F32 if qdt == f32 and kvdt in (bf, f32) else da.CUDA_CORES)
+        if pl.path != path:
+            raise AssertionError(f"{what}: path {pl.path}, expected {path}")
         if label == "7b" and S == 1 and not pl.blocks > 100:
             raise AssertionError(f"{what}: {pl.blocks} blocks for a token")
         y = da.decode_attention(*args)
@@ -1359,9 +1371,10 @@ def check_attention(gen, stats: Stats):
                            ("decode_attention", S, Wp, "f32")) + heads)
         if B > 1 and qdt == bf:
             stats.checked.add(("decode_attention", S, Wp, f"B{B}") + heads)
+        path_name = da.PATH_NAMES[pl.path]   # the launch counters' name; q and kv printed beside
         if label.endswith("-held"):
             print(f"phase2 {what} NH={NH} KVH={KVH} q={_dt(qdt)} kv={_dt(kvdt)} "
-                  f"max_abs_err={err:.3e} path={'wgmma' if pl.path == da.WGMMA else 'cuda-cores'} "
+                  f"max_abs_err={err:.3e} path={path_name} "
                   f"splits={pl.splits}x{pl.span} blocks={pl.blocks} equal_twice (held, not "
                   f"timed)", flush=True)
             continue
@@ -1380,7 +1393,27 @@ def check_attention(gen, stats: Stats):
             # shorter than the host's work to launch it: device time from a graph
             ms = graph_ms(run)
         pms = cuda_ms(lambda i: da.decode_attention_plain(*args), iters=5)
+        replaced = None
+        if pl.path == da.WGMMA_F32:
+            # the route this path replaced (timed, not counted): a bf16 cache widened to
+            # f32, then the CUDA-core kernel at its plan, on the same cycled copies
+            old = da.plan_on(da.CUDA_CORES, B, S, NH, KVH, Wp, sms=sms)
+
+            def run_old(i):
+                kc, vc = kvs[i % copies][:2]
+                if kvdt == bf:
+                    kc, vc = kc.float(), vc.float()
+                return da.launch_plan(q, kc, vc, cos, sin, order, g, pl=old)
+
+            rel_check(f"{what} replaced route", run_old(0), ref, tol)
+            # device time against device time: from a graph (the widening, the scratch and
+            # the launch captured) wherever the kernel's time is
+            replaced = graph_ms(run_old) if loop < 0.1 else cuda_ms(run_old, iters=5, warmup=1)
+            if not ms <= pms or (S in (49, prefix_rows) and not ms < replaced):
+                raise AssertionError(f"{what}: kernel {ms:.4f} ms, plain {pms:.4f}, replaced "
+                                     f"route {replaced:.4f}")
         del kvs
+        note = "" if replaced is None else f" replaced_ms={replaced:.4f}"
         # q in, out, K and V (+ scales), the two rotation tables, order and g;
         # scores and weighted values over the slots a query's mask admits
         nbytes = sum(t.numel() * t.element_size() for t in args[:7])
@@ -1388,16 +1421,24 @@ def check_attention(gen, stats: Stats):
         if args[7] is not None:
             nbytes += sum(t.numel() * t.element_size() for t in args[7])
         visible = ((order[:, None, :] >= 0) & (order[:, None, :] <= g[:, :, None])).sum().item()
-        bms, by = bound_ms(nbytes, 4.0 * visible * NH * Dh, "bf16" if qdt == bf else "f32")
+        if pl.path == da.WGMMA_F32:
+            # the design's tensor work: bf16 plane products at the bf16 peak, five for the
+            # scores and three (a bf16 V) or four (an f32 V) for p v; beside it, labelled,
+            # the function's f32 products at the CUDA cores' f32 peak
+            planes = 5 + (4 if kvdt == f32 else 3)
+            bms, by = bound_ms(nbytes, planes * 2.0 * visible * NH * Dh, "bf16")
+            note += f" f32_peak_bound_ms={bound_ms(nbytes, 4.0 * visible * NH * Dh, 'f32')[0]:.4f}"
+        else:
+            bms, by = bound_ms(nbytes, 4.0 * visible * NH * Dh, "bf16" if qdt == bf else "f32")
         if label == "7b" and S == 49:
             stats.add("decode_attention", ms, pms, bms, by, None,
                       "one frame chunk: S=49, 28 heads over 2049 slots, bf16")
         print(f"phase2 {what} NH={NH} KVH={KVH} q={_dt(qdt)} kv={_dt(kvdt)} "
               f"max_abs_err={err:.3e} (of max|y_ref| {ref.float().abs().max().item():.3e}) "
-              f"path={'wgmma' if pl.path == da.WGMMA else 'cuda-cores'} "
+              f"path={path_name} "
               f"splits={pl.splits}x{pl.span} blocks={pl.blocks} equal_twice kernel_ms={ms:.4f} "
               f"loop_ms={loop:.4f} kv_copies={copies} plain_ms={pms:.4f} bound_ms={bms:.4f} "
-              f"({by}) library_ms=none", flush=True)
+              f"({by}){note} library_ms=none", flush=True)
 
 
 def check_int4_matmul_t(gen, stats: Stats):
@@ -2113,8 +2154,8 @@ def phase5b(gpu: str, stats: Stats):
 
 class PassCounter:
     """Counts decoder passes (write passes and read-only verify passes, and
-    those whose embeddings are f32) by wrapping the two functions the engine
-    calls."""
+    those whose embeddings are f32: all, and the write passes among them) by
+    wrapping the two functions the engine calls."""
 
     def __init__(self):
         import torch
@@ -2123,7 +2164,7 @@ class PassCounter:
 
         self.qwen2 = qwen2
         self.saved = (qwen2.decode_chunk, qwen2.decode_chunk_spec)
-        self.chunks = self.verifies = self.f32 = 0
+        self.chunks = self.verifies = self.f32 = self.f32_chunks = 0
         self.f32_type = torch.float32
 
     def __enter__(self):
@@ -2131,7 +2172,9 @@ class PassCounter:
 
         def counted_write(*a, **k):
             self.chunks += 1
-            self.f32 += a[4].dtype == self.f32_type      # the chunk's embeddings
+            f32 = a[4].dtype == self.f32_type            # the chunk's embeddings
+            self.f32 += f32
+            self.f32_chunks += f32
             return write(*a, **k)
 
         def counted_verify(*a, **k):
@@ -3656,7 +3699,9 @@ def phase8b_trunk(gpu: str, stats: Stats, cfg, tok, frames, peft: str, trunk: st
     frames at fused 4 and at fused 1, inference() with a response; launch
     counts by kernel and by path: every quantised product of an f32 pass on
     the wgmma kernel's f32 path (``<entry>/wgmma/f32``), none on the CUDA
-    cores."""
+    cores; every f32 frame chunk's cached attention (28 a chunk) on the f32
+    tensor-core path against the bf16 cache (``decode_attention/wgmma/
+    f32-bf16``), none on the CUDA cores."""
     import torch
 
     from aha_tpu_torch.cli import _session
@@ -3709,20 +3754,24 @@ def phase8b_trunk(gpu: str, stats: Stats, cfg, tok, frames, peft: str, trunk: st
         counts = dict(kernels.LAUNCHES)                # ... and ends here
         paths = dict(kernels.PATH_LAUNCHES)
         chunks, verifies, f32_passes = pc.chunks, pc.verifies, pc.f32
+        f32_chunks = pc.f32_chunks
     responses = texts(turns)
     f32_wgmma = paths.get(f"{entry}/wgmma/f32", 0)
+    att_f32 = paths.get("decode_attention/wgmma/f32-bf16", 0)
     if (counts.get(entry, 0) < L * 4 * (chunks + verifies)
             or counts.get("decode_attention", 0) < L * chunks or not responses
             or not f32_passes or f32_wgmma != L * 4 * f32_passes
             or paths.get(f"{entry}/cuda_cores/f32", 0)
+            or not f32_chunks or att_f32 < L * f32_chunks
+            or any(n for k, n in paths.items() if k.startswith("decode_attention/cuda_cores/f32"))
             or counts.get("split_bf16x3", 0) != f32_wgmma
             or len(rows) != 16 or len(rows1) != 16 or len(sess2.debug_data_list) != 16
             or not all(math.isfinite(r[k]) for r in rows + rows1 + sess2.debug_data_list
                        for k in SCORE_KEYS)):
         raise AssertionError(f"phase8b {trunk}: launches {counts}, by path {paths}, over "
                              f"{chunks} chunks + {verifies} verify passes ({f32_passes} in "
-                             f"f32), {len(rows)} / {len(rows1)} frames, {len(responses)} "
-                             f"responses")
+                             f"f32, {f32_chunks} of them chunks), {len(rows)} / {len(rows1)} "
+                             f"frames, {len(responses)} responses")
     stats.launches(counts)
     print(f"phase8b infer --synthetic_weights --{trunk} --lora_pretrained DIR, 7B [{gpu}]: "
           f"session from the flags {t_build:.2f}s (r {LORA_R}, scale {e.lora_scale}, f32 "
@@ -3731,8 +3780,9 @@ def phase8b_trunk(gpu: str, stats: Stats, cfg, tok, frames, peft: str, trunk: st
           f"{t_sv1:.3f}s ({16 / t_sv1:.2f} frames/s); inference() 16 "
           f"frames {t_inf:.3f}s, {len(responses)} responses, first {responses[0][:40]!r}; "
           f"decode {dec_tokens} tokens in {dec_s:.3f}s; {chunks} chunks + {verifies} verify "
-          f"passes, {f32_passes} of them in f32; {entry} launches by path {paths}; launches "
-          f"{counts}", flush=True)
+          f"passes, {f32_passes} of them in f32 ({f32_chunks} chunks: decode_attention "
+          f"{att_f32} on the f32 tensor-core path against the bf16 cache); launches by path "
+          f"{paths}; launches {counts}", flush=True)
     del sess, sess1, sess2, p, e
     gc.collect()
     torch.cuda.empty_cache()
@@ -4573,16 +4623,21 @@ def phase10d(gpu: str, stats: Stats, have_hf: bool):
     result = llm_judge.analyze_magqa(scored, num_examples=len(scored))
     torch.cuda.synchronize()
     counts = dict(kernels.LAUNCHES)                   # ... and ends here
+    att_paths = {k: v for k, v in kernels.PATH_LAUNCHES.items() if k.startswith("decode_att")}
     stats.launches(counts)
     f32_launches = counts.get("decode_attention", 0)
     want = L * (1 + sum(1 + 7 for _ in prompt_rows))  # prefix, each prompt and up to 7 tokens
+    # the prefix and each prompt on the f32 tensor cores, against the f32 cache
+    tc_want = L * (1 + len(prompt_rows))
     if (changed or n != prefix_rows or len(times) != len(prompt_rows)
             or c.k.dtype != torch.float32 or not f32_launches or f32_launches > want
+            or att_paths.get("decode_attention/wgmma/f32-f32", 0) < tc_want
             or not all(1 <= s <= 5 for ex in scored for row in ex["evaluator_output"]
                        for s in row)):
         raise AssertionError(f"phase10d: prefix {n} rows (expected {prefix_rows}), "
                              f"{len(times)} judgements of {len(prompt_rows)}, {changed} left "
-                             f"the prefix cache changed, launches {counts}")
+                             f"the prefix cache changed, launches {counts}, attention by "
+                             f"path {att_paths}")
     restore = cuda_ms(lambda i: [t.clone() for t in (c.key_pos, c.order, c.seen, c.length)],
                       iters=10)
     whole = cuda_ms(lambda i: c.clone(), iters=3, warmup=1)
@@ -4597,7 +4652,7 @@ def phase10d(gpu: str, stats: Stats, have_hf: bool):
           f"and its {n} slots' keys and values) unchanged after every call; its metadata "
           f"saved and restored {restore:.4f} ms against {whole:.3f} ms for a clone of the "
           f"whole {cache_gb:.2f} GB cache; analyze_magqa {json.dumps(result)}; launches "
-          f"decode_attention (f32) {f32_launches}", flush=True)
+          f"decode_attention (f32) {f32_launches}, by path {att_paths}", flush=True)
     del judge, llm, c, prefix_kv
     gc.collect()
     torch.cuda.empty_cache()

@@ -2,8 +2,9 @@
 ``plan()`` at every shape chip_smoke.py drives, and the split-and-merge
 arithmetic emulated in PyTorch (``decode_attention_split_plain``) against the
 JAX Pallas kernel (cached_decode_attention, interpret mode) and the JAX jnp
-path, in f32 and with the tensor-core path's bf16 roundings. Inputs come from
-a numpy seed and go to both packages."""
+path, in f32, with the bf16 tensor-core path's roundings and with the f32
+tensor-core path's bf16 planes. Inputs come from a numpy seed and go to both
+packages."""
 
 import math
 
@@ -43,28 +44,42 @@ def _t(x):
 
 # (B, S, NH, KVH, Dh, Wp, q dtype, kv dtype): the 7B shapes of chip_smoke.py's
 # phase 2 (every write pass's S, int8 KV, B = 2, S = 2 / 3 either side of 16
-# rows, Wp across the slot tiles' edges) and its small ragged f32 cases
+# rows, Wp across the slot tiles' edges), its f32 cases (the f32 frame chunks
+# against the bf16 cache, one against an f32 cache, the local judge's f32 cache
+# of 4,097 slots at a token and its rubric prefix) and its small ragged f32 cases
 SMOKE_SHAPES = [(1, S, 28, 4, 128, 2049, BF, BF) for S in (1, 2, 3, 13, 49, 59, 171, 220)]
 SMOKE_SHAPES += [(1, 49, 28, 4, 128, 2049, BF, I8), (1, 1, 28, 4, 128, 2049, BF, I8),
                  (2, 1, 28, 4, 128, 2049, BF, BF), (2, 13, 28, 4, 128, 2049, BF, BF)]
 SMOKE_SHAPES += [(1, 3, 28, 4, 128, Wp, BF, BF) for Wp in (64, 65, 129)]
+SMOKE_SHAPES += [(1, S, 28, 4, 128, 2049, F32, BF) for S in (49, 59, 171, 220)]
+SMOKE_SHAPES += [(1, 49, 28, 4, 128, 2049, F32, F32), (1, 1, 28, 4, 128, 4097, F32, F32),
+                 (1, 1695, 28, 4, 128, 4097, F32, F32)]
 SMOKE_SHAPES += [(2, 5, 4, 2, 16, 77, F32, F32), (2, 3, 6, 2, 64, 129, F32, F32),
                  (1, 9, 8, 2, 32, 45, F32, F32), (2, 7, 4, 2, 128, 100, F32, I8)]
+# f32 q against a bf16 cache off the tensor cores: fewer than 16 rows, head size 64
+SMOKE_SHAPES += [(1, 2, 28, 4, 128, 2049, F32, BF), (2, 5, 4, 2, 64, 129, F32, BF)]
 
 
-def _wgmma_expected(S, NH, KVH, Dh, qdt, kvdt):
-    return qdt == BF and Dh == 128 and kvdt in (BF, I8) and (NH // KVH) * S >= 16
+def _path_expected(S, NH, KVH, Dh, qdt, kvdt):
+    if Dh != 128 or (NH // KVH) * S < 16:
+        return da.CUDA_CORES
+    if qdt == BF and kvdt in (BF, I8):
+        return da.WGMMA
+    return da.WGMMA_F32 if qdt == F32 and kvdt in (BF, F32) else da.CUDA_CORES
 
 
 @pytest.mark.parametrize("shape", SMOKE_SHAPES, ids=lambda s: "-".join(map(str, s[:6])) +
                          f"-{str(s[6])[6:]}-{str(s[7])[6:]}")
 def test_plan_at_smoke_shapes(shape):
     """The splits cover [0, Wp) once, in whole slot tiles, none empty; the
-    blocks fit one round of resident blocks (2 a SM on the tensor cores, 4 on
-    the CUDA cores) and make at least one wave of the card where the slot
-    tiles allow it, each split of at least MIN_TILES tiles; one split where
-    the row tiles alone fill the round; the path is the tensor cores' exactly
-    for bf16 q at head size 128 from 16 rows per kv head."""
+    blocks fit one round of resident blocks (2 a SM on the bf16 tensor-core
+    path, 1 on the f32 one, 4 on the CUDA cores) and make at least one wave of
+    the card where the slot tiles allow it (at one block a SM, a wave less
+    under one split's blocks), each split of at least MIN_TILES
+    tiles; one split where the row tiles alone fill the round; the path is the
+    tensor cores' exactly at head size 128 from 16 rows per kv head for bf16 q
+    (bf16 or int8 cache) and f32 q (bf16 or f32 cache); the wrapper's checks
+    admit the shape's types."""
     B, S, NH, KVH, Dh, Wp, qdt, kvdt = shape
     pl = da.plan(B, S, NH, KVH, Dh, Wp, qdt, kvdt, sms=SMS)
     bounds = pl.bounds(Wp)
@@ -73,7 +88,7 @@ def test_plan_at_smoke_shapes(shape):
     assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
     assert all(lo % pl.slot_tile == 0 for lo, _ in bounds)
     assert pl.span % pl.slot_tile == 0
-    assert (pl.path == da.WGMMA) == _wgmma_expected(S, NH, KVH, Dh, qdt, kvdt)
+    assert pl.path == _path_expected(S, NH, KVH, Dh, qdt, kvdt)
     M = (NH // KVH) * S
     assert pl.row_tiles == math.ceil(M / pl.row_tile)
     base = B * KVH * pl.row_tiles
@@ -84,19 +99,34 @@ def test_plan_at_smoke_shapes(shape):
     if pl.splits > 1:
         assert pl.blocks <= da.RESIDENT[pl.path] * SMS
         assert pl.span // pl.slot_tile >= min_tiles
-        assert pl.blocks >= min(SMS, base * (n_tiles // min_tiles))
+        # a wave of the card where the slot tiles allow it; at one block a SM (the f32
+        # tensor cores) a wave less at most one split's blocks, so as not to start a second
+        wave = SMS if da.RESIDENT[pl.path] > 1 else SMS - base + 1
+        assert pl.blocks >= min(wave, base * (n_tiles // min_tiles))
     else:
         assert base * 2 > da.RESIDENT[pl.path] * SMS or n_tiles < 2 * min_tiles
+    z = lambda *shape, dtype=F32: torch.zeros(shape, dtype=dtype, device="meta")
+    scales = (z(B, Wp, KVH), z(B, Wp, KVH)) if kvdt == I8 else None
+    da._check(z(B, S, NH, Dh, dtype=qdt), z(B, Wp, KVH, Dh, dtype=kvdt),
+              z(B, Wp, KVH, Dh, dtype=kvdt), z(B, Wp, Dh), z(B, Wp, Dh),
+              z(B, Wp, dtype=torch.int32), z(B, S, dtype=torch.int32), scales)
 
 
 def test_plan_a_token_on_the_7b_fills_the_card():
     """S = 1 on the 7B: the CUDA-core path, 4 kv heads x 65 splits of 32 slots,
     more than 100 blocks (one block per kv head before the split); a frame
-    chunk (S = 49): 6 row tiles x 4 kv heads x 11 splits of 192 slots."""
+    chunk (S = 49): 6 row tiles x 4 kv heads x 11 splits of 192 slots in bf16,
+    5 of 448 in f32."""
     pl = da.plan(1, 1, 28, 4, 128, 2049, BF, BF, sms=SMS)
     assert (pl.path, pl.splits, pl.span, pl.blocks) == (da.CUDA_CORES, 65, 32, 260)
     pl = da.plan(1, 49, 28, 4, 128, 2049, BF, BF, sms=SMS)
     assert (pl.path, pl.splits, pl.span, pl.blocks) == (da.WGMMA, 11, 192, 264)
+    # the f32 frame chunk (f32 q, bf16 cache): one block a SM, 24 row tiles x 5 splits
+    # of 448 slots; the judge's rubric prefix fills the card with its row tiles
+    pl = da.plan(1, 49, 28, 4, 128, 2049, F32, BF, sms=SMS)
+    assert (pl.path, pl.splits, pl.span, pl.blocks) == (da.WGMMA_F32, 5, 448, 120)
+    pl = da.plan(1, 1695, 28, 4, 128, 4097, F32, F32, sms=SMS)
+    assert (pl.path, pl.splits, pl.blocks) == (da.WGMMA_F32, 1, 744)
 
 
 @pytest.mark.parametrize("Wp", [1, 31, 32, 33, 63, 64, 65, 2049])
@@ -169,6 +199,34 @@ def test_split_emulation_matches_jax_kernel_f32(int8, sms):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("kv", [BF, F32], ids=["bf16-kv", "f32-kv"])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_split_emulation_f32_planes_matches_jax_kernel(kv, sms):
+    """The f32 tensor-core path's arithmetic (q in three bf16 planes, the
+    rotated key and an f32 V in two, p in three; f32 sums): f32 q against a
+    bf16 cache, read as it lies, and against an f32 cache, with one split
+    (sms = 1) and with the card's, against the JAX kernel with f32 q (which
+    widens a bf16 cache on load and keeps the rotated key and p f32) and
+    against the port's plain version, within 1e-5 of the largest output: the
+    key's two planes hold it to 2^-18 of itself. S = 6 at 8 / 2 heads: 24
+    rows, 520 slots, 3 splits of 192 on the card."""
+    q, k, v, cos, sin, order, g, _ = _operands(np.random.default_rng(31), 1, 6, 8, 2, 128, 520)
+    kc, vc = (_t(x).to(kv) for x in (k, v))
+    args = [_t(q), kc, vc, _t(cos), _t(sin), _t(order), _t(g), None]
+    pl = da.plan(1, 6, 8, 2, 128, 520, F32, kv, sms=sms)
+    assert pl.path == da.WGMMA_F32 and pl.splits == (1 if sms == 1 else 3)
+    emu = da.decode_attention_split_plain(*args, pl=pl, f32_planes=True)
+    assert emu.dtype == F32
+    jk, jv = (jnp.asarray(x.float().numpy(), jnp.bfloat16 if kv == BF else jnp.float32)
+              for x in (kc, vc))
+    ref = np.asarray(cached_decode_attention(
+        jnp.asarray(q), jk, jv, jnp.asarray(cos), jnp.asarray(sin), jnp.asarray(order),
+        jnp.asarray(g), None, interpret=True))
+    assert np.abs(emu.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
+    plain = da.decode_attention_plain(*args).numpy()
+    assert np.abs(emu.numpy() - plain).max() <= 1e-5 * np.abs(plain).max()
+
+
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16-kv", "int8-kv"])
 def test_split_emulation_bf16_matches_jax_kernel_bf16(int8):
     """The tensor-core path's roundings (rotated K and p to bf16, bf16 q and
@@ -190,7 +248,9 @@ def test_split_emulation_bf16_matches_jax_kernel_bf16(int8):
 def _schedule(jpolicy, tpolicy, schedule, B, KVH, NH, Dh, seed, tol):
     """The chunk schedule of test_torch_attention.py: the JAX cache and the
     port's written alike, then the emulation of each chunk's attention (with
-    the plan of the card) against the jnp path and the JAX kernel."""
+    the plan of the card, in its arithmetic, and where that is the f32 tensor
+    cores' also with the CUDA cores' plan) against the jnp path and the JAX
+    kernel. -> the (path, splits) emulated, the card's path of each chunk."""
     from aha_tpu.ops.pallas.decode_attention import cached_decode_attention as jkernel
     from aha_tpu.ops.rope import apply_rope as japply_rope
     from aha_tpu.ops.rope import rope_cos_sin as jrope_cos_sin
@@ -201,7 +261,7 @@ def _schedule(jpolicy, tpolicy, schedule, B, KVH, NH, Dh, seed, tol):
     tc = tkv.init_cache(tpolicy, device="cpu", num_layers=1, batch=B, num_kv_heads=KVH,
                         head_dim=Dh, dtype=torch.float32)
     sink_slots = jpolicy.num_sink if jpolicy.kind == "sink" else 0
-    splits = set()
+    splits, paths = set(), []
     for S, vl in schedule:
         k_new, v_new, q = (rng.standard_normal(s).astype(np.float32)
                            for s in ((B, S, KVH, Dh), (B, S, KVH, Dh), (B, S, NH, Dh)))
@@ -232,38 +292,51 @@ def _schedule(jpolicy, tpolicy, schedule, B, KVH, NH, Dh, seed, tol):
                         rot=(tables.w_cos, tables.w_sin))
         tq = apply_rope(_t(q), tables.w_cos, tables.w_sin)
         Wp = tc.k.shape[2]
+        # the card's plan, and the CUDA cores' where the card takes the tensor cores
         pl = da.plan(B, S, NH, KVH, Dh, Wp, F32, F32, sms=SMS)
-        splits.add(pl.splits)
-        out = da.decode_attention_split_plain(
-            tq, tc.k[0], tc.v[0], tables.d_cos, tables.d_sin, tables.mask_order, tables.mask_g,
-            pl=pl).numpy()
+        paths.append(pl.path)
+        plans = [pl] + ([da.plan_on(da.CUDA_CORES, B, S, NH, KVH, Wp, sms=SMS)]
+                        if pl.path != da.CUDA_CORES else [])
+        for pl in plans:
+            splits.add((pl.path, pl.splits))
+            out = da.decode_attention_split_plain(
+                tq, tc.k[0], tc.v[0], tables.d_cos, tables.d_sin, tables.mask_order,
+                tables.mask_g, pl=pl, f32_planes=pl.path == da.WGMMA_F32).numpy()
+            np.testing.assert_allclose(out, ref, rtol=tol, atol=tol)
+            np.testing.assert_allclose(out, kern, rtol=tol, atol=tol)
         tkv.advance(tc, tplan)
-        np.testing.assert_allclose(out, ref, rtol=tol, atol=tol)
-        np.testing.assert_allclose(out, kern, rtol=tol, atol=tol)
-    return splits
+    return splits, paths
 
 
 @pytest.mark.parametrize("mask_mode", ["hf", "strict"])
 def test_split_emulation_sink_schedule(mask_mode):
-    """Sink policy, window 192 (193 slots: 7 splits of 32 slots at 2 x 2
-    blocks): ragged chunks through the first eviction and the fill transient,
-    against the jnp path and the JAX kernel at 1e-4 (test_torch_attention.py's
-    tolerance on this schedule)."""
+    """Sink policy, window 192 (193 slots): ragged chunks through the first
+    eviction and the fill transient, against the jnp path and the JAX kernel
+    at 1e-4 (test_torch_attention.py's tolerance on this schedule). Every
+    chunk has 128 rows and more: the card's plan is the f32 tensor cores' (one
+    split of 4 slot tiles; the sink slots' residual rotation gives the key a
+    lo plane, the ring slots' none), and the CUDA cores' plan (7 splits of 32
+    slots at 2 x 2 blocks) is held too."""
     kw = dict(window=192, num_sink=16, mask_mode=mask_mode)
     schedule = [(112, (100, 60)), (96, (96, 96)), (64, (40, 64)), (64, (64, 20))]
-    splits = _schedule(jkv.CachePolicy("sink", slot_pad=64, **kw), tkv.CachePolicy("sink", **kw),
-                       schedule, B=2, KVH=2, NH=4, Dh=128, seed=0, tol=1e-4)
-    assert max(splits) > 1
+    splits, paths = _schedule(jkv.CachePolicy("sink", slot_pad=64, **kw),
+                              tkv.CachePolicy("sink", **kw), schedule, B=2, KVH=2, NH=4, Dh=128,
+                              seed=0, tol=1e-4)
+    assert set(paths) == {da.WGMMA_F32}
+    assert (da.WGMMA_F32, 1) in splits and max(n for p, n in splits if p == da.CUDA_CORES) > 1
 
 
 def test_split_emulation_single_token():
     """The generation path at S = 1 (3 rows per kv head) after a prefill, one
-    step with nothing new: 31 slots of 121 visible, 4 splits."""
+    step with nothing new: 31 slots of 121 visible, 4 splits on the CUDA
+    cores; the prefill (96 rows) on the f32 tensor cores, and held on the
+    CUDA cores' plan too."""
     schedule = [(32, (32,)), (1, (1,)), (1, (0,)), (1, (1,))]
-    splits = _schedule(jkv.CachePolicy("sliding", window=120, slot_pad=8),
-                       tkv.CachePolicy("sliding", window=120), schedule,
-                       B=1, KVH=2, NH=6, Dh=128, seed=1, tol=1e-4)
-    assert splits == {4}
+    splits, paths = _schedule(jkv.CachePolicy("sliding", window=120, slot_pad=8),
+                              tkv.CachePolicy("sliding", window=120), schedule,
+                              B=1, KVH=2, NH=6, Dh=128, seed=1, tol=1e-4)
+    assert paths == [da.WGMMA_F32] + [da.CUDA_CORES] * 3
+    assert {n for p, n in splits if p == da.CUDA_CORES} == {4}
 
 
 def test_split_with_no_visible_slot_for_some_rows():
@@ -287,15 +360,17 @@ def test_split_with_no_visible_slot_for_some_rows():
 @pytest.mark.parametrize("bf16", [False, True])
 def test_split_row_that_sees_nothing_gives_zeros(bf16):
     """g below every order: the row sees no slot in any split and comes out
-    as exact zeros on both paths; the other rows are untouched."""
+    as exact zeros on both tensor-core paths (bf16, and f32 in planes); the
+    other rows are untouched."""
     rng = np.random.default_rng(6)
     B, S, NH, KVH, Dh, Wp = 2, 8, 4, 2, 128, 400
     ops = list(_operands(rng, B, S, NH, KVH, Dh, Wp))
     ops[6][:, 3] = -1
     args = _torch(ops, BF if bf16 else F32)
     pl = da.plan(B, S, NH, KVH, Dh, Wp, args[0].dtype, args[1].dtype, sms=SMS)
-    assert (pl.path == da.WGMMA) == bf16 and pl.splits > 1
-    emu = da.decode_attention_split_plain(*args, pl=pl, bf16_products=bf16)
+    assert pl.path == (da.WGMMA if bf16 else da.WGMMA_F32) and pl.splits > 1
+    emu = da.decode_attention_split_plain(*args, pl=pl, bf16_products=bf16,
+                                          f32_planes=not bf16)
     plain = da.decode_attention_plain(*args)
     assert torch.count_nonzero(emu[:, 3]) == 0 and torch.count_nonzero(plain[:, 3]) == 0
     assert torch.count_nonzero(emu[:, 2]) > 0
@@ -339,3 +414,39 @@ def test_decode_attention_wrapper_refuses_a_grid_too_tall():
             z(65536, 1, dtype=torch.int32, device="meta"), None)
     with pytest.raises(ValueError, match="grid"):
         da._check(*args)
+
+
+@pytest.mark.parametrize("qdt, kvdt", [(F32, BF), (BF, F32)], ids=["f32-q-bf16-kv", "bf16-q-f32-kv"])
+def test_cached_attention_hands_the_cache_as_it_lies(monkeypatch, qdt, kvdt):
+    """``cached_attention``: f32 queries against a bf16 cache (a frame chunk
+    behind a peft artifact's f32 projector) reach ``decode_attention`` with
+    the bf16 cache as it lies, no widened copy, and give f32; bf16 queries
+    against an f32 cache (the local judge's) are widened to f32 and their
+    output rounded to bf16. Either equals JAX's kernel on the same values
+    within 1e-5 of the largest output (bf16 out: one bf16 step)."""
+    rng = np.random.default_rng(41)
+    B, S, NH, KVH, Dh, Wp = 1, 5, 8, 2, 128, 96
+    q, k, v, cos, sin, order, g, _ = _operands(rng, B, S, NH, KVH, Dh, Wp)
+    w_ang = rng.random((B, S, Dh // 2)).astype(np.float32) * 6.283
+    w_ang = np.concatenate([w_ang, w_ang], axis=-1)
+    tables = tattn.ChunkTables(_t(np.cos(w_ang)), _t(np.sin(w_ang)), _t(cos), _t(sin), _t(order),
+                               _t(g))
+    seen = []
+    real = tattn.decode_attention
+
+    def recorded(q_rot, k_cache, v_cache, *a):
+        seen.append((q_rot.dtype, k_cache.dtype, v_cache.dtype))
+        return real(q_rot, k_cache, v_cache, *a)
+
+    monkeypatch.setattr(tattn, "decode_attention", recorded)
+    kc, vc = _t(k).to(kvdt), _t(v).to(kvdt)
+    out = tattn.cached_attention(_t(q).to(qdt), kc, vc, tables)
+    assert seen == [(F32, kvdt, kvdt)] and out.dtype == qdt
+    q_rot = apply_rope(_t(q).to(qdt).float(), tables.w_cos, tables.w_sin).to(qdt)
+    ref = np.asarray(cached_decode_attention(
+        jnp.asarray(q_rot.float().numpy()), *(jnp.asarray(x.float().numpy(), jnp.float32)
+                                             for x in (kc, vc)),
+        jnp.asarray(cos), jnp.asarray(sin), jnp.asarray(order), jnp.asarray(g), None,
+        interpret=True))
+    tol = 1e-5 if qdt == F32 else 2.0 ** -8
+    assert np.abs(out.float().numpy() - ref).max() <= tol * np.abs(ref).max()
