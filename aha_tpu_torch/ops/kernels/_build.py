@@ -115,6 +115,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.aha_int4_matmul.restype = I
     lib.aha_int4_matmul_smem.argtypes = [I, I, I]
     lib.aha_int4_matmul_smem.restype = I
+    lib.aha_quant_matmul_ws.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, P]
+    lib.aha_quant_matmul_ws.restype = I
+    lib.aha_quant_matmul_ws_smem.argtypes = [I, I]
+    lib.aha_quant_matmul_ws_smem.restype = I
     lib.aha_int4_matmul_t.argtypes = [P, P, P, P, I, I, I, I, I, I, I, P]
     lib.aha_int4_matmul_t.restype = I
     lib.aha_flash_attention_fwd.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, F, P]

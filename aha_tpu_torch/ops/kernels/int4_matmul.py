@@ -34,8 +34,10 @@ import torch
 from . import LAUNCHES, PATH_LAUNCHES, _build
 from .int8_matmul import WGMMA_A8_TILES as _A8_WIDTHS
 from .int8_matmul import (DECODE, DECODE_MAX_M, PATH_NAMES, SCALAR, TENSOR_CORE, VEC16, WGMMA,
-                          WGMMA_MIN_M, X3_TILE_CAP, X3_TILES, Plan, check_hopper_operands,
-                          decode_column, fwd_row_to_column, num_sms, splits_on, token_tile)
+                          WGMMA_MIN_M, WGMMA_WS, WS_MIN_M, X3_TILE_CAP, X3_TILES, Plan,
+                          check_hopper_operands, check_ws_operands, decode_column,
+                          fwd_row_to_column, num_sms, splits_on, token_tile, ws_column, ws_launch,
+                          ws_ring)
 from .int8_matmul import align_of as _align
 from .quantize_rows import quantize_rows, quantize_rows_plain, split_bf16x3, split_bf16x3_plain
 
@@ -109,6 +111,9 @@ DECODE_SLOT = {a8: 16 * _X_ROW[a8] + 32 * _W_ROW[a8] + 256 for a8 in (False, Tru
 DECODE_SMEM = DECODE_STAGES * DECODE_SLOT[False]
 DECODE_SMEM_A8 = DECODE_STAGES * DECODE_SLOT[True]
 DECODE_BLOCKS_PER_SM = 4
+# the warp-specialised kernel's token tiles: a consumer keeps two accumulator sets (the
+# group's sum and the total) of tile / 2 registers each, 160 at the widest
+WS_TILES = tuple(range(64, 161, 16))
 
 
 SMEM_PER_SM = 233472     # 228 KB; each resident block also takes 1 KB of it
@@ -181,7 +186,8 @@ def plan(M: int, K: int, N: int, G: int, *, bf16: bool, a8: bool = False,
     ``a8``) are multiples of ``align`` bytes. The two Hopper paths take a bf16
     output, G % 64 == 0, N % 16 == 0 and 16-byte aligned operands, with either
     operand type under the same conditions: the decode kernel at 1 to 16 rows,
-    the wgmma kernel from 17 (int8 x: a token tile among the s8 widths). Under
+    the wgmma kernel from 17 (int8 x: a token tile among the s8 widths; bf16 x
+    from WS_MIN_M rows the warp-specialised kernel). Under
     the same conditions f32 x weight-only takes the wgmma kernel from 17 rows
     (three bf16 planes, an f32 output); 1 to 16 f32 rows stay on the CUDA
     cores. Pure (no card is asked) and remembered: a path's shapes recur with
@@ -192,11 +198,10 @@ def plan(M: int, K: int, N: int, G: int, *, bf16: bool, a8: bool = False,
     if tensor_cores and M <= DECODE_MAX_M:
         return Plan(DECODE, decode_splits(sms, N, K // G, a8), 16, 1, DECODE_STAGES,
                     DECODE_SMEM_A8 if a8 else DECODE_SMEM)
+    if tensor_cores and not a8 and M >= WS_MIN_M:
+        return ws_plan(M, K, N, G, sms)
     if tensor_cores:
-        tile, tiles = token_tile(M, WGMMA_TILE_CAP, WGMMA_A8_TILES if a8 else None)
-        splits = wgmma_splits(sms, tiles * -(-N // 128), K // G, K // 64)
-        return Plan(WGMMA, splits, tile, tiles, WGMMA_STAGES,
-                    WGMMA_STAGES * wgmma_stage_bytes(tile, a8) + 1024)
+        return wgmma_plan(M, K, N, G, a8, sms)
     if hopper and not bf16 and not a8 and M >= WGMMA_MIN_M:
         return x3_plan(M, K, N, G, sms)
     if (a8 or bf16) and M > 1 and G % 32 == 0 and N % 8 == 0 and ax % 16 == 0 and aw % 8 == 0:
@@ -204,6 +209,27 @@ def plan(M: int, K: int, N: int, G: int, *, bf16: bool, a8: bool = False,
     path = VEC16 if N % 16 == 0 and aw % 16 == 0 else SCALAR
     # whole groups per split, four groups in flight per block
     return Plan(path, splits_on(sms, -(-N // 128) * -(-M // 2), (K // G) // 4))
+
+
+def wgmma_plan(M: int, K: int, N: int, G: int, a8: bool = False, sms: int = 132) -> Plan:
+    """The launch of the one-warpgroup wgmma kernel (bf16 or int8 x, bf16
+    output) at M >= 17 rows: a token tile of at most 80 rows (int8 x: among the
+    s8 widths), six ring slots, whole groups a split. bf16 x weight-only takes
+    it below WS_MIN_M rows; ``chip_smoke.py`` also launches it above, to time
+    the kernel the warp-specialised one replaced there."""
+    tile, tiles = token_tile(M, WGMMA_TILE_CAP, WGMMA_A8_TILES if a8 else None)
+    splits = wgmma_splits(sms, tiles * -(-N // 128), K // G, K // 64)
+    return Plan(WGMMA, splits, tile, tiles, WGMMA_STAGES,
+                WGMMA_STAGES * wgmma_stage_bytes(tile, a8) + 1024)
+
+
+def ws_plan(M: int, K: int, N: int, G: int, sms: int) -> Plan:
+    """The warp-specialised launch of a packed int4 weight (bf16 x,
+    weight-only): ``int8_matmul.ws_launch`` at the int4 tiles, whole groups a
+    split."""
+    tile, tiles, splits = ws_launch(M, K // 64, N, sms, WS_TILES, G // 64)
+    stages, smem = ws_ring(tile, 4)
+    return Plan(WGMMA_WS, splits, tile, tiles, stages, smem)
 
 
 def x3_plan(M: int, K: int, N: int, G: int, sms: int) -> Plan:
@@ -295,6 +321,14 @@ def launch_plan(x2: torch.Tensor, sx: torch.Tensor | None, q4value: torch.Tensor
     ws = (torch.empty((pl.splits, M, N), dtype=torch.float32, device=x2.device)
           if pl.splits > 1 else None)
     lib = _build.library()
+    if pl.path == WGMMA_WS:
+        check_ws_operands("int4_matmul", x2, sx, y, pl, WS_TILES)
+        err = lib.aha_quant_matmul_ws(
+            x2.data_ptr(), q4value.data_ptr(), scale4.data_ptr(), y.data_ptr(),
+            None if ws is None else ws.data_ptr(), M, K, N, K // scale4.shape[0], 4, pl.splits,
+            pl.tile, ctypes.c_void_p(torch.cuda.current_stream(x2.device).cuda_stream))
+        _build.check(lib, err, "int4_matmul")
+        return
     err = lib.aha_int4_matmul(
         x2.data_ptr(), None if sx is None else sx.data_ptr(), q4value.data_ptr(),
         scale4.data_ptr(), y.data_ptr(), None if ws is None else ws.data_ptr(),

@@ -86,8 +86,11 @@ def num_sms(index: int) -> int:
 # the kernel's paths (csrc/int8_matmul.cu; int4_matmul.cu and int4_matmul_t.cu
 # number theirs alike), and their names in PATH_LAUNCHES
 SCALAR, VEC16, TENSOR_CORE, WGMMA, DECODE = 0, 1, 2, 3, 4
+# the warp-specialised kernel of bf16 x weight-only at many rows (csrc/quant_matmul_ws.cu,
+# shared with int4_matmul), numbered beside them
+WGMMA_WS = 5
 PATH_NAMES = {SCALAR: "cuda_cores", VEC16: "cuda_cores", TENSOR_CORE: "mma_sync",
-              WGMMA: "wgmma", DECODE: "decode"}
+              WGMMA: "wgmma", DECODE: "decode", WGMMA_WS: "wgmma_ws"}
 # the x operands of the wgmma kernel: bf16, int8, an f32 x's three bf16 planes (the
 # code its C entry points take for the shared-memory query)
 X_BF16, X_S8, X_F32 = 0, 1, 2
@@ -105,6 +108,36 @@ X3_TILES = tuple(range(24, X3_TILE_CAP + 1, 8))
 _W_STAGE = {False: 64 * 144, True: 64 * 128}
 _X_ROW = {False: 128, True: 64}   # bytes of a row of 64 x values in a stage
 SMEM_PER_SM = 233472     # 228 KB; each resident block also takes 1 KB of it
+# The warp-specialised kernel (WGMMA_WS): bf16 x weight-only from WS_MIN_M rows. A
+# block is a producer warpgroup and two consumer warpgroups, one block an SM; it owns
+# 128 weight columns (a consumer's slab of 64 each) and ``tile`` token rows; a ring
+# slot is the x tile (``tile`` rows of 128 bytes) and the raw bytes (int8: 64 rows
+# 144 bytes apart, 9 KB; int4: 32 packed rows 160 bytes apart and the group's
+# scales, 6 KB); as many slots as fit in a block's 227 KB, at most 6.
+# From 171 rows (a prompt's system chunk; a fused pass's 196 and 220, B 8's 392 and 1,568,
+# training's 926-2,048, the tower's 576 and 18,432): at each of these a decoder layer's
+# four products (the projector's two, a tower layer's six) ran faster here than on the
+# one-warpgroup wgmma kernel in the same call (chip_smoke.py phase 2, NVIDIA H100 80GB
+# HBM3, 700 W: int8 0.2181 against 0.2737 ms at 171, 0.2420 / 0.2961 at 196, 1.6979 /
+# 2.0286 at 2,048; int4 0.2943 / 0.3662 at 171, 2.1356 / 2.4938 at 2,048), and phase 2
+# fails where it no longer does. Below 171 no path's row count was timed.
+WS_MIN_M = 171
+WS_TILES = tuple(range(96, 257, 16))       # int8 token tiles (tile / 2 accumulator registers)
+WS_RAW = {8: 9216, 4: 6144}
+WS_SMEM = 232448                           # a block's shared memory at most
+# the plan's estimate of a launch (microseconds; ``ws_launch``): a stage of T token
+# rows takes (T + WS_STAGE_ROWS) x WS_ROW_US on its SM (a row's 128 x 64 products at
+# 70% of an SM's share of 989 TFLOP/s, and a fixed part), a block WS_BLOCK_US more
+# (its ring filling, its epilogue), a K split its f32 partials' M N 8 bytes at
+# WS_SPLIT_BYTES_PER_US and a reduce launch. The constants were fitted on an H100 to
+# the times of every token tile at 1, 2, 3, 4 and 6 splits at the 7B paths' shapes
+# (``python3 -m aha_tpu_torch.sweep_ws``): the launch they choose was within 4% of the
+# fastest at every shape.
+WS_ROW_US = 2 * 128 * 64 / (989e6 / 132 * 0.7)
+WS_STAGE_ROWS = 96
+WS_BLOCK_US = 0.5
+WS_SPLIT_BYTES_PER_US = 1.5e6
+WS_REDUCE_US = 1.0
 # bytes of a decode ring slot: the x tile (16 rows) and the weight rows
 DECODE_SLOTS = {a8: 16 * _X_ROW[a8] + _W_STAGE[a8] for a8 in (False, True)}
 # the decode ring for grids of more than one round: the one that holds three blocks an SM
@@ -229,6 +262,58 @@ def fwd_row_to_column(row: int) -> int:
     return 4 * (8 * w + q % 8) + 2 * slab + q // 8
 
 
+def ws_ring(tile: int, bits: int = 8) -> tuple[int, int]:
+    """(slots, shared memory bytes) of the warp-specialised kernel at token tile
+    ``tile`` for int8 (``bits`` 8) or int4 weights: as many slots as fit beside
+    1 KB of alignment and the barriers, at most six (the kernel's
+    ``smem_bytes``, ``aha_quant_matmul_ws_smem``)."""
+    stage = tile * 128 + WS_RAW[bits]
+    stages = min(6, (WS_SMEM - 1024 - 256) // stage)
+    return stages, stages * stage + 1024
+
+
+def ws_launch(M: int, stages: int, N: int, sms: int, tiles: tuple[int, ...],
+              unit: int = 1) -> tuple[int, int, int]:
+    """(tile, token tiles, K splits) of the warp-specialised kernel for M rows, a
+    K of ``stages`` 64-row stages split in whole ``unit``s of stages (int4: a
+    group), N columns (blocks of 128), one block an SM: the choice among the
+    token tiles ``tiles`` and 1 .. 16 splits whose estimated time (the WS_*
+    constants) is least, fewer splits and wider tiles first where equal. A
+    grid smaller than the card is split or cut into narrower token tiles; one of
+    a few rounds keeps its tail."""
+    cb = -(-N // 128)
+    units = stages // unit
+    best = None
+    for tile in tiles:
+        n_tiles = -(-M // tile)
+        stage_us = (tile + WS_STAGE_ROWS) * WS_ROW_US
+        for splits in range(1, min(units, 16) + 1):
+            per = -(-units // splits) * unit
+            t = -(-(n_tiles * cb * splits) // sms) * (per * stage_us + WS_BLOCK_US)
+            if splits > 1:
+                t += splits * M * N * 8 / WS_SPLIT_BYTES_PER_US + WS_REDUCE_US
+            key = (t, splits, -tile)
+            if best is None or key < best[0]:
+                best = (key, tile, n_tiles, splits)
+    return best[1], best[2], best[3]
+
+
+def ws_plan(M: int, K: int, N: int, sms: int) -> Plan:
+    """The warp-specialised launch of an int8 weight (bf16 x, weight-only)."""
+    tile, tiles, splits = ws_launch(M, K // 64, N, sms, WS_TILES)
+    stages, smem = ws_ring(tile)
+    return Plan(WGMMA_WS, splits, tile, tiles, stages, smem)
+
+
+def ws_column(consumer: int, warp: int, gid: int) -> int:
+    """The first of the two neighbouring weight columns whose accumulator rows
+    gid and gid + 8 (of warp ``warp``) a thread of the warp-specialised
+    kernel's consumer ``consumer`` holds: the consumer converts slab
+    ``consumer`` of ``fwd_row_to_column``'s relabelling, bytes 2 consumer and
+    2 consumer + 1 of the thread's words of columns 4 (8 warp + gid) .. + 3."""
+    return 4 * (8 * warp + gid) + 2 * consumer
+
+
 @functools.lru_cache(maxsize=None)
 def plan(M: int, K: int, N: int, *, bf16: bool, a8: bool = False,
          align: tuple[int, int, int] = (16, 16, 16), sms: int = 132) -> Plan:
@@ -237,7 +322,8 @@ def plan(M: int, K: int, N: int, *, bf16: bool, a8: bool = False,
     first), qvalue [K, N] and scale [N] whose addresses (x's: the quantised x's
     with ``a8``) are multiples of ``align`` bytes. The two Hopper paths take a
     bf16 output, K % 64 == 0, N % 16 == 0 and 16-byte aligned operands, with
-    either operand type under the same conditions; under the same conditions
+    either operand type under the same conditions (bf16 x weight-only from
+    WS_MIN_M rows on the warp-specialised kernel); under the same conditions
     f32 x weight-only takes the wgmma kernel from 17 rows (as three bf16
     planes, an f32 output; 1 to 16 f32 rows stay on the CUDA cores). Pure (no
     card is asked) and remembered: a path's shapes recur with every pass."""
@@ -247,17 +333,28 @@ def plan(M: int, K: int, N: int, *, bf16: bool, a8: bool = False,
     if tensor_cores and M <= DECODE_MAX_M:
         slots, splits = decode_launch(sms, N, K // 64, a8)
         return Plan(DECODE, splits, 16, 1, slots, slots * DECODE_SLOTS[a8])
+    if tensor_cores and not a8 and M >= WS_MIN_M:
+        return ws_plan(M, K, N, sms)
     if tensor_cores:
-        tile, tiles = token_tile(M, WGMMA_TILE_CAP, WGMMA_A8_TILES if a8 else None)
-        stages, smem = wgmma_ring(tile, a8)
-        splits = wgmma_splits(blocks_per_sm(tile) * sms, tiles * -(-N // 128), K // 64)
-        return Plan(WGMMA, splits, tile, tiles, stages, smem)
+        return wgmma_plan(M, K, N, a8, sms)
     if hopper and not bf16 and not a8 and M >= WGMMA_MIN_M:
         return x3_plan(M, K, N, sms)
     if (a8 or bf16) and M > 1 and K % 32 == 0 and N % 8 == 0 and ax % 16 == 0 and aw % 8 == 0:
         return Plan(TENSOR_CORE, splits_on(sms, -(-M // 64) * -(-N // 128), K // 256))
     path = VEC16 if N % 16 == 0 and aw % 16 == 0 else SCALAR
     return Plan(path, splits_on(sms, -(-N // 128) * (1 if M == 1 else -(-M // 4)), K // 256))
+
+
+def wgmma_plan(M: int, K: int, N: int, a8: bool = False, sms: int = 132) -> Plan:
+    """The launch of the one-warpgroup wgmma kernel (bf16 or int8 x, bf16
+    output) at M >= 17 rows: a token tile of at most 128 rows (int8 x: among the
+    s8 widths), its ring, K split as ``wgmma_splits`` says. bf16 x weight-only
+    takes it below WS_MIN_M rows; ``chip_smoke.py`` also launches it above, to
+    time the kernel the warp-specialised one replaced there."""
+    tile, tiles = token_tile(M, WGMMA_TILE_CAP, WGMMA_A8_TILES if a8 else None)
+    stages, smem = wgmma_ring(tile, a8)
+    splits = wgmma_splits(blocks_per_sm(tile) * sms, tiles * -(-N // 128), K // 64)
+    return Plan(WGMMA, splits, tile, tiles, stages, smem)
 
 
 def x3_plan(M: int, K: int, N: int, sms: int) -> Plan:
@@ -347,6 +444,20 @@ def check_hopper_operands(name: str, x2: torch.Tensor, sx: torch.Tensor | None,
     return planes
 
 
+def check_ws_operands(name: str, x2: torch.Tensor, sx: torch.Tensor | None, y: torch.Tensor,
+                      pl: Plan, tiles: tuple[int, ...]) -> None:
+    """Raise on operands the warp-specialised kernel would refuse: it takes bf16
+    x [M, K], weight-only, a bf16 output, at the token tiles it is built for."""
+    if x2.dim() != 2 or x2.dtype != torch.bfloat16 or sx is not None or y.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: the warp-specialised path takes bf16 x [M, K], weight-only, "
+                         f"and a bf16 output; got {x2.dtype} x of {x2.dim()} dimensions "
+                         f"{'without' if sx is None else 'with'} row scales and a {y.dtype} "
+                         f"output")
+    if pl.tile not in tiles:
+        raise ValueError(f"{name}: the warp-specialised path takes token tiles {tiles}, "
+                         f"got {pl.tile}")
+
+
 def launch_plan(x2: torch.Tensor, sx: torch.Tensor | None, qvalue: torch.Tensor,
                 scale: torch.Tensor, y: torch.Tensor, pl: Plan) -> None:
     """Launch the kernel into ``y`` [M, N] along ``pl`` (x2 [M, K] bf16 / f32,
@@ -367,6 +478,13 @@ def launch_plan(x2: torch.Tensor, sx: torch.Tensor | None, qvalue: torch.Tensor,
     ws_ptr = None if ws is None else ws.data_ptr()
     stream = ctypes.c_void_p(torch.cuda.current_stream(x2.device).cuda_stream)
     lib = _build.library()
+    if pl.path == WGMMA_WS:
+        check_ws_operands("int8_matmul", x2, sx, y, pl, WS_TILES)
+        err = lib.aha_quant_matmul_ws(x2.data_ptr(), qvalue.data_ptr(), scale.data_ptr(),
+                                      y.data_ptr(), ws_ptr, M, K, N, 0, 8, pl.splits, pl.tile,
+                                      stream)
+        _build.check(lib, err, "int8_matmul")
+        return
     tile = pl.stages if pl.path == DECODE else pl.tile
     if sx is not None:
         err = lib.aha_int8_matmul_a8(

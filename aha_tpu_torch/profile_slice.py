@@ -57,7 +57,10 @@ runs, per pass (each carries 8 rows):
   verify S=4  8 verify passes of 8 rows x 4 tokens (32 rows), as the
               speculative tail runs them.
 
-The verify-pass and token tables list the path's decode kernel for products of
+The frame and fused-pass tables list the products' kernels of many rows
+(``int8_mm_wgmma_kernel``, ``int8_mm_ws_kernel`` and their int4 twins) with
+their calls and us per call even below the top ones. The verify-pass and token
+tables list the path's decode kernel for products of
 1 .. 16 rows (``int8_mm_decode_kernel``, ``int4_mm_decode_kernel``), the sum of
 its K splits and, for int8a8 and int4a8, the activation quantiser by name, with their share
 of device time and calls per unit.
@@ -115,6 +118,9 @@ MATMUL_DECODE_KERNELS = {"int8": ("int8_mm_decode_kernel", "splitk_reduce"),
                                     "quantize_rows_vec_kernel"),
                          "int4a8": ("int4_mm_decode_kernel", "splitk_reduce",
                                     "quantize_rows_vec_kernel")}
+# the products' kernels of many rows (the one-warpgroup wgmma kernels, the
+# warp-specialised ones), listed in the frame and fused-pass tables below the top ones
+PRODUCT_KERNELS = ("_mm_wgmma_kernel", "_mm_ws_kernel")
 # path -> (weights, matmul backend, fused_score_frames of the product)
 SERVING = {"int8": ("int8", "fused", 4), "int4": ("int4", "fused", 4),
            "int8a8": ("int8", "fused_a8", 8), "int4a8": ("int4", "fused_a8", 4),
@@ -295,7 +301,8 @@ def _trace_frames(label, engine, cache, rows, first, n, shares=None):
     what, unit = ((f"frame (stream at {int(cache.seen[0])} tokens)", "frame") if B == 1 else
                   (f"frame step ({B * 49} rows)", "pass"))
     report(f"{label} {what}", n, unit, tr.wall_ms, tr.traced_wall_ms, tr.busy_ms(),
-           tr.kernels(), tr.aten_ops(), named=DECODE_KERNELS, shares=shares)
+           tr.kernels(), tr.aten_ops(), also=PRODUCT_KERNELS, named=DECODE_KERNELS,
+           shares=shares)
 
 
 def _trace_fused(label, engine, cache, rows, first, n, K, shares=None):
@@ -314,7 +321,8 @@ def _trace_fused(label, engine, cache, rows, first, n, K, shares=None):
     what = (f"({K} frames, {K * 49} rows; stream at {int(cache.seen[0])} tokens)" if B == 1
             else f"({B} x {K} frames, {B * K * 49} rows)")
     report(f"{label} fused pass {what}", n, "pass", tr.wall_ms, tr.traced_wall_ms,
-           tr.busy_ms(), tr.kernels(), tr.aten_ops(), named=DECODE_KERNELS, shares=shares)
+           tr.busy_ms(), tr.kernels(), tr.aten_ops(), also=PRODUCT_KERNELS, named=DECODE_KERNELS,
+           shares=shares)
 
 
 def _trace_verify(label, engine, cfg, cache, S, named):
@@ -484,7 +492,7 @@ def profile_train(seed: int, remat: str, mode: str = "int4") -> None:
     report(f"train step ({mode} QLoRA, B=1 T={T}, remat={remat}, loss {float(parts.total):.4f}, "
            f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)", 1, "step",
            tr.wall_ms, tr.traced_wall_ms, tr.busy_ms(), tr.kernels(), tr.aten_ops(), top=14,
-           also=("flash_",))
+           also=("flash_",) + PRODUCT_KERNELS)
 
     from .models import aha
     from .train.losses import aha_loss
@@ -506,7 +514,7 @@ def profile_train(seed: int, remat: str, mode: str = "int4") -> None:
     tr.run(forward_only)
     report(f"train forward + loss alone (no graph, no dropout, B=1 T={T})", 1, "pass",
            tr.wall_ms, tr.traced_wall_ms, tr.busy_ms(), tr.kernels(), tr.aten_ops(), top=8,
-           also=("flash_",))
+           also=("flash_",) + PRODUCT_KERNELS)
 
     collated = collated_batch(cfg, tok, np.random.default_rng(seed))
     B, T = collated["input_ids"].shape
@@ -520,7 +528,7 @@ def profile_train(seed: int, remat: str, mode: str = "int4") -> None:
            f"{collated['frames'].shape[0]} frames, remat={remat}, loss {float(parts.total):.4f}, "
            f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)", 1, "step",
            tr.wall_ms, tr.traced_wall_ms, tr.busy_ms(), tr.kernels(), tr.aten_ops(), top=14,
-           also=("flash_",))
+           also=("flash_",) + PRODUCT_KERNELS)
 
 
 def main() -> int:

@@ -459,9 +459,11 @@ class Stats:
 # the kernels whose ptxas report phase 1 holds: no spill, no serialisation remark (the
 # int8 and int4 forward kernels once per operand type: bf16 x weight-only, int8 x, and
 # for the wgmma kernels an f32 x's three bf16 planes, the last template argument 3; the
-# f32-query attention kernel against a bf16 and an f32 cache)
+# warp-specialised int8 and int4 kernels at each token tile; the f32-query attention
+# kernel against a bf16 and an f32 cache)
 PTXAS_HELD = ("int8_mm_wgmma_kernel", "int8_mm_decode_kernel", "int4_mm_wgmma_kernel",
-              "int4_mm_decode_kernel", "quantize_rows_vec_kernel", "split_bf16x3_kernel",
+              "int4_mm_decode_kernel", "int8_mm_ws_kernel", "int4_mm_ws_kernel",
+              "quantize_rows_vec_kernel", "split_bf16x3_kernel",
               "decode_attention_wgmma_f32_kernel")
 PTXAS_A8 = ("int8_mm_wgmma_kernel<true", "int8_mm_decode_kernel<true", "int4_mm_wgmma_kernel<true",
             "int4_mm_decode_kernel<true")
@@ -469,8 +471,8 @@ PTXAS_X3 = ("int8_mm_wgmma_kernel<false", "int4_mm_wgmma_kernel<false")
 
 
 def check_ptxas(log: dict) -> str:
-    """What ptxas said of the int8 and int4 wgmma and decode kernels, the
-    vector quantiser, the split of f32 x into bf16 planes and the f32-query
+    """What ptxas said of the int8 and int4 wgmma, warp-specialised and decode
+    kernels, the vector quantiser, the split of f32 x into bf16 planes and the f32-query
     attention kernel, one instantiation
     after another (registers, spill bytes), in the build this process ran;
     raises on a spill, on a remark that their products are serialised, or on a
@@ -868,7 +870,7 @@ def check_matmuls(gen, stats: Stats):
          + [(*r, None, f32, 1e-4) for r in ragged8 + f32_8] + [(*edge, None, bf, 1e-2)]
          + [(*c, None, bf, 1e-2) for c in wgmma8 + old8 + decode_rows + serve_t8 + serve_h8
             + chain_h8 + cls_t + clip_tower + live_h8 + tp_t + tp_h]
-         + [(n, M, *layer[n], None, bf, 1e-2) for M in TRAIN_CLI_M for n in layer],
+         + [(n, M, *layer[n], None, bf, 1e-2) for M in (TRAIN_T, *TRAIN_CLI_M) for n in layer],
          49),
         ("int8_matmul_a8", 8, True,
          [(*c, None, bf, 2e-2) for c in cards + tower]
@@ -897,6 +899,8 @@ def check_matmuls(gen, stats: Stats):
     sums: dict = {}
     tower_sums: dict = {}
     peak_sums: dict = {}     # the f32 rows' decoder layer at the f32 peak, by entry and M
+    # the warp-specialised path's layer, projector and tower sums: kernel, replaced, library
+    ws_gate: dict = {}
     for name, bits, a8, cases, rep_m in families:
         for label, M, K, N, G, dt, tol in cases:
             wbytes = K * N * bits // 8
@@ -937,27 +941,36 @@ def check_matmuls(gen, stats: Stats):
             # f32 x weight-only from 17 rows on the wgmma kernel, as three bf16 planes
             x3 = dt == f32 and not a8 and M >= k8.WGMMA_MIN_M and label != "ragged"
             operand = k8.X_F32 if x3 else k8.X_S8 if a8 else k8.X_BF16
+            # bf16 x weight-only from WS_MIN_M rows on the warp-specialised kernel
+            ws_rows = dt == bf and not a8 and M >= k8.WS_MIN_M
+            hopper = (k8.DECODE, k8.WGMMA, k8.WGMMA_WS)
             if bits == 4:
                 pl = k4.plan(M, K, N, G, bf16=dt == bf, a8=a8, sms=sms)
                 new = x3 or (dt == bf and not label.startswith("old-path")
                              and label not in ("ragged", "ragged-tc"))
-                want = (k4.DECODE if M <= k4.DECODE_MAX_M else k4.WGMMA) if new else None
-                if pl.path != want and (new or pl.path in (k4.WGMMA, k4.DECODE)):
+                want = (k4.DECODE if M <= k4.DECODE_MAX_M else k4.WGMMA_WS if ws_rows
+                        else k4.WGMMA) if new else None
+                if pl.path != want and (new or pl.path in hopper):
                     raise AssertionError(f"{what}: path {pl.path}, expected "
                                          f"{want if new else 'an earlier path'}")
-                kernel_smem = (kernels.aha_int4_matmul_smem(pl.path, pl.tile, operand)
+                kernel_smem = (kernels.aha_quant_matmul_ws_smem(4, pl.tile)
+                               if pl.path == k4.WGMMA_WS
+                               else kernels.aha_int4_matmul_smem(pl.path, pl.tile, operand)
                                if pl.path in (k4.WGMMA, k4.DECODE) else 0)
             else:
                 pl = k8.plan(M, K, N, bf16=dt == bf, a8=a8,
                              align=(k8.align_of(x), k8.align_of(ws[0]), k8.align_of(sc)), sms=sms)
                 new = x3 or (dt == bf and label not in ("ragged", *old8_path))
-                want = (k8.DECODE if M <= k8.DECODE_MAX_M else k8.WGMMA) if new else None
+                want = (k8.DECODE if M <= k8.DECODE_MAX_M else k8.WGMMA_WS if ws_rows
+                        else k8.WGMMA) if new else None
                 if dt == bf and not a8 and label in old8_path and pl.path != old8_path[label]:
                     raise AssertionError(f"{what}: path {pl.path}, expected {old8_path[label]}")
-                if pl.path != want and (new or pl.path in (k8.WGMMA, k8.DECODE)):
+                if pl.path != want and (new or pl.path in hopper):
                     raise AssertionError(f"{what}: path {pl.path}, expected "
                                          f"{want if new else 'an earlier path'}")
-                kernel_smem = (kernels.aha_int8_matmul_wgmma_smem(pl.tile, operand)
+                kernel_smem = (kernels.aha_quant_matmul_ws_smem(8, pl.tile)
+                               if pl.path == k8.WGMMA_WS
+                               else kernels.aha_int8_matmul_wgmma_smem(pl.tile, operand)
                                if pl.path == k8.WGMMA
                                else kernels.aha_int8_matmul_decode_smem(pl.stages, int(a8))
                                if pl.path == k8.DECODE else 0)
@@ -1042,6 +1055,20 @@ def check_matmuls(gen, stats: Stats):
                 replaced = timer(launch_old)
                 note += f" replaced_path={old.path} replaced_ms={replaced:.4f}"
                 del yo
+            if pl.path == k8.WGMMA_WS:
+                # the one-warpgroup wgmma kernel that the plan chose at these rows before,
+                # launched through its explicit plan; timed from a graph as the kernel is,
+                # not counted
+                old = (k8.wgmma_plan(M, K, N, sms=sms) if bits == 8
+                       else k4.wgmma_plan(M, K, N, G, sms=sms))
+                launcher = k8.launch_plan if bits == 8 else k4.launch_plan
+                yo = torch.empty_like(y)
+                launch_old = lambda i: launcher(x, None, ws[i % copies], sc, yo, old)
+                launch_old(0)
+                rel_check(f"{what} replaced kernel", yo, ref, tol)
+                replaced = graph_ms(launch_old)
+                note += f" replaced_path={old.path} replaced_ms={replaced:.4f}"
+                del yo
             if a8 and pl.path in (k8.WGMMA, k8.DECODE):
                 # the mma.sync / CUDA-core kernel chosen before, the quantiser included as in the
                 # kernel's own time; the weight-only kernel at the same rows; the
@@ -1085,13 +1112,22 @@ def check_matmuls(gen, stats: Stats):
                 del w8
             if not a8 and dt == bf and (label in layer or label == "lm_head") and (
                     M in (rep_m, TRAIN_T) + TRAIN_CLI_M + DECODE_LIB_M + SERVE_LIB_M
-                    or (bits == 8 and M == 196)) or label in TOWER_LAYER:
+                    or (bits == 8 and M == 196)) or label in TOWER_LAYER or (
+                    pl.path == k8.WGMMA_WS):
                 # the bf16 product alone, on a weight dequantised beforehand (the tower:
                 # also what its dense bf16 form computes, timed for both entries)
                 wd = dequantized(ws[0], sc) if bits == 4 else dequantized8(ws[0], sc)
                 dense = product_only_ms(x, wd, short)
                 lib = lib if a8 else dense
                 del wd
+            if pl.path == k8.WGMMA_WS and (label in layer or label in TOWER_LAYER
+                                            or label.startswith("projector")):
+                part = ("layer" if label in layer else "tower" if label in TOWER_LAYER
+                        else "projector")
+                times = TOWER_LAYER.get(label, 1)
+                acc = ws_gate.setdefault((name, part, M), [0.0, 0.0, 0.0])
+                for i, v in enumerate((ms, replaced, lib)):
+                    acc[i] += times * v
             if label in TOWER_LAYER:
                 note += f" dense_bf16_ms={dense:.4f}"
                 acc = tower_sums.setdefault((name, M), [0.0, 0.0, 0.0, 0.0, 0.0])
@@ -1121,6 +1157,18 @@ def check_matmuls(gen, stats: Stats):
                   f"plain_ms={pms:.4f} bound_ms={bms:.4f} ({by}) library_ms="
                   f"{'none' if lib is None else f'{lib:.4f}'}", flush=True)
             del ws
+    # the plan sends a row count to the warp-specialised kernel only where it was faster
+    # than the one-warpgroup wgmma kernel it replaced, in this call
+    slower = []
+    for (name, part, M), (ms, old, lib) in sorted(ws_gate.items()):
+        print(f"phase2 ws {name} {part} M={M}: kernel_ms={ms:.4f} replaced_ms={old:.4f} "
+              f"library_ms={lib:.4f} ({ms / old:.3f}x the replaced kernel, {ms / lib:.3f}x the "
+              f"library)", flush=True)
+        if not ms < old:
+            slower.append((name, part, M))
+    if slower:
+        raise AssertionError(f"the warp-specialised kernel is not faster than the kernel it "
+                             f"replaced at {slower}")
     for (name, M), (ms, bms, lib, dense, pms) in sorted(tower_sums.items()):
         print(f"phase2 sum {name} tower layer (q, k, v, out, fc1, fc2) M={M}: kernel_ms="
               f"{ms:.4f} bound_ms={bms:.4f} plain_ms={pms:.4f} library_ms={lib:.4f} "
@@ -4797,8 +4845,9 @@ def phase10e(gpu: str, seed: int, stats: Stats):
 
 # 11a: MultiStreamServer(batch=8) over 8 requests at data 1 x model 2 (model 4 where the
 # host has 4 cards: 7 q / 1 kv head a rank), the sum rule at P11_SUM on every request, a
-# query at t = 0 and on every third request one mid-stream
-P11_LENGTHS = (16, 24, 32, 16, 24, 32, 16, 24)
+# query at t = 0 and on every third request one mid-stream; 120 frames: the ranks' run
+# is the longest wait of the script (63 s on an H100 at 184 frames)
+P11_LENGTHS = (8, 16, 24, 8, 16, 24, 8, 16)
 P11_STREAM = 48
 P11_SUM = 8.0
 # 11b: the decoder cut to 4 of its 28 layers, full width; a batch of 2 rows of 16 frames

@@ -72,7 +72,10 @@ def _rows():
 
 @pytest.mark.parametrize("M", _rows())
 def test_forward_plan_of_every_path_shape(M):
-    """bf16, G 128, aligned: from 14 rows on the wgmma kernel, with a token tile
+    """bf16, G 128, aligned: 1 to 16 rows on the decode kernel, from WS_MIN_M
+    rows (171, 196, 220, 392, training's 926, 1,568) on the warp-specialised
+    kernel (``test_ws_plan_of_every_7b_shape`` holds its plans), in between on
+    the wgmma kernel, with a token tile
     that is a multiple of 8, at most 80 (two accumulator sets) and so at most
     the 256 a warpgroup product takes, tiles that cover M once, whole groups a
     split, and a ring that fits a block's shared memory twice on an SM."""
@@ -82,7 +85,10 @@ def test_forward_plan_of_every_path_shape(M):
             assert pl == k4.plan(1, K, N, 128, bf16=True), (M, K, N)
             assert pl.path == k4.DECODE, (M, K, N)
             continue
-        assert pl.path == k4.WGMMA, (M, K, N)
+        if M >= k4.WS_MIN_M:
+            assert pl.path == k4.WGMMA_WS and pl == k4.ws_plan(M, K, N, 128, 132), (M, K, N)
+            continue
+        assert pl.path == k4.WGMMA and pl == k4.wgmma_plan(M, K, N, 128), (M, K, N)
         assert pl.tile % 8 == 0 and 8 <= pl.tile <= k4.WGMMA_TILE_CAP <= 256
         assert (pl.tiles - 1) * pl.tile < M <= pl.tiles * pl.tile
         assert pl.stages >= 3
@@ -222,6 +228,147 @@ def test_forward_rows_are_relabelled_not_moved():
             first = 4 * (8 * w + gid)
             assert [k4.fwd_row_to_column(r) for r in rows] == [first, first + 1, first + 2,
                                                                first + 3]
+
+
+# ---- the warp-specialised kernel (bf16 x weight-only from WS_MIN_M rows) ----------------
+
+def _ws_shapes():
+    """(M, K, N) of every int4 product the paths hand the warp-specialised
+    kernel: the layer at the prompt's 171 rows, a fused pass's 196 and 220, B
+    8's frame step (392) and fused pass (1,568), training's 926, 1,024 and
+    2,048; the projector at 392 and 1,568."""
+    smoke = _smoke()
+    out = [(M, K, N) for M in (171, 196, 220, 392, 926, 1024, 1568, 2048)
+           for _, K, N in smoke.LAYER]
+    return out + [(M, K, N) for M in (392, 1568) for K, N in PROJECTOR]
+
+
+@pytest.mark.parametrize("M,K,N", _ws_shapes())
+def test_ws_plan_of_every_7b_shape(M, K, N):
+    """From WS_MIN_M rows, G 128: the warp-specialised kernel at a token tile of
+    64 .. 160 rows (a multiple of 16: the group's sums and the totals take T
+    registers), tiles that cover M once, K split into whole groups with none
+    empty, a ring of 3 .. 6 slots of 6 KB of raw bytes and scales beside the x
+    tile that fits a block's 227 KB with its barriers, the launch of least
+    estimated time."""
+    pl = k4.plan(M, K, N, 128, bf16=True)
+    assert pl.path == k4.WGMMA_WS and M >= k4.WS_MIN_M
+    assert pl.tile in k4.WS_TILES and pl.tile % 16 == 0 and 64 <= pl.tile <= 160
+    assert (pl.tiles - 1) * pl.tile < M <= pl.tiles * pl.tile
+    groups = K // 128
+    per = -(-groups // pl.splits)
+    assert 1 <= pl.splits <= min(16, groups) and per * (pl.splits - 1) < groups
+    assert (pl.stages, pl.smem_bytes) == k4.ws_ring(pl.tile, 4)
+    assert 3 <= pl.stages <= 6
+    assert pl.smem_bytes == pl.stages * (pl.tile * 128 + 6144) + 1024
+    assert pl.smem_bytes + 2 * 6 * 8 <= SMEM
+    assert (pl.tile, pl.tiles, pl.splits) == k4.ws_launch(M, K // 64, N, 132, k4.WS_TILES, 2)
+
+
+@pytest.mark.parametrize("M,K,N,G,kw,path", [
+    (k4.WS_MIN_M - 1, 3584, 4608, 128, dict(bf16=True), WGMMA),       # below the threshold
+    (k4.WS_MIN_M, 3584, 4608, 128, dict(bf16=True), k4.WGMMA_WS),     # the threshold
+    (k4.WS_MIN_M, 3584, 4608, 64, dict(bf16=True), k4.WGMMA_WS),      # G 64
+    (k4.WS_MIN_M, 3584, 4608, 128, dict(bf16=True, a8=True), WGMMA),  # int8 x
+    (k4.WS_MIN_M, 3584, 4608, 128, dict(bf16=False), WGMMA),          # f32 x: three planes
+    (k4.WS_MIN_M, 320, 136, 64, dict(bf16=True), TENSOR_CORE),        # N not a multiple of 16
+    (k4.WS_MIN_M, 320, 256, 32, dict(bf16=True), TENSOR_CORE),        # G 32
+])
+def test_ws_threshold(M, K, N, G, kw, path):
+    """bf16 x weight-only takes the warp-specialised kernel from WS_MIN_M rows
+    under the Hopper paths' conditions; below it, with int8 or f32 x, and for
+    shapes those paths do not take, the plan is the one it was."""
+    assert k4.plan(M, K, N, G, **kw).path == path
+
+
+def _ws_pair(v: int, sel: int) -> tuple[int, int]:
+    """The warp-specialised consumer's two columns of one packed word, as in
+    csrc/quant_matmul_ws.cu: low and high nibbles beside 0x43 by the byte
+    selector, less the bf16 pair (136, 136), sorted by column: (column 0's
+    pair, column 1's pair) as 32-bit words."""
+    lo, hi = v & 0x0F0F0F0F, (v >> 4) & 0x0F0F0F0F
+
+    def minus_136(word):
+        halves = np.array([word & 0xFFFF, word >> 16], dtype=np.uint32) << 16
+        vals = halves.view(np.float32) - np.float32(136.0)
+        bits = (vals.view(np.uint32) >> 16).astype(np.uint32)
+        assert np.array_equal((bits << 16).view(np.float32), vals)   # exact in bf16
+        return int(bits[0]) | (int(bits[1]) << 16)
+
+    even = minus_136(_byte_perm(lo, 0x43434343, sel))
+    odd = minus_136(_byte_perm(hi, 0x43434343, sel))
+    return _byte_perm(even, odd, 0x5410), _byte_perm(even, odd, 0x7632)
+
+
+def _bf16_pair(word: int) -> tuple[float, float]:
+    halves = np.array([word & 0xFFFF, word >> 16], dtype=np.uint32) << 16
+    return tuple(float(h) for h in halves.view(np.float32))
+
+
+def test_ws_operand_registers_are_the_weight_piece():
+    """A stage's packed rows as the producer's 16-byte copies lay them (thread
+    t, copy i: row (t + 128 i) // 8, chunk (t + 128 i) % 8, rows 160 bytes
+    apart); consumer c's thread reads packed rows tig + 4 q at column word 8 w +
+    gid and unpacks bytes 2 c and 2 c + 1: the registers of each piece hold, at
+    wgmma's positions, the unpacked values of columns ws_column(c, w, gid) and
+    the next at K rows 16 p + 2 tig (+ 8) and the next; every value of the
+    stage once. Each of a warp's word reads meets 32 banks."""
+    rng = np.random.default_rng(9)
+    stage = rng.permutation(np.resize(np.arange(256, dtype=np.uint8), 32 * 128)).reshape(32, 128)
+    w = k4.unpack_int4(torch.from_numpy(stage)).numpy()          # [64, 128]
+    raw = np.zeros(32 * 160, dtype=np.uint8)
+    for t in range(128):
+        for i in range(2):
+            idx = t + 128 * i
+            row, chunk = idx // 8, idx % 8
+            raw[row * 160 + 16 * chunk:row * 160 + 16 * chunk + 16] = \
+                stage[row, 16 * chunk:16 * chunk + 16]
+    seen = np.zeros_like(w, dtype=bool)
+    for c in range(2):
+        sel = 0x4342 if c else 0x4140
+        for warp in range(4):
+            for q in range(8):
+                banks = {((tig + 4 * q) * 160 + 4 * (8 * warp + gid)) // 4 % 32
+                         for gid in range(8) for tig in range(4)}
+                assert len(banks) == 32
+            for gid in range(8):
+                for tig in range(4):
+                    for q in range(8):
+                        off = (tig + 4 * q) * 160 + 4 * (8 * warp + gid)
+                        word = int(raw[off:off + 4].view(np.uint32)[0])
+                        k = 2 * (tig + 4 * q)      # = 16 p + 2 tig + 8 (q % 2), p = q // 2
+                        for e, reg in enumerate(_ws_pair(word, sel)):
+                            col = k4.ws_column(c, warp, gid) + e
+                            assert _bf16_pair(reg) == (w[k, col], w[k + 1, col])
+                            seen[k:k + 2, col] = True
+    assert seen.all()
+
+
+@pytest.mark.parametrize("splits", ["plan", 1, 3])
+def test_ws_order_of_sums(splits):
+    """The warp-specialised kernel adds as the decode kernel does: a split's
+    whole groups in order, a group's 16-deep pieces into its f32 sum, the sum
+    times its scale into the split's total by one fused multiply-add, the
+    splits in order, one cast (``decode_forward_emulated``), here at the splits
+    its plan gives 232 rows of a narrow product (and at 1 and 3): within the
+    card's 1e-2 of the largest value of JAX's kernel in interpret mode and one
+    bf16 step of the plain version."""
+    rng = np.random.default_rng(29)
+    M, K, N, G = 232, 768, 256, 128
+    pl = k4.plan(M, K, N, G, bf16=True)
+    assert pl.path == k4.WGMMA_WS
+    n = pl.splits if splits == "plan" else splits
+    w = (rng.standard_normal((K, N)) * 0.02).astype(np.float32)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    q4 = quantize_array_int4(jnp.asarray(w), 0, group=G)
+    ref = np.asarray(j_int4_matmul(jnp.asarray(x).astype(jnp.bfloat16), q4["q4value"],
+                                   q4["scale4"], interpret=True).astype(jnp.float32))
+    xt = _t(x).to(torch.bfloat16)
+    q, s = _t(q4["q4value"]), _t(q4["scale4"])
+    out = decode_forward_emulated(xt, q, s, n).float().numpy()
+    plain = k4.int4_matmul_plain(xt, q, s).float().numpy()
+    assert np.abs(out - ref).max() <= 1e-2 * np.abs(ref).max()
+    assert np.abs(out - plain).max() <= np.abs(plain).max() * 2.0 ** -8
 
 
 def wgmma_forward_emulated(x, q4value, scale4):
@@ -560,7 +707,10 @@ def test_a8_plan_of_every_7b_shape(M):
     and a six-slot ring of 64-byte x rows that fits two blocks an SM."""
     for K, N in _a8_shapes(M):
         pl = k4.plan(M, K, N, 128, bf16=True, a8=True)
-        w4 = k4.plan(M, K, N, 128, bf16=True)
+        # weight-only's plan on the same kernels (from WS_MIN_M rows weight-only
+        # takes the warp-specialised kernel; int8 x stays on wgmma)
+        w4 = (k4.plan(M, K, N, 128, bf16=True) if M <= k4.DECODE_MAX_M
+              else k4.wgmma_plan(M, K, N, 128))
         if M <= k4.DECODE_MAX_M:
             assert pl.path == k4.DECODE and pl == k4.plan(1, K, N, 128, bf16=True, a8=True)
             # the weight-only plan's splits, but gate_up's grid (half a round to a round)

@@ -69,17 +69,23 @@ def _shapes(M):
 @pytest.mark.parametrize("M", sorted({*_smoke().PATH_M, 5, 9, 392, 1568}))
 def test_plan_of_every_path_shape(M):
     """bf16, weight-only, aligned: 1 to 16 rows (a token, a verify pass, the
-    generation prompt) on the decode kernel with the plan of 16 rows, every
-    larger row count on the wgmma kernel, with a token tile that is a multiple
-    of 8 and at most the cap, tiles that cover M once, a ring of at least three
-    slots that fits as many blocks as an SM holds, and K splits that keep a small
-    grid in one round of resident blocks (8 stages a split at least)."""
+    generation prompt) on the decode kernel with the plan of 16 rows, from
+    WS_MIN_M rows (the prompt's 171, a fused pass's 196 and 220, B 8's 392 and
+    1,568) on the warp-specialised kernel (``test_ws_plan_of_every_7b_shape``
+    holds its plans), every other row count on the wgmma kernel, with a token
+    tile that is a multiple of 8 and at most the cap, tiles that cover M once, a
+    ring of at least three slots that fits as many blocks as an SM holds, and K
+    splits that keep a small grid in one round of resident blocks (8 stages a
+    split at least)."""
     for K, N in _shapes(M):
         pl = k8.plan(M, K, N, bf16=True)
         if M <= k8.DECODE_MAX_M:
             assert pl.path == DECODE and pl == k8.plan(16, K, N, bf16=True), (M, K, N)
             continue
-        assert pl.path == WGMMA, (M, K, N)
+        if M >= k8.WS_MIN_M:
+            assert pl.path == k8.WGMMA_WS and pl == k8.ws_plan(M, K, N, 132), (M, K, N)
+            continue
+        assert pl.path == WGMMA and pl == k8.wgmma_plan(M, K, N), (M, K, N)
         assert pl.tile % 8 == 0 and 8 <= pl.tile <= k8.WGMMA_TILE_CAP <= 128
         assert (pl.tiles - 1) * pl.tile < M <= pl.tiles * pl.tile
         assert pl.stages >= 3
@@ -203,6 +209,143 @@ def test_rows_are_relabelled_not_moved():
             first = 4 * (8 * w + gid)
             assert [k8.fwd_row_to_column(r) for r in rows] == [first, first + 1, first + 2,
                                                                first + 3]
+
+
+# ---- the warp-specialised kernel (bf16 x weight-only from WS_MIN_M rows) ----------------
+
+def _ws_shapes():
+    """(M, K, N) of every int8 product the paths hand the warp-specialised
+    kernel: the layer at the prompt's 171 rows, a fused pass's 196 and 220, B
+    8's frame step (392) and fused pass (1,568), training's 926, 1,024 and
+    2,048; the projector at 392 and 1,568; the int8 tower at a frame (576) and
+    a vision batch (18,432)."""
+    smoke = _smoke()
+    out = [(M, K, N) for M in (171, 196, 220, 392, 926, 1024, 1568, 2048)
+           for _, K, N in smoke.LAYER]
+    out += [(M, K, N) for M in (392, 1568) for K, N in PROJECTOR]
+    return out + [(M, K, N) for M in smoke.TOWER_M for _, K, N in smoke.TOWER]
+
+
+@pytest.mark.parametrize("M,K,N", _ws_shapes())
+def test_ws_plan_of_every_7b_shape(M, K, N):
+    """From WS_MIN_M rows: the warp-specialised kernel at a token tile of 96 ..
+    256 rows (a multiple of 16), tiles that cover M once, K split into whole
+    64-row stages with none empty (16 splits at most), a ring of 3 .. 6 slots
+    whose bytes the kernel counts alike and that fits a block's 227 KB beside
+    its barriers, the launch of least estimated time (``ws_launch``)."""
+    pl = k8.plan(M, K, N, bf16=True)
+    assert pl.path == k8.WGMMA_WS and M >= k8.WS_MIN_M
+    assert pl.tile in k8.WS_TILES and pl.tile % 16 == 0 and 96 <= pl.tile <= 256
+    assert (pl.tiles - 1) * pl.tile < M <= pl.tiles * pl.tile
+    stages = K // 64
+    per = -(-stages // pl.splits)
+    assert 1 <= pl.splits <= min(16, stages) and per * (pl.splits - 1) < stages
+    assert (pl.stages, pl.smem_bytes) == k8.ws_ring(pl.tile, 8)
+    assert 3 <= pl.stages <= 6
+    assert pl.smem_bytes == pl.stages * (pl.tile * 128 + 64 * 144) + 1024
+    assert pl.smem_bytes + 2 * 6 * 8 <= SMEM   # the ring, its alignment and the barriers
+    assert (pl.tile, pl.tiles, pl.splits) == k8.ws_launch(M, stages, N, 132, k8.WS_TILES)
+
+
+@pytest.mark.parametrize("M,K,N,kw,path", [
+    (k8.WS_MIN_M - 1, 3584, 4608, dict(bf16=True), WGMMA),           # below the threshold
+    (k8.WS_MIN_M, 3584, 4608, dict(bf16=True), k8.WGMMA_WS),         # the threshold
+    (k8.WS_MIN_M, 3584, 4608, dict(bf16=True, a8=True), WGMMA),      # int8 x
+    (k8.WS_MIN_M, 3584, 4608, dict(bf16=False), WGMMA),              # f32 x: three planes
+    (k8.WS_MIN_M, 3584, 4608, dict(bf16=True, align=(2, 16, 16)), VEC16),   # x 2 bytes off
+    (k8.WS_MIN_M, 320, 136, dict(bf16=True), TENSOR_CORE),           # N not a multiple of 16
+    (k8.WS_MIN_M, 352, 256, dict(bf16=True), TENSOR_CORE),           # K not a multiple of 64
+    (49, 3584, 4608, dict(bf16=True), WGMMA),                        # the frame chunk
+])
+def test_ws_threshold(M, K, N, kw, path):
+    """bf16 x weight-only takes the warp-specialised kernel from WS_MIN_M rows
+    under the Hopper paths' conditions; below it, with int8 or f32 x, and for
+    shapes or addresses those paths do not take, the plan is the one it was."""
+    assert k8.plan(M, K, N, **kw).path == path
+
+
+def test_ws_rows_are_relabelled_not_moved():
+    """Consumer c of the warp-specialised kernel converts slab c: its thread's
+    accumulator rows gid and gid + 8 of warp w are weight columns
+    ws_column(c, w, gid) and the next, fwd_row_to_column of rows 64 c + 16 w +
+    gid (+ 8); both consumers together hold the block's 128 columns once."""
+    cols = []
+    for c in range(2):
+        for w in range(4):
+            for gid in range(8):
+                n = k8.ws_column(c, w, gid)
+                assert n % 2 == 0
+                for e in range(2):
+                    assert k8.fwd_row_to_column(64 * c + 16 * w + gid + 8 * e) == n + e
+                    cols.append(n + e)
+    assert sorted(cols) == list(range(128))
+
+
+def test_ws_operand_registers_are_the_weight_piece():
+    """A stage's raw rows as the producer's 16-byte copies lay them (thread t,
+    copy i: row (t + 128 i) // 8, chunk (t + 128 i) % 8, rows 144 bytes apart);
+    consumer c's thread reads the words of rows 16 p + 2 tig + (0, 1, 8, 9) at
+    column word 8 w + gid and builds each piece's four registers with pair_bf16
+    at bytes 2 c and 2 c + 1: at wgmma's register positions they hold its
+    relabelled rows' weight values. Each of a warp's word reads meets 32 banks,
+    and a quarter-warp's copies are eight distinct 16-byte places of one row."""
+    rng = np.random.default_rng(13)
+    stage = rng.integers(-128, 128, (64, 128)).astype(np.int8)
+    raw = np.zeros(64 * 144, dtype=np.uint8)
+    for t in range(128):
+        for i in range(4):
+            idx = t + 128 * i
+            row, chunk = idx // 8, idx % 8
+            raw[row * 144 + 16 * chunk:row * 144 + 16 * chunk + 16] = \
+                stage[row, 16 * chunk:16 * chunk + 16].view(np.uint8)
+    for i in range(4):
+        for q in range(16):
+            idx = [8 * q + t + 128 * i for t in range(8)]
+            assert len({j // 8 for j in idx}) == 1 and len({j % 8 for j in idx}) == 8
+    for c in range(2):
+        for warp in range(4):
+            for p in range(4):
+                for d in (0, 1, 8, 9):
+                    banks = {((16 * p + 2 * tig + d) * 144 + 4 * (8 * warp + gid)) // 4 % 32
+                             for gid in range(8) for tig in range(4)}
+                    assert len(banks) == 32
+            for gid in range(8):
+                for tig in range(4):
+                    off = 2 * tig * 144 + 4 * (8 * warp + gid)
+                    for p in range(4):
+                        wq = [int(raw[off + (16 * p + d) * 144:off + (16 * p + d) * 144 + 4]
+                                  .view(np.uint32)[0]) for d in (0, 1, 8, 9)]
+                        regs = [_pair_bf16(wq[0], wq[1], 2 * c), _pair_bf16(wq[0], wq[1], 2 * c + 1),
+                                _pair_bf16(wq[2], wq[3], 2 * c), _pair_bf16(wq[2], wq[3], 2 * c + 1)]
+                        for i, (e, k_off) in enumerate(((0, 0), (1, 0), (0, 8), (1, 8))):
+                            col = k8.ws_column(c, warp, gid) + e
+                            k = 16 * p + 2 * tig + k_off
+                            assert regs[i] == (float(stage[k, col]), float(stage[k + 1, col]))
+
+
+@pytest.mark.parametrize("splits", ["plan", 1, 3])
+def test_ws_order_of_sums(splits):
+    """The warp-specialised kernel adds as the wgmma kernel does (16-deep pieces
+    in f32 over a split's whole stages, splits in order, the scale once, one
+    cast): ``wgmma_emulated`` at the splits its plan gives 232 rows of a narrow
+    product (and at 1 and 3), within the card's 1e-2 of the largest value of
+    JAX's kernel in interpret mode and one bf16 step of the plain version."""
+    rng = np.random.default_rng(23)
+    M, K, N = 232, 512, 256
+    pl = k8.plan(M, K, N, bf16=True)
+    assert pl.path == k8.WGMMA_WS
+    n = pl.splits if splits == "plan" else splits
+    w = (rng.standard_normal((K, N)) * 0.02).astype(np.float32)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    q = quantize_array(jnp.asarray(w), 0)
+    ref = np.asarray(j_int8_matmul(jnp.asarray(x).astype(jnp.bfloat16), q["qvalue"], q["scale"],
+                                   interpret=True).astype(jnp.float32))
+    xt = _t(x).to(torch.bfloat16)
+    qv, s = _t(q["qvalue"]), _t(q["scale"])
+    out = wgmma_emulated(xt, qv, s, n).float().numpy()
+    plain = k8.int8_matmul_plain(xt, qv, s).float().numpy()
+    assert np.abs(out - ref).max() <= 1e-2 * np.abs(ref).max()
+    assert np.abs(out - plain).max() <= np.abs(plain).max() * 2.0 ** -8
 
 
 def _bf16_value(bits: np.ndarray) -> np.ndarray:
@@ -618,10 +761,13 @@ def test_a8_plan_of_every_path_shape(M):
     rows on the wgmma kernel with a token tile among the widths the s8 product
     takes, tiles that cover M once, a ring of at least three slots of 64-byte x
     rows and 128-byte weight rows that fits the blocks an SM holds, and the
-    weight-only plan's rule for K splits."""
+    weight-only wgmma plan's rule for K splits (at every row count: int8 x
+    does not take the warp-specialised kernel)."""
     for K, N in _a8_shapes(M):
         pl = k8.plan(M, K, N, bf16=True, a8=True)
-        w8 = k8.plan(M, K, N, bf16=True)
+        # weight-only's plan on the same kernels (from WS_MIN_M rows weight-only
+        # takes the warp-specialised kernel; int8 x stays on wgmma)
+        w8 = k8.plan(M, K, N, bf16=True) if M <= k8.DECODE_MAX_M else k8.wgmma_plan(M, K, N)
         if M <= k8.DECODE_MAX_M:
             assert pl.path == DECODE and pl == k8.plan(16, K, N, bf16=True, a8=True), (M, K, N)
             assert pl.splits == w8.splits and (pl.tile, pl.tiles) == (16, 1)
