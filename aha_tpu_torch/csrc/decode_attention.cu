@@ -36,9 +36,24 @@
 // on the f32 one, with at least 3 slot tiles a split on the tensor cores; one
 // split, and no merge, where the row tiles fill the round; a token: 65 splits
 // of 32 slots, 260 blocks) and allocates the scratch, whose size comes from
-// aha_decode_attention_scratch_bytes. One C call launches what a path needs;
+// aha_decode_attention_steps_scratch_bytes. One C call launches what a path needs;
 // splits start on slot-tile boundaries, and the ragged end of the 2049-slot
 // cache is masked in the kernels, not padded.
+//
+// The verify pass's form (aha_decode_attention_steps): the rows of n composed
+// steps of S rows each (a fused pass: 4 frames of 49 rows; speculative generation:
+// 4 or 8 tokens) in one launch, read-only. Step j's rows attend as its write pass
+// would: its own rotation tables, order and g, and the cache with the in-flight
+// rows of the steps up to j at their slots, as the write passes would have stored
+// them (src [n, B, Wp]: the in-flight row a slot holds in step j, -1 for the
+// cache's own; the rows come in the cache's type, rounded as a write rounds
+// them). The steps sit side by side on the grid's third axis, each with the
+// write pass's plan of S rows (path, slot tiles, splits) and merged in its order,
+// so that each row gets its write pass's bits. Where keys are rotated into
+// scratch, each step has its own rotated copy (the rotation reads each slot from
+// its source); values that are read as they lie (a bf16 cache) come slot by slot
+// from the cache or the in-flight rows, by cp.async from either address. A write
+// pass is one step with no in-flight rows.
 //
 // Three paths:
 //
@@ -107,9 +122,18 @@ namespace {
 
 enum Path { kCudaCores = 0, kWgmma = 1, kWgmmaF32 = 2 };
 
+// The composed steps of a verify pass; a write pass is one step with src nullptr.
+struct Steps {
+  const int* src;   // [n, B, Wp]: the in-flight row slot w of row b holds in step j, or -1
+  const void* ki;   // in-flight keys (pre-rotated) and values [B, N, KVH, Dh], the cache's type
+  const void* vi;
+  int N;            // rows of q, g and out a batch row: n x S
+  int BK;           // B * KVH: the blocks of one step along the grid's third axis
+};
+
 // ---- merge: the splits of each row, in split order ----------------------------------
 //
-// part_o [B * KVH][splits][M][Dh] f32, part_ml [B * KVH][splits][M][2] (m, l);
+// part_o [n * B * KVH][splits][M][Dh] f32, part_ml [n * B * KVH][splits][M][2] (m, l);
 // m is the running maximum of the scaled scores, in log2 units when log2dom
 // (the tensor-core kernel's), natural ones otherwise. One warp a row, a lane V
 // neighbouring dims: the lanes read the splits' maxima and weights side by
@@ -137,14 +161,15 @@ template <typename QT, int DH>
 __global__ void __launch_bounds__(128)
 decode_merge_kernel(const float* __restrict__ part_o, const float* __restrict__ part_ml,
                     QT* __restrict__ out, int rows, int M, int S, int NH, int KVH, int splits,
-                    int log2dom) {
+                    int log2dom, int N, int BK) {
   constexpr int V = DH >= 128 ? 4 : (DH >= 64 ? 2 : 1);   // dims a lane owns
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r = blockIdx.x * 4 + warp;
   if (r >= rows) return;
   const bool owner = lane * V < DH;
-  const int bk = r / M, R = r % M, b = bk / KVH, kvh = bk % KVH;
-  const size_t base = static_cast<size_t>(bk) * splits * M + R;   // split i: base + i * M
+  // z: (step, batch row, kv head), as the attention blocks' third axis
+  const int z = r / M, R = r % M, jstep = z / BK, bk = z - jstep * BK, b = bk / KVH, kvh = bk % KVH;
+  const size_t base = static_cast<size_t>(z) * splits * M + R;   // split i: base + i * M
   float mx = -INFINITY;
 #pragma unroll 4
   for (int i = lane; i < splits; i += 32) mx = fmaxf(mx, part_ml[2 * (base + static_cast<size_t>(i) * M)]);
@@ -179,21 +204,21 @@ decode_merge_kernel(const float* __restrict__ part_o, const float* __restrict__ 
   if (!owner) return;
   const float inv = 1.f / fmaxf(l, 1e-30f);
   const int n_rep = NH / KVH, rep = R / S, s = R % S;
-  QT* o = out + ((static_cast<size_t>(b) * S + s) * NH + kvh * n_rep + rep) * DH + lane * V;
+  QT* o = out + ((static_cast<size_t>(b) * N + jstep * S + s) * NH + kvh * n_rep + rep) * DH + lane * V;
 #pragma unroll
   for (int e = 0; e < V; ++e) o[e] = from_f32<QT>(acc[e] * inv);
 }
 
 template <typename QT>
 cudaError_t launch_merge(const float* part_o, const float* part_ml, QT* out, int B, int S, int NH,
-                         int KVH, int Dh, int splits, bool log2dom, cudaStream_t st) {
-  const int M = (NH / KVH) * S, rows = B * KVH * M;
+                         int KVH, int Dh, int splits, bool log2dom, int steps, cudaStream_t st) {
+  const int M = (NH / KVH) * S, rows = steps * B * KVH * M, N = steps * S, BK = B * KVH;
   const int blocks = (rows + 3) / 4;
   switch (Dh) {
-    case 16: decode_merge_kernel<QT, 16><<<blocks, 128, 0, st>>>(part_o, part_ml, out, rows, M, S, NH, KVH, splits, log2dom); break;
-    case 32: decode_merge_kernel<QT, 32><<<blocks, 128, 0, st>>>(part_o, part_ml, out, rows, M, S, NH, KVH, splits, log2dom); break;
-    case 64: decode_merge_kernel<QT, 64><<<blocks, 128, 0, st>>>(part_o, part_ml, out, rows, M, S, NH, KVH, splits, log2dom); break;
-    case 128: decode_merge_kernel<QT, 128><<<blocks, 128, 0, st>>>(part_o, part_ml, out, rows, M, S, NH, KVH, splits, log2dom); break;
+    case 16: decode_merge_kernel<QT, 16><<<blocks, 128, 0, st>>>(part_o, part_ml, out, rows, M, S, NH, KVH, splits, log2dom, N, BK); break;
+    case 32: decode_merge_kernel<QT, 32><<<blocks, 128, 0, st>>>(part_o, part_ml, out, rows, M, S, NH, KVH, splits, log2dom, N, BK); break;
+    case 64: decode_merge_kernel<QT, 64><<<blocks, 128, 0, st>>>(part_o, part_ml, out, rows, M, S, NH, KVH, splits, log2dom, N, BK); break;
+    case 128: decode_merge_kernel<QT, 128><<<blocks, 128, 0, st>>>(part_o, part_ml, out, rows, M, S, NH, KVH, splits, log2dom, N, BK); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
@@ -207,7 +232,7 @@ constexpr int kRows = kWarps * kRowsPerWarp;  // query rows per block
 constexpr int kBW = 32;                        // cache slots per tile
 constexpr int kThreads = kWarps * 32;
 
-// grid (splits, row tiles, B * KVH); the split owns slots [split * span, min(Wp, + span))
+// grid (splits, row tiles, n * B * KVH); the split owns slots [split * span, min(Wp, + span))
 template <typename QT, typename KT, int DH>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ kc,
@@ -216,11 +241,21 @@ decode_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ kc,
                         const int* __restrict__ g, const float* __restrict__ ksc,
                         const float* __restrict__ vsc, QT* __restrict__ out,
                         float* __restrict__ part_o, float* __restrict__ part_ml, int S, int NH,
-                        int KVH, int Wp, int span, float scale) {
+                        int KVH, int Wp, int span, float scale, Steps st) {
   constexpr int DPL = (DH + 31) / 32;  // output dims per lane
   constexpr int HALF = DH / 2;
-  const int split = blockIdx.x, tile = blockIdx.y, bk = blockIdx.z;
+  const int split = blockIdx.x, tile = blockIdx.y, z = blockIdx.z;
+  const int jstep = z / st.BK, bk = z - jstep * st.BK;   // step, (batch row, kv head)
   const int b = bk / KVH, kvh = bk % KVH;
+  // the step's tables; its rows of q, g and out start at row qrow of the batch row
+  const size_t tab = static_cast<size_t>(jstep) * (st.BK / KVH) * Wp;
+  cosb += tab * DH;
+  sinb += tab * DH;
+  order += tab;
+  const int* src = st.src != nullptr ? st.src + tab : nullptr;
+  const KT* ki = static_cast<const KT*>(st.ki);
+  const KT* vi = static_cast<const KT*>(st.vi);
+  const int qrow = b * st.N + jstep * S;
   const int n_rep = NH / KVH;
   const int M = n_rep * S;
   const int w_begin = split * span, w_end = min(Wp, w_begin + span);
@@ -245,7 +280,7 @@ decode_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ kc,
       float val[4] = {0.f, 0.f, 0.f, 0.f};
       if (R < M) {
         const int rep = R / S, s = R % S;
-        load4(q + ((static_cast<size_t>(b) * S + s) * NH + kvh * n_rep + rep) * DH + d, val);
+        load4(q + ((static_cast<size_t>(qrow) + s) * NH + kvh * n_rep + rep) * DH + d, val);
       }
       *reinterpret_cast<float4*>(&q_s[r][d]) = make_float4(val[0], val[1], val[2], val[3]);
     }
@@ -253,7 +288,7 @@ decode_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ kc,
   if (threadIdx.x < kRows) {
     const int R = tile * kRows + threadIdx.x;
     // rows past M see no slot (order <= -2 never holds for order >= 0)
-    g_s[threadIdx.x] = R < M ? g[b * S + R % S] : -2;
+    g_s[threadIdx.x] = R < M ? g[qrow + R % S] : -2;
   }
 
   float m_i[kRowsPerWarp], l_i[kRowsPerWarp], acc[kRowsPerWarp][DPL];
@@ -279,12 +314,22 @@ decode_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ kc,
       if (slot < w_end) {
         const size_t base = ((static_cast<size_t>(b) * Wp + slot) * KVH + kvh) * DH;
         const size_t tb = (static_cast<size_t>(b) * Wp + slot) * DH;
+        const KT* kp = kc + base;
+        const KT* vp = vc + base;
+        if (src != nullptr) {   // the slot as the step's write pass left it
+          const int r = src[static_cast<size_t>(b) * Wp + slot];
+          if (r >= 0) {
+            const size_t ib = ((static_cast<size_t>(b) * st.N + r) * KVH + kvh) * DH;
+            kp = ki + ib;
+            vp = vi + ib;
+          }
+        }
         float x[4], xp[4], cs[4], sn[4];
-        load4(kc + base + d, x);
-        load4(kc + base + (d < HALF ? d + HALF : d - HALF), xp);
+        load4(kp + d, x);
+        load4(kp + (d < HALF ? d + HALF : d - HALF), xp);
         load4(cosb + tb + d, cs);
         load4(sinb + tb + d, sn);
-        load4(vc + base + d, vv);
+        load4(vp + d, vv);
         // rotate-half: the first half takes -x2 * sin, the second +x1 * sin
         const float sg = d < HALF ? -1.f : 1.f;
 #pragma unroll
@@ -363,7 +408,7 @@ decode_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ kc,
     const int R = tile * kRows + row0 + rr;
     if (R >= M) continue;
     if (part_o != nullptr) {   // one split of several: the partial state, unnormalised
-      const size_t p = (static_cast<size_t>(bk) * gridDim.x + split) * M + R;
+      const size_t p = (static_cast<size_t>(z) * gridDim.x + split) * M + R;
 #pragma unroll
       for (int dd = 0; dd < DPL; ++dd) {
         const int d = lane + 32 * dd;
@@ -377,7 +422,7 @@ decode_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ kc,
     }
     const int rep = R / S, s = R % S;
     const float inv = 1.f / fmaxf(l_i[rr], 1e-30f);
-    QT* o = out + ((static_cast<size_t>(b) * S + s) * NH + kvh * n_rep + rep) * DH;
+    QT* o = out + ((static_cast<size_t>(qrow) + s) * NH + kvh * n_rep + rep) * DH;
 #pragma unroll
     for (int dd = 0; dd < DPL; ++dd) {
       const int d = lane + 32 * dd;
@@ -391,15 +436,15 @@ cudaError_t launch_cuda_cores(const void* q, const void* k, const void* v, const
                               const void* sn, const void* order, const void* g, const void* ks,
                               const void* vs, void* out, float* part_o, float* part_ml, int B,
                               int S, int NH, int KVH, int Wp, int span, int splits, float scale,
-                              cudaStream_t st) {
+                              Steps steps, int n, cudaStream_t st) {
   const int M = (NH / KVH) * S;
-  const dim3 grid(splits, (M + kRows - 1) / kRows, B * KVH);
+  const dim3 grid(splits, (M + kRows - 1) / kRows, n * B * KVH);
   decode_attention_kernel<QT, KT, DH><<<grid, kThreads, 0, st>>>(
       static_cast<const QT*>(q), static_cast<const KT*>(k), static_cast<const KT*>(v),
       static_cast<const float*>(cs), static_cast<const float*>(sn),
       static_cast<const int*>(order), static_cast<const int*>(g),
       static_cast<const float*>(ks), static_cast<const float*>(vs), static_cast<QT*>(out),
-      part_o, part_ml, S, NH, KVH, Wp, span, scale);
+      part_o, part_ml, S, NH, KVH, Wp, span, scale, steps);
   return cudaGetLastError();
 }
 
@@ -407,12 +452,13 @@ template <typename QT, typename KT>
 cudaError_t by_dim(int Dh, const void* q, const void* k, const void* v, const void* cs,
                    const void* sn, const void* order, const void* g, const void* ks,
                    const void* vs, void* out, float* po, float* pml, int B, int S, int NH,
-                   int KVH, int Wp, int span, int splits, float scale, cudaStream_t st) {
+                   int KVH, int Wp, int span, int splits, float scale, Steps sp, int n,
+                   cudaStream_t st) {
   switch (Dh) {
-    case 16: return launch_cuda_cores<QT, KT, 16>(q, k, v, cs, sn, order, g, ks, vs, out, po, pml, B, S, NH, KVH, Wp, span, splits, scale, st);
-    case 32: return launch_cuda_cores<QT, KT, 32>(q, k, v, cs, sn, order, g, ks, vs, out, po, pml, B, S, NH, KVH, Wp, span, splits, scale, st);
-    case 64: return launch_cuda_cores<QT, KT, 64>(q, k, v, cs, sn, order, g, ks, vs, out, po, pml, B, S, NH, KVH, Wp, span, splits, scale, st);
-    case 128: return launch_cuda_cores<QT, KT, 128>(q, k, v, cs, sn, order, g, ks, vs, out, po, pml, B, S, NH, KVH, Wp, span, splits, scale, st);
+    case 16: return launch_cuda_cores<QT, KT, 16>(q, k, v, cs, sn, order, g, ks, vs, out, po, pml, B, S, NH, KVH, Wp, span, splits, scale, sp, n, st);
+    case 32: return launch_cuda_cores<QT, KT, 32>(q, k, v, cs, sn, order, g, ks, vs, out, po, pml, B, S, NH, KVH, Wp, span, splits, scale, sp, n, st);
+    case 64: return launch_cuda_cores<QT, KT, 64>(q, k, v, cs, sn, order, g, ks, vs, out, po, pml, B, S, NH, KVH, Wp, span, splits, scale, sp, n, st);
+    case 128: return launch_cuda_cores<QT, KT, 128>(q, k, v, cs, sn, order, g, ks, vs, out, po, pml, B, S, NH, KVH, Wp, span, splits, scale, sp, n, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -468,20 +514,37 @@ __device__ __forceinline__ void store8_planes(bf16* hi, bf16* lo, const float (&
 // bf16 (exact) into vwide. f32 q (PLANES true): the key as two bf16 planes hi, lo at
 // krot and krot + plane, and with an f32 cache V the same at vwide and vwide + plane.
 // A thread takes dims 8c .. 8c + 7 and their rotate-half partners 64 + 8c .. of one
-// (slot, head).
+// (slot, head). The steps of a verify pass: step j's copy `step` elements after step
+// j - 1's, from step j's tables, each slot read from the in-flight row it holds in
+// step j (src) or from the cache.
 template <typename KT, bool PLANES>
 __global__ void __launch_bounds__(256)
 decode_rotate_keys_kernel(const KT* __restrict__ kc, const KT* __restrict__ vc,
                           const float* __restrict__ cosb, const float* __restrict__ sinb,
                           bf16* __restrict__ krot, bf16* __restrict__ vwide, size_t plane, int n,
-                          int KVH) {
+                          int KVH, int Wp, Steps st, size_t step) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const int c = i & 7, row = i >> 3, bs = row / KVH;   // row: (b, slot, head); bs: (b, slot)
-  const size_t at = static_cast<size_t>(row) * kDh + 8 * c, tb = static_cast<size_t>(bs) * kDh + 8 * c;
+  // row: (step, b, slot, head); in: (b, slot, head) within the step; bs: (b, slot)
+  const int c = i & 7, row = i >> 3, per = st.BK * Wp, jstep = row / per, in = row - jstep * per;
+  const int bs = in / KVH, kvh = in - bs * KVH;
+  const size_t tab = static_cast<size_t>(jstep) * (per / KVH);   // the step's tables
+  const size_t at = static_cast<size_t>(in) * kDh + 8 * c, tb = (tab + bs) * kDh + 8 * c;
+  const KT* kp = kc + at;
+  const KT* vp = vc == nullptr ? nullptr : vc + at;
+  if (st.src != nullptr) {
+    const int r = st.src[tab + bs];
+    if (r >= 0) {
+      const size_t ib = ((static_cast<size_t>(bs / Wp) * st.N + r) * KVH + kvh) * kDh + 8 * c;
+      kp = static_cast<const KT*>(st.ki) + ib;
+      vp = static_cast<const KT*>(st.vi) + ib;
+    }
+  }
+  krot += jstep * step;
+  if (vwide != nullptr) vwide += jstep * step;
   float x1[8], x2[8], c1[8], c2[8], s1[8], s2[8], r1[8], r2[8];
-  load8(kc + at, x1);
-  load8(kc + at + 64, x2);
+  load8(kp, x1);
+  load8(kp + 64, x2);
   load8(cosb + tb, c1);
   load8(cosb + tb + 64, c2);
   load8(sinb + tb, s1);
@@ -499,8 +562,8 @@ decode_rotate_keys_kernel(const KT* __restrict__ kc, const KT* __restrict__ vc,
     store8(krot + at + 64, r2);
   }
   if (vwide != nullptr) {
-    load8(vc + at, x1);
-    load8(vc + at + 64, x2);
+    load8(vp, x1);
+    load8(vp + 64, x2);
     if constexpr (PLANES) {
       store8_planes(vwide + at, vwide + plane + at, x1);
       store8_planes(vwide + at + 64, vwide + plane + at + 64, x2);
@@ -543,11 +606,14 @@ __device__ __forceinline__ void products_pv(float (&lo)[32], float (&hi)[32],
 // mask and K scales, online softmax in registers, o += p v. K runs one tile ahead
 // of V in the two-stage ring (as in the flash forward), so that q k(t)^T and
 // p(t - 1) v(t - 1) are in the tensor cores together; each stage also holds its
-// tile's order (and the int8 scales), copied beside its keys. Grid (splits, row
-// tiles, B * KVH). QT bf16: one tile of q, of K and of V a stage; QT f32: three q
-// planes, two K planes and VP V planes (planes `plane` elements apart in scratch),
-// p in three planes, f32 out.
-constexpr int kMeta = 3 * 2 * kTile * 4;   // order, K scales, V scales of two stages
+// tile's order (and the int8 scales, and the in-flight rows its slots hold),
+// copied beside its keys. Grid (splits, row tiles, n * B * KVH): step j's blocks
+// read its rotated keys `kstep` elements after step j - 1's and its V `vstep`
+// after (0: V is the cache as it lies, and vsrc, where not nullptr, says which
+// slots step j reads from the in-flight rows st.vi instead). QT bf16: one tile of
+// q, of K and of V a stage; QT f32: three q planes, two K planes and VP V planes
+// (planes `plane` elements apart in scratch), p in three planes, f32 out.
+constexpr int kMeta = 4 * 2 * kTile * 4;   // order, K scales, V scales, V sources of two stages
 template <int QP, int KP, int VP>
 constexpr int smem_bytes() { return (QP + 2 * KP + 2 * VP) * kTileBytes + kMeta + kAlignSlack; }
 
@@ -558,7 +624,9 @@ __device__ __forceinline__ void attend(const QT* __restrict__ q, const bf16* __r
                                        const float* __restrict__ ksc,
                                        const float* __restrict__ vsc, QT* __restrict__ out,
                                        float* __restrict__ part_o, float* __restrict__ part_ml,
-                                       int S, int NH, int KVH, int Wp, int span, float scale) {
+                                       int S, int NH, int KVH, int Wp, int span, float scale,
+                                       const Steps& st, size_t kstep, size_t vstep,
+                                       const int* __restrict__ vsrc) {
   constexpr bool F32 = sizeof(QT) == 4;
   constexpr int QP = F32 ? 3 : 1, KP = F32 ? 2 : 1, PP = F32 ? 3 : 1;
   extern __shared__ __align__(128) unsigned char smem_tc[];
@@ -568,15 +636,25 @@ __device__ __forceinline__ void attend(const QT* __restrict__ q, const bf16* __r
   int* ord_s = reinterpret_cast<int*>(vs + 2 * VP * kTileBytes);      // [2][64]
   float* ksc_s = reinterpret_cast<float*>(ord_s + 2 * kTile);          // [2][64]
   float* vsc_s = ksc_s + 2 * kTile;                                    // [2][64]
+  int* src_s = reinterpret_cast<int*>(vsc_s + 2 * kTile);              // [2][64]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
-  const int split = blockIdx.x, bk = blockIdx.z, b = bk / KVH, kvh = bk % KVH;
+  const int split = blockIdx.x, z = blockIdx.z, jstep = z / st.BK, bk = z - jstep * st.BK;
+  const int b = bk / KVH, kvh = bk % KVH;
   const int n_rep = NH / KVH, M = n_rep * S, R0 = blockIdx.y * kTile, row0 = warp * 16;
+  // the step's order, rotated keys, V and V sources; its rows of q, g and out from row qrow
+  const size_t tab = static_cast<size_t>(jstep) * (st.BK / KVH) * Wp;
+  order += tab;
+  krot += jstep * kstep;
+  vb += jstep * vstep;
+  if (vsrc != nullptr) vsrc += tab;
+  const bf16* vi = static_cast<const bf16*>(st.vi);
+  const int qrow = b * st.N + jstep * S;
   const int w_begin = split * span, w_end = min(Wp, w_begin + span);
   const int ntiles = (w_end - w_begin + kTile - 1) / kTile;
   const float sl2 = scale * kLog2e;
   // row R's first element in q and out
   auto row_at = [&](int R) {
-    return ((static_cast<size_t>(b) * S + R % S) * NH + kvh * n_rep + R / S) * kDh;
+    return ((static_cast<size_t>(qrow) + R % S) * NH + kvh * n_rep + R / S) * kDh;
   };
 
   const TileCopy copy(static_cast<size_t>(KVH) * kDh);   // a slot's rows lie KVH * 128 apart
@@ -605,6 +683,32 @@ __device__ __forceinline__ void attend(const QT* __restrict__ q, const bf16* __r
         if (slot < w_end) cp_async4(smem_addr(dst), src, true);
         else *dst = 0.f;
       }
+    }
+    if (vsrc != nullptr)
+      for (int i = threadIdx.x; i < kTile; i += kWgThreads) {
+        const int slot = s0 + i;
+        if (slot < w_end) cp_async4(smem_addr(src_s + stage + i), vsrc + static_cast<size_t>(b) * Wp + slot, true);
+        else src_s[stage + i] = -1;
+      }
+  };
+  // V of tile t; through the in-flight rows: its stage's sources have landed (they came
+  // with k(t)), each of the thread's rows from the cache or the row its slot holds
+  auto load_v = [&](int t) {
+    if (vsrc == nullptr) {
+      load_slots(vb, vs, VP, t);
+      return;
+    }
+    const int s0 = w_begin + t * kTile, rows = w_end - s0, c = threadIdx.x & 15;
+    const int* sr = src_s + (t & 1) * kTile;
+    const uint32_t dst = smem_addr(vs + (t & 1) * VP * kTileBytes);
+#pragma unroll
+    for (int i = 0; i < kTile * 16 / kWgThreads; ++i) {
+      const int r = (threadIdx.x >> 4) + i * (kWgThreads / 16);
+      const bool ok = r < rows;
+      const int from = ok ? sr[r] : -1;
+      const bf16* p = from >= 0 ? vi + ((static_cast<size_t>(b) * st.N + from) * KVH + kvh) * kDh
+                                : vb + kv0 + static_cast<size_t>(ok ? s0 + r : s0) * KVH * kDh;
+      cp_async16(dst + swz(r, c), p + c * 8, ok);
     }
   };
   if constexpr (F32) {
@@ -644,7 +748,7 @@ __device__ __forceinline__ void attend(const QT* __restrict__ q, const bf16* __r
 
   // this thread's two rows; a row past M sees nothing (order <= -2 never holds) and is not written
   const int Ra = R0 + row0 + gid, Rb = Ra + 8;
-  const int g_a = Ra < M ? g[b * S + Ra % S] : -2, g_b = Rb < M ? g[b * S + Rb % S] : -2;
+  const int g_a = Ra < M ? g[qrow + Ra % S] : -2, g_b = Rb < M ? g[qrow + Rb % S] : -2;
 
   float o_lo[32], o_hi[32];
 #pragma unroll
@@ -657,7 +761,7 @@ __device__ __forceinline__ void attend(const QT* __restrict__ q, const bf16* __r
     cp_async_wait_all();
     __syncthreads();   // k(t) and v(t - 1) have arrived; k(t - 1) and v(t - 2) are consumed
     if (t + 1 < ntiles) load_k(t + 1);
-    load_slots(vb, vs, VP, t);
+    load_v(t);
     cp_async_commit();
 
     float s[32];
@@ -766,7 +870,7 @@ __device__ __forceinline__ void attend(const QT* __restrict__ q, const bf16* __r
   }
   // one split of several: (m in log2 units, l, acc) of each row, for the merge; the only
   // split of f32 rows: the rows, normalised, in 8-byte stores
-  const size_t pbase = (static_cast<size_t>(bk) * gridDim.x + split) * M;
+  const size_t pbase = (static_cast<size_t>(z) * gridDim.x + split) * M;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int R = h ? Rb : Ra;
@@ -795,9 +899,10 @@ decode_attention_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict
                               const int* __restrict__ g, const float* __restrict__ ksc,
                               const float* __restrict__ vsc, bf16* __restrict__ out,
                               float* __restrict__ part_o, float* __restrict__ part_ml, int S,
-                              int NH, int KVH, int Wp, int span, float scale) {
+                              int NH, int KVH, int Wp, int span, float scale, Steps st,
+                              size_t kstep, const int* __restrict__ vsrc) {
   attend<bf16, SCALED, 1>(q, krot, vb, 0, order, g, ksc, vsc, out, part_o, part_ml, S, NH, KVH,
-                          Wp, span, scale);
+                          Wp, span, scale, st, kstep, 0, vsrc);
 }
 
 // f32 q; VP 1: V the bf16 cache as it lies, VP 2: an f32 cache's V as two planes
@@ -808,9 +913,10 @@ decode_attention_wgmma_f32_kernel(const float* __restrict__ q, const bf16* __res
                                   const int* __restrict__ order, const int* __restrict__ g,
                                   float* __restrict__ out, float* __restrict__ part_o,
                                   float* __restrict__ part_ml, int S, int NH, int KVH, int Wp,
-                                  int span, float scale) {
+                                  int span, float scale, Steps st, size_t kstep, size_t vstep,
+                                  const int* __restrict__ vsrc) {
   attend<float, false, VP>(q, kpl, vb, plane, order, g, nullptr, nullptr, out, part_o, part_ml,
-                           S, NH, KVH, Wp, span, scale);
+                           S, NH, KVH, Wp, span, scale, st, kstep, vstep, vsrc);
 }
 
 }  // namespace tc
@@ -822,7 +928,7 @@ size_t plane_bytes(int B, int Wp, int KVH) {
   return align256(static_cast<size_t>(B) * Wp * KVH * attn::kDh * 2);
 }
 
-// bytes of the rotated keys (and of the widened int8 V) on the bf16 tensor-core
+// bytes of one step's rotated keys (and of the widened int8 V) on the bf16 tensor-core
 // path; of the key's two planes (and an f32 cache's two V planes) on the f32 one
 size_t rotated_bytes(int B, int Wp, int KVH, int kv_dtype, int path) {
   const size_t one = plane_bytes(B, Wp, KVH);
@@ -831,110 +937,113 @@ size_t rotated_bytes(int B, int Wp, int KVH, int kv_dtype, int path) {
   return 0;
 }
 
-}  // namespace
-
-extern "C" long long aha_decode_attention_scratch_bytes(int B, int S, int NH, int KVH, int Dh,
-                                                        int Wp, int kv_dtype, int path,
-                                                        int splits) {
-  if (B <= 0 || S <= 0 || KVH <= 0 || NH % KVH != 0 || Wp <= 0 || splits <= 0) return -1;
-  size_t n = rotated_bytes(B, Wp, KVH, kv_dtype, path);
+long long scratch_bytes(int B, int S, int steps, int NH, int KVH, int Dh, int Wp, int kv_dtype,
+                        int path, int splits) {
+  if (B <= 0 || S <= 0 || steps <= 0 || KVH <= 0 || NH % KVH != 0 || Wp <= 0 || splits <= 0)
+    return -1;
+  size_t n = steps * rotated_bytes(B, Wp, KVH, kv_dtype, path);
   if (splits > 1) {
-    const size_t rows = static_cast<size_t>(B) * KVH * splits * (NH / KVH) * S;
+    const size_t rows = static_cast<size_t>(steps) * B * KVH * splits * (NH / KVH) * S;
     n += align256(rows * Dh * 4) + rows * 2 * 4;
   }
   return static_cast<long long>(n);
 }
 
-extern "C" int aha_decode_attention(const void* q, const void* k, const void* v,
-                                    const void* cs, const void* sn, const void* order,
-                                    const void* g, const void* ks, const void* vs, void* out,
-                                    void* scratch, int B, int S, int NH, int KVH, int Dh, int Wp,
-                                    int q_dtype, int kv_dtype, float scale, int path, int span,
-                                    int splits, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+// One launch of `n` steps of S rows each (a write pass: n 1, no in-flight rows).
+int run(const void* q, const void* k, const void* v, const Steps& sp, int nsteps, const void* cs,
+        const void* sn, const void* order, const void* g, const void* ks, const void* vs,
+        void* out, void* scratch, int B, int S, int NH, int KVH, int Dh, int Wp, int q_dtype,
+        int kv_dtype, float scale, int path, int span, int splits, cudaStream_t st) {
   const int tile = path == kCudaCores ? kBW : wg::kTile;
-  if (B <= 0 || S <= 0 || KVH <= 0 || NH % KVH != 0 || Wp <= 0 ||
+  if (B <= 0 || S <= 0 || nsteps <= 0 || KVH <= 0 || NH % KVH != 0 || Wp <= 0 ||
       (kv_dtype == AHA_I8) != (ks != nullptr) || splits <= 0 || span <= 0 || span % tile != 0 ||
       static_cast<long long>(splits - 1) * span >= Wp || static_cast<long long>(splits) * span < Wp ||
-      (path != kCudaCores && path != kWgmma && path != kWgmmaF32) || B * KVH > 65535)
+      (path != kCudaCores && path != kWgmma && path != kWgmmaF32) ||
+      static_cast<long long>(nsteps) * B * KVH > 65535 ||
+      (sp.src != nullptr && (kv_dtype == AHA_I8 || sp.ki == nullptr || sp.vi == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int M = (NH / KVH) * S;
   unsigned char* sc = static_cast<unsigned char*>(scratch);
-  const size_t rot = rotated_bytes(B, Wp, KVH, kv_dtype, path);
+  const size_t rot1 = rotated_bytes(B, Wp, KVH, kv_dtype, path), rot = nsteps * rot1;
   float* part_o = nullptr;
   float* part_ml = nullptr;
   if (splits > 1 || rot > 0) {
     if (sc == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   }
   if (splits > 1) {
-    const size_t rows = static_cast<size_t>(B) * KVH * splits * M;
+    const size_t rows = static_cast<size_t>(nsteps) * B * KVH * splits * M;
     part_o = reinterpret_cast<float*>(sc + rot);
     part_ml = reinterpret_cast<float*>(sc + rot + align256(rows * Dh * 4));
   }
   using tc::bf16;
-  const int n = B * Wp * KVH * 8;   // threads of the rotation kernel
+  const int n = nsteps * B * Wp * KVH * 8;   // threads of the rotation kernel
+  const size_t kstep = rot1 / sizeof(bf16);  // elements between two steps' rotated copies
   const float* cosp = static_cast<const float*>(cs);
   const float* sinp = static_cast<const float*>(sn);
-  const dim3 wgrid(splits, (M + wg::kTile - 1) / wg::kTile, B * KVH);
+  const int* ord = static_cast<const int*>(order);
+  const int* gp = static_cast<const int*>(g);
+  const dim3 wgrid(splits, (M + wg::kTile - 1) / wg::kTile, nsteps * B * KVH);
   cudaError_t err = cudaErrorInvalidValue;
   if (path == kWgmma) {
     if (q_dtype != AHA_BF16 || Dh != attn::kDh || (kv_dtype != AHA_BF16 && kv_dtype != AHA_I8))
       return static_cast<int>(cudaErrorInvalidValue);
     bf16* krot = reinterpret_cast<bf16*>(sc);
-    bf16* vwide = kv_dtype == AHA_I8 ? reinterpret_cast<bf16*>(sc + rot / 2) : nullptr;
+    bf16* vwide = kv_dtype == AHA_I8 ? reinterpret_cast<bf16*>(sc + rot1 / 2) : nullptr;
     if (kv_dtype == AHA_I8)
       tc::decode_rotate_keys_kernel<int8_t, false><<<(n + 255) / 256, 256, 0, st>>>(
           static_cast<const int8_t*>(k), static_cast<const int8_t*>(v), cosp, sinp, krot, vwide,
-          0, n, KVH);
+          0, n, KVH, Wp, sp, kstep);
     else
       tc::decode_rotate_keys_kernel<bf16, false><<<(n + 255) / 256, 256, 0, st>>>(
-          static_cast<const bf16*>(k), static_cast<const bf16*>(v), cosp, sinp, krot, nullptr, 0,
-          n, KVH);
+          static_cast<const bf16*>(k), nullptr, cosp, sinp, krot, nullptr, 0, n, KVH, Wp, sp,
+          kstep);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
+    // a bf16 V is read as it lies, each slot from where step j's write pass left it
     const bf16* vsrc = vwide != nullptr ? vwide : static_cast<const bf16*>(v);
+    const int* vfrom = vwide != nullptr ? nullptr : sp.src;
     const int smem = tc::smem_bytes<1, 1, 1>();
     if (ks != nullptr) {
       err = wg::allow_smem(tc::decode_attention_wgmma_kernel<true>, smem);
       if (err != cudaSuccess) return static_cast<int>(err);
       tc::decode_attention_wgmma_kernel<true><<<wgrid, wg::kWgThreads, smem, st>>>(
-          static_cast<const bf16*>(q), krot, vsrc, static_cast<const int*>(order),
-          static_cast<const int*>(g), static_cast<const float*>(ks), static_cast<const float*>(vs),
-          static_cast<bf16*>(out), part_o, part_ml, S, NH, KVH, Wp, span, scale);
+          static_cast<const bf16*>(q), krot, vsrc, ord, gp, static_cast<const float*>(ks),
+          static_cast<const float*>(vs), static_cast<bf16*>(out), part_o, part_ml, S, NH, KVH,
+          Wp, span, scale, sp, kstep, vfrom);
     } else {
       err = wg::allow_smem(tc::decode_attention_wgmma_kernel<false>, smem);
       if (err != cudaSuccess) return static_cast<int>(err);
       tc::decode_attention_wgmma_kernel<false><<<wgrid, wg::kWgThreads, smem, st>>>(
-          static_cast<const bf16*>(q), krot, vsrc, static_cast<const int*>(order),
-          static_cast<const int*>(g), nullptr, nullptr, static_cast<bf16*>(out), part_o, part_ml,
-          S, NH, KVH, Wp, span, scale);
+          static_cast<const bf16*>(q), krot, vsrc, ord, gp, nullptr, nullptr,
+          static_cast<bf16*>(out), part_o, part_ml, S, NH, KVH, Wp, span, scale, sp, kstep,
+          vfrom);
     }
     err = cudaGetLastError();
   } else if (path == kWgmmaF32) {
     if (q_dtype != AHA_F32 || Dh != attn::kDh || (kv_dtype != AHA_BF16 && kv_dtype != AHA_F32))
       return static_cast<int>(cudaErrorInvalidValue);
-    // the key's planes, then an f32 cache's V planes, each plane `plane` elements on
+    // a step's key planes, then an f32 cache's V planes, each plane `plane` elements on
     const size_t plane = plane_bytes(B, Wp, KVH) / sizeof(bf16);
     bf16* kpl = reinterpret_cast<bf16*>(sc);
     const float* qf = static_cast<const float*>(q);
-    const int* ord = static_cast<const int*>(order);
-    const int* gp = static_cast<const int*>(g);
     float* o = static_cast<float*>(out);
     if (kv_dtype == AHA_F32) {
       bf16* vpl = kpl + 2 * plane;
       tc::decode_rotate_keys_kernel<float, true><<<(n + 255) / 256, 256, 0, st>>>(
           static_cast<const float*>(k), static_cast<const float*>(v), cosp, sinp, kpl, vpl, plane,
-          n, KVH);
+          n, KVH, Wp, sp, kstep);
       err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);
       const int smem = tc::smem_bytes<3, 2, 2>();
       err = wg::allow_smem(tc::decode_attention_wgmma_f32_kernel<2>, smem);
       if (err != cudaSuccess) return static_cast<int>(err);
       tc::decode_attention_wgmma_f32_kernel<2><<<wgrid, wg::kWgThreads, smem, st>>>(
-          qf, kpl, vpl, plane, ord, gp, o, part_o, part_ml, S, NH, KVH, Wp, span, scale);
+          qf, kpl, vpl, plane, ord, gp, o, part_o, part_ml, S, NH, KVH, Wp, span, scale, sp,
+          kstep, kstep, nullptr);
     } else {
       tc::decode_rotate_keys_kernel<bf16, true><<<(n + 255) / 256, 256, 0, st>>>(
-          static_cast<const bf16*>(k), nullptr, cosp, sinp, kpl, nullptr, plane, n, KVH);
+          static_cast<const bf16*>(k), nullptr, cosp, sinp, kpl, nullptr, plane, n, KVH, Wp, sp,
+          kstep);
       err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);
       const int smem = tc::smem_bytes<3, 2, 1>();
@@ -942,26 +1051,65 @@ extern "C" int aha_decode_attention(const void* q, const void* k, const void* v,
       if (err != cudaSuccess) return static_cast<int>(err);
       tc::decode_attention_wgmma_f32_kernel<1><<<wgrid, wg::kWgThreads, smem, st>>>(
           qf, kpl, static_cast<const bf16*>(v), plane, ord, gp, o, part_o, part_ml, S, NH, KVH,
-          Wp, span, scale);
+          Wp, span, scale, sp, kstep, 0, sp.src);
     }
     err = cudaGetLastError();
   } else if (q_dtype == AHA_F32 && kv_dtype == AHA_F32) {
-    err = by_dim<float, float>(Dh, q, k, v, cs, sn, order, g, ks, vs, out, part_o, part_ml, B, S, NH, KVH, Wp, span, splits, scale, st);
+    err = by_dim<float, float>(Dh, q, k, v, cs, sn, order, g, ks, vs, out, part_o, part_ml, B, S, NH, KVH, Wp, span, splits, scale, sp, nsteps, st);
   } else if (q_dtype == AHA_F32 && kv_dtype == AHA_BF16) {
-    err = by_dim<float, __nv_bfloat16>(Dh, q, k, v, cs, sn, order, g, ks, vs, out, part_o, part_ml, B, S, NH, KVH, Wp, span, splits, scale, st);
+    err = by_dim<float, __nv_bfloat16>(Dh, q, k, v, cs, sn, order, g, ks, vs, out, part_o, part_ml, B, S, NH, KVH, Wp, span, splits, scale, sp, nsteps, st);
   } else if (q_dtype == AHA_F32 && kv_dtype == AHA_I8) {
-    err = by_dim<float, int8_t>(Dh, q, k, v, cs, sn, order, g, ks, vs, out, part_o, part_ml, B, S, NH, KVH, Wp, span, splits, scale, st);
+    err = by_dim<float, int8_t>(Dh, q, k, v, cs, sn, order, g, ks, vs, out, part_o, part_ml, B, S, NH, KVH, Wp, span, splits, scale, sp, nsteps, st);
   } else if (q_dtype == AHA_BF16 && kv_dtype == AHA_BF16) {
-    err = by_dim<__nv_bfloat16, __nv_bfloat16>(Dh, q, k, v, cs, sn, order, g, ks, vs, out, part_o, part_ml, B, S, NH, KVH, Wp, span, splits, scale, st);
+    err = by_dim<__nv_bfloat16, __nv_bfloat16>(Dh, q, k, v, cs, sn, order, g, ks, vs, out, part_o, part_ml, B, S, NH, KVH, Wp, span, splits, scale, sp, nsteps, st);
   } else if (q_dtype == AHA_BF16 && kv_dtype == AHA_I8) {
-    err = by_dim<__nv_bfloat16, int8_t>(Dh, q, k, v, cs, sn, order, g, ks, vs, out, part_o, part_ml, B, S, NH, KVH, Wp, span, splits, scale, st);
+    err = by_dim<__nv_bfloat16, int8_t>(Dh, q, k, v, cs, sn, order, g, ks, vs, out, part_o, part_ml, B, S, NH, KVH, Wp, span, splits, scale, sp, nsteps, st);
   }
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   if (q_dtype == AHA_F32)
     err = launch_merge<float>(part_o, part_ml, static_cast<float*>(out), B, S, NH, KVH, Dh, splits,
-                              path != kCudaCores, st);
+                              path != kCudaCores, nsteps, st);
   else
     err = launch_merge<__nv_bfloat16>(part_o, part_ml, static_cast<__nv_bfloat16*>(out), B, S, NH,
-                                      KVH, Dh, splits, path != kCudaCores, st);
+                                      KVH, Dh, splits, path != kCudaCores, nsteps, st);
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+// Scratch of a launch of `steps` steps of S rows (a write pass: steps 1).
+extern "C" long long aha_decode_attention_steps_scratch_bytes(int B, int S, int steps, int NH,
+                                                              int KVH, int Dh, int Wp,
+                                                              int kv_dtype, int path,
+                                                              int splits) {
+  return scratch_bytes(B, S, steps, NH, KVH, Dh, Wp, kv_dtype, path, splits);
+}
+
+// A write pass: S rows against the cache.
+extern "C" int aha_decode_attention(const void* q, const void* k, const void* v,
+                                    const void* cs, const void* sn, const void* order,
+                                    const void* g, const void* ks, const void* vs, void* out,
+                                    void* scratch, int B, int S, int NH, int KVH, int Dh, int Wp,
+                                    int q_dtype, int kv_dtype, float scale, int path, int span,
+                                    int splits, void* stream) {
+  const Steps one{nullptr, nullptr, nullptr, S, B * KVH};
+  return run(q, k, v, one, 1, cs, sn, order, g, ks, vs, out, scratch, B, S, NH, KVH, Dh, Wp,
+             q_dtype, kv_dtype, scale, path, span, splits, static_cast<cudaStream_t>(stream));
+}
+
+// The verify pass: `steps` composed steps of S rows, q / g / out [B, steps * S, ...], the
+// tables [steps, B, Wp, ...], the in-flight rows ki / vi [B, steps * S, KVH, Dh] in the
+// cache's type and src [steps, B, Wp]; the cache is only read. No int8 cache.
+extern "C" int aha_decode_attention_steps(const void* q, const void* k, const void* v,
+                                          const void* ki, const void* vi, const void* src,
+                                          const void* cs, const void* sn, const void* order,
+                                          const void* g, const void* ks, const void* vs,
+                                          void* out, void* scratch, int B, int S, int steps,
+                                          int NH, int KVH, int Dh, int Wp, int q_dtype,
+                                          int kv_dtype, float scale, int path, int span,
+                                          int splits, void* stream) {
+  if (src == nullptr || ks != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const Steps sp{static_cast<const int*>(src), ki, vi, steps * S, B * KVH};
+  return run(q, k, v, sp, steps, cs, sn, order, g, ks, vs, out, scratch, B, S, NH, KVH, Dh, Wp,
+             q_dtype, kv_dtype, scale, path, span, splits, static_cast<cudaStream_t>(stream));
 }

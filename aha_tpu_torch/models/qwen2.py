@@ -27,7 +27,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import QwenConfig
 from ..ops.attention import (cached_attention, causal_attention, chunk_tables,
-                             replayed_attention, spec_tables, speculative_attention)
+                             replayed_attention, spec_tables, speculative_attention, step_tables)
 from ..ops.kv_cache import CachePolicy, KVCache, advance, plan_update, write_layer
 from ..ops.quant import embed_rows, linear
 from ..ops.rope import apply_rope, rope_cos_sin
@@ -469,8 +469,8 @@ def decode_chunk(params: dict, cfg: QwenConfig, policy: CachePolicy, cache: KVCa
 
 def decode_chunk_spec(params: dict, cfg: QwenConfig, policy: CachePolicy, cache: KVCache,
                       inputs_embeds: torch.Tensor, plans, *, backend: str = "fused",
-                      replay: bool = False, lora: dict | None = None, lora_scale: float = 0.0,
-                      sh=None, lora_sh=None):
+                      replay: bool | None = None, lora: dict | None = None,
+                      lora_scale: float = 0.0, sh=None, lora_sh=None):
     """The VERIFY pass: like ``decode_chunk`` over the N = S * step tokens of
     ``plans`` (``spec_decode.plan_compose``), but equal to the S sequential
     passes the plans compose, and READ-ONLY on the cache: each layer's
@@ -481,29 +481,38 @@ def decode_chunk_spec(params: dict, cfg: QwenConfig, policy: CachePolicy, cache:
     Returns (final-normed hidden [B, N, H], infl_k [L, B, N, KVH, Dh]
     pre-rotated at ``plans.write_pos``, infl_v [L, B, N, KVH, Dh]).
 
-    One gate for the whole pass picks the pre-rotation scoring or (sink
-    policy, ``plans.exact``) the rotate-at-read branch. ``plans.exact`` lives
-    on the device, so reading it is ONE host sync per pass (never per
-    layer).
+    ``replay`` (None: derived from the cache, True on a bf16 or f32 one and
+    False on an int8 one; so every verify pass on a bf16 or f32 cache takes
+    it: fused frame scoring and speculative generation): the attention of each
+    layer is
+    ``replayed_attention``, one launch of the cached-attention kernel in its
+    steps' form, each composed step attending as its write pass would over
+    the cache with the in-flight keys of the steps up to it overlaid at
+    their slots; the cache is only read. Every row's attention has the bits
+    of its sequential pass's (speculative texts equal sequential ones; a
+    fused frame's products still sum the pass's rows). The tables
+    (``step_tables``) are built once a pass; no gate and no host sync.
 
-    ``replay``: the attention of each layer is ``replayed_attention``, the
-    composed steps' write passes replayed through the cached-attention kernel
-    (each step's keys written into their slots and restored after the layer),
-    which gives every row the bits of its sequential pass, where the one
-    softmax over cache and in-flight columns differs from the kernel's sums
-    in the last bf16 place; ``generate_spec`` takes it on a bf16 or f32 cache
-    so that speculative texts equal sequential ones. Needs no gate and no
-    host sync. ``lora``, ``sh``: as in ``decode_chunk``; the in-flight K/V
-    are the rank's rows and heads, the hidden states every row's."""
+    Without ``replay`` (an int8 cache, whose sequential writes would be
+    quantised; ``replay=False`` asks for it on any cache): the composed
+    ``speculative_attention``, one softmax over cache and in-flight columns,
+    as JAX computes it. One gate for the whole
+    pass picks the pre-rotation scoring or (sink policy, ``plans.exact``)
+    the rotate-at-read branch; ``plans.exact`` lives on the device, so
+    reading it is ONE host sync per pass (never per layer). ``lora``,
+    ``sh``: as in ``decode_chunk``; the in-flight K/V are the rank's rows
+    and heads, the hidden states every row's."""
     sink_policy = policy.kind == "sink"
     sink_slots = policy.num_sink if sink_policy else 0
     rows = cache.rows if sh is not None else None
     x = inputs_embeds
     if rows is not None:
         plans, x = row_slice(plans, *rows), inputs_embeds[rows[0]:rows[1]]
+    if replay is None:
+        replay = not cache.quantized
     if replay:
-        w_cos, w_sin = rope_cos_sin(plans.write_pos, cfg.head_dim, cfg.rope_theta)
-        steps = [chunk_tables(p, policy, cfg.head_dim, cfg.rope_theta) for p in plans.steps]
+        tables = step_tables(plans, policy, cfg.head_dim, cfg.rope_theta)
+        w_cos, w_sin = tables.w_cos, tables.w_sin
     else:
         exact = sink_policy and bool(plans.exact)
         tables = spec_tables(plans, sink_policy, cfg.head_dim, cfg.rope_theta, exact)
@@ -519,8 +528,7 @@ def decode_chunk_spec(params: dict, cfg: QwenConfig, policy: CachePolicy, cache:
         q, k, v = _qkv(h, lp, cfg, backend, ad, sh=lsh)
         k_rot = apply_rope(k.float(), w_cos, w_sin).to(k.dtype)
         if replay:
-            attn = replayed_attention(q, cache.k[i], cache.v[i], k_rot, v, plans.slots, w_cos,
-                                      w_sin, steps)
+            attn = replayed_attention(q, cache.k[i], cache.v[i], k_rot, v, tables)
         else:
             kv_scales = (cache.k_scale[i], cache.v_scale[i]) if cache.quantized else None
             attn = speculative_attention(

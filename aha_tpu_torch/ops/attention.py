@@ -18,13 +18,17 @@ exact at every fill state:
 The per-chunk tables (q rotation, delta rotation, mask operands) do not
 depend on the layer: ``chunk_tables`` builds them once per chunk.
 
-``speculative_attention`` is the read-only verify pass's attention
-(``aha_tpu/ops/attention.py::speculative_attention``): plain PyTorch, as the
-JAX function is plain jnp outside any Pallas kernel. ``replayed_attention``
-is the same function computed as the sequential passes compute it: each
-composed step's keys written into their slots, its rows attended through
-``cached_attention``'s kernel with the step's own tables, the slots restored
-afterwards; bit for bit the sequential passes' attention on any device.
+``replayed_attention`` is the read-only verify pass's attention
+(``aha_tpu/ops/attention.py::speculative_attention``) computed as the
+sequential passes compute it, on a bf16 or f32 cache: one launch of
+``decode_attention_steps``, in which each composed step's rows attend as its
+write pass would, with the step's own tables, over the cache with the
+in-flight keys of the steps up to it overlaid at their slots; nothing is
+written, and every row gets its sequential pass's bits on any device.
+``speculative_attention`` is the JAX function's own composition in plain
+PyTorch (one softmax over cache and in-flight columns), as JAX computes it in
+jnp outside any Pallas kernel: the verify pass takes it on an int8 cache,
+whose sequential writes would be quantised.
 
 ``causal_attention`` is the full-sequence attention of training and prefill
 (``aha_tpu/ops/attention.py::causal_attention``): rotate in f32, then the
@@ -38,7 +42,7 @@ from dataclasses import dataclass
 
 import torch
 
-from .kernels.decode_attention import decode_attention
+from .kernels.decode_attention import decode_attention, decode_attention_steps
 from .kernels.flash_attention import flash_causal_attention
 from .kv_cache import CachePolicy, UpdatePlan, reference_mask_operands
 from .rope import apply_rope, rope_cos_sin
@@ -216,43 +220,77 @@ def speculative_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch
     return out.reshape(B, S, NH, Dh).to(q.dtype)
 
 
+@dataclass
+class StepTables:
+    """What the replayed verify pass's attention needs that does not depend on
+    the layer; built once per pass by ``step_tables``."""
+
+    w_cos: torch.Tensor        # [B, N, Dh] at plans.write_pos (q and the in-flight keys)
+    w_sin: torch.Tensor
+    d_cos: torch.Tensor        # [n, B, W+1, Dh] each step's residual per-slot rotation
+    d_sin: torch.Tensor
+    mask_order: torch.Tensor   # [n, B, W+1] int32
+    mask_g: torch.Tensor       # [B, N] int32
+    src: torch.Tensor          # [n, B, W+1] int32: in-flight row a slot holds in step j, or -1
+
+
+def step_sources(slots: torch.Tensor, steps: int, num_slots: int) -> torch.Tensor:
+    """[n, B, W+1] int32: the in-flight row (of N) that slot w of row b holds
+    when step j attends, had steps 0..j each written its rows into their
+    ``slots`` [B, N] (``SpecPlans.slots``) in order: the latest write, the
+    highest row; -1 where no step up to j wrote the slot."""
+    B, N = slots.shape
+    S = N // steps
+    rows = torch.arange(N, device=slots.device).expand(B, N)
+    held = torch.full((B, num_slots), -1, dtype=torch.long, device=slots.device)
+    out = []
+    for j in range(steps):
+        cols = slice(j * S, (j + 1) * S)
+        held = held.scatter_reduce(1, slots[:, cols].long(), rows[:, cols], "amax")
+        out.append(held)
+    return torch.stack(out).to(torch.int32).contiguous()
+
+
+def step_tables(plans, policy: CachePolicy, head_dim: int, rope_theta: float) -> StepTables:
+    """The tables of ``replayed_attention`` for one verify pass of ``plans``
+    (``spec_decode.SpecPlans``): each composed step's ``chunk_tables``
+    stacked, and where the in-flight rows of the steps up to it lie."""
+    w_cos, w_sin = rope_cos_sin(plans.write_pos, head_dim, rope_theta)
+    steps = [chunk_tables(p, policy, head_dim, rope_theta) for p in plans.steps]
+    stack = lambda name: torch.stack([getattr(t, name) for t in steps]).contiguous()
+    return StepTables(w_cos, w_sin, stack("d_cos"), stack("d_sin"), stack("mask_order"),
+                      torch.cat([t.mask_g for t in steps], dim=1).contiguous(),
+                      step_sources(plans.slots, len(steps), plans.cache_mask.shape[-1]))
+
+
 def replayed_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                       k_infl: torch.Tensor, v_infl: torch.Tensor, slots: torch.Tensor,
-                       w_cos: torch.Tensor, w_sin: torch.Tensor,
-                       steps: list[ChunkTables]) -> torch.Tensor:
+                       k_infl: torch.Tensor, v_infl: torch.Tensor,
+                       tables: StepTables) -> torch.Tensor:
     """The verify pass's attention as the S sequential passes it composes
-    compute it, on a bf16 or f32 cache: for each step in order, its in-flight
-    keys and values go into their slots and its rows attend through
-    ``decode_attention`` with the step's ``chunk_tables`` (the kernel, path and
-    plan of a write pass of that many rows); the slots get their contents back
-    at the end, so the cache is as it was.
+    compute it, on a bf16 or f32 cache, READ-ONLY: one launch of
+    ``decode_attention_steps``, in which step j's rows attend as its write
+    pass's ``cached_attention`` would (the kernel, path, plan and order of
+    sums of a write pass of that many rows, with the step's tables) over the
+    cache with the in-flight rows of steps 0..j at their slots
+    (``tables.src``), rounded to the cache's dtype as a write rounds them.
 
     q [B, N, NH, Dh] unrotated; k_cache / v_cache [B, W+1, KVH, Dh], one
-    layer's cache, written and restored IN PLACE; k_infl / v_infl [B, N, KVH,
-    Dh], in-flight keys pre-rotated at the write positions (``w_cos``,
-    ``w_sin`` [B, N, Dh]: the rotation of q too); ``slots`` [B, N]: the
-    composed steps' destination slots (``SpecPlans.slots``); ``steps``: the
-    steps' ``chunk_tables``, N / S rows each. Rotations are elementwise, so q
-    and the keys rotated all at once are the sequential passes' bits; an int8
-    cache would need the writes quantised and is not taken."""
+    layer's cache; k_infl / v_infl [B, N, KVH, Dh], in-flight keys
+    pre-rotated at the write positions (``tables.w_cos``, ``w_sin``: the
+    rotation of q too); ``tables``: ``step_tables`` of the pass. Rotations
+    are elementwise, so q and the keys rotated all at once are the
+    sequential passes' bits; bf16 queries against an f32 cache are widened
+    as ``cached_attention`` widens them. An int8 cache would need the writes
+    quantised and is not taken."""
     if k_cache.dtype == torch.int8:
         raise ValueError("replayed_attention: an int8 cache is not taken")
-    B, N = slots.shape
-    step = N // len(steps)
-    bidx = torch.arange(B, device=q.device)[:, None]
-    every = (bidx, slots.long())
-    old_k, old_v = k_cache[every], v_cache[every]
-    q_rot = apply_rope(q.float(), w_cos, w_sin).to(q.dtype)
-    out = []
-    for j, t in enumerate(steps):
-        rows = slice(j * step, (j + 1) * step)
-        mine = (bidx, slots[:, rows].long())
-        k_cache[mine] = k_infl[:, rows].to(k_cache.dtype)
-        v_cache[mine] = v_infl[:, rows].to(v_cache.dtype)
-        out.append(decode_attention(q_rot[:, rows].contiguous(), k_cache, v_cache, t.d_cos,
-                                    t.d_sin, t.mask_order, t.mask_g))
-    k_cache[every], v_cache[every] = old_k, old_v
-    return torch.cat(out, dim=1)
+    t = tables
+    q_rot = apply_rope(q.float(), t.w_cos, t.w_sin).to(q.dtype)
+    if q.dtype == torch.bfloat16 and k_cache.dtype == torch.float32:
+        q_rot = q_rot.float()
+    k_infl, v_infl = (x.to(k_cache.dtype).contiguous() for x in (k_infl, v_infl))
+    return decode_attention_steps(q_rot.contiguous(), k_cache, v_cache, k_infl, v_infl, t.d_cos,
+                                  t.d_sin, t.mask_order, t.mask_g, t.src).to(q.dtype)
 
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, rope_theta: float,

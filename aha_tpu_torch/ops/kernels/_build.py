@@ -135,8 +135,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.aha_decode_attention.argtypes = [P, P, P, P, P, P, P, P, P, P, P,
                                          I, I, I, I, I, I, I, I, F, I, I, I, P]
     lib.aha_decode_attention.restype = I
-    lib.aha_decode_attention_scratch_bytes.argtypes = [I, I, I, I, I, I, I, I, I]
-    lib.aha_decode_attention_scratch_bytes.restype = ctypes.c_longlong
+    lib.aha_decode_attention_steps.argtypes = [P, P, P, P, P, P, P, P, P, P, P, P, P, P,
+                                               I, I, I, I, I, I, I, I, I, F, I, I, I, P]
+    lib.aha_decode_attention_steps.restype = I
+    lib.aha_decode_attention_steps_scratch_bytes.argtypes = [I, I, I, I, I, I, I, I, I, I]
+    lib.aha_decode_attention_steps_scratch_bytes.restype = ctypes.c_longlong
     lib.aha_error_string.argtypes = [I]
     lib.aha_error_string.restype = ctypes.c_char_p
 

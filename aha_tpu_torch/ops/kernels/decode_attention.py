@@ -14,11 +14,19 @@ states in a fixed order (``plan`` chooses path and splits;
 against a bf16 cache is read as it lies: the kernels widen it on load, as the
 TPU kernel does.
 
+``decode_attention_steps`` is the verify pass's form of the same kernels:
+the rows of n composed steps in one launch, step j's rows attending as its
+write pass would, over the cache with the in-flight rows of steps <= j
+overlaid at their slots (``src``), read-only; per step the plan, the slot
+tiles, the splits and the merge order of a write pass of that many rows, so
+the write passes' bits.
+
 On a CPU tensor the plain version runs; on a CUDA tensor the kernel
-launches, or the call raises. ``LAUNCHES["decode_attention"]`` counts the
-launches, ``PATH_LAUNCHES["decode_attention/<path>/<q>-<kv>"]`` them by path
-and types (``decode_attention/wgmma/f32-bf16``: f32 q against a bf16 cache on
-the tensor cores).
+launches, or the call raises. ``LAUNCHES["decode_attention"]`` (and
+``["decode_attention_steps"]``) count the launches,
+``PATH_LAUNCHES["decode_attention/<path>/<q>-<kv>"]`` them by path and types
+(``decode_attention/wgmma/f32-bf16``: f32 q against a bf16 cache on the
+tensor cores).
 """
 
 from __future__ import annotations
@@ -119,21 +127,25 @@ def plan(B: int, S: int, NH: int, KVH: int, Dh: int, Wp: int, q_dtype: torch.dty
 
 
 def plan_on(path: int, B: int, S: int, NH: int, KVH: int, Wp: int, *, sms: int = 132) -> Plan:
-    """The splits of a launch on ``path``: the window split into as many
-    parts as one round of resident blocks holds (``RESIDENT`` a SM), each of
-    at least ``MIN_TILES`` slot tiles, then evened out over the slot tiles: a
-    7B token is 4 kv heads x 65 splits of 32 slots (260 blocks), a 49-row
-    bf16 frame chunk 24 row tiles x 11 splits of 192, an f32 one 24 x 5 of
-    448. Where the row tiles alone fill the round, one split."""
+    """The splits of a launch on ``path``, from one batch row's blocks and
+    never from B, so that a row sums in the same order in a batch of any size
+    (a stream scored in a batch of 8 gets its bits alone): the window split
+    into as many parts as one round of resident blocks holds for one row
+    (``RESIDENT`` a SM), each of at least ``MIN_TILES`` slot tiles, then
+    evened out over the slot tiles: a 7B token is 4 kv heads x 65 splits of 32
+    slots (260 blocks a row), a 49-row bf16 frame chunk 24 row tiles x 11
+    splits of 192, an f32 one 24 x 5 of 448. Where one row's tiles fill the
+    round, one split."""
     M = (NH // KVH) * S
     row_tile, slot_tile = (16, 32) if path == CUDA_CORES else (64, 64)
     row_tiles = -(-M // row_tile)
-    base = B * KVH * row_tiles
+    base = KVH * row_tiles             # one batch row's blocks before any split
     n_tiles = -(-Wp // slot_tile)
     want = max(1, min(RESIDENT[path] * sms // base, n_tiles // MIN_TILES[path]))
     per = -(-n_tiles // want)          # slot tiles per split
     splits = -(-n_tiles // per)
-    return Plan(path, row_tile, row_tiles, slot_tile, per * slot_tile, splits, base * splits)
+    return Plan(path, row_tile, row_tiles, slot_tile, per * slot_tile, splits,
+                B * base * splits)
 
 
 def decode_attention_split_plain(q_rot, k_cache, v_cache, cos, sin, order, g, kv_scales=None, *,
@@ -219,59 +231,73 @@ def _two_planes(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, (x - hi).to(torch.bfloat16).float()
 
 
-def _check(q_rot, k_cache, v_cache, cos, sin, order, g, kv_scales):
+def _check(q_rot, k_cache, v_cache, cos, sin, order, g, kv_scales, infl=None):
+    """``infl``: (k_infl, v_infl, src) of ``decode_attention_steps``, whose
+    tables carry the steps' axis first."""
+    what = "decode_attention" if infl is None else "decode_attention_steps"
     if q_rot.dim() != 4 or k_cache.dim() != 4:
-        raise ValueError("decode_attention: q_rot and the cache must be 4-D")
+        raise ValueError(f"{what}: q_rot and the cache must be 4-D")
     B, S, NH, Dh = q_rot.shape
     Wp, KVH = k_cache.shape[1], k_cache.shape[2]
+    steps = () if infl is None else (infl[2].shape[0],)
     if Dh not in HEAD_DIMS:
-        raise ValueError(f"decode_attention: head_dim {Dh} not in {HEAD_DIMS}")
+        raise ValueError(f"{what}: head_dim {Dh} not in {HEAD_DIMS}")
     if q_rot.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"decode_attention: q dtype {q_rot.dtype} not supported")
+        raise ValueError(f"{what}: q dtype {q_rot.dtype} not supported")
     kv_ok = (torch.float32, torch.bfloat16) if q_rot.dtype == torch.float32 else (q_rot.dtype,)
-    if k_cache.dtype not in (*kv_ok, torch.int8) or v_cache.dtype != k_cache.dtype:
-        raise ValueError(f"decode_attention: cache dtype {k_cache.dtype} with q "
-                         f"{q_rot.dtype} not supported")
+    if infl is None:
+        kv_ok += (torch.int8,)
+    if k_cache.dtype not in kv_ok or v_cache.dtype != k_cache.dtype:
+        raise ValueError(f"{what}: cache dtype {k_cache.dtype} with q {q_rot.dtype} not "
+                         f"supported")
     if (k_cache.dtype == torch.int8) != (kv_scales is not None):
-        raise ValueError("decode_attention: kv_scales go with an int8 cache, and only there")
+        raise ValueError(f"{what}: kv_scales go with an int8 cache, and only there")
     if NH % KVH:
-        raise ValueError(f"decode_attention: {NH} heads over {KVH} kv heads")
-    if B * KVH > 65535:
-        raise ValueError(f"decode_attention: B * KVH = {B * KVH} exceeds the kernel's grid")
+        raise ValueError(f"{what}: {NH} heads over {KVH} kv heads")
+    if steps and (steps[0] < 1 or S % steps[0]):
+        raise ValueError(f"{what}: {S} rows are not {steps[0]} steps of equal rows")
+    if B * KVH * (steps[0] if steps else 1) > 65535:
+        raise ValueError(f"{what}: B * KVH * steps exceeds the kernel's grid")
     want = {
         "k_cache": (k_cache, (B, Wp, KVH, Dh), None),
         "v_cache": (v_cache, (B, Wp, KVH, Dh), None),
-        "cos": (cos, (B, Wp, Dh), torch.float32),
-        "sin": (sin, (B, Wp, Dh), torch.float32),
-        "order": (order, (B, Wp), torch.int32),
+        "cos": (cos, (*steps, B, Wp, Dh), torch.float32),
+        "sin": (sin, (*steps, B, Wp, Dh), torch.float32),
+        "order": (order, (*steps, B, Wp), torch.int32),
         "g": (g, (B, S), torch.int32),
         "q_rot": (q_rot, (B, S, NH, Dh), None),
     }
     if kv_scales is not None:
         want["k_scale"] = (kv_scales[0], (B, Wp, KVH), torch.float32)
         want["v_scale"] = (kv_scales[1], (B, Wp, KVH), torch.float32)
+    if infl is not None:
+        want["k_infl"] = (infl[0], (B, S, KVH, Dh), k_cache.dtype)
+        want["v_infl"] = (infl[1], (B, S, KVH, Dh), k_cache.dtype)
+        want["src"] = (infl[2], (*steps, B, Wp), torch.int32)
     # 16-byte vector loads and copies where the tensor-core path reads whole rows
-    vector = ("q_rot", "k_cache", "v_cache", "cos", "sin")
+    vector = ("q_rot", "k_cache", "v_cache", "cos", "sin", "k_infl", "v_infl")
     for name, (t, shape, dtype) in want.items():
         if tuple(t.shape) != shape:
-            raise ValueError(f"decode_attention: {name} shape {tuple(t.shape)} != {shape}")
+            raise ValueError(f"{what}: {name} shape {tuple(t.shape)} != {shape}")
         if dtype is not None and t.dtype != dtype:
-            raise ValueError(f"decode_attention: {name} dtype {t.dtype} != {dtype}")
+            raise ValueError(f"{what}: {name} dtype {t.dtype} != {dtype}")
         if t.device != q_rot.device:
-            raise ValueError(f"decode_attention: {name} on {t.device}, q on {q_rot.device}")
+            raise ValueError(f"{what}: {name} on {t.device}, q on {q_rot.device}")
         if not t.is_contiguous():
-            raise ValueError(f"decode_attention: {name} must be contiguous")
+            raise ValueError(f"{what}: {name} must be contiguous")
         if t.data_ptr() % (4 * t.element_size()) or (name in vector and t.data_ptr() % 16):
-            raise ValueError(f"decode_attention: {name} must start 16-byte and 4-element aligned")
+            raise ValueError(f"{what}: {name} must start 16-byte and 4-element aligned")
 
 
 @functools.lru_cache(maxsize=None)
-def _scratch_bytes(B, S, NH, KVH, Dh, Wp, kv_dtype, path, splits) -> int:
+def _scratch_bytes(B, S, NH, KVH, Dh, Wp, kv_dtype, path, splits, steps=1) -> int:
+    """Bytes of scratch of a launch of ``steps`` steps of S rows (one: a write pass)."""
     lib = _build.library()
-    n = lib.aha_decode_attention_scratch_bytes(B, S, NH, KVH, Dh, Wp, _DTYPES[kv_dtype], path,
-                                               splits)
+    n = lib.aha_decode_attention_steps_scratch_bytes(B, S, steps, NH, KVH, Dh, Wp,
+                                                     _DTYPES[kv_dtype], path, splits)
     if n < 0:
-        raise ValueError(f"decode_attention: no scratch size for {(B, S, NH, KVH, Dh, Wp)}")
+        raise ValueError(f"decode_attention: no scratch size for "
+                         f"{(B, S, steps, NH, KVH, Dh, Wp)}")
     return n
 
 
@@ -293,25 +319,103 @@ def decode_attention(q_rot, k_cache, v_cache, cos, sin, order, g, kv_scales=None
     return out
 
 
-def launch_plan(q_rot, k_cache, v_cache, cos, sin, order, g, kv_scales=None, *, pl: Plan):
-    """The kernels of ``pl`` on CUDA tensors that ``_check`` admits, uncounted
-    (``decode_attention`` counts its own launches): ``chip_smoke.py`` times
-    the plan a path replaced through it. Raises where the plan's path does
-    not take the operands' types or shapes."""
-    B, S, NH, Dh = q_rot.shape
+def plan_steps(steps: int, B: int, N: int, NH: int, KVH: int, Dh: int, Wp: int,
+               q_dtype: torch.dtype, kv_dtype: torch.dtype, *, sms: int = 132) -> Plan:
+    """The plan of each step of ``decode_attention_steps`` over N = ``steps`` x
+    S rows: the write pass's ``plan`` of S rows, path, tiles and splits alike,
+    so that each step's rows sum in its write pass's order (the launch holds
+    ``steps`` x ``blocks`` attention blocks)."""
+    if steps < 1 or N % steps:
+        raise ValueError(f"decode_attention_steps: {N} rows are not {steps} equal steps")
+    return plan(B, N // steps, NH, KVH, Dh, Wp, q_dtype, kv_dtype, sms=sms)
+
+
+def overlaid(k_cache, v_cache, k_infl, v_infl, src):
+    """One step's cache as its write pass sees it: slot w of row b holds
+    in-flight row ``src[b, w]`` where that is >= 0, else the cache's own
+    (a copy; the cache is not written)."""
+    take = (src >= 0)[..., None, None]
+    idx = src.clamp(min=0).long()
+    bidx = torch.arange(src.shape[0], device=src.device)[:, None]
+    return (torch.where(take, k_infl[bidx, idx], k_cache),
+            torch.where(take, v_infl[bidx, idx], v_cache))
+
+
+def decode_attention_steps_plain(q_rot, k_cache, v_cache, k_infl, v_infl, cos, sin, order, g,
+                                 src, *, attend=decode_attention_plain):
+    """The steps one after another, each through ``attend`` (the plain
+    version; ``decode_attention_split_plain`` with the step's plan for the
+    kernels' arithmetic) over its ``overlaid`` copy of the cache: the
+    contract of ``decode_attention_steps``."""
+    steps = src.shape[0]
+    S = q_rot.shape[1] // steps
+    out = []
+    for j in range(steps):
+        rows = slice(j * S, (j + 1) * S)
+        k_j, v_j = overlaid(k_cache, v_cache, k_infl, v_infl, src[j])
+        out.append(attend(q_rot[:, rows], k_j, v_j, cos[j], sin[j], order[j], g[:, rows]))
+    return torch.cat(out, dim=1)
+
+
+def decode_attention_steps(q_rot, k_cache, v_cache, k_infl, v_infl, cos, sin, order, g, src):
+    """The verify pass's attention in one launch: q_rot [B, N, NH, Dh], N =
+    n steps x S rows, rotated at the write positions; one layer's cache
+    [B, Wp, KVH, Dh] (bf16 or f32, keys pre-rotated), READ-ONLY; k_infl /
+    v_infl [B, N, KVH, Dh] the in-flight rows in the cache's dtype (keys
+    pre-rotated); the steps' tables stacked: cos / sin [n, B, Wp, Dh] f32,
+    order [n, B, Wp] int32, g [B, N] int32; src [n, B, Wp] int32, the
+    in-flight row slot w of row b holds in step j's write pass, or -1 for the
+    cache's own. Step j's rows are ``decode_attention`` of them over that
+    cache, bit for bit (the same kernels, plan and order of sums). Returns
+    [B, N, NH, Dh] in q's dtype."""
+    if q_rot.device.type == "cpu":
+        return decode_attention_steps_plain(q_rot, k_cache, v_cache, k_infl, v_infl, cos, sin,
+                                            order, g, src)
+    if q_rot.device.type != "cuda":
+        raise ValueError(f"decode_attention_steps: unsupported device {q_rot.device}")
+    _check(q_rot, k_cache, v_cache, cos, sin, order, g, None, infl=(k_infl, v_infl, src))
+    B, N, NH, Dh = q_rot.shape
     Wp, KVH = k_cache.shape[1], k_cache.shape[2]
+    steps = src.shape[0]
+    pl = plan_steps(steps, B, N, NH, KVH, Dh, Wp, q_rot.dtype, k_cache.dtype,
+                    sms=num_sms(q_rot.device.index or 0))
+    out = launch_plan(q_rot, k_cache, v_cache, cos, sin, order, g, pl=pl,
+                      infl=(k_infl, v_infl, src))
+    LAUNCHES["decode_attention_steps"] += 1
+    PATH_LAUNCHES[f"decode_attention_steps/{PATH_NAMES[pl.path]}/{_SHORT[q_rot.dtype]}-"
+                  f"{_SHORT[k_cache.dtype]}"] += 1
+    return out
+
+
+def launch_plan(q_rot, k_cache, v_cache, cos, sin, order, g, kv_scales=None, *, pl: Plan,
+                infl=None):
+    """The kernels of ``pl`` on CUDA tensors that ``_check`` admits, uncounted
+    (``decode_attention`` and ``decode_attention_steps`` count their own
+    launches): ``chip_smoke.py`` times the plan a path replaced through it.
+    ``infl``: (k_infl, v_infl, src) of ``decode_attention_steps``, ``pl``
+    each step's plan. Raises where the plan's path does not take the
+    operands' types or shapes."""
+    B, N, NH, Dh = q_rot.shape
+    Wp, KVH = k_cache.shape[1], k_cache.shape[2]
+    steps = 1 if infl is None else infl[2].shape[0]
+    S = N // steps
     out = torch.empty_like(q_rot)
-    nbytes = _scratch_bytes(B, S, NH, KVH, Dh, Wp, k_cache.dtype, pl.path, pl.splits)
+    nbytes = _scratch_bytes(B, S, NH, KVH, Dh, Wp, k_cache.dtype, pl.path, pl.splits, steps)
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=q_rot.device) if nbytes else None
     ks, vs = (None, None) if kv_scales is None else (kv_scales[0].data_ptr(),
                                                      kv_scales[1].data_ptr())
+    tail = (None if scratch is None else scratch.data_ptr(), B, S)
     lib = _build.library()
-    err = lib.aha_decode_attention(
-        q_rot.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), cos.data_ptr(),
-        sin.data_ptr(), order.data_ptr(), g.data_ptr(), ks, vs, out.data_ptr(),
-        None if scratch is None else scratch.data_ptr(),
-        B, S, NH, KVH, Dh, Wp, _DTYPES[q_rot.dtype], _DTYPES[k_cache.dtype],
+    if infl is None:
+        entry, what, head = lib.aha_decode_attention, "decode_attention", ()
+    else:
+        entry, what = lib.aha_decode_attention_steps, "decode_attention_steps"
+        head, tail = tuple(t.data_ptr() for t in infl), tail + (steps,)
+    err = entry(
+        q_rot.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), *head, cos.data_ptr(),
+        sin.data_ptr(), order.data_ptr(), g.data_ptr(), ks, vs, out.data_ptr(), *tail,
+        NH, KVH, Dh, Wp, _DTYPES[q_rot.dtype], _DTYPES[k_cache.dtype],
         1.0 / math.sqrt(Dh), pl.path, pl.span, pl.splits,
         ctypes.c_void_p(torch.cuda.current_stream(q_rot.device).cuda_stream))
-    _build.check(lib, err, "decode_attention")
+    _build.check(lib, err, what)
     return out

@@ -19,7 +19,9 @@ scale. ``plan`` chooses the kernel's
 path, token tile, ring and K splits from the shapes alone, so the CPU tests
 hold it: bf16 weight-only, and int8 activations with a bf16 output, at 1 to 16
 rows the decode kernel (one launch whatever M, so a row gives the same bits at
-every width), from 17 rows the wgmma kernel; f32 weight-only from 17 rows the
+every width), from 17 rows the wgmma kernels (bf16 weight-only with K split by
+the weight's shape alone up to 4,096 rows, ``row_free_splits``, so that there
+too a row gives the same bits at every width); f32 weight-only from 17 rows the
 wgmma kernel too, on x split into three bf16 planes (``split_bf16x3``) whose
 products add into one f32 sum (``int8_matmul_x3_plain`` models it); the rest
 the earlier paths.
@@ -138,6 +140,19 @@ WS_STAGE_ROWS = 96
 WS_BLOCK_US = 0.5
 WS_SPLIT_BYTES_PER_US = 1.5e6
 WS_REDUCE_US = 1.0
+# bf16 x weight-only from 17 rows splits K by the weight's shape alone
+# (``row_free_splits``): both wgmma kernels add a split's stages in one order and the
+# splits in split order, so a row gets the same bits whatever the rows beside it and
+# whichever of the two kernels its row count takes (on an H100 the decode kernel's rows
+# too were those bits at equal splits; its own splits serve a token's latency). A
+# stream's frame is one frame step (49 rows at B 1), a quarter of a fused pass (196)
+# and a row of a batch of 8 (392, 1,568), and its scores are held to each other across
+# these (chip_smoke.py phase 7). The split count is the one whose estimate summed over
+# these row counts is least. Above ROW_FREE_MAX_M rows (only the vision tower's batches
+# of 8 frames and more), the launch of least estimate: there the estimate puts fc2's
+# row-free four splits (K 4,096) at 2.2 times one split's time for a 32-frame batch.
+ROW_FREE_M = (49, 196, 392, 1568)
+ROW_FREE_MAX_M = 4096
 # bytes of a decode ring slot: the x tile (16 rows) and the weight rows
 DECODE_SLOTS = {a8: 16 * _X_ROW[a8] + _W_STAGE[a8] for a8 in (False, True)}
 # the decode ring for grids of more than one round: the one that holds three blocks an SM
@@ -202,7 +217,8 @@ def wgmma_ring(tile: int, a8: bool = False, planes: int = 1) -> tuple[int, int]:
 
 
 def wgmma_splits(places: int, blocks: int, stages: int) -> int:
-    """K splits of the wgmma kernel (whole stages of 64 rows): a grid smaller
+    """K splits of the wgmma kernel for int8 x and an f32 x's planes (bf16 x
+    weight-only takes ``row_free_splits``; whole stages of 64 rows): a grid smaller
     than one round of resident blocks (``places``) is split as far as still
     fits one round, 8 stages a split at least (qkv at 49 rows: 36 column blocks
     in 7 splits). A larger grid is not split: the partials of a split cost M N 8
@@ -273,34 +289,58 @@ def ws_ring(tile: int, bits: int = 8) -> tuple[int, int]:
 
 
 def ws_launch(M: int, stages: int, N: int, sms: int, tiles: tuple[int, ...],
-              unit: int = 1) -> tuple[int, int, int]:
+              unit: int = 1, splits: int | None = None) -> tuple[int, int, int]:
     """(tile, token tiles, K splits) of the warp-specialised kernel for M rows, a
     K of ``stages`` 64-row stages split in whole ``unit``s of stages (int4: a
     group), N columns (blocks of 128), one block an SM: the choice among the
-    token tiles ``tiles`` and 1 .. 16 splits whose estimated time (the WS_*
-    constants) is least, fewer splits and wider tiles first where equal. A
-    grid smaller than the card is split or cut into narrower token tiles; one of
-    a few rounds keeps its tail."""
-    cb = -(-N // 128)
+    token tiles ``tiles`` and 1 .. 16 splits (``splits``: that many, the tile
+    alone chosen) whose estimated time (``ws_estimate``) is least, fewer splits
+    and wider tiles first where equal. A grid smaller than the card is split or
+    cut into narrower token tiles; one of a few rounds keeps its tail."""
     units = stages // unit
+    counts = range(1, min(units, 16) + 1) if splits is None else (splits,)
     best = None
     for tile in tiles:
-        n_tiles = -(-M // tile)
-        stage_us = (tile + WS_STAGE_ROWS) * WS_ROW_US
-        for splits in range(1, min(units, 16) + 1):
-            per = -(-units // splits) * unit
-            t = -(-(n_tiles * cb * splits) // sms) * (per * stage_us + WS_BLOCK_US)
-            if splits > 1:
-                t += splits * M * N * 8 / WS_SPLIT_BYTES_PER_US + WS_REDUCE_US
-            key = (t, splits, -tile)
+        for n in counts:
+            key = (ws_estimate(M, stages, N, sms, tile, n, unit), n, -tile)
             if best is None or key < best[0]:
-                best = (key, tile, n_tiles, splits)
+                best = (key, tile, -(-M // tile), n)
     return best[1], best[2], best[3]
 
 
+def ws_estimate(M: int, stages: int, N: int, sms: int, tile: int, splits: int,
+                unit: int = 1) -> float:
+    """The WS_* constants' estimate (microseconds) of a warp-specialised launch
+    at token tile ``tile`` and ``splits`` K splits of whole ``unit``s of
+    stages."""
+    per = -(-(stages // unit) // splits) * unit
+    stage_us = (tile + WS_STAGE_ROWS) * WS_ROW_US
+    t = -(-(-(-M // tile) * -(-N // 128) * splits) // sms) * (per * stage_us + WS_BLOCK_US)
+    if splits > 1:
+        t += splits * M * N * 8 / WS_SPLIT_BYTES_PER_US + WS_REDUCE_US
+    return t
+
+
+@functools.lru_cache(maxsize=None)
+def row_free_splits(K: int, N: int, sms: int) -> int:
+    """The K splits of bf16 x weight-only from 17 to ROW_FREE_MAX_M rows on
+    either wgmma kernel, from the weight's shape alone (never from M): the
+    count, 1 .. 16 of whole
+    stages, whose estimated warp-specialised launch (``ws_estimate`` at its best
+    tile) summed over the ROW_FREE_M row counts is least. On the 7B: qkv, o_proj
+    and gate_up 1, down 2."""
+    stages = K // 64
+    return min(range(1, min(stages, 16) + 1),
+               key=lambda n: (sum(min(ws_estimate(M, stages, N, sms, t, n) for t in WS_TILES)
+                                  for M in ROW_FREE_M), n))
+
+
 def ws_plan(M: int, K: int, N: int, sms: int) -> Plan:
-    """The warp-specialised launch of an int8 weight (bf16 x, weight-only)."""
-    tile, tiles, splits = ws_launch(M, K // 64, N, sms, WS_TILES)
+    """The warp-specialised launch of an int8 weight (bf16 x, weight-only), K
+    split as ``row_free_splits`` says up to ROW_FREE_MAX_M rows."""
+    tile, tiles, splits = ws_launch(
+        M, K // 64, N, sms, WS_TILES,
+        splits=row_free_splits(K, N, sms) if M <= ROW_FREE_MAX_M else None)
     stages, smem = ws_ring(tile)
     return Plan(WGMMA_WS, splits, tile, tiles, stages, smem)
 
@@ -348,12 +388,15 @@ def plan(M: int, K: int, N: int, *, bf16: bool, a8: bool = False,
 def wgmma_plan(M: int, K: int, N: int, a8: bool = False, sms: int = 132) -> Plan:
     """The launch of the one-warpgroup wgmma kernel (bf16 or int8 x, bf16
     output) at M >= 17 rows: a token tile of at most 128 rows (int8 x: among the
-    s8 widths), its ring, K split as ``wgmma_splits`` says. bf16 x weight-only
-    takes it below WS_MIN_M rows; ``chip_smoke.py`` also launches it above, to
-    time the kernel the warp-specialised one replaced there."""
+    s8 widths), its ring, K split as ``row_free_splits`` says for bf16 x and as
+    ``wgmma_splits`` says for int8 x (whose exact integer sums no split order
+    changes). bf16 x weight-only takes it below WS_MIN_M rows; ``chip_smoke.py``
+    also launches it above, to time the kernel the warp-specialised one
+    replaced there."""
     tile, tiles = token_tile(M, WGMMA_TILE_CAP, WGMMA_A8_TILES if a8 else None)
     stages, smem = wgmma_ring(tile, a8)
-    splits = wgmma_splits(blocks_per_sm(tile) * sms, tiles * -(-N // 128), K // 64)
+    splits = (wgmma_splits(blocks_per_sm(tile) * sms, tiles * -(-N // 128), K // 64) if a8
+              else row_free_splits(K, N, sms))
     return Plan(WGMMA, splits, tile, tiles, stages, smem)
 
 

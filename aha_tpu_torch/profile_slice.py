@@ -27,8 +27,8 @@ fused passes of 4 frames, as JAX runs ``--int4`` with ``AHA_QUANT_MATMUL=fused_a
               commit (``score_video``);
   verify S    8 verify passes of S = 4 and of S = 8 candidate tokens
               (plans, embedding, decoder, lm_head, no commit), the pass
-              ``generate_spec`` runs (its attention replayed through the
-              cached-attention kernel);
+              ``generate_spec`` runs (its attention the steps' write
+              passes in one launch of the cached-attention kernels a layer);
   token       greedy generation: a ``generate`` with a budget of 33 tokens
               minus one with a budget of 1, each on a copy of the same
               cache, so that only the 32 S = 1 passes remain.
@@ -106,7 +106,7 @@ from torch.profiler import ProfilerActivity, profile
 VISION_FRAMES = 32
 GEN_TOKENS = 32
 # the cached attention's kernels (csrc/decode_attention.cu), listed in the write
-# passes' tables with their calls per unit, launched or not
+# passes' and the verify passes' tables with their calls per unit, launched or not
 DECODE_KERNELS = ("decode_attention_kernel", "decode_attention_wgmma_kernel",
                   "decode_attention_wgmma_f32_kernel", "decode_rotate_keys_kernel",
                   "decode_merge_kernel")
@@ -343,7 +343,7 @@ def _trace_verify(label, engine, cfg, cache, S, named):
                 cache, engine.policy, torch.full((B,), S, dtype=torch.int32, device="cuda"), S)
             hidden, _, _ = qwen2.decode_chunk_spec(
                 llm, cfg.llm, engine.policy, cache, qwen2.embed_tokens(llm, ids, engine.dtype),
-                plans, backend=engine.backend, replay=not cache.quantized)
+                plans, backend=engine.backend)
             qwen2.lm_logits(llm, cfg.llm, hidden, engine.backend).float().argmax(-1).cpu()
 
     tr = Trace()
@@ -406,7 +406,7 @@ def profile_serving(path: str, seed: int, n: int) -> None:
     _trace_frames(path, engine, cache, rows, t, n)
     _trace_fused(path, engine, cache, rows, t + 2 * n, n, K)
     for S in (4, 8):
-        _trace_verify(path, engine, cfg, cache, S, MATMUL_DECODE_KERNELS[path])
+        _trace_verify(path, engine, cfg, cache, S, DECODE_KERNELS + MATMUL_DECODE_KERNELS[path])
     _trace_tokens(path, engine, tok, cache, named=DECODE_KERNELS + MATMUL_DECODE_KERNELS[path])
 
 
@@ -426,7 +426,7 @@ def profile_serve8(seed: int, n: int) -> None:
     label = f"serve8 (B={B}, stream at {int(cache.seen[0])} tokens a row)"
     _trace_frames(label, engine, cache, rows, t, n)
     _trace_fused(label, engine, cache, rows, t + 2 * n, n, K)
-    _trace_verify(label, engine, cfg, cache, 4, MATMUL_DECODE_KERNELS["int8"])
+    _trace_verify(label, engine, cfg, cache, 4, DECODE_KERNELS + MATMUL_DECODE_KERNELS["int8"])
     _trace_tokens(label, engine, tok, cache, named=DECODE_KERNELS + MATMUL_DECODE_KERNELS["int8"])
 
 

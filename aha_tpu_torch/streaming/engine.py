@@ -207,9 +207,12 @@ class StreamEngine(TriggerLoops, ServeLoop):
                                   lora_scale=self.lora_scale, sh=self._llm_sh,
                                   lora_sh=self.lora_sh)
 
-    def _verify(self, cache: KVCache, embeds: torch.Tensor, plans, replay: bool = False):
+    def _verify(self, cache: KVCache, embeds: torch.Tensor, plans):
+        """The read-only verify pass, its attention replayed on a bf16 or f32
+        cache (each row the bits of its sequential pass) and composed on an
+        int8 one, as JAX composes it."""
         return qwen2.decode_chunk_spec(self.params["llm"], self.cfg.llm, self.policy, cache,
-                                       embeds, plans, backend=self.backend, replay=replay,
+                                       embeds, plans, backend=self.backend,
                                        lora=self.lora, lora_scale=self.lora_scale,
                                        sh=self._llm_sh, lora_sh=self.lora_sh)
 
@@ -276,7 +279,10 @@ class StreamEngine(TriggerLoops, ServeLoop):
 
         The verify pass over plans composed with ``step=F`` reproduces k
         sequential ``decode_chunk(F)`` steps exactly, for every policy and
-        fill state, while streaming the weights once. ``n_active`` [B]:
+        fill state, while streaming the weights once; on a bf16 or f32 cache
+        its attention is the steps' write passes replayed in one launch of
+        the cached-attention kernel (``replayed_attention``), each frame's
+        rows with the bits of its own pass. ``n_active`` [B]:
         frames of each row that are real, a per-row prefix (the padded tail
         of a stream); their scores are garbage."""
         B, k, F, H = frame_embeds.shape
@@ -314,8 +320,9 @@ class StreamEngine(TriggerLoops, ServeLoop):
         weight stream (the tail padded with inactive frames). ``active``
         [B, T] bool, a per-row prefix: the frames of a ragged batch that are
         real (the others are appended by nobody; their scores are garbage).
-        The fused form reads one scalar per pass (the verify pass's gate);
-        the per-frame form has no host sync inside the loop."""
+        Neither form has a host sync inside the loop on a bf16 or f32 cache
+        (on an int8 one the fused form reads one scalar a pass: the composed
+        verify pass's gate)."""
         B, T = frames.shape[:2]
         if T == 0:
             return torch.zeros((B, 0, 3), device=self.device)
@@ -426,7 +433,8 @@ class StreamEngine(TriggerLoops, ServeLoop):
         only, never fed to the model. The width is ``spec_tokens``, or
         ``spec_max`` while the acceptance EMA (kept across calls, one for
         the whole batch) is above ``SPEC_EMA_HI``. One host read per pass
-        (rows still decoding, tokens committed), plus the verify pass's gate.
+        (rows still decoding, tokens committed), plus the composed verify
+        pass's gate on an int8 cache.
         MUTATES ``cache`` and ``counts``. Returns what ``generate`` returns;
         ``self.last_spec_info`` = (passes, committed tokens, EMA) of this
         call."""
@@ -465,10 +473,8 @@ class StreamEngine(TriggerLoops, ServeLoop):
             plan_valid = torch.where(rows, S, 0).to(torch.int32)
             plans = spec_decode.plan_compose(cache, self.policy, plan_valid, S)
             embeds = self._embed(chunk)
-            # the sequential passes' attention replayed, so that every position's
-            # bits are its sequential pass's (an int8 cache composes, as in JAX)
-            hidden, infl_k, infl_v = self._verify(cache, embeds, plans,
-                                                  replay=not cache.quantized)
+            # every position's bits are its sequential pass's (``_verify``)
+            hidden, infl_k, infl_v = self._verify(cache, embeds, plans)
             logits = self._logits(hidden)                                      # [B, S, V]
 
             reach = rows                      # position p reached and writable

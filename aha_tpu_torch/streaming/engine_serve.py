@@ -202,9 +202,7 @@ class ServeLoop:
                 chunk = torch.cat([tok[:, None], drafts], dim=1)
                 plans = spec_decode.plan_compose(cache, self.policy,
                                                  torch.where(decoding, Sw, 0).to(torch.int32), Sw)
-                hidden, infl_k, infl_v = self._verify(
-                    cache, self._embed(chunk), plans,
-                    replay=not cache.quantized)
+                hidden, infl_k, infl_v = self._verify(cache, self._embed(chunk), plans)
                 logits = self._logits(hidden)                                 # [B, Sw, V]
                 reach = decoding            # chunk[:, p] is fed as the sequential loop would
                 m_cache = torch.zeros((B,), dtype=torch.int32, device=dev)

@@ -89,7 +89,13 @@ Phases, one or more lines each:
      times (CUDA events; weights cycled through > L2 worth of copies), the
      bound (the larger of bytes moved / 3.35 TB/s and operations / the
      published dense peak of their type: 989 TFLOP/s bf16, 1979 TOP/s int8,
-     67 TFLOP/s f32) and the library call's time where there is one;
+     67 TFLOP/s f32) and the library call's time where there is one; the
+     verify pass's attention in one launch (decode_attention_steps) at the
+     7B's verify shapes, bit for bit the loop of write passes it replaced,
+     each batch row bit for bit its launch alone, timed beside both routes
+     it replaced; int8_matmul (bf16 x weight-only) at the layer's four
+     weights: the rows of 17, 49, 196 and 392 equal bit for bit to the first
+     rows of 1,568 (K split by the weight's shape alone);
   3. the tiny preset's whole slice on the card (kernels) and on the CPU
      (plain versions) from the same seeded weights: int8 at widths 1, int4 at
      the product widths (fused scoring of 4 frames, speculative generation
@@ -199,7 +205,11 @@ Phases, one or more lines each:
           otherwise empty batch equal bit for bit; the tolerance's place
           measured in the same run: solo fused 1 against fused 4 (the noise of
           another product plan) must fit in it, a frame off by one and two
-          rows swapped (faults) must not;
+          rows swapped (faults) must not; the batch against solo at fused 1
+          (every frame a write pass) reported beside them (the products split
+          K and the cached attention its window alike at every row count and
+          batch, so a stream's scores are the same bits batched or alone, fused
+          or not);
        a. MultiStreamServer(batch=8) over 12 requests of 24-64 frames sliced
           from the stream at different offsets, queries at t = 0 and on some
           mid-stream, the prob rule on some and the sum rule on others through
@@ -307,8 +317,10 @@ Phases, one or more lines each:
 
 Prints the kernels' JSON line and, last, {"ok": true, "device": ...}.
 Exits nonzero, with no result line, when there is no CUDA device, when the
-package is missing, or when any phase fails. Imports nothing of JAX and
-nothing of aha_tpu.
+package is missing, or when any phase fails. A failed comparison of phase 7
+is printed as a FAILED line and the run goes on through the later phases; it
+then exits 1 at its end. `--batch_gaps` prints phase 7b's readings alone.
+Imports nothing of JAX and nothing of aha_tpu.
 """
 
 from __future__ import annotations
@@ -343,6 +355,10 @@ KERNELS = {
     "split_bf16x3": (CSRC + "quantize_rows.cu", FUSED_TPU + ":50"),
     "decode_attention": (CSRC + "decode_attention.cu",
                          "aha_tpu/ops/pallas/decode_attention.py:131"),
+    # the verify pass's steps side by side in one launch of the same kernels: the TPU
+    # kernel applied step after step, as the sequential passes the pass composes run it
+    "decode_attention_steps": (CSRC + "decode_attention.cu",
+                               "aha_tpu/ops/pallas/decode_attention.py:131"),
     "flash_attention_fwd": (CSRC + "flash_attention.cu", FLASH_TPU),
     "flash_attention_bwd": (CSRC + "flash_attention.cu", FLASH_TPU),
 }
@@ -437,6 +453,7 @@ class Stats:
         self.checked = set()     # (kernel, M, K, N) or (kernel, S) held against the plain version
         self.train_fwd_ms = 0.0  # int4_matmul, a layer's four products at the training rows
         self.native_ops = []     # the collectives gloo took on CUDA tensors in phase 1
+        self.failures = []       # phase 7's failed comparisons: the run fails at its end
 
     def err(self, name, e):
         self.k[name]["err"] = max(self.k[name]["err"], e)
@@ -450,6 +467,10 @@ class Stats:
         if library_ms is not None:
             k["library_ms"] = (k["library_ms"] or 0.0) + library_ms
         k["shape"] = shape
+
+    def fail(self, msg: str):
+        print(f"FAILED {msg}", flush=True)
+        self.failures.append(msg)
 
     def launches(self, counts):
         for n, c in counts.items():
@@ -1489,6 +1510,237 @@ def check_attention(gen, stats: Stats):
               f"({by}){note} library_ms=none", flush=True)
 
 
+def replay_loop(q_rot, k_cache, v_cache, k_infl, v_infl, slots, steps):
+    """The verify pass's attention as the sequential passes compute it, one
+    write pass after another: each composed step's in-flight rows written into
+    their slots of the layer's cache, its rows attended through
+    ``decode_attention`` with its own tables, the slots restored at the end
+    (on the cache it is given)."""
+    import torch
+
+    from aha_tpu_torch.ops.kernels import decode_attention as da
+
+    B, N = slots.shape
+    step = N // len(steps)
+    bidx = torch.arange(B, device=q_rot.device)[:, None]
+    every = (bidx, slots.long())
+    old_k, old_v = k_cache[every], v_cache[every]
+    out = []
+    for j, t in enumerate(steps):
+        rows = slice(j * step, (j + 1) * step)
+        mine = (bidx, slots[:, rows].long())
+        k_cache[mine] = k_infl[:, rows]
+        v_cache[mine] = v_infl[:, rows]
+        out.append(da.decode_attention(q_rot[:, rows].contiguous(), k_cache, v_cache, t.d_cos,
+                                       t.d_sin, t.mask_order, t.mask_g))
+    k_cache[every], v_cache[every] = old_k, old_v
+    return torch.cat(out, dim=1)
+
+
+def steps_inputs(gen, B, n, step, NH, KVH, qdt, kvdt, prefill, valid):
+    """One layer of the product's sink cache (2,048 + 32 sinks, 2,049 slots) at the 7B's
+    head size, keys and values random, its metadata after ``prefill`` tokens in write
+    passes of 49; the plans of a verify pass of ``n`` steps of ``step`` rows (``valid``
+    rows a batch row), its tables (``step_tables``), q unrotated and rotated as
+    ``replayed_attention`` rotates it, and the in-flight rows, keys pre-rotated."""
+    import torch
+
+    from aha_tpu_torch.ops import attention, kv_cache, spec_decode
+    from aha_tpu_torch.ops.rope import apply_rope
+
+    policy = kv_cache.CachePolicy("sink", window=2048, num_sink=32)
+    cache = kv_cache.init_cache(policy, num_layers=1, batch=B, num_kv_heads=KVH, head_dim=128,
+                                dtype=kvdt, device="cuda")
+    for t in (cache.k, cache.v):
+        t.copy_(torch.randn(t.shape, generator=gen, device="cuda").to(kvdt))
+    left = prefill
+    while left > 0:
+        c = min(49, left)
+        kv_cache.advance(cache, kv_cache.plan_update(
+            cache, policy, torch.full((B,), c, dtype=torch.int32, device="cuda"), c))
+        left -= c
+    N = n * step
+    plans = spec_decode.plan_compose(cache, policy, torch.tensor(valid, dtype=torch.int32,
+                                                                 device="cuda"), n, step=step)
+    tables = attention.step_tables(plans, policy, 128, STEPS_THETA)
+    q = torch.randn((B, N, NH, 128), generator=gen, device="cuda").to(qdt)
+    k, v = (torch.randn((B, N, KVH, 128), generator=gen, device="cuda").to(qdt)
+            for _ in range(2))
+    k_rot = apply_rope(k.float(), tables.w_cos, tables.w_sin).to(qdt)
+    q_rot = apply_rope(q.float(), tables.w_cos, tables.w_sin).to(qdt)
+    if qdt == torch.bfloat16 and kvdt == torch.float32:
+        q_rot = q_rot.float()
+    return policy, cache, plans, tables, q, q_rot.contiguous(), k_rot, v
+
+
+STEPS_THETA = 1e6    # the 7B's rope_theta
+
+
+def check_attention_steps(gen, stats: Stats):
+    """``decode_attention_steps`` (the verify pass's attention in one launch) at the
+    shapes of the 7B's verify passes, on the product's sink cache past its fill (and in
+    its fill transient): bit for bit the loop it replaced (``replay_loop``: each
+    step's rows written into the cache and attended through ``decode_attention``),
+    equal bits twice, the cache untouched, within 1e-2 x max (bf16) / 1e-4 (f32) of
+    the plain version; timed beside the plain version and both routes it replaced,
+    the loop and the composed ``speculative_attention`` (one softmax over cache and
+    in-flight columns, which fused scoring ran), K / V cycled past L2, each
+    from a replayed CUDA graph."""
+    import torch
+
+    from aha_tpu_torch.ops import attention
+    from aha_tpu_torch.ops.kernels import decode_attention as da
+    from aha_tpu_torch.ops.kernels.int8_matmul import num_sms
+
+    bf, f32 = torch.bfloat16, torch.float32
+    F = 49
+    world = p11_world()
+    # (label, B, steps, rows a step, q heads, kv heads, q, kv, prefill, valid rows, timed):
+    # fused scoring (4 frames; 8 under --w8a8 and the chunked loop's fused 8; 50 tokens
+    # with a CLS token), speculative generation (4 and 8 tokens), B 1 and 8, f32 q behind a
+    # peft artifact's f32 projector over the bf16 cache and phase 6's f32 traces over an
+    # f32 cache, bf16 q over an f32 cache, a rank's heads at phase 11a's model width,
+    # ragged rows, the sink cache in its fill transient
+    seven = dict(NH=28, KVH=4, q=bf, kv=bf, prefill=2500, valid=None, timed=False)
+    cases = [dict(seven, label="7b-fused", B=1, n=4, step=F, timed=True),
+             dict(seven, label="7b-b8-fused", B=SERVE_B, n=4, step=F, timed=True),
+             dict(seven, label="7b-f32-fused", B=1, n=4, step=F, q=f32, timed=True),
+             dict(seven, label="7b-spec", B=1, n=4, step=1, timed=True),
+             dict(seven, label="7b-spec", B=1, n=8, step=1, timed=True),
+             dict(seven, label="7b-b8-spec", B=SERVE_B, n=4, step=1, timed=True),
+             dict(seven, label="7b-b8-spec", B=SERVE_B, n=8, step=1),
+             dict(seven, label="7b-f32-f32-fused", B=1, n=4, step=F, q=f32, kv=f32),
+             dict(seven, label="7b-bf16q-f32kv", B=1, n=4, step=F, kv=f32),
+             dict(seven, label="7b-bf16q-f32kv", B=1, n=4, step=1, kv=f32),
+             dict(seven, label="7b-fused8", B=1, n=8, step=F),
+             dict(seven, label="7b-cls-fused", B=1, n=4, step=F + 1),
+             dict(seven, label="7b-ragged", B=2, n=4, step=F, valid=(4 * F, 2 * F)),
+             dict(seven, label="7b-ragged", B=2, n=4, step=1, valid=(4, 1)),
+             dict(seven, label="7b-fill-transient", B=1, n=4, step=F, prefill=2048 + 32 - 120),
+             dict(seven, label="7b-fill-transient", B=1, n=8, step=1, prefill=2048 + 32 - 5)]
+    local = dict(seven, NH=28 // world, KVH=4 // world)
+    cases += [dict(local, label="7b-b8-tp", B=SERVE_B, n=n, step=st)
+              for n, st in ((4, F), (4, 1), (8, 1))]
+    sms = num_sms(0)
+    for c in cases:
+        label, B, n, step, NH, KVH, qdt, kvdt = (c[k] for k in (
+            "label", "B", "n", "step", "NH", "KVH", "q", "kv"))
+        N = n * step
+        valid = c["valid"] or (N,) * B
+        policy, cache, plans, t, q, q_rot, k_rot, v = steps_inputs(
+            gen, B, n, step, NH, KVH, qdt, kvdt, c["prefill"], valid)
+        kc, vc = cache.k[0], cache.v[0]
+        ki, vi = k_rot.to(kvdt).contiguous(), v.to(kvdt).contiguous()
+        args = (q_rot, kc, vc, ki, vi, t.d_cos, t.d_sin, t.mask_order, t.mask_g, t.src)
+        what = f"decode_attention_steps {label} B={B} steps={n}x{step} NH={NH} KVH={KVH}"
+        tol = 1e-2 if q_rot.dtype == bf else 1e-4
+        pl = da.plan_steps(n, B, N, NH, KVH, 128, 2049, q_rot.dtype, kvdt, sms=sms)
+        if pl != da.plan(B, step, NH, KVH, 128, 2049, q_rot.dtype, kvdt, sms=sms):
+            raise AssertionError(f"{what}: a step's plan is not its write pass's")
+        before = (kc.clone(), vc.clone())
+        y = da.decode_attention_steps(*args)
+        steps = [attention.chunk_tables(p, policy, 128, STEPS_THETA) for p in plans.steps]
+        ref_loop = replay_loop(q_rot, kc.clone(), vc.clone(), ki, vi, plans.slots, steps)
+        ref = da.decode_attention_steps_plain(*args)
+        torch.cuda.synchronize()
+        err = rel_check(what, y, ref, tol)
+        if not torch.equal(y, ref_loop):
+            raise AssertionError(f"{what}: differs from the replay loop through decode_attention "
+                                 f"by up to {(y.float() - ref_loop.float()).abs().max().item():.3e}")
+        if not torch.equal(y, da.decode_attention_steps(*args)):
+            raise AssertionError(f"{what}: two launches on the same inputs differ")
+        if not (torch.equal(kc, before[0]) and torch.equal(vc, before[1])):
+            raise AssertionError(f"{what}: the cache was written")
+        alone = ""
+        if B > 1:
+            # each batch row is its launch alone, bit for bit: the splits follow no batch
+            for b in range(B):
+                one = [a[b:b + 1] for a in args[:5]] + [a[:, b:b + 1].contiguous()
+                                                        for a in args[5:8]]
+                y_b = da.decode_attention_steps(*one, args[8][b:b + 1],
+                                                args[9][:, b:b + 1].contiguous())
+                if not torch.equal(y[b:b + 1], y_b):
+                    raise AssertionError(f"{what}: batch row {b} differs from its launch alone")
+            alone = " rows_equal_alone"
+        stats.err("decode_attention_steps", err)
+        key = (("decode_attention_steps", n, step, 2049)
+               + (("f32",) if q_rot.dtype == f32 else ()) + ((f"B{B}",) if B > 1 else ())
+               + ((f"H{NH}",) if NH != 28 else ()))
+        stats.checked.add(key)
+        head = (f"phase2 {what} q={_dt(q_rot.dtype)} kv={_dt(kvdt)} max_abs_err={err:.3e} "
+                f"(of max|y_ref| {ref.float().abs().max().item():.3e}) path="
+                f"{da.PATH_NAMES[pl.path]} splits={pl.splits}x{pl.span} blocks={n}x{pl.blocks} "
+                f"equal_to_loop equal_twice cache_untouched{alone}")
+        if not c["timed"]:
+            print(f"{head} (held, not timed)", flush=True)
+            continue
+        kv_bytes = 2 * kc.numel() * kc.element_size()
+        copies = max(12, min(64, math.ceil(100e6 / kv_bytes)))
+        kvs = [(kc.clone(), vc.clone()) for _ in range(copies)]
+        run = lambda i: da.decode_attention_steps(q_rot, *kvs[i % copies], *args[3:])
+        loop_run = lambda i: replay_loop(q_rot, *kvs[i % copies], ki, vi, plans.slots, steps)
+        exact = bool(plans.exact)
+        spec = attention.spec_tables(plans, True, 128, STEPS_THETA, exact)
+        composed = lambda i: attention.speculative_attention(q, *kvs[i % copies], k_rot, v, spec,
+                                                             sink_slots=policy.num_sink)
+        # device time from replayed graphs, the kernel and both routes alike (the routes'
+        # many small launches would time the host), events around host calls beside it
+        loop = cuda_ms(run)
+        ms, loop_ms, composed_ms = graph_ms(run), graph_ms(loop_run), graph_ms(composed)
+        pms = cuda_ms(lambda i: da.decode_attention_steps_plain(*args), iters=3, warmup=1)
+        del kvs
+        # q in, out, the cache's K and V, the in-flight rows, the steps' tables (two rotation
+        # tables, order and sources a step) and g; scores and weighted values over the slots
+        # each step's mask admits
+        nbytes = sum(x.numel() * x.element_size() for x in args) + y.numel() * y.element_size()
+        visible = sum(((t.mask_order[j][:, None, :] >= 0)
+                       & (t.mask_order[j][:, None, :] <= t.mask_g[:, j * step:(j + 1) * step, None]))
+                      .sum().item() for j in range(n))
+        if pl.path == da.WGMMA_F32:
+            planes = 5 + (4 if kvdt == f32 else 3)
+            bms, by = bound_ms(nbytes, planes * 2.0 * visible * NH * 128, "bf16")
+        else:
+            bms, by = bound_ms(nbytes, 4.0 * visible * NH * 128, "bf16" if q_rot.dtype == bf
+                               else "f32")
+        if label == "7b-fused":
+            stats.add("decode_attention_steps", ms, pms, bms, by, None,
+                      "a fused pass's layer: 4 steps of 49 rows, 28 heads over 2049 slots, bf16")
+        print(f"{head} kernel_ms={ms:.4f} loop_ms={loop:.4f} kv_copies={copies} "
+              f"plain_ms={pms:.4f} bound_ms={bms:.4f} ({by}) replaced_loop_ms={loop_ms:.4f} "
+              f"replaced_composed_ms={composed_ms:.4f} (exact branch {exact}) library_ms=none",
+              flush=True)
+
+
+def check_row_free_products(gen, stats: Stats):
+    """bf16 x weight-only ``int8_matmul`` from 17 rows splits K by the weight's shape
+    alone (``row_free_splits``), on the one-warpgroup and the warp-specialised
+    kernel alike: at the decoder layer's four weights, rows 0 .. M - 1 of a product
+    of 1,568 rows (B 8's fused pass) are the product of those M rows alone, bit for
+    bit, at a prompt's 17 rows, a frame step's 49, a fused pass's 196 and B 8's frame
+    step's 392."""
+    import torch
+
+    from aha_tpu_torch.ops.kernels import int8_matmul as k8
+
+    sms = k8.num_sms(0)
+    for name, K, N in LAYER:
+        x = torch.randn((1568, K), generator=gen, device="cuda").to(torch.bfloat16)
+        w = torch.randint(-127, 128, (K, N), generator=gen, device="cuda", dtype=torch.int8)
+        sc = (torch.rand((N,), generator=gen, device="cuda") + 0.5) * 0.01
+        y = k8.int8_matmul(x, w, sc)
+        plans = []
+        for M in (17, 49, 196, 392, 1568):
+            pl = k8.plan(M, K, N, bf16=True, sms=sms)
+            plans.append(f"{M}:{k8.PATH_NAMES[pl.path]}/{pl.tile}x{pl.tiles}/{pl.splits}")
+            if M < 1568 and not torch.equal(k8.int8_matmul(x[:M], w, sc), y[:M]):
+                raise AssertionError(f"int8_matmul {name}: the first {M} rows of 1568 differ "
+                                     f"from their product alone ({plans[-1]})")
+        print(f"phase2 int8_matmul {name} K={K} N={N} rows of 17, 49, 196 and 392 equal bit "
+              f"for bit to the first rows of 1568 (path/tile x tiles/splits {' '.join(plans)}; "
+              f"row_free_splits {k8.row_free_splits(K, N, sms)})", flush=True)
+        del x, w
+
+
 def check_int4_matmul_t(gen, stats: Stats):
     """``int4_matmul_t`` (g @ W^T, the backward of ``int4_qlinear``) against
     its plain version: the four layer products transposed at the training
@@ -2237,6 +2489,29 @@ class PassCounter:
         self.qwen2.decode_chunk, self.qwen2.decode_chunk_spec = self.saved
 
 
+class ComposedCounter:
+    """Counts the verify passes' layers that reach the composed
+    ``speculative_attention`` (the plain PyTorch one softmax over cache and
+    in-flight columns, left for an int8 cache) by wrapping the name
+    ``decode_chunk_spec`` calls it by."""
+
+    def __init__(self):
+        from aha_tpu_torch.models import qwen2
+
+        self.qwen2, self.saved, self.calls = qwen2, qwen2.speculative_attention, 0
+
+    def __enter__(self):
+        def counted(*a, **k):
+            self.calls += 1
+            return self.saved(*a, **k)
+
+        self.qwen2.speculative_attention = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.qwen2.speculative_attention = self.saved
+
+
 class ShapeRecorder:
     """Records the shapes the model hands each kernel's wrapper (matmuls and
     the activation quantiser behind them: rows, K, N; attention: query rows,
@@ -2266,6 +2541,9 @@ class ShapeRecorder:
                       (remat, "int8_matmul"), (remat, "flash_attention_fwd"),
                       (remat, "flash_attention_bwd")]
         self.saved = [getattr(mod, name) for mod, name in self.sites]
+        # the verify pass's attention (replayed_attention's one launch)
+        self.attention = attention
+        self.steps_saved = attention.decode_attention_steps
 
     def _matmul(self, fn, name):
         def recorded(x, w, scale, a8=False):
@@ -2302,6 +2580,18 @@ class ShapeRecorder:
             return attend(q, k, *a, **kw)
 
         setattr(mod, name, recorded_attention)
+        steps_attend = self.steps_saved
+
+        def recorded_steps(q, k, *a):
+            n = a[-1].shape[0]              # src [steps, B, Wp]
+            f32 = ("f32",) if q.dtype == self.f32 else ()
+            rows = (f"B{q.shape[0]}",) if q.shape[0] > 1 else ()
+            heads = (f"H{q.shape[2]}",) if q.shape[2] != 28 else ()
+            self.seen.add(("decode_attention_steps", n, q.shape[1] // n, k.shape[1]) + f32 + rows
+                          + heads)
+            return steps_attend(q, k, *a)
+
+        self.attention.decode_attention_steps = recorded_steps
         setattr(*self.sites[4], self._matmul(self.saved[4], "int4_matmul"))
         transposed = self.saved[5]
 
@@ -2321,6 +2611,7 @@ class ShapeRecorder:
     def __exit__(self, *exc):
         for (mod, name), fn in zip(self.sites, self.saved):
             setattr(mod, name, fn)
+        self.attention.decode_attention_steps = self.steps_saved
 
 
 def run_inference(params, cfg, tok, frames, rule, widths, backend="fused", chunked=True,
@@ -2442,7 +2733,14 @@ def phases_4_to_10(gpu: str, seed: int, stats: Stats, phases: set):
     phase2_ran = 2 in phases
     with ShapeRecorder() as rec:
         if 4 in phases:
-            drive_7b_paths(gpu, seed, stats)
+            with ComposedCounter() as composed:
+                drive_7b_paths(gpu, seed, stats)
+            # every cache of phase 4 is bf16: no verify pass may take the plain composition
+            print(f"phase4 verify-pass layers through the composed speculative_attention: "
+                  f"{composed.calls}", flush=True)
+            if composed.calls:
+                raise AssertionError(f"phase4: {composed.calls} verify-pass layers on a bf16 "
+                                     f"cache took the composed speculative_attention")
         if 5 in phases:
             phase5(gpu, seed, stats)
         if 6 in phases:
@@ -2503,9 +2801,11 @@ def drive_7b_paths(gpu: str, seed: int, stats: Stats):
         raise AssertionError(f"7b-int4: score_video took {sv_verifies} fused passes, not 16")
     passes = chunks + verifies
     n4, na = counts.get("int4_matmul", 0), counts.get("decode_attention", 0)
-    if n4 < L * passes * 4 or na < L * chunks:
-        raise AssertionError(f"7b-int4: launches int4_matmul={n4} decode_attention={na} < "
-                             f"{L} layers x ({chunks} chunks + {verifies} verify passes)")
+    ns = counts.get("decode_attention_steps", 0)
+    if n4 < L * passes * 4 or na < L * chunks or ns < L * verifies:
+        raise AssertionError(f"7b-int4: launches int4_matmul={n4} decode_attention={na} "
+                             f"decode_attention_steps={ns} < {L} layers x ({chunks} chunks + "
+                             f"{verifies} verify passes)")
     if counts.get("int8_matmul", 0) or counts.get("int4_matmul_a8", 0):
         raise AssertionError(f"7b-int4: a kernel of another path ran: {counts}")
     stats.launches(counts)
@@ -2517,7 +2817,8 @@ def drive_7b_paths(gpu: str, seed: int, stats: Stats):
           f"{dec_tokens / max(dec_s, 1e-9):.2f} decode tokens/s, {acc['tokens_per_pass']} tokens "
           f"per verify pass ({acc['passes']} passes, acceptance EMA {acc['ema']}); scoring "
           f"{STREAM_FRAMES / (t_inf - gen_s):.2f} frames/s; stream {seen} tokens; {chunks} chunks + "
-          f"{verifies} verify passes; launches int4_matmul={n4} decode_attention={na}; "
+          f"{verifies} verify passes; launches int4_matmul={n4} decode_attention={na} "
+          f"decode_attention_steps={ns}; "
           f"max_memory_allocated {peak / 2**30:.2f} GiB", flush=True)
     print(f"phase4a first response: {responses[0][:60]!r}", flush=True)
     rows4, t_sv4, dec_tokens4, dec_s4 = rows, t_sv, dec_tokens, dec_s
@@ -2561,10 +2862,12 @@ def drive_7b_paths(gpu: str, seed: int, stats: Stats):
         raise AssertionError(f"7b-int8: score_video took {sv_verifies} fused passes, not 16")
     passes = chunks + verifies
     n8, na = counts.get("int8_matmul", 0), counts.get("decode_attention", 0)
-    if n8 < L * passes * 4 or na < L * chunks or not verifies > sv_verifies:
-        raise AssertionError(f"7b-int8: launches int8_matmul={n8} decode_attention={na} < "
-                             f"{L} layers x ({chunks} chunks + {verifies} verify passes), or "
-                             f"no verify pass of generation")
+    ns = counts.get("decode_attention_steps", 0)
+    if (n8 < L * passes * 4 or na < L * chunks or ns < L * verifies
+            or not verifies > sv_verifies):
+        raise AssertionError(f"7b-int8: launches int8_matmul={n8} decode_attention={na} "
+                             f"decode_attention_steps={ns} < {L} layers x ({chunks} chunks + "
+                             f"{verifies} verify passes), or no verify pass of generation")
     if counts.get("int4_matmul", 0) or counts.get("int8_matmul_a8", 0):
         raise AssertionError(f"7b-int8: a kernel of another path ran: {counts}")
     stats.launches(counts)
@@ -2576,7 +2879,8 @@ def drive_7b_paths(gpu: str, seed: int, stats: Stats):
           f"{dec_tokens / max(dec_s, 1e-9):.2f} decode tokens/s, {acc['tokens_per_pass']} tokens "
           f"per verify pass ({acc['passes']} passes, acceptance EMA {acc['ema']}); scoring "
           f"{STREAM_FRAMES / (t_inf - gen_s):.2f} frames/s; stream {seen} tokens; {chunks} chunks + "
-          f"{verifies} verify passes; launches int8_matmul={n8} decode_attention={na}; "
+          f"{verifies} verify passes; launches int8_matmul={n8} decode_attention={na} "
+          f"decode_attention_steps={ns}; "
           f"max_memory_allocated {peak / 2**30:.2f} GiB", flush=True)
     print(f"phase4b first response: {responses[0][:60]!r}", flush=True)
     dec_tokens8, dec_s8 = dec_tokens, dec_s
@@ -3230,6 +3534,95 @@ def phase6b(gpu: str, stats: Stats, cfg, tok, frames):
 
 # -- phase 7: multi-stream serving, 7B-int8 at B 8 ------------------------------------
 
+P7_CACHE = dict(frame_fps=2.0, kv_cache_policy="sink", kv_window=2048, num_sink_tokens=32)
+P7_PRODUCT = dict(fused_score_frames=4, spec_decode_tokens=4, spec_decode_tokens_max=8)
+
+
+def p7_setup(seed: int):
+    """Phase 7's model (7B), stream (phase 4's) and int8 weights (phase 4b's):
+    (cfg, tok, frames, params, seconds to make the weights)."""
+    import torch
+
+    from aha_tpu_torch.models.aha import random_params
+
+    cfg, tok = _model("7b")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    frames = torch.randint(0, 256, (96, 384, 384, 3), generator=gen, device="cuda",
+                           dtype=torch.uint8)
+    t0 = time.perf_counter()
+    params = random_params(cfg, mode="int8", seed=seed)
+    torch.cuda.synchronize()
+    return cfg, tok, frames, params, time.perf_counter() - t0
+
+
+def p7_videos(frames, B: int) -> list:
+    """7b's streams: B clips of 32 frames, stream b starting 8 b frames in."""
+    return [frames[8 * b:8 * b + 32] for b in range(B)]
+
+
+def flat(runs) -> list:
+    return [r for rows in runs for r in rows]
+
+
+def tolerance_share(a, b, atol: float, rtol: float) -> float:
+    """The largest share of the tolerance that a gap takes, |a - b| / (atol +
+    rtol |b|), over two lists of score rows (within the tolerance: <= 1)."""
+    import numpy as np
+
+    got, ref = (np.asarray([[r[k] for k in SCORE_KEYS] for r in x], np.float64).reshape(-1, 3)
+                for x in (a, b))
+    return round(float((np.abs(got - ref) / (atol + rtol * np.abs(ref))).max()), 4)
+
+
+def p7_readings(params, cfg, tok, videos, full, solo):
+    """7b's shares of the 7B fixture's tolerance, given the batch (``full``) and
+    the solo runs (``solo``) at fused 4: the batch against solo; the noise of
+    another product plan (solo at fused 1 against fused 4: 49 + prefix rows a
+    frame step against 196 a fused pass), which must fit in the tolerance; the
+    gaps of two faults, which must not: a frame off by one, and a row swapped
+    with its neighbour (stream b + 1 starts 8 frames later); and, reported,
+    the batch against solo at fused 1 (``batched_fused1``), where every frame
+    is a write pass. Returns
+    (readings, solo runs at fused 1)."""
+    from aha_tpu_torch import golden
+    from aha_tpu_torch.config import InferConfig
+    from aha_tpu_torch.streaming.multi import MultiStreamScorer
+    from aha_tpu_torch.streaming.session import build_session
+
+    use = lambda a, b: tolerance_share(a, b, golden.ATOL["chip7b"], golden.RTOL)
+    g1cfg = InferConfig(grounding_mode=True, **P7_CACHE,
+                        **dict(P7_PRODUCT, fused_score_frames=1))
+    solo1 = [build_session(params, cfg, tok, g1cfg).score_video(v, query=QUERY) for v in videos]
+    full1 = MultiStreamScorer(params, cfg, tok, g1cfg, batch=len(videos)).score_videos(
+        videos, [QUERY] * len(videos), fps=2.0)
+    return {"batched": use(flat(full), flat(solo)), "noise": use(flat(solo1), flat(solo)),
+            "frame_off_by_one": use(flat(r[1:] for r in full), flat(r[:-1] for r in solo)),
+            "rows_swapped": use(flat(full), flat(solo[1:] + solo[:1])),
+            "batched_fused1": use(flat(full1), flat(solo1))}, solo1
+
+
+def batch_gaps(gpu: str, seed: int) -> None:
+    """``--batch_gaps``: 7b's readings (``p7_readings``) alone, with no check and
+    no result line. It uses only what every checkout's package has had since
+    multi-stream serving, so that a copy of this script run from another
+    checkout (a parent commit) reads the same gaps of that commit's code."""
+    import torch
+
+    from aha_tpu_torch.config import InferConfig
+    from aha_tpu_torch.streaming.multi import MultiStreamScorer
+    from aha_tpu_torch.streaming.session import build_session
+
+    cfg, tok, frames, params, _ = p7_setup(seed)
+    videos = p7_videos(frames, SERVE_B)
+    gcfg = InferConfig(grounding_mode=True, **P7_CACHE, **P7_PRODUCT)
+    full = MultiStreamScorer(params, cfg, tok, gcfg, batch=SERVE_B).score_videos(
+        videos, [QUERY] * SERVE_B, fps=2.0)
+    solo = [build_session(params, cfg, tok, gcfg).score_video(v, query=QUERY) for v in videos]
+    readings, _ = p7_readings(params, cfg, tok, videos, full, solo)
+    torch.cuda.synchronize()
+    print(f"batch_gaps 7B-int8 B {SERVE_B} x 32 frames [{gpu}]: shares of the 7B fixture's "
+          f"tolerance {json.dumps(readings)}", flush=True)
+
 
 def solo_run(params, cfg, tok, video, conv, rule: dict, widths: dict):
     """A solo ``StreamSession.inference()`` over one request at the serving
@@ -3275,7 +3668,6 @@ def phase7(gpu: str, seed: int, stats: Stats):
 
     from aha_tpu_torch import golden
     from aha_tpu_torch.config import InferConfig
-    from aha_tpu_torch.models.aha import random_params
     from aha_tpu_torch.ops import kernels
     from aha_tpu_torch.streaming.multi import MultiStreamScorer, MultiStreamServer
     from aha_tpu_torch.streaming.session import build_session
@@ -3283,22 +3675,14 @@ def phase7(gpu: str, seed: int, stats: Stats):
     gc.collect()
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
-    cfg, tok = _model("7b")
+    cfg, tok, frames, params, t_params = p7_setup(seed)
     L = cfg.llm.num_layers
-    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
-    frames = torch.randint(0, 256, (96, 384, 384, 3), generator=gen, device="cuda",
-                           dtype=torch.uint8)                     # phase 4's stream
-    t0 = time.perf_counter()
-    params = random_params(cfg, mode="int8", seed=seed)          # phase 4b's weights
-    torch.cuda.synchronize()
-    t_params = time.perf_counter() - t0
-    cache = dict(frame_fps=2.0, kv_cache_policy="sink", kv_window=2048, num_sink_tokens=32)
-    product = dict(fused_score_frames=4, spec_decode_tokens=4, spec_decode_tokens_max=8)
-    B = SERVE_B
+    cache, product, B = P7_CACHE, P7_PRODUCT, SERVE_B
 
     def launched(counts, chunks, verifies, what):
         n8, na = counts.get("int8_matmul", 0), counts.get("decode_attention", 0)
-        if n8 < L * 4 * (chunks + verifies) or na < L * chunks or counts.get("int4_matmul", 0):
+        if (n8 < L * 4 * (chunks + verifies) or na < L * chunks or counts.get("int4_matmul", 0)
+                or counts.get("decode_attention_steps", 0) < L * verifies):
             raise AssertionError(f"phase7 {what}: launches {counts} over {chunks} chunks + "
                                  f"{verifies} verify passes")
         stats.launches(counts)
@@ -3315,15 +3699,10 @@ def phase7(gpu: str, seed: int, stats: Stats):
         g, ok = golden.score_gaps(got, ref, atol, rtol)
         return g.tolist(), ok
 
-    def use(a, b):
-        """The largest share of the tolerance that a gap takes, |a - b| / (atol +
-        rtol |b|), over two lists of score rows (within the tolerance: <= 1)."""
-        got, ref = (np.asarray([[r[k] for k in SCORE_KEYS] for r in x], np.float64).reshape(-1, 3)
-                    for x in (a, b))
-        return round(float((np.abs(got - ref) / (atol + rtol * np.abs(ref))).max()), 4)
+    use = lambda a, b: tolerance_share(a, b, atol, rtol)
 
     # -- b. the lockstep scorer: 8 streams of 32 frames at fused 4 --------------------------
-    videos = [frames[8 * b:8 * b + 32] for b in range(B)]
+    videos = p7_videos(frames, B)
     gcfg = InferConfig(grounding_mode=True, **cache, **product)
     scorer = MultiStreamScorer(params, cfg, tok, gcfg, batch=B)
     with PassCounter() as pc:
@@ -3340,33 +3719,26 @@ def phase7(gpu: str, seed: int, stats: Stats):
     solo = [build_session(params, cfg, tok, gcfg).score_video(v, query=QUERY) for v in videos]
     torch.cuda.synchronize()
     t_solo = time.perf_counter() - t0
-    flat = lambda runs: [r for rows in runs for r in rows]
     gaps, within = gap(flat(full), flat(solo))
     finite = all(math.isfinite(r[k]) for rows in full for r in rows for k in SCORE_KEYS)
-    # the tolerance's place: the noise of another product plan (solo at fused 1
-    # against fused 4: 49 + prefix rows a frame step against 196 a fused pass) must
-    # fit in it, and the gaps of two faults must not: a frame off by one, and a
-    # row swapped with its neighbour (stream b + 1 starts 8 frames later)
-    g1cfg = InferConfig(grounding_mode=True, **cache, **dict(product, fused_score_frames=1))
-    solo1 = [build_session(params, cfg, tok, g1cfg).score_video(v, query=QUERY) for v in videos]
+    del scorer
+    readings, solo1 = p7_readings(params, cfg, tok, videos, full, solo)
     noise_gaps, _ = gap(flat(solo1), flat(solo))
-    readings = {"batched": use(flat(full), flat(solo)), "noise": use(flat(solo1), flat(solo)),
-                "frame_off_by_one": use(flat(r[1:] for r in full), flat(r[:-1] for r in solo)),
-                "rows_swapped": use(flat(full), flat(solo[1:] + solo[:1]))}
     print(f"phase7b MultiStreamScorer B {B} x 32 frames at fused 4 [{gpu}]: params "
           f"{t_params:.2f}s; {t_full:.3f}s = {B * 32 / t_full:.2f} frames/s (vision included), "
           f"solo score_video x {B} {t_solo:.3f}s = {B * 32 / t_solo:.2f} frames/s; largest gap "
           f"to solo per column {gaps}, within atol 2e-2 + rtol 5e-2: {within}; noise (solo "
           f"fused 1 against fused 4) per column {noise_gaps}; share of the tolerance taken "
-          f"{readings}; stream 0 alone in slot 0 of an otherwise empty batch equal bit for bit "
+          f"{readings} (batched_fused1: the batch against solo at fused 1, reported); stream "
+          f"0 alone in slot 0 of an otherwise empty batch equal bit for bit "
           f"to the full batch: {alone[0] == full[0]}; {pc.chunks} chunks + "
           f"{pc.verifies} verify passes; launches {counts}", flush=True)
     if (alone[0] != full[0] or not within or not finite or [len(r) for r in full] != [32] * B
             or readings["noise"] > 1.0 or readings["frame_off_by_one"] <= 1.0
             or readings["rows_swapped"] <= 1.0):
-        raise AssertionError(f"phase7b: alone equal {alone[0] == full[0]}, gaps {gaps}, "
-                             f"finite {finite}, tolerance taken {readings}")
-    del scorer, solo, solo1, alone
+        stats.fail(f"phase7b: alone equal {alone[0] == full[0]}, gaps {gaps}, "
+                   f"finite {finite}, tolerance taken {readings}")
+    del solo, solo1, alone
 
     # -- a. the server: 12 requests of 24-64 frames over 8 slots ---------------------------
     se = sorted(r["informative_score"] + r["relevance_score"] for rows in full for r in rows)
@@ -3450,7 +3822,7 @@ def phase7(gpu: str, seed: int, stats: Stats):
           f"{n_frames / solo_s:.2f} frames/s in all; latency_stats {lat}; {pc.chunks} chunks "
           f"+ {pc.verifies} verify passes; launches {counts}", flush=True)
     if failed or n_resp < 6:
-        raise AssertionError(f"phase7a: {n_resp} responses; {failed}")
+        stats.fail(f"phase7a: {n_resp} responses; {failed}")
     del server, res, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3749,7 +4121,8 @@ def phase8b_trunk(gpu: str, stats: Stats, cfg, tok, frames, peft: str, trunk: st
     the wgmma kernel's f32 path (``<entry>/wgmma/f32``), none on the CUDA
     cores; every f32 frame chunk's cached attention (28 a chunk) on the f32
     tensor-core path against the bf16 cache (``decode_attention/wgmma/
-    f32-bf16``), none on the CUDA cores."""
+    f32-bf16``), and every f32 fused pass's (``decode_attention_steps/wgmma/
+    f32-bf16``, 28 a pass), none on the CUDA cores."""
     import torch
 
     from aha_tpu_torch.cli import _session
@@ -3806,12 +4179,16 @@ def phase8b_trunk(gpu: str, stats: Stats, cfg, tok, frames, peft: str, trunk: st
     responses = texts(turns)
     f32_wgmma = paths.get(f"{entry}/wgmma/f32", 0)
     att_f32 = paths.get("decode_attention/wgmma/f32-bf16", 0)
+    # the f32 fused passes: their attention in one launch a layer, the same path
+    steps_f32 = paths.get("decode_attention_steps/wgmma/f32-bf16", 0)
     if (counts.get(entry, 0) < L * 4 * (chunks + verifies)
+            or steps_f32 < L * (f32_passes - f32_chunks)
             or counts.get("decode_attention", 0) < L * chunks or not responses
             or not f32_passes or f32_wgmma != L * 4 * f32_passes
             or paths.get(f"{entry}/cuda_cores/f32", 0)
             or not f32_chunks or att_f32 < L * f32_chunks
-            or any(n for k, n in paths.items() if k.startswith("decode_attention/cuda_cores/f32"))
+            or any(n for k, n in paths.items() if k.startswith(("decode_attention/cuda_cores/f32",
+                                                                "decode_attention_steps/cuda_cores/f32")))
             or counts.get("split_bf16x3", 0) != f32_wgmma
             or len(rows) != 16 or len(rows1) != 16 or len(sess2.debug_data_list) != 16
             or not all(math.isfinite(r[k]) for r in rows + rows1 + sess2.debug_data_list
@@ -3829,7 +4206,8 @@ def phase8b_trunk(gpu: str, stats: Stats, cfg, tok, frames, peft: str, trunk: st
           f"frames {t_inf:.3f}s, {len(responses)} responses, first {responses[0][:40]!r}; "
           f"decode {dec_tokens} tokens in {dec_s:.3f}s; {chunks} chunks + {verifies} verify "
           f"passes, {f32_passes} of them in f32 ({f32_chunks} chunks: decode_attention "
-          f"{att_f32} on the f32 tensor-core path against the bf16 cache); launches by path "
+          f"{att_f32} on the f32 tensor-core path against the bf16 cache; the fused passes: "
+          f"decode_attention_steps {steps_f32} on it); launches by path "
           f"{paths}; launches {counts}", flush=True)
     del sess, sess1, sess2, p, e
     gc.collect()
@@ -4091,7 +4469,8 @@ def phase9(gpu: str, stats: Stats):
                or not all(0 <= r["informative_score"] <= 1 and 0 <= r["relevance_score"] <= 1
                           and r["uncertainty_score"] > 0 for r in x["debug_data"])]
         if (rc != 0 or sorted(x["video_uuid"] for x in preds) != sorted(CHAIN_CLIPS) or bad
-                or counts.get("int8_matmul", 0) < L * 4 or counts.get("decode_attention", 0) < L):
+                or counts.get("int8_matmul", 0) < L * 4 or counts.get("decode_attention", 0) < L
+                or counts.get("decode_attention_steps", 0) < L):
             raise AssertionError(f"phase9 infer: rc {rc}, videos "
                                  f"{[x['video_uuid'] for x in preds]}, bad {bad}, launches "
                                  f"{counts}")
@@ -4100,8 +4479,9 @@ def phase9(gpu: str, stats: Stats):
               f"--frame_fps 1 --seed {CHAIN_SEED} [{gpu}]: {len(preds)} clips, {n_frames} frames "
               f"scored in {t_infer:.2f}s, of which the weights {built[0]:.2f}s: "
               f"{n_frames / (t_infer - built[0]):.2f} frames/s without the build; launches "
-              f"int8_matmul={counts['int8_matmul']} decode_attention={counts['decode_attention']}"
-              f"; clips written with cv2 in {t_write:.2f}s", flush=True)
+              f"int8_matmul={counts['int8_matmul']} decode_attention={counts['decode_attention']} "
+              f"decode_attention_steps={counts['decode_attention_steps']}; clips written with "
+              f"cv2 in {t_write:.2f}s", flush=True)
 
         # grid-search, evaluate, highlight: numpy on the host
         out = io.StringIO()
@@ -5324,6 +5704,10 @@ def main() -> int:
                          "parallelism: sharded serving and training, the native decoder); "
                          "anything short of all of them exits 1 with no result line")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--batch_gaps", action="store_true",
+                    help="print phase 7b's shares of the 7B fixture's tolerance alone (no check, "
+                         "exits 1 with no result line); runs with the package beside this script, "
+                         "so a copy of it in another checkout reads that checkout's gaps")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -5354,6 +5738,9 @@ def main() -> int:
           f"torch {torch.__version__} cuda {torch.version.cuda}; nvcc {nvcc}; kernel build "
           f"{_build.build_seconds if _build.build_seconds is not None else 0.0:.2f}s "
           f"(load {time.perf_counter() - t0:.2f}s)", flush=True)
+    if args.batch_gaps:
+        batch_gaps(gpu, args.seed)
+        return 1
     print(f"phase1 {check_ptxas(_build.ptxas_log)}", flush=True)
     # each collective probed in a throwaway world while phase 2 runs (the ranks start
     # after the build, so that their interpreters do not slow nvcc)
@@ -5377,6 +5764,8 @@ def main() -> int:
         check_quantize_rows(gen, stats)
         check_split(gen, stats)
         check_attention(gen, stats)
+        check_attention_steps(gen, stats)
+        check_row_free_products(gen, stats)
         check_int4_matmul_t(gen, stats)
         check_flash_attention(gen, stats)
         k = stats.k
@@ -5408,6 +5797,9 @@ def main() -> int:
         for n, (src, tpu) in KERNELS.items()]}), flush=True)
     if phases != set(range(1, 12)):
         print(f"chip_smoke: ran phases {sorted(phases)} only", file=sys.stderr)
+        return 1
+    if stats.failures:
+        print(f"chip_smoke: failed: {stats.failures}", file=sys.stderr)
         return 1
     missing = [n for n in KERNELS if stats.k[n]["launches"] <= 0]
     if missing:

@@ -71,12 +71,14 @@ def _path_expected(S, NH, KVH, Dh, qdt, kvdt):
 @pytest.mark.parametrize("shape", SMOKE_SHAPES, ids=lambda s: "-".join(map(str, s[:6])) +
                          f"-{str(s[6])[6:]}-{str(s[7])[6:]}")
 def test_plan_at_smoke_shapes(shape):
-    """The splits cover [0, Wp) once, in whole slot tiles, none empty; the
-    blocks fit one round of resident blocks (2 a SM on the bf16 tensor-core
-    path, 1 on the f32 one, 4 on the CUDA cores) and make at least one wave of
-    the card where the slot tiles allow it (at one block a SM, a wave less
-    under one split's blocks), each split of at least MIN_TILES
-    tiles; one split where the row tiles alone fill the round; the path is the
+    """The splits cover [0, Wp) once, in whole slot tiles, none empty; one
+    batch row's blocks fit one round of resident blocks (2 a SM on the bf16
+    tensor-core path, 1 on the f32 one, 4 on the CUDA cores) and make at least
+    one wave of the card where the slot tiles allow it (at one block a SM, a
+    wave less under one split's blocks), each split of at least MIN_TILES
+    tiles; one split where one row's tiles alone fill the round; the splits are
+    those of the same shape at B 1 (a row sums in the same order in a batch of
+    any size); the path is the
     tensor cores' exactly at head size 128 from 16 rows per kv head for bf16 q
     (bf16 or int8 cache) and f32 q (bf16 or f32 cache); the wrapper's checks
     admit the shape's types."""
@@ -91,18 +93,20 @@ def test_plan_at_smoke_shapes(shape):
     assert pl.path == _path_expected(S, NH, KVH, Dh, qdt, kvdt)
     M = (NH // KVH) * S
     assert pl.row_tiles == math.ceil(M / pl.row_tile)
-    base = B * KVH * pl.row_tiles
+    base = KVH * pl.row_tiles           # one batch row's blocks before any split
     n_tiles = math.ceil(Wp / pl.slot_tile)
     min_tiles = da.MIN_TILES[pl.path]
-    assert pl.blocks == base * pl.splits
+    assert pl.blocks == B * base * pl.splits
+    assert (pl.splits, pl.span) == (lambda p: (p.splits, p.span))(
+        da.plan(1, S, NH, KVH, Dh, Wp, qdt, kvdt, sms=SMS))
     assert pl.splits <= n_tiles
     if pl.splits > 1:
-        assert pl.blocks <= da.RESIDENT[pl.path] * SMS
+        assert base * pl.splits <= da.RESIDENT[pl.path] * SMS
         assert pl.span // pl.slot_tile >= min_tiles
         # a wave of the card where the slot tiles allow it; at one block a SM (the f32
         # tensor cores) a wave less at most one split's blocks, so as not to start a second
         wave = SMS if da.RESIDENT[pl.path] > 1 else SMS - base + 1
-        assert pl.blocks >= min(wave, base * (n_tiles // min_tiles))
+        assert base * pl.splits >= min(wave, base * (n_tiles // min_tiles))
     else:
         assert base * 2 > da.RESIDENT[pl.path] * SMS or n_tiles < 2 * min_tiles
     z = lambda *shape, dtype=F32: torch.zeros(shape, dtype=dtype, device="meta")
@@ -139,9 +143,33 @@ def test_plan_never_more_splits_than_slot_tiles(Wp, sms):
 
 
 def test_plan_one_split_where_the_rows_fill_the_card():
-    """Eight streams at S = 220: 800 blocks before any split."""
-    pl = da.plan(8, 220, 28, 4, 128, 2049, BF, BF, sms=SMS)
-    assert pl.splits == 1 and pl.span >= 2049 and pl.path == da.WGMMA
+    """One split where one batch row's row tiles fill the round: a 600-row
+    chunk is 66 row tiles x 4 kv heads, 264 blocks a row, at B 1 and B 8.
+    Eight streams at S = 220 (25 row tiles, 100 blocks a row) keep B 1's two
+    splits, so that each stream sums as it does alone."""
+    for B in (1, 8):
+        pl = da.plan(B, 600, 28, 4, 128, 2049, BF, BF, sms=SMS)
+        assert pl.splits == 1 and pl.span >= 2049 and pl.path == da.WGMMA
+        assert pl.blocks == B * 264
+    one, eight = (da.plan(B, 220, 28, 4, 128, 2049, BF, BF, sms=SMS) for B in (1, 8))
+    assert one.splits == eight.splits == 2 and one.span == eight.span
+    assert eight.blocks == 8 * one.blocks
+
+
+@pytest.mark.parametrize("B", [2, 3, 8])
+@pytest.mark.parametrize("S,q,kv", [(1, BF, BF), (4, BF, BF), (49, BF, BF), (196, BF, BF),
+                                    (1, F32, BF), (49, F32, BF), (49, BF, I8)])
+def test_plan_splits_never_follow_the_batch(B, S, q, kv):
+    """A batch of B rows launches B times one row's blocks with one row's
+    splits and slots: the 7B's token, verify step, frame chunk and fused pass
+    (14 of 28 heads too: a rank's heads under --mesh_model 2), each row summing
+    in the order it does alone."""
+    for NH, KVH in ((28, 4), (14, 2)):
+        one = da.plan(1, S, NH, KVH, 128, 2081, q, kv, sms=SMS)
+        pl = da.plan(B, S, NH, KVH, 128, 2081, q, kv, sms=SMS)
+        assert (pl.path, pl.splits, pl.span, pl.row_tiles) == (
+            one.path, one.splits, one.span, one.row_tiles)
+        assert pl.blocks == B * one.blocks
 
 
 # -- the split-and-merge arithmetic --------------------------------------------------
@@ -186,13 +214,14 @@ def _torch(ops, dtype=F32):
 @pytest.mark.parametrize("int8", [False, True], ids=["f32-kv", "int8-kv"])
 @pytest.mark.parametrize("sms", [1, 132])
 def test_split_emulation_matches_jax_kernel_f32(int8, sms):
-    """f32 everywhere: the emulation, with one split (sms = 1) and with the
-    split the card gets, against the JAX kernel and the port's plain version
-    at 1e-4. S = 5 at 4 / 2 heads: 10 rows, the CUDA-core path."""
+    """f32 everywhere: the emulation, with two splits (sms = 1: an SM's four
+    resident blocks over one batch row's two) and with the nine the card
+    gets, against the JAX kernel and the port's plain version at 1e-4. S = 5
+    at 4 / 2 heads: 10 rows, the CUDA-core path."""
     ops = _operands(np.random.default_rng(11 + int8), 2, 5, 4, 2, 128, 264, int8)
     args = _torch(ops)
     pl = da.plan(2, 5, 4, 2, 128, 264, F32, I8 if int8 else F32, sms=sms)
-    assert pl.path == da.CUDA_CORES and (pl.splits == 1) == (sms == 1)
+    assert pl.path == da.CUDA_CORES and pl.splits == (2 if sms == 1 else 9)
     emu = da.decode_attention_split_plain(*args, pl=pl).numpy()
     np.testing.assert_allclose(emu, _jax_kernel(ops, None), rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(emu, da.decode_attention_plain(*args).numpy(), rtol=1e-5,

@@ -75,8 +75,9 @@ def test_plan_of_every_path_shape(M):
     holds its plans), every other row count on the wgmma kernel, with a token
     tile that is a multiple of 8 and at most the cap, tiles that cover M once, a
     ring of at least three slots that fits as many blocks as an SM holds, and K
-    splits that keep a small grid in one round of resident blocks (8 stages a
-    split at least)."""
+    splits from the weight's shape alone (``row_free_splits``), as on the
+    warp-specialised kernel, that keep a small grid in one round of resident
+    blocks."""
     for K, N in _shapes(M):
         pl = k8.plan(M, K, N, bf16=True)
         if M <= k8.DECODE_MAX_M:
@@ -95,17 +96,56 @@ def test_plan_of_every_path_shape(M):
         blocks, places = pl.tiles * -(-N // 128), k8.blocks_per_sm(pl.tile) * 132
         assert pl.splits == 1 or pl.splits * blocks <= places
         assert 1 <= pl.splits <= max(1, K // 512)
+        assert pl.splits == k8.row_free_splits(K, N, 132)
 
 
 def test_plan_of_the_frame_chunk():
-    """49 rows are one token tile of 56, three blocks an SM; qkv, o and down (36,
-    28 and 28 column blocks) are split over K so that they fill the card in one
-    round, gate_up (296 blocks on 396 places) is not split."""
+    """49 rows are one token tile of 56, three blocks an SM; K is split as at a
+    fused pass's 196 rows and B 8's 392 and 1,568 on the warp-specialised
+    kernel, so that a frame's rows get the same bits in each: down (K 18,944)
+    in two splits, qkv, o and gate_up in one."""
     got = {name: k8.plan(49, K, N, bf16=True) for name, K, N in _smoke().LAYER}
     assert {p.tile for p in got.values()} == {56} and {p.tiles for p in got.values()} == {1}
     assert k8.blocks_per_sm(56) == 3
-    assert got["qkv"].splits == 7 and got["o_proj"].splits == 7
-    assert got["down"].splits == 14 and got["gate_up"].splits == 1
+    assert got["qkv"].splits == 1 and got["o_proj"].splits == 1
+    assert got["down"].splits == 2 and got["gate_up"].splits == 1
+    for name, K, N in _smoke().LAYER:
+        for M in (196, 392, 1568):
+            pl = k8.plan(M, K, N, bf16=True)
+            assert pl.path == k8.WGMMA_WS and pl.splits == got[name].splits, (name, M)
+
+
+def _weights():
+    """(K, N) of every int8 weight on the 7B paths: the decoder layer's four,
+    the projector's two, the int8 tower's three."""
+    smoke = _smoke()
+    return ([(K, N) for _, K, N in smoke.LAYER] + list(PROJECTOR)
+            + [(K, N) for _, K, N in smoke.TOWER])
+
+
+@pytest.mark.parametrize("K,N", _weights())
+def test_row_free_splits_of_every_7b_weight(K, N):
+    """bf16 x weight-only from 17 to ROW_FREE_MAX_M rows splits K alike at
+    every row count, on the one-warpgroup and the warp-specialised kernel: a
+    row's sums run in one order whatever the rows beside it. The count is the
+    one of least estimated warp-specialised time summed over ROW_FREE_M, at
+    most 16 whole stages. Above ROW_FREE_MAX_M (the tower's batches of 8
+    frames and more) the launch of least estimate."""
+    want = k8.row_free_splits(K, N, 132)
+    stages = K // 64
+    assert 1 <= want <= min(16, stages)
+    cost = lambda n: sum(min(k8.ws_estimate(M, stages, N, 132, t, n) for t in k8.WS_TILES)
+                         for M in k8.ROW_FREE_M)
+    assert all(cost(want) <= cost(n) for n in range(1, min(16, stages) + 1))
+    paths = set()
+    for M in (17, 49, 64, 129, 170, 171, 196, 392, 576, 1568, 2048, k8.ROW_FREE_MAX_M):
+        pl = k8.plan(M, K, N, bf16=True)
+        assert pl.splits == want, (M, pl)
+        paths.add(pl.path)
+    assert paths == {WGMMA, k8.WGMMA_WS}
+    for M in (k8.ROW_FREE_MAX_M + 1, 18432):
+        pl = k8.plan(M, K, N, bf16=True)
+        assert (pl.tile, pl.tiles, pl.splits) == k8.ws_launch(M, stages, N, 132, k8.WS_TILES)
 
 
 @pytest.mark.parametrize("M,K,N,kw,path", [
@@ -232,7 +272,9 @@ def test_ws_plan_of_every_7b_shape(M, K, N):
     256 rows (a multiple of 16), tiles that cover M once, K split into whole
     64-row stages with none empty (16 splits at most), a ring of 3 .. 6 slots
     whose bytes the kernel counts alike and that fits a block's 227 KB beside
-    its barriers, the launch of least estimated time (``ws_launch``)."""
+    its barriers, the launch of least estimated time (``ws_launch``) at the K
+    splits of the weight's shape (``row_free_splits``) up to ROW_FREE_MAX_M
+    rows."""
     pl = k8.plan(M, K, N, bf16=True)
     assert pl.path == k8.WGMMA_WS and M >= k8.WS_MIN_M
     assert pl.tile in k8.WS_TILES and pl.tile % 16 == 0 and 96 <= pl.tile <= 256
@@ -244,7 +286,9 @@ def test_ws_plan_of_every_7b_shape(M, K, N):
     assert 3 <= pl.stages <= 6
     assert pl.smem_bytes == pl.stages * (pl.tile * 128 + 64 * 144) + 1024
     assert pl.smem_bytes + 2 * 6 * 8 <= SMEM   # the ring, its alignment and the barriers
-    assert (pl.tile, pl.tiles, pl.splits) == k8.ws_launch(M, stages, N, 132, k8.WS_TILES)
+    assert (pl.tile, pl.tiles, pl.splits) == k8.ws_launch(
+        M, stages, N, 132, k8.WS_TILES,
+        splits=k8.row_free_splits(K, N, 132) if M <= k8.ROW_FREE_MAX_M else None)
 
 
 @pytest.mark.parametrize("M,K,N,kw,path", [

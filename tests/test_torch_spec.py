@@ -10,8 +10,8 @@ inputs (1e-5: f32 sums in another order), and the port's verify pass equals
 the port's own S sequential 1-token ``decode_chunk`` steps, with the
 committed cache equal to the sequentially written one (2e-5, the bound the
 JAX tests hold their own pass to). The replayed attention of the verify pass
-``generate_spec`` runs (``replayed_attention``) is held to more: the
-sequential steps' attention bit for bit, with the cache given back as it was."""
+``generate_spec`` and fused scoring run (``replayed_attention``) is held to
+more: the sequential steps' attention bit for bit, with the cache only read."""
 
 import dataclasses
 import functools
@@ -167,7 +167,8 @@ def test_verify_pass_matches_jax_and_sequential(model, kind, prefill):
     jplans = jspec.plan_compose(jc, jp, jnp.full((B,), S, jnp.int32), S)
     tplans = tspec.plan_compose(tc, tp, full, S)
     jh, jik, jiv = jqwen2.decode_chunk_spec(jparams, jcfg, jp, jc, jnp.asarray(embs), jplans)
-    th, tik, tiv = tqwen2.decode_chunk_spec(tparams, tcfg, tp, tc, _t(embs), tplans)
+    th, tik, tiv = tqwen2.decode_chunk_spec(tparams, tcfg, tp, tc, _t(embs), tplans,
+                                            replay=False)
     np.testing.assert_allclose(th.numpy(), np.asarray(jh), atol=ATOL)
     np.testing.assert_allclose(tik.numpy(), np.asarray(jik), atol=ATOL)
     np.testing.assert_allclose(tiv.numpy(), np.asarray(jiv), atol=ATOL)
@@ -192,7 +193,7 @@ def test_commit_prefix_matches_sequential(model, kind, m):
     _, _, tcfg, tparams = model
     jp, tp, jc, tc, embs = _setup(model, kind, 80 if kind != "none" else 8)
     tplans = tspec.plan_compose(tc, tp, torch.full((B,), S, dtype=torch.int32), S)
-    _, tik, tiv = tqwen2.decode_chunk_spec(tparams, tcfg, tp, tc, _t(embs), tplans)
+    _, tik, tiv = tqwen2.decode_chunk_spec(tparams, tcfg, tp, tc, _t(embs), tplans, replay=False)
     _, cache_seq = _sequential(model, tp, tc, embs, m)
     mc = torch.full((B,), m, dtype=torch.int32)
     tspec.select_meta(tspec.commit_slots(tc, tplans, tik, tiv, mc, tp.junk), tplans, mc)
@@ -206,7 +207,8 @@ def test_ragged_valid_rows(model):
     jp, tp, jc, tc, embs = _setup(model, "sink", 80)
     valid = torch.tensor([1, 3], dtype=torch.int32)
     tplans = tspec.plan_compose(tc, tp, valid, S)
-    th, tik, tiv = tqwen2.decode_chunk_spec(tparams, tcfg, tp, tc, _t(embs), tplans)
+    th, tik, tiv = tqwen2.decode_chunk_spec(tparams, tcfg, tp, tc, _t(embs), tplans,
+                                            replay=False)
     h_seq, cache_seq = _sequential(model, tp, tc, embs, S, valid_len=valid)
     for b in range(B):
         n = int(valid[b])
@@ -258,7 +260,7 @@ def test_exact_branch_gate(model):
         if prefill in (8, 80):
             fast, exact = (tqwen2.decode_chunk_spec(
                 tparams, tcfg, tp, tc, _t(embs),
-                dataclasses.replace(tplans, exact=torch.tensor(side)))[0]
+                dataclasses.replace(tplans, exact=torch.tensor(side)), replay=False)[0]
                 for side in (False, True))
             h_seq, _ = _sequential(model, tp, tc, embs, S)
             np.testing.assert_allclose(exact.numpy(), h_seq.numpy(), rtol=2e-5, atol=2e-5)
@@ -322,8 +324,8 @@ def _attend_step_by_step(tp, tcfg, cache, q, k, v, valid_len, n_steps, step):
 ])
 def test_replayed_attention_is_the_sequential_steps(model, kind, prefill, valid, step):
     """replayed_attention on random q / in-flight K/V: bit for bit the S
-    sequential steps' write-then-attend of layer 0, and the cache's K/V as
-    they were before."""
+    sequential steps' write-then-attend of layer 0, and the cache's K/V
+    untouched."""
     jcfg, _, tcfg, _ = model
     _, tp, _, tc, _ = _setup(model, kind, prefill)
     valid = torch.tensor(valid, dtype=torch.int32)
@@ -332,12 +334,10 @@ def test_replayed_attention_is_the_sequential_steps(model, kind, prefill, valid,
     q = _t(rng.standard_normal((B, S, jcfg.num_heads, jcfg.head_dim)).astype(np.float32))
     k, v = (_t(rng.standard_normal((B, S, jcfg.num_kv_heads, jcfg.head_dim)).astype(np.float32))
             for _ in range(2))
-    w_cos, w_sin = tattn.rope_cos_sin(plans.write_pos, tcfg.head_dim, tcfg.rope_theta)
-    k_rot = tattn.apply_rope(k, w_cos, w_sin)
-    steps = [tattn.chunk_tables(p, tp, tcfg.head_dim, tcfg.rope_theta) for p in plans.steps]
+    tables = tattn.step_tables(plans, tp, tcfg.head_dim, tcfg.rope_theta)
+    k_rot = tattn.apply_rope(k, tables.w_cos, tables.w_sin)
     before = tc.clone()
-    out = tattn.replayed_attention(q, tc.k[0], tc.v[0], k_rot, v, plans.slots, w_cos, w_sin,
-                                   steps)
+    out = tattn.replayed_attention(q, tc.k[0], tc.v[0], k_rot, v, tables)
     ref = _attend_step_by_step(tp, tcfg, before, q, k, v, valid, S // step, step)
     assert out.shape == ref.shape and torch.equal(out, ref)
     assert torch.equal(tc.k, before.k) and torch.equal(tc.v, before.v)
@@ -345,10 +345,11 @@ def test_replayed_attention_is_the_sequential_steps(model, kind, prefill, valid,
 
 @pytest.mark.parametrize("kind,prefill", STATES)
 def test_replayed_verify_pass_matches_jax_and_sequential(model, kind, prefill):
-    """decode_chunk_spec with the replayed attention: hidden states and
-    in-flight K/V against JAX's verify pass (1e-5), hidden states against the
-    sequential passes (2e-5), layer 0's in-flight K/V (before any attention)
-    equal to the composed pass's, and the cache left as it was."""
+    """decode_chunk_spec with the replayed attention (asked for, and the
+    default on an f32 cache): hidden states and in-flight K/V against JAX's
+    verify pass (1e-5), hidden states against the sequential passes (2e-5),
+    layer 0's in-flight K/V (before any attention) equal to the composed
+    pass's, and the cache left as it was."""
     jcfg, jparams, tcfg, tparams = model
     jp, tp, jc, tc, embs = _setup(model, kind, prefill)
     before = tc.clone()
@@ -357,15 +358,48 @@ def test_replayed_verify_pass_matches_jax_and_sequential(model, kind, prefill):
     tplans = tspec.plan_compose(tc, tp, full, S)
     jh, jik, jiv = jqwen2.decode_chunk_spec(jparams, jcfg, jp, jc, jnp.asarray(embs), jplans)
     th, tik, tiv = tqwen2.decode_chunk_spec(tparams, tcfg, tp, tc, _t(embs), tplans, replay=True)
+    # an f32 cache: the default derives the replay from the cache
+    assert torch.equal(tqwen2.decode_chunk_spec(tparams, tcfg, tp, tc, _t(embs), tplans)[0], th)
     np.testing.assert_allclose(th.numpy(), np.asarray(jh), atol=ATOL)
     np.testing.assert_allclose(tik.numpy(), np.asarray(jik), atol=ATOL)
     np.testing.assert_allclose(tiv.numpy(), np.asarray(jiv), atol=ATOL)
-    for f in ("k", "v", "order", "key_pos", "seen", "length"):     # given back as it was
+    for f in ("k", "v", "order", "key_pos", "seen", "length"):     # read, not written
         assert torch.equal(getattr(tc, f), getattr(before, f)), f
-    _, cik, civ = tqwen2.decode_chunk_spec(tparams, tcfg, tp, tc, _t(embs), tplans)
+    _, cik, civ = tqwen2.decode_chunk_spec(tparams, tcfg, tp, tc, _t(embs), tplans, replay=False)
     assert torch.equal(tik[0], cik[0]) and torch.equal(tiv[0], civ[0])
     h_seq, _ = _sequential(model, tp, tc, embs, S)
     np.testing.assert_allclose(th.numpy(), h_seq.numpy(), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("kind,prefill", STATES)
+def test_replayed_frame_steps_match_jax_and_sequential(model, kind, prefill):
+    """The fused-scoring form of the replayed verify pass: 2 composed steps
+    of 2 tokens (frames of 2), full and with row 1's second step padded:
+    hidden states against JAX's verify pass over the same plans (1e-5) and
+    against the port's 2-token write passes one after another (2e-5), on the
+    valid rows; the cache only read."""
+    jcfg, jparams, tcfg, tparams = model
+    jp, tp, jc, tc, embs = _setup(model, kind, prefill)
+    before = tc.clone()
+    for valid in ((4, 4), (4, 2)):
+        jplans = jspec.plan_compose(jc, jp, jnp.asarray(valid, jnp.int32), 2, step=2)
+        tplans = tspec.plan_compose(tc, tp, torch.tensor(valid, dtype=torch.int32), 2, step=2)
+        jh, _, _ = jqwen2.decode_chunk_spec(jparams, jcfg, jp, jc, jnp.asarray(embs), jplans)
+        th, _, _ = tqwen2.decode_chunk_spec(tparams, tcfg, tp, tc, _t(embs), tplans,
+                                            replay=True)
+        for f in ("k", "v", "order", "key_pos", "seen", "length"):
+            assert torch.equal(getattr(tc, f), getattr(before, f)), f
+        seq, hs = tc.clone(), []
+        for j in range(2):
+            v = torch.clamp(torch.tensor(valid, dtype=torch.int32) - 2 * j, 0, 2)
+            hs.append(tqwen2.decode_chunk(tparams, tcfg, tp, seq, _t(embs[:, 2 * j:2 * j + 2]),
+                                          v))
+        h_seq = torch.cat(hs, dim=1)
+        for b in range(B):
+            n = valid[b]
+            np.testing.assert_allclose(th.numpy()[b, :n], np.asarray(jh)[b, :n], atol=ATOL)
+            np.testing.assert_allclose(th.numpy()[b, :n], h_seq.numpy()[b, :n], rtol=2e-5,
+                                       atol=2e-5)
 
 
 def test_replayed_attention_refuses_an_int8_cache(model):
@@ -376,9 +410,9 @@ def test_replayed_attention_refuses_an_int8_cache(model):
     plans = tspec.plan_compose(tc, tp, torch.full((B,), S, dtype=torch.int32), S)
     q = torch.zeros((B, S, jcfg.num_heads, jcfg.head_dim))
     kv = torch.zeros((B, S, jcfg.num_kv_heads, jcfg.head_dim))
-    w_cos, w_sin = tattn.rope_cos_sin(plans.write_pos, tcfg.head_dim, tcfg.rope_theta)
+    tables = tattn.step_tables(plans, tp, tcfg.head_dim, tcfg.rope_theta)
     with pytest.raises(ValueError, match="int8 cache"):
-        tattn.replayed_attention(q, tc.k[0], tc.v[0], kv, kv, plans.slots, w_cos, w_sin, [])
+        tattn.replayed_attention(q, tc.k[0], tc.v[0], kv, kv, tables)
 
 
 def test_draft_history_and_ngram_draft_match_jax():

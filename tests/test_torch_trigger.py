@@ -212,6 +212,43 @@ def test_score_until_trigger_matches_jax(dense, jax_engines, trace, case, k):
         assert trig and n == 6 and ssum == 0.0        # frame 5: the middle of a pass at k 4
 
 
+@pytest.mark.parametrize("kv", ["f32", "int8"])
+def test_fused_scores_take_the_replayed_attention(dense, jax_engines, monkeypatch, kv):
+    """score_stream at fused 4 (verify_frames and its commit) over 13 frames,
+    through the window fill: on the f32 cache every verify pass's attention is
+    replayed_attention (the steps' write passes in one launch), never the
+    composed speculative_attention, and the scores hold to JAX's fused scores
+    (1e-5) and to the port's per-frame scores (2e-5); on an int8 cache the
+    composed one, as JAX composes it."""
+    from aha_tpu_torch.models import qwen2 as tqwen2
+
+    calls = {"replayed_attention": 0, "speculative_attention": 0}
+    for name in calls:
+        real = getattr(tqwen2, name)
+
+        def counted(*a, _real=real, _name=name, **kw):
+            calls[_name] += 1
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(tqwen2, name, counted)
+    tp, tcfg = dense[2:]
+    frames = _embeds(T13, tcfg.llm.hidden_size, 5)
+    kv_dtype = torch.int8 if kv == "int8" else None
+    eng = StreamEngine(tp, tcfg, CachePolicy(**POLICY), fused_score_frames=4, kv_dtype=kv_dtype,
+                       **CPU)
+    s4 = eng.score_stream(eng.new_cache(), torch.from_numpy(frames)[None])
+    L, passes = tcfg.llm.num_layers, -(-T13 // 4)
+    if kv == "int8":
+        assert calls == {"replayed_attention": 0, "speculative_attention": L * passes}
+        return
+    assert calls == {"replayed_attention": L * passes, "speculative_attention": 0}
+    _, js = jax_engines[4].score_stream(jax_engines[4].new_cache(), jnp.asarray(frames)[None])
+    np.testing.assert_allclose(s4.numpy(), np.asarray(js), rtol=1e-5, atol=1e-5)
+    eng1 = _port_engine(dense, 1)
+    s1 = eng1.score_stream(eng1.new_cache(), torch.from_numpy(frames)[None])
+    np.testing.assert_allclose(s4.numpy(), s1.numpy(), rtol=2e-5, atol=2e-5)
+
+
 @pytest.mark.parametrize("case", CASES)
 def test_fused_trigger_loop_matches_sequential(dense, trace, case):
     """The port's fused loop (k = 4) against its per-frame loop, the
